@@ -1,0 +1,47 @@
+"""Van Genuchten soil water retention curve (counterpart of
+``terrarium_tpu/processes/soil/swrc.py``)."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ...ops.fastpow import fast_pow
+
+__all__ = ["VanGenuchten", "one_minus_eps"]
+
+
+def one_minus_eps(dtype: torch.dtype, floor: float) -> float:
+    """Upper clip ``1 - eps`` for effective saturation that survives the
+    dtype: ``eps = max(floor, 64 * eps(dtype))`` (about 7.6e-6 in float32;
+    in float64 ``floor`` wins)."""
+    return 1.0 - max(float(floor), 64.0 * float(torch.finfo(dtype).eps))
+
+
+@dataclasses.dataclass(frozen=True)
+class VanGenuchten:
+    """Van Genuchten (1980): theta(psi) = theta_res + (theta_sat - theta_res)
+    * (1 + (-alpha*psi)^n)^(-m) for psi < 0, with m = 1 - 1/n. ``psi_min``
+    clamps the inverse in fully drained cells."""
+
+    alpha: float = 4.0  # inverse air-entry suction [1/m]
+    n: float = 2.0  # pore-size distribution index
+    theta_res: float = 0.0  # residual water content
+    psi_min: float = -1.0e4  # lower clamp of the inverse [m]
+
+    def __call__(self, psi, theta_sat):
+        m = 1.0 - 1.0 / self.n
+        psi_neg = torch.clamp(psi, max=0.0)
+        theta_unsat = self.theta_res + (theta_sat - self.theta_res) * fast_pow(
+            1.0 + fast_pow(-self.alpha * psi_neg, self.n), -m)
+        return torch.where(psi < 0.0, theta_unsat, theta_sat)
+
+    def inverse(self, theta, theta_sat):
+        """Matric head psi_m(theta); 0 at and above saturation."""
+        m = 1.0 - 1.0 / self.n
+        se = (theta - self.theta_res) / (theta_sat - self.theta_res)
+        se_safe = torch.clamp(se, 1e-8, one_minus_eps(theta.dtype, 1e-12))
+        psi = -(1.0 / self.alpha) * fast_pow(
+            fast_pow(se_safe, -1.0 / m) - 1.0, 1.0 / self.n)
+        psi = torch.clamp(psi, min=self.psi_min)
+        return torch.where(se >= 1.0, 0.0, psi)

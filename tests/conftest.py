@@ -33,3 +33,5 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (>40 s); skip with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where torch.cuda.is_available() is False")
