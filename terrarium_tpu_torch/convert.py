@@ -6,10 +6,15 @@ dicts), so this module needs nothing of JAX:
 * :func:`state_from_numpy` builds a port :class:`State` from a JAX state's
   leaves after ``np.asarray``;
 * :func:`params_from_dict` rebuilds the soil process parameters from
-  ``dataclasses.asdict`` of a JAX ``SoilEnergyWaterCarbon``.
+  ``dataclasses.asdict`` of a JAX ``SoilEnergyWaterCarbon``;
+* :func:`with_differentiable_params` sets the parameters the gradient paths
+  differentiate (the log of the saturated hydraulic conductivity, the
+  mineral conductivity) from numbers or 0-d tensors.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Mapping
 
 import numpy as np
@@ -26,7 +31,7 @@ from .processes.soil.thermal import (SoilHeatCapacities, SoilThermalConductiviti
                                      SoilThermalProperties)
 from .state import Clock, State
 
-__all__ = ["state_from_numpy", "params_from_dict"]
+__all__ = ["state_from_numpy", "params_from_dict", "with_differentiable_params"]
 
 
 _GROUPS = ("prognostic", "tendencies", "auxiliary", "inputs")
@@ -84,3 +89,31 @@ def params_from_dict(d: Mapping) -> SoilEnergyWaterCarbon:
             field_capacity_value=hp["field_capacity_value"],
             wilting_point_value=hp["wilting_point_value"])),
         biogeochem=ConstantSoilCarbonDensity(**bgc))
+
+
+def _value(x):
+    """A 0-d tensor as it is (keeping its graph); a Python or numpy scalar as
+    a float."""
+    return x if isinstance(x, torch.Tensor) else float(np.asarray(x))
+
+
+def with_differentiable_params(soil: SoilEnergyWaterCarbon, *, log_sat_hydraulic_cond=None,
+                               mineral_conductivity=None) -> SoilEnergyWaterCarbon:
+    """``soil`` with the parameters the gradient paths differentiate set:
+    the saturated hydraulic conductivity, given as its log (``exp`` is taken
+    in torch, as the JAX tests take ``jnp.exp``), and the mineral thermal
+    conductivity. Each is a number, a numpy scalar (as taken from a JAX
+    model) or a 0-d tensor; a tensor is used as it is, so a leaf that
+    requires grad gets the gradient."""
+    hyd, energy = soil.hydrology, soil.energy
+    if log_sat_hydraulic_cond is not None:
+        x = _value(log_sat_hydraulic_cond)
+        hyd = dataclasses.replace(hyd, hydraulic_properties=dataclasses.replace(
+            hyd.hydraulic_properties,
+            sat_hydraulic_cond=torch.exp(x) if isinstance(x, torch.Tensor) else math.exp(x)))
+    if mineral_conductivity is not None:
+        tp = energy.thermal_properties
+        energy = dataclasses.replace(energy, thermal_properties=dataclasses.replace(
+            tp, conductivities=dataclasses.replace(
+                tp.conductivities, mineral=_value(mineral_conductivity))))
+    return dataclasses.replace(soil, hydrology=hyd, energy=energy)

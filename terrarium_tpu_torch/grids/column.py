@@ -12,6 +12,7 @@ import torch
 
 from .spacing import ExponentialSpacing
 from .vertical import VerticalGrid
+from ..utils.utils import resolve_device
 from ..variables import XY, XYZ
 
 __all__ = ["ColumnGrid"]
@@ -23,19 +24,24 @@ class ColumnGrid:
 
     Fields are ``(Nz, cells)`` at centres, ``(Nz + 1, cells)`` at faces and
     ``(cells,)`` for lateral-only variables. Coordinate properties are
-    ``(Nz, 1)`` / ``(Nz + 1, 1)`` tensors that broadcast against fields."""
+    ``(Nz, 1)`` / ``(Nz + 1, 1)`` tensors that broadcast against fields.
+
+    The device is the CUDA card unless the CPU is asked for
+    (``device="cpu"``); on a host without a card the default raises."""
 
     cells: int
     vertical: VerticalGrid
     dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
+    device: torch.device = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     @staticmethod
     def of(cells: int = 1, spacing=None, dtype: torch.dtype = torch.float32,
-           device="cpu") -> "ColumnGrid":
+           device="cuda") -> "ColumnGrid":
         spacing = spacing if spacing is not None else ExponentialSpacing()
-        return ColumnGrid(cells, VerticalGrid.from_spacing(spacing), dtype,
-                          torch.device(device))
+        return ColumnGrid(cells, VerticalGrid.from_spacing(spacing), dtype, device)
 
     @property
     def nz(self) -> int:

@@ -5,9 +5,9 @@ version and the wrapper that picks between them by device.
 times to the live carry of the main-path :class:`SoilModel` (internal energy,
 saturation, surface pool) and returns the new carry. It replaces
 ``terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout`` for that
-configuration. The CUDA source is ``csrc/soil_column_rollout.cu``; it is
-compiled with ``nvcc`` at first use into ``_build/`` beside this package and
-loaded with ctypes.
+configuration. The CUDA source is ``csrc/soil_column_rollout.cu`` (its step
+body is ``csrc/soil_step.cuh``); it is compiled with ``nvcc`` at first use
+into ``_build/`` beside this package and loaded with ctypes.
 
 On CPU tensors the wrapper runs :func:`soil_column_rollout_plain`; on CUDA
 tensors it launches the kernel or raises. Each launch adds one to
@@ -17,30 +17,26 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
+from . import cuda_build
 from .fastpow import fast_pow, pow_code
+from ..processes.soil.hydrology import pool_drainage, saturation_sweeps
 from ..processes.soil.swrc import one_minus_eps
 from ..utils.utils import safediv
 
-__all__ = ["ColumnParams", "build_kernel", "soil_column_rollout",
+__all__ = ["ColumnParams", "soil_column_rollout",
            "soil_column_rollout_plain", "SUPPORTED_NZ"]
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "soil_column_rollout.cu"
-_BUILD_DIR = _PKG / "_build"
+_NAME = "soil_column_rollout"  # csrc/soil_column_rollout.cu
+SUPPORTED_NZ = cuda_build.SUPPORTED_NZ
 
-#: vertical sizes the kernel is instantiated for (the golden and bench grids)
-SUPPORTED_NZ = (20, 30)
+
+def _number(x) -> float:
+    """A parameter as a float; a tensor is read detached."""
+    return float(x.detach()) if isinstance(x, torch.Tensor) else float(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +78,11 @@ class ColumnParams:
 
     @staticmethod
     def of(model, dtype: torch.dtype) -> "ColumnParams":
+        """The parameters of ``model`` as floats. A parameter given as a 0-d
+        tensor (``sat_hydraulic_cond``, the mineral conductivity) is read
+        detached: the kernels take numbers, and the gradient path chains
+        their cotangents back to the tensors itself
+        (``timesteppers/fused_grad.py``)."""
         soil = model.soil
         strat, bgc = soil.strat, soil.biogeochem
         props = soil.energy.thermal_properties
@@ -101,12 +102,12 @@ class ColumnParams:
             c_mineral=cs.mineral * mineral_frac, c_organic=cs.organic * organic_frac,
             sk_water=math.sqrt(ks.water), sk_ice=math.sqrt(ks.ice),
             sk_air=math.sqrt(ks.air),
-            sk_mineral=math.sqrt(ks.mineral) * mineral_frac,
+            sk_mineral=math.sqrt(_number(ks.mineral)) * mineral_frac,
             sk_organic=math.sqrt(ks.organic) * organic_frac,
             theta_res=swrc.theta_res, vg_span=por - swrc.theta_res,
             neg_inv_alpha=-(1.0 / swrc.alpha), psi_min=swrc.psi_min,
             vg_se_lo=1e-8, vg_se_hi=one_minus_eps(dtype, 1e-12),
-            K_sat=hyd.sat_hydraulic_cond, neg_impedance=-unsat.impedance,
+            K_sat=_number(hyd.sat_hydraulic_cond), neg_impedance=-unsat.impedance,
             k_theta_sat=max(por, 1e-12), k_se_hi=one_minus_eps(dtype, 1e-9),
             eps_lo=float(torch.finfo(dtype).eps),
             z_top=float(model.grid.vertical.z_faces[-1]),
@@ -136,22 +137,12 @@ def _plain_step(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, dt):
     """One ``pre_closure_step`` in the kernel's order of operations: the
     sweeps row by row, everything else elementwise over ``(Nz, cells)``."""
     nz = U.shape[0]
-    # closure: saturation adjustment, up sweep then down sweep
-    rows, dzr = sat.unbind(0), dz.unbind(0)
-    c = torch.zeros_like(S)
-    up = []
-    for k in range(nz):
-        up.append(torch.clamp(rows[k] + c / dzr[k], max=1.0))
-        c = torch.clamp((rows[k] - 1.0) * dzr[k] + c, min=0.0)
-    S = S + c
-    c2 = torch.zeros_like(S)
+    # closure: saturation adjustment (up sweep then down sweep), water table
+    sat, spill = saturation_sweeps(sat, dz)
+    S = S + spill
     wt = torch.broadcast_to(zf[nz], S.shape)
-    new = [None] * nz
     for k in reversed(range(nz)):
-        new[k] = torch.clamp(up[k] - c2 / dzr[k], min=0.0)
-        c2 = torch.clamp(-up[k] * dzr[k] + c2, min=0.0)
-        wt = torch.where(new[k] < 1.0, zf[k], wt)
-    sat = torch.stack(new)
+        wt = torch.where(sat[k] < 1.0, zf[k], wt)
 
     # energy closure, heat capacity and bulk conductivity
     L_theta = p.L * sat * p.por
@@ -195,7 +186,7 @@ def _plain_step(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, dt):
                         torch.minimum(Kf, torch.cat([Kf[1:], inf])))
     qw = -K_eff * grad
     sat = sat + ((-((qw[1:] - qw[:-1]) / dz)) / p.por) * dt
-    S = S + torch.minimum(torch.zeros_like(S), S) * dt
+    S = S + pool_drainage(S) * dt
     return U, sat, S
 
 
@@ -214,62 +205,9 @@ def soil_column_rollout_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces
 # ---------------------------------------------------------------------------
 # kernel build and launch
 # ---------------------------------------------------------------------------
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the soil column kernel "
-                           "is built from csrc/soil_column_rollout.cu at first use")
-    return found
-
-
-def build_kernel() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library.
-
-    The library goes to ``_build/soil_column_rollout-<hash>.so``; ptxas's
-    register and spill report is kept beside it as ``.ptxas.txt``."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-        so = _BUILD_DIR / f"soil_column_rollout-{digest}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-                out = pathlib.Path(tmp) / so.name
-                cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                       "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                       "-o", str(out), str(_SOURCE)]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-                (_BUILD_DIR / f"soil_column_rollout-{digest}.ptxas.txt").write_text(res.stderr)
-                os.replace(out, so)
-        lib = ctypes.CDLL(str(so))
-        argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 4
-                    + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                       ctypes.c_longlong, ctypes.c_void_p])
-        for name in ("soil_column_rollout_f32", "soil_column_rollout_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
-
-
-def ptxas_report() -> str:
-    """ptxas's ``-v`` output of the current build ('' before the build)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-    path = _BUILD_DIR / f"soil_column_rollout-{digest}.ptxas.txt"
-    return path.read_text() if path.exists() else ""
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 4
+             + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
+                ctypes.c_void_p])
 
 
 def _check_inputs(U, sat, S, top_T, coords):
@@ -309,17 +247,15 @@ def soil_column_rollout(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
                     *(("coordinate", c) for c in coords)):
         if not t.is_contiguous():
             raise ValueError(f"{name} tensor must be contiguous")
-    lib = build_kernel()
     U_out, sat_out, S_out = torch.empty_like(U), torch.empty_like(sat), torch.empty_like(S)
     steps = top_T.shape[0]
     step_stride = top_T.stride(0)
     cell_stride = top_T.stride(1) if top_T.dim() == 2 else 0
-    fn = (lib.soil_column_rollout_f32 if U.dtype == torch.float32
-          else lib.soil_column_rollout_f64)
+    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES)
     cparams = _CParams.of(params)
     err = fn(U.data_ptr(), sat.data_ptr(), S.data_ptr(), U_out.data_ptr(),
              sat_out.data_ptr(), S_out.data_ptr(), top_T.data_ptr(), step_stride,
-             cell_stride, *(c.data_ptr() for c in coords), ctypes.byref(cparams), nz,
+             cell_stride, *(c.data_ptr() for c in coords), ctypes.byref(cparams),
              steps, float(dt), cells, torch.cuda.current_stream(U.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"soil column kernel launch failed: cudaError {err}")

@@ -44,7 +44,8 @@ class UnsatKVanGenuchten:
 @dataclasses.dataclass(frozen=True)
 class ConstantSoilHydraulics:
     """Prescribed hydraulic properties (reference
-    `soil_hydraulic_properties.jl:66-97`)."""
+    `soil_hydraulic_properties.jl:66-97`). ``sat_hydraulic_cond`` may be a 0-d
+    tensor, to differentiate with respect to it."""
 
     swrc: VanGenuchten = dataclasses.field(default_factory=VanGenuchten)
     unsat_hydraulic_cond: UnsatKVanGenuchten = dataclasses.field(

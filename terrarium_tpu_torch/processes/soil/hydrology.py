@@ -18,7 +18,88 @@ from ...ops.bcs import get_bc
 from ...ops.vertical_ops import div_faces, ghosts, grad_faces
 from ...variables import XY, XYZ, auxiliary, input, prognostic
 
-__all__ = ["RichardsEq", "SoilSaturationPressureClosure", "SoilHydrology"]
+__all__ = ["RichardsEq", "SoilSaturationPressureClosure", "SoilHydrology",
+           "saturation_sweeps", "pool_drainage"]
+
+
+class _SaturationSweeps(torch.autograd.Function):
+    """The two sweeps of the saturation adjustment, with their derivative
+    defined by one predicate per level.
+
+    Forward, on rows ``k = 0`` (bottom) up: ``sat_up[k] = min(sat[k] +
+    c/dz[k], 1)`` and ``c = max((sat[k] - 1)*dz[k] + c, 0)``; then from the
+    top down: ``new[k] = max(sat_up[k] - c2/dz[k], 0)`` and ``c2 =
+    max(-sat_up[k]*dz[k] + c2, 0)``. Returns ``new`` and the spill ``c``
+    past the top layer.
+
+    Derivative convention. A level *spills* iff ``sat[k] + c/dz[k] >= 1``:
+    then it is ``(1, (sat[k] - 1)*dz[k] + c)``, else ``(sat[k] + c/dz[k],
+    0)``. A level is *clipped* iff ``sat_up[k] - c2/dz[k] <= 0``: then it is
+    ``(0, c2 - sat_up[k]*dz[k])``, else ``(sat_up[k] - c2/dz[k], 0)``. Each
+    level is differentiated as the branch its predicate picks, so at a tie
+    (an exactly saturated or exactly empty layer) the water goes either to
+    the layer or to the carry, never to both. That keeps the derivative of
+    the conserved total ``sum(sat*dz) + spill`` exact: ``dz[k]`` with respect
+    to ``sat[k]`` at every level. ``torch.clamp`` would pass the cotangent to
+    both sides at such a tie and count the water twice; the JAX package's
+    closed form splits it 0.5/0.5 inside its radix-4 prefix scan. The CUDA
+    adjoint kernel (``csrc/soil_step.cuh``) uses the same predicates."""
+
+    @staticmethod
+    def forward(ctx, sat, dz):
+        rows, dzr = sat.unbind(0), dz.unbind(0)
+        nz = len(rows)
+        c = torch.zeros_like(rows[0])
+        up, spill = [], []
+        for k in range(nz):
+            x = rows[k] + c / dzr[k]
+            spill.append(x >= 1.0)
+            up.append(torch.clamp(x, max=1.0))
+            c = torch.clamp((rows[k] - 1.0) * dzr[k] + c, min=0.0)
+        c2 = torch.zeros_like(c)
+        new, clip = [None] * nz, [None] * nz
+        for k in reversed(range(nz)):
+            y = up[k] - c2 / dzr[k]
+            clip[k] = y <= 0.0
+            new[k] = torch.clamp(y, min=0.0)
+            c2 = torch.clamp(-up[k] * dzr[k] + c2, min=0.0)
+        ctx.save_for_backward(dz, torch.stack(spill), torch.stack(clip))
+        return torch.stack(new), c
+
+    @staticmethod
+    def backward(ctx, g_new, g_c):
+        dz, spill, clip = ctx.saved_tensors
+        dzr = dz.unbind(0)
+        nz = spill.shape[0]
+        # down sweep in reverse: bottom level first; the deficit leaving
+        # the bottom is dropped, so its cotangent is 0
+        g2 = torch.zeros_like(g_c)
+        g_up = [None] * nz
+        for k in range(nz):
+            g_up[k] = torch.where(clip[k], -g2 * dzr[k], g_new[k])
+            g2 = torch.where(clip[k], g2, -g_new[k] / dzr[k])
+        # up sweep in reverse: the spill's cotangent enters at the top
+        g = g_c
+        g_sat = [None] * nz
+        for k in reversed(range(nz)):
+            g_sat[k] = torch.where(spill[k], g * dzr[k], g_up[k])
+            g = torch.where(spill[k], g, g_up[k] / dzr[k])
+        return torch.stack(g_sat), None
+
+
+def saturation_sweeps(sat, dz):
+    """``(adjusted saturation, spill past the top)`` of the saturation
+    adjustment for ``sat`` ``(Nz, cells)`` and ``dz`` ``(Nz, 1)``; see
+    :class:`_SaturationSweeps` for the derivative convention."""
+    return _SaturationSweeps.apply(sat, dz)
+
+
+def pool_drainage(S):
+    """The parity surface-pool term ``min(0, S)`` (reference
+    `soil_hydrology.jl:260-283`). Its derivative is 0 at ``S == 0``: an
+    empty pool neither drains nor grows, so the pool carries its cotangent
+    unchanged (the JAX package's ``jnp.minimum`` splits it 0.5/0.5 there)."""
+    return torch.where(S < 0.0, S, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,20 +183,9 @@ class SoilHydrology:
         on ``-sat_up[k]*dz[k]`` with the same recurrence; every layer ends as
         ``max(sat_up - c2_in/dz, 0)``, which also clips a residual bottom
         deficit (the reference's acknowledged mass-balance violation)."""
-        rows = state.saturation_water_ice.unbind(0)
-        dz = grid.dz.unbind(0)
-        c = torch.zeros_like(rows[0])
-        sat_up = []
-        for k in range(len(rows)):
-            sat_up.append(torch.clamp(rows[k] + c / dz[k], max=1.0))
-            c = torch.clamp((rows[k] - 1.0) * dz[k] + c, min=0.0)
-        surf = state.surface_excess_water + c
-        c2 = torch.zeros_like(c)
-        new = [None] * len(rows)
-        for k in reversed(range(len(rows))):
-            new[k] = torch.clamp(sat_up[k] - c2 / dz[k], min=0.0)
-            c2 = torch.clamp(-sat_up[k] * dz[k] + c2, min=0.0)
-        state.set(saturation_water_ice=torch.stack(new), surface_excess_water=surf)
+        new, spill = saturation_sweeps(state.saturation_water_ice, grid.dz)
+        state.set(saturation_water_ice=new,
+                  surface_excess_water=state.surface_excess_water + spill)
 
     def initialize(self, state, grid, soil, constants, ctx):
         """Closure from the initial saturation, then the face K (reference
@@ -145,8 +215,7 @@ class SoilHydrology:
         dtheta_dt = -div_faces(q, grid.dz)
         por = soil.strat.bulk_porosity(soil.biogeochem)
         state.add_tendencies(saturation_water_ice=dtheta_dt / por)
-        S = state.surface_excess_water
-        state.add_tendencies(surface_excess_water=torch.minimum(torch.zeros_like(S), S))
+        state.add_tendencies(surface_excess_water=pool_drainage(state.surface_excess_water))
 
     def _psi_components(self, state, grid):
         z = grid.z_centers

@@ -17,10 +17,22 @@ __all__ = ["SoilThermalConductivities", "SoilHeatCapacities", "InverseQuadratic"
 CONSTITUENTS = ("water", "ice", "air", "mineral", "organic")
 
 
+def _sqrt(x):
+    """``sqrt`` of a float, or of a 0-d tensor keeping its graph."""
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def _fields(obj) -> dict:
+    """A dataclass's fields by name, values as they are (``asdict`` would
+    deep-copy a tensor parameter and cut its graph)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
 @dataclasses.dataclass(frozen=True)
 class SoilThermalConductivities:
     """Constituent thermal conductivities [W/m/K] (reference
-    `soil_thermal_properties.jl:14-25`)."""
+    `soil_thermal_properties.jl:14-25`). ``mineral`` may be a 0-d tensor, to
+    differentiate with respect to it."""
 
     water: float = 0.57
     ice: float = 2.2
@@ -49,7 +61,7 @@ class InverseQuadratic:
     def __call__(self, ks: dict, fracs: dict):
         acc = 0.0
         for name in CONSTITUENTS:
-            acc = acc + math.sqrt(ks[name]) * fracs[name]
+            acc = acc + _sqrt(ks[name]) * fracs[name]
         return acc * acc
 
 
@@ -83,13 +95,13 @@ class SoilThermalProperties:
     freezecurve: FreeWater = FreeWater()
 
     def thermal_conductivity(self, soil: SoilVolume):
-        return self.bulk_conductivity(dataclasses.asdict(self.conductivities),
+        return self.bulk_conductivity(_fields(self.conductivities),
                                       volumetric_fractions(soil))
 
     def heat_capacity(self, soil: SoilVolume):
         """Linear mixture of the constituent heat capacities."""
         fracs = volumetric_fractions(soil)
-        cs = dataclasses.asdict(self.heat_capacities)
+        cs = _fields(self.heat_capacities)
         acc = 0.0
         for name in CONSTITUENTS:
             acc = acc + cs[name] * fracs[name]

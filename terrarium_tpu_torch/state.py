@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from .utils.utils import resolve_device
 from .variables import Variables
 
 __all__ = ["Clock", "State", "build_state", "reset_tendencies"]
@@ -32,7 +33,9 @@ class Clock:
         self.iteration = iteration
 
     @staticmethod
-    def zero(dtype=torch.float64, device="cpu") -> "Clock":
+    def zero(dtype=torch.float64, device="cuda") -> "Clock":
+        """A clock at 0 on ``device`` (the CUDA card unless ``"cpu"``)."""
+        device = resolve_device(device)
         it = torch.int64 if dtype == torch.float64 else torch.int32
         return Clock(torch.zeros((), dtype=dtype, device=device),
                      torch.zeros((), dtype=it, device=device))
@@ -88,6 +91,12 @@ class State:
 
     def tick(self, dt) -> None:
         self.clock.tick(dt)
+
+    def copy(self) -> "State":
+        """A state over the same tensors in new group dictionaries and a new
+        clock, so that stepping the copy leaves this state as it is."""
+        return State(dict(self.prognostic), dict(self.tendencies), dict(self.auxiliary),
+                     dict(self.inputs), Clock(self.clock.time, self.clock.iteration))
 
     def __repr__(self):
         return (f"State(prognostic={list(self.prognostic)}, "

@@ -7,7 +7,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["safediv", "convert_dt", "merge_recursive", "deduplicate"]
+__all__ = ["safediv", "convert_dt", "merge_recursive", "deduplicate", "resolve_device"]
 
 
 def safediv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -18,6 +18,17 @@ def safediv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     discarded: IEEE products such as ``0 * inf`` never reach the result."""
     eps = torch.finfo(torch.result_type(x, y)).eps
     return torch.where(y == 0, torch.inf, x / (y + eps))
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`. The port's entry points default
+    to ``"cuda"``; naming a CUDA device on a host without one raises rather
+    than carrying on on the CPU, which has to be asked for (``"cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} asked for, but this host has no CUDA "
+                           "device; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def convert_dt(dt) -> float:

@@ -18,7 +18,7 @@ from torch_parity import jax_sim, port_sim
 def test_grid_coordinates_bitwise(nz, dtype):
     jg = tt.ColumnGrid.of(cells=3, spacing=tt.ExponentialSpacing(N=nz), nf=getattr(np, dtype))
     pg = tp.ColumnGrid.of(cells=3, spacing=tp.ExponentialSpacing(N=nz),
-                          dtype=getattr(torch, dtype))
+                          dtype=getattr(torch, dtype), device="cpu")
     for name in ("z_centers", "z_faces", "dz", "dz_faces"):
         a, b = np.asarray(getattr(jg, name)), getattr(pg, name).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -78,3 +78,18 @@ def test_clock_times_repeat_the_tick_in_float32():
     assert times.dtype == np.float32
     assert not np.array_equal(times, (2.0 ** 26 + 60.0 * np.arange(51)).astype(np.float32))
     assert int(clock.iteration) == 50
+
+
+def test_entry_points_default_to_the_card():
+    """``ColumnGrid.of`` and ``Clock.zero`` target ``cuda`` unless the CPU is
+    asked for; on a host without a card the default raises."""
+    if torch.cuda.is_available():
+        assert tp.ColumnGrid.of(cells=2).device.type == "cuda"
+        assert tp.Clock.zero().time.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.ColumnGrid.of(cells=2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tp.Clock.zero()
+    assert tp.ColumnGrid.of(cells=2, device="cpu").device.type == "cpu"
+    assert tp.Clock.zero(device="cpu").time.device.type == "cpu"

@@ -1,5 +1,6 @@
-"""The soil column CUDA kernel against its plain PyTorch version, on a CUDA
-device. Every test skips where ``torch.cuda.is_available()`` is False.
+"""The soil column CUDA kernels (the rollout and its segment VJP) against
+their plain PyTorch versions, on a CUDA device. Every test skips where
+``torch.cuda.is_available()`` is False.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX (the repository's conftest imports JAX; skip it there):
@@ -13,7 +14,10 @@ import pytest
 import torch
 
 import terrarium_tpu_torch as tp
+from terrarium_tpu_torch.convert import with_differentiable_params
 from terrarium_tpu_torch.ops import fused_step as fs
+from terrarium_tpu_torch.ops import fused_vjp as fv
+from terrarium_tpu_torch.timesteppers.fused_grad import make_fused_grad_rollout
 from terrarium_tpu_torch.timesteppers.integrator import clock_times, top_temperature_table
 
 GOLDEN = pathlib.Path(__file__).parent / "goldens" / "soil_heat_richards.npz"
@@ -106,3 +110,108 @@ def test_simulation_run_goes_through_the_kernel_and_matches_golden(cuda):
     for f in golden.files:
         np.testing.assert_allclose(sim.state[f].cpu().numpy(), golden[f], rtol=1e-12,
                                    atol=1e-12, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# segment VJP: the gradient configuration of tests/test_torch_grad.py
+# ---------------------------------------------------------------------------
+GRAD_DT, LOG_KSAT = 300.0, float(np.log(1e-5))
+
+
+def _grad_model(grid, log_ksat=LOG_KSAT):
+    props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
+                                      unsat_hydraulic_cond=tp.UnsatKVanGenuchten())
+    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(hydraulic_properties=props))
+    return tp.SoilModel(grid=grid, soil=with_differentiable_params(
+        soil, log_sat_hydraulic_cond=log_ksat))
+
+
+def _grad_sim(cells, nz, dtype, device):
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device=device)
+    return tp.initialize(
+        _grad_model(grid), tp.ForwardEuler(dt=GRAD_DT),
+        initializers={"temperature": -1.0,
+                      "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.6 - 0.04 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(4.0))
+
+
+def _vjp_operands(sim, steps, seed):
+    g = sim.model.grid
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    carry = tuple(sim.state.prognostic[n].contiguous() for n in sim.model.live_carry)
+    table = torch.full((steps,), 4.0, dtype=g.dtype, device=g.device)
+    rng = np.random.default_rng(seed)
+    cts = tuple(torch.as_tensor(rng.normal(size=tuple(t.shape)), device=g.device).to(g.dtype)
+                for t in carry)
+    return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype), cts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [20, 30])
+def test_segment_vjp_kernel_matches_plain(cuda, nz):
+    """float64, 300 columns (a ragged last block of 44), 24 steps: every
+    cotangent within rtol 1e-9, with a floor of 1e-12 of its largest
+    magnitude (the kernel contracts into FMAs, the plain version does not)."""
+    sim = _grad_sim(300, nz, torch.float64, cuda)
+    carry, table, coords, params, cts = _vjp_operands(sim, 24, nz)
+    before = fv.soil_column_segment_vjp.launches
+    out = fv.soil_column_segment_vjp(*carry, table, *coords, params, GRAD_DT, *cts)
+    ref = fv.soil_column_segment_vjp_plain(*carry, table, *coords, params, GRAD_DT, *cts)
+    torch.cuda.synchronize()
+    assert fv.soil_column_segment_vjp.launches == before + 1
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_segment_vjp_kernel_keeps_the_water_identity(cuda):
+    """The cotangents (gU, gsat, gS) = (0, dz, 1) are those of the total
+    water W = sum(sat*dz) + S, which every step conserves: the kernel must
+    return dz and 1 at every cell, the saturated ones included."""
+    sim = _grad_sim(300, 20, torch.float64, cuda)
+    carry, table, coords, params, _ = _vjp_operands(sim, 48, 0)
+    dz = coords[0][:, None].expand(20, 300).contiguous()
+    cts = (torch.zeros_like(carry[0]), dz, torch.ones_like(carry[2]))
+    gU, gsat, gS, _, _ = fv.soil_column_segment_vjp(*carry, table, *coords, params, GRAD_DT,
+                                                    *cts)
+    assert bool((carry[1] == 1.0).any())
+    torch.testing.assert_close(gsat, dz, rtol=1e-12, atol=0)
+    torch.testing.assert_close(gS, torch.ones_like(gS), rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [64, 130, 1000])
+def test_segment_vjp_parameter_reduction(cuda, cells):
+    """The per-block partials and their fixed-order sum: the parameter
+    cotangents equal the plain version's sum over every column for a whole
+    block, a ragged last block and many blocks, and a second launch gives
+    the same bits."""
+    sim = _grad_sim(cells, 20, torch.float64, cuda)
+    carry, table, coords, params, cts = _vjp_operands(sim, 8, cells)
+    a = fv.soil_column_segment_vjp(*carry, table, *coords, params, GRAD_DT, *cts)
+    b = fv.soil_column_segment_vjp(*carry, table, *coords, params, GRAD_DT, *cts)
+    ref = fv.soil_column_segment_vjp_plain(*carry, table, *coords, params, GRAD_DT, *cts)
+    for i in (3, 4):
+        assert torch.equal(a[i], b[i])
+        torch.testing.assert_close(a[i], ref[i], rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+def test_fused_grad_rollout_launches_each_kernel_once_a_segment(cuda):
+    sim = _grad_sim(200, 20, torch.float32, cuda)
+    grid = sim.model.grid
+    steps, inner = 24, 8
+    roll = make_fused_grad_rollout(lambda x: _grad_model(grid, x), sim.timestepper, sim.ctx,
+                                   steps=steps, dt=GRAD_DT, inner_steps=inner)
+    x = torch.tensor(LOG_KSAT, dtype=torch.float64, device=cuda, requires_grad=True)
+    f0, b0 = fs.soil_column_rollout.launches, fv.soil_column_segment_vjp.launches
+    out = roll(sim.state, x)
+    loss = out.temperature.mean() + out.saturation_water_ice.mean()
+    (g,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    assert fs.soil_column_rollout.launches - f0 == steps // inner
+    assert fv.soil_column_segment_vjp.launches - b0 == steps // inner
+    assert bool(torch.isfinite(g)) and float(g) != 0.0

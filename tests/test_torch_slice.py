@@ -75,7 +75,9 @@ def test_state_from_numpy_continues_a_jax_run():
 
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; import terrarium_tpu_torch; "
-            "import terrarium_tpu_torch.convert, terrarium_tpu_torch.ops.fused_step; "
+            "import terrarium_tpu_torch.convert, terrarium_tpu_torch.ops.fused_step, "
+            "terrarium_tpu_torch.ops.fused_vjp, terrarium_tpu_torch.timesteppers.fused_grad, "
+            "terrarium_tpu_torch.timesteppers.autodiff; "
             "assert not any(m == 'terrarium_tpu' or m.startswith('terrarium_tpu.') "
             "for m in sys.modules)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
