@@ -1,12 +1,25 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
-column rollout and its segment VJP, one ``nvcc`` each, in parallel) and
-drives the port's two paths:
+column rollouts, ForwardEuler and Heun, heat + Richards and heat only, and
+the segment VJP; one ``nvcc`` per instantiation, all in parallel) and drives
+the port's paths, each with the kernel launch counts set to 0 just before it
+and read just after:
 
 * the forward main path (``initialize`` / ``Simulation.run``) at the bench
   size, 56,951 columns, Nz 30, float32, dt 60 s, after checking the rollout
   kernel against the goldens and against its plain PyTorch version;
+* the Heun path with a forcing series, ``heun_n145_heat_richards_forcing``
+  (`bench_configs.py:414-449`): 56,951 columns, Nz 30, float32, Heun at dt
+  60 s, an hourly ``(744, cells)`` series interpolated in the kernel, one
+  2,880-step block, after the ``heun_forced`` golden (float64, through the
+  kernel, with the water identity) and the Heun kernel against its plain
+  version at full width;
+* the heat-only default model with forcing, ``global_heat_n72_forcing``
+  (`bench_configs.py:202-225`) on 14,024 synthetic columns, Nz 30, float32,
+  ForwardEuler at dt 300 s, one 5,760-step block, after the heat-only
+  kernel against its plain version (float64 on 1,024 columns, float32 at
+  full width);
 * the gradient path (``make_fused_grad_rollout``) of the configuration
   ``grad_n145_heat_richards`` (`bench_configs.py:311-411`): 56,951 columns,
   Nz 20, float32, dt 300 s, 288 steps in segments of 48, value and gradient
@@ -22,6 +35,12 @@ Run from the repository root:
 Every phase prints one line; the line before the last is the kernel report
 and the last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, and so does a machine without a CUDA device.
+
+``python3 chip_smoke.py --euler-digest [--package-root DIR]`` instead prints
+the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
+golden, bench and gradient configurations and the bench ``main_path`` rate,
+for the package in ``DIR`` (default: this checkout). Run it on two checkouts
+in one call to compare their kernels bit for bit.
 """
 from __future__ import annotations
 
@@ -37,8 +56,15 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "soil_heat_richards.npz"
+HEUN_GOLDEN = ROOT / "tests" / "goldens" / "heun_forced.npz"
 BENCH_CELLS, BENCH_NZ, BENCH_DT = 56951, 30, 60.0
 COMPARE_STEPS, BLOCK_STEPS = 144, 5760
+# heun_n145_heat_richards_forcing (bench_configs.py:414-449) and
+# global_heat_n72_forcing (bench_configs.py:202-225; 14,024 cells, as
+# BENCH_CONFIGS_r05.jsonl records, at synthetic latitudes); both series
+# are hourly over 31 days
+HEUN_BLOCK_STEPS, HEAT_CELLS, HEAT_DT, HEAT_BLOCK_STEPS = 2880, 14024, 300.0, 5760
+HEAT_F64_CELLS, SERIES_ROWS, SERIES_DTS = 1024, 744, 3600.0
 # float32 kernel vs plain after COMPARE_STEPS steps, relative to each field's
 # largest magnitude: the kernel contracts a*b + c into FMAs and takes cbrt
 # where the plain version takes pow(x, 1/3), so the two differ by ulps per
@@ -93,6 +119,20 @@ ADJ_OPS = {
 }
 FWD_OPS_PER_LEVEL_STEP = sum(FWD_OPS.values())
 VJP_OPS_PER_LEVEL_STEP = FWD_OPS_PER_LEVEL_STEP + sum(ADJ_OPS.values())
+# Heun (soil::heun_step): two closure_rhs per step, each FWD_OPS less the
+# Euler update's multiply and add for U and sat in the first (the tendencies
+# are kept) and with the corrector x + (0.5 * (f_n + f*)) * dt, four
+# operations, in place of them in the second; the stage y = x + f * dt, two
+# operations, for U and sat
+HEUN_OPS_PER_LEVEL_STEP = 2 * FWD_OPS_PER_LEVEL_STEP + 2 * (-2 + 2 + 2)
+# heat only (NoFlow): Level's energy closure, heat capacity and
+# conductivity without the centre K (37: L_theta 2, liquid fraction 8,
+# water/ice/air 6, C 7, temperature 6, conductivity 8), and the heat flux
+# and energy update (9)
+HEAT_OPS_PER_LEVEL_STEP = 37 + 9
+# a series read (soil::series_value), per column and clock time: sub, div,
+# max, min, floor, sub, 1 - w, two products, the sum; and the clock's add
+SERIES_OPS_PER_READ = 11
 H100_FP32_OPS, H100_HBM_BYTES = 67e12, 3.35e12  # published peaks, SXM, 700 W
 
 
@@ -132,21 +172,157 @@ def bench_sim(tp):
             lambda t: 5.0 * torch.sin(2 * torch.pi * t / 86400.0)))
 
 
+def hourly_times():
+    return np.arange(SERIES_ROWS, dtype=np.float64) * SERIES_DTS
+
+
+def heun_forced_sim(tp):
+    """`tests/test_goldens.py:67-89`: 4 cells, Nz 15, float64, Heun at dt
+    300 s, a 2-hourly (13, 4) air temperature over one day."""
+    grid = tp.ColumnGrid.of(cells=4, spacing=tp.ExponentialSpacing(N=15),
+                            dtype=torch.float64, device="cuda")
+    times = np.arange(0.0, 86401.0, 7200.0)
+    series = (np.linspace(-4.0, 8.0, 4)[None, :]
+              + 6.0 * np.sin(2 * np.pi * times / 86400.0)[:, None])
+    return tp.initialize(
+        tp.SoilModel(grid=grid, soil=soil(tp)), tp.Heun(),
+        initializers={"temperature": 1.0,
+                      "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.7 - 0.04 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature("air_temperature"),
+        input_sources=(tp.TimeSeriesInputSource(times=times,
+                                                series={"air_temperature": series}),))
+
+
+def heun_sim(tp, cells):
+    """`bench_configs.py:414-449`: heat + Richards as bench, Heun at dt 60 s,
+    the top temperature from an hourly (744, cells) float32 series
+    5 sin(2 pi t / 86400), made on the card (169 MB at full width)."""
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
+                            dtype=torch.float32, device="cuda")
+    hours = torch.as_tensor(hourly_times(), device="cuda")
+    ts = (5.0 * torch.sin(2 * np.pi * hours / 86400.0))[:, None].expand(SERIES_ROWS, cells)
+    return tp.initialize(
+        tp.SoilModel(grid=grid, soil=soil(tp)), tp.Heun(dt=BENCH_DT),
+        initializers={
+            "temperature": lambda x, z: 1.0 + 0.0 * z,
+            "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.5 - 0.05 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature("surface_temperature"),
+        input_sources=(tp.TimeSeriesInputSource(
+            times=hourly_times(),
+            series={"surface_temperature": ts.to(torch.float32).contiguous()}),))
+
+
+def heat_sim(tp, cells, dtype):
+    """`bench_configs.py:202-225` on ``cells`` synthetic columns at
+    latitudes evenly spaced from -60 to 80 degrees: the default (heat-only)
+    SoilModel, ForwardEuler at dt 300 s, an hourly (744, cells) float32
+    series T_mean + 8 sin(2 pi t / 86400), T_mean = 25 max(cos lat, 0.05) -
+    5, also the initial temperature; saturation 0.8."""
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
+                            dtype=dtype, device="cuda")
+    lat = np.linspace(-60.0, 80.0, cells)
+    T_mean = 25.0 * np.maximum(np.cos(np.deg2rad(lat)), 0.05) - 5.0
+    hours = hourly_times()
+    ts = (T_mean[None, :] + 8.0 * np.sin(2 * np.pi * hours[:, None] / 86400.0))
+    return tp.initialize(
+        tp.SoilModel(grid=grid), tp.ForwardEuler(dt=HEAT_DT),
+        initializers={"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+                      "saturation_water_ice": 0.8},
+        boundary_conditions=tp.PrescribedSurfaceTemperature("surface_temperature"),
+        input_sources=(tp.TimeSeriesInputSource(
+            times=hours, series={"surface_temperature": ts.astype(np.float32)}),))
+
+
+def series_operands(fs, sim, steps):
+    """Carry, the top temperature as the kernel reads it from the sim's
+    series, coordinates and parameters."""
+    g = sim.model.grid
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    st = sim.state
+    heat = "surface_excess_water" not in st.prognostic
+    carry = (st.prognostic["internal_energy"], st.saturation_water_ice,
+             None if heat else st.prognostic["surface_excess_water"])
+    src = sim.input_sources[0]
+    values = torch.as_tensor(src.series["surface_temperature"], device="cuda").to(g.dtype)
+    bc = fs.SeriesBC(values.contiguous(), 0.0, SERIES_DTS, float(st.clock.time), steps)
+    return carry, bc, coords, fs.ColumnParams.of(sim.model, g.dtype)
+
+
+def series_rows_read(bc, dt, stages=1):
+    """Rows of a series that a rollout reads: those around the clock times
+    from the first to the last (stage) time."""
+    t_last = bc.time + (bc.steps - 2 + stages) * dt
+    lo = int(np.clip(np.floor((bc.time - bc.t0) / bc.dts), 0, bc.values.shape[0] - 1))
+    hi = int(np.clip(np.ceil((t_last - bc.t0) / bc.dts), 0, bc.values.shape[0] - 1))
+    return hi - lo + 1
+
+
+def water(sim):
+    """W = sum(sat * dz) + S of every column."""
+    dz = sim.model.grid.dz[:, 0]
+    st = sim.state
+    return (st.saturation_water_ice * dz[:, None]).sum(0) + st.surface_excess_water
+
+
+def check_close(name, out_k, out_p, rel_tol):
+    """Max abs difference of each field and fail beyond ``rel_tol`` of its
+    largest magnitude."""
+    errs = {}
+    for field, a, b in zip(("U", "sat", "S"), out_k, out_p):
+        if a is None:
+            continue
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: kernel produced non-finite {field}")
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        errs[field] = err
+        if err > rel_tol * max(scale, 1e-30):
+            raise AssertionError(f"{name} kernel vs plain {field}: max abs err {err} "
+                                 f"> {rel_tol} * {scale}")
+    return errs
+
+
+def check_f64_close(name, out_k, out_p, rtol):
+    """Each element within ``rtol`` of the plain version, with a floor of
+    ``rtol`` times the field's largest magnitude."""
+    errs = {}
+    for field, a, b in zip(("U", "sat", "S"), out_k, out_p):
+        if a is None:
+            continue
+        scale = float(b.abs().max())
+        errs[field] = float((a - b).abs().max())
+        if bool(((a - b).abs() > rtol * b.abs() + rtol * scale).any()):
+            raise AssertionError(f"{name} kernel vs plain {field} (f64): max abs err "
+                                 f"{errs[field]}, largest magnitude {scale}")
+    return errs
+
+
 def ptxas_summary(report: str) -> dict:
-    """``{"f32/NZ30": "253 registers, 0 bytes spill stores", ...}`` from
-    ptxas's ``-v`` output (one entry per instantiation of a kernel templated
-    on the type and NZ)."""
-    out, key = {}, None
+    """``{"<entry point>": {"table": "230 registers, 0 bytes spill stores",
+    "series": ...}, ...}`` from the build's ptxas ``-v`` report, whose part
+    of each instantiation is headed ``== <entry point>``; a rollout entry
+    holds a table and a series kernel, the VJP's its kernel and the
+    reduction."""
+    out, entry, key = {}, None, None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*kernelI([fd])Li(\d+)E", ln)
-        if m:
-            key = f"{'f32' if m.group(1) == 'f' else 'f64'}/NZ{m.group(2)}"
-            out[key] = ""
-        elif key and "spill stores" in ln and not out[key]:
-            out[key] = ln.split(":")[-1].strip().split(",")[1].strip()
+        if ln.startswith("== "):
+            entry = ln[3:].strip()
+            out[entry] = {}
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m and entry:
+            name = m.group(1)
+            flags = re.search(r"rollout_kernelI[fd]Li\d+ELb[01]ELb[01]ELb([01])E", name)
+            if flags:
+                key = "series" if flags.group(1) == "1" else "table"
+            else:
+                key = "reduce" if "reduce" in name else "vjp"
+            out[entry][key] = ""
+        elif key and "spill stores" in ln and not out[entry][key]:
+            out[entry][key] = ln.split(":")[-1].strip().split(",")[1].strip()
         elif key and "Used" in ln and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out[key] = f"{regs} registers, {out[key]}"
+            out[entry][key] = f"{regs} registers, {out[entry][key]}"
             key = None
     return out
 
@@ -258,9 +434,14 @@ def main():
     from terrarium_tpu_torch.timesteppers.integrator import (advance, clock_times,
                                                              top_temperature_table)
 
+    def reset_counts():
+        for fn in (fs.soil_column_rollout, fs.soil_column_heun_rollout,
+                   fs.soil_column_heat_rollout, fv.soil_column_segment_vjp):
+            fn.launches = 0
+
     # ---- build: one nvcc per source, in parallel
     t0 = time.perf_counter()
-    names = ("soil_column_rollout", "soil_column_segment_vjp")
+    names = tuple(cuda_build.INSTANTIATIONS)
     cuda_build.build(*names)
     phase("build", seconds=time.perf_counter() - t0,
           ptxas={n: ptxas_summary(cuda_build.ptxas_report(n)) for n in names})
@@ -273,8 +454,7 @@ def main():
         if route == "kernel":
             sim.run(steps=120, dt=300.0)
         else:
-            advance(sim.model, sim.state, sim.ctx, 120, 300.0,
-                    rollout=fs.soil_column_rollout_plain)
+            advance(sim.model, sim.state, sim.ctx, 120, 300.0, plain=True)
             sim.compute_auxiliary()
         for f in golden.files:
             got = sim.state[f].cpu().numpy()
@@ -296,16 +476,7 @@ def main():
     out_k = fs.soil_column_rollout(*carry, table, *coords, params, BENCH_DT)
     out_p = fs.soil_column_rollout_plain(*carry, table, *coords, params, BENCH_DT)
     torch.cuda.synchronize()
-    cmp = {}
-    for name, a, b in zip(model.live_carry, out_k, out_p):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"kernel produced non-finite {name}")
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        cmp[name] = err
-        if err > F32_REL_TOL * max(scale, 1e-30):
-            raise AssertionError(f"kernel vs plain {name}: max abs err {err} "
-                                 f"> {F32_REL_TOL} * {scale}")
+    cmp = check_close("ForwardEuler", out_k, out_p, F32_REL_TOL)
     ms = cuda_ms(lambda: fs.soil_column_rollout(*carry, table, *coords, params, BENCH_DT),
                  reps=3)
     plain_ms = cuda_ms(lambda: fs.soil_column_rollout_plain(*carry, table, *coords,
@@ -319,7 +490,7 @@ def main():
     # ---- main path: Simulation.run, one warm-up block then one timed block
     sim.run(steps=COMPARE_STEPS)
     torch.cuda.synchronize()
-    fs.soil_column_rollout.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     sim.run(steps=BLOCK_STEPS)
     torch.cuda.synchronize()
@@ -327,6 +498,7 @@ def main():
     launches = fs.soil_column_rollout.launches
     if launches < 1:
         raise AssertionError("Simulation.run did not launch the soil column kernel")
+    main_launches = launches
     st = sim.state
     for name, shape in (("internal_energy", (BENCH_NZ, BENCH_CELLS)),
                         ("saturation_water_ice", (BENCH_NZ, BENCH_CELLS)),
@@ -346,6 +518,135 @@ def main():
           cells_steps_per_s=BENCH_CELLS * BLOCK_STEPS / run_s, card=card,
           T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())])
     del sim, st, carry, out_k, out_p
+
+    # ---- heun_forced golden, through the Heun kernel (Simulation.run, one
+    # launch) and through the plain version, and the water identity
+    hgold = np.load(HEUN_GOLDEN)
+    errs, ident = {}, None
+    for route in ("kernel", "plain"):
+        sim = heun_forced_sim(tp)
+        w0 = water(sim)
+        if route == "kernel":
+            reset_counts()
+            sim.run(steps=96, dt=300.0)
+            torch.cuda.synchronize()
+            if fs.soil_column_heun_rollout.launches != 1:
+                raise AssertionError(f"heun_forced: {fs.soil_column_heun_rollout.launches} "
+                                     "Heun kernel launches, expected 1")
+            ident = float(((water(sim) - w0).abs() / w0.abs()).max())
+            if ident > 1e-12:
+                raise AssertionError(f"heun_forced: water identity through the kernel {ident}")
+        else:
+            advance(sim.model, sim.state, sim.ctx, 96, 300.0, timestepper=sim.timestepper,
+                    input_sources=sim.input_sources, plain=True)
+            sim.compute_auxiliary()
+        for f in hgold.files:
+            got = sim.state[f].cpu().numpy()
+            np.testing.assert_allclose(got, hgold[f], rtol=1e-12, atol=1e-12,
+                                       err_msg=f"heun_forced {route}: {f}")
+            errs[f"{route}:{f}"] = float(np.max(np.abs(got - hgold[f])))
+    phase("golden_heun_forced", rtol=1e-12, atol=1e-12, max_abs_err=errs,
+          water_identity_rel_err=ident)
+    del sim
+
+    # ---- Heun + series kernel against its plain version at full width
+    sim = heun_sim(tp, BENCH_CELLS)
+    carry, bc, coords, params = series_operands(fs, sim, COMPARE_STEPS)
+    out_k = fs.soil_column_heun_rollout(*carry, bc, *coords, params, BENCH_DT)
+    out_p = fs.soil_column_rollout_plain(*carry, bc, *coords, params, BENCH_DT, stepper="heun")
+    torch.cuda.synchronize()
+    heun_cmp = check_close("Heun", out_k, out_p, F32_REL_TOL)
+    heun_ms = cuda_ms(lambda: fs.soil_column_heun_rollout(*carry, bc, *coords, params,
+                                                          BENCH_DT), reps=3, warmup=True)
+    heun_plain_ms = cuda_ms(lambda: fs.soil_column_rollout_plain(
+        *carry, bc, *coords, params, BENCH_DT, stepper="heun"))
+    heun_rows = series_rows_read(bc, BENCH_DT, stages=2)
+    heun_b = bound_ms(HEUN_OPS_PER_LEVEL_STEP * BENCH_NZ * BENCH_CELLS * COMPARE_STEPS
+                      + 2 * SERIES_OPS_PER_READ * BENCH_CELLS * COMPARE_STEPS,
+                      2 * (2 * BENCH_NZ + 1) * BENCH_CELLS * 4 + heun_rows * BENCH_CELLS * 4)
+    phase("heun_compare", steps=COMPARE_STEPS, rel_tol=F32_REL_TOL, max_abs_err=heun_cmp,
+          kernel_ms=heun_ms, plain_ms=heun_plain_ms, bound_ms=heun_b[0], bound_by=heun_b[1],
+          series_rows_read=heun_rows, card=card)
+    del carry, bc, out_k, out_p
+
+    # ---- Heun main path: one warm-up run, then one timed 2,880-step block
+    sim.run(steps=COMPARE_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=HEUN_BLOCK_STEPS)
+    torch.cuda.synchronize()
+    heun_s = time.perf_counter() - t0
+    heun_launches = fs.soil_column_heun_rollout.launches
+    if heun_launches != 1:
+        raise AssertionError(f"the Heun block took {heun_launches} Heun kernel launches")
+    st = sim.state
+    for name in ("internal_energy", "saturation_water_ice", "temperature", "pressure_head",
+                 "hydraulic_conductivity", "surface_excess_water"):
+        if not bool(torch.isfinite(st[name]).all()):
+            raise AssertionError(f"Heun main path: non-finite {name}")
+    sat = st.saturation_water_ice
+    if not (float(sat.min()) >= 0.0 and float(sat.max()) <= 1.0):
+        raise AssertionError("Heun main path: saturation left [0, 1]")
+    if sim.iteration != COMPARE_STEPS + HEUN_BLOCK_STEPS:
+        raise AssertionError(f"Heun main path: clock iteration {sim.iteration}")
+    phase("heun_main_path", cells=BENCH_CELLS, nz=BENCH_NZ, steps=HEUN_BLOCK_STEPS,
+          seconds=heun_s, launches=heun_launches,
+          cells_steps_per_s=BENCH_CELLS * HEUN_BLOCK_STEPS / heun_s, card=card,
+          T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())],
+          input_at_last_step=float(st.inputs["surface_temperature"][0]))
+    del sim, st, sat
+
+    # ---- heat-only default model: kernel against plain (float64 on 1,024
+    # columns, float32 at full width), then one timed 5,760-step block
+    sim = heat_sim(tp, HEAT_F64_CELLS, torch.float64)
+    carry, bc, coords, params = series_operands(fs, sim, COMPARE_STEPS)
+    heat_f64 = check_f64_close("heat-only", fs.soil_column_heat_rollout(
+        *carry, bc, *coords, params, HEAT_DT), fs.soil_column_rollout_plain(
+        *carry, bc, *coords, params, HEAT_DT, physics="heat"), 1e-12)
+    sim = heat_sim(tp, HEAT_CELLS, torch.float32)
+    carry, bc, coords, params = series_operands(fs, sim, COMPARE_STEPS)
+    out_k = fs.soil_column_heat_rollout(*carry, bc, *coords, params, HEAT_DT)
+    out_p = fs.soil_column_rollout_plain(*carry, bc, *coords, params, HEAT_DT, physics="heat")
+    torch.cuda.synchronize()
+    heat_cmp = check_close("heat-only", out_k, out_p, F32_REL_TOL)
+    heat_ms = cuda_ms(lambda: fs.soil_column_heat_rollout(*carry, bc, *coords, params,
+                                                          HEAT_DT), reps=3, warmup=True)
+    heat_plain_ms = cuda_ms(lambda: fs.soil_column_rollout_plain(
+        *carry, bc, *coords, params, HEAT_DT, physics="heat"))
+    heat_rows = series_rows_read(bc, HEAT_DT)
+    heat_b = bound_ms(HEAT_OPS_PER_LEVEL_STEP * BENCH_NZ * HEAT_CELLS * COMPARE_STEPS
+                      + SERIES_OPS_PER_READ * HEAT_CELLS * COMPARE_STEPS,
+                      3 * BENCH_NZ * HEAT_CELLS * 4 + heat_rows * HEAT_CELLS * 4)
+    del carry, bc, out_k, out_p
+    sim.run(steps=COMPARE_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=HEAT_BLOCK_STEPS)
+    torch.cuda.synchronize()
+    heat_s = time.perf_counter() - t0
+    heat_launches = fs.soil_column_heat_rollout.launches
+    if heat_launches != 1:
+        raise AssertionError(f"the heat-only block took {heat_launches} heat kernel launches")
+    st = sim.state
+    for name in ("internal_energy", "temperature", "liquid_water_fraction",
+                 "hydraulic_conductivity"):
+        if not bool(torch.isfinite(st[name]).all()):
+            raise AssertionError(f"heat-only path: non-finite {name}")
+    if sim.iteration != COMPARE_STEPS + HEAT_BLOCK_STEPS:
+        raise AssertionError(f"heat-only path: clock iteration {sim.iteration}")
+    if not bool((st.saturation_water_ice == 0.8).all()):
+        raise AssertionError("heat-only path: the saturation changed")
+    phase("heat_only_forcing", cells=HEAT_CELLS, nz=BENCH_NZ, steps=HEAT_BLOCK_STEPS,
+          seconds=heat_s, launches=heat_launches,
+          cells_steps_per_s=HEAT_CELLS * HEAT_BLOCK_STEPS / heat_s,
+          compare_steps=COMPARE_STEPS, f64_cells=HEAT_F64_CELLS, f64_rtol=1e-12,
+          f64_max_abs_err=heat_f64, rel_tol=F32_REL_TOL, max_abs_err=heat_cmp,
+          kernel_ms=heat_ms, plain_ms=heat_plain_ms, bound_ms=heat_b[0],
+          bound_by=heat_b[1], card=card,
+          T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())])
+    del sim, st
 
     # ---- segment-VJP kernel against its plain version, one 48-step segment
     # of the gradient configuration on GRAD_COMPARE_CELLS columns
@@ -440,7 +741,7 @@ def main():
     torch.cuda.synchronize()
     times, launches = [], {}
     for i in range(5):
-        fs.soil_column_rollout.launches = fv.soil_column_segment_vjp.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         value, grad = grad_value(tp, gsim, LOG_KSAT)
         torch.cuda.synchronize()
@@ -486,14 +787,29 @@ def main():
                      2 * (2 * BENCH_NZ + 1) * BENCH_CELLS * 4 + COMPARE_STEPS * 4)
     vjp_b = bound_ms(VJP_OPS_PER_LEVEL_STEP * GRAD_NZ * GRAD_CELLS * GRAD_INNER,
                      3 * (2 * GRAD_NZ + 1) * GRAD_CELLS * 4 + GRAD_INNER * 4 + 2 * 4)
+    series_at = "; the series read at terrarium_tpu/ops/fused_step.py:92"
     print(json.dumps({"kernels": [{
         "name": "soil_column_rollout", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283",
-        "launches": launches["soil_column_rollout"], "max_abs_err": max(cmp.values()),
+        "launches": main_launches, "max_abs_err": max(cmp.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
         "library_ms": None,
         "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, {COMPARE_STEPS} steps"}, {
+        "name": "soil_column_heun_rollout", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:283" + series_at,
+        "launches": heun_launches, "max_abs_err": max(heun_cmp.values()),
+        "ms": heun_ms, "plain_ms": heun_plain_ms, "bound_ms": heun_b[0],
+        "bound_by": heun_b[1], "library_ms": None,
+        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, Heun, series, {COMPARE_STEPS} steps"}, {
+        "name": "soil_column_heat_rollout", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:283" + series_at,
+        "launches": heat_launches, "max_abs_err": max(heat_cmp.values()),
+        "ms": heat_ms, "plain_ms": heat_plain_ms, "bound_ms": heat_b[0],
+        "bound_by": heat_b[1], "library_ms": None,
+        "shape": f"{HEAT_CELLS} x {BENCH_NZ} f32, heat only, series, {COMPARE_STEPS} steps"}, {
         "name": "soil_column_segment_vjp", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/soil_column_segment_vjp.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
@@ -508,5 +824,61 @@ def main():
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def euler_digest(root: pathlib.Path):
+    """SHA-256 of the ForwardEuler heat + Richards kernel's outputs (golden
+    f64 Nz 20, 120 steps; bench f32 Nz 30, 144 steps at full width; gradient
+    configuration f32 Nz 20, 48 steps at full width), its ptxas lines and the
+    bench main-path rate, for the package under ``root``."""
+    import hashlib
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(root))
+    import terrarium_tpu_torch as tp
+    from terrarium_tpu_torch.ops import cuda_build
+    from terrarium_tpu_torch.ops import fused_step as fs
+    from terrarium_tpu_torch.timesteppers.integrator import clock_times, top_temperature_table
+
+    t0 = time.perf_counter()
+    cuda_build.build("soil_column_rollout")
+    build_s = time.perf_counter() - t0
+    digests = {}
+    for case, sim, steps in (("golden_f64_nz20", golden_sim(tp), 120),
+                             ("bench_f32_nz30", bench_sim(tp), COMPARE_STEPS),
+                             ("grad_f32_nz20", grad_sim(tp, GRAD_CELLS, torch.float32),
+                              GRAD_INNER)):
+        g = sim.model.grid
+        coords = tuple(getattr(g, n)[:, 0].contiguous()
+                       for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+        carry = tuple(sim.state.prognostic[n].contiguous() for n in sim.model.live_carry)
+        dt = sim.timestepper.default_dt()
+        table = top_temperature_table(sim.bcs["temperature"]["top"].value,
+                                      clock_times(sim.state.clock.time, dt, steps)[:-1], g)
+        out = fs.soil_column_rollout(*carry, table, *coords, fs.ColumnParams.of(
+            sim.model, g.dtype), dt)
+        digests[case] = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                                for t in out)).hexdigest()
+        del sim, carry, out
+    sim = bench_sim(tp)
+    sim.run(steps=COMPARE_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(steps=BLOCK_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in cuda_build.ptxas_report("soil_column_rollout").splitlines()
+             if ln.startswith("==") or "Compiling entry" in ln or "Used" in ln
+             or "spill stores" in ln]
+    print(json.dumps({"package": tp.__file__, "build_s": build_s, "digests": digests,
+                      "main_path_cells_steps_per_s": BENCH_CELLS * BLOCK_STEPS / run_s,
+                      "ptxas": ptxas}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if "--euler-digest" in sys.argv:
+        args = sys.argv[1:]
+        root = (pathlib.Path(args[args.index("--package-root") + 1])
+                if "--package-root" in args else ROOT)
+        euler_digest(root.resolve())
+    else:
+        main()

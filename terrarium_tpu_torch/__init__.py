@@ -1,10 +1,14 @@
 """terrarium_tpu_torch — the PyTorch and CUDA port of terrarium_tpu.
 
-This slice runs the main path: a :class:`SoilModel` with two-phase heat
-conduction, the free-water freeze curve and Richards-equation hydrology,
-stepped by Forward Euler. ``Simulation.run`` goes through a hand-written CUDA
-column kernel on an NVIDIA Hopper card and through its plain PyTorch version
-on the CPU (``ops/fused_step.py``).
+A :class:`SoilModel` with two-phase heat conduction and the free-water
+freeze curve, either heat only (``NoFlow``, the default, as in the JAX
+package) or with Richards-equation hydrology, stepped by ForwardEuler or
+Heun, with the top temperature given as a value, ``f(t)`` or an input
+variable fed by ``FieldInputSource`` / ``TimeSeriesInputSource``.
+``Simulation.run`` goes through hand-written CUDA column kernels on an NVIDIA
+Hopper card and through their plain PyTorch version on the CPU
+(``ops/fused_step.py``); gradients through a CUDA segment-VJP kernel
+(``timesteppers/fused_grad.py``).
 
 Tensors are ``(Nz, cells)`` with ``k = 0`` the bottom layer, as in the JAX
 package; the grid carries the dtype and device. The package imports torch
@@ -27,13 +31,15 @@ from .processes.soil.stratigraphy import (ConstantSoilCarbonDensity, ConstantSoi
 from .processes.soil.thermal import (FreeWater, InverseQuadratic, SoilHeatCapacities,
                                      SoilThermalConductivities, SoilThermalProperties)
 from .processes.soil.energy import SoilEnergyBalance, SoilEnergyTemperatureClosure
-from .processes.soil.swrc import VanGenuchten
-from .processes.soil.hydraulics import ConstantSoilHydraulics, UnsatKVanGenuchten
-from .processes.soil.hydrology import (RichardsEq, SoilHydrology,
+from .processes.soil.swrc import BrooksCorey, VanGenuchten
+from .processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSURFEX,
+                                         UnsatKLinear, UnsatKVanGenuchten)
+from .processes.soil.hydrology import (NoFlow, RichardsEq, SoilHydrology,
                                        SoilSaturationPressureClosure)
 from .processes.soil.soil_coupled import SoilEnergyWaterCarbon
 from .models.boundary_conditions import PrescribedSurfaceTemperature
 from .models.initializers import DefaultInitializer
 from .models.soil_model import SoilModel
-from .timesteppers.stepping import ForwardEuler
+from .io.input_sources import FieldInputSource, TimeSeriesInputSource
+from .timesteppers.stepping import ForwardEuler, Heun
 from .timesteppers.integrator import Simulation, initialize

@@ -22,7 +22,7 @@ import torch
 
 from .processes.soil.energy import SoilEnergyBalance
 from .processes.soil.hydraulics import ConstantSoilHydraulics, UnsatKVanGenuchten
-from .processes.soil.hydrology import SoilHydrology
+from .processes.soil.hydrology import RichardsEq, SoilHydrology
 from .processes.soil.soil_coupled import SoilEnergyWaterCarbon
 from .processes.soil.stratigraphy import (ConstantSoilCarbonDensity, ConstantSoilPorosity,
                                           HomogeneousStratigraphy, SoilTexture)
@@ -69,7 +69,8 @@ def params_from_dict(d: Mapping) -> SoilEnergyWaterCarbon:
     porosity and carbon, the free-water curve with inverse-quadratic
     conductivity, and Richards flow with ``ConstantSoilHydraulics`` of
     ``VanGenuchten`` and ``UnsatKVanGenuchten``. Marker processes (empty
-    dicts) carry no numbers and are implied. ``asdict`` loses the class of
+    dicts, such as the flow operator) carry no numbers and are implied:
+    the hydrology is always ``RichardsEq``. ``asdict`` loses the class of
     each member, so a dict of another parameterization with the same keys
     cannot be told apart: pass only main-path configurations."""
     strat, energy, hyd, bgc = d["strat"], d["energy"], d["hydrology"], d["biogeochem"]
@@ -82,7 +83,8 @@ def params_from_dict(d: Mapping) -> SoilEnergyWaterCarbon:
         energy=SoilEnergyBalance(thermal_properties=SoilThermalProperties(
             conductivities=SoilThermalConductivities(**tp["conductivities"]),
             heat_capacities=SoilHeatCapacities(**tp["heat_capacities"]))),
-        hydrology=SoilHydrology(hydraulic_properties=ConstantSoilHydraulics(
+        hydrology=SoilHydrology(vertical_flow=RichardsEq(),
+                                hydraulic_properties=ConstantSoilHydraulics(
             swrc=VanGenuchten(**hp["swrc"]),
             unsat_hydraulic_cond=UnsatKVanGenuchten(**hp["unsat_hydraulic_cond"]),
             sat_hydraulic_cond=hp["sat_hydraulic_cond"],

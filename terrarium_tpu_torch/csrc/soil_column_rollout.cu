@@ -1,35 +1,45 @@
-// Soil heat + Richards column rollout for Hopper (sm_90a).
+// Soil column rollouts for Hopper (sm_90a): ForwardEuler or Heun, heat +
+// Richards flow or heat only.
 //
-// Replaces terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout for its
-// main-path specialisation: SoilModel with two-phase heat conduction and the
-// free-water freeze curve, Richards flow with
-// ConstantSoilHydraulics(VanGenuchten, UnsatKVanGenuchten), ForwardEuler, a
-// Dirichlet top temperature, no input sources.
+// Replaces terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout for
+// SoilModel with two-phase heat conduction and the free-water freeze curve,
+// either with Richards flow over (ConstantSoilHydraulics or
+// SoilHydraulicsSURFEX of) VanGenuchten and UnsatKVanGenuchten, or heat only
+// (NoFlow: the saturation is read and never written), stepped by
+// ForwardEuler or Heun, with a Dirichlet top temperature. The top
+// temperature is a table, one row per clock time (HEUN: n + 1 rows), or a
+// uniformly spaced series interpolated here at each clock time (the
+// counterpart of _WindowSource, fused_step.py:92, which reads a (W, block)
+// window with one-hot row masks because Mosaic has no gather; a thread
+// here reads the two rows it needs).
 //
-// One thread owns one column and runs `steps` applications of
-// ForwardEuler.pre_closure_step on it (soil::step in soil_step.cuh): closure
-// (saturation adjustment, water table, pressure head, energy -> temperature),
-// centre and face hydraulic conductivity, heat and Darcy fluxes, explicit
-// update. The live carry (internal energy, saturation, surface pool) is read
-// once and written once per launch; everything else lives in registers for
-// the whole launch.
+// One thread owns one column and runs `steps` applications of the step on
+// it (soil::rollout_column, soil::step and soil::heun_step in
+// soil_step.cuh). The live carry (internal energy, and for Richards the
+// saturation and the surface pool) is read once and written once per
+// launch; the heat-only saturation is read once; everything else lives in
+// registers for the whole launch. The clock advances by the same repeated
+// addition as Clock.tick.
 //
 // What bounds it on this card: arithmetic (FP32 or FP64 ALU, with a pow,
-// a cube root and four square roots per level and step) and registers, not
-// HBM bytes: the carry is 61 values per column, read and written once per
-// launch, against thousands of operations per column and step. The column
-// is kept in fully unrolled per-thread register arrays (template NZ, unrolled
-// z-loops), so the two sweeps and the face stencils are register-to-register
-// recurrences with constant indices. About 3*NZ values are live per thread
-// (energy, saturation, centre conductivity) plus temporaries; the grid
-// coordinates sit in shared memory.
+// a cube root and four square roots per level and stage for Richards) and
+// registers, not HBM bytes: the carry is 61 values per column, read and
+// written once per launch, against thousands of operations per column and
+// step; a series adds two reads per column and stage. The column is kept in
+// fully unrolled per-thread register arrays (template NZ, unrolled z-loops),
+// so the two sweeps and the face stencils are register-to-register
+// recurrences with constant indices. ForwardEuler holds about 3*NZ values
+// live (energy, saturation, centre conductivity); Heun about 7*NZ (the
+// carry, its tendencies, the stage and the conductivities) and spills at
+// NZ 30; the grid coordinates sit in shared memory.
 //
 // Memory layout: fields are (NZ, cells) with k = 0 the bottom layer; element
 // (k, col) is at k*cells + col, so neighbouring threads touch neighbouring
 // addresses. The ragged tail is masked with col < cells.
 //
-// Plain C interface, loaded with ctypes: one entry point per type and NZ,
-// each returning cudaGetLastError() after the launch.
+// Plain C interface, loaded with ctypes: one entry point per instantiation
+// (SOIL_ENTRY, with SOIL_T, SOIL_NZ, SOIL_HEUN and SOIL_HEAT), each
+// launching the table or the series kernel and returning cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -39,11 +49,12 @@ namespace {
 
 using soil::Consts;
 
-template <typename T, int NZ>
+template <typename T, int NZ, bool HEUN, bool HEAT, bool SERIES>
 __global__ void __launch_bounds__(64) soil_column_rollout_kernel(
     const T* __restrict__ U_in, const T* __restrict__ sat_in, const T* __restrict__ S_in,
     T* __restrict__ U_out, T* __restrict__ sat_out, T* __restrict__ S_out,
     const T* __restrict__ top_T, long long top_step_stride, long long top_cell_stride,
+    const int series_rows, const T series_t0, const T series_dts, const T time0,
     const T* __restrict__ dz_g, const T* __restrict__ dzf_g,
     const T* __restrict__ zc_g, const T* __restrict__ zf_g,
     const SoilColumnParams P, const int steps, const T dt, const long long cells)
@@ -65,55 +76,65 @@ __global__ void __launch_bounds__(64) soil_column_rollout_kernel(
         U[k] = U_in[k * cells + col];
         sat[k] = sat_in[k * cells + col];
     }
-    T S = S_in[col];
+    T S = HEAT ? T(0) : S_in[col];
 
-    for (int s = 0; s < steps; ++s) {
-        const T vtop = top_T[s * top_step_stride + col * top_cell_stride];
-        soil::step<T, NZ>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt);
-    }
+    soil::rollout_column<T, NZ, HEUN, HEAT, SERIES>(
+        U, sat, S, top_T + col * top_cell_stride, top_step_stride, series_rows, series_t0,
+        series_dts, time0, steps, c, P, dz, dzf, zc, zf, dt);
 
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
         U_out[k * cells + col] = U[k];
-        sat_out[k * cells + col] = sat[k];
+        if (!HEAT) sat_out[k * cells + col] = sat[k];
     }
-    S_out[col] = S;
+    if (!HEAT) S_out[col] = S;
 }
 
-template <typename T, int NZ>
+template <typename T, int NZ, bool HEUN, bool HEAT>
 int launch(const T* U_in, const T* sat_in, const T* S_in, T* U_out, T* sat_out, T* S_out,
            const T* top_T, long long top_step_stride, long long top_cell_stride,
+           int series_rows, double series_t0, double series_dts, double time0,
            const T* dz, const T* dzf, const T* zc, const T* zf,
            const SoilColumnParams* P, int steps, double dt, long long cells,
            cudaStream_t stream)
 {
     const int threads = 64;
     const unsigned blocks = (unsigned)((cells + threads - 1) / threads);
-    soil_column_rollout_kernel<T, NZ><<<blocks, threads, 0, stream>>>(
-        U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride,
-        top_cell_stride, dz, dzf, zc, zf, *P, steps, T(dt), cells);
+    if (series_rows > 0) {
+        soil_column_rollout_kernel<T, NZ, HEUN, HEAT, true><<<blocks, threads, 0, stream>>>(
+            U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride,
+            top_cell_stride, series_rows, T(series_t0), T(series_dts), T(time0), dz, dzf, zc,
+            zf, *P, steps, T(dt), cells);
+    } else {
+        soil_column_rollout_kernel<T, NZ, HEUN, HEAT, false><<<blocks, threads, 0, stream>>>(
+            U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride,
+            top_cell_stride, 0, T(0), T(0), T(time0), dz, dzf, zc, zf, *P, steps, T(dt),
+            cells);
+    }
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One entry point per instantiation, soil_column_rollout_<f32|f64>_nz<NZ>.
-// The build (ops/cuda_build.py) compiles each instantiation in its own nvcc,
-// in parallel, with SOIL_SUFFIX, SOIL_T and SOIL_NZ defined.
-#if !defined(SOIL_SUFFIX) || !defined(SOIL_T) || !defined(SOIL_NZ)
-#error "build with -DSOIL_SUFFIX=f32|f64 -DSOIL_T=float|double -DSOIL_NZ=<levels>"
+// One entry point per instantiation, named SOIL_ENTRY
+// (soil_column_rollout_<euler|heun>_<richards|heat>_<f32|f64>_nz<NZ>). The
+// build (ops/cuda_build.py) compiles each instantiation in its own nvcc, in
+// parallel, with SOIL_ENTRY, SOIL_T, SOIL_NZ, SOIL_HEUN and SOIL_HEAT defined.
+#if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ) || !defined(SOIL_HEUN) || \
+    !defined(SOIL_HEAT)
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DSOIL_HEUN=0|1 -DSOIL_HEAT=0|1"
 #endif
-#define SOIL_ROLLOUT_ENTRY(SUFFIX, T, NZ)                                                  \
-    extern "C" int soil_column_rollout_##SUFFIX##_nz##NZ(                                  \
-        const T* U_in, const T* sat_in, const T* S_in, T* U_out, T* sat_out, T* S_out,     \
-        const T* top_T, long long top_step_stride, long long top_cell_stride, const T* dz, \
-        const T* dzf, const T* zc, const T* zf, const SoilColumnParams* P, int steps,      \
-        double dt, long long cells, void* stream)                                          \
-    {                                                                                      \
-        return launch<T, NZ>(U_in, sat_in, S_in, U_out, sat_out, S_out, top_T,             \
-                             top_step_stride, top_cell_stride, dz, dzf, zc, zf, P, steps,  \
-                             dt, cells, (cudaStream_t)stream);                             \
-    }
-#define SOIL_ROLLOUT_ENTRY_OF(SUFFIX, T, NZ) SOIL_ROLLOUT_ENTRY(SUFFIX, T, NZ)
 
-SOIL_ROLLOUT_ENTRY_OF(SOIL_SUFFIX, SOIL_T, SOIL_NZ)
+extern "C" int SOIL_ENTRY(const SOIL_T* U_in, const SOIL_T* sat_in, const SOIL_T* S_in,
+                          SOIL_T* U_out, SOIL_T* sat_out, SOIL_T* S_out, const SOIL_T* top_T,
+                          long long top_step_stride, long long top_cell_stride, int series_rows,
+                          double series_t0, double series_dts, double time0, const SOIL_T* dz,
+                          const SOIL_T* dzf, const SOIL_T* zc, const SOIL_T* zf,
+                          const SoilColumnParams* P, int steps, double dt, long long cells,
+                          void* stream)
+{
+    return launch<SOIL_T, SOIL_NZ, SOIL_HEUN != 0, SOIL_HEAT != 0>(
+        U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride, top_cell_stride,
+        series_rows, series_t0, series_dts, time0, dz, dzf, zc, zf, P, steps, dt, cells,
+        (cudaStream_t)stream);
+}

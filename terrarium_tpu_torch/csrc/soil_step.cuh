@@ -1,13 +1,15 @@
 // One closure-rotated soil step on one column, and its adjoint.
 //
-// Shared by csrc/soil_column_rollout.cu (the forward rollout) and
+// Shared by csrc/soil_column_rollout.cu (the forward rollouts) and
 // csrc/soil_column_segment_vjp.cu (the segment VJP), so that the VJP kernel's
-// forward reproduces the rollout kernel's carries bit for bit. The step is
-// ForwardEuler.pre_closure_step of the main-path SoilModel: closure
-// (saturation adjustment, water table, pressure head, energy -> temperature),
-// centre and face hydraulic conductivity, heat and Darcy fluxes, explicit
-// update. ops/fused_step.py::_plain_step is its plain PyTorch version, in the
-// same order of operations.
+// forward reproduces the rollout kernel's carries bit for bit. closure_rhs
+// is the closure and the tendencies of a SoilModel: closure (saturation
+// adjustment, water table, pressure head, energy -> temperature), centre and
+// face hydraulic conductivity, heat and Darcy fluxes; or, for the heat-only
+// model (NoFlow), the energy closure and the heat flux alone. step is
+// ForwardEuler.pre_closure_step on it, heun_step Heun.pre_closure_step.
+// ops/fused_step.py::_plain_rhs, _plain_euler and _plain_heun are their
+// plain PyTorch versions, in the same order of operations.
 //
 // Layout of a column: arrays of NZ levels with k = 0 the bottom layer, held
 // in fully unrolled per-thread arrays (template NZ); coordinates are passed
@@ -67,6 +69,8 @@ SOIL_FN float d_pow(float x, float y) { return powf(x, y); }
 SOIL_FN double d_pow(double x, double y) { return pow(x, y); }
 SOIL_FN float d_log(float x) { return logf(x); }
 SOIL_FN double d_log(double x) { return log(x); }
+SOIL_FN float d_floor(float x) { return floorf(x); }
+SOIL_FN double d_floor(double x) { return floor(x); }
 
 // max/min that return NaN when either argument is NaN, as torch.maximum,
 // torch.minimum and torch.clamp do
@@ -149,9 +153,9 @@ struct Consts {
 
 // The closure and conductivities of one level from its adjusted saturation
 // and energy: FreeWater liquid fraction and temperature, heat capacity, bulk
-// thermal conductivity, Mualem-van Genuchten centre conductivity
-// (hydraulics.py:50-87).
-template <typename T>
+// thermal conductivity and, WITH_K, the Mualem-van Genuchten centre
+// conductivity (hydraulics.py:50-87).
+template <typename T, bool WITH_K = true>
 struct Level {
     T L_theta, negL, liq, wi, water, ice, air, C, Tk, acc, kap;
     T I_ice, se, se_s, A, inner, sq, Kc;
@@ -168,6 +172,7 @@ struct Level {
         Tk = Uk < negL ? (Uk + L_theta) / C : (Uk >= T(0) ? Uk / C : T(0));
         acc = c.sk_water * water + c.sk_ice * ice + c.sk_air * air + c.sk_mineral + c.sk_organic;
         kap = acc * acc;
+        if (!WITH_K) return;
         I_ice = d_pow(T(10), c.neg_impedance * (T(1) - liq));
         se = vmin(vmax(water / c.k_theta_sat, T(0)), T(1));
         frozen = se <= c.eps_lo;
@@ -232,31 +237,41 @@ SOIL_FN void sweeps(T (&sat)[NZ], T& spill, T& wt, unsigned& spilled, unsigned& 
     }
 }
 
-// One pre_closure_step of the column (U, sat, S) in place; vtop is the top
-// temperature of this step.
-template <typename T, int NZ>
-SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Consts<T>& c,
-                  const SoilColumnParams& P, const T* dz, const T* dzf, const T* zc,
-                  const T* zf, const T dt)
+// The closure and tendencies of one closure-rotated step of the column
+// (U, sat, S) with top temperature vtop, in the modules' order. Richards:
+// the saturation adjustment in place (sat, and S += spill) and the water
+// table; then level by level the energy closure, the centre conductivity
+// and the heat flux; then the pressure head and the Darcy flux. HEAT (the
+// heat-only model): the energy closure and the heat flux alone, sat read
+// only. Each tendency goes to `out` as soon as it is formed, so that a sink
+// may update the level in place (energy of level k once the flux above it
+// is known): out.energy(k, dU/dt), out.water(k, dsat/dt), out.pool(dS/dt).
+template <typename T, int NZ, bool HEAT, class Out>
+SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop,
+                         const Consts<T>& c, const SoilColumnParams& P, const T* dz,
+                         const T* dzf, const T* zc, const T* zf, Out& out)
 {
     T Kc[NZ];
 
     // ---- closure: saturation adjustment and water table
-    T spill, wt;
-    unsigned spilled, clipped;
-    sweeps<T, NZ>(sat, spill, wt, spilled, clipped, dz, zf);
-    S = S + spill;
+    T wt = T(0);
+    if (!HEAT) {
+        T spill;
+        unsigned spilled, clipped;
+        sweeps<T, NZ>(sat, spill, wt, spilled, clipped, dz, zf);
+        S = S + spill;
+    }
 
-    // ---- energy closure, centre conductivities, heat flux, energy update
+    // ---- energy closure, centre conductivities, heat flux
     T T_prev = T(0), kap_prev = T(0), qh_prev = T(0);
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
-        const Level<T> v(sat[k], U[k], c, P);
-        Kc[k] = v.Kc;
+        const Level<T, !HEAT> v(sat[k], U[k], c, P);
+        if (!HEAT) Kc[k] = v.Kc;
         // heat flux at the face below cell k; zero gradient at the bottom
         const T kf = T(0.5) * (v.kap + (k == 0 ? v.kap : kap_prev));
         const T qh = -kf * ((v.Tk - (k == 0 ? v.Tk : T_prev)) / dzf[k]);
-        if (k > 0) U[k - 1] = U[k - 1] + (-((qh - qh_prev) / dz[k - 1])) * dt;
+        if (k > 0) out.energy(k - 1, -((qh - qh_prev) / dz[k - 1]));
         qh_prev = qh;
         T_prev = v.Tk;
         kap_prev = v.kap;
@@ -265,10 +280,11 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Consts<T>&
         const T ghost = T(2) * vtop - T_prev;
         const T kf = T(0.5) * (kap_prev + kap_prev);
         const T qh = -kf * ((ghost - T_prev) / dzf[NZ]);
-        U[NZ - 1] = U[NZ - 1] + (-((qh - qh_prev) / dz[NZ - 1])) * dt;
+        out.energy(NZ - 1, -((qh - qh_prev) / dz[NZ - 1]));
     }
+    if (HEAT) return;
 
-    // ---- pressure head, Darcy flux with upwind-min face K, water update
+    // ---- pressure head, Darcy flux with upwind-min face K
     T psi_prev = T(0), qw_prev = T(0);
 #pragma unroll
     for (int k = 0; k <= NZ; ++k) {
@@ -281,11 +297,130 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Consts<T>&
         const T K_k = face_K<T, NZ>(Kc, k);
         const T K_eff = grad < T(0) ? vmin(K_lo, K_k) : vmin(K_k, K_hi);
         const T qw = -K_eff * grad;
-        if (k > 0) sat[k - 1] = sat[k - 1] + ((-((qw - qw_prev) / dz[k - 1])) / c.por) * dt;
+        if (k > 0) out.water(k - 1, (-((qw - qw_prev) / dz[k - 1])) / c.por);
         qw_prev = qw;
         psi_prev = psi_k;
     }
-    S = S + vmin(T(0), S) * dt;  // parity surface-pool term +min(0, S)
+    out.pool(vmin(T(0), S));  // parity surface-pool term +min(0, S)
+}
+
+// ForwardEuler's update x + f * dt, level by level as closure_rhs forms f
+template <typename T, int NZ>
+struct EulerUpdate {
+    T (&U)[NZ];
+    T (&sat)[NZ];
+    T& S;
+    const T dt;
+    SOIL_FN void energy(int k, T f) { U[k] = U[k] + f * dt; }
+    SOIL_FN void water(int k, T f) { sat[k] = sat[k] + f * dt; }
+    SOIL_FN void pool(T f) { S = S + f * dt; }
+};
+
+// the tendencies of Heun's first stage, kept
+template <typename T, int NZ>
+struct Tendencies {
+    T U[NZ], sat[NZ], S;
+    SOIL_FN void energy(int k, T f) { U[k] = f; }
+    SOIL_FN void water(int k, T f) { sat[k] = f; }
+    SOIL_FN void pool(T f) { S = f; }
+};
+
+// Heun's corrector x + (0.5 * (f_n + f*)) * dt, level by level as
+// closure_rhs forms f* at the stage
+template <typename T, int NZ>
+struct HeunUpdate {
+    T (&U)[NZ];
+    T (&sat)[NZ];
+    T& S;
+    const Tendencies<T, NZ>& f;
+    const T dt;
+    SOIL_FN void energy(int k, T g) { U[k] = U[k] + (T(0.5) * (f.U[k] + g)) * dt; }
+    SOIL_FN void water(int k, T g) { sat[k] = sat[k] + (T(0.5) * (f.sat[k] + g)) * dt; }
+    SOIL_FN void pool(T g) { S = S + (T(0.5) * (f.S + g)) * dt; }
+};
+
+// One ForwardEuler.pre_closure_step of the column (U, sat, S) in place;
+// vtop is the top temperature of this step. The update streams into the
+// column as the tendencies are formed, so no tendency array is held.
+template <typename T, int NZ, bool HEAT = false>
+SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Consts<T>& c,
+                  const SoilColumnParams& P, const T* dz, const T* dzf, const T* zc,
+                  const T* zf, const T dt)
+{
+    EulerUpdate<T, NZ> out{U, sat, S, dt};
+    closure_rhs<T, NZ, HEAT>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, out);
+}
+
+// One Heun.pre_closure_step of the column in place (stepping.py:167-188):
+// closure(x_n) and f_n at v0 (the top temperature at t_n); the stage
+// y = x_n + f_n * dt, closure(y) and f* at v1 (at t_n + dt); then
+// x_n + (0.5 * (f_n + f*)) * dt. The surface pool takes part like the
+// other prognostics. Live across the stage: x_n, f_n, y and Kc, about
+// 7 * NZ values.
+template <typename T, int NZ, bool HEAT>
+SOIL_FN void heun_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T v0, const T v1,
+                       const Consts<T>& c, const SoilColumnParams& P, const T* dz,
+                       const T* dzf, const T* zc, const T* zf, const T dt)
+{
+    Tendencies<T, NZ> f;
+    closure_rhs<T, NZ, HEAT>(U, sat, S, v0, c, P, dz, dzf, zc, zf, f);
+    T yU[NZ], ys[NZ];
+    T yS = HEAT ? T(0) : S + f.S * dt;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        yU[k] = U[k] + f.U[k] * dt;
+        ys[k] = HEAT ? sat[k] : sat[k] + f.sat[k] * dt;
+    }
+    HeunUpdate<T, NZ> out{U, sat, S, f, dt};
+    closure_rhs<T, NZ, HEAT>(yU, ys, yS, v1, c, P, dz, dzf, zc, zf, out);
+}
+
+// A uniformly spaced series at clock time t (ops/fused_step.py::series_value,
+// the counterpart of _WindowSource.update_inputs, fused_step.py:104-122, read
+// from the whole series instead of a window): `s` points at the column's
+// value of row 0, rows `row_stride` apart, at the times t0 + r * dts.
+// u = clamp((t - t0) / dts, 0, rows - 1), r = floor(u), w = u - r, value
+// (1 - w) * s[r] + w * s[min(r + 1, rows - 1)], flat beyond the ends.
+template <typename T>
+SOIL_FN T series_value(const T* s, const long long row_stride, const int rows, const T t0,
+                       const T dts, const T t)
+{
+    const T u = vmin(vmax((t - t0) / dts, T(0)), T(rows - 1));
+    const T r = d_floor(u);
+    const T w = u - r;
+    const int i = (int)r;
+    const int j = i + 1 < rows ? i + 1 : rows - 1;
+    return (T(1) - w) * s[i * row_stride] + w * s[j * row_stride];
+}
+
+// `steps` closure-rotated steps of one column (U, sat, S) in place, ForwardEuler
+// or HEUN, from the clock time t, which advances by t + dt as Clock.tick
+// does. The top temperature of clock time i is top[i * step_stride] (a
+// table; HEUN reads steps + 1 rows) or, SERIES, the series at `top` read
+// at the clock time; `top` points at the column's element of row 0.
+template <typename T, int NZ, bool HEUN, bool HEAT, bool SERIES>
+SOIL_FN void rollout_column(T (&U)[NZ], T (&sat)[NZ], T& S, const T* top,
+                            const long long step_stride, const int rows, const T t0,
+                            const T dts, T t, const int steps, const Consts<T>& c,
+                            const SoilColumnParams& P, const T* dz, const T* dzf,
+                            const T* zc, const T* zf, const T dt)
+{
+    for (int s = 0; s < steps; ++s) {
+        if (HEUN) {
+            const T t1 = t + dt;
+            const T v0 = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
+                                : top[s * step_stride];
+            const T v1 = SERIES ? series_value(top, step_stride, rows, t0, dts, t1)
+                                : top[(s + 1) * step_stride];
+            heun_step<T, NZ, HEAT>(U, sat, S, v0, v1, c, P, dz, dzf, zc, zf, dt);
+            t = t1;
+        } else {
+            const T vtop = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
+                                  : top[s * step_stride];
+            step<T, NZ, HEAT>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt);
+            if (SERIES) t = t + dt;
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------

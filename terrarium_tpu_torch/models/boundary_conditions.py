@@ -9,6 +9,6 @@ __all__ = ["PrescribedSurfaceTemperature"]
 
 def PrescribedSurfaceTemperature(value):
     """Value BC on top `temperature` [degC] (reference `soil_model_bcs.jl:17`):
-    a scalar, a ``(cells,)`` tensor or a callable ``f(t)`` on a torch time
-    tensor."""
+    a scalar, a ``(cells,)`` tensor, the name of an input variable (fed by
+    an input source) or a callable ``f(t)`` on a torch time tensor."""
     return {"temperature": {"top": Dirichlet(value)}}

@@ -23,11 +23,17 @@ class SoilModel:
     constants: PhysicalConstants = PhysicalConstants()
     initializer: Any = DefaultInitializer()
 
-    #: the state a closure-rotated step reads: these prognostic fields plus
-    #: the clock. Everything else is rebuilt inside the step from them (the
-    #: JAX package finds the same set by dead-code elimination of the traced
-    #: step, `utils/scan_dce.py`; torch has no such pass, so it is declared).
-    live_carry = ("internal_energy", "saturation_water_ice", "surface_excess_water")
+    @property
+    def live_carry(self) -> tuple:
+        """The prognostic fields a closure-rotated step reads and writes,
+        besides the clock. Everything else is rebuilt inside the step from
+        them (the JAX package finds the same set by dead-code elimination of
+        the traced step, `utils/scan_dce.py`; torch has no such pass, so it
+        is declared). Under ``NoFlow`` the step also reads the saturation,
+        an auxiliary that it never writes."""
+        if self.soil.hydrology.richards:
+            return ("internal_energy", "saturation_water_ice", "surface_excess_water")
+        return ("internal_energy",)
 
     def variables(self) -> tuple:
         return variables_of(self.soil)

@@ -3,12 +3,14 @@
 Each kernel source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use, into
 ``_build/<name>-<hash>.so`` beside the package; the hash covers the source and
-every header in ``csrc/``. A source defines one entry point
-``<name>_<f32|f64>_nz<NZ>`` per instantiation; each instantiation is
-compiled by its own ``nvcc`` (``-DSOIL_SUFFIX -DSOIL_T -DSOIL_NZ``), all of
-them and all the sources asked for together in parallel, and linked into the
-source's library. ptxas's register and spill report is kept beside the
-library as ``.ptxas.txt``.
+every header in ``csrc/``. A source defines one entry point per
+instantiation, ``<name>[_<tag>...]_<f32|f64>_nz<NZ>``, from the list of that
+source in ``INSTANTIATIONS``; each instantiation is compiled by its own
+``nvcc`` (``-DSOIL_ENTRY -DSOIL_SUFFIX -DSOIL_T -DSOIL_NZ`` and the tags'
+defines), all of them and all the sources asked for together in parallel,
+and linked into the source's library. ptxas's register and spill report is
+kept beside the library as ``.ptxas.txt``, each instantiation's part headed
+by a line ``== <entry point>``.
 """
 from __future__ import annotations
 
@@ -23,13 +25,24 @@ import threading
 
 import torch
 
-__all__ = ["build", "ptxas_report", "entry", "SUPPORTED_NZ"]
+__all__ = ["build", "ptxas_report", "entry", "INSTANTIATIONS"]
 
-#: vertical sizes the kernels are instantiated for (the golden, bench and
-#: gradient grids)
-SUPPORTED_NZ = (20, 30)
-_VARIANTS = [(suffix, ctype, nz) for suffix, ctype in (("f32", "float"), ("f64", "double"))
-             for nz in SUPPORTED_NZ]
+_F32, _F64 = torch.float32, torch.float64
+#: the instantiations of each source, ``(tags, dtype, NZ)``: every one that
+#: the port's paths, ``chip_smoke.py`` and the CUDA tests launch (the bench
+#: and gradient grids at Nz 20 and 30, the Heun golden at Nz 15); a launch of
+#: any other raises
+INSTANTIATIONS = {
+    "soil_column_rollout": [
+        *((("euler", "richards"), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)),
+        (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
+        (("euler", "heat"), _F32, 30), (("euler", "heat"), _F64, 30),
+    ],
+    "soil_column_segment_vjp": [((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)],
+}
+_DEFINES = {"euler": "SOIL_HEUN=0", "heun": "SOIL_HEUN=1", "richards": "SOIL_HEAT=0",
+            "heat": "SOIL_HEAT=1"}
+_SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -82,26 +95,31 @@ def build(*names: str) -> list:
             with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
                 nvcc, jobs = _nvcc(), []
                 for n in missing:
-                    for suffix, ctype, nz in _VARIANTS:
-                        obj = pathlib.Path(tmp) / f"{n}_{suffix}_nz{nz}.o"
-                        jobs.append((n, obj, [
+                    for tags, dtype, nz in INSTANTIATIONS[n]:
+                        suffix, ctype = _SUFFIX[dtype]
+                        name = _entry_name(n, tags, dtype, nz)
+                        obj = pathlib.Path(tmp) / f"{name}.o"
+                        jobs.append((n, name, obj, [
                             nvcc, *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                            "-Xptxas", "-v", f"-DSOIL_SUFFIX={suffix}", f"-DSOIL_T={ctype}",
-                            f"-DSOIL_NZ={nz}", "-c", "-o", str(obj), str(_CSRC / f"{n}.cu")]))
-                results = _run_all([cmd for _, _, cmd in jobs])
+                            "-Xptxas", "-v", f"-DSOIL_ENTRY={name}", f"-DSOIL_SUFFIX={suffix}",
+                            f"-DSOIL_T={ctype}", f"-DSOIL_NZ={nz}",
+                            *(f"-D{_DEFINES[t]}" for t in tags), "-c", "-o", str(obj),
+                            str(_CSRC / f"{n}.cu")]))
+                results = _run_all([cmd for *_, cmd in jobs])
                 failed = [f"{obj.name}: nvcc exit {rc}\n{err}"
-                          for (_, obj, _), (rc, err) in zip(jobs, results) if rc != 0]
+                          for (_, _, obj, _), (rc, err) in zip(jobs, results) if rc != 0]
                 if failed:
                     raise RuntimeError("\n".join(failed))
                 links = [[nvcc, *_ARCH, "-shared", "-o", str(pathlib.Path(tmp) / f"{stems[n]}.so"),
-                          *(str(obj) for m, obj, _ in jobs if m == n)]
+                          *(str(obj) for m, _, obj, _ in jobs if m == n)]
                          for n in missing]
                 failed = [f"{n}: link exit {rc}\n{err}"
                           for n, (rc, err) in zip(missing, _run_all(links)) if rc != 0]
                 if failed:
                     raise RuntimeError("\n".join(failed))
                 for n in missing:
-                    report = "".join(err for (m, _, _), (_, err) in zip(jobs, results) if m == n)
+                    report = "".join(f"== {name}\n{err}" for (m, name, _, _), (_, err)
+                                     in zip(jobs, results) if m == n)
                     (_BUILD_DIR / f"{stems[n]}.ptxas.txt").write_text(report)
                     os.replace(pathlib.Path(tmp) / f"{stems[n]}.so",
                                _BUILD_DIR / f"{stems[n]}.so")
@@ -110,12 +128,22 @@ def build(*names: str) -> list:
         return [_libs[n] for n in names]
 
 
-def entry(name: str, dtype: torch.dtype, nz: int, argtypes):
-    """The entry point ``<name>_<f32|f64>_nz<NZ>`` of ``csrc/<name>.cu``'s
-    library (built at first use), typed with ``argtypes`` and an int result
-    (the launch's CUDA error code)."""
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    fn = getattr(build(name)[0], f"{name}_{suffix}_nz{nz}")
+def _entry_name(name: str, tags, dtype: torch.dtype, nz: int) -> str:
+    return "_".join((name, *tags, _SUFFIX[dtype][0], f"nz{nz}"))
+
+
+def entry(name: str, dtype: torch.dtype, nz: int, argtypes, tags=()):
+    """The entry point ``<name>[_<tag>...]_<f32|f64>_nz<NZ>`` of
+    ``csrc/<name>.cu``'s library (built at first use), typed with
+    ``argtypes`` and an int result (the launch's CUDA error code). Raises
+    ``ValueError`` naming the built instantiations for any other."""
+    tags = tuple(tags)
+    if (tags, dtype, nz) not in INSTANTIATIONS[name]:
+        built = ", ".join(f"{'/'.join(t) + ' ' if t else ''}{_SUFFIX[d][0]} Nz {z}"
+                          for t, d, z in INSTANTIATIONS[name])
+        raise ValueError(f"{name} is not built for {'/'.join(tags) + ' ' if tags else ''}"
+                         f"{_SUFFIX.get(dtype, (dtype,))[0]} Nz {nz}; built: {built}")
+    fn = getattr(build(name)[0], _entry_name(name, tags, dtype, nz))
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

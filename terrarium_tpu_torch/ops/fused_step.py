@@ -1,17 +1,30 @@
-"""The soil column rollout: a hand-written CUDA kernel, its plain PyTorch
-version and the wrapper that picks between them by device.
+"""The soil column rollout: hand-written CUDA kernels, their plain PyTorch
+version and the wrappers that pick between them by device.
 
-``soil_column_rollout`` applies ``ForwardEuler.pre_closure_step`` ``n``
-times to the live carry of the main-path :class:`SoilModel` (internal energy,
-saturation, surface pool) and returns the new carry. It replaces
-``terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout`` for that
-configuration. The CUDA source is ``csrc/soil_column_rollout.cu`` (its step
-body is ``csrc/soil_step.cuh``); it is compiled with ``nvcc`` at first use
-into ``_build/`` beside this package and loaded with ctypes.
+A rollout applies ``pre_closure_step`` ``n`` times to the live carry of a
+:class:`SoilModel` and returns the new carry. It replaces
+``terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout`` for the
+configurations below, one kernel family (and one wrapper) each:
 
-On CPU tensors the wrapper runs :func:`soil_column_rollout_plain`; on CUDA
-tensors it launches the kernel or raises. Each launch adds one to
-``soil_column_rollout.launches``.
+* :func:`soil_column_rollout`: ForwardEuler, heat + Richards flow; carry
+  internal energy, saturation and surface pool;
+* :func:`soil_column_heun_rollout`: Heun, heat + Richards flow, the same
+  carry;
+* :func:`soil_column_heat_rollout`: ForwardEuler, heat only (``NoFlow``);
+  carry the internal energy, the saturation read and never written.
+
+The top temperature is either a table, one row per clock time (``(rows,)``
+or ``(rows, cells)``, strides may be 0; Heun reads ``n + 1`` rows, the
+stage of step ``i`` reading row ``i + 1``), or a :class:`SeriesBC`, a
+uniformly spaced series that the kernel interpolates at each clock time
+itself (the counterpart of ``_WindowSource``, `fused_step.py:92-122`,
+without its window). The CUDA source is ``csrc/soil_column_rollout.cu``
+(the step in ``csrc/soil_step.cuh``), compiled by ``nvcc`` at first use into
+``_build/`` beside this package and loaded with ctypes.
+
+On CPU tensors a wrapper runs :func:`soil_column_rollout_plain`; on CUDA
+tensors it launches its kernel or raises. Each launch adds one to the
+wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -19,24 +32,72 @@ import ctypes
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from . import cuda_build
 from .fastpow import fast_pow, pow_code
-from ..processes.soil.hydrology import pool_drainage, saturation_sweeps
-from ..processes.soil.swrc import one_minus_eps
+from ..models.soil_model import SoilModel
+from ..processes.soil.energy import SoilEnergyBalance
+from ..processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSURFEX,
+                                         UnsatKVanGenuchten)
+from ..processes.soil.hydrology import (NoFlow, RichardsEq, SoilHydrology, pool_drainage,
+                                        saturation_sweeps)
+from ..processes.soil.soil_coupled import SoilEnergyWaterCarbon
+from ..processes.soil.stratigraphy import ConstantSoilCarbonDensity, HomogeneousStratigraphy
+from ..processes.soil.swrc import VanGenuchten, one_minus_eps
+from ..processes.soil.thermal import FreeWater, InverseQuadratic, SoilThermalProperties
 from ..utils.utils import safediv
 
-__all__ = ["ColumnParams", "soil_column_rollout",
-           "soil_column_rollout_plain", "SUPPORTED_NZ"]
+__all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "clock_times",
+           "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
+           "soil_column_rollout_plain", "ROLLOUTS"]
 
 _NAME = "soil_column_rollout"  # csrc/soil_column_rollout.cu
-SUPPORTED_NZ = cuda_build.SUPPORTED_NZ
 
 
 def _number(x) -> float:
     """A parameter as a float; a tensor is read detached."""
     return float(x.detach()) if isinstance(x, torch.Tensor) else float(x)
+
+
+def _require(ok: bool, what: str, got) -> None:
+    if not ok:
+        raise ValueError(f"the soil column kernels run {what}; got {got}")
+
+
+def kernel_physics(model) -> str:
+    """``"richards"`` or ``"heat"``: the physics of the kernel that runs
+    ``model``. Raises ``ValueError`` naming what the kernels run for any other
+    model; each attribute is read only after its owner's class is checked."""
+    _require(isinstance(model, SoilModel), "a SoilModel", type(model).__name__)
+    soil = model.soil
+    _require(isinstance(soil, SoilEnergyWaterCarbon)
+             and isinstance(soil.strat, HomogeneousStratigraphy)
+             and isinstance(soil.biogeochem, ConstantSoilCarbonDensity)
+             and isinstance(soil.energy, SoilEnergyBalance)
+             and isinstance(soil.hydrology, SoilHydrology),
+             "SoilEnergyWaterCarbon of HomogeneousStratigraphy, ConstantSoilCarbonDensity, "
+             "SoilEnergyBalance and SoilHydrology", soil)
+    props = soil.energy.thermal_properties
+    _require(isinstance(props, SoilThermalProperties)
+             and isinstance(props.freezecurve, FreeWater)
+             and isinstance(props.bulk_conductivity, InverseQuadratic),
+             "SoilThermalProperties with FreeWater and InverseQuadratic", props)
+    flow = soil.hydrology.vertical_flow
+    if isinstance(flow, NoFlow):
+        return "heat"
+    _require(isinstance(flow, RichardsEq), "SoilHydrology with NoFlow or RichardsEq",
+             type(flow).__name__)
+    hp = soil.hydrology.hydraulic_properties
+    _require(isinstance(hp, (ConstantSoilHydraulics, SoilHydraulicsSURFEX)),
+             "RichardsEq over ConstantSoilHydraulics or SoilHydraulicsSURFEX",
+             type(hp).__name__)
+    _require(isinstance(hp.swrc, VanGenuchten)
+             and isinstance(hp.unsat_hydraulic_cond, UnsatKVanGenuchten),
+             "RichardsEq with VanGenuchten and UnsatKVanGenuchten",
+             f"{type(hp.swrc).__name__} and {type(hp.unsat_hydraulic_cond).__name__}")
+    return "richards"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +106,8 @@ class ColumnParams:
 
     Products of two parameters that the JAX package forms in Python (a
     constituent property times a solid-matrix fraction) are formed here the
-    same way, so the kernel and the plain version see the same numbers."""
+    same way, so the kernel and the plain version see the same numbers. The
+    hydraulic fields are 0 for the heat-only model, which reads none."""
 
     por: float
     L: float
@@ -78,24 +140,38 @@ class ColumnParams:
 
     @staticmethod
     def of(model, dtype: torch.dtype) -> "ColumnParams":
-        """The parameters of ``model`` as floats. A parameter given as a 0-d
-        tensor (``sat_hydraulic_cond``, the mineral conductivity) is read
-        detached: the kernels take numbers, and the gradient path chains
-        their cotangents back to the tensors itself
+        """The parameters of ``model`` as floats; raises ``ValueError`` for a
+        model the kernels do not run (:func:`kernel_physics`). A parameter
+        given as a 0-d tensor (``sat_hydraulic_cond``, the mineral
+        conductivity) is read detached: the kernels take numbers, and the
+        gradient path chains their cotangents back to the tensors itself
         (``timesteppers/fused_grad.py``)."""
+        physics = kernel_physics(model)
         soil = model.soil
         strat, bgc = soil.strat, soil.biogeochem
         props = soil.energy.thermal_properties
-        hyd = soil.hydrology.hydraulic_properties
-        swrc, unsat = hyd.swrc, hyd.unsat_hydraulic_cond
         c = model.constants
         por = strat.bulk_porosity(bgc)
         organic = strat.organic_fraction(bgc)
         solid = 1.0 - por
         mineral_frac, organic_frac = solid * (1.0 - organic), solid * organic
         cs, ks = props.heat_capacities, props.conductivities
-        n = swrc.n
-        m = 1.0 - 1.0 / n
+        hydraulic = dict.fromkeys(
+            ("theta_res", "vg_span", "neg_inv_alpha", "psi_min", "vg_se_lo", "vg_se_hi",
+             "K_sat", "neg_impedance", "k_theta_sat", "k_se_hi", "p_inv_m", "p_inv_n",
+             "p_k1", "p_k2"), 0.0)
+        if physics == "richards":
+            hyd = soil.hydrology.hydraulic_properties
+            swrc, unsat = hyd.swrc, hyd.unsat_hydraulic_cond
+            n = swrc.n
+            m = 1.0 - 1.0 / n
+            hydraulic = dict(
+                theta_res=swrc.theta_res, vg_span=por - swrc.theta_res,
+                neg_inv_alpha=-(1.0 / swrc.alpha), psi_min=swrc.psi_min,
+                vg_se_lo=1e-8, vg_se_hi=one_minus_eps(dtype, 1e-12),
+                K_sat=_number(hyd.sat_hydraulic_cond), neg_impedance=-unsat.impedance,
+                k_theta_sat=max(por, 1e-12), k_se_hi=one_minus_eps(dtype, 1e-9),
+                p_inv_m=-1.0 / m, p_inv_n=1.0 / n, p_k1=n / (n + 1.0), p_k2=(n - 1.0) / n)
         return ColumnParams(
             por=por, L=c.rho_w * c.L_sl,
             c_water=cs.water, c_ice=cs.ice, c_air=cs.air,
@@ -104,14 +180,8 @@ class ColumnParams:
             sk_air=math.sqrt(ks.air),
             sk_mineral=math.sqrt(_number(ks.mineral)) * mineral_frac,
             sk_organic=math.sqrt(ks.organic) * organic_frac,
-            theta_res=swrc.theta_res, vg_span=por - swrc.theta_res,
-            neg_inv_alpha=-(1.0 / swrc.alpha), psi_min=swrc.psi_min,
-            vg_se_lo=1e-8, vg_se_hi=one_minus_eps(dtype, 1e-12),
-            K_sat=_number(hyd.sat_hydraulic_cond), neg_impedance=-unsat.impedance,
-            k_theta_sat=max(por, 1e-12), k_se_hi=one_minus_eps(dtype, 1e-9),
             eps_lo=float(torch.finfo(dtype).eps),
-            z_top=float(model.grid.vertical.z_faces[-1]),
-            p_inv_m=-1.0 / m, p_inv_n=1.0 / n, p_k1=n / (n + 1.0), p_k2=(n - 1.0) / n)
+            z_top=float(model.grid.vertical.z_faces[-1]), **hydraulic)
 
 
 class _CParams(ctypes.Structure):
@@ -130,19 +200,54 @@ class _CParams(ctypes.Structure):
         return _CParams(**dataclasses.asdict(p), **codes)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeriesBC:
+    """A top temperature that the kernel reads from a uniformly spaced
+    series: ``values`` ``(rows,)`` (one value for every cell) or ``(rows,
+    cells)`` at the times ``t0 + r * dts``, and the ``steps`` steps of the
+    rollout from the clock time ``time`` (a value of the fields' dtype). At
+    clock time ``t``: ``u = clamp((t - t0) / dts, 0, rows - 1)``, ``r =
+    floor(u)``, ``w = u - r``, value ``(1 - w) * v[r] + w * v[min(r + 1,
+    rows - 1)]``, which is flat beyond the ends."""
+
+    values: torch.Tensor
+    t0: float
+    dts: float
+    time: float
+    steps: int
+
+
+def clock_times(t0: torch.Tensor, dt: float, n: int) -> np.ndarray:
+    """The ``n + 1`` clock times ``t0, t0 + dt, (t0 + dt) + dt, ...`` by
+    repeated addition in ``t0``'s dtype, as ``Clock.tick`` produces them
+    (``t0 + k*dt`` differs once the sum outgrows the mantissa)."""
+    np_dtype = np.float32 if t0.dtype == torch.float32 else np.float64
+    t = np_dtype(t0.item())
+    step = np_dtype(dt)
+    out = np.empty(n + 1, dtype=np_dtype)
+    for i in range(n + 1):
+        out[i] = t
+        t = t + step
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
-def _plain_step(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, dt):
-    """One ``pre_closure_step`` in the kernel's order of operations: the
-    sweeps row by row, everything else elementwise over ``(Nz, cells)``."""
+def _plain_rhs(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, heat: bool):
+    """The closure and tendencies of one closure-rotated step, in the
+    kernel's order of operations (``soil::closure_rhs``): the sweeps row by
+    row, everything else elementwise over ``(Nz, cells)``. Returns the closed
+    ``(sat, S)`` and the tendencies ``(dU, dsat, dS)``; the heat-only model
+    closes nothing and has no water tendencies (``None``)."""
     nz = U.shape[0]
-    # closure: saturation adjustment (up sweep then down sweep), water table
-    sat, spill = saturation_sweeps(sat, dz)
-    S = S + spill
-    wt = torch.broadcast_to(zf[nz], S.shape)
-    for k in reversed(range(nz)):
-        wt = torch.where(sat[k] < 1.0, zf[k], wt)
+    if not heat:
+        # closure: saturation adjustment (up sweep then down sweep), water table
+        sat, spill = saturation_sweeps(sat, dz)
+        S = S + spill
+        wt = torch.broadcast_to(zf[nz], S.shape)
+        for k in reversed(range(nz)):
+            wt = torch.where(sat[k] < 1.0, zf[k], wt)
 
     # energy closure, heat capacity and bulk conductivity
     L_theta = p.L * sat * p.por
@@ -156,6 +261,16 @@ def _plain_step(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, dt):
     acc = p.sk_water * water + p.sk_ice * ice + p.sk_air * air + p.sk_mineral + p.sk_organic
     kap = acc * acc
 
+    # heat flux: zero gradient at the bottom, Dirichlet ghost at the top
+    T_lo = torch.cat([T[:1], T])
+    T_hi = torch.cat([T, 2.0 * vtop - T[-1:]])
+    k_lo = torch.cat([kap[:1], kap])
+    k_hi = torch.cat([kap, kap[-1:]])
+    qh = -(0.5 * (k_hi + k_lo)) * ((T_hi - T_lo) / dzf)
+    dU = -((qh[1:] - qh[:-1]) / dz)
+    if heat:
+        return sat, S, dU, None, None
+
     # centre hydraulic conductivity
     I_ice = 10.0 ** (p.neg_impedance * (1.0 - liq))
     se = torch.clamp(water / p.k_theta_sat, 0.0, 1.0)
@@ -164,14 +279,6 @@ def _plain_step(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, dt):
     inner = 1.0 - fast_pow(1.0 - fast_pow(se_s, p.p_k1), p.p_k2)
     K_unsat = torch.where(frozen, 0.0, p.K_sat * I_ice * torch.sqrt(se_s) * (inner * inner))
     Kc = torch.where(se >= 1.0, p.K_sat * I_ice, K_unsat)
-
-    # heat flux: zero gradient at the bottom, Dirichlet ghost at the top
-    T_lo = torch.cat([T[:1], T])
-    T_hi = torch.cat([T, 2.0 * vtop - T[-1:]])
-    k_lo = torch.cat([kap[:1], kap])
-    k_hi = torch.cat([kap, kap[-1:]])
-    qh = -(0.5 * (k_hi + k_lo)) * ((T_hi - T_lo) / dzf)
-    U = U + (-((qh[1:] - qh[:-1]) / dz)) * dt
 
     # pressure head and Darcy flux with upwind-min face conductivity
     se_v = (sat * p.por - p.theta_res) / p.vg_span
@@ -185,82 +292,190 @@ def _plain_step(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, dt):
     K_eff = torch.where(grad < 0.0, torch.minimum(torch.cat([inf, Kf[:-1]]), Kf),
                         torch.minimum(Kf, torch.cat([Kf[1:], inf])))
     qw = -K_eff * grad
-    sat = sat + ((-((qw[1:] - qw[:-1]) / dz)) / p.por) * dt
-    S = S + pool_drainage(S) * dt
-    return U, sat, S
+    dsat = (-((qw[1:] - qw[:-1]) / dz)) / p.por
+    return sat, S, dU, dsat, pool_drainage(S)
 
 
-def soil_column_rollout_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
-                              params: ColumnParams, dt: float):
-    """Plain PyTorch version of the kernel: ``len(top_T)`` steps, where
-    ``top_T[i]`` is the top temperature BC (a scalar or ``(cells,)``) of
-    step ``i``. Coordinates are 1-D tensors in the fields' dtype."""
-    dz2, dzf2 = dz[:, None], dz_faces[:, None]
-    zc2, zf2 = z_centers[:, None], z_faces[:, None]
-    for i in range(top_T.shape[0]):
-        U, sat, S = _plain_step(U, sat, S, top_T[i], dz2, dzf2, zc2, zf2, params, dt)
+def _plain_euler(U, sat, S, vtop, coords, p, dt, heat):
+    """``ForwardEuler.pre_closure_step``: ``x + f * dt``."""
+    sat, S, dU, dsat, dS = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
+    if heat:
+        return U + dU * dt, sat, S
+    return U + dU * dt, sat + dsat * dt, S + dS * dt
+
+
+def _plain_heun(U, sat, S, v0, v1, coords, p, dt, heat):
+    """``Heun.pre_closure_step``: close ``x_n`` and take ``f_n`` at ``v0``;
+    the stage ``y = x_n + f_n * dt``, closed, gives ``f*`` at ``v1`` (the
+    top temperature at t + dt); ``x_n + (0.5 * (f_n + f*)) * dt``."""
+    sat, S, fU, fs, fS = _plain_rhs(U, sat, S, v0, *coords, p, heat)
+    if heat:
+        _, _, gU, _, _ = _plain_rhs(U + fU * dt, sat, S, v1, *coords, p, heat)
+        return U + (0.5 * (fU + gU)) * dt, sat, S
+    _, _, gU, gs, gS = _plain_rhs(U + fU * dt, sat + fs * dt, S + fS * dt, v1, *coords, p, heat)
+    return (U + (0.5 * (fU + gU)) * dt, sat + (0.5 * (fs + gs)) * dt,
+            S + (0.5 * (fS + gS)) * dt)
+
+
+def series_value(values: torch.Tensor, t: torch.Tensor, t0: torch.Tensor,
+                 dts: torch.Tensor) -> torch.Tensor:
+    """The series at clock time ``t`` as :class:`SeriesBC` reads it: a 0-d
+    tensor for a ``(rows,)`` series, ``(cells,)`` for ``(rows, cells)``;
+    ``t``, ``t0`` and ``dts`` are 0-d tensors of the values' dtype."""
+    rows = values.shape[0]
+    u = torch.clamp((t - t0) / dts, 0.0, float(rows - 1))
+    r = torch.floor(u)
+    w = u - r
+    i = int(r)
+    return (1.0 - w) * values[i] + w * values[min(i + 1, rows - 1)]
+
+
+def _scheme(stepper: str, physics: str):
+    if stepper not in ("euler", "heun") or physics not in ("richards", "heat"):
+        raise ValueError(f"stepper 'euler' or 'heun' and physics 'richards' or 'heat', "
+                         f"got {stepper!r} and {physics!r}")
+    return stepper == "heun", physics == "heat"
+
+
+def _steps(top, heun: bool) -> int:
+    if isinstance(top, SeriesBC):
+        return top.steps
+    return top.shape[0] - (1 if heun else 0)
+
+
+def _top_reader(top, steps: int, dt: float, dtype, device):
+    """``v(i)``: the top temperature at clock time ``i`` of the rollout."""
+    if not isinstance(top, SeriesBC):
+        return lambda i: top[i]
+    times = torch.as_tensor(clock_times(torch.tensor(top.time, dtype=dtype), dt, steps),
+                            device=device)
+    t0, dts = (torch.tensor(x, dtype=dtype, device=device) for x in (top.t0, top.dts))
+    return lambda i: series_value(top.values, times[i], t0, dts)
+
+
+def soil_column_rollout_plain(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                              params: ColumnParams, dt: float, *, stepper: str = "euler",
+                              physics: str = "richards"):
+    """Plain PyTorch version of the kernels: ``n`` closure-rotated steps of
+    ``stepper`` (``"euler"`` or ``"heun"``) for ``physics`` (``"richards"``
+    or ``"heat"``, where ``sat`` is read and returned as it is and ``S`` may
+    be ``None``), the top temperature from the table or :class:`SeriesBC`
+    ``top``. Coordinates are 1-D tensors in the fields' dtype."""
+    heun, heat = _scheme(stepper, physics)
+    coords = (dz[:, None], dz_faces[:, None], z_centers[:, None], z_faces[:, None])
+    steps = _steps(top, heun)
+    v = _top_reader(top, steps, dt, U.dtype, U.device)
+    for i in range(steps):
+        if heun:
+            U, sat, S = _plain_heun(U, sat, S, v(i), v(i + 1), coords, params, dt, heat)
+        else:
+            U, sat, S = _plain_euler(U, sat, S, v(i), coords, params, dt, heat)
     return U, sat, S
 
 
 # ---------------------------------------------------------------------------
 # kernel build and launch
 # ---------------------------------------------------------------------------
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+             + [ctypes.c_double] * 3 + [ctypes.c_void_p] * 4
              + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
                 ctypes.c_void_p])
 
 
-def _check_inputs(U, sat, S, top_T, coords):
+def _check_inputs(U, sat, S, top, coords, heat=False):
     nz, cells = U.shape
     if U.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"soil column rollout takes float32 or float64, got {U.dtype}")
-    for name, t, shape in (("saturation", sat, (nz, cells)), ("surface pool", S, (cells,)),
-                           ("dz", coords[0], (nz,)), ("dz_faces", coords[1], (nz + 1,)),
+    fields = [("saturation", sat, (nz, cells))]
+    if not heat:
+        fields.append(("surface pool", S, (cells,)))
+    for name, t, shape in (*fields, ("dz", coords[0], (nz,)),
+                           ("dz_faces", coords[1], (nz + 1,)),
                            ("z_centers", coords[2], (nz,)), ("z_faces", coords[3], (nz + 1,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    for t in (U, sat, S, top_T, *coords):
+    values = top.values if isinstance(top, SeriesBC) else top
+    for t in (U, values, *(t for _, t, _ in fields), *coords):
         if t.dtype != U.dtype:
             raise TypeError(f"dtype mismatch: {t.dtype} vs {U.dtype}")
         if t.device != U.device:
             raise ValueError(f"device mismatch: {t.device} vs {U.device}")
-    if top_T.dim() not in (1, 2) or (top_T.dim() == 2 and top_T.shape[1] != cells):
-        raise ValueError(f"top temperature table must be (n,) or (n, {cells}), "
-                         f"got {tuple(top_T.shape)}")
+    if values.dim() not in (1, 2) or (values.dim() == 2 and values.shape[1] != cells):
+        raise ValueError(f"top temperature table or series must be (rows,) or "
+                         f"(rows, {cells}), got {tuple(values.shape)}")
+    if isinstance(top, SeriesBC) and (values.shape[0] < 1 or top.steps < 0):
+        raise ValueError("a series needs at least one row and steps >= 0")
 
 
-def soil_column_rollout(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
-                        params: ColumnParams, dt: float):
-    """``len(top_T)`` fused soil steps on the live carry; returns new
-    ``(U, sat, S)``. ``top_T`` is ``(n,)`` or ``(n, cells)`` (strides may be
-    0). CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    coords = (dz, dz_faces, z_centers, z_faces)
-    _check_inputs(U, sat, S, top_T, coords)
+def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt):
+    """Check, then run the plain version (CPU) or launch the kernel of
+    ``(stepper, physics)`` (CUDA); returns the new ``(U, sat, S)``."""
+    heun, heat = _scheme(stepper, physics)
+    _check_inputs(U, sat, S, top, coords, heat)
+    steps = _steps(top, heun)
+    if steps < 0:
+        raise ValueError("a Heun table needs steps + 1 rows")
     if U.device.type == "cpu":
-        return soil_column_rollout_plain(U, sat, S, top_T, *coords, params, dt)
+        return soil_column_rollout_plain(U, sat, S, top, *coords, params, dt, stepper=stepper,
+                                         physics=physics)
     if U.device.type != "cuda":
         raise ValueError(f"soil column rollout runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
-    if nz not in SUPPORTED_NZ:
-        raise ValueError(f"the soil column kernel is built for Nz in {SUPPORTED_NZ}, got {nz}")
-    for name, t in (("energy", U), ("saturation", sat), ("surface pool", S),
-                    *(("coordinate", c) for c in coords)):
+    carry = (U, sat) if heat else (U, sat, S)
+    for t in (*carry, *coords):
         if not t.is_contiguous():
-            raise ValueError(f"{name} tensor must be contiguous")
-    U_out, sat_out, S_out = torch.empty_like(U), torch.empty_like(sat), torch.empty_like(S)
-    steps = top_T.shape[0]
-    step_stride = top_T.stride(0)
-    cell_stride = top_T.stride(1) if top_T.dim() == 2 else 0
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES)
+            raise ValueError("the soil column kernels take contiguous fields and coordinates")
+    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=(stepper, physics))
+    U_out = torch.empty_like(U)
+    sat_out, S_out = (sat, S) if heat else (torch.empty_like(sat), torch.empty_like(S))
+    if isinstance(top, SeriesBC):
+        data, rows, series = top.values, top.values.shape[0], (top.t0, top.dts, top.time)
+    else:
+        data, rows, series = top, 0, (0.0, 0.0, 0.0)
+    cell_stride = data.stride(1) if data.dim() == 2 else 0
+    ptr = (lambda t: 0) if heat else (lambda t: t.data_ptr())
     cparams = _CParams.of(params)
-    err = fn(U.data_ptr(), sat.data_ptr(), S.data_ptr(), U_out.data_ptr(),
-             sat_out.data_ptr(), S_out.data_ptr(), top_T.data_ptr(), step_stride,
-             cell_stride, *(c.data_ptr() for c in coords), ctypes.byref(cparams),
-             steps, float(dt), cells, torch.cuda.current_stream(U.device).cuda_stream)
+    err = fn(U.data_ptr(), sat.data_ptr(), ptr(S), U_out.data_ptr(), ptr(sat_out), ptr(S_out),
+             data.data_ptr(), data.stride(0), cell_stride, rows, *series,
+             *(c.data_ptr() for c in coords), ctypes.byref(cparams), steps, float(dt), cells,
+             torch.cuda.current_stream(U.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"soil column kernel launch failed: cudaError {err}")
-    soil_column_rollout.launches += 1
+    wrapper.launches += 1
     return U_out, sat_out, S_out
 
 
-soil_column_rollout.launches = 0
+def soil_column_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                        params: ColumnParams, dt: float):
+    """ForwardEuler, heat + Richards: ``n`` fused steps on ``(U, sat, S)``,
+    ``n`` the table's rows or the series' steps; returns the new carry. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    return _rollout(soil_column_rollout, "euler", "richards", U, sat, S, top,
+                    (dz, dz_faces, z_centers, z_faces), params, dt)
+
+
+def soil_column_heun_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                             params: ColumnParams, dt: float):
+    """Heun, heat + Richards: ``n`` fused steps on ``(U, sat, S)``, ``n`` the
+    table's rows less one or the series' steps; returns the new carry."""
+    return _rollout(soil_column_heun_rollout, "heun", "richards", U, sat, S, top,
+                    (dz, dz_faces, z_centers, z_faces), params, dt)
+
+
+def soil_column_heat_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                             params: ColumnParams, dt: float):
+    """ForwardEuler, heat only: ``n`` fused steps on ``U``, the saturation
+    read and returned as it is (``S`` is passed through, and may be
+    ``None``); ``n`` the table's rows or the series' steps."""
+    return _rollout(soil_column_heat_rollout, "euler", "heat", U, sat, S, top,
+                    (dz, dz_faces, z_centers, z_faces), params, dt)
+
+
+for _fn in (soil_column_rollout, soil_column_heun_rollout, soil_column_heat_rollout):
+    _fn.launches = 0
+
+#: the kernel wrapper of each (stepper, physics); Heun with the heat-only
+#: model runs its plain version on the CPU and has no kernel
+ROLLOUTS = {("euler", "richards"): soil_column_rollout,
+            ("heun", "richards"): soil_column_heun_rollout,
+            ("euler", "heat"): soil_column_heat_rollout}

@@ -26,7 +26,7 @@ import dataclasses
 import torch
 
 from . import cuda_build
-from .fused_step import SUPPORTED_NZ, ColumnParams, _check_inputs, _CParams, \
+from .fused_step import ColumnParams, SeriesBC, _check_inputs, _CParams, \
     soil_column_rollout_plain
 
 __all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain"]
@@ -63,6 +63,8 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
     ``(gU0, gsat0, gS0, gK_sat, gsk_mineral)``. CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     coords = (dz, dz_faces, z_centers, z_faces)
+    if isinstance(top_T, SeriesBC):
+        raise ValueError("the segment VJP takes the top temperature as a table, not a series")
     _check_inputs(U, sat, S, top_T, coords)
     for name, g, t in (("energy", gU, U), ("saturation", gsat, sat), ("surface pool", gS, S)):
         if g.shape != t.shape or g.dtype != t.dtype or g.device != t.device:
@@ -74,8 +76,7 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
     if U.device.type != "cuda":
         raise ValueError(f"soil column segment VJP runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
-    if nz not in SUPPORTED_NZ:
-        raise ValueError(f"the segment VJP kernel is built for Nz in {SUPPORTED_NZ}, got {nz}")
+    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES)
     for t in (U, sat, S, gU, gsat, gS, *coords):
         if not t.is_contiguous():
             raise ValueError("the segment VJP kernel takes contiguous tensors")
@@ -87,7 +88,6 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
     scratch = torch.empty(steps, 2 * nz + 1, cells, dtype=U.dtype, device=U.device)
     step_stride = top_T.stride(0)
     cell_stride = top_T.stride(1) if top_T.dim() == 2 else 0
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES)
     cparams = _CParams.of(params)
     err = fn(*(t.data_ptr() for t in (U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, partials,
                                       gparams, scratch, top_T)),

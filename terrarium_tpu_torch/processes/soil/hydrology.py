@@ -1,24 +1,27 @@
-"""Richards-equation soil hydrology (counterpart of
-``terrarium_tpu/processes/soil/hydrology.py``).
+"""Soil hydrology: immobile water (NoFlow) and Richards-equation flow
+(counterpart of ``terrarium_tpu/processes/soil/hydrology.py``).
 
-Only Richards flow in the reference's parity mode is ported (no
-``deficit_pool``, no ``vwc_forcing``, no evapotranspiration or runoff
-siblings). The saturation adjustment runs the reference's two sequential
-sweeps literally, one row at a time, in the order the CUDA column kernel
-uses.
+The default, as in the JAX package, is ``NoFlow`` over
+``SoilHydraulicsSURFEX``: the saturation is an auxiliary that no process
+changes, and the soil model is heat conduction only. Richards flow is ported
+in the reference's parity mode (no ``deficit_pool``, no ``vwc_forcing``, no
+evapotranspiration or runoff siblings). The saturation adjustment runs the
+reference's two sequential sweeps literally, one row at a time, in the order
+the CUDA column kernel uses.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
-from .hydraulics import ConstantSoilHydraulics
+from .hydraulics import SoilHydraulicsSURFEX
 from ...ops.bcs import get_bc
 from ...ops.vertical_ops import div_faces, ghosts, grad_faces
 from ...variables import XY, XYZ, auxiliary, input, prognostic
 
-__all__ = ["RichardsEq", "SoilSaturationPressureClosure", "SoilHydrology",
+__all__ = ["NoFlow", "RichardsEq", "SoilSaturationPressureClosure", "SoilHydrology",
            "saturation_sweeps", "pool_drainage"]
 
 
@@ -103,6 +106,11 @@ def pool_drainage(S):
 
 
 @dataclasses.dataclass(frozen=True)
+class NoFlow:
+    """Immobile soil water (reference `soil_hydrology.jl:13`)."""
+
+
+@dataclasses.dataclass(frozen=True)
 class RichardsEq:
     """Mixed saturation-pressure Richards flow (reference `soil_hydrology_rre.jl:18`)."""
 
@@ -129,26 +137,39 @@ def _shift_down(x, fill):
 
 @dataclasses.dataclass(frozen=True)
 class SoilHydrology:
-    """Soil water balance with Richards flow (reference `soil_hydrology.jl:21-53`).
-    The defaults are the main-path parameterization
-    ``ConstantSoilHydraulics(VanGenuchten(), UnsatKVanGenuchten())``."""
+    """Soil water balance (reference `soil_hydrology.jl:21-53`). The
+    defaults are the JAX package's: ``NoFlow`` over ``SoilHydraulicsSURFEX``
+    (Brooks-Corey curve, linear conductivity). Richards flow is
+    ``vertical_flow=RichardsEq()``."""
 
-    vertical_flow: RichardsEq = RichardsEq()
+    vertical_flow: Any = NoFlow()
     closure_rel: SoilSaturationPressureClosure = SoilSaturationPressureClosure()
-    hydraulic_properties: ConstantSoilHydraulics = dataclasses.field(
-        default_factory=ConstantSoilHydraulics)
+    hydraulic_properties: Any = dataclasses.field(default_factory=SoilHydraulicsSURFEX)
+
+    @property
+    def richards(self) -> bool:
+        return isinstance(self.vertical_flow, RichardsEq)
 
     def variables(self):
-        # reference `soil_hydrology_rre.jl:20-26`
-        return (
-            prognostic("saturation_water_ice", XYZ(), closure=self.closure_rel,
-                       domain=(0.0, 1.0),
-                       desc="Saturation level of water+ice in the pore space"),
-            prognostic("surface_excess_water", XY(), units="m",
-                       desc="Excess water at the soil surface in m^3/m^2"),
+        if self.richards:  # reference `soil_hydrology_rre.jl:20-26`
+            return (
+                prognostic("saturation_water_ice", XYZ(), closure=self.closure_rel,
+                           domain=(0.0, 1.0),
+                           desc="Saturation level of water+ice in the pore space"),
+                prognostic("surface_excess_water", XY(), units="m",
+                           desc="Excess water at the soil surface in m^3/m^2"),
+                auxiliary("hydraulic_conductivity", XYZ(face=True), units="m/s",
+                          desc="Hydraulic conductivity at cell faces"),
+                auxiliary("water_table", XY(), units="m", desc="Elevation of the water table"),
+                input("liquid_water_fraction", XYZ(), default=1.0, domain=(0.0, 1.0),
+                      desc="Fraction of unfrozen water in the pore space"),
+            )
+        return (  # NoFlow, reference `soil_hydrology.jl:78-83`
+            auxiliary("saturation_water_ice", XYZ(), domain=(0.0, 1.0),
+                      desc="Saturation level of water+ice in the pore space"),
+            auxiliary("water_table", XY(), units="m", desc="Elevation of the water table"),
             auxiliary("hydraulic_conductivity", XYZ(face=True), units="m/s",
                       desc="Hydraulic conductivity at cell faces"),
-            auxiliary("water_table", XY(), units="m", desc="Elevation of the water table"),
             input("liquid_water_fraction", XYZ(), default=1.0, domain=(0.0, 1.0),
                   desc="Fraction of unfrozen water in the pore space"),
         )
@@ -188,10 +209,15 @@ class SoilHydrology:
                   surface_excess_water=state.surface_excess_water + spill)
 
     def initialize(self, state, grid, soil, constants, ctx):
-        """Closure from the initial saturation, then the face K (reference
-        `soil_hydrology_rre.jl:33-47`)."""
-        self.closure(state, grid, soil, constants, ctx)
-        self.compute_hydraulics(state, grid, soil)
+        """Richards: closure from the initial saturation, then the face K
+        (reference `soil_hydrology_rre.jl:33-47`). NoFlow: the face K and
+        the water table (reference `soil_hydrology.jl:113-117`)."""
+        if self.richards:
+            self.closure(state, grid, soil, constants, ctx)
+            self.compute_hydraulics(state, grid, soil)
+        else:
+            self.compute_hydraulics(state, grid, soil)
+            self.compute_water_table(state, grid)
 
     def compute_auxiliary(self, state, grid, soil, constants, ctx):
         self.compute_hydraulics(state, grid, soil)
@@ -199,7 +225,10 @@ class SoilHydrology:
     def compute_tendencies(self, state, grid, soil, constants, ctx):
         """Darcy flux divergence over porosity (reference
         `soil_hydrology_rre.jl:95-131`, `soil_hydrology.jl:222-237`) and the
-        parity surface-pool term ``+min(0, S)`` (`soil_hydrology.jl:260-283`)."""
+        parity surface-pool term ``+min(0, S)`` (`soil_hydrology.jl:260-283`).
+        NoFlow has none (reference `soil_hydrology.jl:126`)."""
+        if not self.richards:
+            return
         psi = state.pressure_head
         g_bot, g_top = ghosts(psi, get_bc(ctx.bcs, "pressure_head", "bottom"),
                               get_bc(ctx.bcs, "pressure_head", "top"), state,
@@ -226,7 +255,9 @@ class SoilHydrology:
     def closure(self, state, grid, soil, constants, ctx=None):
         """Saturation to pressure head (reference `soil_hydraulic_closures.jl:23-44`):
         adjust the profile, update the water table, then
-        Psi = psi_h + psi_m + psi_z."""
+        Psi = psi_h + psi_m + psi_z. NoFlow has no closure."""
+        if not self.richards:
+            return
         self.adjust_saturation_profile(state, grid)
         self.compute_water_table(state, grid)
         self.compute_pressure_head(state, grid, soil)
@@ -242,7 +273,9 @@ class SoilHydrology:
 
     def invclosure(self, state, grid, soil, constants, ctx=None):
         """Pressure head to saturation (reference `soil_hydraulic_closures.jl:51-100`),
-        then the adjustment and the water table."""
+        then the adjustment and the water table. NoFlow has none."""
+        if not self.richards:
+            return
         psi_z, psi_h = self._psi_components(state, grid)
         psi_m = state.pressure_head - psi_h - psi_z
         por = soil.strat.bulk_porosity(soil.biogeochem)

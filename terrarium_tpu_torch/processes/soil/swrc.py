@@ -1,5 +1,5 @@
-"""Van Genuchten soil water retention curve (counterpart of
-``terrarium_tpu/processes/soil/swrc.py``)."""
+"""Soil water retention curves: Van Genuchten and Brooks-Corey
+(counterpart of ``terrarium_tpu/processes/soil/swrc.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +8,7 @@ import torch
 
 from ...ops.fastpow import fast_pow
 
-__all__ = ["VanGenuchten", "one_minus_eps"]
+__all__ = ["VanGenuchten", "BrooksCorey", "one_minus_eps"]
 
 
 def one_minus_eps(dtype: torch.dtype, floor: float) -> float:
@@ -43,5 +43,31 @@ class VanGenuchten:
         se_safe = torch.clamp(se, 1e-8, one_minus_eps(theta.dtype, 1e-12))
         psi = -(1.0 / self.alpha) * fast_pow(
             fast_pow(se_safe, -1.0 / m) - 1.0, 1.0 / self.n)
+        psi = torch.clamp(psi, min=self.psi_min)
+        return torch.where(se >= 1.0, 0.0, psi)
+
+
+@dataclasses.dataclass(frozen=True)
+class BrooksCorey:
+    """Brooks & Corey (1964): theta(psi) = theta_res + (theta_sat -
+    theta_res) * (psi_s / -psi)^lam for psi < -psi_s, theta_sat otherwise;
+    ``psi_s`` is the (positive) air-entry suction [m]."""
+
+    psi_s: float = 0.01  # air-entry suction [m]
+    lam: float = 0.2  # pore-size distribution index
+    theta_res: float = 0.0
+    psi_min: float = -1.0e4  # lower clamp of the inverse [m]
+
+    def __call__(self, psi, theta_sat):
+        psi_safe = torch.clamp(psi, max=-self.psi_s)
+        theta_unsat = self.theta_res + (theta_sat - self.theta_res) * fast_pow(
+            self.psi_s / -psi_safe, self.lam)
+        return torch.where(psi < -self.psi_s, theta_unsat, theta_sat)
+
+    def inverse(self, theta, theta_sat):
+        """Matric head psi_m(theta); 0 at and above saturation."""
+        se = (theta - self.theta_res) / (theta_sat - self.theta_res)
+        se = torch.clamp(se, 1e-8, 1.0)
+        psi = -self.psi_s * fast_pow(se, -1.0 / self.lam)
         psi = torch.clamp(psi, min=self.psi_min)
         return torch.where(se >= 1.0, 0.0, psi)

@@ -29,12 +29,12 @@ from ..state import Clock, State
 __all__ = ["make_step_fn", "make_rollout_fn"]
 
 
-def make_step_fn(model, timestepper, ctx) -> Callable:
+def make_step_fn(model, timestepper, ctx, input_sources=()) -> Callable:
     """``step(state, dt) -> state``: one full step on a copy of ``state``."""
 
     def step(state: State, dt) -> State:
         out = state.copy()
-        timestepper.step(model, out, ctx, dt)
+        timestepper.step(model, out, ctx, dt, input_sources)
         return out
 
     return step
@@ -50,10 +50,11 @@ def _carry_names(state: State, model, lean: bool):
 
 
 def make_rollout_fn(model, timestepper, ctx, *, steps: int, remat: bool = False,
-                    lean: bool = False) -> Callable:
+                    lean: bool = False, input_sources=()) -> Callable:
     """``rollout(state, dt) -> state`` over ``steps`` steps, differentiable
     with torch autograd in the initial state and in any tensor parameter of
-    ``model``. ``state`` itself is left as it is."""
+    ``model``. ``state`` itself is left as it is. Any model, stepper and
+    input sources the module steps take are taken here too."""
     if lean and not hasattr(timestepper, "pre_closure_step"):
         raise ValueError(f"lean=True requires a timestepper with pre_closure_step; "
                          f"{type(timestepper).__name__} has none")
@@ -71,7 +72,7 @@ def make_rollout_fn(model, timestepper, ctx, *, steps: int, remat: bool = False,
             for (g, n), v in zip(names, carry):
                 getattr(st, g)[n] = v
             st.clock = Clock(time, iteration)
-            advance(model, st, ctx, dt)
+            advance(model, st, ctx, dt, input_sources)
             return (st.clock.time, st.clock.iteration,
                     *(getattr(st, g)[n] for g, n in names))
 
@@ -86,10 +87,10 @@ def make_rollout_fn(model, timestepper, ctx, *, steps: int, remat: bool = False,
             out.clock = Clock(carry[0], carry[1])
             for (g, n), v in zip(names, carry[2:]):
                 getattr(out, g)[n] = v
-            advance(model, out, ctx, dt)
+            advance(model, out, ctx, dt, input_sources)
         else:
             for _ in range(steps):
-                advance(model, out, ctx, dt)
+                advance(model, out, ctx, dt, input_sources)
         if lean:
             model.closure(out, ctx)
         return out

@@ -31,7 +31,7 @@ import torch
 from .integrator import _top_temperature_value, clock_times, top_temperature_table
 from .stepping import ForwardEuler
 from ..ops.bcs import bc_call_arity
-from ..ops.fused_step import ColumnParams, soil_column_rollout
+from ..ops.fused_step import ColumnParams, kernel_physics, soil_column_rollout
 from ..ops.fused_vjp import soil_column_segment_vjp
 from ..state import reset_tendencies
 
@@ -78,12 +78,16 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, *, steps: int,
     the segment-VJP kernel.
 
     Args:
-        model_fn: ``params -> model``, a main-path :class:`SoilModel` whose
-            ``sat_hydraulic_cond`` and mineral conductivity may be 0-d
-            tensors built from ``params``.
+        model_fn: ``params -> model``, a :class:`SoilModel` with Richards
+            flow that the rollout kernel runs, whose ``sat_hydraulic_cond``
+            and mineral conductivity may be 0-d tensors built from
+            ``params``.
         timestepper: :class:`ForwardEuler`.
         ctx: the simulation's context; its only BC is a Dirichlet top
             temperature given as a value or as ``f(t)``.
+
+    Raises ``ValueError`` for anything else: another stepper (Heun), the
+    heat-only model (NoFlow), an input variable as the top temperature.
         steps: total rollout length, a multiple of ``inner_steps``.
         inner_steps: steps of one segment (the checkpoint interval).
     """
@@ -99,6 +103,9 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, *, steps: int,
 
     def rollout(state, params):
         model = model_fn(params)
+        if kernel_physics(model) != "richards":
+            raise ValueError("the fused gradient rollout runs the heat + Richards model "
+                             "(RichardsEq), not the heat-only model (NoFlow)")
         grid = model.grid
         cparams = ColumnParams.of(model, grid.dtype)
         K, skm = _param_tensors(model, grid.device)

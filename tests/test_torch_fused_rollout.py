@@ -23,7 +23,7 @@ FIELDS = ("internal_energy", "saturation_water_ice", "surface_excess_water",
 
 def _plain_rollout(config, cells=CELLS, nz=NZ, steps=STEPS):
     sim = port_sim(config, cells, nz, dt=DT)
-    advance(sim.model, sim.state, sim.ctx, steps, DT, rollout=fs.soil_column_rollout_plain)
+    advance(sim.model, sim.state, sim.ctx, steps, DT, plain=True)
     return sim
 
 

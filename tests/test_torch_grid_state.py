@@ -58,7 +58,7 @@ def test_live_carry_matches_jax_dead_input_mask():
 
     used = _dead_input_mask(flat_step, leaves, 60.0)[:len(leaves)]
     live = {p for p, u in zip(paths, used) if u}
-    expected = {f".prognostic['{n}']" for n in tp.SoilModel.live_carry}
+    expected = {f".prognostic['{n}']" for n in port_sim("bench", 4, 20).model.live_carry}
     expected |= {".clock.time", ".clock.iteration"}
     assert live == expected
 

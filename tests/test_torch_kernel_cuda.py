@@ -1,5 +1,6 @@
-"""The soil column CUDA kernels (the rollout and its segment VJP) against
-their plain PyTorch versions, on a CUDA device. Every test skips where
+"""The soil column CUDA kernels (the ForwardEuler, Heun and heat-only
+rollouts and the segment VJP) against their plain PyTorch versions, on a CUDA
+device. Every test skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports no JAX, so it also runs on a machine with a card and no
@@ -21,6 +22,7 @@ from terrarium_tpu_torch.timesteppers.fused_grad import make_fused_grad_rollout
 from terrarium_tpu_torch.timesteppers.integrator import clock_times, top_temperature_table
 
 GOLDEN = pathlib.Path(__file__).parent / "goldens" / "soil_heat_richards.npz"
+HEUN_GOLDEN = GOLDEN.parent / "heun_forced.npz"
 DT = 60.0
 
 
@@ -34,7 +36,8 @@ def cuda():
 def _sim(cells, nz, dtype, device, dt=DT, golden=False):
     props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
                                       unsat_hydraulic_cond=tp.UnsatKVanGenuchten())
-    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(hydraulic_properties=props))
+    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
+                                                               hydraulic_properties=props))
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
                             device=device)
     if golden:  # tests/test_goldens.py:20-36
@@ -94,7 +97,7 @@ def test_kernel_takes_per_cell_top_temperature(cuda):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unbuilt_nz(cuda):
-    sim = _sim(64, 15, torch.float32, cuda)
+    sim = _sim(64, 12, torch.float32, cuda)
     carry, table, coords, params = _operands(sim, 2)
     with pytest.raises(ValueError, match="Nz"):
         fs.soil_column_rollout(*carry, table, *coords, params, DT)
@@ -113,6 +116,150 @@ def test_simulation_run_goes_through_the_kernel_and_matches_golden(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Heun and the heat-only model, the top temperature from a series
+# ---------------------------------------------------------------------------
+def _close(out, ref, tol):
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * float(b.abs().max()))
+
+
+def _forced(cells, nz, dtype, device, heat=False, scalar=False):
+    """Operands of a forced run: an hourly series over a day, 5 sin(2 pi t /
+    86400) plus an offset per cell (or the same for every cell, ``scalar``),
+    read from t0 = 1800 s so that the first steps read its flat start."""
+    sim = _sim(cells, nz, dtype, device)
+    model = tp.SoilModel(grid=sim.model.grid) if heat else sim.model
+    hours = np.arange(0.0, 25 * 3600.0, 3600.0)
+    offset = 0.0 if scalar else np.linspace(-4.0, 8.0, cells)[None, :]
+    series = torch.as_tensor(5.0 * np.sin(2 * np.pi * hours / 86400.0)[:, None] + offset,
+                             device=device).to(dtype)
+    values = series[:, 0].contiguous() if scalar else series.contiguous()
+    g = model.grid
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    carry = (sim.state.prognostic["internal_energy"], sim.state.saturation_water_ice,
+             None if heat else sim.state.prognostic["surface_excess_water"])
+    return carry, values, coords, fs.ColumnParams.of(model, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz", [(torch.float64, 15), (torch.float32, 30)])
+def test_heun_series_kernel_matches_plain(cuda, dtype, nz):
+    """The Heun kernel reading a (T, cells) series: 1e-12 at float64, 1e-4
+    of each field's largest magnitude at float32 (as the Euler kernel)."""
+    carry, values, coords, params = _forced(300, nz, dtype, cuda)
+    bc = fs.SeriesBC(values, 1800.0, 3600.0, 0.0, 96)
+    before = fs.soil_column_heun_rollout.launches
+    out = fs.soil_column_heun_rollout(*carry, bc, *coords, params, DT)
+    ref = fs.soil_column_rollout_plain(*carry, bc, *coords, params, DT, stepper="heun")
+    torch.cuda.synchronize()
+    assert fs.soil_column_heun_rollout.launches == before + 1
+    _close(out, ref, 1e-12 if dtype == torch.float64 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_heun_kernel_takes_a_scalar_series_and_a_table(cuda):
+    """A (T,) series (one value for every cell, T != cells) and a per-cell
+    table of steps + 1 rows, through the Heun kernel at float64."""
+    carry, values, coords, params = _forced(130, 15, torch.float64, cuda, scalar=True)
+    bc = fs.SeriesBC(values, 1800.0, 3600.0, 0.0, 40)
+    _close(fs.soil_column_heun_rollout(*carry, bc, *coords, params, DT),
+           fs.soil_column_rollout_plain(*carry, bc, *coords, params, DT, stepper="heun"),
+           1e-12)
+    table = torch.linspace(-4.0, 6.0, 130, dtype=torch.float64, device=cuda)[None] \
+        + torch.arange(11, dtype=torch.float64, device=cuda)[:, None]
+    _close(fs.soil_column_heun_rollout(*carry, table, *coords, params, DT),
+           fs.soil_column_rollout_plain(*carry, table, *coords, params, DT, stepper="heun"),
+           1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_heat_kernel_matches_plain(cuda, dtype):
+    """The heat-only kernel, Nz 30, from a (T, cells) series and from a
+    table; the saturation comes back as it went in."""
+    carry, values, coords, params = _forced(300, 30, dtype, cuda, heat=True)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    bc = fs.SeriesBC(values, 1800.0, 3600.0, 0.0, 96)
+    before = fs.soil_column_heat_rollout.launches
+    out = fs.soil_column_heat_rollout(*carry, bc, *coords, params, DT)
+    ref = fs.soil_column_rollout_plain(*carry, bc, *coords, params, DT, physics="heat")
+    torch.cuda.synchronize()
+    assert fs.soil_column_heat_rollout.launches == before + 1
+    assert out[1] is carry[1] and out[2] is None
+    _close(out[:1], ref[:1], tol)
+    table = values[:48]
+    _close(fs.soil_column_heat_rollout(*carry, table, *coords, params, DT)[:1],
+           fs.soil_column_rollout_plain(*carry, table, *coords, params, DT,
+                                        physics="heat")[:1], tol)
+
+
+def _heun_forced_sim(device):
+    """`tests/test_goldens.py:67-89`: 4 cells, Nz 15, float64, Heun at dt
+    300, a 2-hourly (T, cells) air temperature."""
+    props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
+                                      unsat_hydraulic_cond=tp.UnsatKVanGenuchten())
+    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
+                                                               hydraulic_properties=props))
+    grid = tp.ColumnGrid.of(cells=4, spacing=tp.ExponentialSpacing(N=15), dtype=torch.float64,
+                            device=device)
+    times = np.arange(0.0, 86401.0, 7200.0)
+    series = (np.linspace(-4.0, 8.0, 4)[None, :]
+              + 6.0 * np.sin(2 * np.pi * times / 86400.0)[:, None])
+    return tp.initialize(
+        tp.SoilModel(grid=grid, soil=soil), tp.Heun(),
+        initializers={"temperature": 1.0,
+                      "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.7 - 0.04 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature("air_temperature"),
+        input_sources=(tp.TimeSeriesInputSource(times=times,
+                                                series={"air_temperature": series}),))
+
+
+def _water(state, dz):
+    return (state.saturation_water_ice * dz[:, None]).sum(0) + state.surface_excess_water
+
+
+@pytest.mark.cuda
+def test_heun_forced_golden_through_the_kernel(cuda):
+    """Simulation.run, one launch of the Heun kernel for the 96 steps,
+    against `heun_forced.npz` at 1e-12, and the water W = sum(sat dz) + S of
+    every column kept to 1e-12."""
+    sim = _heun_forced_sim(cuda)
+    dz = sim.model.grid.dz[:, 0]
+    w0 = _water(sim.state, dz)
+    before = fs.soil_column_heun_rollout.launches
+    sim.run(steps=96, dt=300.0)
+    assert fs.soil_column_heun_rollout.launches == before + 1
+    golden = np.load(HEUN_GOLDEN)
+    for f in golden.files:
+        np.testing.assert_allclose(sim.state[f].cpu().numpy(), golden[f], rtol=1e-12,
+                                   atol=1e-12, err_msg=f)
+    assert float(((_water(sim.state, dz) - w0).abs() / w0.abs()).max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_default_model_runs_through_the_heat_kernel(cuda):
+    """``SoilModel(grid=g)`` is the heat-only model; ForwardEuler runs it
+    through the heat kernel, Heun has no heat-only kernel and raises."""
+    grid = tp.ColumnGrid.of(cells=70, spacing=tp.ExponentialSpacing(N=30),
+                            dtype=torch.float32, device=cuda)
+    for ts in (tp.ForwardEuler(dt=300.0), tp.Heun(dt=300.0)):
+        sim = tp.initialize(tp.SoilModel(grid=grid), ts,
+                            initializers={"temperature": 1.0, "saturation_water_ice": 0.8},
+                            boundary_conditions=tp.PrescribedSurfaceTemperature(-3.0))
+        if isinstance(ts, tp.Heun):
+            with pytest.raises(ValueError, match="kernel"):
+                sim.run(steps=4)
+            continue
+        before = fs.soil_column_heat_rollout.launches
+        sim.run(steps=48)
+        assert fs.soil_column_heat_rollout.launches == before + 1
+        assert bool(torch.isfinite(sim.state.temperature).all())
+        assert float(sim.state.temperature[-1].max()) < 1.0
+
+
+# ---------------------------------------------------------------------------
 # segment VJP: the gradient configuration of tests/test_torch_grad.py
 # ---------------------------------------------------------------------------
 GRAD_DT, LOG_KSAT = 300.0, float(np.log(1e-5))
@@ -121,7 +268,8 @@ GRAD_DT, LOG_KSAT = 300.0, float(np.log(1e-5))
 def _grad_model(grid, log_ksat=LOG_KSAT):
     props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
                                       unsat_hydraulic_cond=tp.UnsatKVanGenuchten())
-    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(hydraulic_properties=props))
+    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
+                                                               hydraulic_properties=props))
     return tp.SoilModel(grid=grid, soil=with_differentiable_params(
         soil, log_sat_hydraulic_cond=log_ksat))
 

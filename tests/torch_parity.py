@@ -79,3 +79,72 @@ def assert_fields_close(port_state, jax_state, names, rtol=1e-12, rel_atol=1e-12
         np.testing.assert_allclose(got, ref, rtol=rtol,
                                    atol=rel_atol * max(float(np.max(np.abs(ref))), 1e-300),
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# forced configurations: the same numpy arrays into both packages
+# ---------------------------------------------------------------------------
+def _both(pkg):
+    """(package, grid factory) of ``"jax"`` or ``"port"``."""
+    if pkg == "jax":
+        return tt, lambda cells, nz, dtype, device: tt.ColumnGrid.of(
+            cells=cells, spacing=tt.ExponentialSpacing(N=nz),
+            nf=np.float32 if dtype == torch.float32 else np.float64)
+    return tp, lambda cells, nz, dtype, device: tp.ColumnGrid.of(
+        cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype, device=device)
+
+
+def heun_forced(pkg, device="cpu"):
+    """The ``heun_forced`` golden (`tests/test_goldens.py:67-89`): 4 cells,
+    Nz 15, float64, Heun at dt 300, heat + Richards, a 2-hourly ``(T,
+    cells)`` air temperature over one day."""
+    m, grid_of = _both(pkg)
+    soil = jax_soil() if pkg == "jax" else port_soil()
+    times = np.arange(0.0, 86401.0, 7200.0)
+    series = (np.linspace(-4.0, 8.0, 4)[None, :]
+              + 6.0 * np.sin(2 * np.pi * times / 86400.0)[:, None])
+    return m.initialize(
+        m.SoilModel(grid=grid_of(4, 15, torch.float64, device), soil=soil), m.Heun(),
+        initializers={"temperature": 1.0,
+                      "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.7 - 0.04 * z)},
+        boundary_conditions=m.PrescribedSurfaceTemperature("air_temperature"),
+        input_sources=(m.TimeSeriesInputSource(times=times,
+                                               series={"air_temperature": series}),))
+
+
+def heun_n145_forcing(pkg, cells, nz=30, dtype=torch.float32, device="cpu", days=31):
+    """``heun_n145_heat_richards_forcing`` (`bench_configs.py:414-449`) on
+    ``cells`` columns: heat + Richards, Heun at dt 60, an hourly ``(T,
+    cells)`` series 5 sin(2 pi t / 86400) over ``days`` days."""
+    m, grid_of = _both(pkg)
+    soil = jax_soil() if pkg == "jax" else port_soil()
+    hours = np.arange(0.0, days * 86400.0, 3600.0)
+    ts = (5.0 * np.sin(2 * np.pi * hours[:, None] / 86400.0)
+          * np.ones((1, cells))).astype(np.float32)
+    return m.initialize(
+        m.SoilModel(grid=grid_of(cells, nz, dtype, device), soil=soil), m.Heun(dt=60.0),
+        initializers=CONFIGS["bench"]["inits"],
+        boundary_conditions=m.PrescribedSurfaceTemperature("surface_temperature"),
+        input_sources=(m.TimeSeriesInputSource(times=hours,
+                                               series={"surface_temperature": ts}),))
+
+
+def heat_forcing(pkg, cells, nz=30, dtype=torch.float32, device="cpu", days=31):
+    """``global_heat_n72_forcing`` (`bench_configs.py:202-225`) on ``cells``
+    synthetic columns at latitudes evenly spaced from -60 to 80 degrees: the
+    heat-only default model, ForwardEuler at dt 300, an hourly ``(T,
+    cells)`` series T_mean + 8 sin(2 pi t / 86400), T_mean = 25 max(cos lat,
+    0.05) - 5, also the initial temperature; saturation 0.8."""
+    m, grid_of = _both(pkg)
+    lat = np.linspace(-60.0, 80.0, cells)
+    T_mean = 25.0 * np.maximum(np.cos(np.deg2rad(lat)), 0.05) - 5.0
+    hours = np.arange(0.0, days * 86400.0, 3600.0)
+    ts = (T_mean[None, :]
+          + 8.0 * np.sin(2 * np.pi * hours[:, None] / 86400.0)).astype(np.float32)
+    return m.initialize(
+        m.SoilModel(grid=grid_of(cells, nz, dtype, device)), m.ForwardEuler(dt=300.0),
+        initializers={"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+                      "saturation_water_ice": 0.8},
+        boundary_conditions=m.PrescribedSurfaceTemperature("surface_temperature"),
+        input_sources=(m.TimeSeriesInputSource(times=hours,
+                                               series={"surface_temperature": ts}),))
