@@ -1,10 +1,10 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
-column rollouts, ForwardEuler and Heun, heat + Richards and heat only, and
-the segment VJP; one ``nvcc`` per instantiation, all in parallel) and drives
-the port's paths, each with the kernel launch counts set to 0 just before it
-and read just after:
+column rollouts, ForwardEuler and Heun, heat + Richards and heat only,
+ImplicitEuler with Thomas or PCR solves, and the segment VJP; one ``nvcc``
+per instantiation, all in parallel) and drives the port's paths, each with
+the kernel launch counts set to 0 just before it and read just after:
 
 * the forward main path (``initialize`` / ``Simulation.run``) at the bench
   size, 56,951 columns, Nz 30, float32, dt 60 s, after checking the rollout
@@ -20,6 +20,13 @@ and read just after:
   ForwardEuler at dt 300 s, one 5,760-step block, after the heat-only
   kernel against its plain version (float64 on 1,024 columns, float32 at
   full width);
+* the ImplicitEuler path, ``column_implicit_tridiag``
+  (`bench_configs.py:141-199`): 56,951 columns, Nz 30, float32,
+  ImplicitEuler at dt 900 s, the bench initial state and top temperature,
+  one 1,920-step block with each solver (PCR, the JAX default, and Thomas),
+  after the ``implicit_freeze`` golden (float64, Nz 16, through the kernel
+  with either solver, with the water identity) and the implicit kernel
+  against its plain version at full width;
 * the gradient path (``make_fused_grad_rollout``) of the configuration
   ``grad_n145_heat_richards`` (`bench_configs.py:311-411`): 56,951 columns,
   Nz 20, float32, dt 300 s, 288 steps in segments of 48, value and gradient
@@ -38,9 +45,10 @@ and exits non-zero, and so does a machine without a CUDA device.
 
 ``python3 chip_smoke.py --euler-digest [--package-root DIR]`` instead prints
 the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
-golden, bench and gradient configurations and the bench ``main_path`` rate,
-for the package in ``DIR`` (default: this checkout). Run it on two checkouts
-in one call to compare their kernels bit for bit.
+golden, bench and gradient configurations and of the Heun kernel's on
+``heun_forced`` and the Heun + series configuration, and the bench
+``main_path`` rate, for the package in ``DIR`` (default: this checkout).
+Run it on two checkouts in one call to compare their kernels bit for bit.
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "soil_heat_richards.npz"
 HEUN_GOLDEN = ROOT / "tests" / "goldens" / "heun_forced.npz"
+IMPLICIT_GOLDEN = ROOT / "tests" / "goldens" / "implicit_freeze.npz"
 BENCH_CELLS, BENCH_NZ, BENCH_DT = 56951, 30, 60.0
 COMPARE_STEPS, BLOCK_STEPS = 144, 5760
 # heun_n145_heat_richards_forcing (bench_configs.py:414-449) and
@@ -65,6 +74,14 @@ COMPARE_STEPS, BLOCK_STEPS = 144, 5760
 # are hourly over 31 days
 HEUN_BLOCK_STEPS, HEAT_CELLS, HEAT_DT, HEAT_BLOCK_STEPS = 2880, 14024, 300.0, 5760
 HEAT_F64_CELLS, SERIES_ROWS, SERIES_DTS = 1024, 744, 3600.0
+# column_implicit_tridiag (bench_configs.py:141-199): 20 simulated days a block
+IMPLICIT_DT, IMPLICIT_BLOCK_STEPS, SOLVERS = 900.0, 1920, ("pcr", "thomas")
+# the water W = sum(sat * dz) + S of a column after COMPARE_STEPS float32
+# implicit steps, relative: each step's solve and update round the column's
+# sum of dz * du at float32 (about 6e-8 of W), so 144 steps may drift up to
+# about 1e-5 if every rounding went one way; a dropped flux term or a wrong
+# boundary row moves W by orders more
+IMPLICIT_F32_WATER_TOL = 1e-5
 # float32 kernel vs plain after COMPARE_STEPS steps, relative to each field's
 # largest magnitude: the kernel contracts a*b + c into FMAs and takes cbrt
 # where the plain version takes pow(x, 1/3), so the two differ by ulps per
@@ -133,6 +150,60 @@ HEAT_OPS_PER_LEVEL_STEP = 37 + 9
 # a series read (soil::series_value), per column and clock time: sub, div,
 # max, min, floor, sub, 1 - w, two products, the sum; and the clock's add
 SERIES_OPS_PER_READ = 11
+# ImplicitEuler (soil::implicit_step), per level and step: closure_rhs with
+# its tendencies kept (FWD_OPS less the Euler update's multiply and add, for
+# U and sat); dT/dU (the and, the reciprocal, the select: the plateau
+# compares are Level's); d(Psi)/d(sat) (soil::water_chain: clip 2, se^-2 2,
+# minus one, (core)^-1/2 2, se^-3 2 (se * se is se^-2's), two products, the
+# quotient, clamp 2, select, times por: 16; its se and saturated compare
+# are Head's); the updates U += du and sat += du. The face kappa is
+# closure_rhs's. IMPLICIT_OPS_PER_FACE counts soil::diffusion_rows by
+# interior face f (the boundary faces take no row terms, but the Dirichlet
+# top's, counted per column): dzf[f] dz[f] and dzf[f] dz[f - 1], once for
+# both systems, 2; per system the products s K[f] D[f - 1] and s K[f] D[f]
+# (each shared by two entries), their four quotients (a[f] and b[f]'s term
+# over the first spacing, c[f - 1] and b[f - 1]'s over the second) and the
+# two adds into b, 8; s K[f] for the Richards rows, 1 (the heat rows' scale
+# is 1, which the compiler drops). Per column: the Dirichlet top row (2 K,
+# times D, dzf dz, the quotient, the add: 5) and the pool's S + min(0, S)
+# dt (3); the solves by implicit_solver_ops.
+IMPLICIT_OPS = {
+    "closure_rhs, tendencies kept": FWD_OPS_PER_LEVEL_STEP - 4,
+    "dT/dU": 3,
+    "d(Psi)/d(sat)": 16,
+    "U += du, sat += du": 2,
+}
+IMPLICIT_OPS_PER_LEVEL_STEP = sum(IMPLICIT_OPS.values())
+IMPLICIT_OPS_PER_FACE = 2 + 8 + 8 + 1
+IMPLICIT_OPS_PER_COLUMN = 5 + 3
+
+
+def implicit_solver_ops(solver, nz):
+    """Operations of one tridiagonal solve of a column (soil::thomas,
+    soil::pcr) that the rows need: a[0] and c[nz - 1] are 0. Thomas, a row
+    above row 0: the denominator (multiply, subtract) and d' (multiply,
+    subtract, divide), c' (divide) but in the top row, whose c is 0, and
+    the back substitution (multiply, subtract) but in the top row, where
+    x = d'; row 0: c' and d', a divide each. PCR, a round of stride s: a row
+    with a row s below takes alpha (divide) and its two terms in b and d
+    (multiply, add each), 5, and its new a (multiply) where that is not 0,
+    in a row with a row 2 s below and not in the last round; the same with a
+    row s above; then x = d / b."""
+    if solver == "thomas":
+        return 8 * nz - 7
+    rounds = []
+    s = 1
+    while s < nz:
+        rounds.append(s)
+        s *= 2
+    new_ac = sum(2 * max(0, nz - 2 * s) for s in rounds[:-1])
+    return 10 * sum(nz - s for s in rounds) + new_ac + nz
+
+
+def implicit_ops(solver, nz):
+    """Operations of one implicit step of one column."""
+    return (IMPLICIT_OPS_PER_LEVEL_STEP * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
+            + IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
 H100_FP32_OPS, H100_HBM_BYTES = 67e12, 3.35e12  # published peaks, SXM, 700 W
 
 
@@ -165,6 +236,33 @@ def bench_sim(tp):
                             dtype=torch.float32, device="cuda")
     return tp.initialize(
         tp.SoilModel(grid=grid, soil=soil(tp)), tp.ForwardEuler(dt=BENCH_DT),
+        initializers={
+            "temperature": lambda x, z: 1.0 + 0.0 * z,
+            "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.5 - 0.05 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(
+            lambda t: 5.0 * torch.sin(2 * torch.pi * t / 86400.0)))
+
+
+def implicit_freeze_sim(tp, solver):
+    """`tests/test_goldens.py:92-113`: 6 cells, Nz 16, float64,
+    ImplicitEuler at dt 3600 s, top temperature -8 degC."""
+    grid = tp.ColumnGrid.of(cells=6, spacing=tp.ExponentialSpacing(N=16),
+                            dtype=torch.float64, device="cuda")
+    return tp.initialize(
+        tp.SoilModel(grid=grid, soil=soil(tp)), tp.ImplicitEuler(dt=3600.0, solver=solver),
+        initializers={
+            "temperature": lambda x, z: 3.0 * np.cos(2 * np.pi * x) + 0.1 * z,
+            "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.65 - 0.04 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(lambda t: -8.0 + 0.0 * t))
+
+
+def implicit_sim(tp, solver):
+    """`bench_configs.py:141-199` (column_implicit_tridiag): the bench model,
+    initial state and top temperature, ImplicitEuler at dt 900 s."""
+    grid = tp.ColumnGrid.of(cells=BENCH_CELLS, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
+                            dtype=torch.float32, device="cuda")
+    return tp.initialize(
+        tp.SoilModel(grid=grid, soil=soil(tp)), tp.ImplicitEuler(dt=IMPLICIT_DT, solver=solver),
         initializers={
             "temperature": lambda x, z: 1.0 + 0.0 * z,
             "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.5 - 0.05 * z)},
@@ -312,7 +410,7 @@ def ptxas_summary(report: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m and entry:
             name = m.group(1)
-            flags = re.search(r"rollout_kernelI[fd]Li\d+ELb[01]ELb[01]ELb([01])E", name)
+            flags = re.search(r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+ELb[01]ELb([01])E", name)
             if flags:
                 key = "series" if flags.group(1) == "1" else "table"
             else:
@@ -436,7 +534,8 @@ def main():
 
     def reset_counts():
         for fn in (fs.soil_column_rollout, fs.soil_column_heun_rollout,
-                   fs.soil_column_heat_rollout, fv.soil_column_segment_vjp):
+                   fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
+                   fv.soil_column_segment_vjp):
             fn.launches = 0
 
     # ---- build: one nvcc per source, in parallel
@@ -648,6 +747,109 @@ def main():
           T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())])
     del sim, st
 
+    # ---- implicit_freeze golden through the implicit kernel (Simulation.run,
+    # one launch) and through the plain version, both solvers, and the water
+    # identity
+    igold = np.load(IMPLICIT_GOLDEN)
+    errs, idents = {}, {}
+    for solver in SOLVERS:
+        for route in ("kernel", "plain"):
+            sim = implicit_freeze_sim(tp, solver)
+            w0 = water(sim)
+            if route == "kernel":
+                reset_counts()
+                sim.run(steps=48, dt=3600.0)
+                torch.cuda.synchronize()
+                if fs.soil_column_implicit_rollout.launches != 1:
+                    raise AssertionError(f"implicit_freeze ({solver}): "
+                                         f"{fs.soil_column_implicit_rollout.launches} implicit "
+                                         "kernel launches, expected 1")
+                idents[solver] = float(((water(sim) - w0).abs() / w0.abs()).max())
+                if idents[solver] > 1e-12:
+                    raise AssertionError(f"implicit_freeze ({solver}): water identity through "
+                                         f"the kernel {idents[solver]}")
+            else:
+                advance(sim.model, sim.state, sim.ctx, 48, 3600.0, timestepper=sim.timestepper,
+                        plain=True)
+                sim.compute_auxiliary()
+            for f in igold.files:
+                got = sim.state[f].cpu().numpy()
+                np.testing.assert_allclose(got, igold[f], rtol=1e-12, atol=1e-12,
+                                           err_msg=f"implicit_freeze {solver} {route}: {f}")
+                errs[f"{solver}:{route}:{f}"] = float(np.max(np.abs(got - igold[f])))
+    phase("implicit_golden", rtol=1e-12, atol=1e-12, max_abs_err=errs,
+          water_identity_rel_err=idents)
+    del sim
+
+    # ---- the implicit kernel against its plain version at full width, each
+    # solver, 144 steps, with the water identity; then column_implicit_tridiag
+    # through Simulation.run: one warm-up run, then one timed 1,920-step block
+    imp = {}
+    for solver in SOLVERS:
+        sim = implicit_sim(tp, solver)
+        g = sim.model.grid
+        coords = tuple(getattr(g, n)[:, 0].contiguous()
+                       for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+        carry = tuple(sim.state.prognostic[n].contiguous() for n in sim.model.live_carry)
+        params = fs.ColumnParams.of(sim.model, g.dtype)
+        times = clock_times(sim.state.clock.time, IMPLICIT_DT, COMPARE_STEPS)[:-1]
+        table = top_temperature_table(sim.bcs["temperature"]["top"].value, times, g)
+        w0 = water(sim)
+        out_k = fs.soil_column_implicit_rollout(*carry, table, *coords, params, IMPLICIT_DT,
+                                                solver=solver)
+        out_p = fs.soil_column_rollout_plain(*carry, table, *coords, params, IMPLICIT_DT,
+                                             stepper="implicit", solver=solver)
+        torch.cuda.synchronize()
+        cmp_ = check_close(f"ImplicitEuler {solver}", out_k, out_p, F32_REL_TOL)
+        dz = g.dz[:, 0]
+        w_k = (out_k[1] * dz[:, None]).sum(0) + out_k[2]
+        ident = float(((w_k.double() - w0.double()).abs() / w0.double().abs()).max())
+        if ident > IMPLICIT_F32_WATER_TOL:
+            raise AssertionError(f"ImplicitEuler {solver}: water identity through the kernel "
+                                 f"{ident} > {IMPLICIT_F32_WATER_TOL}")
+        k_ms = cuda_ms(lambda: fs.soil_column_implicit_rollout(
+            *carry, table, *coords, params, IMPLICIT_DT, solver=solver), reps=3, warmup=True)
+        p_ms = cuda_ms(lambda: fs.soil_column_rollout_plain(
+            *carry, table, *coords, params, IMPLICIT_DT, stepper="implicit", solver=solver))
+        b = bound_ms(implicit_ops(solver, BENCH_NZ) * BENCH_CELLS * COMPARE_STEPS,
+                     2 * (2 * BENCH_NZ + 1) * BENCH_CELLS * 4 + COMPARE_STEPS * 4)
+        del carry, table, out_k, out_p
+        sim.run(steps=COMPARE_STEPS)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sim.run(steps=IMPLICIT_BLOCK_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = fs.soil_column_implicit_rollout.launches
+        if launches != 1:
+            raise AssertionError(f"the implicit block ({solver}) took {launches} launches")
+        st = sim.state
+        for name in ("internal_energy", "saturation_water_ice", "temperature", "pressure_head",
+                     "hydraulic_conductivity", "surface_excess_water",
+                     "liquid_water_fraction"):
+            if not bool(torch.isfinite(st[name]).all()):
+                raise AssertionError(f"implicit main path ({solver}): non-finite {name}")
+        sat = st.saturation_water_ice
+        if not (float(sat.min()) >= 0.0 and float(sat.max()) <= 1.0):
+            raise AssertionError(f"implicit main path ({solver}): saturation left [0, 1]")
+        if sim.iteration != COMPARE_STEPS + IMPLICIT_BLOCK_STEPS:
+            raise AssertionError(f"implicit main path ({solver}): clock iteration "
+                                 f"{sim.iteration}")
+        imp[solver] = dict(max_abs_err=cmp_, water_identity_rel_err=ident, kernel_ms=k_ms,
+                           plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], seconds=run_s,
+                           launches=launches,
+                           cells_steps_per_s=BENCH_CELLS * IMPLICIT_BLOCK_STEPS / run_s)
+        phase("implicit_compare", solver=solver, steps=COMPARE_STEPS, rel_tol=F32_REL_TOL,
+              water_tol=IMPLICIT_F32_WATER_TOL, max_abs_err=cmp_, water_identity_rel_err=ident,
+              kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], card=card)
+        phase("implicit_main_path", solver=solver, cells=BENCH_CELLS, nz=BENCH_NZ,
+              dt=IMPLICIT_DT, steps=IMPLICIT_BLOCK_STEPS, seconds=run_s, launches=launches,
+              cells_steps_per_s=BENCH_CELLS * IMPLICIT_BLOCK_STEPS / run_s, card=card,
+              T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())],
+              frozen_fraction_top=float((st.liquid_water_fraction[-1] < 1.0).float().mean()))
+        del sim, st, sat
+
     # ---- segment-VJP kernel against its plain version, one 48-step segment
     # of the gradient configuration on GRAD_COMPARE_CELLS columns
     vjp_names = ("U", "sat", "S", "K_sat", "sk_mineral")
@@ -810,6 +1012,19 @@ def main():
         "ms": heat_ms, "plain_ms": heat_plain_ms, "bound_ms": heat_b[0],
         "bound_by": heat_b[1], "library_ms": None,
         "shape": f"{HEAT_CELLS} x {BENCH_NZ} f32, heat only, series, {COMPARE_STEPS} steps"}, {
+        "name": "soil_column_implicit_rollout", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:283 with terrarium_tpu/timesteppers/"
+                    "implicit.py:173 (tridiag.py:109 PCR, :30 Thomas)",
+        "launches": imp["pcr"]["launches"], "max_abs_err": max(imp["pcr"]["max_abs_err"].values()),
+        "ms": imp["pcr"]["kernel_ms"], "plain_ms": imp["pcr"]["plain_ms"],
+        "bound_ms": imp["pcr"]["bound_ms"], "bound_by": imp["pcr"]["bound_by"],
+        "library_ms": None,
+        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, ImplicitEuler dt {IMPLICIT_DT:g}, PCR, "
+                 f"{COMPARE_STEPS} steps",
+        "thomas": {k: imp["thomas"][k] for k in ("launches", "kernel_ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
+        | {"max_abs_err": max(imp["thomas"]["max_abs_err"].values())}}, {
         "name": "soil_column_segment_vjp", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/soil_column_segment_vjp.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
@@ -827,8 +1042,10 @@ def main():
 def euler_digest(root: pathlib.Path):
     """SHA-256 of the ForwardEuler heat + Richards kernel's outputs (golden
     f64 Nz 20, 120 steps; bench f32 Nz 30, 144 steps at full width; gradient
-    configuration f32 Nz 20, 48 steps at full width), its ptxas lines and the
-    bench main-path rate, for the package under ``root``."""
+    configuration f32 Nz 20, 48 steps at full width) and of the Heun
+    kernel's (heun_forced f64 Nz 15, 96 steps; the Heun + series
+    configuration f32 Nz 30, 144 steps at full width), the rollout's ptxas
+    lines and the bench main-path rate, for the package under ``root``."""
     import hashlib
 
     if not torch.cuda.is_available():
@@ -859,6 +1076,19 @@ def euler_digest(root: pathlib.Path):
         digests[case] = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
                                                 for t in out)).hexdigest()
         del sim, carry, out
+    # the Heun kernel: heun_forced f64 Nz 15 through Simulation.run, and the
+    # Heun + series configuration f32 Nz 30 at full width
+    sim = heun_forced_sim(tp)
+    sim.run(steps=96, dt=300.0)
+    digests["heun_forced_f64_nz15"] = hashlib.sha256(b"".join(
+        sim.state.prognostic[n].cpu().numpy().tobytes()
+        for n in sim.model.live_carry)).hexdigest()
+    sim = heun_sim(tp, BENCH_CELLS)
+    carry, bc, coords, params = series_operands(fs, sim, COMPARE_STEPS)
+    out = fs.soil_column_heun_rollout(*carry, bc, *coords, params, BENCH_DT)
+    digests["heun_series_f32_nz30"] = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes() for t in out)).hexdigest()
+    del sim, carry, bc, out
     sim = bench_sim(tp)
     sim.run(steps=COMPARE_STEPS)
     torch.cuda.synchronize()
@@ -869,9 +1099,10 @@ def euler_digest(root: pathlib.Path):
     ptxas = [ln.strip() for ln in cuda_build.ptxas_report("soil_column_rollout").splitlines()
              if ln.startswith("==") or "Compiling entry" in ln or "Used" in ln
              or "spill stores" in ln]
+    print(json.dumps({"ptxas": ptxas}), flush=True)
     print(json.dumps({"package": tp.__file__, "build_s": build_s, "digests": digests,
-                      "main_path_cells_steps_per_s": BENCH_CELLS * BLOCK_STEPS / run_s,
-                      "ptxas": ptxas}), flush=True)
+                      "main_path_cells_steps_per_s": BENCH_CELLS * BLOCK_STEPS / run_s}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 
 A :class:`SoilModel` with two-phase heat conduction and the free-water
 freeze curve, either heat only (``NoFlow``, the default, as in the JAX
-package) or with Richards-equation hydrology, stepped by ForwardEuler or
-Heun, with the top temperature given as a value, ``f(t)`` or an input
-variable fed by ``FieldInputSource`` / ``TimeSeriesInputSource``.
+package) or with Richards-equation hydrology, stepped by ForwardEuler, Heun
+or ImplicitEuler (tridiagonal solves by PCR or Thomas), with the top
+temperature given as a value, ``f(t)`` or an input variable fed by
+``FieldInputSource`` / ``TimeSeriesInputSource``.
 ``Simulation.run`` goes through hand-written CUDA column kernels on an NVIDIA
 Hopper card and through their plain PyTorch version on the CPU
 (``ops/fused_step.py``); gradients through a CUDA segment-VJP kernel
@@ -42,4 +43,5 @@ from .models.initializers import DefaultInitializer
 from .models.soil_model import SoilModel
 from .io.input_sources import FieldInputSource, TimeSeriesInputSource
 from .timesteppers.stepping import ForwardEuler, Heun
+from .timesteppers.implicit import ImplicitEuler
 from .timesteppers.integrator import Simulation, initialize

@@ -52,6 +52,14 @@ struct SoilColumnParams {
     double p_inv_m, p_inv_n, p_k1, p_k2;   // exponents -1/m, 1/n, n/(n+1), (n-1)/n
     int num_inv_m, den_inv_m, num_inv_n, den_inv_n;  // their root/power codes
     int num_k1, den_k1, num_k2, den_k2;
+    // the implicit stepper's, appended so that the fields above keep their
+    // offsets: the Richards rows' scale and VanGenuchten.inverse_deriv
+    double inv_por;              // 1 / porosity
+    double id_se_lo, id_se_hi;   // clip of effective saturation
+    double id_coef;              // 1 / (alpha n m)
+    double id_clamp;             // upper clamp of the derivative
+    double p_id_core, p_id_a, p_id_b;  // exponents -1/m, (1 - n)/n, -(1 + m)/m
+    int num_id_core, den_id_core, num_id_a, den_id_a, num_id_b, den_id_b;
 };
 }
 
@@ -138,6 +146,7 @@ struct Consts {
     T theta_res, vg_span, neg_inv_alpha, psi_min, vg_se_lo, vg_se_hi;
     T K_sat, neg_impedance, k_theta_sat, k_se_hi, eps_lo, z_top;
     T p_inv_m, p_inv_n, p_k1, p_k2;
+    T inv_por, id_se_lo, id_se_hi, id_coef, id_clamp, p_id_core, p_id_a, p_id_b;
     SOIL_FN explicit Consts(const SoilColumnParams& P)
         : por(T(P.por)), L(T(P.L)), c_water(T(P.c_water)), c_ice(T(P.c_ice)),
           c_air(T(P.c_air)), c_mineral(T(P.c_mineral)), c_organic(T(P.c_organic)),
@@ -148,7 +157,10 @@ struct Consts {
           vg_se_lo(T(P.vg_se_lo)), vg_se_hi(T(P.vg_se_hi)), K_sat(T(P.K_sat)),
           neg_impedance(T(P.neg_impedance)), k_theta_sat(T(P.k_theta_sat)),
           k_se_hi(T(P.k_se_hi)), eps_lo(T(P.eps_lo)), z_top(T(P.z_top)),
-          p_inv_m(T(P.p_inv_m)), p_inv_n(T(P.p_inv_n)), p_k1(T(P.p_k1)), p_k2(T(P.p_k2)) {}
+          p_inv_m(T(P.p_inv_m)), p_inv_n(T(P.p_inv_n)), p_k1(T(P.p_k1)), p_k2(T(P.p_k2)),
+          inv_por(T(P.inv_por)), id_se_lo(T(P.id_se_lo)), id_se_hi(T(P.id_se_hi)),
+          id_coef(T(P.id_coef)), id_clamp(T(P.id_clamp)), p_id_core(T(P.p_id_core)),
+          p_id_a(T(P.p_id_a)), p_id_b(T(P.p_id_b)) {}
 };
 
 // The closure and conductivities of one level from its adjusted saturation
@@ -246,6 +258,9 @@ SOIL_FN void sweeps(T (&sat)[NZ], T& spill, T& wt, unsigned& spilled, unsigned& 
 // only. Each tendency goes to `out` as soon as it is formed, so that a sink
 // may update the level in place (energy of level k once the flux above it
 // is known): out.energy(k, dU/dt), out.water(k, dsat/dt), out.pool(dS/dt).
+// The implicit stepper's sink also takes each level's closure,
+// out.level(k, U[k], Level), and each face's Darcy conductivity,
+// out.darcy_face(f, K_eff); the explicit sinks ignore both.
 template <typename T, int NZ, bool HEAT, class Out>
 SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop,
                          const Consts<T>& c, const SoilColumnParams& P, const T* dz,
@@ -267,6 +282,7 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop,
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
         const Level<T, !HEAT> v(sat[k], U[k], c, P);
+        out.level(k, U[k], v);
         if (!HEAT) Kc[k] = v.Kc;
         // heat flux at the face below cell k; zero gradient at the bottom
         const T kf = T(0.5) * (v.kap + (k == 0 ? v.kap : kap_prev));
@@ -297,6 +313,7 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop,
         const T K_k = face_K<T, NZ>(Kc, k);
         const T K_eff = grad < T(0) ? vmin(K_lo, K_k) : vmin(K_k, K_hi);
         const T qw = -K_eff * grad;
+        out.darcy_face(k, K_eff);
         if (k > 0) out.water(k - 1, (-((qw - qw_prev) / dz[k - 1])) / c.por);
         qw_prev = qw;
         psi_prev = psi_k;
@@ -304,13 +321,23 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop,
     out.pool(vmin(T(0), S));  // parity surface-pool term +min(0, S)
 }
 
+// what an explicit sink ignores of closure_rhs
+template <typename T>
+struct ExplicitSink {
+    template <class L>
+    SOIL_FN void level(int, T, const L&) {}
+    SOIL_FN void darcy_face(int, T) {}
+};
+
 // ForwardEuler's update x + f * dt, level by level as closure_rhs forms f
 template <typename T, int NZ>
-struct EulerUpdate {
+struct EulerUpdate : ExplicitSink<T> {
     T (&U)[NZ];
     T (&sat)[NZ];
     T& S;
     const T dt;
+    SOIL_FN EulerUpdate(T (&U_)[NZ], T (&sat_)[NZ], T& S_, const T dt_)
+        : U(U_), sat(sat_), S(S_), dt(dt_) {}
     SOIL_FN void energy(int k, T f) { U[k] = U[k] + f * dt; }
     SOIL_FN void water(int k, T f) { sat[k] = sat[k] + f * dt; }
     SOIL_FN void pool(T f) { S = S + f * dt; }
@@ -318,7 +345,7 @@ struct EulerUpdate {
 
 // the tendencies of Heun's first stage, kept
 template <typename T, int NZ>
-struct Tendencies {
+struct Tendencies : ExplicitSink<T> {
     T U[NZ], sat[NZ], S;
     SOIL_FN void energy(int k, T f) { U[k] = f; }
     SOIL_FN void water(int k, T f) { sat[k] = f; }
@@ -328,12 +355,15 @@ struct Tendencies {
 // Heun's corrector x + (0.5 * (f_n + f*)) * dt, level by level as
 // closure_rhs forms f* at the stage
 template <typename T, int NZ>
-struct HeunUpdate {
+struct HeunUpdate : ExplicitSink<T> {
     T (&U)[NZ];
     T (&sat)[NZ];
     T& S;
     const Tendencies<T, NZ>& f;
     const T dt;
+    SOIL_FN HeunUpdate(T (&U_)[NZ], T (&sat_)[NZ], T& S_, const Tendencies<T, NZ>& f_,
+                       const T dt_)
+        : U(U_), sat(sat_), S(S_), f(f_), dt(dt_) {}
     SOIL_FN void energy(int k, T g) { U[k] = U[k] + (T(0.5) * (f.U[k] + g)) * dt; }
     SOIL_FN void water(int k, T g) { sat[k] = sat[k] + (T(0.5) * (f.sat[k] + g)) * dt; }
     SOIL_FN void pool(T g) { S = S + (T(0.5) * (f.S + g)) * dt; }
@@ -375,6 +405,180 @@ SOIL_FN void heun_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T v0, const T v1,
     closure_rhs<T, NZ, HEAT>(yU, ys, yS, v1, c, P, dz, dzf, zc, zf, out);
 }
 
+// ---------------------------------------------------------------------------
+// implicit step (ImplicitEuler, timesteppers/implicit.py:165-264)
+// ---------------------------------------------------------------------------
+//
+// (I/dt - J) du = tend(u^n) for the heat and the Richards systems of the
+// column, each tridiagonal, solved by Thomas or PCR on the column in
+// registers (ops/tridiag.py). The order of operations is the JAX package's:
+// the assembly of implicit.py:69-117, tridiag.py:44-50 and :85-88 (Thomas),
+// tridiag.py:109-129 (PCR).
+
+enum { SOLVER_THOMAS = 0, SOLVER_PCR = 1 };
+
+// the tendencies (the right-hand sides) and what the rows need of the
+// closed column: the centre thermal conductivity, dT/dU (0 on the freeze
+// plateau -L_theta <= U < 0, else 1/C; energy.py:142-163) and the Darcy face
+// conductivity (hydrology.py:368-396)
+template <typename T, int NZ>
+struct ImplicitTerms : Tendencies<T, NZ> {
+    T kap[NZ], Dh[NZ], Keff[NZ + 1];
+    template <class L>
+    SOIL_FN void level(int k, T Uk, const L& v) {
+        kap[k] = v.kap;
+        Dh[k] = (Uk >= v.negL && Uk < T(0)) ? T(0) : T(1) / v.C;
+    }
+    SOIL_FN void darcy_face(int f, T K) { Keff[f] = K; }
+};
+
+// D = d(Psi)/d(sat) = VanGenuchten.inverse_deriv(sat * por, por) * por
+// (swrc.py:77-90): the clipped se, the three fixed powers, the clamp, 0 at
+// and above saturation
+template <typename T>
+SOIL_FN T water_chain(const T sk, const Consts<T>& c, const SoilColumnParams& P) {
+    const T se_raw = (sk * c.por - c.theta_res) / c.vg_span;
+    const T se = vmin(vmax(se_raw, c.id_se_lo), c.id_se_hi);
+    const T core = fpow(se, P.num_id_core, P.den_id_core, c.p_id_core) - T(1);
+    const T dpsi = (c.id_coef * fpow(core, P.num_id_a, P.den_id_a, c.p_id_a))
+                   * fpow(se, P.num_id_b, P.den_id_b, c.p_id_b);
+    const T d = dpsi / c.vg_span;
+    return (se_raw >= T(1) ? T(0) : vmin(vmax(d, T(0)), c.id_clamp)) * c.por;
+}
+
+// The rows (a, b, c) for face conductivities Kf, chain factor D and scale s
+// (implicit.py:69-117): each face term (s K D) / (dzf dz); the boundary rows
+// take no term of their boundary face (a[0] and c[NZ-1] are 0, which both
+// solvers ignore); a Dirichlet phi at the top adds 2 s K D / (dzf dz) to the
+// top row.
+template <typename T, int NZ>
+SOIL_FN void diffusion_rows(const T (&Kf)[NZ + 1], const T (&D)[NZ], const T s,
+                            const T inv_dt, const T* dz, const T* dzf, const bool dirichlet_top,
+                            T (&a)[NZ], T (&b)[NZ], T (&c)[NZ])
+{
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        const T sKlo = s * Kf[k], sKhi = s * Kf[k + 1];
+        const T lo = dzf[k] * dz[k], hi = dzf[k + 1] * dz[k];
+        a[k] = k == 0 ? T(0) : -((sKlo * D[k > 0 ? k - 1 : 0]) / lo);
+        c[k] = k == NZ - 1 ? T(0) : -((sKhi * D[k < NZ - 1 ? k + 1 : k]) / hi);
+        const T diag_lo = k == 0 ? T(0) : (sKlo * D[k]) / lo;
+        const T diag_hi = k == NZ - 1 ? T(0) : (sKhi * D[k]) / hi;
+        b[k] = (inv_dt + diag_lo) + diag_hi;
+    }
+    if (dirichlet_top)
+        b[NZ - 1] = b[NZ - 1] + ((T(2) * s * Kf[NZ]) * D[NZ - 1]) / (dzf[NZ] * dz[NZ - 1]);
+}
+
+// Thomas (tridiag.py:30-91): c'[k] = c[k] / (b[k] - a[k] c'[k-1]), d'[k] =
+// (d[k] - a[k] d'[k-1]) / (the same), a[0] taken as 0; then x[k] = d'[k] -
+// c'[k] x[k+1] from the top down. d becomes x.
+template <typename T, int NZ>
+SOIL_FN void thomas(const T (&a)[NZ], const T (&b)[NZ], const T (&c)[NZ], T (&d)[NZ]) {
+    T cp[NZ];
+    T c_prev = T(0), d_prev = T(0);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        const T a_k = k == 0 ? T(0) : a[k];
+        const T denom = b[k] - a_k * c_prev;
+        c_prev = c[k] / denom;
+        d_prev = (d[k] - a_k * d_prev) / denom;
+        cp[k] = c_prev;
+        d[k] = d_prev;
+    }
+    T x = T(0);
+#pragma unroll
+    for (int k = NZ - 1; k >= 0; --k) {
+        x = d[k] - cp[k] * x;
+        d[k] = x;
+    }
+}
+
+// One PCR round of stride S (tridiag.py:119-128): rows out of range act as
+// the identity (b = 1, a = c = d = 0), so their terms drop out; the new a
+// and c are built from the old ones.
+template <typename T, int NZ, int S>
+SOIL_FN void pcr_rounds(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ]) {
+    if constexpr (S < NZ) {
+        T an[NZ], bn[NZ], cn[NZ], dn[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            const bool lo = k - S >= 0, hi = k + S < NZ;
+            const int kl = lo ? k - S : k, kh = hi ? k + S : k;
+            const T alpha = lo ? -a[k] / b[kl] : -a[k];
+            const T gamma = hi ? -c[k] / b[kh] : -c[k];
+            T bk = b[k], dk = d[k];
+            if (lo) { bk = bk + alpha * c[kl]; dk = dk + alpha * d[kl]; }
+            if (hi) { bk = bk + gamma * a[kh]; dk = dk + gamma * d[kh]; }
+            bn[k] = bk;
+            dn[k] = dk;
+            an[k] = lo ? alpha * a[kl] : T(0);
+            cn[k] = hi ? gamma * c[kh] : T(0);
+        }
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) { a[k] = an[k]; b[k] = bn[k]; c[k] = cn[k]; d[k] = dn[k]; }
+        pcr_rounds<T, NZ, 2 * S>(a, b, c, d);
+    }
+}
+
+// PCR (tridiag.py:109-129): a[0] and c[NZ-1] zeroed, the rounds of stride
+// 1, 2, 4, ... < NZ, then x = d / b. d becomes x; a, b, c are spent.
+template <typename T, int NZ>
+SOIL_FN void pcr(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ]) {
+    a[0] = T(0);
+    c[NZ - 1] = T(0);
+    pcr_rounds<T, NZ, 1>(a, b, c, d);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) d[k] = d[k] / b[k];
+}
+
+template <typename T, int NZ, int SOLVER>
+SOIL_FN void solve(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ]) {
+    if constexpr (SOLVER == SOLVER_PCR) pcr<T, NZ>(a, b, c, d);
+    else thomas<T, NZ>(a, b, c, d);
+}
+
+// One ImplicitEuler.pre_closure_step of the column (U, sat, S) in place,
+// one Picard iteration: closure_rhs into the implicit sink (the closure in
+// place, the tendencies, the terms); the heat rows (face kappa by the
+// arithmetic mean with zero-gradient ends, dT/dU, scale 1, the Dirichlet
+// top at vtop) and their solve, U += du; the Richards rows (the Darcy face
+// K, d(Psi)/d(sat) at the closed saturation, scale 1/por; the pressure head
+// has no BC) and their solve, sat += du; the surface pool explicitly, S +=
+// min(0, S) * dt. The two systems are solved one after the other, each
+// solve turning its tendency array into du, so that one set of rows is live
+// at a time.
+template <typename T, int NZ, int SOLVER>
+SOIL_FN void implicit_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Consts<T>& c,
+                           const SoilColumnParams& P, const T* dz, const T* dzf, const T* zc,
+                           const T* zf, const T dt, const T inv_dt)
+{
+    ImplicitTerms<T, NZ> f;
+    closure_rhs<T, NZ, false>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, f);
+    T a[NZ], b[NZ], cc[NZ];
+    {
+        T Kf[NZ + 1];
+        Kf[0] = T(0.5) * (f.kap[0] + f.kap[0]);
+#pragma unroll
+        for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (f.kap[k] + f.kap[k - 1]);
+        Kf[NZ] = T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]);
+        diffusion_rows<T, NZ>(Kf, f.Dh, T(1), inv_dt, dz, dzf, true, a, b, cc);
+    }
+    solve<T, NZ, SOLVER>(a, b, cc, f.U);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) U[k] = U[k] + f.U[k];
+    {
+        T D[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) D[k] = water_chain<T>(sat[k], c, P);
+        diffusion_rows<T, NZ>(f.Keff, D, c.inv_por, inv_dt, dz, dzf, false, a, b, cc);
+    }
+    solve<T, NZ, SOLVER>(a, b, cc, f.sat);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + f.sat[k];
+    S = S + f.S * dt;
+}
+
 // A uniformly spaced series at clock time t (ops/fused_step.py::series_value,
 // the counterpart of _WindowSource.update_inputs, fused_step.py:104-122, read
 // from the whole series instead of a window): `s` points at the column's
@@ -393,20 +597,26 @@ SOIL_FN T series_value(const T* s, const long long row_stride, const int rows, c
     return (T(1) - w) * s[i * row_stride] + w * s[j * row_stride];
 }
 
-// `steps` closure-rotated steps of one column (U, sat, S) in place, ForwardEuler
-// or HEUN, from the clock time t, which advances by t + dt as Clock.tick
-// does. The top temperature of clock time i is top[i * step_stride] (a
-// table; HEUN reads steps + 1 rows) or, SERIES, the series at `top` read
-// at the clock time; `top` points at the column's element of row 0.
-template <typename T, int NZ, bool HEUN, bool HEAT, bool SERIES>
+enum { STEPPER_EULER = 0, STEPPER_HEUN = 1, STEPPER_IMPLICIT = 2 };
+
+// `steps` closure-rotated steps of one column (U, sat, S) in place, by
+// STEPPER (ForwardEuler, Heun or ImplicitEuler with SOLVER; inv_dt is
+// 1 / dt as the host rounds it), from the clock time t, which advances by
+// t + dt as Clock.tick does. The top temperature of clock time i is
+// top[i * step_stride] (a table; Heun reads steps + 1 rows) or, SERIES,
+// the series at `top` read at the clock time; `top` points at the column's
+// element of row 0.
+template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES>
 SOIL_FN void rollout_column(T (&U)[NZ], T (&sat)[NZ], T& S, const T* top,
                             const long long step_stride, const int rows, const T t0,
                             const T dts, T t, const int steps, const Consts<T>& c,
                             const SoilColumnParams& P, const T* dz, const T* dzf,
-                            const T* zc, const T* zf, const T dt)
+                            const T* zc, const T* zf, const T dt, const T inv_dt)
 {
+    static_assert(!(STEPPER == STEPPER_IMPLICIT && HEAT),
+                  "the implicit column step runs heat + Richards");
     for (int s = 0; s < steps; ++s) {
-        if (HEUN) {
+        if constexpr (STEPPER == STEPPER_HEUN) {
             const T t1 = t + dt;
             const T v0 = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
                                 : top[s * step_stride];
@@ -414,6 +624,11 @@ SOIL_FN void rollout_column(T (&U)[NZ], T (&sat)[NZ], T& S, const T* top,
                                 : top[(s + 1) * step_stride];
             heun_step<T, NZ, HEAT>(U, sat, S, v0, v1, c, P, dz, dzf, zc, zf, dt);
             t = t1;
+        } else if constexpr (STEPPER == STEPPER_IMPLICIT) {
+            const T vtop = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
+                                  : top[s * step_stride];
+            implicit_step<T, NZ, SOLVER>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt, inv_dt);
+            if (SERIES) t = t + dt;
         } else {
             const T vtop = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
                                   : top[s * step_stride];

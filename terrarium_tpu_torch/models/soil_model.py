@@ -59,3 +59,10 @@ class SoilModel:
 
     def invclosure(self, state, ctx) -> None:
         self.soil.invclosure(state, self.grid, ctx)
+
+    def implicit_terms(self, state, ctx) -> tuple:
+        return self.soil.implicit_terms(state, self.grid, ctx)
+
+    def timestep(self, state, ctx, dt) -> None:
+        """Post-step hook of the implicit stepper; a no-op (reference
+        `abstract_timestepper.jl:47`)."""

@@ -30,17 +30,20 @@ __all__ = ["build", "ptxas_report", "entry", "INSTANTIATIONS"]
 _F32, _F64 = torch.float32, torch.float64
 #: the instantiations of each source, ``(tags, dtype, NZ)``: every one that
 #: the port's paths, ``chip_smoke.py`` and the CUDA tests launch (the bench
-#: and gradient grids at Nz 20 and 30, the Heun golden at Nz 15); a launch of
-#: any other raises
+#: and gradient grids at Nz 20 and 30, the Heun golden at Nz 15, the
+#: implicit golden at Nz 16); a launch of any other raises
 INSTANTIATIONS = {
     "soil_column_rollout": [
         *((("euler", "richards"), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)),
         (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
         (("euler", "heat"), _F32, 30), (("euler", "heat"), _F64, 30),
+        *((("implicit", solver, "richards"), dtype, nz) for solver in ("thomas", "pcr")
+          for dtype, nz in ((_F64, 16), (_F32, 30))),
     ],
     "soil_column_segment_vjp": [((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)],
 }
-_DEFINES = {"euler": "SOIL_HEUN=0", "heun": "SOIL_HEUN=1", "richards": "SOIL_HEAT=0",
+_DEFINES = {"euler": "SOIL_STEPPER=0", "heun": "SOIL_STEPPER=1", "implicit": "SOIL_STEPPER=2",
+            "thomas": "SOIL_SOLVER=0", "pcr": "SOIL_SOLVER=1", "richards": "SOIL_HEAT=0",
             "heat": "SOIL_HEAT=1"}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]

@@ -11,7 +11,10 @@ configurations below, one kernel family (and one wrapper) each:
 * :func:`soil_column_heun_rollout`: Heun, heat + Richards flow, the same
   carry;
 * :func:`soil_column_heat_rollout`: ForwardEuler, heat only (``NoFlow``);
-  carry the internal energy, the saturation read and never written.
+  carry the internal energy, the saturation read and never written;
+* :func:`soil_column_implicit_rollout`: ImplicitEuler (one Picard
+  iteration), heat + Richards flow, each step two tridiagonal solves (heat
+  and Richards) by Thomas or PCR; the Euler carry.
 
 The top temperature is either a table, one row per clock time (``(rows,)``
 or ``(rows, cells)``, strides may be 0; Heun reads ``n + 1`` rows, the
@@ -37,6 +40,7 @@ import torch
 
 from . import cuda_build
 from .fastpow import fast_pow, pow_code
+from .tridiag import SOLVERS, diffusion_rows
 from ..models.soil_model import SoilModel
 from ..processes.soil.energy import SoilEnergyBalance
 from ..processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSURFEX,
@@ -51,7 +55,7 @@ from ..utils.utils import safediv
 
 __all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "clock_times",
            "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
-           "soil_column_rollout_plain", "ROLLOUTS"]
+           "soil_column_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS"]
 
 _NAME = "soil_column_rollout"  # csrc/soil_column_rollout.cu
 
@@ -102,7 +106,8 @@ def kernel_physics(model) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ColumnParams:
-    """Scalar parameters of the fused soil step, as Python floats.
+    """Scalar parameters of the fused soil step, as Python floats, and the
+    retention curve of the plain implicit step.
 
     Products of two parameters that the JAX package forms in Python (a
     constituent property times a solid-matrix fraction) are formed here the
@@ -137,6 +142,22 @@ class ColumnParams:
     p_inv_n: float
     p_k1: float
     p_k2: float
+    # the implicit stepper's (appended, so that the struct's earlier layout
+    # stays): 1/por, the tendency scale of the Richards rows, and the
+    # constants of VanGenuchten.inverse_deriv (`swrc.py:77-90`): the clip of
+    # se, 1/(alpha n m), the clamp of the derivative, the exponents -1/m,
+    # (1 - n)/n and -(1 + m)/m
+    inv_por: float
+    id_se_lo: float
+    id_se_hi: float
+    id_coef: float
+    id_clamp: float
+    p_id_core: float
+    p_id_a: float
+    p_id_b: float
+    #: the retention curve whose ``inverse_deriv`` the plain implicit step
+    #: calls (``None`` for the heat-only model); not passed to the kernels
+    swrc: VanGenuchten | None = None
 
     @staticmethod
     def of(model, dtype: torch.dtype) -> "ColumnParams":
@@ -159,19 +180,24 @@ class ColumnParams:
         hydraulic = dict.fromkeys(
             ("theta_res", "vg_span", "neg_inv_alpha", "psi_min", "vg_se_lo", "vg_se_hi",
              "K_sat", "neg_impedance", "k_theta_sat", "k_se_hi", "p_inv_m", "p_inv_n",
-             "p_k1", "p_k2"), 0.0)
+             "p_k1", "p_k2", "inv_por", "id_se_lo", "id_se_hi", "id_coef", "id_clamp",
+             "p_id_core", "p_id_a", "p_id_b"), 0.0)
         if physics == "richards":
             hyd = soil.hydrology.hydraulic_properties
             swrc, unsat = hyd.swrc, hyd.unsat_hydraulic_cond
             n = swrc.n
             m = 1.0 - 1.0 / n
             hydraulic = dict(
+                swrc=swrc,
                 theta_res=swrc.theta_res, vg_span=por - swrc.theta_res,
                 neg_inv_alpha=-(1.0 / swrc.alpha), psi_min=swrc.psi_min,
                 vg_se_lo=1e-8, vg_se_hi=one_minus_eps(dtype, 1e-12),
                 K_sat=_number(hyd.sat_hydraulic_cond), neg_impedance=-unsat.impedance,
                 k_theta_sat=max(por, 1e-12), k_se_hi=one_minus_eps(dtype, 1e-9),
-                p_inv_m=-1.0 / m, p_inv_n=1.0 / n, p_k1=n / (n + 1.0), p_k2=(n - 1.0) / n)
+                p_inv_m=-1.0 / m, p_inv_n=1.0 / n, p_k1=n / (n + 1.0), p_k2=(n - 1.0) / n,
+                inv_por=1.0 / por, id_se_lo=1e-6, id_se_hi=one_minus_eps(dtype, 1e-9),
+                id_coef=1.0 / (swrc.alpha * n * m), id_clamp=1.0e6, p_id_core=-1.0 / m,
+                p_id_a=(1.0 - n) / n, p_id_b=-(1.0 + m) / m)
         return ColumnParams(
             por=por, L=c.rho_w * c.L_sl,
             c_water=cs.water, c_ice=cs.ice, c_air=cs.air,
@@ -184,20 +210,30 @@ class ColumnParams:
             z_top=float(model.grid.vertical.z_faces[-1]), **hydraulic)
 
 
-class _CParams(ctypes.Structure):
-    """C layout of ``SoilColumnParams`` in the CUDA source."""
+_DOUBLES = [f.name for f in dataclasses.fields(ColumnParams) if f.name != "swrc"]
+_IMPLICIT = _DOUBLES.index("inv_por")
+_POWS, _IMPLICIT_POWS = ("inv_m", "inv_n", "k1", "k2"), ("id_core", "id_a", "id_b")
 
-    _fields_ = ([(f.name, ctypes.c_double) for f in dataclasses.fields(ColumnParams)]
-                + [(name, ctypes.c_int) for name in (
-                    "num_inv_m", "den_inv_m", "num_inv_n", "den_inv_n",
-                    "num_k1", "den_k1", "num_k2", "den_k2")])
+
+def _codes(keys):
+    return [(f"{part}_{key}", ctypes.c_int) for key in keys for part in ("num", "den")]
+
+
+class _CParams(ctypes.Structure):
+    """C layout of ``SoilColumnParams`` in the CUDA source: the explicit
+    steps' numbers and the ``(num, den)`` codes of their exponents, then the
+    implicit stepper's numbers and codes."""
+
+    _fields_ = ([(name, ctypes.c_double) for name in _DOUBLES[:_IMPLICIT]] + _codes(_POWS)
+                + [(name, ctypes.c_double) for name in _DOUBLES[_IMPLICIT:]]
+                + _codes(_IMPLICIT_POWS))
 
     @staticmethod
     def of(p: ColumnParams) -> "_CParams":
         codes = {}
-        for key in ("inv_m", "inv_n", "k1", "k2"):
+        for key in _POWS + _IMPLICIT_POWS:
             codes["num_" + key], codes["den_" + key] = pow_code(getattr(p, "p_" + key))
-        return _CParams(**dataclasses.asdict(p), **codes)
+        return _CParams(**{name: getattr(p, name) for name in _DOUBLES}, **codes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,8 +274,11 @@ def _plain_rhs(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, heat: bool):
     """The closure and tendencies of one closure-rotated step, in the
     kernel's order of operations (``soil::closure_rhs``): the sweeps row by
     row, everything else elementwise over ``(Nz, cells)``. Returns the closed
-    ``(sat, S)`` and the tendencies ``(dU, dsat, dS)``; the heat-only model
-    closes nothing and has no water tendencies (``None``)."""
+    ``(sat, S)``, the tendencies ``(dU, dsat, dS)`` and what the implicit
+    rows need of the closed column: the centre thermal conductivity, dT/dU
+    (0 on the freeze plateau, else 1/C) and the Darcy face conductivity. The
+    heat-only model closes nothing and has no water tendencies and no Darcy
+    faces (``None``)."""
     nz = U.shape[0]
     if not heat:
         # closure: saturation adjustment (up sweep then down sweep), water table
@@ -268,8 +307,9 @@ def _plain_rhs(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, heat: bool):
     k_hi = torch.cat([kap, kap[-1:]])
     qh = -(0.5 * (k_hi + k_lo)) * ((T_hi - T_lo) / dzf)
     dU = -((qh[1:] - qh[:-1]) / dz)
+    dTdU = torch.where((U >= negL) & (U < 0.0), 0.0, 1.0 / C)
     if heat:
-        return sat, S, dU, None, None
+        return sat, S, dU, None, None, kap, dTdU, None
 
     # centre hydraulic conductivity
     I_ice = 10.0 ** (p.neg_impedance * (1.0 - liq))
@@ -293,12 +333,12 @@ def _plain_rhs(U, sat, S, vtop, dz, dzf, zc, zf, p: ColumnParams, heat: bool):
                         torch.minimum(Kf, torch.cat([Kf[1:], inf])))
     qw = -K_eff * grad
     dsat = (-((qw[1:] - qw[:-1]) / dz)) / p.por
-    return sat, S, dU, dsat, pool_drainage(S)
+    return sat, S, dU, dsat, pool_drainage(S), kap, dTdU, K_eff
 
 
 def _plain_euler(U, sat, S, vtop, coords, p, dt, heat):
     """``ForwardEuler.pre_closure_step``: ``x + f * dt``."""
-    sat, S, dU, dsat, dS = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
+    sat, S, dU, dsat, dS, *_ = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
     if heat:
         return U + dU * dt, sat, S
     return U + dU * dt, sat + dsat * dt, S + dS * dt
@@ -308,13 +348,35 @@ def _plain_heun(U, sat, S, v0, v1, coords, p, dt, heat):
     """``Heun.pre_closure_step``: close ``x_n`` and take ``f_n`` at ``v0``;
     the stage ``y = x_n + f_n * dt``, closed, gives ``f*`` at ``v1`` (the
     top temperature at t + dt); ``x_n + (0.5 * (f_n + f*)) * dt``."""
-    sat, S, fU, fs, fS = _plain_rhs(U, sat, S, v0, *coords, p, heat)
+    sat, S, fU, fs, fS, *_ = _plain_rhs(U, sat, S, v0, *coords, p, heat)
     if heat:
-        _, _, gU, _, _ = _plain_rhs(U + fU * dt, sat, S, v1, *coords, p, heat)
+        gU = _plain_rhs(U + fU * dt, sat, S, v1, *coords, p, heat)[2]
         return U + (0.5 * (fU + gU)) * dt, sat, S
-    _, _, gU, gs, gS = _plain_rhs(U + fU * dt, sat + fs * dt, S + fS * dt, v1, *coords, p, heat)
+    _, _, gU, gs, gS, *_ = _plain_rhs(U + fU * dt, sat + fs * dt, S + fS * dt, v1, *coords, p,
+                                      heat)
     return (U + (0.5 * (fU + gU)) * dt, sat + (0.5 * (fs + gs)) * dt,
             S + (0.5 * (fS + gS)) * dt)
+
+
+def _plain_implicit(U, sat, S, vtop, coords, p, dt, heat, solver):
+    """``ImplicitEuler.pre_closure_step`` (`implicit.py:173-264`, one Picard
+    iteration): close the column and take its tendencies; the heat rows
+    (face kappa, dT/dU, scale 1, the Dirichlet top) and their solve, ``U +
+    du``; the Richards rows (Darcy face K, d(Psi)/d(sat) =
+    ``inverse_deriv(sat * por, por) * por`` at the closed saturation, scale
+    1/por) and their solve, ``sat + du``; ``S + dS dt``."""
+    dz, dzf = coords[0], coords[1]
+    sat, S, dU, dsat, dS, kap, Dh, K_eff = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
+    solve = SOLVERS[solver]
+    Kf = 0.5 * (torch.cat([kap, kap[-1:]]) + torch.cat([kap[:1], kap]))
+    one = torch.ones((), dtype=U.dtype, device=U.device)
+    U = U + solve(*diffusion_rows(Kf, Dh, one, dz, dzf, dt, dirichlet_top=True), dU)
+    if heat:
+        return U, sat, S
+    inv_por = torch.tensor(p.inv_por, dtype=U.dtype, device=U.device)
+    D = p.swrc.inverse_deriv(sat * p.por, p.por) * p.por
+    rows = diffusion_rows(K_eff, D, inv_por, dz, dzf, dt)
+    return U, sat + solve(*rows, dsat), S + dS * dt
 
 
 def series_value(values: torch.Tensor, t: torch.Tensor, t0: torch.Tensor,
@@ -330,10 +392,12 @@ def series_value(values: torch.Tensor, t: torch.Tensor, t0: torch.Tensor,
     return (1.0 - w) * values[i] + w * values[min(i + 1, rows - 1)]
 
 
-def _scheme(stepper: str, physics: str):
-    if stepper not in ("euler", "heun") or physics not in ("richards", "heat"):
-        raise ValueError(f"stepper 'euler' or 'heun' and physics 'richards' or 'heat', "
-                         f"got {stepper!r} and {physics!r}")
+def _scheme(stepper: str, physics: str, solver: str = "pcr"):
+    if (stepper not in ("euler", "heun", "implicit") or physics not in ("richards", "heat")
+            or solver not in SOLVERS):
+        raise ValueError(f"stepper 'euler', 'heun' or 'implicit', physics 'richards' or "
+                         f"'heat' and solver one of {sorted(SOLVERS)}, got {stepper!r}, "
+                         f"{physics!r} and {solver!r}")
     return stepper == "heun", physics == "heat"
 
 
@@ -355,19 +419,23 @@ def _top_reader(top, steps: int, dt: float, dtype, device):
 
 def soil_column_rollout_plain(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
                               params: ColumnParams, dt: float, *, stepper: str = "euler",
-                              physics: str = "richards"):
+                              physics: str = "richards", solver: str = "pcr"):
     """Plain PyTorch version of the kernels: ``n`` closure-rotated steps of
-    ``stepper`` (``"euler"`` or ``"heun"``) for ``physics`` (``"richards"``
-    or ``"heat"``, where ``sat`` is read and returned as it is and ``S`` may
-    be ``None``), the top temperature from the table or :class:`SeriesBC`
-    ``top``. Coordinates are 1-D tensors in the fields' dtype."""
-    heun, heat = _scheme(stepper, physics)
+    ``stepper`` (``"euler"``, ``"heun"`` or ``"implicit"``, the last with
+    the tridiagonal ``solver``, ``"pcr"`` or ``"thomas"``) for ``physics``
+    (``"richards"`` or ``"heat"``, where ``sat`` is read and returned as it
+    is and ``S`` may be ``None``), the top temperature from the table or
+    :class:`SeriesBC` ``top``. Coordinates are 1-D tensors in the fields'
+    dtype."""
+    heun, heat = _scheme(stepper, physics, solver)
     coords = (dz[:, None], dz_faces[:, None], z_centers[:, None], z_faces[:, None])
     steps = _steps(top, heun)
     v = _top_reader(top, steps, dt, U.dtype, U.device)
     for i in range(steps):
         if heun:
             U, sat, S = _plain_heun(U, sat, S, v(i), v(i + 1), coords, params, dt, heat)
+        elif stepper == "implicit":
+            U, sat, S = _plain_implicit(U, sat, S, v(i), coords, params, dt, heat, solver)
         else:
             U, sat, S = _plain_euler(U, sat, S, v(i), coords, params, dt, heat)
     return U, sat, S
@@ -407,17 +475,18 @@ def _check_inputs(U, sat, S, top, coords, heat=False):
         raise ValueError("a series needs at least one row and steps >= 0")
 
 
-def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt):
+def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solver="pcr"):
     """Check, then run the plain version (CPU) or launch the kernel of
-    ``(stepper, physics)`` (CUDA); returns the new ``(U, sat, S)``."""
-    heun, heat = _scheme(stepper, physics)
+    ``(stepper, physics)`` (and ``solver``, implicit) (CUDA); returns the new
+    ``(U, sat, S)``."""
+    heun, heat = _scheme(stepper, physics, solver)
     _check_inputs(U, sat, S, top, coords, heat)
     steps = _steps(top, heun)
     if steps < 0:
         raise ValueError("a Heun table needs steps + 1 rows")
     if U.device.type == "cpu":
         return soil_column_rollout_plain(U, sat, S, top, *coords, params, dt, stepper=stepper,
-                                         physics=physics)
+                                         physics=physics, solver=solver)
     if U.device.type != "cuda":
         raise ValueError(f"soil column rollout runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
@@ -425,7 +494,8 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt):
     for t in (*carry, *coords):
         if not t.is_contiguous():
             raise ValueError("the soil column kernels take contiguous fields and coordinates")
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=(stepper, physics))
+    tags = (stepper, solver, physics) if stepper == "implicit" else (stepper, physics)
+    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
     U_out = torch.empty_like(U)
     sat_out, S_out = (sat, S) if heat else (torch.empty_like(sat), torch.empty_like(S))
     if isinstance(top, SeriesBC):
@@ -471,11 +541,24 @@ def soil_column_heat_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
                     (dz, dz_faces, z_centers, z_faces), params, dt)
 
 
-for _fn in (soil_column_rollout, soil_column_heun_rollout, soil_column_heat_rollout):
+def soil_column_implicit_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                                 params: ColumnParams, dt: float, solver: str = "pcr"):
+    """ImplicitEuler (one Picard iteration), heat + Richards: ``n`` fused
+    steps on ``(U, sat, S)``, each solving the heat and the Richards rows
+    with ``solver`` (``"pcr"`` or ``"thomas"``); ``n`` the table's rows or
+    the series' steps."""
+    return _rollout(soil_column_implicit_rollout, "implicit", "richards", U, sat, S, top,
+                    (dz, dz_faces, z_centers, z_faces), params, dt, solver)
+
+
+for _fn in (soil_column_rollout, soil_column_heun_rollout, soil_column_heat_rollout,
+            soil_column_implicit_rollout):
     _fn.launches = 0
 
-#: the kernel wrapper of each (stepper, physics); Heun with the heat-only
-#: model runs its plain version on the CPU and has no kernel
+#: the kernel wrapper of each (stepper, physics); the implicit one takes the
+#: solver as ``solver=``. Heun and ImplicitEuler with the heat-only model run
+#: their plain versions on the CPU and have no kernel
 ROLLOUTS = {("euler", "richards"): soil_column_rollout,
             ("heun", "richards"): soil_column_heun_rollout,
-            ("euler", "heat"): soil_column_heat_rollout}
+            ("euler", "heat"): soil_column_heat_rollout,
+            ("implicit", "richards"): soil_column_implicit_rollout}

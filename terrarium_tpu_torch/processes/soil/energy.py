@@ -92,5 +92,23 @@ class SoilEnergyBalance:
         vol = soil.strat.soil_volume(soil.biogeochem, state)
         return self.thermal_properties.thermal_conductivity(vol)
 
+    def implicit_diffusion_terms(self, state, grid, soil, constants, ctx):
+        """The implicit heat solve's Jacobian ingredients (`energy.py:142-163`):
+        face kappa and D = dT/dU, 0 on the phase-change plateau
+        ``-L_theta <= U < 0`` and 1/C elsewhere; scale 1."""
+        from ...timesteppers.implicit import ImplicitDiffusionTerms
+
+        shape = (grid.nz, grid.cells)
+        kappa_f = interp_faces_mid(torch.broadcast_to(self.thermal_conductivity(state, soil),
+                                                      shape))
+        U = state.internal_energy
+        L = constants.rho_w * constants.L_sl
+        L_theta = L * state.saturation_water_ice * soil.strat.bulk_porosity(soil.biogeochem)
+        C = self.thermal_properties.heat_capacity(soil.strat.soil_volume(soil.biogeochem, state))
+        D = torch.where((U >= -L_theta) & (U < 0.0), 0.0, 1.0 / C)
+        return ImplicitDiffusionTerms(
+            var="internal_energy", K_faces=kappa_f, D=torch.broadcast_to(D, shape),
+            scale=torch.ones((), dtype=grid.dtype, device=grid.device), phi_var="temperature")
+
     def closure(self, state, grid, soil, constants, ctx):
         self.closure_rel.closure(state, self, soil, constants)

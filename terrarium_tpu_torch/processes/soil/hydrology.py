@@ -229,22 +229,46 @@ class SoilHydrology:
         NoFlow has none (reference `soil_hydrology.jl:126`)."""
         if not self.richards:
             return
+        grad, K_eff = self._darcy_faces(state, grid, ctx)
+        q = -K_eff * grad
+        dtheta_dt = -div_faces(q, grid.dz)
+        por = soil.strat.bulk_porosity(soil.biogeochem)
+        state.add_tendencies(saturation_water_ice=dtheta_dt / por)
+        state.add_tendencies(surface_excess_water=pool_drainage(state.surface_excess_water))
+
+    def _darcy_faces(self, state, grid, ctx):
+        """The pressure-head gradient at every face (with the BC ghosts) and
+        the face conductivity of the Darcy flux: the min of the face's K and
+        its neighbour's in the direction of flow, the +inf fill at the ends
+        leaving the boundary face's own K."""
         psi = state.pressure_head
         g_bot, g_top = ghosts(psi, get_bc(ctx.bcs, "pressure_head", "bottom"),
                               get_bc(ctx.bcs, "pressure_head", "top"), state,
                               grid.dz_faces)
         grad = grad_faces(psi, grid.dz_faces, g_bot, g_top)
         K = state.hydraulic_conductivity
-        # min of the conductivities in the direction of flow; +inf fill at
-        # the ends leaves the boundary face's own K
         K_eff = torch.where(grad < 0.0,
                             torch.minimum(_shift_up(K, torch.inf), K),
                             torch.minimum(K, _shift_down(K, torch.inf)))
-        q = -K_eff * grad
-        dtheta_dt = -div_faces(q, grid.dz)
+        return grad, K_eff
+
+    def implicit_diffusion_terms(self, state, grid, soil, constants, ctx):
+        """The implicit Richards solve's Jacobian ingredients
+        (`hydrology.py:368-396`): the Darcy face conductivities at t^n, D =
+        d(Psi)/d(sat) = psi_m'(theta) * por, scale 1/por; None for NoFlow."""
+        if not self.richards:
+            return None
+        from ...timesteppers.implicit import ImplicitDiffusionTerms
+
+        _, K_eff = self._darcy_faces(state, grid, ctx)
         por = soil.strat.bulk_porosity(soil.biogeochem)
-        state.add_tendencies(saturation_water_ice=dtheta_dt / por)
-        state.add_tendencies(surface_excess_water=pool_drainage(state.surface_excess_water))
+        theta = state.saturation_water_ice * por
+        shape = (grid.nz, grid.cells)
+        D = self.hydraulic_properties.swrc.inverse_deriv(theta, por) * por
+        scale = torch.full(shape, 1.0 / por, dtype=grid.dtype, device=grid.device)
+        return ImplicitDiffusionTerms(
+            var="saturation_water_ice", K_faces=K_eff, D=torch.broadcast_to(D, shape),
+            scale=scale, phi_var="pressure_head")
 
     def _psi_components(self, state, grid):
         z = grid.z_centers

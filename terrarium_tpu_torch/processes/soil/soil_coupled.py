@@ -40,6 +40,14 @@ class SoilEnergyWaterCarbon:
         self.hydrology.closure(state, grid, self, ctx.constants, ctx)
         self.energy.closure(state, grid, self, ctx.constants, ctx)
 
+    def implicit_terms(self, state, grid, ctx):
+        """The implicit-diffusion terms of the ImplicitEuler stepper, Richards
+        flow (none under NoFlow) first, then heat (`soil_coupled.py:62-72`)."""
+        c = ctx.constants
+        water = self.hydrology.implicit_diffusion_terms(state, grid, self, c, ctx)
+        heat = self.energy.implicit_diffusion_terms(state, grid, self, c, ctx)
+        return (heat,) if water is None else (water, heat)
+
     def invclosure(self, state, grid, ctx):
         self.hydrology.invclosure(state, grid, self, ctx.constants, ctx)
         self.energy.closure_rel.invclosure(state, self.energy, self, ctx.constants)

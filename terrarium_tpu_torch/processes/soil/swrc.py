@@ -46,6 +46,20 @@ class VanGenuchten:
         psi = torch.clamp(psi, min=self.psi_min)
         return torch.where(se >= 1.0, 0.0, psi)
 
+    def inverse_deriv(self, theta, theta_sat, clamp=1.0e6):
+        """d(psi_m)/d(theta), clamped to ``[0, clamp]``; 0 at and above
+        saturation (the implicit stepper's Jacobian)."""
+        m = 1.0 - 1.0 / self.n
+        dth = theta_sat - self.theta_res
+        se = torch.clamp((theta - self.theta_res) / dth, 1e-6, one_minus_eps(theta.dtype, 1e-9))
+        core = fast_pow(se, -1.0 / m) - 1.0
+        dpsi_dse = (1.0 / (self.alpha * self.n * m)) \
+            * fast_pow(core, (1.0 - self.n) / self.n) \
+            * fast_pow(se, -(1.0 + m) / m)
+        d = dpsi_dse / dth
+        saturated = (theta - self.theta_res) / dth >= 1.0
+        return torch.where(saturated, 0.0, torch.clamp(d, 0.0, clamp))
+
 
 @dataclasses.dataclass(frozen=True)
 class BrooksCorey:
@@ -71,3 +85,12 @@ class BrooksCorey:
         psi = -self.psi_s * fast_pow(se, -1.0 / self.lam)
         psi = torch.clamp(psi, min=self.psi_min)
         return torch.where(se >= 1.0, 0.0, psi)
+
+    def inverse_deriv(self, theta, theta_sat, clamp=1.0e6):
+        """d(psi_m)/d(theta), clamped to ``[0, clamp]``; 0 at and above
+        saturation."""
+        dth = theta_sat - self.theta_res
+        se_raw = (theta - self.theta_res) / dth
+        se = torch.clamp(se_raw, 1e-6, 1.0)
+        d = (self.psi_s / self.lam) * fast_pow(se, -1.0 / self.lam - 1.0) / dth
+        return torch.where(se_raw >= 1.0, 0.0, torch.clamp(d, 0.0, clamp))

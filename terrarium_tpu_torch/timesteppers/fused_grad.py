@@ -94,8 +94,10 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, *, steps: int,
     if steps % inner_steps != 0:
         raise ValueError(f"steps={steps} not a multiple of inner_steps={inner_steps}")
     if not isinstance(timestepper, ForwardEuler):
-        raise ValueError(f"the fused gradient rollout runs ForwardEuler, "
-                         f"not {type(timestepper).__name__}")
+        raise ValueError(f"the fused gradient rollout runs ForwardEuler, not "
+                         f"{type(timestepper).__name__}: the segment VJP of Heun and "
+                         f"ImplicitEuler is still to port (ROADMAP Queue B #5); "
+                         f"timesteppers/autodiff.make_rollout_fn differentiates any stepper")
     value = _top_temperature_value(ctx.bcs)
     if isinstance(value, str) or (callable(value) and bc_call_arity(value) >= 2):
         raise ValueError("the fused gradient rollout takes a top temperature given as a "

@@ -1,7 +1,7 @@
 """Simulation driver (counterpart of ``terrarium_tpu/timesteppers/integrator.py``).
 
-``Simulation.run`` advances a :class:`SoilModel` with ForwardEuler or Heun
-through the fused soil column rollout (``ops/fused_step.py``): on a CUDA
+``Simulation.run`` advances a :class:`SoilModel` with ForwardEuler, Heun or
+ImplicitEuler through the fused soil column rollout (``ops/fused_step.py``): on a CUDA
 device the hand-written kernels, on the CPU their plain version. As in the
 JAX package's fused path (`fused_step.py:620`, `integrator.py:305-306`), the
 rollout carries only the live state, then one trailing ``closure`` and
@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from .implicit import ImplicitEuler
 from .stepping import ForwardEuler, Heun
 from ..io.input_sources import FieldInputSource, TimeSeriesInputSource, collect_input_variables
 from ..models.initializers import apply_field_initializers
@@ -141,34 +142,48 @@ def _stepper_name(timestepper) -> str:
         return "euler"
     if isinstance(timestepper, Heun):
         return "heun"
-    raise ValueError(f"the fused soil rollout runs ForwardEuler or Heun, "
+    if isinstance(timestepper, ImplicitEuler):
+        if timestepper.picard_iters != 1:
+            raise ValueError(f"the fused soil rollout runs ImplicitEuler with one Picard "
+                             f"iteration, got picard_iters={timestepper.picard_iters}; "
+                             f"Simulation.timestep runs any")
+        return "implicit"
+    raise ValueError(f"the fused soil rollout runs ImplicitEuler, ForwardEuler or Heun, "
                      f"not {type(timestepper).__name__}")
 
 
-def _rollout_fn(stepper: str, physics: str, device: torch.device, plain: bool):
+def _rollout_fn(stepper: str, physics: str, device: torch.device, plain: bool, solver: str):
+    """The rollout of ``(stepper, physics)``: its kernel wrapper, or the
+    plain version where asked or where the CPU runs a scheme that has no
+    kernel; the implicit ones with ``solver``."""
+    kw = {"solver": solver} if stepper == "implicit" else {}
     if plain or (device.type == "cpu" and (stepper, physics) not in ROLLOUTS):
-        return functools.partial(soil_column_rollout_plain, stepper=stepper, physics=physics)
+        return functools.partial(soil_column_rollout_plain, stepper=stepper, physics=physics,
+                                 **kw)
     if (stepper, physics) not in ROLLOUTS:
         raise ValueError(f"no soil column kernel for {stepper} with the {physics} model; "
                          f"the kernels run {sorted(ROLLOUTS)}")
-    return ROLLOUTS[(stepper, physics)]
+    return functools.partial(ROLLOUTS[(stepper, physics)], **kw)
 
 
 def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None,
             input_sources=(), plain: bool = False) -> None:
     """``steps`` closure-rotated steps of ``timestepper`` (ForwardEuler by
-    default, or Heun) on the live carry, through the kernel of the model and
+    default, Heun or ImplicitEuler with one Picard iteration) on the live
+    carry, through the kernel of the model and
     stepper (or their plain version, ``plain=True``), then the trailing
     ``closure``. Tendencies are zeroed, as the dead leaves of the lean carry
     are; the inputs are the sources' values at the start of the last step.
     Updates ``state`` in place. Raises ``ValueError`` for a model, stepper,
     boundary condition or source the kernels do not take."""
-    stepper = _stepper_name(timestepper if timestepper is not None else ForwardEuler())
+    timestepper = timestepper if timestepper is not None else ForwardEuler()
+    stepper = _stepper_name(timestepper)
     physics = kernel_physics(model)
     grid = model.grid
     params = ColumnParams.of(model, grid.dtype)
     top = _TopTemperature(_top_temperature_value(ctx.bcs), input_sources, state, grid)
-    rollout = _rollout_fn(stepper, physics, grid.device, plain)
+    rollout = _rollout_fn(stepper, physics, grid.device, plain,
+                          getattr(timestepper, "solver", None))
     coords = tuple(torch.as_tensor(a, device=grid.device).to(grid.dtype) for a in (
         grid.vertical.dz, grid.vertical.dz_faces, grid.vertical.z_centers,
         grid.vertical.z_faces))

@@ -1,7 +1,8 @@
 // Host build of terrarium_tpu_torch/csrc/soil_step.cuh for the CPU tests
-// (tests/test_torch_step_adjoint.py, tests/test_torch_step_host.py): the CUDA
-// kernels' per-column step, rollout loop and segment VJP, run over every
-// column in a loop, behind a plain C interface.
+// (tests/test_torch_step_adjoint.py, tests/test_torch_step_host.py,
+// tests/test_torch_implicit.py): the CUDA kernels' per-column step, rollout
+// loop and segment VJP, run over every column in a loop, behind a plain C
+// interface.
 #include <vector>
 
 #include "soil_step.cuh"
@@ -45,7 +46,7 @@ void rollout(double* U, double* sat, double* S, const double* top, long long ste
 }
 
 // soil::rollout_column over every column, as the rollout kernel runs it
-template <int NZ, bool HEUN, bool HEAT, bool SERIES>
+template <int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES>
 void columns(double* U, double* sat, double* S, const double* top, long long step_stride,
              long long cell_stride, int rows, double t0, double dts, double time0,
              const double* dz, const double* dzf, const double* zc, const double* zf,
@@ -56,9 +57,9 @@ void columns(double* U, double* sat, double* S, const double* top, long long ste
         double u[NZ], s[NZ];
         for (int k = 0; k < NZ; ++k) { u[k] = U[k * cells + col]; s[k] = sat[k * cells + col]; }
         double sv = HEAT ? 0.0 : S[col];
-        soil::rollout_column<double, NZ, HEUN, HEAT, SERIES>(
+        soil::rollout_column<double, NZ, STEPPER, SOLVER, HEAT, SERIES>(
             u, s, sv, top + col * cell_stride, step_stride, rows, t0, dts, time0, steps, c, *P,
-            dz, dzf, zc, zf, dt);
+            dz, dzf, zc, zf, dt, 1.0 / dt);
         for (int k = 0; k < NZ; ++k) {
             U[k * cells + col] = u[k];
             if (!HEAT) sat[k * cells + col] = s[k];
@@ -67,38 +68,47 @@ void columns(double* U, double* sat, double* S, const double* top, long long ste
     }
 }
 
-template <int NZ, bool HEUN, bool HEAT>
+template <int NZ, int STEPPER, int SOLVER, bool HEAT>
 void columns_of(double* U, double* sat, double* S, const double* top, long long step_stride,
                 long long cell_stride, int rows, double t0, double dts, double time0,
                 const double* dz, const double* dzf, const double* zc, const double* zf,
                 const SoilColumnParams* P, int steps, double dt, long long cells)
 {
     if (rows > 0)
-        columns<NZ, HEUN, HEAT, true>(U, sat, S, top, step_stride, cell_stride, rows, t0, dts,
-                                      time0, dz, dzf, zc, zf, P, steps, dt, cells);
+        columns<NZ, STEPPER, SOLVER, HEAT, true>(U, sat, S, top, step_stride, cell_stride, rows,
+                                                 t0, dts, time0, dz, dzf, zc, zf, P, steps, dt,
+                                                 cells);
     else
-        columns<NZ, HEUN, HEAT, false>(U, sat, S, top, step_stride, cell_stride, rows, t0, dts,
-                                       time0, dz, dzf, zc, zf, P, steps, dt, cells);
+        columns<NZ, STEPPER, SOLVER, HEAT, false>(U, sat, S, top, step_stride, cell_stride,
+                                                  rows, t0, dts, time0, dz, dzf, zc, zf, P,
+                                                  steps, dt, cells);
 }
 
 template <int NZ>
-void scheme(int heun, int heat, double* U, double* sat, double* S, const double* top,
-            long long step_stride, long long cell_stride, int rows, double t0, double dts,
-            double time0, const double* dz, const double* dzf, const double* zc,
-            const double* zf, const SoilColumnParams* P, int steps, double dt, long long cells)
+int scheme(int stepper, int solver, int heat, double* U, double* sat, double* S,
+           const double* top, long long step_stride, long long cell_stride, int rows,
+           double t0, double dts, double time0, const double* dz, const double* dzf,
+           const double* zc, const double* zf, const SoilColumnParams* P, int steps, double dt,
+           long long cells)
 {
-    if (heun && heat)
-        columns_of<NZ, true, true>(U, sat, S, top, step_stride, cell_stride, rows, t0, dts,
-                                   time0, dz, dzf, zc, zf, P, steps, dt, cells);
-    else if (heun)
-        columns_of<NZ, true, false>(U, sat, S, top, step_stride, cell_stride, rows, t0, dts,
-                                    time0, dz, dzf, zc, zf, P, steps, dt, cells);
-    else if (heat)
-        columns_of<NZ, false, true>(U, sat, S, top, step_stride, cell_stride, rows, t0, dts,
-                                    time0, dz, dzf, zc, zf, P, steps, dt, cells);
-    else
-        columns_of<NZ, false, false>(U, sat, S, top, step_stride, cell_stride, rows, t0, dts,
-                                     time0, dz, dzf, zc, zf, P, steps, dt, cells);
+#define SOIL_COLUMNS(STEPPER, SOLVER, HEAT)                                                   \
+    columns_of<NZ, STEPPER, SOLVER, HEAT>(U, sat, S, top, step_stride, cell_stride, rows, t0, \
+                                          dts, time0, dz, dzf, zc, zf, P, steps, dt, cells)
+    if (stepper == soil::STEPPER_IMPLICIT) {
+        if (heat) return -1;
+        if (solver == soil::SOLVER_PCR)
+            SOIL_COLUMNS(soil::STEPPER_IMPLICIT, soil::SOLVER_PCR, false);
+        else
+            SOIL_COLUMNS(soil::STEPPER_IMPLICIT, soil::SOLVER_THOMAS, false);
+    } else if (stepper == soil::STEPPER_HEUN) {
+        if (heat) SOIL_COLUMNS(soil::STEPPER_HEUN, 0, true);
+        else SOIL_COLUMNS(soil::STEPPER_HEUN, 0, false);
+    } else {
+        if (heat) SOIL_COLUMNS(soil::STEPPER_EULER, 0, true);
+        else SOIL_COLUMNS(soil::STEPPER_EULER, 0, false);
+    }
+#undef SOIL_COLUMNS
+    return 0;
 }
 
 }  // namespace
@@ -131,20 +141,26 @@ extern "C" int host_rollout(double* U, double* sat, double* S, const double* top
     return 0;
 }
 
-// The rollout kernel's column loop: ForwardEuler or Heun (`heun`), heat +
-// Richards or heat only (`heat`), the top temperature from a table or, with
-// `rows` > 0, from a series of `rows` rows at t0 + r * dts; in place.
+// The rollout kernel's column loop: ForwardEuler, Heun or ImplicitEuler
+// (`stepper` 0, 1, 2; the implicit one with `solver` 0 Thomas or 1 PCR),
+// heat + Richards or heat only (`heat`; not implicit), the top temperature
+// from a table or, with `rows` > 0, from a series of `rows` rows at t0 + r *
+// dts; in place. Returns -1 for a scheme or NZ it does not run.
 extern "C" int host_rollout_scheme(double* U, double* sat, double* S, const double* top,
                                    long long step_stride, long long cell_stride, int rows,
                                    double t0, double dts, double time0, const double* dz,
                                    const double* dzf, const double* zc, const double* zf,
-                                   const SoilColumnParams* P, int nz, int heun, int heat,
-                                   int steps, double dt, long long cells)
+                                   const SoilColumnParams* P, int nz, int stepper, int solver,
+                                   int heat, int steps, double dt, long long cells)
 {
-    if (nz == 15) scheme<15>(heun, heat, U, sat, S, top, step_stride, cell_stride, rows, t0,
-                             dts, time0, dz, dzf, zc, zf, P, steps, dt, cells);
-    else if (nz == 20) scheme<20>(heun, heat, U, sat, S, top, step_stride, cell_stride, rows,
-                                  t0, dts, time0, dz, dzf, zc, zf, P, steps, dt, cells);
-    else return -1;
-    return 0;
+    if (nz == 15) return scheme<15>(stepper, solver, heat, U, sat, S, top, step_stride,
+                                    cell_stride, rows, t0, dts, time0, dz, dzf, zc, zf, P,
+                                    steps, dt, cells);
+    if (nz == 16) return scheme<16>(stepper, solver, heat, U, sat, S, top, step_stride,
+                                    cell_stride, rows, t0, dts, time0, dz, dzf, zc, zf, P,
+                                    steps, dt, cells);
+    if (nz == 20) return scheme<20>(stepper, solver, heat, U, sat, S, top, step_stride,
+                                    cell_stride, rows, t0, dts, time0, dz, dzf, zc, zf, P,
+                                    steps, dt, cells);
+    return -1;
 }

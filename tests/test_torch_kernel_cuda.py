@@ -1,6 +1,6 @@
-"""The soil column CUDA kernels (the ForwardEuler, Heun and heat-only
-rollouts and the segment VJP) against their plain PyTorch versions, on a CUDA
-device. Every test skips where
+"""The soil column CUDA kernels (the ForwardEuler, Heun, heat-only and
+ImplicitEuler rollouts and the segment VJP) against their plain PyTorch
+versions, on a CUDA device. Every test skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports no JAX, so it also runs on a machine with a card and no
@@ -53,13 +53,13 @@ def _sim(cells, nz, dtype, device, dt=DT, golden=False):
                          boundary_conditions=tp.PrescribedSurfaceTemperature(bc))
 
 
-def _operands(sim, steps):
+def _operands(sim, steps, dt=DT):
     g = sim.model.grid
     coords = tuple(getattr(g, n)[:, 0].contiguous()
                    for n in ("dz", "dz_faces", "z_centers", "z_faces"))
     carry = tuple(sim.state.prognostic[n] for n in sim.model.live_carry)
     table = top_temperature_table(sim.bcs["temperature"]["top"].value,
-                                  clock_times(sim.state.clock.time, DT, steps)[:-1], g)
+                                  clock_times(sim.state.clock.time, dt, steps)[:-1], g)
     return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype)
 
 
@@ -257,6 +257,85 @@ def test_default_model_runs_through_the_heat_kernel(cuda):
         assert fs.soil_column_heat_rollout.launches == before + 1
         assert bool(torch.isfinite(sim.state.temperature).all())
         assert float(sim.state.temperature[-1].max()) < 1.0
+
+
+# ---------------------------------------------------------------------------
+# ImplicitEuler: Thomas and PCR
+# ---------------------------------------------------------------------------
+IMPLICIT_GOLDEN = GOLDEN.parent / "implicit_freeze.npz"
+
+
+def _implicit_freeze_sim(device, solver):
+    """`tests/test_goldens.py:92-113`: 6 cells, Nz 16, float64, ImplicitEuler
+    at dt 3600, top temperature -8 degC as f(t)."""
+    props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
+                                      unsat_hydraulic_cond=tp.UnsatKVanGenuchten())
+    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
+                                                               hydraulic_properties=props))
+    grid = tp.ColumnGrid.of(cells=6, spacing=tp.ExponentialSpacing(N=16), dtype=torch.float64,
+                            device=device)
+    return tp.initialize(
+        tp.SoilModel(grid=grid, soil=soil), tp.ImplicitEuler(dt=3600.0, solver=solver),
+        initializers={"temperature": lambda x, z: 3.0 * np.cos(2 * np.pi * x) + 0.1 * z,
+                      "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.65 - 0.04 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(lambda t: -8.0 + 0.0 * t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcr", "thomas"])
+@pytest.mark.parametrize("dtype,nz", [(torch.float64, 16), (torch.float32, 30)])
+def test_implicit_kernel_matches_plain(cuda, solver, dtype, nz):
+    """The bench configuration at dt 900 for 48 steps (300 columns, a ragged
+    last block): 1e-12 at float64 (FMA contraction and cbrt against pow(x,
+    1/3), ulps a step); at float32 1e-4 of each field's largest magnitude,
+    as the explicit kernels, which also covers a cell whose dT/dU switches
+    on an ulp at the edge of the freeze plateau."""
+    sim = _sim(300, nz, dtype, cuda, dt=900.0)
+    carry, table, coords, params = _operands(sim, 48, dt=900.0)
+    before = fs.soil_column_implicit_rollout.launches
+    out = fs.soil_column_implicit_rollout(*carry, table, *coords, params, 900.0, solver=solver)
+    ref = fs.soil_column_rollout_plain(*carry, table, *coords, params, 900.0,
+                                       stepper="implicit", solver=solver)
+    torch.cuda.synchronize()
+    assert fs.soil_column_implicit_rollout.launches == before + 1
+    _close(out, ref, 1e-12 if dtype == torch.float64 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcr", "thomas"])
+def test_implicit_kernel_reads_a_series(cuda, solver):
+    """A (T, cells) series read in the kernel, float64, Nz 16."""
+    carry, values, coords, params = _forced(130, 16, torch.float64, cuda)
+    bc = fs.SeriesBC(values, 1800.0, 3600.0, 0.0, 40)
+    _close(fs.soil_column_implicit_rollout(*carry, bc, *coords, params, 900.0, solver=solver),
+           fs.soil_column_rollout_plain(*carry, bc, *coords, params, 900.0, stepper="implicit",
+                                        solver=solver), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcr", "thomas"])
+def test_implicit_freeze_golden_through_the_kernel(cuda, solver):
+    """Simulation.run, one launch of the implicit kernel for the 48 steps,
+    against `implicit_freeze.npz` (PCR) at 1e-12, with either solver."""
+    sim = _implicit_freeze_sim(cuda, solver)
+    before = fs.soil_column_implicit_rollout.launches
+    sim.run(steps=48, dt=3600.0)
+    assert fs.soil_column_implicit_rollout.launches == before + 1
+    golden = np.load(IMPLICIT_GOLDEN)
+    for f in golden.files:
+        np.testing.assert_allclose(sim.state[f].cpu().numpy(), golden[f], rtol=1e-12,
+                                   atol=1e-12, err_msg=f)
+
+
+@pytest.mark.cuda
+def test_implicit_heat_only_has_no_kernel(cuda):
+    grid = tp.ColumnGrid.of(cells=70, spacing=tp.ExponentialSpacing(N=30),
+                            dtype=torch.float32, device=cuda)
+    sim = tp.initialize(tp.SoilModel(grid=grid), tp.ImplicitEuler(),
+                        initializers={"temperature": 1.0, "saturation_water_ice": 0.8},
+                        boundary_conditions=tp.PrescribedSurfaceTemperature(-3.0))
+    with pytest.raises(ValueError, match="kernel"):
+        sim.run(steps=4)
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,34 @@ def assert_fields_close(port_state, jax_state, names, rtol=1e-12, rel_atol=1e-12
                                    err_msg=name)
 
 
+def hold_until_saturation_flip(a, b, tol):
+    """Hold two implicit rollouts of the same columns, step by step, until
+    each column meets the saturation threshold.
+
+    ``a`` and ``b`` yield, step by step, ``(saturated, (U, sat, S))``: the
+    ``se >= 1`` mask of the closed column at the start of the step and the
+    carry after it. A column is held (``|x_a - x_b| <= tol * max|x_b|`` in
+    each field) until the first step at whose start the two sides put one of
+    its levels on opposite sides of saturation, where d(Psi)/d(sat) jumps
+    from about 1e4 to 0 and the two sides solve different Richards rows;
+    from then on it is let go. Returns the let-go columns and the largest
+    saturation gap they reached."""
+    flipped, gap = None, 0.0
+    for i, ((sat_a, xa), (sat_b, xb)) in enumerate(zip(a, b)):
+        flip = (sat_a != sat_b).any(0)
+        flipped = flip if flipped is None else flipped | flip
+        for name, u, v in zip(("U", "sat", "S"), xa, xb):
+            d = (u - v).abs()
+            part = (d.amax(0) if d.dim() == 2 else d) > tol * float(v.abs().max())
+            bad = part & ~flipped
+            assert not bool(bad.any()), (
+                f"step {i + 1}: {name} of columns {bad.nonzero().flatten().tolist()} parts "
+                f"without a saturation flip")
+        if bool(flipped.any()):
+            gap = max(gap, float((xa[1] - xb[1]).abs()[:, flipped].max()))
+    return flipped, gap
+
+
 # ---------------------------------------------------------------------------
 # forced configurations: the same numpy arrays into both packages
 # ---------------------------------------------------------------------------
@@ -148,3 +176,33 @@ def heat_forcing(pkg, cells, nz=30, dtype=torch.float32, device="cpu", days=31):
         boundary_conditions=m.PrescribedSurfaceTemperature("surface_temperature"),
         input_sources=(m.TimeSeriesInputSource(times=hours,
                                                series={"surface_temperature": ts}),))
+
+
+def implicit_freeze(pkg, solver="pcr", device="cpu", picard_iters=1):
+    """The ``implicit_freeze`` golden (`tests/test_goldens.py:92-113`): 6
+    cells, Nz 16, float64, heat + Richards, ImplicitEuler at dt 3600 with
+    ``solver``, top temperature -8 degC as ``f(t)``."""
+    m, grid_of = _both(pkg)
+    soil = jax_soil() if pkg == "jax" else port_soil()
+    return m.initialize(
+        m.SoilModel(grid=grid_of(6, 16, torch.float64, device), soil=soil),
+        m.ImplicitEuler(dt=3600.0, solver=solver, picard_iters=picard_iters),
+        initializers={"temperature": lambda x, z: 3.0 * np.cos(2 * np.pi * x) + 0.1 * z,
+                      "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.65 - 0.04 * z)},
+        boundary_conditions=m.PrescribedSurfaceTemperature(lambda t: -8.0 + 0.0 * t))
+
+
+def column_implicit_tridiag(pkg, cells, solver="pcr", nz=30, dtype=torch.float32,
+                            device="cpu"):
+    """``column_implicit_tridiag`` (`bench_configs.py:141-199`) on ``cells``
+    columns: the bench model, T = 1 degC, sat = min(1, 0.5 - 0.05 z),
+    ImplicitEuler at dt 900 with ``solver``, top temperature 5 sin(2 pi t /
+    86400) as ``f(t)``."""
+    m, grid_of = _both(pkg)
+    soil = jax_soil() if pkg == "jax" else port_soil()
+    cfg = CONFIGS["bench"]
+    return m.initialize(
+        m.SoilModel(grid=grid_of(cells, nz, dtype, device), soil=soil),
+        m.ImplicitEuler(dt=900.0, solver=solver), initializers=cfg["inits"],
+        boundary_conditions=m.PrescribedSurfaceTemperature(
+            cfg["bc_jax"] if pkg == "jax" else cfg["bc_torch"]))
