@@ -27,6 +27,17 @@ the kernel launch counts set to 0 just before it and read just after:
   after the ``implicit_freeze`` golden (float64, Nz 16, through the kernel
   with either solver, with the water identity) and the implicit kernel
   against its plain version at full width;
+* the LandModel path (``initialize`` / ``Simulation.run`` through the land
+  column kernel): the ``land_model`` golden (float64, Nz 15, bare ground
+  over heat only, through the kernel), the kernel against its plain version
+  (the process modules) one step at a time along the plain version's
+  trajectory (float64 on 1,024 columns and float32 at full width, 144
+  steps), then ``land_coupled_n145`` (`bench_configs.py:228-267`) at
+  full width, 56,951 columns, Nz 20, float32, dt 600 s, two hourly (744,
+  cells) series made on the card, in two compositions: ``land_consistent``
+  (`examples/land_global.py` with ``DirectSurfaceRunoff.consistent()``, the
+  production one) and the bench's own parity composition, each one timed
+  1,440-step block, the latter with its non-finite share;
 * the gradient path (``make_fused_grad_rollout``) of the configuration
   ``grad_n145_heat_richards`` (`bench_configs.py:311-411`): 56,951 columns,
   Nz 20, float32, dt 300 s, 288 steps in segments of 48, value and gradient
@@ -205,6 +216,62 @@ def implicit_ops(solver, nz):
     return (IMPLICIT_OPS_PER_LEVEL_STEP * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
             + IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
 H100_FP32_OPS, H100_HBM_BYTES = 67e12, 3.35e12  # published peaks, SXM, 700 W
+
+# the LandModel: land_coupled_n145 (bench_configs.py:228-267) at synthetic
+# latitudes from -60 to 80 degrees (the N145 mask is absent), 10 simulated
+# days a block; the float64 comparison on 1,024 of those columns
+LAND_CELLS, LAND_NZ, LAND_DT, LAND_BLOCK_STEPS, LAND_F64_CELLS = 56951, 20, 600.0, 1440, 1024
+LAND_GOLDEN = ROOT / "tests" / "goldens" / "land_model.npz"
+# Operations of one land step (land::step in csrc/land_step.cuh), counted by
+# FWD_OPS's rules, for the vegetated Richards composition over Brooks-Corey
+# and linear conductivity. Per level: the sweeps 14; the energy closure,
+# heat capacity and conductivity 37 and the linear centre K 4 (times, two
+# adds, divide); the PAW 7 (sub, div, clamp 2, multiply, add, the root
+# fraction read); the heat flux and energy update 9; the Brooks-Corey head
+# (se 4, clamp 2, the power x^-5 by 4 multiplies and a reciprocal, times,
+# max, select, psi_h 2, the sum 3: 19) and the Darcy flux and update 12.
+LAND_OPS_PER_LEVEL = {"sweeps": 14, "energy closure": 37, "linear K": 4, "PAW": 7,
+                      "heat flux and update": 9, "Brooks-Corey head": 19,
+                      "Darcy flux and update": 12}
+# Per column, what every step runs: three Monin-Obukhov drags (at the
+# start-of-step skin temperature and after each skin update), each 77
+# without its five Businger-Dyer psi (Tbar and the difference 4; per
+# iteration the clip 3 and u*, theta*, 1/L 13, four times; the last clip
+# and the quotient 9) and 5 for each psi at least (the branch, clamp 3,
+# product: the stable branch); a flux sweep without its drag 20 and a skin
+# update 5, three and two; the vapour pressures (e_air 4, three e_sat with the vpd 8 each) 28; the
+# vegetation without its branches (LAI 1, Medlyn 16, the photosynthesis's
+# three compares, the respiration without the soil's f_temp 25) 45;
+# interception 12, evapotranspiration 22, runoff 6, ground resistance 7;
+# the top level's energy 7, the ET sink, infiltration and pool 14, the
+# surface updates 21; two series reads 22 and the clock 1.
+LAND_OPS_PER_COLUMN = {"Monin-Obukhov drags x3, psi aside": 3 * 77,
+                       "Businger-Dyer psi x15, stable branch": 15 * 5,
+                       "SEB sweeps and skin": 3 * 20 + 2 * 5, "vapour pressures": 28,
+                       "vegetation, branches aside": 45,
+                       "surface hydrology": 12 + 22 + 6 + 7,
+                       "top energy, sink, infiltration, pool": 7 + 14,
+                       "surface updates": 21, "series reads and clock": 23}
+# The branches, counted where this run's data takes them (land_branches):
+# the photosynthesis (pressures, the three q10 powers, PAR, c1, c2, Vc, the
+# co-limitation: 51) where the shortwave is positive, the air above -3
+# degC and the LAI positive, its temperature stress (two exps: 11) where
+# the air is also inside (T_CO2_low, T_CO2_high); a psi's unstable branch
+# (pow, two logs, atan and their arithmetic: 20, 15 more than the stable
+# one) where its zeta < 0, that is where the air is colder than the skin,
+# in the last four psi of the drags at the start-of-step and at the
+# end-of-step skin temperature (the middle drag's skin temperature is not
+# observed: counted stable).
+# The soil's f_temp (5) where the ground is above 7 degC is not observed
+# and counted nowhere, so the count is a lower bound.
+LAND_OPS_BRANCH = {"photosynthesis": 51, "temperature stress": 11, "unstable psi": 15}
+
+
+def land_ops(nz, branches):
+    """Operations of one land step of one column, ``branches`` the mean
+    number of times each of ``LAND_OPS_BRANCH`` runs a column and step."""
+    return (sum(LAND_OPS_PER_LEVEL.values()) * nz + sum(LAND_OPS_PER_COLUMN.values())
+            + sum(LAND_OPS_BRANCH[k] * n for k, n in branches.items()))
 
 
 def phase(name, **fields):
@@ -400,7 +467,7 @@ def ptxas_summary(report: str) -> dict:
     "series": ...}, ...}`` from the build's ptxas ``-v`` report, whose part
     of each instantiation is headed ``== <entry point>``; a rollout entry
     holds a table and a series kernel, the VJP's its kernel and the
-    reduction."""
+    reduction, the land entry its one kernel."""
     out, entry, key = {}, None, None
     for ln in report.splitlines():
         if ln.startswith("== "):
@@ -413,6 +480,8 @@ def ptxas_summary(report: str) -> dict:
             flags = re.search(r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+ELb[01]ELb([01])E", name)
             if flags:
                 key = "series" if flags.group(1) == "1" else "table"
+            elif "land_column_rollout_kernel" in name:
+                key = "land"
             else:
                 key = "reduce" if "reduce" in name else "vjp"
             out[entry][key] = ""
@@ -423,6 +492,207 @@ def ptxas_summary(report: str) -> dict:
             out[entry][key] = f"{regs} registers, {out[entry][key]}"
             key = None
     return out
+
+
+def land_model(tp, grid, composition):
+    """``"consistent"``: `examples/land_global.py`'s composition with
+    ``DirectSurfaceRunoff.consistent()``; ``"parity"``: `bench_configs.py:
+    228-267`'s (``VegetationCarbon()`` and the rest default); ``"bare"``:
+    the default LandModel without vegetation (the golden's)."""
+    if composition == "bare":
+        return tp.LandModel(grid=grid)
+    soil_ = tp.SoilEnergyWaterCarbon(
+        strat=tp.HomogeneousStratigraphy(texture=tp.SoilTexture.preset("loam")),
+        hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq()))
+    if composition == "parity":
+        return tp.LandModel(grid=grid, vegetation=tp.VegetationCarbon(), soil=soil_)
+    return tp.LandModel(
+        grid=grid, vegetation=tp.VegetationCarbon.consistent_units(), soil=soil_,
+        atmosphere=tp.PrescribedAtmosphere(aerodynamics=tp.MoninObukhovAerodynamics()),
+        surface_energy_balance=tp.SurfaceEnergyBalance.consistent(),
+        surface_hydrology=tp.SurfaceHydrology(
+            evapotranspiration=tp.PALADYNCanopyEvapotranspiration.consistent_units(
+                ground_resistance=tp.SoilMoistureResistanceFactor()),
+            surface_runoff=tp.DirectSurfaceRunoff.consistent()))
+
+
+def land_golden_sim(tp):
+    """`tests/test_goldens.py:40-49`: 4 cells, Nz 15, float64, bare ground."""
+    grid = tp.ColumnGrid.of(cells=4, spacing=tp.ExponentialSpacing(N=15),
+                            dtype=torch.float64, device="cuda")
+    return tp.initialize(
+        land_model(tp, grid, "bare"), tp.ForwardEuler(),
+        initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
+        input_sources=(tp.FieldInputSource(fields={
+            "surface_shortwave_down": 400.0, "air_temperature": 12.0, "rainfall": 1.0e-7}),))
+
+
+def land_sim(tp, cells, dtype, composition, device="cuda"):
+    """`bench_configs.py:228-267` on ``cells`` columns at latitudes evenly
+    spaced from -60 to 80 degrees: loam, Richards flow, Nz 20, ForwardEuler at
+    dt 600 s; hourly (744, cells) series of shortwave 900 cos(lat) max(0,
+    sin(2 pi (t/day - 0.25))) and air temperature T_mean + 6 sin(2 pi (t/day
+    - 0.3)), T_mean = 28 max(cos lat, 0.05) - 8, made on the card in float64
+    and rounded once; static longwave 330, rain 4e-8, wind 3; initial
+    temperature T_mean, saturation 0.6, carbon 2, vegetation fraction 0.5."""
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
+                            dtype=dtype, device=device)
+    lat = np.linspace(-60.0, 80.0, cells)
+    coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
+    T_mean = 28.0 * coslat - 8.0
+    day = torch.as_tensor(hourly_times() / 86400.0, device=device)[:, None]
+    cos_t = torch.as_tensor(coslat, device=device)[None, :]
+    sw = 900.0 * cos_t * torch.clamp(torch.sin(2 * np.pi * (day - 0.25)), min=0.0)
+    ta = (28.0 * cos_t - 8.0) + 6.0 * torch.sin(2 * np.pi * (day - 0.3))
+    forcing = tp.TimeSeriesInputSource(times=hourly_times(), series={
+        "surface_shortwave_down": sw.to(dtype).contiguous(),
+        "air_temperature": ta.to(dtype).contiguous()})
+    del sw, ta
+    static = tp.FieldInputSource(fields={"surface_longwave_down": 330.0, "rainfall": 4.0e-8,
+                                         "windspeed": 3.0})
+    return tp.initialize(
+        land_model(tp, grid, composition), tp.ForwardEuler(dt=LAND_DT), (forcing, static),
+        initializers={"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+                      "vegetation_area_fraction": 0.5})
+
+
+def land_operands(ls, land_inputs, sim):
+    """Carry, inputs, root fraction, coordinates and parameters of a land
+    simulation as ``advance`` hands them to the rollout."""
+    model, st = sim.model, sim.state
+    params = ls.LandParams.of(model, model.grid.dtype)
+    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
+    root = st.auxiliary["root_fraction"] if model.vegetation is not None else None
+    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    return carry, land_inputs(model, st, sim.input_sources), root, coords, params
+
+
+def land_input_at(fs, inp, t):
+    """A land input's value at clock time ``t`` as the step reads it."""
+    v = inp.values
+    if inp.rows == 1:
+        return v[0]
+    def scalar(x):
+        return torch.tensor(x, dtype=v.dtype, device=v.device)
+    return fs.series_value(v, scalar(t), scalar(inp.t0), scalar(inp.dts))
+
+
+def land_branches(fs, params, inputs, start, end, t):
+    """The branches of ``LAND_OPS_BRANCH`` that one step from the carry
+    ``start`` to ``end`` at clock time ``t`` takes, summed over the
+    columns."""
+    v = params.values
+    Ta = land_input_at(fs, inputs["air_temperature"], t)
+    SW = land_input_at(fs, inputs["surface_shortwave_down"], t)
+    photo = (SW > 0) & (Ta > -3) & (start["carbon_vegetation"] > 0)
+    stress = photo & (Ta > v["T_CO2_low"]) & (Ta < v["T_CO2_high"])
+    unstable = 0
+    if v["mo_drag"]:
+        unstable = 4 * ((Ta < start["skin_temperature"]).sum() + (Ta < end["skin_temperature"]).sum())
+    return {"photosynthesis": int(photo.sum()), "temperature stress": int(stress.sum()),
+            "unstable psi": int(unstable)}
+
+
+def outside_unit(carry):
+    """The columns of a carry with a saturation layer outside [0, 1], which
+    the next step's closure moves water out of or into."""
+    sat = carry["saturation_water_ice"]
+    return ((sat > 1.0) | (sat < 0.0)).any(0)
+
+
+def land_teacher(ls, fs, carry, inputs, root, coords, params, t_start, steps, tolerance):
+    """The land kernel against its plain version along the plain version's
+    trajectory: at each of ``steps`` steps, one kernel step and one plain
+    step from the same carry, the plain one carried on; no step's error can
+    grow in the next, so the model's own instabilities (PERF.md §6) do not
+    amplify rounding here. ``tolerance(name, plain, start, outside)`` is the
+    per-cell tolerance of a field (float64), ``outside`` the columns of
+    ``outside_unit`` at the step's start. Returns per field the largest
+    absolute error, the largest over its magnitude, the largest in units of
+    2^-23 of the value in the columns inside [0, 1], and the steps at which
+    a kernel that left the field unchanged would fail; the (step, column,
+    field) triples beyond the tolerance; the kernel's own chain of one-step
+    launches; the mean number of runs of each branch a column and step; and
+    per step the share of columns outside [0, 1]."""
+    dtype = carry["internal_energy"].dtype
+    t = (np.float32 if dtype == torch.float32 else np.float64)(t_start)
+    cp, chain = dict(carry), dict(carry)
+    worst_abs, worst, ulps, seen, beyond, outside_share = {}, {}, {}, {}, [], []
+    branches = dict.fromkeys(LAND_OPS_BRANCH, 0)
+    for i in range(steps):
+        k1 = ls.land_column_rollout(cp, inputs, root, *coords, params, LAND_DT, float(t), 1)
+        p1 = ls.land_column_rollout_plain(cp, inputs, root, *coords, params, LAND_DT,
+                                          float(t), 1)
+        chain = {**chain, **ls.land_column_rollout(chain, inputs, root, *coords, params,
+                                                   LAND_DT, float(t), 1)}
+        outside = outside_unit(cp)
+        outside_share.append(float(outside.float().mean()))
+        for k, n in land_branches(fs, params, inputs, cp, p1, float(t)).items():
+            branches[k] += n
+        for n in params.model.live_carry:
+            a, b, c = k1[n].double(), p1[n].double(), cp[n].double()
+            if not bool(torch.isfinite(a).all()):
+                beyond.append((i + 1, -1, n))
+            tol = tolerance(n, b, c, outside)
+            err = (a - b).abs()
+            worst_abs[n] = max(worst_abs.get(n, 0.0), float(err.max()))
+            worst[n] = max(worst.get(n, 0.0), float(err.max()) / max(float(b.abs().max()), 1e-300))
+            inside = (err / (2.0 ** -23 * b.abs()).clamp(min=1e-300))[..., ~outside]
+            ulps[n] = max(ulps.get(n, 0.0), float(inside.max()) if inside.numel() else 0.0)
+            seen[n] = seen.get(n, 0) + int(bool(((b - c).abs() > tol).any()))
+            bad = err > tol
+            if bad.dim() == 2:
+                bad = bad.any(0)
+            beyond += [(i + 1, int(col), n) for col in bad.nonzero().flatten()[:4].tolist()]
+        cp = {**cp, **p1}
+        t = t + t.dtype.type(LAND_DT)
+    cells = carry["internal_energy"].shape[1]
+    runs = {k: n / (cells * steps) for k, n in branches.items()}
+    return worst_abs, worst, ulps, seen, beyond, chain, runs, outside_share
+
+
+def land_f64_tolerance(name, plain, start, outside):
+    """Float64 kernel against plain after one step: 1e-12 of the value, with
+    a floor of 1e-12 of the field's largest magnitude (libdevice's
+    transcendentals against torch's)."""
+    return 1e-12 * plain.abs() + 1e-12 * float(plain.abs().max())
+
+
+def land_f32_tolerance(name, plain, start, outside):
+    """Float32 kernel against plain after one step, on each field's change
+    in the step: F32_REL_TOL of the field's largest change, plus a few ulps
+    of the value, where the two round a like change apart: 16 units of
+    2^-23 of the value for the soil's energy and saturation, whose change is
+    a difference of face fluxes over layers as thin as 5 cm (the two part
+    by up to 3.5 such units in the top two layers), 2 for the surface's.
+    The net assimilation is written afresh each step, not changed:
+    F32_REL_TOL of its largest magnitude (its co-limitation s - sqrt(disc)
+    cancels). The saturation and the pool of the columns ``outside`` (a
+    start-of-step layer outside [0, 1]) go through an adjustment of the size
+    of the state: there F32_REL_TOL of the field's largest magnitude as
+    well."""
+    value = plain.abs()
+    if name == "net_assimilation":
+        return torch.full_like(plain, F32_REL_TOL * float(value.max()))
+    units = 16 if plain.dim() == 2 else 2
+    tol = F32_REL_TOL * float((plain - start).abs().max()) + units * 2.0 ** -23 * value
+    if name in ("saturation_water_ice", "surface_excess_water"):
+        tol = torch.where(outside, torch.clamp(tol, min=F32_REL_TOL * float(value.max())), tol)
+    return tol
+
+
+def land_nonfinite(sim):
+    """The share of columns with a non-finite value in any carried field,
+    and in the canopy water alone."""
+    st = sim.state
+    bad = torch.zeros(sim.model.grid.cells, dtype=torch.bool, device="cuda")
+    for n in sim.model.live_carry:
+        v = st[n]
+        bad |= ~torch.isfinite(v).all(0) if v.dim() == 2 else ~torch.isfinite(v)
+    return (float(bad.float().mean()),
+            float((~torch.isfinite(st.canopy_water)).float().mean()))
 
 
 def grad_model(tp, grid, log_ksat):
@@ -529,13 +799,14 @@ def main():
     from terrarium_tpu_torch.ops import cuda_build
     from terrarium_tpu_torch.ops import fused_step as fs
     from terrarium_tpu_torch.ops import fused_vjp as fv
-    from terrarium_tpu_torch.timesteppers.integrator import (advance, clock_times,
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import (advance, clock_times, land_inputs,
                                                              top_temperature_table)
 
     def reset_counts():
         for fn in (fs.soil_column_rollout, fs.soil_column_heun_rollout,
                    fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
-                   fv.soil_column_segment_vjp):
+                   fv.soil_column_segment_vjp, ls.land_column_rollout):
             fn.launches = 0
 
     # ---- build: one nvcc per source, in parallel
@@ -850,6 +1121,157 @@ def main():
               frozen_fraction_top=float((st.liquid_water_fraction[-1] < 1.0).float().mean()))
         del sim, st, sat
 
+    # ---- land_model golden through the land kernel (Simulation.run, one
+    # launch) and through the plain version (the process modules)
+    lgold = np.load(LAND_GOLDEN)
+    errs = {}
+    for route in ("kernel", "plain"):
+        sim = land_golden_sim(tp)
+        if route == "kernel":
+            reset_counts()
+            sim.run(steps=48, dt=300.0)
+            torch.cuda.synchronize()
+            if ls.land_column_rollout.launches != 1:
+                raise AssertionError(f"land golden: {ls.land_column_rollout.launches} land "
+                                     "kernel launches, expected 1")
+        else:
+            advance(sim.model, sim.state, sim.ctx, 48, 300.0, input_sources=sim.input_sources,
+                    plain=True)
+            sim.compute_auxiliary()
+        for f in lgold.files:
+            got = sim.state[f].cpu().numpy()
+            np.testing.assert_allclose(got, lgold[f], rtol=1e-12, atol=1e-12,
+                                       err_msg=f"land golden {route}: {f}")
+            errs[f"{route}:{f}"] = float(np.max(np.abs(got - lgold[f])))
+    phase("land_golden", rtol=1e-12, atol=1e-12, max_abs_err=errs)
+    del sim
+
+    # ---- the land kernel against its plain version: float64 on 1,024
+    # columns, float32 at full width, 144 steps of the consistent composition
+    sim = land_sim(tp, LAND_F64_CELLS, torch.float64, "consistent")
+    carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    f64_abs, land_f64, _, seen_f64, beyond_f64, *_ = land_teacher(
+        ls, fs, carry, linputs, root, coords, params, float(sim.state.clock.time),
+        COMPARE_STEPS, land_f64_tolerance)
+    del sim, carry, linputs, root
+    sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent")
+    carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    t_start = float(sim.state.clock.time)
+    land_abs, land_cmp, land_ulps, seen_f32, beyond_f32, chain, runs, outside = land_teacher(
+        ls, fs, carry, linputs, root, coords, params, t_start, COMPARE_STEPS, land_f32_tolerance)
+    out_k = ls.land_column_rollout(carry, linputs, root, *coords, params, LAND_DT, t_start,
+                                   COMPARE_STEPS)
+    out_p = ls.land_column_rollout_plain(carry, linputs, root, *coords, params, LAND_DT,
+                                         t_start, COMPARE_STEPS)
+    torch.cuda.synchronize()
+    names = sim.model.live_carry
+    chain_equal = all(torch.equal(out_k[n], chain[n]) for n in names)
+    whole = {n: float((out_k[n] - out_p[n]).abs().max()) for n in names}
+    finite = all(bool(torch.isfinite(out_k[n]).all()) for n in names)
+    land_ms = cuda_ms(lambda: ls.land_column_rollout(carry, linputs, root, *coords, params,
+                                                     LAND_DT, t_start, COMPARE_STEPS),
+                      reps=3, warmup=True)
+    land_plain_ms = cuda_ms(lambda: ls.land_column_rollout_plain(
+        carry, linputs, root, *coords, params, LAND_DT, t_start, COMPARE_STEPS))
+    land_rows = series_rows_read(fs.SeriesBC(linputs["air_temperature"].values, 0.0, SERIES_DTS,
+                                             t_start, COMPARE_STEPS), LAND_DT)
+    carry_bytes = sum(t.numel() for t in carry.values()) * 4
+    land_op_count = land_ops(LAND_NZ, runs)
+    land_b = bound_ms(land_op_count * LAND_CELLS * COMPARE_STEPS,
+                      2 * carry_bytes + 2 * land_rows * LAND_CELLS * 4)
+    phase("land_compare", cells=LAND_CELLS, nz=LAND_NZ, steps=COMPARE_STEPS,
+          f64_cells=LAND_F64_CELLS, f64_rtol=1e-12, f64_max_abs_err=f64_abs,
+          f64_max_err_over_magnitude=land_f64, f64_beyond=beyond_f64[:12],
+          f64_steps_a_zeroed_change_fails=seen_f64, rel_tol=F32_REL_TOL, max_abs_err=land_abs,
+          max_err_over_magnitude=land_cmp, max_err_in_ulps_inside_unit=land_ulps,
+          f32_beyond=beyond_f32[:12],
+          f32_steps_a_zeroed_change_fails=seen_f32, one_launch_equals_step_chain=chain_equal,
+          one_launch_vs_plain_rollout_max_abs_err=whole, one_launch_finite=finite,
+          kernel_ms=land_ms, plain_ms=land_plain_ms, bound_ms=land_b[0], bound_by=land_b[1],
+          ops_per_column_step=land_op_count, branch_runs_per_column_step=runs,
+          outside_unit_share_at_step={i: outside[i - 1] for i in (1, 2, 3, 4, 12, 48, 144)},
+          series_rows_read=land_rows, card=card)
+    if beyond_f64 or beyond_f32 or not chain_equal or not finite:
+        raise AssertionError(f"land kernel vs plain: f64 {beyond_f64[:4]}, f32 {beyond_f32[:4]}, "
+                             f"one launch equals the step chain: {chain_equal}, finite: {finite}")
+    del carry, linputs, root, out_k, out_p
+
+    # ---- land_consistent main path: Simulation.run, one warm-up run, then
+    # one timed 1,440-step block
+    sim.run(steps=COMPARE_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=LAND_BLOCK_STEPS)
+    torch.cuda.synchronize()
+    land_s = time.perf_counter() - t0
+    land_launches = ls.land_column_rollout.launches
+    if land_launches != 1:
+        raise AssertionError(f"the land block took {land_launches} land kernel launches")
+    st = sim.state
+    for name, shape in (("internal_energy", (LAND_NZ, LAND_CELLS)),
+                        ("saturation_water_ice", (LAND_NZ, LAND_CELLS)),
+                        ("temperature", (LAND_NZ, LAND_CELLS)),
+                        ("skin_temperature", (LAND_CELLS,)), ("ground_heat_flux", (LAND_CELLS,)),
+                        ("canopy_water", (LAND_CELLS,)), ("carbon_vegetation", (LAND_CELLS,)),
+                        ("vegetation_area_fraction", (LAND_CELLS,)),
+                        ("surface_excess_water", (LAND_CELLS,)),
+                        ("net_primary_production", (LAND_CELLS,))):
+        v = st[name]
+        if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"land main path: {name} of shape {tuple(v.shape)} or "
+                                 "non-finite values")
+    if sim.iteration != COMPARE_STEPS + LAND_BLOCK_STEPS:
+        raise AssertionError(f"land main path: clock iteration {sim.iteration}")
+    # the state the block's steps run on: one more kernel step from its end
+    # (after the counts were read), the share of columns it leaves with a
+    # layer outside [0, 1] for the next closure to adjust
+    carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    after = ls.land_column_rollout(carry, linputs, root, *coords, params, LAND_DT,
+                                   float(st.clock.time), 1)
+    phase("land_main_path", composition="consistent", cells=LAND_CELLS, nz=LAND_NZ,
+          dt=LAND_DT, steps=LAND_BLOCK_STEPS, seconds=land_s, launches=land_launches,
+          cells_steps_per_s=LAND_CELLS * LAND_BLOCK_STEPS / land_s, card=card,
+          skin_range=[float(st.skin_temperature.min()), float(st.skin_temperature.max())],
+          T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())],
+          nonfinite_share=land_nonfinite(sim)[0],
+          outside_unit_share_next_step=float(outside_unit(after).float().mean()),
+          saturation_range_next_step=[float(after["saturation_water_ice"].min()),
+                                      float(after["saturation_water_ice"].max())],
+          pool_max_m=float(st.surface_excess_water.max()))
+    del sim, st, carry, linputs, root, after
+
+    # ---- land_coupled_n145 as bench_configs.py writes it (the parity
+    # composition): its kernel time per 144 steps and one timed 1,440-step
+    # block, with the share of columns left non-finite
+    sim = land_sim(tp, LAND_CELLS, torch.float32, "parity")
+    carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    t_start = float(sim.state.clock.time)
+    parity_ms = cuda_ms(lambda: ls.land_column_rollout(carry, linputs, root, *coords, params,
+                                                       LAND_DT, t_start, COMPARE_STEPS),
+                        reps=3, warmup=True)
+    del carry, linputs, root
+    sim.run(steps=COMPARE_STEPS)
+    torch.cuda.synchronize()
+    share_144 = land_nonfinite(sim)
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=LAND_BLOCK_STEPS)
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t0
+    if ls.land_column_rollout.launches != 1:
+        raise AssertionError(f"the parity land block took {ls.land_column_rollout.launches} "
+                             "launches")
+    share = land_nonfinite(sim)
+    phase("land_bench_parity", composition="parity", cells=LAND_CELLS, nz=LAND_NZ, dt=LAND_DT,
+          steps=LAND_BLOCK_STEPS, seconds=parity_s, launches=ls.land_column_rollout.launches,
+          cells_steps_per_s=LAND_CELLS * LAND_BLOCK_STEPS / parity_s, kernel_ms=parity_ms,
+          compare_steps=COMPARE_STEPS, nonfinite_share_after_144=share_144[0],
+          canopy_water_nonfinite_share_after_144=share_144[1],
+          nonfinite_share_after_block=share[0], canopy_water_nonfinite_share_after_block=share[1],
+          card=card)
+    del sim
+
     # ---- segment-VJP kernel against its plain version, one 48-step segment
     # of the gradient configuration on GRAD_COMPARE_CELLS columns
     vjp_names = ("U", "sat", "S", "K_sat", "sk_mineral")
@@ -1033,7 +1455,16 @@ def main():
         "ms": seg_ms, "plain_ms": vjp_plain_ms, "bound_ms": vjp_b[0], "bound_by": vjp_b[1],
         "library_ms": None,
         "shape": f"{GRAD_CELLS} x {GRAD_NZ} f32, {GRAD_INNER} steps; plain_ms at "
-                 f"{GRAD_COMPARE_CELLS} columns"}]}), flush=True)
+                 f"{GRAD_COMPARE_CELLS} columns"}, {
+        "name": "land_column_rollout", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/land_column_rollout.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:283 traced over a LandModel step "
+                    "(terrarium_tpu/models/land_model.py:55)",
+        "launches": land_launches, "max_abs_err": max(land_abs.values()),
+        "ms": land_ms, "plain_ms": land_plain_ms, "bound_ms": land_b[0],
+        "bound_by": land_b[1], "library_ms": None,
+        "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent, series, "
+                 f"{COMPARE_STEPS} steps"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,11 +5,13 @@ freeze curve, either heat only (``NoFlow``, the default, as in the JAX
 package) or with Richards-equation hydrology, stepped by ForwardEuler, Heun
 or ImplicitEuler (tridiagonal solves by PCR or Thomas), with the top
 temperature given as a value, ``f(t)`` or an input variable fed by
-``FieldInputSource`` / ``TimeSeriesInputSource``.
+``FieldInputSource`` / ``TimeSeriesInputSource``; and the coupled
+:class:`LandModel` (atmosphere, surface energy balance, surface hydrology,
+PALADYN vegetation over that soil) stepped by ForwardEuler.
 ``Simulation.run`` goes through hand-written CUDA column kernels on an NVIDIA
 Hopper card and through their plain PyTorch version on the CPU
-(``ops/fused_step.py``); gradients through a CUDA segment-VJP kernel
-(``timesteppers/fused_grad.py``).
+(``ops/fused_step.py``, ``ops/land_step.py``); gradients through a CUDA
+segment-VJP kernel (``timesteppers/fused_grad.py``).
 
 Tensors are ``(Nz, cells)`` with ``k = 0`` the bottom layer, as in the JAX
 package; the grid carries the dtype and device. The package imports torch
@@ -18,13 +20,15 @@ and never JAX.
 
 __version__ = "0.1.0"
 
-from .constants import PhysicalConstants
+from .constants import (PhysicalConstants, compute_vpd, partial_pressure_CO2,
+                        partial_pressure_O2, saturation_vapor_pressure, stefan_boltzmann,
+                        vapor_pressure_to_specific_humidity)
 from .variables import XY, XYZ, Variable, Variables, auxiliary, input, prognostic
 from .state import Clock, State, build_state, reset_tendencies
 from .grids.spacing import ExponentialSpacing, UniformSpacing
 from .grids.vertical import VerticalGrid
 from .grids.column import ColumnGrid
-from .ops.bcs import Dirichlet, Flux, Neumann, merge_boundary_conditions
+from .ops.bcs import Dirichlet, Flux, InputRef, Neumann, merge_boundary_conditions
 from .processes.base import Context
 from .processes.soil.stratigraphy import (ConstantSoilCarbonDensity, ConstantSoilPorosity,
                                           HomogeneousStratigraphy, SoilTexture, SoilVolume,
@@ -38,9 +42,27 @@ from .processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSU
 from .processes.soil.hydrology import (NoFlow, RichardsEq, SoilHydrology,
                                        SoilSaturationPressureClosure)
 from .processes.soil.soil_coupled import SoilEnergyWaterCarbon
-from .models.boundary_conditions import PrescribedSurfaceTemperature
+from .processes.atmosphere import (AmbientCO2, ConstantAerodynamics, LongShortWaveRadiation,
+                                   MoninObukhovAerodynamics, PrescribedAtmosphere, RainSnow,
+                                   SpecificHumidity, TracerGas)
+from .processes.surface_energy.seb import (ConstantAlbedo, DiagnosedRadiativeFluxes,
+                                           DiagnosedTurbulentFluxes, ImplicitSkinTemperature,
+                                           PrescribedAlbedo, PrescribedRadiativeFluxes,
+                                           PrescribedSkinTemperature, PrescribedTurbulentFluxes,
+                                           SurfaceEnergyBalance)
+from .processes.surface_hydrology.surface_hydrology import (
+    BareGroundEvaporation, ConstantEvaporationResistanceFactor, DirectSurfaceRunoff,
+    NoCanopyInterception, PALADYNCanopyEvapotranspiration, PALADYNCanopyInterception,
+    SoilMoistureResistanceFactor, SurfaceHydrology)
+from .processes.vegetation.vegetation import (
+    FieldCapacityLimitedPAW, LUEPhotosynthesis, MedlynStomatalConductance,
+    PALADYNAutotrophicRespiration, PALADYNCarbonDynamics, PALADYNPhenology,
+    PALADYNVegetationDynamics, StaticExponentialRootDistribution, VegetationCarbon)
+from .models.boundary_conditions import (GroundHeatFlux, InfiltrationFlux,
+                                         PrescribedSurfaceTemperature)
 from .models.initializers import DefaultInitializer
 from .models.soil_model import SoilModel
+from .models.land_model import LandModel
 from .io.input_sources import FieldInputSource, TimeSeriesInputSource
 from .timesteppers.stepping import ForwardEuler, Heun
 from .timesteppers.implicit import ImplicitEuler

@@ -9,7 +9,9 @@ dicts), so this module needs nothing of JAX:
   ``dataclasses.asdict`` of a JAX ``SoilEnergyWaterCarbon``;
 * :func:`with_differentiable_params` sets the parameters the gradient paths
   differentiate (the log of the saturated hydraulic conductivity, the
-  mineral conductivity) from numbers or 0-d tensors.
+  mineral conductivity) from numbers or 0-d tensors;
+* :func:`land_model_from` rebuilds a JAX ``LandModel`` (any of its process
+  compositions that the port has) as the port's, on a port grid.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from .processes.soil.thermal import (SoilHeatCapacities, SoilThermalConductiviti
                                      SoilThermalProperties)
 from .state import Clock, State
 
-__all__ = ["state_from_numpy", "params_from_dict", "with_differentiable_params"]
+__all__ = ["state_from_numpy", "params_from_dict", "with_differentiable_params",
+           "land_model_from"]
 
 
 _GROUPS = ("prognostic", "tendencies", "auxiliary", "inputs")
@@ -119,3 +122,45 @@ def with_differentiable_params(soil: SoilEnergyWaterCarbon, *, log_sat_hydraulic
             tp, conductivities=dataclasses.replace(
                 tp.conductivities, mineral=_value(mineral_conductivity))))
     return dataclasses.replace(soil, hydrology=hyd, energy=energy)
+
+
+def _rebuild(obj, ns):
+    """``obj`` with every dataclass replaced by the port's class of the same
+    name in ``ns``, field by field; numbers as Python numbers."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, (np.generic, np.ndarray)):
+        return np.asarray(obj).item()
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_rebuild(o, ns) for o in obj)
+    if not dataclasses.is_dataclass(obj):
+        raise TypeError(f"cannot carry {type(obj).__name__} over to the port")
+    name = type(obj).__name__
+    cls = getattr(ns, name, None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise NotImplementedError(f"{name} is not ported")
+    ours = {f.name for f in dataclasses.fields(cls)}
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name in ours:
+            kw[f.name] = _rebuild(v, ns)
+        elif not (v is None or v is False
+                  or (dataclasses.is_dataclass(v) and not dataclasses.fields(v))):
+            raise NotImplementedError(f"{name}.{f.name} = {v!r} is not ported")
+    return cls(**kw)
+
+
+def land_model_from(model, grid):
+    """The port's LandModel of the JAX ``model``'s composition and
+    parameters on ``grid``: each process is rebuilt as the port's class of
+    the same name from its float, int, bool and string fields (the root
+    fraction profile follows from the root distribution's parameters and
+    the grid). A field that the port's class lacks may only hold a marker
+    or an off switch (the JAX energy operator, ``deficit_pool=False``,
+    ``vwc_forcing=None``); anything else raises ``NotImplementedError``."""
+    import terrarium_tpu_torch as ns
+
+    kw = {f.name: _rebuild(getattr(model, f.name), ns)
+          for f in dataclasses.fields(model) if f.name != "grid"}
+    return ns.LandModel(grid=grid, **kw)

@@ -9,8 +9,9 @@ Boundary conditions act inside the vertical operators:
 * no BC means a zero-gradient ghost.
 
 A BC value may be a Python scalar, a ``(cells,)`` tensor, the name of a state
-variable, or a callable ``f(t)`` / ``f(t, state)`` that receives the clock
-time as a torch tensor.
+variable, an :class:`InputRef` (a state variable times a constant), or a
+callable ``f(t)`` / ``f(t, state)`` that receives the clock time as a torch
+tensor.
 """
 from __future__ import annotations
 
@@ -22,8 +23,18 @@ import torch
 
 from ..utils.utils import merge_recursive
 
-__all__ = ["Dirichlet", "Neumann", "Flux", "get_bc", "resolve_bc_value",
+__all__ = ["InputRef", "Dirichlet", "Neumann", "Flux", "get_bc", "resolve_bc_value",
            "merge_boundary_conditions", "bc_call_arity"]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputRef:
+    """A state variable times ``scale`` as a BC value: the reference's
+    placeholder BCs with a sign flip (the LandModel's ``-infiltration``,
+    `land_model.jl:46-66`)."""
+
+    name: str
+    scale: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +91,8 @@ def resolve_bc_value(value, state):
     Python scalar or a tensor that broadcasts against ``(cells,)``."""
     if isinstance(value, str):
         return state[value]
+    if isinstance(value, InputRef):
+        return value.scale * state[value.name]
     if callable(value):
         if bc_call_arity(value) >= 2:
             return value(state.clock.time, state)

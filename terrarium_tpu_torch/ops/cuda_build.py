@@ -7,7 +7,7 @@ every header in ``csrc/``. A source defines one entry point per
 instantiation, ``<name>[_<tag>...]_<f32|f64>_nz<NZ>``, from the list of that
 source in ``INSTANTIATIONS``; each instantiation is compiled by its own
 ``nvcc`` (``-DSOIL_ENTRY -DSOIL_SUFFIX -DSOIL_T -DSOIL_NZ`` and the tags'
-defines), all of them and all the sources asked for together in parallel,
+defines, ``_DEFINES``), all of them and all the sources asked for together in parallel,
 and linked into the source's library. ptxas's register and spill report is
 kept beside the library as ``.ptxas.txt``, each instantiation's part headed
 by a line ``== <entry point>``.
@@ -41,10 +41,25 @@ INSTANTIATIONS = {
           for dtype, nz in ((_F64, 16), (_F32, 30))),
     ],
     "soil_column_segment_vjp": [((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)],
+    # the LandModel: the bare-ground golden at Nz 15 (heat-only soil), the
+    # vegetated bench composition (Richards over Brooks-Corey and linear
+    # conductivity) at Nz 20
+    "land_column_rollout": [
+        (("bare", "noflow"), _F64, 15),
+        *((("veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
+    ],
 }
-_DEFINES = {"euler": "SOIL_STEPPER=0", "heun": "SOIL_STEPPER=1", "implicit": "SOIL_STEPPER=2",
-            "thomas": "SOIL_SOLVER=0", "pcr": "SOIL_SOLVER=1", "richards": "SOIL_HEAT=0",
-            "heat": "SOIL_HEAT=1"}
+_DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
+            "implicit": ("SOIL_STEPPER=2",), "thomas": ("SOIL_SOLVER=0",),
+            "pcr": ("SOIL_SOLVER=1",), "richards": ("SOIL_HEAT=0", "LAND_RICHARDS=1"),
+            "heat": ("SOIL_HEAT=1",), "noflow": ("LAND_RICHARDS=0",), "bare": ("LAND_VEG=0",),
+            "veg": ("LAND_VEG=1",), "vg": ("LAND_CURVE=0",), "bc": ("LAND_CURVE=1",),
+            "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",)}
+#: nvcc flags of a source's instantiations of one dtype beyond the common
+#: ones: the land kernel's float64 instantiations, which serve the checks
+#: against the plain version at 1e-12, contract no multiply-adds (torch's
+#: elementwise ops do not), while its float32 ones, the timed path, do
+FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)}}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -72,6 +87,7 @@ def _stem(name: str) -> str:
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(repr(sorted((str(d), f) for d, f in FLAGS.get(name, {}).items())).encode())
     return f"{name}-{h.hexdigest()[:12]}"
 
 
@@ -103,10 +119,11 @@ def build(*names: str) -> list:
                         name = _entry_name(n, tags, dtype, nz)
                         obj = pathlib.Path(tmp) / f"{name}.o"
                         jobs.append((n, name, obj, [
-                            nvcc, *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                            nvcc, *_ARCH, "-std=c++17", "-O3", *FLAGS.get(n, {}).get(dtype, ()),
+                            "-Xcompiler", "-fPIC",
                             "-Xptxas", "-v", f"-DSOIL_ENTRY={name}", f"-DSOIL_SUFFIX={suffix}",
                             f"-DSOIL_T={ctype}", f"-DSOIL_NZ={nz}",
-                            *(f"-D{_DEFINES[t]}" for t in tags), "-c", "-o", str(obj),
+                            *(f"-D{d}" for t in tags for d in _DEFINES[t]), "-c", "-o", str(obj),
                             str(_CSRC / f"{n}.cu")]))
                 results = _run_all([cmd for *_, cmd in jobs])
                 failed = [f"{obj.name}: nvcc exit {rc}\n{err}"

@@ -53,7 +53,7 @@ from ..processes.soil.swrc import VanGenuchten, one_minus_eps
 from ..processes.soil.thermal import FreeWater, InverseQuadratic, SoilThermalProperties
 from ..utils.utils import safediv
 
-__all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "clock_times",
+__all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "soil_flow", "clock_times",
            "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
            "soil_column_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS"]
 
@@ -70,12 +70,12 @@ def _require(ok: bool, what: str, got) -> None:
         raise ValueError(f"the soil column kernels run {what}; got {got}")
 
 
-def kernel_physics(model) -> str:
-    """``"richards"`` or ``"heat"``: the physics of the kernel that runs
-    ``model``. Raises ``ValueError`` naming what the kernels run for any other
-    model; each attribute is read only after its owner's class is checked."""
-    _require(isinstance(model, SoilModel), "a SoilModel", type(model).__name__)
-    soil = model.soil
+def soil_flow(soil) -> str:
+    """``"richards"`` or ``"heat"``: the flow of a soil the column code
+    runs (the soil of a SoilModel or a LandModel), without the choice of
+    retention curve and conductivity. Raises ``ValueError`` naming what the
+    column code runs for any other; each attribute is read only after its
+    owner's class is checked."""
     _require(isinstance(soil, SoilEnergyWaterCarbon)
              and isinstance(soil.strat, HomogeneousStratigraphy)
              and isinstance(soil.biogeochem, ConstantSoilCarbonDensity)
@@ -97,6 +97,18 @@ def kernel_physics(model) -> str:
     _require(isinstance(hp, (ConstantSoilHydraulics, SoilHydraulicsSURFEX)),
              "RichardsEq over ConstantSoilHydraulics or SoilHydraulicsSURFEX",
              type(hp).__name__)
+    return "richards"
+
+
+def kernel_physics(model) -> str:
+    """``"richards"`` or ``"heat"``: the physics of the soil kernel that runs
+    ``model``. Raises ``ValueError`` naming what the kernels run for any other
+    model (:func:`soil_flow`; Richards flow with ``VanGenuchten`` and
+    ``UnsatKVanGenuchten`` only)."""
+    _require(isinstance(model, SoilModel), "a SoilModel", type(model).__name__)
+    if soil_flow(model.soil) == "heat":
+        return "heat"
+    hp = model.soil.hydrology.hydraulic_properties
     _require(isinstance(hp.swrc, VanGenuchten)
              and isinstance(hp.unsat_hydraulic_cond, UnsatKVanGenuchten),
              "RichardsEq with VanGenuchten and UnsatKVanGenuchten",
@@ -157,7 +169,7 @@ class ColumnParams:
     p_id_b: float
     #: the retention curve whose ``inverse_deriv`` the plain implicit step
     #: calls (``None`` for the heat-only model); not passed to the kernels
-    swrc: VanGenuchten | None = None
+    swrc: object = None
 
     @staticmethod
     def of(model, dtype: torch.dtype) -> "ColumnParams":
@@ -168,10 +180,18 @@ class ColumnParams:
         gradient path chains their cotangents back to the tensors itself
         (``timesteppers/fused_grad.py``)."""
         physics = kernel_physics(model)
-        soil = model.soil
+        return ColumnParams.of_soil(model.soil, model.constants, model.grid, dtype,
+                                    physics == "richards")
+
+    @staticmethod
+    def of_soil(soil, c, grid, dtype: torch.dtype, richards: bool) -> "ColumnParams":
+        """The parameters of a soil that :func:`soil_flow` takes, with the
+        constants ``c`` on ``grid``: the Van Genuchten fields where the
+        curve is ``VanGenuchten``, the Mualem fields where the conductivity
+        is ``UnsatKVanGenuchten``, 0 where not (and all hydraulic fields 0
+        without Richards flow)."""
         strat, bgc = soil.strat, soil.biogeochem
         props = soil.energy.thermal_properties
-        c = model.constants
         por = strat.bulk_porosity(bgc)
         organic = strat.organic_fraction(bgc)
         solid = 1.0 - por
@@ -182,22 +202,26 @@ class ColumnParams:
              "K_sat", "neg_impedance", "k_theta_sat", "k_se_hi", "p_inv_m", "p_inv_n",
              "p_k1", "p_k2", "inv_por", "id_se_lo", "id_se_hi", "id_coef", "id_clamp",
              "p_id_core", "p_id_a", "p_id_b"), 0.0)
-        if physics == "richards":
+        if richards:
             hyd = soil.hydrology.hydraulic_properties
             swrc, unsat = hyd.swrc, hyd.unsat_hydraulic_cond
-            n = swrc.n
-            m = 1.0 - 1.0 / n
-            hydraulic = dict(
-                swrc=swrc,
-                theta_res=swrc.theta_res, vg_span=por - swrc.theta_res,
-                neg_inv_alpha=-(1.0 / swrc.alpha), psi_min=swrc.psi_min,
-                vg_se_lo=1e-8, vg_se_hi=one_minus_eps(dtype, 1e-12),
-                K_sat=_number(hyd.sat_hydraulic_cond), neg_impedance=-unsat.impedance,
-                k_theta_sat=max(por, 1e-12), k_se_hi=one_minus_eps(dtype, 1e-9),
-                p_inv_m=-1.0 / m, p_inv_n=1.0 / n, p_k1=n / (n + 1.0), p_k2=(n - 1.0) / n,
-                inv_por=1.0 / por, id_se_lo=1e-6, id_se_hi=one_minus_eps(dtype, 1e-9),
-                id_coef=1.0 / (swrc.alpha * n * m), id_clamp=1.0e6, p_id_core=-1.0 / m,
-                p_id_a=(1.0 - n) / n, p_id_b=-(1.0 + m) / m)
+            hydraulic.update(swrc=swrc, K_sat=_number(hyd.sat_hydraulic_cond), inv_por=1.0 / por)
+            if isinstance(swrc, VanGenuchten):
+                n = swrc.n
+                m = 1.0 - 1.0 / n
+                hydraulic.update(
+                    theta_res=swrc.theta_res, vg_span=por - swrc.theta_res,
+                    neg_inv_alpha=-(1.0 / swrc.alpha), psi_min=swrc.psi_min,
+                    vg_se_lo=1e-8, vg_se_hi=one_minus_eps(dtype, 1e-12),
+                    p_inv_m=-1.0 / m, p_inv_n=1.0 / n, id_se_lo=1e-6,
+                    id_se_hi=one_minus_eps(dtype, 1e-9), id_coef=1.0 / (swrc.alpha * n * m),
+                    id_clamp=1.0e6, p_id_core=-1.0 / m, p_id_a=(1.0 - n) / n,
+                    p_id_b=-(1.0 + m) / m)
+            if isinstance(unsat, UnsatKVanGenuchten):
+                n = swrc.n
+                hydraulic.update(neg_impedance=-unsat.impedance, k_theta_sat=max(por, 1e-12),
+                                 k_se_hi=one_minus_eps(dtype, 1e-9), p_k1=n / (n + 1.0),
+                                 p_k2=(n - 1.0) / n)
         return ColumnParams(
             por=por, L=c.rho_w * c.L_sl,
             c_water=cs.water, c_ice=cs.ice, c_air=cs.air,
@@ -207,7 +231,7 @@ class ColumnParams:
             sk_mineral=math.sqrt(_number(ks.mineral)) * mineral_frac,
             sk_organic=math.sqrt(ks.organic) * organic_frac,
             eps_lo=float(torch.finfo(dtype).eps),
-            z_top=float(model.grid.vertical.z_faces[-1]), **hydraulic)
+            z_top=float(grid.vertical.z_faces[-1]), **hydraulic)
 
 
 _DOUBLES = [f.name for f in dataclasses.fields(ColumnParams) if f.name != "swrc"]

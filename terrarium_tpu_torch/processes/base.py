@@ -17,7 +17,10 @@ __all__ = ["Context"]
 
 @dataclasses.dataclass(frozen=True)
 class Context:
-    """Dependencies shared by the process hooks: constants and the BCs."""
+    """Dependencies shared by the process hooks: constants, the BCs and a
+    model's sibling processes (``extras``: the LandModel hands the soil its
+    evapotranspiration and runoff schemes)."""
 
     constants: PhysicalConstants = PhysicalConstants()
     bcs: Any = None  # {var_name: {"top": bc, "bottom": bc}}
+    extras: Any = None

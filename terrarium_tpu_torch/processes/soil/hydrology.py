@@ -4,10 +4,12 @@
 The default, as in the JAX package, is ``NoFlow`` over
 ``SoilHydraulicsSURFEX``: the saturation is an auxiliary that no process
 changes, and the soil model is heat conduction only. Richards flow is ported
-in the reference's parity mode (no ``deficit_pool``, no ``vwc_forcing``, no
-evapotranspiration or runoff siblings). The saturation adjustment runs the
-reference's two sequential sweeps literally, one row at a time, in the order
-the CUDA column kernel uses.
+in the reference's parity mode (no ``deficit_pool``, no ``vwc_forcing``).
+Under a LandModel the evapotranspiration and runoff siblings come through
+``ctx.extras``: the top layer loses the ET sink, and the surface pool drains
+by the runoff scheme's rate. The saturation adjustment runs the reference's
+two sequential sweeps literally, one row at a time, in the order the CUDA
+column kernel uses.
 """
 from __future__ import annotations
 
@@ -97,12 +99,18 @@ def saturation_sweeps(sat, dz):
     return _SaturationSweeps.apply(sat, dz)
 
 
-def pool_drainage(S):
-    """The parity surface-pool term ``min(0, S)`` (reference
-    `soil_hydrology.jl:260-283`). Its derivative is 0 at ``S == 0``: an
-    empty pool neither drains nor grows, so the pool carries its cotangent
-    unchanged (the JAX package's ``jnp.minimum`` splits it 0.5/0.5 there)."""
-    return torch.where(S < 0.0, S, 0.0)
+def pool_drainage(S, runoff=None):
+    """The surface-pool tendency ``sign * min(dS/dt, S)`` (reference
+    `soil_hydrology.jl:260-283`): ``dS/dt`` the runoff scheme's drainage,
+    ``sign`` -1 under its consistent drainage and +1 (the reference's)
+    otherwise. Without a runoff scheme it is ``min(0, S)``, whose derivative
+    is 0 at ``S == 0``: an empty pool neither drains nor grows, so the pool
+    carries its cotangent unchanged (the JAX package's ``jnp.minimum``
+    splits it 0.5/0.5 there)."""
+    if runoff is None:
+        return torch.where(S < 0.0, S, 0.0)
+    sign = -1.0 if runoff.consistent_drainage else 1.0
+    return sign * torch.minimum(runoff.surface_drainage(S), S)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,18 +231,27 @@ class SoilHydrology:
         self.compute_hydraulics(state, grid, soil)
 
     def compute_tendencies(self, state, grid, soil, constants, ctx):
-        """Darcy flux divergence over porosity (reference
-        `soil_hydrology_rre.jl:95-131`, `soil_hydrology.jl:222-237`) and the
-        parity surface-pool term ``+min(0, S)`` (`soil_hydrology.jl:260-283`).
-        NoFlow has none (reference `soil_hydrology.jl:126`)."""
+        """Darcy flux divergence, with the evapotranspiration sibling's sink
+        ``soil_moisture_sink / dz_top`` added to the top layer, over porosity
+        (reference `soil_hydrology_rre.jl:95-131`, `evapotranspiration_base.jl:9-15`,
+        `soil_hydrology.jl:222-237`), and the surface-pool term
+        (:func:`pool_drainage` with the runoff sibling). NoFlow has none
+        (reference `soil_hydrology.jl:126`)."""
         if not self.richards:
             return
+        extras = getattr(ctx, "extras", None)
+        evtr = getattr(extras, "evapotranspiration", None)
+        runoff = getattr(extras, "runoff", None)
         grad, K_eff = self._darcy_faces(state, grid, ctx)
         q = -K_eff * grad
         dtheta_dt = -div_faces(q, grid.dz)
+        if evtr is not None:
+            sink = evtr.soil_moisture_sink(state, grid, constants) / grid.dz[-1]
+            dtheta_dt = torch.cat([dtheta_dt[:-1], dtheta_dt[-1:] + sink])
         por = soil.strat.bulk_porosity(soil.biogeochem)
         state.add_tendencies(saturation_water_ice=dtheta_dt / por)
-        state.add_tendencies(surface_excess_water=pool_drainage(state.surface_excess_water))
+        state.add_tendencies(surface_excess_water=pool_drainage(state.surface_excess_water,
+                                                                runoff))
 
     def _darcy_faces(self, state, grid, ctx):
         """The pressure-head gradient at every face (with the BC ghosts) and

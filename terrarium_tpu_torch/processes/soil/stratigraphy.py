@@ -9,6 +9,14 @@ __all__ = ["SoilTexture", "ConstantSoilPorosity", "ConstantSoilCarbonDensity",
            "SoilVolume", "volumetric_fractions", "HomogeneousStratigraphy"]
 
 
+#: (sand, silt, clay) of the named textures (reference `soil_texture.jl:43-54`)
+_TEXTURE_PRESETS = {
+    "sand": (1.0, 0.0, 0.0), "silt": (0.0, 1.0, 0.0), "clay": (0.0, 0.0, 1.0),
+    "sandyclay": (0.5, 0.0, 0.5), "siltyclay": (0.0, 0.5, 0.5), "loam": (0.4, 0.4, 0.2),
+    "sandyloam": (0.8, 0.1, 0.1), "siltyloam": (0.1, 0.8, 0.1), "clayloam": (0.3, 0.3, 0.4),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class SoilTexture:
     """Sand/silt/clay mass fractions (reference `soil_texture.jl:6-28`)."""
@@ -22,6 +30,11 @@ class SoilTexture:
             object.__setattr__(self, "silt", 1.0 - self.sand - self.clay)
         if abs(self.sand + self.silt + self.clay - 1.0) > 1e-8:
             raise ValueError("sand, silt, and clay fractions must sum to unity")
+
+    @staticmethod
+    def preset(name: str) -> "SoilTexture":
+        sand, silt, clay = _TEXTURE_PRESETS[name]
+        return SoilTexture(sand=sand, clay=clay, silt=silt)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """Simulation driver (counterpart of ``terrarium_tpu/timesteppers/integrator.py``).
 
 ``Simulation.run`` advances a :class:`SoilModel` with ForwardEuler, Heun or
-ImplicitEuler through the fused soil column rollout (``ops/fused_step.py``): on a CUDA
-device the hand-written kernels, on the CPU their plain version. As in the
+ImplicitEuler through the fused soil column rollout (``ops/fused_step.py``),
+and a :class:`LandModel` with ForwardEuler through the land column rollout
+(``ops/land_step.py``): on a CUDA device the hand-written kernels, on the
+CPU their plain versions. As in the
 JAX package's fused path (`fused_step.py:620`, `integrator.py:305-306`), the
 rollout carries only the live state, then one trailing ``closure`` and
 ``compute_auxiliary`` rebuild the closure variables and auxiliaries from it;
@@ -15,6 +17,8 @@ spaced ``TimeSeriesInputSource`` is handed over whole and interpolated in
 the kernel, so such a run is one launch. Anything else (a constant, a
 ``(cells,)`` value, a callable ``f(t)``, a static input, a series with other
 spacing) is evaluated here at each clock time into a table.
+The land rollout reads its inputs the same way: a uniform series in the
+kernel, anything else as the state holds it (static).
 ``Simulation.timestep`` steps through the process modules instead.
 """
 from __future__ import annotations
@@ -29,6 +33,8 @@ from .implicit import ImplicitEuler
 from .stepping import ForwardEuler, Heun
 from ..io.input_sources import FieldInputSource, TimeSeriesInputSource, collect_input_variables
 from ..models.initializers import apply_field_initializers
+from ..models.land_model import LandModel, coupling_bcs
+from ..ops import land_step
 from ..ops.bcs import Dirichlet, bc_call_arity
 from ..ops.fused_step import (ROLLOUTS, ColumnParams, SeriesBC, clock_times, kernel_physics,
                               soil_column_rollout_plain)
@@ -166,17 +172,64 @@ def _rollout_fn(stepper: str, physics: str, device: torch.device, plain: bool, s
     return functools.partial(ROLLOUTS[(stepper, physics)], **kw)
 
 
-def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None,
-            input_sources=(), plain: bool = False) -> None:
-    """``steps`` closure-rotated steps of ``timestepper`` (ForwardEuler by
-    default, Heun or ImplicitEuler with one Picard iteration) on the live
-    carry, through the kernel of the model and
-    stepper (or their plain version, ``plain=True``), then the trailing
-    ``closure``. Tendencies are zeroed, as the dead leaves of the lean carry
-    are; the inputs are the sources' values at the start of the last step.
-    Updates ``state`` in place. Raises ``ValueError`` for a model, stepper,
-    boundary condition or source the kernels do not take."""
-    timestepper = timestepper if timestepper is not None else ForwardEuler()
+def _coords(grid) -> tuple:
+    return tuple(torch.as_tensor(a, device=grid.device).to(grid.dtype) for a in (
+        grid.vertical.dz, grid.vertical.dz_faces, grid.vertical.z_centers,
+        grid.vertical.z_faces))
+
+
+def land_inputs(model, state: State, sources) -> dict:
+    """The :class:`~terrarium_tpu_torch.ops.land_step.LandInput` of each input
+    the land step reads that the model has: from the last uniformly spaced
+    ``TimeSeriesInputSource`` in ``sources`` that provides it, else as the
+    state holds it (a static ``FieldInputSource`` value or the default).
+    Raises ``ValueError`` for a source of another class or a series of
+    uneven spacing."""
+    grid = model.grid
+    for src in sources:
+        if not isinstance(src, (FieldInputSource, TimeSeriesInputSource)):
+            raise ValueError(f"the land rollout takes FieldInputSource and "
+                             f"TimeSeriesInputSource, not {type(src).__name__}")
+    out = {}
+    for name in land_step.LAND_INPUTS:
+        if name not in state.inputs:
+            continue
+        series = [s for s in sources if isinstance(s, TimeSeriesInputSource) and name in s.series]
+        if not series:
+            out[name] = land_step.LandInput(state.inputs[name][None, :].contiguous())
+            continue
+        src = series[-1]
+        meta = _uniform_ts_meta(src)
+        vals = torch.as_tensor(src.series[name], device=grid.device).to(grid.dtype).contiguous()
+        if meta is None or vals.dim() not in (1, 2):
+            raise ValueError(f"the land rollout reads uniformly spaced (T,) or (T, cells) "
+                             f"series; {name!r} is not one")
+        out[name] = land_step.LandInput(vals, *meta)
+    return out
+
+
+def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
+                  plain: bool, times) -> None:
+    """The land column rollout of ``advance``."""
+    if not isinstance(timestepper, ForwardEuler):
+        raise ValueError(f"the land column rollout runs ForwardEuler, not "
+                         f"{type(timestepper).__name__}; Simulation.timestep steps the modules")
+    if (ctx.bcs or {}) != coupling_bcs():
+        raise ValueError("the land column rollout takes the LandModel's coupling BCs only, "
+                         f"got {ctx.bcs}")
+    grid = model.grid
+    params = land_step.LandParams.of(model, grid.dtype)
+    inputs = land_inputs(model, state, input_sources)
+    carry = {n: state[n].contiguous() for n in land_step.carry_names(params)}
+    root = state.auxiliary["root_fraction"] if model.vegetation is not None else None
+    rollout = land_step.land_column_rollout_plain if plain else land_step.land_column_rollout
+    out = rollout(carry, inputs, root, *_coords(grid), params, dt, float(times[0]), steps)
+    state.set(**out)
+
+
+def _advance_soil(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
+                  plain: bool, times) -> None:
+    """The soil column rollout of ``advance``."""
     stepper = _stepper_name(timestepper)
     physics = kernel_physics(model)
     grid = model.grid
@@ -184,14 +237,11 @@ def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None
     top = _TopTemperature(_top_temperature_value(ctx.bcs), input_sources, state, grid)
     rollout = _rollout_fn(stepper, physics, grid.device, plain,
                           getattr(timestepper, "solver", None))
-    coords = tuple(torch.as_tensor(a, device=grid.device).to(grid.dtype) for a in (
-        grid.vertical.dz, grid.vertical.dz_faces, grid.vertical.z_centers,
-        grid.vertical.z_faces))
+    coords = _coords(grid)
     heat, extra = physics == "heat", int(stepper == "heun")
     U = state.prognostic["internal_energy"].contiguous()
     sat = state["saturation_water_ice"].contiguous()
     S = None if heat else state.prognostic["surface_excess_water"].contiguous()
-    times = clock_times(state.clock.time, dt, steps)
     if top.series is not None:
         bc = SeriesBC(*top.series, time=float(times[0]), steps=steps)
         U, sat, S = rollout(U, sat, S, bc, *coords, params, dt)
@@ -208,6 +258,23 @@ def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None
     state.set(internal_energy=U)
     if not heat:
         state.set(saturation_water_ice=sat, surface_excess_water=S)
+
+
+def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None,
+            input_sources=(), plain: bool = False) -> None:
+    """``steps`` closure-rotated steps of ``timestepper`` (ForwardEuler by
+    default; for a SoilModel also Heun or ImplicitEuler with one Picard
+    iteration) on the live carry, through the kernel of the model and
+    stepper (or their plain version, ``plain=True``), then the trailing
+    ``closure``. Tendencies are zeroed, as the dead leaves of the lean carry
+    are; the inputs are the sources' values at the start of the last step.
+    Updates ``state`` in place. Raises ``ValueError`` for a model, stepper,
+    boundary condition or source the kernels do not take."""
+    timestepper = timestepper if timestepper is not None else ForwardEuler()
+    times = clock_times(state.clock.time, dt, steps)
+    run = _advance_land if isinstance(model, LandModel) else _advance_soil
+    run(model, state, ctx, steps, dt, timestepper, input_sources, plain, times)
+    grid = model.grid
     clock = Clock(torch.as_tensor(times[-1], device=grid.device),
                   state.clock.iteration + steps)
     if steps > 0:  # the inputs of the last step, as its update_state set them

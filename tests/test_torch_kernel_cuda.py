@@ -1,6 +1,6 @@
 """The soil column CUDA kernels (the ForwardEuler, Heun, heat-only and
-ImplicitEuler rollouts and the segment VJP) against their plain PyTorch
-versions, on a CUDA device. Every test skips where
+ImplicitEuler rollouts and the segment VJP) and the LandModel column kernel
+against their plain PyTorch versions, on a CUDA device. Every test skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports no JAX, so it also runs on a machine with a card and no
@@ -442,3 +442,145 @@ def test_fused_grad_rollout_launches_each_kernel_once_a_segment(cuda):
     assert fs.soil_column_rollout.launches - f0 == steps // inner
     assert fv.soil_column_segment_vjp.launches - b0 == steps // inner
     assert bool(torch.isfinite(g)) and float(g) != 0.0
+
+
+# ---------------------------------------------------------------------------
+# the LandModel column kernel
+# ---------------------------------------------------------------------------
+LAND_GOLDEN = GOLDEN.parent / "land_model.npz"
+
+
+def _land_sim(cells, dtype, device, vegetated=True, nz=20):
+    """The vegetated composition of `examples/land_global.py` with
+    ``DirectSurfaceRunoff.consistent()`` over loam Richards flow (Brooks-
+    Corey, linear conductivity), or the default bare-ground model (heat only,
+    Nz 15, the golden's); hourly series of shortwave and air temperature
+    over latitudes from -60 to 80 degrees."""
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device=device)
+    if not vegetated:
+        return tp.initialize(
+            tp.LandModel(grid=grid), tp.ForwardEuler(),
+            initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
+            input_sources=(tp.FieldInputSource(fields={
+                "surface_shortwave_down": 400.0, "air_temperature": 12.0,
+                "rainfall": 1.0e-7}),))
+    soil = tp.SoilEnergyWaterCarbon(
+        strat=tp.HomogeneousStratigraphy(texture=tp.SoilTexture.preset("loam")),
+        hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq()))
+    model = tp.LandModel(
+        grid=grid, vegetation=tp.VegetationCarbon.consistent_units(), soil=soil,
+        atmosphere=tp.PrescribedAtmosphere(aerodynamics=tp.MoninObukhovAerodynamics()),
+        surface_energy_balance=tp.SurfaceEnergyBalance.consistent(),
+        surface_hydrology=tp.SurfaceHydrology(
+            evapotranspiration=tp.PALADYNCanopyEvapotranspiration.consistent_units(
+                ground_resistance=tp.SoilMoistureResistanceFactor()),
+            surface_runoff=tp.DirectSurfaceRunoff.consistent()))
+    lat = np.linspace(-60.0, 80.0, cells)
+    coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
+    hours = np.arange(0.0, 3 * 86400.0, 3600.0)
+    day = hours[:, None] / 86400.0
+    sw = 900.0 * coslat[None, :] * np.maximum(0.0, np.sin(2 * np.pi * (day - 0.25)))
+    ta = (28.0 * coslat - 8.0)[None, :] + 6.0 * np.sin(2 * np.pi * (day - 0.3))
+    return tp.initialize(
+        model, tp.ForwardEuler(dt=600.0),
+        (tp.TimeSeriesInputSource(times=hours, series={"surface_shortwave_down": sw,
+                                                       "air_temperature": ta}),
+         tp.FieldInputSource(fields={"surface_longwave_down": 330.0, "rainfall": 4.0e-8,
+                                     "windspeed": 3.0})),
+        initializers={"temperature": lambda x, z: (28.0 * coslat - 8.0)[None, :] + 0.0 * z,
+                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+                      "vegetation_area_fraction": 0.5})
+
+
+@pytest.mark.cuda
+def test_land_golden_through_the_kernel(cuda):
+    """`tests/test_goldens.py:40-49` (bare ground over heat only, Nz 15,
+    float64, 48 steps at dt 300) through the land kernel, one launch, at
+    1e-12."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    sim = _land_sim(4, torch.float64, cuda, vegetated=False, nz=15)
+    before = ls.land_column_rollout.launches
+    sim.run(steps=48, dt=300.0)
+    torch.cuda.synchronize()
+    assert ls.land_column_rollout.launches == before + 1
+    golden = np.load(LAND_GOLDEN)
+    for f in golden.files:
+        np.testing.assert_allclose(sim.state[f].cpu().numpy(), golden[f], rtol=1e-12,
+                                   atol=1e-12, err_msg=f)
+
+
+def _land_f32_tolerance(name, plain, start, outside):
+    """Per cell, what the float32 land step may part from its plain version
+    by after one step from the carry ``start``: 1e-4 of the field's largest
+    change in the step plus 16 units of 2^-23 of the value for the soil's
+    energy and saturation (a difference of face fluxes over thin layers) or
+    2 for a surface field (the two round a like change apart); the net
+    assimilation, written afresh each step, 1e-4 of its largest magnitude;
+    the saturation and the pool of the columns ``outside`` (a start-of-step
+    layer outside [0, 1], whose adjustment is of the state's size), 1e-4 of
+    the field's largest magnitude as well."""
+    value = plain.abs()
+    if name == "net_assimilation":
+        return torch.full_like(plain, 1e-4 * float(value.max()))
+    units = 16 if plain.dim() == 2 else 2
+    tol = 1e-4 * float((plain - start).abs().max()) + units * 2.0 ** -23 * value
+    if name in ("saturation_water_ice", "surface_excess_water"):
+        tol = torch.where(outside, torch.clamp(tol, min=1e-4 * float(value.max())), tol)
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_land_kernel_matches_plain(cuda, dtype):
+    """The vegetated consistent composition on 300 columns over 48 steps of
+    600 s along the plain version's trajectory: at each step one kernel step
+    and one plain step from the same carry, float64 within 1e-12 (relative,
+    with a floor of 1e-12 of the field's magnitude: libdevice's
+    transcendentals against torch's), float32 by each field's change in the
+    step (``_land_f32_tolerance``: FMA contraction), so that a zeroed,
+    doubled or reversed tendency fails even where it moves the state by
+    less than 1e-4 of its magnitude; every value finite. The composition's
+    explicit Richards flow is unstable at dt 600 (PERF.md), so two free
+    rollouts part by amplified rounding; one step from a shared carry does
+    not amplify. The one-launch rollout equals the kernel's chain of
+    one-step launches bit for bit."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    sim = _land_sim(300, dtype, cuda)
+    model, st = sim.model, sim.state
+    params = ls.LandParams.of(model, dtype)
+    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
+    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    inputs = land_inputs(model, st, sim.input_sources)
+    root = st.auxiliary["root_fraction"]
+    before = ls.land_column_rollout.launches
+    whole = ls.land_column_rollout(carry, inputs, root, *coords, params, 600.0, 0.0, 48)
+    assert ls.land_column_rollout.launches == before + 1
+    cp, chain = dict(carry), dict(carry)
+    t = (np.float32 if dtype == torch.float32 else np.float64)(0.0)
+    for _ in range(48):
+        k1 = ls.land_column_rollout(cp, inputs, root, *coords, params, 600.0, float(t), 1)
+        p1 = ls.land_column_rollout_plain(cp, inputs, root, *coords, params, 600.0, float(t), 1)
+        chain = {**chain, **ls.land_column_rollout(chain, inputs, root, *coords, params, 600.0,
+                                                   float(t), 1)}
+        s0 = cp["saturation_water_ice"]
+        outside = ((s0 > 1.0) | (s0 < 0.0)).any(0)
+        for name in model.live_carry:
+            a, b = k1[name], p1[name]
+            assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()), name
+            if dtype == torch.float64:
+                torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()),
+                                           msg=name)
+            else:
+                a, b = a.double(), b.double()
+                tol = _land_f32_tolerance(name, b, cp[name].double(), outside)
+                assert bool(((a - b).abs() <= tol).all()), name
+        cp = {**cp, **p1}
+        t = t + t.dtype.type(600.0)
+    torch.cuda.synchronize()
+    for name in model.live_carry:
+        assert torch.equal(whole[name], chain[name]), name

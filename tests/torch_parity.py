@@ -206,3 +206,91 @@ def column_implicit_tridiag(pkg, cells, solver="pcr", nz=30, dtype=torch.float32
         m.ImplicitEuler(dt=900.0, solver=solver), initializers=cfg["inits"],
         boundary_conditions=m.PrescribedSurfaceTemperature(
             cfg["bc_jax"] if pkg == "jax" else cfg["bc_torch"]))
+
+
+# ---------------------------------------------------------------------------
+# LandModel configurations: the same numbers into both packages
+# ---------------------------------------------------------------------------
+def land_model(pkg, grid, composition):
+    """A LandModel of ``composition`` on ``grid`` in package ``pkg`` (``tt``
+    or ``tp``): ``"bare"``, the default without vegetation (the golden's);
+    ``"coupled"``, `tests/test_fused_step.py:201-253`'s (loam, Richards,
+    ``VegetationCarbon.consistent_units()``, the rest default);
+    ``"consistent"``, `examples/land_global.py`'s composition with
+    ``DirectSurfaceRunoff.consistent()`` (`test_parity_robustness.py:105-117`);
+    ``"parity"``, `bench_configs.py:228-267`'s (``VegetationCarbon()``, the
+    rest default); ``"bare_richards"``, the land-step pin's
+    (`test_parity_pins_land_step.py:173-189`)."""
+    m = pkg
+    if composition == "bare":
+        return m.LandModel(grid=grid)
+    loam = m.HomogeneousStratigraphy(texture=m.SoilTexture.preset("loam"))
+    if composition == "bare_richards":
+        return m.LandModel(grid=grid, soil=m.SoilEnergyWaterCarbon(
+            strat=loam, hydrology=m.SoilHydrology(
+                vertical_flow=m.RichardsEq(), hydraulic_properties=m.ConstantSoilHydraulics(
+                    sat_hydraulic_cond=1.0e-6, swrc=m.VanGenuchten(alpha=2.0, n=2.0),
+                    unsat_hydraulic_cond=m.UnsatKLinear()))))
+    soil = m.SoilEnergyWaterCarbon(strat=loam,
+                                   hydrology=m.SoilHydrology(vertical_flow=m.RichardsEq()))
+    if composition == "coupled":
+        return m.LandModel(grid=grid, vegetation=m.VegetationCarbon.consistent_units(), soil=soil)
+    if composition == "parity":
+        return m.LandModel(grid=grid, vegetation=m.VegetationCarbon(), soil=soil)
+    assert composition == "consistent", composition
+    return m.LandModel(
+        grid=grid, vegetation=m.VegetationCarbon.consistent_units(), soil=soil,
+        atmosphere=m.PrescribedAtmosphere(aerodynamics=m.MoninObukhovAerodynamics()),
+        surface_energy_balance=m.SurfaceEnergyBalance.consistent(),
+        surface_hydrology=m.SurfaceHydrology(
+            evapotranspiration=m.PALADYNCanopyEvapotranspiration.consistent_units(
+                ground_resistance=m.SoilMoistureResistanceFactor()),
+            surface_runoff=m.DirectSurfaceRunoff.consistent()))
+
+
+def land_random_state(seed, cells, nz, extremes=True):
+    """Random legal LandModel fields, ``{name: ndarray}``, that reach every
+    clamp and branch of the land step: drained, saturated, over-saturated
+    and spilling soil columns, frozen, thawing and thawed energies, negative,
+    empty and full pools, skin temperatures far from the ground's, empty,
+    partly and over-full canopies, vegetation carbon across both ends of the
+    LAI ramp, fractions below the seed, and inputs across every threshold
+    (cold and hot air, night, calm wind, saturated air). ``extremes``: the
+    last four columns' skin temperatures 120-250 K off in a 12 m/s wind,
+    which reach the skin clamp and the saturation-pressure clip in one step
+    and take the explicit coupling non-finite within a few."""
+    rng = np.random.default_rng(seed)
+    sat = rng.uniform(0.05, 0.95, (nz, cells))
+    q = cells // 8
+    sat[:, 0:q] = 0.0
+    sat[: nz // 2, q:2 * q] = 1.0
+    sat[nz // 2: nz // 2 + 2, 2 * q:3 * q] = rng.uniform(1.0, 1.3, (2, q))
+    sat[-1, 3 * q:4 * q] = 1.2
+    sat[-1, 4 * q:5 * q] = rng.uniform(0.4, 0.65, q)  # about field capacity
+    L_theta = 3.34e8 * np.clip(sat, 0.0, None) * 0.49
+    U = rng.uniform(-1.5e8, 4e7, (nz, cells))
+    U[:, 5 * q:6 * q] = -L_theta[:, 5 * q:6 * q] - rng.uniform(1e6, 1e7, (nz, q))
+    U[:, 6 * q:7 * q] = -0.5 * L_theta[:, 6 * q:7 * q]
+    skin = rng.uniform(-30.0, 60.0, cells)
+    wind = rng.uniform(0.0, 12.0, cells) * rng.choice([1e-3, 1.0], cells)
+    if extremes:
+        skin[-4:] = (250.0, -200.0, 180.0, -120.0)
+        wind[-4:] = 12.0
+    return dict(
+        internal_energy=U, saturation_water_ice=sat,
+        surface_excess_water=rng.choice([-1e-3, 0.0, 2e-3], cells) * rng.uniform(0, 1, cells),
+        skin_temperature=skin,
+        canopy_water=rng.uniform(-1e-4, 2e-3, cells),
+        carbon_vegetation=rng.uniform(0.5, 15.0, cells),
+        vegetation_area_fraction=rng.uniform(0.0, 1.0, cells) * rng.choice([1e-3, 1.0], cells),
+        net_assimilation=rng.uniform(-1e-4, 1e-3, cells),
+        air_temperature=rng.uniform(-10.0, 45.0, cells),
+        surface_shortwave_down=rng.uniform(0.0, 1000.0, cells) * rng.choice([0.0, 1.0], cells),
+        surface_longwave_down=rng.uniform(200.0, 420.0, cells),
+        rainfall=rng.uniform(0.0, 2e-6, cells),
+        windspeed=wind,
+        air_pressure=rng.uniform(8.0e4, 1.05e5, cells),
+        specific_humidity=rng.uniform(0.0, 0.03, cells),
+        CO2=rng.uniform(300.0, 500.0, cells),
+        SAI=rng.uniform(0.0, 2.0, cells),
+        daily_leaf_respiration=rng.uniform(0.0, 0.1, cells))
