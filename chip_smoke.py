@@ -56,10 +56,12 @@ and exits non-zero, and so does a machine without a CUDA device.
 
 ``python3 chip_smoke.py --euler-digest [--package-root DIR]`` instead prints
 the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
-golden, bench and gradient configurations and of the Heun kernel's on
-``heun_forced`` and the Heun + series configuration, and the bench
-``main_path`` rate, for the package in ``DIR`` (default: this checkout).
-Run it on two checkouts in one call to compare their kernels bit for bit.
+golden, bench and gradient configurations, of the Heun kernel's on
+``heun_forced`` and the Heun + series configuration, of the heat-only,
+implicit (each solver), segment-VJP and land kernels' on their full-width
+comparison operands, and the bench ``main_path`` rate, for the package in
+``DIR`` (default: this checkout). Run it on two checkouts in one call to
+compare their kernels bit for bit.
 """
 from __future__ import annotations
 
@@ -216,6 +218,50 @@ def implicit_ops(solver, nz):
     return (IMPLICIT_OPS_PER_LEVEL_STEP * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
             + IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
 H100_FP32_OPS, H100_HBM_BYTES = 67e12, 3.35e12  # published peaks, SXM, 700 W
+
+# one full step (make_fused_step) in experiments/ab_fused_step.py's setup:
+# the bench composition at full width, 56,951 x 30 float32, dt 60 s; the
+# float64 checks on FULL_F64_CELLS columns (Nz 20 ForwardEuler, Nz 15 Heun)
+# along FULL_F64_STEPS steps of the plain trajectory; the main path a loop
+# of FULL_STEPS calls; each call timed FULL_TIMED times
+FULL_F64_CELLS, FULL_F64_STEPS, FULL_STEPS, FULL_TIMED = 300, 3, 20, 30
+# run through the process modules: the bench soil with a forcing, which no
+# kernel takes, at full width
+RUN_MODULE_STEPS = 200
+# Operations per level of one full step (csrc/soil_full_step.cuh), counted
+# as FWD_OPS: stored_rhs's conductivities from the stored saturation and
+# liquid fraction (fractions 6, thermal conductivity 8, and Level's centre
+# K 17, or the linear K_sat theta_w / (theta_w + theta_i + theta_a), 4);
+# the heat flux and energy update 9 and the Darcy flux and water update 12
+# (FWD_OPS's); the face K stored, 1; the trailing closure: sweeps 14,
+# Level without the centre K 37, Head 17. Heun: stored_rhs with its
+# tendencies kept (the Euler update's multiply and add for U and sat off),
+# the stage y = x + f dt (a multiply and an add for U and sat), closure_rhs
+# at the stage (FWD_OPS, HEAT_OPS for heat only) with the corrector's mean
+# (two more for U and sat), then the trailing closure.
+STORED_OPS = {"richards": 6 + 8 + 17, "heat": 6 + 8 + 4}
+FULL_CLOSURE_OPS = {"richards": 14 + 37 + 17, "heat": 37}
+FULL_RHS_OPS = {"richards": 9 + 12 + 1, "heat": 9 + 1}
+FULL_STAGE_OPS = {"richards": FWD_OPS_PER_LEVEL_STEP, "heat": HEAT_OPS_PER_LEVEL_STEP}
+
+
+def full_step_ops(stepper, physics, nz):
+    """Operations of one full step of one column."""
+    per_level = STORED_OPS[physics] + FULL_RHS_OPS[physics] + FULL_CLOSURE_OPS[physics]
+    if stepper == "heun":  # the stage's closure_rhs and the corrector's mean
+        per_level += FULL_STAGE_OPS[physics] + 2 * (2 if physics == "richards" else 1)
+    return per_level * nz
+
+
+def full_step_bytes(physics, nz, cells, itemsize, top_values):
+    """Bytes one full step must move: it reads U, sat, T, liq (and psi, S)
+    and the top temperatures once, and writes U, dU, T, liq, K_face, the
+    ground temperature (and sat, dsat, psi, S, dS, the water table) once."""
+    if physics == "richards":
+        values = (5 * nz + 1) + (7 * nz + (nz + 1) + 4)
+    else:
+        values = 4 * nz + (4 * nz + (nz + 1) + 1)
+    return (values * cells + top_values) * itemsize
 
 # the LandModel: land_coupled_n145 (bench_configs.py:228-267) at synthetic
 # latitudes from -60 to 80 degrees (the N145 mask is absent), 10 simulated
@@ -467,7 +513,7 @@ def ptxas_summary(report: str) -> dict:
     "series": ...}, ...}`` from the build's ptxas ``-v`` report, whose part
     of each instantiation is headed ``== <entry point>``; a rollout entry
     holds a table and a series kernel, the VJP's its kernel and the
-    reduction, the land entry its one kernel."""
+    reduction, the land and full-step entries their one kernel."""
     out, entry, key = {}, None, None
     for ln in report.splitlines():
         if ln.startswith("== "):
@@ -482,6 +528,8 @@ def ptxas_summary(report: str) -> dict:
                 key = "series" if flags.group(1) == "1" else "table"
             elif "land_column_rollout_kernel" in name:
                 key = "land"
+            elif "full_step_kernel" in name:
+                key = "full_step"
             else:
                 key = "reduce" if "reduce" in name else "vjp"
             out[entry][key] = ""
@@ -765,6 +813,76 @@ def vjp_operands(tp, fs, sim, seed):
     return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype), cts
 
 
+def full_sim(tp, cells, nz, dtype, stepper, physics, forcings=None):
+    """The bench top temperature 5 sin(2 pi t / 86400) as f(t) over the
+    bench soil (``physics="richards"``) or the default heat-only model, from
+    varied columns (`tests/test_goldens.py:20-36`'s initial temperature,
+    saturation min(1, 0.6 - 0.05 z), and 0.8 for heat only), dt 60 s."""
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device="cuda")
+    model = (tp.SoilModel(grid=grid, soil=soil(tp)) if physics == "richards"
+             else tp.SoilModel(grid=grid))
+    ts = tp.Heun(dt=BENCH_DT) if stepper == "heun" else tp.ForwardEuler(dt=BENCH_DT)
+    return tp.initialize(
+        model, ts, initializers={
+            "temperature": lambda x, z: 2.0 * np.sin(2 * np.pi * x) - 0.05 * z,
+            "saturation_water_ice": (lambda x, z: np.minimum(1.0, 0.6 - 0.05 * z))
+            if physics == "richards" else 0.8},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(
+            lambda t: 5.0 * torch.sin(2 * torch.pi * t / 86400.0)), forcings=forcings)
+
+
+def check_full_step(name, k_state, p_state, rtol, dt):
+    """Every prognostic, tendency and auxiliary of the kernel's step against
+    the plain version's, and the clock. float64 (``rtol`` <= 1e-9): each
+    element within ``rtol`` of it with a floor of ``rtol`` times the leaf's
+    scale; float32: the largest error within ``rtol`` of the scale. The
+    scale is the leaf's largest magnitude; a tendency's is at least its
+    prognostic's over dt, the precision the step gives the prognostic (a
+    tendency is a difference of nearly equal fluxes, whose rounding is that
+    of the fluxes)."""
+    errs = {}
+    groups = ("prognostic", "tendencies", "auxiliary")
+    for g in groups:
+        if sorted(getattr(k_state, g)) != sorted(getattr(p_state, g)):
+            raise AssertionError(f"{name}: {g} leaves {sorted(getattr(k_state, g))}")
+        for key, b in getattr(p_state, g).items():
+            a = getattr(k_state, g)[key]
+            if tuple(a.shape) != tuple(b.shape) or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: {g}/{key} of shape {tuple(a.shape)} or "
+                                     f"non-finite")
+            scale = float(b.abs().max())
+            if g == "tendencies":
+                scale = max(scale, float(p_state.prognostic[key].abs().max()) / dt)
+            d = (a - b).abs()
+            errs[f"{g}/{key}"] = float(d.max())
+            bad = (bool((d > rtol * b.abs() + rtol * scale).any()) if rtol <= 1e-9
+                   else float(d.max()) > rtol * scale)
+            if bad:
+                raise AssertionError(f"{name} kernel vs plain {g}/{key}: max abs err "
+                                     f"{float(d.max())}, scale {scale}")
+    if (float(k_state.clock.time) != float(p_state.clock.time)
+            or int(k_state.clock.iteration) != int(p_state.clock.iteration)):
+        raise AssertionError(f"{name}: clock {k_state.clock.time} vs {p_state.clock.time}")
+    return errs
+
+
+def cuda_ms_each(fn, reps):
+    """CUDA-event time of each of ``reps`` calls of ``fn()`` after one
+    warm-up, in ms."""
+    fn()
+    out = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
 def bound_ms(ops, nbytes):
     """The least time the card could take: the larger of ops over the FP32
     peak and bytes over the HBM rate, and which of the two it is."""
@@ -803,11 +921,16 @@ def main():
     from terrarium_tpu_torch.timesteppers.integrator import (advance, clock_times, land_inputs,
                                                              top_temperature_table)
 
+    KERNELS = (fs.soil_column_rollout, fs.soil_column_heun_rollout,
+               fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
+               fv.soil_column_segment_vjp, ls.land_column_rollout, fs.soil_column_full_step)
+
     def reset_counts():
-        for fn in (fs.soil_column_rollout, fs.soil_column_heun_rollout,
-                   fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
-                   fv.soil_column_segment_vjp, ls.land_column_rollout):
+        for fn in KERNELS:
             fn.launches = 0
+
+    def launched():
+        return {fn.__name__: fn.launches for fn in KERNELS if fn.launches}
 
     # ---- build: one nvcc per source, in parallel
     t0 = time.perf_counter()
@@ -1403,6 +1526,104 @@ def main():
           central_difference=g_fd, rel_err_vs_fd=rel_fd,
           vjp_segment_ms=seg_ms, fwd_segment_ms=fwd_seg_ms, card=card)
 
+    # ---- one full step (make_fused_step): the kernel against the plain
+    # version (the module step) on every leaf, float64 along the plain
+    # trajectory and float32 at full width, each stepper and physics
+    full64 = {}
+    for stepper, nz in (("euler", 20), ("heun", 15)):
+        sim = full_sim(tp, FULL_F64_CELLS, nz, torch.float64, stepper, "richards")
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=BENCH_DT)
+        state = sim.state
+        for i in range(FULL_F64_STEPS):
+            plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
+                                                   state, BENCH_DT)
+            errs = check_full_step(f"full step {stepper} f64", fused(state), plain, 1e-12,
+                                   BENCH_DT)
+            full64[f"{stepper}:{i}"] = max(errs.values())
+            state = plain
+    full32 = {}
+    for stepper, physics in (("euler", "richards"), ("heun", "richards"), ("euler", "heat"),
+                             ("heun", "heat")):
+        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, stepper, physics)
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=BENCH_DT)
+        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
+                                               sim.state, BENCH_DT)
+        full32[f"{stepper}:{physics}"] = check_full_step(
+            f"full step {stepper} {physics} f32", fused(sim.state), plain, F32_REL_TOL,
+            BENCH_DT)
+        del plain
+    # timing, the bench composition at full width (ab_fused_step.py's setup)
+    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
+    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                               dt=BENCH_DT)
+    call_ms = cuda_ms_each(lambda: fused(sim.state), FULL_TIMED)
+    fn, (fargs, keep), _ = fs.full_step_operands(sim.model, "euler", "richards", sim.ctx,
+                                                 sim.state, BENCH_DT)
+    full_kernel_ms = cuda_ms_each(lambda: fn(*fargs), FULL_TIMED)
+    full_plain_ms = cuda_ms(lambda: fs.soil_column_full_step_plain(
+        sim.model, sim.timestepper, sim.ctx, (), sim.state, BENCH_DT), reps=3, warmup=True)
+    full_b = bound_ms(full_step_ops("euler", "richards", BENCH_NZ) * BENCH_CELLS,
+                      full_step_bytes("richards", BENCH_NZ, BENCH_CELLS, 4, keep[1].numel()))
+    del keep
+    # the full-step path: FULL_STEPS calls of fused, one launch each
+    reset_counts()
+    state = sim.state
+    for _ in range(FULL_STEPS):
+        state = fused(state)
+    torch.cuda.synchronize()
+    full_launches = fs.soil_column_full_step.launches
+    if launched() != {"soil_column_full_step": FULL_STEPS}:
+        raise AssertionError(f"{FULL_STEPS} full steps launched {launched()}")
+    ref = sim.state
+    for _ in range(FULL_STEPS):
+        ref = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), ref,
+                                             BENCH_DT)
+    loop_err = check_close("full step loop", [state[n] for n in sim.model.live_carry],
+                           [ref[n] for n in sim.model.live_carry], F32_REL_TOL)
+    if int(state.clock.iteration) != FULL_STEPS:
+        raise AssertionError(f"full-step loop: clock iteration {int(state.clock.iteration)}")
+    full_ms = float(np.median(full_kernel_ms))
+    phase("full_step", cells=BENCH_CELLS, nz=BENCH_NZ, f64_cells=FULL_F64_CELLS,
+          f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, f64_max_abs_err=full64,
+          rel_tol=F32_REL_TOL, f32_max_abs_err=full32, loop_steps=FULL_STEPS,
+          loop_launches=full_launches, loop_max_abs_err=loop_err,
+          fused_call_ms_median=float(np.median(call_ms)), fused_call_ms=call_ms,
+          kernel_ms_median=full_ms, kernel_ms=full_kernel_ms, plain_ms=full_plain_ms,
+          bound_ms=full_b[0], bound_by=full_b[1],
+          rollout_step_share_ms=ms / COMPARE_STEPS, card=card)
+    del sim, state, ref, fused
+
+    # ---- run through the process modules: the bench soil with a forcing,
+    # which no kernel takes, at full width on the card, held to timestep()
+    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
+                   forcings={"internal_energy": lambda state, grid: 2.0})
+    other = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
+                     forcings={"internal_energy": lambda state, grid: 2.0})
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=RUN_MODULE_STEPS)
+    torch.cuda.synchronize()
+    modules_s = time.perf_counter() - t0
+    if launched():
+        raise AssertionError(f"run through the modules launched {launched()}")
+    if sim.state.internal_energy.device.type != "cuda":
+        raise AssertionError(f"run left the card: {sim.state.internal_energy.device}")
+    other.model.closure(other.state, other.ctx)
+    for _ in range(RUN_MODULE_STEPS):
+        other.timestep(BENCH_DT)
+    torch.cuda.synchronize()
+    modules_err = check_close("run through the modules vs timestep",
+                              [sim.state[n] for n in sim.model.live_carry],
+                              [other.state[n] for n in sim.model.live_carry], F32_REL_TOL)
+    if sim.iteration != RUN_MODULE_STEPS:
+        raise AssertionError(f"run through the modules: clock iteration {sim.iteration}")
+    phase("run_modules", cells=BENCH_CELLS, nz=BENCH_NZ, steps=RUN_MODULE_STEPS,
+          seconds=modules_s, cells_steps_per_s=BENCH_CELLS * RUN_MODULE_STEPS / modules_s,
+          launches=launched(), rel_tol=F32_REL_TOL, max_abs_err=modules_err, card=card)
+    del sim, other
+
     # bounds: the bytes each function must move (the rollout reads its carry
     # and BC table and writes its carry; the VJP reads the carry, the BC
     # table and the output cotangents and writes the input and parameter
@@ -1464,7 +1685,16 @@ def main():
         "ms": land_ms, "plain_ms": land_plain_ms, "bound_ms": land_b[0],
         "bound_by": land_b[1], "library_ms": None,
         "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent, series, "
-                 f"{COMPARE_STEPS} steps"}]}), flush=True)
+                 f"{COMPARE_STEPS} steps"}, {
+        "name": "soil_column_full_step", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_full_step.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:152",
+        "launches": full_launches, "max_abs_err": max(full32["euler:richards"].values()),
+        "ms": full_ms, "plain_ms": full_plain_ms, "bound_ms": full_b[0],
+        "bound_by": full_b[1], "library_ms": None,
+        "fused_call_ms": float(np.median(call_ms)),
+        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, ForwardEuler, one full step"}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1485,10 +1715,16 @@ def euler_digest(root: pathlib.Path):
     import terrarium_tpu_torch as tp
     from terrarium_tpu_torch.ops import cuda_build
     from terrarium_tpu_torch.ops import fused_step as fs
-    from terrarium_tpu_torch.timesteppers.integrator import clock_times, top_temperature_table
+    from terrarium_tpu_torch.ops import fused_vjp as fv
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import (clock_times, land_inputs,
+                                                             top_temperature_table)
+
+    def digest(tensors):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)).hexdigest()
 
     t0 = time.perf_counter()
-    cuda_build.build("soil_column_rollout")
+    cuda_build.build("soil_column_rollout", "soil_column_segment_vjp", "land_column_rollout")
     build_s = time.perf_counter() - t0
     digests = {}
     for case, sim, steps in (("golden_f64_nz20", golden_sim(tp), 120),
@@ -1520,6 +1756,36 @@ def euler_digest(root: pathlib.Path):
     digests["heun_series_f32_nz30"] = hashlib.sha256(b"".join(
         t.cpu().numpy().tobytes() for t in out)).hexdigest()
     del sim, carry, bc, out
+    # the heat-only, implicit, segment-VJP and land kernels on the operands
+    # of their full-width comparisons
+    sim = heat_sim(tp, HEAT_CELLS, torch.float32)
+    carry, bc, coords, params = series_operands(fs, sim, COMPARE_STEPS)
+    digests["heat_series_f32_nz30"] = digest(
+        fs.soil_column_heat_rollout(*carry, bc, *coords, params, HEAT_DT)[:1])
+    del sim, carry, bc
+    for solver in SOLVERS:
+        sim = implicit_sim(tp, solver)
+        g = sim.model.grid
+        coords = tuple(getattr(g, n)[:, 0].contiguous()
+                       for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+        carry = tuple(sim.state.prognostic[n].contiguous() for n in sim.model.live_carry)
+        table = top_temperature_table(sim.bcs["temperature"]["top"].value, clock_times(
+            sim.state.clock.time, IMPLICIT_DT, COMPARE_STEPS)[:-1], g)
+        digests[f"implicit_{solver}_f32_nz30"] = digest(fs.soil_column_implicit_rollout(
+            *carry, table, *coords, fs.ColumnParams.of(sim.model, g.dtype), IMPLICIT_DT,
+            solver=solver))
+        del sim, carry, table
+    gsim = grad_sim(tp, GRAD_CELLS, torch.float32)
+    ops = vjp_operands(tp, fs, gsim, seed=11)
+    digests["segment_vjp_f32_nz20"] = digest(
+        fv.soil_column_segment_vjp(*ops[0], ops[1], *ops[2], ops[3], GRAD_DT, *ops[4]))
+    del gsim, ops
+    sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent")
+    carry, inputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    out = ls.land_column_rollout(carry, inputs, root, *coords, params, LAND_DT,
+                                 float(sim.state.clock.time), COMPARE_STEPS)
+    digests["land_consistent_f32_nz20"] = digest([out[k] for k in sorted(out)])
+    del sim, carry, inputs, out
     sim = bench_sim(tp)
     sim.run(steps=COMPARE_STEPS)
     torch.cuda.synchronize()

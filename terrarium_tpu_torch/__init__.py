@@ -7,11 +7,13 @@ or ImplicitEuler (tridiagonal solves by PCR or Thomas), with the top
 temperature given as a value, ``f(t)`` or an input variable fed by
 ``FieldInputSource`` / ``TimeSeriesInputSource``; and the coupled
 :class:`LandModel` (atmosphere, surface energy balance, surface hydrology,
-PALADYN vegetation over that soil) stepped by ForwardEuler.
-``Simulation.run`` goes through hand-written CUDA column kernels on an NVIDIA
-Hopper card and through their plain PyTorch version on the CPU
-(``ops/fused_step.py``, ``ops/land_step.py``); gradients through a CUDA
-segment-VJP kernel (``timesteppers/fused_grad.py``).
+PALADYN vegetation over that soil). ``Simulation.run`` goes through
+hand-written CUDA column kernels on an NVIDIA Hopper card and through their
+plain PyTorch version on the CPU (``ops/fused_step.py``, ``ops/land_step.py``)
+for the compositions those take, and through the process modules for any
+other (other BCs, forcings, other steppers); one full step of the whole
+state through a CUDA kernel is ``ops/fused_step.make_fused_step``; gradients
+through a CUDA segment-VJP kernel (``timesteppers/fused_grad.py``).
 
 Tensors are ``(Nz, cells)`` with ``k = 0`` the bottom layer, as in the JAX
 package; the grid carries the dtype and device. The package imports torch
@@ -28,7 +30,7 @@ from .state import Clock, State, build_state, reset_tendencies
 from .grids.spacing import ExponentialSpacing, UniformSpacing
 from .grids.vertical import VerticalGrid
 from .grids.column import ColumnGrid
-from .ops.bcs import Dirichlet, Flux, InputRef, Neumann, merge_boundary_conditions
+from .ops.bcs import Dirichlet, Flux, InputRef, Neumann, NoFlux, merge_boundary_conditions
 from .processes.base import Context
 from .processes.soil.stratigraphy import (ConstantSoilCarbonDensity, ConstantSoilPorosity,
                                           HomogeneousStratigraphy, SoilTexture, SoilVolume,
@@ -58,7 +60,9 @@ from .processes.vegetation.vegetation import (
     FieldCapacityLimitedPAW, LUEPhotosynthesis, MedlynStomatalConductance,
     PALADYNAutotrophicRespiration, PALADYNCarbonDynamics, PALADYNPhenology,
     PALADYNVegetationDynamics, StaticExponentialRootDistribution, VegetationCarbon)
-from .models.boundary_conditions import (GroundHeatFlux, InfiltrationFlux,
+from .models.boundary_conditions import (FreeDrainage, GeothermalHeatFlux, GroundHeatFlux,
+                                         ImpermeableBoundary, InfiltrationFlux,
+                                         PrescribedBottomTemperature,
                                          PrescribedSurfaceTemperature)
 from .models.initializers import DefaultInitializer
 from .models.soil_model import SoilModel

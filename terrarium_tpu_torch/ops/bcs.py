@@ -23,7 +23,7 @@ import torch
 
 from ..utils.utils import merge_recursive
 
-__all__ = ["InputRef", "Dirichlet", "Neumann", "Flux", "get_bc", "resolve_bc_value",
+__all__ = ["InputRef", "Dirichlet", "Neumann", "Flux", "NoFlux", "get_bc", "resolve_bc_value",
            "merge_boundary_conditions", "bc_call_arity"]
 
 
@@ -56,6 +56,11 @@ class Flux:
     """Flux boundary condition, positive in +z."""
 
     value: Any
+
+
+def NoFlux() -> Flux:
+    """Zero-flux BC (`ops/bcs.py:73`)."""
+    return Flux(0.0)
 
 
 FieldBCs = Dict[str, Dict[str, Any]]  # {var_name: {"top": bc, "bottom": bc}}

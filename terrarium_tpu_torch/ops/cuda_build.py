@@ -41,6 +41,13 @@ INSTANTIATIONS = {
           for dtype, nz in ((_F64, 16), (_F32, 30))),
     ],
     "soil_column_segment_vjp": [((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)],
+    # one full step (make_fused_step): the bench width at float32 for each
+    # stepper and physics, and the float64 checks against the plain version
+    "soil_column_full_step": [
+        (("euler", "richards"), _F32, 30), (("euler", "richards"), _F64, 20),
+        (("euler", "heat"), _F32, 30), (("heun", "heat"), _F32, 30),
+        (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
+    ],
     # the LandModel: the bare-ground golden at Nz 15 (heat-only soil), the
     # vegetated bench composition (Richards over Brooks-Corey and linear
     # conductivity) at Nz 20

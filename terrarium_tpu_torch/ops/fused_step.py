@@ -1,5 +1,6 @@
-"""The soil column rollout: hand-written CUDA kernels, their plain PyTorch
-version and the wrappers that pick between them by device.
+"""The soil column rollout and the full soil step: hand-written CUDA
+kernels, their plain PyTorch versions and the wrappers that pick between them
+by device.
 
 A rollout applies ``pre_closure_step`` ``n`` times to the live carry of a
 :class:`SoilModel` and returns the new carry. It replaces
@@ -28,6 +29,14 @@ without its window). The CUDA source is ``csrc/soil_column_rollout.cu``
 On CPU tensors a wrapper runs :func:`soil_column_rollout_plain`; on CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
 wrapper's ``launches``.
+
+:func:`make_fused_step` replaces ``terrarium_tpu/ops/fused_step.py::
+make_fused_step``: one full ``timestepper.step`` (ForwardEuler or Heun, heat
++ Richards or heat only), every leaf of the state in and out, a launch of
+``csrc/soil_column_full_step.cu`` (column code ``csrc/soil_full_step.cuh``)
+through :func:`soil_column_full_step`, whose plain version
+:func:`soil_column_full_step_plain` is the port's own module step on a copy
+of the state.
 """
 from __future__ import annotations
 
@@ -39,23 +48,31 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .bcs import Dirichlet, InputRef, bc_call_arity
 from .fastpow import fast_pow, pow_code
 from .tridiag import SOLVERS, diffusion_rows
+from ..io.input_sources import FieldInputSource
 from ..models.soil_model import SoilModel
 from ..processes.soil.energy import SoilEnergyBalance
 from ..processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSURFEX,
-                                         UnsatKVanGenuchten)
+                                         UnsatKLinear, UnsatKVanGenuchten)
 from ..processes.soil.hydrology import (NoFlow, RichardsEq, SoilHydrology, pool_drainage,
                                         saturation_sweeps)
 from ..processes.soil.soil_coupled import SoilEnergyWaterCarbon
 from ..processes.soil.stratigraphy import ConstantSoilCarbonDensity, HomogeneousStratigraphy
 from ..processes.soil.swrc import VanGenuchten, one_minus_eps
 from ..processes.soil.thermal import FreeWater, InverseQuadratic, SoilThermalProperties
+from ..state import Clock, State
+from ..timesteppers.implicit import ImplicitEuler
+from ..timesteppers.stepping import ForwardEuler, Heun
 from ..utils.utils import safediv
 
 __all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "soil_flow", "clock_times",
+           "top_temperature_value", "top_temperature_table", "STEPPERS",
            "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
-           "soil_column_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS"]
+           "soil_column_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS",
+           "make_fused_step", "full_step_scheme", "full_step_operands", "soil_column_full_step",
+           "soil_column_full_step_plain"]
 
 _NAME = "soil_column_rollout"  # csrc/soil_column_rollout.cu
 
@@ -289,6 +306,48 @@ def clock_times(t0: torch.Tensor, dt: float, n: int) -> np.ndarray:
         out[i] = t
         t = t + step
     return out
+
+
+def top_temperature_table(value, times: np.ndarray, grid) -> torch.Tensor:
+    """The top-temperature BC evaluated at each of ``times``: ``(n,)`` when
+    the value is the same for every cell, else ``(n, cells)`` (an expanded
+    view when the value does not change in time)."""
+    n = times.shape[0]
+    if isinstance(value, str):
+        raise ValueError("an input variable as the top temperature is read from the state "
+                         "and its sources (advance), not tabulated from a value")
+    if callable(value):
+        if bc_call_arity(value) >= 2:
+            raise ValueError("the fused rollout evaluates BCs as f(t); f(t, state) "
+                             "needs the state inside the kernel")
+        t = torch.as_tensor(times, device=grid.device)[:, None]
+        v = torch.as_tensor(value(t), dtype=grid.dtype, device=grid.device)
+        if v.dim() == 2 and v.shape[1] == 1:
+            v = v[:, 0]
+        if v.dim() == 2 or (v.dim() == 1 and v.shape[0] != n):
+            return torch.broadcast_to(v, (n, grid.cells)).contiguous()
+        return torch.broadcast_to(v, (n,)).contiguous()
+    v = torch.as_tensor(value, dtype=grid.dtype, device=grid.device)
+    if v.dim() == 0:
+        return v.expand(n).contiguous()
+    if tuple(v.shape) != (grid.cells,):
+        raise ValueError(f"top temperature BC of shape {tuple(v.shape)}; "
+                         f"expected a scalar or ({grid.cells},)")
+    return v[None, :].expand(n, grid.cells)
+
+
+def top_temperature_value(bcs):
+    """The value of the Dirichlet top temperature, the only BC the soil
+    column kernels take; ``ValueError`` for any other BC."""
+    top = (bcs or {}).get("temperature", {}).get("top")
+    if not isinstance(top, Dirichlet):
+        raise ValueError("the fused soil rollout needs a Dirichlet top temperature "
+                         "(PrescribedSurfaceTemperature)")
+    extra = {(v, s) for v, sides in (bcs or {}).items() for s in sides} - {("temperature", "top")}
+    if extra:
+        raise ValueError(f"the fused soil rollout supports no other BCs, got {sorted(extra)}")
+    return top.value
+
 
 
 # ---------------------------------------------------------------------------
@@ -586,3 +645,187 @@ ROLLOUTS = {("euler", "richards"): soil_column_rollout,
             ("heun", "richards"): soil_column_heun_rollout,
             ("euler", "heat"): soil_column_heat_rollout,
             ("implicit", "richards"): soil_column_implicit_rollout}
+
+
+# ---------------------------------------------------------------------------
+# one full step (make_fused_step)
+# ---------------------------------------------------------------------------
+_FULL_NAME = "soil_column_full_step"  # csrc/soil_column_full_step.cu
+_FULL_IN = ("U", "sat", "S", "T", "liq", "psi", "top")
+_FULL_OUT = ("U_out", "sat_out", "S_out", "dU", "dsat", "dS", "T_out", "liq_out", "psi_out",
+             "K_face", "ground_T", "water_table")
+
+
+class _CFullStepIO(ctypes.Structure):
+    """C layout of ``SoilFullStepIO`` (``csrc/soil_full_step.cuh``)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _FULL_IN]
+                + [("top_row_stride", ctypes.c_longlong), ("top_cell_stride", ctypes.c_longlong)]
+                + [(n, ctypes.c_void_p) for n in _FULL_OUT])
+
+
+_FULL_ARGTYPES = ([ctypes.POINTER(_CFullStepIO)] + [ctypes.c_void_p] * 4
+                  + [ctypes.POINTER(_CParams), ctypes.c_double, ctypes.c_longlong,
+                     ctypes.c_void_p])
+#: the name of each stepper class the column code runs
+STEPPERS = {ForwardEuler: "euler", Heun: "heun", ImplicitEuler: "implicit"}
+
+
+def full_step_scheme(model, timestepper, ctx, input_sources=()) -> tuple:
+    """``(stepper, physics)`` of the full-step kernel that runs this
+    composition: a :class:`SoilModel` with heat + Richards flow (Van
+    Genuchten, Mualem) or heat only (linear conductivity), stepped by
+    ``ForwardEuler`` or ``Heun``, whose only BC is a Dirichlet top
+    temperature given as a value, a ``(cells,)`` tensor, ``f(t)`` or an
+    input variable, with static ``FieldInputSource`` sources and no
+    forcings. Raises ``ValueError`` for any other, by type;
+    ``Simulation.timestep`` steps all of them."""
+    where = "; Simulation.timestep steps it through the process modules"
+    for src in input_sources:
+        if hasattr(src, "times"):
+            raise ValueError("make_fused_step supports only static input sources" + where)
+        if type(src) is not FieldInputSource:
+            raise ValueError(f"make_fused_step takes FieldInputSource, not "
+                             f"{type(src).__name__}" + where)
+    if getattr(ctx, "forcings", None):
+        raise ValueError("make_fused_step takes no forcings" + where)
+    if type(model) is not SoilModel:
+        raise ValueError(f"make_fused_step runs a SoilModel, not {type(model).__name__} "
+                         f"(the LandModel full step is still to port)" + where)
+    stepper = STEPPERS.get(type(timestepper))
+    if stepper not in ("euler", "heun"):
+        raise ValueError(f"make_fused_step runs ForwardEuler or Heun, not "
+                         f"{type(timestepper).__name__}" + where)
+    try:
+        value = top_temperature_value(ctx.bcs)
+        physics = kernel_physics(model)
+    except ValueError as e:
+        raise ValueError(f"make_fused_step: {e}" + where) from e
+    if isinstance(value, InputRef) or (callable(value) and not isinstance(value, str)
+                                       and bc_call_arity(value) >= 2):
+        raise ValueError("make_fused_step takes the top temperature as a value, f(t) or an "
+                         "input variable" + where)
+    if physics == "heat" and type(
+            model.soil.hydrology.hydraulic_properties.unsat_hydraulic_cond) is not UnsatKLinear:
+        raise ValueError("make_fused_step runs the heat-only model with UnsatKLinear "
+                         "conductivity" + where)
+    return stepper, physics
+
+
+def make_fused_step(model, timestepper, ctx, input_sources=(), *, dt: float,
+                    block_cells: int = 2048):
+    """``fused(state) -> state``: one full ``timestepper.step`` of ``model``
+    with the sources given (as ``ForwardEuler.step`` / ``Heun.step``, without
+    ``Simulation.timestep``'s extra ``compute_auxiliary``), returned as a
+    new :class:`State` with every prognostic, tendency and auxiliary of the
+    step and the clock advanced; ``state`` is left as it is. On CUDA tensors
+    one launch of the full-step kernel, on CPU tensors its plain version
+    (:func:`soil_column_full_step`). ``block_cells`` is taken for the JAX
+    package's signature and is unused: the kernel runs one column a thread,
+    64 threads a block. Raises ``ValueError`` at once for a composition the
+    kernel does not run (:func:`full_step_scheme`)."""
+    full_step_scheme(model, timestepper, ctx, input_sources)
+
+    def fused(state: State) -> State:
+        return soil_column_full_step(model, timestepper, ctx, input_sources, state, dt)
+
+    return fused
+
+
+def soil_column_full_step_plain(model, timestepper, ctx, input_sources, state: State,
+                                dt: float) -> State:
+    """The plain version of the full step: the port's own
+    ``timestepper.step`` through the process modules, on a copy of
+    ``state``."""
+    out = state.copy()
+    timestepper.step(model, out, ctx, input_sources, dt)
+    return out
+
+
+def _full_top(model, ctx, state: State, dt: float) -> torch.Tensor:
+    """The top temperature at the state's clock time and one step later,
+    ``(2,)`` or ``(2, cells)`` (rows may have stride 0)."""
+    value = top_temperature_value(ctx.bcs)
+    grid = model.grid
+    if isinstance(value, str):  # an input variable, which static sources do not change
+        v = state.inputs.get(value)
+        if v is None or tuple(v.shape) != (grid.cells,):
+            raise ValueError(f"the top temperature {value!r} must be an XY input variable "
+                             f"of the state")
+        return v[None, :].expand(2, grid.cells)
+    return top_temperature_table(value, clock_times(state.clock.time, dt, 1), grid)
+
+
+def full_step_operands(model, stepper: str, physics: str, ctx, state: State, dt: float):
+    """What one launch of the full-step kernel takes for ``state`` on the
+    card: ``(fn, args, out)``, the entry point, its arguments and the
+    output tensors it fills (keyed as ``SoilFullStepIO``'s fields)."""
+    U = state.prognostic["internal_energy"]
+    heat = physics == "heat"
+    grid = model.grid
+    nz, cells = U.shape
+    names = {"U": "internal_energy", "sat": "saturation_water_ice", "T": "temperature",
+             "liq": "liquid_water_fraction"}
+    if not heat:
+        names.update(S="surface_excess_water", psi="pressure_head")
+    fields = {k: state[n].contiguous() for k, n in names.items()}
+    top = _full_top(model, ctx, state, dt).to(U.dtype)
+    coords = tuple(torch.as_tensor(a, device=U.device).to(U.dtype) for a in (
+        grid.vertical.dz, grid.vertical.dz_faces, grid.vertical.z_centers,
+        grid.vertical.z_faces))
+    for t in (*fields.values(), top, *coords):
+        if t.dtype != U.dtype or t.device != U.device:
+            raise ValueError(f"the full step's fields, top temperature and coordinates take "
+                             f"one dtype and device; got {t.dtype} on {t.device}")
+    out = {k: torch.empty_like(U) for k in ("U_out", "dU", "T_out", "liq_out")}
+    out["K_face"] = torch.empty((nz + 1, cells), dtype=U.dtype, device=U.device)
+    out["ground_T"] = torch.empty(cells, dtype=U.dtype, device=U.device)
+    if not heat:
+        out.update({k: torch.empty_like(U) for k in ("sat_out", "dsat", "psi_out")})
+        out.update({k: torch.empty(cells, dtype=U.dtype, device=U.device)
+                    for k in ("S_out", "dS", "water_table")})
+    params = ColumnParams.of(model, U.dtype)
+    if heat:  # the linear conductivity of the face K that compute_auxiliary writes
+        params = dataclasses.replace(params, K_sat=_number(
+            model.soil.hydrology.hydraulic_properties.sat_hydraulic_cond))
+    io = _CFullStepIO(**{k: v.data_ptr() for k, v in {**fields, **out}.items()},
+                      top=top.data_ptr(), top_row_stride=top.stride(0),
+                      top_cell_stride=top.stride(1) if top.dim() == 2 else 0)
+    fn = cuda_build.entry(_FULL_NAME, U.dtype, nz, _FULL_ARGTYPES, tags=(stepper, physics))
+    # the inputs ride along in args, so that they outlive every launch of it
+    args = (ctypes.byref(io), *(c.data_ptr() for c in coords), ctypes.byref(_CParams.of(params)),
+            float(dt), cells, torch.cuda.current_stream(U.device).cuda_stream)
+    return fn, (args, (fields, top, coords, io)), out
+
+
+def soil_column_full_step(model, timestepper, ctx, input_sources, state: State,
+                          dt: float) -> State:
+    """One full step of ``state`` (see :func:`make_fused_step`) as a new
+    :class:`State`: on CPU tensors :func:`soil_column_full_step_plain`, on
+    CUDA tensors one launch of the full-step kernel (or an error)."""
+    stepper, physics = full_step_scheme(model, timestepper, ctx, input_sources)
+    U = state.prognostic["internal_energy"]
+    if U.device.type == "cpu":
+        return soil_column_full_step_plain(model, timestepper, ctx, input_sources, state, dt)
+    if U.device.type != "cuda":
+        raise ValueError(f"the full soil step runs on cpu or cuda, not {U.device}")
+    fn, (args, _keep), out = full_step_operands(model, stepper, physics, ctx, state, dt)
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"full soil step kernel launch failed: cudaError {err}")
+    soil_column_full_step.launches += 1
+    new = state.copy()
+    new.prognostic["internal_energy"] = out["U_out"]
+    new.tendencies["internal_energy"] = out["dU"]
+    new.set(temperature=out["T_out"], liquid_water_fraction=out["liq_out"],
+            ground_temperature=out["ground_T"], hydraulic_conductivity=out["K_face"])
+    if physics == "richards":
+        new.set(saturation_water_ice=out["sat_out"], surface_excess_water=out["S_out"],
+                pressure_head=out["psi_out"], water_table=out["water_table"])
+        new.tendencies["saturation_water_ice"] = out["dsat"]
+        new.tendencies["surface_excess_water"] = out["dS"]
+    new.clock = Clock(state.clock.time + dt, state.clock.iteration + 1)
+    return new
+
+
+soil_column_full_step.launches = 0

@@ -377,7 +377,7 @@ def land_column_rollout_plain(carry: Dict[str, torch.Tensor], inputs: Dict[str, 
         for name, values, t0, dts in series:
             state.inputs[name] = torch.broadcast_to(
                 series_value(values, state.clock.time, t0, dts), (grid.cells,))
-        stepper.pre_closure_step(model, state, ctx, dt)
+        stepper.pre_closure_step(model, state, ctx, (), dt)
     return {n: state[n] for n in model.live_carry}
 
 

@@ -17,10 +17,20 @@ __all__ = ["Context"]
 
 @dataclasses.dataclass(frozen=True)
 class Context:
-    """Dependencies shared by the process hooks: constants, the BCs and a
+    """Dependencies shared by the process hooks: constants, the BCs, a
     model's sibling processes (``extras``: the LandModel hands the soil its
-    evapotranspiration and runoff schemes)."""
+    evapotranspiration and runoff schemes) and the user's ``forcings``
+    (reference `src/forcings.jl:13-19`): ``{prognostic name: fn(state,
+    grid)}``, each value added to that tendency in every ``update_state``
+    (``timesteppers/stepping.apply_forcings``)."""
 
     constants: PhysicalConstants = PhysicalConstants()
     bcs: Any = None  # {var_name: {"top": bc, "bottom": bc}}
     extras: Any = None
+    forcings: Any = None
+
+    def with_bcs(self, bcs) -> "Context":
+        return dataclasses.replace(self, bcs=bcs)
+
+    def with_forcings(self, forcings) -> "Context":
+        return dataclasses.replace(self, forcings=forcings)

@@ -34,7 +34,7 @@ def make_step_fn(model, timestepper, ctx, input_sources=()) -> Callable:
 
     def step(state: State, dt) -> State:
         out = state.copy()
-        timestepper.step(model, out, ctx, dt, input_sources)
+        timestepper.step(model, out, ctx, input_sources, dt)
         return out
 
     return step
@@ -49,8 +49,8 @@ def _carry_names(state: State, model, lean: bool):
             for n, v in getattr(state, g).items() if v.is_floating_point()]
 
 
-def make_rollout_fn(model, timestepper, ctx, *, steps: int, remat: bool = False,
-                    lean: bool = False, input_sources=()) -> Callable:
+def make_rollout_fn(model, timestepper, ctx, input_sources=(), *, steps: int,
+                    remat: bool = False, lean: bool = False) -> Callable:
     """``rollout(state, dt) -> state`` over ``steps`` steps, differentiable
     with torch autograd in the initial state and in any tensor parameter of
     ``model``. ``state`` itself is left as it is. Any model, stepper and
@@ -72,7 +72,7 @@ def make_rollout_fn(model, timestepper, ctx, *, steps: int, remat: bool = False,
             for (g, n), v in zip(names, carry):
                 getattr(st, g)[n] = v
             st.clock = Clock(time, iteration)
-            advance(model, st, ctx, dt, input_sources)
+            advance(model, st, ctx, input_sources, dt)
             return (st.clock.time, st.clock.iteration,
                     *(getattr(st, g)[n] for g, n in names))
 
@@ -87,10 +87,10 @@ def make_rollout_fn(model, timestepper, ctx, *, steps: int, remat: bool = False,
             out.clock = Clock(carry[0], carry[1])
             for (g, n), v in zip(names, carry[2:]):
                 getattr(out, g)[n] = v
-            advance(model, out, ctx, dt, input_sources)
+            advance(model, out, ctx, input_sources, dt)
         else:
             for _ in range(steps):
-                advance(model, out, ctx, dt, input_sources)
+                advance(model, out, ctx, input_sources, dt)
         if lean:
             model.closure(out, ctx)
         return out

@@ -28,10 +28,10 @@ from typing import Callable
 
 import torch
 
-from .integrator import _top_temperature_value, clock_times, top_temperature_table
 from .stepping import ForwardEuler
-from ..ops.bcs import bc_call_arity
-from ..ops.fused_step import ColumnParams, kernel_physics, soil_column_rollout
+from ..ops.bcs import InputRef, bc_call_arity
+from ..ops.fused_step import (ColumnParams, clock_times, kernel_physics, soil_column_rollout,
+                              top_temperature_table, top_temperature_value)
 from ..ops.fused_vjp import soil_column_segment_vjp
 from ..state import reset_tendencies
 
@@ -71,8 +71,8 @@ def _param_tensors(model, device):
     return K, torch.sqrt(k_min) * mineral_frac
 
 
-def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, *, steps: int, dt: float,
-                            inner_steps: int) -> Callable:
+def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=(), *,
+                            steps: int, dt: float, inner_steps: int) -> Callable:
     """Build ``rollout(state, params) -> state`` differentiable in both
     arguments, with the forward on the column kernel and the backward on
     the segment-VJP kernel.
@@ -98,8 +98,14 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, *, steps: int,
                          f"{type(timestepper).__name__}: the segment VJP of Heun and "
                          f"ImplicitEuler is still to port (ROADMAP Queue B #5); "
                          f"timesteppers/autodiff.make_rollout_fn differentiates any stepper")
-    value = _top_temperature_value(ctx.bcs)
-    if isinstance(value, str) or (callable(value) and bc_call_arity(value) >= 2):
+    for src in input_sources:
+        if hasattr(src, "times"):
+            raise ValueError("make_fused_grad_rollout supports static input sources only")
+    if getattr(ctx, "forcings", None):
+        raise ValueError("the fused gradient rollout takes no forcings; "
+                         "timesteppers/autodiff.make_rollout_fn differentiates them")
+    value = top_temperature_value(ctx.bcs)
+    if isinstance(value, (str, InputRef)) or (callable(value) and bc_call_arity(value) >= 2):
         raise ValueError("the fused gradient rollout takes a top temperature given as a "
                          "value or as f(t)")
 

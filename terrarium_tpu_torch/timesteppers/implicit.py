@@ -13,10 +13,12 @@ through the chain factor ``D = d(phi)/d(u)`` of each process's
 (dzf dz)`` to its boundary row. Variables without implicit terms take the
 explicit Euler update.
 
-These are the module steps (``Simulation.timestep``, tests, the module
-gradient path). ``Simulation.run`` goes through the fused column rollout
-(``ops/fused_step.py``): the CUDA kernel on the card, its plain version on
-the CPU. JAX's ``stack_solves`` lays the solves out for the TPU and is not
+These are the module steps (``Simulation.timestep``, ``Simulation.run`` for
+the compositions no kernel takes, tests, the module gradient path); they
+take the JAX package's arguments, ``step(model, state, ctx, input_sources,
+dt)``. ``Simulation.run`` takes the heat + Richards model with one Picard
+iteration through the fused column rollout (``ops/fused_step.py``): the
+CUDA kernel on the card, its plain version on the CPU. JAX's ``stack_solves`` lays the solves out for the TPU and is not
 ported; its ``"diag_attribution_only"`` solver gives wrong results by design
 and is refused.
 """
@@ -98,19 +100,19 @@ class ImplicitEuler:
     def default_dt(self):
         return self.dt
 
-    def step(self, model, state: State, ctx, dt, input_sources=()) -> None:
-        self._body(model, state, ctx, dt, input_sources)
+    def step(self, model, state: State, ctx, input_sources, dt) -> None:
+        self._body(model, state, ctx, input_sources, dt)
         model.closure(state, ctx)
         state.tick(dt)
 
-    def pre_closure_step(self, model, state: State, ctx, dt, input_sources=()) -> None:
+    def pre_closure_step(self, model, state: State, ctx, input_sources, dt) -> None:
         """The step with its closure moved to the front (see
         ``ForwardEuler.pre_closure_step``)."""
         model.closure(state, ctx)
-        self._body(model, state, ctx, dt, input_sources)
+        self._body(model, state, ctx, input_sources, dt)
         state.tick(dt)
 
-    def _body(self, model, state: State, ctx, dt, input_sources) -> None:
+    def _body(self, model, state: State, ctx, input_sources, dt) -> None:
         solve = SOLVERS[self.solver]
         grid = model.grid
         update_state(model, state, ctx, input_sources)

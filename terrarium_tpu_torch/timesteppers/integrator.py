@@ -1,16 +1,34 @@
 """Simulation driver (counterpart of ``terrarium_tpu/timesteppers/integrator.py``).
 
-``Simulation.run`` advances a :class:`SoilModel` with ForwardEuler, Heun or
-ImplicitEuler through the fused soil column rollout (``ops/fused_step.py``),
-and a :class:`LandModel` with ForwardEuler through the land column rollout
-(``ops/land_step.py``): on a CUDA device the hand-written kernels, on the
-CPU their plain versions. As in the
-JAX package's fused path (`fused_step.py:620`, `integrator.py:305-306`), the
-rollout carries only the live state, then one trailing ``closure`` and
-``compute_auxiliary`` rebuild the closure variables and auxiliaries from it;
-tendencies are zero afterwards. The inputs are left as the JAX package's
-default ``run`` leaves them: as the sources set them at the start of the last
-step.
+``Simulation.run`` (through :func:`advance`) takes one of two paths, chosen
+by the types of the model, stepper, boundary conditions, input sources and
+forcings before anything launches:
+
+* **a column kernel**, for the compositions the kernels take: a
+  :class:`SoilModel` with heat + Richards flow stepped by ForwardEuler, Heun
+  or ImplicitEuler with one Picard iteration, or heat only stepped by
+  ForwardEuler, with a Dirichlet top temperature (a value, ``f(t)`` or an
+  input variable) as its only BC (``ops/fused_step.py``); a
+  :class:`LandModel` of the kernel's classes stepped by ForwardEuler with
+  its coupling BCs only (``ops/land_step.py``); either with
+  ``FieldInputSource`` / ``TimeSeriesInputSource`` sources and no
+  forcings. On a CUDA device the hand-written kernel runs, on the CPU its
+  plain version; a kernel that fails to build or launch raises. As in the
+  JAX package's fused path (`fused_step.py:620`, `integrator.py:305-306`),
+  the rollout carries only the live state, then one trailing ``closure``
+  and ``compute_auxiliary`` rebuild the closure variables and auxiliaries
+  from it; tendencies are zero afterwards.
+* **the process modules**, for every other composition: ``n`` calls of the
+  stepper's ``pre_closure_step`` on the whole state, then ``closure``
+  (JAX's default lean scan, `integrator.py:150-201`, which
+  ``autodiff.make_rollout_fn(lean=True)`` runs with autograd), on the
+  state's device. The tendencies are left as the last step left them (its
+  Flux-BC contributions and forcings included, Heun's the mean of its two
+  stages), as JAX's lean scan, whose last step runs on the whole state
+  (`utils/scan_dce.py:125-177`), leaves them.
+
+On both paths the inputs are left as the JAX package's default ``run``
+leaves them: as the sources set them at the start of the last step.
 
 The top temperature reaches the kernels in one of two forms. A uniformly
 spaced ``TimeSeriesInputSource`` is handed over whole and interpolated in
@@ -19,7 +37,7 @@ the kernel, so such a run is one launch. Anything else (a constant, a
 spacing) is evaluated here at each clock time into a table.
 The land rollout reads its inputs the same way: a uniform series in the
 kernel, anything else as the state holds it (static).
-``Simulation.timestep`` steps through the process modules instead.
+``Simulation.timestep`` always steps the process modules.
 """
 from __future__ import annotations
 
@@ -29,20 +47,22 @@ import functools
 import numpy as np
 import torch
 
-from .implicit import ImplicitEuler
-from .stepping import ForwardEuler, Heun
+from .stepping import ForwardEuler
 from ..io.input_sources import FieldInputSource, TimeSeriesInputSource, collect_input_variables
 from ..models.initializers import apply_field_initializers
 from ..models.land_model import LandModel, coupling_bcs
+from ..models.soil_model import SoilModel
 from ..ops import land_step
-from ..ops.bcs import Dirichlet, bc_call_arity
-from ..ops.fused_step import (ROLLOUTS, ColumnParams, SeriesBC, clock_times, kernel_physics,
-                              soil_column_rollout_plain)
+from ..ops.bcs import InputRef, bc_call_arity
+from ..ops.fused_step import (ROLLOUTS, STEPPERS, ColumnParams, SeriesBC, clock_times,
+                              kernel_physics, soil_column_rollout_plain, top_temperature_table,
+                              top_temperature_value)
 from ..state import Clock, State, build_state, reset_tendencies
 from ..utils.utils import convert_dt
 from ..variables import Variables
 
-__all__ = ["Simulation", "initialize", "advance", "clock_times", "top_temperature_table"]
+__all__ = ["Simulation", "initialize", "advance", "column_scheme", "clock_times",
+           "top_temperature_table"]
 
 #: Launch chunking. A top temperature that is one value per step, a static
 #: row or a uniform series runs all ``n`` steps in one launch: the kernel
@@ -53,44 +73,44 @@ __all__ = ["Simulation", "initialize", "advance", "clock_times", "top_temperatur
 _MAX_TABLE_ENTRIES = 1 << 24
 
 
-def top_temperature_table(value, times: np.ndarray, grid) -> torch.Tensor:
-    """The top-temperature BC evaluated at each of ``times``: ``(n,)`` when
-    the value is the same for every cell, else ``(n, cells)`` (an expanded
-    view when the value does not change in time)."""
-    n = times.shape[0]
-    if isinstance(value, str):
-        raise ValueError("an input variable as the top temperature is read from the state "
-                         "and its sources (advance), not tabulated from a value")
-    if callable(value):
-        if bc_call_arity(value) >= 2:
-            raise ValueError("the fused rollout evaluates BCs as f(t); f(t, state) "
-                             "needs the state inside the kernel")
-        t = torch.as_tensor(times, device=grid.device)[:, None]
-        v = torch.as_tensor(value(t), dtype=grid.dtype, device=grid.device)
-        if v.dim() == 2 and v.shape[1] == 1:
-            v = v[:, 0]
-        if v.dim() == 2 or (v.dim() == 1 and v.shape[0] != n):
-            return torch.broadcast_to(v, (n, grid.cells)).contiguous()
-        return torch.broadcast_to(v, (n,)).contiguous()
-    v = torch.as_tensor(value, dtype=grid.dtype, device=grid.device)
-    if v.dim() == 0:
-        return v.expand(n).contiguous()
-    if tuple(v.shape) != (grid.cells,):
-        raise ValueError(f"top temperature BC of shape {tuple(v.shape)}; "
-                         f"expected a scalar or ({grid.cells},)")
-    return v[None, :].expand(n, grid.cells)
+_SOURCES = (FieldInputSource, TimeSeriesInputSource)
 
 
-def _top_temperature_value(bcs):
-    """The top temperature value of the only BC the fused rollout takes."""
-    top = (bcs or {}).get("temperature", {}).get("top")
-    if not isinstance(top, Dirichlet):
-        raise ValueError("the fused soil rollout needs a Dirichlet top temperature "
-                         "(PrescribedSurfaceTemperature)")
-    extra = {(v, s) for v, sides in (bcs or {}).items() for s in sides} - {("temperature", "top")}
-    if extra:
-        raise ValueError(f"the fused soil rollout supports no other BCs, got {sorted(extra)}")
-    return top.value
+def column_scheme(model, timestepper, ctx, input_sources=()):
+    """The column rollout that runs this composition, decided by type alone:
+    ``"land"`` (``ops/land_step.py``), a soil ``(stepper, physics)``
+    (``ops/fused_step.py``; the keys of ``ROLLOUTS`` have a kernel, heat-only
+    Heun and ImplicitEuler only the plain version), or ``None``, where only
+    the process modules step it: a forcing, a source of another class, any
+    other model, stepper, boundary condition or top-temperature form."""
+    if getattr(ctx, "forcings", None) or any(type(s) not in _SOURCES for s in input_sources):
+        return None
+    stepper = STEPPERS.get(type(timestepper))
+    if type(model) is LandModel:
+        if stepper != "euler" or (ctx.bcs or {}) != coupling_bcs():
+            return None
+        try:
+            land_step.land_composition(model)
+        except ValueError:  # a class the land kernel does not run
+            return None
+        for src in input_sources:
+            if isinstance(src, TimeSeriesInputSource) and any(
+                    n in land_step.LAND_INPUTS for n in src.series) and (
+                    _uniform_ts_meta(src) is None
+                    or any(np.ndim(v) not in (1, 2) for v in src.series.values())):
+                return None  # the land kernel reads uniformly spaced (T,) / (T, cells) series
+        return "land"
+    if type(model) is not SoilModel or stepper is None or (
+            stepper == "implicit" and timestepper.picard_iters != 1):
+        return None
+    try:
+        value = top_temperature_value(ctx.bcs)
+        physics = kernel_physics(model)
+    except ValueError:  # another BC, or a soil the column code does not run
+        return None
+    if isinstance(value, InputRef) or (callable(value) and bc_call_arity(value) >= 2):
+        return None  # the column code reads the top temperature without the state
+    return stepper, physics
 
 
 def _uniform_ts_meta(src):
@@ -118,10 +138,6 @@ class _TopTemperature:
         if not isinstance(value, str):
             self.table = functools.partial(top_temperature_table, value, grid=grid)
             return
-        for src in sources:
-            if not isinstance(src, (FieldInputSource, TimeSeriesInputSource)):
-                raise ValueError(f"the fused rollout takes FieldInputSource and "
-                                 f"TimeSeriesInputSource, not {type(src).__name__}")
         like = state.inputs.get(value)
         if like is None or tuple(like.shape) != (grid.cells,):
             raise ValueError(f"the top temperature {value!r} must be an XY input variable "
@@ -143,32 +159,14 @@ class _TopTemperature:
             self.series = (v, *meta)
 
 
-def _stepper_name(timestepper) -> str:
-    if isinstance(timestepper, ForwardEuler):
-        return "euler"
-    if isinstance(timestepper, Heun):
-        return "heun"
-    if isinstance(timestepper, ImplicitEuler):
-        if timestepper.picard_iters != 1:
-            raise ValueError(f"the fused soil rollout runs ImplicitEuler with one Picard "
-                             f"iteration, got picard_iters={timestepper.picard_iters}; "
-                             f"Simulation.timestep runs any")
-        return "implicit"
-    raise ValueError(f"the fused soil rollout runs ImplicitEuler, ForwardEuler or Heun, "
-                     f"not {type(timestepper).__name__}")
-
-
-def _rollout_fn(stepper: str, physics: str, device: torch.device, plain: bool, solver: str):
-    """The rollout of ``(stepper, physics)``: its kernel wrapper, or the
-    plain version where asked or where the CPU runs a scheme that has no
-    kernel; the implicit ones with ``solver``."""
+def _rollout_fn(stepper: str, physics: str, plain: bool, solver: str):
+    """The rollout of ``(stepper, physics)``: its kernel wrapper (which runs
+    the plain version on CPU tensors), or the plain version where asked or
+    where the scheme has no kernel; the implicit ones with ``solver``."""
     kw = {"solver": solver} if stepper == "implicit" else {}
-    if plain or (device.type == "cpu" and (stepper, physics) not in ROLLOUTS):
+    if plain or (stepper, physics) not in ROLLOUTS:
         return functools.partial(soil_column_rollout_plain, stepper=stepper, physics=physics,
                                  **kw)
-    if (stepper, physics) not in ROLLOUTS:
-        raise ValueError(f"no soil column kernel for {stepper} with the {physics} model; "
-                         f"the kernels run {sorted(ROLLOUTS)}")
     return functools.partial(ROLLOUTS[(stepper, physics)], **kw)
 
 
@@ -211,12 +209,6 @@ def land_inputs(model, state: State, sources) -> dict:
 def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
                   plain: bool, times) -> None:
     """The land column rollout of ``advance``."""
-    if not isinstance(timestepper, ForwardEuler):
-        raise ValueError(f"the land column rollout runs ForwardEuler, not "
-                         f"{type(timestepper).__name__}; Simulation.timestep steps the modules")
-    if (ctx.bcs or {}) != coupling_bcs():
-        raise ValueError("the land column rollout takes the LandModel's coupling BCs only, "
-                         f"got {ctx.bcs}")
     grid = model.grid
     params = land_step.LandParams.of(model, grid.dtype)
     inputs = land_inputs(model, state, input_sources)
@@ -228,15 +220,13 @@ def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, 
 
 
 def _advance_soil(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
-                  plain: bool, times) -> None:
+                  plain: bool, times, scheme) -> None:
     """The soil column rollout of ``advance``."""
-    stepper = _stepper_name(timestepper)
-    physics = kernel_physics(model)
+    stepper, physics = scheme
     grid = model.grid
     params = ColumnParams.of(model, grid.dtype)
-    top = _TopTemperature(_top_temperature_value(ctx.bcs), input_sources, state, grid)
-    rollout = _rollout_fn(stepper, physics, grid.device, plain,
-                          getattr(timestepper, "solver", None))
+    top = _TopTemperature(top_temperature_value(ctx.bcs), input_sources, state, grid)
+    rollout = _rollout_fn(stepper, physics, plain, getattr(timestepper, "solver", None))
     coords = _coords(grid)
     heat, extra = physics == "heat", int(stepper == "heun")
     U = state.prognostic["internal_energy"].contiguous()
@@ -260,20 +250,42 @@ def _advance_soil(model, state: State, ctx, steps: int, dt: float, timestepper, 
         state.set(saturation_water_ice=sat, surface_excess_water=S)
 
 
+def _advance_modules(model, state: State, ctx, steps: int, dt: float, timestepper,
+                     input_sources) -> None:
+    """The module path of ``advance``: ``steps`` closure-rotated steps on
+    the whole state, then ``closure`` (`integrator.py:180-201`); a stepper
+    without ``pre_closure_step`` takes ``steps`` full steps."""
+    rotated = getattr(timestepper, "pre_closure_step", None)
+    for _ in range(steps):
+        (rotated or timestepper.step)(model, state, ctx, input_sources, dt)
+    if rotated is not None:
+        model.closure(state, ctx)
+
+
 def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None,
             input_sources=(), plain: bool = False) -> None:
-    """``steps`` closure-rotated steps of ``timestepper`` (ForwardEuler by
-    default; for a SoilModel also Heun or ImplicitEuler with one Picard
-    iteration) on the live carry, through the kernel of the model and
-    stepper (or their plain version, ``plain=True``), then the trailing
-    ``closure``. Tendencies are zeroed, as the dead leaves of the lean carry
-    are; the inputs are the sources' values at the start of the last step.
-    Updates ``state`` in place. Raises ``ValueError`` for a model, stepper,
-    boundary condition or source the kernels do not take."""
+    """``steps`` steps of ``timestepper`` (ForwardEuler by default),
+    updating ``state`` in place.
+
+    A composition a column rollout takes (:func:`column_scheme`) runs the
+    closure-rotated steps on the live carry through that rollout's kernel
+    (its plain version on CPU tensors, or on any device with
+    ``plain=True``), then the trailing ``closure``; tendencies are zeroed,
+    as the dead leaves of the lean carry are, and the inputs are the
+    sources' values at the start of the last step. Every other composition
+    runs the process modules (``pre_closure_step`` ``steps`` times, then
+    ``closure``), which leave the last step's tendencies and inputs."""
     timestepper = timestepper if timestepper is not None else ForwardEuler()
+    scheme = column_scheme(model, timestepper, ctx, input_sources)
+    if scheme is None or (scheme != "land" and scheme not in ROLLOUTS and not plain):
+        _advance_modules(model, state, ctx, steps, dt, timestepper, input_sources)
+        return
     times = clock_times(state.clock.time, dt, steps)
-    run = _advance_land if isinstance(model, LandModel) else _advance_soil
-    run(model, state, ctx, steps, dt, timestepper, input_sources, plain, times)
+    if scheme == "land":
+        _advance_land(model, state, ctx, steps, dt, timestepper, input_sources, plain, times)
+    else:
+        _advance_soil(model, state, ctx, steps, dt, timestepper, input_sources, plain, times,
+                      scheme)
     grid = model.grid
     clock = Clock(torch.as_tensor(times[-1], device=grid.device),
                   state.clock.iteration + steps)
@@ -304,18 +316,21 @@ def _on_device(src, device: torch.device):
 
 
 class Simulation:
-    """Model, state, timestepper, input sources and boundary conditions of
-    one run."""
+    """Model, state, timestepper, input sources, boundary conditions and
+    forcings of one run."""
 
     def __init__(self, model, timestepper, state: State, input_sources=(), bcs=None,
-                 initializers=None):
+                 initializers=None, forcings=None):
         self.model = model
         self.timestepper = timestepper
         self.state = state
         self.input_sources = tuple(_on_device(src, model.grid.device) for src in input_sources)
         self.bcs = bcs or {}
         self.initializers = initializers or {}
+        self.forcings = dict(forcings or {})
         self.ctx = model.make_context(bcs=self.bcs)
+        if self.forcings:
+            self.ctx = self.ctx.with_forcings(self.forcings)
 
     @property
     def current_time(self) -> float:
@@ -333,22 +348,47 @@ class Simulation:
         """One full step through the process modules (reference
         `timestep!`, `model_integrator.jl:125-131`)."""
         dt = convert_dt(dt) if dt is not None else self.timestepper.default_dt()
-        self.timestepper.step(self.model, self.state, self.ctx, dt, self.input_sources)
+        self.timestepper.step(self.model, self.state, self.ctx, self.input_sources, dt)
         if finalize:
             self.compute_auxiliary()
         return self
 
-    def run(self, steps=None, period=None, dt=None) -> "Simulation":
-        """Run ``steps`` steps, or a time ``period``, of size ``dt`` through
-        the fused rollout (reference `run!`, `model_integrator.jl:72-88`)."""
+    def _advance(self, steps: int, dt) -> None:
+        advance(self.model, self.state, self.ctx, steps, dt, timestepper=self.timestepper,
+                input_sources=self.input_sources)
+
+    def run(self, steps=None, period=None, dt=None, callbacks=(),
+            callback_interval: int = 0) -> "Simulation":
+        """Run ``steps`` steps, or a time ``period``, of size ``dt`` (reference
+        `run!`, `model_integrator.jl:72-88`) through :func:`advance`. With
+        ``callbacks`` and a positive ``callback_interval`` the run goes in
+        chunks of that many steps, each through :func:`advance`, and after
+        each chunk ``compute_auxiliary`` and then every callback, called
+        with this simulation (`integrator.py:284-307`)."""
         dt = convert_dt(dt) if dt is not None else self.timestepper.default_dt()
         if steps is None:
             if period is None:
                 raise ValueError("either `steps` or `period` must be specified")
             steps = int(convert_dt(period) // dt)
-        advance(self.model, self.state, self.ctx, int(steps), dt,
-                timestepper=self.timestepper, input_sources=self.input_sources)
+        steps = int(steps)
+        if callbacks and callback_interval > 0:
+            done = 0
+            while done < steps:
+                n = min(int(callback_interval), steps - done)
+                self._advance(n, dt)
+                done += n
+                self.compute_auxiliary()
+                for cb in callbacks:
+                    cb(self)
+            return self
+        self._advance(steps, dt)
         return self.compute_auxiliary()
+
+    def reinitialize(self) -> "Simulation":
+        """Reset the state to the initial conditions (reference
+        `initialize!`, `model_integrator.jl:96-109`)."""
+        self.state = initial_state(self.model, self.input_sources, self.initializers, self.ctx)
+        return self
 
     def __repr__(self):
         return (f"Simulation({type(self.model).__name__} on {self.model.grid!r}, "
@@ -370,11 +410,22 @@ def initial_state(model, input_sources, initializers, ctx) -> State:
 
 
 def initialize(model, timestepper=None, input_sources=(), *, initializers=None,
-               boundary_conditions=None) -> Simulation:
+               boundary_conditions=None, forcings=None) -> Simulation:
     """Create and initialize a :class:`Simulation` (reference `initialize`,
-    `model_integrator.jl:145-161`)."""
+    `model_integrator.jl:145-161`).
+
+    ``forcings`` adds source and sink terms to prognostic variables
+    (reference `src/forcings.jl:13-19`): ``{name: fn(state, grid)}``, each
+    value added to that tendency at every step, in the prognostic's units
+    per second. A target that is not a prognostic raises ``KeyError``.
+    ``Simulation.run`` steps a composition with forcings through the
+    process modules."""
     timestepper = timestepper if timestepper is not None else ForwardEuler()
     sim = Simulation(model, timestepper, state=None, input_sources=input_sources,
-                     bcs=boundary_conditions, initializers=initializers)
+                     bcs=boundary_conditions, initializers=initializers, forcings=forcings)
     sim.state = initial_state(model, sim.input_sources, sim.initializers, sim.ctx)
+    for name in sim.forcings:
+        if name not in sim.state.prognostic:
+            raise KeyError(f"forcing target {name!r} is not a prognostic variable "
+                           f"(prognostics: {sorted(sim.state.prognostic)})")
     return sim

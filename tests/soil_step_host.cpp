@@ -1,11 +1,12 @@
-// Host build of terrarium_tpu_torch/csrc/soil_step.cuh for the CPU tests
-// (tests/test_torch_step_adjoint.py, tests/test_torch_step_host.py,
-// tests/test_torch_implicit.py): the CUDA kernels' per-column step, rollout
-// loop and segment VJP, run over every column in a loop, behind a plain C
-// interface.
+// Host build of terrarium_tpu_torch/csrc/soil_step.cuh and soil_full_step.cuh
+// for the CPU tests (tests/test_torch_step_adjoint.py,
+// tests/test_torch_step_host.py, tests/test_torch_implicit.py,
+// tests/test_torch_fused_step.py): the CUDA kernels' per-column step, rollout
+// loop, segment VJP and full step, run over every column in a loop, behind a
+// plain C interface.
 #include <vector>
 
-#include "soil_step.cuh"
+#include "soil_full_step.cuh"
 
 namespace {
 
@@ -111,7 +112,32 @@ int scheme(int stepper, int solver, int heat, double* U, double* sat, double* S,
     return 0;
 }
 
+template <int NZ, bool HEUN, bool HEAT>
+void full_steps(const SoilFullStepIO* io, const double* dz, const double* dzf, const double* zc,
+                const double* zf, const SoilColumnParams* P, double dt, long long cells)
+{
+    const soil::Consts<double> c(*P);
+    for (long long col = 0; col < cells; ++col)
+        soil::full_step_column<double, NZ, HEUN, HEAT>(*io, col, cells, c, *P, dz, dzf, zc, zf,
+                                                       dt);
+}
+
 }  // namespace
+
+// The full-step kernel's column code over every column: ForwardEuler or Heun
+// (`heun`), heat + Richards or heat only (`heat`), at NZ 20. Returns -1 for
+// another NZ.
+extern "C" int host_full_step(const SoilFullStepIO* io, const double* dz, const double* dzf,
+                              const double* zc, const double* zf, const SoilColumnParams* P,
+                              int nz, int heun, int heat, double dt, long long cells)
+{
+    if (nz != 20) return -1;
+    if (heun && heat) full_steps<20, true, true>(io, dz, dzf, zc, zf, P, dt, cells);
+    else if (heun) full_steps<20, true, false>(io, dz, dzf, zc, zf, P, dt, cells);
+    else if (heat) full_steps<20, false, true>(io, dz, dzf, zc, zf, P, dt, cells);
+    else full_steps<20, false, false>(io, dz, dzf, zc, zf, P, dt, cells);
+    return 0;
+}
 
 extern "C" int host_segment_vjp(const double* U, const double* sat, const double* S,
                                 const double* gU, const double* gsat, const double* gS,

@@ -139,8 +139,8 @@ def test_heun_steps_match_jax(method):
     for _ in range(3):
         jstate = getattr(jsim.timestepper, method)(jsim.model, jstate, jsim.ctx,
                                                   jsim.input_sources, 300.0)
-        getattr(psim.timestepper, method)(psim.model, psim.state, psim.ctx, 300.0,
-                                          psim.input_sources)
+        getattr(psim.timestepper, method)(psim.model, psim.state, psim.ctx,
+                                          psim.input_sources, 300.0)
     sat = [s.saturation_water_ice for s in (psim.state, jstate)]
     np.testing.assert_allclose(sat[0].numpy(), np.asarray(sat[1]), rtol=0, atol=1e-12)
     names = [f for f in FIELDS if f != "saturation_water_ice"] + ["air_temperature"]
@@ -240,7 +240,7 @@ def test_plain_heun_rollout_equals_module_steps(bc):
 
     sim, ref = _plain(build(), 30, 60.0), build()
     for _ in range(30):
-        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, 60.0, ref.input_sources)
+        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, ref.input_sources, 60.0)
     ref.model.closure(ref.state, ref.ctx)
     for name in FIELDS[:7]:
         torch.testing.assert_close(sim.state[name], ref.state[name], rtol=0, atol=0)
@@ -252,15 +252,15 @@ def test_module_rollout_takes_heun_and_sources():
     after ``pre_closure_step`` repeated bitwise, and differentiates in the
     initial energy."""
     sim = heun_forced("port")
-    roll = make_rollout_fn(sim.model, sim.timestepper, sim.ctx, steps=6, remat=True, lean=True,
-                           input_sources=sim.input_sources)
+    roll = make_rollout_fn(sim.model, sim.timestepper, sim.ctx, sim.input_sources, steps=6,
+                           remat=True, lean=True)
     state = sim.state.copy()
     U0 = state.prognostic["internal_energy"].clone().requires_grad_()
     state.prognostic["internal_energy"] = U0
     out = roll(state, 300.0)
     ref = heun_forced("port")
     for _ in range(6):
-        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, 300.0, ref.input_sources)
+        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, ref.input_sources, 300.0)
     ref.model.closure(ref.state, ref.ctx)
     for name in FIELDS[:7]:
         torch.testing.assert_close(out[name].detach(), ref.state[name], rtol=0, atol=0)
@@ -330,20 +330,41 @@ class _OwnSource:
         pass
 
 
-def test_run_refuses_what_the_kernels_do_not_take():
+def test_run_refuses_what_the_kernels_do_not_take(monkeypatch):
+    """What the soil kernels do not take by type (a source of another class,
+    another BC) ``run`` steps through the process modules, which equal
+    ``timestep`` after a ``closure``; a stepper without ``step`` fails there
+    as in JAX; a top temperature naming no input, or a series of the wrong
+    shape, still raises on the kernel path."""
     sim = heun_forced("port")
-    with pytest.raises(ValueError, match="ForwardEuler or Heun"):
+    with pytest.raises(AttributeError, match="step"):
         advance(sim.model, sim.state, sim.ctx, 2, 300.0, timestepper=_Implicit())
-    with pytest.raises(ValueError, match="ForwardEuler or Heun"):
+    with pytest.raises(AttributeError, match="step"):
         tp.Simulation(sim.model, _Implicit(), sim.state, sim.input_sources,
                       bcs=sim.bcs).run(steps=2)
-    other = tp.initialize(sim.model, tp.Heun(), (_OwnSource(),),
-                          initializers={"temperature": 1.0},
-                          boundary_conditions=tp.PrescribedSurfaceTemperature(
-                              "air_temperature"))
-    other.timestep(300.0)  # the module path takes any source
-    with pytest.raises(ValueError, match="FieldInputSource and TimeSeriesInputSource"):
-        other.run(steps=2)
+
+    def own():
+        return tp.initialize(sim.model, tp.Heun(), (_OwnSource(),),
+                             initializers={"temperature": 1.0},
+                             boundary_conditions=tp.PrescribedSurfaceTemperature(
+                                 "air_temperature"))
+
+    def other_bcs():
+        s = heun_forced("port")
+        return tp.Simulation(s.model, s.timestepper, s.state, s.input_sources,
+                             bcs={**s.bcs, "pressure_head": {"bottom": tp.Neumann(0.0)}})
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a soil column rollout ran")
+
+    for make in (own, other_bcs):
+        with monkeypatch.context() as mp:
+            mp.setattr(fs, "soil_column_rollout_plain", refused)
+            a = make().run(steps=2)
+        b = make()
+        b.model.closure(b.state, b.ctx)
+        b.timestep(300.0).timestep(300.0)
+        assert_fields_close(a.state, {k: b.state[k].numpy() for k in FIELDS}, FIELDS)
     with pytest.raises(ValueError, match="input variable"):
         tp.Simulation(sim.model, sim.timestepper, sim.state, sim.input_sources,
                       bcs=tp.PrescribedSurfaceTemperature("no_such_input")).run(steps=2)
@@ -351,9 +372,6 @@ def test_run_refuses_what_the_kernels_do_not_take():
         (HOURS.size, 1, 4))})
     with pytest.raises(ValueError, match=r"\(T,\) or \(T, cells\)"):
         tp.Simulation(sim.model, sim.timestepper, sim.state, (cube,), bcs=sim.bcs).run(steps=2)
-    with pytest.raises(ValueError, match="other BCs"):
-        tp.Simulation(sim.model, sim.timestepper, sim.state, sim.input_sources,
-                      bcs={**sim.bcs, "pressure_head": {"bottom": tp.Neumann(0.0)}}).run(1)
 
 
 def test_fused_grad_refuses_heun_series_and_heat_only():

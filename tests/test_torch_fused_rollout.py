@@ -54,7 +54,7 @@ def test_plain_equals_module_steps():
     sim = _plain_rollout("bench", cells=16, nz=30, steps=30)
     ref = port_sim("bench", 16, 30, dt=DT)
     for _ in range(30):
-        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, DT)
+        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, (), DT)
     ref.model.closure(ref.state, ref.ctx)
     for name in FIELDS:
         torch.testing.assert_close(sim.state[name], ref.state[name], rtol=0, atol=0)

@@ -207,7 +207,7 @@ def test_implicit_steps_match_jax(solver, method, picard):
     jstate = jsim.state
     for _ in range(3):
         jstate = getattr(jsim.timestepper, method)(jsim.model, jstate, jsim.ctx, (), 3600.0)
-        getattr(psim.timestepper, method)(psim.model, psim.state, psim.ctx, 3600.0)
+        getattr(psim.timestepper, method)(psim.model, psim.state, psim.ctx, (), 3600.0)
     _assert_state_close(psim.state, jstate)
     for k, v in jstate.tendencies.items():
         np.testing.assert_allclose(psim.state.tendencies[k].numpy(), np.asarray(v),
@@ -218,7 +218,7 @@ def test_implicit_steps_match_jax(solver, method, picard):
 def test_picard_iterations_change_the_step():
     a, b = implicit_freeze("port"), implicit_freeze("port", picard_iters=2)
     for sim in (a, b):
-        sim.timestepper.step(sim.model, sim.state, sim.ctx, 3600.0)
+        sim.timestepper.step(sim.model, sim.state, sim.ctx, (), 3600.0)
     assert not torch.equal(a.state.internal_energy, b.state.internal_energy)
 
 
@@ -254,8 +254,8 @@ def test_plain_rollout_equals_module_steps(solver, top):
     advance(sim.model, sim.state, sim.ctx, 24, 3600.0, timestepper=sim.timestepper,
             input_sources=sim.input_sources, plain=True)
     for _ in range(24):
-        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, 3600.0,
-                                         ref.input_sources)
+        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, ref.input_sources,
+                                         3600.0)
     ref.model.closure(ref.state, ref.ctx)
     tol = 0.0 if top == "f(t)" else 1e-12
     for name in FIELDS[:-1]:  # the modules' K is the last step's start's
@@ -456,17 +456,26 @@ def test_unknown_solver_raises(solver):
         tp.ImplicitEuler(solver=solver)
 
 
-def test_fused_rollout_refuses_picard_iterations():
+def test_fused_rollout_refuses_picard_iterations(monkeypatch):
     """The fused rollout (kernel and plain version alike) runs one Picard
-    iteration; the module steps run any number."""
-    sim = implicit_freeze("port", picard_iters=2)
-    with pytest.raises(ValueError, match="picard_iters=2"):
-        sim.run(steps=2, dt=3600.0)
-    with pytest.raises(ValueError, match="picard_iters=2"):
-        advance(sim.model, sim.state, sim.ctx, 2, 3600.0, timestepper=sim.timestepper,
-                plain=True)
-    sim.timestep(3600.0)
-    assert bool(torch.isfinite(sim.state.internal_energy).all())
+    iteration; ``run`` and ``advance`` step any other number through the
+    process modules, even when the plain version is asked for, and match
+    JAX's ``run`` at 1e-12."""
+    def refused(*args, **kwargs):
+        raise AssertionError("the soil column rollout ran")
+
+    monkeypatch.setattr(fs, "soil_column_rollout_plain", refused)
+    monkeypatch.setattr("terrarium_tpu_torch.timesteppers.integrator.soil_column_rollout_plain",
+                        refused)
+    sim, ref = implicit_freeze("port", picard_iters=2), implicit_freeze("port", picard_iters=2)
+    jsim = implicit_freeze("jax", picard_iters=2)
+    sim.run(steps=2, dt=3600.0)
+    jsim.run(steps=2, dt=3600.0)
+    advance(ref.model, ref.state, ref.ctx, 2, 3600.0, timestepper=ref.timestepper, plain=True)
+    ref.compute_auxiliary()
+    assert_fields_close(sim.state, jsim.state, FIELDS)
+    for name in FIELDS:
+        torch.testing.assert_close(ref.state[name], sim.state[name], rtol=0, atol=0)
 
 
 def test_fused_grad_refuses_implicit_euler():

@@ -1,6 +1,7 @@
 """The soil column CUDA kernels (the ForwardEuler, Heun, heat-only and
-ImplicitEuler rollouts and the segment VJP) and the LandModel column kernel
-against their plain PyTorch versions, on a CUDA device. Every test skips where
+ImplicitEuler rollouts, the segment VJP and the full step) and the LandModel
+column kernel against their plain PyTorch versions, and ``run`` through the
+process modules, on a CUDA device. Every test skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports no JAX, so it also runs on a machine with a card and no
@@ -33,11 +34,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sim(cells, nz, dtype, device, dt=DT, golden=False):
+def _bench_soil():
     props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
                                       unsat_hydraulic_cond=tp.UnsatKVanGenuchten())
-    soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
+    return tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
                                                                hydraulic_properties=props))
+
+
+def _sim(cells, nz, dtype, device, dt=DT, golden=False):
+    soil = _bench_soil()
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
                             device=device)
     if golden:  # tests/test_goldens.py:20-36
@@ -238,25 +243,49 @@ def test_heun_forced_golden_through_the_kernel(cuda):
     assert float(((_water(sim.state, dz) - w0).abs() / w0.abs()).max()) <= 1e-12
 
 
+def _heat_only(device, ts):
+    grid = tp.ColumnGrid.of(cells=70, spacing=tp.ExponentialSpacing(N=30),
+                            dtype=torch.float32, device=device)
+    return tp.initialize(tp.SoilModel(grid=grid), ts,
+                         initializers={"temperature": 1.0, "saturation_water_ice": 0.8},
+                         boundary_conditions=tp.PrescribedSurfaceTemperature(-3.0))
+
+
 @pytest.mark.cuda
 def test_default_model_runs_through_the_heat_kernel(cuda):
     """``SoilModel(grid=g)`` is the heat-only model; ForwardEuler runs it
-    through the heat kernel, Heun has no heat-only kernel and raises."""
-    grid = tp.ColumnGrid.of(cells=70, spacing=tp.ExponentialSpacing(N=30),
-                            dtype=torch.float32, device=cuda)
-    for ts in (tp.ForwardEuler(dt=300.0), tp.Heun(dt=300.0)):
-        sim = tp.initialize(tp.SoilModel(grid=grid), ts,
-                            initializers={"temperature": 1.0, "saturation_water_ice": 0.8},
-                            boundary_conditions=tp.PrescribedSurfaceTemperature(-3.0))
-        if isinstance(ts, tp.Heun):
-            with pytest.raises(ValueError, match="kernel"):
-                sim.run(steps=4)
-            continue
-        before = fs.soil_column_heat_rollout.launches
-        sim.run(steps=48)
-        assert fs.soil_column_heat_rollout.launches == before + 1
-        assert bool(torch.isfinite(sim.state.temperature).all())
-        assert float(sim.state.temperature[-1].max()) < 1.0
+    through the heat kernel, Heun, which has no heat-only kernel, through
+    the process modules on the card, as on the CPU."""
+    sim = _heat_only(cuda, tp.ForwardEuler(dt=300.0))
+    before = fs.soil_column_heat_rollout.launches
+    sim.run(steps=48)
+    assert fs.soil_column_heat_rollout.launches == before + 1
+    assert bool(torch.isfinite(sim.state.temperature).all())
+    assert float(sim.state.temperature[-1].max()) < 1.0
+    _runs_through_the_modules(lambda device: _heat_only(device, tp.Heun(dt=300.0)), 4)
+
+
+def _launch_counts():
+    return [f.launches for f in (fs.soil_column_rollout, fs.soil_column_heun_rollout,
+                                 fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
+                                 fs.soil_column_full_step, fv.soil_column_segment_vjp)]
+
+
+def _runs_through_the_modules(make, steps):
+    """``run`` of ``make("cuda")`` launches no kernel, stays on the card and
+    equals the same run of ``make("cpu")`` (float32: 1e-4 of each field's
+    largest magnitude; float64: 1e-12)."""
+    sim, cpu = make(torch.device("cuda")), make("cpu")
+    before = _launch_counts()
+    sim.run(steps=steps)
+    cpu.run(steps=steps)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    tol = 1e-12 if sim.model.grid.dtype == torch.float64 else 1e-4
+    for name in sim.model.live_carry + ("temperature",):
+        v, ref = sim.state[name], cpu.state[name]
+        assert v.device.type == "cuda", name
+        torch.testing.assert_close(v.cpu(), ref, rtol=tol, atol=tol * float(ref.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -329,13 +358,9 @@ def test_implicit_freeze_golden_through_the_kernel(cuda, solver):
 
 @pytest.mark.cuda
 def test_implicit_heat_only_has_no_kernel(cuda):
-    grid = tp.ColumnGrid.of(cells=70, spacing=tp.ExponentialSpacing(N=30),
-                            dtype=torch.float32, device=cuda)
-    sim = tp.initialize(tp.SoilModel(grid=grid), tp.ImplicitEuler(),
-                        initializers={"temperature": 1.0, "saturation_water_ice": 0.8},
-                        boundary_conditions=tp.PrescribedSurfaceTemperature(-3.0))
-    with pytest.raises(ValueError, match="kernel"):
-        sim.run(steps=4)
+    """ImplicitEuler on the heat-only model has no kernel: ``run`` steps it
+    through the process modules on the card."""
+    _runs_through_the_modules(lambda device: _heat_only(device, tp.ImplicitEuler()), 4)
 
 
 # ---------------------------------------------------------------------------
@@ -584,3 +609,111 @@ def test_land_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     for name in model.live_carry:
         assert torch.equal(whole[name], chain[name]), name
+
+
+# ---------------------------------------------------------------------------
+# one full step (make_fused_step)
+# ---------------------------------------------------------------------------
+def _full_sim(cells, nz, dtype, device, stepper="euler", physics="richards", forcings=None):
+    """The bench top temperature 5 sin(2 pi t / 86400) as f(t) over the
+    bench soil or the default heat-only model, from varied columns, dt 60."""
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device=device)
+    model = (tp.SoilModel(grid=grid, soil=_bench_soil()) if physics == "richards"
+             else tp.SoilModel(grid=grid))
+    ts = tp.Heun(dt=DT) if stepper == "heun" else tp.ForwardEuler(dt=DT)
+    return tp.initialize(
+        model, ts, initializers={
+            "temperature": lambda x, z: 2.0 * np.sin(2 * np.pi * x) - 0.05 * z,
+            "saturation_water_ice": (lambda x, z: np.minimum(1.0, 0.6 - 0.05 * z))
+            if physics == "richards" else 0.8},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(
+            lambda t: 5.0 * torch.sin(2 * torch.pi * t / 86400.0)), forcings=forcings)
+
+
+def _assert_full_close(k_state, p_state, rtol):
+    """Every prognostic, tendency and auxiliary and the clock (the rule of
+    ``chip_smoke.check_full_step``): float64 each element within ``rtol``
+    with a floor of ``rtol`` times the scale, float32 the largest error
+    within ``rtol`` of the scale; the scale is the leaf's largest magnitude,
+    a tendency's at least its prognostic's over dt."""
+    for g in ("prognostic", "tendencies", "auxiliary"):
+        assert sorted(getattr(k_state, g)) == sorted(getattr(p_state, g)), g
+        for key, b in getattr(p_state, g).items():
+            a = getattr(k_state, g)[key]
+            assert a.shape == b.shape and bool(torch.isfinite(a).all()), (g, key)
+            scale = float(b.abs().max())
+            if g == "tendencies":
+                scale = max(scale, float(p_state.prognostic[key].abs().max()) / DT)
+            d = (a - b).abs()
+            if rtol <= 1e-9:
+                assert not bool((d > rtol * b.abs() + rtol * scale).any()), (g, key, d.max())
+            else:
+                assert float(d.max()) <= rtol * scale, (g, key, float(d.max()), scale)
+    assert float(k_state.clock.time) == float(p_state.clock.time)
+    assert int(k_state.clock.iteration) == int(p_state.clock.iteration)
+
+
+def _fused(sim):
+    return fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources, dt=DT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stepper,nz", [("euler", 20), ("heun", 15)])
+def test_full_step_kernel_matches_plain_f64(cuda, stepper, nz):
+    """float64, 300 columns, one kernel step and one plain step from each
+    state of 3 steps of the plain trajectory: every leaf at 1e-12."""
+    sim = _full_sim(300, nz, torch.float64, cuda, stepper)
+    fused = _fused(sim)
+    state = sim.state
+    for _ in range(3):
+        before = fs.soil_column_full_step.launches
+        out = fused(state)
+        assert fs.soil_column_full_step.launches == before + 1
+        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), state,
+                                               DT)
+        torch.cuda.synchronize()
+        _assert_full_close(out, plain, 1e-12)
+        state = plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stepper,physics", [("euler", "richards"), ("heun", "richards"),
+                                             ("euler", "heat"), ("heun", "heat")])
+def test_full_step_kernel_matches_plain_f32(cuda, stepper, physics):
+    """float32 at Nz 30 on 2,000 columns: every leaf within 1e-4 of its
+    scale."""
+    sim = _full_sim(2000, 30, torch.float32, cuda, stepper, physics)
+    out = _fused(sim)(sim.state)
+    plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), sim.state,
+                                           DT)
+    torch.cuda.synchronize()
+    _assert_full_close(out, plain, 1e-4)
+
+
+@pytest.mark.cuda
+def test_full_step_kernel_reads_an_input_variable_and_refuses_other_nz(cuda):
+    """The heat-only model with the top temperature an input variable of a
+    static source, per cell; a grid of an unbuilt Nz raises."""
+    grid = tp.ColumnGrid.of(cells=130, spacing=tp.ExponentialSpacing(N=30), dtype=torch.float32,
+                            device=cuda)
+    sim = tp.initialize(tp.SoilModel(grid=grid), tp.ForwardEuler(dt=DT),
+                        (tp.FieldInputSource(fields={"surface_temperature":
+                                                     np.linspace(-8.0, 6.0, 130)}),),
+                        initializers={"temperature": 1.0, "saturation_water_ice": 0.8},
+                        boundary_conditions=tp.PrescribedSurfaceTemperature("surface_temperature"))
+    out = _fused(sim)(sim.state)
+    plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                           sim.input_sources, sim.state, DT)
+    _assert_full_close(out, plain, 1e-4)
+    small = _full_sim(64, 12, torch.float32, cuda)
+    with pytest.raises(ValueError, match="Nz"):
+        _fused(small)(small.state)
+
+
+@pytest.mark.cuda
+def test_run_with_forcings_runs_through_the_modules_on_the_card(cuda):
+    """A forcing takes ``run`` through the process modules, on the card."""
+    _runs_through_the_modules(lambda device: _full_sim(
+        96, 20, torch.float64, device,
+        forcings={"internal_energy": lambda state, grid: 2.0}), 6)

@@ -664,39 +664,87 @@ REFUSED = {
 }
 
 
+def _no_land_kernel(monkeypatch):
+    """Make any call of the land rollout, kernel or plain version, fail."""
+    def refused(*args, **kwargs):
+        raise AssertionError("the land column rollout ran")
+
+    monkeypatch.setattr(ls, "land_column_rollout", refused)
+    monkeypatch.setattr(ls, "land_column_rollout_plain", refused)
+
+
+def _run_through_modules(make, steps, monkeypatch):
+    """``run(steps)`` of ``make(tt)`` and ``make(tp)``: the port's goes
+    through the process modules, not the land rollout, and equals JAX's
+    (its lean scan of the modules) in every prognostic and the closure
+    variables at 1e-12."""
+    jsim = make(tt)
+    psim = make(tp)
+    _no_land_kernel(monkeypatch)
+    jsim.run(steps=steps)
+    psim.run(steps=steps)
+    assert psim.iteration == int(jsim.state.clock.iteration) == steps
+    _same(psim.state, jsim.state, sorted(psim.state.prognostic)
+          + ["temperature", "liquid_water_fraction", "ground_temperature"])
+
+
+def _bare(m, **model_kw):
+    jg, pg = _grids(4, 8)
+    return m.initialize(m.LandModel(grid=jg if m is tt else pg, **model_kw),
+                        m.ForwardEuler(dt=300.0),
+                        initializers={"temperature": 5.0, "saturation_water_ice": 0.8})
+
+
+def _refused_parts(m, name):
+    """``REFUSED[name]`` built in package ``m``."""
+    if name == "BareGroundEvaporation":
+        return dict(surface_hydrology=m.SurfaceHydrology(
+            evapotranspiration=m.BareGroundEvaporation()))
+    part = {"PrescribedAlbedo": "albedo", "PrescribedRadiativeFluxes": "radiative_fluxes",
+            "PrescribedTurbulentFluxes": "turbulent_fluxes",
+            "PrescribedSkinTemperature": "skin_temperature"}[name]
+    return dict(surface_energy_balance=m.SurfaceEnergyBalance(**{part: getattr(m, name)()}))
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
-def test_land_rollout_refuses_by_type(name):
-    """``run`` raises ``ValueError`` naming the class the kernel does not
-    run; ``Simulation.timestep`` steps the modules all the same."""
-    sim = _bare_sim(**REFUSED[name])
-    with pytest.raises(ValueError, match=name):
-        sim.run(steps=2)
-    assert sim.iteration == 0
-    sim.timestep()
-    assert bool(torch.isfinite(sim.state.internal_energy).all())
+def test_land_rollout_refuses_by_type(name, monkeypatch):
+    """The land kernel refuses these classes by type, so ``run`` steps them
+    through the process modules, as JAX's ``run`` does."""
+    assert type(REFUSED[name][next(iter(REFUSED[name]))]) is type(
+        _refused_parts(tp, name)[next(iter(REFUSED[name]))])
+    _run_through_modules(lambda m: _bare(m, **_refused_parts(m, name)), 2, monkeypatch)
 
 
 @pytest.mark.parametrize("stepper", ["Heun", "ImplicitEuler"])
-def test_land_rollout_refuses_other_steppers(stepper):
-    sim = _bare_sim()
-    sim.timestepper = getattr(tp, stepper)(dt=300.0)
-    with pytest.raises(ValueError, match=stepper):
-        sim.run(steps=2)
+def test_land_rollout_refuses_other_steppers(stepper, monkeypatch):
+    def make(m):
+        sim = _bare(m)
+        sim.timestepper = getattr(m, stepper)(dt=300.0)
+        return sim
+
+    _run_through_modules(make, 3, monkeypatch)
 
 
-def test_land_rollout_refuses_user_bcs_series_and_snow():
+def test_land_rollout_refuses_user_bcs_series_and_snow(monkeypatch):
+    """User BCs and a series of uneven spacing take the module path of
+    ``run``, as in JAX; a snowpack is not ported and raises."""
+    def with_bc(m):
+        jg, pg = _grids(4, 8)
+        return m.initialize(m.LandModel(grid=jg if m is tt else pg), m.ForwardEuler(dt=300.0),
+                            initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
+                            boundary_conditions=m.PrescribedSurfaceTemperature(3.0))
+
+    def uneven(m):
+        jg, pg = _grids(4, 8)
+        return m.initialize(
+            m.LandModel(grid=jg if m is tt else pg), m.ForwardEuler(dt=300.0),
+            (m.TimeSeriesInputSource(times=np.array([0.0, 10.0, 30.0]), series={
+                "air_temperature": np.array([1.0, 2.0, 3.0])}),),
+            initializers={"temperature": 5.0, "saturation_water_ice": 0.8})
+
+    _run_through_modules(with_bc, 2, monkeypatch)
+    _run_through_modules(uneven, 2, monkeypatch)
     _, pg = _grids(4, 8)
-    sim = tp.initialize(tp.LandModel(grid=pg), tp.ForwardEuler(dt=300.0),
-                        initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
-                        boundary_conditions=tp.PrescribedSurfaceTemperature(3.0))
-    with pytest.raises(ValueError, match="coupling BCs"):
-        sim.run(steps=1)
-    sim = tp.initialize(tp.LandModel(grid=pg), tp.ForwardEuler(dt=300.0),
-                        (tp.TimeSeriesInputSource(times=np.array([0.0, 10.0, 30.0]), series={
-                            "air_temperature": np.array([1.0, 2.0, 3.0])}),),
-                        initializers={"temperature": 5.0, "saturation_water_ice": 0.8})
-    with pytest.raises(ValueError, match="uniformly spaced"):
-        sim.run(steps=1)
     with pytest.raises(ValueError, match="snowpack"):
         tp.LandModel(grid=pg, snow=object())
     with pytest.raises(ValueError, match="SoilModel|LandModel"):

@@ -142,7 +142,7 @@ def test_plain_heat_rollout_equals_module_steps(stepper):
     sim, ref = build(), build()
     advance(sim.model, sim.state, sim.ctx, 40, 300.0, timestepper=sim.timestepper, plain=True)
     for _ in range(40):
-        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, 300.0)
+        ref.timestepper.pre_closure_step(ref.model, ref.state, ref.ctx, (), 300.0)
     ref.model.closure(ref.state, ref.ctx)
     for name in FIELDS[:5]:
         torch.testing.assert_close(sim.state[name], ref.state[name], rtol=0, atol=0)

@@ -197,7 +197,7 @@ def test_forward_euler_step_matches_jax():
     and the closure after the update."""
     jsim, psim = jax_sim("golden", CELLS, NZ), port_sim("golden", CELLS, NZ)
     ref = jsim.step_fn(jsim.state, 300.0)
-    psim.timestepper.step(psim.model, psim.state, psim.ctx, 300.0)
+    psim.timestepper.step(psim.model, psim.state, psim.ctx, (), 300.0)
     assert_fields_close(psim.state, ref, FIELDS + ("hydraulic_conductivity",))
     for name, want in ref.tendencies.items():
         want = np.asarray(want)
