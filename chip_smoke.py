@@ -2,7 +2,8 @@
 
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
 column rollouts, ForwardEuler and Heun, heat + Richards and heat only,
-ImplicitEuler with Thomas or PCR solves, and the segment VJP; one ``nvcc``
+ImplicitEuler with Thomas or PCR solves, the segment VJP of each of these
+but Heun over heat only, the land rollout and the full step; one ``nvcc``
 per instantiation, all in parallel) and drives the port's paths, each with
 the kernel launch counts set to 0 just before it and read just after:
 
@@ -44,7 +45,17 @@ the kernel launch counts set to 0 just before it and read just after:
   of mean(T) + mean(sat) in log K_sat, after checking the segment-VJP kernel
   against its plain version (torch autograd) on 1,024 columns at float64
   and float32, at full width at float32 (the plain version in chunks of
-  1,024 columns), and against the conservation of water.
+  1,024 columns), and against the conservation of water;
+* the gradient path of the segment VJP's other schemes, each at 56,951
+  columns, Nz 30, float32, 288 steps in segments of 48, after its kernel
+  against its plain version (float64 on 1,024 columns at the scheme's
+  float64 Nz, float32 at full width in chunks of 4,096 columns) and, with
+  Richards flow, the water identity through it: ``grad_heun_n145`` (Heun at
+  dt 60 s), ``grad_implicit_n145_pcr`` and ``_thomas`` (ImplicitEuler at dt
+  900 s), all in log K_sat as above, and ``grad_n145_heat``
+  (`bench_configs.py:270-308`: the heat-only model, d mean(T) / d
+  k_mineral, ForwardEuler at dt 300 s), also timed through the port's
+  ``make_rollout_fn(remat=True)``.
 
 Run from the repository root:
 
@@ -58,8 +69,9 @@ and exits non-zero, and so does a machine without a CUDA device.
 the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
 golden, bench and gradient configurations, of the Heun kernel's on
 ``heun_forced`` and the Heun + series configuration, of the heat-only,
-implicit (each solver), segment-VJP and land kernels' on their full-width
-comparison operands, and the bench ``main_path`` rate, for the package in
+implicit (each solver), segment-VJP (each scheme the package has) and land
+kernels' on their full-width comparison operands, and the bench
+``main_path`` rate, for the package in
 ``DIR`` (default: this checkout). Run it on two checkouts in one call to
 compare their kernels bit for bit.
 """
@@ -218,6 +230,77 @@ def implicit_ops(solver, nz):
     return (IMPLICIT_OPS_PER_LEVEL_STEP * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
             + IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
 H100_FP32_OPS, H100_HBM_BYTES = 67e12, 3.35e12  # published peaks, SXM, 700 W
+
+# the segment VJP of the other schemes, each timed as a value and gradient
+# over 288 steps in 6 segments of 48 at full width, Nz 30 (the float32
+# instantiations; the float64 checks at each scheme's float64 Nz):
+# grad_heun_n145 and grad_implicit_n145 are grad_n145_heat_richards
+# (bench_configs.py:318-336: mean(T) + mean(sat) in log K_sat) stepped by
+# Heun at dt 60 s (the Heun bench dt) and by ImplicitEuler at dt 900 s
+# (column_implicit_tridiag's; three simulated days) with each solver;
+# grad_n145_heat is bench_configs.py:270-308 (the heat-only default model, T
+# = -1 degC, sat 0.8, top 4 degC, d mean(T) / d k_mineral) at dt 300 s and Nz
+# 30 (the heat kernel's instantiation) instead of 20
+GRAD_SCHEMES = {
+    "grad_heun_n145": dict(stepper="heun", solver="pcr", physics="richards", dt=60.0, f64_nz=15),
+    "grad_implicit_n145_pcr": dict(stepper="implicit", solver="pcr", physics="richards",
+                                   dt=900.0, f64_nz=16),
+    "grad_implicit_n145_thomas": dict(stepper="implicit", solver="thomas", physics="richards",
+                                      dt=900.0, f64_nz=16),
+    "grad_n145_heat": dict(stepper="euler", solver="pcr", physics="heat", dt=300.0, f64_nz=30),
+}
+K_MINERAL = 3.8
+# the float32 full-width comparisons of these schemes run the plain version
+# in chunks of GRAD_SCHEME_CHUNK columns, 14 a scheme: torch autograd through
+# the plain steps is thousands of small launches a chunk, so fewer, wider
+# chunks keep the script inside its time limit; each column is compared all
+# the same
+GRAD_SCHEME_CHUNK = 4096
+# Operations behind these VJPs' bounds, counted as ADJ_OPS (the adjoint
+# without its recompute, the forward's intermediates taken as given, the
+# cheaper side of each data-dependent branch):
+# * Heun, per level and step: the Heun step (HEUN_OPS_PER_LEVEL_STEP); the
+#   adjoint of closure_rhs at the stage and at x_n (each ADJ_OPS); the
+#   corrector's 0.5 (g dt) for U and sat (2 each) and the stage's way back,
+#   gx += gy and gf_n += gy dt for U and sat (6): 10;
+# * ImplicitEuler, per level and step: the implicit step's operations
+#   (implicit_ops); the adjoint of closure_rhs (ADJ_OPS); for each system
+#   the rows' cotangents (3 products), then d(Psi)/d(sat)'s derivative
+#   (clip 2 compares, the powers' three values and derivatives 9, the
+#   clamp 2, the products of the chain 8, times the cotangent and the add
+#   2: 23), dT/dU's -(g Dh) Dh (3) and the face kappa's mean (3); per
+#   interior face and system, diffusion_rows' adjoint (for each of its two
+#   rows: two quotients, the face K's s (qa D + qb D) 5 and the two chain
+#   factors' products and adds 4: 22); per column and system one solve of
+#   the transposed rows (implicit_solver_ops) and the Dirichlet top row's
+#   adjoint (5);
+# * heat only, per level and step: the heat-only step
+#   (HEAT_OPS_PER_LEVEL_STEP) and its adjoint: the heat flux and energy
+#   update (11) and level_adjoint without the centre K (34).
+HEUN_VJP_OPS_PER_LEVEL_STEP = HEUN_OPS_PER_LEVEL_STEP + 2 * sum(ADJ_OPS.values()) + 10
+IMPLICIT_VJP_OPS_PER_LEVEL = sum(ADJ_OPS.values()) + 2 * 3 + 23 + 3 + 3
+IMPLICIT_VJP_OPS_PER_FACE = 2 * 22
+HEAT_VJP_OPS_PER_LEVEL_STEP = HEAT_OPS_PER_LEVEL_STEP + 11 + 34
+
+
+def scheme_vjp_ops(name, nz):
+    """Operations of one step of one column of a scheme's segment VJP."""
+    cfg = GRAD_SCHEMES[name]
+    if cfg["stepper"] == "heun":
+        return HEUN_VJP_OPS_PER_LEVEL_STEP * nz
+    if cfg["stepper"] == "implicit":
+        return (implicit_ops(cfg["solver"], nz) + IMPLICIT_VJP_OPS_PER_LEVEL * nz
+                + IMPLICIT_VJP_OPS_PER_FACE * (nz - 1)
+                + 2 * (implicit_solver_ops(cfg["solver"], nz) + 5))
+    return HEAT_VJP_OPS_PER_LEVEL_STEP * nz
+
+
+def scheme_vjp_bytes(name, nz, cells, itemsize, table_rows):
+    """Bytes a scheme's segment VJP must move: it reads the input carry, the
+    output cotangents and the table, and writes the input cotangents and the
+    two parameter cotangents (heat only: U and sat, their cotangents)."""
+    values = 6 * nz if GRAD_SCHEMES[name]["physics"] == "heat" else 3 * (2 * nz + 1)
+    return (values * cells + table_rows + 2) * itemsize
 
 # one full step (make_fused_step) in experiments/ab_fused_step.py's setup:
 # the bench composition at full width, 56,951 x 30 float32, dt 60 s; the
@@ -799,6 +882,80 @@ def loss_only(tp, sim, log_ksat):
     return float(out.temperature.mean() + out.saturation_water_ice.mean())
 
 
+def scheme_model_fn(tp, name, grid):
+    """``param -> model`` of a GRAD_SCHEMES configuration: log K_sat for
+    heat + Richards (grad_model), k_mineral for the heat-only default
+    model."""
+    from terrarium_tpu_torch.convert import with_differentiable_params
+
+    if GRAD_SCHEMES[name]["physics"] == "heat":
+        return lambda k: tp.SoilModel(grid=grid, soil=with_differentiable_params(
+            tp.SoilEnergyWaterCarbon(), mineral_conductivity=k))
+    return lambda x: grad_model(tp, grid, x)
+
+
+def scheme_sim(tp, name, cells, nz, dtype):
+    cfg = GRAD_SCHEMES[name]
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device="cuda")
+    heat = cfg["physics"] == "heat"
+    ts = {"heun": tp.Heun(dt=cfg["dt"]), "euler": tp.ForwardEuler(dt=cfg["dt"]),
+          "implicit": tp.ImplicitEuler(dt=cfg["dt"], solver=cfg["solver"])}[cfg["stepper"]]
+    return tp.initialize(
+        scheme_model_fn(tp, name, grid)(K_MINERAL if heat else LOG_KSAT), ts,
+        initializers={"temperature": -1.0, "saturation_water_ice": 0.8 if heat else (
+            lambda x, z: np.minimum(1.0, 0.6 - 0.04 * z))},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(4.0))
+
+
+def scheme_value(tp, name, sim, fused=True, remat_fn=False):
+    """The loss after GRAD_STEPS steps and its gradient in the parameter:
+    through make_fused_grad_rollout (kernels), or, ``remat_fn``, the port's
+    make_rollout_fn(remat=True) (torch autograd through the modules)."""
+    from terrarium_tpu_torch.timesteppers.autodiff import make_rollout_fn
+    from terrarium_tpu_torch.timesteppers.fused_grad import make_fused_grad_rollout
+
+    cfg = GRAD_SCHEMES[name]
+    heat = cfg["physics"] == "heat"
+    grid = sim.model.grid
+    p = torch.tensor(K_MINERAL if heat else LOG_KSAT, dtype=torch.float64, device="cuda",
+                     requires_grad=True)
+    model_fn = scheme_model_fn(tp, name, grid)
+    if remat_fn:
+        out = make_rollout_fn(model_fn(p), sim.timestepper, sim.ctx, steps=GRAD_STEPS,
+                              remat=True)(sim.state, cfg["dt"])
+    else:
+        out = make_fused_grad_rollout(model_fn, sim.timestepper, sim.ctx, steps=GRAD_STEPS,
+                                      dt=cfg["dt"], inner_steps=GRAD_INNER)(sim.state, p)
+    loss = out.temperature.mean()
+    if not heat:
+        loss = loss + out.saturation_water_ice.mean()
+    (g,) = torch.autograd.grad(loss, p)
+    return float(loss.detach()), float(g)
+
+
+def scheme_operands(fs, name, sim, seed):
+    """Carry, one segment's BC table (Heun: one row more), coordinates,
+    parameters, seeded output cotangents and the scheme's keywords of a
+    GRAD_SCHEMES simulation."""
+    cfg = GRAD_SCHEMES[name]
+    heat = cfg["physics"] == "heat"
+    g = sim.model.grid
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    st = sim.state
+    carry = (st.prognostic["internal_energy"].contiguous(), st["saturation_water_ice"].contiguous(),
+             None if heat else st.prognostic["surface_excess_water"].contiguous())
+    table = torch.full((GRAD_INNER + (cfg["stepper"] == "heun"),), 4.0, dtype=g.dtype,
+                       device="cuda")
+    rng = np.random.default_rng(seed)
+    cts = tuple(None if t is None else
+                torch.as_tensor(rng.normal(size=tuple(t.shape)), device="cuda").to(g.dtype)
+                for t in carry)
+    kw = dict(stepper=cfg["stepper"], physics=cfg["physics"], solver=cfg["solver"])
+    return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype), cts, kw
+
+
 def vjp_operands(tp, fs, sim, seed):
     """Carry, one segment's BC table, coordinates, parameters and seeded
     output cotangents of a gradient-configuration simulation."""
@@ -936,8 +1093,9 @@ def main():
     t0 = time.perf_counter()
     names = tuple(cuda_build.INSTANTIATIONS)
     cuda_build.build(*names)
-    phase("build", seconds=time.perf_counter() - t0,
-          ptxas={n: ptxas_summary(cuda_build.ptxas_report(n)) for n in names})
+    ptxas_all = {n: ptxas_summary(cuda_build.ptxas_report(n)) for n in names}
+    phase("build", seconds=time.perf_counter() - t0, instantiations=sum(
+        len(cuda_build.INSTANTIATIONS[n]) for n in names), ptxas=ptxas_all)
 
     # ---- golden configuration, through the kernel and through the plain version
     golden = np.load(GOLDEN)
@@ -1526,6 +1684,141 @@ def main():
           central_difference=g_fd, rel_err_vs_fd=rel_fd,
           vjp_segment_ms=seg_ms, fwd_segment_ms=fwd_seg_ms, card=card)
 
+    # ---- the segment VJP of the other schemes (Heun, ImplicitEuler with each
+    # solver, ForwardEuler over the heat-only model), each: the kernel
+    # against its plain version, one 48-step segment, at float64 on
+    # GRAD_COMPARE_CELLS columns (the scheme's float64 Nz), with the water
+    # identity through the kernel (heat + Richards), and at float32 at full
+    # width (the plain version in chunks of GRAD_SCHEME_CHUNK columns); then
+    # the scheme's gradient at full width: one warm-up, the median of 5
+    schemes = {}
+    for name, cfg in GRAD_SCHEMES.items():
+        heat, dt = cfg["physics"] == "heat", cfg["dt"]
+        sim = scheme_sim(tp, name, GRAD_COMPARE_CELLS, cfg["f64_nz"], torch.float64)
+        carry, table, coords, params, cts, kw = scheme_operands(fs, name, sim, seed=7)
+        out_k = fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts, **kw)
+        out_p = fv.soil_column_segment_vjp_plain(*carry, table, *coords, params, dt, *cts, **kw)
+        torch.cuda.synchronize()
+        f64_err = {}
+        for vname, a, b in zip(vjp_names, out_k, out_p):
+            if b is None:
+                continue
+            scale = float(b.abs().max())
+            f64_err[vname] = float((a - b).abs().max())
+            if (not bool(torch.isfinite(a).all())
+                    or bool(((a - b).abs() > 1e-9 * b.abs() + 1e-12 * scale).any())):
+                raise AssertionError(f"{name}: VJP kernel vs plain {vname} (f64): max abs err "
+                                     f"{f64_err[vname]}, largest magnitude {scale}")
+        if heat and (out_k[2] is not None or float(out_k[3]) != 0.0):
+            raise AssertionError(f"{name}: the heat-only VJP gave a pool or K_sat cotangent")
+        ident = None
+        if not heat:  # the cotangents (0, dz, 1) of the total water
+            dz = coords[0][:, None].expand_as(carry[1]).contiguous()
+            _, gsat, gS, _, _ = fv.soil_column_segment_vjp(
+                *carry, table, *coords, params, dt, torch.zeros_like(carry[0]), dz,
+                torch.ones_like(carry[2]), **kw)
+            ident = max(float(((gsat - dz).abs() / dz).max()), float((gS - 1.0).abs().max()))
+            ident_tol = 1e-12 if cfg["stepper"] == "heun" else 1e-10
+            if ident > ident_tol or not bool((carry[1] == 1.0).any()):
+                raise AssertionError(f"{name}: water identity through the VJP kernel {ident}")
+        del sim, carry, out_k, out_p
+        gsim = scheme_sim(tp, name, GRAD_CELLS, BENCH_NZ, torch.float32)
+        carry, table, coords, params, cts, kw = scheme_operands(fs, name, gsim, seed=11)
+        out_k = fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts, **kw)
+
+        def cols_of(ts, cols):
+            return tuple(None if t is None else t[..., cols].contiguous() for t in ts)
+
+        ref = [None if t is None else torch.empty_like(t) for t in carry] + [0.0, 0.0]
+        for lo in range(0, GRAD_CELLS, GRAD_SCHEME_CHUNK):
+            cols = slice(lo, lo + GRAD_SCHEME_CHUNK)
+            part = fv.soil_column_segment_vjp_plain(*cols_of(carry, cols), table, *coords,
+                                                    params, dt, *cols_of(cts, cols), **kw)
+            for i in range(3):
+                if ref[i] is not None:
+                    ref[i][..., cols] = part[i]
+            ref[3] += float(part[3])
+            ref[4] += float(part[4])
+        f32_err, f32_rel = {}, {}
+        for vname, a, b in zip(vjp_names, out_k, ref):
+            if b is None:
+                continue
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: VJP kernel produced non-finite {vname}")
+            if isinstance(b, float):
+                err, scale = abs(float(a) - b), abs(b)
+            else:
+                err, scale = float((a - b).abs().max()), float(b.abs().max())
+            f32_err[vname], f32_rel[vname] = err, err / scale if scale > 0.0 else err
+            if err > F32_VJP_REL_TOL * scale:
+                raise AssertionError(f"{name}: VJP kernel vs plain {vname} (f32 full width): "
+                                     f"max abs err {err}, largest magnitude {scale}")
+        fwd = fs.ROLLOUTS[cfg["stepper"], cfg["physics"]]
+        fkw = {"solver": cfg["solver"]} if cfg["stepper"] == "implicit" else {}
+        k_ms = cuda_ms(lambda: fv.soil_column_segment_vjp(*carry, table, *coords, params, dt,
+                                                          *cts, **kw), reps=3, warmup=True)
+        first = slice(0, GRAD_SCHEME_CHUNK)
+        p_ms = cuda_ms(lambda: fv.soil_column_segment_vjp_plain(
+            *cols_of(carry, first), table, *coords, params, dt, *cols_of(cts, first), **kw))
+        f_ms = cuda_ms(lambda: fwd(*carry, table, *coords, params, dt, **fkw), reps=3,
+                       warmup=True)
+        b = bound_ms(scheme_vjp_ops(name, BENCH_NZ) * GRAD_CELLS * GRAD_INNER,
+                     scheme_vjp_bytes(name, BENCH_NZ, GRAD_CELLS, 4, table.numel()))
+        del out_k, ref, part
+        # the gradient: 6 forward and 6 VJP launches
+        scheme_value(tp, name, gsim)
+        torch.cuda.synchronize()
+        times, launches = [], {}
+        for i in range(5):
+            reset_counts()
+            t0 = time.perf_counter()
+            value, grad = scheme_value(tp, name, gsim)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = launched()
+        segments = GRAD_STEPS // GRAD_INNER
+        if launches != {fwd.__name__: segments, "soil_column_segment_vjp": segments}:
+            raise AssertionError(f"{name}: the gradient launched {launches}")
+        if not (np.isfinite(value) and np.isfinite(grad) and grad != 0.0):
+            raise AssertionError(f"{name}: value {value}, gradient {grad}")
+        med = float(np.median(times))
+        entry = cuda_build._entry_name("soil_column_segment_vjp", fv._check_scheme(
+            cfg["stepper"], cfg["physics"], cfg["solver"]), torch.float32, BENCH_NZ)
+        extra = {}
+        if heat:  # the route JAX times for grad_n145_heat: make_rollout_fn(remat=True)
+            scheme_value(tp, name, gsim, remat_fn=True)
+            torch.cuda.synchronize()
+            reset_counts()
+            remat_s = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                r_value, r_grad = scheme_value(tp, name, gsim, remat_fn=True)
+                torch.cuda.synchronize()
+                remat_s.append(time.perf_counter() - t0)
+            if launched():
+                raise AssertionError(f"{name}: make_rollout_fn launched {launched()}")
+            extra = dict(make_rollout_fn_seconds=remat_s, make_rollout_fn_loss=r_value,
+                         make_rollout_fn_grad=r_grad,
+                         make_rollout_fn_rel_diff=abs(r_grad - grad) / abs(r_grad))
+        schemes[name] = dict(launches=launches["soil_column_segment_vjp"],
+                             max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b[0], bound_by=b[1], entry=entry)
+        phase(name, cells=GRAD_CELLS, nz=BENCH_NZ, dt=dt, steps=GRAD_STEPS,
+              inner_steps=GRAD_INNER, stepper=cfg["stepper"], solver=cfg["solver"],
+              physics=cfg["physics"], seconds_median=med, seconds=times, launches=launches,
+              cells_steps_per_s=GRAD_CELLS * GRAD_STEPS / med, loss=value,
+              dloss_dparam=grad, param="k_mineral" if heat else "log_K_sat",
+              vjp_segment_ms=k_ms, fwd_segment_ms=f_ms, plain_vjp_ms=p_ms,
+              plain_cells=GRAD_SCHEME_CHUNK, bound_ms=b[0], bound_by=b[1],
+              ops_per_column_step=scheme_vjp_ops(name, BENCH_NZ),
+              ptxas=ptxas_all["soil_column_segment_vjp"].get(entry, {}).get("vjp"),
+              f64_cells=GRAD_COMPARE_CELLS, f64_nz=cfg["f64_nz"], f64_rtol=1e-9,
+              f64_max_abs_err=f64_err, water_identity_rel_err=ident,
+              f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
+              f32_max_err_over_magnitude=f32_rel, card=card, **extra)
+        del gsim, carry, table, cts
+
     # ---- one full step (make_fused_step): the kernel against the plain
     # version (the module step) on every leaf, float64 along the plain
     # trajectory and float32 at full width, each stepper and physics
@@ -1676,7 +1969,13 @@ def main():
         "ms": seg_ms, "plain_ms": vjp_plain_ms, "bound_ms": vjp_b[0], "bound_by": vjp_b[1],
         "library_ms": None,
         "shape": f"{GRAD_CELLS} x {GRAD_NZ} f32, {GRAD_INNER} steps; plain_ms at "
-                 f"{GRAD_COMPARE_CELLS} columns"}, {
+                 f"{GRAD_COMPARE_CELLS} columns"}, *({
+        "name": f"soil_column_segment_vjp[{name}]", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_segment_vjp.cu",
+        "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
+        **{k: v for k, v in sc.items() if k != "entry"}, "library_ms": None,
+        "shape": f"{GRAD_CELLS} x {BENCH_NZ} f32, {GRAD_INNER} steps, {sc['entry']}; "
+                 f"plain_ms at {GRAD_SCHEME_CHUNK} columns"} for name, sc in schemes.items()), {
         "name": "land_column_rollout", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/land_column_rollout.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283 traced over a LandModel step "
@@ -1780,6 +2079,14 @@ def euler_digest(root: pathlib.Path):
     digests["segment_vjp_f32_nz20"] = digest(
         fv.soil_column_segment_vjp(*ops[0], ops[1], *ops[2], ops[3], GRAD_DT, *ops[4]))
     del gsim, ops
+    if hasattr(fv, "VJP_SCHEMES"):  # the segment VJP of the other schemes
+        for name, cfg in GRAD_SCHEMES.items():
+            gsim = scheme_sim(tp, name, GRAD_CELLS, BENCH_NZ, torch.float32)
+            carry, table, coords, params, cts, kw = scheme_operands(fs, name, gsim, seed=11)
+            out = fv.soil_column_segment_vjp(*carry, table, *coords, params, cfg["dt"], *cts,
+                                             **kw)
+            digests[f"segment_vjp_{name}_f32_nz30"] = digest([t for t in out if t is not None])
+            del gsim, carry, cts, out
     sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent")
     carry, inputs, root, coords, params = land_operands(ls, land_inputs, sim)
     out = ls.land_column_rollout(carry, inputs, root, *coords, params, LAND_DT,

@@ -665,41 +665,45 @@ SOIL_FN void min_adjoint(T a, T b, T g, T& ga, T& gb) {
 }
 
 // cotangents of (sat, U) of one level from those of its temperature,
-// conductivity and centre hydraulic conductivity; the parameter
-// cotangents (K_sat, sk_mineral) are accumulated
-template <typename T>
-SOIL_FN void level_adjoint(const Level<T>& v, const T sk, const T Uk, const T gT, const T gkap,
-                           const T gKc, const Consts<T>& c, const SoilColumnParams& P,
-                           T& gs, T& gU, T& gKsat, T& gskm)
+// conductivity and centre hydraulic conductivity (WITH_K) and, WITH_C, of
+// its heat capacity beyond the temperature's (the implicit rows' dT/dU);
+// the parameter cotangents (K_sat, sk_mineral) are accumulated
+template <typename T, bool WITH_K = true, bool WITH_C = false>
+SOIL_FN void level_adjoint(const Level<T, WITH_K>& v, const T sk, const T Uk, const T gT,
+                           const T gkap, const T gKc, const T gCx, const Consts<T>& c,
+                           const SoilColumnParams& P, T& gs, T& gU, T& gKsat, T& gskm)
 {
     // kap = acc * acc; acc = sum of sqrt(k_i) * fractions + sk_mineral + ...
     const T gacc = gkap * v.acc + gkap * v.acc;
     gskm += gacc;
     T gwater = c.sk_water * gacc, gice = c.sk_ice * gacc, gair = c.sk_air * gacc;
-    T gliq = T(0), gLt = T(0), gI = T(0);
+    T gliq = T(0), gLt = T(0);
 
-    // centre hydraulic conductivity
-    if (v.se >= T(1)) {
-        gKsat += gKc * v.I_ice;
-        gI += gKc * c.K_sat;
-    } else if (!v.frozen) {
-        // K_unsat = ((K_sat * I_ice) * sq) * (inner * inner)
-        const T inner2 = v.inner * v.inner;
-        const T gKI = gKc * inner2 * v.sq;
-        gKsat += gKI * v.I_ice;
-        gI += gKI * c.K_sat;
-        const T KI = c.K_sat * v.I_ice;
-        const T ginner = gKc * (KI * v.sq) * (v.inner + v.inner);
-        T gses = gKc * inner2 * KI * (T(0.5) / v.sq);
-        // inner = 1 - fpow(1 - A, k2), A = fpow(se_s, k1)
-        const T gB = -ginner * dfpow(T(1) - v.A, P.num_k2, P.den_k2, c.p_k2);
-        gses += -gB * dfpow(v.se_s, P.num_k1, P.den_k1, c.p_k1);
-        // se_s = min(se, k_se_hi); se = clamp(water / k_theta_sat, 0, 1)
-        const T r = v.water / c.k_theta_sat;
-        if (v.se <= c.k_se_hi && r >= T(0) && r <= T(1)) gwater += gses / c.k_theta_sat;
+    if constexpr (WITH_K) {
+        T gI = T(0);
+        // centre hydraulic conductivity
+        if (v.se >= T(1)) {
+            gKsat += gKc * v.I_ice;
+            gI += gKc * c.K_sat;
+        } else if (!v.frozen) {
+            // K_unsat = ((K_sat * I_ice) * sq) * (inner * inner)
+            const T inner2 = v.inner * v.inner;
+            const T gKI = gKc * inner2 * v.sq;
+            gKsat += gKI * v.I_ice;
+            gI += gKI * c.K_sat;
+            const T KI = c.K_sat * v.I_ice;
+            const T ginner = gKc * (KI * v.sq) * (v.inner + v.inner);
+            T gses = gKc * inner2 * KI * (T(0.5) / v.sq);
+            // inner = 1 - fpow(1 - A, k2), A = fpow(se_s, k1)
+            const T gB = -ginner * dfpow(T(1) - v.A, P.num_k2, P.den_k2, c.p_k2);
+            gses += -gB * dfpow(v.se_s, P.num_k1, P.den_k1, c.p_k1);
+            // se_s = min(se, k_se_hi); se = clamp(water / k_theta_sat, 0, 1)
+            const T r = v.water / c.k_theta_sat;
+            if (v.se <= c.k_se_hi && r >= T(0) && r <= T(1)) gwater += gses / c.k_theta_sat;
+        }
+        // I_ice = 10^(neg_impedance * (1 - liq))
+        gliq += -(gI * v.I_ice * d_log(T(10))) * c.neg_impedance;
     }
-    // I_ice = 10^(neg_impedance * (1 - liq))
-    gliq += -(gI * v.I_ice * d_log(T(10))) * c.neg_impedance;
 
     // temperature
     T gC = T(0);
@@ -712,6 +716,7 @@ SOIL_FN void level_adjoint(const Level<T>& v, const T sk, const T Uk, const T gT
         gU += gT / v.C;
         gC = -gT * v.Tk / v.C;
     }
+    if constexpr (WITH_C) gC = gC + gCx;
     // heat capacity
     gwater += c.c_water * gC;
     gice += c.c_ice * gC;
@@ -731,80 +736,114 @@ SOIL_FN void level_adjoint(const Level<T>& v, const T sk, const T Uk, const T gT
     gs += gLt * c.por * c.L;
 }
 
-// Cotangents through one step(): on entry (gU, gs, gS) are those of the
-// step's output, on return those of its input (U, sat, S); the parameter
-// cotangents are accumulated into gKsat and gskm. The step is recomputed
-// from its input carry.
+// What a stepper reads of closure_rhs besides the closed column and the
+// tendencies, as cotangents for rhs_adjoint: nothing (ForwardEuler, Heun) ...
+template <typename T>
+struct NoTerms {
+    static constexpr bool on = false;
+    SOIL_FN T kap(int) const { return T(0); }
+    SOIL_FN T C(int) const { return T(0); }
+    SOIL_FN T Keff(int) const { return T(0); }
+};
+
+// ... or ImplicitTerms' (ImplicitEuler): the centre thermal conductivity,
+// the heat capacity (through dT/dU = 1/C off the freeze plateau) and the
+// Darcy face conductivity
 template <typename T, int NZ>
-SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T vtop,
-                          T (&gU)[NZ], T (&gs)[NZ], T& gS, T& gKsat, T& gskm,
-                          const Consts<T>& c, const SoilColumnParams& P, const T* dz,
-                          const T* dzf, const T* zc, const T* zf, const T dt)
+struct TermCotangents {
+    static constexpr bool on = true;
+    T gkap[NZ], gC[NZ], gKeff[NZ + 1];
+    SOIL_FN T kap(int k) const { return gkap[k]; }
+    SOIL_FN T C(int k) const { return gC[k]; }
+    SOIL_FN T Keff(int f) const { return gKeff[f]; }
+};
+
+// Cotangents through closure_rhs of the column (U, sat, S) with top
+// temperature vtop. On entry (gU, gs, gS) are the cotangents of what the
+// caller reads of the closed column itself (U, the adjusted saturation and
+// the pool after the spill; HEAT: U and sat), (gfU, gfs, gfS) those of the
+// tendencies and x those of the terms an implicit step reads (X::on); on
+// return (gU, gs, gS) are the cotangents of the input column. The parameter
+// cotangents are accumulated into gKsat and gskm. The closure is recomputed
+// from the input column, then the pieces are undone in exact reverse order:
+// surface pool, Darcy flux with the upwind-min K, face K, heat flux,
+// pressure head, energy closure and centre K, then the down and up sweeps.
+template <typename T, int NZ, bool HEAT, class X>
+SOIL_FN void rhs_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T vtop,
+                         T (&gU)[NZ], T (&gs)[NZ], T& gS, const T (&gfU)[NZ],
+                         const T (&gfs)[NZ], const T gfS, const X& x, T& gKsat, T& gskm,
+                         const Consts<T>& c, const SoilColumnParams& P, const T* dz,
+                         const T* dzf, const T* zc, const T* zf)
 {
     // ---- recompute: sweeps with their predicates, closure, conductivities
     T s[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) s[k] = sat[k];
-    T spill, wt;
-    unsigned spilled, clipped;
-    sweeps<T, NZ>(s, spill, wt, spilled, clipped, dz, zf);
-    const T S1 = S + spill;
+    T spill = T(0), wt = T(0), S1 = S;
+    unsigned spilled = 0u, clipped = 0u;
+    if constexpr (!HEAT) {
+        sweeps<T, NZ>(s, spill, wt, spilled, clipped, dz, zf);
+        S1 = S + spill;
+    }
     T Tk[NZ], kap[NZ], Kc[NZ], psi[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
-        const Level<T> v(s[k], U[k], c, P);
+        const Level<T, !HEAT> v(s[k], U[k], c, P);
         Tk[k] = v.Tk;
         kap[k] = v.kap;
-        Kc[k] = v.Kc;
-        psi[k] = Head<T>(s[k], wt, zc[k], c, P).psi;
+        if constexpr (!HEAT) {
+            Kc[k] = v.Kc;
+            psi[k] = Head<T>(s[k], wt, zc[k], c, P).psi;
+        }
     }
 
-    // ---- surface pool: S' = S1 + min(0, S1) * dt
-    const T gS1 = S1 < T(0) ? gS + gS * dt : gS;
+    // ---- surface pool: the tendency min(0, S1)
+    const T gS1 = S1 < T(0) ? gS + gfS : gS;
 
-    // ---- water update and Darcy flux; the boundary faces carry no flux
-    // (zero-gradient ghosts), so only interior faces f = 1 .. NZ-1 count
-    T gKf[NZ + 1], gpsi[NZ];
+    // ---- Darcy flux; the boundary faces carry no flux (zero-gradient
+    // ghosts), so only interior faces f = 1 .. NZ-1 count
+    T gKf[NZ + 1], gpsi[NZ], gKc[NZ];
 #pragma unroll
     for (int f = 0; f <= NZ; ++f) gKf[f] = T(0);
 #pragma unroll
-    for (int k = 0; k < NZ; ++k) gpsi[k] = T(0);
+    for (int k = 0; k < NZ; ++k) { gpsi[k] = T(0); gKc[k] = T(0); }
+    if constexpr (!HEAT) {
 #pragma unroll
-    for (int f = 1; f < NZ; ++f) {
-        // sat'[k] = sat[k] + ((-((qw[k+1] - qw[k]) / dz[k])) / por) * dt
-        const T glo = -((gs[f - 1] * dt) / c.por) / dz[f - 1];
-        const T ghi = -((gs[f] * dt) / c.por) / dz[f];
-        const T gqw = glo - ghi;
-        const T grad = (psi[f] - psi[f - 1]) / dzf[f];
-        const T K_f = face_K<T, NZ>(Kc, f);
-        const T K_lo = face_K<T, NZ>(Kc, f - 1);
-        const T K_hi = face_K<T, NZ>(Kc, f + 1);
-        const T K_eff = grad < T(0) ? vmin(K_lo, K_f) : vmin(K_f, K_hi);
-        const T gK = -gqw * grad;
-        const T ggrad = -gqw * K_eff;
-        if (grad < T(0)) min_adjoint(K_lo, K_f, gK, gKf[f - 1], gKf[f]);
-        else min_adjoint(K_f, K_hi, gK, gKf[f], gKf[f + 1]);
-        gpsi[f] += ggrad / dzf[f];
-        gpsi[f - 1] -= ggrad / dzf[f];
+        for (int f = 1; f < NZ; ++f) {
+            // dsat/dt[k] = (-((qw[k+1] - qw[k]) / dz[k])) / por
+            const T glo = -(gfs[f - 1] / c.por) / dz[f - 1];
+            const T ghi = -(gfs[f] / c.por) / dz[f];
+            const T gqw = glo - ghi;
+            const T grad = (psi[f] - psi[f - 1]) / dzf[f];
+            const T K_f = face_K<T, NZ>(Kc, f);
+            const T K_lo = face_K<T, NZ>(Kc, f - 1);
+            const T K_hi = face_K<T, NZ>(Kc, f + 1);
+            const T K_eff = grad < T(0) ? vmin(K_lo, K_f) : vmin(K_f, K_hi);
+            T gK = -gqw * grad;
+            if constexpr (X::on) gK = gK + x.Keff(f);
+            const T ggrad = -gqw * K_eff;
+            if (grad < T(0)) min_adjoint(K_lo, K_f, gK, gKf[f - 1], gKf[f]);
+            else min_adjoint(K_f, K_hi, gK, gKf[f], gKf[f + 1]);
+            gpsi[f] += ggrad / dzf[f];
+            gpsi[f - 1] -= ggrad / dzf[f];
+        }
+        // face K from centre K
+        gKc[0] += gKf[0];
+#pragma unroll
+        for (int f = 1; f < NZ - 1; ++f)
+            min_adjoint(Kc[f - 1], Kc[f], gKf[f], gKc[f - 1], gKc[f]);
+        gKc[NZ - 1] += gKf[NZ - 1] + gKf[NZ];
     }
-    // face K from centre K
-    T gKc[NZ];
-#pragma unroll
-    for (int k = 0; k < NZ; ++k) gKc[k] = T(0);
-    gKc[0] += gKf[0];
-#pragma unroll
-    for (int f = 1; f < NZ - 1; ++f) min_adjoint(Kc[f - 1], Kc[f], gKf[f], gKc[f - 1], gKc[f]);
-    gKc[NZ - 1] += gKf[NZ - 1] + gKf[NZ];
 
-    // ---- energy update and heat flux (face 0 carries no flux)
+    // ---- heat flux (face 0 carries no flux)
     T gT[NZ], gkap[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) { gT[k] = T(0); gkap[k] = T(0); }
 #pragma unroll
     for (int f = 1; f <= NZ; ++f) {
-        // U'[k] = U[k] + (-((qh[k+1] - qh[k]) / dz[k])) * dt
-        const T glo = -(gU[f - 1] * dt) / dz[f - 1];
-        const T ghi = f < NZ ? -(gU[f] * dt) / dz[f] : T(0);
+        // dU/dt[k] = -((qh[k+1] - qh[k]) / dz[k])
+        const T glo = -gfU[f - 1] / dz[f - 1];
+        const T ghi = f < NZ ? -gfU[f] / dz[f] : T(0);
         const T gqh = glo - ghi;
         if (f < NZ) {
             const T D = (Tk[f] - Tk[f - 1]) / dzf[f];
@@ -825,27 +864,36 @@ SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const
             gT[NZ - 1] -= (gD / dzf[NZ]) + (gD / dzf[NZ]);
         }
     }
+    if constexpr (X::on) {
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) gkap[k] = gkap[k] + x.kap(k);
+    }
 
     // ---- pressure head and closure, level by level
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
-        T gsk = gs[k];  // identity of the water update
-        // psi = psi_h + psi_m + (z - z_top); psi_m = max(raw, psi_min) below
-        // saturation, raw = -(1/alpha) * (ss^(-1/m) - 1)^(1/n), ss = clip(se)
-        const Head<T> h(s[k], wt, zc[k], c, P);
-        if (!(h.se >= T(1)) && h.raw >= c.psi_min && h.se >= c.vg_se_lo
-            && h.se <= c.vg_se_hi) {
-            const T gX = gpsi[k] * c.neg_inv_alpha * dfpow(h.X, P.num_inv_n, P.den_inv_n,
-                                                           c.p_inv_n);
-            const T gss = gX * dfpow(h.ss, P.num_inv_m, P.den_inv_m, c.p_inv_m);
-            gsk += (gss / c.vg_span) * c.por;
+        T gsk = gs[k];  // what the caller reads of the closed saturation
+        if constexpr (!HEAT) {
+            // psi = psi_h + psi_m + (z - z_top); psi_m = max(raw, psi_min)
+            // below saturation, raw = -(1/alpha) * (ss^(-1/m) - 1)^(1/n),
+            // ss = clip(se)
+            const Head<T> h(s[k], wt, zc[k], c, P);
+            if (!(h.se >= T(1)) && h.raw >= c.psi_min && h.se >= c.vg_se_lo
+                && h.se <= c.vg_se_hi) {
+                const T gX = gpsi[k] * c.neg_inv_alpha * dfpow(h.X, P.num_inv_n, P.den_inv_n,
+                                                               c.p_inv_n);
+                const T gss = gX * dfpow(h.ss, P.num_inv_m, P.den_inv_m, c.p_inv_m);
+                gsk += (gss / c.vg_span) * c.por;
+            }
         }
-        const Level<T> v(s[k], U[k], c, P);
-        T gUk = gU[k];  // identity of the energy update
-        level_adjoint(v, s[k], U[k], gT[k], gkap[k], gKc[k], c, P, gsk, gUk, gKsat, gskm);
+        const Level<T, !HEAT> v(s[k], U[k], c, P);
+        T gUk = gU[k];  // what the caller reads of U
+        level_adjoint<T, !HEAT, X::on>(v, s[k], U[k], gT[k], gkap[k], gKc[k],
+                                       x.C(k), c, P, gsk, gUk, gKsat, gskm);
         gs[k] = gsk;
         gU[k] = gUk;
     }
+    if constexpr (HEAT) return;
 
     // ---- saturation adjustment: down sweep in reverse (bottom level
     // first; the deficit leaving the bottom is dropped), then the up sweep
@@ -875,13 +923,270 @@ SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const
     gS = gS1;
 }
 
-// The segment VJP of one column: `steps` forward steps from the segment
-// input carry, each step's input carry stored to `scratch` (laid out
-// [step][row][cell], rows U[0..NZ), sat[0..NZ), S, so neighbouring columns
-// touch neighbouring addresses), then the reverse sweep of step_adjoint from
-// the output cotangents. Writes the input cotangents; adds the parameter
-// cotangents to gKsat and gskm.
+// Cotangents through one step() (ForwardEuler, x + f dt): on entry (gU, gs,
+// gS) are those of the step's output, on return those of its input (U,
+// sat, S); HEAT: (gU, gs), the saturation read and passed on, so that its
+// cotangent gathers each step's. The parameter cotangents are accumulated
+// into gKsat and gskm. The step is recomputed from its input carry.
+template <typename T, int NZ, bool HEAT = false>
+SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T vtop,
+                          T (&gU)[NZ], T (&gs)[NZ], T& gS, T& gKsat, T& gskm,
+                          const Consts<T>& c, const SoilColumnParams& P, const T* dz,
+                          const T* dzf, const T* zc, const T* zf, const T dt)
+{
+    T gfU[NZ], gfs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        gfU[k] = gU[k] * dt;
+        gfs[k] = HEAT ? T(0) : gs[k] * dt;
+    }
+    const T gfS = gS * dt;
+    rhs_adjoint<T, NZ, HEAT>(U, sat, S, vtop, gU, gs, gS, gfU, gfs, gfS, NoTerms<T>{}, gKsat,
+                             gskm, c, P, dz, dzf, zc, zf);
+}
+
+// Cotangents through one heun_step() (heat + Richards), as step_adjoint:
+// the closure and f_n of x_n at v0 and the stage y = x_n + f_n dt are
+// recomputed; the corrector's mean gives each tendency 0.5 (g dt); the
+// stage's closure_rhs at v1 is read only through its tendencies; y passes
+// its cotangent to the closed x_n and, times dt, to f_n. The two
+// rhs_adjoint passes (the stage, then x_n) run one body in a loop that is
+// not unrolled, which halves the code the compiler register-allocates.
 template <typename T, int NZ>
+SOIL_FN void heun_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T v0,
+                               const T v1, T (&gU)[NZ], T (&gs)[NZ], T& gS, T& gKsat, T& gskm,
+                               const Consts<T>& c, const SoilColumnParams& P, const T* dz,
+                               const T* dzf, const T* zc, const T* zf, const T dt)
+{
+    // pass 0 takes the stage (xU, xs, xS) = y at v1, with no direct
+    // cotangents; pass 1 takes x_n at v0 with (gU, gs, gS)
+    T xU[NZ], xs[NZ], xS = S;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) { xU[k] = U[k]; xs[k] = sat[k]; }
+    {
+        Tendencies<T, NZ> f;
+        closure_rhs<T, NZ, false>(U, xs, xS, v0, c, P, dz, dzf, zc, zf, f);
+        xS = xS + f.S * dt;
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            xU[k] = U[k] + f.U[k] * dt;
+            xs[k] = xs[k] + f.sat[k] * dt;
+        }
+    }
+    T gfU[NZ], gfs[NZ], gxU[NZ], gxs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        gfU[k] = T(0.5) * (gU[k] * dt);
+        gfs[k] = T(0.5) * (gs[k] * dt);
+        gxU[k] = T(0);
+        gxs[k] = T(0);
+    }
+    T gfS = T(0.5) * (gS * dt), gxS = T(0), v = v1;
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+        rhs_adjoint<T, NZ, false>(xU, xs, xS, v, gxU, gxs, gxS, gfU, gfs, gfS, NoTerms<T>{},
+                                  gKsat, gskm, c, P, dz, dzf, zc, zf);
+        if (pass == 0) {  // y = x_n (closed) + f_n dt
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfU[k] = gfU[k] + gxU[k] * dt;
+                gfs[k] = gfs[k] + gxs[k] * dt;
+                gxU[k] = gU[k] + gxU[k];
+                gxs[k] = gs[k] + gxs[k];
+                xU[k] = U[k];
+                xs[k] = sat[k];
+            }
+            gfS = gfS + gxS * dt;
+            gxS = gS + gxS;
+            xS = S;
+            v = v0;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) { gU[k] = gxU[k]; gs[k] = gxs[k]; }
+    gS = gxS;
+}
+
+// The rows' cotangents (ga, gb, gc) back to the face conductivities and the
+// chain factor of diffusion_rows (scale s and 1/dt are constants); gKf and
+// gD are set.
+template <typename T, int NZ>
+SOIL_FN void diffusion_rows_adjoint(const T (&Kf)[NZ + 1], const T (&D)[NZ], const T s,
+                                    const T* dz, const T* dzf, const bool dirichlet_top,
+                                    const T (&ga)[NZ], const T (&gb)[NZ], const T (&gc)[NZ],
+                                    T (&gKf)[NZ + 1], T (&gD)[NZ])
+{
+#pragma unroll
+    for (int f = 0; f <= NZ; ++f) gKf[f] = T(0);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) gD[k] = T(0);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        if (k > 0) {  // a[k] = -((s Kf[k] D[k-1]) / lo), b[k] += (s Kf[k] D[k]) / lo
+            const T lo = dzf[k] * dz[k], sK = s * Kf[k];
+            const T qa = -ga[k] / lo, qb = gb[k] / lo;
+            gKf[k] += s * (qa * D[k - 1] + qb * D[k]);
+            gD[k - 1] += qa * sK;
+            gD[k] += qb * sK;
+        }
+        if (k < NZ - 1) {  // c[k] = -((s Kf[k+1] D[k+1]) / hi), b[k] += (s Kf[k+1] D[k]) / hi
+            const T hi = dzf[k + 1] * dz[k], sK = s * Kf[k + 1];
+            const T qc = -gc[k] / hi, qb = gb[k] / hi;
+            gKf[k + 1] += s * (qc * D[k + 1] + qb * D[k]);
+            gD[k + 1] += qc * sK;
+            gD[k] += qb * sK;
+        }
+    }
+    if (dirichlet_top) {  // b[NZ-1] += ((2 s Kf[NZ]) D[NZ-1]) / (dzf[NZ] dz[NZ-1])
+        const T q = gb[NZ - 1] / (dzf[NZ] * dz[NZ - 1]);
+        gKf[NZ] += (T(2) * s) * (q * D[NZ - 1]);
+        gD[NZ - 1] += q * ((T(2) * s) * Kf[NZ]);
+    }
+}
+
+// The VJP of x = A^-1 d (the rows a, b, c, solved by SOLVER), without
+// differentiating the elimination: x is solved again, then gd = A^-T gx by
+// the same solver on the transposed rows (sub-diagonal c[k-1],
+// super-diagonal a[k+1]), one solver body for both in a loop that is not
+// unrolled; the rows' cotangents are ga[k] = -gd[k] x[k-1], gb[k] = -gd[k]
+// x[k], gc[k] = -gd[k] x[k+1] (0 outside the matrix). a, b, c and d are
+// kept.
+template <typename T, int NZ, int SOLVER>
+SOIL_FN void solve_adjoint(const T (&a)[NZ], const T (&b)[NZ], const T (&c)[NZ],
+                           const T (&d)[NZ], const T (&gx)[NZ], T (&gd)[NZ], T (&ga)[NZ],
+                           T (&gb)[NZ], T (&gc)[NZ])
+{
+    T x[NZ], a2[NZ], b2[NZ], c2[NZ], r[NZ];
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+        const bool t = pass == 1;
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            a2[k] = t ? (k == 0 ? T(0) : c[k > 0 ? k - 1 : 0]) : a[k];
+            b2[k] = b[k];
+            c2[k] = t ? (k == NZ - 1 ? T(0) : a[k < NZ - 1 ? k + 1 : k]) : c[k];
+            r[k] = t ? gx[k] : d[k];
+        }
+        solve<T, NZ, SOLVER>(a2, b2, c2, r);
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            if (t) gd[k] = r[k];
+            else x[k] = r[k];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        ga[k] = k == 0 ? T(0) : -gd[k] * x[k > 0 ? k - 1 : 0];
+        gb[k] = -gd[k] * x[k];
+        gc[k] = k == NZ - 1 ? T(0) : -gd[k] * x[k < NZ - 1 ? k + 1 : k];
+    }
+}
+
+// d water_chain / d sat: the second derivative of the Van Genuchten inverse
+// through the clip of se (the cotangent passes where id_se_lo <= se_raw <=
+// id_se_hi) and the clamp of the derivative (where 0 <= d <= id_clamp), 0
+// at and above saturation, as torch.clamp and torch.where differentiate
+template <typename T>
+SOIL_FN T water_chain_deriv(const T sk, const Consts<T>& c, const SoilColumnParams& P) {
+    const T se_raw = (sk * c.por - c.theta_res) / c.vg_span;
+    if (se_raw >= T(1) || !(se_raw >= c.id_se_lo && se_raw <= c.id_se_hi)) return T(0);
+    const T se = se_raw;
+    const T core = fpow(se, P.num_id_core, P.den_id_core, c.p_id_core) - T(1);
+    const T A = fpow(core, P.num_id_a, P.den_id_a, c.p_id_a);
+    const T B = fpow(se, P.num_id_b, P.den_id_b, c.p_id_b);
+    const T d = ((c.id_coef * A) * B) / c.vg_span;
+    if (!(d >= T(0) && d <= c.id_clamp)) return T(0);
+    // out = d * por, d = ((coef A) B) / span, A = core^a, core = se^e - 1
+    const T gdpsi = c.por / c.vg_span;
+    const T gA = gdpsi * B * c.id_coef;
+    const T gse = gdpsi * (c.id_coef * A) * dfpow(se, P.num_id_b, P.den_id_b, c.p_id_b)
+                  + gA * dfpow(core, P.num_id_a, P.den_id_a, c.p_id_a)
+                        * dfpow(se, P.num_id_core, P.den_id_core, c.p_id_core);
+    // se_raw = (sat * por - theta_res) / span
+    return gse * c.por / c.vg_span;
+}
+
+// Cotangents through one implicit_step() (heat + Richards, one Picard
+// iteration), as step_adjoint. Recomputed: the closed column, its
+// tendencies and ImplicitTerms, both systems' rows. Undone in reverse, the
+// two systems by one body in a loop that is not unrolled: the Richards
+// solve (sat' = sat_c + A_w^-1 f_sat: gf_sat = A_w^-T gsat', the rows'
+// cotangents to the Darcy face K and to D = water_chain(sat_c), whose
+// derivative joins the closed saturation's cotangent); the heat solve (U' =
+// U + A_h^-1 f_U, the same, the rows' cotangents to the face kappa, the
+// arithmetic mean of the centre ones, and to dT/dU, which passes -1/C^2 to
+// the heat capacity off the freeze plateau); then the pool and
+// rhs_adjoint with those terms' cotangents.
+template <typename T, int NZ, int SOLVER>
+SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S,
+                                   const T vtop, T (&gU)[NZ], T (&gs)[NZ], T& gS, T& gKsat,
+                                   T& gskm, const Consts<T>& c, const SoilColumnParams& P,
+                                   const T* dz, const T* dzf, const T* zc, const T* zf,
+                                   const T dt, const T inv_dt)
+{
+    T xs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) xs[k] = sat[k];
+    T xS = S;
+    ImplicitTerms<T, NZ> f;
+    closure_rhs<T, NZ, false>(U, xs, xS, vtop, c, P, dz, dzf, zc, zf, f);
+    TermCotangents<T, NZ> x;
+    T gfU[NZ], gfs[NZ];
+#pragma unroll 1
+    for (int sys = 0; sys < 2; ++sys) {  // 0: Richards, 1: heat
+        const bool heat = sys == 1;
+        T Kf[NZ + 1], D[NZ], d[NZ], gx[NZ], gd[NZ], gKf[NZ + 1], gD[NZ];
+        T a[NZ], b[NZ], cc[NZ], ga[NZ], gb[NZ], gc[NZ];
+        Kf[0] = heat ? T(0.5) * (f.kap[0] + f.kap[0]) : f.Keff[0];
+#pragma unroll
+        for (int k = 1; k < NZ; ++k) Kf[k] = heat ? T(0.5) * (f.kap[k] + f.kap[k - 1]) : f.Keff[k];
+        Kf[NZ] = heat ? T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]) : f.Keff[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            D[k] = heat ? f.Dh[k] : water_chain<T>(xs[k], c, P);
+            d[k] = heat ? f.U[k] : f.sat[k];
+            gx[k] = heat ? gU[k] : gs[k];
+        }
+        const T s = heat ? T(1) : c.inv_por;
+        diffusion_rows<T, NZ>(Kf, D, s, inv_dt, dz, dzf, heat, a, b, cc);
+        solve_adjoint<T, NZ, SOLVER>(a, b, cc, d, gx, gd, ga, gb, gc);
+        diffusion_rows_adjoint<T, NZ>(Kf, D, s, dz, dzf, heat, ga, gb, gc, gKf, gD);
+        if (heat) {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfU[k] = gd[k];
+                x.gkap[k] = T(0.5) * (gKf[k] + gKf[k + 1]);
+                x.gC[k] = -(gD[k] * f.Dh[k]) * f.Dh[k];  // Dh = 1/C, or 0 on the plateau
+            }
+            x.gkap[0] = x.gkap[0] + T(0.5) * gKf[0];
+            x.gkap[NZ - 1] = x.gkap[NZ - 1] + T(0.5) * gKf[NZ];
+        } else {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfs[k] = gd[k];
+                gs[k] = gs[k] + gD[k] * water_chain_deriv<T>(xs[k], c, P);
+            }
+#pragma unroll
+            for (int f_ = 0; f_ <= NZ; ++f_) x.gKeff[f_] = gKf[f_];
+        }
+    }
+    rhs_adjoint<T, NZ, false>(U, sat, S, vtop, gU, gs, gS, gfU, gfs, gS * dt, x, gKsat, gskm,
+                              c, P, dz, dzf, zc, zf);
+}
+
+// The segment VJP of one column by STEPPER (SOLVER) over heat + Richards
+// or, HEAT, ForwardEuler over the heat-only model: `steps` forward steps
+// from the segment input carry, each step's input carry stored to `scratch`
+// (laid out [step][row][cell], rows U[0..NZ), sat[0..NZ), S, or U alone
+// for HEAT, whose saturation the steps never change, so neighbouring
+// columns touch neighbouring addresses), then the reverse sweep of the
+// step's adjoint from the output cotangents. The top temperature of step i
+// is top_T[i * top_step_stride] of the column (Heun also reads row i + 1).
+// Writes the input cotangents (HEAT: gU_in and gsat_in, the saturation's
+// gathered over the steps); adds the parameter cotangents to gKsat and
+// gskm.
+template <typename T, int NZ, int STEPPER = STEPPER_EULER, int SOLVER = SOLVER_THOMAS,
+          bool HEAT = false>
 SOIL_FN void segment_vjp_column(
     const long long col, const long long cells, const int steps,
     const T* U_in, const T* sat_in, const T* S_in,
@@ -889,27 +1194,36 @@ SOIL_FN void segment_vjp_column(
     T* gU_in, T* gsat_in, T* gS_in, T* scratch,
     const T* top_T, const long long top_step_stride, const long long top_cell_stride,
     const Consts<T>& c, const SoilColumnParams& P,
-    const T* dz, const T* dzf, const T* zc, const T* zf, const T dt,
+    const T* dz, const T* dzf, const T* zc, const T* zf, const T dt, const T inv_dt,
     T& gKsat, T& gskm)
 {
-    const long long rows = 2 * NZ + 1;
+    static_assert(!HEAT || STEPPER == STEPPER_EULER,
+                  "the heat-only segment VJP runs ForwardEuler");
+    const long long rows = HEAT ? NZ : 2 * NZ + 1;
     T U[NZ], sat[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
         U[k] = U_in[k * cells + col];
         sat[k] = sat_in[k * cells + col];
     }
-    T S = S_in[col];
+    T S = HEAT ? T(0) : S_in[col];
     for (int i = 0; i < steps; ++i) {
         T* rec = scratch + (long long)i * rows * cells + col;
 #pragma unroll
         for (int k = 0; k < NZ; ++k) {
             rec[k * cells] = U[k];
-            rec[(NZ + k) * cells] = sat[k];
+            if (!HEAT) rec[(NZ + k) * cells] = sat[k];
         }
-        rec[2 * NZ * cells] = S;
+        if (!HEAT) rec[2 * NZ * cells] = S;
         const T vtop = top_T[i * top_step_stride + col * top_cell_stride];
-        step<T, NZ>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt);
+        if constexpr (STEPPER == STEPPER_HEUN) {
+            const T v1 = top_T[(i + 1) * top_step_stride + col * top_cell_stride];
+            heun_step<T, NZ, false>(U, sat, S, vtop, v1, c, P, dz, dzf, zc, zf, dt);
+        } else if constexpr (STEPPER == STEPPER_IMPLICIT) {
+            implicit_step<T, NZ, SOLVER>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt, inv_dt);
+        } else {
+            step<T, NZ, HEAT>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt);
+        }
     }
 
     T gU[NZ], gs[NZ];
@@ -918,24 +1232,34 @@ SOIL_FN void segment_vjp_column(
         gU[k] = gU_out[k * cells + col];
         gs[k] = gsat_out[k * cells + col];
     }
-    T gS = gS_out[col];
+    T gS = HEAT ? T(0) : gS_out[col];
     for (int i = steps - 1; i >= 0; --i) {
         const T* rec = scratch + (long long)i * rows * cells + col;
 #pragma unroll
         for (int k = 0; k < NZ; ++k) {
             U[k] = rec[k * cells];
-            sat[k] = rec[(NZ + k) * cells];
+            if (!HEAT) sat[k] = rec[(NZ + k) * cells];
         }
-        S = rec[2 * NZ * cells];
+        if (!HEAT) S = rec[2 * NZ * cells];
         const T vtop = top_T[i * top_step_stride + col * top_cell_stride];
-        step_adjoint<T, NZ>(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, c, P, dz, dzf, zc, zf, dt);
+        if constexpr (STEPPER == STEPPER_HEUN) {
+            const T v1 = top_T[(i + 1) * top_step_stride + col * top_cell_stride];
+            heun_step_adjoint<T, NZ>(U, sat, S, vtop, v1, gU, gs, gS, gKsat, gskm, c, P, dz, dzf,
+                                     zc, zf, dt);
+        } else if constexpr (STEPPER == STEPPER_IMPLICIT) {
+            implicit_step_adjoint<T, NZ, SOLVER>(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, c, P,
+                                                 dz, dzf, zc, zf, dt, inv_dt);
+        } else {
+            step_adjoint<T, NZ, HEAT>(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, c, P, dz, dzf,
+                                      zc, zf, dt);
+        }
     }
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
         gU_in[k * cells + col] = gU[k];
         gsat_in[k * cells + col] = gs[k];
     }
-    gS_in[col] = gS;
+    if (!HEAT) gS_in[col] = gS;
 }
 
 }  // namespace soil

@@ -6,7 +6,7 @@ Each kernel source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 every header in ``csrc/``. A source defines one entry point per
 instantiation, ``<name>[_<tag>...]_<f32|f64>_nz<NZ>``, from the list of that
 source in ``INSTANTIATIONS``; each instantiation is compiled by its own
-``nvcc`` (``-DSOIL_ENTRY -DSOIL_SUFFIX -DSOIL_T -DSOIL_NZ`` and the tags'
+``nvcc`` (``-DSOIL_ENTRY -DSOIL_T -DSOIL_NZ`` and the tags'
 defines, ``_DEFINES``), all of them and all the sources asked for together in parallel,
 and linked into the source's library. ptxas's register and spill report is
 kept beside the library as ``.ptxas.txt``, each instantiation's part headed
@@ -40,7 +40,16 @@ INSTANTIATIONS = {
         *((("implicit", solver, "richards"), dtype, nz) for solver in ("thomas", "pcr")
           for dtype, nz in ((_F64, 16), (_F32, 30))),
     ],
-    "soil_column_segment_vjp": [((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)],
+    # ForwardEuler over heat + Richards (no tags) at the gradient grids; each
+    # other scheme at its forward kernel's sizes: Heun f64 Nz 15 and f32 Nz
+    # 30, ImplicitEuler f64 Nz 16 and f32 Nz 30, heat only Nz 30
+    "soil_column_segment_vjp": [
+        *(((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)),
+        (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
+        *((("implicit", solver, "richards"), dtype, nz) for solver in ("thomas", "pcr")
+          for dtype, nz in ((_F64, 16), (_F32, 30))),
+        (("euler", "heat"), _F64, 30), (("euler", "heat"), _F32, 30),
+    ],
     # one full step (make_fused_step): the bench width at float32 for each
     # stepper and physics, and the float64 checks against the plain version
     "soil_column_full_step": [
@@ -122,13 +131,13 @@ def build(*names: str) -> list:
                 nvcc, jobs = _nvcc(), []
                 for n in missing:
                     for tags, dtype, nz in INSTANTIATIONS[n]:
-                        suffix, ctype = _SUFFIX[dtype]
+                        ctype = _SUFFIX[dtype][1]
                         name = _entry_name(n, tags, dtype, nz)
                         obj = pathlib.Path(tmp) / f"{name}.o"
                         jobs.append((n, name, obj, [
                             nvcc, *_ARCH, "-std=c++17", "-O3", *FLAGS.get(n, {}).get(dtype, ()),
                             "-Xcompiler", "-fPIC",
-                            "-Xptxas", "-v", f"-DSOIL_ENTRY={name}", f"-DSOIL_SUFFIX={suffix}",
+                            "-Xptxas", "-v", f"-DSOIL_ENTRY={name}",
                             f"-DSOIL_T={ctype}", f"-DSOIL_NZ={nz}",
                             *(f"-D{d}" for t in tags for d in _DEFINES[t]), "-c", "-o", str(obj),
                             str(_CSRC / f"{n}.cu")]))

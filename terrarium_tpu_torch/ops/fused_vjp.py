@@ -1,22 +1,27 @@
-"""The segment VJP of the soil column rollout: a hand-written CUDA kernel, its
+"""The segment VJP of the soil column rollouts: a hand-written CUDA kernel, its
 plain PyTorch version and the wrapper that picks between them by device
 (counterpart of ``terrarium_tpu/ops/fused_vjp.py``).
 
-``soil_column_segment_vjp`` is the vector-Jacobian product of
-:func:`~terrarium_tpu_torch.ops.fused_step.soil_column_rollout` over one
-segment of ``len(top_T)`` steps: from the segment's input carry ``(U, sat,
-S)`` and the cotangents of its output carry, it returns the cotangents of the
-input carry and of the two differentiated parameters, ``K_sat`` and
-``sk_mineral`` (``sqrt`` of the mineral conductivity times the mineral
-fraction, as :class:`ColumnParams` holds it). It replaces
-``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp`` for the main-path step.
-The clock is not differentiated.
+``soil_column_segment_vjp`` is the vector-Jacobian product of one segment
+of a column rollout (:func:`~terrarium_tpu_torch.ops.fused_step.
+soil_column_rollout` and its siblings), for each scheme in ``VJP_SCHEMES``:
+ForwardEuler, Heun or ImplicitEuler (one Picard iteration, Thomas or PCR)
+over heat + Richards flow, and ForwardEuler over the heat-only model. From
+the segment's input carry ``(U, sat, S)`` and the cotangents of its output
+carry, it returns the cotangents of the input carry and of the two
+differentiated parameters, ``K_sat`` and ``sk_mineral`` (``sqrt`` of the
+mineral conductivity times the mineral fraction, as :class:`ColumnParams`
+holds it). For the heat-only model the carry is ``U`` and the saturation it
+reads: the saturation's cotangent gathers every step's, the pool has none
+(``S`` and ``gS`` may be ``None``) and ``K_sat``'s is 0. It replaces
+``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp``, which is generic over
+the stepper. The clock is not differentiated.
 
-The CUDA source is ``csrc/soil_column_segment_vjp.cu``, with the step and its
-hand-derived adjoint in ``csrc/soil_step.cuh``. On CPU tensors the wrapper
-runs :func:`soil_column_segment_vjp_plain`, torch autograd through the plain
-rollout; on CUDA tensors it launches the kernel or raises. Each launch adds
-one to ``soil_column_segment_vjp.launches``.
+The CUDA source is ``csrc/soil_column_segment_vjp.cu``, with the steps and
+their hand-derived adjoints in ``csrc/soil_step.cuh``. On CPU tensors the
+wrapper runs :func:`soil_column_segment_vjp_plain`, torch autograd through
+the plain rollout; on CUDA tensors it launches the kernel or raises. Each
+launch adds one to ``soil_column_segment_vjp.launches``.
 """
 from __future__ import annotations
 
@@ -28,26 +33,57 @@ import torch
 from . import cuda_build
 from .fused_step import ColumnParams, SeriesBC, _check_inputs, _CParams, \
     soil_column_rollout_plain
+from .tridiag import SOLVERS
 
-__all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain"]
+__all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain", "VJP_SCHEMES"]
 
 _NAME = "soil_column_segment_vjp"  # csrc/soil_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
+#: the (stepper, physics) that have a segment VJP
+VJP_SCHEMES = (("euler", "richards"), ("heun", "richards"), ("implicit", "richards"),
+               ("euler", "heat"))
+
+
+def _check_scheme(stepper: str, physics: str, solver: str) -> tuple:
+    """The build tags of a scheme's kernel (none for ForwardEuler over heat +
+    Richards, the first); ``ValueError`` for a scheme without one."""
+    if (stepper, physics) not in VJP_SCHEMES or solver not in SOLVERS:
+        raise ValueError(f"the segment VJP runs {list(VJP_SCHEMES)} with a solver of "
+                         f"{sorted(SOLVERS)}, not {(stepper, physics)} with {solver!r}; Heun and "
+                         f"ImplicitEuler over the heat-only model are still to port (ROADMAP "
+                         f"Queue B #2)")
+    if (stepper, physics) == VJP_SCHEMES[0]:
+        return ()
+    return (stepper, solver, physics) if stepper == "implicit" else (stepper, physics)
 
 
 def soil_column_segment_vjp_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
-                                  params: ColumnParams, dt: float, gU, gsat, gS):
+                                  params: ColumnParams, dt: float, gU, gsat, gS, *,
+                                  stepper: str = "euler", physics: str = "richards",
+                                  solver: str = "pcr"):
     """``(gU0, gsat0, gS0, gK_sat, gsk_mineral)`` by torch autograd through
-    :func:`soil_column_rollout_plain`; the parameter cotangents are 0-d
-    tensors in the fields' dtype."""
+    :func:`soil_column_rollout_plain` of the scheme; the parameter cotangents
+    are 0-d tensors in the fields' dtype. Heat only: ``gS0`` is ``None`` and
+    ``gK_sat`` is 0."""
+    _check_scheme(stepper, physics, solver)
+    heat = physics == "heat"
     with torch.enable_grad():
-        U0, sat0, S0 = (t.detach().requires_grad_() for t in (U, sat, S))
+        U0, sat0 = (t.detach().requires_grad_() for t in (U, sat))
+        S0 = None if heat else S.detach().requires_grad_()
         K = torch.tensor(params.K_sat, dtype=U.dtype, device=U.device, requires_grad=True)
         skm = torch.tensor(params.sk_mineral, dtype=U.dtype, device=U.device,
                            requires_grad=True)
         p = dataclasses.replace(params, K_sat=K, sk_mineral=skm)
         out = soil_column_rollout_plain(U0, sat0, S0, top_T, dz, dz_faces, z_centers,
-                                        z_faces, p, dt)
+                                        z_faces, p, dt, stepper=stepper, physics=physics,
+                                        solver=solver)
+        if heat:
+            gU0, gsat0, gK, gskm = torch.autograd.grad(
+                out[0], (U0, sat0, K, skm), gU, allow_unused=True)
+            # the saturation is passed on unchanged: its output cotangent
+            # joins the steps'
+            gsat0 = gsat + gsat0
+            return gU0, gsat0, None, torch.zeros_like(K), gskm
         return torch.autograd.grad(out, (U0, sat0, S0, K, skm), (gU, gsat, gS))
 
 
@@ -57,40 +93,59 @@ _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p
 
 
 def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
-                            params: ColumnParams, dt: float, gU, gsat, gS):
-    """The VJP of ``len(top_T)`` fused soil steps from the carry ``(U, sat,
-    S)``, applied to the output cotangents ``(gU, gsat, gS)``; returns
-    ``(gU0, gsat0, gS0, gK_sat, gsk_mineral)``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+                            params: ColumnParams, dt: float, gU, gsat, gS, *,
+                            stepper: str = "euler", physics: str = "richards",
+                            solver: str = "pcr"):
+    """The VJP of one segment of ``stepper`` (``"euler"``, ``"heun"`` or
+    ``"implicit"`` with ``solver``) steps of ``physics`` (``"richards"`` or
+    ``"heat"``, ForwardEuler only) from the carry ``(U, sat, S)``, applied to
+    the output cotangents ``(gU, gsat, gS)``: ``len(top_T)`` steps, Heun one
+    less; returns ``(gU0, gsat0, gS0, gK_sat, gsk_mineral)`` (heat only:
+    ``gS0`` is ``None``). CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    tags = _check_scheme(stepper, physics, solver)
+    heat = physics == "heat"
     coords = (dz, dz_faces, z_centers, z_faces)
     if isinstance(top_T, SeriesBC):
         raise ValueError("the segment VJP takes the top temperature as a table, not a series")
-    _check_inputs(U, sat, S, top_T, coords)
-    for name, g, t in (("energy", gU, U), ("saturation", gsat, sat), ("surface pool", gS, S)):
+    _check_inputs(U, sat, S, top_T, coords, heat)
+    pairs = (("energy", gU, U), ("saturation", gsat, sat))
+    if not heat:
+        pairs += (("surface pool", gS, S),)
+    for name, g, t in pairs:
         if g.shape != t.shape or g.dtype != t.dtype or g.device != t.device:
             raise ValueError(f"{name} cotangent must match its field: {tuple(g.shape)} "
                              f"{g.dtype} {g.device}")
+    steps = top_T.shape[0] - (1 if stepper == "heun" else 0)
+    if steps < 0:
+        raise ValueError("a Heun table needs steps + 1 rows")
     if U.device.type == "cpu":
         return soil_column_segment_vjp_plain(U, sat, S, top_T, *coords, params, dt, gU, gsat,
-                                             gS)
+                                             gS, stepper=stepper, physics=physics,
+                                             solver=solver)
     if U.device.type != "cuda":
         raise ValueError(f"soil column segment VJP runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES)
-    for t in (U, sat, S, gU, gsat, gS, *coords):
-        if not t.is_contiguous():
-            raise ValueError("the segment VJP kernel takes contiguous tensors")
-    steps = top_T.shape[0]
+    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
+    if not all(t.is_contiguous() for _, g, u in pairs for t in (g, u)) or not all(
+            c.is_contiguous() for c in coords):
+        raise ValueError("the segment VJP kernel takes contiguous tensors")
     blocks = -(-cells // _THREADS)
-    gU0, gsat0, gS0 = torch.empty_like(U), torch.empty_like(sat), torch.empty_like(S)
+    gU0, gsat0 = torch.empty_like(U), torch.empty_like(sat)
+    gS0 = None if heat else torch.empty_like(S)
     partials = torch.empty(2, blocks, dtype=U.dtype, device=U.device)
     gparams = torch.empty(2, dtype=U.dtype, device=U.device)
-    scratch = torch.empty(steps, 2 * nz + 1, cells, dtype=U.dtype, device=U.device)
+    rows = nz if heat else 2 * nz + 1
+    scratch = torch.empty(steps, rows, cells, dtype=U.dtype, device=U.device)
     step_stride = top_T.stride(0)
     cell_stride = top_T.stride(1) if top_T.dim() == 2 else 0
     cparams = _CParams.of(params)
-    err = fn(*(t.data_ptr() for t in (U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, partials,
-                                      gparams, scratch, top_T)),
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    err = fn(*(ptr(t) for t in (U, sat, None if heat else S, gU, gsat, None if heat else gS,
+                                gU0, gsat0, gS0, partials, gparams, scratch, top_T)),
              step_stride, cell_stride, *(c.data_ptr() for c in coords), ctypes.byref(cparams),
              steps, float(dt), cells, torch.cuda.current_stream(U.device).cuda_stream)
     if err != 0:

@@ -2,21 +2,29 @@
 ``terrarium_tpu/timesteppers/fused_grad.py``).
 
 ``make_fused_grad_rollout`` builds ``rollout(state, params)``: ``steps``
-closure-rotated Forward Euler steps in segments of ``inner_steps``, then one
-trailing ``closure``, differentiable with torch autograd in the initial state
-and in ``params``. Each segment is a :class:`torch.autograd.Function`:
+closure-rotated steps in segments of ``inner_steps``, then one trailing
+``closure``, differentiable with torch autograd in the initial state and in
+``params``. The schemes it takes, chosen by type the same way on the CPU
+and on the card: ForwardEuler, Heun or ImplicitEuler (one Picard iteration,
+Thomas or PCR) over heat + Richards flow, and ForwardEuler over the
+heat-only model. Each segment is a :class:`torch.autograd.Function`:
 
-* forward: :func:`~terrarium_tpu_torch.ops.fused_step.soil_column_rollout`
-  (the CUDA column kernel on the card, its plain version on the CPU); the
-  segment's input carry is saved, which is the whole checkpoint;
+* forward: the scheme's rollout wrapper of
+  :data:`~terrarium_tpu_torch.ops.fused_step.ROLLOUTS` (the CUDA column
+  kernel on the card, its plain version on the CPU); the segment's input
+  carry is saved, which is the whole checkpoint;
 * backward: :func:`~terrarium_tpu_torch.ops.fused_vjp.soil_column_segment_vjp`
-  (the CUDA segment-VJP kernel on the card), which recomputes the segment's
-  steps from that carry and sweeps back through them.
+  of the same scheme (the CUDA segment-VJP kernel on the card), which
+  recomputes the segment's steps from that carry and sweeps back through
+  them.
 
 The parameters that reach the kernels as numbers, ``K_sat`` and the mineral
 conductivity (as ``sk_mineral``), enter each segment as 0-d tensors, and
-their cotangents from the VJP are chained to the caller's tensors by torch.
-The clock is not differentiated.
+their cotangents from the VJP are chained to the caller's tensors by torch;
+a model whose other soil parameters require grad is refused. The clock is
+not differentiated. For the heat-only model the carry is the internal
+energy; the saturation it reads enters every segment, which returns its
+cotangent.
 
 The JAX package's ``bwd="xla"``, ``bwd_chunk`` and ``bwd_remat`` options are
 memory schedules of its XLA backward and have no counterpart here; the XLA
@@ -24,80 +32,145 @@ gradient path itself is :mod:`terrarium_tpu_torch.timesteppers.autodiff`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
-from .stepping import ForwardEuler
+from ..models.land_model import LandModel
 from ..ops.bcs import InputRef, bc_call_arity
-from ..ops.fused_step import (ColumnParams, clock_times, kernel_physics, soil_column_rollout,
+from ..ops.fused_step import (ROLLOUTS, STEPPERS, ColumnParams, clock_times, kernel_physics,
                               top_temperature_table, top_temperature_value)
 from ..ops.fused_vjp import soil_column_segment_vjp
 from ..state import reset_tendencies
 
 __all__ = ["make_fused_grad_rollout"]
 
+_AUTODIFF = "timesteppers/autodiff.make_rollout_fn differentiates it"
+
 
 class _Segment(torch.autograd.Function):
-    """``len(table)`` fused steps of the carry; differentiable in the carry,
-    ``K_sat`` and ``sk_mineral`` (0-d tensors whose values ``params`` holds)."""
+    """One segment of fused steps of ``scheme`` ``(stepper, physics,
+    solver)``: ``len(table)`` steps (Heun one less) of the carry ``(U, sat,
+    S)``, returned whole, or of ``U`` alone for the heat-only model, which
+    reads ``sat``; differentiable in the carry, ``K_sat`` and ``sk_mineral``
+    (0-d tensors whose values ``params`` holds)."""
 
     @staticmethod
-    def forward(ctx, U, sat, S, K_sat, sk_mineral, table, coords, params, dt):
+    def forward(ctx, U, sat, S, K_sat, sk_mineral, table, coords, params, dt, scheme):
+        stepper, physics, solver = scheme
         ctx.save_for_backward(U, sat, S, table, *coords)
-        ctx.params, ctx.dt = params, dt
-        return soil_column_rollout(U, sat, S, table, *coords, params, dt)
+        ctx.params, ctx.dt, ctx.scheme = params, dt, scheme
+        kw = {"solver": solver} if stepper == "implicit" else {}
+        out = ROLLOUTS[stepper, physics](U, sat, S, table, *coords, params, dt, **kw)
+        return out[0] if physics == "heat" else out
 
     @staticmethod
-    def backward(ctx, gU, gsat, gS):
+    def backward(ctx, gU, gsat=None, gS=None):
         U, sat, S, table, *coords = ctx.saved_tensors
+        stepper, physics, solver = ctx.scheme
+        if physics == "heat":  # the saturation is read: its cotangent is the steps'
+            gsat = torch.zeros_like(sat)
         gU0, gsat0, gS0, gK, gskm = soil_column_segment_vjp(
-            U, sat, S, table, *coords, ctx.params, ctx.dt,
-            gU.contiguous(), gsat.contiguous(), gS.contiguous())
+            U, sat, S, table, *coords, ctx.params, ctx.dt, gU.contiguous(), gsat.contiguous(),
+            None if gS is None else gS.contiguous(), stepper=stepper, physics=physics,
+            solver=solver)
         f64 = torch.float64
-        return gU0, gsat0, gS0, gK.to(f64), gskm.to(f64), None, None, None, None
+        return gU0, gsat0, gS0, gK.to(f64), gskm.to(f64), None, None, None, None, None
+
+
+def _grad_leaves(obj, path):
+    """``(path, tensor)`` of each tensor that requires grad in a tree of
+    dataclasses, tuples, lists and dicts."""
+    if isinstance(obj, torch.Tensor):
+        if obj.requires_grad:
+            yield path, obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _grad_leaves(getattr(obj, f.name), f"{path}.{f.name}")
+    elif isinstance(obj, (tuple, list)):
+        for i, v in enumerate(obj):
+            yield from _grad_leaves(v, f"{path}[{i}]")
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _grad_leaves(v, f"{path}[{k!r}]")
 
 
 def _param_tensors(model, device):
     """``K_sat`` and ``sk_mineral`` of ``model`` as float64 0-d tensors, on
-    the graph of the model's tensor parameters where it has them."""
+    the graph of the model's tensor parameters where it has them. Raises
+    ``ValueError`` for any other soil parameter that requires grad: the
+    kernels take it as a number, so its gradient would be lost."""
     soil = model.soil
+    hp, thermal = soil.hydrology.hydraulic_properties, soil.energy.thermal_properties
+    K, k_min = hp.sat_hydraulic_cond, thermal.conductivities.mineral
+    other = [p for p, t in _grad_leaves(soil, "soil") if t is not K and t is not k_min]
+    if other:
+        raise ValueError(f"the fused gradient rollout differentiates the soil's "
+                         f"sat_hydraulic_cond and mineral conductivity only, not {other}; "
+                         f"timesteppers/autodiff.make_rollout_fn differentiates every "
+                         f"parameter")
     por = soil.strat.bulk_porosity(soil.biogeochem)
     mineral_frac = (1.0 - por) * (1.0 - soil.strat.organic_fraction(soil.biogeochem))
     K, k_min = (x.to(device=device, dtype=torch.float64) if isinstance(x, torch.Tensor)
                 else torch.tensor(float(x), dtype=torch.float64, device=device)
-                for x in (soil.hydrology.hydraulic_properties.sat_hydraulic_cond,
-                          soil.energy.thermal_properties.conductivities.mineral))
+                for x in (K, k_min))
     return K, torch.sqrt(k_min) * mineral_frac
+
+
+def _model_scheme(model, stepper: str, solver: str) -> tuple:
+    """``(stepper, physics, solver)`` of the segments for ``model``; raises
+    ``ValueError`` naming the ROADMAP item for a model no segment VJP takes."""
+    if isinstance(model, LandModel):
+        raise ValueError("the fused gradient rollout of the LandModel is still to port "
+                         f"(ROADMAP Queue B #1); {_AUTODIFF}")
+    physics = kernel_physics(model)
+    if physics == "heat" and stepper != "euler":
+        raise ValueError(f"the fused gradient rollout runs the heat-only model (NoFlow) with "
+                         f"ForwardEuler; {stepper} over it, forward and VJP, is still to port "
+                         f"(ROADMAP Queue B #2); {_AUTODIFF}")
+    return stepper, physics, solver
 
 
 def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=(), *,
                             steps: int, dt: float, inner_steps: int) -> Callable:
     """Build ``rollout(state, params) -> state`` differentiable in both
-    arguments, with the forward on the column kernel and the backward on
+    arguments, with the forward on the column kernels and the backward on
     the segment-VJP kernel.
 
     Args:
-        model_fn: ``params -> model``, a :class:`SoilModel` with Richards
-            flow that the rollout kernel runs, whose ``sat_hydraulic_cond``
-            and mineral conductivity may be 0-d tensors built from
-            ``params``.
-        timestepper: :class:`ForwardEuler`.
+        model_fn: ``params -> model``, a :class:`SoilModel` that the rollout
+            kernels run (heat + Richards, or heat only with ForwardEuler),
+            whose ``sat_hydraulic_cond`` and mineral conductivity may be 0-d
+            tensors built from ``params``; no other soil parameter may
+            require grad.
+        timestepper: :class:`ForwardEuler`, :class:`Heun` or
+            :class:`ImplicitEuler` with ``picard_iters=1`` (Thomas or PCR).
         ctx: the simulation's context; its only BC is a Dirichlet top
             temperature given as a value or as ``f(t)``.
-
-    Raises ``ValueError`` for anything else: another stepper (Heun), the
-    heat-only model (NoFlow), an input variable as the top temperature.
         steps: total rollout length, a multiple of ``inner_steps``.
         inner_steps: steps of one segment (the checkpoint interval).
+
+    Raises ``ValueError`` for anything else, naming the ROADMAP item that
+    ports it where one does: another stepper, ImplicitEuler with
+    ``picard_iters > 1`` or Heun or ImplicitEuler over the heat-only model
+    (Queue B #2), a LandModel (Queue B #1), time-varying sources or
+    forcings, an input variable as the top temperature.
     """
     if steps % inner_steps != 0:
         raise ValueError(f"steps={steps} not a multiple of inner_steps={inner_steps}")
-    if not isinstance(timestepper, ForwardEuler):
-        raise ValueError(f"the fused gradient rollout runs ForwardEuler, not "
-                         f"{type(timestepper).__name__}: the segment VJP of Heun and "
-                         f"ImplicitEuler is still to port (ROADMAP Queue B #5); "
-                         f"timesteppers/autodiff.make_rollout_fn differentiates any stepper")
+    stepper = STEPPERS.get(type(timestepper))
+    if stepper is None:
+        raise ValueError(f"the fused gradient rollout runs ForwardEuler, Heun or ImplicitEuler, "
+                         f"not {type(timestepper).__name__}; {_AUTODIFF}")
+    solver = getattr(timestepper, "solver", "pcr")
+    if stepper == "implicit" and int(timestepper.picard_iters) != 1:
+        raise ValueError(f"the fused gradient rollout runs ImplicitEuler with one Picard "
+                         f"iteration; picard_iters={timestepper.picard_iters} in the forward "
+                         f"and the VJP is still to port (ROADMAP Queue B #2); {_AUTODIFF}")
+    if getattr(ctx, "extras", None) is not None:  # the LandModel's coupling context
+        raise ValueError("the fused gradient rollout of the LandModel is still to port "
+                         f"(ROADMAP Queue B #1); {_AUTODIFF}")
     for src in input_sources:
         if hasattr(src, "times"):
             raise ValueError("make_fused_grad_rollout supports static input sources only")
@@ -108,25 +181,36 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
     if isinstance(value, (str, InputRef)) or (callable(value) and bc_call_arity(value) >= 2):
         raise ValueError("the fused gradient rollout takes a top temperature given as a "
                          "value or as f(t)")
+    heun = stepper == "heun"
 
     def rollout(state, params):
         model = model_fn(params)
-        if kernel_physics(model) != "richards":
-            raise ValueError("the fused gradient rollout runs the heat + Richards model "
-                             "(RichardsEq), not the heat-only model (NoFlow)")
+        scheme = _model_scheme(model, stepper, solver)
+        heat = scheme[1] == "heat"
         grid = model.grid
         cparams = ColumnParams.of(model, grid.dtype)
         K, skm = _param_tensors(model, grid.device)
         coords = tuple(torch.as_tensor(a, device=grid.device).to(grid.dtype) for a in (
             grid.vertical.dz, grid.vertical.dz_faces, grid.vertical.z_centers,
             grid.vertical.z_faces))
-        U, sat, S = (state.prognostic[n] for n in model.live_carry)
+        if heat:
+            U, sat, S = state.prognostic["internal_energy"], state["saturation_water_ice"], None
+        else:
+            U, sat, S = (state.prognostic[n] for n in model.live_carry)
         times = clock_times(state.clock.time, dt, steps)
         for i in range(0, steps, inner_steps):
-            table = top_temperature_table(value, times[i:i + inner_steps], grid)
-            U, sat, S = _Segment.apply(U, sat, S, K, skm, table, coords, cparams, dt)
+            # Heun's stage of the segment's last step reads one more row
+            table = top_temperature_table(value, times[i:i + inner_steps + heun], grid)
+            out = _Segment.apply(U, sat, S, K, skm, table, coords, cparams, dt, scheme)
+            if heat:
+                U = out
+            else:
+                U, sat, S = out
         out = state.copy()
-        out.set(internal_energy=U, saturation_water_ice=sat, surface_excess_water=S)
+        if heat:
+            out.set(internal_energy=U)
+        else:
+            out.set(internal_energy=U, saturation_water_ice=sat, surface_excess_water=S)
         out.clock.time = torch.as_tensor(times[-1], device=grid.device)
         out.clock.iteration = out.clock.iteration + steps
         reset_tendencies(out)

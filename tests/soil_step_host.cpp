@@ -2,7 +2,7 @@
 // for the CPU tests (tests/test_torch_step_adjoint.py,
 // tests/test_torch_step_host.py, tests/test_torch_implicit.py,
 // tests/test_torch_fused_step.py): the CUDA kernels' per-column step, rollout
-// loop, segment VJP and full step, run over every column in a loop, behind a
+// loop, segment VJP of each scheme and full step, run over every column in a loop, behind a
 // plain C interface.
 #include <vector>
 
@@ -10,7 +10,10 @@
 
 namespace {
 
-template <int NZ>
+// soil::segment_vjp_column of the scheme over every column, as the
+// segment-VJP kernel runs it; each column's parameter cotangents go to
+// gparams[col] (K_sat) and gparams[cells + col] (sk_mineral)
+template <int NZ, int STEPPER, int SOLVER, bool HEAT>
 void vjp(const double* U, const double* sat, const double* S, const double* gU,
          const double* gsat, const double* gS, double* gU0, double* gsat0, double* gS0,
          double* gparams, const double* top, long long step_stride, const double* dz,
@@ -21,12 +24,38 @@ void vjp(const double* U, const double* sat, const double* S, const double* gU,
     const soil::Consts<double> c(*P);
     for (long long col = 0; col < cells; ++col) {
         double gK = 0.0, gm = 0.0;
-        soil::segment_vjp_column<double, NZ>(col, cells, steps, U, sat, S, gU, gsat, gS, gU0,
-                                             gsat0, gS0, scratch.data(), top, step_stride, 0,
-                                             c, *P, dz, dzf, zc, zf, dt, gK, gm);
+        soil::segment_vjp_column<double, NZ, STEPPER, SOLVER, HEAT>(
+            col, cells, steps, U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, scratch.data(), top,
+            step_stride, 0, c, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm);
         gparams[col] = gK;
         gparams[cells + col] = gm;
     }
+}
+
+template <int NZ>
+int vjp_scheme(int stepper, int solver, int heat, const double* U, const double* sat,
+               const double* S, const double* gU, const double* gsat, const double* gS,
+               double* gU0, double* gsat0, double* gS0, double* gparams, const double* top,
+               long long step_stride, const double* dz, const double* dzf, const double* zc,
+               const double* zf, const SoilColumnParams* P, int steps, double dt,
+               long long cells)
+{
+#define SOIL_VJP(STEPPER, SOLVER, HEAT)                                                      \
+    vjp<NZ, STEPPER, SOLVER, HEAT>(U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top,   \
+                                   step_stride, dz, dzf, zc, zf, P, steps, dt, cells)
+    if (heat) {
+        if (stepper != soil::STEPPER_EULER) return -1;
+        SOIL_VJP(soil::STEPPER_EULER, 0, true);
+    } else if (stepper == soil::STEPPER_IMPLICIT) {
+        if (solver == soil::SOLVER_PCR) SOIL_VJP(soil::STEPPER_IMPLICIT, soil::SOLVER_PCR, false);
+        else SOIL_VJP(soil::STEPPER_IMPLICIT, soil::SOLVER_THOMAS, false);
+    } else if (stepper == soil::STEPPER_HEUN) {
+        SOIL_VJP(soil::STEPPER_HEUN, 0, false);
+    } else {
+        SOIL_VJP(soil::STEPPER_EULER, 0, false);
+    }
+#undef SOIL_VJP
+    return 0;
 }
 
 template <int NZ>
@@ -147,12 +176,37 @@ extern "C" int host_segment_vjp(const double* U, const double* sat, const double
                                 const SoilColumnParams* P, int nz, int steps, double dt,
                                 long long cells)
 {
-    if (nz == 10) vjp<10>(U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top, step_stride,
-                          dz, dzf, zc, zf, P, steps, dt, cells);
-    else if (nz == 20) vjp<20>(U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top,
-                               step_stride, dz, dzf, zc, zf, P, steps, dt, cells);
+    if (nz == 10) vjp<10, 0, 0, false>(U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top,
+                                       step_stride, dz, dzf, zc, zf, P, steps, dt, cells);
+    else if (nz == 20) vjp<20, 0, 0, false>(U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams,
+                                            top, step_stride, dz, dzf, zc, zf, P, steps, dt,
+                                            cells);
     else return -1;
     return 0;
+}
+
+// The segment-VJP kernel's column code by scheme: ForwardEuler, Heun or
+// ImplicitEuler (`stepper` 0, 1, 2; the implicit one with `solver` 0 Thomas
+// or 1 PCR) over heat + Richards, or ForwardEuler over the heat-only model
+// (`heat`; S, gS and gS0 unread). Heun's table has steps + 1 rows. Returns
+// -1 for a scheme or NZ it does not run.
+extern "C" int host_segment_vjp_scheme(const double* U, const double* sat, const double* S,
+                                       const double* gU, const double* gsat, const double* gS,
+                                       double* gU0, double* gsat0, double* gS0,
+                                       double* gparams, const double* top,
+                                       long long step_stride, const double* dz,
+                                       const double* dzf, const double* zc, const double* zf,
+                                       const SoilColumnParams* P, int nz, int stepper,
+                                       int solver, int heat, int steps, double dt,
+                                       long long cells)
+{
+    if (nz == 10) return vjp_scheme<10>(stepper, solver, heat, U, sat, S, gU, gsat, gS, gU0,
+                                        gsat0, gS0, gparams, top, step_stride, dz, dzf, zc, zf,
+                                        P, steps, dt, cells);
+    if (nz == 20) return vjp_scheme<20>(stepper, solver, heat, U, sat, S, gU, gsat, gS, gU0,
+                                        gsat0, gS0, gparams, top, step_stride, dz, dzf, zc, zf,
+                                        P, steps, dt, cells);
+    return -1;
 }
 
 extern "C" int host_rollout(double* U, double* sat, double* S, const double* top,

@@ -375,16 +375,18 @@ def test_run_refuses_what_the_kernels_do_not_take(monkeypatch):
 
 
 def test_fused_grad_refuses_heun_series_and_heat_only():
+    """A series top temperature with either stepper, and Heun over the
+    heat-only model (ROADMAP Queue B #2), are refused; Heun over heat +
+    Richards and ForwardEuler over the heat-only model are taken
+    (`tests/test_torch_grad_steppers.py`)."""
     sim = heun_forced("port")
     grid = sim.model.grid
-    with pytest.raises(ValueError, match="ForwardEuler"):
-        make_fused_grad_rollout(lambda p: sim.model, tp.Heun(), sim.ctx, steps=4, dt=300.0,
-                                inner_steps=2)
-    with pytest.raises(ValueError, match="value or as f"):
-        make_fused_grad_rollout(lambda p: sim.model, tp.ForwardEuler(), sim.ctx, steps=4,
-                                dt=300.0, inner_steps=2)
+    for ts in (tp.Heun(), tp.ForwardEuler()):
+        with pytest.raises(ValueError, match="value or as f"):
+            make_fused_grad_rollout(lambda p: sim.model, ts, sim.ctx, steps=4, dt=300.0,
+                                    inner_steps=2)
     ctx = sim.model.make_context(bcs=tp.PrescribedSurfaceTemperature(4.0))
-    roll = make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid), tp.ForwardEuler(), ctx,
+    roll = make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid), tp.Heun(), ctx,
                                    steps=4, dt=300.0, inner_steps=2)
     with pytest.raises(ValueError, match="NoFlow"):
         roll(sim.state, None)

@@ -479,9 +479,12 @@ def test_fused_rollout_refuses_picard_iterations(monkeypatch):
 
 
 def test_fused_grad_refuses_implicit_euler():
-    sim = implicit_freeze("port")
+    """ImplicitEuler with more than one Picard iteration has no segment VJP
+    (ROADMAP Queue B #2); with one it is taken
+    (`tests/test_torch_grad_steppers.py`)."""
+    sim = implicit_freeze("port", picard_iters=2)
     grid = sim.model.grid
-    with pytest.raises(ValueError, match="Queue B #5"):
+    with pytest.raises(ValueError, match="Queue B #2"):
         make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid, soil=port_soil()),
                                 sim.timestepper, sim.ctx, steps=4, dt=3600.0, inner_steps=2)
 

@@ -469,6 +469,120 @@ def test_fused_grad_rollout_launches_each_kernel_once_a_segment(cuda):
     assert bool(torch.isfinite(g)) and float(g) != 0.0
 
 
+# the segment VJP's other schemes: (stepper, physics, solver, dt, the Nz of
+# its float64 instantiation), each also built at float32 Nz 30
+VJP_SCHEMES = {"heun": ("heun", "richards", "pcr", 60.0, 15),
+               "implicit-thomas": ("implicit", "richards", "thomas", 900.0, 16),
+               "implicit-pcr": ("implicit", "richards", "pcr", 900.0, 16),
+               "heat": ("euler", "heat", "pcr", 300.0, 30)}
+
+
+def _scheme_sim(scheme, cells, nz, dtype, device):
+    """The gradient configuration (T = -1 degC, sat = min(1, 0.6 - 0.04 z),
+    top 4 degC) stepped by the scheme; heat only: the default model."""
+    stepper, physics, solver, dt, _ = VJP_SCHEMES[scheme]
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device=device)
+    model = _grad_model(grid) if physics == "richards" else tp.SoilModel(grid=grid)
+    ts = {"heun": tp.Heun(dt=dt), "implicit": tp.ImplicitEuler(dt=dt, solver=solver),
+          "euler": tp.ForwardEuler(dt=dt)}[stepper]
+    return tp.initialize(model, ts, initializers={
+        "temperature": -1.0,
+        "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.6 - 0.04 * z)},
+        boundary_conditions=tp.PrescribedSurfaceTemperature(4.0))
+
+
+def _scheme_operands(scheme, sim, steps, seed):
+    stepper, physics, solver, dt, _ = VJP_SCHEMES[scheme]
+    g = sim.model.grid
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    carry = (sim.state.prognostic["internal_energy"].contiguous(),
+             sim.state["saturation_water_ice"].contiguous(),
+             None if physics == "heat" else sim.state.prognostic["surface_excess_water"])
+    table = torch.linspace(2.0, 5.0, steps + (stepper == "heun"), dtype=g.dtype,
+                           device=g.device)
+    rng = np.random.default_rng(seed)
+    cts = tuple(None if t is None else
+                torch.as_tensor(rng.normal(size=tuple(t.shape)), device=g.device).to(g.dtype)
+                for t in carry)
+    kw = dict(stepper=stepper, physics=physics, solver=solver)
+    return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype), dt, cts, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", VJP_SCHEMES)
+def test_segment_vjp_scheme_kernel_matches_plain(cuda, scheme):
+    """Each scheme's VJP kernel at float64 on 300 columns (a ragged last
+    block), 24 steps, against torch autograd through the plain rollout:
+    every cotangent within rtol 1e-9 with a floor of 1e-12 of its largest
+    magnitude; one launch; heat only: no pool cotangent, K_sat's 0."""
+    nz = VJP_SCHEMES[scheme][4]
+    sim = _scheme_sim(scheme, 300, nz, torch.float64, cuda)
+    carry, table, coords, params, dt, cts, kw = _scheme_operands(scheme, sim, 24, nz)
+    before = fv.soil_column_segment_vjp.launches
+    out = fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts, **kw)
+    ref = fv.soil_column_segment_vjp_plain(*carry, table, *coords, params, dt, *cts, **kw)
+    torch.cuda.synchronize()
+    assert fv.soil_column_segment_vjp.launches == before + 1
+    for a, b in zip(out, ref):
+        if b is None:
+            assert a is None
+            continue
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
+    if kw["physics"] == "heat":
+        assert float(out[3]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["heun", "implicit-thomas", "implicit-pcr"])
+def test_segment_vjp_scheme_kernel_keeps_the_water_identity(cuda, scheme):
+    """The cotangents (0, dz, 1) of the total water, which every Heun and
+    implicit step conserves, through the kernel: dz and 1 at every cell
+    (rtol 1e-12 for Heun, 1e-10 for the implicit solves)."""
+    nz = VJP_SCHEMES[scheme][4]
+    sim = _scheme_sim(scheme, 300, nz, torch.float64, cuda)
+    carry, table, coords, params, dt, _, kw = _scheme_operands(scheme, sim, 24, 0)
+    dz = coords[0][:, None].expand(nz, 300).contiguous()
+    _, gsat, gS, _, _ = fv.soil_column_segment_vjp(
+        *carry, table, *coords, params, dt, torch.zeros_like(carry[0]), dz,
+        torch.ones_like(carry[2]), **kw)
+    rtol = 1e-12 if scheme == "heun" else 1e-10
+    assert bool((carry[1] == 1.0).any())
+    torch.testing.assert_close(gsat, dz, rtol=rtol, atol=0)
+    torch.testing.assert_close(gS, torch.ones_like(gS), rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", VJP_SCHEMES)
+def test_fused_grad_rollout_launches_each_scheme_once_a_segment(cuda, scheme):
+    """make_fused_grad_rollout of each scheme at float32, Nz 30: one forward
+    launch of the scheme's rollout kernel and one VJP launch a segment, and
+    a finite, non-zero gradient in k_mineral."""
+    stepper, physics, solver, dt, _ = VJP_SCHEMES[scheme]
+    sim = _scheme_sim(scheme, 200, 30, torch.float32, cuda)
+    grid = sim.model.grid
+    steps, inner = 24, 8
+
+    def model_fn(k):
+        base = _grad_model(grid) if physics == "richards" else tp.SoilModel(grid=grid)
+        return tp.SoilModel(grid=grid, soil=with_differentiable_params(
+            base.soil, mineral_conductivity=k))
+
+    roll = make_fused_grad_rollout(model_fn, sim.timestepper, sim.ctx, steps=steps, dt=dt,
+                                   inner_steps=inner)
+    k = torch.tensor(3.8, dtype=torch.float64, device=cuda, requires_grad=True)
+    fwd = fs.ROLLOUTS[stepper, physics]
+    f0, b0 = fwd.launches, fv.soil_column_segment_vjp.launches
+    out = roll(sim.state, k)
+    (g,) = torch.autograd.grad(out.temperature.mean(), k)
+    torch.cuda.synchronize()
+    assert fwd.launches - f0 == steps // inner
+    assert fv.soil_column_segment_vjp.launches - b0 == steps // inner
+    assert bool(torch.isfinite(g)) and float(g) != 0.0
+
+
 # ---------------------------------------------------------------------------
 # the LandModel column kernel
 # ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ the CPU does not; the forward then differs from the plain version only where
 rounding.
 The states are `test_torch_soil_physics.py`'s random legal states, which take
 every branch of the step, and the gradient test's exactly saturated column.
+Each scheme of the segment VJP is held there: ForwardEuler, Heun and
+ImplicitEuler (Thomas, PCR) over heat + Richards, and ForwardEuler over the
+heat-only model, whose parameters are those of the default (NoFlow)
+`SoilModel` on the same grid.
 """
 import ctypes
 import pathlib
@@ -23,6 +27,8 @@ import torch
 
 from terrarium_tpu_torch.ops import fused_step as fs
 from terrarium_tpu_torch.ops import fused_vjp as fv
+
+import terrarium_tpu_torch as tp
 
 from test_torch_soil_physics import CELLS, NZ, random_state
 from torch_parity import port_sim
@@ -46,11 +52,15 @@ def host_lib(tmp_path_factory):
                                      + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ll])
     lib.host_rollout.argtypes = ([ptr] * 4 + [ll] + [ptr] * 5
                                  + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ll])
+    lib.host_segment_vjp_scheme.argtypes = ([ptr] * 11 + [ll] + [ptr] * 5
+                                            + [ctypes.c_int] * 5 + [ctypes.c_double, ll])
     return lib
 
 
-def _case(name):
-    """Carry, top-temperature table, coordinates and parameters of a case."""
+def _case(name, physics="richards"):
+    """Carry, top-temperature table, coordinates and parameters of a case;
+    ``physics="heat"`` takes the default heat-only model's parameters and
+    the carry (U, sat)."""
     if name.startswith("random"):
         sim = port_sim("golden", CELLS, NZ)
         carry = tuple(torch.as_tensor(a).contiguous() for a in random_state(int(name[-1])))
@@ -64,10 +74,19 @@ def _case(name):
     g = sim.model.grid
     coords = tuple(getattr(g, n)[:, 0].contiguous()
                    for n in ("dz", "dz_faces", "z_centers", "z_faces"))
-    return carry, table, coords, fs.ColumnParams.of(sim.model, torch.float64), dt
+    model = sim.model if physics == "richards" else tp.SoilModel(grid=g)
+    if physics == "heat":
+        carry = carry[:2]
+    return carry, table, coords, fs.ColumnParams.of(model, torch.float64), dt
 
 
 CASES = ["random0", "random1", "saturated"]
+#: the segment VJP's schemes besides ForwardEuler over heat + Richards:
+#: (stepper, physics, solver), with the host build's codes
+SCHEMES = {"heun": ("heun", "richards", "pcr"), "implicit-thomas": ("implicit", "richards",
+                                                                    "thomas"),
+           "implicit-pcr": ("implicit", "richards", "pcr"), "heat": ("euler", "heat", "pcr")}
+_CODES = {"euler": 0, "heun": 1, "implicit": 2, "thomas": 0, "pcr": 1}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -103,6 +122,55 @@ def test_host_adjoint_matches_autograd(host_lib, case):
     ref = fv.soil_column_segment_vjp_plain(*carry, table, *coords, params, dt, *cts)
     got = (*out, gparams[0].sum(), gparams[1].sum())
     for name, a, b in zip(("U", "sat", "S", "K_sat", "sk_mineral"), got, ref):
+        assert bool(torch.isfinite(a).all()), name
+        scale = float(b.abs().max())
+        assert scale > 0.0, name
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+
+
+def _scheme_case(case, scheme):
+    stepper, physics, solver = SCHEMES[scheme]
+    carry, table, coords, params, dt = _case(case, physics)
+    if stepper == "heun":  # the stage of the last step reads one more row
+        table = torch.cat([table, table[-1:] + 1.5])
+    return (stepper, physics, solver), carry, table, coords, params, dt
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("case", CASES)
+def test_host_scheme_adjoint_matches_autograd(host_lib, case, scheme):
+    """Each scheme's hand adjoint (`soil::heun_step_adjoint`,
+    `soil::implicit_step_adjoint`, the heat-only `soil::step_adjoint`)
+    against torch autograd through the plain rollout: every cotangent within
+    1e-12 of its largest magnitude; heat only: no pool, and K_sat's exactly
+    0."""
+    (stepper, physics, solver), carry, table, coords, params, dt = _scheme_case(case, scheme)
+    nz, cells = carry[0].shape
+    heat = physics == "heat"
+    rng = np.random.default_rng(sum(map(ord, case + scheme)))
+    cts = tuple(torch.as_tensor(rng.normal(size=tuple(t.shape))) for t in carry)
+    if heat:
+        carry, cts = carry + (torch.zeros(cells, dtype=torch.float64),), cts + (None,)
+    out = tuple(torch.full_like(carry[0 if i < 2 else 2], np.nan) for i in range(3))
+    gparams = torch.zeros(2, cells, dtype=torch.float64)
+    cp = fs._CParams.of(params)
+    steps = table.shape[0] - (1 if stepper == "heun" else 0)
+    rc = host_lib.host_segment_vjp_scheme(
+        *(0 if t is None else t.data_ptr() for t in (*carry, *cts, *out, gparams, table)),
+        table.stride(0), *(c.data_ptr() for c in coords), ctypes.addressof(cp), nz,
+        _CODES[stepper], _CODES[solver], int(heat), steps, dt, cells)
+    assert rc == 0
+    ref = fv.soil_column_segment_vjp_plain(*carry[:2], None if heat else carry[2], table,
+                                           *coords, params, dt, *cts, stepper=stepper,
+                                           physics=physics, solver=solver)
+    got = (*out, gparams[0].sum(), gparams[1].sum())
+    for name, a, b in zip(("U", "sat", "S", "K_sat", "sk_mineral"), got, ref):
+        if heat and name == "S":
+            assert b is None and bool(torch.isnan(a).all()), "the heat-only VJP wrote a pool"
+            continue
+        if heat and name == "K_sat":
+            assert float(a) == 0.0 and float(b) == 0.0
+            continue
         assert bool(torch.isfinite(a).all()), name
         scale = float(b.abs().max())
         assert scale > 0.0, name
