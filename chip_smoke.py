@@ -38,7 +38,17 @@ the kernel launch counts set to 0 just before it and read just after:
   cells) series made on the card, in two compositions: ``land_consistent``
   (`examples/land_global.py` with ``DirectSurfaceRunoff.consistent()``, the
   production one) and the bench's own parity composition, each one timed
-  1,440-step block, the latter with its non-finite share;
+  1,440-step block, the latter with its non-finite share; the
+  ``land_snow`` golden (float64, Nz 12, 48 steps through the kernel: the
+  snowpack's fields against the golden, every field against the plain
+  version); the land kernel's Heun, ImplicitEuler (PCR, Thomas) and
+  snowpack (ImplicitEuler PCR) variants, each against its plain version one
+  step at a time (float64 on 1,024 columns, float32 at full width, 48
+  steps) and then through ``Simulation.run`` on ``land_consistent``'s
+  composition and forcing at dt 600 s (``land_heun``, ``land_implicit_pcr``,
+  ``land_implicit_thomas``, ``land_snow_n145`` with a snowfall and an initial
+  pack), one timed 1,440-step block each, with the share of columns with a
+  saturation layer outside [0, 1] at steps 3 and 1,440;
 * the gradient path (``make_fused_grad_rollout``) of the configuration
   ``grad_n145_heat_richards`` (`bench_configs.py:311-411`): 56,951 columns,
   Nz 20, float32, dt 300 s, 288 steps in segments of 48, value and gradient
@@ -70,13 +80,16 @@ the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
 golden, bench and gradient configurations, of the Heun kernel's on
 ``heun_forced`` and the Heun + series configuration, of the heat-only,
 implicit (each solver), segment-VJP (each scheme the package has) and land
-kernels' on their full-width comparison operands, and the bench
+kernels' (each stepper and the snowpack the package has) on their
+full-width comparison operands, and the bench
 ``main_path`` rate, for the package in
 ``DIR`` (default: this checkout). Run it on two checkouts in one call to
 compare their kernels bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import pathlib
 import re
@@ -351,6 +364,26 @@ def full_step_bytes(physics, nz, cells, itemsize, top_values):
 # days a block; the float64 comparison on 1,024 of those columns
 LAND_CELLS, LAND_NZ, LAND_DT, LAND_BLOCK_STEPS, LAND_F64_CELLS = 56951, 20, 600.0, 1440, 1024
 LAND_GOLDEN = ROOT / "tests" / "goldens" / "land_model.npz"
+LAND_SNOW_GOLDEN = ROOT / "tests" / "goldens" / "land_snow.npz"
+# land_snow_n145: the snowfall beside the rain and the initial pack
+SNOWFALL, SWE0 = 2.0e-8, 0.02
+# the land kernel's other steppers, each against its plain version along
+# the plain trajectory for LAND_VARIANT_STEPS steps (float64 on
+# LAND_F64_CELLS columns, float32 at full width) and timed over as many:
+# (wrapper key, solver, snowpack)
+LAND_VARIANTS = {"land_heun": ("heun", None, False),
+                 "land_implicit_pcr": ("implicit", "pcr", False),
+                 "land_implicit_thomas": ("implicit", "thomas", False),
+                 "land_snow_implicit_pcr": ("implicit", "pcr", True)}
+LAND_VARIANT_STEPS = 48
+# Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
+# Richards step, leaves [0, 1] in 95% of the columns from step 3 and its
+# tendencies grow far beyond the state, so the float32 rounding of the
+# stage moves the corrector by more than a field's change in a step
+# (measured 8e-4 of the energy's magnitude, 1e-2 of the saturation's);
+# at dt 60 the stage stays inside [0, 1] over the 48 steps (and the float64
+# check holds every column at dt 600)
+LAND_HEUN_F32_DT = 60.0
 # Operations of one land step (land::step in csrc/land_step.cuh), counted by
 # FWD_OPS's rules, for the vegetated Richards composition over Brooks-Corey
 # and linear conductivity. Per level: the sweeps 14; the energy closure,
@@ -401,6 +434,42 @@ def land_ops(nz, branches):
     number of times each of ``LAND_OPS_BRANCH`` runs a column and step."""
     return (sum(LAND_OPS_PER_LEVEL.values()) * nz + sum(LAND_OPS_PER_COLUMN.values())
             + sum(LAND_OPS_BRANCH[k] * n for k, n in branches.items()))
+
+
+# The other land steps, counted from land_ops by the same rules (the
+# branches of the x_n state taken for every closure_rhs of the step):
+# * Heun (land::heun_step): two closure_rhs; the stage's update is an Euler
+#   update and the corrector's x + (0.5 (f + g)) dt two operations more a
+#   field (U and sat a level, pool, skin, canopy water, carbon, fraction,
+#   SWE a column: 4 a level, 12 a column); the inputs read again at t + dt
+#   (two series reads and the clock's add, 23).
+# * ImplicitEuler (land::implicit_step): closure_rhs with its tendencies
+#   kept (the Euler update's multiply and add for U and sat off, -4 a
+#   level); a level: dT/dU 3, d(Psi)/d(sat) of the Brooks-Corey curve
+#   (land::bc_chain: se 3, clip 2, se^-6 by three multiplies and a
+#   reciprocal 4, the product and quotient 2, clamp 2, the compare and
+#   select 2, times por 1: 16), the face kappa again 2, U += du and sat +=
+#   du 2; IMPLICIT_OPS_PER_FACE a face (the rows of both systems); a
+#   column: the two Flux BCs into the top rows' right-hand sides 5, and
+#   two solves (implicit_solver_ops).
+# * Snowpack: cover 3, melt 5, the albedo and emissivity blends 7, eps
+#   sigma and 1 - eps 2, the melt into the ground rain 1, dSWE/dt 1, the
+#   SWE update with its clip 3: 22 a column and step.
+LAND_HEUN_OPS_PER_LEVEL, LAND_HEUN_OPS_PER_COLUMN = 4, 12 + 23
+LAND_IMPLICIT_OPS_PER_LEVEL, LAND_IMPLICIT_OPS_PER_COLUMN = -4 + 3 + 16 + 2 + 2, 5
+LAND_SNOW_OPS_PER_COLUMN = 22
+
+
+def land_variant_ops(stepper, solver, snow, nz, branches):
+    """Operations of one land step of one column of ``stepper`` (the kernel
+    wrapper's key), with a snowpack where ``snow``."""
+    ops = land_ops(nz, branches) + (LAND_SNOW_OPS_PER_COLUMN if snow else 0)
+    if stepper == "heun":
+        return 2 * ops + LAND_HEUN_OPS_PER_LEVEL * nz + LAND_HEUN_OPS_PER_COLUMN
+    if stepper == "implicit":
+        return (ops + LAND_IMPLICIT_OPS_PER_LEVEL * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
+                + LAND_IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
+    return ops
 
 
 def phase(name, **fields):
@@ -647,6 +716,32 @@ def land_model(tp, grid, composition):
             surface_runoff=tp.DirectSurfaceRunoff.consistent()))
 
 
+def land_variant(tp, ls, name):
+    """The stepper, the kernel wrapper and the plain version of
+    ``LAND_VARIANTS[name]``, the last two as partials taking
+    ``land_column_rollout``'s arguments."""
+    key, solver, _ = LAND_VARIANTS[name]
+    kw = {"solver": solver} if solver else {}
+    stepper = tp.Heun(dt=LAND_DT) if key == "heun" else tp.ImplicitEuler(dt=LAND_DT, **kw)
+    return (stepper, functools.partial(ls.ROLLOUTS[key], **kw),
+            functools.partial(ls.land_column_rollout_plain, stepper=key, **kw))
+
+
+def land_snow_golden_sim(tp):
+    """`tests/test_goldens.py:52-64`: 4 cells, Nz 12, float64, bare ground,
+    Richards flow over the default hydraulics, ``Snowpack()``."""
+    grid = tp.ColumnGrid.of(cells=4, spacing=tp.ExponentialSpacing(N=12),
+                            dtype=torch.float64, device="cuda")
+    model = tp.LandModel(grid=grid, snow=tp.Snowpack(), soil=tp.SoilEnergyWaterCarbon(
+        hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq())))
+    return tp.initialize(
+        model, tp.ForwardEuler(),
+        initializers={"temperature": 1.0, "saturation_water_ice": 0.6,
+                      "snow_water_equivalent": 0.02},
+        input_sources=(tp.FieldInputSource(fields={
+            "air_temperature": 4.0, "snowfall": 5.0e-8, "surface_shortwave_down": 250.0}),))
+
+
 def land_golden_sim(tp):
     """`tests/test_goldens.py:40-49`: 4 cells, Nz 15, float64, bare ground."""
     grid = tp.ColumnGrid.of(cells=4, spacing=tp.ExponentialSpacing(N=15),
@@ -658,14 +753,16 @@ def land_golden_sim(tp):
             "surface_shortwave_down": 400.0, "air_temperature": 12.0, "rainfall": 1.0e-7}),))
 
 
-def land_sim(tp, cells, dtype, composition, device="cuda"):
+def land_sim(tp, cells, dtype, composition, device="cuda", stepper=None, snow=False):
     """`bench_configs.py:228-267` on ``cells`` columns at latitudes evenly
     spaced from -60 to 80 degrees: loam, Richards flow, Nz 20, ForwardEuler at
-    dt 600 s; hourly (744, cells) series of shortwave 900 cos(lat) max(0,
-    sin(2 pi (t/day - 0.25))) and air temperature T_mean + 6 sin(2 pi (t/day
-    - 0.3)), T_mean = 28 max(cos lat, 0.05) - 8, made on the card in float64
-    and rounded once; static longwave 330, rain 4e-8, wind 3; initial
-    temperature T_mean, saturation 0.6, carbon 2, vegetation fraction 0.5."""
+    dt 600 s (or ``stepper``); hourly (744, cells) series of shortwave 900
+    cos(lat) max(0, sin(2 pi (t/day - 0.25))) and air temperature T_mean + 6
+    sin(2 pi (t/day - 0.3)), T_mean = 28 max(cos lat, 0.05) - 8, made on the
+    card in float64 and rounded once; static longwave 330, rain 4e-8, wind 3;
+    initial temperature T_mean, saturation 0.6, carbon 2, vegetation fraction
+    0.5. ``snow``: with ``Snowpack()``, a static snowfall of 2e-8 m/s beside
+    the rain and an initial SWE of 0.02 m (``land_snow_n145``)."""
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
                             dtype=dtype, device=device)
     lat = np.linspace(-60.0, 80.0, cells)
@@ -679,13 +776,18 @@ def land_sim(tp, cells, dtype, composition, device="cuda"):
         "surface_shortwave_down": sw.to(dtype).contiguous(),
         "air_temperature": ta.to(dtype).contiguous()})
     del sw, ta
-    static = tp.FieldInputSource(fields={"surface_longwave_down": 330.0, "rainfall": 4.0e-8,
-                                         "windspeed": 3.0})
+    fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0}
+    inits = {"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+             "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+             "vegetation_area_fraction": 0.5}
+    model = land_model(tp, grid, composition)
+    if snow:
+        model = dataclasses.replace(model, snow=tp.Snowpack())
+        fields["snowfall"] = SNOWFALL
+        inits["snow_water_equivalent"] = SWE0
     return tp.initialize(
-        land_model(tp, grid, composition), tp.ForwardEuler(dt=LAND_DT), (forcing, static),
-        initializers={"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
-                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
-                      "vegetation_area_fraction": 0.5})
+        model, stepper if stepper is not None else tp.ForwardEuler(dt=LAND_DT),
+        (forcing, tp.FieldInputSource(fields=fields)), initializers=inits)
 
 
 def land_operands(ls, land_inputs, sim):
@@ -733,7 +835,8 @@ def outside_unit(carry):
     return ((sat > 1.0) | (sat < 0.0)).any(0)
 
 
-def land_teacher(ls, fs, carry, inputs, root, coords, params, t_start, steps, tolerance):
+def land_teacher(ls, fs, carry, inputs, root, coords, params, t_start, steps, tolerance,
+                 kernel=None, plain=None, dt=LAND_DT):
     """The land kernel against its plain version along the plain version's
     trajectory: at each of ``steps`` steps, one kernel step and one plain
     step from the same carry, the plain one carried on; no step's error can
@@ -746,18 +849,20 @@ def land_teacher(ls, fs, carry, inputs, root, coords, params, t_start, steps, to
     a kernel that left the field unchanged would fail; the (step, column,
     field) triples beyond the tolerance; the kernel's own chain of one-step
     launches; the mean number of runs of each branch a column and step; and
-    per step the share of columns outside [0, 1]."""
+    per step the share of columns outside [0, 1]. ``kernel`` and ``plain``
+    are the wrapper and plain version of the stepper (ForwardEuler's by
+    default), called as ``land_column_rollout`` is, with steps of ``dt``."""
+    kernel = kernel or ls.land_column_rollout
+    plain = plain or ls.land_column_rollout_plain
     dtype = carry["internal_energy"].dtype
     t = (np.float32 if dtype == torch.float32 else np.float64)(t_start)
     cp, chain = dict(carry), dict(carry)
     worst_abs, worst, ulps, seen, beyond, outside_share = {}, {}, {}, {}, [], []
     branches = dict.fromkeys(LAND_OPS_BRANCH, 0)
     for i in range(steps):
-        k1 = ls.land_column_rollout(cp, inputs, root, *coords, params, LAND_DT, float(t), 1)
-        p1 = ls.land_column_rollout_plain(cp, inputs, root, *coords, params, LAND_DT,
-                                          float(t), 1)
-        chain = {**chain, **ls.land_column_rollout(chain, inputs, root, *coords, params,
-                                                   LAND_DT, float(t), 1)}
+        k1 = kernel(cp, inputs, root, *coords, params, dt, float(t), 1)
+        p1 = plain(cp, inputs, root, *coords, params, dt, float(t), 1)
+        chain = {**chain, **kernel(chain, inputs, root, *coords, params, dt, float(t), 1)}
         outside = outside_unit(cp)
         outside_share.append(float(outside.float().mean()))
         for k, n in land_branches(fs, params, inputs, cp, p1, float(t)).items():
@@ -778,7 +883,7 @@ def land_teacher(ls, fs, carry, inputs, root, coords, params, t_start, steps, to
                 bad = bad.any(0)
             beyond += [(i + 1, int(col), n) for col in bad.nonzero().flatten()[:4].tolist()]
         cp = {**cp, **p1}
-        t = t + t.dtype.type(LAND_DT)
+        t = t + t.dtype.type(dt)
     cells = carry["internal_energy"].shape[1]
     runs = {k: n / (cells * steps) for k, n in branches.items()}
     return worst_abs, worst, ulps, seen, beyond, chain, runs, outside_share
@@ -812,6 +917,120 @@ def land_f32_tolerance(name, plain, start, outside):
     if name in ("saturation_water_ice", "surface_excess_water"):
         tol = torch.where(outside, torch.clamp(tol, min=F32_REL_TOL * float(value.max())), tol)
     return tol
+
+
+def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card):
+    """``LAND_VARIANTS[vname]``'s kernel against its plain version one step
+    at a time along the plain trajectory (float64 on LAND_F64_CELLS columns
+    at 1e-12 and float32 at full width by land_f32_tolerance, Heun's at
+    LAND_HEUN_F32_DT), one launch against the chain of one-step launches,
+    and timed; prints the phase and returns what the kernel report reads."""
+    vkey, vsolver, vsnow = LAND_VARIANTS[vname]
+    stepper, kernel, plain = land_variant(tp, ls, vname)
+    res = {}
+    for dtype, cells, tol in ((torch.float64, LAND_F64_CELLS, land_f64_tolerance),
+                              (torch.float32, LAND_CELLS, land_f32_tolerance)):
+        dt = LAND_HEUN_F32_DT if vkey == "heun" and dtype == torch.float32 else LAND_DT
+        sim = land_sim(tp, cells, dtype, "consistent", stepper=stepper, snow=vsnow)
+        carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+        t_start = float(sim.state.clock.time)
+        res[dtype] = land_teacher(ls, fs, carry, linputs, root, coords, params, t_start,
+                                  LAND_VARIANT_STEPS, tol, kernel=kernel, plain=plain, dt=dt)
+    v_abs, v_rel, v_ulps, v_seen, v_beyond, chain, v_runs, v_out = res[torch.float32]
+    f64_abs, f64_rel, _, _, f64_beyond, *_ = res[torch.float64]
+    out_k = kernel(carry, linputs, root, *coords, params, dt, t_start, LAND_VARIANT_STEPS)
+    torch.cuda.synchronize()
+    chain_equal = all(torch.equal(out_k[n], chain[n]) for n in sim.model.live_carry)
+    finite = all(bool(torch.isfinite(out_k[n]).all()) for n in sim.model.live_carry)
+    v_ms = cuda_ms(lambda: kernel(carry, linputs, root, *coords, params, LAND_DT, t_start,
+                                  LAND_VARIANT_STEPS), reps=3, warmup=True)
+    v_ms_144 = cuda_ms(lambda: kernel(carry, linputs, root, *coords, params, LAND_DT, t_start,
+                                      COMPARE_STEPS), reps=3)
+    v_plain_ms = cuda_ms(lambda: plain(carry, linputs, root, *coords, params, LAND_DT, t_start,
+                                       LAND_VARIANT_STEPS))
+    v_rows = series_rows_read(fs.SeriesBC(linputs["air_temperature"].values, 0.0, SERIES_DTS,
+                                          t_start, LAND_VARIANT_STEPS), LAND_DT,
+                              stages=2 if vkey == "heun" else 1)
+    v_ops = land_variant_ops(vkey, vsolver, vsnow, LAND_NZ, v_runs)
+    v_b = bound_ms(v_ops * LAND_CELLS * LAND_VARIANT_STEPS,
+                   2 * sum(t.numel() for t in carry.values()) * 4 + 2 * v_rows * LAND_CELLS * 4)
+    entry = "_".join(("land_column_rollout", *((vkey, vsolver) if vsolver else (vkey,)),
+                      *params.tags, "f32", f"nz{LAND_NZ}"))
+    ptxas = ptxas_all["land_column_rollout"].get(entry, {}).get("land")
+    phase(f"{vname}_compare", cells=LAND_CELLS, nz=LAND_NZ, dt=LAND_DT, f32_check_dt=dt,
+          steps=LAND_VARIANT_STEPS, f64_cells=LAND_F64_CELLS, f64_rtol=1e-12,
+          f64_max_abs_err=f64_abs, f64_max_err_over_magnitude=f64_rel,
+          f64_beyond=f64_beyond[:12], rel_tol=F32_REL_TOL, max_abs_err=v_abs,
+          max_err_over_magnitude=v_rel, max_err_in_ulps_inside_unit=v_ulps,
+          f32_beyond=v_beyond[:12], f32_steps_a_zeroed_change_fails=v_seen,
+          one_launch_equals_step_chain=chain_equal, one_launch_finite=finite,
+          kernel_ms=v_ms, kernel_ms_144_steps=v_ms_144, plain_ms=v_plain_ms,
+          bound_ms=v_b[0], bound_by=v_b[1], ops_per_column_step=v_ops,
+          branch_runs_per_column_step=v_runs, series_rows_read=v_rows, ptxas=ptxas,
+          outside_unit_share_at_step={i: v_out[i - 1] for i in (1, 2, 3, 4, 12, 48)
+                                      if i <= len(v_out)},
+          card=card)
+    if f64_beyond or v_beyond or not chain_equal or not finite:
+        raise AssertionError(f"{vname} kernel vs plain: f64 {f64_beyond[:4]}, f32 "
+                             f"{v_beyond[:4]}, one launch equals the step chain: "
+                             f"{chain_equal}, finite: {finite}")
+    return dict(key=vkey, solver=vsolver, snow=vsnow, max_abs_err=v_abs, ms=v_ms,
+                ms_144=v_ms_144, plain_ms=v_plain_ms, bound_ms=v_b[0], bound_by=v_b[1],
+                ops=v_ops, ptxas=ptxas)
+
+
+def land_stepper_main_path(tp, ls, land_inputs, mname, vname, var, reset_counts, launched,
+                           card):
+    """``LAND_VARIANTS[vname]`` on land_consistent's composition and forcing
+    through ``Simulation.run``: one timed 1,440-step block from the initial
+    state after a 3-step launch from the same state (the warm-up), whose
+    carry gives the share of columns with a saturation layer outside [0, 1]
+    at step 3; the block's own carry, launched again after the counts were
+    read, gives it at step 1,440. Prints the phase ``mname`` and returns
+    the block's launches of the stepper's kernel."""
+    vkey, vsolver, vsnow = LAND_VARIANTS[vname]
+    stepper, kernel, _ = land_variant(tp, ls, vname)
+    wrapper = ls.ROLLOUTS[vkey]
+    sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent", stepper=stepper, snow=vsnow)
+    carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    t_start = float(sim.state.clock.time)
+    share_3 = float(outside_unit(kernel(carry, linputs, root, *coords, params, LAND_DT,
+                                        t_start, 3)).float().mean())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=LAND_BLOCK_STEPS)
+    torch.cuda.synchronize()
+    m_s = time.perf_counter() - t0
+    m_launches = wrapper.launches
+    if launched() != {wrapper.__name__: 1}:
+        raise AssertionError(f"{mname}: the block launched {launched()}, expected one "
+                             f"{wrapper.__name__}")
+    st = sim.state
+    for name in sim.model.live_carry + ("temperature",):
+        if not bool(torch.isfinite(st[name]).all()):
+            raise AssertionError(f"{mname}: {name} non-finite")
+    if sim.iteration != LAND_BLOCK_STEPS:
+        raise AssertionError(f"{mname}: clock iteration {sim.iteration}")
+    end = kernel(carry, linputs, root, *coords, params, LAND_DT, t_start, LAND_BLOCK_STEPS)
+    snow_fields = {}
+    if vsnow:
+        swe = st.snow_water_equivalent
+        snow_fields = dict(snow_covered_share=float((swe > 0).float().mean()),
+                           swe_range_m=[float(swe.min()), float(swe.max())])
+    phase(mname, composition="consistent", stepper=type(stepper).__name__,
+          solver=vsolver, snow=vsnow, cells=LAND_CELLS, nz=LAND_NZ, dt=LAND_DT,
+          steps=LAND_BLOCK_STEPS, seconds=m_s, launches=m_launches,
+          cells_steps_per_s=LAND_CELLS * LAND_BLOCK_STEPS / m_s,
+          kernel_ms_144_steps=var["ms_144"], ptxas=var["ptxas"],
+          outside_unit_share_at_step={3: share_3,
+                                      LAND_BLOCK_STEPS: float(outside_unit(end).float().mean())},
+          land_consistent_outside_unit_share={3: 0.9528, "after its block": 0.9189},
+          saturation_range_at_end=[float(end["saturation_water_ice"].min()),
+                                   float(end["saturation_water_ice"].max())],
+          skin_range=[float(st.skin_temperature.min()), float(st.skin_temperature.max())],
+          **snow_fields, card=card)
+    return m_launches
 
 
 def land_nonfinite(sim):
@@ -1080,7 +1299,8 @@ def main():
 
     KERNELS = (fs.soil_column_rollout, fs.soil_column_heun_rollout,
                fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
-               fv.soil_column_segment_vjp, ls.land_column_rollout, fs.soil_column_full_step)
+               fv.soil_column_segment_vjp, ls.land_column_rollout, ls.land_column_heun_rollout,
+               ls.land_column_implicit_rollout, fs.soil_column_full_step)
 
     def reset_counts():
         for fn in KERNELS:
@@ -1553,6 +1773,66 @@ def main():
           card=card)
     del sim
 
+    # ---- land_snow golden through the land kernel (Simulation.run, one
+    # launch) and through the plain version. The snowpack's fields, which no
+    # soil field feeds, against the golden at 1e-12; every field of the
+    # kernel's run against the plain version's at 1e-12. The soil's energy
+    # and saturation are compared with the golden but not held to it: its
+    # explicit Richards step is unstable at dt 300 and free runs part from
+    # it (JAX's own 48 single steps by 0.77 in saturation; ROADMAP Queue C)
+    sgold = np.load(LAND_SNOW_GOLDEN)
+    runs_ = {}
+    for route in ("kernel", "plain"):
+        sim = land_snow_golden_sim(tp)
+        if route == "kernel":
+            reset_counts()
+            sim.run(steps=48, dt=300.0)
+            torch.cuda.synchronize()
+            if launched() != {"land_column_rollout": 1}:
+                raise AssertionError(f"land snow golden: launches {launched()}")
+        else:
+            advance(sim.model, sim.state, sim.ctx, 48, 300.0, input_sources=sim.input_sources,
+                    plain=True)
+            sim.compute_auxiliary()
+        runs_[route] = {f: sim.state[f].cpu().numpy() for f in (
+            *sgold.files, *sim.model.live_carry)}
+    to_golden = {f: float(np.max(np.abs(runs_["kernel"][f] - sgold[f]))) for f in sgold.files}
+    for f in ("snow_water_equivalent", "snow_cover_fraction", "surface_shortwave_up"):
+        np.testing.assert_allclose(runs_["kernel"][f], sgold[f], rtol=1e-12, atol=1e-12,
+                                   err_msg=f"land snow golden: {f}")
+    to_plain = {}
+    for f, a in runs_["kernel"].items():
+        b = runs_["plain"][f]
+        to_plain[f] = float(np.max(np.abs(a - b)))
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12 * float(np.max(np.abs(b))),
+                                   err_msg=f"land snow golden kernel vs plain: {f}")
+    phase("land_snow_golden", steps=48, dt=300.0, launches=1, rtol=1e-12,
+          kernel_vs_golden_max_abs_err=to_golden, kernel_vs_plain_max_abs_err=to_plain,
+          held_to_golden=["snow_water_equivalent", "snow_cover_fraction",
+                          "surface_shortwave_up"])
+    del sim, runs_
+
+    # ---- the land kernel's other steppers, each against its plain version
+    # one step at a time along the plain trajectory (float64 on 1,024
+    # columns at 1e-12, float32 at full width by land_f32_tolerance), one
+    # launch against the chain of one-step launches, and timed
+    land_var = {vname: land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card)
+                for vname in LAND_VARIANTS}
+
+    # ---- the land main paths of the other steppers: land_consistent's
+    # composition and forcing through Simulation.run with Heun, with
+    # ImplicitEuler (PCR, Thomas) and, with PCR, under a snowpack
+    # (land_snow_n145), each one timed 1,440-step block from the initial
+    # state after a 3-step warm-up launch from the same state, whose carry
+    # gives the share of columns with a saturation layer outside [0, 1] at
+    # step 3; the block's own carry, launched again after the counts were
+    # read, gives it at step 1,440
+    for mname, vname in (("land_implicit_pcr", "land_implicit_pcr"),
+                         ("land_implicit_thomas", "land_implicit_thomas"),
+                         ("land_heun", "land_heun"), ("land_snow_n145", "land_snow_implicit_pcr")):
+        land_var[vname]["launches"] = land_stepper_main_path(
+            tp, ls, land_inputs, mname, vname, land_var[vname], reset_counts, launched, card)
+
     # ---- segment-VJP kernel against its plain version, one 48-step segment
     # of the gradient configuration on GRAD_COMPARE_CELLS columns
     vjp_names = ("U", "sat", "S", "K_sat", "sk_mineral")
@@ -1984,7 +2264,22 @@ def main():
         "ms": land_ms, "plain_ms": land_plain_ms, "bound_ms": land_b[0],
         "bound_by": land_b[1], "library_ms": None,
         "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent, series, "
-                 f"{COMPARE_STEPS} steps"}, {
+                 f"{COMPARE_STEPS} steps"}, *({
+        "name": ("land_column_heun_rollout" if v["key"] == "heun"
+                 else "land_column_implicit_rollout") + f"[{vname}]", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/land_column_rollout.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:283 traced over a LandModel step with "
+                    + ("Heun (terrarium_tpu/timesteppers/stepping.py:167)" if v["key"] == "heun"
+                       else f"ImplicitEuler (terrarium_tpu/timesteppers/implicit.py:173, "
+                            f"{v['solver']})")
+                    + (" and a Snowpack (terrarium_tpu/processes/snow.py:66)"
+                       if v["snow"] else ""),
+        "launches": v["launches"], "max_abs_err": max(v["max_abs_err"].values()),
+        "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+        "bound_by": v["bound_by"], "library_ms": None,
+        "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent"
+                 + (" with snow" if v["snow"] else "") + f", series, {LAND_VARIANT_STEPS} "
+                 f"steps (ms_144 {v['ms_144']:.4f})"} for vname, v in land_var.items()), {
         "name": "soil_column_full_step", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/soil_column_full_step.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:152",
@@ -2093,6 +2388,16 @@ def euler_digest(root: pathlib.Path):
                                  float(sim.state.clock.time), COMPARE_STEPS)
     digests["land_consistent_f32_nz20"] = digest([out[k] for k in sorted(out)])
     del sim, carry, inputs, out
+    if hasattr(ls, "ROLLOUTS"):  # the land kernel's Heun, implicit and snow variants
+        for vname, (_, _, vsnow) in LAND_VARIANTS.items():
+            stepper, kernel, _ = land_variant(tp, ls, vname)
+            sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent", stepper=stepper,
+                           snow=vsnow)
+            carry, inputs, root, coords, params = land_operands(ls, land_inputs, sim)
+            out = kernel(carry, inputs, root, *coords, params, LAND_DT,
+                         float(sim.state.clock.time), COMPARE_STEPS)
+            digests[f"{vname}_f32_nz20"] = digest([out[k] for k in sorted(out)])
+            del sim, carry, inputs, out
     sim = bench_sim(tp)
     sim.run(steps=COMPARE_STEPS)
     torch.cuda.synchronize()

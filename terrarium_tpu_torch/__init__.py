@@ -7,7 +7,10 @@ or ImplicitEuler (tridiagonal solves by PCR or Thomas), with the top
 temperature given as a value, ``f(t)`` or an input variable fed by
 ``FieldInputSource`` / ``TimeSeriesInputSource``; and the coupled
 :class:`LandModel` (atmosphere, surface energy balance, surface hydrology,
-PALADYN vegetation over that soil). ``Simulation.run`` goes through
+PALADYN vegetation over that soil, and an optional degree-day
+:class:`Snowpack`), stepped by ForwardEuler, Heun or ImplicitEuler; the
+standalone :class:`VegetationModel` and :class:`SurfaceEnergyModel`.
+``Simulation.run`` goes through
 hand-written CUDA column kernels on an NVIDIA Hopper card and through their
 plain PyTorch version on the CPU (``ops/fused_step.py``, ``ops/land_step.py``)
 for the compositions those take, and through the process modules for any
@@ -67,6 +70,8 @@ from .models.boundary_conditions import (FreeDrainage, GeothermalHeatFlux, Groun
 from .models.initializers import DefaultInitializer
 from .models.soil_model import SoilModel
 from .models.land_model import LandModel
+from .models.vegetation_model import SurfaceEnergyModel, VegetationModel
+from .processes.snow import SnowCoverAlbedo, Snowpack
 from .io.input_sources import FieldInputSource, TimeSeriesInputSource
 from .timesteppers.stepping import ForwardEuler, Heun
 from .timesteppers.implicit import ImplicitEuler

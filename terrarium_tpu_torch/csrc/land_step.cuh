@@ -1,30 +1,42 @@
-// One closure-rotated LandModel step on one column (ForwardEuler), the
-// column code of csrc/land_column_rollout.cu.
+// One closure-rotated LandModel step on one column, the column code of
+// csrc/land_column_rollout.cu: ForwardEuler, Heun or ImplicitEuler (one
+// Picard iteration, Thomas or PCR solves).
 //
-// land::step is ForwardEuler.pre_closure_step of a LandModel, in the order
-// of its modules (models/land_model.py): the soil closure (saturation
+// land::closure_rhs is the closure and the tendencies of a LandModel, in the
+// order of its modules (models/land_model.py): the soil closure (saturation
 // adjustment and water table under Richards flow, energy -> temperature);
-// the auxiliaries (soil: centre and face conductivity; vegetation: plant-
-// available water, LAI, stomatal conductance from the previous step's net
-// assimilation, photosynthesis, autotrophic respiration; surface hydrology:
-// interception, evapotranspiration, runoff; the SEB's fused update twice:
-// fluxes at the start-of-step skin temperature, skin update, fluxes, skin
-// update, fluxes); the tendencies (canopy water, Richards flow with the ET
-// sink and the pool drainage, heat conduction, carbon and vegetation
-// fraction); the Flux BCs (-G/dz_top on the energy, +infiltration/dz_top on
-// the saturation, after the porosity division, as the reference does); the
-// Euler update. The plain version is that composition of the port's process
-// modules (ops/land_step.py::land_column_rollout_plain), which this code
-// follows operation for operation.
+// the auxiliaries (atmosphere; snowpack: cover fraction and melt; soil:
+// centre and face conductivity; vegetation: plant-available water, LAI,
+// stomatal conductance from the previous net assimilation, photosynthesis,
+// autotrophic respiration; surface hydrology: interception,
+// evapotranspiration, runoff of the ground rain and the melt; the SEB's
+// fused update twice: fluxes at the start-of-step skin temperature, skin
+// update, fluxes, skin update, fluxes, with the albedo and emissivity
+// blended by the snow cover); the tendencies (canopy water, Richards flow
+// with the ET sink and the pool drainage, heat conduction, carbon and
+// vegetation fraction, snowfall - melt). Each tendency goes to a sink as
+// soon as it is formed, as soil::closure_rhs does: the top level's with its
+// Flux BC apart (-G/dz_top on the energy, +infiltration/dz_top on the
+// saturation after the porosity division, as the reference does), so that
+// Heun's corrector can add the x_n BC to the mean of two stages'
+// tendencies. land::step is ForwardEuler.pre_closure_step on it (the
+// update streamed level by level), land::heun_step Heun.pre_closure_step,
+// land::implicit_step ImplicitEuler.pre_closure_step; each ends with the
+// snowpack's clip SWE >= 0 (LandModel.timestep). The plain version is that
+// composition of the port's process modules stepped by the same stepper
+// (ops/land_step.py::land_column_rollout_plain), which this code follows
+// operation for operation.
 //
 // Template choices: VEG (PALADYN interception and evapotranspiration with
 // VegetationCarbon, else NoCanopyInterception with BareGroundEvaporation),
 // RICHARDS (Richards flow, else NoFlow: the saturation is read and never
-// written), the retention curve (Van Genuchten or Brooks-Corey) and the
-// unsaturated conductivity (Mualem-van Genuchten or linear). The remaining
-// knobs are uniform across threads and are fields of LandColumnParams: the
-// drag law, the ground-flux form, the ground-resistance factor, the water-
-// flux scale, the drainage sign and the vegetation rate scales.
+// written), the retention curve (Van Genuchten or Brooks-Corey), the
+// unsaturated conductivity (Mualem-van Genuchten or linear) and SNOW (a
+// Snowpack with SnowCoverAlbedo over ConstantAlbedo). The remaining knobs
+// are uniform across threads and are fields of LandColumnParams: the drag
+// law, the ground-flux form, the ground-resistance factor, the water-flux
+// scale, the drainage sign, the vegetation rate scales and the snowpack's
+// constants.
 //
 // Plain C++ apart from the function qualifiers (soil_step.cuh's SOIL_FN), so
 // the header also compiles for the host.
@@ -33,7 +45,7 @@
 
 #include "soil_step.cuh"
 
-enum { LAND_NIN = 10 };
+enum { LAND_NIN = 11 };
 
 // Mirror of terrarium_tpu_torch.ops.land_step._CLandParams (ctypes): the
 // land step's numbers in the working type T, so that the kernel reads each
@@ -57,9 +69,14 @@ struct LandColumnParams {
     T g1, tau25, Kc25, Ko25, q10_tau, q10_Kc, q10_Ko, one_minus_alpha_leaf, cq;
     T alpha_a, alpha_C3, C_mass, k1, k2, k3, T_photos_high, T_CO2_low, T_CO2_high;
     T four_theta_r, two_theta_r;
-    // Brooks-Corey inverse
-    T bc_theta_res, bc_span, bc_neg_psi_s, bc_psi_min, p_bc;
-    int num_bc, den_bc;
+    // Brooks-Corey inverse, and its derivative (the implicit rows): psi_s /
+    // lam and the exponent -1/lam - 1
+    T bc_theta_res, bc_span, bc_neg_psi_s, bc_psi_min, p_bc, bc_id_coef, p_bc_id;
+    // snowpack: degree-day factor, melt threshold, SWE at half cover; the
+    // snow-cover albedo's snow albedo and emissivity, its base's emissivity,
+    // and sigma
+    T ddf, T_melt, swe_half, albedo_snow, emissivity_snow, emissivity_base, sigma;
+    int num_bc, den_bc, num_bc_id, den_bc_id;
     int mo_drag, mo_iterations, consistent_G, beta_soil;
 };
 
@@ -88,6 +105,7 @@ struct LandCarry {
     void* C;
     void* nu;
     void* An;
+    void* swe;
 };
 }
 
@@ -98,7 +116,7 @@ using soil::vmin;
 
 enum { CURVE_VG = 0, CURVE_BC = 1 };
 enum { COND_MUALEM = 0, COND_LINEAR = 1 };
-enum { IN_TA = 0, IN_SW, IN_LW, IN_RAIN, IN_WIND, IN_P, IN_Q, IN_CO2, IN_SAI, IN_RD };
+enum { IN_TA = 0, IN_SW, IN_LW, IN_RAIN, IN_WIND, IN_P, IN_Q, IN_CO2, IN_SAI, IN_RD, IN_SNOW };
 
 SOIL_FN float d_exp(float x) { return expf(x); }
 SOIL_FN double d_exp(double x) { return exp(x); }
@@ -116,7 +134,14 @@ struct Forcing {
 // the surface carry of one column
 template <typename T>
 struct Surface {
-    T S, Ts, w, C, nu, An;
+    T S, Ts, w, C, nu, An, swe;
+};
+
+// the surface's albedo, emissivity * sigma and 1 - emissivity under snow
+// (SnowCoverAlbedo over ConstantAlbedo)
+template <typename T>
+struct Radiation {
+    T albedo, eps_sigma, one_minus_emis;
 };
 
 // constants.py::saturation_vapor_pressure, the clip to [-150, 150] first
@@ -182,6 +207,20 @@ SOIL_FN T ground_flux(const T Ts, const T r_a, const Forcing<T>& f, const T Q_h,
     const T SW_up = c.albedo * SW;
     const T Tk = Ts + c.T_ref;
     const T LW_up = c.eps_sigma * ((Tk * Tk) * (Tk * Tk)) + c.one_minus_emis * LW;
+    const T R_net = SW_up - SW + LW_up - LW;
+    const T H_s = c.c_a_rho_a * ((Ts - Ta) / r_a);
+    const T H_l = c.L_rho_a * Q_h;
+    return c.consistent_G ? R_net + H_s + H_l : R_net - H_s - H_l;
+}
+
+// the same under snow, with the albedo and emissivity blended by the cover
+template <typename T>
+SOIL_FN T ground_flux_snow(const T Ts, const T r_a, const Forcing<T>& f, const T Q_h,
+                           const Radiation<T>& rad, const LandColumnParams<T>& c) {
+    const T SW = f.v[IN_SW], LW = f.v[IN_LW], Ta = f.v[IN_TA];
+    const T SW_up = rad.albedo * SW;
+    const T Tk = Ts + c.T_ref;
+    const T LW_up = rad.eps_sigma * ((Tk * Tk) * (Tk * Tk)) + rad.one_minus_emis * LW;
     const T R_net = SW_up - SW + LW_up - LW;
     const T H_s = c.c_a_rho_a * ((Ts - Ta) / r_a);
     const T H_l = c.L_rho_a * Q_h;
@@ -276,17 +315,42 @@ SOIL_FN T bc_head(const T sk, const T wt, const T zck, const soil::Consts<T>& sc
     return vmax(wt - zck, T(0)) + psi_m + (zck - sc.z_top);
 }
 
-// One ForwardEuler.pre_closure_step of the LandModel column in place: the
-// soil (U, sat; sat read only without RICHARDS), the surface carry `s`,
-// the inputs `f` of this step; `rf` the column's root fractions, level k at
-// rf[k * rf_stride] (VEG only). Energy and water updates stream level by
-// level as their tendencies are formed, the top level's after the surface
-// has given its fluxes.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND>
-SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
-                  const soil::Consts<T>& sc, const LandColumnParams<T>& c,
-                  const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
-                  const long long rf_stride, const T dt)
+// d(Psi)/d(sat) under the Brooks-Corey curve, the Richards rows' chain
+// factor: BrooksCorey.inverse_deriv(sat * por, por) * por (swrc.py): se
+// clipped to [1e-6, 1], (psi_s / lam) se^(-1/lam - 1) / (por - theta_res)
+// clamped to [0, 1e6], 0 at and above saturation
+template <typename T>
+SOIL_FN T bc_chain(const T sk, const soil::Consts<T>& sc, const LandColumnParams<T>& c) {
+    const T se_raw = (sk * sc.por - c.bc_theta_res) / c.bc_span;
+    const T se = vmin(vmax(se_raw, T(1e-6)), T(1));
+    const T d = (c.bc_id_coef * soil::fpow(se, c.num_bc_id, c.den_bc_id, c.p_bc_id)) / c.bc_span;
+    return (se_raw >= T(1) ? T(0) : vmin(vmax(d, T(0)), T(1.0e6))) * sc.por;
+}
+
+// the surface's tendencies of one step, and what the SEB writes of it: the
+// skin temperature after the second skin update and the net assimilation
+template <typename T>
+struct SurfaceRates {
+    T Ts, dw, dC, dnu, An, dswe;
+};
+
+// The closure and tendencies of one closure-rotated step of the LandModel
+// column: the soil (U, sat; sat read only without RICHARDS), the surface
+// carry `s`, the inputs `f` of this step; `rf` the column's root fractions,
+// level k at rf[k * rf_stride] (VEG only). The closure works in place (sat,
+// and s.S += spill); U and the rest of `s` are read only. Each tendency
+// goes to `out` as soon as it is formed: out.energy(k, dU/dt) and
+// out.water(k, dsat/dt) below the top level; out.energy_top(dU/dt, G,
+// dz_top) and out.water_top(dsat/dt, infiltration, dz_top), the top level's
+// without its Flux BC; out.pool(dS/dt); out.surface(SurfaceRates). The
+// implicit stepper's sink also takes each level's closure, out.level(k,
+// U[k], Level), and each face's Darcy conductivity, out.darcy_face(f,
+// K_eff); the explicit sinks ignore both.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW, class Out>
+SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
+                         const soil::Consts<T>& sc, const LandColumnParams<T>& c,
+                         const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
+                         const long long rf_stride, Out& out)
 {
     const SoilColumnParams& SP = c.soil;
     static_assert(!(CURVE == CURVE_BC && COND == COND_MUALEM),
@@ -304,11 +368,12 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
     }
 
     // ---- energy closure, centre K, plant-available water; the heat flux
-    // and the energy update of every level below the top
+    // and the energy tendency of every level below the top
     T T_prev = T(0), kap_prev = T(0), qh_prev = T(0), water_top = T(0), beta_paw = T(0);
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
         const soil::Level<T, MUALEM> v(sat[k], U[k], sc, SP);
+        out.level(k, U[k], v);
         if (RICHARDS) Kc[k] = MUALEM ? v.Kc : sc.K_sat * v.water / (v.water + v.ice + v.air);
         if (VEG) {
             const T W = vmin(vmax((v.water - c.wilting_point) / c.fc_minus_wp, T(0)), T(1));
@@ -316,7 +381,7 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
         }
         const T kf = T(0.5) * (v.kap + (k == 0 ? v.kap : kap_prev));
         const T qh = -kf * ((v.Tk - (k == 0 ? v.Tk : T_prev)) / dzf[k]);
-        if (k > 0) U[k - 1] = U[k - 1] + (-((qh - qh_prev) / dz[k - 1])) * dt;
+        if (k > 0) out.energy(k - 1, -((qh - qh_prev) / dz[k - 1]));
         qh_prev = qh;
         T_prev = v.Tk;
         kap_prev = v.kap;
@@ -331,6 +396,14 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
     const T Vr = vmax(V, T(1e-6));
     const T e_air = q * p / (c.eps_mol + c.one_minus_eps_mol * q);
     const T r_a0 = resistance(Ta, s.Ts, Vr, c);
+
+    // ---- snowpack: cover fraction and melt from the carried SWE
+    T snow_f = T(0), melt = T(0);
+    if (SNOW) {
+        const T swe = vmax(s.swe, T(0));
+        snow_f = swe / (swe + c.swe_half);
+        melt = swe > T(0) ? c.ddf * vmax(Ta - c.T_melt, T(0)) : T(0);
+    }
 
     // ---- vegetation
     Vegetation<T> veg{};
@@ -367,27 +440,46 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
     T infil = T(0);
     if (RICHARDS) {
         const T drainage = s.S > T(0) ? vmax(s.S, T(0)) / c.tau_r : T(0);
-        const T influx = s.S > T(0) ? drainage : rain_g;
+        const T influx = s.S > T(0) ? drainage : (SNOW ? rain_g + melt : rain_g);
         infil = sat[NZ - 1] < T(1) ? vmin(influx, Kc[NZ - 1]) : T(0);
     }
 
     // ---- SEB: the fused update twice (fluxes, skin, fluxes), the first
-    // sweep at the start-of-step resistance r_a0
-    const T G0 = ground_flux(s.Ts, r_a0, f, Q_h, c);
-    const T Ts1 = skin(Tg, G0, dz_top, c);
-    const T G1 = ground_flux(Ts1, resistance(Ta, Ts1, Vr, c), f, Q_h, c);
-    const T Ts2 = skin(Tg, G1, dz_top, c);
-    const T G = ground_flux(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, c);
+    // sweep at the start-of-step resistance r_a0; under snow the albedo and
+    // emissivity blended by the cover. Without snow the sweeps read the
+    // constants from the parameters as the ForwardEuler kernel always has:
+    // holding them in one struct across the drags lets the compiler contract
+    // the last sweep's longwave multiply-adds the other way at float32
+    T G, Ts2;
+    if constexpr (SNOW) {
+        Radiation<T> rad;
+        rad.albedo = snow_f * c.albedo_snow + (T(1) - snow_f) * c.albedo;
+        const T eps = snow_f * c.emissivity_snow + (T(1) - snow_f) * c.emissivity_base;
+        rad.eps_sigma = eps * c.sigma;
+        rad.one_minus_emis = T(1) - eps;
+        const T G0 = ground_flux_snow(s.Ts, r_a0, f, Q_h, rad, c);
+        const T Ts1 = skin(Tg, G0, dz_top, c);
+        const T G1 = ground_flux_snow(Ts1, resistance(Ta, Ts1, Vr, c), f, Q_h, rad, c);
+        Ts2 = skin(Tg, G1, dz_top, c);
+        G = ground_flux_snow(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, rad, c);
+    } else {
+        const T G0 = ground_flux(s.Ts, r_a0, f, Q_h, c);
+        const T Ts1 = skin(Tg, G0, dz_top, c);
+        const T G1 = ground_flux(Ts1, resistance(Ta, Ts1, Vr, c), f, Q_h, c);
+        Ts2 = skin(Tg, G1, dz_top, c);
+        G = ground_flux(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, c);
+    }
 
-    // ---- top level's energy: zero-gradient face above it, then -G/dz
+    // ---- top level's energy: zero-gradient face above it; its Flux BC
+    // -G/dz is the sink's
     {
         const T kf = T(0.5) * (kap_prev + kap_prev);
         const T qh = -kf * ((T_prev - T_prev) / dzf[NZ]);
-        const T dU = -((qh - qh_prev) / dz_top);
-        U[NZ - 1] = U[NZ - 1] + (dU - G / dz_top) * dt;
+        out.energy_top(-((qh - qh_prev) / dz_top), G, dz_top);
     }
 
-    // ---- Richards flow with the ET sink and the infiltration, and the pool
+    // ---- Richards flow with the ET sink, and the pool; the infiltration
+    // BC is the sink's
     if (RICHARDS) {
         const T sink = -Q_h * c.water_flux_scale / dz_top;
         T psi_prev = T(0), qw_prev = T(0);
@@ -404,47 +496,283 @@ SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
             const T K_k = soil::face_K<T, NZ>(Kc, k);
             const T K_eff = grad < T(0) ? vmin(K_lo, K_k) : vmin(K_k, K_hi);
             const T qw = -K_eff * grad;
+            out.darcy_face(k, K_eff);
             if (k > 0 && k < NZ) {
-                sat[k - 1] = sat[k - 1] + ((-((qw - qw_prev) / dz[k - 1])) / sc.por) * dt;
+                out.water(k - 1, (-((qw - qw_prev) / dz[k - 1])) / sc.por);
             } else if (k == NZ) {
                 const T dth = -((qw - qw_prev) / dz_top);
-                const T tend = (dth + sink) / sc.por - (T(-1) * infil) / dz_top;
-                sat[NZ - 1] = sat[NZ - 1] + tend * dt;
+                out.water_top((dth + sink) / sc.por, infil, dz_top);
             }
             qw_prev = qw;
             psi_prev = psi_k;
         }
-        const T pool = c.drain_sign * vmin(vmax(s.S, T(0)) / c.tau_r, s.S);
-        s.S = s.S + pool * dt;
+        out.pool(c.drain_sign * vmin(vmax(s.S, T(0)) / c.tau_r, s.S));
     }
 
-    // ---- the surface prognostics
-    s.Ts = Ts2 + T(0) * dt;
+    // ---- the surface: skin, canopy water, carbon, vegetation fraction, SWE
+    SurfaceRates<T> r{};
+    r.Ts = Ts2;
     if (VEG) {
-        const T dw = I_can - E_c * c.water_flux_scale - R_can;
+        r.dw = I_can - E_c * c.water_flux_scale - R_can;
         const T lam = vmin(vmax((veg.LAI_b - c.LAI_min) / c.LAI_span, T(0)), T(1));
-        const T dC = (T(1) - lam) * veg.NPP - c.litter_rate * veg.LAI_b * c.carbon_rate_scale;
+        r.dC = (T(1) - lam) * veg.NPP - c.litter_rate * veg.LAI_b * c.carbon_rate_scale;
         const T nu_star = vmax(s.nu, c.nu_seed);
-        const T dnu = lam * veg.NPP / s.C * nu_star * (T(1) - s.nu) - c.gv_rate * nu_star;
-        s.w = s.w + dw * dt;
-        s.C = s.C + dC * dt;
-        s.nu = s.nu + dnu * dt;
-        s.An = veg.An;
+        r.dnu = lam * veg.NPP / s.C * nu_star * (T(1) - s.nu) - c.gv_rate * nu_star;
+        r.An = veg.An;
     }
+    if (SNOW) r.dswe = f.v[IN_SNOW] - melt;
+    out.surface(r);
 }
 
-// `steps` land steps of column `col` of the carry `in` into `out`, from the
-// clock time time0, which advances by t + dt as Clock.tick does: the carry
-// read once, each series input read at each clock time (soil::series_value),
-// each static input once; the root fractions of level k at root[k *
+// what an explicit sink ignores of closure_rhs
+template <typename T>
+struct ExplicitSink {
+    template <class L>
+    SOIL_FN void level(int, T, const L&) {}
+    SOIL_FN void darcy_face(int, T) {}
+};
+
+// ForwardEuler's update x + f * dt, level by level as closure_rhs forms f,
+// then the snowpack's clip
+template <typename T, int NZ, bool VEG, bool SNOW>
+struct EulerUpdate : ExplicitSink<T> {
+    T (&U)[NZ];
+    T (&sat)[NZ];
+    Surface<T>& s;
+    const T dt;
+    SOIL_FN EulerUpdate(T (&U_)[NZ], T (&sat_)[NZ], Surface<T>& s_, const T dt_)
+        : U(U_), sat(sat_), s(s_), dt(dt_) {}
+    SOIL_FN void energy(int k, T f) { U[k] = U[k] + f * dt; }
+    SOIL_FN void energy_top(T dU, T G, T dz_top) {
+        U[NZ - 1] = U[NZ - 1] + (dU - G / dz_top) * dt;
+    }
+    SOIL_FN void water(int k, T f) { sat[k] = sat[k] + f * dt; }
+    SOIL_FN void water_top(T A, T infil, T dz_top) {
+        sat[NZ - 1] = sat[NZ - 1] + (A - (T(-1) * infil) / dz_top) * dt;
+    }
+    SOIL_FN void pool(T p) { s.S = s.S + p * dt; }
+    SOIL_FN void surface(const SurfaceRates<T>& r) {
+        s.Ts = r.Ts + T(0) * dt;
+        if (VEG) {
+            s.w = s.w + r.dw * dt;
+            s.C = s.C + r.dC * dt;
+            s.nu = s.nu + r.dnu * dt;
+            s.An = r.An;
+        }
+        if (SNOW) s.swe = vmax(s.swe + r.dswe * dt, T(0));
+    }
+};
+
+// the tendencies of a step, kept: Heun's first stage, the implicit step's
+// right-hand sides
+template <typename T, int NZ>
+struct Rates : ExplicitSink<T> {
+    T U[NZ], sat[NZ], G, infil, dS;
+    SurfaceRates<T> surf;
+    SOIL_FN void energy(int k, T f) { U[k] = f; }
+    SOIL_FN void energy_top(T dU, T G_, T) { U[NZ - 1] = dU; G = G_; }
+    SOIL_FN void water(int k, T f) { sat[k] = f; }
+    SOIL_FN void water_top(T A, T infil_, T) { sat[NZ - 1] = A; infil = infil_; }
+    SOIL_FN void pool(T p) { dS = p; }
+    SOIL_FN void surface(const SurfaceRates<T>& r) { surf = r; }
+};
+
+// ... and what the implicit rows need of the closed column: the centre
+// thermal conductivity, dT/dU (0 on the freeze plateau -L_theta <= U < 0,
+// else 1/C) and the Darcy face conductivity
+template <typename T, int NZ>
+struct ImplicitRates : Rates<T, NZ> {
+    T kap[NZ], Dh[NZ], Keff[NZ + 1];
+    template <class L>
+    SOIL_FN void level(int k, T Uk, const L& v) {
+        kap[k] = v.kap;
+        Dh[k] = (Uk >= v.negL && Uk < T(0)) ? T(0) : T(1) / v.C;
+    }
+    SOIL_FN void darcy_face(int f, T K) { Keff[f] = K; }
+};
+
+// Heun's corrector x + (0.5 * (f_n + f*)) * dt, level by level as
+// closure_rhs forms f* at the stage, the top levels' Flux BCs those of x_n
+// (explicit_step adds them to the mean of the two stages' tendencies from
+// the state it updates); the skin temperature and the net assimilation
+// x_n's as its SEB and vegetation wrote them; then the snowpack's clip
+template <typename T, int NZ, bool VEG, bool SNOW>
+struct HeunUpdate : ExplicitSink<T> {
+    T (&U)[NZ];
+    T (&sat)[NZ];
+    Surface<T>& s;
+    const Rates<T, NZ>& r;
+    const T dt;
+    SOIL_FN HeunUpdate(T (&U_)[NZ], T (&sat_)[NZ], Surface<T>& s_, const Rates<T, NZ>& r_,
+                       const T dt_)
+        : U(U_), sat(sat_), s(s_), r(r_), dt(dt_) {}
+    SOIL_FN void energy(int k, T g) { U[k] = U[k] + (T(0.5) * (r.U[k] + g)) * dt; }
+    SOIL_FN void energy_top(T dU, T, T dz_top) {
+        U[NZ - 1] = U[NZ - 1] + (T(0.5) * (r.U[NZ - 1] + dU) - r.G / dz_top) * dt;
+    }
+    SOIL_FN void water(int k, T g) { sat[k] = sat[k] + (T(0.5) * (r.sat[k] + g)) * dt; }
+    SOIL_FN void water_top(T A, T, T dz_top) {
+        sat[NZ - 1] = sat[NZ - 1]
+                      + (T(0.5) * (r.sat[NZ - 1] + A) - (T(-1) * r.infil) / dz_top) * dt;
+    }
+    SOIL_FN void pool(T p) { s.S = s.S + (T(0.5) * (r.dS + p)) * dt; }
+    SOIL_FN void surface(const SurfaceRates<T>& q) {
+        s.Ts = r.surf.Ts + (T(0.5) * (T(0) + T(0))) * dt;
+        if (VEG) {
+            s.w = s.w + (T(0.5) * (r.surf.dw + q.dw)) * dt;
+            s.C = s.C + (T(0.5) * (r.surf.dC + q.dC)) * dt;
+            s.nu = s.nu + (T(0.5) * (r.surf.dnu + q.dnu)) * dt;
+            s.An = r.surf.An;
+        }
+        if (SNOW) s.swe = vmax(s.swe + (T(0.5) * (r.surf.dswe + q.dswe)) * dt, T(0));
+    }
+};
+
+// One ForwardEuler.pre_closure_step of the LandModel column in place: the
+// update streams level by level as the tendencies are formed, the top
+// level's after the surface has given its fluxes.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW>
+SOIL_FN void step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
+                  const soil::Consts<T>& sc, const LandColumnParams<T>& c,
+                  const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
+                  const long long rf_stride, const T dt)
+{
+    EulerUpdate<T, NZ, VEG, SNOW> out{U, sat, s, dt};
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, sc, c, dz, dzf, zc, zf,
+                                                        rf, rf_stride, out);
+}
+
+// One Heun.pre_closure_step of the LandModel column in place
+// (stepping.py:167-188): closure(x_n) and f_n with the inputs f0 at t_n;
+// the stage y = x_n + f_n * dt with the Flux BCs (the Euler update), the
+// snowpack's clip; closure(y) and f* with the inputs f1 at t_n + dt; the
+// corrector (HeunUpdate). The stage's skin temperature is x_n's SEB value
+// and its previous net assimilation x_n's new one: the stage is a copy of
+// the state after update_state. Live across the stage: x_n, f_n, y and Kc,
+// about 7 * NZ values.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW>
+SOIL_FN void heun_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f0,
+                       const Forcing<T>& f1, const soil::Consts<T>& sc,
+                       const LandColumnParams<T>& c, const T* dz, const T* dzf, const T* zc,
+                       const T* zf, const T* rf, const long long rf_stride, const T dt)
+{
+    Rates<T, NZ> r;
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f0, sc, c, dz, dzf, zc, zf,
+                                                        rf, rf_stride, r);
+    const T dz_top = dz[NZ - 1];
+    T yU[NZ], ys[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        yU[k] = k < NZ - 1 ? U[k] + r.U[k] * dt : U[k] + (r.U[k] - r.G / dz_top) * dt;
+        if (!RICHARDS) ys[k] = sat[k];
+        else if (k < NZ - 1) ys[k] = sat[k] + r.sat[k] * dt;
+        else ys[k] = sat[k] + (r.sat[k] - (T(-1) * r.infil) / dz_top) * dt;
+    }
+    Surface<T> y = s;
+    if (RICHARDS) y.S = s.S + r.dS * dt;
+    y.Ts = r.surf.Ts + T(0) * dt;
+    if (VEG) {
+        y.w = s.w + r.surf.dw * dt;
+        y.C = s.C + r.surf.dC * dt;
+        y.nu = s.nu + r.surf.dnu * dt;
+        y.An = r.surf.An;
+    }
+    if (SNOW) y.swe = vmax(s.swe + r.surf.dswe * dt, T(0));
+    HeunUpdate<T, NZ, VEG, SNOW> out{U, sat, s, r, dt};
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(yU, ys, y, f1, sc, c, dz, dzf, zc, zf,
+                                                        rf, rf_stride, out);
+}
+
+// One ImplicitEuler.pre_closure_step of the LandModel column in place, one
+// Picard iteration (implicit.py:183-264): closure_rhs into the implicit
+// sink (the closure in place, the tendencies, the terms); the Flux BCs
+// into the top rows' right-hand sides (-G/dz on the energy, +infiltration/dz
+// on the saturation), as the explicit path adds them; the heat rows (face
+// kappa by the arithmetic mean with zero-gradient ends, dT/dU, scale 1) and
+// their solve, U += du; under Richards flow the Richards rows (the Darcy
+// face K, d(Psi)/d(sat) of the curve at the closed saturation, scale
+// 1/por) and their solve, sat += du, the ET sink and the infiltration
+// explicit in the right-hand side. The land's top BCs are Flux BCs and its
+// bottom none, so no row takes a Dirichlet term. Every other prognostic by
+// Euler: the pool, the skin (its SEB value), the canopy water, carbon,
+// vegetation fraction and SWE; then the snowpack's clip.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int SOLVER>
+SOIL_FN void implicit_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
+                           const soil::Consts<T>& sc, const LandColumnParams<T>& c,
+                           const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
+                           const long long rf_stride, const T dt, const T inv_dt)
+{
+    ImplicitRates<T, NZ> r;
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, sc, c, dz, dzf, zc, zf,
+                                                        rf, rf_stride, r);
+    const T dz_top = dz[NZ - 1];
+    T a[NZ], b[NZ], cc[NZ];
+    r.U[NZ - 1] = r.U[NZ - 1] - r.G / dz_top;
+    {
+        T Kf[NZ + 1];
+        Kf[0] = T(0.5) * (r.kap[0] + r.kap[0]);
+#pragma unroll
+        for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (r.kap[k] + r.kap[k - 1]);
+        Kf[NZ] = T(0.5) * (r.kap[NZ - 1] + r.kap[NZ - 1]);
+        soil::diffusion_rows<T, NZ>(Kf, r.Dh, T(1), inv_dt, dz, dzf, false, a, b, cc);
+    }
+    soil::solve<T, NZ, SOLVER>(a, b, cc, r.U);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) U[k] = U[k] + r.U[k];
+    if (RICHARDS) {
+        r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
+        {
+            T D[NZ];
+#pragma unroll
+            for (int k = 0; k < NZ; ++k)
+                D[k] = CURVE == CURVE_BC ? bc_chain<T>(sat[k], sc, c)
+                                         : soil::water_chain<T>(sat[k], sc, c.soil);
+            soil::diffusion_rows<T, NZ>(r.Keff, D, sc.inv_por, inv_dt, dz, dzf, false, a, b, cc);
+        }
+        soil::solve<T, NZ, SOLVER>(a, b, cc, r.sat);
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + r.sat[k];
+        s.S = s.S + r.dS * dt;
+    }
+    s.Ts = r.surf.Ts + T(0) * dt;
+    if (VEG) {
+        s.w = s.w + r.surf.dw * dt;
+        s.C = s.C + r.surf.dC * dt;
+        s.nu = s.nu + r.surf.dnu * dt;
+        s.An = r.surf.An;
+    }
+    if (SNOW) s.swe = vmax(s.swe + r.surf.dswe * dt, T(0));
+}
+
+// the series inputs at clock time t (soil::series_value) into f, whose
+// static inputs are already set
+template <typename T>
+SOIL_FN void read_series(Forcing<T>& f, const LandInputs& inputs, const long long col, const T t)
+{
+#pragma unroll
+    for (int i = 0; i < LAND_NIN; ++i)
+        if (inputs.rows[i] > 1)
+            f.v[i] = soil::series_value(
+                static_cast<const T*>(inputs.ptr[i]) + col * inputs.cell_stride[i],
+                inputs.row_stride[i], inputs.rows[i], T(inputs.t0[i]), T(inputs.dts[i]), t);
+}
+
+// `steps` land steps of STEPPER (soil::STEPPER_EULER, _HEUN or _IMPLICIT
+// with SOLVER) of column `col` of the carry `in` into `out`, from the clock
+// time time0, which advances by t + dt as Clock.tick does: the carry read
+// once, each series input read at each clock time (Heun's stage at t + dt
+// too), each static input once; the root fractions of level k at root[k *
 // root_row_stride + col * root_cell_stride].
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND>
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int STEPPER, int SOLVER>
 SOIL_FN void rollout_column(const long long col, const long long cells, const LandCarry& in,
                             const LandCarry& out, const LandInputs& inputs, const T* root,
                             const long long root_row_stride, const long long root_cell_stride,
                             const soil::Consts<T>& sc, const LandColumnParams<T>& c,
                             const T* dz, const T* dzf, const T* zc,
-                            const T* zf, const int steps, const T time0, const T dt)
+                            const T* zf, const int steps, const T time0, const T dt,
+                            const T inv_dt)
 {
     T U[NZ], sat[NZ];
 #pragma unroll
@@ -461,6 +789,7 @@ SOIL_FN void rollout_column(const long long col, const long long cells, const La
         s.nu = static_cast<const T*>(in.nu)[col];
         s.An = static_cast<const T*>(in.An)[col];
     }
+    if (SNOW) s.swe = static_cast<const T*>(in.swe)[col];
     const T* rf = VEG ? root + col * root_cell_stride : nullptr;
 
     Forcing<T> f;
@@ -469,14 +798,19 @@ SOIL_FN void rollout_column(const long long col, const long long cells, const La
         f.v[i] = static_cast<const T*>(inputs.ptr[i])[col * inputs.cell_stride[i]];
     T t = time0;
     for (int n = 0; n < steps; ++n) {
-#pragma unroll
-        for (int i = 0; i < LAND_NIN; ++i)
-            if (inputs.rows[i] > 1)
-                f.v[i] = soil::series_value(
-                    static_cast<const T*>(inputs.ptr[i]) + col * inputs.cell_stride[i],
-                    inputs.row_stride[i], inputs.rows[i], T(inputs.t0[i]), T(inputs.dts[i]), t);
-        step<T, NZ, VEG, RICHARDS, CURVE, COND>(U, sat, s, f, sc, c, dz, dzf, zc, zf, rf,
-                                                root_row_stride, dt);
+        read_series(f, inputs, col, t);
+        if (STEPPER == soil::STEPPER_HEUN) {
+            Forcing<T> f1 = f;
+            read_series(f1, inputs, col, t + dt);
+            heun_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
+                U, sat, s, f, f1, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt);
+        } else if (STEPPER == soil::STEPPER_IMPLICIT) {
+            implicit_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
+                U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt);
+        } else {
+            step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, sc, c, dz, dzf, zc, zf,
+                                                          rf, root_row_stride, dt);
+        }
         t = t + dt;
     }
 
@@ -493,6 +827,7 @@ SOIL_FN void rollout_column(const long long col, const long long cells, const La
         static_cast<T*>(out.nu)[col] = s.nu;
         static_cast<T*>(out.An)[col] = s.An;
     }
+    if (SNOW) static_cast<T*>(out.swe)[col] = s.swe;
 }
 
 }  // namespace land

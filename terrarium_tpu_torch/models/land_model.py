@@ -1,6 +1,7 @@
 """LandModel: the coupled land surface model (counterpart of
 ``terrarium_tpu/models/land_model.py``): atmosphere, soil, surface energy
-balance, surface hydrology and optional PALADYN vegetation. The surface
+balance, surface hydrology, optional PALADYN vegetation and an optional
+degree-day snowpack (``processes/snow.py``). The surface
 couples to the soil through two top Flux BCs (reference
 `land_model.jl:46-66`): the SEB's ``ground_heat_flux`` on
 ``internal_energy`` and ``-infiltration`` on ``saturation_water_ice``.
@@ -17,8 +18,9 @@ from ..ops.bcs import Flux, InputRef, merge_boundary_conditions
 from ..processes.atmosphere import PrescribedAtmosphere
 from ..processes.base import Context
 from ..processes.soil.hydrology import RichardsEq, SoilHydrology
+from ..processes.snow import SnowCoverAlbedo
 from ..processes.soil.soil_coupled import SoilEnergyWaterCarbon
-from ..processes.surface_energy.seb import SurfaceEnergyBalance
+from ..processes.surface_energy.seb import ConstantAlbedo, SurfaceEnergyBalance
 from ..processes.surface_hydrology.surface_hydrology import SurfaceHydrology
 from ..variables import Variables, variables_of
 
@@ -58,7 +60,10 @@ class _LandExtras:
 class LandModel:
     """Coupled land model (reference `land_model.jl:9-44`). ``soil`` and
     ``surface_hydrology`` default by the presence of vegetation, as in the
-    reference. The JAX package's optional snowpack is not ported yet."""
+    reference. ``snow``: an optional :class:`~terrarium_tpu_torch.processes.snow.Snowpack`
+    (the JAX package's extension); with one, a default ``ConstantAlbedo``
+    becomes ``SnowCoverAlbedo`` over it, and a custom albedo is kept
+    (`land_model.py:69-83`)."""
 
     grid: Any
     vegetation: Optional[Any] = None
@@ -71,14 +76,15 @@ class LandModel:
     snow: Optional[Any] = None
 
     def __post_init__(self):
-        if self.snow is not None:
-            raise ValueError(f"the port's LandModel has no snowpack yet, got "
-                             f"{type(self.snow).__name__}")
         if self.soil is None:
             object.__setattr__(self, "soil", default_soil(self.vegetation))
         if self.surface_hydrology is None:
             object.__setattr__(self, "surface_hydrology",
                                default_surface_hydrology(self.vegetation))
+        seb = self.surface_energy_balance
+        if self.snow is not None and type(seb.albedo) is ConstantAlbedo:
+            object.__setattr__(self, "surface_energy_balance", dataclasses.replace(
+                seb, albedo=SnowCoverAlbedo(base=seb.albedo)))
 
     @property
     def live_carry(self) -> tuple:
@@ -95,6 +101,8 @@ class LandModel:
         if self.vegetation is not None:
             out += ("canopy_water", "carbon_vegetation", "vegetation_area_fraction",
                     "net_assimilation")
+        if self.snow is not None:
+            out += ("snow_water_equivalent",)
         return out
 
     @property
@@ -108,6 +116,8 @@ class LandModel:
         out = variables_of(self.atmosphere) + variables_of(self.soil)
         if self.vegetation is not None:
             out += variables_of(self.vegetation)
+        if self.snow is not None:
+            out += variables_of(self.snow)
         return (out + variables_of(self.surface_hydrology)
                 + variables_of(self.surface_energy_balance))
 
@@ -130,10 +140,14 @@ class LandModel:
         self.compute_auxiliary(state, ctx)  # seeds the SEB for the first step's BCs
 
     def compute_auxiliary(self, state, ctx) -> None:
-        """Atmosphere, soil, vegetation, surface hydrology, SEB, and the SEB's
-        fused flux update a second time (reference `land_model.jl:79-88`)."""
+        """Atmosphere, snowpack, soil, vegetation, surface hydrology, SEB, and
+        the SEB's fused flux update a second time (reference
+        `land_model.jl:79-88`; the snowpack's cover and melt come before the
+        surface hydrology and the SEB that read them)."""
         c, grid = self.constants, self.grid
         self.atmosphere.compute_auxiliary(state, grid, ctx)
+        if self.snow is not None:
+            self.snow.compute_auxiliary(state, grid, self.atmosphere, ctx)
         self.soil.compute_auxiliary(state, grid, ctx)
         if self.vegetation is not None:
             self.vegetation.compute_auxiliary(state, grid, c, self.atmosphere, self.soil, ctx)
@@ -145,11 +159,14 @@ class LandModel:
         seb.compute_surface_energy_fluxes(state, grid, c, self.atmosphere, evtr)
 
     def compute_tendencies(self, state, ctx) -> None:
-        """Surface hydrology, soil, vegetation (reference `land_model.jl:90-96`)."""
+        """Surface hydrology, soil, vegetation (reference `land_model.jl:90-96`),
+        snowpack."""
         self.surface_hydrology.compute_tendencies(state, self.grid, ctx)
         self.soil.compute_tendencies(state, self.grid, ctx)
         if self.vegetation is not None:
             self.vegetation.compute_tendencies(state, self.grid, self.constants, ctx)
+        if self.snow is not None:
+            self.snow.compute_tendencies(state, self.grid, self.atmosphere, ctx)
 
     def closure(self, state, ctx) -> None:
         self.soil.closure(state, self.grid, ctx)
@@ -161,4 +178,6 @@ class LandModel:
         return self.soil.implicit_terms(state, self.grid, ctx)
 
     def timestep(self, state, ctx, dt) -> None:
-        """Post-step hook; a no-op without a snowpack."""
+        """Post-step hook: the snowpack's clip SWE >= 0; a no-op without one."""
+        if self.snow is not None:
+            self.snow.timestep(state, self.grid, self.atmosphere, ctx, dt)

@@ -57,12 +57,22 @@ INSTANTIATIONS = {
         (("euler", "heat"), _F32, 30), (("heun", "heat"), _F32, 30),
         (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
     ],
-    # the LandModel: the bare-ground golden at Nz 15 (heat-only soil), the
-    # vegetated bench composition (Richards over Brooks-Corey and linear
-    # conductivity) at Nz 20
+    # the LandModel: ForwardEuler over the bare-ground golden at Nz 15
+    # (heat-only soil) and over the vegetated bench composition (Richards over
+    # Brooks-Corey and linear conductivity) at Nz 20; Heun and ImplicitEuler
+    # (each solver) over the bench composition at Nz 20; the snowpack over the
+    # land_snow golden's composition (bare ground, Brooks-Corey and linear) at
+    # Nz 12 with ForwardEuler and over the bench composition at Nz 20 with
+    # ImplicitEuler (PCR)
     "land_column_rollout": [
         (("bare", "noflow"), _F64, 15),
         *((("veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
+        *((("heun", "veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
+        *((("implicit", solver, "veg", "richards", "bc", "linear"), dtype, 20)
+          for solver in ("thomas", "pcr") for dtype in (_F32, _F64)),
+        (("bare", "richards", "bc", "linear", "snow"), _F64, 12),
+        *((("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), dtype, 20)
+          for dtype in (_F32, _F64)),
     ],
 }
 _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
@@ -70,7 +80,7 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "pcr": ("SOIL_SOLVER=1",), "richards": ("SOIL_HEAT=0", "LAND_RICHARDS=1"),
             "heat": ("SOIL_HEAT=1",), "noflow": ("LAND_RICHARDS=0",), "bare": ("LAND_VEG=0",),
             "veg": ("LAND_VEG=1",), "vg": ("LAND_CURVE=0",), "bc": ("LAND_CURVE=1",),
-            "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",)}
+            "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",)}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernel's float64 instantiations, which serve the checks
 #: against the plain version at 1e-12, contract no multiply-adds (torch's

@@ -1,18 +1,23 @@
-"""The LandModel column rollout: a hand-written CUDA kernel, its plain
-PyTorch version and the wrapper that picks between them by device.
+"""The LandModel column rollouts: a hand-written CUDA kernel, its plain
+PyTorch version and the wrappers that pick between them by device.
 
 :func:`land_column_rollout` applies ``ForwardEuler.pre_closure_step`` of a
 :class:`LandModel` ``n`` times to the model's live carry
-(``LandModel.live_carry``) and returns the new carry. It replaces
+(``LandModel.live_carry``) and returns the new carry;
+:func:`land_column_heun_rollout` does the same with ``Heun`` and
+:func:`land_column_implicit_rollout` with ``ImplicitEuler`` (one Picard
+iteration, Thomas or PCR solves). They replace
 ``terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout`` traced over a
-LandModel step. The compositions it takes (:func:`land_composition`):
-bare ground (``NoCanopyInterception``, ``BareGroundEvaporation``, no
-vegetation) or vegetated (``PALADYNCanopyInterception``,
-``PALADYNCanopyEvapotranspiration``, ``VegetationCarbon``), over a soil of
-heat only (``NoFlow``) or Richards flow with a Van Genuchten or Brooks-Corey
-curve and a Mualem or linear conductivity; constant or Monin-Obukhov drag,
-either SEB ground-flux form, either ground-resistance factor, any water-flux
-scale, drainage sign and vegetation rate scales.
+LandModel step of that stepper. The compositions they take
+(:func:`land_composition`): bare ground (``NoCanopyInterception``,
+``BareGroundEvaporation``, no vegetation) or vegetated
+(``PALADYNCanopyInterception``, ``PALADYNCanopyEvapotranspiration``,
+``VegetationCarbon``), over a soil of heat only (``NoFlow``) or Richards
+flow with a Van Genuchten or Brooks-Corey curve and a Mualem or linear
+conductivity, with or without a ``Snowpack`` (whose ``SnowCoverAlbedo``
+blends a ``ConstantAlbedo``); constant or Monin-Obukhov drag, either SEB
+ground-flux form, either ground-resistance factor, any water-flux scale,
+drainage sign and vegetation rate scales.
 
 The inputs the step reads (``LAND_INPUTS``) are each a :class:`LandInput`:
 a static row, or a uniformly spaced series that the kernel interpolates at
@@ -22,9 +27,9 @@ source is ``csrc/land_column_rollout.cu`` (the step in
 
 The plain version (:func:`land_column_rollout_plain`) is the composition of
 the port's process modules: a state over the carry and the inputs, stepped
-by ``ForwardEuler.pre_closure_step``. On CPU tensors the wrapper runs it; on
-CUDA tensors it launches the kernel or raises. Each launch adds one to
-``land_column_rollout.launches``.
+by the same stepper's ``pre_closure_step``. On CPU tensors a wrapper runs
+it; on CUDA tensors it launches the kernel or raises. Each launch adds one
+to the wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from ..models.land_model import LandModel
 from ..processes.atmosphere import (ConstantAerodynamics, LongShortWaveRadiation,
                                     MoninObukhovAerodynamics, PrescribedAtmosphere, RainSnow,
                                     SpecificHumidity)
+from ..processes.snow import SnowCoverAlbedo, Snowpack
 from ..processes.soil.hydraulics import UnsatKLinear, UnsatKVanGenuchten
 from ..processes.soil.swrc import BrooksCorey, VanGenuchten
 from ..processes.surface_energy.seb import (ConstantAlbedo, DiagnosedRadiativeFluxes,
@@ -56,17 +62,19 @@ from ..processes.vegetation.vegetation import (
     PALADYNAutotrophicRespiration, PALADYNCarbonDynamics, PALADYNPhenology,
     PALADYNVegetationDynamics, StaticExponentialRootDistribution, VegetationCarbon)
 from ..state import Clock, build_state
-from ..timesteppers.stepping import ForwardEuler
+from ..timesteppers.implicit import ImplicitEuler
+from ..timesteppers.stepping import ForwardEuler, Heun
 
 __all__ = ["LAND_INPUTS", "LandInput", "LandParams", "land_composition", "carry_names",
-           "land_column_rollout", "land_column_rollout_plain", "launch_args"]
+           "land_column_rollout", "land_column_heun_rollout", "land_column_implicit_rollout",
+           "land_column_rollout_plain", "launch_args", "ROLLOUTS"]
 
 _NAME = "land_column_rollout"  # csrc/land_column_rollout.cu
 
 #: the inputs the land step reads, in the kernel's order (land_step.cuh IN_*)
 LAND_INPUTS = ("air_temperature", "surface_shortwave_down", "surface_longwave_down",
                "rainfall", "windspeed", "air_pressure", "specific_humidity", "CO2", "SAI",
-               "daily_leaf_respiration")
+               "daily_leaf_respiration", "snowfall")
 
 _VEGETATION = {"photosynthesis": LUEPhotosynthesis,
                "stomatal_conductance": MedlynStomatalConductance,
@@ -88,9 +96,10 @@ def _name(x) -> str:
 
 def land_composition(model) -> tuple:
     """The kernel instantiation's tags of ``model``: ``("bare" | "veg",
-    "noflow")`` or ``(..., "richards", "vg" | "bc", "mualem" | "linear")``.
-    Raises ``ValueError`` naming what the kernel runs for anything else; each
-    attribute is read only after its owner's class is checked."""
+    "noflow")`` or ``(..., "richards", "vg" | "bc", "mualem" | "linear")``,
+    with ``"snow"`` appended under a ``Snowpack``. Raises ``ValueError``
+    naming what the kernel runs for anything else; each attribute is read
+    only after its owner's class is checked."""
     _require(isinstance(model, LandModel), "a LandModel", _name(model))
     flow = soil_flow(model.soil)
     atm = model.atmosphere
@@ -102,10 +111,18 @@ def land_composition(model) -> tuple:
     seb = model.surface_energy_balance
     for part, cls in (("skin_temperature", ImplicitSkinTemperature),
                       ("radiative_fluxes", DiagnosedRadiativeFluxes),
-                      ("turbulent_fluxes", DiagnosedTurbulentFluxes),
-                      ("albedo", ConstantAlbedo)):
+                      ("turbulent_fluxes", DiagnosedTurbulentFluxes)):
         _require(type(getattr(seb, part)) is cls, f"SurfaceEnergyBalance with {cls.__name__}",
                  f"{part}={_name(getattr(seb, part))}")
+    snow = model.snow
+    _require(snow is None or type(snow) is Snowpack, "no snowpack or a Snowpack", _name(snow))
+    alb = seb.albedo
+    if snow is None:
+        _require(type(alb) is ConstantAlbedo, "ConstantAlbedo without a snowpack", _name(alb))
+    else:
+        base = alb.base if type(alb) is SnowCoverAlbedo else None
+        _require(type(base) is ConstantAlbedo,
+                 "SnowCoverAlbedo over ConstantAlbedo under a snowpack", _name(alb))
     sh = model.surface_hydrology
     _require(type(sh.surface_runoff) is DirectSurfaceRunoff, "DirectSurfaceRunoff",
              _name(sh.surface_runoff))
@@ -129,8 +146,9 @@ def land_composition(model) -> tuple:
     _require(type(gr) in (ConstantEvaporationResistanceFactor, SoilMoistureResistanceFactor),
              "ConstantEvaporationResistanceFactor or SoilMoistureResistanceFactor", _name(gr))
     tags = ("bare" if veg is None else "veg",)
+    snow_tag = () if snow is None else ("snow",)
     if flow == "heat":
-        return tags + ("noflow",)
+        return tags + ("noflow",) + snow_tag
     hp = model.soil.hydrology.hydraulic_properties
     swrc, cond = hp.swrc, hp.unsat_hydraulic_cond
     _require(type(swrc) in (VanGenuchten, BrooksCorey)
@@ -139,7 +157,7 @@ def land_composition(model) -> tuple:
              "Richards flow with VanGenuchten and UnsatKVanGenuchten or UnsatKLinear, or "
              "BrooksCorey and UnsatKLinear", f"{_name(swrc)} and {_name(cond)}")
     return tags + ("richards", "vg" if type(swrc) is VanGenuchten else "bc",
-                   "mualem" if type(cond) is UnsatKVanGenuchten else "linear")
+                   "mualem" if type(cond) is UnsatKVanGenuchten else "linear") + snow_tag
 
 
 _LAND_FLOATS = (
@@ -155,8 +173,10 @@ _LAND_FLOATS = (
     "neg_k_ext_ph", "g1", "tau25", "Kc25", "Ko25", "q10_tau", "q10_Kc", "q10_Ko",
     "one_minus_alpha_leaf", "cq", "alpha_a", "alpha_C3", "C_mass", "k1", "k2", "k3",
     "T_photos_high", "T_CO2_low", "T_CO2_high", "four_theta_r", "two_theta_r",
-    "bc_theta_res", "bc_span", "bc_neg_psi_s", "bc_psi_min", "p_bc")
-_LAND_INTS = ("num_bc", "den_bc", "mo_drag", "mo_iterations", "consistent_G", "beta_soil")
+    "bc_theta_res", "bc_span", "bc_neg_psi_s", "bc_psi_min", "p_bc", "bc_id_coef", "p_bc_id",
+    "ddf", "T_melt", "swe_half", "albedo_snow", "emissivity_snow", "emissivity_base", "sigma")
+_LAND_INTS = ("num_bc", "den_bc", "num_bc_id", "den_bc_id", "mo_drag", "mo_iterations",
+              "consistent_G", "beta_soil")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +205,11 @@ class LandParams:
         v.update(dict.fromkeys(_LAND_INTS, 0))
         atm, seb = model.atmosphere, model.surface_energy_balance
         aero, alb, skin = atm.aerodynamics, seb.albedo, seb.skin_temperature
+        if model.snow is not None:
+            sp, snow_alb, alb = model.snow, alb, alb.base
+            v.update(ddf=sp.degree_day_factor, T_melt=sp.T_melt, swe_half=sp.swe_half,
+                     albedo_snow=snow_alb.albedo_snow, emissivity_snow=snow_alb.emissivity_snow,
+                     emissivity_base=alb.emissivity_value, sigma=c.sigma)
         et, ro = model.surface_hydrology.evapotranspiration, model.surface_hydrology.surface_runoff
         v.update(min_windspeed=atm.min_windspeed, kappa=c.kappa, kappa_g=c.kappa * c.g,
                  kappa2=c.kappa ** 2, T_ref=c.T_ref, eps_mol=c.eps, one_minus_eps_mol=1.0 - c.eps,
@@ -231,8 +256,10 @@ class LandParams:
         if richards and isinstance(hp.swrc, BrooksCorey):
             swrc, por = hp.swrc, soil.strat.bulk_porosity(soil.biogeochem)
             v.update(bc_theta_res=swrc.theta_res, bc_span=por - swrc.theta_res,
-                     bc_neg_psi_s=-swrc.psi_s, bc_psi_min=swrc.psi_min, p_bc=-1.0 / swrc.lam)
+                     bc_neg_psi_s=-swrc.psi_s, bc_psi_min=swrc.psi_min, p_bc=-1.0 / swrc.lam,
+                     bc_id_coef=swrc.psi_s / swrc.lam, p_bc_id=-1.0 / swrc.lam - 1.0)
             v["num_bc"], v["den_bc"] = pow_code(v["p_bc"])
+            v["num_bc_id"], v["den_bc_id"] = pow_code(v["p_bc_id"])
         return LandParams(model=model, tags=tags,
                           soil=ColumnParams.of_soil(soil, c, model.grid, dtype, richards),
                           values=v)
@@ -265,11 +292,11 @@ class _CLandInputs(ctypes.Structure):
                 ("dts", ctypes.c_double * len(LAND_INPUTS))]
 
 
-_CARRY = ("U", "sat", "S", "Ts", "w", "C", "nu", "An")
+_CARRY = ("U", "sat", "S", "Ts", "w", "C", "nu", "An", "swe")
 _CARRY_OF = {"internal_energy": "U", "saturation_water_ice": "sat",
              "surface_excess_water": "S", "skin_temperature": "Ts", "canopy_water": "w",
              "carbon_vegetation": "C", "vegetation_area_fraction": "nu",
-             "net_assimilation": "An"}
+             "net_assimilation": "An", "snow_water_equivalent": "swe"}
 
 
 class _CLandCarry(ctypes.Structure):
@@ -340,17 +367,45 @@ def _check(carry, inputs, root_fraction, coords, params):
             raise ValueError(f"device mismatch: {t.device} vs {U.device}")
 
 
+class _Series:
+    """The series inputs as an input source: ``update_inputs`` sets each at
+    the state's clock time, so that every ``update_state`` of a step, Heun's
+    stage at t + dt among them, reads its own time."""
+
+    def __init__(self, series):
+        self.series = series
+
+    def update_inputs(self, state) -> None:
+        for name, values, t0, dts in self.series:
+            state.inputs[name] = torch.broadcast_to(
+                series_value(values, state.clock.time, t0, dts), state.inputs[name].shape)
+
+
+def _stepper(stepper: str, solver: Optional[str]):
+    if stepper == "euler":
+        return ForwardEuler()
+    if stepper == "heun":
+        return Heun()
+    if stepper == "implicit":
+        return ImplicitEuler(solver=solver)
+    raise ValueError(f"the land rollout steps with 'euler', 'heun' or 'implicit', not "
+                     f"{stepper!r}")
+
+
 def land_column_rollout_plain(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                               root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
-                              z_faces, params: LandParams, dt: float, time: float, steps: int):
-    """Plain PyTorch version of the kernel: the model's process modules on a
-    state over ``carry`` (``{name: tensor}``, the live carry and under
+                              z_faces, params: LandParams, dt: float, time: float, steps: int,
+                              stepper: str = "euler", solver: Optional[str] = None):
+    """Plain PyTorch version of the kernels: the model's process modules on
+    a state over ``carry`` (``{name: tensor}``, the live carry and under
     ``NoFlow`` the saturation), the static inputs and the root fraction,
-    stepped ``steps`` times by ``ForwardEuler.pre_closure_step`` from the
-    clock time ``time``, each series input set at each clock time first.
-    Inputs not given keep their declared defaults. The coordinates are the
-    model's (the grid's); they are taken for the wrapper's signature.
-    Returns the new live carry as a dict."""
+    stepped ``steps`` times from the clock time ``time`` by the
+    ``pre_closure_step`` of ``stepper`` (``"euler"``, ``"heun"`` or
+    ``"implicit"`` with one Picard iteration and ``solver``), the series
+    inputs set at each clock time by each ``update_state``. Inputs not given
+    keep their declared defaults. The coordinates are the model's (the
+    grid's); they are taken for the wrappers' signature. Returns the new
+    live carry as a dict."""
     U = carry["internal_energy"]
     base = params.model
     grid = ColumnGrid(U.shape[1], base.grid.vertical, U.dtype, U.device)
@@ -372,12 +427,9 @@ def land_column_rollout_plain(carry: Dict[str, torch.Tensor], inputs: Dict[str, 
             series.append((name, inp.values, torch.tensor(inp.t0, dtype=U.dtype, device=U.device),
                            torch.tensor(inp.dts, dtype=U.dtype, device=U.device)))
     ctx = model.make_context()
-    stepper = ForwardEuler()
+    step, sources = _stepper(stepper, solver), (_Series(series),)
     for _ in range(steps):
-        for name, values, t0, dts in series:
-            state.inputs[name] = torch.broadcast_to(
-                series_value(values, state.clock.time, t0, dts), (grid.cells,))
-        stepper.pre_closure_step(model, state, ctx, (), dt)
+        step.pre_closure_step(model, state, ctx, sources, dt)
     return {n: state[n] for n in model.live_carry}
 
 
@@ -389,6 +441,36 @@ def _argtypes(dtype) -> list:
                ctypes.c_longlong, ctypes.c_void_p])
 
 
+def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params, dt, time,
+             steps, stepper, solver):
+    """Check the operands; run the plain version on CPU tensors, else launch
+    the instantiation ``stepper_tags + params.tags`` and count the launch on
+    ``wrapper``; return the new carry."""
+    _check(carry, inputs, root_fraction, coords, params)
+    if steps < 0:
+        raise ValueError("steps must be >= 0")
+    U = carry["internal_energy"]
+    if U.device.type == "cpu":
+        return land_column_rollout_plain(carry, inputs, root_fraction, *coords, params, dt,
+                                         time, steps, stepper=stepper, solver=solver)
+    if U.device.type != "cuda":
+        raise ValueError(f"land column rollout runs on cpu or cuda, not {U.device}")
+    for t in (*carry.values(), *coords):
+        if not t.is_contiguous():
+            raise ValueError("the land column kernel takes contiguous carry and coordinates")
+    fn = cuda_build.entry(_NAME, U.dtype, U.shape[0], _argtypes(U.dtype),
+                          tags=tuple(stepper_tags) + params.tags)
+    out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
+    args, keep = launch_args(carry, out, inputs, root_fraction, coords, params)
+    err = fn(*args, steps, float(time), float(dt), U.shape[1],
+             torch.cuda.current_stream(U.device).cuda_stream)
+    del keep
+    if err != 0:
+        raise RuntimeError(f"land column kernel launch failed: cudaError {err}")
+    wrapper.launches += 1
+    return out
+
+
 def land_column_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                         root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers, z_faces,
                         params: LandParams, dt: float, time: float, steps: int):
@@ -398,29 +480,36 @@ def land_column_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandIn
     kernel of ``params.tags``. ``root_fraction`` is the ``(Nz, cells)``
     field of the vegetated model (``None`` for bare ground); an input left
     out of ``inputs`` reads 0."""
-    coords = (dz, dz_faces, z_centers, z_faces)
-    _check(carry, inputs, root_fraction, coords, params)
-    if steps < 0:
-        raise ValueError("steps must be >= 0")
-    U = carry["internal_energy"]
-    if U.device.type == "cpu":
-        return land_column_rollout_plain(carry, inputs, root_fraction, *coords, params, dt,
-                                         time, steps)
-    if U.device.type != "cuda":
-        raise ValueError(f"land column rollout runs on cpu or cuda, not {U.device}")
-    for t in (*carry.values(), *coords):
-        if not t.is_contiguous():
-            raise ValueError("the land column kernel takes contiguous carry and coordinates")
-    fn = cuda_build.entry(_NAME, U.dtype, U.shape[0], _argtypes(U.dtype), tags=params.tags)
-    out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
-    args, keep = launch_args(carry, out, inputs, root_fraction, coords, params)
-    err = fn(*args, steps, float(time), float(dt), U.shape[1],
-             torch.cuda.current_stream(U.device).cuda_stream)
-    del keep
-    if err != 0:
-        raise RuntimeError(f"land column kernel launch failed: cudaError {err}")
-    land_column_rollout.launches += 1
-    return out
+    return _rollout(land_column_rollout, (), carry, inputs, root_fraction,
+                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "euler", None)
+
+
+def land_column_heun_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
+                             root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
+                             z_faces, params: LandParams, dt: float, time: float, steps: int):
+    """Heun over a LandModel, as :func:`land_column_rollout` (the kernel's
+    ``heun`` instantiation; each step reads the inputs at t and t + dt)."""
+    return _rollout(land_column_heun_rollout, ("heun",), carry, inputs, root_fraction,
+                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "heun", None)
+
+
+def land_column_implicit_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
+                                 root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
+                                 z_faces, params: LandParams, dt: float, time: float, steps: int,
+                                 solver: str = "pcr"):
+    """ImplicitEuler with one Picard iteration over a LandModel, as
+    :func:`land_column_rollout` (the kernel's ``implicit_<solver>``
+    instantiation, ``solver`` ``"pcr"`` or ``"thomas"``)."""
+    if solver not in ("pcr", "thomas"):
+        raise ValueError(f"the implicit land rollout solves by 'pcr' or 'thomas', not {solver!r}")
+    return _rollout(land_column_implicit_rollout, ("implicit", solver), carry, inputs,
+                    root_fraction, (dz, dz_faces, z_centers, z_faces), params, dt, time, steps,
+                    "implicit", solver)
+
+
+#: the wrapper of each stepper
+ROLLOUTS = {"euler": land_column_rollout, "heun": land_column_heun_rollout,
+            "implicit": land_column_implicit_rollout}
 
 
 def launch_args(carry, out, inputs, root_fraction, coords, params: LandParams):
@@ -449,4 +538,5 @@ def launch_args(carry, out, inputs, root_fraction, coords, params: LandParams):
     return args, (c_in, c_out, c_inputs, zero, params_c)
 
 
-land_column_rollout.launches = 0
+for _fn in ROLLOUTS.values():
+    _fn.launches = 0

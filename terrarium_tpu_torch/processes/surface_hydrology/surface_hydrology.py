@@ -244,6 +244,8 @@ class DirectSurfaceRunoff:
 
     def compute_auxiliary(self, state, grid, canopy, soil, ctx) -> None:
         rain = state.rainfall_ground
+        if "snow_melt" in state:  # a snowpack's melt joins the ground rain
+            rain = rain + state.snow_melt
         S = state.surface_excess_water if "surface_excess_water" in state \
             else torch.zeros_like(rain)
         k_unsat = state.hydraulic_conductivity[-1]  # the top face

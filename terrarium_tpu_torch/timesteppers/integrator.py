@@ -9,8 +9,9 @@ forcings before anything launches:
   or ImplicitEuler with one Picard iteration, or heat only stepped by
   ForwardEuler, with a Dirichlet top temperature (a value, ``f(t)`` or an
   input variable) as its only BC (``ops/fused_step.py``); a
-  :class:`LandModel` of the kernel's classes stepped by ForwardEuler with
-  its coupling BCs only (``ops/land_step.py``); either with
+  :class:`LandModel` of the kernel's classes, with or without a snowpack,
+  stepped by ForwardEuler, Heun or ImplicitEuler with one Picard iteration,
+  with its coupling BCs only (``ops/land_step.py``); either with
   ``FieldInputSource`` / ``TimeSeriesInputSource`` sources and no
   forcings. On a CUDA device the hand-written kernel runs, on the CPU its
   plain version; a kernel that fails to build or launch raises. As in the
@@ -78,16 +79,20 @@ _SOURCES = (FieldInputSource, TimeSeriesInputSource)
 
 def column_scheme(model, timestepper, ctx, input_sources=()):
     """The column rollout that runs this composition, decided by type alone:
-    ``"land"`` (``ops/land_step.py``), a soil ``(stepper, physics)``
-    (``ops/fused_step.py``; the keys of ``ROLLOUTS`` have a kernel, heat-only
-    Heun and ImplicitEuler only the plain version), or ``None``, where only
-    the process modules step it: a forcing, a source of another class, any
-    other model, stepper, boundary condition or top-temperature form."""
+    ``("land", stepper)`` (``ops/land_step.py``), a soil ``(stepper,
+    physics)`` (``ops/fused_step.py``; the keys of ``ROLLOUTS`` have a
+    kernel, heat-only Heun and ImplicitEuler only the plain version), or
+    ``None``, where only the process modules step it: a forcing, a source
+    of another class, any other model, stepper (ImplicitEuler with more
+    than one Picard iteration among them), boundary condition or
+    top-temperature form."""
     if getattr(ctx, "forcings", None) or any(type(s) not in _SOURCES for s in input_sources):
         return None
     stepper = STEPPERS.get(type(timestepper))
+    if stepper is None or (stepper == "implicit" and timestepper.picard_iters != 1):
+        return None
     if type(model) is LandModel:
-        if stepper != "euler" or (ctx.bcs or {}) != coupling_bcs():
+        if (ctx.bcs or {}) != coupling_bcs():
             return None
         try:
             land_step.land_composition(model)
@@ -99,9 +104,8 @@ def column_scheme(model, timestepper, ctx, input_sources=()):
                     _uniform_ts_meta(src) is None
                     or any(np.ndim(v) not in (1, 2) for v in src.series.values())):
                 return None  # the land kernel reads uniformly spaced (T,) / (T, cells) series
-        return "land"
-    if type(model) is not SoilModel or stepper is None or (
-            stepper == "implicit" and timestepper.picard_iters != 1):
+        return "land", stepper
+    if type(model) is not SoilModel:
         return None
     try:
         value = top_temperature_value(ctx.bcs)
@@ -207,14 +211,19 @@ def land_inputs(model, state: State, sources) -> dict:
 
 
 def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
-                  plain: bool, times) -> None:
-    """The land column rollout of ``advance``."""
+                  plain: bool, times, stepper: str) -> None:
+    """The land column rollout of ``advance``, of ``stepper`` (and the
+    timestepper's solver)."""
     grid = model.grid
     params = land_step.LandParams.of(model, grid.dtype)
     inputs = land_inputs(model, state, input_sources)
     carry = {n: state[n].contiguous() for n in land_step.carry_names(params)}
     root = state.auxiliary["root_fraction"] if model.vegetation is not None else None
-    rollout = land_step.land_column_rollout_plain if plain else land_step.land_column_rollout
+    kw = {"solver": timestepper.solver} if stepper == "implicit" else {}
+    if plain:
+        rollout = functools.partial(land_step.land_column_rollout_plain, stepper=stepper, **kw)
+    else:
+        rollout = functools.partial(land_step.ROLLOUTS[stepper], **kw)
     out = rollout(carry, inputs, root, *_coords(grid), params, dt, float(times[0]), steps)
     state.set(**out)
 
@@ -277,12 +286,14 @@ def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None
     ``closure``), which leave the last step's tendencies and inputs."""
     timestepper = timestepper if timestepper is not None else ForwardEuler()
     scheme = column_scheme(model, timestepper, ctx, input_sources)
-    if scheme is None or (scheme != "land" and scheme not in ROLLOUTS and not plain):
+    land = scheme is not None and scheme[0] == "land"
+    if scheme is None or (not land and scheme not in ROLLOUTS and not plain):
         _advance_modules(model, state, ctx, steps, dt, timestepper, input_sources)
         return
     times = clock_times(state.clock.time, dt, steps)
-    if scheme == "land":
-        _advance_land(model, state, ctx, steps, dt, timestepper, input_sources, plain, times)
+    if land:
+        _advance_land(model, state, ctx, steps, dt, timestepper, input_sources, plain, times,
+                      scheme[1])
     else:
         _advance_soil(model, state, ctx, steps, dt, timestepper, input_sources, plain, times,
                       scheme)

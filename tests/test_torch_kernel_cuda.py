@@ -9,6 +9,8 @@ JAX (the repository's conftest imports JAX; skip it there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 """
+import dataclasses
+import functools
 import pathlib
 
 import numpy as np
@@ -589,12 +591,14 @@ def test_fused_grad_rollout_launches_each_scheme_once_a_segment(cuda, scheme):
 LAND_GOLDEN = GOLDEN.parent / "land_model.npz"
 
 
-def _land_sim(cells, dtype, device, vegetated=True, nz=20):
+def _land_sim(cells, dtype, device, vegetated=True, nz=20, stepper=None, snow=False):
     """The vegetated composition of `examples/land_global.py` with
     ``DirectSurfaceRunoff.consistent()`` over loam Richards flow (Brooks-
     Corey, linear conductivity), or the default bare-ground model (heat only,
     Nz 15, the golden's); hourly series of shortwave and air temperature
-    over latitudes from -60 to 80 degrees."""
+    over latitudes from -60 to 80 degrees; ForwardEuler at dt 600 or
+    ``stepper``; with ``snow`` a ``Snowpack()``, a snowfall of 2e-8 m/s and
+    an initial SWE of 0.02 m."""
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
                             device=device)
     if not vegetated:
@@ -621,15 +625,19 @@ def _land_sim(cells, dtype, device, vegetated=True, nz=20):
     day = hours[:, None] / 86400.0
     sw = 900.0 * coslat[None, :] * np.maximum(0.0, np.sin(2 * np.pi * (day - 0.25)))
     ta = (28.0 * coslat - 8.0)[None, :] + 6.0 * np.sin(2 * np.pi * (day - 0.3))
+    fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0}
+    inits = {"temperature": lambda x, z: (28.0 * coslat - 8.0)[None, :] + 0.0 * z,
+             "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+             "vegetation_area_fraction": 0.5}
+    if snow:
+        model = dataclasses.replace(model, snow=tp.Snowpack())
+        fields["snowfall"] = 2.0e-8
+        inits["snow_water_equivalent"] = 0.02
     return tp.initialize(
-        model, tp.ForwardEuler(dt=600.0),
+        model, stepper or tp.ForwardEuler(dt=600.0),
         (tp.TimeSeriesInputSource(times=hours, series={"surface_shortwave_down": sw,
                                                        "air_temperature": ta}),
-         tp.FieldInputSource(fields={"surface_longwave_down": 330.0, "rainfall": 4.0e-8,
-                                     "windspeed": 3.0})),
-        initializers={"temperature": lambda x, z: (28.0 * coslat - 8.0)[None, :] + 0.0 * z,
-                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
-                      "vegetation_area_fraction": 0.5})
+         tp.FieldInputSource(fields=fields)), initializers=inits)
 
 
 @pytest.mark.cuda
@@ -670,6 +678,51 @@ def _land_f32_tolerance(name, plain, start, outside):
     return tol
 
 
+def _land_teacher(sim, dtype, kernel, plain, steps=48, dt=600.0):
+    """The land kernel ``kernel`` against its plain version ``plain`` along
+    the plain version's trajectory (see ``test_land_kernel_matches_plain``):
+    ``steps`` steps of ``dt``, one launch against the chain of one-step
+    launches. Returns the wrapper's launches of the one-launch rollout."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    model, st = sim.model, sim.state
+    params = ls.LandParams.of(model, dtype)
+    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
+    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    inputs = land_inputs(model, st, sim.input_sources)
+    root = st.auxiliary["root_fraction"]
+    wrapper = getattr(kernel, "func", kernel)
+    before = wrapper.launches
+    whole = kernel(carry, inputs, root, *coords, params, dt, 0.0, steps)
+    launches = wrapper.launches - before
+    cp, chain = dict(carry), dict(carry)
+    t = (np.float32 if dtype == torch.float32 else np.float64)(0.0)
+    for _ in range(steps):
+        k1 = kernel(cp, inputs, root, *coords, params, dt, float(t), 1)
+        p1 = plain(cp, inputs, root, *coords, params, dt, float(t), 1)
+        chain = {**chain, **kernel(chain, inputs, root, *coords, params, dt, float(t), 1)}
+        s0 = cp["saturation_water_ice"]
+        outside = ((s0 > 1.0) | (s0 < 0.0)).any(0)
+        for name in model.live_carry:
+            a, b = k1[name], p1[name]
+            assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()), name
+            if dtype == torch.float64:
+                torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()),
+                                           msg=name)
+            else:
+                a, b = a.double(), b.double()
+                tol = _land_f32_tolerance(name, b, cp[name].double(), outside)
+                assert bool(((a - b).abs() <= tol).all()), name
+        cp = {**cp, **p1}
+        t = t + t.dtype.type(dt)
+    torch.cuda.synchronize()
+    for name in model.live_carry:
+        assert torch.equal(whole[name], chain[name]), name
+    return launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_land_kernel_matches_plain(cuda, dtype):
@@ -686,43 +739,97 @@ def test_land_kernel_matches_plain(cuda, dtype):
     not amplify. The one-launch rollout equals the kernel's chain of
     one-step launches bit for bit."""
     from terrarium_tpu_torch.ops import land_step as ls
-    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
 
-    sim = _land_sim(300, dtype, cuda)
-    model, st = sim.model, sim.state
-    params = ls.LandParams.of(model, dtype)
-    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
-    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
-                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
-    inputs = land_inputs(model, st, sim.input_sources)
-    root = st.auxiliary["root_fraction"]
-    before = ls.land_column_rollout.launches
-    whole = ls.land_column_rollout(carry, inputs, root, *coords, params, 600.0, 0.0, 48)
-    assert ls.land_column_rollout.launches == before + 1
-    cp, chain = dict(carry), dict(carry)
-    t = (np.float32 if dtype == torch.float32 else np.float64)(0.0)
-    for _ in range(48):
-        k1 = ls.land_column_rollout(cp, inputs, root, *coords, params, 600.0, float(t), 1)
-        p1 = ls.land_column_rollout_plain(cp, inputs, root, *coords, params, 600.0, float(t), 1)
-        chain = {**chain, **ls.land_column_rollout(chain, inputs, root, *coords, params, 600.0,
-                                                   float(t), 1)}
-        s0 = cp["saturation_water_ice"]
-        outside = ((s0 > 1.0) | (s0 < 0.0)).any(0)
-        for name in model.live_carry:
-            a, b = k1[name], p1[name]
-            assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()), name
-            if dtype == torch.float64:
-                torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()),
-                                           msg=name)
-            else:
-                a, b = a.double(), b.double()
-                tol = _land_f32_tolerance(name, b, cp[name].double(), outside)
-                assert bool(((a - b).abs() <= tol).all()), name
-        cp = {**cp, **p1}
-        t = t + t.dtype.type(600.0)
+    assert _land_teacher(_land_sim(300, dtype, cuda), dtype, ls.land_column_rollout,
+                         ls.land_column_rollout_plain) == 1
+
+
+LAND_VARIANTS = ["heun", "implicit-thomas", "implicit-pcr", "implicit-pcr-snow"]
+
+
+def _land_variant(name):
+    """(stepper, kernel wrapper, plain version) of a land variant."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    key, _, rest = name.partition("-")
+    solver = rest.partition("-")[0] or None
+    kw = {"solver": solver} if solver else {}
+    stepper = tp.Heun(dt=600.0) if key == "heun" else tp.ImplicitEuler(dt=600.0, **kw)
+    return (stepper, functools.partial(ls.ROLLOUTS[key], **kw),
+            functools.partial(ls.land_column_rollout_plain, stepper=key, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("variant", LAND_VARIANTS)
+def test_land_variant_kernel_matches_plain(cuda, variant, dtype):
+    """Heun, ImplicitEuler (Thomas, PCR) and ImplicitEuler under a snowpack
+    over the composition of ``test_land_kernel_matches_plain``, held to the
+    plain version of the same stepper by its rule. Heun's float32 check
+    steps at dt 60: at dt 600 its stage, the explicit Richards step, leaves
+    [0, 1] and its float32 rounding moves the corrector beyond a field's
+    change in a step (``chip_smoke.LAND_HEUN_F32_DT``)."""
+    stepper, kernel, plain = _land_variant(variant)
+    sim = _land_sim(300, dtype, cuda, stepper=stepper, snow=variant.endswith("snow"))
+    dt = 60.0 if variant == "heun" and dtype == torch.float32 else 600.0
+    assert _land_teacher(sim, dtype, kernel, plain, dt=dt) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", LAND_VARIANTS)
+def test_land_run_takes_each_stepper_kernel(cuda, variant):
+    """``Simulation.run`` of each land variant at float32 goes through its
+    kernel: one launch of that wrapper for the block and none of another."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    stepper, kernel, _ = _land_variant(variant)
+    sim = _land_sim(300, torch.float32, cuda, stepper=stepper, snow=variant.endswith("snow"))
+    before = {k: f.launches for k, f in ls.ROLLOUTS.items()}
+    sim.run(steps=24)
     torch.cuda.synchronize()
-    for name in model.live_carry:
-        assert torch.equal(whole[name], chain[name]), name
+    after = {k: f.launches - before[k] for k, f in ls.ROLLOUTS.items()}
+    assert after == {k: int(k == variant.partition("-")[0]) for k in ls.ROLLOUTS}
+    assert all(bool(torch.isfinite(sim.state[n]).all()) for n in sim.model.live_carry)
+
+
+@pytest.mark.cuda
+def test_land_snow_golden_through_the_kernel(cuda):
+    """`tests/test_goldens.py:52-64` (bare ground, Richards over the default
+    hydraulics, ``Snowpack()``, Nz 12, float64, 48 steps at dt 300) through
+    the land kernel, one launch: the snowpack's fields at 1e-12 of the
+    golden, every field at 1e-12 of the plain version's run (the soil's
+    energy and saturation part from the golden: its explicit Richards step
+    is unstable at dt 300, ROADMAP Queue C)."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import advance
+
+    def make():
+        grid = tp.ColumnGrid.of(cells=4, spacing=tp.ExponentialSpacing(N=12),
+                                dtype=torch.float64, device=cuda)
+        model = tp.LandModel(grid=grid, snow=tp.Snowpack(), soil=tp.SoilEnergyWaterCarbon(
+            hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq())))
+        return tp.initialize(model, tp.ForwardEuler(),
+                             initializers={"temperature": 1.0, "saturation_water_ice": 0.6,
+                                           "snow_water_equivalent": 0.02},
+                             input_sources=(tp.FieldInputSource(fields={
+                                 "air_temperature": 4.0, "snowfall": 5.0e-8,
+                                 "surface_shortwave_down": 250.0}),))
+
+    sim, ref = make(), make()
+    before = ls.land_column_rollout.launches
+    sim.run(steps=48, dt=300.0)
+    torch.cuda.synchronize()
+    assert ls.land_column_rollout.launches == before + 1
+    advance(ref.model, ref.state, ref.ctx, 48, 300.0, input_sources=ref.input_sources,
+            plain=True)
+    ref.compute_auxiliary()
+    golden = np.load(GOLDEN.parent / "land_snow.npz")
+    for f in ("snow_water_equivalent", "snow_cover_fraction", "surface_shortwave_up"):
+        np.testing.assert_allclose(sim.state[f].cpu().numpy(), golden[f], rtol=1e-12,
+                                   atol=1e-12, err_msg=f)
+    for f in (*golden.files, *sim.model.live_carry):
+        a, b = sim.state[f], ref.state[f]
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()), msg=f)
 
 
 # ---------------------------------------------------------------------------

@@ -717,9 +717,16 @@ def test_land_rollout_refuses_by_type(name, monkeypatch):
 
 @pytest.mark.parametrize("stepper", ["Heun", "ImplicitEuler"])
 def test_land_rollout_refuses_other_steppers(stepper, monkeypatch):
+    """The land rollouts take ForwardEuler, Heun and ImplicitEuler with one
+    Picard iteration, by exact type; a stepper of another class (here a
+    subclass of Heun) and ImplicitEuler with two Picard iterations step
+    through the process modules, as in JAX."""
     def make(m):
         sim = _bare(m)
-        sim.timestepper = getattr(m, stepper)(dt=300.0)
+        if stepper == "Heun":
+            sim.timestepper = type("MyHeun", (m.Heun,), {})(dt=300.0)
+        else:
+            sim.timestepper = m.ImplicitEuler(dt=300.0, picard_iters=2)
         return sim
 
     _run_through_modules(make, 3, monkeypatch)
@@ -727,7 +734,8 @@ def test_land_rollout_refuses_other_steppers(stepper, monkeypatch):
 
 def test_land_rollout_refuses_user_bcs_series_and_snow(monkeypatch):
     """User BCs and a series of uneven spacing take the module path of
-    ``run``, as in JAX; a snowpack is not ported and raises."""
+    ``run``, as in JAX; a snow process of another class than ``Snowpack``
+    is refused by type."""
     def with_bc(m):
         jg, pg = _grids(4, 8)
         return m.initialize(m.LandModel(grid=jg if m is tt else pg), m.ForwardEuler(dt=300.0),
@@ -745,8 +753,8 @@ def test_land_rollout_refuses_user_bcs_series_and_snow(monkeypatch):
     _run_through_modules(with_bc, 2, monkeypatch)
     _run_through_modules(uneven, 2, monkeypatch)
     _, pg = _grids(4, 8)
-    with pytest.raises(ValueError, match="snowpack"):
-        tp.LandModel(grid=pg, snow=object())
+    with pytest.raises(ValueError, match="Snowpack"):
+        ls.LandParams.of(tp.LandModel(grid=pg, snow=object()), torch.float64)
     with pytest.raises(ValueError, match="SoilModel|LandModel"):
         ls.LandParams.of(tp.SoilModel(grid=pg), torch.float64)
 

@@ -1,6 +1,9 @@
 """The land kernel's column loop (``land::rollout_column`` in
 ``csrc/land_step.cuh``), compiled for the host by the C++ compiler, against
-the plain version (the port's process modules) at float64.
+the plain version (the port's process modules stepped by the same stepper)
+at float64: ForwardEuler over every composition the kernel takes, and Heun
+and ImplicitEuler (each solver) over bare ground, bare Richards flow and the
+vegetated composition with and without a snowpack.
 
 The host build does not contract multiply-adds, as torch on the CPU does
 not; the two differ where libm and torch round a transcendental apart (an
@@ -29,6 +32,7 @@ CSRC = HERE.parent / "terrarium_tpu_torch" / "csrc"
 CELLS, NZ, STEPS, DT = 64, 8, 8, 600.0
 SERIES = ("air_temperature", "surface_shortwave_down")
 CURVES, CONDS = {"vg": 0, "bc": 1}, {"mualem": 0, "linear": 1}
+STEPPERS, SOLVERS = {"euler": 0, "heun": 1, "implicit": 2}, {"thomas": 0, "pcr": 1}
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +82,8 @@ def land_case(composition, seed, nz=NZ, cells=CELLS, steps=STEPS):
     return model, carry, inputs, root, coords, params
 
 
-def host_rollout(lib, carry, inputs, root, coords, params, steps, dt=DT, time=0.0):
+def host_rollout(lib, carry, inputs, root, coords, params, steps, dt=DT, time=0.0,
+                 stepper="euler", solver="thomas"):
     out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
     args, keep = ls.launch_args(carry, out, inputs, root, coords, params)
     tags = params.tags
@@ -88,12 +93,23 @@ def host_rollout(lib, carry, inputs, root, coords, params, steps, dt=DT, time=0.
         ctypes.c_longlong(args[5]), *(ctypes.c_void_p(a) for a in args[6:10]), args[10],
         ctypes.c_int(carry["internal_energy"].shape[0]), ctypes.c_int(tags[0] == "veg"),
         ctypes.c_int(richards), ctypes.c_int(CURVES[tags[2]] if richards else 0),
-        ctypes.c_int(CONDS[tags[3]] if richards else 0), ctypes.c_int(steps),
+        ctypes.c_int(CONDS[tags[3]] if richards else 0), ctypes.c_int("snow" in tags),
+        ctypes.c_int(STEPPERS[stepper]), ctypes.c_int(SOLVERS[solver]), ctypes.c_int(steps),
         ctypes.c_double(time), ctypes.c_double(dt), ctypes.c_longlong(out["internal_energy"]
                                                                       .shape[1]))
     del keep
     assert rc == 0
     return out
+
+
+def assert_carry_close(out, ref, names):
+    """Every field within 1e-12 of the plain version (relative, with a floor
+    of 1e-12 of the field's magnitude)."""
+    for name in names:
+        a, b = out[name], ref[name]
+        assert bool(torch.isfinite(b).all()), name
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()),
+                                   msg=name)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -108,8 +124,38 @@ def test_host_land_column_matches_plain(host_land, composition, seed):
     model, carry, inputs, root, coords, params = land_case(composition, seed)
     out = host_rollout(host_land, carry, inputs, root, coords, params, steps)
     ref = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, DT, 0.0, steps)
-    for name in params.model.live_carry:
-        a, b = out[name], ref[name]
-        assert bool(torch.isfinite(b).all()), name
-        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()),
-                                   msg=name)
+    assert_carry_close(out, ref, params.model.live_carry)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("stepper", ["heun", "implicit-thomas", "implicit-pcr"])
+@pytest.mark.parametrize("composition", ["bare", "bare_richards", "consistent",
+                                         "consistent_snow"])
+def test_host_land_steppers_match_plain(host_land, composition, stepper, seed):
+    """Heun and ImplicitEuler (``land::heun_step``, ``land::implicit_step``
+    with each solver): 8 steps of 600 s from the random states, every field
+    of the carry within 1e-12 of the plain version stepped by the same
+    stepper (relative, with a floor of 1e-12 of the field's magnitude)."""
+    name, _, solver = stepper.partition("-")
+    model, carry, inputs, root, coords, params = land_case(composition, seed)
+    out = host_rollout(host_land, carry, inputs, root, coords, params, STEPS, stepper=name,
+                       solver=solver or "thomas")
+    ref = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, DT, 0.0, STEPS,
+                                       stepper=name, solver=solver or None)
+    assert_carry_close(out, ref, params.model.live_carry)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("composition", ["snow", "consistent_snow"])
+def test_host_land_snow_matches_plain(host_land, composition, seed):
+    """ForwardEuler with a snowpack (its cover, melt, albedo blend and clip):
+    8 steps of 600 s from the random states, every field within 1e-12 of the
+    plain version; the random packs melt out in some columns and grow in
+    others."""
+    model, carry, inputs, root, coords, params = land_case(composition, seed)
+    assert params.tags[-1] == "snow"
+    out = host_rollout(host_land, carry, inputs, root, coords, params, STEPS)
+    ref = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, DT, 0.0, STEPS)
+    assert_carry_close(out, ref, params.model.live_carry)
+    swe0, swe = carry["snow_water_equivalent"], ref["snow_water_equivalent"]
+    assert bool((swe > swe0.clamp(min=0.0)).any()) and bool((swe < swe0).any())

@@ -52,13 +52,14 @@ def _heat(m, ts):
                         boundary_conditions=m.PrescribedSurfaceTemperature(-3.0))
 
 
-def _land(m, ts):
+def _land(m, ts, bcs=None):
     """The bare-ground LandModel with static inputs."""
     return m.initialize(m.LandModel(grid=_grid(m, 4, 8)), ts,
                         (m.FieldInputSource(fields={"surface_shortwave_down": 400.0,
                                                     "air_temperature": 12.0,
                                                     "rainfall": 1.0e-7}),),
-                        initializers={"temperature": 6.0, "saturation_water_ice": 0.6})
+                        initializers={"temperature": 6.0, "saturation_water_ice": 0.6},
+                        boundary_conditions=bcs)
 
 
 def _top(m):
@@ -84,8 +85,13 @@ MODULE_CASES = {
     "heat-only ImplicitEuler": (lambda m: _heat(m, m.ImplicitEuler(dt=900.0)), 12, 900.0),
     "picard_iters=2": (lambda m: _bench(m, m.ImplicitEuler(dt=900.0, picard_iters=2), _top(m)),
                        8, 900.0),
-    "LandModel Heun": (lambda m: _land(m, m.Heun(dt=300.0)), 6, 300.0),
-    "LandModel ImplicitEuler": (lambda m: _land(m, m.ImplicitEuler(dt=300.0)), 6, 300.0),
+    # the land rollouts take Heun and ImplicitEuler with the coupling BCs and
+    # one Picard iteration; a geothermal flux at the bottom, or two Picard
+    # iterations, take the modules
+    "LandModel Heun": (lambda m: _land(m, m.Heun(dt=300.0), m.GeothermalHeatFlux(0.08)), 6,
+                       300.0),
+    "LandModel ImplicitEuler": (lambda m: _land(m, m.ImplicitEuler(dt=300.0, picard_iters=2)),
+                                6, 300.0),
 }
 
 
@@ -164,7 +170,8 @@ def test_soil_module_run_equals_timesteps():
         assert_fields_close(a.state, {k: b.state[k].numpy() for k in SOIL_FIELDS}, SOIL_FIELDS)
 
 
-@pytest.mark.parametrize("case", ["euler", "heun series", "heat", "implicit", "land"])
+@pytest.mark.parametrize("case", ["euler", "heun series", "heat", "implicit", "land",
+                                  "land heun", "land implicit"])
 def test_kernel_compositions_still_take_their_rollout(case, monkeypatch):
     """The compositions a kernel takes still go through the column rollout
     (here, on the CPU, its plain version), never the module loop."""
@@ -195,10 +202,14 @@ def test_kernel_compositions_still_take_their_rollout(case, monkeypatch):
         sim = _heat(tp, tp.ForwardEuler(dt=300.0))
     elif case == "implicit":
         sim = _bench(tp, tp.ImplicitEuler(dt=900.0, solver="thomas"), _top(tp))
-    else:
+    elif case == "land":
         sim = _land(tp, tp.ForwardEuler(dt=300.0))
+    elif case == "land heun":
+        sim = _land(tp, tp.Heun(dt=300.0))
+    else:
+        sim = _land(tp, tp.ImplicitEuler(dt=300.0, solver="thomas"))
     sim.run(steps=4)
-    assert calls == ["land_column_rollout_plain" if case == "land"
+    assert calls == ["land_column_rollout_plain" if case.startswith("land")
                      else "soil_column_rollout_plain"]
     assert all(float(v.abs().max()) == 0.0 for v in sim.state.tendencies.values())
 

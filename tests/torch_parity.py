@@ -1,5 +1,7 @@
 """Builders shared by the ``test_torch_*`` files: one soil configuration set
 up in the JAX package and in the PyTorch port from the same numbers."""
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -220,10 +222,18 @@ def land_model(pkg, grid, composition):
     ``DirectSurfaceRunoff.consistent()`` (`test_parity_robustness.py:105-117`);
     ``"parity"``, `bench_configs.py:228-267`'s (``VegetationCarbon()``, the
     rest default); ``"bare_richards"``, the land-step pin's
-    (`test_parity_pins_land_step.py:173-189`)."""
+    (`test_parity_pins_land_step.py:173-189`); ``"snow"``, the
+    ``land_snow`` golden's (`tests/test_goldens.py:52-64`: bare ground,
+    Richards flow over the default hydraulics, ``Snowpack()``);
+    ``"consistent_snow"``, ``"consistent"`` with ``Snowpack()``."""
     m = pkg
     if composition == "bare":
         return m.LandModel(grid=grid)
+    if composition == "snow":
+        return m.LandModel(grid=grid, snow=m.Snowpack(), soil=m.SoilEnergyWaterCarbon(
+            hydrology=m.SoilHydrology(vertical_flow=m.RichardsEq())))
+    if composition == "consistent_snow":
+        return dataclasses.replace(land_model(pkg, grid, "consistent"), snow=m.Snowpack())
     loam = m.HomogeneousStratigraphy(texture=m.SoilTexture.preset("loam"))
     if composition == "bare_richards":
         return m.LandModel(grid=grid, soil=m.SoilEnergyWaterCarbon(
@@ -254,8 +264,9 @@ def land_random_state(seed, cells, nz, extremes=True):
     and spilling soil columns, frozen, thawing and thawed energies, negative,
     empty and full pools, skin temperatures far from the ground's, empty,
     partly and over-full canopies, vegetation carbon across both ends of the
-    LAI ramp, fractions below the seed, and inputs across every threshold
-    (cold and hot air, night, calm wind, saturated air). ``extremes``: the
+    LAI ramp, fractions below the seed, snowpacks negative, empty and deep,
+    and inputs across every threshold (cold and hot air, night, calm wind,
+    saturated air, snowfall on and off). ``extremes``: the
     last four columns' skin temperatures 120-250 K off in a 12 m/s wind,
     which reach the skin clamp and the saturation-pressure clip in one step
     and take the explicit coupling non-finite within a few."""
@@ -293,4 +304,7 @@ def land_random_state(seed, cells, nz, extremes=True):
         specific_humidity=rng.uniform(0.0, 0.03, cells),
         CO2=rng.uniform(300.0, 500.0, cells),
         SAI=rng.uniform(0.0, 2.0, cells),
-        daily_leaf_respiration=rng.uniform(0.0, 0.1, cells))
+        daily_leaf_respiration=rng.uniform(0.0, 0.1, cells),
+        snowfall=rng.uniform(0.0, 1e-6, cells) * rng.choice([0.0, 1.0], cells),
+        snow_water_equivalent=np.where(np.arange(cells) % 9 == 4, -5e-4, rng.uniform(
+            0.0, 5e-2, cells) * rng.choice([0.0, 1.0], cells)))
