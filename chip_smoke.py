@@ -56,6 +56,16 @@ the kernel launch counts set to 0 just before it and read just after:
   against its plain version (torch autograd) on 1,024 columns at float64
   and float32, at full width at float32 (the plain version in chunks of
   1,024 columns), and against the conservation of water;
+* the LandModel's gradient path (``make_fused_grad_rollout`` over the land
+  kernel and the land segment VJP): ``land_consistent``'s composition at
+  56,951 columns, Nz 20, float32, with its forcing's daily means as static
+  inputs, 288 steps in segments of 48, value and gradient of mean(T) +
+  mean(carbon) in log K_sat and k_mineral, ForwardEuler at dt 60 s
+  (``land_grad_euler``) and ImplicitEuler at dt 600 s with each solver
+  (``land_grad_implicit_pcr``, ``_thomas``), after the land segment-VJP
+  kernel against its plain version (float64 on 1,024 columns at rtol 1e-9,
+  float32 at full width with the plain version in chunks) and the float64
+  gradient against central differences of the loss;
 * the gradient path of the segment VJP's other schemes, each at 56,951
   columns, Nz 30, float32, 288 steps in segments of 48, after its kernel
   against its plain version (float64 on 1,024 columns at the scheme's
@@ -79,8 +89,9 @@ and exits non-zero, and so does a machine without a CUDA device.
 the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
 golden, bench and gradient configurations, of the Heun kernel's on
 ``heun_forced`` and the Heun + series configuration, of the heat-only,
-implicit (each solver), segment-VJP (each scheme the package has) and land
-kernels' (each stepper and the snowpack the package has) on their
+implicit (each solver), segment-VJP (each scheme the package has), land
+kernels' (each stepper and the snowpack the package has) and land
+segment-VJP kernel's (each scheme, where the package has it) on their
 full-width comparison operands, and the bench
 ``main_path`` rate, for the package in
 ``DIR`` (default: this checkout). Run it on two checkouts in one call to
@@ -264,11 +275,11 @@ GRAD_SCHEMES = {
 }
 K_MINERAL = 3.8
 # the float32 full-width comparisons of these schemes run the plain version
-# in chunks of GRAD_SCHEME_CHUNK columns, 14 a scheme: torch autograd through
+# in chunks of GRAD_SCHEME_CHUNK columns, 4 a scheme: torch autograd through
 # the plain steps is thousands of small launches a chunk, so fewer, wider
 # chunks keep the script inside its time limit; each column is compared all
 # the same
-GRAD_SCHEME_CHUNK = 4096
+GRAD_SCHEME_CHUNK = 16384
 # Operations behind these VJPs' bounds, counted as ADJ_OPS (the adjoint
 # without its recompute, the forward's intermediates taken as given, the
 # cheaper side of each data-dependent branch):
@@ -472,8 +483,309 @@ def land_variant_ops(stepper, solver, snow, nz, branches):
     return ops
 
 
+# The LandModel's gradient path (make_fused_grad_rollout over the land
+# kernel and its segment VJP, csrc/land_column_segment_vjp.cu):
+# land_consistent's composition (land_model "consistent") at full width with
+# its forcing's daily means as static per-column inputs, since the fused
+# gradient takes static inputs only (in JAX as here): shortwave
+# 900 cos(lat) / pi, air temperature T_mean; the rest of land_sim's. The
+# objective is test_fused_grad.py:270-330's, mean(T) + mean(carbon), in
+# log K_sat and k_mineral; 288 steps in segments of 48: ForwardEuler at dt
+# 60 s (ROADMAP B1's stable composition) and ImplicitEuler with each solver
+# at dt 600 s, the land's production step. (scheme key, solver, dt)
+LAND_GRAD_SCHEMES = {"land_grad_euler": ("euler", None, 60.0),
+                     "land_grad_implicit_pcr": ("implicit", "pcr", 600.0),
+                     "land_grad_implicit_thomas": ("implicit", "thomas", 600.0)}
+# the float32 full-width comparison runs the plain version (torch autograd
+# through the process modules) in chunks of this many columns; the float64
+# one on LAND_F64_CELLS columns over one segment; the central differences
+# of the loss in log K_sat and k_mineral step by these
+LAND_GRAD_CHUNK = 16384
+LAND_FD_H, LAND_FD_RTOL = {"log_K_sat": 1e-4, "k_mineral": 1e-4}, 1e-5
+# ForwardEuler's land state at dt 60 s leaves saturation [0, 1] within the
+# gradient's 288 steps and its loss is not smooth there (the phase prints
+# central differences at 288 steps and three h beside the adjoint, not
+# held): its central differences are held over 96 steps, ImplicitEuler's
+# over the gradient's 288
+LAND_FD_STEPS = {"euler": 96, "implicit": GRAD_STEPS}
+LAND_FD_REPORT_H = (1e-2, 1e-3, 1e-4)
+# Operations of the land segment VJP behind its bound, counted as ADJ_OPS
+# (the adjoint without its recompute, the forward's intermediates taken as
+# given, the cheaper side of each data-dependent branch) beside one forward
+# step (land_variant_ops): per level the soil's adjoint (ADJ_OPS: the
+# Darcy flux, face K, heat flux, head compares, level_adjoint, sweeps), the
+# linear centre K's (a quotient's two cotangents into K_sat, water, ice and
+# air: 6) and the plant-available water's (compare 2, product, quotient,
+# add: 5); per column the surface block reversed, one adjoint operation for
+# each of its forward ones (LAND_OPS_PER_COLUMN without the series reads
+# and the surface updates), and the surface updates' cotangents (dt times
+# the pool, canopy water, carbon and fraction cotangents: 4). ImplicitEuler
+# adds IMPLICIT_VJP_OPS_PER_LEVEL, _PER_FACE and the two transposed solves
+# with their top rows, as the soil's (Brooks-Corey's chain derivative in
+# place of Van Genuchten's, counted the same).
+LAND_VJP_OPS_PER_LEVEL = sum(ADJ_OPS.values()) + 6 + 5
+LAND_VJP_OPS_PER_COLUMN = (sum(LAND_OPS_PER_COLUMN.values())
+                           - LAND_OPS_PER_COLUMN["series reads and clock"]
+                           - LAND_OPS_PER_COLUMN["surface updates"] + 4)
+
+
+def land_vjp_ops(stepper, solver, nz, branches):
+    """Operations of one step of one column of the land segment VJP."""
+    ops = (land_variant_ops(stepper, solver, False, nz, branches)
+           + LAND_VJP_OPS_PER_LEVEL * nz + LAND_VJP_OPS_PER_COLUMN
+           + sum(LAND_OPS_BRANCH[k] * n for k, n in branches.items()))
+    if stepper == "implicit":
+        ops += (IMPLICIT_VJP_OPS_PER_LEVEL - sum(ADJ_OPS.values())) * nz \
+            + IMPLICIT_VJP_OPS_PER_FACE * (nz - 1) + 2 * (implicit_solver_ops(solver, nz) + 5)
+    return ops
+
+
+def land_vjp_bytes(nz, cells, itemsize):
+    """Bytes the land segment VJP must move: it reads the input carry (2 Nz
+    + 6 values a column), the output cotangents (as many), the static inputs
+    (11) and the root fractions (Nz), and writes the input cotangents and
+    the two parameter cotangents."""
+    return ((3 * (2 * nz + 6) + 11 + nz) * cells + 2) * itemsize
+
+
+def land_grad_model_fn(tp, grid):
+    """``(log K_sat, k_mineral) -> model``: land_model "consistent" with its
+    soil's saturated hydraulic conductivity exp(log K_sat) and mineral
+    conductivity k_mineral."""
+    from terrarium_tpu_torch.convert import with_differentiable_params
+
+    base = land_model(tp, grid, "consistent")
+    return lambda p: dataclasses.replace(base, soil=with_differentiable_params(
+        base.soil, log_sat_hydraulic_cond=p[0], mineral_conductivity=p[1]))
+
+
+def land_grad_params(tp):
+    """The consistent composition's own log K_sat and k_mineral."""
+    grid = tp.ColumnGrid.of(cells=1, spacing=tp.ExponentialSpacing(N=LAND_NZ), device="cpu")
+    soil_ = land_model(tp, grid, "consistent").soil
+    return (float(np.log(soil_.hydrology.hydraulic_properties.sat_hydraulic_cond)),
+            float(soil_.energy.thermal_properties.conductivities.mineral))
+
+
+def land_grad_sim(tp, cells, dtype, name):
+    """LAND_GRAD_SCHEMES[name] on ``cells`` columns at latitudes evenly
+    spaced from -60 to 80 degrees: static shortwave 900 cos(lat) / pi and
+    air temperature T_mean = 28 max(cos lat, 0.05) - 8, longwave 330, rain
+    4e-8, wind 3; initial temperature T_mean, saturation 0.6, carbon 2,
+    vegetation fraction 0.5."""
+    key, solver, dt = LAND_GRAD_SCHEMES[name]
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
+                            dtype=dtype, device="cuda")
+    lat = np.linspace(-60.0, 80.0, cells)
+    coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
+    T_mean = 28.0 * coslat - 8.0
+    fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0,
+              "surface_shortwave_down": 900.0 * coslat / np.pi, "air_temperature": T_mean}
+    stepper = (tp.ImplicitEuler(dt=dt, solver=solver) if key == "implicit"
+               else tp.ForwardEuler(dt=dt))
+    return tp.initialize(
+        land_grad_model_fn(tp, grid)(land_grad_params(tp)), stepper,
+        (tp.FieldInputSource(fields=fields),),
+        initializers={"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+                      "vegetation_area_fraction": 0.5})
+
+
+def land_grad_value(tp, sim, name, params=None, grad=True, steps=GRAD_STEPS):
+    """The loss mean(T) + mean(carbon) after ``steps`` steps of
+    make_fused_grad_rollout (segments of GRAD_INNER) and, ``grad``, its
+    gradient in (log K_sat, k_mineral) (float64 0-d leaves)."""
+    from terrarium_tpu_torch.timesteppers.fused_grad import make_fused_grad_rollout
+
+    dt = LAND_GRAD_SCHEMES[name][2]
+    p = tuple(torch.tensor(v, dtype=torch.float64, device="cuda", requires_grad=grad)
+              for v in (params or land_grad_params(tp)))
+    roll = make_fused_grad_rollout(land_grad_model_fn(tp, sim.model.grid), sim.timestepper,
+                                   sim.ctx, sim.input_sources, steps=steps, dt=dt,
+                                   inner_steps=GRAD_INNER)
+    with torch.set_grad_enabled(grad):
+        out = roll(sim.state, p)
+        loss = out.temperature.mean() + out.prognostic["carbon_vegetation"].mean()
+    if not grad:
+        return float(loss)
+    return (float(loss.detach()), *(float(g) for g in torch.autograd.grad(loss, p)))
+
+
+def land_grad_operands(ls, land_inputs, sim, seed):
+    """Carry, static inputs, root fraction, coordinates, parameters and
+    seeded output cotangents (the live carry's) of a land gradient
+    simulation."""
+    carry, inputs, root, coords, params = land_operands(ls, land_inputs, sim)
+    rng = np.random.default_rng(seed)
+    dtype = sim.model.grid.dtype
+    gout = {n: torch.as_tensor(rng.normal(size=tuple(carry[n].shape)), device="cuda").to(dtype)
+            for n in sim.model.live_carry}
+    return carry, inputs, root, coords, params, gout
+
+
+def land_zero_discriminant(inputs, params):
+    """The columns whose photosynthesis is gated off with a zero
+    co-limitation discriminant under their static inputs (no shortwave, or
+    air at or outside the stress window): there torch's autograd of the
+    plain version gives NaN (ROADMAP Queue C) and the kernel the taken
+    branch's derivative."""
+    v = params.values
+    SW = inputs["surface_shortwave_down"].values[0]
+    Ta = inputs["air_temperature"].values[0]
+    return (SW <= 0) | (Ta <= v["T_CO2_low"]) | (Ta >= v["T_CO2_high"])
+
+
+def land_columns(ls, cols, carry, inputs, root, gout, dtype=None):
+    """The columns ``cols`` of a land VJP's carry, static inputs, root
+    fraction and output cotangents, contiguous (in ``dtype`` if given)."""
+    def take(t):
+        t = t[..., cols].contiguous()
+        return t if dtype is None else t.to(dtype)
+
+    return ({n: take(t) for n, t in carry.items()},
+            {n: ls.LandInput(take(i.values), i.t0, i.dts) for n, i in inputs.items()},
+            None if root is None else take(root), {n: take(t) for n, t in gout.items()})
+
+
+def land_vjp_plain_chunks(lv, ls, carry, inputs, root, coords, params, dt, steps, gout, kw,
+                          chunk):
+    """The plain land VJP at full width, run in chunks of ``chunk``
+    columns: the cotangents and the parameter cotangents' sums."""
+    cells = carry["internal_energy"].shape[1]
+    ref = {n: torch.empty_like(t) for n, t in carry.items()}
+    pK = pskm = 0.0
+    for lo in range(0, cells, chunk):
+        cols = torch.arange(lo, min(lo + chunk, cells), device="cuda")
+        c, i, r, g = land_columns(ls, cols, carry, inputs, root, gout)
+        part, a, b = lv.land_column_segment_vjp_plain(c, i, r, *coords, params, dt, 0.0, steps,
+                                                      g, **kw)
+        for n in ref:
+            ref[n][..., cols] = part[n]
+        pK, pskm = pK + float(a), pskm + float(b)
+    return ref, pK, pskm
+
+
+def nonfinite_columns(fields):
+    cells = next(iter(fields.values())).shape[-1]
+    bad = torch.zeros(cells, dtype=torch.bool, device="cuda")
+    for t in fields.values():
+        bad |= ~torch.isfinite(t).all(0) if t.dim() == 2 else ~torch.isfinite(t)
+    return bad
+
+
+def land_vjp_compare(lv, ls, carry, inputs, root, coords, params, dt, steps, gout, kw,
+                     rtol, chunk):
+    """The land segment-VJP kernel against its plain version over ``steps``
+    steps: the plain one in chunks of ``chunk`` columns. Columns where the
+    plain version's cotangents are not finite must be zero-discriminant ones
+    (land_zero_discriminant), where the kernel must be finite; the others
+    are compared: each cotangent within ``rtol`` of its value plus ``rtol``
+    of the field's largest magnitude, the parameter cotangents (without the
+    columns left out) within ``rtol``. Returns the largest absolute errors,
+    the largest over the magnitudes and the number of columns left out."""
+    out_k, gK, gskm = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0,
+                                                 steps, gout, **kw)
+    ref, pK, pskm = land_vjp_plain_chunks(lv, ls, carry, inputs, root, coords, params, dt,
+                                          steps, gout, kw, chunk)
+    if bool(nonfinite_columns(out_k).any()):
+        raise AssertionError("land VJP kernel produced a non-finite cotangent")
+    bad = nonfinite_columns(ref)
+    if bool((bad & ~land_zero_discriminant(inputs, params)).any()):
+        raise AssertionError("the plain land VJP is non-finite outside the zero-discriminant "
+                             "columns")
+    keep = (~bad).nonzero().flatten()
+    errs, rel = {}, {}
+    for n in ref:
+        a, b = (t[..., keep] for t in (out_k[n], ref[n]))
+        scale = float(b.abs().max())
+        errs[n] = float((a - b).abs().max())
+        rel[n] = errs[n] / scale if scale > 0.0 else errs[n]
+        if bool(((a - b).abs() > rtol * b.abs() + rtol * scale).any()):
+            raise AssertionError(f"land VJP kernel vs plain {n}: max abs err {errs[n]}, "
+                                 f"largest magnitude {scale}")
+    kK, kskm = float(gK), float(gskm)
+    if bool(bad.any()):  # the parameter cotangents without the columns left out
+        c, i, r, g = land_columns(ls, bad.nonzero().flatten(), carry, inputs, root, gout)
+        _, a, b = lv.land_column_segment_vjp(c, i, r, *coords, params, dt, 0.0, steps, g, **kw)
+        kK, kskm = kK - float(a), kskm - float(b)
+        c, i, r, g = land_columns(ls, keep, carry, inputs, root, gout)
+        _, a, b = lv.land_column_segment_vjp_plain(c, i, r, *coords, params, dt, 0.0, steps, g,
+                                                   **kw)
+        pK, pskm = float(a), float(b)
+    for n, a, b in (("K_sat", kK, pK), ("sk_mineral", kskm, pskm)):
+        errs[n], rel[n] = abs(a - b), abs(a - b) / abs(b) if b != 0.0 else abs(a - b)
+        if not b != 0.0 or abs(a - b) > rtol * abs(b):
+            raise AssertionError(f"land VJP kernel vs plain {n}: {a} vs {b}")
+    return errs, rel, int(bad.sum())
+
+
+def land_vjp_compare_f32(lv, ls, tp, name, carry, inputs, root, coords, params, dt, steps,
+                         gout, kw):
+    """The float32 land segment-VJP kernel at full width against its plain
+    version (in chunks of LAND_GRAD_CHUNK columns): each cotangent within
+    F32_VJP_REL_TOL of its field's largest magnitude, and the parameter
+    cotangents within F32_VJP_REL_TOL. A column where the two part by more
+    (a branch that flips between two float32 roundings: the freeze plateau's
+    edge in dT/dU, saturation in d(Psi)/d(sat)) is held to a float64 plain
+    referee from the same float32 operands instead: the kernel within twice
+    the plain version's own float32 error plus the tolerance; such columns
+    leave the parameter sums of both. Returns the errors, the errors over
+    the magnitudes, and the flip columns' count with the plain version's
+    largest float32 error there over each field's magnitude."""
+    out_k, gK, gskm = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0,
+                                                 steps, gout, **kw)
+    ref, pK, pskm = land_vjp_plain_chunks(lv, ls, carry, inputs, root, coords, params, dt,
+                                          steps, gout, kw, LAND_GRAD_CHUNK)
+    if bool(nonfinite_columns(out_k).any()) or bool(nonfinite_columns(ref).any()):
+        raise AssertionError(f"{name}: a non-finite float32 cotangent")
+    cells = carry["internal_energy"].shape[1]
+    flip = torch.zeros(cells, dtype=torch.bool, device="cuda")
+    scales = {n: float(ref[n].abs().max()) for n in ref}
+    for n in ref:
+        beyond = (out_k[n] - ref[n]).abs() > F32_VJP_REL_TOL * scales[n]
+        flip |= beyond.any(0) if beyond.dim() == 2 else beyond
+    keep = (~flip).nonzero().flatten()
+    errs, rel = {}, {}
+    for n in ref:
+        errs[n] = float((out_k[n][..., keep] - ref[n][..., keep]).abs().max())
+        rel[n] = errs[n] / scales[n] if scales[n] > 0.0 else errs[n]
+    flips = {"columns": int(flip.sum())}
+    kK, kskm = float(gK), float(gskm)
+    if bool(flip.any()):
+        cols = flip.nonzero().flatten()
+        f64 = torch.float64
+        c, i, r, g = land_columns(ls, cols, carry, inputs, root, gout, dtype=f64)
+        p64 = ls.LandParams.of(params.model, f64)
+        c64 = tuple(t.to(f64) for t in coords)
+        truth, _, _ = lv.land_column_segment_vjp_plain(c, i, r, *c64, p64, dt, 0.0, steps, g,
+                                                       **kw)
+        for n in ref:
+            k_err = (out_k[n][..., cols].double() - truth[n]).abs()
+            p_err = (ref[n][..., cols].double() - truth[n]).abs()
+            if bool((k_err > 2.0 * p_err + F32_VJP_REL_TOL * scales[n]).any()):
+                raise AssertionError(f"{name}: float32 kernel vs the float64 referee {n} at "
+                                     f"the flip columns: {float(k_err.max())} against the "
+                                     f"plain version's {float(p_err.max())}")
+            flips[n] = float(p_err.max()) / scales[n] if scales[n] > 0.0 else 0.0
+        c, i, r, g = land_columns(ls, cols, carry, inputs, root, gout)
+        _, a, b = lv.land_column_segment_vjp(c, i, r, *coords, params, dt, 0.0, steps, g, **kw)
+        kK, kskm = kK - float(a), kskm - float(b)
+        _, a, b = lv.land_column_segment_vjp_plain(c, i, r, *coords, params, dt, 0.0, steps, g,
+                                                   **kw)
+        pK, pskm = pK - float(a), pskm - float(b)
+    for n, a, b in (("K_sat", kK, pK), ("sk_mineral", kskm, pskm)):
+        errs[n], rel[n] = abs(a - b), abs(a - b) / abs(b) if b != 0.0 else abs(a - b)
+        if not b != 0.0 or abs(a - b) > F32_VJP_REL_TOL * abs(b):
+            raise AssertionError(f"{name}: float32 kernel vs plain {n}: {a} vs {b}")
+    return errs, rel, flips
+
+
+_T0 = time.perf_counter()
+
+
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's line, with the seconds since the script started."""
+    print(json.dumps({"phase": name, "t_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
 def soil(tp):
@@ -1294,13 +1606,15 @@ def main():
     from terrarium_tpu_torch.ops import fused_step as fs
     from terrarium_tpu_torch.ops import fused_vjp as fv
     from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
     from terrarium_tpu_torch.timesteppers.integrator import (advance, clock_times, land_inputs,
                                                              top_temperature_table)
 
     KERNELS = (fs.soil_column_rollout, fs.soil_column_heun_rollout,
                fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
                fv.soil_column_segment_vjp, ls.land_column_rollout, ls.land_column_heun_rollout,
-               ls.land_column_implicit_rollout, fs.soil_column_full_step)
+               ls.land_column_implicit_rollout, fs.soil_column_full_step,
+               lv.land_column_segment_vjp)
 
     def reset_counts():
         for fn in KERNELS:
@@ -2099,6 +2413,119 @@ def main():
               f32_max_err_over_magnitude=f32_rel, card=card, **extra)
         del gsim, carry, table, cts
 
+    # ---- the LandModel's gradient path (LAND_GRAD_SCHEMES): the land
+    # segment-VJP kernel against its plain version (float64 on
+    # LAND_F64_CELLS columns, one segment; float32 at full width, the plain
+    # version in chunks, a column where the two part held to a float64
+    # referee), the float64 gradient against central differences of the
+    # forward kernel's loss, then the timed 288-step gradient at full width
+    land_grads = {}
+    x0, k0 = land_grad_params(tp)
+    for name, (key, solver, dt) in LAND_GRAD_SCHEMES.items():
+        vkw = {"stepper": key, "solver": solver}
+        fwd = ls.ROLLOUTS[key]
+        fkw = {"solver": solver} if solver else {}
+        sim = land_grad_sim(tp, LAND_F64_CELLS, torch.float64, name)
+        ops = land_grad_operands(ls, land_inputs, sim, seed=11)
+        f64_err, f64_rel, f64_out = land_vjp_compare(lv, ls, *ops[:5], dt, GRAD_INNER, ops[5],
+                                                     vkw, 1e-9, LAND_F64_CELLS)
+        # central differences of the loss through the forward kernel, over
+        # LAND_FD_STEPS[key] steps
+        steps_fd = LAND_FD_STEPS[key]
+        _, gx, gk = land_grad_value(tp, sim, name, steps=steps_fd)
+        fd = []
+        for i, h in enumerate((LAND_FD_H["log_K_sat"], LAND_FD_H["k_mineral"])):
+            hi, lo_ = ([x0, k0], [x0, k0])
+            hi[i] += h
+            lo_[i] -= h
+            fd.append((land_grad_value(tp, sim, name, params=hi, grad=False, steps=steps_fd)
+                       - land_grad_value(tp, sim, name, params=lo_, grad=False,
+                                         steps=steps_fd)) / (2 * h))
+        fd_rel = [abs(a - b) / abs(b) for a, b in zip((gx, gk), fd)]
+        if max(fd_rel) > LAND_FD_RTOL:
+            raise AssertionError(f"{name}: f64 kernel gradient {(gx, gk)} against central "
+                                 f"differences {fd}")
+        fd_report = {}
+        if steps_fd != GRAD_STEPS:  # the loss over the gradient's steps, reported
+            fd_report["adjoint"] = land_grad_value(tp, sim, name)[1]
+            for h in LAND_FD_REPORT_H:
+                fd_report[h] = (land_grad_value(tp, sim, name, params=[x0 + h, k0],
+                                                grad=False)
+                                - land_grad_value(tp, sim, name, params=[x0 - h, k0],
+                                                  grad=False)) / (2 * h)
+        del sim, ops
+        gsim = land_grad_sim(tp, LAND_CELLS, torch.float32, name)
+        carry, linputs, root, coords, params, gout = land_grad_operands(ls, land_inputs, gsim,
+                                                                        seed=11)
+        # the pool's output cotangent 0: at an empty pool a random one grows
+        # by |1 - dt / tau_r| a step where a column's pool fills (ROADMAP
+        # Queue C), past float32 within a segment; the loss reads no pool
+        gout["surface_excess_water"] = torch.zeros_like(gout["surface_excess_water"])
+        f32_err, f32_rel, flips = land_vjp_compare_f32(
+            lv, ls, tp, name, carry, linputs, root, coords, params, dt, GRAD_INNER, gout, vkw)
+        k_ms = cuda_ms(lambda: lv.land_column_segment_vjp(
+            carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, gout, **vkw), reps=3,
+            warmup=True)
+        f_ms = cuda_ms(lambda: fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER,
+                                   **fkw), reps=3, warmup=True)
+        first = torch.arange(LAND_GRAD_CHUNK, device="cuda")
+        sub = land_columns(ls, first, carry, linputs, root, gout)
+        p_ms = cuda_ms(lambda: lv.land_column_segment_vjp_plain(
+            sub[0], sub[1], sub[2], *coords, params, dt, 0.0, GRAD_INNER, sub[3], **vkw))
+        end = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, **fkw)
+        runs = land_branches(fs, params, linputs, carry, end, 0.0)
+        runs = {k: n / LAND_CELLS for k, n in runs.items()}
+        v_ops = land_vjp_ops(key, solver, LAND_NZ, runs)
+        b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER, land_vjp_bytes(LAND_NZ, LAND_CELLS, 4))
+        del sub, end
+        # the gradient: 6 forward and 6 VJP launches
+        land_grad_value(tp, gsim, name)
+        torch.cuda.synchronize()
+        times, grad_launches = [], {}
+        for i in range(5):
+            reset_counts()
+            t0 = time.perf_counter()
+            value, ggx, ggk = land_grad_value(tp, gsim, name)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                grad_launches = launched()
+        segments = GRAD_STEPS // GRAD_INNER
+        if grad_launches != {fwd.__name__: segments, "land_column_segment_vjp": segments}:
+            raise AssertionError(f"{name}: the gradient launched {grad_launches}")
+        if not all(np.isfinite(v) for v in (value, ggx, ggk)):
+            raise AssertionError(f"{name}: value {value}, gradient {(ggx, ggk)}")
+        med = float(np.median(times))
+        # the same gradient at float64, full width: how far float32 rounding
+        # moves it (reported, not held: the model's own conditioning)
+        sim64 = land_grad_sim(tp, LAND_CELLS, torch.float64, name)
+        value64, gx64, gk64 = land_grad_value(tp, sim64, name)
+        del sim64
+        final = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_STEPS, **fkw)
+        entry = cuda_build._entry_name("land_column_segment_vjp", lv.check_scheme(
+            params, key, solver) + params.tags, torch.float32, LAND_NZ)
+        land_grads[name] = dict(launches=grad_launches["land_column_segment_vjp"],
+                                max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
+                                bound_ms=b[0], bound_by=b[1], entry=entry)
+        phase(name, cells=LAND_CELLS, nz=LAND_NZ, dt=dt, steps=GRAD_STEPS,
+              inner_steps=GRAD_INNER, stepper=key, solver=solver, seconds_median=med,
+              seconds=times, launches=grad_launches, cells_steps_per_s=LAND_CELLS * GRAD_STEPS / med,
+              loss=value, dloss_dlog_K_sat=ggx, dloss_dk_mineral=ggk, f64_loss=value64,
+              f64_dloss_dlog_K_sat=gx64, f64_dloss_dk_mineral=gk64, vjp_segment_ms=k_ms,
+              fwd_segment_ms=f_ms, plain_vjp_ms=p_ms, plain_cells=LAND_GRAD_CHUNK,
+              bound_ms=b[0], bound_by=b[1], ops_per_column_step=v_ops,
+              branch_runs_per_column_step=runs,
+              ptxas=ptxas_all["land_column_segment_vjp"].get(entry, {}).get("vjp"),
+              f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
+              f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
+              fd_steps=steps_fd, fd_h=LAND_FD_H, fd_rtol=LAND_FD_RTOL,
+              f64_kernel_grad=[gx, gk], central_difference=fd, fd_rel_err=fd_rel,
+              dlog_K_sat_at_gradient_steps_adjoint_and_by_h=fd_report,
+              f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
+              f32_max_err_over_magnitude=f32_rel, f32_flip_columns=flips,
+              outside_unit_share_at_end=float(outside_unit(final).float().mean()), card=card)
+        del gsim, carry, gout, final
+
     # ---- one full step (make_fused_step): the kernel against the plain
     # version (the module step) on every leaf, float64 along the plain
     # trajectory and float32 at full width, each stepper and physics
@@ -2255,7 +2682,15 @@ def main():
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
         **{k: v for k, v in sc.items() if k != "entry"}, "library_ms": None,
         "shape": f"{GRAD_CELLS} x {BENCH_NZ} f32, {GRAD_INNER} steps, {sc['entry']}; "
-                 f"plain_ms at {GRAD_SCHEME_CHUNK} columns"} for name, sc in schemes.items()), {
+                 f"plain_ms at {GRAD_SCHEME_CHUNK} columns"} for name, sc in schemes.items()), *({
+        "name": f"land_column_segment_vjp[{name}]", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/land_column_segment_vjp.cu",
+        "replaces": "terrarium_tpu/ops/fused_vjp.py:68 traced over a LandModel step "
+                    "(terrarium_tpu/models/land_model.py:55)",
+        **{k: v for k, v in lg.items() if k != "entry"}, "library_ms": None,
+        "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent with static inputs, dt "
+                 f"{LAND_GRAD_SCHEMES[name][2]:g}, {GRAD_INNER} steps, {lg['entry']}; plain_ms "
+                 f"at {LAND_GRAD_CHUNK} columns"} for name, lg in land_grads.items()), {
         "name": "land_column_rollout", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/land_column_rollout.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283 traced over a LandModel step "
@@ -2318,7 +2753,9 @@ def euler_digest(root: pathlib.Path):
         return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)).hexdigest()
 
     t0 = time.perf_counter()
-    cuda_build.build("soil_column_rollout", "soil_column_segment_vjp", "land_column_rollout")
+    land_vjp = "land_column_segment_vjp" in cuda_build.INSTANTIATIONS
+    cuda_build.build("soil_column_rollout", "soil_column_segment_vjp", "land_column_rollout",
+                     *(("land_column_segment_vjp",) if land_vjp else ()))
     build_s = time.perf_counter() - t0
     digests = {}
     for case, sim, steps in (("golden_f64_nz20", golden_sim(tp), 120),
@@ -2398,6 +2835,18 @@ def euler_digest(root: pathlib.Path):
                          float(sim.state.clock.time), COMPARE_STEPS)
             digests[f"{vname}_f32_nz20"] = digest([out[k] for k in sorted(out)])
             del sim, carry, inputs, out
+    if land_vjp:  # the land segment VJP of each scheme
+        from terrarium_tpu_torch.ops import land_vjp as lv
+
+        for name, (key, solver, dt) in LAND_GRAD_SCHEMES.items():
+            gsim = land_grad_sim(tp, LAND_CELLS, torch.float32, name)
+            ops = land_grad_operands(ls, land_inputs, gsim, seed=11)
+            gin, gK, gskm = lv.land_column_segment_vjp(*ops[:3], *ops[3], ops[4], dt, 0.0,
+                                                       GRAD_INNER, ops[5], stepper=key,
+                                                       solver=solver)
+            digests[f"land_vjp_{name}_f32_nz20"] = digest([gin[k] for k in sorted(gin)]
+                                                          + [gK, gskm])
+            del gsim, ops, gin
     sim = bench_sim(tp)
     sim.run(steps=COMPARE_STEPS)
     torch.cuda.synchronize()

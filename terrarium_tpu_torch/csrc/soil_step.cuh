@@ -666,17 +666,25 @@ SOIL_FN void min_adjoint(T a, T b, T g, T& ga, T& gb) {
 
 // cotangents of (sat, U) of one level from those of its temperature,
 // conductivity and centre hydraulic conductivity (WITH_K) and, WITH_C, of
-// its heat capacity beyond the temperature's (the implicit rows' dT/dU);
-// the parameter cotangents (K_sat, sk_mineral) are accumulated
-template <typename T, bool WITH_K = true, bool WITH_C = false>
+// its heat capacity beyond the temperature's (the implicit rows' dT/dU) and,
+// WITH_X, of its water, ice and air fractions beyond those (gwx, gix, gax:
+// what the land step reads of them); the parameter cotangents (K_sat,
+// sk_mineral) are accumulated
+template <typename T, bool WITH_K = true, bool WITH_C = false, bool WITH_X = false>
 SOIL_FN void level_adjoint(const Level<T, WITH_K>& v, const T sk, const T Uk, const T gT,
                            const T gkap, const T gKc, const T gCx, const Consts<T>& c,
-                           const SoilColumnParams& P, T& gs, T& gU, T& gKsat, T& gskm)
+                           const SoilColumnParams& P, T& gs, T& gU, T& gKsat, T& gskm,
+                           const T gwx = T(0), const T gix = T(0), const T gax = T(0))
 {
     // kap = acc * acc; acc = sum of sqrt(k_i) * fractions + sk_mineral + ...
     const T gacc = gkap * v.acc + gkap * v.acc;
     gskm += gacc;
     T gwater = c.sk_water * gacc, gice = c.sk_ice * gacc, gair = c.sk_air * gacc;
+    if constexpr (WITH_X) {
+        gwater += gwx;
+        gice += gix;
+        gair += gax;
+    }
     T gliq = T(0), gLt = T(0);
 
     if constexpr (WITH_K) {

@@ -74,6 +74,14 @@ INSTANTIATIONS = {
         *((("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), dtype, 20)
           for dtype in (_F32, _F64)),
     ],
+    # the LandModel's segment VJP over the vegetated bench composition
+    # (Richards over Brooks-Corey and linear conductivity) at Nz 20:
+    # ForwardEuler and ImplicitEuler (each solver)
+    "land_column_segment_vjp": [
+        ((*stepper, "veg", "richards", "bc", "linear"), dtype, 20)
+        for stepper in ((), ("implicit", "thomas"), ("implicit", "pcr"))
+        for dtype in (_F32, _F64)
+    ],
 }
 _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "implicit": ("SOIL_STEPPER=2",), "thomas": ("SOIL_SOLVER=0",),
@@ -82,10 +90,12 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "veg": ("LAND_VEG=1",), "vg": ("LAND_CURVE=0",), "bc": ("LAND_CURVE=1",),
             "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",)}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
-#: ones: the land kernel's float64 instantiations, which serve the checks
-#: against the plain version at 1e-12, contract no multiply-adds (torch's
-#: elementwise ops do not), while its float32 ones, the timed path, do
-FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)}}
+#: ones: the land kernels' float64 instantiations, which serve the checks
+#: against the plain version at 1e-12 (the VJP's at 1e-9), contract no
+#: multiply-adds (torch's elementwise ops do not), while their float32
+#: ones, the timed path, do
+FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
+         "land_column_segment_vjp": {_F64: ("-fmad=false",)}}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

@@ -103,14 +103,17 @@ def pool_drainage(S, runoff=None):
     """The surface-pool tendency ``sign * min(dS/dt, S)`` (reference
     `soil_hydrology.jl:260-283`): ``dS/dt`` the runoff scheme's drainage,
     ``sign`` -1 under its consistent drainage and +1 (the reference's)
-    otherwise. Without a runoff scheme it is ``min(0, S)``, whose derivative
-    is 0 at ``S == 0``: an empty pool neither drains nor grows, so the pool
-    carries its cotangent unchanged (the JAX package's ``jnp.minimum``
-    splits it 0.5/0.5 there)."""
+    otherwise. Without a runoff scheme it is ``min(0, S)``. Either way the
+    derivative is 0 at ``S == 0``: an empty pool neither drains nor grows, so
+    the pool carries its cotangent unchanged (the JAX package's
+    ``jnp.minimum`` splits it 0.5/0.5 there, and so would ``torch.minimum``,
+    which at the runoff form's tie makes each explicit step multiply the
+    pool's cotangent by ``1 -/+ dt (1 + 1/tau_r) / 2``: 29 at dt 60 s)."""
     if runoff is None:
         return torch.where(S < 0.0, S, 0.0)
     sign = -1.0 if runoff.consistent_drainage else 1.0
-    return sign * torch.minimum(runoff.surface_drainage(S), S)
+    return sign * torch.where(S == 0.0, S * 0.0,
+                              torch.minimum(runoff.surface_drainage(S), S))
 
 
 @dataclasses.dataclass(frozen=True)

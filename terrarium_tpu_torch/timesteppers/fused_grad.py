@@ -5,26 +5,33 @@
 closure-rotated steps in segments of ``inner_steps``, then one trailing
 ``closure``, differentiable with torch autograd in the initial state and in
 ``params``. The schemes it takes, chosen by type the same way on the CPU
-and on the card: ForwardEuler, Heun or ImplicitEuler (one Picard iteration,
-Thomas or PCR) over heat + Richards flow, and ForwardEuler over the
-heat-only model. Each segment is a :class:`torch.autograd.Function`:
+and on the card: for a :class:`SoilModel`, ForwardEuler, Heun or
+ImplicitEuler (one Picard iteration, Thomas or PCR) over heat + Richards
+flow, and ForwardEuler over the heat-only model; for a :class:`LandModel`
+without a snowpack (any composition the land kernel runs, with static
+inputs), ForwardEuler or ImplicitEuler (one Picard iteration, Thomas or
+PCR). Each segment is a :class:`torch.autograd.Function`:
 
-* forward: the scheme's rollout wrapper of
-  :data:`~terrarium_tpu_torch.ops.fused_step.ROLLOUTS` (the CUDA column
-  kernel on the card, its plain version on the CPU); the segment's input
+* forward: the scheme's rollout wrapper, soil
+  (:data:`~terrarium_tpu_torch.ops.fused_step.ROLLOUTS`) or land
+  (:data:`~terrarium_tpu_torch.ops.land_step.ROLLOUTS`): the CUDA column
+  kernel on the card, its plain version on the CPU; the segment's input
   carry is saved, which is the whole checkpoint;
 * backward: :func:`~terrarium_tpu_torch.ops.fused_vjp.soil_column_segment_vjp`
-  of the same scheme (the CUDA segment-VJP kernel on the card), which
-  recomputes the segment's steps from that carry and sweeps back through
+  or :func:`~terrarium_tpu_torch.ops.land_vjp.land_column_segment_vjp` of
+  the same scheme (the CUDA segment-VJP kernels on the card), which
+  recompute the segment's steps from that carry and sweep back through
   them.
 
 The parameters that reach the kernels as numbers, ``K_sat`` and the mineral
 conductivity (as ``sk_mineral``), enter each segment as 0-d tensors, and
 their cotangents from the VJP are chained to the caller's tensors by torch;
 a model whose other soil parameters require grad is refused. The clock is
-not differentiated. For the heat-only model the carry is the internal
+not differentiated. For the heat-only soil the carry is the internal
 energy; the saturation it reads enters every segment, which returns its
-cotangent.
+cotangent. For the LandModel the carry is the model's live carry (under
+``NoFlow`` with the saturation it reads) and the inputs are the static
+values the state holds.
 
 The JAX package's ``bwd="xla"``, ``bwd_chunk`` and ``bwd_remat`` options are
 memory schedules of its XLA backward and have no counterpart here; the XLA
@@ -37,12 +44,15 @@ from typing import Callable
 
 import torch
 
-from ..models.land_model import LandModel
+from ..models.land_model import LandModel, coupling_bcs
+from ..ops import land_step
 from ..ops.bcs import InputRef, bc_call_arity
 from ..ops.fused_step import (ROLLOUTS, STEPPERS, ColumnParams, clock_times, kernel_physics,
                               top_temperature_table, top_temperature_value)
 from ..ops.fused_vjp import soil_column_segment_vjp
+from ..ops.land_vjp import check_scheme, land_column_segment_vjp, mineral_fraction
 from ..state import reset_tendencies
+from .integrator import _coords, land_inputs
 
 __all__ = ["make_fused_grad_rollout"]
 
@@ -79,6 +89,53 @@ class _Segment(torch.autograd.Function):
         return gU0, gsat0, gS0, gK.to(f64), gskm.to(f64), None, None, None, None, None
 
 
+class _LandSegment(torch.autograd.Function):
+    """One segment of fused LandModel steps: ``spec.steps`` steps of
+    ``spec.stepper`` (``spec.solver``) of the carry (the tensors of
+    ``spec.names``, :func:`~terrarium_tpu_torch.ops.land_step.carry_names`),
+    returning the model's live carry; differentiable in the carry,
+    ``K_sat`` and ``sk_mineral`` (0-d tensors whose values ``spec.params``
+    holds). The inputs and the root fraction are static and not
+    differentiated."""
+
+    @staticmethod
+    def forward(ctx, K_sat, sk_mineral, spec, *carry):
+        ctx.save_for_backward(*carry)
+        ctx.spec = spec
+        kw = {"solver": spec.solver} if spec.stepper == "implicit" else {}
+        out = land_step.ROLLOUTS[spec.stepper](dict(zip(spec.names, carry)), spec.inputs,
+                                               spec.root, *spec.coords, spec.params, spec.dt,
+                                               spec.time, spec.steps, **kw)
+        return tuple(out[n] for n in spec.params.model.live_carry)
+
+    @staticmethod
+    def backward(ctx, *gout):
+        carry, spec = ctx.saved_tensors, ctx.spec
+        g = {n: torch.zeros_like(c) if gi is None else gi.contiguous()
+             for n, gi, c in zip(spec.params.model.live_carry, gout, carry)}
+        gin, gK, gskm = land_column_segment_vjp(
+            dict(zip(spec.names, carry)), spec.inputs, spec.root, *spec.coords, spec.params,
+            spec.dt, spec.time, spec.steps, g, stepper=spec.stepper, solver=spec.solver)
+        f64 = torch.float64
+        return (gK.to(f64), gskm.to(f64), None, *(gin[n] for n in spec.names))
+
+
+@dataclasses.dataclass(frozen=True)
+class _LandSpec:
+    """What a land segment runs besides its carry and parameters."""
+
+    names: tuple
+    inputs: dict
+    root: object
+    coords: tuple
+    params: object
+    dt: float
+    time: float
+    steps: int
+    stepper: str
+    solver: object
+
+
 def _grad_leaves(obj, path):
     """``(path, tensor)`` of each tensor that requires grad in a tree of
     dataclasses, tuples, lists and dicts."""
@@ -110,20 +167,18 @@ def _param_tensors(model, device):
                          f"sat_hydraulic_cond and mineral conductivity only, not {other}; "
                          f"timesteppers/autodiff.make_rollout_fn differentiates every "
                          f"parameter")
-    por = soil.strat.bulk_porosity(soil.biogeochem)
-    mineral_frac = (1.0 - por) * (1.0 - soil.strat.organic_fraction(soil.biogeochem))
     K, k_min = (x.to(device=device, dtype=torch.float64) if isinstance(x, torch.Tensor)
                 else torch.tensor(float(x), dtype=torch.float64, device=device)
                 for x in (K, k_min))
-    return K, torch.sqrt(k_min) * mineral_frac
+    return K, torch.sqrt(k_min) * mineral_fraction(soil)
 
 
 def _model_scheme(model, stepper: str, solver: str) -> tuple:
-    """``(stepper, physics, solver)`` of the segments for ``model``; raises
-    ``ValueError`` naming the ROADMAP item for a model no segment VJP takes."""
+    """``(stepper, physics, solver)`` of the segments for ``model``
+    (``physics`` ``"land"`` for a LandModel); raises ``ValueError`` naming
+    the ROADMAP item for a model no segment VJP takes."""
     if isinstance(model, LandModel):
-        raise ValueError("the fused gradient rollout of the LandModel is still to port "
-                         f"(ROADMAP Queue B #1); {_AUTODIFF}")
+        return stepper, "land", solver
     physics = kernel_physics(model)
     if physics == "heat" and stepper != "euler":
         raise ValueError(f"the fused gradient rollout runs the heat-only model (NoFlow) with "
@@ -140,21 +195,27 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
 
     Args:
         model_fn: ``params -> model``, a :class:`SoilModel` that the rollout
-            kernels run (heat + Richards, or heat only with ForwardEuler),
-            whose ``sat_hydraulic_cond`` and mineral conductivity may be 0-d
-            tensors built from ``params``; no other soil parameter may
-            require grad.
-        timestepper: :class:`ForwardEuler`, :class:`Heun` or
-            :class:`ImplicitEuler` with ``picard_iters=1`` (Thomas or PCR).
-        ctx: the simulation's context; its only BC is a Dirichlet top
-            temperature given as a value or as ``f(t)``.
+            kernels run (heat + Richards, or heat only with ForwardEuler) or
+            a :class:`LandModel` without a snowpack that the land kernel
+            runs, whose soil's ``sat_hydraulic_cond`` and mineral
+            conductivity may be 0-d tensors built from ``params``; no other
+            soil parameter may require grad.
+        timestepper: :class:`ForwardEuler`, :class:`Heun` (SoilModel only)
+            or :class:`ImplicitEuler` with ``picard_iters=1`` (Thomas or
+            PCR).
+        ctx: the simulation's context: for a SoilModel its only BC is a
+            Dirichlet top temperature given as a value or as ``f(t)``; for
+            a LandModel it is the model's coupling context (``sim.ctx``).
+        input_sources: static sources only (``FieldInputSource``); a
+            LandModel reads its inputs as the state holds them.
         steps: total rollout length, a multiple of ``inner_steps``.
         inner_steps: steps of one segment (the checkpoint interval).
 
     Raises ``ValueError`` for anything else, naming the ROADMAP item that
     ports it where one does: another stepper, ImplicitEuler with
     ``picard_iters > 1`` or Heun or ImplicitEuler over the heat-only model
-    (Queue B #2), a LandModel (Queue B #1), time-varying sources or
+    (Queue B #2), Heun over a LandModel or a LandModel with a snowpack
+    (Queue B #1), time-varying sources (Queue B #1, not to port) or
     forcings, an input variable as the top temperature.
     """
     if steps % inner_steps != 0:
@@ -168,24 +229,46 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         raise ValueError(f"the fused gradient rollout runs ImplicitEuler with one Picard "
                          f"iteration; picard_iters={timestepper.picard_iters} in the forward "
                          f"and the VJP is still to port (ROADMAP Queue B #2); {_AUTODIFF}")
-    if getattr(ctx, "extras", None) is not None:  # the LandModel's coupling context
-        raise ValueError("the fused gradient rollout of the LandModel is still to port "
-                         f"(ROADMAP Queue B #1); {_AUTODIFF}")
     for src in input_sources:
         if hasattr(src, "times"):
-            raise ValueError("make_fused_grad_rollout supports static input sources only")
+            raise ValueError("make_fused_grad_rollout supports static input sources only, as "
+                             "JAX's does (a series variant: ROADMAP Queue B #1, not to port)")
     if getattr(ctx, "forcings", None):
         raise ValueError("the fused gradient rollout takes no forcings; "
                          "timesteppers/autodiff.make_rollout_fn differentiates them")
-    value = top_temperature_value(ctx.bcs)
-    if isinstance(value, (str, InputRef)) or (callable(value) and bc_call_arity(value) >= 2):
-        raise ValueError("the fused gradient rollout takes a top temperature given as a "
-                         "value or as f(t)")
+    land = getattr(ctx, "extras", None) is not None  # the LandModel's coupling context
+    value = None  # the soil's top temperature
+    if land:
+        if (ctx.bcs or {}) != coupling_bcs():
+            raise ValueError("the fused gradient rollout of the LandModel takes its coupling "
+                             f"BCs only; {_AUTODIFF}")
+    else:
+        value = top_temperature_value(ctx.bcs)
+        if isinstance(value, (str, InputRef)) or (callable(value)
+                                                  and bc_call_arity(value) >= 2):
+            raise ValueError("the fused gradient rollout takes a top temperature given as a "
+                             "value or as f(t)")
     heun = stepper == "heun"
 
-    def rollout(state, params):
-        model = model_fn(params)
-        scheme = _model_scheme(model, stepper, solver)
+    def land_carry(model, state, times):
+        """The live carry after the land segments, as a dict."""
+        grid = model.grid
+        params = land_step.LandParams.of(model, grid.dtype)
+        check_scheme(params, stepper, solver)  # Heun or a snowpack: ROADMAP Queue B #1
+        K, skm = _param_tensors(model, grid.device)
+        names = land_step.carry_names(params)
+        live = model.live_carry
+        root = state.auxiliary["root_fraction"] if model.vegetation is not None else None
+        inputs = land_inputs(model, state, input_sources)
+        carry = tuple(state[n].contiguous() for n in names)
+        for i in range(0, steps, inner_steps):
+            spec = _LandSpec(names, inputs, root, _coords(grid), params, dt, float(times[i]),
+                             inner_steps, stepper, solver if stepper == "implicit" else None)
+            carry = _LandSegment.apply(K, skm, spec, *carry) + carry[len(live):]
+        return dict(zip(live, carry))
+
+    def soil_carry(model, state, times, scheme):
+        """The live carry after the soil segments, as a dict."""
         heat = scheme[1] == "heat"
         grid = model.grid
         cparams = ColumnParams.of(model, grid.dtype)
@@ -197,7 +280,6 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
             U, sat, S = state.prognostic["internal_energy"], state["saturation_water_ice"], None
         else:
             U, sat, S = (state.prognostic[n] for n in model.live_carry)
-        times = clock_times(state.clock.time, dt, steps)
         for i in range(0, steps, inner_steps):
             # Heun's stage of the segment's last step reads one more row
             table = top_temperature_table(value, times[i:i + inner_steps + heun], grid)
@@ -206,12 +288,22 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
                 U = out
             else:
                 U, sat, S = out
-        out = state.copy()
         if heat:
-            out.set(internal_energy=U)
-        else:
-            out.set(internal_energy=U, saturation_water_ice=sat, surface_excess_water=S)
-        out.clock.time = torch.as_tensor(times[-1], device=grid.device)
+            return {"internal_energy": U}
+        return {"internal_energy": U, "saturation_water_ice": sat, "surface_excess_water": S}
+
+    def rollout(state, params):
+        model = model_fn(params)
+        scheme = _model_scheme(model, stepper, solver)
+        if (scheme[1] == "land") != land:
+            raise ValueError("the context is the LandModel's coupling context only for a "
+                             "LandModel")
+        times = clock_times(state.clock.time, dt, steps)
+        fields = (land_carry(model, state, times) if land
+                  else soil_carry(model, state, times, scheme))
+        out = state.copy()
+        out.set(**fields)
+        out.clock.time = torch.as_tensor(times[-1], device=model.grid.device)
         out.clock.iteration = out.clock.iteration + steps
         reset_tendencies(out)
         # trailing closure: rebuilds the closure variables from the carry

@@ -281,8 +281,9 @@ def test_segment_vjp_refuses_the_schemes_it_does_not_run():
 
 def test_fused_grad_refuses_what_it_does_not_differentiate():
     """Heun or ImplicitEuler over the heat-only model and picard_iters=2
-    (ROADMAP Queue B #2), a LandModel (Queue B #1): each a ValueError naming
-    its queue item."""
+    (ROADMAP Queue B #2), Heun over a LandModel (Queue B #1): each a
+    ValueError naming its queue item; a LandModel under a soil's context, a
+    ValueError naming the coupling context."""
     for case in ("heun", "implicit-pcr"):
         sim = _port_sim("heat")
         grid = sim.model.grid
@@ -296,17 +297,18 @@ def test_fused_grad_refuses_what_it_does_not_differentiate():
         make_fused_grad_rollout(lambda p: sim.model, sim.timestepper, sim.ctx, steps=4,
                                 dt=1800.0, inner_steps=2)
     grid = sim.model.grid
-    land = tp.initialize(tp.LandModel(grid=grid), tp.ForwardEuler(),
+    land = tp.initialize(tp.LandModel(grid=grid), tp.Heun(),
                          initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
                          input_sources=(tp.FieldInputSource(fields={
                              "surface_shortwave_down": 400.0, "air_temperature": 12.0}),))
-    with pytest.raises(ValueError, match="Queue B #1"):
-        make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
-                                dt=300.0, inner_steps=2)
-    soil_ctx = _port_sim("heun").ctx  # a LandModel from model_fn under a soil context
-    roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, soil_ctx, steps=4,
+    roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
                                    dt=300.0, inner_steps=2)
     with pytest.raises(ValueError, match="Queue B #1"):
+        roll(land.state, None)
+    soil_ctx = _port_sim("heun").ctx  # a LandModel from model_fn under a soil context
+    roll = make_fused_grad_rollout(lambda p: land.model, tp.ForwardEuler(), soil_ctx, steps=4,
+                                   dt=300.0, inner_steps=2)
+    with pytest.raises(ValueError, match="coupling context"):
         roll(land.state, None)
 
 

@@ -938,3 +938,108 @@ def test_run_with_forcings_runs_through_the_modules_on_the_card(cuda):
     _runs_through_the_modules(lambda device: _full_sim(
         96, 20, torch.float64, device,
         forcings={"internal_energy": lambda state, grid: 2.0}), 6)
+
+
+#: the land segment VJP's schemes: (stepper, solver, dt)
+LAND_VJP_SCHEMES = {"euler": ("euler", None, 60.0), "implicit-pcr": ("implicit", "pcr", 600.0),
+                    "implicit-thomas": ("implicit", "thomas", 600.0)}
+
+
+def _land_grad_sim(cells, dtype, device, scheme):
+    """``_land_sim``'s vegetated composition with its forcing's daily means
+    as static per-column inputs (the fused gradient takes static inputs):
+    shortwave 900 cos(lat) / pi, air temperature 28 max(cos lat, 0.05) - 8;
+    the scheme's stepper."""
+    key, solver, dt = LAND_VJP_SCHEMES[scheme]
+    stepper = tp.ImplicitEuler(dt=dt, solver=solver) if key == "implicit" else tp.ForwardEuler(dt=dt)
+    base = _land_sim(cells, dtype, device, stepper=stepper)
+    lat = np.linspace(-60.0, 80.0, cells)
+    coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
+    fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0,
+              "surface_shortwave_down": 900.0 * coslat / np.pi,
+              "air_temperature": 28.0 * coslat - 8.0}
+    return tp.initialize(
+        base.model, stepper, (tp.FieldInputSource(fields=fields),),
+        initializers={"temperature": lambda x, z: (28.0 * coslat - 8.0)[None, :] + 0.0 * z,
+                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+                      "vegetation_area_fraction": 0.5})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", LAND_VJP_SCHEMES)
+def test_land_segment_vjp_kernel_matches_plain(cuda, scheme):
+    """The land segment-VJP kernel (csrc/land_column_segment_vjp.cu) at
+    float64 on 256 columns over 12 steps from seeded output cotangents:
+    every cotangent within 1e-9 of the plain version's autograd (with a
+    floor of 1e-9 of its largest magnitude), the parameter cotangents within
+    1e-9; one launch."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    key, solver, dt = LAND_VJP_SCHEMES[scheme]
+    sim = _land_grad_sim(256, torch.float64, cuda, scheme)
+    model, st = sim.model, sim.state
+    params = ls.LandParams.of(model, torch.float64)
+    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
+    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    inputs = land_inputs(model, st, sim.input_sources)
+    root = st.auxiliary["root_fraction"]
+    rng = np.random.default_rng(3)
+    gout = {n: torch.as_tensor(rng.normal(size=tuple(carry[n].shape)), device=cuda)
+            for n in model.live_carry}
+    before = lv.land_column_segment_vjp.launches
+    got, gK, gskm = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0,
+                                               12, gout, stepper=key, solver=solver)
+    assert lv.land_column_segment_vjp.launches == before + 1
+    ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params, dt,
+                                                     0.0, 12, gout, stepper=key, solver=solver)
+    for n in carry:
+        a, b = got[n], ref[n]
+        assert bool(torch.isfinite(a).all()), n
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9 * float(b.abs().max()), msg=n)
+    for a, b in ((gK, rK), (gskm, rskm)):
+        assert float(b) != 0.0
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", LAND_VJP_SCHEMES)
+def test_land_fused_grad_runs_the_land_kernels(cuda, scheme):
+    """``make_fused_grad_rollout`` over the LandModel at float64 on 256
+    columns, 8 steps in segments of 4: two launches of the land forward
+    kernel and two of the segment-VJP kernel, and the gradient in (log
+    K_sat, k_mineral) within 1e-8 of ``make_rollout_fn``'s autograd through
+    the process modules."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    from terrarium_tpu_torch.timesteppers.autodiff import make_rollout_fn
+
+    key, _, dt = LAND_VJP_SCHEMES[scheme]
+    sim = _land_grad_sim(256, torch.float64, cuda, scheme)
+    base = sim.model
+
+    def model_fn(p):
+        return dataclasses.replace(base, soil=with_differentiable_params(
+            base.soil, log_sat_hydraulic_cond=p[0], mineral_conductivity=p[1]))
+
+    def grads(fused):
+        p = tuple(torch.tensor(v, dtype=torch.float64, device=cuda, requires_grad=True)
+                  for v in (np.log(1e-5), 2.0))
+        if fused:
+            out = make_fused_grad_rollout(model_fn, sim.timestepper, sim.ctx, sim.input_sources,
+                                          steps=8, dt=dt, inner_steps=4)(sim.state, p)
+        else:
+            out = make_rollout_fn(model_fn(p), sim.timestepper, sim.ctx, sim.input_sources,
+                                  steps=8, remat=True)(sim.state, dt)
+        loss = out.temperature.mean() + out.prognostic["carbon_vegetation"].mean()
+        return [float(g) for g in torch.autograd.grad(loss, p)]
+
+    fwd = ls.ROLLOUTS[key]
+    before = (fwd.launches, lv.land_column_segment_vjp.launches)
+    got = grads(True)
+    assert (fwd.launches - before[0], lv.land_column_segment_vjp.launches - before[1]) == (2, 2)
+    ref = grads(False)
+    np.testing.assert_allclose(got, ref, rtol=1e-8)
+    assert all(g != 0.0 for g in got)
