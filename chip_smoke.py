@@ -1,11 +1,13 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
-column rollouts, ForwardEuler and Heun, heat + Richards and heat only,
-ImplicitEuler with Thomas or PCR solves, the segment VJP of each of these
-but Heun over heat only, the land rollout and the full step; one ``nvcc``
-per instantiation, all in parallel) and drives the port's paths, each with
-the kernel launch counts set to 0 just before it and read just after:
+column rollouts, ForwardEuler, Heun and ImplicitEuler with Thomas or PCR
+solves and any number of Picard iterations, heat + Richards and heat only,
+the segment VJP of each of these, the land rollout and its VJP and the full
+step; one ``nvcc`` per instantiation, in parallel: the rollout source first,
+then the others in a background thread while the forward phases run) and
+drives the port's paths, each with the kernel launch counts set to 0 just
+before it and read just after:
 
 * the forward main path (``initialize`` / ``Simulation.run``) at the bench
   size, 56,951 columns, Nz 30, float32, dt 60 s, after checking the rollout
@@ -28,6 +30,18 @@ the kernel launch counts set to 0 just before it and read just after:
   after the ``implicit_freeze`` golden (float64, Nz 16, through the kernel
   with either solver, with the water identity) and the implicit kernel
   against its plain version at full width;
+* this slice's forward paths at 56,951 columns, Nz 30, float32, each kernel
+  first held to its plain version one step at a time along the plain
+  trajectory (float64 on 1,024 columns at Nz 16, float32 at full width with
+  a float64 referee for the cells that cross the freeze plateau's edge or
+  saturation on one side of an ulp), timed, then one ``Simulation.run``
+  block: ``heat_heun_n145`` (``global_heat_n72_forcing``'s heat-only model
+  and hourly series, Heun at dt 300 s, 2,880 steps),
+  ``heat_implicit_<solver>_n145`` (the same by ImplicitEuler at dt 3,600 s,
+  720 steps, with the share of columns on the freeze plateau) and
+  ``picard2_implicit_<solver>_n145`` (``column_implicit_tridiag`` by
+  ImplicitEuler with two Picard iterations at dt 900 s, 1,920 steps, with
+  the water identity);
 * the LandModel path (``initialize`` / ``Simulation.run`` through the land
   column kernel): the ``land_model`` golden (float64, Nz 15, bare ground
   over heat only, through the kernel), the kernel against its plain version
@@ -75,7 +89,11 @@ the kernel launch counts set to 0 just before it and read just after:
   900 s), all in log K_sat as above, and ``grad_n145_heat``
   (`bench_configs.py:270-308`: the heat-only model, d mean(T) / d
   k_mineral, ForwardEuler at dt 300 s), also timed through the port's
-  ``make_rollout_fn(remat=True)``.
+  ``make_rollout_fn(remat=True)``; and this slice's: ``grad_n145_heat_heun``
+  (Heun at dt 300 s) and ``grad_n145_heat_implicit_<solver>`` (ImplicitEuler
+  at dt 3,600 s) in k_mineral as ``grad_n145_heat``, and
+  ``grad_implicit_picard2_<solver>`` (two Picard iterations at dt 900 s) in
+  log K_sat, each also held at float64 to central differences of its loss.
 
 Run from the repository root:
 
@@ -106,6 +124,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -131,6 +150,19 @@ IMPLICIT_DT, IMPLICIT_BLOCK_STEPS, SOLVERS = 900.0, 1920, ("pcr", "thomas")
 # about 1e-5 if every rounding went one way; a dropped flux term or a wrong
 # boundary row moves W by orders more
 IMPLICIT_F32_WATER_TOL = 1e-5
+# this slice's forward paths at full width: global_heat_n72_forcing's model
+# and series (heat_sim) by Heun at dt 300 s, one 2,880-step block
+# (heat_heun_n145), and by ImplicitEuler at dt 3,600 s with each solver, one
+# 720-step block (heat_implicit_<solver>_n145); column_implicit_tridiag
+# (implicit_sim) by ImplicitEuler with two Picard iterations at dt 900 s, one
+# 1,920-step block (picard2_implicit_<solver>_n145). Each kernel is first held
+# to its plain version one step at a time along the plain trajectory
+# (soil_teacher) over COMPARE_STEPS steps: float64 on HEAT_F64_CELLS columns
+# at Nz NEW_F64_NZ, float32 at full width
+HEAT_HEUN_DT, HEAT_HEUN_BLOCK_STEPS = 300.0, 2880
+HEAT_IMPLICIT_DT, HEAT_IMPLICIT_BLOCK_STEPS = 3600.0, 720
+PICARD_ITERS, PICARD_BLOCK_STEPS = 2, 1920
+NEW_F64_NZ = 16
 # float32 kernel vs plain after COMPARE_STEPS steps, relative to each field's
 # largest magnitude: the kernel contracts a*b + c into FMAs and takes cbrt
 # where the plain version takes pow(x, 1/3), so the two differ by ulps per
@@ -142,6 +174,14 @@ F32_REL_TOL = 1e-4
 # gradient path: grad_n145_heat_richards (bench_configs.py:311-411)
 GRAD_CELLS, GRAD_NZ, GRAD_DT, GRAD_STEPS, GRAD_INNER = 56951, 20, 300.0, 288, 48
 GRAD_COMPARE_CELLS, GRAD_REF_CELLS, FD_H = 1024, 64, 0.02
+# the central differences of this slice's gradient schemes: the steps in
+# the parameter (log K_sat, or k_mineral = 3.8 W/m/K), each reported; the
+# gradient is held to the closest. The loss has kinks where a layer's
+# energy crosses the freeze plateau's edge at some step (the temperature is
+# piecewise linear in it), and a difference that spans one errs by O(h):
+# over 288 heat-only Heun steps at h 0.02 and 0.005 the differences were
+# 0.86% and 0.30% from the adjoint on an H100, shrinking with h
+FD_HS = (1e-2, 1e-3, 1e-4)
 LOG_KSAT = float(np.log(1e-5))
 # float32 segment-VJP kernel vs the plain version's autograd over one
 # 48-step segment, relative to each cotangent's largest magnitude. The
@@ -265,6 +305,14 @@ H100_FP32_OPS, H100_HBM_BYTES = 67e12, 3.35e12  # published peaks, SXM, 700 W
 # grad_n145_heat is bench_configs.py:270-308 (the heat-only default model, T
 # = -1 degC, sat 0.8, top 4 degC, d mean(T) / d k_mineral) at dt 300 s and Nz
 # 30 (the heat kernel's instantiation) instead of 20
+#
+# This slice's schemes (``fd``: the float64 gradient also held to central
+# differences, at GRAD_REF_CELLS columns and the float64 Nz): the heat-only
+# model by Heun at dt 300 s (grad_n145_heat_heun) and by ImplicitEuler at dt
+# 3,600 s with each solver (grad_n145_heat_implicit_<solver>), d mean(T) /
+# d k_mineral as grad_n145_heat; heat + Richards by ImplicitEuler with two
+# Picard iterations at dt 900 s (grad_implicit_picard2_<solver>), mean(T) +
+# mean(sat) in log K_sat as grad_implicit_n145
 GRAD_SCHEMES = {
     "grad_heun_n145": dict(stepper="heun", solver="pcr", physics="richards", dt=60.0, f64_nz=15),
     "grad_implicit_n145_pcr": dict(stepper="implicit", solver="pcr", physics="richards",
@@ -272,6 +320,13 @@ GRAD_SCHEMES = {
     "grad_implicit_n145_thomas": dict(stepper="implicit", solver="thomas", physics="richards",
                                       dt=900.0, f64_nz=16),
     "grad_n145_heat": dict(stepper="euler", solver="pcr", physics="heat", dt=300.0, f64_nz=30),
+    "grad_n145_heat_heun": dict(stepper="heun", solver="pcr", physics="heat", dt=300.0,
+                                f64_nz=16, fd=True),
+    **{f"grad_n145_heat_implicit_{s}": dict(stepper="implicit", solver=s, physics="heat",
+                                            dt=3600.0, f64_nz=16, fd=True) for s in SOLVERS},
+    **{f"grad_implicit_picard2_{s}": dict(stepper="implicit", solver=s, physics="richards",
+                                          dt=900.0, f64_nz=16, picard=2, fd=True)
+       for s in SOLVERS},
 }
 K_MINERAL = 3.8
 # the float32 full-width comparisons of these schemes run the plain version
@@ -305,17 +360,60 @@ HEUN_VJP_OPS_PER_LEVEL_STEP = HEUN_OPS_PER_LEVEL_STEP + 2 * sum(ADJ_OPS.values()
 IMPLICIT_VJP_OPS_PER_LEVEL = sum(ADJ_OPS.values()) + 2 * 3 + 23 + 3 + 3
 IMPLICIT_VJP_OPS_PER_FACE = 2 * 22
 HEAT_VJP_OPS_PER_LEVEL_STEP = HEAT_OPS_PER_LEVEL_STEP + 11 + 34
+# This slice's steps, counted the same way:
+# * heat-only Heun (soil::heun_step<HEAT>), per level and step: two heat-only
+#   closure_rhs (HEAT_OPS_PER_LEVEL_STEP each), the first keeping its
+#   tendency (less the update's 2) and the second with the corrector (2
+#   more), and the stage y = x + f dt (2): 94; its VJP adds the adjoint of
+#   both (11 + 34 each, as the heat-only VJP) and the corrector's and the
+#   stage's way back for U (2 + 3);
+# * a heat-only implicit iteration (soil::picard_step<HEAT>), per level: the
+#   heat-only closure_rhs with its tendency kept (46 - 2), dT/dU (3) and U +=
+#   du (1); per interior face the heat rows' share of IMPLICIT_OPS_PER_FACE
+#   (2 + 8); per column the Dirichlet top row (5) and one solve; each
+#   iteration after the first also forms tend - (u_k - u^n) / dt (3 a level,
+#   and 3 more for the saturation over heat + Richards, whose pool update
+#   it skips); its VJP, per iteration and without the recompute (as
+#   IMPLICIT_VJP_OPS_PER_LEVEL): the heat-only rhs_adjoint (11 + 34), the
+#   rows' cotangents (3), dT/dU's (3) and the face kappa's mean (3) a level,
+#   diffusion_rows' adjoint (22) a face, the transposed solve and the top
+#   row's adjoint (5), and the right side's -lambda / dt, +lambda / dt (2 a
+#   level and implicit variable) in each iteration after the first
+HEAT_HEUN_OPS_PER_LEVEL_STEP = 2 * HEAT_OPS_PER_LEVEL_STEP + (-2 + 2 + 2)
+HEAT_HEUN_VJP_OPS_PER_LEVEL_STEP = HEAT_HEUN_OPS_PER_LEVEL_STEP + 2 * (11 + 34) + 5
+
+
+def heat_implicit_ops(solver, nz, iters=1):
+    """Operations of one heat-only implicit step of one column with
+    ``iters`` Picard iterations."""
+    one = ((HEAT_OPS_PER_LEVEL_STEP - 2 + 3 + 1) * nz + (2 + 8) * (nz - 1) + 5
+           + implicit_solver_ops(solver, nz))
+    return iters * one + (iters - 1) * 3 * nz
+
+
+def picard_ops(solver, nz, iters):
+    """Operations of one heat + Richards implicit step of one column with
+    ``iters`` Picard iterations."""
+    return iters * implicit_ops(solver, nz) + (iters - 1) * (6 * nz - 3)
 
 
 def scheme_vjp_ops(name, nz):
     """Operations of one step of one column of a scheme's segment VJP."""
     cfg = GRAD_SCHEMES[name]
+    iters = cfg.get("picard", 1)
+    heat = cfg["physics"] == "heat"
     if cfg["stepper"] == "heun":
-        return HEUN_VJP_OPS_PER_LEVEL_STEP * nz
+        return (HEAT_HEUN_VJP_OPS_PER_LEVEL_STEP if heat else HEUN_VJP_OPS_PER_LEVEL_STEP) * nz
+    if cfg["stepper"] == "implicit" and heat:
+        return (heat_implicit_ops(cfg["solver"], nz, iters)
+                + iters * ((11 + 34 + 3 + 3 + 3) * nz + 22 * (nz - 1)
+                           + implicit_solver_ops(cfg["solver"], nz) + 5)
+                + (iters - 1) * 2 * nz)
     if cfg["stepper"] == "implicit":
-        return (implicit_ops(cfg["solver"], nz) + IMPLICIT_VJP_OPS_PER_LEVEL * nz
-                + IMPLICIT_VJP_OPS_PER_FACE * (nz - 1)
-                + 2 * (implicit_solver_ops(cfg["solver"], nz) + 5))
+        return (picard_ops(cfg["solver"], nz, iters)
+                + iters * (IMPLICIT_VJP_OPS_PER_LEVEL * nz + IMPLICIT_VJP_OPS_PER_FACE * (nz - 1)
+                           + 2 * (implicit_solver_ops(cfg["solver"], nz) + 5))
+                + (iters - 1) * 4 * nz)
     return HEAT_VJP_OPS_PER_LEVEL_STEP * nz
 
 
@@ -833,11 +931,11 @@ def implicit_freeze_sim(tp, solver):
         boundary_conditions=tp.PrescribedSurfaceTemperature(lambda t: -8.0 + 0.0 * t))
 
 
-def implicit_sim(tp, solver):
+def implicit_sim(tp, solver, cells=BENCH_CELLS, dtype=torch.float32, nz=BENCH_NZ):
     """`bench_configs.py:141-199` (column_implicit_tridiag): the bench model,
     initial state and top temperature, ImplicitEuler at dt 900 s."""
-    grid = tp.ColumnGrid.of(cells=BENCH_CELLS, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
-                            dtype=torch.float32, device="cuda")
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
+                            device="cuda")
     return tp.initialize(
         tp.SoilModel(grid=grid, soil=soil(tp)), tp.ImplicitEuler(dt=IMPLICIT_DT, solver=solver),
         initializers={
@@ -887,13 +985,13 @@ def heun_sim(tp, cells):
             series={"surface_temperature": ts.to(torch.float32).contiguous()}),))
 
 
-def heat_sim(tp, cells, dtype):
+def heat_sim(tp, cells, dtype, nz=BENCH_NZ):
     """`bench_configs.py:202-225` on ``cells`` synthetic columns at
     latitudes evenly spaced from -60 to 80 degrees: the default (heat-only)
     SoilModel, ForwardEuler at dt 300 s, an hourly (744, cells) float32
     series T_mean + 8 sin(2 pi t / 86400), T_mean = 25 max(cos lat, 0.05) -
     5, also the initial temperature; saturation 0.8."""
-    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz),
                             dtype=dtype, device="cuda")
     lat = np.linspace(-60.0, 80.0, cells)
     T_mean = 25.0 * np.maximum(np.cos(np.deg2rad(lat)), 0.05) - 5.0
@@ -906,6 +1004,251 @@ def heat_sim(tp, cells, dtype):
         boundary_conditions=tp.PrescribedSurfaceTemperature("surface_temperature"),
         input_sources=(tp.TimeSeriesInputSource(
             times=hours, series={"surface_temperature": ts.astype(np.float32)}),))
+
+
+def heat_stepper_sim(tp, cells, dtype, nz, stepper):
+    """heat_sim's model, state and series stepped by ``stepper``."""
+    base = heat_sim(tp, cells, dtype, nz=nz)
+    return tp.Simulation(base.model, stepper, base.state, base.input_sources, bcs=base.bcs)
+
+
+def picard_sim(tp, solver, cells=BENCH_CELLS, dtype=torch.float32, nz=BENCH_NZ):
+    """implicit_sim's composition with PICARD_ITERS Picard iterations."""
+    base = implicit_sim(tp, solver, cells=cells, dtype=dtype, nz=nz)
+    return tp.Simulation(base.model, tp.ImplicitEuler(dt=IMPLICIT_DT, solver=solver,
+                                                      picard_iters=PICARD_ITERS),
+                         base.state, bcs=base.bcs)
+
+
+def step_tolerance(plain, start, f64):
+    """The per-cell tolerance of one float64 (1e-12 of the value, with a
+    floor of 1e-12 of the field's largest magnitude) or float32 step
+    (F32_REL_TOL of the field's largest change in the step plus 16 units of
+    2^-23 of the value, as land_f32_tolerance holds the soil's fields)."""
+    if f64:
+        return 1e-12 * plain.abs() + 1e-12 * float(plain.abs().max())
+    return F32_REL_TOL * float((plain - start).abs().max()) + 16 * 2.0 ** -23 * plain.abs()
+
+
+def soil_teacher(kernel, plain, carry, top_at, steps, referee=None):
+    """A soil kernel against its plain version along the plain trajectory:
+    at each of ``steps`` steps, ``kernel(U, sat, S, top)`` and ``plain(U,
+    sat, S, top)``, each one step from the plain version's carry
+    (``top_at(i)`` the step's top temperature as the kernel takes it), the
+    plain one carried on, so that no step's error grows in the next. Each
+    field is held by step_tolerance. A float32 cell beyond it (a layer that
+    crosses the freeze plateau's edge or saturation on one side of an ulp
+    only) is held to ``referee(U, sat, S, top)``, the plain step at float64
+    from the same float32 operands: the kernel within twice the plain
+    version's own float32 error plus the tolerance. Returns per field the
+    largest error and the largest over its magnitude, and the number of such
+    flip cells."""
+    f64 = carry[0].dtype == torch.float64
+    cp = carry
+    worst, worst_abs, flips = {}, {}, 0
+    for i in range(steps):
+        top = top_at(i)
+        k1, p1 = kernel(*cp, top), plain(*cp, top)
+        truth = None
+        for j, (n, a, b, c) in enumerate(zip(("U", "sat", "S"), k1, p1, cp)):
+            if b is None:
+                continue
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"soil teacher: non-finite kernel {n} at step {i + 1}")
+            err = (a - b).abs()
+            worst_abs[n] = max(worst_abs.get(n, 0.0), float(err.max()))
+            worst[n] = max(worst.get(n, 0.0),
+                           float(err.max()) / max(float(b.abs().max()), 1e-300))
+            tol = step_tolerance(b, c, f64)
+            bad = err > tol
+            if not bool(bad.any()):
+                continue
+            if f64 or referee is None:
+                raise AssertionError(f"soil teacher: kernel {n} beyond the tolerance at step "
+                                     f"{i + 1}: max abs err {float(err.max())}")
+            if truth is None:
+                truth = referee(*cp, top)
+            k_err, p_err = (a.double() - truth[j]).abs(), (b.double() - truth[j]).abs()
+            if bool((bad & (k_err > 2.0 * p_err + tol.double())).any()):
+                raise AssertionError(f"soil teacher: float32 kernel {n} vs the float64 referee "
+                                     f"at step {i + 1}: {float(k_err.max())} against the plain "
+                                     f"version's {float(p_err.max())}")
+            flips += int(bad.sum())
+        cp = p1
+    return worst_abs, worst, flips
+
+
+def plateau_share(state):
+    """The share of columns with a layer on the freeze plateau (0 < liquid
+    fraction < 1)."""
+    liq = state.liquid_water_fraction
+    return float(((liq > 0.0) & (liq < 1.0)).any(0).float().mean())
+
+
+#: this slice's forward paths: name -> (kind, solver)
+NEW_FORWARD = {"heat_heun_n145": ("heat_heun", None),
+               **{f"heat_implicit_{s}_n145": ("heat_implicit", s) for s in SOLVERS},
+               **{f"picard2_implicit_{s}_n145": ("picard", s) for s in SOLVERS}}
+
+
+def new_forward_sim(tp, kind, solver, cells, dtype, nz):
+    if kind == "heat_heun":
+        return heat_stepper_sim(tp, cells, dtype, nz, tp.Heun(dt=HEAT_HEUN_DT))
+    if kind == "heat_implicit":
+        return heat_stepper_sim(tp, cells, dtype, nz,
+                                tp.ImplicitEuler(dt=HEAT_IMPLICIT_DT, solver=solver))
+    return picard_sim(tp, solver, cells=cells, dtype=dtype, nz=nz)
+
+
+def new_forward_operands(fs, kind, solver, sim):
+    """The kernel wrapper, its keywords, the plain version's keywords, dt,
+    the carry, ``top(i, steps)`` (the top temperature of ``steps`` steps
+    from clock step ``i``, as the kernel takes it), the coordinates and the
+    parameters of one of this slice's forward paths."""
+    from terrarium_tpu_torch.timesteppers.integrator import clock_times, top_temperature_table
+
+    g = sim.model.grid
+    heat = kind != "picard"
+    dt = {"heat_heun": HEAT_HEUN_DT, "heat_implicit": HEAT_IMPLICIT_DT,
+          "picard": IMPLICIT_DT}[kind]
+    stepper = "heun" if kind == "heat_heun" else "implicit"
+    kw = {} if kind == "heat_heun" else {"solver": solver}
+    if kind == "picard":
+        kw["picard_iters"] = PICARD_ITERS
+    wrapper = fs.ROLLOUTS[stepper, "heat" if heat else "richards"]
+    pkw = dict(kw, stepper=stepper, physics="heat" if heat else "richards")
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    st = sim.state
+    carry = (st.prognostic["internal_energy"].contiguous(), st.saturation_water_ice.contiguous(),
+             None if heat else st.prognostic["surface_excess_water"].contiguous())
+    times = clock_times(st.clock.time, dt, COMPARE_STEPS + 1)
+    if heat:
+        values = torch.as_tensor(sim.input_sources[0].series["surface_temperature"],
+                                 device="cuda").to(g.dtype).contiguous()
+
+        def top(i, steps):
+            return fs.SeriesBC(values, 0.0, SERIES_DTS, float(times[i]), steps)
+    else:
+        table = top_temperature_table(sim.bcs["temperature"]["top"].value, times, g)
+
+        def top(i, steps):
+            return table[i:i + steps]
+    return (wrapper, kw, pkw, dt, carry, top, coords, fs.ColumnParams.of(sim.model, g.dtype))
+
+
+def new_forward_phase(tp, fs, cuda_build, name, reset_counts, launched, card):
+    """One of this slice's forward paths (NEW_FORWARD): the kernel against
+    its plain version along the plain trajectory (soil_teacher) at float64
+    on HEAT_F64_CELLS columns, Nz NEW_F64_NZ, and at float32 at full width,
+    with the float64 referee; the kernel and the plain version timed over
+    COMPARE_STEPS steps (CUDA events); then Simulation.run: one warm-up run,
+    one timed block. Prints the phase; returns what the kernel report
+    reads."""
+    kind, solver = NEW_FORWARD[name]
+    heat = kind != "picard"
+    for dtype, cells, nz in ((torch.float64, HEAT_F64_CELLS, NEW_F64_NZ),
+                             (torch.float32, BENCH_CELLS, BENCH_NZ)):
+        sim = new_forward_sim(tp, kind, solver, cells, dtype, nz)
+        wrapper, kw, pkw, dt, carry, top, coords, params = new_forward_operands(fs, kind,
+                                                                                solver, sim)
+
+        def kernel(U, sat, S, bc):
+            return wrapper(U, sat, S, bc, *coords, params, dt, **kw)
+
+        def plain(U, sat, S, bc):
+            return fs.soil_column_rollout_plain(U, sat, S, bc, *coords, params, dt, **pkw)
+
+        f64 = torch.float64
+        coords64 = tuple(c.to(f64) for c in coords)
+        params64 = fs.ColumnParams.of(sim.model, f64)
+
+        def referee(U, sat, S, bc):
+            bc = (dataclasses.replace(bc, values=bc.values.to(f64))
+                  if isinstance(bc, fs.SeriesBC) else bc.to(f64))
+            return fs.soil_column_rollout_plain(U.to(f64), sat.to(f64),
+                                                None if S is None else S.to(f64), bc,
+                                                *coords64, params64, dt, **pkw)
+
+        errs = soil_teacher(kernel, plain, carry, lambda i: top(i, 1), COMPARE_STEPS,
+                            referee=None if dtype == f64 else referee)
+        if dtype == f64:
+            f64_errs = errs
+            del sim
+            continue
+        bc = top(0, COMPARE_STEPS)
+        out_k = kernel(*carry, bc)
+        ident = None
+        if not heat:  # W = sum(sat dz) + S after the 144-step launch
+            dz = coords[0][:, None]
+            w0 = (carry[1].double() * dz.double()).sum(0) + carry[2].double()
+            w1 = (out_k[1].double() * dz.double()).sum(0) + out_k[2].double()
+            ident = float(((w1 - w0).abs() / w0.abs()).max())
+            if ident > IMPLICIT_F32_WATER_TOL:
+                raise AssertionError(f"{name}: water identity through the kernel {ident}")
+        k_ms = cuda_ms(lambda: kernel(*carry, bc), reps=3, warmup=True)
+        p_ms = cuda_ms(lambda: plain(*carry, bc))
+        if kind == "heat_heun":
+            ops = HEAT_HEUN_OPS_PER_LEVEL_STEP * nz + 2 * SERIES_OPS_PER_READ
+        elif kind == "heat_implicit":
+            ops = heat_implicit_ops(solver, nz) + SERIES_OPS_PER_READ
+        else:
+            ops = picard_ops(solver, nz, PICARD_ITERS)
+        if heat:
+            rows = series_rows_read(bc, dt, stages=2 if kind == "heat_heun" else 1)
+            nbytes = 3 * nz * cells * 4 + rows * cells * 4
+        else:
+            nbytes = 2 * (2 * nz + 1) * cells * 4 + COMPARE_STEPS * 4
+        b = bound_ms(ops * cells * COMPARE_STEPS, nbytes)
+        del out_k
+        # the run block: one warm-up run, then one timed block
+        block = {"heat_heun": HEAT_HEUN_BLOCK_STEPS, "heat_implicit": HEAT_IMPLICIT_BLOCK_STEPS,
+                 "picard": PICARD_BLOCK_STEPS}[kind]
+        sim.run(steps=COMPARE_STEPS)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sim.run(steps=block)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launched()
+        if launches != {wrapper.__name__: 1}:
+            raise AssertionError(f"{name}: the run block launched {launches}")
+        st = sim.state
+        fields = ("internal_energy", "temperature", "liquid_water_fraction",
+                  "hydraulic_conductivity")
+        if not heat:
+            fields += ("saturation_water_ice", "surface_excess_water", "pressure_head")
+        for n in fields:
+            if not bool(torch.isfinite(st[n]).all()):
+                raise AssertionError(f"{name}: non-finite {n}")
+        if heat and not bool((st.saturation_water_ice == 0.8).all()):
+            raise AssertionError(f"{name}: the saturation changed")
+        sat = st.saturation_water_ice
+        if not heat and not (float(sat.min()) >= 0.0 and float(sat.max()) <= 1.0):
+            raise AssertionError(f"{name}: saturation left [0, 1]")
+        if sim.iteration != COMPARE_STEPS + block:
+            raise AssertionError(f"{name}: clock iteration {sim.iteration}")
+        tags = fs.kernel_tags("heun" if kind == "heat_heun" else "implicit",
+                              "heat" if heat else "richards",
+                              PICARD_ITERS if kind == "picard" else 1,
+                              plain_euler=(), solver=solver or "pcr")
+        entry = cuda_build._entry_name("soil_column_rollout", tags, dtype, nz)
+        ptxas = ptxas_summary(cuda_build.ptxas_report("soil_column_rollout")).get(entry, {})
+        phase(name, cells=cells, nz=nz, dt=dt, steps=block, solver=solver,
+              picard_iters=PICARD_ITERS if kind == "picard" else 1, seconds=run_s,
+              launches=launches, cells_steps_per_s=cells * block / run_s,
+              compare_steps=COMPARE_STEPS, f64_cells=HEAT_F64_CELLS, f64_nz=NEW_F64_NZ,
+              f64_max_abs_err=f64_errs[0], f64_max_err_over_magnitude=f64_errs[1],
+              f32_max_abs_err=errs[0], f32_max_err_over_magnitude=errs[1],
+              f32_flip_cells=errs[2], water_identity_rel_err=ident, kernel_ms=k_ms,
+              plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], ops_per_column_step=ops,
+              plateau_share_end=plateau_share(st),
+              T_top_range=[float(st.temperature[-1].min()), float(st.temperature[-1].max())],
+              ptxas=ptxas, entry=entry, card=card)
+        return dict(wrapper=wrapper.__name__, launches=launches[wrapper.__name__],
+                    max_abs_err=max(errs[0].values()), ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+                    bound_by=b[1], entry=entry, kind=kind, solver=solver)
 
 
 def series_operands(fs, sim, steps):
@@ -974,20 +1317,28 @@ def check_f64_close(name, out_k, out_p, rtol):
 
 def ptxas_summary(report: str) -> dict:
     """``{"<entry point>": {"table": "230 registers, 0 bytes spill stores",
-    "series": ...}, ...}`` from the build's ptxas ``-v`` report, whose part
-    of each instantiation is headed ``== <entry point>``; a rollout entry
-    holds a table and a series kernel, the VJP's its kernel and the
-    reduction, the land and full-step entries their one kernel."""
+    "series": ..., "cpu_s": 41.3}, ...}`` from the build's ptxas ``-v``
+    report, whose part of each instantiation is headed ``== <entry point>``
+    and ``cpu_s <seconds>`` (its nvcc's CPU time, where the build recorded
+    it); a rollout entry holds a table and a series kernel, the VJP's its
+    kernel and the reduction, the land and full-step entries their one
+    kernel."""
     out, entry, key = {}, None, None
     for ln in report.splitlines():
         if ln.startswith("== "):
             entry = ln[3:].strip()
             out[entry] = {}
             continue
+        if ln.startswith("cpu_s ") and entry:
+            out[entry]["cpu_s"] = float(ln.split()[1])
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m and entry:
             name = m.group(1)
-            flags = re.search(r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+ELb[01]ELb([01])E", name)
+            # <T, NZ, STEPPER, SOLVER, HEAT, PICARD, SERIES>; before the
+            # Picard entries, <T, NZ, STEPPER, SOLVER, HEAT, SERIES>
+            flags = re.search(r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+E(?:Lb[01]E){1,2}Lb([01])E",
+                              name)
             if flags:
                 key = "series" if flags.group(1) == "1" else "table"
             elif "land_column_rollout_kernel" in name:
@@ -1431,7 +1782,8 @@ def scheme_sim(tp, name, cells, nz, dtype):
                             device="cuda")
     heat = cfg["physics"] == "heat"
     ts = {"heun": tp.Heun(dt=cfg["dt"]), "euler": tp.ForwardEuler(dt=cfg["dt"]),
-          "implicit": tp.ImplicitEuler(dt=cfg["dt"], solver=cfg["solver"])}[cfg["stepper"]]
+          "implicit": tp.ImplicitEuler(dt=cfg["dt"], solver=cfg["solver"],
+                                       picard_iters=cfg.get("picard", 1))}[cfg["stepper"]]
     return tp.initialize(
         scheme_model_fn(tp, name, grid)(K_MINERAL if heat else LOG_KSAT), ts,
         initializers={"temperature": -1.0, "saturation_water_ice": 0.8 if heat else (
@@ -1439,28 +1791,32 @@ def scheme_sim(tp, name, cells, nz, dtype):
         boundary_conditions=tp.PrescribedSurfaceTemperature(4.0))
 
 
-def scheme_value(tp, name, sim, fused=True, remat_fn=False):
-    """The loss after GRAD_STEPS steps and its gradient in the parameter:
-    through make_fused_grad_rollout (kernels), or, ``remat_fn``, the port's
-    make_rollout_fn(remat=True) (torch autograd through the modules)."""
+def scheme_value(tp, name, sim, fused=True, remat_fn=False, shift=0.0, grad=True):
+    """The loss after GRAD_STEPS steps and its gradient in the parameter
+    (``shift`` added to it): through make_fused_grad_rollout (kernels), or,
+    ``remat_fn``, the port's make_rollout_fn(remat=True) (torch autograd
+    through the modules); the loss alone without ``grad``."""
     from terrarium_tpu_torch.timesteppers.autodiff import make_rollout_fn
     from terrarium_tpu_torch.timesteppers.fused_grad import make_fused_grad_rollout
 
     cfg = GRAD_SCHEMES[name]
     heat = cfg["physics"] == "heat"
     grid = sim.model.grid
-    p = torch.tensor(K_MINERAL if heat else LOG_KSAT, dtype=torch.float64, device="cuda",
-                     requires_grad=True)
+    p = torch.tensor((K_MINERAL if heat else LOG_KSAT) + shift, dtype=torch.float64,
+                     device="cuda", requires_grad=grad)
     model_fn = scheme_model_fn(tp, name, grid)
-    if remat_fn:
-        out = make_rollout_fn(model_fn(p), sim.timestepper, sim.ctx, steps=GRAD_STEPS,
-                              remat=True)(sim.state, cfg["dt"])
-    else:
-        out = make_fused_grad_rollout(model_fn, sim.timestepper, sim.ctx, steps=GRAD_STEPS,
-                                      dt=cfg["dt"], inner_steps=GRAD_INNER)(sim.state, p)
-    loss = out.temperature.mean()
-    if not heat:
-        loss = loss + out.saturation_water_ice.mean()
+    with torch.set_grad_enabled(grad):
+        if remat_fn:
+            out = make_rollout_fn(model_fn(p), sim.timestepper, sim.ctx, steps=GRAD_STEPS,
+                                  remat=True)(sim.state, cfg["dt"])
+        else:
+            out = make_fused_grad_rollout(model_fn, sim.timestepper, sim.ctx, steps=GRAD_STEPS,
+                                          dt=cfg["dt"], inner_steps=GRAD_INNER)(sim.state, p)
+        loss = out.temperature.mean()
+        if not heat:
+            loss = loss + out.saturation_water_ice.mean()
+    if not grad:
+        return float(loss)
     (g,) = torch.autograd.grad(loss, p)
     return float(loss.detach()), float(g)
 
@@ -1484,6 +1840,8 @@ def scheme_operands(fs, name, sim, seed):
                 torch.as_tensor(rng.normal(size=tuple(t.shape)), device="cuda").to(g.dtype)
                 for t in carry)
     kw = dict(stepper=cfg["stepper"], physics=cfg["physics"], solver=cfg["solver"])
+    if cfg.get("picard", 1) != 1:
+        kw["picard_iters"] = cfg["picard"]
     return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype), cts, kw
 
 
@@ -1612,6 +1970,7 @@ def main():
 
     KERNELS = (fs.soil_column_rollout, fs.soil_column_heun_rollout,
                fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
+               fs.soil_column_heat_heun_rollout, fs.soil_column_heat_implicit_rollout,
                fv.soil_column_segment_vjp, ls.land_column_rollout, ls.land_column_heun_rollout,
                ls.land_column_implicit_rollout, fs.soil_column_full_step,
                lv.land_column_segment_vjp)
@@ -1623,13 +1982,44 @@ def main():
     def launched():
         return {fn.__name__: fn.launches for fn in KERNELS if fn.launches}
 
-    # ---- build: one nvcc per source, in parallel
+    # ---- build: one nvcc per instantiation and core (cuda_build's slots);
+    # the rollout source first, then the others, the costliest first, in a
+    # thread of their own while the forward phases run on the card
     t0 = time.perf_counter()
     names = tuple(cuda_build.INSTANTIATIONS)
-    cuda_build.build(*names)
-    ptxas_all = {n: ptxas_summary(cuda_build.ptxas_report(n)) for n in names}
-    phase("build", seconds=time.perf_counter() - t0, instantiations=sum(
-        len(cuda_build.INSTANTIATIONS[n]) for n in names), ptxas=ptxas_all)
+    cuda_build.build("soil_column_rollout")
+    first_s = time.perf_counter() - t0
+    rest = ("soil_column_segment_vjp", "land_column_segment_vjp", "land_column_rollout",
+            "soil_column_full_step")
+    if set(rest) != set(names) - {"soil_column_rollout"}:
+        raise AssertionError(f"the build's sources are {names}")
+    rest_s = []
+
+    def build_rest():
+        cuda_build.build(*rest)
+        rest_s.append(time.perf_counter() - t0)
+
+    compiling = threading.Thread(target=build_rest, daemon=True)
+    compiling.start()
+    phase("build", source="soil_column_rollout", seconds=first_s,
+          instantiations=len(cuda_build.INSTANTIATIONS["soil_column_rollout"]),
+          ptxas={"soil_column_rollout": ptxas_summary(
+              cuda_build.ptxas_report("soil_column_rollout"))})
+    ptxas_all = {}
+
+    def built():
+        """Wait for the other sources; their build's phase line, once."""
+        if not ptxas_all:
+            compiling.join()
+            if not rest_s:
+                cuda_build.build(*rest)  # the thread failed: raise its error here
+            ptxas_all.update({n: ptxas_summary(cuda_build.ptxas_report(n)) for n in names})
+            phase("build_rest", sources=list(rest), seconds_since_start=rest_s[0],
+                  instantiations=sum(len(cuda_build.INSTANTIATIONS[n]) for n in rest),
+                  cpu_s_total=sum(v.get("cpu_s", 0.0) for n in names
+                                  for v in ptxas_all[n].values()),
+                  ptxas={n: ptxas_all[n] for n in rest})
+        return ptxas_all
 
     # ---- golden configuration, through the kernel and through the plain version
     golden = np.load(GOLDEN)
@@ -1936,8 +2326,16 @@ def main():
               frozen_fraction_top=float((st.liquid_water_fraction[-1] < 1.0).float().mean()))
         del sim, st, sat
 
+    # ---- this slice's forward paths (NEW_FORWARD): the heat-only model by
+    # Heun and by ImplicitEuler (each solver), heat + Richards by
+    # ImplicitEuler with two Picard iterations (each solver)
+    new_fwd = {name: new_forward_phase(tp, fs, cuda_build, name, reset_counts, launched, card)
+               for name in NEW_FORWARD}
+
     # ---- land_model golden through the land kernel (Simulation.run, one
-    # launch) and through the plain version (the process modules)
+    # launch) and through the plain version (the process modules), once the
+    # other sources are built
+    built()
     lgold = np.load(LAND_GOLDEN)
     errs = {}
     for route in ("kernel", "plain"):
@@ -2348,7 +2746,8 @@ def main():
                 raise AssertionError(f"{name}: VJP kernel vs plain {vname} (f32 full width): "
                                      f"max abs err {err}, largest magnitude {scale}")
         fwd = fs.ROLLOUTS[cfg["stepper"], cfg["physics"]]
-        fkw = {"solver": cfg["solver"]} if cfg["stepper"] == "implicit" else {}
+        fkw = ({"solver": cfg["solver"], "picard_iters": cfg.get("picard", 1)}
+               if cfg["stepper"] == "implicit" else {})
         k_ms = cuda_ms(lambda: fv.soil_column_segment_vjp(*carry, table, *coords, params, dt,
                                                           *cts, **kw), reps=3, warmup=True)
         first = slice(0, GRAD_SCHEME_CHUNK)
@@ -2377,10 +2776,27 @@ def main():
         if not (np.isfinite(value) and np.isfinite(grad) and grad != 0.0):
             raise AssertionError(f"{name}: value {value}, gradient {grad}")
         med = float(np.median(times))
-        entry = cuda_build._entry_name("soil_column_segment_vjp", fv._check_scheme(
-            cfg["stepper"], cfg["physics"], cfg["solver"]), torch.float32, BENCH_NZ)
+        entry = cuda_build._entry_name("soil_column_segment_vjp", fv.vjp_tags(
+            cfg["stepper"], cfg["physics"], cfg["solver"], cfg.get("picard", 1)), torch.float32,
+            BENCH_NZ)
         extra = {}
-        if heat:  # the route JAX times for grad_n145_heat: make_rollout_fn(remat=True)
+        if cfg.get("fd"):
+            # the float64 gradient through the kernels on GRAD_REF_CELLS
+            # columns at the float64 Nz against central differences of the
+            # loss through the forward kernel
+            sim64 = scheme_sim(tp, name, GRAD_REF_CELLS, cfg["f64_nz"], torch.float64)
+            v64, g64 = scheme_value(tp, name, sim64)
+            fd = {h: (scheme_value(tp, name, sim64, shift=h, grad=False)
+                      - scheme_value(tp, name, sim64, shift=-h, grad=False)) / (2 * h)
+                  for h in FD_HS}
+            fd_rel = {h: abs(g64 - v) / abs(v) for h, v in fd.items()}
+            if min(fd_rel.values()) > 5e-4:
+                raise AssertionError(f"{name}: f64 kernel gradient {g64} against central "
+                                     f"differences {fd}")
+            extra = dict(f64_fd_cells=GRAD_REF_CELLS, f64_loss=v64, f64_kernel_grad=g64,
+                         central_difference=fd, fd_rel_err=fd_rel, fd_rtol=5e-4)
+            del sim64
+        if name == "grad_n145_heat":  # the route JAX times: make_rollout_fn(remat=True)
             scheme_value(tp, name, gsim, remat_fn=True)
             torch.cuda.synchronize()
             reset_counts()
@@ -2667,7 +3083,22 @@ def main():
                  f"{COMPARE_STEPS} steps",
         "thomas": {k: imp["thomas"][k] for k in ("launches", "kernel_ms", "plain_ms",
                                                   "bound_ms", "bound_by")}
-        | {"max_abs_err": max(imp["thomas"]["max_abs_err"].values())}}, {
+        | {"max_abs_err": max(imp["thomas"]["max_abs_err"].values())}}, *({
+        "name": f"{v['wrapper']}[{name}]", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:283 with " + {
+            "heat_heun": "Heun (terrarium_tpu/timesteppers/stepping.py:167) over the heat-only "
+                         "model" + series_at,
+            "heat_implicit": "ImplicitEuler (terrarium_tpu/timesteppers/implicit.py:173, "
+                             f"{v['solver']}) over the heat-only model" + series_at,
+            "picard": f"ImplicitEuler (terrarium_tpu/timesteppers/implicit.py:173, "
+                      f"{v['solver']}) with {PICARD_ITERS} Picard iterations (:234-254)"}[
+            v["kind"]],
+        "launches": v["launches"], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+        "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+        "library_ms": None,
+        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, {COMPARE_STEPS} steps, {v['entry']}"}
+        for name, v in new_fwd.items()), {
         "name": "soil_column_segment_vjp", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/soil_column_segment_vjp.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
@@ -2811,8 +3242,11 @@ def euler_digest(root: pathlib.Path):
     digests["segment_vjp_f32_nz20"] = digest(
         fv.soil_column_segment_vjp(*ops[0], ops[1], *ops[2], ops[3], GRAD_DT, *ops[4]))
     del gsim, ops
-    if hasattr(fv, "VJP_SCHEMES"):  # the segment VJP of the other schemes
+    if hasattr(fv, "VJP_SCHEMES"):  # the segment VJP of the other schemes the package has
         for name, cfg in GRAD_SCHEMES.items():
+            if (cfg["stepper"], cfg["physics"]) not in fv.VJP_SCHEMES or (
+                    cfg.get("picard", 1) != 1 and not hasattr(fv, "vjp_tags")):
+                continue
             gsim = scheme_sim(tp, name, GRAD_CELLS, BENCH_NZ, torch.float32)
             carry, table, coords, params, cts, kw = scheme_operands(fs, name, gsim, seed=11)
             out = fv.soil_column_segment_vjp(*carry, table, *coords, params, cfg["dt"], *cts,

@@ -67,7 +67,9 @@ from .models.boundary_conditions import (FreeDrainage, GeothermalHeatFlux, Groun
                                          ImpermeableBoundary, InfiltrationFlux,
                                          PrescribedBottomTemperature,
                                          PrescribedSurfaceTemperature)
-from .models.initializers import DefaultInitializer
+from .models.initializers import (ConstantSaturation, ConstantSoilTemperature,
+                                  DefaultInitializer, PiecewiseLinearInitialSoilTemperature,
+                                  QuasiThermalSteadyState, SaturationWaterTable, SoilInitializer)
 from .models.soil_model import SoilModel
 from .models.land_model import LandModel
 from .models.vegetation_model import SurfaceEnergyModel, VegetationModel

@@ -57,7 +57,7 @@ namespace {
 
 using soil::Consts;
 
-template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES>
+template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool PICARD, bool SERIES>
 __global__ void __launch_bounds__(64) soil_column_rollout_kernel(
     const T* __restrict__ U_in, const T* __restrict__ sat_in, const T* __restrict__ S_in,
     T* __restrict__ U_out, T* __restrict__ sat_out, T* __restrict__ S_out,
@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(64) soil_column_rollout_kernel(
     const T* __restrict__ dz_g, const T* __restrict__ dzf_g,
     const T* __restrict__ zc_g, const T* __restrict__ zf_g,
     const SoilColumnParams P, const int steps, const T dt, const T inv_dt,
-    const long long cells)
+    const long long cells, const int iters, const int solver)
 {
     __shared__ T dz[NZ], dzf[NZ + 1], zc[NZ], zf[NZ + 1];
     for (int i = threadIdx.x; i < NZ + 1; i += blockDim.x) {
@@ -87,9 +87,9 @@ __global__ void __launch_bounds__(64) soil_column_rollout_kernel(
     }
     T S = HEAT ? T(0) : S_in[col];
 
-    soil::rollout_column<T, NZ, STEPPER, SOLVER, HEAT, SERIES>(
+    soil::rollout_column<T, NZ, STEPPER, SOLVER, HEAT, SERIES, PICARD>(
         U, sat, S, top_T + col * top_cell_stride, top_step_stride, series_rows, series_t0,
-        series_dts, time0, steps, c, P, dz, dzf, zc, zf, dt, inv_dt);
+        series_dts, time0, steps, c, P, dz, dzf, zc, zf, dt, inv_dt, iters, solver);
 
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -99,28 +99,28 @@ __global__ void __launch_bounds__(64) soil_column_rollout_kernel(
     if (!HEAT) S_out[col] = S;
 }
 
-template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT>
+template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool PICARD>
 int launch(const T* U_in, const T* sat_in, const T* S_in, T* U_out, T* sat_out, T* S_out,
            const T* top_T, long long top_step_stride, long long top_cell_stride,
            int series_rows, double series_t0, double series_dts, double time0,
            const T* dz, const T* dzf, const T* zc, const T* zf,
-           const SoilColumnParams* P, int steps, double dt, long long cells,
-           cudaStream_t stream)
+           const SoilColumnParams* P, int steps, double dt, long long cells, int iters,
+           int solver, cudaStream_t stream)
 {
     const int threads = 64;
     const unsigned blocks = (unsigned)((cells + threads - 1) / threads);
     if (series_rows > 0) {
-        soil_column_rollout_kernel<T, NZ, STEPPER, SOLVER, HEAT, true>
+        soil_column_rollout_kernel<T, NZ, STEPPER, SOLVER, HEAT, PICARD, true>
             <<<blocks, threads, 0, stream>>>(
                 U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride,
                 top_cell_stride, series_rows, T(series_t0), T(series_dts), T(time0), dz, dzf,
-                zc, zf, *P, steps, T(dt), T(1.0 / dt), cells);
+                zc, zf, *P, steps, T(dt), T(1.0 / dt), cells, iters, solver);
     } else {
-        soil_column_rollout_kernel<T, NZ, STEPPER, SOLVER, HEAT, false>
+        soil_column_rollout_kernel<T, NZ, STEPPER, SOLVER, HEAT, PICARD, false>
             <<<blocks, threads, 0, stream>>>(
                 U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride,
                 top_cell_stride, 0, T(0), T(0), T(time0), dz, dzf, zc, zf, *P, steps, T(dt),
-                T(1.0 / dt), cells);
+                T(1.0 / dt), cells, iters, solver);
     }
     return (int)cudaGetLastError();
 }
@@ -129,17 +129,25 @@ int launch(const T* U_in, const T* sat_in, const T* S_in, T* U_out, T* sat_out, 
 
 // One entry point per instantiation, named SOIL_ENTRY
 // (soil_column_rollout_<euler|heun>_<richards|heat>_<f32|f64>_nz<NZ>,
-// soil_column_rollout_implicit_<thomas|pcr>_richards_<f32|f64>_nz<NZ>). The
-// build (ops/cuda_build.py) compiles each instantiation in its own nvcc, in
-// parallel, with SOIL_ENTRY, SOIL_T, SOIL_NZ, SOIL_STEPPER (0 ForwardEuler,
-// 1 Heun, 2 ImplicitEuler), SOIL_HEAT and, for ImplicitEuler, SOIL_SOLVER
-// (0 Thomas, 1 PCR) defined.
+// soil_column_rollout_implicit_<thomas|pcr>_richards_<f32|f64>_nz<NZ>, and
+// soil_column_rollout_implicit_picard_<richards|heat>_<f32|f64>_nz<NZ> for
+// picard_step). The build (ops/cuda_build.py) compiles each instantiation
+// in its own nvcc, in parallel, with SOIL_ENTRY, SOIL_T, SOIL_NZ,
+// SOIL_STEPPER (0 ForwardEuler, 1 Heun, 2 ImplicitEuler), SOIL_HEAT and, for
+// ImplicitEuler, SOIL_SOLVER (0 Thomas, 1 PCR, 2 either, chosen at run time
+// by the `solver` argument) and SOIL_PICARD (1: picard_step with `picard`
+// iterations) defined. An entry returns cudaErrorInvalidValue for a solver
+// code other than 0 and 1 or one it was not built for, a Picard count below
+// 1, or one other than 1 without SOIL_PICARD.
 #if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ) || \
     !defined(SOIL_STEPPER) || !defined(SOIL_HEAT)
-#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DSOIL_STEPPER=0|1|2 -DSOIL_HEAT=0|1 [-DSOIL_SOLVER=0|1]"
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DSOIL_STEPPER=0|1|2 -DSOIL_HEAT=0|1 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=0|1]"
 #endif
 #ifndef SOIL_SOLVER
 #define SOIL_SOLVER 0
+#endif
+#ifndef SOIL_PICARD
+#define SOIL_PICARD 0
 #endif
 
 extern "C" int SOIL_ENTRY(const SOIL_T* U_in, const SOIL_T* sat_in, const SOIL_T* S_in,
@@ -148,10 +156,13 @@ extern "C" int SOIL_ENTRY(const SOIL_T* U_in, const SOIL_T* sat_in, const SOIL_T
                           double series_t0, double series_dts, double time0, const SOIL_T* dz,
                           const SOIL_T* dzf, const SOIL_T* zc, const SOIL_T* zf,
                           const SoilColumnParams* P, int steps, double dt, long long cells,
-                          void* stream)
+                          int solver, int picard, void* stream)
 {
-    return launch<SOIL_T, SOIL_NZ, SOIL_STEPPER, SOIL_SOLVER, SOIL_HEAT != 0>(
+    if (picard < 1 || (!SOIL_PICARD && picard != 1) || (solver != 0 && solver != 1)
+        || (SOIL_STEPPER == 2 && SOIL_SOLVER != 2 && solver != SOIL_SOLVER))
+        return (int)cudaErrorInvalidValue;
+    return launch<SOIL_T, SOIL_NZ, SOIL_STEPPER, SOIL_SOLVER, SOIL_HEAT != 0, SOIL_PICARD != 0>(
         U_in, sat_in, S_in, U_out, sat_out, S_out, top_T, top_step_stride, top_cell_stride,
-        series_rows, series_t0, series_dts, time0, dz, dzf, zc, zf, P, steps, dt, cells,
-        (cudaStream_t)stream);
+        series_rows, series_t0, series_dts, time0, dz, dzf, zc, zf, P, steps, dt, cells, picard,
+        solver, (cudaStream_t)stream);
 }

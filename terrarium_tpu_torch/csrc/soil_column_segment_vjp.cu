@@ -68,7 +68,7 @@ using soil::Consts;
 constexpr int kThreads = 64;
 constexpr int kReduceThreads = 256;
 
-template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT>
+template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool PICARD>
 __global__ void __launch_bounds__(kThreads) soil_column_segment_vjp_kernel(
     const T* __restrict__ U_in, const T* __restrict__ sat_in, const T* __restrict__ S_in,
     const T* __restrict__ gU_out, const T* __restrict__ gsat_out,
@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) soil_column_segment_vjp_kernel(
     const T* __restrict__ dz_g, const T* __restrict__ dzf_g,
     const T* __restrict__ zc_g, const T* __restrict__ zf_g,
     const SoilColumnParams P, const int steps, const T dt, const T inv_dt,
-    const long long cells)
+    const long long cells, const int iters, const int solver)
 {
     __shared__ T dz[NZ], dzf[NZ + 1], zc[NZ], zf[NZ + 1];
     __shared__ T red[2][kThreads];
@@ -95,10 +95,10 @@ __global__ void __launch_bounds__(kThreads) soil_column_segment_vjp_kernel(
     T gKsat = T(0), gskm = T(0);
     if (col < cells) {
         const Consts<T> c(P);
-        soil::segment_vjp_column<T, NZ, STEPPER, SOLVER, HEAT>(
+        soil::segment_vjp_column<T, NZ, STEPPER, SOLVER, HEAT, PICARD>(
             col, cells, steps, U_in, sat_in, S_in, gU_out, gsat_out, gS_out, gU_in, gsat_in,
             gS_in, scratch, top_T, top_step_stride, top_cell_stride, c, P, dz, dzf, zc, zf, dt,
-            inv_dt, gKsat, gskm);
+            inv_dt, gKsat, gskm, iters, solver);
     }
 
     red[0][threadIdx.x] = gKsat;
@@ -138,18 +138,20 @@ __global__ void __launch_bounds__(kReduceThreads) soil_column_segment_vjp_reduce
     }
 }
 
-template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT>
+template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool PICARD>
 int launch(const T* U_in, const T* sat_in, const T* S_in, const T* gU_out, const T* gsat_out,
            const T* gS_out, T* gU_in, T* gsat_in, T* gS_in, T* partials, T* gparams,
            T* scratch, const T* top_T, long long top_step_stride, long long top_cell_stride,
            const T* dz, const T* dzf, const T* zc, const T* zf, const SoilColumnParams* P,
-           int steps, double dt, long long cells, cudaStream_t stream)
+           int steps, double dt, long long cells, int iters, int solver,
+           cudaStream_t stream)
 {
     const int blocks = (int)((cells + kThreads - 1) / kThreads);
-    soil_column_segment_vjp_kernel<T, NZ, STEPPER, SOLVER, HEAT><<<blocks, kThreads, 0, stream>>>(
-        U_in, sat_in, S_in, gU_out, gsat_out, gS_out, gU_in, gsat_in, gS_in, partials,
-        scratch, top_T, top_step_stride, top_cell_stride, dz, dzf, zc, zf, *P, steps, T(dt),
-        T(1.0 / dt), cells);
+    soil_column_segment_vjp_kernel<T, NZ, STEPPER, SOLVER, HEAT, PICARD>
+        <<<blocks, kThreads, 0, stream>>>(
+            U_in, sat_in, S_in, gU_out, gsat_out, gS_out, gU_in, gsat_in, gS_in, partials,
+            scratch, top_T, top_step_stride, top_cell_stride, dz, dzf, zc, zf, *P, steps, T(dt),
+            T(1.0 / dt), cells, iters, solver);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     soil_column_segment_vjp_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(
@@ -161,15 +163,21 @@ int launch(const T* U_in, const T* sat_in, const T* S_in, const T* gU_out, const
 
 // One entry point per instantiation, named SOIL_ENTRY
 // (soil_column_segment_vjp_<f32|f64>_nz<NZ> for ForwardEuler over heat +
-// Richards, soil_column_segment_vjp_<heun_richards|implicit_<thomas|pcr>_
-// richards|euler_heat>_<f32|f64>_nz<NZ> for the others). The build
-// (ops/cuda_build.py) compiles each instantiation in its own nvcc, in
-// parallel, with SOIL_ENTRY, SOIL_T, SOIL_NZ and the tags' SOIL_STEPPER (0
-// ForwardEuler, the default, 1 Heun, 2 ImplicitEuler), SOIL_SOLVER (0
-// Thomas, 1 PCR) and SOIL_HEAT (0, the default, or 1) defined. The heat-only
-// entry reads no surface pool: S_in, gS_out and gS_in may be null.
+// Richards, soil_column_segment_vjp_<heun_richards|heun_heat|implicit_
+// <thomas|pcr>_richards|euler_heat>_<f32|f64>_nz<NZ> and, for picard_step,
+// soil_column_segment_vjp_implicit_picard_<richards|heat>_<f32|f64>_nz<NZ>
+// for the others). The build (ops/cuda_build.py) compiles each
+// instantiation in its own nvcc, in parallel, with SOIL_ENTRY, SOIL_T,
+// SOIL_NZ and the tags' SOIL_STEPPER (0 ForwardEuler, the default, 1 Heun, 2
+// ImplicitEuler), SOIL_SOLVER (0 Thomas, 1 PCR, 2 either, chosen at run time
+// by the `solver` argument), SOIL_HEAT (0, the default, or 1) and
+// SOIL_PICARD (1: picard_step with `picard` iterations) defined. The
+// heat-only entries read no surface pool: S_in, gS_out and gS_in may be
+// null. An entry returns cudaErrorInvalidValue for a solver code other than
+// 0 and 1 or one it was not built for, a Picard count below 1, or one other
+// than 1 without SOIL_PICARD.
 #if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ)
-#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> [-DSOIL_STEPPER=0|1|2 -DSOIL_SOLVER=0|1 -DSOIL_HEAT=0|1]"
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> [-DSOIL_STEPPER=0|1|2 -DSOIL_SOLVER=0|1|2 -DSOIL_HEAT=0|1 -DSOIL_PICARD=0|1]"
 #endif
 #ifndef SOIL_STEPPER
 #define SOIL_STEPPER 0
@@ -180,6 +188,9 @@ int launch(const T* U_in, const T* sat_in, const T* S_in, const T* gU_out, const
 #ifndef SOIL_HEAT
 #define SOIL_HEAT 0
 #endif
+#ifndef SOIL_PICARD
+#define SOIL_PICARD 0
+#endif
 
 extern "C" int SOIL_ENTRY(const SOIL_T* U_in, const SOIL_T* sat_in, const SOIL_T* S_in,
                           const SOIL_T* gU_out, const SOIL_T* gsat_out, const SOIL_T* gS_out,
@@ -188,10 +199,13 @@ extern "C" int SOIL_ENTRY(const SOIL_T* U_in, const SOIL_T* sat_in, const SOIL_T
                           long long top_step_stride, long long top_cell_stride,
                           const SOIL_T* dz, const SOIL_T* dzf, const SOIL_T* zc,
                           const SOIL_T* zf, const SoilColumnParams* P, int steps, double dt,
-                          long long cells, void* stream)
+                          long long cells, int solver, int picard, void* stream)
 {
-    return launch<SOIL_T, SOIL_NZ, SOIL_STEPPER, SOIL_SOLVER, SOIL_HEAT != 0>(
+    if (picard < 1 || (!SOIL_PICARD && picard != 1) || (solver != 0 && solver != 1)
+        || (SOIL_STEPPER == 2 && SOIL_SOLVER != 2 && solver != SOIL_SOLVER))
+        return (int)cudaErrorInvalidValue;
+    return launch<SOIL_T, SOIL_NZ, SOIL_STEPPER, SOIL_SOLVER, SOIL_HEAT != 0, SOIL_PICARD != 0>(
         U_in, sat_in, S_in, gU_out, gsat_out, gS_out, gU_in, gsat_in, gS_in, partials, gparams,
         scratch, top_T, top_step_stride, top_cell_stride, dz, dzf, zc, zf, P, steps, dt, cells,
-        (cudaStream_t)stream);
+        picard, solver, (cudaStream_t)stream);
 }

@@ -25,8 +25,10 @@
 
 #if defined(__CUDACC__)
 #define SOIL_FN __device__ __forceinline__
+#define SOIL_NOINLINE_FN __device__ __noinline__
 #else
 #define SOIL_FN inline
+#define SOIL_NOINLINE_FN inline
 #endif
 
 extern "C" {
@@ -415,7 +417,9 @@ SOIL_FN void heun_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T v0, const T v1,
 // the assembly of implicit.py:69-117, tridiag.py:44-50 and :85-88 (Thomas),
 // tridiag.py:109-129 (PCR).
 
-enum { SOLVER_THOMAS = 0, SOLVER_PCR = 1 };
+// SOLVER_RUNTIME: either solver, chosen by a `solver` argument at run time
+// (picard_step and its adjoint), so that one instantiation serves both
+enum { SOLVER_THOMAS = 0, SOLVER_PCR = 1, SOLVER_RUNTIME = 2 };
 
 // the tendencies (the right-hand sides) and what the rows need of the
 // closed column: the centre thermal conductivity, dT/dU (0 on the freeze
@@ -533,8 +537,10 @@ SOIL_FN void pcr(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ]) {
 }
 
 template <typename T, int NZ, int SOLVER>
-SOIL_FN void solve(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ]) {
+SOIL_FN void solve(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ], const int solver = SOLVER) {
     if constexpr (SOLVER == SOLVER_PCR) pcr<T, NZ>(a, b, c, d);
+    else if constexpr (SOLVER == SOLVER_THOMAS) thomas<T, NZ>(a, b, c, d);
+    else if (solver == SOLVER_PCR) pcr<T, NZ>(a, b, c, d);
     else thomas<T, NZ>(a, b, c, d);
 }
 
@@ -579,6 +585,87 @@ SOIL_FN void implicit_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const C
     S = S + f.S * dt;
 }
 
+// One ImplicitEuler.pre_closure_step of the column with `iters` Picard
+// iterations (implicit.py:234-254), over heat + Richards or, HEAT, the
+// heat-only model, whose only implicit system is the energy's (its rows and
+// solve as implicit_step's; the saturation is read only, and there is no
+// pool). Iteration 0 is implicit_step's arithmetic: the closure in place,
+// the tendencies, each system's rows and solve. Each further iteration
+// closes the iterate in place (the saturation adjustment; its spill goes to
+// a copy of the pool and is dropped, since S, an explicit variable, keeps
+// iteration 0's value), takes the tendencies and the rows at the iterate
+// with the top temperature still at the step's clock time, and solves
+// A(u_k) du = tend(u_k) - (u_k - u^n) / dt, u_k the closed iterate and u^n
+// the step's closed start, setting u = u_k + du for U and sat. The loop is
+// not unrolled: one body serves every iteration, and u^n (U and the closed
+// saturation) stays live across it. iters = 0 leaves the column as it is.
+// SOLVER may be SOLVER_RUNTIME, the solves then by `solver`.
+template <typename T, int NZ, int SOLVER, bool HEAT>
+SOIL_FN void picard_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Consts<T>& c,
+                         const SoilColumnParams& P, const T* dz, const T* dzf, const T* zc,
+                         const T* zf, const T dt, const T inv_dt, const int iters,
+                         const int solver = SOLVER)
+{
+    T Un[NZ], sn[NZ];
+#pragma unroll 1
+    for (int it = 0; it < iters; ++it) {
+        ImplicitTerms<T, NZ> f;
+        T Sk = S;
+        closure_rhs<T, NZ, HEAT>(U, sat, Sk, vtop, c, P, dz, dzf, zc, zf, f);
+        if (it == 0) {
+            S = Sk;
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) { Un[k] = U[k]; sn[k] = sat[k]; }
+        } else {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                f.U[k] = f.U[k] - (U[k] - Un[k]) / dt;
+                if (!HEAT) f.sat[k] = f.sat[k] - (sat[k] - sn[k]) / dt;
+            }
+        }
+        T a[NZ], b[NZ], cc[NZ];
+        {
+            T Kf[NZ + 1];
+            Kf[0] = T(0.5) * (f.kap[0] + f.kap[0]);
+#pragma unroll
+            for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (f.kap[k] + f.kap[k - 1]);
+            Kf[NZ] = T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]);
+            diffusion_rows<T, NZ>(Kf, f.Dh, T(1), inv_dt, dz, dzf, true, a, b, cc);
+        }
+        solve<T, NZ, SOLVER>(a, b, cc, f.U, solver);
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) U[k] = U[k] + f.U[k];
+        if constexpr (!HEAT) {
+            {
+                T D[NZ];
+#pragma unroll
+                for (int k = 0; k < NZ; ++k) D[k] = water_chain<T>(sat[k], c, P);
+                diffusion_rows<T, NZ>(f.Keff, D, c.inv_por, inv_dt, dz, dzf, false, a, b, cc);
+            }
+            solve<T, NZ, SOLVER>(a, b, cc, f.sat, solver);
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + f.sat[k];
+            if (it == 0) S = S + f.S * dt;
+        }
+    }
+}
+
+// picard_step compiled once, out of line, for the segment VJP, which runs it
+// in its forward pass and again to recompute the iterates of each step's
+// adjoint (picard_step_adjoint): one copy of the step's code instead of two
+// to register-allocate, at the price of the column's arrays in local memory
+// across the call
+template <typename T, int NZ, int SOLVER, bool HEAT>
+SOIL_NOINLINE_FN void picard_step_call(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop,
+                                       const Consts<T>& c, const SoilColumnParams& P,
+                                       const T* dz, const T* dzf, const T* zc, const T* zf,
+                                       const T dt, const T inv_dt, const int iters,
+                                       const int solver)
+{
+    picard_step<T, NZ, SOLVER, HEAT>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt, inv_dt, iters,
+                                     solver);
+}
+
 // A uniformly spaced series at clock time t (ops/fused_step.py::series_value,
 // the counterpart of _WindowSource.update_inputs, fused_step.py:104-122, read
 // from the whole series instead of a window): `s` points at the column's
@@ -600,21 +687,24 @@ SOIL_FN T series_value(const T* s, const long long row_stride, const int rows, c
 enum { STEPPER_EULER = 0, STEPPER_HEUN = 1, STEPPER_IMPLICIT = 2 };
 
 // `steps` closure-rotated steps of one column (U, sat, S) in place, by
-// STEPPER (ForwardEuler, Heun or ImplicitEuler with SOLVER; inv_dt is
-// 1 / dt as the host rounds it), from the clock time t, which advances by
-// t + dt as Clock.tick does. The top temperature of clock time i is
+// STEPPER (ForwardEuler, Heun or ImplicitEuler with SOLVER: implicit_step,
+// or, PICARD, picard_step with `iters` iterations; inv_dt is 1 / dt as the
+// host rounds it), from the clock time t, which advances by t + dt as
+// Clock.tick does. The top temperature of clock time i is
 // top[i * step_stride] (a table; Heun reads steps + 1 rows) or, SERIES,
 // the series at `top` read at the clock time; `top` points at the column's
 // element of row 0.
-template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES>
+template <typename T, int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES,
+          bool PICARD = false>
 SOIL_FN void rollout_column(T (&U)[NZ], T (&sat)[NZ], T& S, const T* top,
                             const long long step_stride, const int rows, const T t0,
                             const T dts, T t, const int steps, const Consts<T>& c,
                             const SoilColumnParams& P, const T* dz, const T* dzf,
-                            const T* zc, const T* zf, const T dt, const T inv_dt)
+                            const T* zc, const T* zf, const T dt, const T inv_dt,
+                            const int iters = 1, const int solver = SOLVER)
 {
-    static_assert(!(STEPPER == STEPPER_IMPLICIT && HEAT),
-                  "the implicit column step runs heat + Richards");
+    static_assert(!(STEPPER == STEPPER_IMPLICIT && HEAT && !PICARD),
+                  "the heat-only implicit column step is picard_step's");
     for (int s = 0; s < steps; ++s) {
         if constexpr (STEPPER == STEPPER_HEUN) {
             const T t1 = t + dt;
@@ -627,7 +717,11 @@ SOIL_FN void rollout_column(T (&U)[NZ], T (&sat)[NZ], T& S, const T* top,
         } else if constexpr (STEPPER == STEPPER_IMPLICIT) {
             const T vtop = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
                                   : top[s * step_stride];
-            implicit_step<T, NZ, SOLVER>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt, inv_dt);
+            if constexpr (PICARD)
+                picard_step<T, NZ, SOLVER, HEAT>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt,
+                                                 inv_dt, iters, solver);
+            else
+                implicit_step<T, NZ, SOLVER>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt, inv_dt);
             if (SERIES) t = t + dt;
         } else {
             const T vtop = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
@@ -953,14 +1047,16 @@ SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const
                              gskm, c, P, dz, dzf, zc, zf);
 }
 
-// Cotangents through one heun_step() (heat + Richards), as step_adjoint:
-// the closure and f_n of x_n at v0 and the stage y = x_n + f_n dt are
-// recomputed; the corrector's mean gives each tendency 0.5 (g dt); the
-// stage's closure_rhs at v1 is read only through its tendencies; y passes
-// its cotangent to the closed x_n and, times dt, to f_n. The two
-// rhs_adjoint passes (the stage, then x_n) run one body in a loop that is
-// not unrolled, which halves the code the compiler register-allocates.
-template <typename T, int NZ>
+// Cotangents through one heun_step() (heat + Richards or, HEAT, heat only),
+// as step_adjoint: the closure and f_n of x_n at v0 and the stage y = x_n +
+// f_n dt are recomputed; the corrector's mean gives each tendency 0.5 (g
+// dt); the stage's closure_rhs at v1 is read only through its tendencies;
+// y passes its cotangent to the closed x_n and, times dt, to f_n. HEAT: the
+// stage reads the saturation as it is, so its cotangent gathers the
+// output's, the stage's and x_n's. The two rhs_adjoint passes (the stage,
+// then x_n) run one body in a loop that is not unrolled, which halves the
+// code the compiler register-allocates.
+template <typename T, int NZ, bool HEAT = false>
 SOIL_FN void heun_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T v0,
                                const T v1, T (&gU)[NZ], T (&gs)[NZ], T& gS, T& gKsat, T& gskm,
                                const Consts<T>& c, const SoilColumnParams& P, const T* dz,
@@ -973,12 +1069,12 @@ SOIL_FN void heun_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, 
     for (int k = 0; k < NZ; ++k) { xU[k] = U[k]; xs[k] = sat[k]; }
     {
         Tendencies<T, NZ> f;
-        closure_rhs<T, NZ, false>(U, xs, xS, v0, c, P, dz, dzf, zc, zf, f);
-        xS = xS + f.S * dt;
+        closure_rhs<T, NZ, HEAT>(U, xs, xS, v0, c, P, dz, dzf, zc, zf, f);
+        if (!HEAT) xS = xS + f.S * dt;
 #pragma unroll
         for (int k = 0; k < NZ; ++k) {
             xU[k] = U[k] + f.U[k] * dt;
-            xs[k] = xs[k] + f.sat[k] * dt;
+            if (!HEAT) xs[k] = xs[k] + f.sat[k] * dt;
         }
     }
     T gfU[NZ], gfs[NZ], gxU[NZ], gxs[NZ];
@@ -992,8 +1088,8 @@ SOIL_FN void heun_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, 
     T gfS = T(0.5) * (gS * dt), gxS = T(0), v = v1;
 #pragma unroll 1
     for (int pass = 0; pass < 2; ++pass) {
-        rhs_adjoint<T, NZ, false>(xU, xs, xS, v, gxU, gxs, gxS, gfU, gfs, gfS, NoTerms<T>{},
-                                  gKsat, gskm, c, P, dz, dzf, zc, zf);
+        rhs_adjoint<T, NZ, HEAT>(xU, xs, xS, v, gxU, gxs, gxS, gfU, gfs, gfS, NoTerms<T>{},
+                                 gKsat, gskm, c, P, dz, dzf, zc, zf);
         if (pass == 0) {  // y = x_n (closed) + f_n dt
 #pragma unroll
             for (int k = 0; k < NZ; ++k) {
@@ -1062,7 +1158,7 @@ SOIL_FN void diffusion_rows_adjoint(const T (&Kf)[NZ + 1], const T (&D)[NZ], con
 template <typename T, int NZ, int SOLVER>
 SOIL_FN void solve_adjoint(const T (&a)[NZ], const T (&b)[NZ], const T (&c)[NZ],
                            const T (&d)[NZ], const T (&gx)[NZ], T (&gd)[NZ], T (&ga)[NZ],
-                           T (&gb)[NZ], T (&gc)[NZ])
+                           T (&gb)[NZ], T (&gc)[NZ], const int solver = SOLVER)
 {
     T x[NZ], a2[NZ], b2[NZ], c2[NZ], r[NZ];
 #pragma unroll 1
@@ -1075,7 +1171,7 @@ SOIL_FN void solve_adjoint(const T (&a)[NZ], const T (&b)[NZ], const T (&c)[NZ],
             c2[k] = t ? (k == NZ - 1 ? T(0) : a[k < NZ - 1 ? k + 1 : k]) : c[k];
             r[k] = t ? gx[k] : d[k];
         }
-        solve<T, NZ, SOLVER>(a2, b2, c2, r);
+        solve<T, NZ, SOLVER>(a2, b2, c2, r, solver);
 #pragma unroll
         for (int k = 0; k < NZ; ++k) {
             if (t) gd[k] = r[k];
@@ -1182,8 +1278,136 @@ SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T
                               c, P, dz, dzf, zc, zf);
 }
 
-// The segment VJP of one column by STEPPER (SOLVER) over heat + Richards
-// or, HEAT, ForwardEuler over the heat-only model: `steps` forward steps
+// Cotangents through one iteration of picard_step() at its iterate (U,
+// sat, S) before the iteration's closure, as implicit_step_adjoint: the
+// closure, the tendencies, the terms and the rows are recomputed there, and
+// each system is undone by one solve of its transposed rows. HEAT: the
+// energy system alone. The first iteration (`later` false) reads the
+// step's start: (gUn, gsn), the cotangents that the later iterations' right
+// sides gave u^n (U and the closed saturation), join those of U and of the
+// closed saturation before the closure's adjoint, and the pool takes its
+// path as in implicit_step_adjoint. A later iteration's right side is
+// tend(u_k) - (u_k - u^n) / dt (Un, sn: u^n), so each implicit variable's
+// solve cotangent lambda gives -lambda / dt to the closed iterate and
+// +lambda / dt to (gUn, gsn); its pool is dropped, so nothing reaches it
+// (gS is left as it is).
+template <typename T, int NZ, int SOLVER, bool HEAT>
+SOIL_FN void picard_iter_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T vtop,
+                                 const bool later, const T (&Un)[NZ], const T (&sn)[NZ],
+                                 T (&gU)[NZ], T (&gs)[NZ], T& gS, T (&gUn)[NZ], T (&gsn)[NZ],
+                                 T& gKsat, T& gskm, const Consts<T>& c,
+                                 const SoilColumnParams& P, const T* dz, const T* dzf,
+                                 const T* zc, const T* zf, const T dt, const T inv_dt,
+                                 const int solver = SOLVER)
+{
+    T xs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) xs[k] = sat[k];
+    T xS = S;
+    ImplicitTerms<T, NZ> f;
+    closure_rhs<T, NZ, HEAT>(U, xs, xS, vtop, c, P, dz, dzf, zc, zf, f);
+    TermCotangents<T, NZ> x;
+    T gfU[NZ], gfs[NZ];
+#pragma unroll 1
+    for (int sys = HEAT ? 1 : 0; sys < 2; ++sys) {  // 0: Richards, 1: heat
+        const bool heat = sys == 1;
+        T Kf[NZ + 1], D[NZ], d[NZ], gx[NZ], gd[NZ], gKf[NZ + 1], gD[NZ];
+        T a[NZ], b[NZ], cc[NZ], ga[NZ], gb[NZ], gc[NZ];
+        Kf[0] = heat ? T(0.5) * (f.kap[0] + f.kap[0]) : f.Keff[0];
+#pragma unroll
+        for (int k = 1; k < NZ; ++k) Kf[k] = heat ? T(0.5) * (f.kap[k] + f.kap[k - 1]) : f.Keff[k];
+        Kf[NZ] = heat ? T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]) : f.Keff[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            D[k] = heat ? f.Dh[k] : water_chain<T>(xs[k], c, P);
+            d[k] = heat ? f.U[k] : f.sat[k];
+            if (later) d[k] = d[k] - ((heat ? U[k] : xs[k]) - (heat ? Un[k] : sn[k])) / dt;
+            gx[k] = heat ? gU[k] : gs[k];
+        }
+        const T s = heat ? T(1) : c.inv_por;
+        diffusion_rows<T, NZ>(Kf, D, s, inv_dt, dz, dzf, heat, a, b, cc);
+        solve_adjoint<T, NZ, SOLVER>(a, b, cc, d, gx, gd, ga, gb, gc, solver);
+        diffusion_rows_adjoint<T, NZ>(Kf, D, s, dz, dzf, heat, ga, gb, gc, gKf, gD);
+        if (heat) {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfU[k] = gd[k];
+                x.gkap[k] = T(0.5) * (gKf[k] + gKf[k + 1]);
+                x.gC[k] = -(gD[k] * f.Dh[k]) * f.Dh[k];  // Dh = 1/C, or 0 on the plateau
+            }
+            x.gkap[0] = x.gkap[0] + T(0.5) * gKf[0];
+            x.gkap[NZ - 1] = x.gkap[NZ - 1] + T(0.5) * gKf[NZ];
+        } else {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfs[k] = gd[k];
+                gs[k] = gs[k] + gD[k] * water_chain_deriv<T>(xs[k], c, P);
+            }
+#pragma unroll
+            for (int f_ = 0; f_ <= NZ; ++f_) x.gKeff[f_] = gKf[f_];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        if (later) {
+            const T qU = gfU[k] / dt;
+            gU[k] = gU[k] - qU;
+            gUn[k] = gUn[k] + qU;
+            if (!HEAT) {
+                const T qs = gfs[k] / dt;
+                gs[k] = gs[k] - qs;
+                gsn[k] = gsn[k] + qs;
+            }
+        } else {
+            gU[k] = gU[k] + gUn[k];
+            if (!HEAT) gs[k] = gs[k] + gsn[k];
+        }
+    }
+    T gSk = later ? T(0) : gS;
+    rhs_adjoint<T, NZ, HEAT>(U, sat, S, vtop, gU, gs, gSk, gfU, gfs, gSk * dt, x, gKsat, gskm,
+                             c, P, dz, dzf, zc, zf);
+    if (!later) gS = gSk;
+}
+
+// Cotangents through one picard_step() with `iters` iterations, as
+// step_adjoint. The iterations are undone from the last: for iteration k,
+// the iterate u_k is recomputed from the step's stored start by
+// picard_step's first k iterations (picard_step_call; nothing is stored per
+// iteration), then
+// picard_iter_adjoint takes it back to the iterate before it. The closed
+// start u^n that the later iterations read is the start's sweeps.
+template <typename T, int NZ, int SOLVER, bool HEAT>
+SOIL_FN void picard_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T S, const T vtop,
+                                 T (&gU)[NZ], T (&gs)[NZ], T& gS, T& gKsat, T& gskm,
+                                 const Consts<T>& c, const SoilColumnParams& P, const T* dz,
+                                 const T* dzf, const T* zc, const T* zf, const T dt,
+                                 const T inv_dt, const int iters, const int solver = SOLVER)
+{
+    T sn[NZ], gUn[NZ], gsn[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) { sn[k] = sat[k]; gUn[k] = T(0); gsn[k] = T(0); }
+    if constexpr (!HEAT) {
+        T spill, wt;
+        unsigned spilled, clipped;
+        sweeps<T, NZ>(sn, spill, wt, spilled, clipped, dz, zf);
+    }
+#pragma unroll 1
+    for (int it = iters - 1; it >= 0; --it) {
+        T xU[NZ], xs[NZ], xS = S;
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) { xU[k] = U[k]; xs[k] = sat[k]; }
+        picard_step_call<T, NZ, SOLVER, HEAT>(xU, xs, xS, vtop, c, P, dz, dzf, zc, zf, dt,
+                                              inv_dt, it, solver);
+        picard_iter_adjoint<T, NZ, SOLVER, HEAT>(xU, xs, xS, vtop, it > 0, U, sn, gU, gs, gS,
+                                                 gUn, gsn, gKsat, gskm, c, P, dz, dzf, zc, zf,
+                                                 dt, inv_dt, solver);
+    }
+}
+
+// The segment VJP of one column by STEPPER (SOLVER; PICARD: picard_step
+// with `iters` iterations, SOLVER_RUNTIME taking `solver`) over heat +
+// Richards or, HEAT, the heat-only
+// model (ForwardEuler, Heun or picard_step): `steps` forward steps
 // from the segment input carry, each step's input carry stored to `scratch`
 // (laid out [step][row][cell], rows U[0..NZ), sat[0..NZ), S, or U alone
 // for HEAT, whose saturation the steps never change, so neighbouring
@@ -1194,7 +1418,7 @@ SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const T
 // gathered over the steps); adds the parameter cotangents to gKsat and
 // gskm.
 template <typename T, int NZ, int STEPPER = STEPPER_EULER, int SOLVER = SOLVER_THOMAS,
-          bool HEAT = false>
+          bool HEAT = false, bool PICARD = false>
 SOIL_FN void segment_vjp_column(
     const long long col, const long long cells, const int steps,
     const T* U_in, const T* sat_in, const T* S_in,
@@ -1203,10 +1427,10 @@ SOIL_FN void segment_vjp_column(
     const T* top_T, const long long top_step_stride, const long long top_cell_stride,
     const Consts<T>& c, const SoilColumnParams& P,
     const T* dz, const T* dzf, const T* zc, const T* zf, const T dt, const T inv_dt,
-    T& gKsat, T& gskm)
+    T& gKsat, T& gskm, const int iters = 1, const int solver = SOLVER)
 {
-    static_assert(!HEAT || STEPPER == STEPPER_EULER,
-                  "the heat-only segment VJP runs ForwardEuler");
+    static_assert(!(STEPPER == STEPPER_IMPLICIT && HEAT && !PICARD),
+                  "the heat-only implicit segment VJP is picard_step's");
     const long long rows = HEAT ? NZ : 2 * NZ + 1;
     T U[NZ], sat[NZ];
 #pragma unroll
@@ -1226,7 +1450,10 @@ SOIL_FN void segment_vjp_column(
         const T vtop = top_T[i * top_step_stride + col * top_cell_stride];
         if constexpr (STEPPER == STEPPER_HEUN) {
             const T v1 = top_T[(i + 1) * top_step_stride + col * top_cell_stride];
-            heun_step<T, NZ, false>(U, sat, S, vtop, v1, c, P, dz, dzf, zc, zf, dt);
+            heun_step<T, NZ, HEAT>(U, sat, S, vtop, v1, c, P, dz, dzf, zc, zf, dt);
+        } else if constexpr (STEPPER == STEPPER_IMPLICIT && PICARD) {
+            picard_step_call<T, NZ, SOLVER, HEAT>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt,
+                                                  inv_dt, iters, solver);
         } else if constexpr (STEPPER == STEPPER_IMPLICIT) {
             implicit_step<T, NZ, SOLVER>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, dt, inv_dt);
         } else {
@@ -1252,8 +1479,12 @@ SOIL_FN void segment_vjp_column(
         const T vtop = top_T[i * top_step_stride + col * top_cell_stride];
         if constexpr (STEPPER == STEPPER_HEUN) {
             const T v1 = top_T[(i + 1) * top_step_stride + col * top_cell_stride];
-            heun_step_adjoint<T, NZ>(U, sat, S, vtop, v1, gU, gs, gS, gKsat, gskm, c, P, dz, dzf,
-                                     zc, zf, dt);
+            heun_step_adjoint<T, NZ, HEAT>(U, sat, S, vtop, v1, gU, gs, gS, gKsat, gskm, c, P, dz,
+                                           dzf, zc, zf, dt);
+        } else if constexpr (STEPPER == STEPPER_IMPLICIT && PICARD) {
+            picard_step_adjoint<T, NZ, SOLVER, HEAT>(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, c,
+                                                     P, dz, dzf, zc, zf, dt, inv_dt, iters,
+                                                     solver);
         } else if constexpr (STEPPER == STEPPER_IMPLICIT) {
             implicit_step_adjoint<T, NZ, SOLVER>(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, c, P,
                                                  dz, dzf, zc, zf, dt, inv_dt);

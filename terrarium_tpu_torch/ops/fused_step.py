@@ -13,9 +13,18 @@ configurations below, one kernel family (and one wrapper) each:
   carry;
 * :func:`soil_column_heat_rollout`: ForwardEuler, heat only (``NoFlow``);
   carry the internal energy, the saturation read and never written;
-* :func:`soil_column_implicit_rollout`: ImplicitEuler (one Picard
-  iteration), heat + Richards flow, each step two tridiagonal solves (heat
-  and Richards) by Thomas or PCR; the Euler carry.
+* :func:`soil_column_implicit_rollout`: ImplicitEuler, heat + Richards
+  flow, each step two tridiagonal solves (heat and Richards) by Thomas or
+  PCR, and each further Picard iteration (``picard_iters``) two more at the
+  iterate; the Euler carry;
+* :func:`soil_column_heat_heun_rollout` and
+  :func:`soil_column_heat_implicit_rollout`: Heun and ImplicitEuler (any
+  number of Picard iterations; the energy's solve alone) over the heat-only
+  model, the heat-only carry.
+
+ImplicitEuler over the heat-only model or with more than one Picard
+iteration runs ``soil::picard_step``, whose instantiations take the Picard
+count and the solver at run time (:func:`kernel_tags`).
 
 The top temperature is either a table, one row per clock time (``(rows,)``
 or ``(rows, cells)``, strides may be 0; Heun reads ``n + 1`` rows, the
@@ -68,9 +77,10 @@ from ..timesteppers.stepping import ForwardEuler, Heun
 from ..utils.utils import safediv
 
 __all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "soil_flow", "clock_times",
-           "top_temperature_value", "top_temperature_table", "STEPPERS",
+           "top_temperature_value", "top_temperature_table", "STEPPERS", "kernel_tags",
            "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
-           "soil_column_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS",
+           "soil_column_implicit_rollout", "soil_column_heat_heun_rollout",
+           "soil_column_heat_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS",
            "make_fused_step", "full_step_scheme", "full_step_operands", "soil_column_full_step",
            "soil_column_full_step_plain"]
 
@@ -441,25 +451,43 @@ def _plain_heun(U, sat, S, v0, v1, coords, p, dt, heat):
             S + (0.5 * (fS + gS)) * dt)
 
 
-def _plain_implicit(U, sat, S, vtop, coords, p, dt, heat, solver):
-    """``ImplicitEuler.pre_closure_step`` (`implicit.py:173-264`, one Picard
-    iteration): close the column and take its tendencies; the heat rows
-    (face kappa, dT/dU, scale 1, the Dirichlet top) and their solve, ``U +
-    du``; the Richards rows (Darcy face K, d(Psi)/d(sat) =
-    ``inverse_deriv(sat * por, por) * por`` at the closed saturation, scale
-    1/por) and their solve, ``sat + du``; ``S + dS dt``."""
+def _plain_implicit(U, sat, S, vtop, coords, p, dt, heat, solver, picard_iters=1):
+    """``ImplicitEuler.pre_closure_step`` (`implicit.py:173-264`): close the
+    column and take its tendencies; the heat rows (face kappa, dT/dU, scale
+    1, the Dirichlet top) and their solve, ``U + du``; the Richards rows
+    (Darcy face K, d(Psi)/d(sat) = ``inverse_deriv(sat * por, por) * por``
+    at the closed saturation, scale 1/por) and their solve, ``sat + du``;
+    ``S + dS dt``. Each further Picard iteration (`implicit.py:234-254`)
+    closes the iterate (its spill is dropped: the pool keeps the first
+    iteration's value), takes its tendencies and rows at the step's top
+    temperature, and sets each implicit variable to the closed iterate plus
+    the solve of ``tend(u_k) - (u_k - u^n) / dt``, ``u^n`` the closed start.
+    The heat-only model has the heat rows alone."""
     dz, dzf = coords[0], coords[1]
-    sat, S, dU, dsat, dS, kap, Dh, K_eff = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
     solve = SOLVERS[solver]
-    Kf = 0.5 * (torch.cat([kap, kap[-1:]]) + torch.cat([kap[:1], kap]))
     one = torch.ones((), dtype=U.dtype, device=U.device)
-    U = U + solve(*diffusion_rows(Kf, Dh, one, dz, dzf, dt, dirichlet_top=True), dU)
-    if heat:
-        return U, sat, S
-    inv_por = torch.tensor(p.inv_por, dtype=U.dtype, device=U.device)
-    D = p.swrc.inverse_deriv(sat * p.por, p.por) * p.por
-    rows = diffusion_rows(K_eff, D, inv_por, dz, dzf, dt)
-    return U, sat + solve(*rows, dsat), S + dS * dt
+
+    def heat_rows(kap, Dh):
+        Kf = 0.5 * (torch.cat([kap, kap[-1:]]) + torch.cat([kap[:1], kap]))
+        return diffusion_rows(Kf, Dh, one, dz, dzf, dt, dirichlet_top=True)
+
+    def water_rows(K_eff, closed):
+        inv_por = torch.tensor(p.inv_por, dtype=U.dtype, device=U.device)
+        D = p.swrc.inverse_deriv(closed * p.por, p.por) * p.por
+        return diffusion_rows(K_eff, D, inv_por, dz, dzf, dt)
+
+    sat, S, dU, dsat, dS, kap, Dh, K_eff = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
+    U_n, sat_n = U, sat
+    U = U + solve(*heat_rows(kap, Dh), dU)
+    if not heat:
+        sat = sat + solve(*water_rows(K_eff, sat), dsat)
+        S = S + dS * dt
+    for _ in range(max(1, int(picard_iters)) - 1):
+        closed, _, fU, fs, _, kap, Dh, K_eff = _plain_rhs(U, sat, S, vtop, *coords, p, heat)
+        U = U + solve(*heat_rows(kap, Dh), fU - (U - U_n) / dt)
+        if not heat:
+            sat = closed + solve(*water_rows(K_eff, closed), fs - (closed - sat_n) / dt)
+    return U, sat, S
 
 
 def series_value(values: torch.Tensor, t: torch.Tensor, t0: torch.Tensor,
@@ -475,13 +503,31 @@ def series_value(values: torch.Tensor, t: torch.Tensor, t0: torch.Tensor,
     return (1.0 - w) * values[i] + w * values[min(i + 1, rows - 1)]
 
 
-def _scheme(stepper: str, physics: str, solver: str = "pcr"):
+def _scheme(stepper: str, physics: str, solver: str = "pcr", picard_iters: int = 1):
     if (stepper not in ("euler", "heun", "implicit") or physics not in ("richards", "heat")
             or solver not in SOLVERS):
         raise ValueError(f"stepper 'euler', 'heun' or 'implicit', physics 'richards' or "
                          f"'heat' and solver one of {sorted(SOLVERS)}, got {stepper!r}, "
                          f"{physics!r} and {solver!r}")
+    if int(picard_iters) != picard_iters or picard_iters < 1:
+        raise ValueError(f"picard_iters must be a positive integer, got {picard_iters!r}")
     return stepper == "heun", physics == "heat"
+
+
+def kernel_tags(stepper: str, physics: str, picard_iters: int,
+                plain_euler: tuple = ("euler", "richards"), solver: str = "pcr") -> tuple:
+    """The build tags of the instantiation that runs a scheme
+    (``cuda_build.INSTANTIATIONS``): ``(stepper, physics)``, none for
+    ``plain_euler``; ImplicitEuler with one Picard iteration over heat +
+    Richards ``("implicit", solver, "richards")``; ImplicitEuler over the
+    heat-only model or with more Picard iterations ``("implicit", "picard",
+    physics)``, the entries that take the count and the solver at run time
+    (``soil::picard_step``)."""
+    if stepper != "implicit":
+        return () if (stepper, physics) == plain_euler else (stepper, physics)
+    if physics == "richards" and picard_iters == 1:
+        return stepper, solver, physics
+    return stepper, "picard", physics
 
 
 def _steps(top, heun: bool) -> int:
@@ -502,15 +548,16 @@ def _top_reader(top, steps: int, dt: float, dtype, device):
 
 def soil_column_rollout_plain(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
                               params: ColumnParams, dt: float, *, stepper: str = "euler",
-                              physics: str = "richards", solver: str = "pcr"):
+                              physics: str = "richards", solver: str = "pcr",
+                              picard_iters: int = 1):
     """Plain PyTorch version of the kernels: ``n`` closure-rotated steps of
     ``stepper`` (``"euler"``, ``"heun"`` or ``"implicit"``, the last with
-    the tridiagonal ``solver``, ``"pcr"`` or ``"thomas"``) for ``physics``
-    (``"richards"`` or ``"heat"``, where ``sat`` is read and returned as it
-    is and ``S`` may be ``None``), the top temperature from the table or
-    :class:`SeriesBC` ``top``. Coordinates are 1-D tensors in the fields'
-    dtype."""
-    heun, heat = _scheme(stepper, physics, solver)
+    the tridiagonal ``solver``, ``"pcr"`` or ``"thomas"``, and
+    ``picard_iters`` Picard iterations) for ``physics`` (``"richards"`` or
+    ``"heat"``, where ``sat`` is read and returned as it is and ``S`` may be
+    ``None``), the top temperature from the table or :class:`SeriesBC`
+    ``top``. Coordinates are 1-D tensors in the fields' dtype."""
+    heun, heat = _scheme(stepper, physics, solver, picard_iters)
     coords = (dz[:, None], dz_faces[:, None], z_centers[:, None], z_faces[:, None])
     steps = _steps(top, heun)
     v = _top_reader(top, steps, dt, U.dtype, U.device)
@@ -518,7 +565,8 @@ def soil_column_rollout_plain(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
         if heun:
             U, sat, S = _plain_heun(U, sat, S, v(i), v(i + 1), coords, params, dt, heat)
         elif stepper == "implicit":
-            U, sat, S = _plain_implicit(U, sat, S, v(i), coords, params, dt, heat, solver)
+            U, sat, S = _plain_implicit(U, sat, S, v(i), coords, params, dt, heat, solver,
+                                        picard_iters)
         else:
             U, sat, S = _plain_euler(U, sat, S, v(i), coords, params, dt, heat)
     return U, sat, S
@@ -530,7 +578,9 @@ def soil_column_rollout_plain(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
              + [ctypes.c_double] * 3 + [ctypes.c_void_p] * 4
              + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
-                ctypes.c_void_p])
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+#: the solver codes of the kernels' ``solver`` argument (``soil::SOLVER_*``)
+SOLVER_CODES = {"thomas": 0, "pcr": 1}
 
 
 def _check_inputs(U, sat, S, top, coords, heat=False):
@@ -558,18 +608,20 @@ def _check_inputs(U, sat, S, top, coords, heat=False):
         raise ValueError("a series needs at least one row and steps >= 0")
 
 
-def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solver="pcr"):
+def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solver="pcr",
+             picard_iters=1):
     """Check, then run the plain version (CPU) or launch the kernel of
-    ``(stepper, physics)`` (and ``solver``, implicit) (CUDA); returns the new
-    ``(U, sat, S)``."""
-    heun, heat = _scheme(stepper, physics, solver)
+    ``(stepper, physics)`` (and ``solver`` and ``picard_iters``, implicit)
+    (CUDA); returns the new ``(U, sat, S)``."""
+    heun, heat = _scheme(stepper, physics, solver, picard_iters)
     _check_inputs(U, sat, S, top, coords, heat)
     steps = _steps(top, heun)
     if steps < 0:
         raise ValueError("a Heun table needs steps + 1 rows")
     if U.device.type == "cpu":
         return soil_column_rollout_plain(U, sat, S, top, *coords, params, dt, stepper=stepper,
-                                         physics=physics, solver=solver)
+                                         physics=physics, solver=solver,
+                                         picard_iters=picard_iters)
     if U.device.type != "cuda":
         raise ValueError(f"soil column rollout runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
@@ -577,7 +629,7 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solv
     for t in (*carry, *coords):
         if not t.is_contiguous():
             raise ValueError("the soil column kernels take contiguous fields and coordinates")
-    tags = (stepper, solver, physics) if stepper == "implicit" else (stepper, physics)
+    tags = kernel_tags(stepper, physics, int(picard_iters), plain_euler=(), solver=solver)
     fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
     U_out = torch.empty_like(U)
     sat_out, S_out = (sat, S) if heat else (torch.empty_like(sat), torch.empty_like(S))
@@ -591,6 +643,7 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solv
     err = fn(U.data_ptr(), sat.data_ptr(), ptr(S), U_out.data_ptr(), ptr(sat_out), ptr(S_out),
              data.data_ptr(), data.stride(0), cell_stride, rows, *series,
              *(c.data_ptr() for c in coords), ctypes.byref(cparams), steps, float(dt), cells,
+             SOLVER_CODES[solver], int(picard_iters),
              torch.cuda.current_stream(U.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"soil column kernel launch failed: cudaError {err}")
@@ -625,26 +678,49 @@ def soil_column_heat_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
 
 
 def soil_column_implicit_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
-                                 params: ColumnParams, dt: float, solver: str = "pcr"):
-    """ImplicitEuler (one Picard iteration), heat + Richards: ``n`` fused
-    steps on ``(U, sat, S)``, each solving the heat and the Richards rows
-    with ``solver`` (``"pcr"`` or ``"thomas"``); ``n`` the table's rows or
-    the series' steps."""
+                                 params: ColumnParams, dt: float, solver: str = "pcr",
+                                 picard_iters: int = 1):
+    """ImplicitEuler, heat + Richards: ``n`` fused steps on ``(U, sat, S)``,
+    each solving the heat and the Richards rows with ``solver`` (``"pcr"``
+    or ``"thomas"``) ``picard_iters`` times; ``n`` the table's rows or the
+    series' steps."""
     return _rollout(soil_column_implicit_rollout, "implicit", "richards", U, sat, S, top,
-                    (dz, dz_faces, z_centers, z_faces), params, dt, solver)
+                    (dz, dz_faces, z_centers, z_faces), params, dt, solver, picard_iters)
+
+
+def soil_column_heat_heun_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                                  params: ColumnParams, dt: float):
+    """Heun, heat only: ``n`` fused steps on ``U``, the saturation read and
+    returned as it is; ``n`` the table's rows less one or the series'
+    steps."""
+    return _rollout(soil_column_heat_heun_rollout, "heun", "heat", U, sat, S, top,
+                    (dz, dz_faces, z_centers, z_faces), params, dt)
+
+
+def soil_column_heat_implicit_rollout(U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                                      params: ColumnParams, dt: float, solver: str = "pcr",
+                                      picard_iters: int = 1):
+    """ImplicitEuler, heat only: ``n`` fused steps on ``U``, each solving
+    the heat rows with ``solver`` ``picard_iters`` times, the saturation
+    read and returned as it is; ``n`` the table's rows or the series'
+    steps."""
+    return _rollout(soil_column_heat_implicit_rollout, "implicit", "heat", U, sat, S, top,
+                    (dz, dz_faces, z_centers, z_faces), params, dt, solver, picard_iters)
 
 
 for _fn in (soil_column_rollout, soil_column_heun_rollout, soil_column_heat_rollout,
-            soil_column_implicit_rollout):
+            soil_column_implicit_rollout, soil_column_heat_heun_rollout,
+            soil_column_heat_implicit_rollout):
     _fn.launches = 0
 
-#: the kernel wrapper of each (stepper, physics); the implicit one takes the
-#: solver as ``solver=``. Heun and ImplicitEuler with the heat-only model run
-#: their plain versions on the CPU and have no kernel
+#: the kernel wrapper of each (stepper, physics); the implicit ones take the
+#: solver as ``solver=`` and the Picard count as ``picard_iters=``
 ROLLOUTS = {("euler", "richards"): soil_column_rollout,
             ("heun", "richards"): soil_column_heun_rollout,
             ("euler", "heat"): soil_column_heat_rollout,
-            ("implicit", "richards"): soil_column_implicit_rollout}
+            ("implicit", "richards"): soil_column_implicit_rollout,
+            ("heun", "heat"): soil_column_heat_heun_rollout,
+            ("implicit", "heat"): soil_column_heat_implicit_rollout}
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ plain PyTorch version and the wrapper that picks between them by device
 ``soil_column_segment_vjp`` is the vector-Jacobian product of one segment
 of a column rollout (:func:`~terrarium_tpu_torch.ops.fused_step.
 soil_column_rollout` and its siblings), for each scheme in ``VJP_SCHEMES``:
-ForwardEuler, Heun or ImplicitEuler (one Picard iteration, Thomas or PCR)
-over heat + Richards flow, and ForwardEuler over the heat-only model. From
+ForwardEuler, Heun or ImplicitEuler (Thomas or PCR, any number of Picard
+iterations) over heat + Richards flow or over the heat-only model. From
 the segment's input carry ``(U, sat, S)`` and the cotangents of its output
 carry, it returns the cotangents of the input carry and of the two
 differentiated parameters, ``K_sat`` and ``sk_mineral`` (``sqrt`` of the
@@ -31,41 +31,47 @@ import dataclasses
 import torch
 
 from . import cuda_build
-from .fused_step import ColumnParams, SeriesBC, _check_inputs, _CParams, \
-    soil_column_rollout_plain
+from .fused_step import SOLVER_CODES, ColumnParams, SeriesBC, _check_inputs, _CParams, \
+    kernel_tags, soil_column_rollout_plain
 from .tridiag import SOLVERS
 
-__all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain", "VJP_SCHEMES"]
+__all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain", "VJP_SCHEMES",
+           "vjp_tags"]
 
 _NAME = "soil_column_segment_vjp"  # csrc/soil_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
-#: the (stepper, physics) that have a segment VJP
+#: the (stepper, physics) that have a segment VJP; ImplicitEuler with any
+#: number of Picard iterations
 VJP_SCHEMES = (("euler", "richards"), ("heun", "richards"), ("implicit", "richards"),
-               ("euler", "heat"))
+               ("euler", "heat"), ("heun", "heat"), ("implicit", "heat"))
 
 
-def _check_scheme(stepper: str, physics: str, solver: str) -> tuple:
-    """The build tags of a scheme's kernel (none for ForwardEuler over heat +
-    Richards, the first); ``ValueError`` for a scheme without one."""
+def _check_scheme(stepper: str, physics: str, solver: str, picard_iters: int = 1) -> None:
+    """``ValueError`` for a scheme without a segment VJP."""
     if (stepper, physics) not in VJP_SCHEMES or solver not in SOLVERS:
         raise ValueError(f"the segment VJP runs {list(VJP_SCHEMES)} with a solver of "
-                         f"{sorted(SOLVERS)}, not {(stepper, physics)} with {solver!r}; Heun and "
-                         f"ImplicitEuler over the heat-only model are still to port (ROADMAP "
-                         f"Queue B #2)")
-    if (stepper, physics) == VJP_SCHEMES[0]:
-        return ()
-    return (stepper, solver, physics) if stepper == "implicit" else (stepper, physics)
+                         f"{sorted(SOLVERS)}, not {(stepper, physics)} with {solver!r}")
+    if int(picard_iters) != picard_iters or picard_iters < 1:
+        raise ValueError(f"picard_iters must be a positive integer, got {picard_iters!r}")
+
+
+def vjp_tags(stepper: str, physics: str, solver: str, picard_iters: int) -> tuple:
+    """The build tags of the segment-VJP instantiation of a scheme (none for
+    ForwardEuler over heat + Richards; :func:`~terrarium_tpu_torch.ops.
+    fused_step.kernel_tags`)."""
+    _check_scheme(stepper, physics, solver, picard_iters)
+    return kernel_tags(stepper, physics, int(picard_iters), solver=solver)
 
 
 def soil_column_segment_vjp_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
                                   params: ColumnParams, dt: float, gU, gsat, gS, *,
                                   stepper: str = "euler", physics: str = "richards",
-                                  solver: str = "pcr"):
+                                  solver: str = "pcr", picard_iters: int = 1):
     """``(gU0, gsat0, gS0, gK_sat, gsk_mineral)`` by torch autograd through
     :func:`soil_column_rollout_plain` of the scheme; the parameter cotangents
     are 0-d tensors in the fields' dtype. Heat only: ``gS0`` is ``None`` and
     ``gK_sat`` is 0."""
-    _check_scheme(stepper, physics, solver)
+    _check_scheme(stepper, physics, solver, picard_iters)
     heat = physics == "heat"
     with torch.enable_grad():
         U0, sat0 = (t.detach().requires_grad_() for t in (U, sat))
@@ -76,7 +82,7 @@ def soil_column_segment_vjp_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_f
         p = dataclasses.replace(params, K_sat=K, sk_mineral=skm)
         out = soil_column_rollout_plain(U0, sat0, S0, top_T, dz, dz_faces, z_centers,
                                         z_faces, p, dt, stepper=stepper, physics=physics,
-                                        solver=solver)
+                                        solver=solver, picard_iters=picard_iters)
         if heat:
             gU0, gsat0, gK, gskm = torch.autograd.grad(
                 out[0], (U0, sat0, K, skm), gU, allow_unused=True)
@@ -89,21 +95,21 @@ def soil_column_segment_vjp_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_f
 
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 4
              + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
-                ctypes.c_void_p])
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
                             params: ColumnParams, dt: float, gU, gsat, gS, *,
                             stepper: str = "euler", physics: str = "richards",
-                            solver: str = "pcr"):
+                            solver: str = "pcr", picard_iters: int = 1):
     """The VJP of one segment of ``stepper`` (``"euler"``, ``"heun"`` or
-    ``"implicit"`` with ``solver``) steps of ``physics`` (``"richards"`` or
-    ``"heat"``, ForwardEuler only) from the carry ``(U, sat, S)``, applied to
-    the output cotangents ``(gU, gsat, gS)``: ``len(top_T)`` steps, Heun one
-    less; returns ``(gU0, gsat0, gS0, gK_sat, gsk_mineral)`` (heat only:
-    ``gS0`` is ``None``). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
-    tags = _check_scheme(stepper, physics, solver)
+    ``"implicit"`` with ``solver`` and ``picard_iters`` Picard iterations)
+    steps of ``physics`` (``"richards"`` or ``"heat"``) from the carry ``(U,
+    sat, S)``, applied to the output cotangents ``(gU, gsat, gS)``:
+    ``len(top_T)`` steps, Heun one less; returns ``(gU0, gsat0, gS0, gK_sat,
+    gsk_mineral)`` (heat only: ``gS0`` is ``None``). CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    _check_scheme(stepper, physics, solver, picard_iters)
     heat = physics == "heat"
     coords = (dz, dz_faces, z_centers, z_faces)
     if isinstance(top_T, SeriesBC):
@@ -122,11 +128,12 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
     if U.device.type == "cpu":
         return soil_column_segment_vjp_plain(U, sat, S, top_T, *coords, params, dt, gU, gsat,
                                              gS, stepper=stepper, physics=physics,
-                                             solver=solver)
+                                             solver=solver, picard_iters=picard_iters)
     if U.device.type != "cuda":
         raise ValueError(f"soil column segment VJP runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
+    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES,
+                          tags=vjp_tags(stepper, physics, solver, picard_iters))
     if not all(t.is_contiguous() for _, g, u in pairs for t in (g, u)) or not all(
             c.is_contiguous() for c in coords):
         raise ValueError("the segment VJP kernel takes contiguous tensors")
@@ -147,7 +154,8 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
     err = fn(*(ptr(t) for t in (U, sat, None if heat else S, gU, gsat, None if heat else gS,
                                 gU0, gsat0, gS0, partials, gparams, scratch, top_T)),
              step_stride, cell_stride, *(c.data_ptr() for c in coords), ctypes.byref(cparams),
-             steps, float(dt), cells, torch.cuda.current_stream(U.device).cuda_stream)
+             steps, float(dt), cells, SOLVER_CODES[solver], int(picard_iters),
+             torch.cuda.current_stream(U.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"soil column segment VJP kernel launch failed: cudaError {err}")
     soil_column_segment_vjp.launches += 1

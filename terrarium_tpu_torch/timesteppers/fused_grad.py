@@ -6,8 +6,8 @@ closure-rotated steps in segments of ``inner_steps``, then one trailing
 ``closure``, differentiable with torch autograd in the initial state and in
 ``params``. The schemes it takes, chosen by type the same way on the CPU
 and on the card: for a :class:`SoilModel`, ForwardEuler, Heun or
-ImplicitEuler (one Picard iteration, Thomas or PCR) over heat + Richards
-flow, and ForwardEuler over the heat-only model; for a :class:`LandModel`
+ImplicitEuler (Thomas or PCR, any number of Picard iterations) over heat +
+Richards flow or over the heat-only model; for a :class:`LandModel`
 without a snowpack (any composition the land kernel runs, with static
 inputs), ForwardEuler or ImplicitEuler (one Picard iteration, Thomas or
 PCR). Each segment is a :class:`torch.autograd.Function`:
@@ -61,30 +61,32 @@ _AUTODIFF = "timesteppers/autodiff.make_rollout_fn differentiates it"
 
 class _Segment(torch.autograd.Function):
     """One segment of fused steps of ``scheme`` ``(stepper, physics,
-    solver)``: ``len(table)`` steps (Heun one less) of the carry ``(U, sat,
-    S)``, returned whole, or of ``U`` alone for the heat-only model, which
-    reads ``sat``; differentiable in the carry, ``K_sat`` and ``sk_mineral``
-    (0-d tensors whose values ``params`` holds)."""
+    solver, picard_iters)``: ``len(table)`` steps (Heun one less) of the
+    carry ``(U, sat, S)``, returned whole, or of ``U`` alone for the
+    heat-only model, which reads ``sat``; differentiable in the carry,
+    ``K_sat`` and ``sk_mineral`` (0-d tensors whose values ``params``
+    holds)."""
 
     @staticmethod
     def forward(ctx, U, sat, S, K_sat, sk_mineral, table, coords, params, dt, scheme):
-        stepper, physics, solver = scheme
+        stepper, physics, solver, picard_iters = scheme
         ctx.save_for_backward(U, sat, S, table, *coords)
         ctx.params, ctx.dt, ctx.scheme = params, dt, scheme
-        kw = {"solver": solver} if stepper == "implicit" else {}
+        kw = ({"solver": solver, "picard_iters": picard_iters} if stepper == "implicit"
+              else {})
         out = ROLLOUTS[stepper, physics](U, sat, S, table, *coords, params, dt, **kw)
         return out[0] if physics == "heat" else out
 
     @staticmethod
     def backward(ctx, gU, gsat=None, gS=None):
         U, sat, S, table, *coords = ctx.saved_tensors
-        stepper, physics, solver = ctx.scheme
+        stepper, physics, solver, picard_iters = ctx.scheme
         if physics == "heat":  # the saturation is read: its cotangent is the steps'
             gsat = torch.zeros_like(sat)
         gU0, gsat0, gS0, gK, gskm = soil_column_segment_vjp(
             U, sat, S, table, *coords, ctx.params, ctx.dt, gU.contiguous(), gsat.contiguous(),
             None if gS is None else gS.contiguous(), stepper=stepper, physics=physics,
-            solver=solver)
+            solver=solver, picard_iters=picard_iters)
         f64 = torch.float64
         return gU0, gsat0, gS0, gK.to(f64), gskm.to(f64), None, None, None, None, None
 
@@ -173,20 +175,6 @@ def _param_tensors(model, device):
     return K, torch.sqrt(k_min) * mineral_fraction(soil)
 
 
-def _model_scheme(model, stepper: str, solver: str) -> tuple:
-    """``(stepper, physics, solver)`` of the segments for ``model``
-    (``physics`` ``"land"`` for a LandModel); raises ``ValueError`` naming
-    the ROADMAP item for a model no segment VJP takes."""
-    if isinstance(model, LandModel):
-        return stepper, "land", solver
-    physics = kernel_physics(model)
-    if physics == "heat" and stepper != "euler":
-        raise ValueError(f"the fused gradient rollout runs the heat-only model (NoFlow) with "
-                         f"ForwardEuler; {stepper} over it, forward and VJP, is still to port "
-                         f"(ROADMAP Queue B #2); {_AUTODIFF}")
-    return stepper, physics, solver
-
-
 def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=(), *,
                             steps: int, dt: float, inner_steps: int) -> Callable:
     """Build ``rollout(state, params) -> state`` differentiable in both
@@ -195,14 +183,14 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
 
     Args:
         model_fn: ``params -> model``, a :class:`SoilModel` that the rollout
-            kernels run (heat + Richards, or heat only with ForwardEuler) or
-            a :class:`LandModel` without a snowpack that the land kernel
-            runs, whose soil's ``sat_hydraulic_cond`` and mineral
-            conductivity may be 0-d tensors built from ``params``; no other
-            soil parameter may require grad.
+            kernels run (heat + Richards, or heat only) or a
+            :class:`LandModel` without a snowpack that the land kernel runs,
+            whose soil's ``sat_hydraulic_cond`` and mineral conductivity may
+            be 0-d tensors built from ``params``; no other soil parameter
+            may require grad.
         timestepper: :class:`ForwardEuler`, :class:`Heun` (SoilModel only)
-            or :class:`ImplicitEuler` with ``picard_iters=1`` (Thomas or
-            PCR).
+            or :class:`ImplicitEuler` (Thomas or PCR; any ``picard_iters``
+            for a SoilModel, 1 for a LandModel).
         ctx: the simulation's context: for a SoilModel its only BC is a
             Dirichlet top temperature given as a value or as ``f(t)``; for
             a LandModel it is the model's coupling context (``sim.ctx``).
@@ -212,11 +200,10 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         inner_steps: steps of one segment (the checkpoint interval).
 
     Raises ``ValueError`` for anything else, naming the ROADMAP item that
-    ports it where one does: another stepper, ImplicitEuler with
-    ``picard_iters > 1`` or Heun or ImplicitEuler over the heat-only model
-    (Queue B #2), Heun over a LandModel or a LandModel with a snowpack
-    (Queue B #1), time-varying sources (Queue B #1, not to port) or
-    forcings, an input variable as the top temperature.
+    ports it where one does: another stepper, a LandModel's ImplicitEuler
+    with ``picard_iters > 1`` (Queue B #2), Heun over a LandModel or a
+    LandModel with a snowpack (Queue B #1), time-varying sources (Queue B
+    #1, not to port) or forcings, an input variable as the top temperature.
     """
     if steps % inner_steps != 0:
         raise ValueError(f"steps={steps} not a multiple of inner_steps={inner_steps}")
@@ -225,10 +212,7 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         raise ValueError(f"the fused gradient rollout runs ForwardEuler, Heun or ImplicitEuler, "
                          f"not {type(timestepper).__name__}; {_AUTODIFF}")
     solver = getattr(timestepper, "solver", "pcr")
-    if stepper == "implicit" and int(timestepper.picard_iters) != 1:
-        raise ValueError(f"the fused gradient rollout runs ImplicitEuler with one Picard "
-                         f"iteration; picard_iters={timestepper.picard_iters} in the forward "
-                         f"and the VJP is still to port (ROADMAP Queue B #2); {_AUTODIFF}")
+    picard_iters = int(timestepper.picard_iters) if stepper == "implicit" else 1
     for src in input_sources:
         if hasattr(src, "times"):
             raise ValueError("make_fused_grad_rollout supports static input sources only, as "
@@ -239,6 +223,11 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
     land = getattr(ctx, "extras", None) is not None  # the LandModel's coupling context
     value = None  # the soil's top temperature
     if land:
+        if picard_iters != 1:
+            raise ValueError(f"the fused gradient rollout runs the LandModel's ImplicitEuler "
+                             f"with one Picard iteration; picard_iters={picard_iters} in the "
+                             f"land kernel and its VJP is still to port (ROADMAP Queue B #2); "
+                             f"{_AUTODIFF}")
         if (ctx.bcs or {}) != coupling_bcs():
             raise ValueError("the fused gradient rollout of the LandModel takes its coupling "
                              f"BCs only; {_AUTODIFF}")
@@ -294,7 +283,8 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
 
     def rollout(state, params):
         model = model_fn(params)
-        scheme = _model_scheme(model, stepper, solver)
+        physics = "land" if isinstance(model, LandModel) else kernel_physics(model)
+        scheme = (stepper, physics, solver, picard_iters)
         if (scheme[1] == "land") != land:
             raise ValueError("the context is the LandModel's coupling context only for a "
                              "LandModel")

@@ -5,10 +5,10 @@ by the types of the model, stepper, boundary conditions, input sources and
 forcings before anything launches:
 
 * **a column kernel**, for the compositions the kernels take: a
-  :class:`SoilModel` with heat + Richards flow stepped by ForwardEuler, Heun
-  or ImplicitEuler with one Picard iteration, or heat only stepped by
-  ForwardEuler, with a Dirichlet top temperature (a value, ``f(t)`` or an
-  input variable) as its only BC (``ops/fused_step.py``); a
+  :class:`SoilModel` with heat + Richards flow or heat only, stepped by
+  ForwardEuler, Heun or ImplicitEuler (any number of Picard iterations),
+  with a Dirichlet top temperature (a value, ``f(t)`` or an input variable)
+  as its only BC (``ops/fused_step.py``); a
   :class:`LandModel` of the kernel's classes, with or without a snowpack,
   stepped by ForwardEuler, Heun or ImplicitEuler with one Picard iteration,
   with its coupling BCs only (``ops/land_step.py``); either with
@@ -80,18 +80,20 @@ _SOURCES = (FieldInputSource, TimeSeriesInputSource)
 def column_scheme(model, timestepper, ctx, input_sources=()):
     """The column rollout that runs this composition, decided by type alone:
     ``("land", stepper)`` (``ops/land_step.py``), a soil ``(stepper,
-    physics)`` (``ops/fused_step.py``; the keys of ``ROLLOUTS`` have a
-    kernel, heat-only Heun and ImplicitEuler only the plain version), or
-    ``None``, where only the process modules step it: a forcing, a source
-    of another class, any other model, stepper (ImplicitEuler with more
-    than one Picard iteration among them), boundary condition or
+    physics)`` (``ops/fused_step.py``; every key of ``ROLLOUTS``, the
+    ImplicitEuler ones with any number of Picard iterations), or ``None``,
+    where only the process modules step it: a forcing, a source of another
+    class, any other model, stepper (over a LandModel, ImplicitEuler with
+    more than one Picard iteration among them), boundary condition or
     top-temperature form."""
     if getattr(ctx, "forcings", None) or any(type(s) not in _SOURCES for s in input_sources):
         return None
     stepper = STEPPERS.get(type(timestepper))
-    if stepper is None or (stepper == "implicit" and timestepper.picard_iters != 1):
+    if stepper is None:
         return None
     if type(model) is LandModel:
+        if stepper == "implicit" and timestepper.picard_iters != 1:
+            return None  # the land kernel runs one Picard iteration (ROADMAP Queue B #2)
         if (ctx.bcs or {}) != coupling_bcs():
             return None
         try:
@@ -163,12 +165,13 @@ class _TopTemperature:
             self.series = (v, *meta)
 
 
-def _rollout_fn(stepper: str, physics: str, plain: bool, solver: str):
+def _rollout_fn(stepper: str, physics: str, plain: bool, timestepper):
     """The rollout of ``(stepper, physics)``: its kernel wrapper (which runs
-    the plain version on CPU tensors), or the plain version where asked or
-    where the scheme has no kernel; the implicit ones with ``solver``."""
-    kw = {"solver": solver} if stepper == "implicit" else {}
-    if plain or (stepper, physics) not in ROLLOUTS:
+    the plain version on CPU tensors), or the plain version where asked; the
+    implicit ones with the timestepper's solver and Picard count."""
+    kw = ({"solver": timestepper.solver, "picard_iters": int(timestepper.picard_iters)}
+          if stepper == "implicit" else {})
+    if plain:
         return functools.partial(soil_column_rollout_plain, stepper=stepper, physics=physics,
                                  **kw)
     return functools.partial(ROLLOUTS[(stepper, physics)], **kw)
@@ -235,7 +238,7 @@ def _advance_soil(model, state: State, ctx, steps: int, dt: float, timestepper, 
     grid = model.grid
     params = ColumnParams.of(model, grid.dtype)
     top = _TopTemperature(top_temperature_value(ctx.bcs), input_sources, state, grid)
-    rollout = _rollout_fn(stepper, physics, plain, getattr(timestepper, "solver", None))
+    rollout = _rollout_fn(stepper, physics, plain, timestepper)
     coords = _coords(grid)
     heat, extra = physics == "heat", int(stepper == "heun")
     U = state.prognostic["internal_energy"].contiguous()
@@ -287,7 +290,7 @@ def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None
     timestepper = timestepper if timestepper is not None else ForwardEuler()
     scheme = column_scheme(model, timestepper, ctx, input_sources)
     land = scheme is not None and scheme[0] == "land"
-    if scheme is None or (not land and scheme not in ROLLOUTS and not plain):
+    if scheme is None:
         _advance_modules(model, state, ctx, steps, dt, timestepper, input_sources)
         return
     times = clock_times(state.clock.time, dt, steps)

@@ -7,7 +7,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["safediv", "convert_dt", "merge_recursive", "deduplicate", "resolve_device"]
+__all__ = ["safediv", "convert_dt", "merge_recursive", "deduplicate", "resolve_device",
+           "piecewise_linear"]
 
 
 def safediv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -62,3 +63,33 @@ def deduplicate(items, key=lambda x: x):
             seen.add(k)
             out.append(it)
     return out
+
+
+def piecewise_linear(*knots):
+    """Piecewise-linear profile from ``(depth, value)`` knots with flat
+    extrapolation (reference `src/utils/interpolation_utils.jl:6-13`).
+
+    Returns a function ``f(z_depth)`` of (positive-down) depths, a tensor,
+    evaluated in float64 by ``jnp.interp``'s formula: the segment ``i`` of
+    the first knot right of the depth (clipped to ``[1, n - 1]``), ``fp[i -
+    1] + ((z - xp[i - 1]) / dx) * df``, ``fp[i - 1]`` where ``dx`` is 0, and
+    the end values beyond the ends."""
+    depths = np.asarray([k[0] for k in knots], dtype=np.float64)
+    values = np.asarray([k[1] for k in knots], dtype=np.float64)
+    order = np.argsort(depths)
+    depths, values = depths[order], values[order]
+
+    def f(z: torch.Tensor) -> torch.Tensor:
+        z = torch.as_tensor(z).to(torch.float64)
+        xp = torch.as_tensor(depths, device=z.device)
+        fp = torch.as_tensor(values, device=z.device)
+        n = xp.shape[0]
+        i = torch.clamp(torch.searchsorted(xp, z.contiguous(), right=True), 1, n - 1)
+        lo = (i - 1) % n
+        df, dx, delta = fp[i] - fp[lo], xp[i] - xp[lo], z - xp[lo]
+        dx0 = dx.abs() <= np.spacing(np.finfo(np.float64).eps)
+        out = torch.where(dx0, fp[lo], fp[lo] + (delta / torch.where(dx0, 1.0, dx)) * df)
+        out = torch.where(z < xp[0], fp[0], out)
+        return torch.where(z > xp[-1], fp[-1], out)
+
+    return f

@@ -1,9 +1,10 @@
 // Host build of terrarium_tpu_torch/csrc/soil_step.cuh and soil_full_step.cuh
 // for the CPU tests (tests/test_torch_step_adjoint.py,
 // tests/test_torch_step_host.py, tests/test_torch_implicit.py,
-// tests/test_torch_fused_step.py): the CUDA kernels' per-column step, rollout
-// loop, segment VJP of each scheme and full step, run over every column in a loop, behind a
-// plain C interface.
+// tests/test_torch_fused_step.py, tests/test_torch_heat_steppers.py): the
+// CUDA kernels' per-column step, rollout loop, segment VJP of each scheme
+// (picard_step and its adjoint among them) and full step, run over every
+// column in a loop, behind a plain C interface.
 #include <vector>
 
 #include "soil_full_step.cuh"
@@ -13,20 +14,20 @@ namespace {
 // soil::segment_vjp_column of the scheme over every column, as the
 // segment-VJP kernel runs it; each column's parameter cotangents go to
 // gparams[col] (K_sat) and gparams[cells + col] (sk_mineral)
-template <int NZ, int STEPPER, int SOLVER, bool HEAT>
+template <int NZ, int STEPPER, int SOLVER, bool HEAT, bool PICARD = false>
 void vjp(const double* U, const double* sat, const double* S, const double* gU,
          const double* gsat, const double* gS, double* gU0, double* gsat0, double* gS0,
          double* gparams, const double* top, long long step_stride, const double* dz,
          const double* dzf, const double* zc, const double* zf, const SoilColumnParams* P,
-         int steps, double dt, long long cells)
+         int steps, double dt, long long cells, int iters = 1, int solver = SOLVER)
 {
     std::vector<double> scratch((size_t)steps * (2 * NZ + 1) * cells);
     const soil::Consts<double> c(*P);
     for (long long col = 0; col < cells; ++col) {
         double gK = 0.0, gm = 0.0;
-        soil::segment_vjp_column<double, NZ, STEPPER, SOLVER, HEAT>(
+        soil::segment_vjp_column<double, NZ, STEPPER, SOLVER, HEAT, PICARD>(
             col, cells, steps, U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, scratch.data(), top,
-            step_stride, 0, c, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm);
+            step_stride, 0, c, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm, iters, solver);
         gparams[col] = gK;
         gparams[cells + col] = gm;
     }
@@ -44,8 +45,9 @@ int vjp_scheme(int stepper, int solver, int heat, const double* U, const double*
     vjp<NZ, STEPPER, SOLVER, HEAT>(U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top,   \
                                    step_stride, dz, dzf, zc, zf, P, steps, dt, cells)
     if (heat) {
-        if (stepper != soil::STEPPER_EULER) return -1;
-        SOIL_VJP(soil::STEPPER_EULER, 0, true);
+        if (stepper == soil::STEPPER_EULER) SOIL_VJP(soil::STEPPER_EULER, 0, true);
+        else if (stepper == soil::STEPPER_HEUN) SOIL_VJP(soil::STEPPER_HEUN, 0, true);
+        else return -1;
     } else if (stepper == soil::STEPPER_IMPLICIT) {
         if (solver == soil::SOLVER_PCR) SOIL_VJP(soil::STEPPER_IMPLICIT, soil::SOLVER_PCR, false);
         else SOIL_VJP(soil::STEPPER_IMPLICIT, soil::SOLVER_THOMAS, false);
@@ -75,21 +77,43 @@ void rollout(double* U, double* sat, double* S, const double* top, long long ste
     }
 }
 
+// soil::segment_vjp_column of picard_step with `iters` iterations and the
+// solver chosen at run time (`solver` 0 Thomas or 1 PCR), heat + Richards or
+// heat only, over every column: the segment-VJP kernel's Picard entries
+template <int NZ>
+int vjp_picard(int solver, int heat, const double* U, const double* sat, const double* S,
+               const double* gU, const double* gsat, const double* gS, double* gU0,
+               double* gsat0, double* gS0, double* gparams, const double* top,
+               long long step_stride, const double* dz, const double* dzf, const double* zc,
+               const double* zf, const SoilColumnParams* P, int steps, double dt,
+               long long cells, int iters)
+{
+#define SOIL_VJP(HEAT)                                                                        \
+    vjp<NZ, soil::STEPPER_IMPLICIT, soil::SOLVER_RUNTIME, HEAT, true>(                         \
+        U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top, step_stride, dz, dzf, zc, zf, \
+        P, steps, dt, cells, iters, solver)
+    if (heat) SOIL_VJP(true);
+    else SOIL_VJP(false);
+#undef SOIL_VJP
+    return 0;
+}
+
 // soil::rollout_column over every column, as the rollout kernel runs it
-template <int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES>
+template <int NZ, int STEPPER, int SOLVER, bool HEAT, bool SERIES, bool PICARD = false>
 void columns(double* U, double* sat, double* S, const double* top, long long step_stride,
              long long cell_stride, int rows, double t0, double dts, double time0,
              const double* dz, const double* dzf, const double* zc, const double* zf,
-             const SoilColumnParams* P, int steps, double dt, long long cells)
+             const SoilColumnParams* P, int steps, double dt, long long cells, int iters = 1,
+             int solver = SOLVER)
 {
     const soil::Consts<double> c(*P);
     for (long long col = 0; col < cells; ++col) {
         double u[NZ], s[NZ];
         for (int k = 0; k < NZ; ++k) { u[k] = U[k * cells + col]; s[k] = sat[k * cells + col]; }
         double sv = HEAT ? 0.0 : S[col];
-        soil::rollout_column<double, NZ, STEPPER, SOLVER, HEAT, SERIES>(
+        soil::rollout_column<double, NZ, STEPPER, SOLVER, HEAT, SERIES, PICARD>(
             u, s, sv, top + col * cell_stride, step_stride, rows, t0, dts, time0, steps, c, *P,
-            dz, dzf, zc, zf, dt, 1.0 / dt);
+            dz, dzf, zc, zf, dt, 1.0 / dt, iters, solver);
         for (int k = 0; k < NZ; ++k) {
             U[k * cells + col] = u[k];
             if (!HEAT) sat[k * cells + col] = s[k];
@@ -98,20 +122,43 @@ void columns(double* U, double* sat, double* S, const double* top, long long ste
     }
 }
 
-template <int NZ, int STEPPER, int SOLVER, bool HEAT>
+template <int NZ, int STEPPER, int SOLVER, bool HEAT, bool PICARD = false>
 void columns_of(double* U, double* sat, double* S, const double* top, long long step_stride,
                 long long cell_stride, int rows, double t0, double dts, double time0,
                 const double* dz, const double* dzf, const double* zc, const double* zf,
-                const SoilColumnParams* P, int steps, double dt, long long cells)
+                const SoilColumnParams* P, int steps, double dt, long long cells, int iters = 1,
+                int solver = SOLVER)
 {
     if (rows > 0)
-        columns<NZ, STEPPER, SOLVER, HEAT, true>(U, sat, S, top, step_stride, cell_stride, rows,
-                                                 t0, dts, time0, dz, dzf, zc, zf, P, steps, dt,
-                                                 cells);
+        columns<NZ, STEPPER, SOLVER, HEAT, true, PICARD>(U, sat, S, top, step_stride,
+                                                         cell_stride, rows, t0, dts, time0, dz,
+                                                         dzf, zc, zf, P, steps, dt, cells,
+                                                         iters, solver);
     else
-        columns<NZ, STEPPER, SOLVER, HEAT, false>(U, sat, S, top, step_stride, cell_stride,
-                                                  rows, t0, dts, time0, dz, dzf, zc, zf, P,
-                                                  steps, dt, cells);
+        columns<NZ, STEPPER, SOLVER, HEAT, false, PICARD>(U, sat, S, top, step_stride,
+                                                          cell_stride, rows, t0, dts, time0, dz,
+                                                          dzf, zc, zf, P, steps, dt, cells,
+                                                          iters, solver);
+}
+
+// the rollout kernel's column loop of picard_step with `iters` iterations
+// and the solver chosen at run time (`solver` 0 Thomas or 1 PCR), heat +
+// Richards or heat only: the rollout kernel's Picard entries
+template <int NZ>
+int picard(int solver, int heat, double* U, double* sat, double* S, const double* top,
+           long long step_stride, long long cell_stride, int rows, double t0, double dts,
+           double time0, const double* dz, const double* dzf, const double* zc,
+           const double* zf, const SoilColumnParams* P, int steps, double dt, long long cells,
+           int iters)
+{
+#define SOIL_COLUMNS(HEAT)                                                                    \
+    columns_of<NZ, soil::STEPPER_IMPLICIT, soil::SOLVER_RUNTIME, HEAT, true>(                  \
+        U, sat, S, top, step_stride, cell_stride, rows, t0, dts, time0, dz, dzf, zc, zf, P,   \
+        steps, dt, cells, iters, solver)
+    if (heat) SOIL_COLUMNS(true);
+    else SOIL_COLUMNS(false);
+#undef SOIL_COLUMNS
+    return 0;
 }
 
 template <int NZ>
@@ -242,5 +289,47 @@ extern "C" int host_rollout_scheme(double* U, double* sat, double* S, const doub
     if (nz == 20) return scheme<20>(stepper, solver, heat, U, sat, S, top, step_stride,
                                     cell_stride, rows, t0, dts, time0, dz, dzf, zc, zf, P,
                                     steps, dt, cells);
+    return -1;
+}
+
+// The rollout kernel's column loop of picard_step: ImplicitEuler with
+// `iters` Picard iterations (`solver` 0 Thomas or 1 PCR), heat + Richards or
+// heat only (`heat`; S unread), the top temperature from a table or, with
+// `rows` > 0, a series as host_rollout_scheme reads it; in place. Returns -1
+// for an NZ it does not run.
+extern "C" int host_rollout_picard(double* U, double* sat, double* S, const double* top,
+                                   long long step_stride, long long cell_stride, int rows,
+                                   double t0, double dts, double time0, const double* dz,
+                                   const double* dzf, const double* zc, const double* zf,
+                                   const SoilColumnParams* P, int nz, int solver, int heat,
+                                   int iters, int steps, double dt, long long cells)
+{
+    if (nz == 10) return picard<10>(solver, heat, U, sat, S, top, step_stride, cell_stride, rows,
+                                    t0, dts, time0, dz, dzf, zc, zf, P, steps, dt, cells, iters);
+    if (nz == 16) return picard<16>(solver, heat, U, sat, S, top, step_stride, cell_stride, rows,
+                                    t0, dts, time0, dz, dzf, zc, zf, P, steps, dt, cells, iters);
+    if (nz == 20) return picard<20>(solver, heat, U, sat, S, top, step_stride, cell_stride, rows,
+                                    t0, dts, time0, dz, dzf, zc, zf, P, steps, dt, cells, iters);
+    return -1;
+}
+
+// The segment-VJP kernel's column code of picard_step with `iters` Picard
+// iterations (`solver` 0 Thomas or 1 PCR), heat + Richards or heat only
+// (`heat`; S, gS and gS0 unread). Returns -1 for an NZ it does not run.
+extern "C" int host_segment_vjp_picard(const double* U, const double* sat, const double* S,
+                                       const double* gU, const double* gsat, const double* gS,
+                                       double* gU0, double* gsat0, double* gS0,
+                                       double* gparams, const double* top,
+                                       long long step_stride, const double* dz,
+                                       const double* dzf, const double* zc, const double* zf,
+                                       const SoilColumnParams* P, int nz, int solver, int heat,
+                                       int iters, int steps, double dt, long long cells)
+{
+    if (nz == 10) return vjp_picard<10>(solver, heat, U, sat, S, gU, gsat, gS, gU0, gsat0, gS0,
+                                        gparams, top, step_stride, dz, dzf, zc, zf, P, steps, dt,
+                                        cells, iters);
+    if (nz == 20) return vjp_picard<20>(solver, heat, U, sat, S, gU, gsat, gS, gU0, gsat0, gS0,
+                                        gparams, top, step_stride, dz, dzf, zc, zf, P, steps, dt,
+                                        cells, iters);
     return -1;
 }

@@ -375,9 +375,9 @@ def test_run_refuses_what_the_kernels_do_not_take(monkeypatch):
 
 
 def test_fused_grad_refuses_heun_series_and_heat_only():
-    """A series top temperature with either stepper, and Heun over the
-    heat-only model (ROADMAP Queue B #2), are refused; Heun over heat +
-    Richards and ForwardEuler over the heat-only model are taken
+    """A series top temperature with either stepper is refused, and so are
+    Heun and the snowpack over a LandModel (ROADMAP Queue B #1); Heun over
+    heat + Richards and over the heat-only model is taken
     (`tests/test_torch_grad_steppers.py`)."""
     sim = heun_forced("port")
     grid = sim.model.grid
@@ -386,10 +386,23 @@ def test_fused_grad_refuses_heun_series_and_heat_only():
             make_fused_grad_rollout(lambda p: sim.model, ts, sim.ctx, steps=4, dt=300.0,
                                     inner_steps=2)
     ctx = sim.model.make_context(bcs=tp.PrescribedSurfaceTemperature(4.0))
-    roll = make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid), tp.Heun(), ctx,
-                                   steps=4, dt=300.0, inner_steps=2)
-    with pytest.raises(ValueError, match="NoFlow"):
-        roll(sim.state, None)
+    heat = tp.SoilModel(grid=grid)
+    state = tp.initialize(heat, tp.Heun(), initializers={"temperature": -1.0,
+                                                         "saturation_water_ice": 0.8},
+                          boundary_conditions=tp.PrescribedSurfaceTemperature(4.0)).state
+    out = make_fused_grad_rollout(lambda p: heat, tp.Heun(), ctx, steps=4, dt=300.0,
+                                  inner_steps=2)(state, None)
+    assert bool(torch.isfinite(out.temperature).all())
+    sources = (tp.FieldInputSource(fields={"surface_shortwave_down": 400.0,
+                                           "air_temperature": 12.0}),)
+    for stepper, snow in ((tp.Heun(), None), (tp.ForwardEuler(), tp.Snowpack())):
+        land = tp.initialize(tp.LandModel(grid=grid, snow=snow), stepper,
+                             initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
+                             input_sources=sources)
+        roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx,
+                                       steps=4, dt=300.0, inner_steps=2)
+        with pytest.raises(ValueError, match="Queue B #1"):
+            roll(land.state, None)
 
 
 def test_series_wrappers_check_their_operands():

@@ -5,10 +5,12 @@ The configuration is `tests/test_fused_grad.py`'s: 48 columns, Nz 10, top
 temperature 4 degC, initial T = -1 degC and sat = min(1, 0.6 - 0.04 z),
 which leaves the bottom layers exactly saturated, 8 steps in segments of 4,
 loss mean(T) + mean(sat) after the trailing closure. The schemes: Heun at dt
-300 s and ImplicitEuler at dt 1800 s with each solver over heat + Richards
-(gradients in log K_sat, k_mineral, U0 and sat0), and ForwardEuler at dt
-300 s over the heat-only default model (in k_mineral, U0 and the
-saturation it reads). The same numbers go through the port's
+300 s and ImplicitEuler at dt 1800 s with each solver, with one and with two
+Picard iterations, over heat + Richards (gradients in log K_sat, k_mineral,
+U0 and sat0), and ForwardEuler and Heun at dt 300 s and ImplicitEuler at dt
+1800 s (each solver, one and two Picard iterations) over the heat-only
+default model (in k_mineral, U0 and the saturation it reads), whose columns
+cross the freeze plateau. The same numbers go through the port's
 `make_fused_grad_rollout` (the plain versions of the kernels on the CPU),
 JAX's `make_fused_grad_rollout(bwd="pallas", interpret=True)` (its Pallas
 segment VJP) and JAX's `make_rollout_fn(remat=True, lean=True)`.
@@ -39,28 +41,35 @@ CELLS, NZ, STEPS, INNER = 48, 10, 8, 4
 X0, K0 = float(np.log(1e-5)), 3.8
 INITS = {"temperature": -1.0,
          "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.6 - 0.04 * z)}
-#: case -> (stepper, dt, solver, physics)
-CASES = {"heun": ("heun", 300.0, "pcr", "richards"),
-         "implicit-pcr": ("implicit", 1800.0, "pcr", "richards"),
-         "implicit-thomas": ("implicit", 1800.0, "thomas", "richards"),
-         "heat": ("euler", 300.0, "pcr", "heat")}
+#: case -> (stepper, dt, solver, physics, picard_iters)
+CASES = {"heun": ("heun", 300.0, "pcr", "richards", 1),
+         "implicit-pcr": ("implicit", 1800.0, "pcr", "richards", 1),
+         "implicit-thomas": ("implicit", 1800.0, "thomas", "richards", 1),
+         "heat": ("euler", 300.0, "pcr", "heat", 1),
+         "heat-heun": ("heun", 300.0, "pcr", "heat", 1),
+         "heat-implicit-pcr": ("implicit", 1800.0, "pcr", "heat", 1),
+         "heat-implicit-thomas": ("implicit", 1800.0, "thomas", "heat", 1),
+         "picard2-pcr": ("implicit", 1800.0, "pcr", "richards", 2),
+         "picard2-thomas": ("implicit", 1800.0, "thomas", "richards", 2),
+         "heat-picard2-pcr": ("implicit", 1800.0, "pcr", "heat", 2),
+         "heat-picard2-thomas": ("implicit", 1800.0, "thomas", "heat", 2)}
 
 
 def _jax_stepper(case):
-    stepper, dt, solver, _ = CASES[case]
+    stepper, dt, solver, _, picard = CASES[case]
     if stepper == "heun":
         return tt.Heun(dt=dt)
     if stepper == "implicit":
-        return tt.ImplicitEuler(dt=dt, solver=solver)
+        return tt.ImplicitEuler(dt=dt, solver=solver, picard_iters=picard)
     return tt.ForwardEuler(dt=dt)
 
 
-def _port_stepper(case, **kw):
-    stepper, dt, solver, _ = CASES[case]
+def _port_stepper(case):
+    stepper, dt, solver, _, picard = CASES[case]
     if stepper == "heun":
         return tp.Heun(dt=dt)
     if stepper == "implicit":
-        return tp.ImplicitEuler(dt=dt, solver=solver, **kw)
+        return tp.ImplicitEuler(dt=dt, solver=solver, picard_iters=picard)
     return tp.ForwardEuler(dt=dt)
 
 
@@ -89,11 +98,11 @@ def _port_model(grid, physics, log_ksat, k_mineral):
     return tp.SoilModel(grid=grid, soil=soil)
 
 
-def _port_sim(case, **kw):
+def _port_sim(case):
     physics = CASES[case][3]
     grid = tp.ColumnGrid.of(cells=CELLS, spacing=tp.ExponentialSpacing(N=NZ),
                             dtype=torch.float64, device="cpu")
-    return tp.initialize(_port_model(grid, physics, X0, K0), _port_stepper(case, **kw),
+    return tp.initialize(_port_model(grid, physics, X0, K0), _port_stepper(case),
                          initializers=INITS,
                          boundary_conditions=tp.PrescribedSurfaceTemperature(4.0))
 
@@ -101,7 +110,7 @@ def _port_sim(case, **kw):
 def _port_grads(case):
     """Loss and its gradients in (log K_sat, k_mineral, U0, sat0) through
     the port's fused gradient rollout; log K_sat's is 0 for heat only."""
-    _, dt, _, physics = CASES[case]
+    _, dt, _, physics, _ = CASES[case]
     sim = _port_sim(case)
     grid = sim.model.grid
     x = torch.tensor(X0, dtype=torch.float64, requires_grad=True)
@@ -129,7 +138,7 @@ def jax_ref():
     def ref(case, route):
         if (case, route) in cache:
             return cache[case, route]
-        _, dt, _, physics = CASES[case]
+        _, dt, _, physics, _ = CASES[case]
         grid = tt.ColumnGrid.of(cells=CELLS, spacing=tt.ExponentialSpacing(N=NZ),
                                 nf=np.float64)
         ts = _jax_stepper(case)
@@ -205,13 +214,17 @@ def test_sat0_grad_matches_jax_at_unsaturated_cells(jax_ref, port_ref, case, rou
                                atol=1e-8 * np.max(np.abs(ref[unsat])))
 
 
-@pytest.mark.parametrize("case", ["heun", "implicit-pcr", "implicit-thomas"])
+@pytest.mark.parametrize("case", ["heun", "implicit-pcr", "implicit-thomas", "picard2-pcr",
+                                  "picard2-thomas"])
 def test_water_identity_holds_at_every_cell(case):
     """Every step of these schemes conserves W = sum(sat*dz) + S, so
     dW/d sat0[k] = dz[k] and dW/dS0 = 1 at every cell, the exactly saturated
     ones included: rtol 1e-12 through Heun, 1e-10 through ImplicitEuler,
-    whose solves round the column's sum of dz * du."""
-    _, dt, _, physics = CASES[case]
+    whose solves round the column's sum of dz * du. A second Picard
+    iteration drops the spill of its iterate's closure, yet keeps W: its
+    right side -(sat_k - sat^n) / dt brings the column's sum of dz * sat
+    back to the closed start's, whatever the closure moved."""
+    _, dt, _, physics, _ = CASES[case]
     sim = _port_sim(case)
     grid = sim.model.grid
     state = sim.state.copy()
@@ -230,7 +243,7 @@ def test_water_identity_holds_at_every_cell(case):
 
 
 def _vjp_operands(case, steps=4):
-    stepper, dt, solver, physics = CASES[case]
+    stepper, dt, solver, physics, picard = CASES[case]
     sim = _port_sim(case)
     g = sim.model.grid
     coords = tuple(getattr(g, n)[:, 0].contiguous()
@@ -241,7 +254,7 @@ def _vjp_operands(case, steps=4):
     rng = np.random.default_rng(len(case))
     cts = tuple(None if t is None else torch.as_tensor(rng.normal(size=tuple(t.shape)))
                 for t in carry)
-    kw = dict(stepper=stepper, physics=physics, solver=solver)
+    kw = dict(stepper=stepper, physics=physics, solver=solver, picard_iters=picard)
     return carry, table, coords, fs.ColumnParams.of(sim.model, torch.float64), dt, cts, kw
 
 
@@ -269,38 +282,45 @@ def test_segment_vjp_wrapper_on_cpu_is_the_plain_version(case):
 
 
 def test_segment_vjp_refuses_the_schemes_it_does_not_run():
+    """Every stepper over either physics has a segment VJP now; another
+    stepper, an unknown solver or a Picard count below 1 is refused."""
     carry, table, coords, params, dt, cts, _ = _vjp_operands("heat")
-    for stepper in ("heun", "implicit"):
-        with pytest.raises(ValueError, match="Queue B #2"):
-            fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts,
-                                       stepper=stepper, physics="heat")
+    assert set(fv.VJP_SCHEMES) == {(s, p) for s in ("euler", "heun", "implicit")
+                                   for p in ("richards", "heat")}
+    with pytest.raises(ValueError, match="segment VJP runs"):
+        fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts,
+                                   stepper="rk4", physics="heat")
     with pytest.raises(ValueError, match="solver"):
         fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts,
                                    stepper="implicit", physics="richards", solver="lu")
+    with pytest.raises(ValueError, match="picard_iters"):
+        fv.soil_column_segment_vjp(*carry, table, *coords, params, dt, *cts,
+                                   stepper="implicit", physics="heat", picard_iters=0)
 
 
 def test_fused_grad_refuses_what_it_does_not_differentiate():
-    """Heun or ImplicitEuler over the heat-only model and picard_iters=2
-    (ROADMAP Queue B #2), Heun over a LandModel (Queue B #1): each a
+    """What is still to port over the LandModel: ImplicitEuler with
+    picard_iters=2 (ROADMAP Queue B #2) and Heun (Queue B #1), each a
     ValueError naming its queue item; a LandModel under a soil's context, a
-    ValueError naming the coupling context."""
-    for case in ("heun", "implicit-pcr"):
-        sim = _port_sim("heat")
-        grid = sim.model.grid
-        roll = make_fused_grad_rollout(lambda p: _port_model(grid, "heat", *p),
-                                       _port_stepper(case), sim.ctx, steps=4, dt=300.0,
-                                       inner_steps=2)
-        with pytest.raises(ValueError, match="Queue B #2"):
-            roll(sim.state, (X0, K0))
-    sim = _port_sim("implicit-pcr", picard_iters=2)
-    with pytest.raises(ValueError, match="Queue B #2"):
-        make_fused_grad_rollout(lambda p: sim.model, sim.timestepper, sim.ctx, steps=4,
-                                dt=1800.0, inner_steps=2)
+    ValueError naming the coupling context. The SoilModel's heat-only Heun
+    and ImplicitEuler and its Picard iterations are taken (the cases
+    above)."""
+    sim = _port_sim("picard2-pcr")
     grid = sim.model.grid
+    for case in ("heat-heun", "heat-picard2-pcr", "picard2-thomas"):
+        make_fused_grad_rollout(lambda p: sim.model, _port_stepper(case), sim.ctx, steps=4,
+                                dt=300.0, inner_steps=2)
+    sources = (tp.FieldInputSource(fields={"surface_shortwave_down": 400.0,
+                                           "air_temperature": 12.0}),)
+    picard = tp.initialize(tp.LandModel(grid=grid), tp.ImplicitEuler(dt=600.0, picard_iters=2),
+                           initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
+                           input_sources=sources)
+    with pytest.raises(ValueError, match="Queue B #2"):
+        make_fused_grad_rollout(lambda p: picard.model, picard.timestepper, picard.ctx,
+                                steps=4, dt=600.0, inner_steps=2)
     land = tp.initialize(tp.LandModel(grid=grid), tp.Heun(),
                          initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
-                         input_sources=(tp.FieldInputSource(fields={
-                             "surface_shortwave_down": 400.0, "air_temperature": 12.0}),))
+                         input_sources=sources)
     roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
                                    dt=300.0, inner_steps=2)
     with pytest.raises(ValueError, match="Queue B #1"):

@@ -410,8 +410,9 @@ def test_live_carry_matches_jax_dead_input_mask():
 
 
 def test_heat_only_model_runs_its_plain_version_on_the_cpu():
-    """The default (NoFlow) model has no implicit kernel; on the CPU
-    ``run`` takes its plain version, which matches JAX's run."""
+    """The default (NoFlow) model with ImplicitEuler: on the CPU ``run``
+    takes the plain version of its kernel (``soil_column_heat_implicit_
+    rollout``), which matches JAX's run."""
     runs = []
     for m, kw in ((tt, dict(nf=np.float64)), (tp, dict(dtype=torch.float64, device="cpu"))):
         grid = m.ColumnGrid.of(cells=5, spacing=m.ExponentialSpacing(N=12), **kw)
@@ -457,36 +458,55 @@ def test_unknown_solver_raises(solver):
 
 
 def test_fused_rollout_refuses_picard_iterations(monkeypatch):
-    """The fused rollout (kernel and plain version alike) runs one Picard
-    iteration; ``run`` and ``advance`` step any other number through the
-    process modules, even when the plain version is asked for, and match
-    JAX's ``run`` at 1e-12."""
-    def refused(*args, **kwargs):
-        raise AssertionError("the soil column rollout ran")
+    """The fused rollout takes ImplicitEuler with two Picard iterations,
+    with either solver: ``run`` goes through the implicit wrapper with
+    ``picard_iters=2`` (its plain version on the CPU, no process-module
+    step), equals ``advance(..., plain=True)`` bitwise and matches JAX's
+    ``run`` at 1e-12 (the saturation at an absolute 1e-12, the adjustment's
+    rounding), 24 steps of ``implicit_freeze``."""
+    calls = []
+    plain = fs.soil_column_rollout_plain
 
-    monkeypatch.setattr(fs, "soil_column_rollout_plain", refused)
-    monkeypatch.setattr("terrarium_tpu_torch.timesteppers.integrator.soil_column_rollout_plain",
-                        refused)
-    sim, ref = implicit_freeze("port", picard_iters=2), implicit_freeze("port", picard_iters=2)
-    jsim = implicit_freeze("jax", picard_iters=2)
-    sim.run(steps=2, dt=3600.0)
-    jsim.run(steps=2, dt=3600.0)
-    advance(ref.model, ref.state, ref.ctx, 2, 3600.0, timestepper=ref.timestepper, plain=True)
-    ref.compute_auxiliary()
-    assert_fields_close(sim.state, jsim.state, FIELDS)
-    for name in FIELDS:
-        torch.testing.assert_close(ref.state[name], sim.state[name], rtol=0, atol=0)
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("picard_iters"))
+        return plain(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a process-module step ran")
+
+    monkeypatch.setattr(fs, "soil_column_rollout_plain", counted)
+    monkeypatch.setattr(type(implicit_freeze("port").timestepper), "pre_closure_step", refused)
+    for solver in SOLVERS:
+        calls.clear()
+        sim, ref = (implicit_freeze("port", solver, picard_iters=2) for _ in range(2))
+        jsim = implicit_freeze("jax", solver, picard_iters=2)
+        sim.run(steps=24, dt=3600.0)
+        jsim.run(steps=24, dt=3600.0)
+        assert calls == [2], solver
+        advance(ref.model, ref.state, ref.ctx, 24, 3600.0, timestepper=ref.timestepper,
+                plain=True)
+        ref.compute_auxiliary()
+        _assert_state_close(sim.state, jsim.state)
+        for name in FIELDS:
+            torch.testing.assert_close(ref.state[name], sim.state[name], rtol=0, atol=0)
+        assert bool((sim.state.liquid_water_fraction < 1.0).any())
 
 
 def test_fused_grad_refuses_implicit_euler():
     """ImplicitEuler with more than one Picard iteration has no segment VJP
-    (ROADMAP Queue B #2); with one it is taken
-    (`tests/test_torch_grad_steppers.py`)."""
+    over the LandModel (ROADMAP Queue B #2); over the SoilModel it is taken,
+    with either physics (`tests/test_torch_grad_steppers.py`)."""
     sim = implicit_freeze("port", picard_iters=2)
     grid = sim.model.grid
+    make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid, soil=port_soil()),
+                            sim.timestepper, sim.ctx, steps=4, dt=3600.0, inner_steps=2)
+    land = tp.initialize(tp.LandModel(grid=grid), sim.timestepper,
+                         initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
+                         input_sources=(tp.FieldInputSource(fields={
+                             "surface_shortwave_down": 400.0, "air_temperature": 12.0}),))
     with pytest.raises(ValueError, match="Queue B #2"):
-        make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid, soil=port_soil()),
-                                sim.timestepper, sim.ctx, steps=4, dt=3600.0, inner_steps=2)
+        make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
+                                dt=3600.0, inner_steps=2)
 
 
 # ---------------------------------------------------------------------------

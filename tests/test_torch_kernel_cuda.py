@@ -1,5 +1,6 @@
 """The soil column CUDA kernels (the ForwardEuler, Heun, heat-only and
-ImplicitEuler rollouts, the segment VJP and the full step) and the LandModel
+ImplicitEuler rollouts, the Picard and heat-only ImplicitEuler and Heun
+entries among them, the segment VJP and the full step) and the LandModel
 column kernel against their plain PyTorch versions, and ``run`` through the
 process modules, on a CUDA device. Every test skips where
 ``torch.cuda.is_available()`` is False.
@@ -256,20 +257,36 @@ def _heat_only(device, ts):
 @pytest.mark.cuda
 def test_default_model_runs_through_the_heat_kernel(cuda):
     """``SoilModel(grid=g)`` is the heat-only model; ForwardEuler runs it
-    through the heat kernel, Heun, which has no heat-only kernel, through
-    the process modules on the card, as on the CPU."""
-    sim = _heat_only(cuda, tp.ForwardEuler(dt=300.0))
-    before = fs.soil_column_heat_rollout.launches
-    sim.run(steps=48)
-    assert fs.soil_column_heat_rollout.launches == before + 1
-    assert bool(torch.isfinite(sim.state.temperature).all())
-    assert float(sim.state.temperature[-1].max()) < 1.0
-    _runs_through_the_modules(lambda device: _heat_only(device, tp.Heun(dt=300.0)), 4)
+    through the heat kernel, Heun through the heat-only Heun kernel (one
+    launch each), matching the CPU's run (the plain version) at 1e-4 of
+    each field; with a forcing, which no kernel takes, through the process
+    modules on the card, as on the CPU."""
+    for ts, wrapper in ((tp.ForwardEuler(dt=300.0), fs.soil_column_heat_rollout),
+                        (tp.Heun(dt=300.0), fs.soil_column_heat_heun_rollout)):
+        sim, cpu = _heat_only(cuda, ts), _heat_only("cpu", ts)
+        before = wrapper.launches
+        sim.run(steps=48)
+        cpu.run(steps=48)
+        assert wrapper.launches == before + 1
+        assert bool(torch.isfinite(sim.state.temperature).all())
+        assert float(sim.state.temperature[-1].max()) < 1.0
+        ref = cpu.state.temperature
+        torch.testing.assert_close(sim.state.temperature.cpu(), ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+    def forced(device):
+        sim = _heat_only(device, tp.Heun(dt=300.0))
+        return tp.Simulation(sim.model, sim.timestepper, sim.state, bcs=sim.bcs,
+                             forcings={"internal_energy": lambda state, grid: 2.0})
+
+    _runs_through_the_modules(forced, 4)
 
 
 def _launch_counts():
     return [f.launches for f in (fs.soil_column_rollout, fs.soil_column_heun_rollout,
                                  fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
+                                 fs.soil_column_heat_heun_rollout,
+                                 fs.soil_column_heat_implicit_rollout,
                                  fs.soil_column_full_step, fv.soil_column_segment_vjp)]
 
 
@@ -360,9 +377,99 @@ def test_implicit_freeze_golden_through_the_kernel(cuda, solver):
 
 @pytest.mark.cuda
 def test_implicit_heat_only_has_no_kernel(cuda):
-    """ImplicitEuler on the heat-only model has no kernel: ``run`` steps it
-    through the process modules on the card."""
-    _runs_through_the_modules(lambda device: _heat_only(device, tp.ImplicitEuler()), 4)
+    """ImplicitEuler on the heat-only model now has its kernel
+    (``soil_column_heat_implicit_rollout``): ``run`` launches it once, with
+    one and with two Picard iterations, and matches the CPU's run (its
+    plain version) at 1e-4 of each field."""
+    for picard in (1, 2):
+        ts = tp.ImplicitEuler(dt=3600.0, picard_iters=picard)
+        sim, cpu = _heat_only(cuda, ts), _heat_only("cpu", ts)
+        before = _launch_counts()
+        sim.run(steps=12)
+        cpu.run(steps=12)
+        torch.cuda.synchronize()
+        assert fs.soil_column_heat_implicit_rollout.launches == before[5] + 1
+        assert sum(_launch_counts()) == sum(before) + 1
+        ref = cpu.state.temperature
+        torch.testing.assert_close(sim.state.temperature.cpu(), ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz", [(torch.float64, 16), (torch.float32, 30)])
+def test_heat_heun_kernel_matches_plain(cuda, dtype, nz):
+    """The heat-only Heun kernel from a (T, cells) series and from a table
+    of steps + 1 rows: 1e-12 at float64, 1e-4 of each field's largest
+    magnitude at float32; the saturation comes back as it went in."""
+    carry, values, coords, params = _forced(300, nz, dtype, cuda, heat=True)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    bc = fs.SeriesBC(values, 1800.0, 3600.0, 0.0, 96)
+    before = fs.soil_column_heat_heun_rollout.launches
+    out = fs.soil_column_heat_heun_rollout(*carry, bc, *coords, params, 300.0)
+    ref = fs.soil_column_rollout_plain(*carry, bc, *coords, params, 300.0, stepper="heun",
+                                       physics="heat")
+    torch.cuda.synchronize()
+    assert fs.soil_column_heat_heun_rollout.launches == before + 1
+    assert out[1] is carry[1] and out[2] is None
+    _close(out[:1], ref[:1], tol)
+    table = values[:49]
+    _close(fs.soil_column_heat_heun_rollout(*carry, table, *coords, params, 300.0)[:1],
+           fs.soil_column_rollout_plain(*carry, table, *coords, params, 300.0, stepper="heun",
+                                        physics="heat")[:1], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("picard", [1, 2, 3])
+@pytest.mark.parametrize("solver", ["pcr", "thomas"])
+@pytest.mark.parametrize("dtype,nz", [(torch.float64, 16), (torch.float32, 30)])
+def test_heat_implicit_kernel_matches_plain(cuda, dtype, nz, solver, picard):
+    """The heat-only ImplicitEuler kernel with ``picard`` Picard iterations
+    at dt 3600, 48 steps of a (T, cells) series that freezes and thaws the
+    top: 1e-12 at float64, 1e-4 at float32."""
+    carry, values, coords, params = _forced(300, nz, dtype, cuda, heat=True)
+    bc = fs.SeriesBC(values, 1800.0, 3600.0, 0.0, 48)
+    before = fs.soil_column_heat_implicit_rollout.launches
+    out = fs.soil_column_heat_implicit_rollout(*carry, bc, *coords, params, 3600.0,
+                                               solver=solver, picard_iters=picard)
+    ref = fs.soil_column_rollout_plain(*carry, bc, *coords, params, 3600.0, stepper="implicit",
+                                       physics="heat", solver=solver, picard_iters=picard)
+    torch.cuda.synchronize()
+    assert fs.soil_column_heat_implicit_rollout.launches == before + 1
+    assert out[1] is carry[1] and out[2] is None
+    _close(out[:1], ref[:1], 1e-12 if dtype == torch.float64 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("picard", [2, 3])
+@pytest.mark.parametrize("solver", ["pcr", "thomas"])
+@pytest.mark.parametrize("dtype,nz", [(torch.float64, 16), (torch.float32, 30)])
+def test_picard_kernel_matches_plain(cuda, dtype, nz, solver, picard):
+    """ImplicitEuler with ``picard`` Picard iterations over heat + Richards:
+    the bench configuration at dt 900 for 48 steps (300 columns), as
+    ``test_implicit_kernel_matches_plain`` holds one iteration; and
+    ``implicit_freeze`` through ``run`` (one launch of the implicit
+    wrapper) against the CPU's run at float64."""
+    sim = _sim(300, nz, dtype, cuda, dt=900.0)
+    carry, table, coords, params = _operands(sim, 48, dt=900.0)
+    before = fs.soil_column_implicit_rollout.launches
+    out = fs.soil_column_implicit_rollout(*carry, table, *coords, params, 900.0, solver=solver,
+                                          picard_iters=picard)
+    ref = fs.soil_column_rollout_plain(*carry, table, *coords, params, 900.0,
+                                       stepper="implicit", solver=solver, picard_iters=picard)
+    torch.cuda.synchronize()
+    assert fs.soil_column_implicit_rollout.launches == before + 1
+    _close(out, ref, 1e-12 if dtype == torch.float64 else 1e-4)
+    if dtype == torch.float64:
+        runs = []
+        for device in (cuda, "cpu"):
+            s = _implicit_freeze_sim(device, solver)
+            s.timestepper = tp.ImplicitEuler(dt=3600.0, solver=solver, picard_iters=picard)
+            runs.append(s.run(steps=24, dt=3600.0))
+        assert fs.soil_column_implicit_rollout.launches == before + 2
+        for name in ("internal_energy", "saturation_water_ice", "surface_excess_water"):
+            b = runs[1].state[name]
+            torch.testing.assert_close(runs[0].state[name].cpu(), b, rtol=1e-12,
+                                       atol=1e-12 * float(b.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -472,22 +579,28 @@ def test_fused_grad_rollout_launches_each_kernel_once_a_segment(cuda):
 
 
 # the segment VJP's other schemes: (stepper, physics, solver, dt, the Nz of
-# its float64 instantiation), each also built at float32 Nz 30
-VJP_SCHEMES = {"heun": ("heun", "richards", "pcr", 60.0, 15),
-               "implicit-thomas": ("implicit", "richards", "thomas", 900.0, 16),
-               "implicit-pcr": ("implicit", "richards", "pcr", 900.0, 16),
-               "heat": ("euler", "heat", "pcr", 300.0, 30)}
+# its float64 instantiation, Picard iterations), each also built at float32
+# Nz 30
+VJP_SCHEMES = {"heun": ("heun", "richards", "pcr", 60.0, 15, 1),
+               "implicit-thomas": ("implicit", "richards", "thomas", 900.0, 16, 1),
+               "implicit-pcr": ("implicit", "richards", "pcr", 900.0, 16, 1),
+               "heat": ("euler", "heat", "pcr", 300.0, 30, 1),
+               "heat-heun": ("heun", "heat", "pcr", 300.0, 16, 1),
+               "heat-implicit-pcr": ("implicit", "heat", "pcr", 3600.0, 16, 1),
+               "heat-picard2-thomas": ("implicit", "heat", "thomas", 3600.0, 16, 2),
+               "picard2-pcr": ("implicit", "richards", "pcr", 900.0, 16, 2),
+               "picard3-thomas": ("implicit", "richards", "thomas", 900.0, 16, 3)}
 
 
 def _scheme_sim(scheme, cells, nz, dtype, device):
     """The gradient configuration (T = -1 degC, sat = min(1, 0.6 - 0.04 z),
     top 4 degC) stepped by the scheme; heat only: the default model."""
-    stepper, physics, solver, dt, _ = VJP_SCHEMES[scheme]
+    stepper, physics, solver, dt, _, picard = VJP_SCHEMES[scheme]
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
                             device=device)
     model = _grad_model(grid) if physics == "richards" else tp.SoilModel(grid=grid)
-    ts = {"heun": tp.Heun(dt=dt), "implicit": tp.ImplicitEuler(dt=dt, solver=solver),
-          "euler": tp.ForwardEuler(dt=dt)}[stepper]
+    ts = {"heun": tp.Heun(dt=dt), "euler": tp.ForwardEuler(dt=dt),
+          "implicit": tp.ImplicitEuler(dt=dt, solver=solver, picard_iters=picard)}[stepper]
     return tp.initialize(model, ts, initializers={
         "temperature": -1.0,
         "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.6 - 0.04 * z)},
@@ -495,7 +608,7 @@ def _scheme_sim(scheme, cells, nz, dtype, device):
 
 
 def _scheme_operands(scheme, sim, steps, seed):
-    stepper, physics, solver, dt, _ = VJP_SCHEMES[scheme]
+    stepper, physics, solver, dt, _, picard = VJP_SCHEMES[scheme]
     g = sim.model.grid
     coords = tuple(getattr(g, n)[:, 0].contiguous()
                    for n in ("dz", "dz_faces", "z_centers", "z_faces"))
@@ -508,7 +621,7 @@ def _scheme_operands(scheme, sim, steps, seed):
     cts = tuple(None if t is None else
                 torch.as_tensor(rng.normal(size=tuple(t.shape)), device=g.device).to(g.dtype)
                 for t in carry)
-    kw = dict(stepper=stepper, physics=physics, solver=solver)
+    kw = dict(stepper=stepper, physics=physics, solver=solver, picard_iters=picard)
     return carry, table, coords, fs.ColumnParams.of(sim.model, g.dtype), dt, cts, kw
 
 
@@ -538,7 +651,8 @@ def test_segment_vjp_scheme_kernel_matches_plain(cuda, scheme):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", ["heun", "implicit-thomas", "implicit-pcr"])
+@pytest.mark.parametrize("scheme", ["heun", "implicit-thomas", "implicit-pcr", "picard2-pcr",
+                                    "picard3-thomas"])
 def test_segment_vjp_scheme_kernel_keeps_the_water_identity(cuda, scheme):
     """The cotangents (0, dz, 1) of the total water, which every Heun and
     implicit step conserves, through the kernel: dz and 1 at every cell
@@ -562,7 +676,7 @@ def test_fused_grad_rollout_launches_each_scheme_once_a_segment(cuda, scheme):
     """make_fused_grad_rollout of each scheme at float32, Nz 30: one forward
     launch of the scheme's rollout kernel and one VJP launch a segment, and
     a finite, non-zero gradient in k_mineral."""
-    stepper, physics, solver, dt, _ = VJP_SCHEMES[scheme]
+    stepper, physics, solver, dt, _, _ = VJP_SCHEMES[scheme]
     sim = _scheme_sim(scheme, 200, 30, torch.float32, cuda)
     grid = sim.model.grid
     steps, inner = 24, 8

@@ -44,12 +44,14 @@ def _bench(m, ts, bcs, forcings=None):
                         forcings=forcings)
 
 
-def _heat(m, ts):
-    """The default heat-only model under a -3 degC top."""
+def _heat(m, ts, bottom=None):
+    """The default heat-only model under a -3 degC top (and ``bottom``'s
+    BCs)."""
+    bcs = m.PrescribedSurfaceTemperature(-3.0)
     return m.initialize(m.SoilModel(grid=_grid(m)), ts,
                         initializers={"temperature": lambda x, z: 1.5 + 0.2 * z + 0.0 * x,
                                       "saturation_water_ice": 0.8},
-                        boundary_conditions=m.PrescribedSurfaceTemperature(-3.0))
+                        boundary_conditions=bcs if bottom is None else {**bcs, **bottom})
 
 
 def _land(m, ts, bcs=None):
@@ -81,10 +83,15 @@ MODULE_CASES = {
                                              {**_top(m), **m.ImpermeableBoundary()}), 10, 60.0),
     "FreeDrainage": (lambda m: _bench(m, m.ForwardEuler(dt=60.0),
                                       {**_top(m), **m.FreeDrainage()}), 10, 60.0),
-    "heat-only Heun": (lambda m: _heat(m, m.Heun(dt=300.0)), 12, 300.0),
-    "heat-only ImplicitEuler": (lambda m: _heat(m, m.ImplicitEuler(dt=900.0)), 12, 900.0),
-    "picard_iters=2": (lambda m: _bench(m, m.ImplicitEuler(dt=900.0, picard_iters=2), _top(m)),
-                       8, 900.0),
+    # heat-only Heun and ImplicitEuler and two Picard iterations take the
+    # soil rollouts (test_kernel_compositions_still_take_their_rollout); with
+    # a geothermal flux at the bottom, the modules
+    "heat-only Heun": (lambda m: _heat(m, m.Heun(dt=300.0), m.GeothermalHeatFlux(0.08)), 12,
+                       300.0),
+    "heat-only ImplicitEuler": (lambda m: _heat(m, m.ImplicitEuler(dt=900.0),
+                                                m.GeothermalHeatFlux(0.08)), 12, 900.0),
+    "picard_iters=2": (lambda m: _bench(m, m.ImplicitEuler(dt=900.0, picard_iters=2),
+                                        {**_top(m), **m.GeothermalHeatFlux(0.08)}), 8, 900.0),
     # the land rollouts take Heun and ImplicitEuler with the coupling BCs and
     # one Picard iteration; a geothermal flux at the bottom, or two Picard
     # iterations, take the modules
@@ -144,8 +151,7 @@ def test_run_steps_the_modules_where_no_kernel_takes(case, no_kernel):
     make, steps, dt = MODULE_CASES[case]
     psim, ref, jsim = make(tp), make(tp), make(tt)
     assert integrator.column_scheme(psim.model, psim.timestepper, psim.ctx,
-                                    psim.input_sources) in (None, ("heun", "heat"),
-                                                            ("implicit", "heat"))
+                                    psim.input_sources) is None
     psim.run(steps=steps, dt=dt)
     _module_steps(ref, steps, dt)
     for g in ("prognostic", "tendencies", "auxiliary"):
@@ -171,7 +177,8 @@ def test_soil_module_run_equals_timesteps():
 
 
 @pytest.mark.parametrize("case", ["euler", "heun series", "heat", "implicit", "land",
-                                  "land heun", "land implicit"])
+                                  "land heun", "land implicit", "heat heun", "heat implicit",
+                                  "picard"])
 def test_kernel_compositions_still_take_their_rollout(case, monkeypatch):
     """The compositions a kernel takes still go through the column rollout
     (here, on the CPU, its plain version), never the module loop."""
@@ -200,6 +207,12 @@ def test_kernel_compositions_still_take_their_rollout(case, monkeypatch):
                                 "surface_temperature"))
     elif case == "heat":
         sim = _heat(tp, tp.ForwardEuler(dt=300.0))
+    elif case == "heat heun":
+        sim = _heat(tp, tp.Heun(dt=300.0))
+    elif case == "heat implicit":
+        sim = _heat(tp, tp.ImplicitEuler(dt=900.0, picard_iters=2))
+    elif case == "picard":
+        sim = _bench(tp, tp.ImplicitEuler(dt=900.0, solver="thomas", picard_iters=3), _top(tp))
     elif case == "implicit":
         sim = _bench(tp, tp.ImplicitEuler(dt=900.0, solver="thomas"), _top(tp))
     elif case == "land":

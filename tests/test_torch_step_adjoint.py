@@ -12,9 +12,11 @@ rounding.
 The states are `test_torch_soil_physics.py`'s random legal states, which take
 every branch of the step, and the gradient test's exactly saturated column.
 Each scheme of the segment VJP is held there: ForwardEuler, Heun and
-ImplicitEuler (Thomas, PCR) over heat + Richards, and ForwardEuler over the
-heat-only model, whose parameters are those of the default (NoFlow)
-`SoilModel` on the same grid.
+ImplicitEuler (Thomas, PCR) over heat + Richards, ForwardEuler and Heun over
+the heat-only model, whose parameters are those of the default (NoFlow)
+`SoilModel` on the same grid, and ``soil::picard_step_adjoint``
+(ImplicitEuler with one to three Picard iterations, each solver, either
+physics).
 """
 import ctypes
 import pathlib
@@ -27,6 +29,7 @@ import torch
 
 from terrarium_tpu_torch.ops import fused_step as fs
 from terrarium_tpu_torch.ops import fused_vjp as fv
+from terrarium_tpu_torch.processes.soil.hydrology import saturation_sweeps
 
 import terrarium_tpu_torch as tp
 
@@ -54,17 +57,22 @@ def host_lib(tmp_path_factory):
                                  + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ll])
     lib.host_segment_vjp_scheme.argtypes = ([ptr] * 11 + [ll] + [ptr] * 5
                                             + [ctypes.c_int] * 5 + [ctypes.c_double, ll])
+    lib.host_segment_vjp_picard.argtypes = ([ptr] * 11 + [ll] + [ptr] * 5
+                                            + [ctypes.c_int] * 5 + [ctypes.c_double, ll])
+    lib.host_rollout_picard.argtypes = ([ptr] * 4 + [ll, ll, ctypes.c_int]
+                                        + [ctypes.c_double] * 3 + [ptr] * 5
+                                        + [ctypes.c_int] * 5 + [ctypes.c_double, ll])
     return lib
 
 
-def _case(name, physics="richards"):
+def _case(name, physics="richards", random_dt=60.0):
     """Carry, top-temperature table, coordinates and parameters of a case;
     ``physics="heat"`` takes the default heat-only model's parameters and
     the carry (U, sat)."""
     if name.startswith("random"):
         sim = port_sim("golden", CELLS, NZ)
         carry = tuple(torch.as_tensor(a).contiguous() for a in random_state(int(name[-1])))
-        table, dt = torch.linspace(-3.0, 6.0, 6, dtype=torch.float64), 60.0
+        table, dt = torch.linspace(-3.0, 6.0, 6, dtype=torch.float64), random_dt
     else:  # the gradient tests' column, bottom layers exactly saturated
         sim = port_sim("golden", 16, 10)
         sim.state.set(saturation_water_ice=torch.minimum(
@@ -85,7 +93,8 @@ CASES = ["random0", "random1", "saturated"]
 #: (stepper, physics, solver), with the host build's codes
 SCHEMES = {"heun": ("heun", "richards", "pcr"), "implicit-thomas": ("implicit", "richards",
                                                                     "thomas"),
-           "implicit-pcr": ("implicit", "richards", "pcr"), "heat": ("euler", "heat", "pcr")}
+           "implicit-pcr": ("implicit", "richards", "pcr"), "heat": ("euler", "heat", "pcr"),
+           "heat-heun": ("heun", "heat", "pcr")}
 _CODES = {"euler": 0, "heun": 1, "implicit": 2, "thomas": 0, "pcr": 1}
 
 
@@ -165,6 +174,104 @@ def test_host_scheme_adjoint_matches_autograd(host_lib, case, scheme):
                                            physics=physics, solver=solver)
     got = (*out, gparams[0].sum(), gparams[1].sum())
     for name, a, b in zip(("U", "sat", "S", "K_sat", "sk_mineral"), got, ref):
+        if heat and name == "S":
+            assert b is None and bool(torch.isnan(a).all()), "the heat-only VJP wrote a pool"
+            continue
+        if heat and name == "K_sat":
+            assert float(a) == 0.0 and float(b) == 0.0
+            continue
+        assert bool(torch.isfinite(a).all()), name
+        scale = float(b.abs().max())
+        assert scale > 0.0, name
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+
+
+def _picard_parted(host_lib, carry, table, coords, params, dt, heat, solver, iters):
+    """The columns where ``soil::picard_step`` (host) and the plain version,
+    each along its own trajectory one step at a time, part beyond 1e-12 of
+    a field's magnitude, and whether each of them closes a layer at or
+    within 1e-9 of saturation on the plain trajectory before it parts: the
+    sweeps and ``d(Psi)/d(sat)`` switch there, and the header's ``cbrt`` and
+    torch's ``pow(x, 1/3)``, an ulp apart, may put an iterate either side
+    (`test_torch_step_host.py`'s implicit columns part the same way)."""
+    nz, cells = carry[0].shape
+    kw = dict(stepper="implicit", physics="heat" if heat else "richards", solver=solver,
+              picard_iters=iters)
+    cp = fs._CParams.of(params)
+    a = b = carry
+    parted = torch.zeros(cells, dtype=torch.bool)
+    near = torch.zeros(cells, dtype=torch.bool)
+    for i in range(table.shape[0]):
+        row = table[i:i + 1]
+        if not heat:
+            near |= ~parted & (saturation_sweeps(b[1], coords[0][:, None])[0]
+                               >= 1.0 - 1e-9).any(0)
+        a = tuple(t.clone() for t in a)
+        assert host_lib.host_rollout_picard(
+            *(t.data_ptr() for t in (*a, row)), 1, 0, 0, 0.0, 0.0, 0.0,
+            *(c.data_ptr() for c in coords), ctypes.addressof(cp), nz, _CODES[solver],
+            int(heat), iters, 1, dt, cells) == 0
+        out = fs.soil_column_rollout_plain(b[0], b[1], None if heat else b[2], row, *coords,
+                                           params, dt, **kw)
+        b = out if not heat else (out[0], out[1], b[2])
+        for u, v in zip(a, b):
+            d = (u - v).abs()
+            parted |= (d.amax(0) if d.dim() == 2 else d) > 1e-12 * float(v.abs().max())
+    return parted, near
+
+
+#: the random cases' dt of the Picard checks, the implicit kernels' check dt
+#: of `test_torch_step_host.py`
+PICARD_DT = 300.0
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("solver", ["thomas", "pcr"])
+@pytest.mark.parametrize("physics", ["richards", "heat"])
+@pytest.mark.parametrize("case", CASES)
+def test_host_picard_adjoint_matches_autograd(host_lib, case, physics, solver, iters):
+    """``soil::picard_step_adjoint`` (each iteration's iterate recomputed
+    from the step's start, its closure's spill dropped, its right side's
+    -(u_k - u^n) / dt) against torch autograd through the plain rollout
+    with ``picard_iters``: every cotangent within 1e-12 of its largest
+    magnitude; heat only: no pool, and K_sat's exactly 0. First the forward,
+    ``soil::picard_step`` one step at a time: every column is held at 1e-12
+    but where a layer closes at saturation (:func:`_picard_parted`: at most
+    two columns of a case, all with a layer there, none of the heat-only
+    model's); the cotangents are compared on the held columns, each column
+    being independent of the others (the parameter cotangents summed over
+    them)."""
+    carry, table, coords, params, dt = _case(case, physics, random_dt=PICARD_DT)
+    nz, cells = carry[0].shape
+    heat = physics == "heat"
+    if heat:
+        carry = carry + (torch.zeros(cells, dtype=torch.float64),)
+    parted, near = _picard_parted(host_lib, carry, table, coords, params, dt, heat, solver,
+                                  iters)
+    assert int(parted.sum()) <= 2 and bool(near[parted].all()), parted.nonzero().tolist()
+    keep = ~parted
+    rng = np.random.default_rng(sum(map(ord, case + physics + solver)) + iters)
+    cts = tuple(torch.as_tensor(rng.normal(size=tuple(t.shape))) for t in carry)
+    if heat:
+        cts = cts[:2] + (None,)
+    grads = tuple(torch.full_like(carry[0 if i < 2 else 2], np.nan) for i in range(3))
+    gparams = torch.zeros(2, cells, dtype=torch.float64)
+    cp = fs._CParams.of(params)
+    rc = host_lib.host_segment_vjp_picard(
+        *(0 if t is None else t.data_ptr() for t in (*carry, *cts, *grads, gparams, table)),
+        table.stride(0), *(c.data_ptr() for c in coords), ctypes.addressof(cp), nz,
+        _CODES[solver], int(heat), iters, table.shape[0], dt, cells)
+    assert rc == 0
+
+    def held(t):
+        return None if t is None else t[..., keep].contiguous()
+
+    want = fv.soil_column_segment_vjp_plain(
+        held(carry[0]), held(carry[1]), None if heat else held(carry[2]), table, *coords,
+        params, dt, *(held(t) for t in cts), stepper="implicit", physics=physics,
+        solver=solver, picard_iters=iters)
+    got = (*(held(t) for t in grads), gparams[0][keep].sum(), gparams[1][keep].sum())
+    for name, a, b in zip(("U", "sat", "S", "K_sat", "sk_mineral"), got, want):
         if heat and name == "S":
             assert b is None and bool(torch.isnan(a).all()), "the heat-only VJP wrote a pool"
             continue

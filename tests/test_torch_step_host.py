@@ -1,8 +1,9 @@
 """The rollout kernel's column loop (``soil::rollout_column`` in
 ``csrc/soil_step.cuh``: ForwardEuler and Heun, heat + Richards and heat only,
-and ImplicitEuler with its Thomas or PCR solves, the top temperature from a
-table or interpolated from a series), compiled for the host by the C++
-compiler, against the plain PyTorch version at float64.
+ImplicitEuler with its Thomas or PCR solves, and ``soil::picard_step``, its
+Picard iterations over either physics, the top temperature from a table or
+interpolated from a series), compiled for the host by the C++ compiler,
+against the plain PyTorch version at float64.
 
 The host build does not contract multiply-adds, as torch on the CPU does
 not, so the two differ only where ``cbrt`` and torch's ``pow(x, 1/3)`` round
@@ -193,3 +194,57 @@ def test_host_implicit_refuses_the_heat_only_model(lib):
         *(c.data_ptr() for c in coords), ctypes.addressof(fs._CParams.of(params)), NZ, 2, 0, 1,
         STEPS, IMPLICIT_DT, CELLS)
     assert rc == -1
+
+
+@pytest.fixture(scope="module")
+def picard_lib(lib):
+    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.host_rollout_picard.argtypes = (
+        [ptr] * 4 + [ll, ll, ctypes.c_int] + [ctypes.c_double] * 3 + [ptr] * 5
+        + [ctypes.c_int] * 5 + [ctypes.c_double, ll])
+    return lib
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("top_kind", ["table", "series"])
+@pytest.mark.parametrize("solver", ["thomas", "pcr"])
+@pytest.mark.parametrize("physics", ["heat", "richards"])
+def test_host_picard_column_matches_plain(picard_lib, physics, solver, top_kind, iters):
+    """``soil::picard_step`` (ImplicitEuler with ``iters`` Picard
+    iterations) in the rollout loop, 30 steps of 300 s from the random legal
+    states with a per-column table or series, against
+    ``soil_column_rollout_plain(..., stepper="implicit", picard_iters=)`` at
+    1e-12 of each field's magnitude. Heat only: every column, the saturation
+    never written. Heat + Richards: every column but at most four, each of
+    which starts with a layer at or within 1e-9 of saturation, where an
+    iterate may close an ulp either side of it on the two sides
+    (`test_host_implicit_column_at_900_parts_only_at_saturation_flips`)."""
+    carry, top, coords, params = _case("euler", physics, top_kind, 0)
+    out = tuple(t.clone() for t in carry)
+    if isinstance(top, fs.SeriesBC):
+        data, rows, series = top.values, SERIES_ROWS, (top.t0, top.dts, top.time)
+    else:
+        data, rows, series = top[:STEPS], 0, (0.0, 0.0, 0.0)
+    cp = fs._CParams.of(params)
+    rc = picard_lib.host_rollout_picard(
+        *(t.data_ptr() for t in (*out, data)), data.stride(0),
+        data.stride(1) if data.dim() == 2 else 0, rows, *series,
+        *(c.data_ptr() for c in coords), ctypes.addressof(cp), NZ, int(solver == "pcr"),
+        int(physics == "heat"), iters, STEPS, IMPLICIT_DT, CELLS)
+    assert rc == 0
+    ref = fs.soil_column_rollout_plain(*carry, top if rows else data, *coords, params,
+                                       IMPLICIT_DT, stepper="implicit", physics=physics,
+                                       solver=solver, picard_iters=iters)
+    parted = torch.zeros(CELLS, dtype=torch.bool)
+    for name, a, b in zip(("U", "sat", "S"), out, ref):
+        assert bool(torch.isfinite(b).all()), name
+        d = (a - b).abs()
+        parted |= (d.amax(0) if d.dim() == 2 else d) > 1e-12 * float(b.abs().max())
+    if physics == "heat":
+        assert not bool(parted.any()), parted.nonzero().flatten().tolist()
+        assert torch.equal(ref[1], carry[1]) and torch.equal(out[1], carry[1])
+    else:
+        near = (carry[1] >= 1.0 - 1e-9).any(0)
+        assert int(parted.sum()) <= 4 and bool(near[parted].all()), (
+            parted.nonzero().flatten().tolist())
+        assert not torch.equal(ref[1], carry[1])
