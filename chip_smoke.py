@@ -3,11 +3,21 @@
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
 column rollouts, ForwardEuler, Heun and ImplicitEuler with Thomas or PCR
 solves and any number of Picard iterations, heat + Richards and heat only,
-the segment VJP of each of these, the land rollout and its VJP and the full
-step; one ``nvcc`` per instantiation, in parallel: the rollout source first,
-then the others in a background thread while the forward phases run) and
-drives the port's paths, each with the kernel launch counts set to 0 just
-before it and read just after:
+the segment VJP of each of these, the land rollout and its VJP, each with
+the Picard iterations, and the full step; one ``nvcc`` per instantiation,
+in parallel: the rollout source's prebuilt set first, then the others in a
+background thread while the forward phases run, beside the two
+instantiations of ``on_demand`` that no prebuilt set holds, each built
+alone at its first use) and drives the port's paths, each with the kernel
+launch counts set to 0 just before it and read just after:
+
+* ``on_demand``: `examples/soil_heat_column.py`'s composition (BASELINE
+  config #1: the heat-only SoilModel, one column, Nz 10, float32,
+  ForwardEuler at dt 300 s, 864 steps) and a bare-ground Van
+  Genuchten/Mualem LandModel (1,024 columns, Nz 20, float32, ImplicitEuler
+  PCR at dt 600 s, 288 steps), each through ``Simulation.run`` on the
+  kernel built at its first use, one launch, against its plain version,
+  with the seconds its build took;
 
 * the forward main path (``initialize`` / ``Simulation.run``) at the bench
   size, 56,951 columns, Nz 30, float32, dt 60 s, after checking the rollout
@@ -62,7 +72,9 @@ before it and read just after:
   composition and forcing at dt 600 s (``land_heun``, ``land_implicit_pcr``,
   ``land_implicit_thomas``, ``land_snow_n145`` with a snowfall and an initial
   pack), one timed 1,440-step block each, with the share of columns with a
-  saturation layer outside [0, 1] at steps 3 and 1,440;
+  saturation layer outside [0, 1] at steps 3 and 1,440; then the same for
+  ImplicitEuler with two Picard iterations, each solver
+  (``land_picard_compare``, ``land_picard_main_path``);
 * the gradient path (``make_fused_grad_rollout``) of the configuration
   ``grad_n145_heat_richards`` (`bench_configs.py:311-411`): 56,951 columns,
   Nz 20, float32, dt 300 s, 288 steps in segments of 48, value and gradient
@@ -76,10 +88,14 @@ before it and read just after:
   inputs, 288 steps in segments of 48, value and gradient of mean(T) +
   mean(carbon) in log K_sat and k_mineral, ForwardEuler at dt 60 s
   (``land_grad_euler``) and ImplicitEuler at dt 600 s with each solver
-  (``land_grad_implicit_pcr``, ``_thomas``), after the land segment-VJP
+  (``land_grad_implicit_pcr``, ``_thomas``) and with two Picard iterations
+  (``land_grad_implicit_picard2_<solver>``), after the land segment-VJP
   kernel against its plain version (float64 on 1,024 columns at rtol 1e-9,
-  float32 at full width with the plain version in chunks) and the float64
-  gradient against central differences of the loss;
+  float32 at full width with the plain version in chunks, the parameter
+  cotangents also summed with output cotangents aligned to the sign of each
+  column's plain share) and the float64 gradient against central
+  differences of the loss; with Picard iterations the float32 gradient's
+  gap to the float64 one is held to the one-iteration scheme's;
 * the gradient path of the segment VJP's other schemes, each at 56,951
   columns, Nz 30, float32, 288 steps in segments of 48, after its kernel
   against its plain version (float64 on 1,024 columns at the scheme's
@@ -108,8 +124,8 @@ the SHA-256 of the ForwardEuler heat + Richards kernel's outputs on the
 golden, bench and gradient configurations, of the Heun kernel's on
 ``heun_forced`` and the Heun + series configuration, of the heat-only,
 implicit (each solver), segment-VJP (each scheme the package has), land
-kernels' (each stepper and the snowpack the package has) and land
-segment-VJP kernel's (each scheme, where the package has it) on their
+kernels' (each stepper, the snowpack and the Picard iterations the package
+has) and land segment-VJP kernel's (each scheme the package has) on their
 full-width comparison operands, and the bench
 ``main_path`` rate, for the package in
 ``DIR`` (default: this checkout). Run it on two checkouts in one call to
@@ -485,6 +501,40 @@ LAND_VARIANTS = {"land_heun": ("heun", None, False),
                  "land_implicit_thomas": ("implicit", "thomas", False),
                  "land_snow_implicit_pcr": ("implicit", "pcr", True)}
 LAND_VARIANT_STEPS = 48
+# ImplicitEuler with LAND_PICARD_ITERS Picard iterations over the same
+# composition (land::picard_step, the prebuilt entry that takes the count and
+# the solver at run time), each solver: held and timed as LAND_VARIANTS, and
+# one 1,440-step Simulation.run block each (land_picard_compare,
+# land_picard_main_path). Kept apart from LAND_VARIANTS, which
+# --euler-digest also runs on a parent package without the iterations
+LAND_PICARD_ITERS = 2
+LAND_PICARD_VARIANTS = {f"land_picard_{s}": ("implicit", s, False) for s in SOLVERS}
+
+
+def land_variant_spec(name):
+    """``(wrapper key, solver, snowpack, Picard iterations)`` of a land
+    variant of LAND_VARIANTS or LAND_PICARD_VARIANTS."""
+    if name in LAND_PICARD_VARIANTS:
+        return (*LAND_PICARD_VARIANTS[name], LAND_PICARD_ITERS)
+    return (*LAND_VARIANTS[name], 1)
+
+
+# C1's compositions, which no prebuilt instantiation covers and whose
+# kernels are built at their first launch (on_demand): BASELINE config #1
+# (examples/soil_heat_column.py: the heat-only SoilModel, one column, Nz 10,
+# float32, ForwardEuler at dt 300 s, 3 simulated days) and a bare-ground Van
+# Genuchten/Mualem land column at Nz 20, float32, ImplicitEuler (PCR) at dt
+# 600 s (test_land_steppers.py::test_implicit_land_model_reproduced's
+# composition) on 1,024 columns, 2 simulated days; each run through
+# Simulation.run against its plain version
+ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
+# The sources built beside the forward phases, in the order the phases need
+# them: the land rollout and the full step (the land and full-step phases),
+# then the land segment VJP (the land gradients), then the soil segment VJP
+# (the soil gradients, last), whose some 3,800 nvcc CPU seconds would
+# otherwise keep the land phases waiting
+REST_GROUPS = (("land_column_rollout", "soil_column_full_step"), ("land_column_segment_vjp",),
+               ("soil_column_segment_vjp",))
 # Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
 # Richards step, leaves [0, 1] in 95% of the columns from step 3 and its
 # tendencies grow far beyond the state, so the float32 rounding of the
@@ -564,20 +614,30 @@ def land_ops(nz, branches):
 # * Snowpack: cover 3, melt 5, the albedo and emissivity blends 7, eps
 #   sigma and 1 - eps 2, the melt into the ground rain 1, dSWE/dt 1, the
 #   SWE update with its clip 3: 22 a column and step.
+# * ImplicitEuler with k Picard iterations (land::picard_step): k times the
+#   one-iteration step, each iteration after the first without the series
+#   reads and the surface updates (it reads the inputs and the surface
+#   iteration 0 left) and with the right-hand sides' tend - (u_k - u^n) /
+#   dt for U and sat (3 a level and variable: 6).
 LAND_HEUN_OPS_PER_LEVEL, LAND_HEUN_OPS_PER_COLUMN = 4, 12 + 23
 LAND_IMPLICIT_OPS_PER_LEVEL, LAND_IMPLICIT_OPS_PER_COLUMN = -4 + 3 + 16 + 2 + 2, 5
 LAND_SNOW_OPS_PER_COLUMN = 22
+LAND_PICARD_OPS_PER_LEVEL = 6
 
 
-def land_variant_ops(stepper, solver, snow, nz, branches):
+def land_variant_ops(stepper, solver, snow, nz, branches, iters=1):
     """Operations of one land step of one column of ``stepper`` (the kernel
-    wrapper's key), with a snowpack where ``snow``."""
+    wrapper's key), with a snowpack where ``snow``, ImplicitEuler's with
+    ``iters`` Picard iterations."""
     ops = land_ops(nz, branches) + (LAND_SNOW_OPS_PER_COLUMN if snow else 0)
     if stepper == "heun":
         return 2 * ops + LAND_HEUN_OPS_PER_LEVEL * nz + LAND_HEUN_OPS_PER_COLUMN
     if stepper == "implicit":
-        return (ops + LAND_IMPLICIT_OPS_PER_LEVEL * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
-                + LAND_IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
+        one = (ops + LAND_IMPLICIT_OPS_PER_LEVEL * nz + IMPLICIT_OPS_PER_FACE * (nz - 1)
+               + LAND_IMPLICIT_OPS_PER_COLUMN + 2 * implicit_solver_ops(solver, nz))
+        return iters * one + (iters - 1) * (LAND_PICARD_OPS_PER_LEVEL * nz
+                                            - LAND_OPS_PER_COLUMN["series reads and clock"]
+                                            - LAND_OPS_PER_COLUMN["surface updates"])
     return ops
 
 
@@ -593,12 +653,23 @@ def land_variant_ops(stepper, solver, snow, nz, branches):
 # at dt 600 s, the land's production step. (scheme key, solver, dt)
 LAND_GRAD_SCHEMES = {"land_grad_euler": ("euler", None, 60.0),
                      "land_grad_implicit_pcr": ("implicit", "pcr", 600.0),
-                     "land_grad_implicit_thomas": ("implicit", "thomas", 600.0)}
+                     "land_grad_implicit_thomas": ("implicit", "thomas", 600.0),
+                     **{f"land_grad_implicit_picard2_{s}": ("implicit", s, 600.0)
+                        for s in SOLVERS}}
+# the Picard iterations of a scheme (1 where not given)
+LAND_GRAD_PICARD = {f"land_grad_implicit_picard2_{s}": 2 for s in SOLVERS}
 # the float32 full-width comparison runs the plain version (torch autograd
 # through the process modules) in chunks of this many columns; the float64
 # one on LAND_F64_CELLS columns over one segment; the central differences
 # of the loss in log K_sat and k_mineral step by these
 LAND_GRAD_CHUNK = 16384
+# The float32 288-step gradient with Picard iterations parts from its
+# float64 value (loss, d/dlog K_sat, d/dk_mineral) by as much as the
+# one-iteration gradient with the same solver does (0.27%, 1.6%, 7.0% at
+# full width): the forward's float32 rounding over the model's conditioning.
+# Each relative gap is held within this of the one-iteration scheme's
+# (measured apart by at most 1.9e-5, H100 80GB HBM3 at 700 W)
+LAND_PICARD_F32_GAP_TOL = 1e-3
 LAND_FD_H, LAND_FD_RTOL = {"log_K_sat": 1e-4, "k_mineral": 1e-4}, 1e-5
 # ForwardEuler's land state at dt 60 s leaves saturation [0, 1] within the
 # gradient's 288 steps and its loss is not smooth there (the phase prints
@@ -620,22 +691,27 @@ LAND_FD_REPORT_H = (1e-2, 1e-3, 1e-4)
 # the pool, canopy water, carbon and fraction cotangents: 4). ImplicitEuler
 # adds IMPLICIT_VJP_OPS_PER_LEVEL, _PER_FACE and the two transposed solves
 # with their top rows, as the soil's (Brooks-Corey's chain derivative in
-# place of Van Genuchten's, counted the same).
+# place of Van Genuchten's, counted the same). With k Picard iterations:
+# the k-iteration forward step, each iteration's adjoint (the soil's, the
+# surface block's and the implicit rows'), and in each iteration after the
+# first the right-hand sides' -lambda / dt and +lambda / dt for U and sat
+# (4 a level); the iterates' recompute is not counted.
 LAND_VJP_OPS_PER_LEVEL = sum(ADJ_OPS.values()) + 6 + 5
 LAND_VJP_OPS_PER_COLUMN = (sum(LAND_OPS_PER_COLUMN.values())
                            - LAND_OPS_PER_COLUMN["series reads and clock"]
                            - LAND_OPS_PER_COLUMN["surface updates"] + 4)
 
 
-def land_vjp_ops(stepper, solver, nz, branches):
-    """Operations of one step of one column of the land segment VJP."""
-    ops = (land_variant_ops(stepper, solver, False, nz, branches)
-           + LAND_VJP_OPS_PER_LEVEL * nz + LAND_VJP_OPS_PER_COLUMN
+def land_vjp_ops(stepper, solver, nz, branches, iters=1):
+    """Operations of one step of one column of the land segment VJP
+    (ImplicitEuler's with ``iters`` Picard iterations)."""
+    adj = (LAND_VJP_OPS_PER_LEVEL * nz + LAND_VJP_OPS_PER_COLUMN
            + sum(LAND_OPS_BRANCH[k] * n for k, n in branches.items()))
     if stepper == "implicit":
-        ops += (IMPLICIT_VJP_OPS_PER_LEVEL - sum(ADJ_OPS.values())) * nz \
+        adj += (IMPLICIT_VJP_OPS_PER_LEVEL - sum(ADJ_OPS.values())) * nz \
             + IMPLICIT_VJP_OPS_PER_FACE * (nz - 1) + 2 * (implicit_solver_ops(solver, nz) + 5)
-    return ops
+    return (land_variant_ops(stepper, solver, False, nz, branches, iters) + iters * adj
+            + (iters - 1) * 4 * nz)
 
 
 def land_vjp_bytes(nz, cells, itemsize):
@@ -672,6 +748,7 @@ def land_grad_sim(tp, cells, dtype, name):
     4e-8, wind 3; initial temperature T_mean, saturation 0.6, carbon 2,
     vegetation fraction 0.5."""
     key, solver, dt = LAND_GRAD_SCHEMES[name]
+    iters = LAND_GRAD_PICARD.get(name, 1)
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
                             dtype=dtype, device="cuda")
     lat = np.linspace(-60.0, 80.0, cells)
@@ -679,7 +756,8 @@ def land_grad_sim(tp, cells, dtype, name):
     T_mean = 28.0 * coslat - 8.0
     fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0,
               "surface_shortwave_down": 900.0 * coslat / np.pi, "air_temperature": T_mean}
-    stepper = (tp.ImplicitEuler(dt=dt, solver=solver) if key == "implicit"
+    kw = {"picard_iters": iters} if iters != 1 else {}
+    stepper = (tp.ImplicitEuler(dt=dt, solver=solver, **kw) if key == "implicit"
                else tp.ForwardEuler(dt=dt))
     return tp.initialize(
         land_grad_model_fn(tp, grid)(land_grad_params(tp)), stepper,
@@ -748,18 +826,19 @@ def land_columns(ls, cols, carry, inputs, root, gout, dtype=None):
 def land_vjp_plain_chunks(lv, ls, carry, inputs, root, coords, params, dt, steps, gout, kw,
                           chunk):
     """The plain land VJP at full width, run in chunks of ``chunk``
-    columns: the cotangents and the parameter cotangents' sums."""
+    columns: the cotangents and each column's share of the two parameter
+    cotangents (``per_column``)."""
     cells = carry["internal_energy"].shape[1]
     ref = {n: torch.empty_like(t) for n, t in carry.items()}
-    pK = pskm = 0.0
+    pK, pskm = (torch.empty(cells, dtype=carry["internal_energy"].dtype, device="cuda")
+                for _ in range(2))
     for lo in range(0, cells, chunk):
         cols = torch.arange(lo, min(lo + chunk, cells), device="cuda")
         c, i, r, g = land_columns(ls, cols, carry, inputs, root, gout)
-        part, a, b = lv.land_column_segment_vjp_plain(c, i, r, *coords, params, dt, 0.0, steps,
-                                                      g, **kw)
+        part, pK[cols], pskm[cols] = lv.land_column_segment_vjp_plain(
+            c, i, r, *coords, params, dt, 0.0, steps, g, per_column=True, **kw)
         for n in ref:
             ref[n][..., cols] = part[n]
-        pK, pskm = pK + float(a), pskm + float(b)
     return ref, pK, pskm
 
 
@@ -806,10 +885,7 @@ def land_vjp_compare(lv, ls, carry, inputs, root, coords, params, dt, steps, gou
         c, i, r, g = land_columns(ls, bad.nonzero().flatten(), carry, inputs, root, gout)
         _, a, b = lv.land_column_segment_vjp(c, i, r, *coords, params, dt, 0.0, steps, g, **kw)
         kK, kskm = kK - float(a), kskm - float(b)
-        c, i, r, g = land_columns(ls, keep, carry, inputs, root, gout)
-        _, a, b = lv.land_column_segment_vjp_plain(c, i, r, *coords, params, dt, 0.0, steps, g,
-                                                   **kw)
-        pK, pskm = float(a), float(b)
+    pK, pskm = (float(t[keep].sum()) for t in (pK, pskm))
     for n, a, b in (("K_sat", kK, pK), ("sk_mineral", kskm, pskm)):
         errs[n], rel[n] = abs(a - b), abs(a - b) / abs(b) if b != 0.0 else abs(a - b)
         if not b != 0.0 or abs(a - b) > rtol * abs(b):
@@ -817,25 +893,38 @@ def land_vjp_compare(lv, ls, carry, inputs, root, coords, params, dt, steps, gou
     return errs, rel, int(bad.sum())
 
 
-def land_vjp_compare_f32(lv, ls, tp, name, carry, inputs, root, coords, params, dt, steps,
-                         gout, kw):
+def land_vjp_compare_f32(lv, ls, name, carry, inputs, root, coords, params, dt, steps, gout,
+                         kw):
     """The float32 land segment-VJP kernel at full width against its plain
     version (in chunks of LAND_GRAD_CHUNK columns): each cotangent within
-    F32_VJP_REL_TOL of its field's largest magnitude, and the parameter
-    cotangents within F32_VJP_REL_TOL. A column where the two part by more
-    (a branch that flips between two float32 roundings: the freeze plateau's
-    edge in dT/dU, saturation in d(Psi)/d(sat)) is held to a float64 plain
-    referee from the same float32 operands instead: the kernel within twice
-    the plain version's own float32 error plus the tolerance; such columns
-    leave the parameter sums of both. Returns the errors, the errors over
-    the magnitudes, and the flip columns' count with the plain version's
-    largest float32 error there over each field's magnitude."""
+    F32_VJP_REL_TOL of its field's largest magnitude. A column where the
+    two part by more (a branch that flips between two float32 roundings:
+    the freeze plateau's edge in dT/dU, saturation in d(Psi)/d(sat)) is held
+    to a float64 plain referee from the same float32 operands instead: the
+    kernel within twice the plain version's own float32 error plus the
+    tolerance; such columns leave the parameter sums.
+
+    The parameter cotangents are sums over the columns of shares of either
+    sign. Each is held within F32_VJP_REL_TOL, summed with every column's
+    output cotangents multiplied by the sign of the plain version's share
+    there (the plain share becomes its magnitude, the sum has no
+    cancellation): the kernel's launch on those cotangents against the sum
+    of the plain shares' magnitudes. The sums under ``gout`` itself are held
+    within F32_VJP_REL_TOL where a single Picard iteration runs; over more,
+    where their cancellation makes float32 rounding move them by more than
+    themselves, they are reported with their condition (the magnitudes'
+    sum over the sum's) and the float64 kernel's sums on the same operands.
+    Returns the errors, the errors over the magnitudes, and the flip
+    columns' count with the plain version's largest float32 error there
+    over each field's magnitude, with the sums' figures."""
     out_k, gK, gskm = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0,
                                                  steps, gout, **kw)
     ref, pK, pskm = land_vjp_plain_chunks(lv, ls, carry, inputs, root, coords, params, dt,
                                           steps, gout, kw, LAND_GRAD_CHUNK)
     if bool(nonfinite_columns(out_k).any()) or bool(nonfinite_columns(ref).any()):
         raise AssertionError(f"{name}: a non-finite float32 cotangent")
+    if not (bool(torch.isfinite(pK).all()) and bool(torch.isfinite(pskm).all())):
+        raise AssertionError(f"{name}: a non-finite float32 parameter share")
     cells = carry["internal_energy"].shape[1]
     flip = torch.zeros(cells, dtype=torch.bool, device="cuda")
     scales = {n: float(ref[n].abs().max()) for n in ref}
@@ -848,10 +937,10 @@ def land_vjp_compare_f32(lv, ls, tp, name, carry, inputs, root, coords, params, 
         errs[n] = float((out_k[n][..., keep] - ref[n][..., keep]).abs().max())
         rel[n] = errs[n] / scales[n] if scales[n] > 0.0 else errs[n]
     flips = {"columns": int(flip.sum())}
+    f64 = torch.float64
     kK, kskm = float(gK), float(gskm)
     if bool(flip.any()):
         cols = flip.nonzero().flatten()
-        f64 = torch.float64
         c, i, r, g = land_columns(ls, cols, carry, inputs, root, gout, dtype=f64)
         p64 = ls.LandParams.of(params.model, f64)
         c64 = tuple(t.to(f64) for t in coords)
@@ -868,13 +957,36 @@ def land_vjp_compare_f32(lv, ls, tp, name, carry, inputs, root, coords, params, 
         c, i, r, g = land_columns(ls, cols, carry, inputs, root, gout)
         _, a, b = lv.land_column_segment_vjp(c, i, r, *coords, params, dt, 0.0, steps, g, **kw)
         kK, kskm = kK - float(a), kskm - float(b)
-        _, a, b = lv.land_column_segment_vjp_plain(c, i, r, *coords, params, dt, 0.0, steps, g,
-                                                   **kw)
-        pK, pskm = pK - float(a), pskm - float(b)
-    for n, a, b in (("K_sat", kK, pK), ("sk_mineral", kskm, pskm)):
-        errs[n], rel[n] = abs(a - b), abs(a - b) / abs(b) if b != 0.0 else abs(a - b)
-        if not b != 0.0 or abs(a - b) > F32_VJP_REL_TOL * abs(b):
-            raise AssertionError(f"{name}: float32 kernel vs plain {n}: {a} vs {b}")
+    sums = {}
+    for idx, (n, a, share) in enumerate((("K_sat", kK, pK), ("sk_mineral", kskm, pskm))):
+        share = share[keep].double()
+        b, mag = float(share.sum()), float(share.abs().sum())
+        if not b != 0.0:
+            raise AssertionError(f"{name}: the plain version's {n} cotangent is 0")
+        # the same sum with no cancellation: column c's output cotangents
+        # times the sign of its plain share
+        sign = torch.where(share < 0.0, -1.0, 1.0).to(carry["internal_energy"].dtype)
+        c, i, r, g = land_columns(ls, keep, carry, inputs, root, gout)
+        g = {m: t * sign for m, t in g.items()}
+        aligned = float(lv.land_column_segment_vjp(c, i, r, *coords, params, dt, 0.0, steps, g,
+                                                   **kw)[1 + idx])
+        errs[n], rel[n] = abs(aligned - mag), abs(aligned - mag) / mag
+        if rel[n] > F32_VJP_REL_TOL:
+            raise AssertionError(f"{name}: float32 kernel vs plain {n} with sign-aligned "
+                                 f"cotangents: {aligned} vs {mag}")
+        sums[n] = {"kernel": a, "plain": b, "rel": abs(a - b) / abs(b),
+                   "condition": mag / abs(b), "aligned_kernel": aligned, "aligned_plain": mag}
+        if kw.get("picard_iters", 1) == 1:
+            if abs(a - b) > F32_VJP_REL_TOL * abs(b):
+                raise AssertionError(f"{name}: float32 kernel vs plain {n}: {a} vs {b}")
+        else:
+            if "f64_kernel" not in sums:
+                c, i, r, g = land_columns(ls, keep, carry, inputs, root, gout, dtype=f64)
+                _, rK, rskm = lv.land_column_segment_vjp(
+                    c, i, r, *(t.to(f64) for t in coords), ls.LandParams.of(params.model, f64),
+                    dt, 0.0, steps, g, **kw)
+                sums["f64_kernel"] = {"K_sat": float(rK), "sk_mineral": float(rskm)}
+    flips["parameter_sums"] = sums
     return errs, rel, flips
 
 
@@ -1380,11 +1492,13 @@ def land_model(tp, grid, composition):
 
 
 def land_variant(tp, ls, name):
-    """The stepper, the kernel wrapper and the plain version of
-    ``LAND_VARIANTS[name]``, the last two as partials taking
+    """The stepper, the kernel wrapper and the plain version of the land
+    variant ``name`` (land_variant_spec), the last two as partials taking
     ``land_column_rollout``'s arguments."""
-    key, solver, _ = LAND_VARIANTS[name]
+    key, solver, _, iters = land_variant_spec(name)
     kw = {"solver": solver} if solver else {}
+    if iters != 1:
+        kw["picard_iters"] = iters
     stepper = tp.Heun(dt=LAND_DT) if key == "heun" else tp.ImplicitEuler(dt=LAND_DT, **kw)
     return (stepper, functools.partial(ls.ROLLOUTS[key], **kw),
             functools.partial(ls.land_column_rollout_plain, stepper=key, **kw))
@@ -1582,13 +1696,14 @@ def land_f32_tolerance(name, plain, start, outside):
     return tol
 
 
-def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card):
-    """``LAND_VARIANTS[vname]``'s kernel against its plain version one step
-    at a time along the plain trajectory (float64 on LAND_F64_CELLS columns
-    at 1e-12 and float32 at full width by land_f32_tolerance, Heun's at
-    LAND_HEUN_F32_DT), one launch against the chain of one-step launches,
-    and timed; prints the phase and returns what the kernel report reads."""
-    vkey, vsolver, vsnow = LAND_VARIANTS[vname]
+def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card, name=None):
+    """The land variant ``vname``'s kernel (land_variant_spec) against its
+    plain version one step at a time along the plain trajectory (float64 on
+    LAND_F64_CELLS columns at 1e-12 and float32 at full width by
+    land_f32_tolerance, Heun's at LAND_HEUN_F32_DT), one launch against the
+    chain of one-step launches, and timed; prints the phase (``name``, by
+    default ``<vname>_compare``) and returns what the kernel report reads."""
+    vkey, vsolver, vsnow, viters = land_variant_spec(vname)
     stepper, kernel, plain = land_variant(tp, ls, vname)
     res = {}
     for dtype, cells, tol in ((torch.float64, LAND_F64_CELLS, land_f64_tolerance),
@@ -1614,13 +1729,16 @@ def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card):
     v_rows = series_rows_read(fs.SeriesBC(linputs["air_temperature"].values, 0.0, SERIES_DTS,
                                           t_start, LAND_VARIANT_STEPS), LAND_DT,
                               stages=2 if vkey == "heun" else 1)
-    v_ops = land_variant_ops(vkey, vsolver, vsnow, LAND_NZ, v_runs)
+    v_ops = land_variant_ops(vkey, vsolver, vsnow, LAND_NZ, v_runs, viters)
     v_b = bound_ms(v_ops * LAND_CELLS * LAND_VARIANT_STEPS,
                    2 * sum(t.numel() for t in carry.values()) * 4 + 2 * v_rows * LAND_CELLS * 4)
-    entry = "_".join(("land_column_rollout", *((vkey, vsolver) if vsolver else (vkey,)),
-                      *params.tags, "f32", f"nz{LAND_NZ}"))
+    stepper_tags = ((vkey, "picard") if viters != 1
+                    else (vkey, vsolver) if vsolver else (vkey,))
+    entry = "_".join(("land_column_rollout", *stepper_tags, *params.tags, "f32",
+                      f"nz{LAND_NZ}"))
     ptxas = ptxas_all["land_column_rollout"].get(entry, {}).get("land")
-    phase(f"{vname}_compare", cells=LAND_CELLS, nz=LAND_NZ, dt=LAND_DT, f32_check_dt=dt,
+    phase(name or f"{vname}_compare", solver=vsolver, picard_iters=viters, cells=LAND_CELLS,
+          nz=LAND_NZ, dt=LAND_DT, f32_check_dt=dt,
           steps=LAND_VARIANT_STEPS, f64_cells=LAND_F64_CELLS, f64_rtol=1e-12,
           f64_max_abs_err=f64_abs, f64_max_err_over_magnitude=f64_rel,
           f64_beyond=f64_beyond[:12], rel_tol=F32_REL_TOL, max_abs_err=v_abs,
@@ -1637,21 +1755,21 @@ def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card):
         raise AssertionError(f"{vname} kernel vs plain: f64 {f64_beyond[:4]}, f32 "
                              f"{v_beyond[:4]}, one launch equals the step chain: "
                              f"{chain_equal}, finite: {finite}")
-    return dict(key=vkey, solver=vsolver, snow=vsnow, max_abs_err=v_abs, ms=v_ms,
+    return dict(key=vkey, solver=vsolver, snow=vsnow, iters=viters, max_abs_err=v_abs, ms=v_ms,
                 ms_144=v_ms_144, plain_ms=v_plain_ms, bound_ms=v_b[0], bound_by=v_b[1],
                 ops=v_ops, ptxas=ptxas)
 
 
 def land_stepper_main_path(tp, ls, land_inputs, mname, vname, var, reset_counts, launched,
                            card):
-    """``LAND_VARIANTS[vname]`` on land_consistent's composition and forcing
+    """The land variant ``vname`` on land_consistent's composition and forcing
     through ``Simulation.run``: one timed 1,440-step block from the initial
     state after a 3-step launch from the same state (the warm-up), whose
     carry gives the share of columns with a saturation layer outside [0, 1]
     at step 3; the block's own carry, launched again after the counts were
     read, gives it at step 1,440. Prints the phase ``mname`` and returns
     the block's launches of the stepper's kernel."""
-    vkey, vsolver, vsnow = LAND_VARIANTS[vname]
+    vkey, vsolver, vsnow, viters = land_variant_spec(vname)
     stepper, kernel, _ = land_variant(tp, ls, vname)
     wrapper = ls.ROLLOUTS[vkey]
     sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent", stepper=stepper, snow=vsnow)
@@ -1682,9 +1800,11 @@ def land_stepper_main_path(tp, ls, land_inputs, mname, vname, var, reset_counts,
         snow_fields = dict(snow_covered_share=float((swe > 0).float().mean()),
                            swe_range_m=[float(swe.min()), float(swe.max())])
     phase(mname, composition="consistent", stepper=type(stepper).__name__,
-          solver=vsolver, snow=vsnow, cells=LAND_CELLS, nz=LAND_NZ, dt=LAND_DT,
-          steps=LAND_BLOCK_STEPS, seconds=m_s, launches=m_launches,
+          solver=vsolver, picard_iters=viters, snow=vsnow, cells=LAND_CELLS, nz=LAND_NZ,
+          dt=LAND_DT, steps=LAND_BLOCK_STEPS, seconds=m_s, launches=m_launches,
           cells_steps_per_s=LAND_CELLS * LAND_BLOCK_STEPS / m_s,
+          kernel_ms_48_steps=var["ms"], bound_ms_48_steps=var["bound_ms"],
+          bound_by=var["bound_by"], ops_per_column_step=var["ops"],
           kernel_ms_144_steps=var["ms_144"], ptxas=var["ptxas"],
           outside_unit_share_at_step={3: share_3,
                                       LAND_BLOCK_STEPS: float(outside_unit(end).float().mean())},
@@ -1694,6 +1814,47 @@ def land_stepper_main_path(tp, ls, land_inputs, mname, vname, var, reset_counts,
           skin_range=[float(st.skin_temperature.min()), float(st.skin_temperature.max())],
           **snow_fields, card=card)
     return m_launches
+
+
+def on_demand_sim(tp, case):
+    """C1's composition ``case`` (ON_DEMAND_STEPS) on the card."""
+    if case == "soil_heat_column":  # examples/soil_heat_column.py
+        grid = tp.ColumnGrid.of(cells=1, spacing=tp.ExponentialSpacing(N=10),
+                                dtype=torch.float32, device="cuda")
+        model = tp.SoilModel(grid=grid, initializer=tp.SoilInitializer(
+            energy=tp.QuasiThermalSteadyState(T0=-1.0), hydrology=tp.ConstantSaturation(sat=1.0)))
+        return tp.initialize(model, tp.ForwardEuler(),
+                             boundary_conditions=tp.PrescribedSurfaceTemperature(1.0))
+    grid = tp.ColumnGrid.of(cells=LAND_F64_CELLS, spacing=tp.ExponentialSpacing(N=LAND_NZ),
+                            dtype=torch.float32, device="cuda")
+    props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
+                                      unsat_hydraulic_cond=tp.UnsatKVanGenuchten(),
+                                      sat_hydraulic_cond=1e-6)
+    soil_ = tp.SoilEnergyWaterCarbon(
+        strat=tp.HomogeneousStratigraphy(texture=tp.SoilTexture.preset("loam")),
+        hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(), hydraulic_properties=props))
+    model = tp.LandModel(grid=grid, soil=soil_,
+                         surface_energy_balance=tp.SurfaceEnergyBalance.consistent(),
+                         surface_hydrology=tp.SurfaceHydrology(
+                             canopy_interception=tp.NoCanopyInterception(),
+                             evapotranspiration=tp.BareGroundEvaporation.consistent_units()))
+    return tp.initialize(model, tp.ImplicitEuler(dt=LAND_DT),
+                         initializers={"temperature": 8.0, "saturation_water_ice": 0.7},
+                         input_sources=(tp.FieldInputSource(fields={
+                             "surface_shortwave_down": 400.0, "air_temperature": 12.0,
+                             "rainfall": 5.0e-8, "windspeed": 1.0}),))
+
+
+def on_demand_kernel(fs, ls, case, sim):
+    """``(source, dtype, Nz, argtypes, tags, wrapper)`` of the kernel that
+    ``Simulation.run`` launches for C1's composition ``case``."""
+    grid = sim.model.grid
+    if case == "soil_heat_column":
+        return ("soil_column_rollout", grid.dtype, grid.nz, fs._ARGTYPES,
+                fs.kernel_tags("euler", "heat", 1, plain_euler=()), fs.soil_column_heat_rollout)
+    return ("land_column_rollout", grid.dtype, grid.nz, ls._argtypes(grid.dtype),
+            ls.implicit_tags("pcr", 1) + ls.land_composition(sim.model),
+            ls.land_column_implicit_rollout)
 
 
 def land_nonfinite(sim):
@@ -1983,42 +2144,76 @@ def main():
         return {fn.__name__: fn.launches for fn in KERNELS if fn.launches}
 
     # ---- build: one nvcc per instantiation and core (cuda_build's slots);
-    # the rollout source first, then the others, the costliest first, in a
-    # thread of their own while the forward phases run on the card
+    # the rollout source first, then, in threads of their own while the
+    # forward phases run on the card, on_demand's two instantiations and
+    # the other sources in the order the phases need them (REST_GROUPS),
+    # each group's nvcc queued for the slots before the next group's
     t0 = time.perf_counter()
     names = tuple(cuda_build.INSTANTIATIONS)
     cuda_build.build("soil_column_rollout")
     first_s = time.perf_counter() - t0
-    rest = ("soil_column_segment_vjp", "land_column_segment_vjp", "land_column_rollout",
-            "soil_column_full_step")
-    if set(rest) != set(names) - {"soil_column_rollout"}:
+    rest = tuple(n for group in REST_GROUPS for n in group)
+    if sorted(rest) != sorted(set(names) - {"soil_column_rollout"}):
         raise AssertionError(f"the build's sources are {names}")
-    rest_s = []
+    # C1's compositions: their kernels, which no prebuilt instantiation
+    # covers, built at first use (cuda_build.entry, as their Simulation.run's
+    # first launch builds them), each timed; the on_demand phase runs them
+    od_sims = {case: on_demand_sim(tp, case) for case in ON_DEMAND_STEPS}
+    od_built, od_errors = {}, []
 
-    def build_rest():
-        cuda_build.build(*rest)
-        rest_s.append(time.perf_counter() - t0)
+    def build_on_demand(case):
+        src, dtype, nz, argtypes, tags, _ = on_demand_kernel(fs, ls, case, od_sims[case])
+        try:
+            if (tags, dtype, nz) in cuda_build.INSTANTIATIONS[src]:
+                raise AssertionError(f"{case}: {src} {tags} is prebuilt")
+            t_b = time.perf_counter()
+            cuda_build.entry(src, dtype, nz, argtypes, tags=tags)
+            od_built[case] = (cuda_build._entry_name(src, tags, dtype, nz),
+                              time.perf_counter() - t_b, time.perf_counter() - _T0)
+        except Exception as e:  # noqa: BLE001 -- raised by the on_demand phase
+            od_errors.append((case, e))
 
-    compiling = threading.Thread(target=build_rest, daemon=True)
-    compiling.start()
+    od_threads = [threading.Thread(target=build_on_demand, args=(case,), daemon=True)
+                  for case in ON_DEMAND_STEPS]
+    rest_done = {}  # source -> seconds since the start at which it was built
+
+    def build_group(group):
+        try:
+            cuda_build.build(*group)
+            rest_done.update(dict.fromkeys(group, time.perf_counter() - _T0))
+        except Exception:  # noqa: BLE001 -- built() builds again in the main thread and raises
+            pass
+
+    compiling = {}
+    for thread in od_threads:
+        thread.start()
+    for group in REST_GROUPS:
+        thread = threading.Thread(target=build_group, args=(group,), daemon=True)
+        thread.start()
+        compiling.update(dict.fromkeys(group, thread))
+        time.sleep(1.0)  # this group's nvcc processes queue for the slots first
     phase("build", source="soil_column_rollout", seconds=first_s,
           instantiations=len(cuda_build.INSTANTIATIONS["soil_column_rollout"]),
           ptxas={"soil_column_rollout": ptxas_summary(
               cuda_build.ptxas_report("soil_column_rollout"))})
-    ptxas_all = {}
+    ptxas_all = {"soil_column_rollout": ptxas_summary(
+        cuda_build.ptxas_report("soil_column_rollout"))}
 
-    def built():
-        """Wait for the other sources; their build's phase line, once."""
-        if not ptxas_all:
-            compiling.join()
-            if not rest_s:
-                cuda_build.build(*rest)  # the thread failed: raise its error here
-            ptxas_all.update({n: ptxas_summary(cuda_build.ptxas_report(n)) for n in names})
-            phase("build_rest", sources=list(rest), seconds_since_start=rest_s[0],
-                  instantiations=sum(len(cuda_build.INSTANTIATIONS[n]) for n in rest),
-                  cpu_s_total=sum(v.get("cpu_s", 0.0) for n in names
+    def built(*group):
+        """Wait for the sources of ``group`` (a REST_GROUPS entry); their
+        build's phase line, once."""
+        if group[0] not in ptxas_all:
+            compiling[group[0]].join()
+            if any(n not in rest_done for n in group):
+                cuda_build.build(*group)  # the thread failed: raise its error here
+                rest_done.update(dict.fromkeys(group, time.perf_counter() - _T0))
+            ptxas_all.update({n: ptxas_summary(cuda_build.ptxas_report(n)) for n in group})
+            phase("build_rest", sources=list(group),
+                  built_s_since_start=max(rest_done[n] for n in group),
+                  instantiations=sum(len(cuda_build.INSTANTIATIONS[n]) for n in group),
+                  cpu_s_total=sum(v.get("cpu_s", 0.0) for n in group
                                   for v in ptxas_all[n].values()),
-                  ptxas={n: ptxas_all[n] for n in rest})
+                  ptxas={n: ptxas_all[n] for n in group})
         return ptxas_all
 
     # ---- golden configuration, through the kernel and through the plain version
@@ -2334,8 +2529,8 @@ def main():
 
     # ---- land_model golden through the land kernel (Simulation.run, one
     # launch) and through the plain version (the process modules), once the
-    # other sources are built
-    built()
+    # land rollout is built
+    built(*REST_GROUPS[0])
     lgold = np.load(LAND_GOLDEN)
     errs = {}
     for route in ("kernel", "plain"):
@@ -2358,6 +2553,47 @@ def main():
             errs[f"{route}:{f}"] = float(np.max(np.abs(got - lgold[f])))
     phase("land_golden", rtol=1e-12, atol=1e-12, max_abs_err=errs)
     del sim
+
+    # ---- on_demand: C1's compositions through Simulation.run on the
+    # kernels built at their first use, each one launch, against its plain
+    # version (advance(plain=True), then compute_auxiliary as run ends) at
+    # F32_REL_TOL of each field's magnitude
+    for thread in od_threads:
+        thread.join()
+    if od_errors:
+        raise od_errors[0][1]
+    od = {}
+    for case, sim in od_sims.items():
+        src, _, _, _, tags, wrapper = on_demand_kernel(fs, ls, case, sim)
+        ref = on_demand_sim(tp, case)
+        steps = ON_DEMAND_STEPS[case]
+        reset_counts()
+        t_run = time.perf_counter()
+        sim.run(steps=steps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        if launched() != {wrapper.__name__: 1}:
+            raise AssertionError(f"on_demand {case}: the run launched {launched()}, expected "
+                                 f"one {wrapper.__name__}")
+        advance(ref.model, ref.state, ref.ctx, steps, ref.timestepper.default_dt(),
+                timestepper=ref.timestepper, input_sources=ref.input_sources, plain=True)
+        ref.compute_auxiliary()  # as run ends: the SEB writes the skin temperature afresh
+        errs = {}
+        for n in sim.model.live_carry:
+            a, b = sim.state[n], ref.state[n]
+            errs[n] = float((a - b).abs().max())
+            if not bool(torch.isfinite(a).all()) or errs[n] > F32_REL_TOL * float(b.abs().max()):
+                raise AssertionError(f"on_demand {case}: {n} kernel vs plain max abs err "
+                                     f"{errs[n]}, largest magnitude {float(b.abs().max())}")
+        entry, build_s, done_s = od_built[case]
+        od[case] = dict(entry=entry, build_s=build_s, built_s_since_start=done_s,
+                        cells=sim.model.grid.cells, nz=sim.model.grid.nz,
+                        dt=sim.timestepper.default_dt(), steps=steps, run_seconds=run_s,
+                        launches={wrapper.__name__: 1}, rel_tol=F32_REL_TOL, max_abs_err=errs,
+                        ptxas=ptxas_summary(cuda_build.ptxas_report(src)).get(entry))
+        del sim, ref
+    phase("on_demand", cases=od, card=card)
+    del od_sims
 
     # ---- the land kernel against its plain version: float64 on 1,024
     # columns, float32 at full width, 144 steps of the consistent composition
@@ -2544,6 +2780,247 @@ def main():
                          ("land_heun", "land_heun"), ("land_snow_n145", "land_snow_implicit_pcr")):
         land_var[vname]["launches"] = land_stepper_main_path(
             tp, ls, land_inputs, mname, vname, land_var[vname], reset_counts, launched, card)
+
+    # ---- ImplicitEuler with LAND_PICARD_ITERS Picard iterations, each
+    # solver: the kernel against its plain version as the variants above
+    # (land_picard_compare), then one timed 1,440-step Simulation.run block
+    # of land_implicit's composition (land_picard_main_path)
+    for vname in LAND_PICARD_VARIANTS:
+        land_var[vname] = land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card,
+                                               name="land_picard_compare")
+        land_var[vname]["launches"] = land_stepper_main_path(
+            tp, ls, land_inputs, "land_picard_main_path", vname, land_var[vname], reset_counts,
+            launched, card)
+
+    # ---- the LandModel's gradient path (LAND_GRAD_SCHEMES): the land
+    # segment-VJP kernel against its plain version (float64 on
+    # LAND_F64_CELLS columns, one segment; float32 at full width, the plain
+    # version in chunks, a column where the two part held to a float64
+    # referee), the float64 gradient against central differences of the
+    # forward kernel's loss, then the timed 288-step gradient at full width
+    built(*REST_GROUPS[1])
+    land_grads, f32_gaps = {}, {}
+    x0, k0 = land_grad_params(tp)
+    for name, (key, solver, dt) in LAND_GRAD_SCHEMES.items():
+        iters = LAND_GRAD_PICARD.get(name, 1)
+        vkw = {"stepper": key, "solver": solver, "picard_iters": iters}
+        fwd = ls.ROLLOUTS[key]
+        fkw = {"solver": solver, "picard_iters": iters} if solver else {}
+        sim = land_grad_sim(tp, LAND_F64_CELLS, torch.float64, name)
+        ops = land_grad_operands(ls, land_inputs, sim, seed=11)
+        f64_err, f64_rel, f64_out = land_vjp_compare(lv, ls, *ops[:5], dt, GRAD_INNER, ops[5],
+                                                     vkw, 1e-9, LAND_F64_CELLS)
+        # central differences of the loss through the forward kernel, over
+        # LAND_FD_STEPS[key] steps
+        steps_fd = LAND_FD_STEPS[key]
+        _, gx, gk = land_grad_value(tp, sim, name, steps=steps_fd)
+        fd = []
+        for i, h in enumerate((LAND_FD_H["log_K_sat"], LAND_FD_H["k_mineral"])):
+            hi, lo_ = ([x0, k0], [x0, k0])
+            hi[i] += h
+            lo_[i] -= h
+            fd.append((land_grad_value(tp, sim, name, params=hi, grad=False, steps=steps_fd)
+                       - land_grad_value(tp, sim, name, params=lo_, grad=False,
+                                         steps=steps_fd)) / (2 * h))
+        fd_rel = [abs(a - b) / abs(b) for a, b in zip((gx, gk), fd)]
+        if max(fd_rel) > LAND_FD_RTOL:
+            raise AssertionError(f"{name}: f64 kernel gradient {(gx, gk)} against central "
+                                 f"differences {fd}")
+        fd_report = {}
+        if steps_fd != GRAD_STEPS:  # the loss over the gradient's steps, reported
+            fd_report["adjoint"] = land_grad_value(tp, sim, name)[1]
+            for h in LAND_FD_REPORT_H:
+                fd_report[h] = (land_grad_value(tp, sim, name, params=[x0 + h, k0],
+                                                grad=False)
+                                - land_grad_value(tp, sim, name, params=[x0 - h, k0],
+                                                  grad=False)) / (2 * h)
+        del sim, ops
+        gsim = land_grad_sim(tp, LAND_CELLS, torch.float32, name)
+        carry, linputs, root, coords, params, gout = land_grad_operands(ls, land_inputs, gsim,
+                                                                        seed=11)
+        # the pool's output cotangent 0: at an empty pool a random one grows
+        # by |1 - dt / tau_r| a step where a column's pool fills (ROADMAP
+        # Queue C), past float32 within a segment; the loss reads no pool
+        gout["surface_excess_water"] = torch.zeros_like(gout["surface_excess_water"])
+        f32_err, f32_rel, flips = land_vjp_compare_f32(
+            lv, ls, name, carry, linputs, root, coords, params, dt, GRAD_INNER, gout, vkw)
+        k_ms = cuda_ms(lambda: lv.land_column_segment_vjp(
+            carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, gout, **vkw), reps=3,
+            warmup=True)
+        f_ms = cuda_ms(lambda: fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER,
+                                   **fkw), reps=3, warmup=True)
+        first = torch.arange(LAND_GRAD_CHUNK, device="cuda")
+        sub = land_columns(ls, first, carry, linputs, root, gout)
+        p_ms = cuda_ms(lambda: lv.land_column_segment_vjp_plain(
+            sub[0], sub[1], sub[2], *coords, params, dt, 0.0, GRAD_INNER, sub[3], **vkw))
+        end = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, **fkw)
+        runs = land_branches(fs, params, linputs, carry, end, 0.0)
+        runs = {k: n / LAND_CELLS for k, n in runs.items()}
+        v_ops = land_vjp_ops(key, solver, LAND_NZ, runs, iters)
+        b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER, land_vjp_bytes(LAND_NZ, LAND_CELLS, 4))
+        del sub, end
+        # the gradient: 6 forward and 6 VJP launches
+        land_grad_value(tp, gsim, name)
+        torch.cuda.synchronize()
+        times, grad_launches = [], {}
+        for i in range(5):
+            reset_counts()
+            t0 = time.perf_counter()
+            value, ggx, ggk = land_grad_value(tp, gsim, name)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                grad_launches = launched()
+        segments = GRAD_STEPS // GRAD_INNER
+        if grad_launches != {fwd.__name__: segments, "land_column_segment_vjp": segments}:
+            raise AssertionError(f"{name}: the gradient launched {grad_launches}")
+        if not all(np.isfinite(v) for v in (value, ggx, ggk)):
+            raise AssertionError(f"{name}: value {value}, gradient {(ggx, ggk)}")
+        med = float(np.median(times))
+        # the same gradient at float64, full width: how far float32 rounding
+        # moves it (the model's own conditioning: reported for one Picard
+        # iteration; with more, held within LAND_PICARD_F32_GAP_TOL of the
+        # one-iteration scheme's gap with the same solver, run before it)
+        sim64 = land_grad_sim(tp, LAND_CELLS, torch.float64, name)
+        value64, gx64, gk64 = land_grad_value(tp, sim64, name)
+        del sim64
+        f32_vs_f64 = [abs(a - b) / abs(b) for a, b in ((value, value64), (ggx, gx64),
+                                                       (ggk, gk64))]
+        if iters == 1:
+            f32_gaps[(key, solver)] = f32_vs_f64
+        else:
+            one = f32_gaps[(key, solver)]
+            if max(abs(a - b) for a, b in zip(f32_vs_f64, one)) > LAND_PICARD_F32_GAP_TOL:
+                raise AssertionError(f"{name}: float32 vs float64 gaps {f32_vs_f64}, one "
+                                     f"iteration's {one}")
+        final = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_STEPS, **fkw)
+        entry = cuda_build._entry_name("land_column_segment_vjp", lv.check_scheme(
+            params, key, solver, iters) + params.tags, torch.float32, LAND_NZ)
+        land_grads[name] = dict(launches=grad_launches["land_column_segment_vjp"],
+                                max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
+                                bound_ms=b[0], bound_by=b[1], entry=entry)
+        phase(name, cells=LAND_CELLS, nz=LAND_NZ, dt=dt, steps=GRAD_STEPS,
+              inner_steps=GRAD_INNER, stepper=key, solver=solver, picard_iters=iters,
+              seconds_median=med,
+              vjp_share_of_gradient=(GRAD_STEPS // GRAD_INNER) * k_ms / 1e3 / med,
+              seconds=times, launches=grad_launches, cells_steps_per_s=LAND_CELLS * GRAD_STEPS / med,
+              loss=value, dloss_dlog_K_sat=ggx, dloss_dk_mineral=ggk, f64_loss=value64,
+              f64_dloss_dlog_K_sat=gx64, f64_dloss_dk_mineral=gk64,
+              f32_vs_f64_rel=f32_vs_f64, vjp_segment_ms=k_ms,
+              fwd_segment_ms=f_ms, plain_vjp_ms=p_ms, plain_cells=LAND_GRAD_CHUNK,
+              bound_ms=b[0], bound_by=b[1], ops_per_column_step=v_ops,
+              branch_runs_per_column_step=runs,
+              ptxas=ptxas_all["land_column_segment_vjp"].get(entry, {}).get("vjp"),
+              f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
+              f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
+              fd_steps=steps_fd, fd_h=LAND_FD_H, fd_rtol=LAND_FD_RTOL,
+              f64_kernel_grad=[gx, gk], central_difference=fd, fd_rel_err=fd_rel,
+              dlog_K_sat_at_gradient_steps_adjoint_and_by_h=fd_report,
+              f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
+              f32_max_err_over_magnitude=f32_rel, f32_flip_columns=flips,
+              outside_unit_share_at_end=float(outside_unit(final).float().mean()), card=card)
+        del gsim, carry, gout, final
+
+    # ---- one full step (make_fused_step): the kernel against the plain
+    # version (the module step) on every leaf, float64 along the plain
+    # trajectory and float32 at full width, each stepper and physics
+    full64 = {}
+    for stepper, nz in (("euler", 20), ("heun", 15)):
+        sim = full_sim(tp, FULL_F64_CELLS, nz, torch.float64, stepper, "richards")
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=BENCH_DT)
+        state = sim.state
+        for i in range(FULL_F64_STEPS):
+            plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
+                                                   state, BENCH_DT)
+            errs = check_full_step(f"full step {stepper} f64", fused(state), plain, 1e-12,
+                                   BENCH_DT)
+            full64[f"{stepper}:{i}"] = max(errs.values())
+            state = plain
+    full32 = {}
+    for stepper, physics in (("euler", "richards"), ("heun", "richards"), ("euler", "heat"),
+                             ("heun", "heat")):
+        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, stepper, physics)
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=BENCH_DT)
+        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
+                                               sim.state, BENCH_DT)
+        full32[f"{stepper}:{physics}"] = check_full_step(
+            f"full step {stepper} {physics} f32", fused(sim.state), plain, F32_REL_TOL,
+            BENCH_DT)
+        del plain
+    # timing, the bench composition at full width (ab_fused_step.py's setup)
+    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
+    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                               dt=BENCH_DT)
+    call_ms = cuda_ms_each(lambda: fused(sim.state), FULL_TIMED)
+    fn, (fargs, keep), _ = fs.full_step_operands(sim.model, "euler", "richards", sim.ctx,
+                                                 sim.state, BENCH_DT)
+    full_kernel_ms = cuda_ms_each(lambda: fn(*fargs), FULL_TIMED)
+    full_plain_ms = cuda_ms(lambda: fs.soil_column_full_step_plain(
+        sim.model, sim.timestepper, sim.ctx, (), sim.state, BENCH_DT), reps=3, warmup=True)
+    full_b = bound_ms(full_step_ops("euler", "richards", BENCH_NZ) * BENCH_CELLS,
+                      full_step_bytes("richards", BENCH_NZ, BENCH_CELLS, 4, keep[1].numel()))
+    del keep
+    # the full-step path: FULL_STEPS calls of fused, one launch each
+    reset_counts()
+    state = sim.state
+    for _ in range(FULL_STEPS):
+        state = fused(state)
+    torch.cuda.synchronize()
+    full_launches = fs.soil_column_full_step.launches
+    if launched() != {"soil_column_full_step": FULL_STEPS}:
+        raise AssertionError(f"{FULL_STEPS} full steps launched {launched()}")
+    ref = sim.state
+    for _ in range(FULL_STEPS):
+        ref = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), ref,
+                                             BENCH_DT)
+    loop_err = check_close("full step loop", [state[n] for n in sim.model.live_carry],
+                           [ref[n] for n in sim.model.live_carry], F32_REL_TOL)
+    if int(state.clock.iteration) != FULL_STEPS:
+        raise AssertionError(f"full-step loop: clock iteration {int(state.clock.iteration)}")
+    full_ms = float(np.median(full_kernel_ms))
+    phase("full_step", cells=BENCH_CELLS, nz=BENCH_NZ, f64_cells=FULL_F64_CELLS,
+          f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, f64_max_abs_err=full64,
+          rel_tol=F32_REL_TOL, f32_max_abs_err=full32, loop_steps=FULL_STEPS,
+          loop_launches=full_launches, loop_max_abs_err=loop_err,
+          fused_call_ms_median=float(np.median(call_ms)), fused_call_ms=call_ms,
+          kernel_ms_median=full_ms, kernel_ms=full_kernel_ms, plain_ms=full_plain_ms,
+          bound_ms=full_b[0], bound_by=full_b[1],
+          rollout_step_share_ms=ms / COMPARE_STEPS, card=card)
+    del sim, state, ref, fused
+
+    # ---- run through the process modules: the bench soil with a forcing,
+    # which no kernel takes, at full width on the card, held to timestep()
+    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
+                   forcings={"internal_energy": lambda state, grid: 2.0})
+    other = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
+                     forcings={"internal_energy": lambda state, grid: 2.0})
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps=RUN_MODULE_STEPS)
+    torch.cuda.synchronize()
+    modules_s = time.perf_counter() - t0
+    if launched():
+        raise AssertionError(f"run through the modules launched {launched()}")
+    if sim.state.internal_energy.device.type != "cuda":
+        raise AssertionError(f"run left the card: {sim.state.internal_energy.device}")
+    other.model.closure(other.state, other.ctx)
+    for _ in range(RUN_MODULE_STEPS):
+        other.timestep(BENCH_DT)
+    torch.cuda.synchronize()
+    modules_err = check_close("run through the modules vs timestep",
+                              [sim.state[n] for n in sim.model.live_carry],
+                              [other.state[n] for n in sim.model.live_carry], F32_REL_TOL)
+    if sim.iteration != RUN_MODULE_STEPS:
+        raise AssertionError(f"run through the modules: clock iteration {sim.iteration}")
+    phase("run_modules", cells=BENCH_CELLS, nz=BENCH_NZ, steps=RUN_MODULE_STEPS,
+          seconds=modules_s, cells_steps_per_s=BENCH_CELLS * RUN_MODULE_STEPS / modules_s,
+          launches=launched(), rel_tol=F32_REL_TOL, max_abs_err=modules_err, card=card)
+    del sim, other
+
+    # ---- the soil gradients, once the soil segment VJP is built
+    built(*REST_GROUPS[2])
 
     # ---- segment-VJP kernel against its plain version, one 48-step segment
     # of the gradient configuration on GRAD_COMPARE_CELLS columns
@@ -2829,217 +3306,6 @@ def main():
               f32_max_err_over_magnitude=f32_rel, card=card, **extra)
         del gsim, carry, table, cts
 
-    # ---- the LandModel's gradient path (LAND_GRAD_SCHEMES): the land
-    # segment-VJP kernel against its plain version (float64 on
-    # LAND_F64_CELLS columns, one segment; float32 at full width, the plain
-    # version in chunks, a column where the two part held to a float64
-    # referee), the float64 gradient against central differences of the
-    # forward kernel's loss, then the timed 288-step gradient at full width
-    land_grads = {}
-    x0, k0 = land_grad_params(tp)
-    for name, (key, solver, dt) in LAND_GRAD_SCHEMES.items():
-        vkw = {"stepper": key, "solver": solver}
-        fwd = ls.ROLLOUTS[key]
-        fkw = {"solver": solver} if solver else {}
-        sim = land_grad_sim(tp, LAND_F64_CELLS, torch.float64, name)
-        ops = land_grad_operands(ls, land_inputs, sim, seed=11)
-        f64_err, f64_rel, f64_out = land_vjp_compare(lv, ls, *ops[:5], dt, GRAD_INNER, ops[5],
-                                                     vkw, 1e-9, LAND_F64_CELLS)
-        # central differences of the loss through the forward kernel, over
-        # LAND_FD_STEPS[key] steps
-        steps_fd = LAND_FD_STEPS[key]
-        _, gx, gk = land_grad_value(tp, sim, name, steps=steps_fd)
-        fd = []
-        for i, h in enumerate((LAND_FD_H["log_K_sat"], LAND_FD_H["k_mineral"])):
-            hi, lo_ = ([x0, k0], [x0, k0])
-            hi[i] += h
-            lo_[i] -= h
-            fd.append((land_grad_value(tp, sim, name, params=hi, grad=False, steps=steps_fd)
-                       - land_grad_value(tp, sim, name, params=lo_, grad=False,
-                                         steps=steps_fd)) / (2 * h))
-        fd_rel = [abs(a - b) / abs(b) for a, b in zip((gx, gk), fd)]
-        if max(fd_rel) > LAND_FD_RTOL:
-            raise AssertionError(f"{name}: f64 kernel gradient {(gx, gk)} against central "
-                                 f"differences {fd}")
-        fd_report = {}
-        if steps_fd != GRAD_STEPS:  # the loss over the gradient's steps, reported
-            fd_report["adjoint"] = land_grad_value(tp, sim, name)[1]
-            for h in LAND_FD_REPORT_H:
-                fd_report[h] = (land_grad_value(tp, sim, name, params=[x0 + h, k0],
-                                                grad=False)
-                                - land_grad_value(tp, sim, name, params=[x0 - h, k0],
-                                                  grad=False)) / (2 * h)
-        del sim, ops
-        gsim = land_grad_sim(tp, LAND_CELLS, torch.float32, name)
-        carry, linputs, root, coords, params, gout = land_grad_operands(ls, land_inputs, gsim,
-                                                                        seed=11)
-        # the pool's output cotangent 0: at an empty pool a random one grows
-        # by |1 - dt / tau_r| a step where a column's pool fills (ROADMAP
-        # Queue C), past float32 within a segment; the loss reads no pool
-        gout["surface_excess_water"] = torch.zeros_like(gout["surface_excess_water"])
-        f32_err, f32_rel, flips = land_vjp_compare_f32(
-            lv, ls, tp, name, carry, linputs, root, coords, params, dt, GRAD_INNER, gout, vkw)
-        k_ms = cuda_ms(lambda: lv.land_column_segment_vjp(
-            carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, gout, **vkw), reps=3,
-            warmup=True)
-        f_ms = cuda_ms(lambda: fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER,
-                                   **fkw), reps=3, warmup=True)
-        first = torch.arange(LAND_GRAD_CHUNK, device="cuda")
-        sub = land_columns(ls, first, carry, linputs, root, gout)
-        p_ms = cuda_ms(lambda: lv.land_column_segment_vjp_plain(
-            sub[0], sub[1], sub[2], *coords, params, dt, 0.0, GRAD_INNER, sub[3], **vkw))
-        end = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, **fkw)
-        runs = land_branches(fs, params, linputs, carry, end, 0.0)
-        runs = {k: n / LAND_CELLS for k, n in runs.items()}
-        v_ops = land_vjp_ops(key, solver, LAND_NZ, runs)
-        b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER, land_vjp_bytes(LAND_NZ, LAND_CELLS, 4))
-        del sub, end
-        # the gradient: 6 forward and 6 VJP launches
-        land_grad_value(tp, gsim, name)
-        torch.cuda.synchronize()
-        times, grad_launches = [], {}
-        for i in range(5):
-            reset_counts()
-            t0 = time.perf_counter()
-            value, ggx, ggk = land_grad_value(tp, gsim, name)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if i == 0:
-                grad_launches = launched()
-        segments = GRAD_STEPS // GRAD_INNER
-        if grad_launches != {fwd.__name__: segments, "land_column_segment_vjp": segments}:
-            raise AssertionError(f"{name}: the gradient launched {grad_launches}")
-        if not all(np.isfinite(v) for v in (value, ggx, ggk)):
-            raise AssertionError(f"{name}: value {value}, gradient {(ggx, ggk)}")
-        med = float(np.median(times))
-        # the same gradient at float64, full width: how far float32 rounding
-        # moves it (reported, not held: the model's own conditioning)
-        sim64 = land_grad_sim(tp, LAND_CELLS, torch.float64, name)
-        value64, gx64, gk64 = land_grad_value(tp, sim64, name)
-        del sim64
-        final = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_STEPS, **fkw)
-        entry = cuda_build._entry_name("land_column_segment_vjp", lv.check_scheme(
-            params, key, solver) + params.tags, torch.float32, LAND_NZ)
-        land_grads[name] = dict(launches=grad_launches["land_column_segment_vjp"],
-                                max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
-                                bound_ms=b[0], bound_by=b[1], entry=entry)
-        phase(name, cells=LAND_CELLS, nz=LAND_NZ, dt=dt, steps=GRAD_STEPS,
-              inner_steps=GRAD_INNER, stepper=key, solver=solver, seconds_median=med,
-              seconds=times, launches=grad_launches, cells_steps_per_s=LAND_CELLS * GRAD_STEPS / med,
-              loss=value, dloss_dlog_K_sat=ggx, dloss_dk_mineral=ggk, f64_loss=value64,
-              f64_dloss_dlog_K_sat=gx64, f64_dloss_dk_mineral=gk64, vjp_segment_ms=k_ms,
-              fwd_segment_ms=f_ms, plain_vjp_ms=p_ms, plain_cells=LAND_GRAD_CHUNK,
-              bound_ms=b[0], bound_by=b[1], ops_per_column_step=v_ops,
-              branch_runs_per_column_step=runs,
-              ptxas=ptxas_all["land_column_segment_vjp"].get(entry, {}).get("vjp"),
-              f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
-              f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
-              fd_steps=steps_fd, fd_h=LAND_FD_H, fd_rtol=LAND_FD_RTOL,
-              f64_kernel_grad=[gx, gk], central_difference=fd, fd_rel_err=fd_rel,
-              dlog_K_sat_at_gradient_steps_adjoint_and_by_h=fd_report,
-              f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
-              f32_max_err_over_magnitude=f32_rel, f32_flip_columns=flips,
-              outside_unit_share_at_end=float(outside_unit(final).float().mean()), card=card)
-        del gsim, carry, gout, final
-
-    # ---- one full step (make_fused_step): the kernel against the plain
-    # version (the module step) on every leaf, float64 along the plain
-    # trajectory and float32 at full width, each stepper and physics
-    full64 = {}
-    for stepper, nz in (("euler", 20), ("heun", 15)):
-        sim = full_sim(tp, FULL_F64_CELLS, nz, torch.float64, stepper, "richards")
-        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-                                   dt=BENCH_DT)
-        state = sim.state
-        for i in range(FULL_F64_STEPS):
-            plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
-                                                   state, BENCH_DT)
-            errs = check_full_step(f"full step {stepper} f64", fused(state), plain, 1e-12,
-                                   BENCH_DT)
-            full64[f"{stepper}:{i}"] = max(errs.values())
-            state = plain
-    full32 = {}
-    for stepper, physics in (("euler", "richards"), ("heun", "richards"), ("euler", "heat"),
-                             ("heun", "heat")):
-        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, stepper, physics)
-        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-                                   dt=BENCH_DT)
-        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
-                                               sim.state, BENCH_DT)
-        full32[f"{stepper}:{physics}"] = check_full_step(
-            f"full step {stepper} {physics} f32", fused(sim.state), plain, F32_REL_TOL,
-            BENCH_DT)
-        del plain
-    # timing, the bench composition at full width (ab_fused_step.py's setup)
-    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
-    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-                               dt=BENCH_DT)
-    call_ms = cuda_ms_each(lambda: fused(sim.state), FULL_TIMED)
-    fn, (fargs, keep), _ = fs.full_step_operands(sim.model, "euler", "richards", sim.ctx,
-                                                 sim.state, BENCH_DT)
-    full_kernel_ms = cuda_ms_each(lambda: fn(*fargs), FULL_TIMED)
-    full_plain_ms = cuda_ms(lambda: fs.soil_column_full_step_plain(
-        sim.model, sim.timestepper, sim.ctx, (), sim.state, BENCH_DT), reps=3, warmup=True)
-    full_b = bound_ms(full_step_ops("euler", "richards", BENCH_NZ) * BENCH_CELLS,
-                      full_step_bytes("richards", BENCH_NZ, BENCH_CELLS, 4, keep[1].numel()))
-    del keep
-    # the full-step path: FULL_STEPS calls of fused, one launch each
-    reset_counts()
-    state = sim.state
-    for _ in range(FULL_STEPS):
-        state = fused(state)
-    torch.cuda.synchronize()
-    full_launches = fs.soil_column_full_step.launches
-    if launched() != {"soil_column_full_step": FULL_STEPS}:
-        raise AssertionError(f"{FULL_STEPS} full steps launched {launched()}")
-    ref = sim.state
-    for _ in range(FULL_STEPS):
-        ref = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), ref,
-                                             BENCH_DT)
-    loop_err = check_close("full step loop", [state[n] for n in sim.model.live_carry],
-                           [ref[n] for n in sim.model.live_carry], F32_REL_TOL)
-    if int(state.clock.iteration) != FULL_STEPS:
-        raise AssertionError(f"full-step loop: clock iteration {int(state.clock.iteration)}")
-    full_ms = float(np.median(full_kernel_ms))
-    phase("full_step", cells=BENCH_CELLS, nz=BENCH_NZ, f64_cells=FULL_F64_CELLS,
-          f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, f64_max_abs_err=full64,
-          rel_tol=F32_REL_TOL, f32_max_abs_err=full32, loop_steps=FULL_STEPS,
-          loop_launches=full_launches, loop_max_abs_err=loop_err,
-          fused_call_ms_median=float(np.median(call_ms)), fused_call_ms=call_ms,
-          kernel_ms_median=full_ms, kernel_ms=full_kernel_ms, plain_ms=full_plain_ms,
-          bound_ms=full_b[0], bound_by=full_b[1],
-          rollout_step_share_ms=ms / COMPARE_STEPS, card=card)
-    del sim, state, ref, fused
-
-    # ---- run through the process modules: the bench soil with a forcing,
-    # which no kernel takes, at full width on the card, held to timestep()
-    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
-                   forcings={"internal_energy": lambda state, grid: 2.0})
-    other = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
-                     forcings={"internal_energy": lambda state, grid: 2.0})
-    reset_counts()
-    t0 = time.perf_counter()
-    sim.run(steps=RUN_MODULE_STEPS)
-    torch.cuda.synchronize()
-    modules_s = time.perf_counter() - t0
-    if launched():
-        raise AssertionError(f"run through the modules launched {launched()}")
-    if sim.state.internal_energy.device.type != "cuda":
-        raise AssertionError(f"run left the card: {sim.state.internal_energy.device}")
-    other.model.closure(other.state, other.ctx)
-    for _ in range(RUN_MODULE_STEPS):
-        other.timestep(BENCH_DT)
-    torch.cuda.synchronize()
-    modules_err = check_close("run through the modules vs timestep",
-                              [sim.state[n] for n in sim.model.live_carry],
-                              [other.state[n] for n in sim.model.live_carry], F32_REL_TOL)
-    if sim.iteration != RUN_MODULE_STEPS:
-        raise AssertionError(f"run through the modules: clock iteration {sim.iteration}")
-    phase("run_modules", cells=BENCH_CELLS, nz=BENCH_NZ, steps=RUN_MODULE_STEPS,
-          seconds=modules_s, cells_steps_per_s=BENCH_CELLS * RUN_MODULE_STEPS / modules_s,
-          launches=launched(), rel_tol=F32_REL_TOL, max_abs_err=modules_err, card=card)
-    del sim, other
-
     # bounds: the bytes each function must move (the rollout reads its carry
     # and BC table and writes its carry; the VJP reads the carry, the BC
     # table and the output cotangents and writes the input and parameter
@@ -3138,6 +3404,8 @@ def main():
                     + ("Heun (terrarium_tpu/timesteppers/stepping.py:167)" if v["key"] == "heun"
                        else f"ImplicitEuler (terrarium_tpu/timesteppers/implicit.py:173, "
                             f"{v['solver']})")
+                    + (f" with {v['iters']} Picard iterations (:234-254)" if v["iters"] != 1
+                       else "")
                     + (" and a Snowpack (terrarium_tpu/processes/snow.py:66)"
                        if v["snow"] else ""),
         "launches": v["launches"], "max_abs_err": max(v["max_abs_err"].values()),
@@ -3259,8 +3527,13 @@ def euler_digest(root: pathlib.Path):
                                  float(sim.state.clock.time), COMPARE_STEPS)
     digests["land_consistent_f32_nz20"] = digest([out[k] for k in sorted(out)])
     del sim, carry, inputs, out
-    if hasattr(ls, "ROLLOUTS"):  # the land kernel's Heun, implicit and snow variants
-        for vname, (_, _, vsnow) in LAND_VARIANTS.items():
+    import inspect
+
+    picard = "picard_iters" in inspect.signature(ls.land_column_rollout_plain).parameters
+    if hasattr(ls, "ROLLOUTS"):  # the land kernel's Heun, implicit and snow variants,
+        # and its Picard iterations where the package has them
+        for vname in (*LAND_VARIANTS, *(LAND_PICARD_VARIANTS if picard else ())):
+            vsnow = land_variant_spec(vname)[2]
             stepper, kernel, _ = land_variant(tp, ls, vname)
             sim = land_sim(tp, LAND_CELLS, torch.float32, "consistent", stepper=stepper,
                            snow=vsnow)
@@ -3273,11 +3546,14 @@ def euler_digest(root: pathlib.Path):
         from terrarium_tpu_torch.ops import land_vjp as lv
 
         for name, (key, solver, dt) in LAND_GRAD_SCHEMES.items():
+            if name in LAND_GRAD_PICARD and not picard:
+                continue
+            kw = {"picard_iters": LAND_GRAD_PICARD[name]} if name in LAND_GRAD_PICARD else {}
             gsim = land_grad_sim(tp, LAND_CELLS, torch.float32, name)
             ops = land_grad_operands(ls, land_inputs, gsim, seed=11)
             gin, gK, gskm = lv.land_column_segment_vjp(*ops[:3], *ops[3], ops[4], dt, 0.0,
                                                        GRAD_INNER, ops[5], stepper=key,
-                                                       solver=solver)
+                                                       solver=solver, **kw)
             digests[f"land_vjp_{name}_f32_nz20"] = digest([gin[k] for k in sorted(gin)]
                                                           + [gK, gskm])
             del gsim, ops, gin

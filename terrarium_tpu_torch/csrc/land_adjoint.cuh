@@ -12,12 +12,14 @@
 // column and the tendencies that is one value a column), the heat flux,
 // and level by level the head, the linear centre K, the plant-available
 // water and the energy closure (soil::level_adjoint), then the down and
-// up sweeps. land::step_adjoint is ForwardEuler's update on it and
+// up sweeps. land::step_adjoint is ForwardEuler's update on it,
 // land::implicit_step_adjoint<SOLVER> ImplicitEuler's with one Picard
-// iteration: each tridiagonal solve undone by one solve of the transposed
-// rows with the same solver (soil::solve_adjoint, never differentiating
-// the elimination), then the rows' assembly and the terms' way back into
-// closure_rhs_adjoint through the sink's level and darcy_face outputs.
+// iteration and land::picard_step_adjoint its iterations, each recomputed
+// from the step's start and undone from the last: each tridiagonal solve
+// undone by one solve of the transposed rows with the same solver
+// (soil::solve_adjoint, never differentiating the elimination), then the
+// rows' assembly and the terms' way back into closure_rhs_adjoint through
+// the sink's level and darcy_face outputs.
 //
 // The surface block maps ten values of a column (the ground temperature,
 // the top level's water, the plant-available water's beta, the top centre
@@ -756,6 +758,197 @@ SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const S
         gskm);
 }
 
+// picard_step (no snowpack) compiled once, out of line, for the segment
+// VJP, which runs it in its forward pass and again to recompute the
+// iterates of each step's adjoint (picard_step_adjoint): one copy of the
+// step's code instead of two to register-allocate, at the price of the
+// column's arrays in local memory across the call
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+SOIL_NOINLINE_FN void picard_step_call(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s,
+                                       const Forcing<T>& f, const soil::Consts<T>& sc,
+                                       const LandColumnParams<T>& c, const T* dz, const T* dzf,
+                                       const T* zc, const T* zf, const T* rf,
+                                       const long long rf_stride, const T dt, const T inv_dt,
+                                       const int iters, const int solver)
+{
+    picard_step<T, NZ, VEG, RICHARDS, CURVE, COND, false, SOLVER>(
+        U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, dt, inv_dt, iters, solver);
+}
+
+// Cotangents through one iteration of picard_step (no snowpack) at its
+// iterate (U, sat) before the iteration's closure, with the surface carry
+// `s` it reads, as implicit_step_adjoint: the closure, the tendencies, the
+// terms and the rows are recomputed there, and each system is undone by
+// one solve of its transposed rows. The first iteration (`later` false)
+// reads the step's start: (gUn, gsn), the cotangents that the later
+// iterations' right-hand sides gave u^n (U and the closed saturation), join
+// those of U and of the closed saturation before the closure's adjoint,
+// and the surface takes its path as in implicit_step_adjoint, gsc holding
+// the cotangents of the surface after the step, those that the later
+// iterations' surface blocks gave it included. A later iteration's
+// right-hand side is tend(u_k) - (u_k - u^n) / dt (Un, sn: u^n), so each
+// implicit variable's solve cotangent lambda gives -lambda / dt to the
+// closed iterate and +lambda / dt to (gUn, gsn); it updates no surface
+// variable, so its surface block's outputs take only what its own rows
+// read (the ground heat flux and the infiltration), and the cotangents of
+// its inputs (the surface as iteration 0 left it, its pool before the
+// dropped spill) are added to gsc.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+SOIL_FN void picard_iter_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
+                                 const Forcing<T>& f, const soil::Consts<T>& sc,
+                                 const LandColumnParams<T>& c, const T* dz, const T* dzf,
+                                 const T* zc, const T* zf, const T* rf,
+                                 const long long rf_stride, const bool later, const T (&Un)[NZ],
+                                 const T (&sn)[NZ], T (&gU)[NZ], T (&gs)[NZ], Surface<T>& gsc,
+                                 T (&gUn)[NZ], T (&gsn)[NZ], T& gKsat, T& gskm, const T dt,
+                                 const T inv_dt, const int solver)
+{
+    const T dz_top = dz[NZ - 1];
+    T xs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) xs[k] = sat[k];
+    Surface<T> xsurf = s;
+    ImplicitRates<T, NZ> r;
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, false>(U, xs, xsurf, f, sc, c, dz, dzf, zc,
+                                                          zf, rf, rf_stride, r);
+    r.U[NZ - 1] = r.U[NZ - 1] - r.G / dz_top;
+    if (RICHARDS) r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
+    if (later) {
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            r.U[k] = r.U[k] - (U[k] - Un[k]) / dt;
+            if (RICHARDS) r.sat[k] = r.sat[k] - (xs[k] - sn[k]) / dt;
+        }
+    }
+    soil::TermCotangents<T, NZ> x;
+#pragma unroll
+    for (int f_ = 0; f_ <= NZ; ++f_) x.gKeff[f_] = T(0);
+    T gfU[NZ], gfs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) gfs[k] = T(0);
+#pragma unroll 1
+    for (int sys = RICHARDS ? 0 : 1; sys < 2; ++sys) {  // 0: Richards, 1: heat
+        const bool heat = sys == 1;
+        T Kf[NZ + 1], D[NZ], d[NZ], gx[NZ], gd[NZ], gKf[NZ + 1], gD[NZ];
+        T a[NZ], b[NZ], cc[NZ], ga[NZ], gb[NZ], gc[NZ];
+        Kf[0] = heat ? T(0.5) * (r.kap[0] + r.kap[0]) : r.Keff[0];
+#pragma unroll
+        for (int k = 1; k < NZ; ++k) Kf[k] = heat ? T(0.5) * (r.kap[k] + r.kap[k - 1]) : r.Keff[k];
+        Kf[NZ] = heat ? T(0.5) * (r.kap[NZ - 1] + r.kap[NZ - 1]) : r.Keff[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            D[k] = heat ? r.Dh[k]
+                        : (CURVE == CURVE_BC ? bc_chain<T>(xs[k], sc, c)
+                                             : soil::water_chain<T>(xs[k], sc, c.soil));
+            d[k] = heat ? r.U[k] : r.sat[k];
+            gx[k] = heat ? gU[k] : gs[k];
+        }
+        const T sc_ = heat ? T(1) : sc.inv_por;
+        soil::diffusion_rows<T, NZ>(Kf, D, sc_, inv_dt, dz, dzf, false, a, b, cc);
+        soil::solve_adjoint<T, NZ, SOLVER>(a, b, cc, d, gx, gd, ga, gb, gc, solver);
+        soil::diffusion_rows_adjoint<T, NZ>(Kf, D, sc_, dz, dzf, false, ga, gb, gc, gKf, gD);
+        if (heat) {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfU[k] = gd[k];
+                x.gkap[k] = T(0.5) * (gKf[k] + gKf[k + 1]);
+                x.gC[k] = -(gD[k] * r.Dh[k]) * r.Dh[k];  // Dh = 1/C, or 0 on the plateau
+            }
+            x.gkap[0] = x.gkap[0] + T(0.5) * gKf[0];
+            x.gkap[NZ - 1] = x.gkap[NZ - 1] + T(0.5) * gKf[NZ];
+        } else {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfs[k] = gd[k];
+                gs[k] = gs[k] + gD[k] * (CURVE == CURVE_BC
+                                             ? bc_chain_deriv<T>(xs[k], sc, c)
+                                             : soil::water_chain_deriv<T>(xs[k], sc, c.soil));
+            }
+#pragma unroll
+            for (int f_ = 0; f_ <= NZ; ++f_) x.gKeff[f_] = gKf[f_];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        if (later) {
+            const T qU = gfU[k] / dt;
+            gU[k] = gU[k] - qU;
+            gUn[k] = gUn[k] + qU;
+            if (RICHARDS) {
+                const T qs = gfs[k] / dt;
+                gs[k] = gs[k] - qs;
+                gsn[k] = gsn[k] + qs;
+            }
+        } else {
+            gU[k] = gU[k] + gUn[k];
+            if (RICHARDS) gs[k] = gs[k] + gsn[k];
+        }
+    }
+    T gy[SO_N];
+    gy[SO_QH] = T(0);
+    gy[SO_G] = -gfU[NZ - 1] / dz_top;
+    gy[SO_INFIL] = RICHARDS ? gfs[NZ - 1] / dz_top : T(0);
+    Surface<T> gk{};
+    if (later) {
+#pragma unroll
+        for (int o = SO_POOL; o < SO_N; ++o) gy[o] = T(0);
+    } else {
+        surface_update_adjoint<T, VEG, RICHARDS>(gsc, gy, dt);
+        gk = gsc;
+    }
+    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND>(
+        U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, gU, gs, gk, gfU, gfs, gy, x, gKsat,
+        gskm);
+    if (later) {
+        gsc.S = gsc.S + gk.S;
+        gsc.Ts = gsc.Ts + gk.Ts;
+        gsc.w = gsc.w + gk.w;
+        gsc.C = gsc.C + gk.C;
+        gsc.nu = gsc.nu + gk.nu;
+        gsc.An = gsc.An + gk.An;
+    } else {
+        gsc = gk;
+    }
+}
+
+// Cotangents through one picard_step (no snowpack) with `iters`
+// iterations, as step_adjoint. The iterations are undone from the last:
+// for iteration k, the iterate u_k and the surface carry after iteration 0
+// are recomputed from the step's stored start by picard_step's first k
+// iterations (picard_step_call; nothing is stored per iteration), then
+// picard_iter_adjoint takes them back to the iterate before it. The closed
+// start u^n that the later iterations read is the start's sweeps.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+SOIL_FN void picard_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
+                                 const Forcing<T>& f, const soil::Consts<T>& sc,
+                                 const LandColumnParams<T>& c, const T* dz, const T* dzf,
+                                 const T* zc, const T* zf, const T* rf,
+                                 const long long rf_stride, T (&gU)[NZ], T (&gs)[NZ],
+                                 Surface<T>& gsc, T& gKsat, T& gskm, const T dt, const T inv_dt,
+                                 const int iters, const int solver)
+{
+    T sn[NZ], gUn[NZ], gsn[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) { sn[k] = sat[k]; gUn[k] = T(0); gsn[k] = T(0); }
+    if constexpr (RICHARDS) {
+        T spill, wt;
+        unsigned spilled, clipped;
+        soil::sweeps<T, NZ>(sn, spill, wt, spilled, clipped, dz, zf);
+    }
+#pragma unroll 1
+    for (int it = iters - 1; it >= 0; --it) {
+        T xU[NZ], xs[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) { xU[k] = U[k]; xs[k] = sat[k]; }
+        Surface<T> xsurf = s;
+        picard_step_call<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+            xU, xs, xsurf, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, dt, inv_dt, it, solver);
+        picard_iter_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+            xU, xs, xsurf, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, it > 0, U, sn, gU, gs, gsc,
+            gUn, gsn, gKsat, gskm, dt, inv_dt, solver);
+    }
+}
+
 // rows of a step's carry in the scratch: U and sat (NZ each), then the
 // pool, skin temperature, canopy water, carbon, vegetation fraction and net
 // assimilation (0 where the composition has none)
@@ -765,7 +958,8 @@ struct ScratchRows {
 };
 
 // The segment VJP of one column by STEPPER (soil::STEPPER_EULER, or
-// _IMPLICIT with SOLVER; no snowpack) with static inputs: `steps` forward
+// _IMPLICIT with SOLVER; PICARD: picard_step with `iters` iterations,
+// SOLVER_RUNTIME taking `solver`; no snowpack) with static inputs: `steps` forward
 // steps from the segment's input carry `in`, each step's input carry
 // stored to `scratch` (laid out [step][row][cell], ScratchRows rows, so
 // neighbouring columns touch neighbouring addresses), then the reverse
@@ -774,7 +968,7 @@ struct ScratchRows {
 // input cotangents to `gin` (the fields `in` has) and adds the parameter
 // cotangents to gKsat and gskm.
 template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int STEPPER,
-          int SOLVER>
+          int SOLVER, bool PICARD = false>
 SOIL_FN void segment_vjp_column(const long long col, const long long cells, const int steps,
                                 const LandCarry& in, const LandCarry& gout, const LandCarry& gin,
                                 T* scratch, const LandInputs& inputs, const T* root,
@@ -782,10 +976,12 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
                                 const long long root_cell_stride, const soil::Consts<T>& sc,
                                 const LandColumnParams<T>& c, const T* dz, const T* dzf,
                                 const T* zc, const T* zf, const T dt, const T inv_dt, T& gKsat,
-                                T& gskm)
+                                T& gskm, const int iters = 1, const int solver = SOLVER)
 {
     static_assert(STEPPER == soil::STEPPER_EULER || STEPPER == soil::STEPPER_IMPLICIT,
                   "the land segment VJP runs ForwardEuler and ImplicitEuler");
+    static_assert(!PICARD || STEPPER == soil::STEPPER_IMPLICIT,
+                  "the Picard iterations are ImplicitEuler's");
     constexpr long long rows = ScratchRows<NZ>::value;
     T U[NZ], sat[NZ];
 #pragma unroll
@@ -821,7 +1017,11 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
         rec[(2 * NZ + 3) * cells] = s.C;
         rec[(2 * NZ + 4) * cells] = s.nu;
         rec[(2 * NZ + 5) * cells] = s.An;
-        if (STEPPER == soil::STEPPER_IMPLICIT)
+        if constexpr (PICARD)
+            picard_step_call<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+                U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt, iters,
+                solver);
+        else if (STEPPER == soil::STEPPER_IMPLICIT)
             implicit_step<T, NZ, VEG, RICHARDS, CURVE, COND, false, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt);
         else
@@ -858,7 +1058,11 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
         s.C = rec[(2 * NZ + 3) * cells];
         s.nu = rec[(2 * NZ + 4) * cells];
         s.An = rec[(2 * NZ + 5) * cells];
-        if (STEPPER == soil::STEPPER_IMPLICIT)
+        if constexpr (PICARD)
+            picard_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+                U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, gU, gs, gsc, gKsat,
+                gskm, dt, inv_dt, iters, solver);
+        else if (STEPPER == soil::STEPPER_IMPLICIT)
             implicit_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, gU, gs, gsc, gKsat,
                 gskm, dt, inv_dt);

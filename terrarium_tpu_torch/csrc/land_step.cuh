@@ -1,6 +1,6 @@
 // One closure-rotated LandModel step on one column, the column code of
-// csrc/land_column_rollout.cu: ForwardEuler, Heun or ImplicitEuler (one
-// Picard iteration, Thomas or PCR solves).
+// csrc/land_column_rollout.cu: ForwardEuler, Heun or ImplicitEuler (Thomas
+// or PCR solves; one Picard iteration, or any number by picard_step).
 //
 // land::closure_rhs is the closure and the tendencies of a LandModel, in the
 // order of its modules (models/land_model.py): the soil closure (saturation
@@ -21,11 +21,12 @@
 // Heun's corrector can add the x_n BC to the mean of two stages'
 // tendencies. land::step is ForwardEuler.pre_closure_step on it (the
 // update streamed level by level), land::heun_step Heun.pre_closure_step,
-// land::implicit_step ImplicitEuler.pre_closure_step; each ends with the
-// snowpack's clip SWE >= 0 (LandModel.timestep). The plain version is that
-// composition of the port's process modules stepped by the same stepper
-// (ops/land_step.py::land_column_rollout_plain), which this code follows
-// operation for operation.
+// land::implicit_step ImplicitEuler.pre_closure_step and
+// land::picard_step the same with its Picard iterations; each ends with
+// the snowpack's clip SWE >= 0 (LandModel.timestep). The plain version is
+// that composition of the port's process modules stepped by the same
+// stepper (ops/land_step.py::land_column_rollout_plain), which this code
+// follows operation for operation.
 //
 // Template choices: VEG (PALADYN interception and evapotranspiration with
 // VegetationCarbon, else NoCanopyInterception with BareGroundEvaporation),
@@ -745,6 +746,92 @@ SOIL_FN void implicit_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcin
     if (SNOW) s.swe = vmax(s.swe + r.surf.dswe * dt, T(0));
 }
 
+// One ImplicitEuler.pre_closure_step of the LandModel column in place with
+// `iters` Picard iterations (implicit.py:234-254). Iteration 0 is
+// implicit_step's arithmetic, with the SWE left unclipped. Each further
+// iteration runs closure_rhs at the iterate u_k on a copy of the surface
+// carry as iteration 0 left it (the pool, skin temperature, canopy water,
+// carbon, vegetation fraction, net assimilation and SWE after their
+// updates: the explicit variables keep iteration 0's values, and the
+// copy's pool takes the saturation adjustment's spill, which is dropped),
+// with the inputs at the step's clock time; the Flux BCs of the iterate
+// into the top rows' right-hand sides; then solves A(u_k) du = tend(u_k) -
+// (u_k - u^n) / dt for U and sat, u_k the closed iterate and u^n the step's
+// closed start, with the rows at the iterate (face kappa, dT/dU, the Darcy
+// face K and the curve's d(Psi)/d(sat) at the closed iterate), and sets u =
+// u_k + du. The snowpack's clip runs once, at the end. The loop is not
+// unrolled: one body serves every iteration, and u^n stays live across it.
+// SOLVER may be soil::SOLVER_RUNTIME, the solves then by `solver`.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int SOLVER>
+SOIL_FN void picard_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
+                         const soil::Consts<T>& sc, const LandColumnParams<T>& c,
+                         const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
+                         const long long rf_stride, const T dt, const T inv_dt, const int iters,
+                         const int solver = SOLVER)
+{
+    const T dz_top = dz[NZ - 1];
+    T Un[NZ], sn[NZ];
+#pragma unroll 1
+    for (int it = 0; it < iters; ++it) {
+        ImplicitRates<T, NZ> r;
+        Surface<T> y = s;
+        closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, y, f, sc, c, dz, dzf, zc,
+                                                            zf, rf, rf_stride, r);
+        r.U[NZ - 1] = r.U[NZ - 1] - r.G / dz_top;
+        if (RICHARDS) r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
+        if (it == 0) {
+            s.S = y.S;
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) { Un[k] = U[k]; sn[k] = sat[k]; }
+        } else {
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                r.U[k] = r.U[k] - (U[k] - Un[k]) / dt;
+                if (RICHARDS) r.sat[k] = r.sat[k] - (sat[k] - sn[k]) / dt;
+            }
+        }
+        T a[NZ], b[NZ], cc[NZ];
+        {
+            T Kf[NZ + 1];
+            Kf[0] = T(0.5) * (r.kap[0] + r.kap[0]);
+#pragma unroll
+            for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (r.kap[k] + r.kap[k - 1]);
+            Kf[NZ] = T(0.5) * (r.kap[NZ - 1] + r.kap[NZ - 1]);
+            soil::diffusion_rows<T, NZ>(Kf, r.Dh, T(1), inv_dt, dz, dzf, false, a, b, cc);
+        }
+        soil::solve<T, NZ, SOLVER>(a, b, cc, r.U, solver);
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) U[k] = U[k] + r.U[k];
+        if (RICHARDS) {
+            {
+                T D[NZ];
+#pragma unroll
+                for (int k = 0; k < NZ; ++k)
+                    D[k] = CURVE == CURVE_BC ? bc_chain<T>(sat[k], sc, c)
+                                             : soil::water_chain<T>(sat[k], sc, c.soil);
+                soil::diffusion_rows<T, NZ>(r.Keff, D, sc.inv_por, inv_dt, dz, dzf, false, a, b,
+                                            cc);
+            }
+            soil::solve<T, NZ, SOLVER>(a, b, cc, r.sat, solver);
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + r.sat[k];
+        }
+        if (it == 0) {
+            if (RICHARDS) s.S = s.S + r.dS * dt;
+            s.Ts = r.surf.Ts + T(0) * dt;
+            if (VEG) {
+                s.w = s.w + r.surf.dw * dt;
+                s.C = s.C + r.surf.dC * dt;
+                s.nu = s.nu + r.surf.dnu * dt;
+                s.An = r.surf.An;
+            }
+            if (SNOW) s.swe = s.swe + r.surf.dswe * dt;
+        }
+    }
+    if (SNOW) s.swe = vmax(s.swe, T(0));
+}
+
 // the series inputs at clock time t (soil::series_value) into f, whose
 // static inputs are already set
 template <typename T>
@@ -759,21 +846,24 @@ SOIL_FN void read_series(Forcing<T>& f, const LandInputs& inputs, const long lon
 }
 
 // `steps` land steps of STEPPER (soil::STEPPER_EULER, _HEUN or _IMPLICIT
-// with SOLVER) of column `col` of the carry `in` into `out`, from the clock
-// time time0, which advances by t + dt as Clock.tick does: the carry read
-// once, each series input read at each clock time (Heun's stage at t + dt
-// too), each static input once; the root fractions of level k at root[k *
-// root_row_stride + col * root_cell_stride].
+// with SOLVER; PICARD: picard_step with `iters` iterations, SOLVER_RUNTIME
+// taking `solver`) of column `col` of the carry `in` into `out`, from the
+// clock time time0, which advances by t + dt as Clock.tick does: the carry
+// read once, each series input read at each clock time (Heun's stage at t +
+// dt too), each static input once; the root fractions of level k at root[k
+// * root_row_stride + col * root_cell_stride].
 template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
-          int STEPPER, int SOLVER>
+          int STEPPER, int SOLVER, bool PICARD = false>
 SOIL_FN void rollout_column(const long long col, const long long cells, const LandCarry& in,
                             const LandCarry& out, const LandInputs& inputs, const T* root,
                             const long long root_row_stride, const long long root_cell_stride,
                             const soil::Consts<T>& sc, const LandColumnParams<T>& c,
                             const T* dz, const T* dzf, const T* zc,
                             const T* zf, const int steps, const T time0, const T dt,
-                            const T inv_dt)
+                            const T inv_dt, const int iters = 1, const int solver = SOLVER)
 {
+    static_assert(!PICARD || STEPPER == soil::STEPPER_IMPLICIT,
+                  "the Picard iterations are ImplicitEuler's");
     T U[NZ], sat[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -804,6 +894,10 @@ SOIL_FN void rollout_column(const long long col, const long long cells, const La
             read_series(f1, inputs, col, t + dt);
             heun_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
                 U, sat, s, f, f1, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt);
+        } else if (STEPPER == soil::STEPPER_IMPLICIT && PICARD) {
+            picard_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
+                U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt, iters,
+                solver);
         } else if (STEPPER == soil::STEPPER_IMPLICIT) {
             implicit_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt);

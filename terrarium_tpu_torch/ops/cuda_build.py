@@ -1,22 +1,35 @@
 """Build and load the port's CUDA sources.
 
 Each kernel source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, at first use, into
-``_build/<name>-<hash>.so`` beside the package; the hash covers the source and
-every header in ``csrc/``. A source defines one entry point per
-instantiation, ``<name>[_<tag>...]_<f32|f64>_nz<NZ>``, from the list of that
-source in ``INSTANTIATIONS``; each instantiation is compiled by its own
-``nvcc`` (``-DSOIL_ENTRY -DSOIL_T -DSOIL_NZ`` and the tags'
-defines, ``_DEFINES``), all of them and all the sources asked for together in parallel,
-and linked into the source's library. ptxas's register and spill report is
-kept beside the library as ``.ptxas.txt``, each instantiation's part headed
-by a line ``== <entry point>`` and a line ``cpu_s <seconds>``, the CPU time
-its ``nvcc`` (and the compilers it ran) took. At most one ``nvcc`` runs per
-core the process may use; builds of different sources asked for from
-different threads share those slots, in the order they asked.
+``sm_90a`` into shared libraries with a plain C interface, at first use,
+beside the package in ``_build/``, under the stem ``<name>-<hash>``; the hash
+covers the source, every header in ``csrc/`` and the source's extra flags.
+A source defines one entry point per instantiation,
+``<name>[_<tag>...]_<f32|f64>_nz<NZ>``, each compiled by its own ``nvcc``
+(``-DSOIL_ENTRY -DSOIL_T -DSOIL_NZ`` and the tags' defines, ``_DEFINES``;
+``FLAGS``). Two kinds:
+
+* the prebuilt set, the list of that source in ``INSTANTIATIONS``: the
+  first launch of any of them compiles all of them, and all the sources
+  asked for together, in parallel, and links them into the source's
+  library ``<stem>.so``;
+* every other instantiation (``entry``): compiled alone at its own first
+  launch into ``<stem>-<entry point>.so``, with the same defines and flags
+  as a listed one, under a lock of its own, so that the card runs every
+  composition the port's type checks send to a kernel at any dtype (f32 or
+  f64) and depth.
+
+ptxas's register and spill report is kept beside each library as
+``.ptxas.txt``, each instantiation's part headed by a line ``== <entry
+point>`` and a line ``cpu_s <seconds>``, the CPU time its ``nvcc`` (and the
+compilers it ran) took. At most one compiling ``nvcc`` runs per core the
+process may use; builds asked for from different threads share those slots,
+in the order they asked, and each library's link runs as soon as its
+objects are compiled.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,13 +50,14 @@ _F32, _F64 = torch.float32, torch.float64
 #: plain version
 _PICARD = [(("implicit", "picard", physics), dtype, nz) for physics in ("richards", "heat")
            for dtype, nz in ((_F32, 30), (_F64, 16))]
-#: the instantiations of each source, ``(tags, dtype, NZ)``: every one that
-#: the port's paths, ``chip_smoke.py`` and the CUDA tests launch (the bench
-#: and gradient grids at Nz 20 and 30, the Heun golden at Nz 15, the
-#: implicit golden and the float64 checks of the heat-only Heun and of the
-#: Picard entries at Nz 16); a launch of any other raises. The costliest to
-#: compile come first in each list (the Picard entries), so that they start
-#: first in the build's slots
+#: the prebuilt instantiations of each source, ``(tags, dtype, NZ)``, built
+#: together at the source's first launch: those that ``chip_smoke.py``'s
+#: timed and checked paths launch (the bench and gradient grids at Nz 20 and
+#: 30, the Heun golden at Nz 15, the implicit golden and the float64 checks
+#: of the heat-only Heun and of the Picard entries at Nz 16). Any other is
+#: built alone at its first launch (``entry``). The costliest to compile
+#: come first in each list (the Picard entries), so that they start first
+#: in the build's slots
 INSTANTIATIONS = {
     "soil_column_rollout": [
         *_PICARD,
@@ -74,14 +88,18 @@ INSTANTIATIONS = {
         (("euler", "heat"), _F32, 30), (("heun", "heat"), _F32, 30),
         (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
     ],
-    # the LandModel: ForwardEuler over the bare-ground golden at Nz 15
-    # (heat-only soil) and over the vegetated bench composition (Richards over
-    # Brooks-Corey and linear conductivity) at Nz 20; Heun and ImplicitEuler
-    # (each solver) over the bench composition at Nz 20; the snowpack over the
-    # land_snow golden's composition (bare ground, Brooks-Corey and linear) at
-    # Nz 12 with ForwardEuler and over the bench composition at Nz 20 with
-    # ImplicitEuler (PCR)
+    # the LandModel: ImplicitEuler with any number of Picard iterations (the
+    # solver at run time) over the vegetated bench composition (Richards over
+    # Brooks-Corey and linear conductivity) at Nz 20; ForwardEuler over the
+    # bare-ground golden at Nz 15 (heat-only soil) and over the bench
+    # composition at Nz 20; Heun and ImplicitEuler (each solver) over the
+    # bench composition at Nz 20; the snowpack over the land_snow golden's
+    # composition (bare ground, Brooks-Corey and linear) at Nz 12 with
+    # ForwardEuler and over the bench composition at Nz 20 with ImplicitEuler
+    # (PCR)
     "land_column_rollout": [
+        *((("implicit", "picard", "veg", "richards", "bc", "linear"), dtype, 20)
+          for dtype in (_F32, _F64)),
         (("bare", "noflow"), _F64, 15),
         *((("veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
         *((("heun", "veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
@@ -93,10 +111,12 @@ INSTANTIATIONS = {
     ],
     # the LandModel's segment VJP over the vegetated bench composition
     # (Richards over Brooks-Corey and linear conductivity) at Nz 20:
-    # ForwardEuler and ImplicitEuler (each solver)
+    # ImplicitEuler with any number of Picard iterations (the costliest
+    # compile of the port, first), ForwardEuler and ImplicitEuler (each
+    # solver)
     "land_column_segment_vjp": [
         ((*stepper, "veg", "richards", "bc", "linear"), dtype, 20)
-        for stepper in ((), ("implicit", "thomas"), ("implicit", "pcr"))
+        for stepper in (("implicit", "picard"), (), ("implicit", "thomas"), ("implicit", "pcr"))
         for dtype in (_F32, _F64)
     ],
 }
@@ -120,9 +140,9 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 
-_libs: dict = {}
+_libs: dict = {}  # source name, or (source name, entry point) of one built alone
 _lock = threading.Lock()  # guards _source_locks
-_source_locks: dict = {}
+_source_locks: dict = {}  # a lock per source, and per instantiation built alone
 _slots = threading.Semaphore(len(os.sched_getaffinity(0)))
 
 
@@ -146,10 +166,10 @@ def _stem(name: str) -> str:
     return f"{name}-{h.hexdigest()[:12]}"
 
 
-def _run(cmd, out: list, i: int) -> None:
-    """Run ``cmd`` in a free slot; ``out[i] = (returncode, stderr, cpu
-    seconds)``."""
-    with _slots:
+def _run(cmd, out: list, i: int, gate) -> None:
+    """Run ``cmd`` once it holds ``gate``; ``out[i] = (returncode, stderr,
+    cpu seconds)``."""
+    with gate:
         p = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         err = p.stderr.read()
         p.stderr.close()
@@ -157,11 +177,15 @@ def _run(cmd, out: list, i: int) -> None:
         out[i] = (os.waitstatus_to_exitcode(status), err, usage.ru_utime + usage.ru_stime)
 
 
-def _run_all(cmds):
-    """Run the commands in parallel, each in a slot, in their order;
-    ``[(returncode, stderr, cpu seconds), ...]``."""
+def _run_all(cmds, slotted: bool = True):
+    """Run the commands in parallel, each in a slot (``slotted``; the
+    links, which take seconds, at once, so that a library does not wait for
+    other builds' compiles), in their order; ``[(returncode, stderr, cpu
+    seconds), ...]``."""
+    gate = _slots if slotted else contextlib.nullcontext()
     out = [None] * len(cmds)
-    threads = [threading.Thread(target=_run, args=(c, out, i)) for i, c in enumerate(cmds)]
+    threads = [threading.Thread(target=_run, args=(c, out, i, gate))
+               for i, c in enumerate(cmds)]
     for t in threads:
         t.start()
     for t in threads:
@@ -169,10 +193,45 @@ def _run_all(cmds):
     return out
 
 
+def _make(libs) -> None:
+    """Compile and link ``libs``, ``[(stem, source, [(tags, dtype, NZ),
+    ...]), ...]``: every instantiation by its own ``nvcc``, all in parallel,
+    then each library's link; each ``_build/<stem>.so`` with its ptxas report
+    beside it. Raises ``RuntimeError`` naming each instantiation or library
+    that fails, with the compiler's message."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        nvcc, jobs = _nvcc(), []
+        for stem, n, keys in libs:
+            for tags, dtype, nz in keys:
+                name = _entry_name(n, tags, dtype, nz)
+                obj = pathlib.Path(tmp) / f"{name}.o"
+                jobs.append((stem, name, obj, _compile(nvcc, n, tags, dtype, nz, obj)))
+        results = _run_all([cmd for *_, cmd in jobs])
+        failed = [f"{name}: nvcc exit {rc}\n{err}"
+                  for (_, name, _, _), (rc, err, _) in zip(jobs, results) if rc != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        links = [[nvcc, *_ARCH, "-shared", "-o", str(pathlib.Path(tmp) / f"{stem}.so"),
+                  *(str(obj) for s, _, obj, _ in jobs if s == stem)]
+                 for stem, _, _ in libs]
+        failed = [f"{stem}.so: link exit {rc}\n{err}"
+                  for (stem, _, _), (rc, err, _) in zip(libs, _run_all(links, slotted=False))
+                  if rc != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for stem, _, _ in libs:
+            report = "".join(f"== {name}\ncpu_s {cpu:.1f}\n{err}"
+                             for (s, name, _, _), (_, err, cpu) in zip(jobs, results)
+                             if s == stem)
+            (_BUILD_DIR / f"{stem}.ptxas.txt").write_text(report)
+            os.replace(pathlib.Path(tmp) / f"{stem}.so", _BUILD_DIR / f"{stem}.so")
+
+
 def build(*names: str) -> list:
-    """The loaded libraries of ``csrc/<name>.cu`` for each of ``names``,
-    compiling (in parallel) those not built yet. A source that another
-    thread is building is waited for."""
+    """The loaded libraries of ``csrc/<name>.cu``'s prebuilt instantiations
+    for each of ``names``, compiling (in parallel) those not built yet. A
+    source that another thread is building is waited for."""
     with _lock:
         locks = [_source_locks.setdefault(n, threading.Lock()) for n in sorted(set(names))]
     for lock in locks:  # in sorted order, so that two builds cannot deadlock
@@ -182,40 +241,7 @@ def build(*names: str) -> list:
         stems = {n: _stem(n) for n in todo}
         missing = [n for n in todo if not (_BUILD_DIR / f"{stems[n]}.so").exists()]
         if missing:
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-                nvcc, jobs = _nvcc(), []
-                for n in missing:
-                    for tags, dtype, nz in INSTANTIATIONS[n]:
-                        ctype = _SUFFIX[dtype][1]
-                        name = _entry_name(n, tags, dtype, nz)
-                        obj = pathlib.Path(tmp) / f"{name}.o"
-                        jobs.append((n, name, obj, [
-                            nvcc, *_ARCH, "-std=c++17", "-O3", *FLAGS.get(n, {}).get(dtype, ()),
-                            "-Xcompiler", "-fPIC",
-                            "-Xptxas", "-v", f"-DSOIL_ENTRY={name}",
-                            f"-DSOIL_T={ctype}", f"-DSOIL_NZ={nz}",
-                            *(f"-D{d}" for t in tags for d in _DEFINES[t]), "-c", "-o", str(obj),
-                            str(_CSRC / f"{n}.cu")]))
-                results = _run_all([cmd for *_, cmd in jobs])
-                failed = [f"{obj.name}: nvcc exit {rc}\n{err}"
-                          for (_, _, obj, _), (rc, err, _) in zip(jobs, results) if rc != 0]
-                if failed:
-                    raise RuntimeError("\n".join(failed))
-                links = [[nvcc, *_ARCH, "-shared", "-o", str(pathlib.Path(tmp) / f"{stems[n]}.so"),
-                          *(str(obj) for m, _, obj, _ in jobs if m == n)]
-                         for n in missing]
-                failed = [f"{n}: link exit {rc}\n{err}"
-                          for n, (rc, err, _) in zip(missing, _run_all(links)) if rc != 0]
-                if failed:
-                    raise RuntimeError("\n".join(failed))
-                for n in missing:
-                    report = "".join(f"== {name}\ncpu_s {cpu:.1f}\n{err}"
-                                     for (m, name, _, _), (_, err, cpu) in zip(jobs, results)
-                                     if m == n)
-                    (_BUILD_DIR / f"{stems[n]}.ptxas.txt").write_text(report)
-                    os.replace(pathlib.Path(tmp) / f"{stems[n]}.so",
-                               _BUILD_DIR / f"{stems[n]}.so")
+            _make([(stems[n], n, INSTANTIATIONS[n]) for n in missing])
         for n in todo:
             _libs[n] = ctypes.CDLL(str(_BUILD_DIR / f"{stems[n]}.so"))
         return [_libs[n] for n in names]
@@ -228,25 +254,62 @@ def _entry_name(name: str, tags, dtype: torch.dtype, nz: int) -> str:
     return "_".join((name, *tags, _SUFFIX[dtype][0], f"nz{nz}"))
 
 
+def _compile(nvcc: str, name: str, tags, dtype: torch.dtype, nz: int, obj) -> list:
+    """The ``nvcc`` command that compiles one instantiation of
+    ``csrc/<name>.cu`` into the object ``obj``."""
+    return [nvcc, *_ARCH, "-std=c++17", "-O3", *FLAGS.get(name, {}).get(dtype, ()),
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            f"-DSOIL_ENTRY={_entry_name(name, tags, dtype, nz)}",
+            f"-DSOIL_T={_SUFFIX[dtype][1]}", f"-DSOIL_NZ={nz}",
+            *(f"-D{d}" for t in tags for d in _DEFINES[t]), "-c", "-o", str(obj),
+            str(_CSRC / f"{name}.cu")]
+
+
+def _build_one(name: str, tags: tuple, dtype: torch.dtype, nz: int):
+    """The loaded library of one instantiation of ``csrc/<name>.cu`` that
+    ``INSTANTIATIONS`` does not list, ``_build/<stem>-<entry point>.so``,
+    compiled and linked alone the first time it is asked for; a second
+    thread that asks for it meanwhile waits for that build."""
+    ename = _entry_name(name, tags, dtype, nz)
+    key = (name, ename)
+    with _lock:
+        lock = _source_locks.setdefault(key, threading.Lock())
+    with lock:
+        if key in _libs:
+            return _libs[key]
+        stem = f"{_stem(name)}-{ename}"
+        if not (_BUILD_DIR / f"{stem}.so").exists():
+            _make([(stem, name, [(tags, dtype, nz)])])
+        _libs[key] = ctypes.CDLL(str(_BUILD_DIR / f"{stem}.so"))
+        return _libs[key]
+
+
 def entry(name: str, dtype: torch.dtype, nz: int, argtypes, tags=()):
     """The entry point ``<name>[_<tag>...]_<f32|f64>_nz<NZ>`` of
-    ``csrc/<name>.cu``'s library (built at first use), typed with
-    ``argtypes`` and an int result (the launch's CUDA error code). Raises
-    ``ValueError`` naming the built instantiations for any other."""
+    ``csrc/<name>.cu``, typed with ``argtypes`` and an int result (the
+    launch's CUDA error code): from the source's library of prebuilt
+    instantiations (``INSTANTIATIONS``, built together at first use), or,
+    for any other, from its own library, built at its first use. Raises
+    ``ValueError`` for a dtype other than float32 or float64 and
+    ``RuntimeError`` with ``nvcc``'s message where a build fails."""
     tags = tuple(tags)
-    if (tags, dtype, nz) not in INSTANTIATIONS[name]:
-        built = ", ".join(f"{'/'.join(t) + ' ' if t else ''}{_SUFFIX[d][0]} Nz {z}"
-                          for t, d, z in INSTANTIATIONS[name])
-        raise ValueError(f"{name} is not built for {'/'.join(tags) + ' ' if tags else ''}"
-                         f"{_SUFFIX.get(dtype, (dtype,))[0]} Nz {nz}; built: {built}")
-    fn = getattr(build(name)[0], _entry_name(name, tags, dtype, nz))
+    if dtype not in _SUFFIX:
+        raise ValueError(f"{name} is built for float32 and float64, not {dtype}")
+    if (tags, dtype, nz) in INSTANTIATIONS[name]:
+        lib = build(name)[0]
+    else:
+        lib = _build_one(name, tags, dtype, nz)
+    fn = getattr(lib, _entry_name(name, tags, dtype, nz))
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
 def ptxas_report(name: str) -> str:
-    """ptxas's ``-v`` output of the current build of ``csrc/<name>.cu`` ('' before
-    the build)."""
-    path = _BUILD_DIR / f"{_stem(name)}.ptxas.txt"
-    return path.read_text() if path.exists() else ""
+    """ptxas's ``-v`` output of the current build of ``csrc/<name>.cu``: the
+    prebuilt library's, then that of each instantiation built alone so far
+    ('' before any build)."""
+    stem = _stem(name)
+    paths = [_BUILD_DIR / f"{stem}.ptxas.txt",
+             *sorted(_BUILD_DIR.glob(f"{stem}-*.ptxas.txt"))]
+    return "".join(p.read_text() for p in paths if p.exists())

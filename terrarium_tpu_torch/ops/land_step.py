@@ -5,8 +5,8 @@ PyTorch version and the wrappers that pick between them by device.
 :class:`LandModel` ``n`` times to the model's live carry
 (``LandModel.live_carry``) and returns the new carry;
 :func:`land_column_heun_rollout` does the same with ``Heun`` and
-:func:`land_column_implicit_rollout` with ``ImplicitEuler`` (one Picard
-iteration, Thomas or PCR solves). They replace
+:func:`land_column_implicit_rollout` with ``ImplicitEuler`` (Thomas or PCR
+solves, any number of Picard iterations). They replace
 ``terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout`` traced over a
 LandModel step of that stepper. The compositions they take
 (:func:`land_composition`): bare ground (``NoCanopyInterception``,
@@ -42,7 +42,7 @@ import torch
 
 from . import cuda_build
 from .fastpow import pow_code
-from .fused_step import ColumnParams, _CParams, series_value, soil_flow
+from .fused_step import SOLVER_CODES, ColumnParams, _CParams, series_value, soil_flow
 from ..grids.column import ColumnGrid
 from ..models.land_model import LandModel
 from ..processes.atmosphere import (ConstantAerodynamics, LongShortWaveRadiation,
@@ -67,7 +67,7 @@ from ..timesteppers.stepping import ForwardEuler, Heun
 
 __all__ = ["LAND_INPUTS", "LandInput", "LandParams", "land_composition", "carry_names",
            "land_column_rollout", "land_column_heun_rollout", "land_column_implicit_rollout",
-           "land_column_rollout_plain", "launch_args", "ROLLOUTS"]
+           "land_column_rollout_plain", "launch_args", "implicit_tags", "ROLLOUTS"]
 
 _NAME = "land_column_rollout"  # csrc/land_column_rollout.cu
 
@@ -381,13 +381,13 @@ class _Series:
                 series_value(values, state.clock.time, t0, dts), state.inputs[name].shape)
 
 
-def _stepper(stepper: str, solver: Optional[str]):
+def _stepper(stepper: str, solver: Optional[str], picard_iters: int = 1):
     if stepper == "euler":
         return ForwardEuler()
     if stepper == "heun":
         return Heun()
     if stepper == "implicit":
-        return ImplicitEuler(solver=solver)
+        return ImplicitEuler(solver=solver, picard_iters=picard_iters)
     raise ValueError(f"the land rollout steps with 'euler', 'heun' or 'implicit', not "
                      f"{stepper!r}")
 
@@ -395,13 +395,15 @@ def _stepper(stepper: str, solver: Optional[str]):
 def land_column_rollout_plain(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                               root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
                               z_faces, params: LandParams, dt: float, time: float, steps: int,
-                              stepper: str = "euler", solver: Optional[str] = None):
+                              stepper: str = "euler", solver: Optional[str] = None,
+                              picard_iters: int = 1):
     """Plain PyTorch version of the kernels: the model's process modules on
     a state over ``carry`` (``{name: tensor}``, the live carry and under
     ``NoFlow`` the saturation), the static inputs and the root fraction,
     stepped ``steps`` times from the clock time ``time`` by the
     ``pre_closure_step`` of ``stepper`` (``"euler"``, ``"heun"`` or
-    ``"implicit"`` with one Picard iteration and ``solver``), the series
+    ``"implicit"`` with ``solver`` and ``picard_iters`` Picard
+    iterations), the series
     inputs set at each clock time by each ``update_state``. Inputs not given
     keep their declared defaults. The coordinates are the model's (the
     grid's); they are taken for the wrappers' signature. Returns the new
@@ -427,7 +429,7 @@ def land_column_rollout_plain(carry: Dict[str, torch.Tensor], inputs: Dict[str, 
             series.append((name, inp.values, torch.tensor(inp.t0, dtype=U.dtype, device=U.device),
                            torch.tensor(inp.dts, dtype=U.dtype, device=U.device)))
     ctx = model.make_context()
-    step, sources = _stepper(stepper, solver), (_Series(series),)
+    step, sources = _stepper(stepper, solver, picard_iters), (_Series(series),)
     for _ in range(steps):
         step.pre_closure_step(model, state, ctx, sources, dt)
     return {n: state[n] for n in model.live_carry}
@@ -438,11 +440,11 @@ def _argtypes(dtype) -> list:
             + [ctypes.POINTER(_CLandInputs), ctypes.c_void_p, ctypes.c_longlong,
                ctypes.c_longlong] + [ctypes.c_void_p] * 4
             + [ctypes.POINTER(_CLAND[dtype]), ctypes.c_int, ctypes.c_double, ctypes.c_double,
-               ctypes.c_longlong, ctypes.c_void_p])
+               ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params, dt, time,
-             steps, stepper, solver):
+             steps, stepper, solver, picard_iters=1):
     """Check the operands; run the plain version on CPU tensors, else launch
     the instantiation ``stepper_tags + params.tags`` and count the launch on
     ``wrapper``; return the new carry."""
@@ -452,7 +454,8 @@ def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params
     U = carry["internal_energy"]
     if U.device.type == "cpu":
         return land_column_rollout_plain(carry, inputs, root_fraction, *coords, params, dt,
-                                         time, steps, stepper=stepper, solver=solver)
+                                         time, steps, stepper=stepper, solver=solver,
+                                         picard_iters=picard_iters)
     if U.device.type != "cuda":
         raise ValueError(f"land column rollout runs on cpu or cuda, not {U.device}")
     for t in (*carry.values(), *coords):
@@ -462,8 +465,8 @@ def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params
                           tags=tuple(stepper_tags) + params.tags)
     out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
     args, keep = launch_args(carry, out, inputs, root_fraction, coords, params)
-    err = fn(*args, steps, float(time), float(dt), U.shape[1],
-             torch.cuda.current_stream(U.device).cuda_stream)
+    err = fn(*args, steps, float(time), float(dt), U.shape[1], SOLVER_CODES.get(solver, 0),
+             int(picard_iters), torch.cuda.current_stream(U.device).cuda_stream)
     del keep
     if err != 0:
         raise RuntimeError(f"land column kernel launch failed: cudaError {err}")
@@ -493,18 +496,30 @@ def land_column_heun_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, L
                     (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "heun", None)
 
 
+def implicit_tags(solver: str, picard_iters: int) -> tuple:
+    """The stepper tags of the land kernels' ImplicitEuler instantiation:
+    ``("implicit", solver)`` for one Picard iteration, ``("implicit",
+    "picard")`` for more (``land::picard_step``, which takes the count and
+    the solver at run time). Raises ``ValueError`` for another solver or a
+    count that is not a positive integer."""
+    if solver not in ("pcr", "thomas"):
+        raise ValueError(f"the implicit land step solves by 'pcr' or 'thomas', not {solver!r}")
+    if int(picard_iters) != picard_iters or picard_iters < 1:
+        raise ValueError(f"picard_iters must be a positive integer, got {picard_iters!r}")
+    return ("implicit", solver) if picard_iters == 1 else ("implicit", "picard")
+
+
 def land_column_implicit_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                                  root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
                                  z_faces, params: LandParams, dt: float, time: float, steps: int,
-                                 solver: str = "pcr"):
-    """ImplicitEuler with one Picard iteration over a LandModel, as
-    :func:`land_column_rollout` (the kernel's ``implicit_<solver>``
-    instantiation, ``solver`` ``"pcr"`` or ``"thomas"``)."""
-    if solver not in ("pcr", "thomas"):
-        raise ValueError(f"the implicit land rollout solves by 'pcr' or 'thomas', not {solver!r}")
-    return _rollout(land_column_implicit_rollout, ("implicit", solver), carry, inputs,
-                    root_fraction, (dz, dz_faces, z_centers, z_faces), params, dt, time, steps,
-                    "implicit", solver)
+                                 solver: str = "pcr", picard_iters: int = 1):
+    """ImplicitEuler with ``picard_iters`` Picard iterations over a
+    LandModel, as :func:`land_column_rollout` (``solver`` ``"pcr"`` or
+    ``"thomas"``; the kernel's instantiation of :func:`implicit_tags`)."""
+    tags = implicit_tags(solver, picard_iters)
+    return _rollout(land_column_implicit_rollout, tags, carry, inputs, root_fraction,
+                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "implicit",
+                    solver, int(picard_iters))
 
 
 #: the wrapper of each stepper

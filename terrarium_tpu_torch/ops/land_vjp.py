@@ -5,7 +5,7 @@ device (the land counterpart of :mod:`~terrarium_tpu_torch.ops.fused_vjp`).
 ``land_column_segment_vjp`` is the vector-Jacobian product of one segment
 of :func:`~terrarium_tpu_torch.ops.land_step.land_column_rollout` or
 :func:`~terrarium_tpu_torch.ops.land_step.land_column_implicit_rollout`
-(one Picard iteration, Thomas or PCR solves), for each scheme in
+(Thomas or PCR solves, any number of Picard iterations), for each scheme in
 ``LAND_VJP_SCHEMES``, over a LandModel without a snowpack and with static
 inputs. From the segment's input carry (the model's live carry; under
 ``NoFlow`` also the saturation, which the steps read) and the cotangents of
@@ -34,9 +34,10 @@ from typing import Dict, Optional
 import torch
 
 from . import cuda_build
-from .fused_step import _number
+from .fused_step import SOLVER_CODES, _number
 from .land_step import (_CARRY_OF, _CLAND, LandInput, LandParams, _check, _CLandCarry,
-                        _CLandInputs, carry_names, land_column_rollout_plain, launch_args)
+                        _CLandInputs, carry_names, implicit_tags, land_column_rollout_plain,
+                        launch_args)
 
 __all__ = ["land_column_segment_vjp", "land_column_segment_vjp_plain", "LAND_VJP_SCHEMES",
            "mineral_fraction"]
@@ -44,7 +45,8 @@ __all__ = ["land_column_segment_vjp", "land_column_segment_vjp_plain", "LAND_VJP
 _NAME = "land_column_segment_vjp"  # csrc/land_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
 _SCRATCH_ROWS = 6  # beyond 2 * Nz: pool, skin, canopy water, carbon, fraction, An
-#: the (stepper, solver) that have a land segment VJP
+#: the (stepper, solver) that have a land segment VJP, ImplicitEuler's with
+#: any number of Picard iterations
 LAND_VJP_SCHEMES = (("euler", None), ("implicit", "thomas"), ("implicit", "pcr"))
 
 
@@ -55,9 +57,11 @@ def mineral_fraction(soil) -> float:
     return (1.0 - por) * (1.0 - soil.strat.organic_fraction(soil.biogeochem))
 
 
-def check_scheme(params: LandParams, stepper: str, solver: Optional[str]) -> tuple:
-    """The kernel's stepper tags of a scheme; ``ValueError`` naming the
-    ROADMAP item for one without a land segment VJP."""
+def check_scheme(params: LandParams, stepper: str, solver: Optional[str],
+                 picard_iters: int = 1) -> tuple:
+    """The kernel's stepper tags of a scheme (ImplicitEuler's with
+    ``picard_iters`` Picard iterations); ``ValueError`` naming the ROADMAP
+    item for one without a land segment VJP."""
     if "snow" in params.tags:
         raise ValueError("the land segment VJP runs a LandModel without a snowpack; the "
                          "Snowpack in the VJP is still to port (ROADMAP Queue B #1)")
@@ -67,7 +71,11 @@ def check_scheme(params: LandParams, stepper: str, solver: Optional[str]) -> tup
     if (stepper, solver if stepper == "implicit" else None) not in LAND_VJP_SCHEMES:
         raise ValueError(f"the land segment VJP runs {list(LAND_VJP_SCHEMES)}, not "
                          f"{(stepper, solver)}")
-    return ("implicit", solver) if stepper == "implicit" else ()
+    if stepper != "implicit":
+        if picard_iters != 1:
+            raise ValueError(f"Picard iterations are ImplicitEuler's, not {stepper!r}'s")
+        return ()
+    return implicit_tags(solver, picard_iters)
 
 
 def _check_static(inputs: Dict[str, LandInput]) -> None:
@@ -81,21 +89,25 @@ def _check_static(inputs: Dict[str, LandInput]) -> None:
 def land_column_segment_vjp_plain(carry, inputs, root_fraction, dz, dz_faces, z_centers,
                                   z_faces, params: LandParams, dt: float, time: float,
                                   steps: int, gcarry, *, stepper: str = "euler",
-                                  solver: Optional[str] = None):
+                                  solver: Optional[str] = None, picard_iters: int = 1,
+                                  per_column: bool = False):
     """``(gcarry0, gK_sat, gsk_mineral)`` by torch autograd through
     :func:`land_column_rollout_plain` of the scheme, with the model's
     saturated hydraulic conductivity and mineral conductivity as leaves;
     ``gcarry0`` has the keys of ``carry`` (zeros where the output does not
     depend on a field) and the parameter cotangents are 0-d tensors in the
-    fields' dtype."""
-    check_scheme(params, stepper, solver)
+    fields' dtype, or, ``per_column``, each column's share of them (one
+    leaf a column, shape ``(cells,)``)."""
+    check_scheme(params, stepper, solver, picard_iters)
     U = carry["internal_energy"]
     model = params.model
     soil = model.soil
     hp, thermal = soil.hydrology.hydraulic_properties, soil.energy.thermal_properties
     with torch.enable_grad():
         c0 = {n: t.detach().requires_grad_() for n, t in carry.items()}
-        K, kmin = (torch.tensor(_number(v), dtype=U.dtype, device=U.device, requires_grad=True)
+        shape = U.shape[1:] if per_column else ()
+        K, kmin = (torch.full(shape, _number(v), dtype=U.dtype, device=U.device,
+                              requires_grad=True)
                    for v in (hp.sat_hydraulic_cond, thermal.conductivities.mineral))
         soil = dataclasses.replace(
             soil,
@@ -107,7 +119,7 @@ def land_column_segment_vjp_plain(carry, inputs, root_fraction, dz, dz_faces, z_
         p = dataclasses.replace(params, model=dataclasses.replace(model, soil=soil))
         out = land_column_rollout_plain(c0, inputs, root_fraction, dz, dz_faces, z_centers,
                                         z_faces, p, dt, time, steps, stepper=stepper,
-                                        solver=solver)
+                                        solver=solver, picard_iters=picard_iters)
         names = list(out)
         leaves = list(c0.values()) + [K, kmin]
         grads = torch.autograd.grad([out[n] for n in names], leaves,
@@ -123,28 +135,31 @@ def _argtypes(dtype) -> list:
     """The entry point's: the carry, the output cotangents, the input
     cotangents, the inputs, the root fraction and its strides, the
     coordinates, the parameters, the scratch, the per-block partials and the
-    parameter cotangents, steps, dt, cells, the stream."""
+    parameter cotangents, steps, dt, cells, the solver code, the Picard
+    count, the stream."""
     return ([ctypes.POINTER(_CLandCarry)] * 3
             + [ctypes.POINTER(_CLandInputs), ctypes.c_void_p, ctypes.c_longlong,
                ctypes.c_longlong] + [ctypes.c_void_p] * 4
             + [ctypes.POINTER(_CLAND[dtype])] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int, ctypes.c_double, ctypes.c_longlong, ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_double, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p])
 
 
 def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                             root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
                             z_faces, params: LandParams, dt: float, time: float, steps: int,
                             gcarry: Dict[str, torch.Tensor], *, stepper: str = "euler",
-                            solver: Optional[str] = None):
+                            solver: Optional[str] = None, picard_iters: int = 1):
     """The VJP of ``steps`` land steps of ``stepper`` (``"euler"``, or
-    ``"implicit"`` with ``solver`` ``"pcr"`` or ``"thomas"``) from
+    ``"implicit"`` with ``solver`` ``"pcr"`` or ``"thomas"`` and
+    ``picard_iters`` Picard iterations) from
     ``carry`` with the static ``inputs``, as the land rollout wrappers take
     them, applied to ``gcarry``, the cotangents of the output carry (the
     model's live carry); returns ``(gcarry0, gK_sat, gsk_mineral)``. CPU
     tensors take :func:`land_column_segment_vjp_plain`; CUDA tensors launch
     the kernel of ``params.tags``. Raises ``ValueError`` for Heun, a
     snowpack or series inputs, naming the ROADMAP item."""
-    stepper_tags = check_scheme(params, stepper, solver)
+    stepper_tags = check_scheme(params, stepper, solver, picard_iters)
     coords = (dz, dz_faces, z_centers, z_faces)
     _check(carry, inputs, root_fraction, coords, params)
     _check_static(inputs)
@@ -163,7 +178,7 @@ def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, La
     if U.device.type == "cpu":
         return land_column_segment_vjp_plain(carry, inputs, root_fraction, *coords, params, dt,
                                              time, steps, gcarry, stepper=stepper,
-                                             solver=solver)
+                                             solver=solver, picard_iters=picard_iters)
     if U.device.type != "cuda":
         raise ValueError(f"land column segment VJP runs on cpu or cuda, not {U.device}")
     for t in (*carry.values(), *gcarry.values(), *coords):
@@ -180,8 +195,8 @@ def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, La
     args, keep = launch_args(carry, gin, inputs, root_fraction, coords, params)
     c_gout = _CLandCarry(**{_CARRY_OF[n]: t.data_ptr() for n, t in gcarry.items()})
     err = fn(args[0], ctypes.byref(c_gout), *args[1:], scratch.data_ptr(), partials.data_ptr(),
-             gparams.data_ptr(), steps, float(dt), cells,
-             torch.cuda.current_stream(U.device).cuda_stream)
+             gparams.data_ptr(), steps, float(dt), cells, SOLVER_CODES.get(solver, 0),
+             int(picard_iters), torch.cuda.current_stream(U.device).cuda_stream)
     del keep
     if err != 0:
         raise RuntimeError(f"land column segment VJP kernel launch failed: cudaError {err}")

@@ -9,8 +9,8 @@ and on the card: for a :class:`SoilModel`, ForwardEuler, Heun or
 ImplicitEuler (Thomas or PCR, any number of Picard iterations) over heat +
 Richards flow or over the heat-only model; for a :class:`LandModel`
 without a snowpack (any composition the land kernel runs, with static
-inputs), ForwardEuler or ImplicitEuler (one Picard iteration, Thomas or
-PCR). Each segment is a :class:`torch.autograd.Function`:
+inputs), ForwardEuler or ImplicitEuler (Thomas or PCR, any number of
+Picard iterations). Each segment is a :class:`torch.autograd.Function`:
 
 * forward: the scheme's rollout wrapper, soil
   (:data:`~terrarium_tpu_torch.ops.fused_step.ROLLOUTS`) or land
@@ -93,7 +93,7 @@ class _Segment(torch.autograd.Function):
 
 class _LandSegment(torch.autograd.Function):
     """One segment of fused LandModel steps: ``spec.steps`` steps of
-    ``spec.stepper`` (``spec.solver``) of the carry (the tensors of
+    ``spec.stepper`` (``spec.solver``, ``spec.picard_iters``) of the carry (the tensors of
     ``spec.names``, :func:`~terrarium_tpu_torch.ops.land_step.carry_names`),
     returning the model's live carry; differentiable in the carry,
     ``K_sat`` and ``sk_mineral`` (0-d tensors whose values ``spec.params``
@@ -104,7 +104,8 @@ class _LandSegment(torch.autograd.Function):
     def forward(ctx, K_sat, sk_mineral, spec, *carry):
         ctx.save_for_backward(*carry)
         ctx.spec = spec
-        kw = {"solver": spec.solver} if spec.stepper == "implicit" else {}
+        kw = ({"solver": spec.solver, "picard_iters": spec.picard_iters}
+              if spec.stepper == "implicit" else {})
         out = land_step.ROLLOUTS[spec.stepper](dict(zip(spec.names, carry)), spec.inputs,
                                                spec.root, *spec.coords, spec.params, spec.dt,
                                                spec.time, spec.steps, **kw)
@@ -117,7 +118,8 @@ class _LandSegment(torch.autograd.Function):
              for n, gi, c in zip(spec.params.model.live_carry, gout, carry)}
         gin, gK, gskm = land_column_segment_vjp(
             dict(zip(spec.names, carry)), spec.inputs, spec.root, *spec.coords, spec.params,
-            spec.dt, spec.time, spec.steps, g, stepper=spec.stepper, solver=spec.solver)
+            spec.dt, spec.time, spec.steps, g, stepper=spec.stepper, solver=spec.solver,
+            picard_iters=spec.picard_iters)
         f64 = torch.float64
         return (gK.to(f64), gskm.to(f64), None, *(gin[n] for n in spec.names))
 
@@ -136,6 +138,7 @@ class _LandSpec:
     steps: int
     stepper: str
     solver: object
+    picard_iters: int
 
 
 def _grad_leaves(obj, path):
@@ -189,8 +192,7 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
             be 0-d tensors built from ``params``; no other soil parameter
             may require grad.
         timestepper: :class:`ForwardEuler`, :class:`Heun` (SoilModel only)
-            or :class:`ImplicitEuler` (Thomas or PCR; any ``picard_iters``
-            for a SoilModel, 1 for a LandModel).
+            or :class:`ImplicitEuler` (Thomas or PCR, any ``picard_iters``).
         ctx: the simulation's context: for a SoilModel its only BC is a
             Dirichlet top temperature given as a value or as ``f(t)``; for
             a LandModel it is the model's coupling context (``sim.ctx``).
@@ -200,8 +202,7 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         inner_steps: steps of one segment (the checkpoint interval).
 
     Raises ``ValueError`` for anything else, naming the ROADMAP item that
-    ports it where one does: another stepper, a LandModel's ImplicitEuler
-    with ``picard_iters > 1`` (Queue B #2), Heun over a LandModel or a
+    ports it where one does: another stepper, Heun over a LandModel or a
     LandModel with a snowpack (Queue B #1), time-varying sources (Queue B
     #1, not to port) or forcings, an input variable as the top temperature.
     """
@@ -223,11 +224,6 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
     land = getattr(ctx, "extras", None) is not None  # the LandModel's coupling context
     value = None  # the soil's top temperature
     if land:
-        if picard_iters != 1:
-            raise ValueError(f"the fused gradient rollout runs the LandModel's ImplicitEuler "
-                             f"with one Picard iteration; picard_iters={picard_iters} in the "
-                             f"land kernel and its VJP is still to port (ROADMAP Queue B #2); "
-                             f"{_AUTODIFF}")
         if (ctx.bcs or {}) != coupling_bcs():
             raise ValueError("the fused gradient rollout of the LandModel takes its coupling "
                              f"BCs only; {_AUTODIFF}")
@@ -243,7 +239,8 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         """The live carry after the land segments, as a dict."""
         grid = model.grid
         params = land_step.LandParams.of(model, grid.dtype)
-        check_scheme(params, stepper, solver)  # Heun or a snowpack: ROADMAP Queue B #1
+        # Heun or a snowpack: ROADMAP Queue B #1
+        check_scheme(params, stepper, solver, picard_iters)
         K, skm = _param_tensors(model, grid.device)
         names = land_step.carry_names(params)
         live = model.live_carry
@@ -252,7 +249,8 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         carry = tuple(state[n].contiguous() for n in names)
         for i in range(0, steps, inner_steps):
             spec = _LandSpec(names, inputs, root, _coords(grid), params, dt, float(times[i]),
-                             inner_steps, stepper, solver if stepper == "implicit" else None)
+                             inner_steps, stepper, solver if stepper == "implicit" else None,
+                             picard_iters)
             carry = _LandSegment.apply(K, skm, spec, *carry) + carry[len(live):]
         return dict(zip(live, carry))
 

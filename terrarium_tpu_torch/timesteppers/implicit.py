@@ -17,9 +17,9 @@ These are the module steps (``Simulation.timestep``, ``Simulation.run`` for
 the compositions no kernel takes, tests, the module gradient path); they
 take the JAX package's arguments, ``step(model, state, ctx, input_sources,
 dt)``. ``Simulation.run`` takes the SoilModel, heat + Richards or heat only,
-with any number of Picard iterations through the fused column rollout
-(``ops/fused_step.py``): the CUDA kernel on the card, its plain version on
-the CPU. JAX's ``stack_solves`` lays the solves out for the TPU and is not
+and the LandModel with any number of Picard iterations through the fused
+column rollouts (``ops/fused_step.py``, ``ops/land_step.py``): the CUDA
+kernels on the card, their plain versions on the CPU. JAX's ``stack_solves`` lays the solves out for the TPU and is not
 ported; its ``"diag_attribution_only"`` solver gives wrong results by design
 and is refused.
 """
@@ -87,7 +87,7 @@ class ImplicitEuler:
     1 freezes the face conductivities and ``D`` at t^n, each further one
     re-solves the implicit variables around the updated state,
     ``(I/dt - J(u_k)) du = tend(u_k) - (u_k - u^n)/dt``. The SoilModel's
-    fused rollout runs any number; the LandModel's runs 1."""
+    and the LandModel's fused rollouts run any number."""
 
     dt: float = 900.0
     solver: str = "pcr"

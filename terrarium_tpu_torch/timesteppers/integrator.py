@@ -10,11 +10,13 @@ forcings before anything launches:
   with a Dirichlet top temperature (a value, ``f(t)`` or an input variable)
   as its only BC (``ops/fused_step.py``); a
   :class:`LandModel` of the kernel's classes, with or without a snowpack,
-  stepped by ForwardEuler, Heun or ImplicitEuler with one Picard iteration,
-  with its coupling BCs only (``ops/land_step.py``); either with
+  stepped by ForwardEuler, Heun or ImplicitEuler (any number of Picard
+  iterations), with its coupling BCs only (``ops/land_step.py``); either with
   ``FieldInputSource`` / ``TimeSeriesInputSource`` sources and no
-  forcings. On a CUDA device the hand-written kernel runs, on the CPU its
-  plain version; a kernel that fails to build or launch raises. As in the
+  forcings. On a CUDA device the hand-written kernel runs (its
+  instantiation for the composition's classes, dtype and depth, compiled at
+  its first launch where it is not prebuilt: ``ops/cuda_build.py``), on the
+  CPU its plain version; a kernel that fails to build or launch raises. As in the
   JAX package's fused path (`fused_step.py:620`, `integrator.py:305-306`),
   the rollout carries only the live state, then one trailing ``closure``
   and ``compute_auxiliary`` rebuild the closure variables and auxiliaries
@@ -80,20 +82,18 @@ _SOURCES = (FieldInputSource, TimeSeriesInputSource)
 def column_scheme(model, timestepper, ctx, input_sources=()):
     """The column rollout that runs this composition, decided by type alone:
     ``("land", stepper)`` (``ops/land_step.py``), a soil ``(stepper,
-    physics)`` (``ops/fused_step.py``; every key of ``ROLLOUTS``, the
-    ImplicitEuler ones with any number of Picard iterations), or ``None``,
+    physics)`` (``ops/fused_step.py``; every key of ``ROLLOUTS``), the
+    ImplicitEuler ones with any number of Picard iterations, or ``None``,
     where only the process modules step it: a forcing, a source of another
-    class, any other model, stepper (over a LandModel, ImplicitEuler with
-    more than one Picard iteration among them), boundary condition or
-    top-temperature form."""
+    class, any other model, stepper, boundary condition or top-temperature
+    form. The grid's dtype and depth play no part: the kernel of any size is
+    built at its first launch."""
     if getattr(ctx, "forcings", None) or any(type(s) not in _SOURCES for s in input_sources):
         return None
     stepper = STEPPERS.get(type(timestepper))
     if stepper is None:
         return None
     if type(model) is LandModel:
-        if stepper == "implicit" and timestepper.picard_iters != 1:
-            return None  # the land kernel runs one Picard iteration (ROADMAP Queue B #2)
         if (ctx.bcs or {}) != coupling_bcs():
             return None
         try:
@@ -216,13 +216,14 @@ def land_inputs(model, state: State, sources) -> dict:
 def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
                   plain: bool, times, stepper: str) -> None:
     """The land column rollout of ``advance``, of ``stepper`` (and the
-    timestepper's solver)."""
+    timestepper's solver and Picard count)."""
     grid = model.grid
     params = land_step.LandParams.of(model, grid.dtype)
     inputs = land_inputs(model, state, input_sources)
     carry = {n: state[n].contiguous() for n in land_step.carry_names(params)}
     root = state.auxiliary["root_fraction"] if model.vegetation is not None else None
-    kw = {"solver": timestepper.solver} if stepper == "implicit" else {}
+    kw = ({"solver": timestepper.solver, "picard_iters": int(timestepper.picard_iters)}
+          if stepper == "implicit" else {})
     if plain:
         rollout = functools.partial(land_step.land_column_rollout_plain, stepper=stepper, **kw)
     else:

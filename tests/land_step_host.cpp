@@ -6,18 +6,19 @@
 namespace {
 
 template <int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW, int STEPPER,
-          int SOLVER>
+          int SOLVER, bool PICARD = false>
 void columns(const LandCarry* in, const LandCarry* out, const LandInputs* inputs,
              const double* root, long long root_row_stride, long long root_cell_stride,
              const double* dz, const double* dzf, const double* zc, const double* zf,
              const LandColumnParams<double>* P, int steps, double time0, double dt,
-             long long cells)
+             long long cells, int iters = 1, int solver = SOLVER)
 {
     const soil::Consts<double> sc(P->soil);
     for (long long col = 0; col < cells; ++col)
-        land::rollout_column<double, NZ, VEG, RICHARDS, CURVE, COND, SNOW, STEPPER, SOLVER>(
+        land::rollout_column<double, NZ, VEG, RICHARDS, CURVE, COND, SNOW, STEPPER, SOLVER,
+                             PICARD>(
             col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
-            dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt);
+            dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt, iters, solver);
 }
 
 }  // namespace
@@ -30,15 +31,17 @@ void columns(const LandCarry* in, const LandCarry* out, const LandInputs* inputs
 // ground over Richards with Van Genuchten and linear conductivity, and the
 // vegetated Brooks-Corey and linear one with and without a snowpack; the
 // snowpack over bare ground, Brooks-Corey and linear, with ForwardEuler.
-// Returns -1 for any other.
+// picard > 0 runs land::picard_step with that many iterations and the
+// solver at run time (ImplicitEuler's compositions at NZ 8). Returns -1 for
+// any other.
 extern "C" int host_land_rollout(const LandCarry* in, const LandCarry* out,
                                  const LandInputs* inputs, const double* root,
                                  long long root_row_stride, long long root_cell_stride,
                                  const double* dz, const double* dzf, const double* zc,
                                  const double* zf, const LandColumnParams<double>* P, int nz,
                                  int veg, int richards, int curve, int cond, int snow,
-                                 int stepper, int solver, int steps, double time0, double dt,
-                                 long long cells)
+                                 int stepper, int solver, int picard, int steps, double time0,
+                                 double dt, long long cells)
 {
     using land::COND_LINEAR;
     using land::COND_MUALEM;
@@ -46,6 +49,21 @@ extern "C" int host_land_rollout(const LandCarry* in, const LandCarry* out,
     using land::CURVE_VG;
     const int rc = richards ? curve : CURVE_VG, rk = richards ? cond : COND_MUALEM;
     const int sv = stepper == soil::STEPPER_IMPLICIT ? solver : 0;
+    if (picard > 0 && stepper != soil::STEPPER_IMPLICIT) return -1;
+#define LAND_PICARD(VEG, RICHARDS, CURVE, COND, SNOW)                                           \
+    if (picard > 0 && nz == 8 && veg == VEG && richards == RICHARDS && rc == CURVE &&           \
+        rk == COND && snow == SNOW) {                                                           \
+        columns<8, VEG, RICHARDS, CURVE, COND, SNOW, 2, soil::SOLVER_RUNTIME, true>(            \
+            in, out, inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, P,       \
+            steps, time0, dt, cells, picard, solver);                                           \
+        return 0;                                                                               \
+    }
+    LAND_PICARD(false, false, CURVE_VG, COND_MUALEM, false)
+    LAND_PICARD(false, true, CURVE_VG, COND_LINEAR, false)
+    LAND_PICARD(true, true, CURVE_BC, COND_LINEAR, false)
+    LAND_PICARD(true, true, CURVE_BC, COND_LINEAR, true)
+#undef LAND_PICARD
+    if (picard > 0) return -1;
 #define LAND_CASE(NZ, VEG, RICHARDS, CURVE, COND, SNOW, STEPPER, SOLVER)                        \
     if (nz == NZ && veg == VEG && richards == RICHARDS && rc == CURVE && rk == COND &&          \
         snow == SNOW && stepper == STEPPER && sv == SOLVER) {                                   \

@@ -299,12 +299,13 @@ def test_segment_vjp_refuses_the_schemes_it_does_not_run():
 
 
 def test_fused_grad_refuses_what_it_does_not_differentiate():
-    """What is still to port over the LandModel: ImplicitEuler with
-    picard_iters=2 (ROADMAP Queue B #2) and Heun (Queue B #1), each a
+    """What is still to port over the LandModel: Heun (Queue B #1), a
     ValueError naming its queue item; a LandModel under a soil's context, a
     ValueError naming the coupling context. The SoilModel's heat-only Heun
     and ImplicitEuler and its Picard iterations are taken (the cases
-    above)."""
+    above), and so is the LandModel's ImplicitEuler with picard_iters=2,
+    refused until the land kernels ran the iterations: its gradient in the
+    initial energy through the land segments is finite and not zero."""
     sim = _port_sim("picard2-pcr")
     grid = sim.model.grid
     for case in ("heat-heun", "heat-picard2-pcr", "picard2-thomas"):
@@ -315,9 +316,13 @@ def test_fused_grad_refuses_what_it_does_not_differentiate():
     picard = tp.initialize(tp.LandModel(grid=grid), tp.ImplicitEuler(dt=600.0, picard_iters=2),
                            initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
                            input_sources=sources)
-    with pytest.raises(ValueError, match="Queue B #2"):
-        make_fused_grad_rollout(lambda p: picard.model, picard.timestepper, picard.ctx,
-                                steps=4, dt=600.0, inner_steps=2)
+    roll = make_fused_grad_rollout(lambda p: picard.model, picard.timestepper, picard.ctx,
+                                   steps=4, dt=600.0, inner_steps=2)
+    state = picard.state.copy()
+    U0 = state.internal_energy.clone().requires_grad_()
+    state.set(internal_energy=U0)
+    (g,) = torch.autograd.grad(roll(state, None).temperature.mean(), U0)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
     land = tp.initialize(tp.LandModel(grid=grid), tp.Heun(),
                          initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
                          input_sources=sources)

@@ -493,9 +493,11 @@ def test_fused_rollout_refuses_picard_iterations(monkeypatch):
 
 
 def test_fused_grad_refuses_implicit_euler():
-    """ImplicitEuler with more than one Picard iteration has no segment VJP
-    over the LandModel (ROADMAP Queue B #2); over the SoilModel it is taken,
-    with either physics (`tests/test_torch_grad_steppers.py`)."""
+    """ImplicitEuler with more than one Picard iteration is taken over the
+    SoilModel, with either physics (`tests/test_torch_grad_steppers.py`),
+    and over the LandModel, which refused it until the land segment VJP ran
+    the iterations: the land rollout's gradient in the initial energy is
+    finite and not zero."""
     sim = implicit_freeze("port", picard_iters=2)
     grid = sim.model.grid
     make_fused_grad_rollout(lambda p: tp.SoilModel(grid=grid, soil=port_soil()),
@@ -504,9 +506,13 @@ def test_fused_grad_refuses_implicit_euler():
                          initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
                          input_sources=(tp.FieldInputSource(fields={
                              "surface_shortwave_down": 400.0, "air_temperature": 12.0}),))
-    with pytest.raises(ValueError, match="Queue B #2"):
-        make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
-                                dt=3600.0, inner_steps=2)
+    roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
+                                   dt=3600.0, inner_steps=2)
+    state = land.state.copy()
+    U0 = state.internal_energy.clone().requires_grad_()
+    state.set(internal_energy=U0)
+    (g,) = torch.autograd.grad(roll(state, None).temperature.mean(), U0)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
 
 
 # ---------------------------------------------------------------------------

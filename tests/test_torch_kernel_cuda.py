@@ -105,10 +105,21 @@ def test_kernel_takes_per_cell_top_temperature(cuda):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unbuilt_nz(cuda):
+    """An Nz that no prebuilt instantiation holds (12) is compiled at its
+    first launch (``cuda_build.entry``), and the kernel matches the plain version at float32 (1e-4 of each
+    field's largest magnitude). A dtype other than float32 and float64 is
+    what still raises (``test_torch_cuda_build.py::test_other_dtypes_raise``)."""
+    from terrarium_tpu_torch.ops import cuda_build
+
     sim = _sim(64, 12, torch.float32, cuda)
     carry, table, coords, params = _operands(sim, 2)
-    with pytest.raises(ValueError, match="Nz"):
-        fs.soil_column_rollout(*carry, table, *coords, params, DT)
+    assert all(nz != 12 for _, _, nz in cuda_build.INSTANTIATIONS["soil_column_rollout"])
+    before = fs.soil_column_rollout.launches
+    out = fs.soil_column_rollout(*carry, table, *coords, params, DT)
+    ref = fs.soil_column_rollout_plain(*carry, table, *coords, params, DT)
+    torch.cuda.synchronize()
+    assert fs.soil_column_rollout.launches == before + 1
+    _close(out, ref, 1e-4)
 
 
 @pytest.mark.cuda
@@ -858,16 +869,20 @@ def test_land_kernel_matches_plain(cuda, dtype):
                          ls.land_column_rollout_plain) == 1
 
 
-LAND_VARIANTS = ["heun", "implicit-thomas", "implicit-pcr", "implicit-pcr-snow"]
+LAND_VARIANTS = ["heun", "implicit-thomas", "implicit-pcr", "implicit-pcr-snow",
+                 "implicit-pcr-picard2", "implicit-thomas-picard2", "implicit-pcr-picard3-snow"]
 
 
 def _land_variant(name):
-    """(stepper, kernel wrapper, plain version) of a land variant."""
+    """(stepper, kernel wrapper, plain version) of a land variant:
+    ``<stepper>[-<solver>][-picard<k>][-snow]``."""
     from terrarium_tpu_torch.ops import land_step as ls
 
-    key, _, rest = name.partition("-")
-    solver = rest.partition("-")[0] or None
-    kw = {"solver": solver} if solver else {}
+    key, *rest = name.split("-")
+    kw = {"solver": rest[0]} if rest and rest[0] in ("pcr", "thomas") else {}
+    for part in rest:
+        if part.startswith("picard"):
+            kw["picard_iters"] = int(part[len("picard"):])
     stepper = tp.Heun(dt=600.0) if key == "heun" else tp.ImplicitEuler(dt=600.0, **kw)
     return (stepper, functools.partial(ls.ROLLOUTS[key], **kw),
             functools.partial(ls.land_column_rollout_plain, stepper=key, **kw))
@@ -877,7 +892,9 @@ def _land_variant(name):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("variant", LAND_VARIANTS)
 def test_land_variant_kernel_matches_plain(cuda, variant, dtype):
-    """Heun, ImplicitEuler (Thomas, PCR) and ImplicitEuler under a snowpack
+    """Heun, ImplicitEuler (Thomas, PCR; one Picard iteration, two, and
+    three under a snowpack, whose instantiation is built at its first
+    launch) and ImplicitEuler under a snowpack
     over the composition of ``test_land_kernel_matches_plain``, held to the
     plain version of the same stepper by its rule. Heun's float32 check
     steps at dt 60: at dt 600 its stage, the explicit Richards step, leaves
@@ -1029,7 +1046,9 @@ def test_full_step_kernel_matches_plain_f32(cuda, stepper, physics):
 @pytest.mark.cuda
 def test_full_step_kernel_reads_an_input_variable_and_refuses_other_nz(cuda):
     """The heat-only model with the top temperature an input variable of a
-    static source, per cell; a grid of an unbuilt Nz raises."""
+    static source, per cell; a grid of an Nz that no prebuilt instantiation
+    holds (12) has its full step compiled at the first call, and it matches
+    the plain version."""
     grid = tp.ColumnGrid.of(cells=130, spacing=tp.ExponentialSpacing(N=30), dtype=torch.float32,
                             device=cuda)
     sim = tp.initialize(tp.SoilModel(grid=grid), tp.ForwardEuler(dt=DT),
@@ -1042,8 +1061,10 @@ def test_full_step_kernel_reads_an_input_variable_and_refuses_other_nz(cuda):
                                            sim.input_sources, sim.state, DT)
     _assert_full_close(out, plain, 1e-4)
     small = _full_sim(64, 12, torch.float32, cuda)
-    with pytest.raises(ValueError, match="Nz"):
-        _fused(small)(small.state)
+    _assert_full_close(_fused(small)(small.state),
+                       fs.soil_column_full_step_plain(small.model, small.timestepper, small.ctx,
+                                                      small.input_sources, small.state, DT),
+                       1e-4)
 
 
 @pytest.mark.cuda
@@ -1056,7 +1077,11 @@ def test_run_with_forcings_runs_through_the_modules_on_the_card(cuda):
 
 #: the land segment VJP's schemes: (stepper, solver, dt)
 LAND_VJP_SCHEMES = {"euler": ("euler", None, 60.0), "implicit-pcr": ("implicit", "pcr", 600.0),
-                    "implicit-thomas": ("implicit", "thomas", 600.0)}
+                    "implicit-thomas": ("implicit", "thomas", 600.0),
+                    "implicit-pcr-picard2": ("implicit", "pcr", 600.0),
+                    "implicit-thomas-picard3": ("implicit", "thomas", 600.0)}
+#: the Picard count of a scheme (1 where not given)
+LAND_VJP_PICARD = {"implicit-pcr-picard2": 2, "implicit-thomas-picard3": 3}
 
 
 def _land_grad_sim(cells, dtype, device, scheme):
@@ -1065,7 +1090,9 @@ def _land_grad_sim(cells, dtype, device, scheme):
     shortwave 900 cos(lat) / pi, air temperature 28 max(cos lat, 0.05) - 8;
     the scheme's stepper."""
     key, solver, dt = LAND_VJP_SCHEMES[scheme]
-    stepper = tp.ImplicitEuler(dt=dt, solver=solver) if key == "implicit" else tp.ForwardEuler(dt=dt)
+    stepper = (tp.ImplicitEuler(dt=dt, solver=solver,
+                                picard_iters=LAND_VJP_PICARD.get(scheme, 1))
+               if key == "implicit" else tp.ForwardEuler(dt=dt))
     base = _land_sim(cells, dtype, device, stepper=stepper)
     lat = np.linspace(-60.0, 80.0, cells)
     coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
@@ -1086,7 +1113,9 @@ def test_land_segment_vjp_kernel_matches_plain(cuda, scheme):
     float64 on 256 columns over 12 steps from seeded output cotangents:
     every cotangent within 1e-9 of the plain version's autograd (with a
     floor of 1e-9 of its largest magnitude), the parameter cotangents within
-    1e-9; one launch."""
+    1e-9; one launch. The Picard schemes' Thomas entry with three
+    iterations is the prebuilt Picard entry, whose count and solver are
+    taken at run time."""
     from terrarium_tpu_torch.ops import land_step as ls
     from terrarium_tpu_torch.ops import land_vjp as lv
     from terrarium_tpu_torch.timesteppers.integrator import land_inputs
@@ -1104,11 +1133,12 @@ def test_land_segment_vjp_kernel_matches_plain(cuda, scheme):
     gout = {n: torch.as_tensor(rng.normal(size=tuple(carry[n].shape)), device=cuda)
             for n in model.live_carry}
     before = lv.land_column_segment_vjp.launches
+    kw = {"stepper": key, "solver": solver, "picard_iters": LAND_VJP_PICARD.get(scheme, 1)}
     got, gK, gskm = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0,
-                                               12, gout, stepper=key, solver=solver)
+                                               12, gout, **kw)
     assert lv.land_column_segment_vjp.launches == before + 1
     ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params, dt,
-                                                     0.0, 12, gout, stepper=key, solver=solver)
+                                                     0.0, 12, gout, **kw)
     for n in carry:
         a, b = got[n], ref[n]
         assert bool(torch.isfinite(a).all()), n
@@ -1157,3 +1187,71 @@ def test_land_fused_grad_runs_the_land_kernels(cuda, scheme):
     ref = grads(False)
     np.testing.assert_allclose(got, ref, rtol=1e-8)
     assert all(g != 0.0 for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["soil_heat_column", "bare_vg_mualem_land"])
+def test_run_builds_unlisted_compositions_at_first_launch(cuda, case):
+    """Compositions that the port's type checks send to a kernel but whose
+    size is not prebuilt (``cuda_build.INSTANTIATIONS``) run on the card
+    all the same, their instantiation compiled at its first launch:
+    `examples/soil_heat_column.py`'s heat-only column (BASELINE #1: Nz 10,
+    float32, ForwardEuler at dt 300 s, 144 steps) and a bare-ground Van
+    Genuchten/Mualem land column (Nz 20, float32, 64 columns, ImplicitEuler
+    PCR at dt 600 s, 48 steps; the composition of
+    ``test_land_steppers.py::test_implicit_land_model_reproduced``). Each
+    ``run`` is one launch of its wrapper and holds every prognostic within
+    1e-4 of its magnitude of the plain version's ``advance(plain=True)``
+    followed by ``compute_auxiliary``, as ``run`` ends."""
+    from terrarium_tpu_torch.ops import cuda_build
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import advance
+
+    def make():
+        if case == "soil_heat_column":
+            grid = tp.ColumnGrid.of(cells=1, spacing=tp.ExponentialSpacing(N=10),
+                                    dtype=torch.float32, device=cuda)
+            model = tp.SoilModel(grid=grid, initializer=tp.SoilInitializer(
+                energy=tp.QuasiThermalSteadyState(T0=-1.0),
+                hydrology=tp.ConstantSaturation(sat=1.0)))
+            return tp.initialize(model, tp.ForwardEuler(),
+                                 boundary_conditions=tp.PrescribedSurfaceTemperature(1.0))
+        grid = tp.ColumnGrid.of(cells=64, spacing=tp.ExponentialSpacing(N=20),
+                                dtype=torch.float32, device=cuda)
+        props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
+                                          unsat_hydraulic_cond=tp.UnsatKVanGenuchten(),
+                                          sat_hydraulic_cond=1e-6)
+        soil = tp.SoilEnergyWaterCarbon(
+            strat=tp.HomogeneousStratigraphy(texture=tp.SoilTexture.preset("loam")),
+            hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(), hydraulic_properties=props))
+        model = tp.LandModel(grid=grid, soil=soil,
+                             surface_energy_balance=tp.SurfaceEnergyBalance.consistent(),
+                             surface_hydrology=tp.SurfaceHydrology(
+                                 canopy_interception=tp.NoCanopyInterception(),
+                                 evapotranspiration=tp.BareGroundEvaporation.consistent_units()))
+        return tp.initialize(model, tp.ImplicitEuler(dt=600.0),
+                             initializers={"temperature": 8.0, "saturation_water_ice": 0.7},
+                             input_sources=(tp.FieldInputSource(fields={
+                                 "surface_shortwave_down": 400.0, "air_temperature": 12.0,
+                                 "rainfall": 5.0e-8, "windspeed": 1.0}),))
+
+    sim, ref = make(), make()
+    steps = 144 if case == "soil_heat_column" else 48
+    wrapper = fs.soil_column_heat_rollout if case == "soil_heat_column" \
+        else ls.land_column_implicit_rollout
+    nz = sim.model.grid.nz
+    tags = (("euler", "heat") if case == "soil_heat_column"
+            else ("implicit", "pcr") + ls.land_composition(sim.model))
+    source = "soil_column_rollout" if case == "soil_heat_column" else "land_column_rollout"
+    assert (tags, torch.float32, nz) not in cuda_build.INSTANTIATIONS[source]
+    before = wrapper.launches
+    sim.run(steps=steps)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    advance(ref.model, ref.state, ref.ctx, steps, ref.timestepper.default_dt(),
+            timestepper=ref.timestepper, input_sources=ref.input_sources, plain=True)
+    ref.compute_auxiliary()  # as run ends: the SEB writes the skin temperature afresh
+    for name in sim.model.live_carry:
+        a, b = sim.state[name].double(), ref.state[name].double()
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-4 * float(b.abs().max()), msg=name)

@@ -26,6 +26,7 @@ from terrarium_tpu.utils.scan_dce import _dead_input_mask
 from terrarium_tpu_torch.convert import land_model_from, state_from_numpy
 from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.processes.soil.hydrology import saturation_sweeps
+from terrarium_tpu_torch.timesteppers import integrator
 from terrarium_tpu_torch.timesteppers.integrator import advance, land_inputs
 
 from torch_parity import (assert_fields_close, jax_state_arrays, land_model,
@@ -717,10 +718,13 @@ def test_land_rollout_refuses_by_type(name, monkeypatch):
 
 @pytest.mark.parametrize("stepper", ["Heun", "ImplicitEuler"])
 def test_land_rollout_refuses_other_steppers(stepper, monkeypatch):
-    """The land rollouts take ForwardEuler, Heun and ImplicitEuler with one
-    Picard iteration, by exact type; a stepper of another class (here a
-    subclass of Heun) and ImplicitEuler with two Picard iterations step
-    through the process modules, as in JAX."""
+    """The land rollouts take ForwardEuler, Heun and ImplicitEuler with any
+    number of Picard iterations, by exact type; a stepper of another class
+    (here a subclass of Heun) steps through the process modules, as in JAX.
+    ImplicitEuler with two Picard iterations, which took the modules until
+    the land kernel ran the iterations, goes through the land rollout (its
+    plain version here, once, with the count) and equals JAX's ``run`` as
+    the module path does."""
     def make(m):
         sim = _bare(m)
         if stepper == "Heun":
@@ -729,7 +733,25 @@ def test_land_rollout_refuses_other_steppers(stepper, monkeypatch):
             sim.timestepper = m.ImplicitEuler(dt=300.0, picard_iters=2)
         return sim
 
-    _run_through_modules(make, 3, monkeypatch)
+    if stepper == "Heun":
+        _run_through_modules(make, 3, monkeypatch)
+        return
+    jsim, psim = make(tt), make(tp)
+    assert integrator.column_scheme(psim.model, psim.timestepper, psim.ctx,
+                                    psim.input_sources) == ("land", "implicit")
+    calls, plain = [], ls.land_column_rollout_plain
+
+    def spy(*args, **kw):
+        calls.append((kw["stepper"], kw["picard_iters"]))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(ls, "land_column_rollout_plain", spy)
+    jsim.run(steps=3)
+    psim.run(steps=3)
+    assert calls == [("implicit", 2)]
+    assert psim.iteration == int(jsim.state.clock.iteration) == 3
+    _same(psim.state, jsim.state, sorted(psim.state.prognostic)
+          + ["temperature", "liquid_water_fraction", "ground_temperature"])
 
 
 def test_land_rollout_refuses_user_bcs_series_and_snow(monkeypatch):

@@ -7,8 +7,9 @@ Richards flow, ``VegetationCarbon.consistent_units()``, the static
 saturation 0.6, carbon 2 and vegetation fraction 0.5, 8 steps in segments of
 4, the objective mean(T) + mean(carbon_vegetation) after the trailing
 closure. It runs with ForwardEuler at dt 600 s (JAX's case), with
-ImplicitEuler at dt 600 s (PCR, Thomas), and with ForwardEuler under
-Monin-Obukhov drag. The gradients are taken in log K_sat, k_mineral, U0,
+ImplicitEuler at dt 600 s (PCR, Thomas; one Picard iteration, and PCR
+with two and Thomas with three), and with ForwardEuler under Monin-Obukhov
+drag. The gradients are taken in log K_sat, k_mineral, U0,
 C0 and sat0. The same numbers go through the port's
 ``make_fused_grad_rollout`` (the plain versions of the land kernel and of
 its segment VJP on the CPU), JAX's ``make_fused_grad_rollout(bwd="pallas",
@@ -49,13 +50,17 @@ FIELDS = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0,
           "specific_humidity": 0.006}
 #: case -> (stepper, solver, Monin-Obukhov drag)
 CASES = {"euler": ("euler", None, False), "implicit-pcr": ("implicit", "pcr", False),
-         "implicit-thomas": ("implicit", "thomas", False), "euler-mo": ("euler", None, True)}
+         "implicit-thomas": ("implicit", "thomas", False), "euler-mo": ("euler", None, True),
+         "implicit-pcr-2": ("implicit", "pcr", False),
+         "implicit-thomas-3": ("implicit", "thomas", False)}
+#: the Picard count of each ImplicitEuler case (1 where not given)
+PICARD = {"implicit-pcr-2": 2, "implicit-thomas-3": 3}
 
 
 def _stepper(m, case, **kw):
     stepper, solver, _ = CASES[case]
     if stepper == "implicit":
-        return m.ImplicitEuler(dt=DT, solver=solver, **kw)
+        return m.ImplicitEuler(dt=DT, solver=solver, picard_iters=PICARD.get(case, 1), **kw)
     return m.ForwardEuler(dt=DT)
 
 
@@ -245,9 +250,11 @@ def test_land_fused_grad_runs_the_land_segments(monkeypatch):
     assert k.grad is not None and float(k.grad) != 0.0
 
 
-def test_land_fused_grad_refusals():
-    """Heun over the LandModel, a snowpack, series sources and
-    picard_iters > 1 are refused by type, each naming its ROADMAP item."""
+def test_land_fused_grad_refusals(monkeypatch):
+    """Heun over the LandModel, a snowpack and series sources are refused by
+    type, each naming its ROADMAP item; picard_iters > 1, refused until the
+    land kernels ran the iterations, now runs the land segments: both
+    segments' VJPs with the count."""
     sim = _port_sim("euler")
     grid = sim.model.grid
     roll = make_fused_grad_rollout(lambda p: sim.model, tp.Heun(dt=DT), sim.ctx, steps=4,
@@ -264,7 +271,20 @@ def test_land_fused_grad_refusals():
     with pytest.raises(ValueError, match="Queue B #1"):
         make_fused_grad_rollout(lambda p: sim.model, sim.timestepper, sim.ctx, (series,),
                                 steps=4, dt=DT, inner_steps=2)
-    with pytest.raises(ValueError, match="Queue B #2"):
-        make_fused_grad_rollout(lambda p: sim.model, tp.ImplicitEuler(dt=DT, picard_iters=2),
-                                sim.ctx, steps=4, dt=DT, inner_steps=2)
+    calls = []
+    real = lv.land_column_segment_vjp
+
+    def spy(*a, **kw):
+        calls.append((kw["stepper"], kw["solver"], kw["picard_iters"], a[10]))
+        return real(*a, **kw)
+
+    import terrarium_tpu_torch.timesteppers.fused_grad as fg
+    monkeypatch.setattr(fg, "land_column_segment_vjp", spy)
+    k = torch.tensor(K0, dtype=torch.float64, requires_grad=True)
+    roll = make_fused_grad_rollout(lambda p: _port_model(grid, "euler", X0, p),
+                                   tp.ImplicitEuler(dt=DT, picard_iters=2), sim.ctx,
+                                   sim.input_sources, steps=4, dt=DT, inner_steps=2)
+    _objective(roll(sim.state, k), torch).backward()
+    assert calls == [("implicit", "pcr", 2, 2)] * 2
+    assert k.grad is not None and float(k.grad) != 0.0
     assert grid.cells == CELLS

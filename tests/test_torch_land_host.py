@@ -2,8 +2,10 @@
 ``csrc/land_step.cuh``), compiled for the host by the C++ compiler, against
 the plain version (the port's process modules stepped by the same stepper)
 at float64: ForwardEuler over every composition the kernel takes, and Heun
-and ImplicitEuler (each solver) over bare ground, bare Richards flow and the
-vegetated composition with and without a snowpack.
+and ImplicitEuler (each solver; one Picard iteration, and two and three
+through ``land::picard_step`` with the solver at run time) over bare
+ground, bare Richards flow and the vegetated composition with and without a
+snowpack.
 
 The host build does not contract multiply-adds, as torch on the CPU does
 not; the two differ where libm and torch round a transcendental apart (an
@@ -83,7 +85,9 @@ def land_case(composition, seed, nz=NZ, cells=CELLS, steps=STEPS):
 
 
 def host_rollout(lib, carry, inputs, root, coords, params, steps, dt=DT, time=0.0,
-                 stepper="euler", solver="thomas"):
+                 stepper="euler", solver="thomas", picard=0):
+    """The host build's carry after ``steps`` steps; ``picard`` > 0 runs
+    ``land::picard_step`` with that many iterations."""
     out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
     args, keep = ls.launch_args(carry, out, inputs, root, coords, params)
     tags = params.tags
@@ -94,7 +98,8 @@ def host_rollout(lib, carry, inputs, root, coords, params, steps, dt=DT, time=0.
         ctypes.c_int(carry["internal_energy"].shape[0]), ctypes.c_int(tags[0] == "veg"),
         ctypes.c_int(richards), ctypes.c_int(CURVES[tags[2]] if richards else 0),
         ctypes.c_int(CONDS[tags[3]] if richards else 0), ctypes.c_int("snow" in tags),
-        ctypes.c_int(STEPPERS[stepper]), ctypes.c_int(SOLVERS[solver]), ctypes.c_int(steps),
+        ctypes.c_int(STEPPERS[stepper]), ctypes.c_int(SOLVERS[solver]), ctypes.c_int(picard),
+        ctypes.c_int(steps),
         ctypes.c_double(time), ctypes.c_double(dt), ctypes.c_longlong(out["internal_energy"]
                                                                       .shape[1]))
     del keep
@@ -159,3 +164,47 @@ def test_host_land_snow_matches_plain(host_land, composition, seed):
     assert_carry_close(out, ref, params.model.live_carry)
     swe0, swe = carry["snow_water_equivalent"], ref["snow_water_equivalent"]
     assert bool((swe > swe0.clamp(min=0.0)).any()) and bool((swe < swe0).any())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("solver", ["thomas", "pcr"])
+@pytest.mark.parametrize("composition", ["bare", "bare_richards", "consistent",
+                                         "consistent_snow"])
+def test_host_land_picard_step_matches_plain(host_land, composition, solver, iters, seed):
+    """ImplicitEuler's Picard iterations (``land::picard_step``, the count
+    and the solver at run time): 8 steps of 600 s from the random states,
+    every field of the carry within 1e-12 of the plain version stepped by
+    ``ImplicitEuler(picard_iters=iters)`` (relative, with a floor of 1e-12
+    of the field's magnitude); one iteration equals ``land::implicit_step``
+    bit for bit, and each further one moves the soil. From these states the
+    plain version's iterations take up to three columns in 64 of the bare
+    compositions non-finite from step 4 on, as the parity composition's
+    rates do in ``test_host_land_column_matches_plain``: the host build's
+    non-finite columns are those, and the others are held."""
+    model, carry, inputs, root, coords, params = land_case(composition, seed)
+    names = params.model.live_carry
+    out = host_rollout(host_land, carry, inputs, root, coords, params, STEPS,
+                       stepper="implicit", solver=solver, picard=iters)
+    ref = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, DT, 0.0, STEPS,
+                                       stepper="implicit", solver=solver, picard_iters=iters)
+
+    def nonfinite(c):
+        bad = torch.zeros(CELLS, dtype=torch.bool)
+        for n in names:
+            bad |= ~torch.isfinite(c[n]).all(0) if c[n].dim() == 2 else ~torch.isfinite(c[n])
+        return bad
+
+    bad = nonfinite(ref)
+    assert torch.equal(nonfinite(out), bad) and int(bad.sum()) <= 3
+    if composition not in ("bare", "bare_richards"):
+        assert not bool(bad.any())
+    keep = (~bad).nonzero().flatten()
+    assert_carry_close({n: t[..., keep] for n, t in out.items()},
+                       {n: t[..., keep] for n, t in ref.items()}, names)
+    one = host_rollout(host_land, carry, inputs, root, coords, params, STEPS,
+                       stepper="implicit", solver=solver)
+    if iters == 1:
+        assert all(torch.equal(out[n][..., keep], one[n][..., keep]) for n in names)
+    else:
+        assert not torch.equal(out["internal_energy"][:, keep], one["internal_energy"][:, keep])

@@ -1,5 +1,5 @@
 """The land rollouts of Heun and ImplicitEuler (Thomas, PCR; one Picard
-iteration), with and without a snowpack, against the JAX package at
+iteration, and two or three), with and without a snowpack, against the JAX package at
 float64: the port's ``Simulation.run`` (on the CPU the plain version, the
 process modules stepped by the same stepper's ``pre_closure_step``)
 against JAX's ``run`` (its lean scan of the modules) and against JAX's
@@ -34,6 +34,12 @@ CELLS, NZ = 8, 8
 STEPPERS = {"heun": (lambda m: m.Heun(dt=60.0)),
             "implicit-pcr": (lambda m: m.ImplicitEuler(dt=600.0, solver="pcr")),
             "implicit-thomas": (lambda m: m.ImplicitEuler(dt=600.0, solver="thomas")),
+            "implicit-pcr-2": (lambda m: m.ImplicitEuler(dt=600.0, solver="pcr",
+                                                         picard_iters=2)),
+            "implicit-thomas-2": (lambda m: m.ImplicitEuler(dt=600.0, solver="thomas",
+                                                            picard_iters=2)),
+            "implicit-pcr-3": (lambda m: m.ImplicitEuler(dt=600.0, solver="pcr",
+                                                         picard_iters=3)),
             "euler": (lambda m: m.ForwardEuler(dt=300.0))}
 
 
@@ -68,12 +74,13 @@ def _forced(m, composition, stepper):
 
 
 def _spy_plain(monkeypatch):
-    """Record the stepper of each call of the plain land rollout."""
+    """Record the stepper, solver and Picard count (None where the call
+    names none) of each call of the plain land rollout."""
     calls = []
     plain = ls.land_column_rollout_plain
 
     def spy(*args, stepper="euler", solver=None, **kw):
-        calls.append((stepper, solver))
+        calls.append((stepper, solver, kw.get("picard_iters")))
         return plain(*args, stepper=stepper, solver=solver, **kw)
 
     monkeypatch.setattr(ls, "land_column_rollout_plain", spy)
@@ -93,15 +100,18 @@ def _assert_prognostics_close(psim_state, jstate, names):
 CASES = [("heun", "consistent"), ("heun", "snow"), ("heun", "consistent_snow"),
          ("implicit-pcr", "consistent"), ("implicit-thomas", "consistent"),
          ("implicit-pcr", "snow"), ("implicit-thomas", "consistent_snow"),
-         ("euler", "consistent_snow")]
+         ("euler", "consistent_snow"), ("implicit-pcr-2", "consistent"),
+         ("implicit-thomas-2", "consistent"), ("implicit-pcr-3", "consistent"),
+         ("implicit-pcr-2", "consistent_snow"), ("implicit-thomas-2", "snow")]
 
 
 @pytest.mark.parametrize("stepper,composition", CASES)
 def test_land_rollout_matches_jax_run(stepper, composition, monkeypatch):
     """12 steps through the land rollout (``column_scheme`` gives the land
-    scheme of the stepper, and ``run`` calls the plain version with it)
-    against JAX's ``run``: every prognostic, and the snowpack's auxiliaries
-    after the trailing ``compute_auxiliary``."""
+    scheme of the stepper, and ``run`` calls the plain version with it, its
+    solver and its Picard count) against JAX's ``run``: every prognostic,
+    and the snowpack's auxiliaries after the trailing
+    ``compute_auxiliary``."""
     jsim, psim = _forced(tt, composition, stepper), _forced(tp, composition, stepper)
     name = stepper.partition("-")[0]
     assert integrator.column_scheme(psim.model, psim.timestepper, psim.ctx,
@@ -110,7 +120,8 @@ def test_land_rollout_matches_jax_run(stepper, composition, monkeypatch):
     dt = psim.timestepper.default_dt()
     jsim.run(steps=12, dt=dt)
     psim.run(steps=12, dt=dt)
-    assert calls == [(name, getattr(psim.timestepper, "solver", None))]
+    assert calls == [(name, getattr(psim.timestepper, "solver", None),
+                      getattr(psim.timestepper, "picard_iters", 1))]
     _assert_prognostics_close(psim.state, jsim.state, sorted(psim.state.prognostic))
     if psim.model.snow is not None:
         assert_fields_close(psim.state, jsim.state, ["snow_cover_fraction", "snow_melt",
@@ -119,7 +130,8 @@ def test_land_rollout_matches_jax_run(stepper, composition, monkeypatch):
 
 
 FUSED_CASES = [("heun", "consistent"), ("implicit-thomas", "consistent"),
-               ("implicit-pcr", "snow"), ("euler", "snow")]
+               ("implicit-pcr", "snow"), ("euler", "snow"), ("implicit-pcr-2", "consistent"),
+               ("implicit-thomas-2", "consistent"), ("implicit-pcr-3", "consistent_snow")]
 
 
 @pytest.mark.parametrize("stepper,composition", FUSED_CASES)
@@ -183,9 +195,13 @@ def test_implicit_land_model_reproduced(interception):
 
 @pytest.mark.parametrize("case", ["picard_iters=2", "PrescribedAlbedo"])
 def test_land_steppers_refused_by_type_take_the_modules(case, monkeypatch):
-    """ImplicitEuler with two Picard iterations, and a snowpack under a
-    custom albedo (which the LandModel keeps), go through the process
-    modules of ``run``, never the land rollout, and match JAX's ``run``."""
+    """A snowpack under a custom albedo (which the LandModel keeps) goes
+    through the process modules of ``run``, never the land rollout, and
+    matches JAX's ``run``. ImplicitEuler with two Picard iterations, which
+    took the modules until the land kernel ran the iterations, now goes
+    through the land rollout (``column_scheme`` sends it there, and ``run``
+    calls the plain version once with the count) and matches JAX's
+    ``run`` all the same."""
     def make(m):
         if case == "picard_iters=2":
             sim = _forced(m, "consistent", "implicit-pcr")
@@ -203,15 +219,22 @@ def test_land_steppers_refused_by_type_take_the_modules(case, monkeypatch):
                                           "snow_water_equivalent": 0.01})
 
     jsim, psim = make(tt), make(tp)
-    assert integrator.column_scheme(psim.model, psim.timestepper, psim.ctx,
-                                    psim.input_sources) is None
+    scheme = integrator.column_scheme(psim.model, psim.timestepper, psim.ctx,
+                                      psim.input_sources)
+    if case == "picard_iters=2":
+        assert scheme == ("land", "implicit")
+        calls = _spy_plain(monkeypatch)
+    else:
+        assert scheme is None
 
-    def refused(*args, **kwargs):
-        raise AssertionError("the land rollout ran")
+        def refused(*args, **kwargs):
+            raise AssertionError("the land rollout ran")
 
-    monkeypatch.setattr(ls, "land_column_rollout_plain", refused)
+        monkeypatch.setattr(ls, "land_column_rollout_plain", refused)
     jsim.run(steps=4, dt=600.0)
     psim.run(steps=4, dt=600.0)
+    if case == "picard_iters=2":
+        assert calls == [("implicit", "pcr", 2)]
     _assert_prognostics_close(psim.state, jsim.state, sorted(psim.state.prognostic))
 
 

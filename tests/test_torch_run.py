@@ -92,13 +92,13 @@ MODULE_CASES = {
                                                 m.GeothermalHeatFlux(0.08)), 12, 900.0),
     "picard_iters=2": (lambda m: _bench(m, m.ImplicitEuler(dt=900.0, picard_iters=2),
                                         {**_top(m), **m.GeothermalHeatFlux(0.08)}), 8, 900.0),
-    # the land rollouts take Heun and ImplicitEuler with the coupling BCs and
-    # one Picard iteration; a geothermal flux at the bottom, or two Picard
-    # iterations, take the modules
+    # the land rollouts take Heun and ImplicitEuler (any Picard count) with
+    # the coupling BCs (test_kernel_compositions_still_take_their_rollout);
+    # with a geothermal flux at the bottom, the modules
     "LandModel Heun": (lambda m: _land(m, m.Heun(dt=300.0), m.GeothermalHeatFlux(0.08)), 6,
                        300.0),
-    "LandModel ImplicitEuler": (lambda m: _land(m, m.ImplicitEuler(dt=300.0, picard_iters=2)),
-                                6, 300.0),
+    "LandModel ImplicitEuler": (lambda m: _land(m, m.ImplicitEuler(dt=300.0, picard_iters=2),
+                                                m.GeothermalHeatFlux(0.08)), 6, 300.0),
 }
 
 
@@ -178,7 +178,7 @@ def test_soil_module_run_equals_timesteps():
 
 @pytest.mark.parametrize("case", ["euler", "heun series", "heat", "implicit", "land",
                                   "land heun", "land implicit", "heat heun", "heat implicit",
-                                  "picard"])
+                                  "picard", "land picard"])
 def test_kernel_compositions_still_take_their_rollout(case, monkeypatch):
     """The compositions a kernel takes still go through the column rollout
     (here, on the CPU, its plain version), never the module loop."""
@@ -219,6 +219,8 @@ def test_kernel_compositions_still_take_their_rollout(case, monkeypatch):
         sim = _land(tp, tp.ForwardEuler(dt=300.0))
     elif case == "land heun":
         sim = _land(tp, tp.Heun(dt=300.0))
+    elif case == "land picard":
+        sim = _land(tp, tp.ImplicitEuler(dt=300.0, picard_iters=2))
     else:
         sim = _land(tp, tp.ImplicitEuler(dt=300.0, solver="thomas"))
     sim.run(steps=4)
