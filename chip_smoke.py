@@ -89,7 +89,9 @@ launch counts set to 0 just before it and read just after:
   mean(carbon) in log K_sat and k_mineral, ForwardEuler at dt 60 s
   (``land_grad_euler``) and ImplicitEuler at dt 600 s with each solver
   (``land_grad_implicit_pcr``, ``_thomas``) and with two Picard iterations
-  (``land_grad_implicit_picard2_<solver>``), after the land segment-VJP
+  (``land_grad_implicit_picard2_<solver>``), Heun at dt 60 s
+  (``land_grad_heun``) and ``land_snow_n145``'s snowpack by ImplicitEuler
+  PCR at dt 600 s (``land_grad_snow_implicit_pcr``), after the land segment-VJP
   kernel against its plain version (float64 on 1,024 columns at rtol 1e-9,
   float32 at full width with the plain version in chunks, the parameter
   cotangents also summed with output cotangents aligned to the sign of each
@@ -650,14 +652,21 @@ def land_variant_ops(stepper, solver, snow, nz, branches, iters=1):
 # objective is test_fused_grad.py:270-330's, mean(T) + mean(carbon), in
 # log K_sat and k_mineral; 288 steps in segments of 48: ForwardEuler at dt
 # 60 s (ROADMAP B1's stable composition) and ImplicitEuler with each solver
-# at dt 600 s, the land's production step. (scheme key, solver, dt)
+# at dt 600 s, the land's production step; Heun at dt 60 s (its stage is
+# unstable at 600 s, ROADMAP Queue C); land_snow_n145's snowy composition
+# (a Snowpack, a snowfall of 2e-8 m/s, an initial pack of 0.02 m) by
+# ImplicitEuler PCR at dt 600 s. (scheme key, solver, dt)
 LAND_GRAD_SCHEMES = {"land_grad_euler": ("euler", None, 60.0),
                      "land_grad_implicit_pcr": ("implicit", "pcr", 600.0),
                      "land_grad_implicit_thomas": ("implicit", "thomas", 600.0),
                      **{f"land_grad_implicit_picard2_{s}": ("implicit", s, 600.0)
-                        for s in SOLVERS}}
+                        for s in SOLVERS},
+                     "land_grad_heun": ("heun", None, 60.0),
+                     "land_grad_snow_implicit_pcr": ("implicit", "pcr", 600.0)}
 # the Picard iterations of a scheme (1 where not given)
 LAND_GRAD_PICARD = {f"land_grad_implicit_picard2_{s}": 2 for s in SOLVERS}
+# the schemes with land_snow_n145's snowpack
+LAND_GRAD_SNOW = ("land_grad_snow_implicit_pcr",)
 # the float32 full-width comparison runs the plain version (torch autograd
 # through the process modules) in chunks of this many columns; the float64
 # one on LAND_F64_CELLS columns over one segment; the central differences
@@ -671,12 +680,22 @@ LAND_GRAD_CHUNK = 16384
 # (measured apart by at most 1.9e-5, H100 80GB HBM3 at 700 W)
 LAND_PICARD_F32_GAP_TOL = 1e-3
 LAND_FD_H, LAND_FD_RTOL = {"log_K_sat": 1e-4, "k_mineral": 1e-4}, 1e-5
+# Under the snowpack the loss in log K_sat is not smooth at the scale of h
+# = 1e-4: over the gradient's 288 steps its central difference at 1e-4
+# parts from the f64 adjoint by 4.7e-5 on LAND_F64_CELLS columns, where at
+# 1e-5 the two agree within LAND_FD_RTOL. So the snowy scheme's log K_sat
+# difference steps by 1e-5, and the phase reports the difference at
+# LAND_FD_REPORT_H beside the adjoint. The probable branch is the melt
+# water in the infiltration's min(influx, K_top), which the soil's
+# conductivity moves in warm columns.
+LAND_SNOW_FD_H = {"log_K_sat": 1e-5, "k_mineral": 1e-4}
 # ForwardEuler's land state at dt 60 s leaves saturation [0, 1] within the
 # gradient's 288 steps and its loss is not smooth there (the phase prints
 # central differences at 288 steps and three h beside the adjoint, not
-# held): its central differences are held over 96 steps, ImplicitEuler's
-# over the gradient's 288
-LAND_FD_STEPS = {"euler": 96, "implicit": GRAD_STEPS}
+# held): its central differences are held over 96 steps, and so are Heun's
+# at dt 60 s, whose stage is ForwardEuler's step; ImplicitEuler's over the
+# gradient's 288
+LAND_FD_STEPS = {"euler": 96, "heun": 96, "implicit": GRAD_STEPS}
 LAND_FD_REPORT_H = (1e-2, 1e-3, 1e-4)
 # Operations of the land segment VJP behind its bound, counted as ADJ_OPS
 # (the adjoint without its recompute, the forward's intermediates taken as
@@ -696,39 +715,57 @@ LAND_FD_REPORT_H = (1e-2, 1e-3, 1e-4)
 # surface block's and the implicit rows'), and in each iteration after the
 # first the right-hand sides' -lambda / dt and +lambda / dt for U and sat
 # (4 a level); the iterates' recompute is not counted.
+# With a snowpack the surface block's adjoint adds one operation for each
+# of the snowpack's forward ones (LAND_SNOW_OPS_PER_COLUMN) but the melt's
+# (5), its way into the ground rain (1) and the SWE tendency (1), whose
+# derivatives in the state are 0 with static inputs: 15 a column. Heun
+# (land::heun_step_adjoint) runs the adjoint of closure_rhs twice, at the
+# stage and at the start, and between them passes the stage's cotangents
+# back through its Euler update and adds the corrector's halves (for U and
+# sat a level: the rates' two multiply-adds and the carry's add, 6; a
+# column: the surface's seven cotangents, the two flux BCs and the SWE's
+# clips, 16); the stage's recompute is not counted.
 LAND_VJP_OPS_PER_LEVEL = sum(ADJ_OPS.values()) + 6 + 5
 LAND_VJP_OPS_PER_COLUMN = (sum(LAND_OPS_PER_COLUMN.values())
                            - LAND_OPS_PER_COLUMN["series reads and clock"]
                            - LAND_OPS_PER_COLUMN["surface updates"] + 4)
+LAND_SNOW_VJP_OPS_PER_COLUMN = LAND_SNOW_OPS_PER_COLUMN - 5 - 1 - 1
+LAND_HEUN_VJP_OPS_PER_LEVEL, LAND_HEUN_VJP_OPS_PER_COLUMN = 6, 16
 
 
-def land_vjp_ops(stepper, solver, nz, branches, iters=1):
+def land_vjp_ops(stepper, solver, nz, branches, iters=1, snow=False):
     """Operations of one step of one column of the land segment VJP
-    (ImplicitEuler's with ``iters`` Picard iterations)."""
+    (ImplicitEuler's with ``iters`` Picard iterations; with a snowpack
+    where ``snow``)."""
     adj = (LAND_VJP_OPS_PER_LEVEL * nz + LAND_VJP_OPS_PER_COLUMN
-           + sum(LAND_OPS_BRANCH[k] * n for k, n in branches.items()))
+           + sum(LAND_OPS_BRANCH[k] * n for k, n in branches.items())
+           + (LAND_SNOW_VJP_OPS_PER_COLUMN if snow else 0))
     if stepper == "implicit":
         adj += (IMPLICIT_VJP_OPS_PER_LEVEL - sum(ADJ_OPS.values())) * nz \
             + IMPLICIT_VJP_OPS_PER_FACE * (nz - 1) + 2 * (implicit_solver_ops(solver, nz) + 5)
-    return (land_variant_ops(stepper, solver, False, nz, branches, iters) + iters * adj
+    if stepper == "heun":
+        adj = 2 * adj + LAND_HEUN_VJP_OPS_PER_LEVEL * nz + LAND_HEUN_VJP_OPS_PER_COLUMN
+    return (land_variant_ops(stepper, solver, snow, nz, branches, iters) + iters * adj
             + (iters - 1) * 4 * nz)
 
 
-def land_vjp_bytes(nz, cells, itemsize):
+def land_vjp_bytes(nz, cells, itemsize, snow=False):
     """Bytes the land segment VJP must move: it reads the input carry (2 Nz
-    + 6 values a column), the output cotangents (as many), the static inputs
-    (11) and the root fractions (Nz), and writes the input cotangents and
-    the two parameter cotangents."""
-    return ((3 * (2 * nz + 6) + 11 + nz) * cells + 2) * itemsize
+    + 6 values a column, one more with a snowpack), the output cotangents
+    (as many), the static inputs (11) and the root fractions (Nz), and
+    writes the input cotangents and the two parameter cotangents."""
+    return ((3 * (2 * nz + 6 + snow) + 11 + nz) * cells + 2) * itemsize
 
 
-def land_grad_model_fn(tp, grid):
-    """``(log K_sat, k_mineral) -> model``: land_model "consistent" with its
-    soil's saturated hydraulic conductivity exp(log K_sat) and mineral
-    conductivity k_mineral."""
+def land_grad_model_fn(tp, grid, snow=False):
+    """``(log K_sat, k_mineral) -> model``: land_model "consistent" (with
+    a ``Snowpack`` where ``snow``) with its soil's saturated hydraulic
+    conductivity exp(log K_sat) and mineral conductivity k_mineral."""
     from terrarium_tpu_torch.convert import with_differentiable_params
 
     base = land_model(tp, grid, "consistent")
+    if snow:
+        base = dataclasses.replace(base, snow=tp.Snowpack())
     return lambda p: dataclasses.replace(base, soil=with_differentiable_params(
         base.soil, log_sat_hydraulic_cond=p[0], mineral_conductivity=p[1]))
 
@@ -746,8 +783,10 @@ def land_grad_sim(tp, cells, dtype, name):
     spaced from -60 to 80 degrees: static shortwave 900 cos(lat) / pi and
     air temperature T_mean = 28 max(cos lat, 0.05) - 8, longwave 330, rain
     4e-8, wind 3; initial temperature T_mean, saturation 0.6, carbon 2,
-    vegetation fraction 0.5."""
+    vegetation fraction 0.5; under LAND_GRAD_SNOW a snowfall of SNOWFALL and
+    an initial pack of SWE0 (land_snow_n145's)."""
     key, solver, dt = LAND_GRAD_SCHEMES[name]
+    snow = name in LAND_GRAD_SNOW
     iters = LAND_GRAD_PICARD.get(name, 1)
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
                             dtype=dtype, device="cuda")
@@ -758,13 +797,15 @@ def land_grad_sim(tp, cells, dtype, name):
               "surface_shortwave_down": 900.0 * coslat / np.pi, "air_temperature": T_mean}
     kw = {"picard_iters": iters} if iters != 1 else {}
     stepper = (tp.ImplicitEuler(dt=dt, solver=solver, **kw) if key == "implicit"
-               else tp.ForwardEuler(dt=dt))
-    return tp.initialize(
-        land_grad_model_fn(tp, grid)(land_grad_params(tp)), stepper,
-        (tp.FieldInputSource(fields=fields),),
-        initializers={"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
-                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
-                      "vegetation_area_fraction": 0.5})
+               else tp.Heun(dt=dt) if key == "heun" else tp.ForwardEuler(dt=dt))
+    inits = {"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+             "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+             "vegetation_area_fraction": 0.5}
+    if snow:
+        fields["snowfall"] = SNOWFALL
+        inits["snow_water_equivalent"] = SWE0
+    return tp.initialize(land_grad_model_fn(tp, grid, snow)(land_grad_params(tp)), stepper,
+                         (tp.FieldInputSource(fields=fields),), initializers=inits)
 
 
 def land_grad_value(tp, sim, name, params=None, grad=True, steps=GRAD_STEPS):
@@ -776,9 +817,10 @@ def land_grad_value(tp, sim, name, params=None, grad=True, steps=GRAD_STEPS):
     dt = LAND_GRAD_SCHEMES[name][2]
     p = tuple(torch.tensor(v, dtype=torch.float64, device="cuda", requires_grad=grad)
               for v in (params or land_grad_params(tp)))
-    roll = make_fused_grad_rollout(land_grad_model_fn(tp, sim.model.grid), sim.timestepper,
-                                   sim.ctx, sim.input_sources, steps=steps, dt=dt,
-                                   inner_steps=GRAD_INNER)
+    roll = make_fused_grad_rollout(land_grad_model_fn(tp, sim.model.grid,
+                                                      name in LAND_GRAD_SNOW),
+                                   sim.timestepper, sim.ctx, sim.input_sources, steps=steps,
+                                   dt=dt, inner_steps=GRAD_INNER)
     with torch.set_grad_enabled(grad):
         out = roll(sim.state, p)
         loss = out.temperature.mean() + out.prognostic["carbon_vegetation"].mean()
@@ -2813,9 +2855,10 @@ def main():
         # central differences of the loss through the forward kernel, over
         # LAND_FD_STEPS[key] steps
         steps_fd = LAND_FD_STEPS[key]
+        fd_h = LAND_SNOW_FD_H if name in LAND_GRAD_SNOW else LAND_FD_H
         _, gx, gk = land_grad_value(tp, sim, name, steps=steps_fd)
         fd = []
-        for i, h in enumerate((LAND_FD_H["log_K_sat"], LAND_FD_H["k_mineral"])):
+        for i, h in enumerate((fd_h["log_K_sat"], fd_h["k_mineral"])):
             hi, lo_ = ([x0, k0], [x0, k0])
             hi[i] += h
             lo_[i] -= h
@@ -2827,7 +2870,8 @@ def main():
             raise AssertionError(f"{name}: f64 kernel gradient {(gx, gk)} against central "
                                  f"differences {fd}")
         fd_report = {}
-        if steps_fd != GRAD_STEPS:  # the loss over the gradient's steps, reported
+        if steps_fd != GRAD_STEPS or fd_h is LAND_SNOW_FD_H:
+            # the loss over the gradient's steps at the other h, reported
             fd_report["adjoint"] = land_grad_value(tp, sim, name)[1]
             for h in LAND_FD_REPORT_H:
                 fd_report[h] = (land_grad_value(tp, sim, name, params=[x0 + h, k0],
@@ -2856,8 +2900,10 @@ def main():
         end = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, **fkw)
         runs = land_branches(fs, params, linputs, carry, end, 0.0)
         runs = {k: n / LAND_CELLS for k, n in runs.items()}
-        v_ops = land_vjp_ops(key, solver, LAND_NZ, runs, iters)
-        b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER, land_vjp_bytes(LAND_NZ, LAND_CELLS, 4))
+        snow = name in LAND_GRAD_SNOW
+        v_ops = land_vjp_ops(key, solver, LAND_NZ, runs, iters, snow)
+        b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER,
+                     land_vjp_bytes(LAND_NZ, LAND_CELLS, 4, snow))
         del sub, end
         # the gradient: 6 forward and 6 VJP launches
         land_grad_value(tp, gsim, name)
@@ -2887,9 +2933,9 @@ def main():
         f32_vs_f64 = [abs(a - b) / abs(b) for a, b in ((value, value64), (ggx, gx64),
                                                        (ggk, gk64))]
         if iters == 1:
-            f32_gaps[(key, solver)] = f32_vs_f64
+            f32_gaps[(key, solver, snow)] = f32_vs_f64
         else:
-            one = f32_gaps[(key, solver)]
+            one = f32_gaps[(key, solver, snow)]
             if max(abs(a - b) for a, b in zip(f32_vs_f64, one)) > LAND_PICARD_F32_GAP_TOL:
                 raise AssertionError(f"{name}: float32 vs float64 gaps {f32_vs_f64}, one "
                                      f"iteration's {one}")
@@ -2898,9 +2944,9 @@ def main():
             params, key, solver, iters) + params.tags, torch.float32, LAND_NZ)
         land_grads[name] = dict(launches=grad_launches["land_column_segment_vjp"],
                                 max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
-                                bound_ms=b[0], bound_by=b[1], entry=entry)
+                                bound_ms=b[0], bound_by=b[1], entry=entry, snow=snow)
         phase(name, cells=LAND_CELLS, nz=LAND_NZ, dt=dt, steps=GRAD_STEPS,
-              inner_steps=GRAD_INNER, stepper=key, solver=solver, picard_iters=iters,
+              inner_steps=GRAD_INNER, stepper=key, solver=solver, picard_iters=iters, snow=snow,
               seconds_median=med,
               vjp_share_of_gradient=(GRAD_STEPS // GRAD_INNER) * k_ms / 1e3 / med,
               seconds=times, launches=grad_launches, cells_steps_per_s=LAND_CELLS * GRAD_STEPS / med,
@@ -2913,7 +2959,7 @@ def main():
               ptxas=ptxas_all["land_column_segment_vjp"].get(entry, {}).get("vjp"),
               f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
               f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
-              fd_steps=steps_fd, fd_h=LAND_FD_H, fd_rtol=LAND_FD_RTOL,
+              fd_steps=steps_fd, fd_h=fd_h, fd_rtol=LAND_FD_RTOL,
               f64_kernel_grad=[gx, gk], central_difference=fd, fd_rel_err=fd_rel,
               dlog_K_sat_at_gradient_steps_adjoint_and_by_h=fd_report,
               f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
@@ -3384,8 +3430,9 @@ def main():
         "source": "terrarium_tpu_torch/csrc/land_column_segment_vjp.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68 traced over a LandModel step "
                     "(terrarium_tpu/models/land_model.py:55)",
-        **{k: v for k, v in lg.items() if k != "entry"}, "library_ms": None,
-        "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent with static inputs, dt "
+        **{k: v for k, v in lg.items() if k not in ("entry", "snow")}, "library_ms": None,
+        "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent"
+                 + (" with snow" if lg["snow"] else "") + " with static inputs, dt "
                  f"{LAND_GRAD_SCHEMES[name][2]:g}, {GRAD_INNER} steps, {lg['entry']}; plain_ms "
                  f"at {LAND_GRAD_CHUNK} columns"} for name, lg in land_grads.items()), {
         "name": "land_column_rollout", "route": "cuda",
@@ -3551,6 +3598,11 @@ def euler_digest(root: pathlib.Path):
             kw = {"picard_iters": LAND_GRAD_PICARD[name]} if name in LAND_GRAD_PICARD else {}
             gsim = land_grad_sim(tp, LAND_CELLS, torch.float32, name)
             ops = land_grad_operands(ls, land_inputs, gsim, seed=11)
+            try:  # Heun and the snowpack where the package's land VJP has them
+                lv.check_scheme(ops[4], key, solver, kw.get("picard_iters", 1))
+            except ValueError:
+                del gsim, ops
+                continue
             gin, gK, gskm = lv.land_column_segment_vjp(*ops[:3], *ops[3], ops[4], dt, 0.0,
                                                        GRAD_INNER, ops[5], stepper=key,
                                                        solver=solver, **kw)

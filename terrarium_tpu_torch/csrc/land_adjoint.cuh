@@ -13,6 +13,8 @@
 // and level by level the head, the linear centre K, the plant-available
 // water and the energy closure (soil::level_adjoint), then the down and
 // up sweeps. land::step_adjoint is ForwardEuler's update on it,
+// land::heun_step_adjoint Heun's (the stage recomputed from the step's
+// start, then closure_rhs_adjoint at the stage and at the start),
 // land::implicit_step_adjoint<SOLVER> ImplicitEuler's with one Picard
 // iteration and land::picard_step_adjoint its iterations, each recomputed
 // from the step's start and undone from the last: each tridiagonal solve
@@ -27,18 +29,29 @@
 // carbon, vegetation fraction and net assimilation) to nine (the ground
 // heat flux, the humidity flux, the infiltration, the pool tendency, the
 // skin temperature after the second skin update and the canopy water,
-// carbon and vegetation fraction tendencies and the new net assimilation).
-// Its Jacobian is formed column by column in forward mode (land::Dual, one
-// tangent a pass, ten passes), then contracted with the outputs'
-// cotangents: a transposed forward sweep instead of a reverse one, so that
-// the Monin-Obukhov drag's fixed iterations, three drags a step, need no
-// stored iterates. The derivatives are the same exact ones either way.
+// carbon and vegetation fraction tendencies and the new net assimilation);
+// under a snowpack (SNOW) eleven to ten, with the carried SWE and its
+// tendency. Its Jacobian is formed column by column in forward mode
+// (land::Dual, one tangent a pass, ten passes, eleven under SNOW), then
+// contracted with the outputs' cotangents: a transposed forward sweep
+// instead of a reverse one, so that the Monin-Obukhov drag's fixed
+// iterations, three drags a step, need no stored iterates. The derivatives
+// are the same exact ones either way. With static inputs the snowpack's
+// melt (a function of the air temperature, gated on SWE > 0) and so the
+// SWE tendency have a zero derivative in the state: the SWE reaches the
+// step through the cover swe / (swe + swe_half) of the clamped SWE, which
+// blends the albedo and emissivity of the SEB sweeps, and through its
+// update and clip SWE >= 0. Every snowpack term is compiled under `if
+// constexpr (SNOW)`, so that the instantiations without one keep their
+// code.
 //
 // Branch conventions, taken from torch autograd of the plain version (the
 // process modules), where it differentiates each piece:
 // * torch.clamp(x, lo, hi) and its one-sided forms (every vmax / vmin of a
-//   value against a bound in the step): the cotangent passes where
-//   lo <= x <= hi, bounds included; torch.minimum (the infiltration's
+//   value against a bound in the step, the SWE's clamp in the cover and its
+//   clip after each update among them): the cotangent passes where
+//   lo <= x <= hi, bounds included, so an empty pack (SWE == 0) passes it;
+//   torch.minimum (the infiltration's
 //   min(influx, K_top), the pool's min(max(S, 0) / tau_r, S)) and the face
 //   and upwind K (soil::min_adjoint): a tie splits it 0.5/0.5;
 // * the pool term at an empty pool (S == 0): derivative 0, as
@@ -210,6 +223,28 @@ SOIL_FN Dual<T> ground_flux_d(const Dual<T> Ts, const Dual<T> r_a, const Forcing
     return c.consistent_G ? (R_net + H_s) + H_l : (R_net - H_s) - H_l;
 }
 
+// the surface's albedo, emissivity * sigma and 1 - emissivity under snow,
+// blended by the cover (Radiation in forward mode)
+template <typename T>
+struct RadiationD {
+    Dual<T> albedo, eps_sigma, one_minus_emis;
+};
+
+// ground_flux_snow in forward mode
+template <typename T>
+SOIL_FN Dual<T> ground_flux_snow_d(const Dual<T> Ts, const Dual<T> r_a, const Forcing<T>& f,
+                                   const Dual<T> Q_h, const RadiationD<T>& rad,
+                                   const LandColumnParams<T>& c) {
+    const T SW = f.v[IN_SW], LW = f.v[IN_LW], Ta = f.v[IN_TA];
+    const Dual<T> SW_up = rad.albedo * SW;
+    const Dual<T> Tk = Ts + c.T_ref;
+    const Dual<T> LW_up = rad.eps_sigma * ((Tk * Tk) * (Tk * Tk)) + rad.one_minus_emis * LW;
+    const Dual<T> R_net = ((SW_up - SW) + LW_up) - LW;
+    const Dual<T> H_s = c.c_a_rho_a * ((Ts - Ta) / r_a);
+    const Dual<T> H_l = c.L_rho_a * Q_h;
+    return c.consistent_G ? (R_net + H_s) + H_l : (R_net - H_s) - H_l;
+}
+
 template <typename T>
 SOIL_FN Dual<T> skin_d(const Dual<T> Tg, const Dual<T> G, const T dz_top,
                        const LandColumnParams<T>& c) {
@@ -221,9 +256,21 @@ SOIL_FN Dual<T> f_temp_d(const Dual<T> Tc, const LandColumnParams<T>& c) {
     return dexp(T(308.56) * (c.inv_56_02 - T(1) / (T(46.02) + Tc)));
 }
 
-// the surface block's inputs and outputs (see the header comment)
+// the surface block's inputs and outputs (see the header comment); under a
+// snowpack one more of each, the carried SWE and its tendency, so that a
+// block without one keeps SI_N inputs and SO_N outputs
 enum { SI_TG = 0, SI_WTOP, SI_BETA, SI_KC, SI_S, SI_TS, SI_W, SI_C, SI_NU, SI_AN, SI_N };
 enum { SO_G = 0, SO_QH, SO_INFIL, SO_POOL, SO_TS, SO_DW, SO_DC, SO_DNU, SO_AN, SO_N };
+enum { SI_SWE = SI_N, SO_DSWE = SO_N };
+
+// the SWE tendency snowfall - melt of closure_rhs, the melt gated on the
+// clamped SWE > 0: with static inputs it does not depend on the state
+template <typename T>
+SOIL_FN T swe_rate(const T swe, const Forcing<T>& f, const LandColumnParams<T>& c) {
+    const T sw = vmax(swe, T(0));
+    const T melt = sw > T(0) ? c.ddf * vmax(f.v[IN_TA] - c.T_melt, T(0)) : T(0);
+    return f.v[IN_SNOW] - melt;
+}
 
 // land::vegetation in forward mode: LAI_b, gw, An and NPP of the carbon,
 // the previous net assimilation, beta and the ground temperature
@@ -279,12 +326,16 @@ SOIL_FN void vegetation_d(const Dual<T> Cv, const Dual<T> An0, const Dual<T> bet
     NPP = GPP - Ra;
 }
 
-// The surface block of closure_rhs (no snowpack) in forward mode: from x
-// (SI_*) to y (SO_*); sat_top_below_1 is the closed top level's sat < 1
-template <typename T, bool VEG, bool RICHARDS>
-SOIL_FN void surface_block(const Dual<T> (&x)[SI_N], const bool sat_top_below_1,
+// The surface block of closure_rhs in forward mode: from x (SI_*) to y
+// (SO_*); sat_top_below_1 is the closed top level's sat < 1. Under SNOW the
+// cover swe / (swe + swe_half) of the clamped SWE blends the albedo and
+// emissivity of the three SEB sweeps; the melt, gated on SWE > 0 and a
+// function of the air temperature, joins the ground rain with a zero
+// tangent, and so does the SWE tendency
+template <typename T, bool VEG, bool RICHARDS, bool SNOW = false>
+SOIL_FN void surface_block(const Dual<T> (&x)[SI_N + SNOW], const bool sat_top_below_1,
                            const Forcing<T>& f, const LandColumnParams<T>& c, const T dz_top,
-                           Dual<T> (&y)[SO_N])
+                           Dual<T> (&y)[SO_N + SNOW])
 {
     using D = Dual<T>;
     const T Ta = f.v[IN_TA], rain = f.v[IN_RAIN], p = f.v[IN_P], q = f.v[IN_Q];
@@ -293,6 +344,13 @@ SOIL_FN void surface_block(const Dual<T> (&x)[SI_N], const bool sat_top_below_1,
     const T e_air = q * p / (c.eps_mol + c.one_minus_eps_mol * q);
     const D Tg = x[SI_TG], Ts = x[SI_TS];
     const D r_a0 = resistance_d(Ta, Ts, Vr, c);
+    D snow_f;
+    T melt = T(0);
+    if constexpr (SNOW) {
+        const D sw = clamp_lo(x[SI_SWE], T(0));
+        snow_f = sw / (sw + c.swe_half);
+        melt = sw.v > T(0) ? c.ddf * vmax(Ta - c.T_melt, T(0)) : T(0);
+    }
 
     D LAI, gw, An, NPP;
     if (VEG) vegetation_d(x[SI_C], x[SI_AN], x[SI_BETA], Tg, e_air, f, c, LAI, gw, An, NPP);
@@ -328,16 +386,33 @@ SOIL_FN void surface_block(const Dual<T> (&x)[SI_N], const bool sat_top_below_1,
     if (RICHARDS) {
         const D S = x[SI_S];
         const D drainage = S.v > T(0) ? clamp_lo(S, T(0)) / c.tau_r : D();
-        const D influx = S.v > T(0) ? drainage : rain_g;
+        D ground = rain_g;
+        if constexpr (SNOW) ground = rain_g + melt;
+        const D influx = S.v > T(0) ? drainage : ground;
         infil = sat_top_below_1 ? minimum(influx, x[SI_KC]) : D();
         pool = c.drain_sign * (S.v == T(0) ? S * T(0) : minimum(clamp_lo(S, T(0)) / c.tau_r, S));
     }
 
-    const D G0 = ground_flux_d(Ts, r_a0, f, Q_h, c);
-    const D Ts1 = skin_d(Tg, G0, dz_top, c);
-    const D G1 = ground_flux_d(Ts1, resistance_d(Ta, Ts1, Vr, c), f, Q_h, c);
-    const D Ts2 = skin_d(Tg, G1, dz_top, c);
-    y[SO_G] = ground_flux_d(Ts2, resistance_d(Ta, Ts2, Vr, c), f, Q_h, c);
+    D Ts2;
+    if constexpr (SNOW) {
+        RadiationD<T> rad;
+        rad.albedo = snow_f * c.albedo_snow + (T(1) - snow_f) * c.albedo;
+        const D eps = snow_f * c.emissivity_snow + (T(1) - snow_f) * c.emissivity_base;
+        rad.eps_sigma = eps * c.sigma;
+        rad.one_minus_emis = T(1) - eps;
+        const D G0 = ground_flux_snow_d(Ts, r_a0, f, Q_h, rad, c);
+        const D Ts1 = skin_d(Tg, G0, dz_top, c);
+        const D G1 = ground_flux_snow_d(Ts1, resistance_d(Ta, Ts1, Vr, c), f, Q_h, rad, c);
+        Ts2 = skin_d(Tg, G1, dz_top, c);
+        y[SO_G] = ground_flux_snow_d(Ts2, resistance_d(Ta, Ts2, Vr, c), f, Q_h, rad, c);
+        y[SO_DSWE] = D(f.v[IN_SNOW] - melt);
+    } else {
+        const D G0 = ground_flux_d(Ts, r_a0, f, Q_h, c);
+        const D Ts1 = skin_d(Tg, G0, dz_top, c);
+        const D G1 = ground_flux_d(Ts1, resistance_d(Ta, Ts1, Vr, c), f, Q_h, c);
+        Ts2 = skin_d(Tg, G1, dz_top, c);
+        y[SO_G] = ground_flux_d(Ts2, resistance_d(Ta, Ts2, Vr, c), f, Q_h, c);
+    }
     y[SO_QH] = Q_h;
     y[SO_INFIL] = infil;
     y[SO_POOL] = pool;
@@ -358,23 +433,23 @@ SOIL_FN void surface_block(const Dual<T> (&x)[SI_N], const bool sat_top_below_1,
 // of the contraction, as torch leaves out an edge its graph does not have
 // (so that an infinite cotangent meets no 0 tangent: the pool's, whose
 // tie at an empty pool grows it by |1 - dt (1 + 1 / tau_r) / 2| a step)
-template <typename T, bool VEG, bool RICHARDS>
-SOIL_FN void surface_adjoint(const T (&xv)[SI_N], const T (&gy)[SO_N], const bool sat_top_below_1,
-                             const Forcing<T>& f, const LandColumnParams<T>& c, const T dz_top,
-                             T (&gx)[SI_N])
+template <typename T, bool VEG, bool RICHARDS, bool SNOW = false>
+SOIL_FN void surface_adjoint(const T (&xv)[SI_N + SNOW], const T (&gy)[SO_N + SNOW],
+                             const bool sat_top_below_1, const Forcing<T>& f,
+                             const LandColumnParams<T>& c, const T dz_top, T (&gx)[SI_N + SNOW])
 {
 #pragma unroll 1
-    for (int d = 0; d < SI_N; ++d) {
+    for (int d = 0; d < SI_N + SNOW; ++d) {
         gx[d] = T(0);
-        if (!VEG && (d == SI_BETA || d >= SI_W)) continue;
+        if (!VEG && (d == SI_BETA || (d >= SI_W && (!SNOW || d < SI_N)))) continue;
         if (!RICHARDS && (d == SI_KC || d == SI_S)) continue;
-        Dual<T> x[SI_N], y[SO_N];
+        Dual<T> x[SI_N + SNOW], y[SO_N + SNOW];
 #pragma unroll
-        for (int i = 0; i < SI_N; ++i) x[i] = Dual<T>(xv[i], i == d ? T(1) : T(0));
-        surface_block<T, VEG, RICHARDS>(x, sat_top_below_1, f, c, dz_top, y);
+        for (int i = 0; i < SI_N + SNOW; ++i) x[i] = Dual<T>(xv[i], i == d ? T(1) : T(0));
+        surface_block<T, VEG, RICHARDS, SNOW>(x, sat_top_below_1, f, c, dz_top, y);
         T acc = T(0);
 #pragma unroll
-        for (int o = 0; o < SO_N; ++o)
+        for (int o = 0; o < SO_N + SNOW; ++o)
             if (gy[o] != T(0) && y[o].d != T(0)) acc += gy[o] * y[o].d;
         gx[d] = acc;
     }
@@ -417,25 +492,26 @@ SOIL_FN T bc_chain_deriv(const T sk, const soil::Consts<T>& sc, const LandColumn
 // the adjoint of closure_rhs
 // ---------------------------------------------------------------------------
 
-// Cotangents through closure_rhs (no snowpack) of the column (U, sat) and
-// the surface carry s, with the inputs f. On entry: gU, gs and gsc hold the
-// cotangents of what the stepper reads directly of the closed column (U,
-// the adjusted saturation; gsc.S the pool after the spill, gsc.w, .C, .nu
-// the carried surface values; gsc.Ts and gsc.An 0 for the steppers here),
+// Cotangents through closure_rhs of the column (U, sat) and the surface
+// carry s, with the inputs f. On entry: gU, gs and gsc hold the cotangents
+// of what the stepper reads directly of the closed column (U, the adjusted
+// saturation; gsc.S the pool after the spill, gsc.w, .C, .nu and, under
+// SNOW, .swe the carried surface values; gsc.Ts and gsc.An those of what
+// reads them besides the surface block, 0 for the steppers here),
 // gfU and gfs those of the tendencies (gfs[NZ-1] the top level's before its
 // infiltration BC), gy those of the surface block's outputs that the
 // stepper reads (all but SO_QH, which the Richards sink adds here), x those
 // of the implicit terms (X::on). On return gU, gs and gsc are the
 // cotangents of the step's input carry; the parameter cotangents are
 // accumulated into gKsat and gskm.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, class X>
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW, class X>
 SOIL_FN void closure_rhs_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
                                  const Forcing<T>& f, const soil::Consts<T>& sc,
                                  const LandColumnParams<T>& c, const T* dz, const T* dzf,
                                  const T* zc, const T* zf, const T* rf,
                                  const long long rf_stride, T (&gU)[NZ], T (&gs)[NZ],
                                  Surface<T>& gsc, const T (&gfU)[NZ], const T (&gfs)[NZ],
-                                 T (&gy)[SO_N], const X& x, T& gKsat, T& gskm)
+                                 T (&gy)[SO_N + SNOW], const X& x, T& gKsat, T& gskm)
 {
     const SoilColumnParams& SP = c.soil;
     constexpr bool MUALEM = RICHARDS && COND == COND_MUALEM;
@@ -505,11 +581,12 @@ SOIL_FN void closure_rhs_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
     }
 
     // ---- the surface block
-    T gx[SI_N];
+    T gx[SI_N + SNOW];
     {
-        const T xv[SI_N] = {Tk[NZ - 1], water[NZ - 1], beta_paw, Kc[NZ - 1], S1,
-                            s.Ts, s.w, s.C, s.nu, s.An};
-        surface_adjoint<T, VEG, RICHARDS>(xv, gy, ss[NZ - 1] < T(1), f, c, dz_top, gx);
+        T xv[SI_N + SNOW] = {Tk[NZ - 1], water[NZ - 1], beta_paw, Kc[NZ - 1], S1,
+                             s.Ts, s.w, s.C, s.nu, s.An};
+        if constexpr (SNOW) xv[SI_SWE] = s.swe;
+        surface_adjoint<T, VEG, RICHARDS, SNOW>(xv, gy, ss[NZ - 1] < T(1), f, c, dz_top, gx);
     }
     const T gS1 = gsc.S + gx[SI_S];
     gsc.Ts = gsc.Ts + gx[SI_TS];
@@ -517,6 +594,7 @@ SOIL_FN void closure_rhs_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
     gsc.C = gsc.C + gx[SI_C];
     gsc.nu = gsc.nu + gx[SI_NU];
     gsc.An = gsc.An + gx[SI_AN];
+    if constexpr (SNOW) gsc.swe = gsc.swe + gx[SI_SWE];
     if constexpr (RICHARDS) {
         // face K from centre K
         gKc[NZ - 1] += gx[SI_KC];
@@ -627,9 +705,12 @@ SOIL_FN void closure_rhs_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
 // the surface's direct cotangents after an update: the output cotangents
 // gsc give the surface block's outputs theirs (rates times dt) and keep
 // those the update passes on (pool, canopy water, carbon, fraction; the
-// skin temperature and the net assimilation are written afresh)
-template <typename T, bool VEG, bool RICHARDS>
-SOIL_FN void surface_update_adjoint(Surface<T>& gsc, T (&gy)[SO_N], const T dt) {
+// skin temperature and the net assimilation are written afresh). Under
+// SNOW the update is SWE' = max(swe_new, 0), swe_new = SWE + dSWE/dt dt:
+// the SWE's cotangent passes where swe_new >= 0 (torch.clamp's rule)
+template <typename T, bool VEG, bool RICHARDS, bool SNOW = false>
+SOIL_FN void surface_update_adjoint(Surface<T>& gsc, T (&gy)[SO_N + SNOW], const T dt,
+                                    const T swe_new = T(0)) {
     gy[SO_POOL] = RICHARDS ? gsc.S * dt : T(0);
     gy[SO_TS] = gsc.Ts;
     gy[SO_DW] = VEG ? gsc.w * dt : T(0);
@@ -638,14 +719,18 @@ SOIL_FN void surface_update_adjoint(Surface<T>& gsc, T (&gy)[SO_N], const T dt) 
     gy[SO_AN] = VEG ? gsc.An : T(0);
     gsc.Ts = T(0);
     gsc.An = T(0);
+    if constexpr (SNOW) {
+        if (!(swe_new >= T(0))) gsc.swe = T(0);
+        gy[SO_DSWE] = gsc.swe * dt;
+    }
 }
 
-// Cotangents through one land::step (ForwardEuler, no snowpack): on entry
-// (gU, gs, gsc) are those of the step's output, on return those of its
-// input; without Richards flow the saturation is read and passed on, so
-// that its cotangent gathers each step's. The step is recomputed from its
-// input carry.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND>
+// Cotangents through one land::step (ForwardEuler): on entry (gU, gs, gsc)
+// are those of the step's output, on return those of its input; without
+// Richards flow the saturation is read and passed on, so that its
+// cotangent gathers each step's. The step is recomputed from its input
+// carry.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW = false>
 SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
                           const Forcing<T>& f, const soil::Consts<T>& sc,
                           const LandColumnParams<T>& c, const T* dz, const T* dzf, const T* zc,
@@ -653,7 +738,7 @@ SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>
                           T (&gs)[NZ], Surface<T>& gsc, T& gKsat, T& gskm, const T dt)
 {
     const T dz_top = dz[NZ - 1];
-    T gfU[NZ], gfs[NZ], gy[SO_N];
+    T gfU[NZ], gfs[NZ], gy[SO_N + SNOW];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
         gfU[k] = gU[k] * dt;
@@ -662,14 +747,16 @@ SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>
     gy[SO_QH] = T(0);
     gy[SO_G] = -(gU[NZ - 1] * dt) / dz_top;                      // (dU - G / dz_top) dt
     gy[SO_INFIL] = RICHARDS ? (gs[NZ - 1] * dt) / dz_top : T(0);  // (A + infil / dz_top) dt
-    surface_update_adjoint<T, VEG, RICHARDS>(gsc, gy, dt);
-    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND>(
+    T swe_new = T(0);
+    if constexpr (SNOW) swe_new = s.swe + swe_rate<T>(s.swe, f, c) * dt;
+    surface_update_adjoint<T, VEG, RICHARDS, SNOW>(gsc, gy, dt, swe_new);
+    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
         U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, gU, gs, gsc, gfU, gfs, gy,
         soil::NoTerms<T>{}, gKsat, gskm);
 }
 
-// Cotangents through one land::implicit_step (one Picard iteration, no
-// snowpack), as step_adjoint. Recomputed: the closed column, its
+// Cotangents through one land::implicit_step (one Picard iteration), as
+// step_adjoint. Recomputed: the closed column, its
 // tendencies and ImplicitRates' terms, both systems' rows. Undone in
 // reverse, the two systems by one body in a loop that is not unrolled: the
 // Richards solve (sat' = sat_c + A_w^-1 r_sat: gr_sat = A_w^-T gsat', the
@@ -681,7 +768,8 @@ SOIL_FN void step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>
 // capacity off the freeze plateau; -G/dz_top in the top right-hand side);
 // then the Euler updates of the surface and closure_rhs_adjoint with those
 // terms' cotangents.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int SOLVER>
 SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
                                    const Forcing<T>& f, const soil::Consts<T>& sc,
                                    const LandColumnParams<T>& c, const T* dz, const T* dzf,
@@ -696,8 +784,8 @@ SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const S
     for (int k = 0; k < NZ; ++k) xs[k] = sat[k];
     Surface<T> xsurf = s;
     ImplicitRates<T, NZ> r;
-    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, false>(U, xs, xsurf, f, sc, c, dz, dzf, zc,
-                                                          zf, rf, rf_stride, r);
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, xs, xsurf, f, sc, c, dz, dzf, zc,
+                                                         zf, rf, rf_stride, r);
     r.U[NZ - 1] = r.U[NZ - 1] - r.G / dz_top;
     if (RICHARDS) r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
     soil::TermCotangents<T, NZ> x;
@@ -748,22 +836,170 @@ SOIL_FN void implicit_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const S
             for (int f_ = 0; f_ <= NZ; ++f_) x.gKeff[f_] = gKf[f_];
         }
     }
-    T gy[SO_N];
+    T gy[SO_N + SNOW];
     gy[SO_QH] = T(0);
     gy[SO_G] = -gfU[NZ - 1] / dz_top;
     gy[SO_INFIL] = RICHARDS ? gfs[NZ - 1] / dz_top : T(0);
-    surface_update_adjoint<T, VEG, RICHARDS>(gsc, gy, dt);
-    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND>(
+    T swe_new = T(0);
+    if constexpr (SNOW) swe_new = s.swe + r.surf.dswe * dt;
+    surface_update_adjoint<T, VEG, RICHARDS, SNOW>(gsc, gy, dt, swe_new);
+    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
         U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, gU, gs, gsc, gfU, gfs, gy, x, gKsat,
         gskm);
 }
 
-// picard_step (no snowpack) compiled once, out of line, for the segment
-// VJP, which runs it in its forward pass and again to recompute the
-// iterates of each step's adjoint (picard_step_adjoint): one copy of the
-// step's code instead of two to register-allocate, at the price of the
-// column's arrays in local memory across the call
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+// Heun's stage of land::heun_step from x_n (U, sat, s) with the inputs f0,
+// by the step's own arithmetic: the stage carry (yU, ys, y) before its
+// closure. Compiled once, out of line, for heun_step_adjoint, which
+// recomputes it from the step's stored start: x_n's rates need not stay
+// live beside the adjoint's arrays
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW>
+SOIL_NOINLINE_FN void heun_stage_call(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
+                                      const Forcing<T>& f0, const soil::Consts<T>& sc,
+                                      const LandColumnParams<T>& c, const T* dz, const T* dzf,
+                                      const T* zc, const T* zf, const T* rf,
+                                      const long long rf_stride, const T dt, T (&yU)[NZ],
+                                      T (&ys)[NZ], Surface<T>& y)
+{
+    T xs[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) xs[k] = sat[k];
+    y = s;
+    Rates<T, NZ> r;
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, xs, y, f0, sc, c, dz, dzf, zc, zf,
+                                                         rf, rf_stride, r);
+    const T dz_top = dz[NZ - 1];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        yU[k] = k < NZ - 1 ? U[k] + r.U[k] * dt : U[k] + (r.U[k] - r.G / dz_top) * dt;
+        if (!RICHARDS) ys[k] = xs[k];
+        else if (k < NZ - 1) ys[k] = xs[k] + r.sat[k] * dt;
+        else ys[k] = xs[k] + (r.sat[k] - (T(-1) * r.infil) / dz_top) * dt;
+    }
+    if (RICHARDS) y.S = y.S + r.dS * dt;
+    y.Ts = r.surf.Ts + T(0) * dt;
+    if (VEG) {
+        y.w = y.w + r.surf.dw * dt;
+        y.C = y.C + r.surf.dC * dt;
+        y.nu = y.nu + r.surf.dnu * dt;
+        y.An = r.surf.An;
+    }
+    if (SNOW) y.swe = vmax(y.swe + r.surf.dswe * dt, T(0));
+}
+
+// Cotangents through one land::heun_step, as step_adjoint. The stage y is
+// recomputed from x_n (heun_stage_call); then one body, in a loop that is
+// not unrolled, takes closure_rhs_adjoint twice: at the stage with the
+// inputs f1, from what the corrector x_n + (0.5 (f_n + f*) + BC_n) dt reads
+// of it (half of the tendencies and of the pool, canopy water, carbon,
+// fraction and SWE rates; its own ground heat flux, infiltration, skin
+// temperature and net assimilation are unread), then at x_n with the
+// inputs f0, from the corrector's reads of x_n (the carry, the other half
+// of the rates, the top Flux BCs G and infiltration, the skin temperature
+// and the net assimilation, which the corrector writes as x_n's) added to
+// the stage's Euler update's (y = x_n + (f_n + BC_n) dt, the skin
+// temperature and net assimilation x_n's). The two SWE clips, the stage's
+// and the corrector's, pass the cotangent where their argument is >= 0.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW>
+SOIL_FN void heun_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
+                               const Forcing<T>& f0, const Forcing<T>& f1,
+                               const soil::Consts<T>& sc, const LandColumnParams<T>& c,
+                               const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
+                               const long long rf_stride, T (&gU)[NZ], T (&gs)[NZ],
+                               Surface<T>& gsc, T& gKsat, T& gskm, const T dt)
+{
+    const T dz_top = dz[NZ - 1];
+    T xU[NZ], xs[NZ];
+    Surface<T> xsurf;
+    heun_stage_call<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f0, sc, c, dz, dzf, zc,
+                                                             zf, rf, rf_stride, dt, xU, xs,
+                                                             xsurf);
+    // the corrector's SWE cotangent through its clip, and the stage's clip
+    T gswe1 = T(0);
+    bool stage_passes = true;
+    if constexpr (SNOW) {
+        const T dn = swe_rate<T>(s.swe, f0, c), ds = swe_rate<T>(xsurf.swe, f1, c);
+        stage_passes = s.swe + dn * dt >= T(0);
+        gswe1 = s.swe + (T(0.5) * (dn + ds)) * dt >= T(0) ? gsc.swe : T(0);
+    }
+    T gfU[NZ], gfs[NZ], gxU[NZ], gxs[NZ], gy[SO_N + SNOW];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        gfU[k] = T(0.5) * (gU[k] * dt);
+        gfs[k] = RICHARDS ? T(0.5) * (gs[k] * dt) : T(0);
+        gxU[k] = T(0);
+        gxs[k] = T(0);
+    }
+    gy[SO_G] = T(0);
+    gy[SO_QH] = T(0);
+    gy[SO_INFIL] = T(0);
+    gy[SO_POOL] = RICHARDS ? T(0.5) * (gsc.S * dt) : T(0);
+    gy[SO_TS] = T(0);
+    gy[SO_DW] = VEG ? T(0.5) * (gsc.w * dt) : T(0);
+    gy[SO_DC] = VEG ? T(0.5) * (gsc.C * dt) : T(0);
+    gy[SO_DNU] = VEG ? T(0.5) * (gsc.nu * dt) : T(0);
+    gy[SO_AN] = T(0);
+    if constexpr (SNOW) gy[SO_DSWE] = T(0.5) * (gswe1 * dt);
+    Surface<T> gx{};
+    const Forcing<T>* f = &f1;
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+        closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
+            xU, xs, xsurf, *f, sc, c, dz, dzf, zc, zf, rf, rf_stride, gxU, gxs, gx, gfU, gfs, gy,
+            soil::NoTerms<T>{}, gKsat, gskm);
+        if (pass == 0) {
+            gy[SO_G] = -((gU[NZ - 1] + gxU[NZ - 1]) * dt) / dz_top;
+            gy[SO_INFIL] = RICHARDS ? ((gs[NZ - 1] + gxs[NZ - 1]) * dt) / dz_top : T(0);
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                gfU[k] = gfU[k] + gxU[k] * dt;
+                if (RICHARDS) gfs[k] = gfs[k] + gxs[k] * dt;
+                gxU[k] = gU[k] + gxU[k];
+                gxs[k] = gs[k] + gxs[k];
+                xU[k] = U[k];
+                xs[k] = sat[k];
+            }
+            gy[SO_QH] = T(0);
+            if (RICHARDS) {
+                gy[SO_POOL] = gy[SO_POOL] + gx.S * dt;
+                gx.S = gsc.S + gx.S;
+            }
+            gy[SO_TS] = gsc.Ts + gx.Ts;
+            gx.Ts = T(0);
+            if (VEG) {
+                gy[SO_DW] = gy[SO_DW] + gx.w * dt;
+                gy[SO_DC] = gy[SO_DC] + gx.C * dt;
+                gy[SO_DNU] = gy[SO_DNU] + gx.nu * dt;
+                gy[SO_AN] = gsc.An + gx.An;
+                gx.w = gsc.w + gx.w;
+                gx.C = gsc.C + gx.C;
+                gx.nu = gsc.nu + gx.nu;
+                gx.An = T(0);
+            }
+            if constexpr (SNOW) {
+                const T gswe0 = stage_passes ? gx.swe : T(0);
+                gy[SO_DSWE] = gy[SO_DSWE] + gswe0 * dt;
+                gx.swe = gswe1 + gswe0;
+            }
+            xsurf = s;
+            f = &f0;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+        gU[k] = gxU[k];
+        gs[k] = gxs[k];
+    }
+    gsc = gx;
+}
+
+// picard_step compiled once, out of line, for the segment VJP, which runs
+// it in its forward pass and again to recompute the iterates of each step's
+// adjoint (picard_step_adjoint): one copy of the step's code instead of two
+// to register-allocate, at the price of the column's arrays in local memory
+// across the call
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int SOLVER>
 SOIL_NOINLINE_FN void picard_step_call(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s,
                                        const Forcing<T>& f, const soil::Consts<T>& sc,
                                        const LandColumnParams<T>& c, const T* dz, const T* dzf,
@@ -771,11 +1007,11 @@ SOIL_NOINLINE_FN void picard_step_call(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s,
                                        const long long rf_stride, const T dt, const T inv_dt,
                                        const int iters, const int solver)
 {
-    picard_step<T, NZ, VEG, RICHARDS, CURVE, COND, false, SOLVER>(
+    picard_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
         U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, dt, inv_dt, iters, solver);
 }
 
-// Cotangents through one iteration of picard_step (no snowpack) at its
+// Cotangents through one iteration of picard_step at its
 // iterate (U, sat) before the iteration's closure, with the surface carry
 // `s` it reads, as implicit_step_adjoint: the closure, the tendencies, the
 // terms and the rows are recomputed there, and each system is undone by
@@ -792,8 +1028,12 @@ SOIL_NOINLINE_FN void picard_step_call(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s,
 // variable, so its surface block's outputs take only what its own rows
 // read (the ground heat flux and the infiltration), and the cotangents of
 // its inputs (the surface as iteration 0 left it, its pool before the
-// dropped spill) are added to gsc.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+// dropped spill, its unclipped SWE) are added to gsc. Under SNOW the
+// first iteration's surface path also takes the step's closing clip of
+// the SWE that iteration 0 updated, which the later iterations read
+// unclipped.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int SOLVER>
 SOIL_FN void picard_iter_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
                                  const Forcing<T>& f, const soil::Consts<T>& sc,
                                  const LandColumnParams<T>& c, const T* dz, const T* dzf,
@@ -809,8 +1049,8 @@ SOIL_FN void picard_iter_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
     for (int k = 0; k < NZ; ++k) xs[k] = sat[k];
     Surface<T> xsurf = s;
     ImplicitRates<T, NZ> r;
-    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, false>(U, xs, xsurf, f, sc, c, dz, dzf, zc,
-                                                          zf, rf, rf_stride, r);
+    closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, xs, xsurf, f, sc, c, dz, dzf, zc,
+                                                         zf, rf, rf_stride, r);
     r.U[NZ - 1] = r.U[NZ - 1] - r.G / dz_top;
     if (RICHARDS) r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
     if (later) {
@@ -884,19 +1124,21 @@ SOIL_FN void picard_iter_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
             if (RICHARDS) gs[k] = gs[k] + gsn[k];
         }
     }
-    T gy[SO_N];
+    T gy[SO_N + SNOW];
     gy[SO_QH] = T(0);
     gy[SO_G] = -gfU[NZ - 1] / dz_top;
     gy[SO_INFIL] = RICHARDS ? gfs[NZ - 1] / dz_top : T(0);
     Surface<T> gk{};
     if (later) {
 #pragma unroll
-        for (int o = SO_POOL; o < SO_N; ++o) gy[o] = T(0);
+        for (int o = SO_POOL; o < SO_N + SNOW; ++o) gy[o] = T(0);
     } else {
-        surface_update_adjoint<T, VEG, RICHARDS>(gsc, gy, dt);
+        T swe_new = T(0);
+        if constexpr (SNOW) swe_new = s.swe + r.surf.dswe * dt;
+        surface_update_adjoint<T, VEG, RICHARDS, SNOW>(gsc, gy, dt, swe_new);
         gk = gsc;
     }
-    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND>(
+    closure_rhs_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
         U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, gU, gs, gk, gfU, gfs, gy, x, gKsat,
         gskm);
     if (later) {
@@ -906,19 +1148,24 @@ SOIL_FN void picard_iter_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
         gsc.C = gsc.C + gk.C;
         gsc.nu = gsc.nu + gk.nu;
         gsc.An = gsc.An + gk.An;
+        if constexpr (SNOW) gsc.swe = gsc.swe + gk.swe;
     } else {
         gsc = gk;
     }
 }
 
-// Cotangents through one picard_step (no snowpack) with `iters`
-// iterations, as step_adjoint. The iterations are undone from the last:
-// for iteration k, the iterate u_k and the surface carry after iteration 0
-// are recomputed from the step's stored start by picard_step's first k
-// iterations (picard_step_call; nothing is stored per iteration), then
+// Cotangents through one picard_step with `iters` iterations, as
+// step_adjoint. The iterations are undone from the last: for iteration k,
+// the iterate u_k and the surface carry after iteration 0 are recomputed
+// from the step's stored start by picard_step's first k iterations
+// (picard_step_call; nothing is stored per iteration), then
 // picard_iter_adjoint takes them back to the iterate before it. The closed
-// start u^n that the later iterations read is the start's sweeps.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int SOLVER>
+// start u^n that the later iterations read is the start's sweeps. Under
+// SNOW the recomputed surface's SWE is set to what the iteration read,
+// which picard_step_call's closing clip does not keep: the start's for
+// iteration 0, iteration 0's unclipped update for the later ones.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int SOLVER>
 SOIL_FN void picard_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Surface<T>& s,
                                  const Forcing<T>& f, const soil::Consts<T>& sc,
                                  const LandColumnParams<T>& c, const T* dz, const T* dzf,
@@ -941,9 +1188,10 @@ SOIL_FN void picard_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
 #pragma unroll
         for (int k = 0; k < NZ; ++k) { xU[k] = U[k]; xs[k] = sat[k]; }
         Surface<T> xsurf = s;
-        picard_step_call<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+        picard_step_call<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
             xU, xs, xsurf, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, dt, inv_dt, it, solver);
-        picard_iter_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+        if constexpr (SNOW) xsurf.swe = it == 0 ? s.swe : s.swe + swe_rate<T>(s.swe, f, c) * dt;
+        picard_iter_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
             xU, xs, xsurf, f, sc, c, dz, dzf, zc, zf, rf, rf_stride, it > 0, U, sn, gU, gs, gsc,
             gUn, gsn, gKsat, gskm, dt, inv_dt, solver);
     }
@@ -951,15 +1199,16 @@ SOIL_FN void picard_step_adjoint(const T (&U)[NZ], const T (&sat)[NZ], const Sur
 
 // rows of a step's carry in the scratch: U and sat (NZ each), then the
 // pool, skin temperature, canopy water, carbon, vegetation fraction and net
-// assimilation (0 where the composition has none)
-template <int NZ>
+// assimilation (0 where the composition has none), and under SNOW the SWE
+template <int NZ, bool SNOW = false>
 struct ScratchRows {
-    static constexpr long long value = 2 * NZ + 6;
+    static constexpr long long value = 2 * NZ + 6 + SNOW;
 };
 
-// The segment VJP of one column by STEPPER (soil::STEPPER_EULER, or
+// The segment VJP of one column by STEPPER (soil::STEPPER_EULER, _HEUN, or
 // _IMPLICIT with SOLVER; PICARD: picard_step with `iters` iterations,
-// SOLVER_RUNTIME taking `solver`; no snowpack) with static inputs: `steps` forward
+// SOLVER_RUNTIME taking `solver`), with a snowpack where SNOW, with static
+// inputs (Heun's two Forcing structs the same): `steps` forward
 // steps from the segment's input carry `in`, each step's input carry
 // stored to `scratch` (laid out [step][row][cell], ScratchRows rows, so
 // neighbouring columns touch neighbouring addresses), then the reverse
@@ -967,8 +1216,8 @@ struct ScratchRows {
 // field reads 0: under NoFlow the saturation is not an output). Writes the
 // input cotangents to `gin` (the fields `in` has) and adds the parameter
 // cotangents to gKsat and gskm.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, int STEPPER,
-          int SOLVER, bool PICARD = false>
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW,
+          int STEPPER, int SOLVER, bool PICARD = false>
 SOIL_FN void segment_vjp_column(const long long col, const long long cells, const int steps,
                                 const LandCarry& in, const LandCarry& gout, const LandCarry& gin,
                                 T* scratch, const LandInputs& inputs, const T* root,
@@ -978,11 +1227,9 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
                                 const T* zc, const T* zf, const T dt, const T inv_dt, T& gKsat,
                                 T& gskm, const int iters = 1, const int solver = SOLVER)
 {
-    static_assert(STEPPER == soil::STEPPER_EULER || STEPPER == soil::STEPPER_IMPLICIT,
-                  "the land segment VJP runs ForwardEuler and ImplicitEuler");
     static_assert(!PICARD || STEPPER == soil::STEPPER_IMPLICIT,
                   "the Picard iterations are ImplicitEuler's");
-    constexpr long long rows = ScratchRows<NZ>::value;
+    constexpr long long rows = ScratchRows<NZ, SNOW>::value;
     T U[NZ], sat[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -998,6 +1245,7 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
         s.nu = static_cast<const T*>(in.nu)[col];
         s.An = static_cast<const T*>(in.An)[col];
     }
+    if constexpr (SNOW) s.swe = static_cast<const T*>(in.swe)[col];
     const T* rf = VEG ? root + col * root_cell_stride : nullptr;
     Forcing<T> f;
 #pragma unroll
@@ -1017,16 +1265,20 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
         rec[(2 * NZ + 3) * cells] = s.C;
         rec[(2 * NZ + 4) * cells] = s.nu;
         rec[(2 * NZ + 5) * cells] = s.An;
+        if constexpr (SNOW) rec[(2 * NZ + 6) * cells] = s.swe;
         if constexpr (PICARD)
-            picard_step_call<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+            picard_step_call<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt, iters,
                 solver);
+        else if constexpr (STEPPER == soil::STEPPER_HEUN)
+            heun_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, f, sc, c, dz, dzf,
+                                                               zc, zf, rf, root_row_stride, dt);
         else if (STEPPER == soil::STEPPER_IMPLICIT)
-            implicit_step<T, NZ, VEG, RICHARDS, CURVE, COND, false, SOLVER>(
+            implicit_step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, dt, inv_dt);
         else
-            step<T, NZ, VEG, RICHARDS, CURVE, COND, false>(U, sat, s, f, sc, c, dz, dzf, zc, zf,
-                                                           rf, root_row_stride, dt);
+            step<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, sc, c, dz, dzf, zc, zf,
+                                                          rf, root_row_stride, dt);
     }
 
     auto read = [&](const void* p, const long long i) {
@@ -1045,6 +1297,7 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
     gsc.C = read(gout.C, col);
     gsc.nu = read(gout.nu, col);
     gsc.An = read(gout.An, col);
+    if constexpr (SNOW) gsc.swe = read(gout.swe, col);
     for (int i = steps - 1; i >= 0; --i) {
         const T* rec = scratch + (long long)i * rows * cells + col;
 #pragma unroll
@@ -1058,18 +1311,23 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
         s.C = rec[(2 * NZ + 3) * cells];
         s.nu = rec[(2 * NZ + 4) * cells];
         s.An = rec[(2 * NZ + 5) * cells];
+        if constexpr (SNOW) s.swe = rec[(2 * NZ + 6) * cells];
         if constexpr (PICARD)
-            picard_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+            picard_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, gU, gs, gsc, gKsat,
                 gskm, dt, inv_dt, iters, solver);
+        else if constexpr (STEPPER == soil::STEPPER_HEUN)
+            heun_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(
+                U, sat, s, f, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, gU, gs, gsc, gKsat,
+                gskm, dt);
         else if (STEPPER == soil::STEPPER_IMPLICIT)
-            implicit_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SOLVER>(
+            implicit_step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW, SOLVER>(
                 U, sat, s, f, sc, c, dz, dzf, zc, zf, rf, root_row_stride, gU, gs, gsc, gKsat,
                 gskm, dt, inv_dt);
         else
-            step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND>(U, sat, s, f, sc, c, dz, dzf, zc,
-                                                            zf, rf, root_row_stride, gU, gs, gsc,
-                                                            gKsat, gskm, dt);
+            step_adjoint<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, sc, c, dz, dzf,
+                                                                  zc, zf, rf, root_row_stride,
+                                                                  gU, gs, gsc, gKsat, gskm, dt);
     }
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -1084,6 +1342,7 @@ SOIL_FN void segment_vjp_column(const long long col, const long long cells, cons
         static_cast<T*>(gin.nu)[col] = gsc.nu;
         static_cast<T*>(gin.An)[col] = gsc.An;
     }
+    if constexpr (SNOW) static_cast<T*>(gin.swe)[col] = gsc.swe;
 }
 
 }  // namespace land

@@ -112,11 +112,13 @@ INSTANTIATIONS = {
     # the LandModel's segment VJP over the vegetated bench composition
     # (Richards over Brooks-Corey and linear conductivity) at Nz 20:
     # ImplicitEuler with any number of Picard iterations (the costliest
-    # compile of the port, first), ForwardEuler and ImplicitEuler (each
-    # solver)
+    # compile of the port, first), ForwardEuler, ImplicitEuler (each
+    # solver), Heun, and ImplicitEuler (PCR) with a snowpack
     "land_column_segment_vjp": [
-        ((*stepper, "veg", "richards", "bc", "linear"), dtype, 20)
-        for stepper in (("implicit", "picard"), (), ("implicit", "thomas"), ("implicit", "pcr"))
+        ((*stepper, "veg", "richards", "bc", "linear", *snow), dtype, 20)
+        for stepper, snow in ((("implicit", "picard"), ()), ((), ()),
+                              (("implicit", "thomas"), ()), (("implicit", "pcr"), ()),
+                              (("heun",), ()), (("implicit", "pcr"), ("snow",)))
         for dtype in (_F32, _F64)
     ],
 }

@@ -3,12 +3,15 @@ kernel, its plain PyTorch version and the wrapper that picks between them by
 device (the land counterpart of :mod:`~terrarium_tpu_torch.ops.fused_vjp`).
 
 ``land_column_segment_vjp`` is the vector-Jacobian product of one segment
-of :func:`~terrarium_tpu_torch.ops.land_step.land_column_rollout` or
+of :func:`~terrarium_tpu_torch.ops.land_step.land_column_rollout`,
+:func:`~terrarium_tpu_torch.ops.land_step.land_column_heun_rollout` or
 :func:`~terrarium_tpu_torch.ops.land_step.land_column_implicit_rollout`
 (Thomas or PCR solves, any number of Picard iterations), for each scheme in
-``LAND_VJP_SCHEMES``, over a LandModel without a snowpack and with static
-inputs. From the segment's input carry (the model's live carry; under
-``NoFlow`` also the saturation, which the steps read) and the cotangents of
+``LAND_VJP_SCHEMES``, over a LandModel with or without a snowpack and with
+static inputs: every composition the land rollout kernel takes with static
+inputs. From the segment's input carry (the model's live carry, the SWE
+under a snowpack; under ``NoFlow`` also the saturation, which the steps
+read) and the cotangents of
 its output carry, it returns the cotangents of the input carry and of the
 two differentiated parameters, ``K_sat`` and ``sk_mineral`` (``sqrt`` of
 the mineral conductivity times the mineral fraction, as the soil's
@@ -44,10 +47,10 @@ __all__ = ["land_column_segment_vjp", "land_column_segment_vjp_plain", "LAND_VJP
 
 _NAME = "land_column_segment_vjp"  # csrc/land_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
-_SCRATCH_ROWS = 6  # beyond 2 * Nz: pool, skin, canopy water, carbon, fraction, An
 #: the (stepper, solver) that have a land segment VJP, ImplicitEuler's with
 #: any number of Picard iterations
-LAND_VJP_SCHEMES = (("euler", None), ("implicit", "thomas"), ("implicit", "pcr"))
+LAND_VJP_SCHEMES = (("euler", None), ("heun", None), ("implicit", "thomas"),
+                    ("implicit", "pcr"))
 
 
 def mineral_fraction(soil) -> float:
@@ -59,22 +62,16 @@ def mineral_fraction(soil) -> float:
 
 def check_scheme(params: LandParams, stepper: str, solver: Optional[str],
                  picard_iters: int = 1) -> tuple:
-    """The kernel's stepper tags of a scheme (ImplicitEuler's with
-    ``picard_iters`` Picard iterations); ``ValueError`` naming the ROADMAP
-    item for one without a land segment VJP."""
-    if "snow" in params.tags:
-        raise ValueError("the land segment VJP runs a LandModel without a snowpack; the "
-                         "Snowpack in the VJP is still to port (ROADMAP Queue B #1)")
-    if stepper == "heun":
-        raise ValueError("the land segment VJP runs ForwardEuler and ImplicitEuler; Heun "
-                         "over the LandModel in the VJP is still to port (ROADMAP Queue B #1)")
+    """The kernel's stepper tags of a scheme (``("heun",)`` for Heun,
+    ImplicitEuler's with ``picard_iters`` Picard iterations);
+    ``ValueError`` for one without a land segment VJP."""
     if (stepper, solver if stepper == "implicit" else None) not in LAND_VJP_SCHEMES:
         raise ValueError(f"the land segment VJP runs {list(LAND_VJP_SCHEMES)}, not "
                          f"{(stepper, solver)}")
     if stepper != "implicit":
         if picard_iters != 1:
             raise ValueError(f"Picard iterations are ImplicitEuler's, not {stepper!r}'s")
-        return ()
+        return ("heun",) if stepper == "heun" else ()
     return implicit_tags(solver, picard_iters)
 
 
@@ -150,15 +147,15 @@ def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, La
                             z_faces, params: LandParams, dt: float, time: float, steps: int,
                             gcarry: Dict[str, torch.Tensor], *, stepper: str = "euler",
                             solver: Optional[str] = None, picard_iters: int = 1):
-    """The VJP of ``steps`` land steps of ``stepper`` (``"euler"``, or
-    ``"implicit"`` with ``solver`` ``"pcr"`` or ``"thomas"`` and
-    ``picard_iters`` Picard iterations) from
+    """The VJP of ``steps`` land steps of ``stepper`` (``"euler"``,
+    ``"heun"``, or ``"implicit"`` with ``solver`` ``"pcr"`` or ``"thomas"``
+    and ``picard_iters`` Picard iterations) from
     ``carry`` with the static ``inputs``, as the land rollout wrappers take
     them, applied to ``gcarry``, the cotangents of the output carry (the
     model's live carry); returns ``(gcarry0, gK_sat, gsk_mineral)``. CPU
     tensors take :func:`land_column_segment_vjp_plain`; CUDA tensors launch
-    the kernel of ``params.tags``. Raises ``ValueError`` for Heun, a
-    snowpack or series inputs, naming the ROADMAP item."""
+    the kernel of ``params.tags``. Raises ``ValueError`` for series
+    inputs, which the fused gradient does not take."""
     stepper_tags = check_scheme(params, stepper, solver, picard_iters)
     coords = (dz, dz_faces, z_centers, z_faces)
     _check(carry, inputs, root_fraction, coords, params)
@@ -189,7 +186,10 @@ def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, La
                           tags=tuple(stepper_tags) + params.tags)
     gin = {n: torch.empty_like(carry[n]) for n in carry_names(params)}
     blocks = -(-cells // _THREADS)
-    scratch = torch.empty(steps, 2 * nz + _SCRATCH_ROWS, cells, dtype=U.dtype, device=U.device)
+    # a step's carry: U and sat, the pool, skin, canopy water, carbon,
+    # fraction and An, and the SWE under a snowpack (land::ScratchRows)
+    rows = 2 * nz + 6 + ("snow" in params.tags)
+    scratch = torch.empty(steps, rows, cells, dtype=U.dtype, device=U.device)
     partials = torch.empty(2, blocks, dtype=U.dtype, device=U.device)
     gparams = torch.empty(2, dtype=U.dtype, device=U.device)
     args, keep = launch_args(carry, gin, inputs, root_fraction, coords, params)

@@ -7,9 +7,9 @@ closure-rotated steps in segments of ``inner_steps``, then one trailing
 ``params``. The schemes it takes, chosen by type the same way on the CPU
 and on the card: for a :class:`SoilModel`, ForwardEuler, Heun or
 ImplicitEuler (Thomas or PCR, any number of Picard iterations) over heat +
-Richards flow or over the heat-only model; for a :class:`LandModel`
-without a snowpack (any composition the land kernel runs, with static
-inputs), ForwardEuler or ImplicitEuler (Thomas or PCR, any number of
+Richards flow or over the heat-only model; for a :class:`LandModel` with
+or without a snowpack (any composition the land kernel runs, with static
+inputs), ForwardEuler, Heun or ImplicitEuler (Thomas or PCR, any number of
 Picard iterations). Each segment is a :class:`torch.autograd.Function`:
 
 * forward: the scheme's rollout wrapper, soil
@@ -29,9 +29,10 @@ their cotangents from the VJP are chained to the caller's tensors by torch;
 a model whose other soil parameters require grad is refused. The clock is
 not differentiated. For the heat-only soil the carry is the internal
 energy; the saturation it reads enters every segment, which returns its
-cotangent. For the LandModel the carry is the model's live carry (under
-``NoFlow`` with the saturation it reads) and the inputs are the static
-values the state holds.
+cotangent. For the LandModel the carry is the model's live carry (the
+snow water equivalent under a snowpack; under ``NoFlow`` with the
+saturation it reads) and the inputs are the static values the state
+holds.
 
 The JAX package's ``bwd="xla"``, ``bwd_chunk`` and ``bwd_remat`` options are
 memory schedules of its XLA backward and have no counterpart here; the XLA
@@ -187,12 +188,12 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
     Args:
         model_fn: ``params -> model``, a :class:`SoilModel` that the rollout
             kernels run (heat + Richards, or heat only) or a
-            :class:`LandModel` without a snowpack that the land kernel runs,
-            whose soil's ``sat_hydraulic_cond`` and mineral conductivity may
-            be 0-d tensors built from ``params``; no other soil parameter
-            may require grad.
-        timestepper: :class:`ForwardEuler`, :class:`Heun` (SoilModel only)
-            or :class:`ImplicitEuler` (Thomas or PCR, any ``picard_iters``).
+            :class:`LandModel` that the land kernel runs (with or without a
+            snowpack), whose soil's ``sat_hydraulic_cond`` and mineral
+            conductivity may be 0-d tensors built from ``params``; no other
+            soil parameter may require grad.
+        timestepper: :class:`ForwardEuler`, :class:`Heun` or
+            :class:`ImplicitEuler` (Thomas or PCR, any ``picard_iters``).
         ctx: the simulation's context: for a SoilModel its only BC is a
             Dirichlet top temperature given as a value or as ``f(t)``; for
             a LandModel it is the model's coupling context (``sim.ctx``).
@@ -201,10 +202,9 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         steps: total rollout length, a multiple of ``inner_steps``.
         inner_steps: steps of one segment (the checkpoint interval).
 
-    Raises ``ValueError`` for anything else, naming the ROADMAP item that
-    ports it where one does: another stepper, Heun over a LandModel or a
-    LandModel with a snowpack (Queue B #1), time-varying sources (Queue B
-    #1, not to port) or forcings, an input variable as the top temperature.
+    Raises ``ValueError`` for anything else: another stepper, time-varying
+    sources (JAX's refuses them too) or forcings, an input variable as the
+    top temperature.
     """
     if steps % inner_steps != 0:
         raise ValueError(f"steps={steps} not a multiple of inner_steps={inner_steps}")
@@ -239,7 +239,6 @@ def make_fused_grad_rollout(model_fn: Callable, timestepper, ctx, input_sources=
         """The live carry after the land segments, as a dict."""
         grid = model.grid
         params = land_step.LandParams.of(model, grid.dtype)
-        # Heun or a snowpack: ROADMAP Queue B #1
         check_scheme(params, stepper, solver, picard_iters)
         K, skm = _param_tensors(model, grid.device)
         names = land_step.carry_names(params)

@@ -374,11 +374,13 @@ def test_run_refuses_what_the_kernels_do_not_take(monkeypatch):
         tp.Simulation(sim.model, sim.timestepper, sim.state, (cube,), bcs=sim.bcs).run(steps=2)
 
 
-def test_fused_grad_refuses_heun_series_and_heat_only():
-    """A series top temperature with either stepper is refused, and so are
-    Heun and the snowpack over a LandModel (ROADMAP Queue B #1); Heun over
+def test_fused_grad_refuses_heun_series_and_heat_only(monkeypatch):
+    """A series top temperature with either stepper is refused; Heun over
     heat + Richards and over the heat-only model is taken
-    (`tests/test_torch_grad_steppers.py`)."""
+    (`tests/test_torch_grad_steppers.py`), and so are Heun and the snowpack
+    over a LandModel, refused until the land segment VJP took them: their
+    rollouts run the land segment VJP (its plain version here) with the
+    scheme and give a finite gradient in the initial energy."""
     sim = heun_forced("port")
     grid = sim.model.grid
     for ts in (tp.Heun(), tp.ForwardEuler()):
@@ -395,14 +397,29 @@ def test_fused_grad_refuses_heun_series_and_heat_only():
     assert bool(torch.isfinite(out.temperature).all())
     sources = (tp.FieldInputSource(fields={"surface_shortwave_down": 400.0,
                                            "air_temperature": 12.0}),)
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    import terrarium_tpu_torch.timesteppers.fused_grad as fg
+
+    calls = []
+    real = lv.land_column_segment_vjp
+
+    def spy(*a, **kw):
+        calls.append((kw["stepper"], "snow" in a[7].tags))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fg, "land_column_segment_vjp", spy)
     for stepper, snow in ((tp.Heun(), None), (tp.ForwardEuler(), tp.Snowpack())):
         land = tp.initialize(tp.LandModel(grid=grid, snow=snow), stepper,
                              initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
                              input_sources=sources)
         roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx,
                                        steps=4, dt=300.0, inner_steps=2)
-        with pytest.raises(ValueError, match="Queue B #1"):
-            roll(land.state, None)
+        state = land.state.copy()
+        U0 = state.internal_energy.clone().requires_grad_()
+        state.set(internal_energy=U0)
+        (g,) = torch.autograd.grad(roll(state, None).temperature.mean(), U0)
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+    assert calls == [("heun", False)] * 2 + [("euler", True)] * 2
 
 
 def test_series_wrappers_check_their_operands():

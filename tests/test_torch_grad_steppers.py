@@ -298,19 +298,30 @@ def test_segment_vjp_refuses_the_schemes_it_does_not_run():
                                    stepper="implicit", physics="heat", picard_iters=0)
 
 
-def test_fused_grad_refuses_what_it_does_not_differentiate():
-    """What is still to port over the LandModel: Heun (Queue B #1), a
-    ValueError naming its queue item; a LandModel under a soil's context, a
-    ValueError naming the coupling context. The SoilModel's heat-only Heun
-    and ImplicitEuler and its Picard iterations are taken (the cases
-    above), and so is the LandModel's ImplicitEuler with picard_iters=2,
-    refused until the land kernels ran the iterations: its gradient in the
-    initial energy through the land segments is finite and not zero."""
+def test_fused_grad_refuses_what_it_does_not_differentiate(monkeypatch):
+    """A LandModel under a soil's context is refused, a ValueError naming
+    the coupling context. The SoilModel's heat-only Heun and ImplicitEuler
+    and its Picard iterations are taken (the cases above), and so are the
+    LandModel's ImplicitEuler with picard_iters=2 and its Heun, each
+    refused until the land kernels took it: the gradient in the initial
+    energy through the land segments (the land segment VJP's plain version
+    here, with the scheme's stepper) is finite and not zero."""
     sim = _port_sim("picard2-pcr")
     grid = sim.model.grid
     for case in ("heat-heun", "heat-picard2-pcr", "picard2-thomas"):
         make_fused_grad_rollout(lambda p: sim.model, _port_stepper(case), sim.ctx, steps=4,
                                 dt=300.0, inner_steps=2)
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    import terrarium_tpu_torch.timesteppers.fused_grad as fg
+
+    steppers = []
+    real = lv.land_column_segment_vjp
+
+    def spy(*a, **kw):
+        steppers.append(kw["stepper"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fg, "land_column_segment_vjp", spy)
     sources = (tp.FieldInputSource(fields={"surface_shortwave_down": 400.0,
                                            "air_temperature": 12.0}),)
     picard = tp.initialize(tp.LandModel(grid=grid), tp.ImplicitEuler(dt=600.0, picard_iters=2),
@@ -328,8 +339,12 @@ def test_fused_grad_refuses_what_it_does_not_differentiate():
                          input_sources=sources)
     roll = make_fused_grad_rollout(lambda p: land.model, land.timestepper, land.ctx, steps=4,
                                    dt=300.0, inner_steps=2)
-    with pytest.raises(ValueError, match="Queue B #1"):
-        roll(land.state, None)
+    state = land.state.copy()
+    U0 = state.internal_energy.clone().requires_grad_()
+    state.set(internal_energy=U0)
+    (g,) = torch.autograd.grad(roll(state, None).temperature.mean(), U0)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+    assert steppers == ["implicit"] * 2 + ["heun"] * 2
     soil_ctx = _port_sim("heun").ctx  # a LandModel from model_fn under a soil context
     roll = make_fused_grad_rollout(lambda p: land.model, tp.ForwardEuler(), soil_ctx, steps=4,
                                    dt=300.0, inner_steps=2)

@@ -1079,31 +1079,60 @@ def test_run_with_forcings_runs_through_the_modules_on_the_card(cuda):
 LAND_VJP_SCHEMES = {"euler": ("euler", None, 60.0), "implicit-pcr": ("implicit", "pcr", 600.0),
                     "implicit-thomas": ("implicit", "thomas", 600.0),
                     "implicit-pcr-picard2": ("implicit", "pcr", 600.0),
-                    "implicit-thomas-picard3": ("implicit", "thomas", 600.0)}
+                    "implicit-thomas-picard3": ("implicit", "thomas", 600.0),
+                    "heun": ("heun", None, 60.0),
+                    "implicit-pcr-snow": ("implicit", "pcr", 600.0)}
 #: the Picard count of a scheme (1 where not given)
 LAND_VJP_PICARD = {"implicit-pcr-picard2": 2, "implicit-thomas-picard3": 3}
+#: the schemes with a snowpack (``_land_sim``'s snowfall and initial pack);
+#: "heun-snow" is built at its first launch (no prebuilt instantiation)
+LAND_VJP_SNOW = ("implicit-pcr-snow", "heun-snow")
 
 
 def _land_grad_sim(cells, dtype, device, scheme):
     """``_land_sim``'s vegetated composition with its forcing's daily means
     as static per-column inputs (the fused gradient takes static inputs):
     shortwave 900 cos(lat) / pi, air temperature 28 max(cos lat, 0.05) - 8;
-    the scheme's stepper."""
-    key, solver, dt = LAND_VJP_SCHEMES[scheme]
+    the scheme's stepper; under LAND_VJP_SNOW its snowpack, snowfall and
+    initial pack."""
+    key, solver, dt = LAND_VJP_SCHEMES["heun" if scheme == "heun-snow" else scheme]
     stepper = (tp.ImplicitEuler(dt=dt, solver=solver,
                                 picard_iters=LAND_VJP_PICARD.get(scheme, 1))
-               if key == "implicit" else tp.ForwardEuler(dt=dt))
-    base = _land_sim(cells, dtype, device, stepper=stepper)
+               if key == "implicit" else tp.Heun(dt=dt) if key == "heun"
+               else tp.ForwardEuler(dt=dt))
+    snow = scheme in LAND_VJP_SNOW
+    base = _land_sim(cells, dtype, device, stepper=stepper, snow=snow)
     lat = np.linspace(-60.0, 80.0, cells)
     coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
     fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0,
               "surface_shortwave_down": 900.0 * coslat / np.pi,
               "air_temperature": 28.0 * coslat - 8.0}
-    return tp.initialize(
-        base.model, stepper, (tp.FieldInputSource(fields=fields),),
-        initializers={"temperature": lambda x, z: (28.0 * coslat - 8.0)[None, :] + 0.0 * z,
-                      "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
-                      "vegetation_area_fraction": 0.5})
+    inits = {"temperature": lambda x, z: (28.0 * coslat - 8.0)[None, :] + 0.0 * z,
+             "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+             "vegetation_area_fraction": 0.5}
+    if snow:
+        fields["snowfall"] = 2.0e-8
+        inits["snow_water_equivalent"] = 0.02
+    return tp.initialize(base.model, stepper, (tp.FieldInputSource(fields=fields),),
+                         initializers=inits)
+
+
+def _land_vjp_operands(sim, device, seed):
+    """A land gradient simulation's VJP operands: the carry, static inputs,
+    root fraction, coordinates, parameters and seeded output cotangents."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    model, st = sim.model, sim.state
+    params = ls.LandParams.of(model, model.grid.dtype)
+    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
+    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    rng = np.random.default_rng(seed)
+    gout = {n: torch.as_tensor(rng.normal(size=tuple(carry[n].shape)), device=device).to(
+        model.grid.dtype) for n in model.live_carry}
+    return (carry, land_inputs(model, st, sim.input_sources), st.auxiliary["root_fraction"],
+            coords, params, gout)
 
 
 @pytest.mark.cuda
@@ -1115,23 +1144,13 @@ def test_land_segment_vjp_kernel_matches_plain(cuda, scheme):
     floor of 1e-9 of its largest magnitude), the parameter cotangents within
     1e-9; one launch. The Picard schemes' Thomas entry with three
     iterations is the prebuilt Picard entry, whose count and solver are
-    taken at run time."""
-    from terrarium_tpu_torch.ops import land_step as ls
+    taken at run time; Heun and the snowpack (ImplicitEuler PCR) are the
+    prebuilt entries of this slice's chip_smoke.py phases."""
     from terrarium_tpu_torch.ops import land_vjp as lv
-    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
 
     key, solver, dt = LAND_VJP_SCHEMES[scheme]
     sim = _land_grad_sim(256, torch.float64, cuda, scheme)
-    model, st = sim.model, sim.state
-    params = ls.LandParams.of(model, torch.float64)
-    carry = {n: st[n].contiguous() for n in ls.carry_names(params)}
-    coords = tuple(getattr(model.grid, n)[:, 0].contiguous()
-                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
-    inputs = land_inputs(model, st, sim.input_sources)
-    root = st.auxiliary["root_fraction"]
-    rng = np.random.default_rng(3)
-    gout = {n: torch.as_tensor(rng.normal(size=tuple(carry[n].shape)), device=cuda)
-            for n in model.live_carry}
+    carry, inputs, root, coords, params, gout = _land_vjp_operands(sim, cuda, 3)
     before = lv.land_column_segment_vjp.launches
     kw = {"stepper": key, "solver": solver, "picard_iters": LAND_VJP_PICARD.get(scheme, 1)}
     got, gK, gskm = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0,
@@ -1156,11 +1175,34 @@ def test_land_fused_grad_runs_the_land_kernels(cuda, scheme):
     kernel and two of the segment-VJP kernel, and the gradient in (log
     K_sat, k_mineral) within 1e-8 of ``make_rollout_fn``'s autograd through
     the process modules."""
+    _fused_grad_runs_the_land_kernels(cuda, scheme)
+
+
+@pytest.mark.cuda
+def test_land_fused_grad_builds_heun_with_a_snowpack_at_first_launch(cuda):
+    """Heun with a snowpack, which no prebuilt instantiation covers (the
+    land VJP's nor the land rollout's), through ``make_fused_grad_rollout``
+    as ``test_land_fused_grad_runs_the_land_kernels``: both kernels built
+    at their first launch, and the gradient held to the modules'
+    autograd."""
+    from terrarium_tpu_torch.ops import cuda_build
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    sim = _land_grad_sim(8, torch.float64, cuda, "heun-snow")
+    tags = ls.land_composition(sim.model)
+    assert tags[-1] == "snow"
+    assert (("heun",) + tags, torch.float64, 20) not in (
+        cuda_build.INSTANTIATIONS["land_column_segment_vjp"]
+        + cuda_build.INSTANTIATIONS["land_column_rollout"])
+    _fused_grad_runs_the_land_kernels(cuda, "heun-snow")
+
+
+def _fused_grad_runs_the_land_kernels(cuda, scheme):
     from terrarium_tpu_torch.ops import land_step as ls
     from terrarium_tpu_torch.ops import land_vjp as lv
     from terrarium_tpu_torch.timesteppers.autodiff import make_rollout_fn
 
-    key, _, dt = LAND_VJP_SCHEMES[scheme]
+    key, _, dt = LAND_VJP_SCHEMES["heun" if scheme == "heun-snow" else scheme]
     sim = _land_grad_sim(256, torch.float64, cuda, scheme)
     base = sim.model
 
@@ -1187,6 +1229,49 @@ def test_land_fused_grad_runs_the_land_kernels(cuda, scheme):
     ref = grads(False)
     np.testing.assert_allclose(got, ref, rtol=1e-8)
     assert all(g != 0.0 for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["heun", "implicit-pcr-snow"])
+def test_land_segment_vjp_f32_kernel_matches_plain(cuda, scheme):
+    """The float32 land segment-VJP entries of Heun and of the snowpack
+    (ImplicitEuler PCR) on 1,024 columns over 12 steps: each cotangent and
+    parameter cotangent of the kernel within twice the float32 plain
+    version's own error plus 1e-3 of the field's largest magnitude (the
+    parameters': of their value) of the float64 plain version on the same
+    float32 operands; one launch."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    key, solver, dt = LAND_VJP_SCHEMES[scheme]
+    sim = _land_grad_sim(1024, torch.float32, cuda, scheme)
+    carry, inputs, root, coords, params, gout = _land_vjp_operands(sim, cuda, 5)
+    kw = {"stepper": key, "solver": solver}
+    before = lv.land_column_segment_vjp.launches
+    got = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, dt, 0.0, 12, gout,
+                                     **kw)
+    assert lv.land_column_segment_vjp.launches == before + 1
+    plain = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params, dt, 0.0, 12,
+                                             gout, **kw)
+    f64 = torch.float64
+
+    def wide(t):
+        return t.to(f64)
+
+    truth = lv.land_column_segment_vjp_plain(
+        {n: wide(t) for n, t in carry.items()},
+        {n: ls.LandInput(wide(i.values), i.t0, i.dts) for n, i in inputs.items()}, wide(root),
+        *(wide(c) for c in coords), ls.LandParams.of(params.model, f64), dt, 0.0, 12,
+        {n: wide(t) for n, t in gout.items()}, **kw)
+    for n in carry:
+        a, b, ref = wide(got[0][n]), wide(plain[0][n]), truth[0][n]
+        assert bool(torch.isfinite(a).all()), n
+        bound = 2.0 * (b - ref).abs() + 1e-3 * float(ref.abs().max())
+        assert bool(((a - ref).abs() <= bound).all()), n
+    for a, b, ref in zip(got[1:], plain[1:], truth[1:]):
+        assert float(ref) != 0.0
+        assert abs(float(a) - float(ref)) <= 2.0 * abs(float(b) - float(ref)) \
+            + 1e-3 * abs(float(ref))
 
 
 @pytest.mark.cuda

@@ -1,18 +1,23 @@
 """The land segment-VJP kernel's column code (``land::segment_vjp_column``
 in ``csrc/land_adjoint.cuh``: the forward with stored carries, the
-recompute, ``land::step_adjoint`` and ``land::implicit_step_adjoint`` with
-each solver, ``land::picard_step_adjoint`` with two and three Picard
-iterations, the parameter cotangents), compiled for the host by the C++
-compiler, against torch autograd through the plain version
+recompute, ``land::step_adjoint``, ``land::heun_step_adjoint`` and
+``land::implicit_step_adjoint`` with each solver,
+``land::picard_step_adjoint`` with two and three Picard iterations, the
+parameter cotangents), compiled for the host by the C++ compiler, against
+torch autograd through the plain version
 (``ops/land_vjp.py::land_column_segment_vjp_plain``) at float64.
 
 Every composition the kernel's templates take is held: bare ground or
 vegetated, over heat only (``NoFlow``) or Richards flow with Van Genuchten
 and Mualem conductivity, Van Genuchten and linear, or Brooks-Corey and
 linear; with constant and Monin-Obukhov drag, both ground-flux forms and
-both ground-resistance factors. The states are
+both ground-resistance factors; and with a ``Snowpack`` over bare ground
+(heat only; Brooks-Corey and linear) and under vegetation (Van Genuchten
+and Mualem; Brooks-Corey and linear). The states are
 ``torch_parity.land_random_state``'s, which reach every clamp and branch of
-the step, with every input static (the VJP takes no series). The bound is
+the step (negative, empty and deep snowpacks among them), with every input
+static (the VJP takes no series); packs that are empty at the start or
+empty within the steps have a test of their own. The bound is
 the soil adjoint's (`test_torch_step_adjoint.py`): 1e-12 of each cotangent,
 with a floor of 1e-12 of its largest magnitude.
 
@@ -24,11 +29,13 @@ differentiates the taken branch only. Those columns are held to a central
 difference of the forward instead, and the rest to the plain version run
 on them alone.
 """
+import contextlib
 import ctypes
 import dataclasses
 import pathlib
 import shutil
 import subprocess
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -37,14 +44,35 @@ import torch
 import terrarium_tpu_torch as tp
 from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.ops import land_vjp as lv
+from terrarium_tpu_torch.processes.vegetation.vegetation import PALADYNAutotrophicRespiration
 
 from torch_parity import land_model, land_random_state
 
 HERE = pathlib.Path(__file__).parent
 CSRC = HERE.parent / "terrarium_tpu_torch" / "csrc"
 CELLS, NZ, STEPS, DT = 48, 8, 6, 600.0
+# Heun's step: at DT its stage leaves the physical range on these states
+# (ROADMAP Queue C: the land's Heun is unstable at 600 s)
+HEUN_DT = 60.0
+
+
+@contextlib.contextmanager
+def respiration_taken_branch():
+    """The plain version's autotrophic respiration with the argument of
+    its f_temp held at or above -40 degC. No value the step uses changes:
+    the soil's factor torch.where(T > 7, f_temp(T), 0) takes f_temp above 7
+    degC, and the air's temperature here is above -10 degC. Where a dry
+    column's ground passes f_temp's pole at -46.02 degC, torch's autograd of
+    the untaken branch gives 0 * inf = NaN, and with the argument held it
+    gives the taken branch's derivative, land_adjoint.cuh's convention for
+    torch.where. The random states' Heun trajectories reach the pole
+    (ROADMAP Queue C)."""
+    f_temp = PALADYNAutotrophicRespiration.f_temp
+    with mock.patch.object(PALADYNAutotrophicRespiration, "f_temp",
+                           staticmethod(lambda T: f_temp(torch.clamp(T, min=-40.0)))):
+        yield
 CURVES, CONDS = {"vg": 0, "bc": 1}, {"mualem": 0, "linear": 1}
-STEPPERS, SOLVERS = {"euler": 0, "implicit": 2}, {"thomas": 0, "pcr": 1}
+STEPPERS, SOLVERS = {"euler": 0, "heun": 1, "implicit": 2}, {"thomas": 0, "pcr": 1}
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +95,8 @@ def _vg_mualem(m):
 
 
 def composition_model(grid, name):
-    """The LandModel of one composition: ``torch_parity.land_model``'s
+    """The LandModel of one composition (``<name>_snow``: that of ``name``
+    with a ``Snowpack``): ``torch_parity.land_model``'s
     ``bare`` (heat only), ``bare_richards`` (Van Genuchten, linear),
     ``coupled`` (Brooks-Corey, linear, constant drag, the reference ground
     flux and a constant ground resistance) and ``consistent`` (the same soil,
@@ -77,6 +106,9 @@ def composition_model(grid, name):
     Mualem under ``coupled``'s vegetation and under bare ground);
     ``bare_bc_mo`` (bare ground over Brooks-Corey and linear with
     ``consistent``'s atmosphere, SEB and ground resistance)."""
+    if name.endswith("_snow"):
+        return dataclasses.replace(composition_model(grid, name[:-len("_snow")]),
+                                   snow=tp.Snowpack())
     if name in ("bare", "bare_richards", "coupled", "consistent"):
         return land_model(tp, grid, name)
     coupled = land_model(tp, grid, "coupled")
@@ -103,6 +135,8 @@ def composition_model(grid, name):
 
 COMPOSITIONS = ["bare", "veg_noflow", "bare_vg_mualem", "vg_mualem", "bare_richards",
                 "bare_bc_mo", "coupled", "consistent"]
+#: the snowpack over each of the kernel's snow instantiations' soils
+SNOW_COMPOSITIONS = ["bare_snow", "bare_bc_mo_snow", "vg_mualem_snow", "consistent_snow"]
 
 
 def vjp_case(name, seed, cells=CELLS):
@@ -132,7 +166,7 @@ def vjp_case(name, seed, cells=CELLS):
 
 
 def host_vjp_run(lib, carry, inputs, root, coords, params, gout, steps, stepper="euler",
-                 solver="thomas", picard=0):
+                 solver="thomas", picard=0, dt=DT):
     """The host build's ``(gcarry0, gK_sat, gsk_mineral)``, the parameter
     cotangents summed over the columns; ``picard`` > 0 runs
     ``land::picard_step_adjoint`` with that many iterations."""
@@ -149,9 +183,10 @@ def host_vjp_run(lib, carry, inputs, root, coords, params, gout, steps, stepper=
         *(ctypes.c_void_p(a) for a in args[6:10]), args[10], ctypes.c_void_p(gparams.data_ptr()),
         ctypes.c_int(NZ), ctypes.c_int(tags[0] == "veg"), ctypes.c_int(richards),
         ctypes.c_int(CURVES[tags[2]] if richards else 0),
-        ctypes.c_int(CONDS[tags[3]] if richards else 0), ctypes.c_int(STEPPERS[stepper]),
+        ctypes.c_int(CONDS[tags[3]] if richards else 0), ctypes.c_int("snow" in tags),
+        ctypes.c_int(STEPPERS[stepper]),
         ctypes.c_int(SOLVERS[solver]), ctypes.c_int(picard), ctypes.c_int(steps),
-        ctypes.c_double(DT),
+        ctypes.c_double(dt),
         ctypes.c_longlong(cells))
     del keep
     assert rc == 0
@@ -172,26 +207,39 @@ def zero_discriminant(inputs, params):
     return (SW <= 0) | (Ta <= v["T_CO2_low"]) | (Ta >= v["T_CO2_high"])
 
 
-def assert_cotangents_close(got, ref, names):
+def assert_cotangents_close(got, ref, names, spread=None):
+    """Each cotangent within 1e-12 of its value plus 1e-12 of the field's
+    largest magnitude; with ``spread`` (``{name: tensor}``) also plus twice
+    that."""
     for name in names:
         a, b = got[name], ref[name]
         assert bool(torch.isfinite(a).all()), name
         scale = float(b.abs().max())
-        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+        if spread is None:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+        else:
+            err = (a - b).abs() - 2.0 * spread[name]
+            assert bool((err <= 1e-12 * b.abs() + 1e-12 * scale).all()), (name, float(err.max()))
 
 
-def _held_to_autograd(host_vjp, composition, seed, name, solver, picard):
+def _held_to_autograd(host_vjp, composition, seed, name, solver, picard, case=None,
+                      conditioned=False):
     """The host build against the plain version's autograd over STEPS steps
-    (``test_host_land_adjoint_matches_autograd``); with Picard iterations
-    the K_sat cotangent's sum leaves out the columns whose share of it is
-    ill-conditioned (``ill_conditioned_K_shares``)."""
+    (``test_host_land_adjoint_matches_autograd``) on ``vjp_case``'s case or
+    on ``case``; with Picard iterations the K_sat cotangent's sum leaves out
+    the columns whose share of it is ill-conditioned
+    (``ill_conditioned_K_shares``). ``conditioned``: each cotangent may
+    also part by twice the plain version's own move under a 1e-15 nudge of
+    the initial state (``nudged_spread``)."""
     iters = max(picard, 1)
-    carry, inputs, root, coords, params, gout = vjp_case(composition, seed)
+    dt = HEUN_DT if name == "heun" else DT
+    carry, inputs, root, coords, params, gout = case or vjp_case(composition, seed)
     got, gK, gskm = host_vjp_run(host_vjp, carry, inputs, root, coords, params, gout, STEPS,
-                                 name, solver or "thomas", picard=picard)
+                                 name, solver or "thomas", picard=picard, dt=dt)
     kw = {"stepper": name, "solver": solver or None, "picard_iters": iters}
-    ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params, DT,
-                                                     0.0, STEPS, gout, **kw)
+    with respiration_taken_branch() if name == "heun" else contextlib.nullcontext():
+        ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params,
+                                                         dt, 0.0, STEPS, gout, **kw)
     bad = torch.zeros(CELLS, dtype=torch.bool)
     for t in ref.values():
         bad |= ~torch.isfinite(t).all(0) if t.dim() == 2 else ~torch.isfinite(t)
@@ -201,10 +249,14 @@ def _held_to_autograd(host_vjp, composition, seed, name, solver, picard):
         carry, gout = columns_of(carry, keep), columns_of(gout, keep)
         inputs = {n: ls.LandInput(i.values[:, keep].contiguous()) for n, i in inputs.items()}
         root = None if root is None else root[:, keep]
-        ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params,
-                                                         DT, 0.0, STEPS, gout, **kw)
+        with respiration_taken_branch() if name == "heun" else contextlib.nullcontext():
+            ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords,
+                                                             params, dt, 0.0, STEPS, gout, **kw)
         got, gK, gskm = columns_of(got, keep), gK[keep], gskm[keep]
-    assert_cotangents_close(got, ref, ref)
+    spread = None
+    if conditioned:
+        spread = nudged_spread(carry, inputs, root, coords, params, gout, kw, ref)
+    assert_cotangents_close(got, ref, ref, spread)
     assert float(rskm) != 0.0
     torch.testing.assert_close(gskm.sum(), rskm, rtol=1e-12, atol=0.0)
     if params.tags[1] != "richards":
@@ -225,6 +277,22 @@ def ref_K_shares(carry, inputs, root, coords, params, gout, kw):
                                             STEPS, gout, per_column=True, **kw)[1]
 
 
+def nudged_spread(carry, inputs, root, coords, params, gout, kw, ref):
+    """How far the plain version's carry cotangents move from ``ref`` when
+    the initial internal energy or saturation moves by 1e-15 of itself, up
+    or down (``ill_conditioned_K_shares``'s nudge, both ways and in both
+    fields): the largest move of each, ``{name: tensor}``."""
+    spread = {n: torch.zeros_like(t) for n, t in ref.items()}
+    for field in ("internal_energy", "saturation_water_ice"):
+        for eps in (1e-15, -1e-15):
+            nudged = {**carry, field: carry[field] * (1 + eps)}
+            moved = lv.land_column_segment_vjp_plain(nudged, inputs, root, *coords, params, DT,
+                                                     0.0, STEPS, gout, **kw)[0]
+            for n in spread:
+                spread[n] = torch.maximum(spread[n], (moved[n] - ref[n]).abs())
+    return spread
+
+
 def ill_conditioned_K_shares(carry, inputs, root, coords, params, gout, kw):
     """The columns whose share of the plain version's K_sat cotangent moves
     by more than 1e-13 of the shares' magnitudes summed over the columns
@@ -239,12 +307,14 @@ def ill_conditioned_K_shares(carry, inputs, root, coords, params, gout, kw):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("stepper", ["euler", "implicit-thomas", "implicit-pcr"])
-@pytest.mark.parametrize("composition", COMPOSITIONS)
+@pytest.mark.parametrize("stepper", ["euler", "heun", "implicit-thomas", "implicit-pcr"])
+@pytest.mark.parametrize("composition", COMPOSITIONS + SNOW_COMPOSITIONS)
 def test_host_land_adjoint_matches_autograd(host_vjp, composition, stepper, seed):
     """The host build's cotangents of the carry within 1e-12 of the plain
     version's autograd (with a floor of 1e-12 of each field's magnitude),
-    over 6 steps of 600 s; the parameter cotangents as sums over the
+    over 6 steps of 600 s (Heun's of 60 s, HEUN_DT, against the plain
+    version with ``respiration_taken_branch``); the parameter cotangents as
+    sums over the
     columns. Columns where the plain version's autograd is not finite are
     held to the plain version run without them only where they are the
     zero-discriminant columns (``test_host_land_adjoint_gated_photosynthesis``
@@ -265,6 +335,71 @@ def test_host_land_picard_adjoint_matches_autograd(host_vjp, composition, solver
     columns at 1e-12 without the columns whose own share of it is
     ill-conditioned (``ill_conditioned_K_shares``: at most two a case)."""
     _held_to_autograd(host_vjp, composition, seed, "implicit", solver, iters)
+
+
+@pytest.mark.parametrize("iters", [2, 3])
+@pytest.mark.parametrize("solver", ["thomas", "pcr"])
+@pytest.mark.parametrize("composition", SNOW_COMPOSITIONS)
+def test_host_land_snow_picard_adjoint_matches_autograd(host_vjp, composition, solver, iters):
+    """ImplicitEuler's Picard iterations under a snowpack, as
+    ``test_host_land_picard_adjoint_matches_autograd`` (one seed): the later
+    iterations read iteration 0's SWE unclipped, the step clips it once at
+    its end."""
+    _held_to_autograd(host_vjp, composition, 0, "implicit", solver, iters)
+
+
+def empty_pack_case(composition):
+    """``vjp_case``'s case with the packs set to empty and emptying ones:
+    a third of the columns start with SWE exactly 0, a third with a thin
+    pack (1e-5 to 1e-4 m) under air of 15 to 30 degC with no snowfall, which
+    the degree-day melt (at least 3.1e-4 m in 6 steps of 60 s) empties
+    within the steps, and the rest with a negative SWE; snowfall off in
+    every even column besides."""
+    carry, inputs, root, coords, params, gout = vjp_case(composition, 3)
+    rng = np.random.default_rng(7)
+    third = np.arange(CELLS) % 3
+    swe = np.where(third == 0, 0.0, np.where(third == 1, rng.uniform(1e-5, 1e-4, CELLS),
+                                             -rng.uniform(1e-5, 1e-3, CELLS)))
+    snowfall = inputs["snowfall"].values[0].numpy().copy()
+    snowfall[(third == 1) | (np.arange(CELLS) % 2 == 0)] = 0.0
+    Ta = inputs["air_temperature"].values[0].numpy().copy()
+    Ta[third == 1] = rng.uniform(15.0, 30.0, int((third == 1).sum()))
+    carry = dict(carry, snow_water_equivalent=torch.as_tensor(swe))
+    inputs = dict(inputs, snowfall=ls.LandInput(torch.as_tensor(snowfall)[None, :]),
+                  air_temperature=ls.LandInput(torch.as_tensor(Ta)[None, :]))
+    return carry, inputs, root, coords, params, gout
+
+
+@pytest.mark.parametrize("stepper", ["euler", "heun", "implicit-pcr", "implicit-thomas-2"])
+@pytest.mark.parametrize("composition", ["bare_snow", "consistent_snow"])
+def test_host_land_adjoint_empty_and_emptying_packs(host_vjp, composition, stepper):
+    """Packs empty at the start (SWE exactly 0, where the cover's clamp and
+    the clip SWE >= 0 pass the cotangent, torch.clamp's rule at its bound)
+    and packs that the melt empties within the steps (the clip takes the
+    cotangent where it cuts), held as
+    ``test_host_land_adjoint_matches_autograd``; the plain forward shows
+    both kinds of column. Under Picard iterations a cotangent may also part
+    by twice the plain version's own move under a 1e-15 nudge of the
+    initial energy or saturation (``nudged_spread``): in the vegetated case
+    with Thomas and two iterations, column 46, whose pack empties in the
+    first step, moves its net assimilation's cotangent, -944, by up to
+    2.1e-5 under the nudges, and the host build parts from it by 1.2e-5,
+    through the saturation, whose forward parts from the plain version's by
+    1.7e-13 in the first step (ROADMAP Queue C)."""
+    name, _, rest = stepper.partition("-")
+    solver, _, picard = rest.partition("-")
+    case = empty_pack_case(composition)
+    carry, inputs, root, coords, params, _ = case
+    swe0 = carry["snow_water_equivalent"]
+    dt = HEUN_DT if name == "heun" else DT
+    out = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, dt, 0.0, STEPS,
+                                       stepper=name, solver=solver or None,
+                                       picard_iters=int(picard or 1))
+    swe = out["snow_water_equivalent"]
+    assert int(((swe0 > 0) & (swe == 0)).sum()) >= 8
+    assert int(((swe0 == 0) & (swe == 0)).sum()) >= 4
+    _held_to_autograd(host_vjp, composition, 3, name, solver, int(picard or 0), case=case,
+                      conditioned=bool(picard))
 
 
 @pytest.mark.parametrize("stepper", ["euler", "implicit-pcr"])
@@ -337,27 +472,40 @@ def test_plain_vjp_per_column_shares(composition):
         torch.testing.assert_close(aK, sK[3], rtol=1e-12, atol=0.0)
 
 
-def test_land_vjp_refusals():
-    """Heun, a snowpack and series inputs are refused by type, each naming
-    its ROADMAP item; the CPU wrapper is the plain version."""
+def test_land_vjp_refusals(monkeypatch):
+    """Series inputs are refused, naming the ROADMAP item (JAX's fused
+    gradient refuses them too); Heun and a snowpack, refused until the VJP
+    kernel took them, now run: on the CPU the wrapper is the plain version,
+    which each of them reaches."""
     carry, inputs, root, coords, params, gout = vjp_case("consistent", 0, cells=8)
-    with pytest.raises(ValueError, match="Queue B #1"):
-        lv.land_column_segment_vjp(carry, inputs, root, *coords, params, DT, 0.0, 2, gout,
-                                   stepper="heun")
     series = dict(inputs, air_temperature=ls.LandInput(torch.zeros(3, 8, dtype=torch.float64),
                                                        0.0, 3600.0))
     with pytest.raises(ValueError, match="Queue B #1"):
         lv.land_column_segment_vjp(carry, series, root, *coords, params, DT, 0.0, 2, gout)
-    snow = ls.LandParams.of(dataclasses.replace(params.model, snow=tp.Snowpack()),
-                            torch.float64)
     with pytest.raises(ValueError, match="Queue B #1"):
-        lv.land_column_segment_vjp(carry, inputs, root, *coords, snow, DT, 0.0, 2, gout)
-    a = lv.land_column_segment_vjp(carry, inputs, root, *coords, params, DT, 0.0, 2, gout,
-                                   stepper="implicit", solver="pcr")
-    b = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params, DT, 0.0, 2, gout,
-                                         stepper="implicit", solver="pcr")
-    for x, y in [*((a[0][n], b[0][n]) for n in carry), (a[1], b[1]), (a[2], b[2])]:
-        torch.testing.assert_close(x, y, rtol=0.0, atol=0.0, equal_nan=True)
+        lv.land_column_segment_vjp(carry, series, root, *coords, params, DT, 0.0, 2, gout,
+                                   stepper="heun")
+    calls = []
+    plain = lv.land_column_segment_vjp_plain
+
+    def spy(*a, **kw):
+        calls.append((kw["stepper"], "snow" in a[7].tags))
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(lv, "land_column_segment_vjp_plain", spy)
+    snow_case = vjp_case("consistent_snow", 0, cells=8)
+    for (c, i, r, x, p, g), kw in (((carry, inputs, root, coords, params, gout),
+                                    {"stepper": "implicit", "solver": "pcr"}),
+                                   ((carry, inputs, root, coords, params, gout),
+                                    {"stepper": "heun"}),
+                                   (snow_case, {"stepper": "euler"}),
+                                   (snow_case, {"stepper": "heun"})):
+        a = lv.land_column_segment_vjp(c, i, r, *x, p, DT, 0.0, 2, g, **kw)
+        b = plain(c, i, r, *x, p, DT, 0.0, 2, g, **kw)
+        for u, v in [*((a[0][n], b[0][n]) for n in c), (a[1], b[1]), (a[2], b[2])]:
+            torch.testing.assert_close(u, v, rtol=0.0, atol=0.0, equal_nan=True)
+    assert calls == [("implicit", False), ("heun", False), ("euler", True), ("heun", True)]
+    assert "snow_water_equivalent" in snow_case[0]
 
 
 @pytest.mark.parametrize("consistent", [False, True])

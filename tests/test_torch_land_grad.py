@@ -251,21 +251,14 @@ def test_land_fused_grad_runs_the_land_segments(monkeypatch):
 
 
 def test_land_fused_grad_refusals(monkeypatch):
-    """Heun over the LandModel, a snowpack and series sources are refused by
-    type, each naming its ROADMAP item; picard_iters > 1, refused until the
-    land kernels ran the iterations, now runs the land segments: both
-    segments' VJPs with the count."""
+    """Series sources are refused, naming their ROADMAP item (JAX's fused
+    gradient refuses them too). picard_iters > 1, Heun over the LandModel
+    and a snowpack, each refused until the land segment VJP took it, now run
+    the land segments: each segment's VJP with its scheme, and a finite
+    non-zero gradient (`tests/test_torch_land_grad_snow_heun.py` holds Heun
+    and the snowpack to JAX)."""
     sim = _port_sim("euler")
     grid = sim.model.grid
-    roll = make_fused_grad_rollout(lambda p: sim.model, tp.Heun(dt=DT), sim.ctx, steps=4,
-                                   dt=DT, inner_steps=2)
-    with pytest.raises(ValueError, match="Heun.*Queue B #1"):
-        roll(sim.state, None)
-    snow = dataclasses.replace(sim.model, snow=tp.Snowpack())
-    roll = make_fused_grad_rollout(lambda p: snow, sim.timestepper, snow.make_context(),
-                                   steps=4, dt=DT, inner_steps=2)
-    with pytest.raises(ValueError, match="snowpack.*Queue B #1"):
-        roll(sim.state, None)
     series = tp.TimeSeriesInputSource(times=np.array([0.0, 3600.0]), series={
         "air_temperature": np.array([5.0, 6.0])})
     with pytest.raises(ValueError, match="Queue B #1"):
@@ -275,7 +268,8 @@ def test_land_fused_grad_refusals(monkeypatch):
     real = lv.land_column_segment_vjp
 
     def spy(*a, **kw):
-        calls.append((kw["stepper"], kw["solver"], kw["picard_iters"], a[10]))
+        calls.append((kw["stepper"], kw["solver"], kw["picard_iters"], "snow" in a[7].tags,
+                      a[10]))
         return real(*a, **kw)
 
     import terrarium_tpu_torch.timesteppers.fused_grad as fg
@@ -285,6 +279,19 @@ def test_land_fused_grad_refusals(monkeypatch):
                                    tp.ImplicitEuler(dt=DT, picard_iters=2), sim.ctx,
                                    sim.input_sources, steps=4, dt=DT, inner_steps=2)
     _objective(roll(sim.state, k), torch).backward()
-    assert calls == [("implicit", "pcr", 2, 2)] * 2
+    assert calls == [("implicit", "pcr", 2, False, 2)] * 2
     assert k.grad is not None and float(k.grad) != 0.0
+    snow = dataclasses.replace(sim.model, snow=tp.Snowpack())
+    snow_sim = tp.initialize(snow, sim.timestepper, initializers=INITS,
+                             input_sources=sim.input_sources)
+    for model, ts, state, ctx in ((sim.model, tp.Heun(dt=60.0), sim.state, sim.ctx),
+                                  (snow, sim.timestepper, snow_sim.state, snow_sim.ctx)):
+        roll = make_fused_grad_rollout(lambda p: model, ts, ctx, sim.input_sources, steps=4,
+                                       dt=ts.dt, inner_steps=2)
+        state = state.copy()
+        U0 = state.internal_energy.clone().requires_grad_()
+        state.set(internal_energy=U0)
+        (g,) = torch.autograd.grad(_objective(roll(state, None), torch), U0)
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+    assert calls[2:] == [("heun", None, 1, False, 2)] * 2 + [("euler", None, 1, True, 2)] * 2
     assert grid.cells == CELLS
