@@ -4,7 +4,8 @@ Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
 column rollouts, ForwardEuler, Heun and ImplicitEuler with Thomas or PCR
 solves and any number of Picard iterations, heat + Richards and heat only,
 the segment VJP of each of these, the land rollout and its VJP, each with
-the Picard iterations, and the full step; one ``nvcc`` per instantiation,
+the Picard iterations, and the soil's and the land's full steps, every
+stepper; one ``nvcc`` per instantiation,
 in parallel: the rollout source's prebuilt set first, then the others in a
 background thread while the forward phases run, beside the two
 instantiations of ``on_demand`` that no prebuilt set holds, each built
@@ -111,7 +112,21 @@ launch counts set to 0 just before it and read just after:
   (Heun at dt 300 s) and ``grad_n145_heat_implicit_<solver>`` (ImplicitEuler
   at dt 3,600 s) in k_mineral as ``grad_n145_heat``, and
   ``grad_implicit_picard2_<solver>`` (two Picard iterations at dt 900 s) in
-  log K_sat, each also held at float64 to central differences of its loss.
+  log K_sat, each also held at float64 to central differences of its loss;
+* one full step a launch (``make_fused_step``), last, once the full-step
+  sources are built: ``full_step`` (ForwardEuler and Heun, the bench soil
+  and the heat-only model, `experiments/ab_fused_step.py`'s setup at 56,951
+  columns, Nz 30), ``full_step_implicit_<solver>_picard<k>`` (ImplicitEuler
+  at dt 900 s, each solver with one and two Picard iterations;
+  ``full_step_implicit_heat``: the heat-only model) and
+  ``land_full_step_<variant>`` (the LandModel: ``land_consistent``'s
+  composition with static inputs at 56,951 columns, Nz 20, ForwardEuler and
+  Heun at dt 60 s, ImplicitEuler at dt 600 s with each solver, with two
+  Picard iterations and with a snowpack): each kernel against its plain
+  version, the module step, on every prognostic, tendency and auxiliary
+  (float64 on 1,024 columns along the plain trajectory at 1e-12, float32 at
+  full width with a float64 referee), then the launch and the ``fused``
+  call timed and a 20-call loop of one launch a call.
 
 Run from the repository root:
 
@@ -128,7 +143,9 @@ golden, bench and gradient configurations, of the Heun kernel's on
 implicit (each solver), segment-VJP (each scheme the package has), land
 kernels' (each stepper, the snowpack and the Picard iterations the package
 has) and land segment-VJP kernel's (each scheme the package has) on their
-full-width comparison operands, and the bench
+full-width comparison operands, of the full-step kernel's six ForwardEuler
+and Heun instantiations and (where the package has them) its ImplicitEuler
+and the LandModel's full steps on one step of their phases' states, and the bench
 ``main_path`` rate, for the package in
 ``DIR`` (default: this checkout). Run it on two checkouts in one call to
 compare their kernels bit for bit.
@@ -476,6 +493,34 @@ def full_step_ops(stepper, physics, nz):
     return per_level * nz
 
 
+def full_step_implicit_ops(solver, physics, nz, iters):
+    """Operations of one ImplicitEuler full step of one column
+    (soil::full_step_column with IMPLICIT): full_step_ops's stored start,
+    tendencies and trailing closure without the Euler update's multiply and
+    add (a variable a level); the stored heat capacity and L_theta (7 and 2)
+    and dT/dU (3) a level; heat + Richards: IMPLICIT_OPS' d(Psi)/d(sat) and
+    updates, IMPLICIT_OPS_PER_FACE a face, IMPLICIT_OPS_PER_COLUMN and two
+    solves; heat only: heat_implicit_ops' rows, update and one solve; each
+    further Picard iteration as the rollout's (picard_ops, heat_implicit_ops
+    less their first iteration)."""
+    heat = physics == "heat"
+    ops = full_step_ops("euler", physics, nz) + (-1 if heat else -2) * nz + (7 + 2 + 3) * nz
+    if heat:
+        ops += 1 * nz + (2 + 8) * (nz - 1) + 5 + implicit_solver_ops(solver, nz)
+        return ops + heat_implicit_ops(solver, nz, iters) - heat_implicit_ops(solver, nz, 1)
+    ops += ((IMPLICIT_OPS["d(Psi)/d(sat)"] + IMPLICIT_OPS["U += du, sat += du"]) * nz
+            + IMPLICIT_OPS_PER_FACE * (nz - 1) + IMPLICIT_OPS_PER_COLUMN
+            + 2 * implicit_solver_ops(solver, nz))
+    return ops + picard_ops(solver, nz, iters) - picard_ops(solver, nz, 1)
+
+
+def distinct_bytes(tensors) -> int:
+    """Bytes of the distinct elements of ``tensors`` (a dimension of stride
+    0 is read once)."""
+    return sum(int(np.prod([n for n, st in zip(t.shape, t.stride()) if st != 0] or [1]))
+               * t.element_size() for t in tensors)
+
+
 def full_step_bytes(physics, nz, cells, itemsize, top_values):
     """Bytes one full step must move: it reads U, sat, T, liq (and psi, S)
     and the top temperatures once, and writes U, dU, T, liq, K_face, the
@@ -486,10 +531,34 @@ def full_step_bytes(physics, nz, cells, itemsize, top_values):
         values = 4 * nz + (4 * nz + (nz + 1) + 1)
     return (values * cells + top_values) * itemsize
 
+# ImplicitEuler's full step (full_step_implicit): the bench composition at
+# full width, 56,951 x 30 float32, dt 900 s (column_implicit_tridiag's), each
+# solver with one and two Picard iterations, each timed (a launch and a
+# fused call, the median of FULL_NEW_TIMED, and the plain version), the
+# heat-only model checked with PCR and one iteration and Thomas and two;
+# the float64 checks on FULL_IMPLICIT_F64_CELLS columns at Nz
+# FULL_IMPLICIT_F64_NZ (the implicit rollout's float64 Nz, half the compile
+# of Nz 30) along FULL_F64_STEPS steps of the plain trajectory
+FULL_IMPLICIT_VARIANTS = tuple((solver, iters) for iters in (1, 2) for solver in SOLVERS)
+FULL_IMPLICIT_F64_CELLS, FULL_IMPLICIT_F64_NZ, FULL_NEW_TIMED = 1024, 16, 20
 # the LandModel: land_coupled_n145 (bench_configs.py:228-267) at synthetic
 # latitudes from -60 to 80 degrees (the N145 mask is absent), 10 simulated
 # days a block; the float64 comparison on 1,024 of those columns
 LAND_CELLS, LAND_NZ, LAND_DT, LAND_BLOCK_STEPS, LAND_F64_CELLS = 56951, 20, 600.0, 1440, 1024
+# the LandModel's full step (land_full_step): land_consistent's composition
+# at full width, 56,951 x 20 float32, with the land gradient's static
+# inputs (land_grad_sim), each stepper (ForwardEuler and Heun at dt 60 s,
+# where they are stable; ImplicitEuler at dt 600 s with each solver, PCR
+# also with two Picard iterations and with land_snow_n145's snowpack), held
+# to the plain version (float64 on LAND_F64_CELLS columns along
+# FULL_F64_STEPS steps of the plain trajectory, float32 at full width) and
+# timed as the soil's: (stepper, solver, Picard iterations, dt, snowpack)
+LAND_FULL_VARIANTS = {"euler": ("euler", None, 1, 60.0, False),
+                      "heun": ("heun", None, 1, 60.0, False),
+                      "implicit_pcr": ("implicit", "pcr", 1, LAND_DT, False),
+                      "implicit_thomas": ("implicit", "thomas", 1, LAND_DT, False),
+                      "implicit_pcr_picard2": ("implicit", "pcr", 2, LAND_DT, False),
+                      "implicit_pcr_snow": ("implicit", "pcr", 1, LAND_DT, True)}
 LAND_GOLDEN = ROOT / "tests" / "goldens" / "land_model.npz"
 LAND_SNOW_GOLDEN = ROOT / "tests" / "goldens" / "land_snow.npz"
 # land_snow_n145: the snowfall beside the rain and the initial pack
@@ -531,12 +600,13 @@ def land_variant_spec(name):
 # Simulation.run against its plain version
 ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
 # The sources built beside the forward phases, in the order the phases need
-# them: the land rollout and the full step (the land and full-step phases),
-# then the land segment VJP (the land gradients), then the soil segment VJP
-# (the soil gradients, last), whose some 3,800 nvcc CPU seconds would
-# otherwise keep the land phases waiting
-REST_GROUPS = (("land_column_rollout", "soil_column_full_step"), ("land_column_segment_vjp",),
-               ("soil_column_segment_vjp",))
+# them: the land rollout (the land phases), then the land segment VJP (the
+# land gradients), then the soil segment VJP (the soil gradients), whose
+# some 3,800 nvcc CPU seconds would otherwise keep the land phases waiting,
+# then the soil's and the land's full steps (their phases, last), built
+# while the soil gradient phases run
+REST_GROUPS = (("land_column_rollout",), ("land_column_segment_vjp",),
+               ("soil_column_segment_vjp",), ("soil_column_full_step", "land_column_full_step"))
 # Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
 # Richards step, leaves [0, 1] in 95% of the columns from step 3 and its
 # tendencies grow far beyond the state, so the float32 rounding of the
@@ -2081,18 +2151,158 @@ def full_sim(tp, cells, nz, dtype, stepper, physics, forcings=None):
             lambda t: 5.0 * torch.sin(2 * torch.pi * t / 86400.0)), forcings=forcings)
 
 
-def check_full_step(name, k_state, p_state, rtol, dt):
-    """Every prognostic, tendency and auxiliary of the kernel's step against
-    the plain version's, and the clock. float64 (``rtol`` <= 1e-9): each
-    element within ``rtol`` of it with a floor of ``rtol`` times the leaf's
-    scale; float32: the largest error within ``rtol`` of the scale. The
-    scale is the leaf's largest magnitude; a tendency's is at least its
+def full_step_structure(name, k_state, p_state):
+    """The kernel's step against the plain version's in all but the values:
+    the same prognostic, tendency and auxiliary leaves, each of the same
+    shape and finite on both sides, and the same clock. Raises on any
+    difference."""
+    for g in ("prognostic", "tendencies", "auxiliary"):
+        if sorted(getattr(k_state, g)) != sorted(getattr(p_state, g)):
+            raise AssertionError(f"{name}: {g} leaves {sorted(getattr(k_state, g))}")
+        for key, b in getattr(p_state, g).items():
+            a = getattr(k_state, g)[key]
+            if (tuple(a.shape) != tuple(b.shape) or not bool(torch.isfinite(a).all())
+                    or not bool(torch.isfinite(b).all())):
+                raise AssertionError(f"{name}: {g}/{key} of shape {tuple(a.shape)} or "
+                                     f"non-finite")
+    if (float(k_state.clock.time) != float(p_state.clock.time)
+            or int(k_state.clock.iteration) != int(p_state.clock.iteration)):
+        raise AssertionError(f"{name}: clock {k_state.clock.time} vs {p_state.clock.time}")
+
+
+def full_step_leaves(k_state, p_state, dt):
+    """(group/name, plain leaf, absolute difference, scale) of every leaf:
+    the scale is the leaf's largest magnitude; a tendency's is at least its
     prognostic's over dt, the precision the step gives the prognostic (a
     tendency is a difference of nearly equal fluxes, whose rounding is that
     of the fluxes)."""
+    for g in ("prognostic", "tendencies", "auxiliary"):
+        for key, b in getattr(p_state, g).items():
+            scale = float(b.abs().max())
+            if g == "tendencies":
+                scale = max(scale, float(p_state.prognostic[key].abs().max()) / dt)
+            yield f"{g}/{key}", b, (getattr(k_state, g)[key] - b).abs(), scale
+
+
+def check_full_step(name, k_state, p_state, rtol, dt):
+    """Every prognostic, tendency and auxiliary of the kernel's step against
+    the plain version's, and the clock (full_step_structure). float64
+    (``rtol`` <= 1e-9): each element within ``rtol`` of it with a floor of
+    ``rtol`` times the leaf's scale; float32: the largest error within
+    ``rtol`` of the scale (full_step_leaves)."""
+    full_step_structure(name, k_state, p_state)
     errs = {}
-    groups = ("prognostic", "tendencies", "auxiliary")
-    for g in groups:
+    for leaf, b, d, scale in full_step_leaves(k_state, p_state, dt):
+        errs[leaf] = float(d.max())
+        bad = (bool((d > rtol * b.abs() + rtol * scale).any()) if rtol <= 1e-9
+               else float(d.max()) > rtol * scale)
+        if bad:
+            raise AssertionError(f"{name} kernel vs plain {leaf}: max abs err "
+                                 f"{float(d.max())}, scale {scale}")
+    return errs
+
+
+def flip_columns(k_state, p_state, start):
+    """The columns in which the kernel's and the plain version's steps may
+    part beyond rounding (ROADMAP Queue C): a level whose saturation, at the
+    start or after either step, is within 1e-9 of 1 or above it (the
+    implicit Richards rows' d(Psi)/d(sat) jumps to 0 at saturation), or
+    whose liquid fraction one step leaves on the freeze plateau (0 < liq <
+    1) and the other off it (the heat rows' dT/dU jumps to 0 there)."""
+    near = torch.zeros(start.internal_energy.shape[1], dtype=torch.bool,
+                       device=start.internal_energy.device)
+    for st in (start, k_state, p_state):
+        near |= (st.saturation_water_ice >= 1.0 - 1e-9).any(0)
+    on_k = (k_state.liquid_water_fraction > 0.0) & (k_state.liquid_water_fraction < 1.0)
+    on_p = (p_state.liquid_water_fraction > 0.0) & (p_state.liquid_water_fraction < 1.0)
+    return near | (on_k != on_p).any(0)
+
+
+def check_full_step_f64(name, k_state, p_state, start, dt):
+    """check_full_step at float64, 1e-12, with the flip rule: the leaves,
+    shapes, finiteness and clock must agree (full_step_structure, which
+    raises), and a column in which an element parts beyond 1e-12 must be a
+    flip column (flip_columns). Returns the largest errors and the number
+    of flip columns that parted."""
+    full_step_structure(name, k_state, p_state)
+    flips, parted, errs = None, None, {}
+    for leaf, b, d, scale in full_step_leaves(k_state, p_state, dt):
+        errs[leaf] = float(d.max())
+        bad = ~(d <= 1e-12 * b.abs() + 1e-12 * scale)
+        if not bool(bad.any()):
+            continue
+        if flips is None:
+            flips = flip_columns(k_state, p_state, start)
+            parted = torch.zeros_like(flips)
+        bad_cols = bad.any(0) if bad.dim() == 2 else bad
+        if bool((bad_cols & ~flips).any()):
+            raise AssertionError(f"{name} kernel vs plain {leaf} (f64): max abs err "
+                                 f"{float(d.max())}, scale {scale}, outside the flip columns")
+        parted |= bad_cols
+    return errs, 0 if parted is None else int(parted.sum())
+
+
+def scrambled_stored(state, seed):
+    """A copy of ``state`` whose stored temperature, liquid fraction and,
+    where the state holds them, pressure head, ground temperature and net
+    assimilation are drawn apart from its prognostics (as the host builds'
+    random full states are): a full step reads them as stored, so a kernel
+    that closed its start instead parts from the plain version here."""
+    rng = np.random.default_rng(seed)
+    st = state.copy()
+    nz, cells = st.internal_energy.shape
+    like = st.internal_energy
+
+    def put(name, arr):
+        st.set(**{name: torch.as_tensor(arr, dtype=like.dtype, device=like.device)})
+
+    put("temperature", rng.uniform(-12.0, 9.0, (nz, cells)))
+    put("liquid_water_fraction",
+        rng.choice([0.0, 1.0], (nz, cells)) * rng.uniform(0.2, 1.0, (nz, cells)))
+    if "pressure_head" in st.auxiliary:
+        put("pressure_head", rng.uniform(-6.0, 1.0, (nz, cells)))
+    if "ground_temperature" in st.auxiliary:
+        put("ground_temperature", rng.uniform(-15.0, 25.0, cells))
+    if "net_assimilation" in st.auxiliary:
+        put("net_assimilation", rng.uniform(-1e-3, 5e-3, cells))
+    return st
+
+
+def state_f64(tp, state):
+    """A float64 copy of ``state`` (every leaf, the clock)."""
+    from terrarium_tpu_torch.state import Clock, State
+
+    groups = [{k: v.double() for k, v in getattr(state, g).items()}
+              for g in ("prognostic", "tendencies", "auxiliary", "inputs")]
+    return State(*groups, Clock(state.clock.time.double(), state.clock.iteration.long()))
+
+
+def model_f64(model):
+    """``model`` on its grid at float64."""
+    from terrarium_tpu_torch.grids.column import ColumnGrid
+
+    g = model.grid
+    return dataclasses.replace(model, grid=ColumnGrid(g.cells, g.vertical, torch.float64,
+                                                      g.device))
+
+
+def check_full_step_f32(name, k_state, p_state, start, dt, referee, land=False):
+    """check_full_step at float32 (each leaf's largest error within
+    F32_REL_TOL of its scale) and, ``land``, each live carry leaf per cell
+    by land_f32_tolerance on its change from ``start``. An element beyond
+    either (a layer that crosses the freeze plateau's edge or saturation on
+    one side of an ulp only) is held to ``referee()``, the plain step at
+    float64 from the same float32 start: the kernel within twice the plain
+    version's own float32 error plus the tolerance. Returns the largest
+    errors and the number of such flip elements."""
+    errs, flips, truth = {}, 0, None
+    if sorted(k_state.tendencies) != sorted(p_state.tendencies):
+        raise AssertionError(f"{name}: tendencies {sorted(k_state.tendencies)}")
+    outside = None
+    if land and "saturation_water_ice" in start.prognostic:
+        s0 = start.saturation_water_ice
+        outside = ((s0 > 1.0) | (s0 < 0.0)).any(0)
+    for g in ("prognostic", "tendencies", "auxiliary"):
         if sorted(getattr(k_state, g)) != sorted(getattr(p_state, g)):
             raise AssertionError(f"{name}: {g} leaves {sorted(getattr(k_state, g))}")
         for key, b in getattr(p_state, g).items():
@@ -2103,17 +2313,283 @@ def check_full_step(name, k_state, p_state, rtol, dt):
             scale = float(b.abs().max())
             if g == "tendencies":
                 scale = max(scale, float(p_state.prognostic[key].abs().max()) / dt)
+            a, b = a.double(), b.double()
             d = (a - b).abs()
             errs[f"{g}/{key}"] = float(d.max())
-            bad = (bool((d > rtol * b.abs() + rtol * scale).any()) if rtol <= 1e-9
-                   else float(d.max()) > rtol * scale)
-            if bad:
-                raise AssertionError(f"{name} kernel vs plain {g}/{key}: max abs err "
-                                     f"{float(d.max())}, scale {scale}")
+            tol = torch.full_like(b, F32_REL_TOL * scale)
+            if land and (g == "prognostic" or key == "net_assimilation"):
+                lt = land_f32_tolerance(key, b, start[key].double(),
+                                        outside if outside is not None else
+                                        torch.zeros(b.shape[-1], dtype=torch.bool,
+                                                    device=b.device))
+                tol = torch.minimum(tol, lt)
+            bad = d > tol
+            if not bool(bad.any()):
+                continue
+            if truth is None:
+                truth = referee()
+            t = getattr(truth, g)[key]
+            k_err, p_err = (a - t).abs(), (b - t).abs()
+            if bool((bad & (k_err > 2.0 * p_err + tol)).any()):
+                raise AssertionError(f"{name} kernel vs the float64 referee {g}/{key}: "
+                                     f"{float(k_err.max())} against the plain version's "
+                                     f"{float(p_err.max())}")
+            flips += int(bad.sum())
     if (float(k_state.clock.time) != float(p_state.clock.time)
             or int(k_state.clock.iteration) != int(p_state.clock.iteration)):
         raise AssertionError(f"{name}: clock {k_state.clock.time} vs {p_state.clock.time}")
-    return errs
+    return errs, flips
+
+
+def land_full_sim(tp, cells, dtype, variant):
+    """LAND_FULL_VARIANTS[variant] over land_consistent's composition (with
+    land_snow_n145's snowpack where the variant has one) on ``cells``
+    columns, Nz 20, with land_grad_sim's static inputs and initial state."""
+    key, solver, iters, dt, snow = LAND_FULL_VARIANTS[variant]
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
+                            dtype=dtype, device="cuda")
+    lat = np.linspace(-60.0, 80.0, cells)
+    coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
+    T_mean = 28.0 * coslat - 8.0
+    fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0,
+              "surface_shortwave_down": 900.0 * coslat / np.pi, "air_temperature": T_mean}
+    inits = {"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
+             "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
+             "vegetation_area_fraction": 0.5}
+    model = land_model(tp, grid, "consistent")
+    if snow:
+        model = dataclasses.replace(model, snow=tp.Snowpack())
+        fields["snowfall"] = SNOWFALL
+        inits["snow_water_equivalent"] = SWE0
+    stepper = (tp.ImplicitEuler(dt=dt, solver=solver, picard_iters=iters) if key == "implicit"
+               else tp.Heun(dt=dt) if key == "heun" else tp.ForwardEuler(dt=dt))
+    return tp.initialize(model, stepper, (tp.FieldInputSource(fields=fields),),
+                         initializers=inits)
+
+
+def full_step_timings(fused, launch, plain, reps=FULL_NEW_TIMED):
+    """CUDA-event ms of each of ``reps`` ``fused`` calls and ``launch``es
+    (their medians), and the plain version's mean over 3 after a warm-up."""
+    call_ms = cuda_ms_each(fused, reps)
+    kernel_ms = cuda_ms_each(launch, reps)
+    return (float(np.median(call_ms)), float(np.median(kernel_ms)),
+            cuda_ms(plain, reps=3, warmup=True), call_ms, kernel_ms)
+
+
+def full_step_implicit_phase(tp, fs, cuda_build, reset_counts, launched, ptxas_all, card):
+    """The full_step_implicit phases; returns each variant's kernel report."""
+    # ---- ImplicitEuler's full step (full_step_implicit): the kernel against
+    # its plain version on every leaf, float64 along the plain trajectory
+    # (1e-12, the flip rule) and float32 at full width (with the float64
+    # referee), each solver with one and two Picard iterations; timings and
+    # a FULL_STEPS-call loop of each at full width; the heat-only model
+    # checked at full width
+    imp_full = {}
+    for solver, iters in FULL_IMPLICIT_VARIANTS:
+        vname = f"{solver}_picard{iters}"
+        ts = tp.ImplicitEuler(dt=IMPLICIT_DT, solver=solver, picard_iters=iters)
+        sim = full_sim(tp, FULL_IMPLICIT_F64_CELLS, FULL_IMPLICIT_F64_NZ, torch.float64,
+                       "euler", "richards")
+        fused = fs.make_fused_step(sim.model, ts, sim.ctx, sim.input_sources, dt=IMPLICIT_DT)
+        state, f64_err, f64_flips = sim.state, {}, 0
+        for i in range(FULL_F64_STEPS):
+            plain = fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), state,
+                                                   IMPLICIT_DT)
+            errs, fl = check_full_step_f64(f"full step implicit {vname} f64", fused(state),
+                                           plain, state, IMPLICIT_DT)
+            f64_err[str(i)], f64_flips = max(errs.values()), f64_flips + fl
+            state = plain
+        st_s = scrambled_stored(state, seed=31)
+        errs, st_flips = check_full_step_f64(
+            f"full step implicit {vname} f64, stored start", fused(st_s),
+            fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), st_s, IMPLICIT_DT), st_s,
+            IMPLICIT_DT)
+        f64_err["stored_start"] = max(errs.values())
+        del st_s
+        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
+        fused = fs.make_fused_step(sim.model, ts, sim.ctx, sim.input_sources, dt=IMPLICIT_DT)
+        st = sim.state
+        plain = fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), st, IMPLICIT_DT)
+        model64 = model_f64(sim.model)
+        f32_err, f32_flips = check_full_step_f32(
+            f"full step implicit {vname} f32", fused(st), plain, st, IMPLICIT_DT,
+            lambda: fs.soil_column_full_step_plain(model64, ts, sim.ctx, (), state_f64(tp, st),
+                                                   IMPLICIT_DT))
+        del plain
+        fn, (fargs, keep), _ = fs.full_step_operands(sim.model, "implicit", "richards",
+                                                     sim.ctx, st, IMPLICIT_DT, solver, iters)
+        call_med, k_med, p_ms, call_ms, k_ms = full_step_timings(
+            lambda: fused(st), lambda: fn(*fargs),
+            lambda: fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), st,
+                                                   IMPLICIT_DT))
+        b = bound_ms(full_step_implicit_ops(solver, "richards", BENCH_NZ, iters) * BENCH_CELLS,
+                     full_step_bytes("richards", BENCH_NZ, BENCH_CELLS, 4, keep[1].numel()))
+        del keep
+        reset_counts()
+        state = st
+        for _ in range(FULL_STEPS):
+            state = fused(state)
+        torch.cuda.synchronize()
+        launches = launched()
+        if launches != {"soil_column_full_step": FULL_STEPS}:
+            raise AssertionError(f"{FULL_STEPS} implicit full steps launched {launches}")
+        if int(state.clock.iteration) != FULL_STEPS or not bool(
+                torch.isfinite(state.internal_energy).all()):
+            raise AssertionError(f"implicit full-step loop {vname}: iteration "
+                                 f"{int(state.clock.iteration)} or non-finite energy")
+        entry = cuda_build._entry_name("soil_column_full_step", ("implicit", "richards"),
+                                       torch.float32, BENCH_NZ)
+        imp_full[vname] = dict(solver=solver, iters=iters, launches=launches[
+            "soil_column_full_step"], max_abs_err=max(f32_err.values()), ms=k_med,
+            plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], call_ms=call_med, entry=entry)
+        phase(f"full_step_implicit_{vname}", cells=BENCH_CELLS, nz=BENCH_NZ, dt=IMPLICIT_DT,
+              solver=solver, picard_iters=iters, f64_cells=FULL_IMPLICIT_F64_CELLS,
+              f64_nz=FULL_IMPLICIT_F64_NZ, f64_steps=FULL_F64_STEPS, f64_rtol=1e-12,
+              f64_max_abs_err=f64_err, f64_flip_columns=f64_flips,
+              f64_stored_start_flip_columns=st_flips, rel_tol=F32_REL_TOL,
+              f32_max_abs_err=f32_err, f32_flip_elements=f32_flips, loop_steps=FULL_STEPS,
+              loop_launches=launches, fused_call_ms_median=call_med, fused_call_ms=call_ms,
+              kernel_ms_median=k_med, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+              bound_by=b[1], ops_per_column=full_step_implicit_ops(solver, "richards", BENCH_NZ, iters),
+              ptxas=ptxas_all["soil_column_full_step"].get(entry), card=card)
+        del sim, st, state, fused, model64
+    heat_imp = {}
+    for solver, iters in (("pcr", 1), ("thomas", 2)):
+        ts = tp.ImplicitEuler(dt=IMPLICIT_DT, solver=solver, picard_iters=iters)
+        # float64 along the plain trajectory and from a stored start drawn
+        # apart from the prognostics, at 1e-12 with the flip rule
+        sim = full_sim(tp, FULL_IMPLICIT_F64_CELLS, FULL_IMPLICIT_F64_NZ, torch.float64,
+                       "euler", "heat")
+        fused = fs.make_fused_step(sim.model, ts, sim.ctx, (), dt=IMPLICIT_DT)
+        state, f64_err, f64_flips = sim.state, {}, 0
+        for i in range(FULL_F64_STEPS):
+            plain = fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), state,
+                                                   IMPLICIT_DT)
+            errs, fl = check_full_step_f64(f"full step implicit heat {solver} {iters} f64",
+                                           fused(state), plain, state, IMPLICIT_DT)
+            f64_err[str(i)], f64_flips = max(errs.values()), f64_flips + fl
+            state = plain
+        st_s = scrambled_stored(state, seed=32)
+        errs, fl = check_full_step_f64(
+            f"full step implicit heat {solver} {iters} f64, stored start", fused(st_s),
+            fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), st_s, IMPLICIT_DT), st_s,
+            IMPLICIT_DT)
+        f64_err["stored_start"], f64_flips = max(errs.values()), f64_flips + fl
+        del sim, state, st_s, fused
+        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "heat")
+        st = sim.state
+        reset_counts()
+        out = fs.make_fused_step(sim.model, ts, sim.ctx, (), dt=IMPLICIT_DT)(st)
+        torch.cuda.synchronize()
+        if launched() != {"soil_column_full_step": 1}:
+            raise AssertionError(f"a heat-only implicit full step launched {launched()}")
+        plain = fs.soil_column_full_step_plain(sim.model, ts, sim.ctx, (), st, IMPLICIT_DT)
+        model64 = model_f64(sim.model)
+        errs, flips = check_full_step_f32(
+            f"full step implicit heat {solver} {iters} f32", out, plain, st, IMPLICIT_DT,
+            lambda: fs.soil_column_full_step_plain(model64, ts, sim.ctx, (), state_f64(tp, st),
+                                                   IMPLICIT_DT))
+        heat_imp[f"{solver}_picard{iters}"] = dict(
+            max_abs_err=errs, flip_elements=flips, f64_max_abs_err=f64_err,
+            f64_flip_columns=f64_flips)
+        del sim, st, out, plain, model64
+    phase("full_step_implicit_heat", cells=BENCH_CELLS, nz=BENCH_NZ, dt=IMPLICIT_DT,
+          f64_cells=FULL_IMPLICIT_F64_CELLS, f64_nz=FULL_IMPLICIT_F64_NZ,
+          f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, rel_tol=F32_REL_TOL, f32=heat_imp,
+          card=card)
+    return imp_full
+
+
+def land_full_step_phase(tp, fs, ls, cuda_build, land_inputs, reset_counts, launched, ptxas_all,
+                         card):
+    """The land_full_step phases; returns each variant's kernel report."""
+    # ---- the LandModel's full step (land_full_step): each variant's kernel
+    # against its plain version on every leaf, float64 on LAND_F64_CELLS
+    # columns along the plain trajectory (1e-12, the flip rule) and float32
+    # at full width (check_full_step_f32 with land_f32_tolerance and the
+    # float64 referee), then its timings and a FULL_STEPS-call loop
+    land_full = {}
+    for vname, (key, solver, iters, dt, snow) in LAND_FULL_VARIANTS.items():
+        sim = land_full_sim(tp, LAND_F64_CELLS, torch.float64, vname)
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=dt)
+        state, f64_err, f64_flips = sim.state, {}, 0
+        for i in range(FULL_F64_STEPS):
+            plain = ls.land_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                                   sim.input_sources, state, dt)
+            errs, fl = check_full_step_f64(f"land full step {vname} f64", fused(state), plain,
+                                           state, dt)
+            f64_err[str(i)], f64_flips = max(errs.values()), f64_flips + fl
+            state = plain
+        st_s = scrambled_stored(state, seed=33)
+        errs, st_flips = check_full_step_f64(
+            f"land full step {vname} f64, stored start", fused(st_s),
+            ls.land_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                           sim.input_sources, st_s, dt), st_s, dt)
+        f64_err["stored_start"] = max(errs.values())
+        del sim, state, fused, st_s
+        sim = land_full_sim(tp, LAND_CELLS, torch.float32, vname)
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=dt)
+        st = sim.state
+        out = fused(st)
+        plain = ls.land_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                               sim.input_sources, st, dt)
+        model64 = model_f64(sim.model)
+        f32_err, f32_flips = check_full_step_f32(
+            f"land full step {vname} f32", out, plain, st, dt,
+            lambda: ls.land_column_full_step_plain(model64, sim.timestepper, sim.ctx,
+                                                   sim.input_sources, state_f64(tp, st), dt),
+            land=True)
+        params = ls.LandParams.of(sim.model, torch.float32)
+        inputs = land_inputs(sim.model, st, sim.input_sources)
+        br = land_branches(fs, params, inputs, {n: st[n] for n in sim.model.live_carry},
+                           {n: out[n] for n in sim.model.live_carry}, float(st.clock.time))
+        branches = {k: v / LAND_CELLS for k, v in br.items()}
+        del plain, out
+        fn, (fargs, keep), outs = ls.land_full_step_operands(sim.model, key, st, dt, solver,
+                                                             iters)
+        nbytes = distinct_bytes([*keep[0].values(), *keep[1].values(),
+                                 *(i.values for i in keep[2].values()), keep[4]]
+                                + [t for grp in outs.values() for t in grp.values()])
+        call_med, k_med, p_ms, call_ms, k_ms = full_step_timings(
+            lambda: fused(st), lambda: fn(*fargs),
+            lambda: ls.land_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                                   sim.input_sources, st, dt))
+        ops = land_variant_ops(key, solver, snow, LAND_NZ, branches, iters)
+        b = bound_ms(ops * LAND_CELLS, nbytes)
+        del keep, outs
+        reset_counts()
+        state = st
+        for _ in range(FULL_STEPS):
+            state = fused(state)
+        torch.cuda.synchronize()
+        launches = launched()
+        if launches != {"land_column_full_step": FULL_STEPS}:
+            raise AssertionError(f"{FULL_STEPS} land full steps launched {launches}")
+        if int(state.clock.iteration) != FULL_STEPS or not bool(
+                torch.isfinite(state.internal_energy).all()):
+            raise AssertionError(f"land full-step loop {vname}: iteration "
+                                 f"{int(state.clock.iteration)} or non-finite energy")
+        tags = ({"euler": (), "heun": ("heun",), "implicit": ("implicit",)}[key]
+                + ls.land_full_composition(sim.model))
+        entry = cuda_build._entry_name("land_column_full_step", tags, torch.float32, LAND_NZ)
+        land_full[vname] = dict(key=key, solver=solver, iters=iters, snow=snow, dt=dt,
+                                launches=launches["land_column_full_step"],
+                                max_abs_err=max(f32_err.values()), ms=k_med, plain_ms=p_ms,
+                                bound_ms=b[0], bound_by=b[1], call_ms=call_med, entry=entry)
+        phase(f"land_full_step_{vname}", cells=LAND_CELLS, nz=LAND_NZ, dt=dt, stepper=key,
+              solver=solver, picard_iters=iters, snow=snow, f64_cells=LAND_F64_CELLS,
+              f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, f64_max_abs_err=f64_err,
+              f64_flip_columns=f64_flips, f64_stored_start_flip_columns=st_flips,
+              rel_tol=F32_REL_TOL, f32_max_abs_err=f32_err,
+              f32_flip_elements=f32_flips, loop_steps=FULL_STEPS, loop_launches=launches,
+              fused_call_ms_median=call_med, fused_call_ms=call_ms, kernel_ms_median=k_med,
+              kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], bytes=nbytes,
+              ops_per_column=ops, branches_per_column=branches,
+              ptxas=ptxas_all["land_column_full_step"].get(entry), card=card)
+        del sim, st, state, fused, model64
+    return land_full
 
 
 def cuda_ms_each(fn, reps):
@@ -2176,7 +2652,7 @@ def main():
                fs.soil_column_heat_heun_rollout, fs.soil_column_heat_implicit_rollout,
                fv.soil_column_segment_vjp, ls.land_column_rollout, ls.land_column_heun_rollout,
                ls.land_column_implicit_rollout, fs.soil_column_full_step,
-               lv.land_column_segment_vjp)
+               lv.land_column_segment_vjp, ls.land_column_full_step)
 
     def reset_counts():
         for fn in KERNELS:
@@ -2186,14 +2662,26 @@ def main():
         return {fn.__name__: fn.launches for fn in KERNELS if fn.launches}
 
     # ---- build: one nvcc per instantiation and core (cuda_build's slots);
-    # the rollout source first, then, in threads of their own while the
-    # forward phases run on the card, on_demand's two instantiations and
-    # the other sources in the order the phases need them (REST_GROUPS),
-    # each group's nvcc queued for the slots before the next group's
+    # the rollout source first, then, in threads of their own, queued for
+    # the slots behind it, so that they fill the slots its last compiles
+    # leave (and build while the forward phases run on the card),
+    # on_demand's two instantiations and the other sources in the order the
+    # phases need them (REST_GROUPS), each group's nvcc queued for the slots
+    # before the next group's
+    rest_done = {}  # source -> seconds since the start at which it was built
+
+    def build_group(group):
+        try:
+            cuda_build.build(*group)
+            rest_done.update(dict.fromkeys(group, time.perf_counter() - _T0))
+        except Exception:  # noqa: BLE001 -- built() builds again in the main thread and raises
+            pass
+
     t0 = time.perf_counter()
     names = tuple(cuda_build.INSTANTIATIONS)
-    cuda_build.build("soil_column_rollout")
-    first_s = time.perf_counter() - t0
+    first = threading.Thread(target=build_group, args=(("soil_column_rollout",),), daemon=True)
+    first.start()
+    time.sleep(1.0)  # the rollout source's nvcc processes queue for the slots first
     rest = tuple(n for group in REST_GROUPS for n in group)
     if sorted(rest) != sorted(set(names) - {"soil_column_rollout"}):
         raise AssertionError(f"the build's sources are {names}")
@@ -2217,15 +2705,6 @@ def main():
 
     od_threads = [threading.Thread(target=build_on_demand, args=(case,), daemon=True)
                   for case in ON_DEMAND_STEPS]
-    rest_done = {}  # source -> seconds since the start at which it was built
-
-    def build_group(group):
-        try:
-            cuda_build.build(*group)
-            rest_done.update(dict.fromkeys(group, time.perf_counter() - _T0))
-        except Exception:  # noqa: BLE001 -- built() builds again in the main thread and raises
-            pass
-
     compiling = {}
     for thread in od_threads:
         thread.start()
@@ -2234,6 +2713,9 @@ def main():
         thread.start()
         compiling.update(dict.fromkeys(group, thread))
         time.sleep(1.0)  # this group's nvcc processes queue for the slots first
+    first.join()
+    cuda_build.build("soil_column_rollout")  # raises the first build's error, if any
+    first_s = time.perf_counter() - t0
     phase("build", source="soil_column_rollout", seconds=first_s,
           instantiations=len(cuda_build.INSTANTIATIONS["soil_column_rollout"]),
           ptxas={"soil_column_rollout": ptxas_summary(
@@ -2967,75 +3449,6 @@ def main():
               outside_unit_share_at_end=float(outside_unit(final).float().mean()), card=card)
         del gsim, carry, gout, final
 
-    # ---- one full step (make_fused_step): the kernel against the plain
-    # version (the module step) on every leaf, float64 along the plain
-    # trajectory and float32 at full width, each stepper and physics
-    full64 = {}
-    for stepper, nz in (("euler", 20), ("heun", 15)):
-        sim = full_sim(tp, FULL_F64_CELLS, nz, torch.float64, stepper, "richards")
-        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-                                   dt=BENCH_DT)
-        state = sim.state
-        for i in range(FULL_F64_STEPS):
-            plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
-                                                   state, BENCH_DT)
-            errs = check_full_step(f"full step {stepper} f64", fused(state), plain, 1e-12,
-                                   BENCH_DT)
-            full64[f"{stepper}:{i}"] = max(errs.values())
-            state = plain
-    full32 = {}
-    for stepper, physics in (("euler", "richards"), ("heun", "richards"), ("euler", "heat"),
-                             ("heun", "heat")):
-        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, stepper, physics)
-        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-                                   dt=BENCH_DT)
-        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
-                                               sim.state, BENCH_DT)
-        full32[f"{stepper}:{physics}"] = check_full_step(
-            f"full step {stepper} {physics} f32", fused(sim.state), plain, F32_REL_TOL,
-            BENCH_DT)
-        del plain
-    # timing, the bench composition at full width (ab_fused_step.py's setup)
-    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
-    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-                               dt=BENCH_DT)
-    call_ms = cuda_ms_each(lambda: fused(sim.state), FULL_TIMED)
-    fn, (fargs, keep), _ = fs.full_step_operands(sim.model, "euler", "richards", sim.ctx,
-                                                 sim.state, BENCH_DT)
-    full_kernel_ms = cuda_ms_each(lambda: fn(*fargs), FULL_TIMED)
-    full_plain_ms = cuda_ms(lambda: fs.soil_column_full_step_plain(
-        sim.model, sim.timestepper, sim.ctx, (), sim.state, BENCH_DT), reps=3, warmup=True)
-    full_b = bound_ms(full_step_ops("euler", "richards", BENCH_NZ) * BENCH_CELLS,
-                      full_step_bytes("richards", BENCH_NZ, BENCH_CELLS, 4, keep[1].numel()))
-    del keep
-    # the full-step path: FULL_STEPS calls of fused, one launch each
-    reset_counts()
-    state = sim.state
-    for _ in range(FULL_STEPS):
-        state = fused(state)
-    torch.cuda.synchronize()
-    full_launches = fs.soil_column_full_step.launches
-    if launched() != {"soil_column_full_step": FULL_STEPS}:
-        raise AssertionError(f"{FULL_STEPS} full steps launched {launched()}")
-    ref = sim.state
-    for _ in range(FULL_STEPS):
-        ref = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), ref,
-                                             BENCH_DT)
-    loop_err = check_close("full step loop", [state[n] for n in sim.model.live_carry],
-                           [ref[n] for n in sim.model.live_carry], F32_REL_TOL)
-    if int(state.clock.iteration) != FULL_STEPS:
-        raise AssertionError(f"full-step loop: clock iteration {int(state.clock.iteration)}")
-    full_ms = float(np.median(full_kernel_ms))
-    phase("full_step", cells=BENCH_CELLS, nz=BENCH_NZ, f64_cells=FULL_F64_CELLS,
-          f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, f64_max_abs_err=full64,
-          rel_tol=F32_REL_TOL, f32_max_abs_err=full32, loop_steps=FULL_STEPS,
-          loop_launches=full_launches, loop_max_abs_err=loop_err,
-          fused_call_ms_median=float(np.median(call_ms)), fused_call_ms=call_ms,
-          kernel_ms_median=full_ms, kernel_ms=full_kernel_ms, plain_ms=full_plain_ms,
-          bound_ms=full_b[0], bound_by=full_b[1],
-          rollout_step_share_ms=ms / COMPARE_STEPS, card=card)
-    del sim, state, ref, fused
-
     # ---- run through the process modules: the bench soil with a forcing,
     # which no kernel takes, at full width on the card, held to timestep()
     sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards",
@@ -3352,6 +3765,93 @@ def main():
               f32_max_err_over_magnitude=f32_rel, card=card, **extra)
         del gsim, carry, table, cts
 
+    # ---- the full steps, once their sources are built: the soil's
+    # ForwardEuler and Heun, then ImplicitEuler's and the LandModel's
+    built(*REST_GROUPS[3])
+    # ---- one full step (make_fused_step): the kernel against the plain
+    # version (the module step) on every leaf, float64 along the plain
+    # trajectory and float32 at full width, each stepper and physics
+    full64, stored_flips = {}, {}
+    for stepper, nz in (("euler", 20), ("heun", 15)):
+        sim = full_sim(tp, FULL_F64_CELLS, nz, torch.float64, stepper, "richards")
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=BENCH_DT)
+        state = sim.state
+        for i in range(FULL_F64_STEPS):
+            plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
+                                                   state, BENCH_DT)
+            errs = check_full_step(f"full step {stepper} f64", fused(state), plain, 1e-12,
+                                   BENCH_DT)
+            full64[f"{stepper}:{i}"] = max(errs.values())
+            state = plain
+        st_s = scrambled_stored(state, seed=30)
+        errs, fl = check_full_step_f64(
+            f"full step {stepper} f64, stored start", fused(st_s),
+            fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), st_s,
+                                           BENCH_DT), st_s, BENCH_DT)
+        full64[f"{stepper}:stored_start"] = max(errs.values())
+        stored_flips[stepper] = fl
+        del st_s
+    full32 = {}
+    for stepper, physics in (("euler", "richards"), ("heun", "richards"), ("euler", "heat"),
+                             ("heun", "heat")):
+        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, stepper, physics)
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=BENCH_DT)
+        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (),
+                                               sim.state, BENCH_DT)
+        full32[f"{stepper}:{physics}"] = check_full_step(
+            f"full step {stepper} {physics} f32", fused(sim.state), plain, F32_REL_TOL,
+            BENCH_DT)
+        del plain
+    # timing, the bench composition at full width (ab_fused_step.py's setup)
+    sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
+    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                               dt=BENCH_DT)
+    call_ms = cuda_ms_each(lambda: fused(sim.state), FULL_TIMED)
+    fn, (fargs, keep), _ = fs.full_step_operands(sim.model, "euler", "richards", sim.ctx,
+                                                 sim.state, BENCH_DT)
+    full_kernel_ms = cuda_ms_each(lambda: fn(*fargs), FULL_TIMED)
+    full_plain_ms = cuda_ms(lambda: fs.soil_column_full_step_plain(
+        sim.model, sim.timestepper, sim.ctx, (), sim.state, BENCH_DT), reps=3, warmup=True)
+    full_b = bound_ms(full_step_ops("euler", "richards", BENCH_NZ) * BENCH_CELLS,
+                      full_step_bytes("richards", BENCH_NZ, BENCH_CELLS, 4, keep[1].numel()))
+    del keep
+    # the full-step path: FULL_STEPS calls of fused, one launch each
+    reset_counts()
+    state = sim.state
+    for _ in range(FULL_STEPS):
+        state = fused(state)
+    torch.cuda.synchronize()
+    full_launches = fs.soil_column_full_step.launches
+    if launched() != {"soil_column_full_step": FULL_STEPS}:
+        raise AssertionError(f"{FULL_STEPS} full steps launched {launched()}")
+    ref = sim.state
+    for _ in range(FULL_STEPS):
+        ref = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), ref,
+                                             BENCH_DT)
+    loop_err = check_close("full step loop", [state[n] for n in sim.model.live_carry],
+                           [ref[n] for n in sim.model.live_carry], F32_REL_TOL)
+    if int(state.clock.iteration) != FULL_STEPS:
+        raise AssertionError(f"full-step loop: clock iteration {int(state.clock.iteration)}")
+    full_ms = float(np.median(full_kernel_ms))
+    phase("full_step", cells=BENCH_CELLS, nz=BENCH_NZ, f64_cells=FULL_F64_CELLS,
+          f64_steps=FULL_F64_STEPS, f64_rtol=1e-12, f64_max_abs_err=full64,
+          f64_stored_start_flip_columns=stored_flips,
+          rel_tol=F32_REL_TOL, f32_max_abs_err=full32, loop_steps=FULL_STEPS,
+          loop_launches=full_launches, loop_max_abs_err=loop_err,
+          fused_call_ms_median=float(np.median(call_ms)), fused_call_ms=call_ms,
+          kernel_ms_median=full_ms, kernel_ms=full_kernel_ms, plain_ms=full_plain_ms,
+          bound_ms=full_b[0], bound_by=full_b[1],
+          rollout_step_share_ms=ms / COMPARE_STEPS, card=card)
+    del sim, state, ref, fused
+
+    # ---- ImplicitEuler's and the LandModel's full steps
+    imp_full = full_step_implicit_phase(tp, fs, cuda_build, reset_counts, launched, ptxas_all,
+                                        card)
+    land_full = land_full_step_phase(tp, fs, ls, cuda_build, land_inputs, reset_counts,
+                                     launched, ptxas_all, card)
+
     # bounds: the bytes each function must move (the rollout reads its carry
     # and BC table and writes its carry; the VJP reads the carry, the BC
     # table and the output cotangents and writes the input and parameter
@@ -3468,7 +3968,34 @@ def main():
         "ms": full_ms, "plain_ms": full_plain_ms, "bound_ms": full_b[0],
         "bound_by": full_b[1], "library_ms": None,
         "fused_call_ms": float(np.median(call_ms)),
-        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, ForwardEuler, one full step"}]}),
+        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, ForwardEuler, one full step"}, *({
+        "name": f"soil_column_full_step[implicit_{vname}]", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/soil_column_full_step.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:152 with ImplicitEuler "
+                    f"(terrarium_tpu/timesteppers/implicit.py:168, {v['solver']}"
+                    + (f", {v['iters']} Picard iterations" if v["iters"] != 1 else "") + ")",
+        **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by")}, "library_ms": None, "fused_call_ms": v["call_ms"],
+        "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, ImplicitEuler dt {IMPLICIT_DT:g}, one full "
+                 f"step, {v['entry']}"} for vname, v in imp_full.items()), *({
+        "name": f"land_column_full_step[{vname}]", "route": "cuda",
+        "source": "terrarium_tpu_torch/csrc/land_column_full_step.cu",
+        "replaces": "terrarium_tpu/ops/fused_step.py:152 traced over a LandModel step "
+                    "(terrarium_tpu/models/land_model.py:55)"
+                    + {"euler": "", "heun": " with Heun (terrarium_tpu/timesteppers/"
+                                            "stepping.py:144)",
+                       "implicit": f" with ImplicitEuler (terrarium_tpu/timesteppers/"
+                                   f"implicit.py:168, {v['solver']}"
+                                   + (f", {v['iters']} Picard iterations" if v["iters"] != 1
+                                      else "") + ")"}[v["key"]]
+                    + (" and a Snowpack (terrarium_tpu/processes/snow.py:66)" if v["snow"]
+                       else ""),
+        **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by")}, "library_ms": None, "fused_call_ms": v["call_ms"],
+        "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent" + (" with snow" if v["snow"]
+                                                                     else "")
+                 + f", static inputs, dt {v['dt']:g}, one full step, {v['entry']}"}
+        for vname, v in land_full.items())]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3609,6 +4136,43 @@ def euler_digest(root: pathlib.Path):
             digests[f"land_vjp_{name}_f32_nz20"] = digest([gin[k] for k in sorted(gin)]
                                                           + [gK, gskm])
             del gsim, ops, gin
+    # the full-step kernels: the six ForwardEuler and Heun instantiations on
+    # full_sim's operands, one step, every leaf; ImplicitEuler's and the
+    # LandModel's where the package has them
+    def state_digest(st):
+        return digest([getattr(st, g)[k] for g in ("prognostic", "tendencies", "auxiliary")
+                       for k in sorted(getattr(st, g))])
+
+    for stepper, physics, dtype, cells, nz in (
+            ("euler", "richards", torch.float32, BENCH_CELLS, BENCH_NZ),
+            ("euler", "richards", torch.float64, FULL_F64_CELLS, 20),
+            ("euler", "heat", torch.float32, BENCH_CELLS, BENCH_NZ),
+            ("heun", "heat", torch.float32, BENCH_CELLS, BENCH_NZ),
+            ("heun", "richards", torch.float64, FULL_F64_CELLS, 15),
+            ("heun", "richards", torch.float32, BENCH_CELLS, BENCH_NZ)):
+        sim = full_sim(tp, cells, nz, dtype, stepper, physics)
+        out = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                 dt=BENCH_DT)(sim.state)
+        f = "f32" if dtype == torch.float32 else "f64"
+        digests[f"full_step_{stepper}_{physics}_{f}_nz{nz}"] = state_digest(out)
+        del sim, out
+    for solver, iters in FULL_IMPLICIT_VARIANTS:
+        sim = full_sim(tp, BENCH_CELLS, BENCH_NZ, torch.float32, "euler", "richards")
+        ts = tp.ImplicitEuler(dt=IMPLICIT_DT, solver=solver, picard_iters=iters)
+        try:
+            fused = fs.make_fused_step(sim.model, ts, sim.ctx, (), dt=IMPLICIT_DT)
+        except ValueError:  # a package without ImplicitEuler's full step
+            break
+        digests[f"full_step_implicit_{solver}_picard{iters}_f32_nz30"] = state_digest(
+            fused(sim.state))
+        del sim, fused
+    if hasattr(ls, "land_column_full_step"):
+        for vname in LAND_FULL_VARIANTS:
+            sim = land_full_sim(tp, LAND_CELLS, torch.float32, vname)
+            out = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                     dt=LAND_FULL_VARIANTS[vname][3])(sim.state)
+            digests[f"land_full_step_{vname}_f32_nz20"] = state_digest(out)
+            del sim, out
     sim = bench_sim(tp)
     sim.run(steps=COMPARE_STEPS)
     torch.cuda.synchronize()

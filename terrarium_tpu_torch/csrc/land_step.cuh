@@ -48,6 +48,16 @@
 
 enum { LAND_NIN = 11 };
 
+// The auxiliaries the land full step writes besides the net assimilation
+// (the carry's An), in the order of ops/land_step.py::LAND_FULL_AUX
+// (land_full_step.cuh; closure_rhs writes x_n's through its writer)
+enum {
+    AUX_T, AUX_LIQ, AUX_PSI, AUX_TG, AUX_KFACE, AUX_WT, AUX_PAW, AUX_BETA, AUX_RD, AUX_GPP,
+    AUX_GW, AUX_LAMC, AUX_RA, AUX_NPP, AUX_PHEN, AUX_LAI, AUX_LAIB, AUX_SNOWF, AUX_MELT,
+    AUX_ICAN, AUX_RCAN, AUX_FCAN, AUX_RAING, AUX_EC, AUX_EG, AUX_ET, AUX_RUNOFF, AUX_INFIL,
+    AUX_G, AUX_SWUP, AUX_LWUP, AUX_RNET, AUX_HS, AUX_HL, LAND_NAUX
+};
+
 // Mirror of terrarium_tpu_torch.ops.land_step._CLandParams (ctypes): the
 // land step's numbers in the working type T, so that the kernel reads each
 // from the parameter bank where it uses it (no conversion held in a
@@ -198,34 +208,39 @@ SOIL_FN T resistance(const T Ta, const T Ts, const T Vr, const LandColumnParams<
     return T(1) / (drag(Ta, Ts, Vr, c) * Vr);
 }
 
-// the ground heat flux of one SEB flux sweep at skin temperature Ts, r_a
-// the aerodynamic resistance there (seb.py::SurfaceEnergyBalance._fluxes),
-// the humidity flux Q_h fixed
+// One SEB flux sweep at skin temperature Ts, r_a the aerodynamic resistance
+// there (seb.py::SurfaceEnergyBalance._fluxes), the humidity flux Q_h
+// fixed, under the albedo and emissivity given (the parameters', or
+// SnowCoverAlbedo's blend under snow): every flux the SEB writes, and the
+// ground heat flux G
+template <typename T>
+struct Fluxes {
+    T SW_up, LW_up, R_net, H_s, H_l, G;
+    SOIL_FN Fluxes(const T Ts, const T r_a, const Forcing<T>& f, const T Q_h, const T albedo,
+                   const T eps_sigma, const T one_minus_emis, const LandColumnParams<T>& c) {
+        const T SW = f.v[IN_SW], LW = f.v[IN_LW], Ta = f.v[IN_TA];
+        SW_up = albedo * SW;
+        const T Tk = Ts + c.T_ref;
+        LW_up = eps_sigma * ((Tk * Tk) * (Tk * Tk)) + one_minus_emis * LW;
+        R_net = SW_up - SW + LW_up - LW;
+        H_s = c.c_a_rho_a * ((Ts - Ta) / r_a);
+        H_l = c.L_rho_a * Q_h;
+        G = c.consistent_G ? R_net + H_s + H_l : R_net - H_s - H_l;
+    }
+};
+
+// the ground heat flux of one sweep without snow
 template <typename T>
 SOIL_FN T ground_flux(const T Ts, const T r_a, const Forcing<T>& f, const T Q_h,
                       const LandColumnParams<T>& c) {
-    const T SW = f.v[IN_SW], LW = f.v[IN_LW], Ta = f.v[IN_TA];
-    const T SW_up = c.albedo * SW;
-    const T Tk = Ts + c.T_ref;
-    const T LW_up = c.eps_sigma * ((Tk * Tk) * (Tk * Tk)) + c.one_minus_emis * LW;
-    const T R_net = SW_up - SW + LW_up - LW;
-    const T H_s = c.c_a_rho_a * ((Ts - Ta) / r_a);
-    const T H_l = c.L_rho_a * Q_h;
-    return c.consistent_G ? R_net + H_s + H_l : R_net - H_s - H_l;
+    return Fluxes<T>(Ts, r_a, f, Q_h, c.albedo, c.eps_sigma, c.one_minus_emis, c).G;
 }
 
 // the same under snow, with the albedo and emissivity blended by the cover
 template <typename T>
 SOIL_FN T ground_flux_snow(const T Ts, const T r_a, const Forcing<T>& f, const T Q_h,
                            const Radiation<T>& rad, const LandColumnParams<T>& c) {
-    const T SW = f.v[IN_SW], LW = f.v[IN_LW], Ta = f.v[IN_TA];
-    const T SW_up = rad.albedo * SW;
-    const T Tk = Ts + c.T_ref;
-    const T LW_up = rad.eps_sigma * ((Tk * Tk) * (Tk * Tk)) + rad.one_minus_emis * LW;
-    const T R_net = SW_up - SW + LW_up - LW;
-    const T H_s = c.c_a_rho_a * ((Ts - Ta) / r_a);
-    const T H_l = c.L_rho_a * Q_h;
-    return c.consistent_G ? R_net + H_s + H_l : R_net - H_s - H_l;
+    return Fluxes<T>(Ts, r_a, f, Q_h, rad.albedo, rad.eps_sigma, rad.one_minus_emis, c).G;
 }
 
 // seb.py::ImplicitSkinTemperature.compute_skin_temperature
@@ -240,10 +255,12 @@ SOIL_FN T f_temp(const T Tc, const LandColumnParams<T>& c) {
     return d_exp(T(308.56) * (c.inv_56_02 - T(1) / (T(46.02) + Tc)));
 }
 
-// What the vegetation hands to the surface hydrology and the tendencies.
+// What the vegetation hands to the surface hydrology and the tendencies,
+// and the auxiliaries the full step writes besides (the leaf respiration,
+// the leaf-to-air CO2 ratio, GPP and the autotrophic respiration).
 template <typename T>
 struct Vegetation {
-    T LAI_b, LAI, gw, An, NPP;
+    T LAI_b, LAI, gw, An, NPP, Rd, lam_c, GPP, Ra;
 };
 
 // VegetationCarbon.compute_auxiliary after the PAW (vegetation.py): LAI_b
@@ -262,8 +279,10 @@ SOIL_FN Vegetation<T> vegetation(const T Cv, const T An0, const T beta, const T 
     const T g0 = c.g0_coef * one_m_exp * beta;
     v.gw = g0 + T(1.6) * (T(1) + c.g1 / soil::d_sqrt(vpd_a)) * An0 / co2 * T(1.0e6);
     const T lam_c = T(1) - T(1) / (T(1) + c.g1 / soil::d_sqrt(vpd_a * T(1.0e-3)));
+    v.lam_c = lam_c;
     // photosynthesis
     T An = T(0);
+    v.Rd = T(0);
     if (SW > T(0) && Ta > T(-3) && v.LAI > T(0)) {
         const T pO2 = T(0.209) * p;
         const T pa = co2 * T(1.0e-6) * p;
@@ -290,6 +309,7 @@ SOIL_FN Vegetation<T> vegetation(const T Cv, const T An0, const T beta, const T 
         const T s = JE + JC;
         const T disc = vmax(s * s - c.four_theta_r * JE * JC, T(0));
         An = (s - soil::d_sqrt(disc)) / c.two_theta_r * beta - Rd;
+        v.Rd = Rd;
     }
     v.An = An;
     // autotrophic respiration (phen = 1)
@@ -301,6 +321,8 @@ SOIL_FN Vegetation<T> vegetation(const T Cv, const T An0, const T beta, const T 
     const T Rm = f.v[IN_RD] / T(1000) + (R_stem + R_root) * c.resp_rate_scale;
     const T Ra = Rm + T(0.25) * (GPP - Rm);
     v.NPP = GPP - Ra;
+    v.GPP = GPP;
+    v.Ra = Ra;
     return v;
 }
 
@@ -335,6 +357,18 @@ struct SurfaceRates {
     T Ts, dw, dC, dnu, An, dswe;
 };
 
+// What closure_rhs writes besides the tendencies: nothing (the rollouts,
+// which start each step with a closure). land::FullWriter
+// (land_full_step.cuh) is the full step's, whose step starts from the
+// stored closure instead and writes every auxiliary of x_n.
+template <typename T>
+struct NoWrite {
+    static constexpr bool stored = false;
+    SOIL_FN void aux(int, T) const {}
+    SOIL_FN void aux(int, int, T) const {}
+    SOIL_FN void fluxes(const Fluxes<T>&) const {}
+};
+
 // The closure and tendencies of one closure-rotated step of the LandModel
 // column: the soil (U, sat; sat read only without RICHARDS), the surface
 // carry `s`, the inputs `f` of this step; `rf` the column's root fractions,
@@ -347,11 +381,22 @@ struct SurfaceRates {
 // implicit stepper's sink also takes each level's closure, out.level(k,
 // U[k], Level), and each face's Darcy conductivity, out.darcy_face(f,
 // K_eff); the explicit sinks ignore both.
-template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW, class Out>
+//
+// A writer `w` with Wr::stored (the full step's update_state, which does not
+// start with a closure) replaces the closure by the stored start: the
+// saturation as it is, the temperature, liquid fraction, pressure head and
+// ground temperature as w reads them from the state, the conductivities
+// (Mualem-van Genuchten or linear, COND, whether or not RICHARDS), the
+// plant-available water and the ground evaporation's factor from the stored
+// liquid fraction, and out.level's terms from soil::Stored. Each auxiliary
+// then goes to `w` as it is formed (w.aux, w.fluxes: the SEB's last sweep),
+// the infiltration and runoff also without Richards flow.
+template <typename T, int NZ, bool VEG, bool RICHARDS, int CURVE, int COND, bool SNOW, class Out,
+          class Wr = NoWrite<T>>
 SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>& f,
                          const soil::Consts<T>& sc, const LandColumnParams<T>& c,
                          const T* dz, const T* dzf, const T* zc, const T* zf, const T* rf,
-                         const long long rf_stride, Out& out)
+                         const long long rf_stride, Out& out, const Wr& w = Wr{})
 {
     const SoilColumnParams& SP = c.soil;
     static_assert(!(CURVE == CURVE_BC && COND == COND_MUALEM),
@@ -361,34 +406,56 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Fo
 
     // ---- closure: saturation adjustment and water table
     T wt = T(0);
-    if (RICHARDS) {
+    if (RICHARDS && !Wr::stored) {
         T spill;
         unsigned spilled, clipped;
         soil::sweeps<T, NZ>(sat, spill, wt, spilled, clipped, dz, zf);
         s.S = s.S + spill;
     }
 
-    // ---- energy closure, centre K, plant-available water; the heat flux
-    // and the energy tendency of every level below the top
+    // ---- energy closure (or the stored one), centre K, plant-available
+    // water; the heat flux and the energy tendency of every level below the
+    // top
     T T_prev = T(0), kap_prev = T(0), qh_prev = T(0), water_top = T(0), beta_paw = T(0);
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
-        const soil::Level<T, MUALEM> v(sat[k], U[k], sc, SP);
-        out.level(k, U[k], v);
-        if (RICHARDS) Kc[k] = MUALEM ? v.Kc : sc.K_sat * v.water / (v.water + v.ice + v.air);
+        T kap, Tk, water;
+        if constexpr (Wr::stored) {
+            const T liq = w.liq(k);
+            const soil::Stored<T, COND != COND_MUALEM, true> v(sat[k], liq, sc, SP);
+            out.level(k, U[k], v);
+            Kc[k] = v.Kc;
+            kap = v.kap;
+            Tk = w.temperature(k);
+            water = (sat[k] * sc.por) * liq;
+        } else {
+            const soil::Level<T, MUALEM> v(sat[k], U[k], sc, SP);
+            out.level(k, U[k], v);
+            if (RICHARDS) Kc[k] = MUALEM ? v.Kc : sc.K_sat * v.water / (v.water + v.ice + v.air);
+            kap = v.kap;
+            Tk = v.Tk;
+            water = v.water;
+        }
         if (VEG) {
-            const T W = vmin(vmax((v.water - c.wilting_point) / c.fc_minus_wp, T(0)), T(1));
+            const T W = vmin(vmax((water - c.wilting_point) / c.fc_minus_wp, T(0)), T(1));
+            w.aux(AUX_PAW, k, W);
             beta_paw = beta_paw + W * rf[k * rf_stride];
         }
-        const T kf = T(0.5) * (v.kap + (k == 0 ? v.kap : kap_prev));
-        const T qh = -kf * ((v.Tk - (k == 0 ? v.Tk : T_prev)) / dzf[k]);
+        const T kf = T(0.5) * (kap + (k == 0 ? kap : kap_prev));
+        const T qh = -kf * ((Tk - (k == 0 ? Tk : T_prev)) / dzf[k]);
         if (k > 0) out.energy(k - 1, -((qh - qh_prev) / dz[k - 1]));
         qh_prev = qh;
-        T_prev = v.Tk;
-        kap_prev = v.kap;
-        if (k == NZ - 1) water_top = v.water;
+        T_prev = Tk;
+        kap_prev = kap;
+        if (k == NZ - 1) water_top = water;
     }
-    const T Tg = T_prev;  // ground_temperature
+    T Tg = T_prev;  // ground_temperature
+    if constexpr (Wr::stored) {
+#pragma unroll
+        for (int fc = 0; fc <= NZ; ++fc) w.aux(AUX_KFACE, fc, soil::face_K<T, NZ>(Kc, fc));
+        Tg = w.ground_temperature();
+    }
+    if (VEG) w.aux(AUX_BETA, beta_paw);
     const T dz_top = dz[NZ - 1];
 
     // ---- atmosphere
@@ -404,11 +471,24 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Fo
         const T swe = vmax(s.swe, T(0));
         snow_f = swe / (swe + c.swe_half);
         melt = swe > T(0) ? c.ddf * vmax(Ta - c.T_melt, T(0)) : T(0);
+        w.aux(AUX_SNOWF, snow_f);
+        w.aux(AUX_MELT, melt);
     }
 
     // ---- vegetation
     Vegetation<T> veg{};
-    if (VEG) veg = vegetation<T>(s.C, s.An, beta_paw, Tg, e_air, f, c);
+    if (VEG) {
+        veg = vegetation<T>(s.C, s.An, beta_paw, Tg, e_air, f, c);
+        w.aux(AUX_LAIB, veg.LAI_b);
+        w.aux(AUX_PHEN, T(1));
+        w.aux(AUX_LAI, veg.LAI);
+        w.aux(AUX_GW, veg.gw);
+        w.aux(AUX_LAMC, veg.lam_c);
+        w.aux(AUX_RD, veg.Rd);
+        w.aux(AUX_GPP, veg.GPP);
+        w.aux(AUX_RA, veg.Ra);
+        w.aux(AUX_NPP, veg.NPP);
+    }
 
     // ---- surface hydrology: interception, evapotranspiration, runoff
     T rain_g = rain, f_can = T(0), I_can = T(0), R_can = T(0);
@@ -419,7 +499,11 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Fo
         I_can = c.alpha_int * rain * (T(1) - d_exp(c.neg_k_ext_int * LS));
         R_can = vmax(s.w, T(0)) / c.tau_w;
         rain_g = rain - I_can + R_can;
+        w.aux(AUX_ICAN, I_can);
+        w.aux(AUX_RCAN, R_can);
+        w.aux(AUX_FCAN, f_can);
     }
+    w.aux(AUX_RAING, rain_g);
     T beta_g = c.beta_factor;
     if (c.beta_soil) {
         const T cs = T(1) - d_cos(c.pi * water_top / c.field_capacity);
@@ -435,14 +519,21 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Fo
         const T E_g = beta_g * dq_g / (r_a0 + r_e);
         E_c = f_can * dq_s / r_a0;
         Q_h = E_g + E_c + E_t;
+        w.aux(AUX_ET, E_t);
+        w.aux(AUX_EG, E_g);
+        w.aux(AUX_EC, E_c);
     } else {
         Q_h = beta_g * dq_s / r_a0;
+        w.aux(AUX_EG, Q_h);
     }
     T infil = T(0);
-    if (RICHARDS) {
+    if (RICHARDS || Wr::stored) {
+        const T rain_in = SNOW ? rain_g + melt : rain_g;
         const T drainage = s.S > T(0) ? vmax(s.S, T(0)) / c.tau_r : T(0);
-        const T influx = s.S > T(0) ? drainage : (SNOW ? rain_g + melt : rain_g);
+        const T influx = s.S > T(0) ? drainage : rain_in;
         infil = sat[NZ - 1] < T(1) ? vmin(influx, Kc[NZ - 1]) : T(0);
+        w.aux(AUX_INFIL, infil);
+        w.aux(AUX_RUNOFF, rain_in + drainage - infil);
     }
 
     // ---- SEB: the fused update twice (fluxes, skin, fluxes), the first
@@ -462,13 +553,19 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Fo
         const T Ts1 = skin(Tg, G0, dz_top, c);
         const T G1 = ground_flux_snow(Ts1, resistance(Ta, Ts1, Vr, c), f, Q_h, rad, c);
         Ts2 = skin(Tg, G1, dz_top, c);
-        G = ground_flux_snow(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, rad, c);
+        const Fluxes<T> fl(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, rad.albedo, rad.eps_sigma,
+                           rad.one_minus_emis, c);
+        w.fluxes(fl);
+        G = fl.G;
     } else {
         const T G0 = ground_flux(s.Ts, r_a0, f, Q_h, c);
         const T Ts1 = skin(Tg, G0, dz_top, c);
         const T G1 = ground_flux(Ts1, resistance(Ta, Ts1, Vr, c), f, Q_h, c);
         Ts2 = skin(Tg, G1, dz_top, c);
-        G = ground_flux(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, c);
+        const Fluxes<T> fl(Ts2, resistance(Ta, Ts2, Vr, c), f, Q_h, c.albedo, c.eps_sigma,
+                           c.one_minus_emis, c);
+        w.fluxes(fl);
+        G = fl.G;
     }
 
     // ---- top level's energy: zero-gradient face above it; its Flux BC
@@ -487,9 +584,12 @@ SOIL_FN void closure_rhs(const T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Fo
 #pragma unroll
         for (int k = 0; k <= NZ; ++k) {
             T psi_k = psi_prev;
-            if (k < NZ)
+            if constexpr (Wr::stored) {
+                if (k < NZ) psi_k = w.pressure_head(k);
+            } else if (k < NZ) {
                 psi_k = CURVE == CURVE_BC ? bc_head<T>(sat[k], wt, zc[k], sc, c)
                                           : soil::Head<T>(sat[k], wt, zc[k], sc, SP).psi;
+            }
             const T lower = k == 0 ? psi_k : psi_prev;
             const T grad = (psi_k - lower) / dzf[k];
             const T K_lo = k == 0 ? T(INFINITY) : soil::face_K<T, NZ>(Kc, k - 1);
@@ -684,6 +784,25 @@ SOIL_FN void heun_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<T>
                                                         rf, rf_stride, out);
 }
 
+// The implicit solves of the land column's rates `r` (their top rows with
+// the Flux BCs in), soil::implicit_solves: no Dirichlet row (the land's top
+// BCs are Flux BCs and its bottom none); under RICHARDS the Richards rows
+// with the curve's d(Psi)/d(sat) at sat. SOLVER may be
+// soil::SOLVER_RUNTIME, the solves then by `solver`.
+template <typename T, int NZ, bool RICHARDS, int CURVE, int SOLVER>
+SOIL_FN void implicit_solves(ImplicitRates<T, NZ>& r, T (&U)[NZ], T (&sat)[NZ],
+                             const soil::Consts<T>& sc, const LandColumnParams<T>& c,
+                             const T* dz, const T* dzf, const T inv_dt, const int solver = SOLVER)
+{
+    soil::implicit_solves<T, NZ, RICHARDS, false, SOLVER>(
+        r, U, sat, sc.inv_por,
+        [&](int k) {
+            return CURVE == CURVE_BC ? bc_chain<T>(sat[k], sc, c)
+                                     : soil::water_chain<T>(sat[k], sc, c.soil);
+        },
+        dz, dzf, inv_dt, solver);
+}
+
 // One ImplicitEuler.pre_closure_step of the LandModel column in place, one
 // Picard iteration (implicit.py:183-264): closure_rhs into the implicit
 // sink (the closure in place, the tendencies, the terms); the Flux BCs
@@ -708,34 +827,10 @@ SOIL_FN void implicit_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcin
     closure_rhs<T, NZ, VEG, RICHARDS, CURVE, COND, SNOW>(U, sat, s, f, sc, c, dz, dzf, zc, zf,
                                                         rf, rf_stride, r);
     const T dz_top = dz[NZ - 1];
-    T a[NZ], b[NZ], cc[NZ];
     r.U[NZ - 1] = r.U[NZ - 1] - r.G / dz_top;
-    {
-        T Kf[NZ + 1];
-        Kf[0] = T(0.5) * (r.kap[0] + r.kap[0]);
-#pragma unroll
-        for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (r.kap[k] + r.kap[k - 1]);
-        Kf[NZ] = T(0.5) * (r.kap[NZ - 1] + r.kap[NZ - 1]);
-        soil::diffusion_rows<T, NZ>(Kf, r.Dh, T(1), inv_dt, dz, dzf, false, a, b, cc);
-    }
-    soil::solve<T, NZ, SOLVER>(a, b, cc, r.U);
-#pragma unroll
-    for (int k = 0; k < NZ; ++k) U[k] = U[k] + r.U[k];
-    if (RICHARDS) {
-        r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
-        {
-            T D[NZ];
-#pragma unroll
-            for (int k = 0; k < NZ; ++k)
-                D[k] = CURVE == CURVE_BC ? bc_chain<T>(sat[k], sc, c)
-                                         : soil::water_chain<T>(sat[k], sc, c.soil);
-            soil::diffusion_rows<T, NZ>(r.Keff, D, sc.inv_por, inv_dt, dz, dzf, false, a, b, cc);
-        }
-        soil::solve<T, NZ, SOLVER>(a, b, cc, r.sat);
-#pragma unroll
-        for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + r.sat[k];
-        s.S = s.S + r.dS * dt;
-    }
+    if (RICHARDS) r.sat[NZ - 1] = r.sat[NZ - 1] - (T(-1) * r.infil) / dz_top;
+    implicit_solves<T, NZ, RICHARDS, CURVE, SOLVER>(r, U, sat, sc, c, dz, dzf, inv_dt);
+    if (RICHARDS) s.S = s.S + r.dS * dt;
     s.Ts = r.surf.Ts + T(0) * dt;
     if (VEG) {
         s.w = s.w + r.surf.dw * dt;
@@ -791,32 +886,8 @@ SOIL_FN void picard_step(T (&U)[NZ], T (&sat)[NZ], Surface<T>& s, const Forcing<
                 if (RICHARDS) r.sat[k] = r.sat[k] - (sat[k] - sn[k]) / dt;
             }
         }
-        T a[NZ], b[NZ], cc[NZ];
-        {
-            T Kf[NZ + 1];
-            Kf[0] = T(0.5) * (r.kap[0] + r.kap[0]);
-#pragma unroll
-            for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (r.kap[k] + r.kap[k - 1]);
-            Kf[NZ] = T(0.5) * (r.kap[NZ - 1] + r.kap[NZ - 1]);
-            soil::diffusion_rows<T, NZ>(Kf, r.Dh, T(1), inv_dt, dz, dzf, false, a, b, cc);
-        }
-        soil::solve<T, NZ, SOLVER>(a, b, cc, r.U, solver);
-#pragma unroll
-        for (int k = 0; k < NZ; ++k) U[k] = U[k] + r.U[k];
-        if (RICHARDS) {
-            {
-                T D[NZ];
-#pragma unroll
-                for (int k = 0; k < NZ; ++k)
-                    D[k] = CURVE == CURVE_BC ? bc_chain<T>(sat[k], sc, c)
-                                             : soil::water_chain<T>(sat[k], sc, c.soil);
-                soil::diffusion_rows<T, NZ>(r.Keff, D, sc.inv_por, inv_dt, dz, dzf, false, a, b,
-                                            cc);
-            }
-            soil::solve<T, NZ, SOLVER>(a, b, cc, r.sat, solver);
-#pragma unroll
-            for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + r.sat[k];
-        }
+        implicit_solves<T, NZ, RICHARDS, CURVE, SOLVER>(r, U, sat, sc, c, dz, dzf, inv_dt,
+                                                        solver);
         if (it == 0) {
             if (RICHARDS) s.S = s.S + r.dS * dt;
             s.Ts = r.surf.Ts + T(0) * dt;

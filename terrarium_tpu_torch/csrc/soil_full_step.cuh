@@ -1,8 +1,9 @@
 // One full (not closure-rotated) soil step on one column: every leaf of the
 // state in and out.
 //
-// ForwardEuler.step and Heun.step of a SoilModel (stepping.py:106-114,
-// :150-165 in the JAX package; timesteppers/stepping.py in the port) with a
+// ForwardEuler.step, Heun.step and ImplicitEuler.step of a SoilModel
+// (stepping.py:106-114, :150-165 and implicit.py:168-171 in the JAX package;
+// timesteppers/stepping.py and implicit.py in the port) with a
 // Dirichlet top temperature as the only BC, heat + Richards flow (Van
 // Genuchten, Mualem conductivity) or heat only (NoFlow, linear
 // conductivity). Unlike the rollouts' pre_closure_step, the step does not
@@ -11,12 +12,18 @@
 // from the stored saturation and liquid fraction (stored_rhs below). The
 // step then writes
 //   prognostics   U, and for Richards sat and S (after the trailing closure)
-//   tendencies    dU, dsat, dS (Heun: the mean of its two stages)
+//   tendencies    dU, dsat, dS (Heun: the mean of its two stages;
+//                 ImplicitEuler: those of its first Picard iteration)
 //   auxiliaries   the face hydraulic conductivity of the start state; T,
 //                 liq, the ground temperature, and for Richards the pressure
 //                 head and the water table, from the trailing closure.
 // Heun's stage is a closure-rotated step from y = x + f dt, closure_rhs of
 // soil_step.cuh, as the module stage closes y and then updates its state.
+// ImplicitEuler's first Picard iteration takes its rows from the stored
+// start too (the conductivities and dT/dU from the stored liquid fraction,
+// the Darcy face K from the stored pressure head, d(Psi)/d(sat) from the
+// stored saturation); each further iteration closes the iterate and
+// re-solves as soil::picard_step does.
 //
 // Plain C++ apart from the function qualifiers (soil_step.cuh), so that the
 // host build (tests/soil_step_host.cpp) holds it to the plain version.
@@ -42,53 +49,28 @@ struct SoilFullStepIO {
 
 namespace soil {
 
-// The conductivities of one level from the stored saturation and liquid
-// fraction (compute_auxiliary and the energy tendency's soil volume):
-// thermal, and hydraulic, Mualem-van Genuchten as Level's (Richards) or
-// linear K_sat theta_w / (theta_w + theta_i + theta_a) (heat only).
-template <typename T, bool HEAT>
-struct Stored {
-    T kap, Kc;
-    SOIL_FN Stored(const T sk, const T liq, const Consts<T>& c, const SoilColumnParams& P) {
-        const T wi = sk * c.por;
-        const T water = wi * liq;
-        const T ice = wi * (T(1) - liq);
-        const T air = (T(1) - sk) * c.por;
-        const T acc = c.sk_water * water + c.sk_ice * ice + c.sk_air * air + c.sk_mineral +
-                      c.sk_organic;
-        kap = acc * acc;
-        if (HEAT) {
-            Kc = c.K_sat * water / (water + ice + air);
-            return;
-        }
-        const T I_ice = d_pow(T(10), c.neg_impedance * (T(1) - liq));
-        const T se = vmin(vmax(water / c.k_theta_sat, T(0)), T(1));
-        const bool frozen = se <= c.eps_lo;
-        const T se_s = frozen ? c.eps_lo : vmin(se, c.k_se_hi);
-        const T A = fpow(se_s, P.num_k1, P.den_k1, c.p_k1);
-        const T inner = T(1) - fpow(T(1) - A, P.num_k2, P.den_k2, c.p_k2);
-        const T K_unsat = frozen ? T(0) : c.K_sat * I_ice * d_sqrt(se_s) * (inner * inner);
-        Kc = se >= T(1) ? c.K_sat * I_ice : K_unsat;
-    }
-};
-
 // update_state's tendencies at the start of a full step, into `out` as
 // closure_rhs emits them, and the face hydraulic conductivity into K_face.
 // Reads sat (in registers, before any water update of `out`), S and, from
-// global memory, the stored T, liq and psi of column `col`.
-template <typename T, int NZ, bool HEAT, class Out>
+// global memory, the stored T, liq and psi of column `col`. TERMS (the
+// implicit step): also each level's terms, out.level(k, U[k], v), and each
+// face's Darcy conductivity, out.darcy_face(f, K_eff), as closure_rhs
+// emits them, U the column's energy.
+template <typename T, int NZ, bool HEAT, bool TERMS = false, class Out>
 SOIL_FN void stored_rhs(const T (&sat)[NZ], const T S, const T* Tg, const T* liqg,
                         const T* psig, const long long col, const long long cells,
                         const T vtop, const Consts<T>& c, const SoilColumnParams& P,
-                        const T* dz, const T* dzf, T* K_face, Out& out)
+                        const T* dz, const T* dzf, T* K_face, Out& out,
+                        const T* U = nullptr)
 {
     T Kc[NZ];
     T T_prev = T(0), kap_prev = T(0), qh_prev = T(0);
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
-        const Stored<T, HEAT> v(sat[k], liqg[k * cells + col], c, P);
+        const Stored<T, HEAT, TERMS> v(sat[k], liqg[k * cells + col], c, P);
         const T Tk = Tg[k * cells + col];
         Kc[k] = v.Kc;
+        if constexpr (TERMS) out.level(k, U[k], v);
         const T kf = T(0.5) * (v.kap + (k == 0 ? v.kap : kap_prev));
         const T qh = -kf * ((Tk - (k == 0 ? Tk : T_prev)) / dzf[k]);
         if (k > 0) out.energy(k - 1, -((qh - qh_prev) / dz[k - 1]));
@@ -117,6 +99,7 @@ SOIL_FN void stored_rhs(const T (&sat)[NZ], const T S, const T* Tg, const T* liq
         const T K_k = face_K<T, NZ>(Kc, k);
         const T K_eff = grad < T(0) ? vmin(K_lo, K_k) : vmin(K_k, K_hi);
         const T qw = -K_eff * grad;
+        if constexpr (TERMS) out.darcy_face(k, K_eff);
         if (k > 0) out.water(k - 1, (-((qw - qw_prev) / dz[k - 1])) / c.por);
         qw_prev = qw;
         psi_prev = psi_k;
@@ -174,14 +157,18 @@ struct HeunFullUpdate : ExplicitSink<T> {
     }
 };
 
-// The full step of column `col` (HEUN: Heun, else ForwardEuler): reads the
-// column from io, writes every field of io's outputs.
-template <typename T, int NZ, bool HEUN, bool HEAT>
+// The full step of column `col` (HEUN: Heun; IMPLICIT: ImplicitEuler with
+// `iters` Picard iterations, the solves by `solver`, soil::SOLVER_THOMAS or
+// _PCR, and inv_dt = 1 / dt as the host rounds it; else ForwardEuler):
+// reads the column from io, writes every field of io's outputs.
+template <typename T, int NZ, bool HEUN, bool HEAT, bool IMPLICIT = false>
 SOIL_FN void full_step_column(const SoilFullStepIO& io, const long long col,
                               const long long cells, const Consts<T>& c,
                               const SoilColumnParams& P, const T* dz, const T* dzf,
-                              const T* zc, const T* zf, const T dt)
+                              const T* zc, const T* zf, const T dt, const T inv_dt = T(0),
+                              const int iters = 1, const int solver = SOLVER_PCR)
 {
+    static_assert(!(HEUN && IMPLICIT), "one stepper");
     const T* Ug = static_cast<const T*>(io.U);
     const T* satg = static_cast<const T*>(io.sat);
     const T* top = static_cast<const T*>(io.top) + col * io.top_cell_stride;
@@ -214,6 +201,39 @@ SOIL_FN void full_step_column(const SoilFullStepIO& io, const long long col,
         HeunFullUpdate<T, NZ> out{U, sat, S, f, dU, dsat, dS, col, cells, dt};
         closure_rhs<T, NZ, HEAT>(yU, ys, yS, top[io.top_row_stride], c, P, dz, dzf, zc, zf,
                                  out);
+    } else if constexpr (IMPLICIT) {
+        // iteration 0 from the stored start; its tendencies are the step's
+        ImplicitTerms<T, NZ> f;
+        stored_rhs<T, NZ, HEAT, true>(sat, S, Tg, liqg, psig, col, cells, top[0], c, P, dz,
+                                      dzf, K_face, f, U);
+        const auto chain = [&](int k) { return water_chain<T>(sat[k], c, P); };
+        T Un[NZ], sn[NZ];
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+            dU[k * cells + col] = f.U[k];
+            if (!HEAT) dsat[k * cells + col] = f.sat[k];
+            Un[k] = U[k];
+            sn[k] = sat[k];
+        }
+        if (!HEAT) dS[col] = f.S;
+        implicit_solves<T, NZ, !HEAT, true, SOLVER_RUNTIME>(f, U, sat, c.inv_por, chain, dz, dzf,
+                                                          inv_dt, solver);
+        if (!HEAT) S = S + f.S * dt;
+        // further iterations at the closed iterate, the top temperature at
+        // the step's clock time; the spill of the iterate's closure dropped
+#pragma unroll 1
+        for (int it = 1; it < iters; ++it) {
+            ImplicitTerms<T, NZ> g;
+            T Sk = S;
+            closure_rhs<T, NZ, HEAT>(U, sat, Sk, top[0], c, P, dz, dzf, zc, zf, g);
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) {
+                g.U[k] = g.U[k] - (U[k] - Un[k]) / dt;
+                if (!HEAT) g.sat[k] = g.sat[k] - (sat[k] - sn[k]) / dt;
+            }
+            implicit_solves<T, NZ, !HEAT, true, SOLVER_RUNTIME>(g, U, sat, c.inv_por, chain, dz,
+                                                              dzf, inv_dt, solver);
+        }
     } else {
         EulerFullUpdate<T, NZ> out{U, sat, S, dU, dsat, dS, col, cells, dt};
         stored_rhs<T, NZ, HEAT>(sat, S, Tg, liqg, psig, col, cells, top[0], c, P, dz, dzf,

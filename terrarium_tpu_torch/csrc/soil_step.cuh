@@ -199,6 +199,43 @@ struct Level {
     }
 };
 
+// The conductivities of one level from the stored saturation and liquid
+// fraction, the full steps' start (soil_full_step.cuh, land_full_step.cuh;
+// compute_auxiliary and the energy tendency's soil volume):
+// thermal, and hydraulic, Mualem-van Genuchten as Level's (Richards) or
+// linear K_sat theta_w / (theta_w + theta_i + theta_a) (heat only).
+// WITH_C: also the heat capacity and -L_theta, what the implicit heat rows'
+// dT/dU reads (energy.py:142-163).
+template <typename T, bool HEAT, bool WITH_C = false>
+struct Stored {
+    T kap, Kc, C, negL;
+    SOIL_FN Stored(const T sk, const T liq, const Consts<T>& c, const SoilColumnParams& P) {
+        const T wi = sk * c.por;
+        const T water = wi * liq;
+        const T ice = wi * (T(1) - liq);
+        const T air = (T(1) - sk) * c.por;
+        const T acc = c.sk_water * water + c.sk_ice * ice + c.sk_air * air + c.sk_mineral +
+                      c.sk_organic;
+        kap = acc * acc;
+        if constexpr (WITH_C) {
+            C = c.c_water * water + c.c_ice * ice + c.c_air * air + c.c_mineral + c.c_organic;
+            negL = -(c.L * sk * c.por);
+        }
+        if (HEAT) {
+            Kc = c.K_sat * water / (water + ice + air);
+            return;
+        }
+        const T I_ice = d_pow(T(10), c.neg_impedance * (T(1) - liq));
+        const T se = vmin(vmax(water / c.k_theta_sat, T(0)), T(1));
+        const bool frozen = se <= c.eps_lo;
+        const T se_s = frozen ? c.eps_lo : vmin(se, c.k_se_hi);
+        const T A = fpow(se_s, P.num_k1, P.den_k1, c.p_k1);
+        const T inner = T(1) - fpow(T(1) - A, P.num_k2, P.den_k2, c.p_k2);
+        const T K_unsat = frozen ? T(0) : c.K_sat * I_ice * d_sqrt(se_s) * (inner * inner);
+        Kc = se >= T(1) ? c.K_sat * I_ice : K_unsat;
+    }
+};
+
 // The total head of one level, psi_h + psi_m + (z - z_top), and the pieces
 // of the Van Genuchten inverse that the adjoint needs.
 template <typename T>
@@ -544,6 +581,44 @@ SOIL_FN void solve(T (&a)[NZ], T (&b)[NZ], T (&c)[NZ], T (&d)[NZ], const int sol
     else thomas<T, NZ>(a, b, c, d);
 }
 
+// The implicit solves of one Picard iteration from its terms `f`
+// (ImplicitTerms, or land::ImplicitRates), the tendencies in f.U and f.sat:
+// the heat rows (face kappa by the arithmetic mean with zero-gradient ends,
+// dT/dU, scale 1; DIRICHLET: the Dirichlet top, whose value closure_rhs put
+// into the right-hand side) and their solve, U += du; WATER: the Richards
+// rows (the Darcy face K, D[k] = chain(k), the curve's d(Psi)/d(sat) at
+// sat, scale 1/por; the pressure head has no BC) and their solve, sat +=
+// du. The two systems are solved one after the other, each solve turning
+// its tendency array into du, so that one set of rows is live at a time.
+template <typename T, int NZ, bool WATER, bool DIRICHLET, int SOLVER, class F, class Chain>
+SOIL_FN void implicit_solves(F& f, T (&U)[NZ], T (&sat)[NZ], const T inv_por, const Chain& chain,
+                             const T* dz, const T* dzf, const T inv_dt, const int solver = SOLVER)
+{
+    T a[NZ], b[NZ], cc[NZ];
+    {
+        T Kf[NZ + 1];
+        Kf[0] = T(0.5) * (f.kap[0] + f.kap[0]);
+#pragma unroll
+        for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (f.kap[k] + f.kap[k - 1]);
+        Kf[NZ] = T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]);
+        diffusion_rows<T, NZ>(Kf, f.Dh, T(1), inv_dt, dz, dzf, DIRICHLET, a, b, cc);
+    }
+    solve<T, NZ, SOLVER>(a, b, cc, f.U, solver);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) U[k] = U[k] + f.U[k];
+    if constexpr (WATER) {
+        {
+            T D[NZ];
+#pragma unroll
+            for (int k = 0; k < NZ; ++k) D[k] = chain(k);
+            diffusion_rows<T, NZ>(f.Keff, D, inv_por, inv_dt, dz, dzf, false, a, b, cc);
+        }
+        solve<T, NZ, SOLVER>(a, b, cc, f.sat, solver);
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + f.sat[k];
+    }
+}
+
 // One ImplicitEuler.pre_closure_step of the column (U, sat, S) in place,
 // one Picard iteration: closure_rhs into the implicit sink (the closure in
 // place, the tendencies, the terms); the heat rows (face kappa by the
@@ -561,27 +636,9 @@ SOIL_FN void implicit_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const C
 {
     ImplicitTerms<T, NZ> f;
     closure_rhs<T, NZ, false>(U, sat, S, vtop, c, P, dz, dzf, zc, zf, f);
-    T a[NZ], b[NZ], cc[NZ];
-    {
-        T Kf[NZ + 1];
-        Kf[0] = T(0.5) * (f.kap[0] + f.kap[0]);
-#pragma unroll
-        for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (f.kap[k] + f.kap[k - 1]);
-        Kf[NZ] = T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]);
-        diffusion_rows<T, NZ>(Kf, f.Dh, T(1), inv_dt, dz, dzf, true, a, b, cc);
-    }
-    solve<T, NZ, SOLVER>(a, b, cc, f.U);
-#pragma unroll
-    for (int k = 0; k < NZ; ++k) U[k] = U[k] + f.U[k];
-    {
-        T D[NZ];
-#pragma unroll
-        for (int k = 0; k < NZ; ++k) D[k] = water_chain<T>(sat[k], c, P);
-        diffusion_rows<T, NZ>(f.Keff, D, c.inv_por, inv_dt, dz, dzf, false, a, b, cc);
-    }
-    solve<T, NZ, SOLVER>(a, b, cc, f.sat);
-#pragma unroll
-    for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + f.sat[k];
+    implicit_solves<T, NZ, true, true, SOLVER>(
+        f, U, sat, c.inv_por, [&](int k) { return water_chain<T>(sat[k], c, P); }, dz, dzf,
+        inv_dt);
     S = S + f.S * dt;
 }
 
@@ -623,30 +680,10 @@ SOIL_FN void picard_step(T (&U)[NZ], T (&sat)[NZ], T& S, const T vtop, const Con
                 if (!HEAT) f.sat[k] = f.sat[k] - (sat[k] - sn[k]) / dt;
             }
         }
-        T a[NZ], b[NZ], cc[NZ];
-        {
-            T Kf[NZ + 1];
-            Kf[0] = T(0.5) * (f.kap[0] + f.kap[0]);
-#pragma unroll
-            for (int k = 1; k < NZ; ++k) Kf[k] = T(0.5) * (f.kap[k] + f.kap[k - 1]);
-            Kf[NZ] = T(0.5) * (f.kap[NZ - 1] + f.kap[NZ - 1]);
-            diffusion_rows<T, NZ>(Kf, f.Dh, T(1), inv_dt, dz, dzf, true, a, b, cc);
-        }
-        solve<T, NZ, SOLVER>(a, b, cc, f.U, solver);
-#pragma unroll
-        for (int k = 0; k < NZ; ++k) U[k] = U[k] + f.U[k];
-        if constexpr (!HEAT) {
-            {
-                T D[NZ];
-#pragma unroll
-                for (int k = 0; k < NZ; ++k) D[k] = water_chain<T>(sat[k], c, P);
-                diffusion_rows<T, NZ>(f.Keff, D, c.inv_por, inv_dt, dz, dzf, false, a, b, cc);
-            }
-            solve<T, NZ, SOLVER>(a, b, cc, f.sat, solver);
-#pragma unroll
-            for (int k = 0; k < NZ; ++k) sat[k] = sat[k] + f.sat[k];
-            if (it == 0) S = S + f.S * dt;
-        }
+        implicit_solves<T, NZ, !HEAT, true, SOLVER>(
+            f, U, sat, c.inv_por, [&](int k) { return water_chain<T>(sat[k], c, P); }, dz, dzf,
+            inv_dt, solver);
+        if (!HEAT && it == 0) S = S + f.S * dt;
     }
 }
 

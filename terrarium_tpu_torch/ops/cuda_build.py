@@ -44,49 +44,72 @@ import torch
 __all__ = ["build", "ptxas_report", "entry", "INSTANTIATIONS"]
 
 _F32, _F64 = torch.float32, torch.float64
-#: the ImplicitEuler instantiations that take the Picard count and the
-#: solver at run time (picard_step), over heat only and heat + Richards:
-#: float32 Nz 30, the timed path, and float64 Nz 16, the checks against the
-#: plain version
-_PICARD = [(("implicit", "picard", physics), dtype, nz) for physics in ("richards", "heat")
-           for dtype, nz in ((_F32, 30), (_F64, 16))]
 #: the prebuilt instantiations of each source, ``(tags, dtype, NZ)``, built
 #: together at the source's first launch: those that ``chip_smoke.py``'s
 #: timed and checked paths launch (the bench and gradient grids at Nz 20 and
 #: 30, the Heun golden at Nz 15, the implicit golden and the float64 checks
-#: of the heat-only Heun and of the Picard entries at Nz 16). Any other is
-#: built alone at its first launch (``entry``). The costliest to compile
-#: come first in each list (the Picard entries), so that they start first
-#: in the build's slots
+#: of the heat-only Heun, of the Picard entries and of ImplicitEuler's full
+#: step at Nz 16). Any other is built alone at its first launch (``entry``).
+#: Each list is in the order of its instantiations' compile cost, costliest
+#: first (nvcc CPU seconds on the card's machine, the ``cpu_s`` lines of the
+#: ptxas reports), so that the longest compiles start first in the build's
+#: slots and a source's build ends with short ones
 INSTANTIATIONS = {
     "soil_column_rollout": [
-        *_PICARD,
-        *((("euler", "richards"), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)),
-        (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
-        (("euler", "heat"), _F32, 30), (("euler", "heat"), _F64, 30),
-        *((("implicit", solver, "richards"), dtype, nz) for solver in ("thomas", "pcr")
-          for dtype, nz in ((_F64, 16), (_F32, 30))),
-        (("heun", "heat"), _F32, 30), (("heun", "heat"), _F64, 16),
+        (("implicit", "picard", "richards"), _F32, 30),
+        (("implicit", "pcr", "richards"), _F32, 30), (("heun", "richards"), _F32, 30),
+        (("implicit", "thomas", "richards"), _F32, 30), (("euler", "richards"), _F64, 30),
+        (("implicit", "picard", "richards"), _F64, 16), (("heun", "richards"), _F64, 15),
+        (("implicit", "pcr", "richards"), _F64, 16),
+        (("implicit", "thomas", "richards"), _F64, 16), (("euler", "richards"), _F32, 30),
+        (("euler", "richards"), _F64, 20), (("euler", "richards"), _F32, 20),
+        (("implicit", "picard", "heat"), _F32, 30), (("implicit", "picard", "heat"), _F64, 16),
+        (("heun", "heat"), _F32, 30), (("heun", "heat"), _F64, 16), (("euler", "heat"), _F64, 30),
+        (("euler", "heat"), _F32, 30),
     ],
     # ForwardEuler over heat + Richards (no tags) at the gradient grids; each
     # other scheme at its forward kernel's sizes: Heun f64 Nz 15 and f32 Nz
     # 30, ImplicitEuler f64 Nz 16 and f32 Nz 30, heat-only ForwardEuler Nz
     # 30, heat-only Heun f64 Nz 16 and f32 Nz 30, the Picard entries
     "soil_column_segment_vjp": [
-        *_PICARD,
-        *(((), dtype, nz) for dtype in (_F32, _F64) for nz in (20, 30)),
-        (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
-        *((("implicit", solver, "richards"), dtype, nz) for solver in ("thomas", "pcr")
-          for dtype, nz in ((_F64, 16), (_F32, 30))),
-        (("euler", "heat"), _F64, 30), (("euler", "heat"), _F32, 30),
-        (("heun", "heat"), _F64, 16), (("heun", "heat"), _F32, 30),
+        (("implicit", "picard", "richards"), _F32, 30),
+        (("implicit", "pcr", "richards"), _F32, 30),
+        (("implicit", "thomas", "richards"), _F32, 30),
+        (("implicit", "picard", "richards"), _F64, 16), (("heun", "richards"), _F32, 30),
+        (("implicit", "pcr", "richards"), _F64, 16), ((), _F64, 30),
+        (("implicit", "thomas", "richards"), _F64, 16), (("heun", "richards"), _F64, 15),
+        ((), _F32, 30), ((), _F64, 20), ((), _F32, 20),
+        (("implicit", "picard", "heat"), _F32, 30), (("implicit", "picard", "heat"), _F64, 16),
+        (("heun", "heat"), _F32, 30), (("euler", "heat"), _F64, 30),
+        (("euler", "heat"), _F32, 30), (("heun", "heat"), _F64, 16),
     ],
     # one full step (make_fused_step): the bench width at float32 for each
-    # stepper and physics, and the float64 checks against the plain version
+    # stepper and physics, and the float64 checks against the plain version;
+    # ImplicitEuler (the solver and the Picard count at run time) over heat +
+    # Richards and over heat only, each at the bench width and, for its
+    # float64 check, at Nz 16
     "soil_column_full_step": [
-        (("euler", "richards"), _F32, 30), (("euler", "richards"), _F64, 20),
-        (("euler", "heat"), _F32, 30), (("heun", "heat"), _F32, 30),
-        (("heun", "richards"), _F64, 15), (("heun", "richards"), _F32, 30),
+        (("implicit", "richards"), _F32, 30), (("implicit", "richards"), _F64, 16),
+        (("heun", "richards"), _F32, 30), (("heun", "richards"), _F64, 15),
+        (("implicit", "heat"), _F32, 30), (("implicit", "heat"), _F64, 16),
+        (("euler", "richards"), _F64, 20),
+        (("euler", "richards"), _F32, 30), (("heun", "heat"), _F32, 30),
+        (("euler", "heat"), _F32, 30),
+    ],
+    # the LandModel's full step over the vegetated bench composition
+    # (Richards over Brooks-Corey and linear conductivity) at Nz 20, float32
+    # (timed) and float64 (the checks): ImplicitEuler with the solver and
+    # the Picard count at run time, with and without a snowpack, Heun and
+    # ForwardEuler
+    "land_column_full_step": [
+        (("implicit", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("veg", "richards", "bc", "linear"), _F64, 20),
+        (("veg", "richards", "bc", "linear"), _F32, 20),
     ],
     # the LandModel: ImplicitEuler with any number of Picard iterations (the
     # solver at run time) over the vegetated bench composition (Richards over
@@ -98,28 +121,37 @@ INSTANTIATIONS = {
     # ForwardEuler and over the bench composition at Nz 20 with ImplicitEuler
     # (PCR)
     "land_column_rollout": [
-        *((("implicit", "picard", "veg", "richards", "bc", "linear"), dtype, 20)
-          for dtype in (_F32, _F64)),
-        (("bare", "noflow"), _F64, 15),
-        *((("veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
-        *((("heun", "veg", "richards", "bc", "linear"), dtype, 20) for dtype in (_F32, _F64)),
-        *((("implicit", solver, "veg", "richards", "bc", "linear"), dtype, 20)
-          for solver in ("thomas", "pcr") for dtype in (_F32, _F64)),
-        (("bare", "richards", "bc", "linear", "snow"), _F64, 12),
-        *((("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), dtype, 20)
-          for dtype in (_F32, _F64)),
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("veg", "richards", "bc", "linear"), _F64, 20),
+        (("veg", "richards", "bc", "linear"), _F32, 20),
+        (("bare", "richards", "bc", "linear", "snow"), _F64, 12), (("bare", "noflow"), _F64, 15),
     ],
     # the LandModel's segment VJP over the vegetated bench composition
     # (Richards over Brooks-Corey and linear conductivity) at Nz 20:
-    # ImplicitEuler with any number of Picard iterations (the costliest
-    # compile of the port, first), ForwardEuler, ImplicitEuler (each
-    # solver), Heun, and ImplicitEuler (PCR) with a snowpack
+    # ImplicitEuler with any number of Picard iterations, ImplicitEuler (each
+    # solver, PCR also with a snowpack), Heun and ForwardEuler
     "land_column_segment_vjp": [
-        ((*stepper, "veg", "richards", "bc", "linear", *snow), dtype, 20)
-        for stepper, snow in ((("implicit", "picard"), ()), ((), ()),
-                              (("implicit", "thomas"), ()), (("implicit", "pcr"), ()),
-                              (("heun",), ()), (("implicit", "pcr"), ("snow",)))
-        for dtype in (_F32, _F64)
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("veg", "richards", "bc", "linear"), _F64, 20),
+        (("veg", "richards", "bc", "linear"), _F32, 20),
     ],
 }
 _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
@@ -134,7 +166,8 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
 #: multiply-adds (torch's elementwise ops do not), while their float32
 #: ones, the timed path, do
 FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
-         "land_column_segment_vjp": {_F64: ("-fmad=false",)}}
+         "land_column_segment_vjp": {_F64: ("-fmad=false",)},
+         "land_column_full_step": {_F64: ("-fmad=false",)}}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

@@ -40,12 +40,15 @@ tensors it launches its kernel or raises. Each launch adds one to the
 wrapper's ``launches``.
 
 :func:`make_fused_step` replaces ``terrarium_tpu/ops/fused_step.py::
-make_fused_step``: one full ``timestepper.step`` (ForwardEuler or Heun, heat
-+ Richards or heat only), every leaf of the state in and out, a launch of
-``csrc/soil_column_full_step.cu`` (column code ``csrc/soil_full_step.cuh``)
-through :func:`soil_column_full_step`, whose plain version
-:func:`soil_column_full_step_plain` is the port's own module step on a copy
-of the state.
+make_fused_step``: one full ``timestepper.step``, every leaf of the state in
+and out. A :class:`SoilModel` (ForwardEuler, Heun or ImplicitEuler with
+either solver and any Picard count, heat + Richards or heat only) is a
+launch of ``csrc/soil_column_full_step.cu`` (column code
+``csrc/soil_full_step.cuh``) through :func:`soil_column_full_step`, whose
+plain version :func:`soil_column_full_step_plain` is the port's own module
+step on a copy of the state; a LandModel is a launch of
+``csrc/land_column_full_step.cu`` through
+``ops/land_step.py::land_column_full_step``.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ from .bcs import Dirichlet, InputRef, bc_call_arity
 from .fastpow import fast_pow, pow_code
 from .tridiag import SOLVERS, diffusion_rows
 from ..io.input_sources import FieldInputSource
+from ..models.land_model import LandModel, coupling_bcs
 from ..models.soil_model import SoilModel
 from ..processes.soil.energy import SoilEnergyBalance
 from ..processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSURFEX,
@@ -742,19 +746,23 @@ class _CFullStepIO(ctypes.Structure):
 
 _FULL_ARGTYPES = ([ctypes.POINTER(_CFullStepIO)] + [ctypes.c_void_p] * 4
                   + [ctypes.POINTER(_CParams), ctypes.c_double, ctypes.c_longlong,
-                     ctypes.c_void_p])
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 #: the name of each stepper class the column code runs
 STEPPERS = {ForwardEuler: "euler", Heun: "heun", ImplicitEuler: "implicit"}
 
 
 def full_step_scheme(model, timestepper, ctx, input_sources=()) -> tuple:
-    """``(stepper, physics)`` of the full-step kernel that runs this
-    composition: a :class:`SoilModel` with heat + Richards flow (Van
-    Genuchten, Mualem) or heat only (linear conductivity), stepped by
-    ``ForwardEuler`` or ``Heun``, whose only BC is a Dirichlet top
+    """``(column, stepper, solver, picard_iters)`` of the full-step kernel
+    that runs this composition, stepped by ``ForwardEuler``, ``Heun`` or
+    ``ImplicitEuler`` (its solver and Picard count; ``None`` and 1 for the
+    explicit steppers), with static ``FieldInputSource`` sources and no
+    forcings. ``column`` is the physics of a :class:`SoilModel` with heat +
+    Richards flow (Van Genuchten, Mualem), ``"richards"``, or heat only
+    (linear conductivity), ``"heat"``, whose only BC is a Dirichlet top
     temperature given as a value, a ``(cells,)`` tensor, ``f(t)`` or an
-    input variable, with static ``FieldInputSource`` sources and no
-    forcings. Raises ``ValueError`` for any other, by type;
+    input variable; or ``"land"``, a LandModel that the land kernel runs
+    (``ops/land_step.py::land_full_composition``) with the coupling BCs
+    alone. Raises ``ValueError`` for any other, by type;
     ``Simulation.timestep`` steps all of them."""
     where = "; Simulation.timestep steps it through the process modules"
     for src in input_sources:
@@ -765,13 +773,29 @@ def full_step_scheme(model, timestepper, ctx, input_sources=()) -> tuple:
                              f"{type(src).__name__}" + where)
     if getattr(ctx, "forcings", None):
         raise ValueError("make_fused_step takes no forcings" + where)
-    if type(model) is not SoilModel:
-        raise ValueError(f"make_fused_step runs a SoilModel, not {type(model).__name__} "
-                         f"(the LandModel full step is still to port)" + where)
     stepper = STEPPERS.get(type(timestepper))
-    if stepper not in ("euler", "heun"):
-        raise ValueError(f"make_fused_step runs ForwardEuler or Heun, not "
+    if stepper is None:
+        raise ValueError(f"make_fused_step runs ForwardEuler, Heun or ImplicitEuler, not "
                          f"{type(timestepper).__name__}" + where)
+    solver, picard = ((timestepper.solver, int(timestepper.picard_iters))
+                      if stepper == "implicit" else (None, 1))
+    if stepper == "implicit" and (picard != timestepper.picard_iters or picard < 1):
+        raise ValueError(f"picard_iters must be a positive integer, got "
+                         f"{timestepper.picard_iters!r}" + where)
+    if type(model) is LandModel:
+        from .land_step import land_full_composition
+
+        if (ctx.bcs or {}) != coupling_bcs():
+            raise ValueError("make_fused_step runs a LandModel with its coupling BCs alone"
+                             + where)
+        try:
+            land_full_composition(model)
+        except ValueError as e:
+            raise ValueError(f"make_fused_step: {e}" + where) from e
+        return "land", stepper, solver, picard
+    if type(model) is not SoilModel:
+        raise ValueError(f"make_fused_step runs a SoilModel or a LandModel, not "
+                         f"{type(model).__name__}" + where)
     try:
         value = top_temperature_value(ctx.bcs)
         physics = kernel_physics(model)
@@ -785,25 +809,30 @@ def full_step_scheme(model, timestepper, ctx, input_sources=()) -> tuple:
             model.soil.hydrology.hydraulic_properties.unsat_hydraulic_cond) is not UnsatKLinear:
         raise ValueError("make_fused_step runs the heat-only model with UnsatKLinear "
                          "conductivity" + where)
-    return stepper, physics
+    return physics, stepper, solver, picard
 
 
 def make_fused_step(model, timestepper, ctx, input_sources=(), *, dt: float,
                     block_cells: int = 2048):
     """``fused(state) -> state``: one full ``timestepper.step`` of ``model``
-    with the sources given (as ``ForwardEuler.step`` / ``Heun.step``, without
-    ``Simulation.timestep``'s extra ``compute_auxiliary``), returned as a
-    new :class:`State` with every prognostic, tendency and auxiliary of the
-    step and the clock advanced; ``state`` is left as it is. On CUDA tensors
-    one launch of the full-step kernel, on CPU tensors its plain version
-    (:func:`soil_column_full_step`). ``block_cells`` is taken for the JAX
-    package's signature and is unused: the kernel runs one column a thread,
-    64 threads a block. Raises ``ValueError`` at once for a composition the
-    kernel does not run (:func:`full_step_scheme`)."""
-    full_step_scheme(model, timestepper, ctx, input_sources)
+    with the sources given (as ``ForwardEuler.step``, ``Heun.step`` or
+    ``ImplicitEuler.step``, without ``Simulation.timestep``'s extra
+    ``compute_auxiliary``), returned as a new :class:`State` with every
+    prognostic, tendency and auxiliary of the step and the clock advanced;
+    ``state`` is left as it is. On CUDA tensors one launch of the full-step
+    kernel, on CPU tensors its plain version: a SoilModel through
+    :func:`soil_column_full_step`, a LandModel through
+    ``ops/land_step.py::land_column_full_step``. ``block_cells`` is taken
+    for the JAX package's signature and is unused: the kernels run one
+    column a thread, 64 threads a block. Raises ``ValueError`` at once for a
+    composition no kernel runs (:func:`full_step_scheme`)."""
+    if full_step_scheme(model, timestepper, ctx, input_sources)[0] == "land":
+        from .land_step import land_column_full_step as full_step
+    else:
+        full_step = soil_column_full_step
 
     def fused(state: State) -> State:
-        return soil_column_full_step(model, timestepper, ctx, input_sources, state, dt)
+        return full_step(model, timestepper, ctx, input_sources, state, dt)
 
     return fused
 
@@ -832,10 +861,12 @@ def _full_top(model, ctx, state: State, dt: float) -> torch.Tensor:
     return top_temperature_table(value, clock_times(state.clock.time, dt, 1), grid)
 
 
-def full_step_operands(model, stepper: str, physics: str, ctx, state: State, dt: float):
+def full_step_operands(model, stepper: str, physics: str, ctx, state: State, dt: float,
+                       solver: str = "pcr", picard_iters: int = 1):
     """What one launch of the full-step kernel takes for ``state`` on the
     card: ``(fn, args, out)``, the entry point, its arguments and the
-    output tensors it fills (keyed as ``SoilFullStepIO``'s fields)."""
+    output tensors it fills (keyed as ``SoilFullStepIO``'s fields);
+    ImplicitEuler's ``solver`` and Picard count are run-time arguments."""
     U = state.prognostic["internal_energy"]
     heat = physics == "heat"
     grid = model.grid
@@ -870,7 +901,8 @@ def full_step_operands(model, stepper: str, physics: str, ctx, state: State, dt:
     fn = cuda_build.entry(_FULL_NAME, U.dtype, nz, _FULL_ARGTYPES, tags=(stepper, physics))
     # the inputs ride along in args, so that they outlive every launch of it
     args = (ctypes.byref(io), *(c.data_ptr() for c in coords), ctypes.byref(_CParams.of(params)),
-            float(dt), cells, torch.cuda.current_stream(U.device).cuda_stream)
+            float(dt), cells, SOLVER_CODES[solver], int(picard_iters),
+            torch.cuda.current_stream(U.device).cuda_stream)
     return fn, (args, (fields, top, coords, io)), out
 
 
@@ -879,13 +911,17 @@ def soil_column_full_step(model, timestepper, ctx, input_sources, state: State,
     """One full step of ``state`` (see :func:`make_fused_step`) as a new
     :class:`State`: on CPU tensors :func:`soil_column_full_step_plain`, on
     CUDA tensors one launch of the full-step kernel (or an error)."""
-    stepper, physics = full_step_scheme(model, timestepper, ctx, input_sources)
+    physics, stepper, solver, picard = full_step_scheme(model, timestepper, ctx, input_sources)
+    if physics == "land":
+        raise ValueError("soil_column_full_step runs a SoilModel; the LandModel's full step is "
+                         "ops/land_step.py::land_column_full_step")
     U = state.prognostic["internal_energy"]
     if U.device.type == "cpu":
         return soil_column_full_step_plain(model, timestepper, ctx, input_sources, state, dt)
     if U.device.type != "cuda":
         raise ValueError(f"the full soil step runs on cpu or cuda, not {U.device}")
-    fn, (args, _keep), out = full_step_operands(model, stepper, physics, ctx, state, dt)
+    fn, (args, _keep), out = full_step_operands(model, stepper, physics, ctx, state, dt,
+                                                solver or "pcr", picard)
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"full soil step kernel launch failed: cudaError {err}")

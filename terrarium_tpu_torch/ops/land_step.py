@@ -30,6 +30,14 @@ the port's process modules: a state over the carry and the inputs, stepped
 by the same stepper's ``pre_closure_step``. On CPU tensors a wrapper runs
 it; on CUDA tensors it launches the kernel or raises. Each launch adds one
 to the wrapper's ``launches``.
+
+:func:`land_column_full_step` is ``make_fused_step``'s LandModel: one full
+``timestepper.step`` (any of the three steppers) of a composition the
+kernels take, with static inputs, every leaf of the state in and out, a
+launch of ``csrc/land_column_full_step.cu`` (column code
+``csrc/land_full_step.cuh``); its plain version
+:func:`land_column_full_step_plain` is the port's own module step on a copy
+of the state.
 """
 from __future__ import annotations
 
@@ -42,14 +50,16 @@ import torch
 
 from . import cuda_build
 from .fastpow import pow_code
-from .fused_step import SOLVER_CODES, ColumnParams, _CParams, series_value, soil_flow
+from .fused_step import (SOLVER_CODES, ColumnParams, _CParams, full_step_scheme, series_value,
+                         soil_flow)
 from ..grids.column import ColumnGrid
 from ..models.land_model import LandModel
 from ..processes.atmosphere import (ConstantAerodynamics, LongShortWaveRadiation,
                                     MoninObukhovAerodynamics, PrescribedAtmosphere, RainSnow,
                                     SpecificHumidity)
 from ..processes.snow import SnowCoverAlbedo, Snowpack
-from ..processes.soil.hydraulics import UnsatKLinear, UnsatKVanGenuchten
+from ..processes.soil.hydraulics import (ConstantSoilHydraulics, SoilHydraulicsSURFEX,
+                                         UnsatKLinear, UnsatKVanGenuchten)
 from ..processes.soil.swrc import BrooksCorey, VanGenuchten
 from ..processes.surface_energy.seb import (ConstantAlbedo, DiagnosedRadiativeFluxes,
                                             DiagnosedTurbulentFluxes, ImplicitSkinTemperature)
@@ -61,13 +71,16 @@ from ..processes.vegetation.vegetation import (
     FieldCapacityLimitedPAW, LUEPhotosynthesis, MedlynStomatalConductance,
     PALADYNAutotrophicRespiration, PALADYNCarbonDynamics, PALADYNPhenology,
     PALADYNVegetationDynamics, StaticExponentialRootDistribution, VegetationCarbon)
-from ..state import Clock, build_state
+from ..state import Clock, State, build_state
 from ..timesteppers.implicit import ImplicitEuler
 from ..timesteppers.stepping import ForwardEuler, Heun
 
 __all__ = ["LAND_INPUTS", "LandInput", "LandParams", "land_composition", "carry_names",
            "land_column_rollout", "land_column_heun_rollout", "land_column_implicit_rollout",
-           "land_column_rollout_plain", "launch_args", "implicit_tags", "ROLLOUTS"]
+           "land_column_rollout_plain", "launch_args", "implicit_tags", "ROLLOUTS",
+           "LAND_FULL_AUX", "land_full_composition", "land_full_step_buffers",
+           "land_full_step_operands",
+           "land_column_full_step", "land_column_full_step_plain"]
 
 _NAME = "land_column_rollout"  # csrc/land_column_rollout.cu
 
@@ -555,3 +568,212 @@ def launch_args(carry, out, inputs, root_fraction, coords, params: LandParams):
 
 for _fn in ROLLOUTS.values():
     _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one full step (make_fused_step)
+# ---------------------------------------------------------------------------
+_FULL_NAME = "land_column_full_step"  # csrc/land_column_full_step.cu
+
+#: the auxiliaries the land full step writes besides the net assimilation,
+#: in the order of ``AUX_*`` in ``csrc/land_full_step.cuh``
+LAND_FULL_AUX = (
+    "temperature", "liquid_water_fraction", "pressure_head", "ground_temperature",
+    "hydraulic_conductivity", "water_table", "plant_available_water",
+    "soil_moisture_limiting_factor", "leaf_respiration", "gross_primary_production",
+    "canopy_water_conductance", "leaf_to_air_co2_ratio", "autotrophic_respiration",
+    "net_primary_production", "phenology_factor", "leaf_area_index",
+    "balanced_leaf_area_index", "snow_cover_fraction", "snow_melt",
+    "canopy_water_interception", "canopy_water_removal", "saturation_canopy_water",
+    "rainfall_ground", "evaporation_canopy", "evaporation_ground", "transpiration",
+    "surface_runoff", "infiltration", "ground_heat_flux", "surface_shortwave_up",
+    "surface_longwave_up", "surface_net_radiation", "sensible_heat_flux", "latent_heat_flux")
+_FULL_RICHARDS_AUX = ("pressure_head", "water_table")
+_FULL_VEG_AUX = ("plant_available_water", "soil_moisture_limiting_factor", "leaf_respiration",
+                 "gross_primary_production", "canopy_water_conductance",
+                 "leaf_to_air_co2_ratio", "autotrophic_respiration", "net_primary_production",
+                 "phenology_factor", "leaf_area_index", "balanced_leaf_area_index",
+                 "canopy_water_interception", "canopy_water_removal",
+                 "saturation_canopy_water", "evaporation_canopy", "transpiration")
+_FULL_SNOW_AUX = ("snow_cover_fraction", "snow_melt")
+
+
+class _CLandFullStepIO(ctypes.Structure):
+    """C layout of ``LandFullStepIO`` (``csrc/land_full_step.cuh``)."""
+
+    _fields_ = ([("in_", _CLandCarry), ("out", _CLandCarry), ("tend", _CLandCarry)]
+                + [(n, ctypes.c_void_p) for n in ("T", "liq", "psi", "ground_T")]
+                + [("aux", ctypes.c_void_p * len(LAND_FULL_AUX))])
+
+
+def land_full_composition(model) -> tuple:
+    """The full-step kernel's composition tags of ``model``:
+    :func:`land_composition`'s, with, under ``NoFlow``, the conductivity of
+    the face K that the state holds inserted after ``"noflow"``
+    (``"linear"``, or ``"mualem"`` over ``VanGenuchten``). Raises
+    ``ValueError`` for anything else."""
+    tags = land_composition(model)
+    if tags[1] != "noflow":
+        return tags
+    hp = model.soil.hydrology.hydraulic_properties
+    _require(isinstance(hp, (ConstantSoilHydraulics, SoilHydraulicsSURFEX))
+             and (type(hp.unsat_hydraulic_cond) is UnsatKLinear
+                  or (type(hp.unsat_hydraulic_cond) is UnsatKVanGenuchten
+                      and type(hp.swrc) is VanGenuchten)),
+             "NoFlow over ConstantSoilHydraulics or SoilHydraulicsSURFEX with UnsatKLinear, or "
+             "UnsatKVanGenuchten and VanGenuchten, in a full step", _name(hp))
+    cond = "linear" if type(hp.unsat_hydraulic_cond) is UnsatKLinear else "mualem"
+    return tags[:2] + (cond,) + tags[2:]
+
+
+def _full_aux_written(tags) -> tuple:
+    """The auxiliaries the full-step kernel of ``tags`` writes, besides the
+    net assimilation."""
+    skip = (() if tags[1] == "richards" else _FULL_RICHARDS_AUX) + (
+        () if tags[0] == "veg" else _FULL_VEG_AUX) + (() if "snow" in tags else _FULL_SNOW_AUX)
+    return tuple(n for n in LAND_FULL_AUX if n not in skip)
+
+
+def _full_argtypes(dtype) -> list:
+    return ([ctypes.POINTER(_CLandFullStepIO), ctypes.POINTER(_CLandInputs), ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+            + [ctypes.POINTER(_CLAND[dtype]), ctypes.c_double, ctypes.c_longlong, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p])
+
+
+#: the stepper tags of the full-step kernel's instantiations
+_FULL_STEPPER_TAGS = {"euler": (), "heun": ("heun",), "implicit": ("implicit",)}
+
+
+def land_full_step_buffers(model, state: State):
+    """The full-step kernel's operands for ``state`` up to the parameters,
+    on the state's device: ``(tags, args, keep, out)``, the instantiation's
+    composition tags, the arguments of the entry point from the IO struct to
+    the parameters (IO, inputs, root fraction and its strides, coordinates,
+    parameters), what they point into (to be kept alive over the call), and
+    the tensors the kernel fills: ``out["prognostic"]``, ``["tendencies"]``
+    and ``["auxiliary"]``, each keyed by the state's names (the net
+    assimilation among the auxiliaries). The inputs are the state's,
+    static. Raises ``ValueError`` for a state that misses a leaf the kernel
+    reads or holds one it neither writes nor passes through."""
+    tags = land_full_composition(model)
+    U = state.prognostic["internal_energy"]
+    nz, cells = U.shape
+    dtype, device = U.dtype, U.device
+    params = LandParams.of(model, dtype)
+    if tags[1] == "noflow":  # the face K of the state's conductivity
+        params = dataclasses.replace(params, soil=ColumnParams.of_soil(
+            model.soil, model.constants, model.grid, dtype, True))
+    richards, veg = tags[1] == "richards", tags[0] == "veg"
+    carry = {n: state[n].contiguous() for n in carry_names(params)}
+    stored = {k: state[n].contiguous() for k, n in (
+        ("T", "temperature"), ("liq", "liquid_water_fraction"),
+        ("ground_T", "ground_temperature"), *((("psi", "pressure_head"),) if richards else ()))}
+    written = _full_aux_written(tags)
+    passed = ("root_fraction",) * veg + (() if richards else ("saturation_water_ice",
+                                                             "water_table"))
+    extra = set(state.auxiliary) - set(written) - set(passed) - {"net_assimilation"}
+    missing = set(written) - set(state.auxiliary)
+    if extra or missing or set(state.tendencies) != set(state.prognostic):
+        raise ValueError(f"the land full step writes {written}; the state holds "
+                         f"{sorted(state.auxiliary)} (extra {sorted(extra)}, missing "
+                         f"{sorted(missing)})")
+    out = {"prognostic": {n: torch.empty_like(v) for n, v in state.prognostic.items()},
+           "tendencies": {n: torch.empty_like(v) for n, v in state.prognostic.items()},
+           "auxiliary": {n: torch.empty_like(state.auxiliary[n]) for n in written}}
+    if veg:
+        out["auxiliary"]["net_assimilation"] = torch.empty_like(state["net_assimilation"])
+    for t in (*carry.values(), *stored.values()):
+        if t.dtype != dtype or t.device != device:
+            raise ValueError(f"the land full step's fields take one dtype and device; got "
+                             f"{t.dtype} on {t.device}")
+    c_out = {_CARRY_OF[n]: v.data_ptr() for n, v in out["prognostic"].items()}
+    if veg:
+        c_out["An"] = out["auxiliary"]["net_assimilation"].data_ptr()
+    io = _CLandFullStepIO(
+        in_=_CLandCarry(**{_CARRY_OF[n]: t.data_ptr() for n, t in carry.items()}),
+        out=_CLandCarry(**c_out),
+        tend=_CLandCarry(**{_CARRY_OF[n]: v.data_ptr() for n, v in out["tendencies"].items()}),
+        **{k: v.data_ptr() for k, v in stored.items()})
+    for i, n in enumerate(LAND_FULL_AUX):
+        io.aux[i] = out["auxiliary"][n].data_ptr() if n in written else None
+    inputs = {n: LandInput(state.inputs[n][None, :]) for n in LAND_INPUTS if n in state.inputs}
+    zero = torch.zeros(1, dtype=dtype, device=device)
+    c_inputs = _CLandInputs()
+    for i, name in enumerate(LAND_INPUTS):
+        v = inputs.get(name, LandInput(zero)).values
+        if v.dtype != dtype or v.device != device or v.dim() != 2 and v.numel() != 1:
+            raise ValueError(f"input {name} must be a ({cells},) {dtype} field on {device}")
+        c_inputs.ptr[i] = v.data_ptr()
+        c_inputs.cell_stride[i] = v.stride(1) if v.dim() == 2 else 0
+        c_inputs.rows[i], c_inputs.dts[i] = 1, 1.0
+    root = state.auxiliary["root_fraction"] if veg else zero[None, :]
+    strides = (root.stride(0), root.stride(1)) if veg else (0, 0)
+    coords = tuple(torch.as_tensor(a, device=device).to(dtype) for a in (
+        model.grid.vertical.dz, model.grid.vertical.dz_faces, model.grid.vertical.z_centers,
+        model.grid.vertical.z_faces))
+    params_c = _CLAND[dtype](soil=_CParams.of(params.soil), **params.values)
+    args = (ctypes.byref(io), ctypes.byref(c_inputs), root.data_ptr(), *strides,
+            *(c.data_ptr() for c in coords), ctypes.byref(params_c))
+    keep = (carry, stored, inputs, zero, root, coords, io, c_inputs, params_c)
+    return tags, args, keep, out
+
+
+def land_full_step_operands(model, stepper: str, state: State, dt: float,
+                            solver: Optional[str] = None, picard_iters: int = 1):
+    """What one launch of the land full-step kernel takes for ``state`` on
+    the card: ``(fn, (args, keep), out)``, the entry point, its arguments,
+    what they point into and the tensors it fills
+    (:func:`land_full_step_buffers`); ImplicitEuler's ``solver`` and Picard
+    count are run-time arguments."""
+    tags, args, keep, out = land_full_step_buffers(model, state)
+    U = state.prognostic["internal_energy"]
+    fn = cuda_build.entry(_FULL_NAME, U.dtype, U.shape[0], _full_argtypes(U.dtype),
+                          tags=_FULL_STEPPER_TAGS[stepper] + tags)
+    args = (*args, float(dt), U.shape[1], SOLVER_CODES.get(solver, 0), int(picard_iters),
+            torch.cuda.current_stream(U.device).cuda_stream)
+    return fn, (args, keep), out
+
+
+def land_column_full_step_plain(model, timestepper, ctx, input_sources, state: State,
+                                dt: float) -> State:
+    """The plain version of the land full step: the port's own
+    ``timestepper.step`` through the process modules, on a copy of
+    ``state``."""
+    out = state.copy()
+    timestepper.step(model, out, ctx, input_sources, dt)
+    return out
+
+
+def land_column_full_step(model, timestepper, ctx, input_sources, state: State,
+                          dt: float) -> State:
+    """One full step of ``state`` (``make_fused_step`` over a LandModel) as a
+    new :class:`State`, every prognostic, tendency and auxiliary of the step
+    and the clock advanced: on CPU tensors
+    :func:`land_column_full_step_plain`, on CUDA tensors one launch of the
+    full-step kernel (or an error). Raises ``ValueError`` for a composition
+    the kernel does not run (``fused_step.full_step_scheme``)."""
+    column, stepper, solver, picard = full_step_scheme(model, timestepper, ctx, input_sources)
+    if column != "land":
+        raise ValueError("land_column_full_step runs a LandModel; the SoilModel's full step is "
+                         "ops/fused_step.py::soil_column_full_step")
+    U = state.prognostic["internal_energy"]
+    if U.device.type == "cpu":
+        return land_column_full_step_plain(model, timestepper, ctx, input_sources, state, dt)
+    if U.device.type != "cuda":
+        raise ValueError(f"the land full step runs on cpu or cuda, not {U.device}")
+    fn, (args, keep), out = land_full_step_operands(model, stepper, state, dt, solver, picard)
+    err = fn(*args)
+    del keep
+    if err != 0:
+        raise RuntimeError(f"land full step kernel launch failed: cudaError {err}")
+    land_column_full_step.launches += 1
+    new = state.copy()
+    new.prognostic.update(out["prognostic"])
+    new.tendencies.update(out["tendencies"])
+    new.auxiliary.update(out["auxiliary"])
+    new.clock = Clock(state.clock.time + dt, state.clock.iteration + 1)
+    return new
+
+
+land_column_full_step.launches = 0

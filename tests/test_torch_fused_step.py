@@ -213,8 +213,28 @@ def _refused(name):
         bcs = tp.PrescribedSurfaceTemperature(lambda t, state: 5.0 + 0.0 * t)
     elif name == "ImplicitEuler":
         ts = tp.ImplicitEuler(dt=60.0)
-    elif name == "LandModel":
+    elif name.startswith("LandModel"):
         model, bcs = tp.LandModel(grid=grid), None
+        if name == "LandModel with a time-varying source":
+            sources = (tp.TimeSeriesInputSource(times=np.array([0.0, 3600.0]),
+                                                series={"air_temperature": np.array([1.0, 4.0])}),)
+        elif name == "LandModel with forcings":
+            forcings = {"internal_energy": lambda s, g: 1.0}
+        elif name == "LandModel with PALADYN interception without vegetation":
+            # test_torch_land_steppers.py::test_implicit_land_model_reproduced's
+            props = tp.ConstantSoilHydraulics(swrc=tp.VanGenuchten(alpha=2.0, n=2.0),
+                                              unsat_hydraulic_cond=tp.UnsatKVanGenuchten(),
+                                              sat_hydraulic_cond=1e-6)
+            model = tp.LandModel(
+                grid=grid, soil=tp.SoilEnergyWaterCarbon(
+                    strat=tp.HomogeneousStratigraphy(texture=tp.SoilTexture.preset("loam")),
+                    hydrology=tp.SoilHydrology(vertical_flow=tp.RichardsEq(),
+                                               hydraulic_properties=props)),
+                surface_energy_balance=tp.SurfaceEnergyBalance.consistent(),
+                surface_hydrology=tp.SurfaceHydrology(
+                    canopy_interception=tp.PALADYNCanopyInterception(),
+                    evapotranspiration=tp.BareGroundEvaporation.consistent_units()))
+            ts = tp.ImplicitEuler(dt=60.0)
     elif name == "UnsatKVanGenuchten":
         model = tp.SoilModel(grid=grid, soil=tp.SoilEnergyWaterCarbon(
             hydrology=tp.SoilHydrology(hydraulic_properties=port_soil().hydrology
@@ -224,13 +244,41 @@ def _refused(name):
     return sim
 
 
+#: compositions that ``make_fused_step`` refused until the ImplicitEuler and
+#: LandModel full-step kernels were ported, pinned now on the kernel path
+NOW_PORTED = ("ImplicitEuler", "LandModel")
+
+
 @pytest.mark.parametrize("name", ["time-varying source", "forcings", "GeothermalHeatFlux",
                                   "f(t, state)", "ImplicitEuler", "LandModel",
-                                  "UnsatKVanGenuchten"])
+                                  "UnsatKVanGenuchten", "LandModel with a time-varying source",
+                                  "LandModel with forcings",
+                                  "LandModel with PALADYN interception without vegetation"])
 def test_refuses_by_type(name):
     """Each refusal is a ``ValueError`` at ``make_fused_step`` naming
-    ``Simulation.timestep``, which steps the composition."""
+    ``Simulation.timestep``, which steps the composition. ImplicitEuler over
+    the bench soil and the bare-ground LandModel take the kernel path
+    instead: ``make_fused_step`` builds, and on CPU tensors a call runs the
+    plain version (no launch) and returns its state, every leaf equal."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
     sim = _refused(name)
+    if name in NOW_PORTED:
+        fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                                   dt=60.0)
+        wrapper, plain = ((ls.land_column_full_step, ls.land_column_full_step_plain)
+                          if name == "LandModel" else
+                          (fs.soil_column_full_step, fs.soil_column_full_step_plain))
+        before = wrapper.launches
+        out = fused(sim.state)
+        assert wrapper.launches == before
+        ref = plain(sim.model, sim.timestepper, sim.ctx, sim.input_sources, sim.state, 60.0)
+        for group in ("prognostic", "tendencies", "auxiliary"):
+            assert sorted(getattr(out, group)) == sorted(getattr(ref, group)), group
+            for k, v in getattr(ref, group).items():
+                assert torch.equal(getattr(out, group)[k], v), (group, k)
+        assert int(out.clock.iteration) == int(sim.state.clock.iteration) + 1
+        return
     with pytest.raises(ValueError, match="Simulation.timestep"):
         fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources, dt=60.0)
     sim.timestep(60.0)

@@ -716,19 +716,20 @@ def test_fused_grad_rollout_launches_each_scheme_once_a_segment(cuda, scheme):
 LAND_GOLDEN = GOLDEN.parent / "land_model.npz"
 
 
-def _land_sim(cells, dtype, device, vegetated=True, nz=20, stepper=None, snow=False):
+def _land_sim(cells, dtype, device, vegetated=True, nz=20, stepper=None, snow=False,
+              static=False):
     """The vegetated composition of `examples/land_global.py` with
     ``DirectSurfaceRunoff.consistent()`` over loam Richards flow (Brooks-
     Corey, linear conductivity), or the default bare-ground model (heat only,
     Nz 15, the golden's); hourly series of shortwave and air temperature
-    over latitudes from -60 to 80 degrees; ForwardEuler at dt 600 or
-    ``stepper``; with ``snow`` a ``Snowpack()``, a snowfall of 2e-8 m/s and
-    an initial SWE of 0.02 m."""
+    over latitudes from -60 to 80 degrees (``static``: their daytime values
+    as static fields); ForwardEuler at dt 600 or ``stepper``; with ``snow``
+    a ``Snowpack()``, a snowfall of 2e-8 m/s and an initial SWE of 0.02 m."""
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=nz), dtype=dtype,
                             device=device)
     if not vegetated:
         return tp.initialize(
-            tp.LandModel(grid=grid), tp.ForwardEuler(),
+            tp.LandModel(grid=grid), stepper or tp.ForwardEuler(),
             initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
             input_sources=(tp.FieldInputSource(fields={
                 "surface_shortwave_down": 400.0, "air_temperature": 12.0,
@@ -758,6 +759,10 @@ def _land_sim(cells, dtype, device, vegetated=True, nz=20, stepper=None, snow=Fa
         model = dataclasses.replace(model, snow=tp.Snowpack())
         fields["snowfall"] = 2.0e-8
         inits["snow_water_equivalent"] = 0.02
+    if static:
+        fields.update(surface_shortwave_down=600.0 * coslat, air_temperature=28.0 * coslat - 5.0)
+        return tp.initialize(model, stepper or tp.ForwardEuler(dt=600.0),
+                             (tp.FieldInputSource(fields=fields),), initializers=inits)
     return tp.initialize(
         model, stepper or tp.ForwardEuler(dt=600.0),
         (tp.TimeSeriesInputSource(times=hours, series={"surface_shortwave_down": sw,
@@ -983,12 +988,12 @@ def _full_sim(cells, nz, dtype, device, stepper="euler", physics="richards", for
             lambda t: 5.0 * torch.sin(2 * torch.pi * t / 86400.0)), forcings=forcings)
 
 
-def _assert_full_close(k_state, p_state, rtol):
+def _assert_full_close(k_state, p_state, rtol, dt=DT):
     """Every prognostic, tendency and auxiliary and the clock (the rule of
     ``chip_smoke.check_full_step``): float64 each element within ``rtol``
     with a floor of ``rtol`` times the scale, float32 the largest error
     within ``rtol`` of the scale; the scale is the leaf's largest magnitude,
-    a tendency's at least its prognostic's over dt."""
+    a tendency's at least its prognostic's over ``dt``."""
     for g in ("prognostic", "tendencies", "auxiliary"):
         assert sorted(getattr(k_state, g)) == sorted(getattr(p_state, g)), g
         for key, b in getattr(p_state, g).items():
@@ -996,7 +1001,7 @@ def _assert_full_close(k_state, p_state, rtol):
             assert a.shape == b.shape and bool(torch.isfinite(a).all()), (g, key)
             scale = float(b.abs().max())
             if g == "tendencies":
-                scale = max(scale, float(p_state.prognostic[key].abs().max()) / DT)
+                scale = max(scale, float(p_state.prognostic[key].abs().max()) / dt)
             d = (a - b).abs()
             if rtol <= 1e-9:
                 assert not bool((d > rtol * b.abs() + rtol * scale).any()), (g, key, d.max())
@@ -1065,6 +1070,117 @@ def test_full_step_kernel_reads_an_input_variable_and_refuses_other_nz(cuda):
                        fs.soil_column_full_step_plain(small.model, small.timestepper, small.ctx,
                                                       small.input_sources, small.state, DT),
                        1e-4)
+
+
+#: ImplicitEuler full steps of the soil: (physics, solver, Picard iterations)
+FULL_IMPLICIT = [("richards", "pcr", 1), ("richards", "thomas", 2), ("heat", "pcr", 2),
+                 ("heat", "thomas", 1)]
+
+
+def _full_implicit_sim(cells, dtype, device, physics, solver, picard):
+    """The full-step composition by ImplicitEuler at dt 900 s, at Nz 16
+    (float64) or 30 (float32), the prebuilt sizes."""
+    sim = _full_sim(cells, 16 if dtype == torch.float64 else 30, dtype, device, "euler",
+                    physics)
+    sim.timestepper = tp.ImplicitEuler(dt=900.0, solver=solver, picard_iters=picard)
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics,solver,picard", FULL_IMPLICIT)
+def test_full_step_implicit_kernel_matches_plain_f64(cuda, physics, solver, picard):
+    """ImplicitEuler at dt 900 s, float64 at Nz 16 on 300 columns (the heat-
+    only instantiation built at its first launch): one kernel step and one
+    plain step from each state of 3 steps of the plain trajectory, every
+    leaf at 1e-12, one launch a call."""
+    sim = _full_implicit_sim(300, torch.float64, cuda, physics, solver, picard)
+    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources, dt=900.0)
+    state = sim.state
+    for _ in range(3):
+        before = fs.soil_column_full_step.launches
+        out = fused(state)
+        assert fs.soil_column_full_step.launches == before + 1
+        plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), state,
+                                               900.0)
+        torch.cuda.synchronize()
+        _assert_full_close(out, plain, 1e-12, 900.0)
+        state = plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics,solver,picard", FULL_IMPLICIT)
+def test_full_step_implicit_kernel_matches_plain_f32(cuda, physics, solver, picard):
+    """The same at float32 on 2,000 columns: every leaf within 1e-4 of its
+    scale."""
+    sim = _full_implicit_sim(2000, torch.float32, cuda, physics, solver, picard)
+    out = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                             dt=900.0)(sim.state)
+    plain = fs.soil_column_full_step_plain(sim.model, sim.timestepper, sim.ctx, (), sim.state,
+                                           900.0)
+    torch.cuda.synchronize()
+    _assert_full_close(out, plain, 1e-4, 900.0)
+
+
+#: the land's full steps: (stepper, solver, Picard iterations, dt, snowpack,
+#: vegetated)
+LAND_FULL = {"euler": ("euler", None, 1, 60.0, False, True),
+             "heun": ("heun", None, 1, 60.0, False, True),
+             "implicit-pcr": ("implicit", "pcr", 1, 600.0, False, True),
+             "implicit-thomas-2": ("implicit", "thomas", 2, 600.0, False, True),
+             "implicit-pcr-2-snow": ("implicit", "pcr", 2, 600.0, True, True),
+             "heun-snow": ("heun", None, 1, 60.0, True, True),
+             "bare-euler": ("euler", None, 1, 300.0, False, False)}
+
+
+def _land_full_sim(cells, dtype, device, case):
+    """``_land_sim``'s compositions with static inputs and the case's
+    stepper (the bare-ground one at Nz 15)."""
+    stepper, solver, picard, dt, snow, vegetated = LAND_FULL[case]
+    ts = {"euler": tp.ForwardEuler(dt=dt), "heun": tp.Heun(dt=dt),
+          "implicit": tp.ImplicitEuler(dt=dt, solver=solver or "pcr", picard_iters=picard)}
+    return _land_sim(cells, dtype, device, vegetated=vegetated, nz=20 if vegetated else 15,
+                     snow=snow, stepper=ts[stepper], static=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LAND_FULL)
+def test_land_full_step_kernel_matches_plain_f64(cuda, case):
+    """float64 on 256 columns at Nz 20 (the bare-ground case at Nz 15, and
+    the snowpack under Heun, built at their first launch): one kernel step
+    and one plain step from each state of 3 steps of the plain trajectory,
+    every leaf at 1e-12, one launch a call."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    dt = LAND_FULL[case][3]
+    sim = _land_full_sim(256, torch.float64, cuda, case)
+    fused = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources, dt=dt)
+    state = sim.state
+    for _ in range(3):
+        before = ls.land_column_full_step.launches
+        out = fused(state)
+        assert ls.land_column_full_step.launches == before + 1
+        plain = ls.land_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                               sim.input_sources, state, dt)
+        torch.cuda.synchronize()
+        _assert_full_close(out, plain, 1e-12, dt)
+        state = plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["euler", "heun", "implicit-pcr", "implicit-pcr-2-snow"])
+def test_land_full_step_kernel_matches_plain_f32(cuda, case):
+    """float32 on 4,096 columns at Nz 20: every leaf within 1e-4 of its
+    scale."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    dt = LAND_FULL[case][3]
+    sim = _land_full_sim(4096, torch.float32, cuda, case)
+    out = fs.make_fused_step(sim.model, sim.timestepper, sim.ctx, sim.input_sources,
+                             dt=dt)(sim.state)
+    plain = ls.land_column_full_step_plain(sim.model, sim.timestepper, sim.ctx,
+                                           sim.input_sources, sim.state, dt)
+    torch.cuda.synchronize()
+    _assert_full_close(out, plain, 1e-4, dt)
 
 
 @pytest.mark.cuda
