@@ -126,7 +126,25 @@ launch counts set to 0 just before it and read just after:
   version, the module step, on every prognostic, tendency and auxiliary
   (float64 on 1,024 columns along the plain trajectory at 1e-12, float32 at
   full width with a float64 referee), then the launch and the ``fused``
-  call timed and a 20-call loop of one launch a call.
+  call timed and a 20-call loop of one launch a call;
+* a forcing streamed from the host (``ChunkedForcingPipeline``,
+  ``io/forcing_pipeline.py``), the clock from day 300 of a year:
+  ``stream_soil`` (the bench soil at full width, its top temperature from
+  an hourly ``(T, cells)`` series, Euler at dt 60 s, 2,880 steps, windows
+  of 16 slices) and ``stream_land`` (``land_implicit_pcr``'s composition
+  and its two hourly series, 1,440 steps at dt 600 s, windows of 32),
+  ``run_fused`` and ``run`` against ``Simulation.run`` on the whole series
+  on the card (float64 at 1e-12, float32 by the rule above), then
+  ``run_fused`` at float32 with one launch a chunk, each chunk's kernel,
+  window copy and gap timed and each copy's overlap with the kernel before
+  it;
+* ``probes``, once ``csrc/probes.cu`` is built (the last ``REST_GROUPS``
+  group): the roofline micro-benchmark's chains, the Mosaic bisect's cases
+  and the Mosaic repro's variants (``terrarium_tpu_torch/experiments``)
+  against their plain versions at float64 and float32, then each entry
+  point as a user runs it: ``run_micro``'s rates, ``run_case``'s and
+  ``run_variant``'s medians of 100 launches, and ``torch.cummin`` as the
+  cummin case's library call.
 
 Run from the repository root:
 
@@ -563,6 +581,26 @@ LAND_GOLDEN = ROOT / "tests" / "goldens" / "land_model.npz"
 LAND_SNOW_GOLDEN = ROOT / "tests" / "goldens" / "land_snow.npz"
 # land_snow_n145: the snowfall beside the rain and the initial pack
 SNOWFALL, SWE0 = 2.0e-8, 0.02
+# stream_soil and stream_land: a (T, cells) hourly forcing from the host
+# through ChunkedForcingPipeline.run_fused (io/forcing_pipeline.py), the
+# clock from day 300 of a year (2.592e7 s: a float32 clock's ulp is 2 s, so
+# each window's own time origin matters), the series from a day before:
+# the bench soil at full width with its top temperature, Euler at dt 60 s,
+# 2,880 steps at window 16 (chunks of 840 steps); land_implicit_pcr
+# (land_consistent by ImplicitEuler PCR at dt 600 s) with its shortwave and
+# air temperature, 1,440 steps at window 32 (chunks of 180 steps); each at
+# float64 and float32 against Simulation.run on the whole series on the card.
+# The timed float32 run_fused streams STREAM_DAYS days (52 and 24 windows),
+# its peak memory held to the short run's: a run holds two windows on the
+# card whatever its length
+STREAM_DAY0 = 300 * 86400.0
+STREAM_DAYS = 30
+STREAM = {"soil": {"dt": BENCH_DT, "steps": 2880, "window": 16, "inner": 120},
+          "land": {"dt": LAND_DT, "steps": 1440, "window": 32, "inner": 60}}
+# the probes (terrarium_tpu_torch/experiments, csrc/probes.cu): rows 5 and
+# 6 and their plain versions timed as PROBE_REPS calls in a CUDA graph (a
+# launch of a few microseconds timed alone measures the caller's host work)
+PROBE_REPS = 100
 # the land kernel's other steppers, each against its plain version along
 # the plain trajectory for LAND_VARIANT_STEPS steps (float64 on
 # LAND_F64_CELLS columns, float32 at full width) and timed over as many:
@@ -603,10 +641,11 @@ ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
 # them: the land rollout (the land phases), then the land segment VJP (the
 # land gradients), then the soil segment VJP (the soil gradients), whose
 # some 3,800 nvcc CPU seconds would otherwise keep the land phases waiting,
-# then the soil's and the land's full steps (their phases, last), built
-# while the soil gradient phases run
+# then the soil's and the land's full steps (their phases), built while the
+# soil gradient phases run, then the probes (the last phase)
 REST_GROUPS = (("land_column_rollout",), ("land_column_segment_vjp",),
-               ("soil_column_segment_vjp",), ("soil_column_full_step", "land_column_full_step"))
+               ("soil_column_segment_vjp",), ("soil_column_full_step", "land_column_full_step"),
+               ("probes",))
 # Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
 # Richards step, leaves [0, 1] in 95% of the columns from step 3 and its
 # tendencies grow far beyond the state, so the float32 rounding of the
@@ -1642,7 +1681,8 @@ def land_golden_sim(tp):
             "surface_shortwave_down": 400.0, "air_temperature": 12.0, "rainfall": 1.0e-7}),))
 
 
-def land_sim(tp, cells, dtype, composition, device="cuda", stepper=None, snow=False):
+def land_sim(tp, cells, dtype, composition, device="cuda", stepper=None, snow=False,
+             forcing=None):
     """`bench_configs.py:228-267` on ``cells`` columns at latitudes evenly
     spaced from -60 to 80 degrees: loam, Richards flow, Nz 20, ForwardEuler at
     dt 600 s (or ``stepper``); hourly (744, cells) series of shortwave 900
@@ -1651,20 +1691,16 @@ def land_sim(tp, cells, dtype, composition, device="cuda", stepper=None, snow=Fa
     card in float64 and rounded once; static longwave 330, rain 4e-8, wind 3;
     initial temperature T_mean, saturation 0.6, carbon 2, vegetation fraction
     0.5. ``snow``: with ``Snowpack()``, a static snowfall of 2e-8 m/s beside
-    the rain and an initial SWE of 0.02 m (``land_snow_n145``)."""
+    the rain and an initial SWE of 0.02 m (``land_snow_n145``). ``forcing``:
+    the source of the two series instead (``land_series``' at other
+    times)."""
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
                             dtype=dtype, device=device)
-    lat = np.linspace(-60.0, 80.0, cells)
-    coslat = np.maximum(np.cos(np.deg2rad(lat)), 0.05)
-    T_mean = 28.0 * coslat - 8.0
-    day = torch.as_tensor(hourly_times() / 86400.0, device=device)[:, None]
-    cos_t = torch.as_tensor(coslat, device=device)[None, :]
-    sw = 900.0 * cos_t * torch.clamp(torch.sin(2 * np.pi * (day - 0.25)), min=0.0)
-    ta = (28.0 * cos_t - 8.0) + 6.0 * torch.sin(2 * np.pi * (day - 0.3))
-    forcing = tp.TimeSeriesInputSource(times=hourly_times(), series={
-        "surface_shortwave_down": sw.to(dtype).contiguous(),
-        "air_temperature": ta.to(dtype).contiguous()})
-    del sw, ta
+    T_mean = 28.0 * land_coslat(cells) - 8.0
+    if forcing is None:
+        forcing = tp.TimeSeriesInputSource(times=hourly_times(), series={
+            k: v.to(dtype).contiguous()
+            for k, v in land_series(hourly_times(), cells, device).items()})
     fields = {"surface_longwave_down": 330.0, "rainfall": 4.0e-8, "windspeed": 3.0}
     inits = {"temperature": lambda x, z: T_mean[None, :] + 0.0 * z,
              "saturation_water_ice": 0.6, "carbon_vegetation": 2.0,
@@ -1677,6 +1713,21 @@ def land_sim(tp, cells, dtype, composition, device="cuda", stepper=None, snow=Fa
     return tp.initialize(
         model, stepper if stepper is not None else tp.ForwardEuler(dt=LAND_DT),
         (forcing, tp.FieldInputSource(fields=fields)), initializers=inits)
+
+
+def land_coslat(cells):
+    """max(cos(lat), 0.05) at latitudes evenly spaced from -60 to 80 degrees."""
+    return np.maximum(np.cos(np.deg2rad(np.linspace(-60.0, 80.0, cells))), 0.05)
+
+
+def land_series(times, cells, device):
+    """``land_sim``'s shortwave and air temperature at ``times`` (seconds),
+    ``(T, cells)`` float64 tensors on ``device``."""
+    day = torch.as_tensor(times / 86400.0, device=device)[:, None]
+    cos_t = torch.as_tensor(land_coslat(cells), device=device)[None, :]
+    return {"surface_shortwave_down":
+            900.0 * cos_t * torch.clamp(torch.sin(2 * np.pi * (day - 0.25)), min=0.0),
+            "air_temperature": (28.0 * cos_t - 8.0) + 6.0 * torch.sin(2 * np.pi * (day - 0.3))}
 
 
 def land_operands(ls, land_inputs, sim):
@@ -2592,6 +2643,374 @@ def land_full_step_phase(tp, fs, ls, cuda_build, land_inputs, reset_counts, laun
     return land_full
 
 
+def stream_times(kind, steps):
+    """The hourly times of a stream phase's series for a run of ``steps``
+    steps: from a day before STREAM_DAY0 to a window past the run's end, so
+    that no window of ``run`` is padded (the padded tail is held to JAX on
+    the CPU, `tests/test_torch_forcing_pipeline.py`)."""
+    cfg = STREAM[kind]
+    hours = 24 + int(np.ceil(steps * cfg["dt"] / 3600.0)) + cfg["window"] + 1
+    return STREAM_DAY0 - 86400.0 + np.arange(hours, dtype=np.float64) * 3600.0
+
+
+def stream_sim(tp, kind, dtype, source):
+    """The stream phase's simulation, its forcing from ``source``, the clock
+    at STREAM_DAY0: ``"soil"`` the bench soil (bench_sim's model and initial
+    state) with its top temperature from the series ``surface_temperature``;
+    ``"land"`` land_implicit_pcr (land_sim's ``"consistent"`` composition by
+    ImplicitEuler PCR at dt 600 s) with its shortwave and air temperature
+    from ``source``."""
+    if kind == "soil":
+        grid = tp.ColumnGrid.of(cells=BENCH_CELLS, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
+                                dtype=dtype, device="cuda")
+        sim = tp.initialize(
+            tp.SoilModel(grid=grid, soil=soil(tp)), tp.ForwardEuler(dt=BENCH_DT), (source,),
+            initializers={
+                "temperature": lambda x, z: 1.0 + 0.0 * z,
+                "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.5 - 0.05 * z)},
+            boundary_conditions=tp.PrescribedSurfaceTemperature("surface_temperature"))
+    else:
+        sim = land_sim(tp, LAND_CELLS, dtype, "consistent", forcing=source,
+                       stepper=tp.ImplicitEuler(dt=LAND_DT, solver="pcr"))
+    sim.state.clock = tp.Clock(torch.tensor(STREAM_DAY0, dtype=dtype, device="cuda"),
+                               sim.state.clock.iteration)
+    sim.fused_inner_steps = STREAM[kind]["inner"]
+    return sim
+
+
+def stream_series(kind, steps):
+    """The stream phase's series on the host for a run of ``steps`` steps,
+    float64 ``(T, cells)``: the soil's top temperature 5 sin(2 pi t / 86400)
+    + 3 cos(lat) - 1 (the bench top temperature, varied by latitude), the
+    land's land_sim series."""
+    times = stream_times(kind, steps)
+    if kind == "soil":
+        lat = np.deg2rad(np.linspace(-60.0, 80.0, BENCH_CELLS))
+        return times, {"surface_temperature": 5.0 * np.sin(2 * np.pi * times / 86400.0)[:, None]
+                       + (3.0 * np.cos(lat) - 1.0)[None, :]}
+    return times, {k: v.cpu().numpy() for k, v in land_series(times, LAND_CELLS, "cpu").items()}
+
+
+def check_fields(name, got, want, names, f64):
+    """Each named field of the states ``got`` and ``want``: float64 within
+    1e-12 of each element with a floor of 1e-12 of the field's largest
+    magnitude, float32 within F32_REL_TOL of that magnitude; returns each
+    field's max abs difference."""
+    errs = {}
+    for field in names:
+        a, b = got[field], want[field]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite {field}")
+        scale, diff = float(b.abs().max()), (a - b).abs()
+        errs[field] = float(diff.max())
+        bad = bool((diff > 1e-12 * b.abs() + 1e-12 * scale).any()) if f64 else \
+            errs[field] > F32_REL_TOL * max(scale, 1e-30)
+        if bad:
+            raise AssertionError(f"{name} {field}: max abs err {errs[field]}, largest "
+                                 f"magnitude {scale}")
+    return errs
+
+
+class KernelEvents:
+    """Within ``with``, CUDA events around each call of the kernel wrapper
+    ``table[key]`` (a ROLLOUTS table, which ``advance`` reads at each run):
+    ``spans``, one ``(start, end)`` a launch."""
+
+    def __init__(self, table, key):
+        self.table, self.key, self.spans = table, key, []
+
+    def __enter__(self):
+        self.real = self.table[self.key]
+
+        def timed(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = self.real(*args, **kw)
+            end.record()
+            self.spans.append((start, end))
+            return out
+
+        self.table[self.key] = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.table[self.key] = self.real
+
+
+def stream_timeline(pipe, spans):
+    """Per chunk of ``pipe``'s last run: its kernel time (``spans``, the
+    launches), the copy time of the window it read where it was copied for
+    it, the gap from the kernel before to its kernel (the chunk before's
+    trailing closure and this one's host work), whether its window's copy,
+    issued before the chunk before launched, overlapped that chunk's kernel
+    and was hidden (done before that kernel ended, so that this chunk's
+    wait on it cost nothing)."""
+    torch.cuda.synchronize()
+    rows = []
+    for i, (chunk, (ks, ke)) in enumerate(zip(pipe.chunks, spans)):
+        row = {"steps": chunk.steps, "kernel_ms": ks.elapsed_time(ke)}
+        if chunk.new_window:
+            row["copy_ms"] = chunk.copy_start.elapsed_time(chunk.copy_end)
+        if i:
+            pks, pke = spans[i - 1]
+            row["gap_ms"] = pke.elapsed_time(ks)
+            if chunk.new_window:
+                row["copy_overlaps_kernel"] = bool(
+                    chunk.copy_end.elapsed_time(pks) < 0 < chunk.copy_start.elapsed_time(pke))
+                row["copy_hidden"] = chunk.copy_end.elapsed_time(pke) >= 0
+        rows.append(row)
+    return rows
+
+
+def peak_mb(fn):
+    """``fn()``'s peak device memory above the memory allocated when it
+    starts, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - start) / 1e6
+
+
+def stream_phase(tp, fs, ls, kind, reset_counts, launched, card):
+    """stream_soil / stream_land: the streamed run against the whole series
+    on the card (float64, float32; run_fused and run), then the float32
+    run_fused over STREAM_DAYS days timed, one launch a chunk. The float32
+    runs' peak memory: the streamed runs' within two windows and a quarter
+    of the whole series run's (the device buffers of the stager's two
+    slots), the month's within a quarter of a window of the short
+    run_fused's."""
+    cfg = STREAM[kind]
+    times, series = stream_series(kind, cfg["steps"])
+    wrapper = fs.soil_column_rollout if kind == "soil" else ls.land_column_implicit_rollout
+    table, key = ((fs.ROLLOUTS, ("euler", "richards")) if kind == "soil"
+                  else (ls.ROLLOUTS, "implicit"))
+    names = (("internal_energy", "saturation_water_ice", "surface_excess_water")
+             if kind == "soil" else None)
+    window_mb = sum(cfg["window"] * v.shape[1] * 4 for v in series.values()) / 1e6  # float32
+    errs, peaks = {}, {}
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        whole = stream_sim(tp, kind, dtype, tp.TimeSeriesInputSource(times=times, series={
+            k: torch.as_tensor(v, device="cuda").to(dtype).contiguous()
+            for k, v in series.items()}))
+        peaks[f"whole:{tag}"] = peak_mb(lambda: whole.run(steps=cfg["steps"], dt=cfg["dt"]))
+        names = names or tuple(whole.model.live_carry)
+        routes = ("run_fused", "run") if tag == "f32" else ("run_fused",)
+        for route in routes:
+            pipe = tp.ChunkedForcingPipeline(times, series, window=cfg["window"])
+            sim = stream_sim(tp, kind, dtype, pipe)
+            peaks[f"{route}:{tag}"] = peak_mb(
+                lambda: getattr(pipe, route)(sim, steps=cfg["steps"], dt=cfg["dt"]))
+            errs[f"{route}:{tag}"] = check_fields(f"stream_{kind} {route} {tag}", sim.state,
+                                                  whole.state, names, f64=tag == "f64")
+            if sim.current_time != whole.current_time:
+                raise AssertionError(f"stream_{kind} {route} {tag}: clock {sim.current_time}")
+        del whole, sim
+    # the path: float32 run_fused over STREAM_DAYS days, one launch a chunk,
+    # its chunks timed
+    steps = int(round(STREAM_DAYS * 86400.0 / cfg["dt"]))
+    times, series = stream_series(kind, steps)
+    pipe = tp.ChunkedForcingPipeline(times, series, window=cfg["window"])
+    sim = stream_sim(tp, kind, torch.float32, pipe)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with KernelEvents(table, key) as kev:
+        peaks["run_fused_month:f32"] = peak_mb(
+            lambda: pipe.run_fused(sim, steps=steps, dt=cfg["dt"]))
+    run_s = time.perf_counter() - t0
+    launches = wrapper.launches
+    if launched() != {wrapper.__name__: len(pipe.chunks)} or len(kev.spans) != len(pipe.chunks):
+        raise AssertionError(f"stream_{kind}: {len(pipe.chunks)} chunks launched {launched()}")
+    for field in names:
+        if not bool(torch.isfinite(sim.state[field]).all()):
+            raise AssertionError(f"stream_{kind} month: non-finite {field}")
+    for route in ("run_fused", "run"):
+        if peaks[f"{route}:f32"] > peaks["whole:f32"] + 2.25 * window_mb:
+            raise AssertionError(f"stream_{kind} {route}: peak {peaks} MB, a window "
+                                 f"{window_mb} MB")
+    if peaks["run_fused_month:f32"] > peaks["run_fused:f32"] + 0.25 * window_mb:
+        raise AssertionError(f"stream_{kind}: the month's peak {peaks} MB grew with its "
+                             f"windows ({window_mb} MB each)")
+    rows = stream_timeline(pipe, kev.spans)
+    later = [r for r in rows[1:] if "copy_ms" in r]
+    med = lambda k, rs=rows: float(np.median([r[k] for r in rs if k in r]))  # noqa: E731
+    report = {"launches": launches, "chunks": len(pipe.chunks),
+              "kernel_ms": med("kernel_ms"), "copy_ms": med("copy_ms"),
+              "gap_ms": med("gap_ms", rows[1:]),
+              "copies_hidden": all(r["copy_hidden"] for r in later),
+              "copies_overlapping_kernel": sum(r["copy_overlaps_kernel"] for r in later),
+              "window_mb": window_mb, "peak_mb": peaks}
+    phase(f"stream_{kind}", cells=sim.model.grid.cells, nz=sim.model.grid.nz, dt=cfg["dt"],
+          steps=cfg["steps"], timed_steps=steps, window=cfg["window"],
+          fused_inner_steps=cfg["inner"], clock_start_s=STREAM_DAY0,
+          series_rows=len(times), f64_rtol=1e-12, f32_rel_tol=F32_REL_TOL, max_abs_err=errs,
+          run_fused_s=run_s, **report, per_chunk=rows, card=card)
+    del sim, pipe
+
+
+def micro_fma_f32(x, kind, R):
+    """Row 4's fma or fma4 chain at float32 as the kernel's contracted FMA
+    computes it: each step in float64 and rounded once to float32. The
+    product of two float32 values is exact in float64, and so is its sum
+    with float32 1e-7 while the values lie in [0.5, 5) (50 bits from 2^2 to
+    2^-47), so the one rounding is fmaf's and the result is the kernel's
+    bit for bit."""
+    b = float(torch.tensor(1e-7, dtype=torch.float32))
+    starts = range(4) if kind == "fma4" else range(1)
+    vs = []
+    for i in starts:
+        a = float(torch.tensor(1.0000001 + 1e-9 * i, dtype=torch.float32))
+        v = (x + float(i)).double()
+        for _ in range(R):
+            v = (v * a + b).float().double()
+        vs.append(v.float())
+    return vs[0] if kind == "fma" else ((vs[0] + vs[1]) + vs[2]) + vs[3]
+
+
+def probes_phase():
+    """The probes (rows 4-6): each kernel against its plain version at the
+    probe's shapes, float64 (-fmad=false) within 1e-12 and float32 within
+    1e-5 relative (row 4's exp, div and pow chains: their maps contract, and
+    expf, '/' and powf may differ from torch's by an ulp) or 1e-6 of each
+    output's magnitude (rows 5 and 6, whose products are not contracted:
+    only the exponentials' last ulp may differ). Row 4's chain length is
+    held too: fma and fma4 at R 1, 2, 3 and at both timed lengths, where
+    every step moves each value by an ulp or more at float32 and by 1e-7
+    relative at float64, float32 bit for bit to micro_fma_f32 (the
+    contracted FMA the kernel computes); exp, div and pow at R 1, 2 and 3
+    from inputs that each step moves far beyond the tolerance (exp from
+    [-1000, 1000), the others from [0, 100)). Returns the checks' errors
+    and the plain versions' and torch.cummin's times for the kernels line
+    (a call's device time, PROBE_REPS calls in a CUDA graph)."""
+    from terrarium_tpu_torch.experiments import mosaic_bisect as mb
+    from terrarium_tpu_torch.experiments import mosaic_min_repro as mr
+    from terrarium_tpu_torch.experiments import probe
+    from terrarium_tpu_torch.experiments import roofline_census as rc
+
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    x = (0.5 + torch.rand(rc.SHAPE, generator=gen, dtype=torch.float64)).cuda()
+    T = (torch.rand(mr.NZ, mr.BLOCK, generator=gen, dtype=torch.float64) * 5.0 - 2.0).cuda()
+    s = torch.rand(mr.BLOCK, generator=gen, dtype=torch.float64).cuda()
+    wide = {"exp": torch.rand(rc.SHAPE, generator=gen, dtype=torch.float64).cuda() * 2e3 - 1e3,
+            "div": torch.rand(rc.SHAPE, generator=gen, dtype=torch.float64).cuda() * 100.0}
+    wide["pow"] = wide["div"]
+    errs = {}
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        f64 = tag == "f64"
+        xd = x.to(dtype)
+        for kind, (_, (r1, r2)) in rc.KINDS.items():
+            fma = kind.startswith("fma")
+            runs = ([(R, xd) for R in (1, 2, 3, r1, r2)] if fma else
+                    [(r1, xd)] + [(R, wide[kind].to(dtype)) for R in (1, 2, 3)])
+            for R, xk in runs:
+                got = rc.micro_chain(xk, kind, R)
+                want = (micro_fma_f32(xk, kind, R) if fma and not f64
+                        else rc.micro_chain_plain(xk, kind, R))
+                err = float((got - want).abs().max())
+                rel = float(((got - want).abs() / want.abs()).max())
+                errs[f"micro:{kind}:R{R}:{tag}"] = err
+                if not rel <= (1e-12 if f64 else 0.0 if fma else 1e-5):
+                    raise AssertionError(f"probe micro {kind} R {R} {tag}: max abs err {err}, "
+                                         f"relative {rel}")
+                del got, want
+        xb, dz = mb.inputs(dtype, "cuda")
+        checks = [(f"bisect:{case}", mb.bisect_case(case, xb, dz),
+                   mb.bisect_case_plain(case, xb, dz)) for case in mb.CASES]
+        for variant in mr.VARIANTS:
+            for part, got, want in zip("Ts", mr.repro_variant(variant, T.to(dtype), s.to(dtype)),
+                                       mr.repro_variant_plain(variant, T.to(dtype), s.to(dtype))):
+                checks.append((f"repro:{variant}:{part}", got, want))
+        for name, got, want in checks:
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            errs[f"{name}:{tag}"] = err
+            if not err <= (1e-12 if f64 else 1e-6) * scale:
+                raise AssertionError(f"probe {name} {tag}: max abs err {err}, magnitude {scale}")
+        del xd, xb, checks
+    # the plain versions and torch.cummin, for the kernels line
+    ones = torch.ones(rc.SHAPE, dtype=torch.float32, device="cuda")
+    xb, dz = mb.inputs(torch.float32, "cuda")
+    T1, s0 = (torch.ones(mr.NZ, mr.BLOCK, device="cuda"), torch.zeros(mr.BLOCK, device="cuda"))
+    xs = mb.rotating(xb)  # as run_case times the kernel: its input from device memory
+
+    def med(fn):
+        return probe.graph_ms(fn, PROBE_REPS)
+
+    times = {"micro_plain_ms": cuda_ms(lambda: rc.micro_chain_plain(ones, "fma", 512),
+                                       warmup=True),
+             "bisect_plain_ms": {case: med(lambda c=case: mb.bisect_case_plain(c, next(xs), dz))
+                                 for case in mb.CASES},
+             "cummin_library_ms": med(lambda: torch.cummin(next(xs), dim=0)),
+             "repro_plain_ms": {v: med(lambda v=v: mr.repro_variant_plain(v, T1, s0))
+                                for v in mr.VARIANTS}}
+    return errs, times
+
+
+def probes_main_path(card, errs, times, reset_counts, launched):
+    """Each probe's entry point as a user runs it, the counts set to 0
+    before; returns the kernels line's three entries: row 4 at the fma
+    kind, R 512, one pass (bound: 2 flops an FMA at the FP32 peak), row 5
+    at cummin (bound: its bytes, 13.8 MB; the library call torch.cummin),
+    row 6 at row_to_xy_stencil (bound: its bytes, 18 kB, far under the
+    launch latency that floors it; 4 operations a level and 4 for s an
+    iteration)."""
+    from terrarium_tpu_torch.experiments import mosaic_bisect as mb
+    from terrarium_tpu_torch.experiments import mosaic_min_repro as mr
+    from terrarium_tpu_torch.experiments import roofline_census as rc
+
+    torch.cuda.synchronize()
+    reset_counts()
+    rates = rc.run_micro()
+    cases = {case: mb.run_case(case, reps=PROBE_REPS) for case in mb.CASES}
+    variants = {v: mr.run_variant(v, reps=PROBE_REPS) for v in mr.VARIANTS}
+    torch.cuda.synchronize()
+    counts = launched()
+    # run_micro: 2 lengths a kind, 1 + 7 dispatches of PASSES launches each;
+    # run_case / run_variant: the check, graph_ms's warm-up and 5 replays of
+    # PROBE_REPS launches, median_ms's warm-up and PROBE_REPS launches
+    per_case = 1 + (1 + 5 * PROBE_REPS) + (1 + PROBE_REPS)
+    want = {"micro_chain": len(rc.KINDS) * 2 * (1 + 7) * rc.PASSES,
+            "bisect_case": len(mb.CASES) * per_case, "repro_variant": len(mr.VARIANTS) * per_case}
+    if counts != want:
+        raise AssertionError(f"probes: launches {counts}, expected {want}")
+    for kind, r in rates.items():
+        r1, r2 = rc.KINDS[kind][1]
+        if not r[f"t_R{r2}_s"] > r[f"t_R{r1}_s"] > 0.0:
+            raise AssertionError(f"probes: {kind} at R {r2} took no longer than at R {r1}: {r}")
+    n, ncell = rc.SHAPE[0] * rc.SHAPE[1], -(-mb.CELLS // mb.BLK) * mb.BLK
+    fma_ms = rates["fma"]["t_R512_s"] * 1e3 / rc.PASSES
+    rep_bytes = 2 * (mr.NZ + 1) * mr.BLOCK * 4
+    phase("probes", rates=rates, cases=cases, variants=variants, launches=counts,
+          max_abs_err=errs, f64_rtol=1e-12, f32_micro_rel_tol=1e-5, f32_rel_tol=1e-6,
+          **times, card=card)
+    f32 = lambda prefix: max(v for k, v in errs.items()  # noqa: E731
+                             if k.startswith(prefix) and k.endswith(":f32"))
+    entries = [
+        ("micro_chain", "experiments/roofline_census.py:260", counts["micro_chain"],
+         f32("micro:"), fma_ms, times["micro_plain_ms"],
+         bound_ms(2 * 512 * n, 2 * 4 * n), None,
+         f"{rc.SHAPE[0]} x {rc.SHAPE[1]} f32, fma, R 512, one pass (rates: "
+         + ", ".join(f"{k} {v['gops_per_s']:.1f} Gop/s" for k, v in rates.items()) + ")"),
+        ("bisect_case", "experiments/mosaic_bisect.py:29", counts["bisect_case"],
+         f32("bisect:"), cases["cummin"]["ms"], times["bisect_plain_ms"]["cummin"],
+         bound_ms(mb.NZ * ncell, 2 * mb.NZ * ncell * 4),
+         times["cummin_library_ms"],
+         f"{mb.NZ} x {ncell} f32, cummin (" + ", ".join(
+             f"{c} {v['ms']:.4f} ms" for c, v in cases.items()) + ")"),
+        ("repro_variant", "experiments/mosaic_min_repro.py:72", counts["repro_variant"],
+         f32("repro:"), variants["row_to_xy_stencil"]["ms"],
+         times["repro_plain_ms"]["row_to_xy_stencil"],
+         bound_ms(mr.INNER * mr.BLOCK * (mr.NZ * 4 + 4), rep_bytes), None,
+         f"{mr.NZ} x {mr.BLOCK} f32, {mr.INNER} iterations, row_to_xy_stencil (" + ", ".join(
+             f"{v} {r['ms']:.4f} ms" for v, r in variants.items()) + ")")]
+    return [{"name": name, "route": "cuda", "source": "terrarium_tpu_torch/csrc/probes.cu",
+             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1], "library_ms": lib,
+             "shape": shape}
+            for name, replaces, launches, err, ms, plain, b, lib, shape in entries]
+
+
 def cuda_ms_each(fn, reps):
     """CUDA-event time of each of ``reps`` calls of ``fn()`` after one
     warm-up, in ms."""
@@ -2646,13 +3065,17 @@ def main():
     from terrarium_tpu_torch.ops import land_vjp as lv
     from terrarium_tpu_torch.timesteppers.integrator import (advance, clock_times, land_inputs,
                                                              top_temperature_table)
+    from terrarium_tpu_torch.experiments import mosaic_bisect as mb
+    from terrarium_tpu_torch.experiments import mosaic_min_repro as mr
+    from terrarium_tpu_torch.experiments import roofline_census as rc
 
     KERNELS = (fs.soil_column_rollout, fs.soil_column_heun_rollout,
                fs.soil_column_heat_rollout, fs.soil_column_implicit_rollout,
                fs.soil_column_heat_heun_rollout, fs.soil_column_heat_implicit_rollout,
                fv.soil_column_segment_vjp, ls.land_column_rollout, ls.land_column_heun_rollout,
                ls.land_column_implicit_rollout, fs.soil_column_full_step,
-               lv.land_column_segment_vjp, ls.land_column_full_step)
+               lv.land_column_segment_vjp, ls.land_column_full_step, rc.micro_chain,
+               mb.bisect_case, mr.repro_variant)
 
     def reset_counts():
         for fn in KERNELS:
@@ -3852,6 +4275,14 @@ def main():
     land_full = land_full_step_phase(tp, fs, ls, cuda_build, land_inputs, reset_counts,
                                      launched, ptxas_all, card)
 
+    # ---- a forcing streamed from the host through ChunkedForcingPipeline
+    # (stream_soil, stream_land), then the probes (rows 4-6), once built
+    for kind in STREAM:
+        stream_phase(tp, fs, ls, kind, reset_counts, launched, card)
+    built(*REST_GROUPS[4])
+    probe_errs, probe_times = probes_phase()
+    probe_entries = probes_main_path(card, probe_errs, probe_times, reset_counts, launched)
+
     # bounds: the bytes each function must move (the rollout reads its carry
     # and BC table and writes its carry; the VJP reads the carry, the BC
     # table and the output cotangents and writes the input and parameter
@@ -3995,7 +4426,7 @@ def main():
         "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent" + (" with snow" if v["snow"]
                                                                      else "")
                  + f", static inputs, dt {v['dt']:g}, one full step, {v['entry']}"}
-        for vname, v in land_full.items())]}),
+        for vname, v in land_full.items()), *probe_entries]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

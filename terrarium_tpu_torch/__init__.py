@@ -16,7 +16,10 @@ plain PyTorch version on the CPU (``ops/fused_step.py``, ``ops/land_step.py``)
 for the compositions those take, and through the process modules for any
 other (other BCs, forcings, other steppers); one full step of the whole
 state through a CUDA kernel is ``ops/fused_step.make_fused_step``; gradients
-through a CUDA segment-VJP kernel (``timesteppers/fused_grad.py``).
+through a CUDA segment-VJP kernel (``timesteppers/fused_grad.py``). A long
+forcing streams from the host window by window through
+:class:`ChunkedForcingPipeline` (``io/forcing_pipeline.py``); the
+repository's probes are in ``experiments/``.
 
 Tensors are ``(Nz, cells)`` with ``k = 0`` the bottom layer, as in the JAX
 package; the grid carries the dtype and device. The package imports torch
@@ -78,3 +81,4 @@ from .io.input_sources import FieldInputSource, TimeSeriesInputSource
 from .timesteppers.stepping import ForwardEuler, Heun
 from .timesteppers.implicit import ImplicitEuler
 from .timesteppers.integrator import Simulation, initialize
+from .io.forcing_pipeline import ChunkedForcingPipeline

@@ -153,21 +153,31 @@ INSTANTIATIONS = {
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
     ],
+    # the probes (csrc/probes.cu): the roofline micro-benchmark's chains
+    # (NZ unused), the Mosaic bisect's cases at its Nz 30 and the Mosaic
+    # repro's variants at its Nz 8, each at float32 (timed) and float64
+    # (checked)
+    "probes": [
+        (("bisect",), _F32, 30), (("bisect",), _F64, 30), (("micro",), _F32, 1),
+        (("micro",), _F64, 1), (("repro",), _F32, 8), (("repro",), _F64, 8),
+    ],
 }
 _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "implicit": ("SOIL_STEPPER=2",), "thomas": ("SOIL_SOLVER=0",),
             "pcr": ("SOIL_SOLVER=1",), "picard": ("SOIL_PICARD=1", "SOIL_SOLVER=2"), "richards": ("SOIL_HEAT=0", "LAND_RICHARDS=1"),
             "heat": ("SOIL_HEAT=1",), "noflow": ("LAND_RICHARDS=0",), "bare": ("LAND_VEG=0",),
             "veg": ("LAND_VEG=1",), "vg": ("LAND_CURVE=0",), "bc": ("LAND_CURVE=1",),
-            "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",)}
+            "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",),
+            "micro": ("PROBE_ROW=4",), "bisect": ("PROBE_ROW=5",), "repro": ("PROBE_ROW=6",)}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernels' float64 instantiations, which serve the checks
 #: against the plain version at 1e-12 (the VJP's at 1e-9), contract no
 #: multiply-adds (torch's elementwise ops do not), while their float32
-#: ones, the timed path, do
+#: ones, the timed path, do; so do the probes' float64 instantiations
 FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
          "land_column_segment_vjp": {_F64: ("-fmad=false",)},
-         "land_column_full_step": {_F64: ("-fmad=false",)}}
+         "land_column_full_step": {_F64: ("-fmad=false",)},
+         "probes": {_F64: ("-fmad=false",)}}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

@@ -80,8 +80,9 @@ from ..timesteppers.implicit import ImplicitEuler
 from ..timesteppers.stepping import ForwardEuler, Heun
 from ..utils.utils import safediv
 
-__all__ = ["ColumnParams", "SeriesBC", "kernel_physics", "soil_flow", "clock_times",
-           "top_temperature_value", "top_temperature_table", "STEPPERS", "kernel_tags",
+__all__ = ["ColumnParams", "SeriesBC", "uniform_ts_meta", "window_meta", "kernel_physics",
+           "soil_flow", "clock_times", "top_temperature_value", "top_temperature_table",
+           "STEPPERS", "kernel_tags",
            "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
            "soil_column_implicit_rollout", "soil_column_heat_heun_rollout",
            "soil_column_heat_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS",
@@ -306,6 +307,38 @@ class SeriesBC:
     dts: float
     time: float
     steps: int
+
+
+def uniform_ts_meta(times):
+    """``(t0, dts)`` of uniformly spaced ``times`` (``(T,)``, T >= 2;
+    spacing equal within rtol 1e-6, the check of `fused_step.py:81-89`),
+    else None."""
+    times = np.asarray(torch.as_tensor(times).cpu(), dtype=np.float64)
+    if times.ndim != 1 or times.size < 2:
+        return None
+    d = np.diff(times)
+    if not np.allclose(d, d[0], rtol=1e-6, atol=0.0):
+        return None
+    return float(times[0]), float(d[0])
+
+
+def window_meta(times, rows: int, window: tuple) -> tuple:
+    """``(t0, dts)`` of one window of a streamed series (``times``, and
+    ``rows`` rows of values), which must have the length and the uniform
+    spacing of the run's first window, ``window`` ``(rows, dts)`` (rtol
+    1e-6, as the reference's check of its runtime sources,
+    `fused_step.py:420-425`, where it can check them). A window that does
+    not raises ``ValueError`` naming both; it is never resampled."""
+    want_rows, want_dts = window
+    n = int(np.shape(times)[0])
+    meta = uniform_ts_meta(times)
+    if (n != want_rows or rows != want_rows or meta is None
+            or not math.isclose(meta[1], want_dts, rel_tol=1e-6, abs_tol=0.0)):
+        got = "uneven spacing" if meta is None else f"spacing {meta[1]!r} s"
+        raise ValueError(f"a streamed window has {n} times and {rows} rows at {got}; every "
+                         f"window of the run must have the first window's {want_rows} rows at "
+                         f"spacing {want_dts!r} s")
+    return meta
 
 
 def clock_times(t0: torch.Tensor, dt: float, n: int) -> np.ndarray:

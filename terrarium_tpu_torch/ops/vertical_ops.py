@@ -11,7 +11,8 @@ import torch
 
 from .bcs import Dirichlet, Flux, Neumann, resolve_bc_value
 
-__all__ = ["ghosts", "grad_faces", "interp_faces_mid", "div_faces", "apply_flux_bcs"]
+__all__ = ["ghosts", "face_operands", "grad_faces", "interp_faces_mid", "div_faces",
+           "apply_flux_bcs"]
 
 
 def ghosts(c, bc_bottom, bc_top, state, dz_faces):
@@ -32,7 +33,7 @@ def ghosts(c, bc_bottom, bc_top, state, dz_faces):
             one(bc_top, c_top, +1.0, dz_faces[-1:]))
 
 
-def _face_operands(c, ghost_bottom, ghost_top):
+def face_operands(c, ghost_bottom, ghost_top):
     """``upper[f] = ce[f]`` and ``lower[f] = ce[f - 1]`` over the padded
     column ``ce = [ghost_bottom, c, ghost_top]``."""
     if ghost_bottom is None:
@@ -47,13 +48,13 @@ def _face_operands(c, ghost_bottom, ghost_top):
 
 def grad_faces(c, dz_faces, ghost_bottom=None, ghost_top=None):
     """``dc/dz`` at every face: ``(c[f] - c[f-1]) / dz_faces[f]``."""
-    upper, lower = _face_operands(c, ghost_bottom, ghost_top)
+    upper, lower = face_operands(c, ghost_bottom, ghost_top)
     return (upper - lower) / dz_faces
 
 
 def interp_faces_mid(c, ghost_bottom=None, ghost_top=None):
     """Arithmetic mean of a centre field at every face."""
-    upper, lower = _face_operands(c, ghost_bottom, ghost_top)
+    upper, lower = face_operands(c, ghost_bottom, ghost_top)
     return 0.5 * (upper + lower)
 
 

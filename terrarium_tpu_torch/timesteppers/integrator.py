@@ -41,6 +41,14 @@ spacing) is evaluated here at each clock time into a table.
 The land rollout reads its inputs the same way: a uniform series in the
 kernel, anything else as the state holds it (static).
 ``Simulation.timestep`` always steps the process modules.
+
+``advance(..., window=(rows, dts))`` is a chunk of a streamed run
+(``io/forcing_pipeline.py``'s ``run_fused``): its series are one window of
+a longer one, already on the state's device, each of which must have
+``rows`` rows at the uniform spacing ``dts`` (``fused_step.window_meta``
+raises naming both where the kernels take a series: the top temperature's
+``SeriesBC`` and :func:`land_inputs`); it runs on a column kernel or
+raises, never on the process modules.
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ from ..ops import land_step
 from ..ops.bcs import InputRef, bc_call_arity
 from ..ops.fused_step import (ROLLOUTS, STEPPERS, ColumnParams, SeriesBC, clock_times,
                               kernel_physics, soil_column_rollout_plain, top_temperature_table,
-                              top_temperature_value)
+                              top_temperature_value, uniform_ts_meta, window_meta)
 from ..state import Clock, State, build_state, reset_tendencies
 from ..utils.utils import convert_dt
 from ..variables import Variables
@@ -103,7 +111,7 @@ def column_scheme(model, timestepper, ctx, input_sources=()):
         for src in input_sources:
             if isinstance(src, TimeSeriesInputSource) and any(
                     n in land_step.LAND_INPUTS for n in src.series) and (
-                    _uniform_ts_meta(src) is None
+                    uniform_ts_meta(src.times) is None
                     or any(np.ndim(v) not in (1, 2) for v in src.series.values())):
                 return None  # the land kernel reads uniformly spaced (T,) / (T, cells) series
         return "land", stepper
@@ -119,27 +127,17 @@ def column_scheme(model, timestepper, ctx, input_sources=()):
     return stepper, physics
 
 
-def _uniform_ts_meta(src):
-    """``(t0, dts)`` of a uniformly spaced time series, else None (the
-    check of `fused_step.py:81-89`)."""
-    times = np.asarray(torch.as_tensor(src.times).cpu(), dtype=np.float64)
-    if times.ndim != 1 or times.size < 2:
-        return None
-    d = np.diff(times)
-    if not np.allclose(d, d[0], rtol=1e-6, atol=0.0):
-        return None
-    return float(times[0]), float(d[0])
-
-
 class _TopTemperature:
     """Where the rollout takes the top temperature from: ``series``, a
     ``(values, t0, dts)`` that the kernel interpolates, or ``table(times)``,
     its values at the clock times ``times``. An input variable is read from
     the last time series in ``sources`` that provides it, in the user's
     order, as each step's ``update_inputs`` leaves it (a static source
-    writes only at initialization); without one, from ``state.inputs``."""
+    writes only at initialization); without one, from ``state.inputs``.
+    With ``window`` ``(rows, dts)`` the series is a streamed window, held to
+    that length and spacing (``fused_step.window_meta``)."""
 
-    def __init__(self, value, sources, state: State, grid):
+    def __init__(self, value, sources, state: State, grid, window=None):
         self.series, self.table = None, None
         if not isinstance(value, str):
             self.table = functools.partial(top_temperature_table, value, grid=grid)
@@ -157,7 +155,8 @@ class _TopTemperature:
         vals = src.series[value]
         if getattr(vals, "ndim", np.ndim(vals)) not in (1, 2):
             raise ValueError("the fused rollout takes (T,) or (T, cells) series")
-        meta = _uniform_ts_meta(src)
+        meta = (uniform_ts_meta(src.times) if window is None
+                else window_meta(src.times, vals.shape[0], window))
         if meta is None:  # any spacing: the source's own interpolation
             self.table = lambda times: src.values_at(value, torch.as_tensor(times), like)
         else:
@@ -183,13 +182,15 @@ def _coords(grid) -> tuple:
         grid.vertical.z_faces))
 
 
-def land_inputs(model, state: State, sources) -> dict:
+def land_inputs(model, state: State, sources, window=None) -> dict:
     """The :class:`~terrarium_tpu_torch.ops.land_step.LandInput` of each input
     the land step reads that the model has: from the last uniformly spaced
     ``TimeSeriesInputSource`` in ``sources`` that provides it, else as the
     state holds it (a static ``FieldInputSource`` value or the default).
     Raises ``ValueError`` for a source of another class or a series of
-    uneven spacing."""
+    uneven spacing, and, with ``window`` ``(rows, dts)`` (a streamed
+    window), for a series of another length or spacing
+    (``fused_step.window_meta``)."""
     grid = model.grid
     for src in sources:
         if not isinstance(src, (FieldInputSource, TimeSeriesInputSource)):
@@ -204,8 +205,9 @@ def land_inputs(model, state: State, sources) -> dict:
             out[name] = land_step.LandInput(state.inputs[name][None, :].contiguous())
             continue
         src = series[-1]
-        meta = _uniform_ts_meta(src)
         vals = torch.as_tensor(src.series[name], device=grid.device).to(grid.dtype).contiguous()
+        meta = (uniform_ts_meta(src.times) if window is None
+                else window_meta(src.times, vals.shape[0], window))
         if meta is None or vals.dim() not in (1, 2):
             raise ValueError(f"the land rollout reads uniformly spaced (T,) or (T, cells) "
                              f"series; {name!r} is not one")
@@ -214,12 +216,12 @@ def land_inputs(model, state: State, sources) -> dict:
 
 
 def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
-                  plain: bool, times, stepper: str) -> None:
+                  plain: bool, times, stepper: str, window) -> None:
     """The land column rollout of ``advance``, of ``stepper`` (and the
     timestepper's solver and Picard count)."""
     grid = model.grid
     params = land_step.LandParams.of(model, grid.dtype)
-    inputs = land_inputs(model, state, input_sources)
+    inputs = land_inputs(model, state, input_sources, window)
     carry = {n: state[n].contiguous() for n in land_step.carry_names(params)}
     root = state.auxiliary["root_fraction"] if model.vegetation is not None else None
     kw = ({"solver": timestepper.solver, "picard_iters": int(timestepper.picard_iters)}
@@ -233,12 +235,12 @@ def _advance_land(model, state: State, ctx, steps: int, dt: float, timestepper, 
 
 
 def _advance_soil(model, state: State, ctx, steps: int, dt: float, timestepper, input_sources,
-                  plain: bool, times, scheme) -> None:
+                  plain: bool, times, scheme, window) -> None:
     """The soil column rollout of ``advance``."""
     stepper, physics = scheme
     grid = model.grid
     params = ColumnParams.of(model, grid.dtype)
-    top = _TopTemperature(top_temperature_value(ctx.bcs), input_sources, state, grid)
+    top = _TopTemperature(top_temperature_value(ctx.bcs), input_sources, state, grid, window)
     rollout = _rollout_fn(stepper, physics, plain, timestepper)
     coords = _coords(grid)
     heat, extra = physics == "heat", int(stepper == "heun")
@@ -276,7 +278,7 @@ def _advance_modules(model, state: State, ctx, steps: int, dt: float, timesteppe
 
 
 def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None,
-            input_sources=(), plain: bool = False) -> None:
+            input_sources=(), plain: bool = False, window=None) -> None:
     """``steps`` steps of ``timestepper`` (ForwardEuler by default),
     updating ``state`` in place.
 
@@ -287,20 +289,30 @@ def advance(model, state: State, ctx, steps: int, dt: float, *, timestepper=None
     as the dead leaves of the lean carry are, and the inputs are the
     sources' values at the start of the last step. Every other composition
     runs the process modules (``pre_closure_step`` ``steps`` times, then
-    ``closure``), which leave the last step's tendencies and inputs."""
+    ``closure``), which leave the last step's tendencies and inputs.
+
+    ``window`` ``(rows, dts)``: the series are one window of a streamed
+    run, each held to that length and spacing; the run takes a column
+    rollout or raises ``ValueError``."""
     timestepper = timestepper if timestepper is not None else ForwardEuler()
     scheme = column_scheme(model, timestepper, ctx, input_sources)
     land = scheme is not None and scheme[0] == "land"
+    if scheme is None and window is not None:
+        raise ValueError(f"a streamed window runs on the column rollout kernels, which take "
+                         f"none of {type(model).__name__} with {type(timestepper).__name__}, "
+                         f"these boundary conditions, forcings and sources "
+                         f"({', '.join(type(s).__name__ for s in input_sources)}); "
+                         f"integrator.column_scheme says which do")
     if scheme is None:
         _advance_modules(model, state, ctx, steps, dt, timestepper, input_sources)
         return
     times = clock_times(state.clock.time, dt, steps)
     if land:
         _advance_land(model, state, ctx, steps, dt, timestepper, input_sources, plain, times,
-                      scheme[1])
+                      scheme[1], window)
     else:
         _advance_soil(model, state, ctx, steps, dt, timestepper, input_sources, plain, times,
-                      scheme)
+                      scheme, window)
     grid = model.grid
     clock = Clock(torch.as_tensor(times[-1], device=grid.device),
                   state.clock.iteration + steps)
@@ -317,7 +329,9 @@ def _on_device(src, device: torch.device):
     """``src`` with its arrays as tensors on ``device``, each in its own
     dtype, so that a run does not copy a series to the card again (the JAX
     package keeps its sources' leaves on the device the same way,
-    `integrator.py:57-66`). Sources of other classes are kept as they are."""
+    `integrator.py:57-66`). Sources of other classes are kept as they are: a
+    ``ChunkedForcingPipeline`` keeps its series on the host and stages them
+    window by window (``io/forcing_pipeline.py``)."""
     def move(x):
         return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x),
                                device=device)
@@ -346,6 +360,10 @@ class Simulation:
         self.ctx = model.make_context(bcs=self.bcs)
         if self.forcings:
             self.ctx = self.ctx.with_forcings(self.forcings)
+        #: steps a chunk of ``ChunkedForcingPipeline.run_fused`` is a multiple
+        #: of (the JAX package's ``inner_steps`` of its fused rollout,
+        #: `integrator.py:86`); None until set, which ``run_fused`` refuses
+        self.fused_inner_steps = None
 
     @property
     def current_time(self) -> float:

@@ -1456,3 +1456,147 @@ def test_run_builds_unlisted_compositions_at_first_launch(cuda, case):
         a, b = sim.state[name].double(), ref.state[name].double()
         assert bool(torch.isfinite(a).all()), name
         torch.testing.assert_close(a, b, rtol=0.0, atol=1e-4 * float(b.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_probe_kernels_match_plain(cuda, dtype):
+    """The probe kernels (``csrc/probes.cu``) against their plain versions
+    at small shapes: float64 (built with -fmad=false) within 1e-12; float32
+    within 1e-5 relative for row 4's chains (one FMA against a multiply and
+    an add, at most an ulp a step, over the 64-step chains) and 1e-6 of
+    each output's magnitude for rows 5 and 6 (their products are not
+    contracted; the exponentials may differ by an ulp)."""
+    from terrarium_tpu_torch.experiments import mosaic_bisect as mb
+    from terrarium_tpu_torch.experiments import mosaic_min_repro as mr
+    from terrarium_tpu_torch.experiments import roofline_census as rc
+
+    f64 = dtype == torch.float64
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    x = (0.5 + torch.rand(64, 1000, generator=gen, dtype=torch.float64)).to(cuda, dtype)
+    for kind, (_, (r1, _)) in rc.KINDS.items():
+        got, want = rc.micro_chain(x, kind, r1), rc.micro_chain_plain(x, kind, r1)
+        torch.testing.assert_close(got, want, rtol=1e-12 if f64 else 1e-5, atol=0.0, msg=kind)
+    xb, dz = mb.inputs(dtype, cuda)
+    xb = xb[:, :3000].contiguous()
+    for case in mb.CASES:
+        got, want = mb.bisect_case(case, xb, dz), mb.bisect_case_plain(case, xb, dz)
+        tol = (1e-12 if f64 else 1e-6) * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0.0, atol=tol, msg=case)
+    T = (torch.rand(mr.NZ, 300, generator=gen, dtype=torch.float64) * 5 - 2).to(cuda, dtype)
+    s = torch.rand(300, generator=gen, dtype=torch.float64).to(cuda, dtype)
+    for variant in mr.VARIANTS:
+        for got, want in zip(mr.repro_variant(variant, T, s),
+                             mr.repro_variant_plain(variant, T, s)):
+            tol = (1e-12 if f64 else 1e-6) * float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0.0, atol=tol, msg=variant)
+
+
+@pytest.mark.cuda
+def test_probe_launch_counts_count_graph_replays(cuda):
+    """``run_case`` and ``run_variant`` count the launches the card ran: the
+    check, the CUDA graph's warm-up and each of its 5 replays of ``reps``
+    calls (the capture launches nothing), and ``reps + 1`` calls timed
+    alone."""
+    from terrarium_tpu_torch.experiments import mosaic_bisect as mb
+    from terrarium_tpu_torch.experiments import mosaic_min_repro as mr
+
+    reps = 3
+    for fn, run, arg in ((mb.bisect_case, mb.run_case, "cummin"),
+                         (mr.repro_variant, mr.run_variant, "row_to_xy_stencil")):
+        before = fn.launches
+        run(arg, reps=reps)
+        assert fn.launches - before == 1 + (1 + 5 * reps) + (1 + reps)
+
+
+@pytest.mark.cuda
+def test_run_fused_stages_windows_on_a_side_stream(cuda):
+    """``ChunkedForcingPipeline.run_fused`` over a float64 heat-only soil on
+    the card: one launch a chunk, each window copied on the stager's side
+    stream and waited for by an event; the result within 1e-12 of
+    ``Simulation.run`` on the whole series on the card, and ``run`` within
+    1e-12 of both."""
+    hours = 200 * 86400.0 + np.arange(0.0, 30 * 3600.0, 3600.0)
+    cells = 500
+    vals = 2.0 + np.sin(2 * np.pi * hours[:, None] / 86400.0) * np.linspace(1, 3, cells)
+
+    def make(src):
+        grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=16),
+                                dtype=torch.float64, device=cuda)
+        sim = tp.initialize(tp.SoilModel(grid=grid), tp.ForwardEuler(dt=300.0),
+                            initializers={"temperature": 1.0, "saturation_water_ice": 0.5},
+                            boundary_conditions=tp.PrescribedSurfaceTemperature(
+                                "surface_temperature"),
+                            input_sources=(src,))
+        sim.state.clock = tp.Clock(torch.tensor(hours[1], dtype=torch.float64, device=cuda),
+                                   sim.state.clock.iteration)
+        sim.fused_inner_steps = 12
+        return sim
+
+    whole = make(tp.TimeSeriesInputSource(times=hours, series={"surface_temperature": vals}))
+    whole.run(steps=240)
+    results = {}
+    for route in ("run_fused", "run"):
+        pipe = tp.ChunkedForcingPipeline(hours, {"surface_temperature": vals}, window=8)
+        sim = make(pipe)
+        before = fs.soil_column_heat_rollout.launches
+        getattr(pipe, route)(sim, steps=240, dt=300.0)
+        torch.cuda.synchronize()
+        assert fs.soil_column_heat_rollout.launches - before == len(pipe.chunks) > 2
+        for chunk in pipe.chunks:
+            assert chunk.copy_end.query()
+            assert chunk.copy_start.elapsed_time(chunk.copy_end) >= 0.0
+        results[route] = sim.state.internal_energy
+        torch.testing.assert_close(sim.state.internal_energy, whole.state.internal_energy,
+                                   rtol=1e-12, atol=0.0, msg=route)
+    torch.testing.assert_close(results["run"], results["run_fused"], rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["run_fused", "run"])
+def test_streamed_run_holds_two_windows_on_the_card(cuda, route):
+    """A streamed run holds two windows on the card whatever its length:
+    the peak memory of 60 windows above the run's start is that of 4
+    windows (within a quarter of a window), and 4 windows' is
+    ``Simulation.run``'s on the whole series plus two windows (within a
+    quarter of a window)."""
+    cells, window = 4096, 8
+    hours = 200 * 86400.0 + np.arange(0.0, 400 * 3600.0, 3600.0)
+    vals = 2.0 + np.sin(2 * np.pi * hours[:, None] / 86400.0) * np.linspace(1, 3, cells)
+    window_bytes = window * cells * 8
+
+    def make(src):
+        grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=16),
+                                dtype=torch.float64, device=cuda)
+        sim = tp.initialize(tp.SoilModel(grid=grid), tp.ForwardEuler(dt=600.0),
+                            initializers={"temperature": 1.0, "saturation_water_ice": 0.5},
+                            boundary_conditions=tp.PrescribedSurfaceTemperature(
+                                "surface_temperature"),
+                            input_sources=(src,))
+        sim.state.clock = tp.Clock(torch.tensor(hours[0], dtype=torch.float64, device=cuda),
+                                   sim.state.clock.iteration)
+        sim.fused_inner_steps = 6
+        return sim
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - start
+
+    # run_fused: chunks of 36 steps at dt 600 (6 hours), 4 and 60 windows
+    short, long = 4 * 36, 60 * 36
+    whole = make(tp.TimeSeriesInputSource(times=torch.as_tensor(hours, device=cuda),
+                                          series={"surface_temperature": torch.as_tensor(
+                                              vals, device=cuda)}))
+    whole_peak = peak(lambda: whole.run(steps=short, dt=600.0))
+    peaks = {}
+    for steps in (short, long):
+        pipe = tp.ChunkedForcingPipeline(hours, {"surface_temperature": vals}, window=window)
+        sim = make(pipe)
+        peaks[steps] = peak(lambda: getattr(pipe, route)(sim, steps=steps, dt=600.0))
+        assert len(pipe.chunks) >= steps // 42  # run: chunks of at most 7 hours
+    assert peaks[long] <= peaks[short] + window_bytes / 4, (peaks, window_bytes)
+    assert peaks[short] <= whole_peak + 2.25 * window_bytes, (peaks, whole_peak, window_bytes)
