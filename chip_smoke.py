@@ -1,8 +1,10 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
-column rollouts, ForwardEuler, Heun and ImplicitEuler with Thomas or PCR
-solves and any number of Picard iterations, heat + Richards and heat only,
+column rollouts: ForwardEuler and Heun over heat + Richards on groups of
+lanes; one thread a column, ImplicitEuler with Thomas or PCR solves and
+any number of Picard iterations over heat + Richards, and the heat-only
+steppers;
 the segment VJP of each of these, the land rollout and its VJP, each with
 the Picard iterations, and the soil's and the land's full steps, every
 stepper; one ``nvcc`` per instantiation,
@@ -10,7 +12,13 @@ in parallel: the rollout source's prebuilt set first, then the others in a
 background thread while the forward phases run, beside the two
 instantiations of ``on_demand`` that no prebuilt set holds, each built
 alone at its first use) and drives the port's paths, each with the kernel
-launch counts set to 0 just before it and read just after:
+launch counts set to 0 just before it and read just after. Rows 1 and 1'a
+(the group rollout of ForwardEuler and of Heun) are also described in
+``group_check`` lines: the group size, registers, spill stores, resident
+warps an SM, SASS instructions, the saturation sweeps' hand-offs between
+lanes on the compared operands, the bound with each operation weighted by
+its measured cost, and the row at float64 on 1,024 columns against the
+plain version at 1e-12:
 
 * ``on_demand``: `examples/soil_heat_column.py`'s composition (BASELINE
   config #1: the heat-only SoilModel, one column, Nz 10, float32,
@@ -284,6 +292,23 @@ VJP_OPS_PER_LEVEL_STEP = FWD_OPS_PER_LEVEL_STEP + sum(ADJ_OPS.values())
 # operations, in place of them in the second; the stage y = x + f * dt, two
 # operations, for U and sat
 HEUN_OPS_PER_LEVEL_STEP = 2 * FWD_OPS_PER_LEVEL_STEP + 2 * (-2 + 2 + 2)
+# The same forward step with each operation weighted by its cost on the
+# card, in FMA issues, from row 4's measured rates (PERF.md section 6: a
+# division 15.6, a powf 70, an exp 9.6; a root, which row 4 did not time,
+# at an exp's): of FWD_OPS' 106 operations a level and step, 13 IEEE
+# divisions (the sweeps' c / dz x2; safediv, the two Tk quotients and
+# water / theta_sat; the heat flux's gradient and divergence; the head's
+# se and its se^-2; the Darcy gradient, divergence and / por), one powf (the
+# ice impedance 10^x), four roots (the se^(2/3) cube root, the Mualem and
+# head square roots, sqrt(se)), the other 88 one issue each. The bound at
+# the card's 33.5e12 FMA issues/s
+FWD_WEIGHTS = {"division": (13, 15.6), "powf": (1, 70.0), "root": (4, 9.6)}
+FWD_FMA_ISSUES_PER_LEVEL_STEP = (
+    FWD_OPS_PER_LEVEL_STEP - sum(n for n, _ in FWD_WEIGHTS.values())
+    + sum(n * w for n, w in FWD_WEIGHTS.values()))
+HEUN_FMA_ISSUES_PER_LEVEL_STEP = (2 * FWD_FMA_ISSUES_PER_LEVEL_STEP
+                                  + HEUN_OPS_PER_LEVEL_STEP - 2 * FWD_OPS_PER_LEVEL_STEP)
+H100_FMA_ISSUES = 33.5e12
 # heat only (NoFlow): Level's energy closure, heat capacity and
 # conductivity without the centre K (37: L_theta 2, liquid fraction 8,
 # water/ice/air 6, C 7, temperature 6, conductivity 8), and the heat flux
@@ -637,6 +662,11 @@ def land_variant_spec(name):
 # composition) on 1,024 columns, 2 simulated days; each run through
 # Simulation.run against its plain version
 ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
+# The sources the first phases launch, built first: the group rollout (rows
+# 1 and 1'a, ForwardEuler and Heun over heat + Richards) and the other soil
+# rollouts
+GROUP_SOURCE = "soil_column_group_rollout"
+FIRST_SOURCES = (GROUP_SOURCE, "soil_column_rollout")
 # The sources built beside the forward phases, in the order the phases need
 # them: the land rollout (the land phases), then the land segment VJP (the
 # land gradients), then the soil segment VJP (the soil gradients), whose
@@ -1168,10 +1198,10 @@ def golden_sim(tp):
         boundary_conditions=tp.PrescribedSurfaceTemperature(lambda t: -5.0 + 0.0 * t))
 
 
-def bench_sim(tp):
+def bench_sim(tp, cells=BENCH_CELLS, dtype=torch.float32):
     """`bench.py:43-64`: N145 land cells, Nz 30, float32, dt 60 s."""
-    grid = tp.ColumnGrid.of(cells=BENCH_CELLS, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
-                            dtype=torch.float32, device="cuda")
+    grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
+                            dtype=dtype, device="cuda")
     return tp.initialize(
         tp.SoilModel(grid=grid, soil=soil(tp)), tp.ForwardEuler(dt=BENCH_DT),
         initializers={
@@ -1229,12 +1259,12 @@ def heun_forced_sim(tp):
                                                 series={"air_temperature": series}),))
 
 
-def heun_sim(tp, cells):
+def heun_sim(tp, cells, dtype=torch.float32):
     """`bench_configs.py:414-449`: heat + Richards as bench, Heun at dt 60 s,
     the top temperature from an hourly (744, cells) float32 series
     5 sin(2 pi t / 86400), made on the card (169 MB at full width)."""
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=BENCH_NZ),
-                            dtype=torch.float32, device="cuda")
+                            dtype=dtype, device="cuda")
     hours = torch.as_tensor(hourly_times(), device="cuda")
     ts = (5.0 * torch.sin(2 * np.pi * hours / 86400.0))[:, None].expand(SERIES_ROWS, cells)
     return tp.initialize(
@@ -1583,7 +1613,8 @@ def ptxas_summary(report: str) -> dict:
     "series": ..., "cpu_s": 41.3}, ...}`` from the build's ptxas ``-v``
     report, whose part of each instantiation is headed ``== <entry point>``
     and ``cpu_s <seconds>`` (its nvcc's CPU time, where the build recorded
-    it); a rollout entry holds a table and a series kernel, the VJP's its
+    it); a rollout entry (the group rollout's too: <T, NZ, G, STEPPER,
+    SERIES>) holds a table and a series kernel, the VJP's its
     kernel and the reduction, the land and full-step entries their one
     kernel."""
     out, entry, key = {}, None, None
@@ -1598,10 +1629,13 @@ def ptxas_summary(report: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m and entry:
             name = m.group(1)
-            # <T, NZ, STEPPER, SOLVER, HEAT, PICARD, SERIES>; before the
-            # Picard entries, <T, NZ, STEPPER, SOLVER, HEAT, SERIES>
-            flags = re.search(r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+E(?:Lb[01]E){1,2}Lb([01])E",
-                              name)
+            # <T, NZ, G, STEPPER, SERIES> (the group rollout); <T, NZ,
+            # STEPPER, SOLVER, HEAT, PICARD, SERIES>; before the Picard
+            # entries, <T, NZ, STEPPER, SOLVER, HEAT, SERIES>
+            flags = (re.search(r"group_rollout_kernelI[fd]Li\d+ELi\d+ELi\d+ELb([01])E", name)
+                     or re.search(
+                         r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+E(?:Lb[01]E){1,2}Lb([01])E",
+                         name))
             if flags:
                 key = "series" if flags.group(1) == "1" else "table"
             elif "land_column_rollout_kernel" in name:
@@ -1618,6 +1652,96 @@ def ptxas_summary(report: str) -> dict:
             out[entry][key] = f"{regs} registers, {out[entry][key]}"
             key = None
     return out
+
+
+def sass_instructions(cuda_build, source, entry, series):
+    """The SASS instructions, NOPs aside, of the table or (``series``) the
+    series kernel of a rollout ``entry`` of ``source``, from ``cuobjdump
+    -sass`` of the library that holds it (the prebuilt one, or the entry's
+    own where it was built alone)."""
+    stem = cuda_build._stem(source)
+    lib = cuda_build._BUILD_DIR / f"{stem}-{entry}.so"
+    if not lib.exists():
+        lib = cuda_build._BUILD_DIR / f"{stem}.so"
+    cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    # the entry's kernel, by its mangled template arguments: the group
+    # rollout's <T, NZ, G, STEPPER, SERIES>, the one-thread rollout's <T, NZ,
+    # STEPPER, SOLVER, HEAT, PICARD, SERIES>; the element type and the depth
+    # from the entry's name
+    m = re.search(r"_(f32|f64)_nz(\d+)$", entry)
+    t, nz = {"f32": "f", "f64": "d"}[m.group(1)], m.group(2)
+    stepper = {"euler": 0, "heun": 1}[next(k for k in ("euler", "heun") if f"_{k}_" in entry)]
+    if source == GROUP_SOURCE:
+        want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELb{int(series)}EE")
+    else:
+        want = re.compile(rf"soil_column_rollout_kernelI{t}Li{nz}ELi{stepper}ELi\d+E"
+                          rf"(?:Lb[01]E)*Lb{int(series)}EE")
+    count, inside = 0, False
+    for ln in text.splitlines():
+        f = re.match(r"\s*Function : (\S+)", ln)
+        if f:
+            inside = bool(want.search(f.group(1)))
+            continue
+        if inside and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln) and " NOP" not in ln:
+            count += 1
+    return count
+
+
+GROUP_F64_CELLS = 1024
+
+
+def group_row(fs, cuda_build, stepper, operands, dt, ptxas_all, fma_per_level_step):
+    """What the kernel line reports of the group rollout of ``stepper``
+    (heat + Richards; ForwardEuler reads a table, Heun a series) at the
+    shape of ``operands``: its group size G and levels a lane, ptxas's
+    registers and spill stores, resident warps an SM, SASS instructions,
+    the saturation sweeps' serial hand-offs in one launch of its wrapper on
+    ``operands`` (up, down, and their sum per column and step) and the
+    bound with each operation weighted by its cost (``fma_per_level_step``
+    FMA issues a level and step at H100_FMA_ISSUES)."""
+    carry, top, coords, params = operands
+    series = isinstance(top, fs.SeriesBC)
+    dtype, (nz, cells) = carry[0].dtype, carry[0].shape
+    steps = top.steps if series else top.shape[0] - (1 if stepper == "heun" else 0)
+    entry = cuda_build._entry_name(GROUP_SOURCE, (stepper, "richards"), dtype, nz)
+    ptxas = ptxas_all[GROUP_SOURCE][entry]["series" if series else "table"]
+    warps, group = fs.group_occupancy(stepper, dtype, nz, series)
+    _, (up, down) = fs.soil_column_group_handoffs(stepper, *carry, top, *coords, params, dt)
+    return {"group": group, "levels_a_lane": -(-nz // group),
+            "registers": int(ptxas.split()[0]),
+            "spill_stores": int(ptxas.split(",")[1].split()[0]),
+            "resident_warps_per_sm": warps,
+            "sass_instructions": sass_instructions(cuda_build, GROUP_SOURCE, entry, series),
+            "handoffs_up": up, "handoffs_down": down,
+            "handoffs_per_column_step": (up + down) / (cells * steps),
+            "bound_weighted_ms": fma_per_level_step * nz * cells * steps / H100_FMA_ISSUES * 1e3}
+
+
+def group_f64_check(tp, fs, stepper):
+    """Row 1 (``"euler"``: the bench, its table) or 1'a (``"heun"``: the
+    Heun + series configuration, its series) at float64 on GROUP_F64_CELLS
+    columns over COMPARE_STEPS steps, against the plain version at 1e-12."""
+    from terrarium_tpu_torch.timesteppers.integrator import clock_times, top_temperature_table
+
+    if stepper == "heun":
+        carry, top, coords, params = series_operands(
+            fs, heun_sim(tp, GROUP_F64_CELLS, torch.float64), COMPARE_STEPS)
+        wrapper = fs.soil_column_heun_rollout
+    else:
+        sim = bench_sim(tp, GROUP_F64_CELLS, torch.float64)
+        g = sim.model.grid
+        coords = tuple(getattr(g, n)[:, 0].contiguous()
+                       for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+        carry = tuple(sim.state.prognostic[n].contiguous() for n in sim.model.live_carry)
+        top = top_temperature_table(sim.bcs["temperature"]["top"].value, clock_times(
+            sim.state.clock.time, BENCH_DT, COMPARE_STEPS)[:-1], g)
+        params = fs.ColumnParams.of(sim.model, g.dtype)
+        wrapper = fs.soil_column_rollout
+    return check_f64_close(f"{stepper} f64", wrapper(*carry, top, *coords, params, BENCH_DT),
+                           fs.soil_column_rollout_plain(*carry, top, *coords, params,
+                                                        BENCH_DT, stepper=stepper), 1e-12)
 
 
 def land_model(tp, grid, composition):
@@ -3102,11 +3226,11 @@ def main():
 
     t0 = time.perf_counter()
     names = tuple(cuda_build.INSTANTIATIONS)
-    first = threading.Thread(target=build_group, args=(("soil_column_rollout",),), daemon=True)
+    first = threading.Thread(target=build_group, args=(FIRST_SOURCES,), daemon=True)
     first.start()
-    time.sleep(1.0)  # the rollout source's nvcc processes queue for the slots first
+    time.sleep(1.0)  # the rollout sources' nvcc processes queue for the slots first
     rest = tuple(n for group in REST_GROUPS for n in group)
-    if sorted(rest) != sorted(set(names) - {"soil_column_rollout"}):
+    if sorted(rest) != sorted(set(names) - set(FIRST_SOURCES)):
         raise AssertionError(f"the build's sources are {names}")
     # C1's compositions: their kernels, which no prebuilt instantiation
     # covers, built at first use (cuda_build.entry, as their Simulation.run's
@@ -3137,14 +3261,12 @@ def main():
         compiling.update(dict.fromkeys(group, thread))
         time.sleep(1.0)  # this group's nvcc processes queue for the slots first
     first.join()
-    cuda_build.build("soil_column_rollout")  # raises the first build's error, if any
+    cuda_build.build(*FIRST_SOURCES)  # raises the first build's error, if any
     first_s = time.perf_counter() - t0
-    phase("build", source="soil_column_rollout", seconds=first_s,
-          instantiations=len(cuda_build.INSTANTIATIONS["soil_column_rollout"]),
-          ptxas={"soil_column_rollout": ptxas_summary(
-              cuda_build.ptxas_report("soil_column_rollout"))})
-    ptxas_all = {"soil_column_rollout": ptxas_summary(
-        cuda_build.ptxas_report("soil_column_rollout"))}
+    ptxas_all = {n: ptxas_summary(cuda_build.ptxas_report(n)) for n in FIRST_SOURCES}
+    phase("build", sources=list(FIRST_SOURCES), seconds=first_s,
+          instantiations=sum(len(cuda_build.INSTANTIATIONS[n]) for n in FIRST_SOURCES),
+          ptxas=ptxas_all)
 
     def built(*group):
         """Wait for the sources of ``group`` (a REST_GROUPS entry); their
@@ -3203,6 +3325,13 @@ def main():
           kernel_ms=ms, plain_ms=plain_ms,
           kernel_cells_steps_per_s=cell_steps / (ms / 1e3),
           plain_cells_steps_per_s=cell_steps / (plain_ms / 1e3), card=card)
+    # ---- the group kernel of row 1: its layout and resources, its sweeps'
+    # hand-offs on the bench operands, and row 1 at float64
+    row1 = group_row(fs, cuda_build, "euler", (carry, table, coords, params), BENCH_DT,
+                     ptxas_all, FWD_FMA_ISSUES_PER_LEVEL_STEP)
+    row1_f64 = group_f64_check(tp, fs, "euler")
+    phase("group_check", row="1", cells=BENCH_CELLS, nz=BENCH_NZ, steps=COMPARE_STEPS, **row1,
+          f64_cells=GROUP_F64_CELLS, f64_rtol=1e-12, f64_max_abs_err=row1_f64, card=card)
 
     # ---- main path: Simulation.run, one warm-up block then one timed block
     sim.run(steps=COMPARE_STEPS)
@@ -3284,6 +3413,12 @@ def main():
     phase("heun_compare", steps=COMPARE_STEPS, rel_tol=F32_REL_TOL, max_abs_err=heun_cmp,
           kernel_ms=heun_ms, plain_ms=heun_plain_ms, bound_ms=heun_b[0], bound_by=heun_b[1],
           series_rows_read=heun_rows, card=card)
+    row1a = group_row(fs, cuda_build, "heun", (carry, bc, coords, params), BENCH_DT, ptxas_all,
+                      HEUN_FMA_ISSUES_PER_LEVEL_STEP)
+    row1a_f64 = group_f64_check(tp, fs, "heun")
+    phase("group_check", row="1'a", cells=BENCH_CELLS, nz=BENCH_NZ, steps=COMPARE_STEPS,
+          **row1a, f64_cells=GROUP_F64_CELLS, f64_rtol=1e-12, f64_max_abs_err=row1a_f64,
+          card=card)
     del carry, bc, out_k, out_p
 
     # ---- Heun main path: one warm-up run, then one timed 2,880-step block
@@ -4294,18 +4429,19 @@ def main():
     series_at = "; the series read at terrarium_tpu/ops/fused_step.py:92"
     print(json.dumps({"kernels": [{
         "name": "soil_column_rollout", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "source": "terrarium_tpu_torch/csrc/soil_column_group_rollout.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283",
         "launches": main_launches, "max_abs_err": max(cmp.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
-        "library_ms": None,
+        "library_ms": None, **row1, "f64_max_abs_err": max(row1_f64.values()),
         "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, {COMPARE_STEPS} steps"}, {
         "name": "soil_column_heun_rollout", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "source": "terrarium_tpu_torch/csrc/soil_column_group_rollout.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283" + series_at,
         "launches": heun_launches, "max_abs_err": max(heun_cmp.values()),
         "ms": heun_ms, "plain_ms": heun_plain_ms, "bound_ms": heun_b[0],
-        "bound_by": heun_b[1], "library_ms": None,
+        "bound_by": heun_b[1], "library_ms": None, **row1a,
+        "f64_max_abs_err": max(row1a_f64.values()),
         "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, Heun, series, {COMPARE_STEPS} steps"}, {
         "name": "soil_column_heat_rollout", "route": "cuda",
         "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
@@ -4438,8 +4574,9 @@ def euler_digest(root: pathlib.Path):
     f64 Nz 20, 120 steps; bench f32 Nz 30, 144 steps at full width; gradient
     configuration f32 Nz 20, 48 steps at full width) and of the Heun
     kernel's (heun_forced f64 Nz 15, 96 steps; the Heun + series
-    configuration f32 Nz 30, 144 steps at full width), the rollout's ptxas
-    lines and the bench main-path rate, for the package under ``root``."""
+    configuration f32 Nz 30, 144 steps at full width), the rollouts' ptxas
+    lines (the group rollout's where the package has it) and the bench
+    main-path rate, for the package under ``root``."""
     import hashlib
 
     if not torch.cuda.is_available():
@@ -4458,8 +4595,9 @@ def euler_digest(root: pathlib.Path):
 
     t0 = time.perf_counter()
     land_vjp = "land_column_segment_vjp" in cuda_build.INSTANTIATIONS
-    cuda_build.build("soil_column_rollout", "soil_column_segment_vjp", "land_column_rollout",
-                     *(("land_column_segment_vjp",) if land_vjp else ()))
+    group = tuple(n for n in (GROUP_SOURCE,) if n in cuda_build.INSTANTIATIONS)
+    cuda_build.build(*group, "soil_column_rollout", "soil_column_segment_vjp",
+                     "land_column_rollout", *(("land_column_segment_vjp",) if land_vjp else ()))
     build_s = time.perf_counter() - t0
     digests = {}
     for case, sim, steps in (("golden_f64_nz20", golden_sim(tp), 120),
@@ -4611,7 +4749,8 @@ def euler_digest(root: pathlib.Path):
     sim.run(steps=BLOCK_STEPS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cuda_build.ptxas_report("soil_column_rollout").splitlines()
+    ptxas = [ln.strip() for n in (*group, "soil_column_rollout")
+             for ln in cuda_build.ptxas_report(n).splitlines()
              if ln.startswith("==") or "Compiling entry" in ln or "Used" in ln
              or "spill stores" in ln]
     print(json.dumps({"ptxas": ptxas}), flush=True)

@@ -55,14 +55,24 @@ _F32, _F64 = torch.float32, torch.float64
 #: ptxas reports), so that the longest compiles start first in the build's
 #: slots and a source's build ends with short ones
 INSTANTIATIONS = {
+    # ForwardEuler and Heun over heat + Richards, a column on a group of
+    # lanes: the bench and gradient grids at Nz 30 and 20 (each stepper's
+    # float64 check at Nz 30), the Heun golden at Nz 15
+    "soil_column_group_rollout": [
+        (("heun", "richards"), _F64, 15), (("euler", "richards"), _F64, 20),
+        (("heun", "richards"), _F64, 30), (("euler", "richards"), _F32, 20),
+        (("heun", "richards"), _F32, 30), (("euler", "richards"), _F64, 30),
+        (("euler", "richards"), _F32, 30),
+    ],
+    # every other soil rollout, a column a thread: ImplicitEuler, and the
+    # heat-only model
     "soil_column_rollout": [
         (("implicit", "picard", "richards"), _F32, 30),
-        (("implicit", "pcr", "richards"), _F32, 30), (("heun", "richards"), _F32, 30),
-        (("implicit", "thomas", "richards"), _F32, 30), (("euler", "richards"), _F64, 30),
-        (("implicit", "picard", "richards"), _F64, 16), (("heun", "richards"), _F64, 15),
+        (("implicit", "pcr", "richards"), _F32, 30),
+        (("implicit", "thomas", "richards"), _F32, 30),
+        (("implicit", "picard", "richards"), _F64, 16),
         (("implicit", "pcr", "richards"), _F64, 16),
-        (("implicit", "thomas", "richards"), _F64, 16), (("euler", "richards"), _F32, 30),
-        (("euler", "richards"), _F64, 20), (("euler", "richards"), _F32, 20),
+        (("implicit", "thomas", "richards"), _F64, 16),
         (("implicit", "picard", "heat"), _F32, 30), (("implicit", "picard", "heat"), _F64, 16),
         (("heun", "heat"), _F32, 30), (("heun", "heat"), _F64, 16), (("euler", "heat"), _F64, 30),
         (("euler", "heat"), _F32, 30),
@@ -168,7 +178,10 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "heat": ("SOIL_HEAT=1",), "noflow": ("LAND_RICHARDS=0",), "bare": ("LAND_VEG=0",),
             "veg": ("LAND_VEG=1",), "vg": ("LAND_CURVE=0",), "bc": ("LAND_CURVE=1",),
             "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",),
-            "micro": ("PROBE_ROW=4",), "bisect": ("PROBE_ROW=5",), "repro": ("PROBE_ROW=6",)}
+            "micro": ("PROBE_ROW=4",), "bisect": ("PROBE_ROW=5",), "repro": ("PROBE_ROW=6",),
+            # the group rollout at a group size other than its depth's
+            # (soil::group_lanes), for measuring one against another
+            **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (4, 8, 16, 32)}}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernels' float64 instantiations, which serve the checks
 #: against the plain version at 1e-12 (the VJP's at 1e-9), contract no
@@ -329,10 +342,11 @@ def _build_one(name: str, tags: tuple, dtype: torch.dtype, nz: int):
         return _libs[key]
 
 
-def entry(name: str, dtype: torch.dtype, nz: int, argtypes, tags=()):
-    """The entry point ``<name>[_<tag>...]_<f32|f64>_nz<NZ>`` of
+def entry(name: str, dtype: torch.dtype, nz: int, argtypes, tags=(), suffix: str = ""):
+    """The entry point ``<name>[_<tag>...]_<f32|f64>_nz<NZ><suffix>`` of
     ``csrc/<name>.cu``, typed with ``argtypes`` and an int result (the
-    launch's CUDA error code): from the source's library of prebuilt
+    launch's CUDA error code; ``suffix`` names another function of the
+    instantiation): from the source's library of prebuilt
     instantiations (``INSTANTIATIONS``, built together at first use), or,
     for any other, from its own library, built at its first use. Raises
     ``ValueError`` for a dtype other than float32 or float64 and
@@ -344,7 +358,7 @@ def entry(name: str, dtype: torch.dtype, nz: int, argtypes, tags=()):
         lib = build(name)[0]
     else:
         lib = _build_one(name, tags, dtype, nz)
-    fn = getattr(lib, _entry_name(name, tags, dtype, nz))
+    fn = getattr(lib, _entry_name(name, tags, dtype, nz) + suffix)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -31,9 +31,13 @@ or ``(rows, cells)``, strides may be 0; Heun reads ``n + 1`` rows, the
 stage of step ``i`` reading row ``i + 1``), or a :class:`SeriesBC`, a
 uniformly spaced series that the kernel interpolates at each clock time
 itself (the counterpart of ``_WindowSource``, `fused_step.py:92-122`,
-without its window). The CUDA source is ``csrc/soil_column_rollout.cu``
-(the step in ``csrc/soil_step.cuh``), compiled by ``nvcc`` at first use into
-``_build/`` beside this package and loaded with ctypes.
+without its window). The CUDA sources, compiled by ``nvcc`` at first use
+into ``_build/`` beside this package and loaded with ctypes: for
+ForwardEuler and Heun over heat + Richards (:func:`soil_column_rollout`,
+:func:`soil_column_heun_rollout`), ``csrc/soil_column_group_rollout.cu``, a
+column spread over a group of lanes (the step in
+``csrc/soil_group_step.cuh``); for the others ``csrc/soil_column_rollout.cu``,
+a column a thread (the step in ``csrc/soil_step.cuh``).
 
 On CPU tensors a wrapper runs :func:`soil_column_rollout_plain`; on CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
@@ -86,10 +90,14 @@ __all__ = ["ColumnParams", "SeriesBC", "uniform_ts_meta", "window_meta", "kernel
            "soil_column_rollout", "soil_column_heun_rollout", "soil_column_heat_rollout",
            "soil_column_implicit_rollout", "soil_column_heat_heun_rollout",
            "soil_column_heat_implicit_rollout", "soil_column_rollout_plain", "ROLLOUTS",
+           "GROUP_SCHEMES", "soil_column_group_handoffs", "group_occupancy",
            "make_fused_step", "full_step_scheme", "full_step_operands", "soil_column_full_step",
            "soil_column_full_step_plain"]
 
 _NAME = "soil_column_rollout"  # csrc/soil_column_rollout.cu
+_GROUP_NAME = "soil_column_group_rollout"  # csrc/soil_column_group_rollout.cu
+#: the (stepper, physics) whose rollouts run on groups of lanes
+GROUP_SCHEMES = (("euler", "richards"), ("heun", "richards"))
 
 
 def _number(x) -> float:
@@ -616,6 +624,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
              + [ctypes.c_double] * 3 + [ctypes.c_void_p] * 4
              + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+#: the group rollout's entry: the column rollout's arguments without the
+#: solver and the Picard count, with the hand-off counter (or 0)
+_GROUP_ARGTYPES = _ARGTYPES[:-3] + [ctypes.c_void_p, ctypes.c_void_p]
 #: the solver codes of the kernels' ``solver`` argument (``soil::SOLVER_*``)
 SOLVER_CODES = {"thomas": 0, "pcr": 1}
 
@@ -646,10 +657,12 @@ def _check_inputs(U, sat, S, top, coords, heat=False):
 
 
 def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solver="pcr",
-             picard_iters=1):
+             picard_iters=1, handoffs=None):
     """Check, then run the plain version (CPU) or launch the kernel of
     ``(stepper, physics)`` (and ``solver`` and ``picard_iters``, implicit)
-    (CUDA); returns the new ``(U, sat, S)``."""
+    (CUDA); returns the new ``(U, sat, S)``. A group rollout adds its
+    sweeps' hand-offs, up and down, to ``handoffs`` (an int64 tensor of 2
+    on the card) where given."""
     heun, heat = _scheme(stepper, physics, solver, picard_iters)
     _check_inputs(U, sat, S, top, coords, heat)
     steps = _steps(top, heun)
@@ -661,13 +674,27 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solv
                                          picard_iters=picard_iters)
     if U.device.type != "cuda":
         raise ValueError(f"soil column rollout runs on cpu or cuda, not {U.device}")
-    nz, cells = U.shape
+    nz = U.shape[0]
     carry = (U, sat) if heat else (U, sat, S)
     for t in (*carry, *coords):
         if not t.is_contiguous():
             raise ValueError("the soil column kernels take contiguous fields and coordinates")
     tags = kernel_tags(stepper, physics, int(picard_iters), plain_euler=(), solver=solver)
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
+    if (stepper, physics) in GROUP_SCHEMES:
+        fn = cuda_build.entry(_GROUP_NAME, U.dtype, nz, _GROUP_ARGTYPES, tags=tags)
+        tail = (0 if handoffs is None else handoffs.data_ptr(),)
+    else:
+        fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
+        tail = (SOLVER_CODES[solver], int(picard_iters))
+    out = launch_entry(fn, tail, heat, U, sat, S, top, coords, params, dt, steps)
+    wrapper.launches += 1
+    return out
+
+
+def launch_entry(fn, tail, heat, U, sat, S, top, coords, params, dt, steps):
+    """Launch the rollout entry point ``fn`` (``_ARGTYPES``, ``tail`` its
+    solver and Picard count, or ``_GROUP_ARGTYPES``, ``tail`` its hand-off
+    counter) on checked CUDA operands; the new ``(U, sat, S)``."""
     U_out = torch.empty_like(U)
     sat_out, S_out = (sat, S) if heat else (torch.empty_like(sat), torch.empty_like(S))
     if isinstance(top, SeriesBC):
@@ -679,12 +706,10 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solv
     cparams = _CParams.of(params)
     err = fn(U.data_ptr(), sat.data_ptr(), ptr(S), U_out.data_ptr(), ptr(sat_out), ptr(S_out),
              data.data_ptr(), data.stride(0), cell_stride, rows, *series,
-             *(c.data_ptr() for c in coords), ctypes.byref(cparams), steps, float(dt), cells,
-             SOLVER_CODES[solver], int(picard_iters),
-             torch.cuda.current_stream(U.device).cuda_stream)
+             *(c.data_ptr() for c in coords), ctypes.byref(cparams), steps, float(dt),
+             U.shape[1], *tail, torch.cuda.current_stream(U.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"soil column kernel launch failed: cudaError {err}")
-    wrapper.launches += 1
     return U_out, sat_out, S_out
 
 
@@ -749,6 +774,37 @@ for _fn in (soil_column_rollout, soil_column_heun_rollout, soil_column_heat_roll
             soil_column_implicit_rollout, soil_column_heat_heun_rollout,
             soil_column_heat_implicit_rollout):
     _fn.launches = 0
+
+
+def soil_column_group_handoffs(stepper, U, sat, S, top, dz, dz_faces, z_centers, z_faces,
+                               params: ColumnParams, dt: float):
+    """The rollout of ``stepper`` (``"euler"`` or ``"heun"``, heat +
+    Richards) on CUDA tensors, as its wrapper launches it (a launch of that
+    wrapper), and the serial hand-offs of its saturation sweeps: ``((U,
+    sat, S), (up, down))``, the number of times a carry went from one lane
+    of a column's group to the next, summed over the columns and steps."""
+    if U.device.type != "cuda":
+        raise ValueError("the hand-offs are counted by the group kernel, on CUDA tensors")
+    count = torch.zeros(2, dtype=torch.int64, device=U.device)
+    wrapper = ROLLOUTS[(stepper, "richards")]
+    out = _rollout(wrapper, stepper, "richards", U, sat, S, top,
+                   (dz, dz_faces, z_centers, z_faces), params, dt, handoffs=count)
+    return out, tuple(int(x) for x in count.tolist())
+
+
+def group_occupancy(stepper: str, dtype: torch.dtype, nz: int, series: bool) -> tuple:
+    """``(resident warps an SM, G)`` of the group rollout kernel of
+    ``stepper`` (heat + Richards) at ``dtype`` and depth ``nz``, with the
+    top temperature from a series or a table
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = cuda_build.entry(_GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                          tags=(stepper, "richards"), suffix="_warps")
+    group = ctypes.c_int(0)
+    warps = fn(int(series), ctypes.byref(group))
+    if warps < 0:
+        raise RuntimeError("the occupancy query of the group rollout kernel failed")
+    return warps, group.value
+
 
 #: the kernel wrapper of each (stepper, physics); the implicit ones take the
 #: solver as ``solver=`` and the Picard count as ``picard_iters=``

@@ -113,7 +113,7 @@ def test_kernel_rejects_unbuilt_nz(cuda):
 
     sim = _sim(64, 12, torch.float32, cuda)
     carry, table, coords, params = _operands(sim, 2)
-    assert all(nz != 12 for _, _, nz in cuda_build.INSTANTIATIONS["soil_column_rollout"])
+    assert all(nz != 12 for _, _, nz in cuda_build.INSTANTIATIONS["soil_column_group_rollout"])
     before = fs.soil_column_rollout.launches
     out = fs.soil_column_rollout(*carry, table, *coords, params, DT)
     ref = fs.soil_column_rollout_plain(*carry, table, *coords, params, DT)
@@ -132,6 +132,151 @@ def test_simulation_run_goes_through_the_kernel_and_matches_golden(cuda):
     for f in golden.files:
         np.testing.assert_allclose(sim.state[f].cpu().numpy(), golden[f], rtol=1e-12,
                                    atol=1e-12, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# the group rollout (ForwardEuler and Heun over heat + Richards, a column on a
+# group of lanes): states whose sweeps cross lanes, depths built at first use
+# ---------------------------------------------------------------------------
+def _crossing_sat(dz, lanes):
+    """Six columns of saturations on the layers ``dz`` whose sweeps hand a
+    carry across lanes of ``lanes`` levels (`test_torch_group_step_host.py
+    ::crossing_columns`): an over-saturated run across a lane boundary and
+    a wet lower half (up sweep), a negative level at a lane's bottom and a
+    deficit at the top worth half the water below (down sweep), every level
+    saturated, every level over-saturated (a spill)."""
+    nz = dz.shape[0]
+    sat = np.full((nz, 6), 0.6)
+    sat[max(lanes - 2, 0):min(lanes + 2, nz - 1), 0] = 1.3
+    sat[:nz // 2, 1] = 1.05
+    sat[min(lanes, nz - 2), 2] = -0.4
+    sat[:, 3] = 0.2
+    sat[-1, 3] = -0.1 * dz[:-1].sum() / dz[-1]
+    sat[:, 4] = 1.0
+    sat[:, 5] = 1.02
+    return sat
+
+
+def _crossing_operands(device, dtype, nz, stepper, steps, reps=11):
+    """The bench model on the six crossing columns, each ``reps`` times
+    with energies from -2e8 (frozen) to 4e7 J/m^3, and a per-cell top
+    temperature table of ``steps`` clock times (Heun: one more)."""
+    cells = 6 * reps
+    sim = _sim(cells, nz, dtype, device)
+    dz = sim.model.grid.dz[:, 0]
+    group = fs.group_occupancy(stepper, dtype, nz, False)[1]
+    sat = np.tile(_crossing_sat(dz.cpu().numpy(), -(-nz // group)), reps)
+    U = np.repeat(np.linspace(-2e8, 4e7, reps), 6)[None, :].repeat(nz, 0)
+    S = np.full(cells, 0.01)
+    carry = tuple(torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+                  for a in (U, sat, S))
+    g = sim.model.grid
+    coords = tuple(getattr(g, n)[:, 0].contiguous()
+                   for n in ("dz", "dz_faces", "z_centers", "z_faces"))
+    rows = steps + (1 if stepper == "heun" else 0)
+    table = (torch.linspace(-6.0, 8.0, cells, dtype=dtype, device=device)[None]
+             + torch.arange(rows, dtype=dtype, device=device)[:, None] * 0.1).contiguous()
+    return carry, table, coords, fs.ColumnParams.of(sim.model, dtype)
+
+
+def _heun_stage_at_saturation(carry, table, coords, params):
+    """The columns whose Heun stage, as the plain version forms it, closes a
+    level within 1e-12 below saturation: there the stage's water table and
+    head fall on either side of an ulp on the two sides."""
+    from terrarium_tpu_torch.processes.soil.hydrology import saturation_sweeps
+
+    sat, _, _, fsat, *_ = fs._plain_rhs(*carry, table[0], *(c[:, None] for c in coords),
+                                        params, False)
+    stage = saturation_sweeps(sat + fsat * DT, coords[0][:, None])[0]
+    return ((stage < 1.0) & (stage > 1.0 - 1e-12)).any(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stepper", ["euler", "heun"])
+@pytest.mark.parametrize("nz", [20, 30])
+def test_group_kernel_matches_plain_on_crossing_states(cuda, nz, stepper, dtype):
+    """The group kernel on the crossing columns (Nz 30: 32 lanes of one
+    level; Nz 20: 4 lanes of five, eight columns a warp), one step at a time
+    along the plain version's trajectory over 12 steps: float64 at 1e-12 of
+    each field's magnitude (Heun: but at a step whose stage closes a level
+    within 1e-12 below saturation), float32 at 1e-4 of it. The first step's
+    sweeps handed carries both up and down between lanes."""
+    steps = 12
+    carry, table, coords, params = _crossing_operands(cuda, dtype, nz, stepper, steps)
+    wrapper = fs.ROLLOUTS[(stepper, "richards")]
+    width = 2 if stepper == "heun" else 1
+    _, (up, down) = fs.soil_column_group_handoffs(stepper, *carry, table[:width], *coords,
+                                                  params, DT)
+    assert up > 0 and down > 0, (up, down)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for i in range(steps):
+        top = table[i:i + width].contiguous()
+        held = torch.ones(carry[0].shape[1], dtype=torch.bool, device=cuda)
+        if stepper == "heun" and dtype == torch.float64:
+            held = ~_heun_stage_at_saturation(carry, top, coords, params)
+        before = wrapper.launches
+        got = wrapper(*carry, top, *coords, params, DT)
+        assert wrapper.launches == before + 1
+        carry = fs.soil_column_rollout_plain(*carry, top, *coords, params, DT, stepper=stepper)
+        for a, b in zip(got, carry):
+            assert bool(torch.isfinite(a).all())
+            torch.testing.assert_close(a[..., held], b[..., held], rtol=tol,
+                                       atol=tol * float(b.abs().max()), msg=f"step {i + 1}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nz", [10, 40])
+def test_group_kernel_built_on_demand_matches_plain(cuda, nz, dtype):
+    """Depths no prebuilt group instantiation holds (10: 4 lanes of three
+    levels; 40: 32 lanes of two), built at their first launch, ForwardEuler
+    and Heun over 48 steps of the bench state against the plain version:
+    1e-12 at float64, 1e-4 of each field's largest magnitude at float32."""
+    from terrarium_tpu_torch.ops import cuda_build
+
+    assert all(n != nz for _, _, n in cuda_build.INSTANTIATIONS["soil_column_group_rollout"])
+    sim = _sim(300, nz, dtype, cuda)
+    carry, table, coords, params = _operands(sim, 49)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    _close(fs.soil_column_rollout(*carry, table[:48], *coords, params, DT),
+           fs.soil_column_rollout_plain(*carry, table[:48], *coords, params, DT), tol)
+    _close(fs.soil_column_heun_rollout(*carry, table, *coords, params, DT),
+           fs.soil_column_rollout_plain(*carry, table, *coords, params, DT, stepper="heun"),
+           tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stepper", ["euler", "heun"])
+def test_simulation_run_launches_the_group_kernel_once_a_block(cuda, stepper):
+    """A ``Simulation.run`` block of the bench composition (ForwardEuler,
+    or Heun over an hourly series) is one launch of the group kernel; the
+    state is finite and the saturation within [0, 1]."""
+    if stepper == "euler":
+        sim = _sim(500, 30, torch.float32, cuda)
+    else:
+        hours = np.arange(0.0, 25 * 3600.0, 3600.0)
+        series = torch.as_tensor(5.0 * np.sin(2 * np.pi * hours / 86400.0)[:, None]
+                                 + np.zeros((1, 500)), dtype=torch.float32, device=cuda)
+        sim = _sim(500, 30, torch.float32, cuda)
+        sim = tp.initialize(sim.model, tp.Heun(dt=DT),
+                            initializers={"temperature": 1.0, "saturation_water_ice": lambda x, z:
+                                          np.minimum(1.0, 0.5 - 0.05 * z)},
+                            boundary_conditions=tp.PrescribedSurfaceTemperature(
+                                "surface_temperature"),
+                            input_sources=(tp.TimeSeriesInputSource(
+                                times=hours,
+                                series={"surface_temperature": series.contiguous()}),))
+    wrapper = fs.ROLLOUTS[(stepper, "richards")]
+    for block in range(2):
+        before = wrapper.launches
+        sim.run(steps=720)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, block
+    sat = sim.state.saturation_water_ice
+    assert bool(torch.isfinite(sim.state.internal_energy).all())
+    assert float(sat.min()) >= 0.0 and float(sat.max()) <= 1.0
+    assert sim.iteration == 1440
 
 
 # ---------------------------------------------------------------------------
