@@ -1,10 +1,9 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
 Builds the port's CUDA kernels from ``terrarium_tpu_torch/csrc`` (the soil
-column rollouts: ForwardEuler and Heun over heat + Richards on groups of
-lanes; one thread a column, ImplicitEuler with Thomas or PCR solves and
-any number of Picard iterations over heat + Richards, and the heat-only
-steppers;
+column rollouts: ForwardEuler, Heun and ImplicitEuler (Thomas or PCR, any
+number of Picard iterations) over heat + Richards on groups of lanes; one
+thread a column, the heat-only steppers;
 the segment VJP of each of these, the land rollout and its VJP, each with
 the Picard iterations, and the soil's and the land's full steps, every
 stepper; one ``nvcc`` per instantiation,
@@ -12,13 +11,14 @@ in parallel: the rollout source's prebuilt set first, then the others in a
 background thread while the forward phases run, beside the two
 instantiations of ``on_demand`` that no prebuilt set holds, each built
 alone at its first use) and drives the port's paths, each with the kernel
-launch counts set to 0 just before it and read just after. Rows 1 and 1'a
-(the group rollout of ForwardEuler and of Heun) are also described in
-``group_check`` lines: the group size, registers, spill stores, resident
-warps an SM, SASS instructions, the saturation sweeps' hand-offs between
-lanes on the compared operands, the bound with each operation weighted by
-its measured cost, and the row at float64 on 1,024 columns against the
-plain version at 1e-12:
+launch counts set to 0 just before it and read just after. Rows 1, 1'a,
+1'c and 1'j (the group rollout of ForwardEuler, of Heun, and of
+ImplicitEuler with one and two Picard iterations, each solver) are also
+described in ``group_check`` lines: the group size, registers, spill
+stores, resident warps an SM, SASS instructions, the saturation sweeps'
+hand-offs between lanes on the compared operands, the bound with each
+operation weighted by its measured cost, and (rows 1 and 1'a) the row at
+float64 on 1,024 columns against the plain version at 1e-12:
 
 * ``on_demand``: `examples/soil_heat_column.py`'s composition (BASELINE
   config #1: the heat-only SoilModel, one column, Nz 10, float32,
@@ -473,6 +473,39 @@ def picard_ops(solver, nz, iters):
     """Operations of one heat + Richards implicit step of one column with
     ``iters`` Picard iterations."""
     return iters * implicit_ops(solver, nz) + (iters - 1) * (6 * nz - 3)
+
+
+def implicit_fma_issues(solver, nz, iters, cparams):
+    """picard_ops with row 4's weights (FWD_WEIGHTS): FMA issues of one heat
+    + Richards implicit step of one column with ``iters`` Picard
+    iterations. Per level and iteration closure_rhs' divisions, powf and
+    roots (FWD_WEIGHTS' counts), dT/dU's reciprocal, and soil::water_chain's
+    two quotients and its three fixed powers as ``cparams``' codes take them
+    (``_CParams``: den 0 a powf, 2 or 3 a root, a negative exponent a
+    reciprocal); per interior face the rows' four quotients a system, the
+    Dirichlet top's one; a solve's divisions (Thomas two a row; PCR two a
+    row and round where both neighbours lie in the column, one where one
+    does, then d / b); each further iteration's two (u_k - u^n) / dt a
+    level. The other operations one issue each."""
+    codes = [(getattr(cparams, f"num_id_{n}"), getattr(cparams, f"den_id_{n}"))
+             for n in ("core", "a", "b")]
+    chain_div = 2 + sum(1 for num, den in codes if den != 0 and num < 0)
+    chain_powf = sum(1 for _, den in codes if den == 0)
+    chain_root = sum(1 for _, den in codes if den in (2, 3))
+    if solver == "thomas":
+        solve_div = 2 * nz
+    else:
+        s, solve_div = 1, nz
+        while s < nz:
+            solve_div += 2 * (nz - s)
+            s *= 2
+    div = iters * ((FWD_WEIGHTS["division"][0] + 1 + chain_div) * nz + 8 * (nz - 1) + 1
+                   + 2 * solve_div) + (iters - 1) * 2 * nz
+    powf = iters * (FWD_WEIGHTS["powf"][0] + chain_powf) * nz
+    root = iters * (FWD_WEIGHTS["root"][0] + chain_root) * nz
+    weights = {"division": (div, FWD_WEIGHTS["division"][1]),
+               "powf": (powf, FWD_WEIGHTS["powf"][1]), "root": (root, FWD_WEIGHTS["root"][1])}
+    return picard_ops(solver, nz, iters) + sum(n * (w - 1.0) for n, w in weights.values())
 
 
 def scheme_vjp_ops(name, nz):
@@ -1494,6 +1527,22 @@ def new_forward_phase(tp, fs, cuda_build, name, reset_counts, launched, card):
             nbytes = 2 * (2 * nz + 1) * cells * 4 + COMPARE_STEPS * 4
         b = bound_ms(ops * cells * COMPARE_STEPS, nbytes)
         del out_k
+        tags = fs.kernel_tags("heun" if kind == "heat_heun" else "implicit",
+                              "heat" if heat else "richards",
+                              PICARD_ITERS if kind == "picard" else 1,
+                              plain_euler=(), solver=solver or "pcr")
+        source = GROUP_SOURCE if kind == "picard" else "soil_column_rollout"
+        entry = cuda_build._entry_name(source, tags, dtype, nz)
+        ptxas = ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {})
+        group = None
+        if kind == "picard":  # row 1'j on the group kernel
+            group = group_row(fs, cuda_build, "implicit", (carry, top(0, COMPARE_STEPS), coords,
+                                                           params), dt, {source: {entry: ptxas}},
+                              implicit_fma_issues(solver, nz, PICARD_ITERS,
+                                                  fs._CParams.of(params)) / nz,
+                              solver=solver, picard_iters=PICARD_ITERS)
+            phase("group_check", row="1'j", solver=solver, picard_iters=PICARD_ITERS,
+                  cells=cells, nz=nz, steps=COMPARE_STEPS, **group, card=card)
         # the run block: one warm-up run, then one timed block
         block = {"heat_heun": HEAT_HEUN_BLOCK_STEPS, "heat_implicit": HEAT_IMPLICIT_BLOCK_STEPS,
                  "picard": PICARD_BLOCK_STEPS}[kind]
@@ -1522,12 +1571,6 @@ def new_forward_phase(tp, fs, cuda_build, name, reset_counts, launched, card):
             raise AssertionError(f"{name}: saturation left [0, 1]")
         if sim.iteration != COMPARE_STEPS + block:
             raise AssertionError(f"{name}: clock iteration {sim.iteration}")
-        tags = fs.kernel_tags("heun" if kind == "heat_heun" else "implicit",
-                              "heat" if heat else "richards",
-                              PICARD_ITERS if kind == "picard" else 1,
-                              plain_euler=(), solver=solver or "pcr")
-        entry = cuda_build._entry_name("soil_column_rollout", tags, dtype, nz)
-        ptxas = ptxas_summary(cuda_build.ptxas_report("soil_column_rollout")).get(entry, {})
         phase(name, cells=cells, nz=nz, dt=dt, steps=block, solver=solver,
               picard_iters=PICARD_ITERS if kind == "picard" else 1, seconds=run_s,
               launches=launches, cells_steps_per_s=cells * block / run_s,
@@ -1541,7 +1584,8 @@ def new_forward_phase(tp, fs, cuda_build, name, reset_counts, launched, card):
               ptxas=ptxas, entry=entry, card=card)
         return dict(wrapper=wrapper.__name__, launches=launches[wrapper.__name__],
                     max_abs_err=max(errs[0].values()), ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
-                    bound_by=b[1], entry=entry, kind=kind, solver=solver)
+                    bound_by=b[1], entry=entry, kind=kind, solver=solver, source=source,
+                    group=group)
 
 
 def series_operands(fs, sim, steps):
@@ -1614,9 +1658,10 @@ def ptxas_summary(report: str) -> dict:
     report, whose part of each instantiation is headed ``== <entry point>``
     and ``cpu_s <seconds>`` (its nvcc's CPU time, where the build recorded
     it); a rollout entry (the group rollout's too: <T, NZ, G, STEPPER,
-    SERIES>) holds a table and a series kernel, the VJP's its
-    kernel and the reduction, the land and full-step entries their one
-    kernel."""
+    SOLVER, SERIES>) holds a table and a series kernel, the group rollout's
+    ImplicitEuler entries one of each a solver, keyed ``"table_pcr"``,
+    ``"series_thomas"``, ..., the VJP's its kernel and the reduction, the
+    land and full-step entries their one kernel."""
     out, entry, key = {}, None, None
     for ln in report.splitlines():
         if ln.startswith("== "):
@@ -1629,15 +1674,17 @@ def ptxas_summary(report: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m and entry:
             name = m.group(1)
-            # <T, NZ, G, STEPPER, SERIES> (the group rollout); <T, NZ,
-            # STEPPER, SOLVER, HEAT, PICARD, SERIES>; before the Picard
-            # entries, <T, NZ, STEPPER, SOLVER, HEAT, SERIES>
-            flags = (re.search(r"group_rollout_kernelI[fd]Li\d+ELi\d+ELi\d+ELb([01])E", name)
-                     or re.search(
-                         r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+E(?:Lb[01]E){1,2}Lb([01])E",
-                         name))
+            # <T, NZ, G, STEPPER, SOLVER, SERIES> (the group rollout);
+            # <T, NZ, STEPPER, SOLVER, HEAT, PICARD, SERIES>; before the
+            # Picard entries, <T, NZ, STEPPER, SOLVER, HEAT, SERIES>
+            group = re.search(r"group_rollout_kernelI[fd]Li\d+ELi\d+ELi(\d)ELi(\d)ELb([01])E",
+                              name)
+            flags = group or re.search(
+                r"rollout_kernelI[fd]Li\d+ELi\d+ELi\d+E(?:Lb[01]E){1,2}Lb([01])E", name)
             if flags:
-                key = "series" if flags.group(1) == "1" else "table"
+                key = "series" if flags.group(flags.lastindex) == "1" else "table"
+                if group and group.group(1) == "2":
+                    key += "_" + ("pcr" if group.group(2) == "1" else "thomas")
             elif "land_column_rollout_kernel" in name:
                 key = "land"
             elif "full_step_kernel" in name:
@@ -1654,66 +1701,89 @@ def ptxas_summary(report: str) -> dict:
     return out
 
 
-def sass_instructions(cuda_build, source, entry, series):
+@functools.lru_cache(maxsize=None)
+def sass_counts(cuobjdump: str, lib: str) -> tuple:
+    """``((function, SASS instructions, NOPs aside), ...)`` of a library, in
+    ``cuobjdump -sass``'s order; read once a run, since every group_check
+    line asks the same prebuilt library."""
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = []
+    for ln in text.splitlines():
+        f = re.match(r"\s*Function : (\S+)", ln)
+        if f:
+            out.append([f.group(1), 0])
+        elif out and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln) and " NOP" not in ln:
+            out[-1][1] += 1
+    return tuple((name, n) for name, n in out)
+
+
+def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
     """The SASS instructions, NOPs aside, of the table or (``series``) the
-    series kernel of a rollout ``entry`` of ``source``, from ``cuobjdump
-    -sass`` of the library that holds it (the prebuilt one, or the entry's
-    own where it was built alone)."""
+    series kernel of a rollout ``entry`` of ``source`` (a group rollout's
+    ImplicitEuler entry: its kernel of ``solver``), from ``cuobjdump -sass``
+    of the library that holds it (the prebuilt one, or the entry's own where
+    it was built alone)."""
     stem = cuda_build._stem(source)
     lib = cuda_build._BUILD_DIR / f"{stem}-{entry}.so"
     if not lib.exists():
         lib = cuda_build._BUILD_DIR / f"{stem}.so"
     cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
     # the entry's kernel, by its mangled template arguments: the group
-    # rollout's <T, NZ, G, STEPPER, SERIES>, the one-thread rollout's <T, NZ,
-    # STEPPER, SOLVER, HEAT, PICARD, SERIES>; the element type and the depth
-    # from the entry's name
+    # rollout's <T, NZ, G, STEPPER, SOLVER, SERIES> (SOLVER 1 for the
+    # explicit steppers), the one-thread rollout's <T, NZ, STEPPER, SOLVER,
+    # HEAT, PICARD, SERIES>; the element type and the depth from the entry's
+    # name
     m = re.search(r"_(f32|f64)_nz(\d+)$", entry)
     t, nz = {"f32": "f", "f64": "d"}[m.group(1)], m.group(2)
-    stepper = {"euler": 0, "heun": 1}[next(k for k in ("euler", "heun") if f"_{k}_" in entry)]
+    stepper = {"euler": 0, "heun": 1, "implicit": 2}[
+        next(k for k in ("euler", "heun", "implicit") if f"_{k}_" in entry)]
+    code = {"thomas": 0, "pcr": 1}[solver] if stepper == 2 else 1
     if source == GROUP_SOURCE:
-        want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELb{int(series)}EE")
+        want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}E"
+                          rf"Lb{int(series)}EE")
     else:
         want = re.compile(rf"soil_column_rollout_kernelI{t}Li{nz}ELi{stepper}ELi\d+E"
                           rf"(?:Lb[01]E)*Lb{int(series)}EE")
-    count, inside = 0, False
-    for ln in text.splitlines():
-        f = re.match(r"\s*Function : (\S+)", ln)
-        if f:
-            inside = bool(want.search(f.group(1)))
-            continue
-        if inside and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln) and " NOP" not in ln:
-            count += 1
-    return count
+    # the first such kernel: a library of several entries may hold the same
+    # instantiation twice (a group ImplicitEuler entry and the Picard one)
+    return next((n for name, n in sass_counts(str(cuobjdump), str(lib)) if want.search(name)),
+                0)
 
 
 GROUP_F64_CELLS = 1024
 
 
-def group_row(fs, cuda_build, stepper, operands, dt, ptxas_all, fma_per_level_step):
+def group_row(fs, cuda_build, stepper, operands, dt, ptxas_all, fma_per_level_step,
+              solver="pcr", picard_iters=1):
     """What the kernel line reports of the group rollout of ``stepper``
-    (heat + Richards; ForwardEuler reads a table, Heun a series) at the
-    shape of ``operands``: its group size G and levels a lane, ptxas's
-    registers and spill stores, resident warps an SM, SASS instructions,
-    the saturation sweeps' serial hand-offs in one launch of its wrapper on
-    ``operands`` (up, down, and their sum per column and step) and the
-    bound with each operation weighted by its cost (``fma_per_level_step``
-    FMA issues a level and step at H100_FMA_ISSUES)."""
+    (heat + Richards; ForwardEuler and ImplicitEuler, with ``solver`` and
+    ``picard_iters``, read a table, Heun a series) at the shape of
+    ``operands``: its group size G and levels a lane, ptxas's registers and
+    spill stores, resident warps an SM, SASS instructions, the saturation
+    sweeps' serial hand-offs in one launch of its wrapper on ``operands``
+    (up, down, and their sum per column and step) and the bound with each
+    operation weighted by its cost (``fma_per_level_step`` FMA issues a
+    level and step at H100_FMA_ISSUES)."""
     carry, top, coords, params = operands
     series = isinstance(top, fs.SeriesBC)
     dtype, (nz, cells) = carry[0].dtype, carry[0].shape
     steps = top.steps if series else top.shape[0] - (1 if stepper == "heun" else 0)
-    entry = cuda_build._entry_name(GROUP_SOURCE, (stepper, "richards"), dtype, nz)
-    ptxas = ptxas_all[GROUP_SOURCE][entry]["series" if series else "table"]
-    warps, group = fs.group_occupancy(stepper, dtype, nz, series)
-    _, (up, down) = fs.soil_column_group_handoffs(stepper, *carry, top, *coords, params, dt)
+    tags = fs.kernel_tags(stepper, "richards", picard_iters, plain_euler=(), solver=solver)
+    entry = cuda_build._entry_name(GROUP_SOURCE, tags, dtype, nz)
+    kind = "series" if series else "table"
+    ptxas = ptxas_all[GROUP_SOURCE][entry][kind + (f"_{solver}" if stepper == "implicit"
+                                                    else "")]
+    warps, group = fs.group_occupancy(stepper, dtype, nz, series, solver=solver,
+                                      picard_iters=picard_iters)
+    _, (up, down) = fs.soil_column_group_handoffs(stepper, *carry, top, *coords, params, dt,
+                                                  solver=solver, picard_iters=picard_iters)
     return {"group": group, "levels_a_lane": -(-nz // group),
             "registers": int(ptxas.split()[0]),
             "spill_stores": int(ptxas.split(",")[1].split()[0]),
             "resident_warps_per_sm": warps,
-            "sass_instructions": sass_instructions(cuda_build, GROUP_SOURCE, entry, series),
+            "sass_instructions": sass_instructions(cuda_build, GROUP_SOURCE, entry, series,
+                                                   solver),
             "handoffs_up": up, "handoffs_down": down,
             "handoffs_per_column_step": (up + down) / (cells * steps),
             "bound_weighted_ms": fma_per_level_step * nz * cells * steps / H100_FMA_ISSUES * 1e3}
@@ -3566,6 +3636,14 @@ def main():
             *carry, table, *coords, params, IMPLICIT_DT, stepper="implicit", solver=solver))
         b = bound_ms(implicit_ops(solver, BENCH_NZ) * BENCH_CELLS * COMPARE_STEPS,
                      2 * (2 * BENCH_NZ + 1) * BENCH_CELLS * 4 + COMPARE_STEPS * 4)
+        # ---- the group kernel of row 1'c: its layout and resources, its
+        # sweeps' hand-offs on these operands, the weighted bound
+        row1c = group_row(fs, cuda_build, "implicit", (carry, table, coords, params),
+                          IMPLICIT_DT, ptxas_all, implicit_fma_issues(
+                              solver, BENCH_NZ, 1, fs._CParams.of(params)) / BENCH_NZ,
+                          solver=solver)
+        phase("group_check", row="1'c", solver=solver, cells=BENCH_CELLS, nz=BENCH_NZ,
+              steps=COMPARE_STEPS, **row1c, card=card)
         del carry, table, out_k, out_p
         sim.run(steps=COMPARE_STEPS)
         torch.cuda.synchronize()
@@ -3592,7 +3670,8 @@ def main():
         imp[solver] = dict(max_abs_err=cmp_, water_identity_rel_err=ident, kernel_ms=k_ms,
                            plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], seconds=run_s,
                            launches=launches,
-                           cells_steps_per_s=BENCH_CELLS * IMPLICIT_BLOCK_STEPS / run_s)
+                           cells_steps_per_s=BENCH_CELLS * IMPLICIT_BLOCK_STEPS / run_s,
+                           group=row1c)
         phase("implicit_compare", solver=solver, steps=COMPARE_STEPS, rel_tol=F32_REL_TOL,
               water_tol=IMPLICIT_F32_WATER_TOL, max_abs_err=cmp_, water_identity_rel_err=ident,
               kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1], card=card)
@@ -4451,20 +4530,20 @@ def main():
         "bound_by": heat_b[1], "library_ms": None,
         "shape": f"{HEAT_CELLS} x {BENCH_NZ} f32, heat only, series, {COMPARE_STEPS} steps"}, {
         "name": "soil_column_implicit_rollout", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "source": "terrarium_tpu_torch/csrc/soil_column_group_rollout.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283 with terrarium_tpu/timesteppers/"
                     "implicit.py:173 (tridiag.py:109 PCR, :30 Thomas)",
         "launches": imp["pcr"]["launches"], "max_abs_err": max(imp["pcr"]["max_abs_err"].values()),
         "ms": imp["pcr"]["kernel_ms"], "plain_ms": imp["pcr"]["plain_ms"],
         "bound_ms": imp["pcr"]["bound_ms"], "bound_by": imp["pcr"]["bound_by"],
-        "library_ms": None,
+        "library_ms": None, **imp["pcr"]["group"],
         "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, ImplicitEuler dt {IMPLICIT_DT:g}, PCR, "
                  f"{COMPARE_STEPS} steps",
         "thomas": {k: imp["thomas"][k] for k in ("launches", "kernel_ms", "plain_ms",
-                                                  "bound_ms", "bound_by")}
+                                                  "bound_ms", "bound_by", "group")}
         | {"max_abs_err": max(imp["thomas"]["max_abs_err"].values())}}, *({
         "name": f"{v['wrapper']}[{name}]", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/soil_column_rollout.cu",
+        "source": f"terrarium_tpu_torch/csrc/{v['source']}.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283 with " + {
             "heat_heun": "Heun (terrarium_tpu/timesteppers/stepping.py:167) over the heat-only "
                          "model" + series_at,
@@ -4475,7 +4554,7 @@ def main():
             v["kind"]],
         "launches": v["launches"], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
         "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-        "library_ms": None,
+        "library_ms": None, **(v["group"] or {}),
         "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, {COMPARE_STEPS} steps, {v['entry']}"}
         for name, v in new_fwd.items()), {
         "name": "soil_column_segment_vjp", "route": "cuda",
@@ -4647,6 +4726,11 @@ def euler_digest(root: pathlib.Path):
         digests[f"implicit_{solver}_f32_nz30"] = digest(fs.soil_column_implicit_rollout(
             *carry, table, *coords, fs.ColumnParams.of(sim.model, g.dtype), IMPLICIT_DT,
             solver=solver))
+        digests[f"picard{PICARD_ITERS}_{solver}_f32_nz30"] = digest(
+            fs.soil_column_implicit_rollout(*carry, table, *coords,
+                                            fs.ColumnParams.of(sim.model, g.dtype),
+                                            IMPLICIT_DT, solver=solver,
+                                            picard_iters=PICARD_ITERS))
         del sim, carry, table
     gsim = grad_sim(tp, GRAD_CELLS, torch.float32)
     ops = vjp_operands(tp, fs, gsim, seed=11)

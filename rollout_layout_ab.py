@@ -1,25 +1,35 @@
 """The soil rollout's two layouts on one CUDA card: ForwardEuler and Heun over
-heat + Richards (PERF.md's kernel rows 1 and 1'a), one thread a column
-(``csrc/soil_column_rollout.cu``, the layout the wrappers launched before
-the group kernel, built at its first launch from that unchanged source)
+heat + Richards (PERF.md's kernel rows 1 and 1'a) and ImplicitEuler with one
+and two Picard iterations, each solver (rows 1'c and 1'j), one thread a
+column (``csrc/soil_column_rollout.cu``, the layout the wrappers launched
+before the group kernel, built at its first launch from that source)
 against a column on a group of lanes (``csrc/soil_column_group_rollout.cu``,
-which ``soil_column_rollout`` and ``soil_column_heun_rollout`` launch).
+which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
+``soil_column_implicit_rollout`` launch).
 
     python3 rollout_layout_ab.py check
     python3 rollout_layout_ab.py time
+    python3 rollout_layout_ab.py implicit_check
+    python3 rollout_layout_ab.py implicit_time
 
 ``check`` builds both, prints each kernel's registers and spill stores
 (ptxas), SASS instructions (``cuobjdump -sass``) and resident warps an SM,
 holds both to the plain version (float64 at 1e-12 on 1,024 columns and the
-goldens, float32 at full width by ``chip_smoke.F32_REL_TOL``), counts the
-group kernel's sweep hand-offs on the main-path operands, and times
-nothing. ``time`` times both in turns (one thread, group, group, one
-thread; CUDA events, the median of each turn's launches) at the main-path
-shapes: row 1 at 56,951 x 30 float32 over 144 steps (a table) and at 56,951
-x 20 over a 48-step gradient segment, row 1'a at 56,951 x 30 over 144 Heun
-steps (an hourly series); then the group kernel at each group size G 4, 8,
-16 and 32 at Nz 20 and 15. Every line is one JSON object; the first is the
-card's name and power limit. Run from the repository root.
+goldens, float32 at full width by ``chip_smoke.F32_REL_TOL``; rows 1'c and
+1'j: float64 on 1,024 columns at Nz 16 one step at a time along the plain
+trajectory, ``chip_smoke.soil_teacher``, float32 at full width with its
+float64 referee), counts the group kernel's sweep hand-offs on the
+main-path operands, and times nothing. ``time`` times both in turns (one
+thread, group, group, one thread; CUDA events, the median of each turn's
+launches) at the main-path shapes: row 1 at 56,951 x 30 float32 over 144
+steps (a table) and at 56,951 x 20 over a 48-step gradient segment, row 1'a
+at 56,951 x 30 over 144 Heun steps (an hourly series), rows 1'c and 1'j at
+56,951 x 30 over 144 ImplicitEuler steps of 900 s (a table), each solver;
+then the group kernel at each group size G 4, 8, 16 and 32: ForwardEuler at
+Nz 20 and 15, ImplicitEuler (one iteration, each solver) at Nz 30. Every
+line is one JSON object; the first is the card's name and power limit.
+``implicit_check`` and ``implicit_time`` run the ImplicitEuler parts alone.
+Run from the repository root.
 """
 from __future__ import annotations
 
@@ -35,32 +45,42 @@ import chip_smoke as cs
 
 TURN_REPS = 5
 GROUP_SIZES = (4, 8, 16, 32)
+#: rows 1'c and 1'j: (solver, Picard iterations)
+IMPLICIT_ROWS = {f"{row}_{solver}": (solver, iters) for row, iters in (("1'c", 1), ("1'j", 2))
+                 for solver in cs.SOLVERS}
+IMPLICIT_F64_NZ, IMPLICIT_F64_CELLS, IMPLICIT_F64_STEPS = 16, 1024, 48
 
 
 def out(**fields):
     print(json.dumps(fields), flush=True)
 
 
-def thread_entry(cuda_build, fs, stepper, dtype, nz):
+def tags_of(fs, stepper, solver="pcr", iters=1):
+    """The build tags of ``stepper`` over heat + Richards (ImplicitEuler:
+    with ``solver`` and ``iters`` Picard iterations)."""
+    return fs.kernel_tags(stepper, "richards", iters, plain_euler=(), solver=solver)
+
+
+def thread_entry(cuda_build, fs, stepper, dtype, nz, solver="pcr", iters=1):
     """The one-thread-a-column entry point of ``stepper`` over heat +
     Richards, built at its first use."""
     return cuda_build.entry("soil_column_rollout", dtype, nz, fs._ARGTYPES,
-                            tags=(stepper, "richards"))
+                            tags=tags_of(fs, stepper, solver, iters))
 
 
-def group_entry(cuda_build, fs, stepper, dtype, nz, group=None):
+def group_entry(cuda_build, fs, stepper, dtype, nz, group=None, solver="pcr", iters=1):
     """The group entry point; ``group``: a group size other than the depth's."""
-    tags = (stepper, "richards") + ((f"g{group}",) if group else ())
+    tags = tags_of(fs, stepper, solver, iters) + ((f"g{group}",) if group else ())
     return cuda_build.entry("soil_column_group_rollout", dtype, nz, fs._GROUP_ARGTYPES,
                             tags=tags)
 
 
-def launcher(fs, fn, group, operands, dt):
+def launcher(fs, fn, group, operands, dt, solver="pcr", iters=1):
     """``() -> (U, sat, S)``: one launch of ``fn`` on ``operands`` (the
     Heun row's top temperature is a series, the others' a table)."""
     carry, top, coords, params = operands
     steps = top.steps if isinstance(top, fs.SeriesBC) else top.shape[0]
-    tail = (0,) if group else (fs.SOLVER_CODES["pcr"], 1)
+    tail = (fs.SOLVER_CODES[solver], iters) + ((0,) if group else ())
     return lambda: fs.launch_entry(fn, tail, False, *carry, top, coords, params, dt, steps)
 
 
@@ -78,6 +98,9 @@ def operands(tp, fs, row, dtype=torch.float32, cells=cs.BENCH_CELLS, nz=cs.BENCH
         return cs.series_operands(fs, sim, cs.COMPARE_STEPS), cs.BENCH_DT
     if row == "segment":
         sim, steps, dt = cs.grad_sim(tp, cells, dtype), cs.GRAD_INNER, cs.GRAD_DT
+    elif row == "implicit":
+        sim = cs.implicit_sim(tp, "pcr", cells=cells, dtype=dtype, nz=nz)
+        steps, dt = cs.COMPARE_STEPS, cs.IMPLICIT_DT
     else:
         sim = (cs.bench_sim(tp, cells, dtype) if nz == cs.BENCH_NZ
                else sized_bench_sim(tp, cells, nz, dtype))
@@ -113,14 +136,85 @@ def thread_warps(registers: int, threads: int = 64) -> int:
     return blocks * warps_per_block
 
 
-def kernel_stats(cuda_build, fs, source, entry, kind):
+def kernel_stats(cuda_build, fs, source, entry, kind, solver="pcr"):
     """ptxas's registers and spill stores and the SASS instructions of the
-    ``kind`` ("table" or "series") kernel of ``entry`` of ``source``."""
-    ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(kind, "")
+    ``kind`` ("table" or "series") kernel of ``entry`` of ``source`` (a
+    group ImplicitEuler entry: its kernel of ``solver``)."""
+    key = kind + (f"_{solver}" if source == cs.GROUP_SOURCE and "_implicit_" in entry else "")
+    ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(key, "")
     regs = int(ptxas.split()[0]) if ptxas else None
     spills = int(ptxas.split(",")[1].split()[0]) if "," in ptxas else None
-    sass = cs.sass_instructions(cuda_build, source, entry, kind == "series")
+    sass = cs.sass_instructions(cuda_build, source, entry, kind == "series", solver)
     return {"ptxas": ptxas, "registers": regs, "spill_stores": spills, "sass": sass}
+
+
+def implicit_stats(cuda_build, fs, solver, iters, dtype, nz):
+    """Both layouts' build description of row 1'c or 1'j (``iters``)."""
+    tags = tags_of(fs, "implicit", solver, iters)
+    thread_entry(cuda_build, fs, "implicit", dtype, nz, solver, iters)
+    group_entry(cuda_build, fs, "implicit", dtype, nz, solver=solver, iters=iters)
+    t = kernel_stats(cuda_build, fs, "soil_column_rollout",
+                     cuda_build._entry_name("soil_column_rollout", tags, dtype, nz), "table")
+    g = kernel_stats(cuda_build, fs, cs.GROUP_SOURCE,
+                     cuda_build._entry_name(cs.GROUP_SOURCE, tags, dtype, nz), "table", solver)
+    g["resident_warps"], g["group"] = fs.group_occupancy("implicit", dtype, nz, False,
+                                                         solver=solver, picard_iters=iters)
+    t["resident_warps"] = thread_warps(t["registers"]) if t["registers"] else None
+    return t, g
+
+
+def implicit_check(tp, fs, cuda_build, card):
+    """Rows 1'c and 1'j, each solver: both layouts' builds, float64 on
+    1,024 columns at Nz 16 and float32 at full width against the plain
+    version one step at a time along its trajectory (chip_smoke.soil_teacher,
+    float32 with the float64 referee), the group kernel's hand-offs on the
+    full-width operands."""
+    for name, (solver, iters) in IMPLICIT_ROWS.items():
+        for dtype, nz in ((torch.float32, cs.BENCH_NZ), (torch.float64, IMPLICIT_F64_NZ)):
+            t, g = implicit_stats(cuda_build, fs, solver, iters, dtype, nz)
+            out(check="build", row=name, solver=solver, picard_iters=iters, kernel="table",
+                dtype=str(dtype), nz=nz, one_thread=t, group=g, card=card)
+        errs = {}
+        for dtype, cells, nz, steps in (
+                (torch.float64, IMPLICIT_F64_CELLS, IMPLICIT_F64_NZ, IMPLICIT_F64_STEPS),
+                (torch.float32, cs.BENCH_CELLS, cs.BENCH_NZ, cs.COMPARE_STEPS)):
+            ops, dt = operands(tp, fs, "implicit", dtype, cells=cells, nz=nz)
+            (carry, table, coords, params) = ops
+            params64 = fs.ColumnParams.of(cs.implicit_sim(tp, solver, cells=1,
+                                                          dtype=torch.float64, nz=nz).model,
+                                          torch.float64)
+            coords64 = tuple(c.double() for c in coords)
+            pkw = dict(stepper="implicit", solver=solver, picard_iters=iters)
+
+            def plain(U, sat, S, top):
+                return fs.soil_column_rollout_plain(U, sat, S, top, *coords, params, dt, **pkw)
+
+            def referee(U, sat, S, top):
+                return fs.soil_column_rollout_plain(U.double(), sat.double(), S.double(),
+                                                    top.double(), *coords64, params64, dt,
+                                                    **pkw)
+            for layout, fn, group in (
+                    ("one_thread", thread_entry(cuda_build, fs, "implicit", dtype, nz, solver,
+                                                iters), False),
+                    ("group", group_entry(cuda_build, fs, "implicit", dtype, nz, solver=solver,
+                                          iters=iters), True)):
+                def kernel(U, sat, S, top, fn=fn, group=group):
+                    return launcher(fs, fn, group, ((U, sat, S), top, coords, params), dt,
+                                    solver, iters)()
+                errs[f"{layout}_{str(dtype)[6:]}"] = cs.soil_teacher(
+                    kernel, plain, carry, lambda i: table[i:i + 1], steps,
+                    referee=None if dtype == torch.float64 else referee)
+        _, handoffs = fs.soil_column_group_handoffs("implicit", *ops[0], ops[1], *ops[2],
+                                                    ops[3], dt, solver=solver,
+                                                    picard_iters=iters)
+        out(check="teacher", row=name, solver=solver, picard_iters=iters,
+            f64=[IMPLICIT_F64_CELLS, IMPLICIT_F64_NZ, IMPLICIT_F64_STEPS],
+            f32=[cs.BENCH_CELLS, cs.BENCH_NZ, cs.COMPARE_STEPS],
+            max_abs_err_over_magnitude_flips={k: [v[0], v[1], v[2]] for k, v in errs.items()},
+            handoffs_up_down=handoffs,
+            handoffs_per_column_step=[h / (cs.BENCH_CELLS * cs.COMPARE_STEPS)
+                                      for h in handoffs], card=card)
+        del ops
 
 
 def check(tp, fs, cuda_build, card):
@@ -183,9 +277,10 @@ def check(tp, fs, cuda_build, card):
             max_abs_err=errs, handoffs_up_down=handoffs,
             handoffs_per_column_step=[h / (cells * steps) for h in handoffs])
         del ops, ref
+    implicit_check(tp, fs, cuda_build, card)
 
 
-def turns(fs, fns, ops, dt):
+def turns(fs, fns, ops, dt, solver="pcr", iters=1):
     """``{name: [ms, ...]}``: each of ``fns`` (``{name: (fn, group)}``) timed
     in the turns a, b, b, a (every name in order, then in reverse), each
     turn the times of TURN_REPS launches after a warm-up."""
@@ -193,7 +288,7 @@ def turns(fs, fns, ops, dt):
     times = {n: [] for n in names}
     for n in names + names[::-1]:
         fn, group = fns[n]
-        times[n] += cs.cuda_ms_each(launcher(fs, fn, group, ops, dt), TURN_REPS)
+        times[n] += cs.cuda_ms_each(launcher(fs, fn, group, ops, dt, solver, iters), TURN_REPS)
     return times
 
 
@@ -232,6 +327,45 @@ def timing(tp, fs, cuda_build, card):
             max_abs_err=errs, kernels=stats, ms=t,
             median_ms={n: float(np.median(v)) for n, v in t.items()}, card=card)
         del ops, ref
+    implicit_timing(tp, fs, cuda_build, card)
+
+
+def implicit_timing(tp, fs, cuda_build, card):
+    """Rows 1'c and 1'j, each solver, both layouts in turns at 56,951 x 30
+    float32, 144 steps of 900 s; then ImplicitEuler (one iteration) at each
+    group size G, each solver, against the plain version at full width."""
+    ops, dt = operands(tp, fs, "implicit", cells=cs.BENCH_CELLS, nz=cs.BENCH_NZ)
+    f32 = torch.float32
+    for name, (solver, iters) in IMPLICIT_ROWS.items():
+        fns = {"one_thread": (thread_entry(cuda_build, fs, "implicit", f32, cs.BENCH_NZ, solver,
+                                           iters), False),
+               "group": (group_entry(cuda_build, fs, "implicit", f32, cs.BENCH_NZ,
+                                     solver=solver, iters=iters), True)}
+        t = turns(fs, fns, ops, dt, solver, iters)
+        _, g = implicit_stats(cuda_build, fs, solver, iters, f32, cs.BENCH_NZ)
+        out(time=name, solver=solver, picard_iters=iters, cells=cs.BENCH_CELLS,
+            nz=cs.BENCH_NZ, dt=dt, steps=ops[1].shape[0], ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, group=g, card=card)
+    for solver in cs.SOLVERS:
+        fns = {f"g{g}": (group_entry(cuda_build, fs, "implicit", f32, cs.BENCH_NZ, g,
+                                     solver=solver), True) for g in GROUP_SIZES}
+        ref = fs.soil_column_rollout_plain(*ops[0], ops[1], *ops[2], ops[3], dt,
+                                           stepper="implicit", solver=solver)
+        errs = {n: cs.check_close(f"implicit {solver} {n}",
+                                  launcher(fs, fn, True, ops, dt, solver)(), ref,
+                                  cs.F32_REL_TOL) for n, (fn, _) in fns.items()}
+        stats = {f"g{g}": kernel_stats(
+            cuda_build, fs, cs.GROUP_SOURCE,
+            f"soil_column_group_rollout_implicit_{solver}_richards_g{g}_f32_nz{cs.BENCH_NZ}",
+            "table", solver) for g in GROUP_SIZES}
+        t = turns(fs, fns, ops, dt, solver)
+        out(time="implicit_group_size", solver=solver, nz=cs.BENCH_NZ, cells=cs.BENCH_CELLS,
+            steps=ops[1].shape[0],
+            default_group=fs.group_occupancy("implicit", f32, cs.BENCH_NZ, False,
+                                             solver=solver)[1],
+            max_abs_err=errs, kernels=stats, ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, card=card)
+        del ref
 
 
 def main():
@@ -247,7 +381,8 @@ def main():
     from terrarium_tpu_torch.ops import cuda_build
     from terrarium_tpu_torch.ops import fused_step as fs
 
-    {"check": check, "time": timing}[mode](tp, fs, cuda_build, card)
+    {"check": check, "time": timing, "implicit_check": implicit_check,
+     "implicit_time": implicit_timing}[mode](tp, fs, cuda_build, card)
 
 
 if __name__ == "__main__":

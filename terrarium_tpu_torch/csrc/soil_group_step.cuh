@@ -1,5 +1,6 @@
-// One closure-rotated soil step (ForwardEuler or Heun, heat + Richards) of a
-// column spread over a group of G lanes.
+// One closure-rotated soil step (ForwardEuler, Heun or ImplicitEuler with
+// any number of Picard iterations, heat + Richards) of a column spread over
+// a group of G lanes.
 //
 // soil_step.cuh runs a column on one thread with its NZ levels unrolled in
 // registers. Here the column's levels are spread over G lanes (a power of
@@ -26,6 +27,16 @@
 // * Darcy flux: the head and the face conductivities below each level
 //   across lanes the same way; the upwind-min face K of face k reads the
 //   face K of faces k - 1, k and k + 1 (centre K of levels k - 2 ... k + 1).
+// * implicit rows (soil::diffusion_rows): row k reads the face terms and
+//   the chain factor of levels k - 1 and k + 1 across lanes the same way.
+// * PCR (soil::pcr): each round of stride s, row k reads rows k - s and
+//   k + s from its own registers or from the lane ceil(s / L) or
+//   floor(s / L) away, with soil::pcr_rounds' predicates and order, so the
+//   slots above NZ take no part; then x = d / b in each lane.
+// * Thomas (soil::thomas): the forward sweep hands (c', d') from lane to
+//   lane, lowest first, each lane running its L rows from what it
+//   receives; the back substitution hands x down the same way. One lane of
+//   a group works at a time, so Thomas favours few lanes of many levels.
 //
 // The group's exchange is a Lanes type: WarpLanes, one thread a lane and
 // the warp's shuffles and ballots (device), or HostLanes, the G lanes held
@@ -50,6 +61,22 @@ __host__ __device__
 #endif
 constexpr int group_lanes(int nz) { return nz > 20 ? 32 : 4; }
 
+// The group size of the implicit step (picard_step) for a column of nz
+// levels and its solver (SOLVER_THOMAS or SOLVER_PCR), measured at Nz 30
+// on an H100 80GB HBM3 at 700 W (rollout_layout_ab.py implicit_time,
+// PERF.md section 6): PCR as the explicit steps (group_lanes; G 32 32.87
+// ms per 144 steps, G 16 32.80, G 8 33.72, G 4 39.27), its rounds as
+// parallel as the rest of the step; Thomas, whose sweeps run one lane of a
+// group at a time, 8 lanes above 20 levels (G 8 25.15 ms, G 4 30.35, G 16
+// 33.15, G 32 53.19: fewer lanes wait less, more lanes spill less) and 4
+// at 20 and below, as group_lanes
+#if defined(__CUDACC__)
+__host__ __device__
+#endif
+constexpr int implicit_group_lanes(int nz, int solver) {
+    return solver == SOLVER_THOMAS ? (nz > 20 ? 8 : 4) : group_lanes(nz);
+}
+
 #if defined(__CUDACC__)
 // G consecutive lanes of a warp, one thread each; every thread of the warp
 // takes part in every exchange (full mask)
@@ -62,12 +89,14 @@ struct WarpLanes {
     int shift;     // the group's first lane within the warp
     __device__ WarpLanes() : id(threadIdx.x & (G - 1)), shift((threadIdx.x & 31) & ~(G - 1)) {}
     __device__ int lane(int) const { return id; }
-    // f(i): this lane's value; the value of lane id - 1 (own at lane 0)
+    // f(i): this lane's value; the value of lane id - d (own below lane d)
     template <class F>
-    __device__ auto up(int, F f) const { return __shfl_up_sync(FULL, f(0), 1, G); }
-    // the value of lane id + 1 (own at lane G - 1)
+    __device__ auto up(int, F f, int d = 1) const { return __shfl_up_sync(FULL, f(0), d, G); }
+    // the value of lane id + d (own above lane G - 1 - d)
     template <class F>
-    __device__ auto down(int, F f) const { return __shfl_down_sync(FULL, f(0), 1, G); }
+    __device__ auto down(int, F f, int d = 1) const {
+        return __shfl_down_sync(FULL, f(0), d, G);
+    }
     // the value of lane src
     template <class F>
     __device__ auto from(int src, F f) const { return __shfl_sync(FULL, f(0), src, G); }
@@ -93,9 +122,9 @@ struct HostLanes {
     static constexpr int N = G;
     int lane(int i) const { return i; }
     template <class F>
-    auto up(int i, F f) const { return f(i > 0 ? i - 1 : i); }
+    auto up(int i, F f, int d = 1) const { return f(i - d >= 0 ? i - d : i); }
     template <class F>
-    auto down(int i, F f) const { return f(i < G - 1 ? i + 1 : i); }
+    auto down(int i, F f, int d = 1) const { return f(i + d < G ? i + d : i); }
     template <class F>
     auto from(int src, F f) const { return f(src); }
     template <class F>
@@ -111,7 +140,7 @@ struct HostLanes {
 };
 
 // A column on a group: its coordinates in each lane's registers, the
-// closure and tendencies (rhs) and the two steps
+// closure and tendencies (rhs) and the three steps
 template <typename T, int NZ, int G, class Lanes>
 struct GroupColumn {
     static constexpr int L = (NZ + G - 1) / G;  // levels a lane
@@ -121,6 +150,7 @@ struct GroupColumn {
     const Consts<T>& c;
     const SoilColumnParams& P;
     T dz[N][L], dzf[N][L], zc[N][L], zf[N][L];  // of each lane's levels
+    T dzfa[N][L];                               // dzf of the face above each level
     T dzf_top, zf_top;                          // of the surface face
     unsigned up_handoffs = 0u, down_handoffs = 0u;
 
@@ -135,6 +165,7 @@ struct GroupColumn {
                 const int k = level(i, l) < NZ ? level(i, l) : NZ - 1;
                 dz[i][l] = dz_g[k];
                 dzf[i][l] = dzf_g[k];
+                dzfa[i][l] = dzf_g[k + 1];
                 zc[i][l] = zc_g[k];
                 zf[i][l] = zf_g[k];
             }
@@ -142,6 +173,19 @@ struct GroupColumn {
     }
 
     SOIL_FN int level(int i, int l) const { return lanes.lane(i) * L + l; }
+
+    // v of the level s above slot l of lane i's (s < 0: below), from this
+    // lane's registers or from the lane the level lies on (s and l are
+    // constants after unrolling); another lane's value is taken by every
+    // lane of the warp, and a level beyond the group reads this lane's own
+    SOIL_FN T at(int i, int l, int s, const T (&v)[N][L]) const {
+        const int m = l + s;
+        const int q = m >= 0 ? m / L : -((L - 1 - m) / L);  // floor(m / L)
+        const int r = m - q * L;
+        if (q == 0) return v[i][r];
+        if (q < 0) return lanes.up(i, [&](int j) { return v[j][r]; }, -q);
+        return lanes.down(i, [&](int j) { return v[j][r]; }, q);
+    }
 
     // the up sweep over lane i's levels from their saturations s0 and the
     // carry cc entering the lane; returns the carry leaving it
@@ -241,7 +285,10 @@ struct GroupColumn {
 
     // closure_rhs on the group: the closure of (U, sat, S) with top
     // temperature vtop (sat and S adjusted in place), each tendency to
-    // out.energy(i, l, f), out.water(i, l, f) and out.pool(f)
+    // out.energy(i, l, f), out.water(i, l, f) and out.pool(f); where
+    // Out::TERMS (the implicit sink), also each level's closure,
+    // out.level(i, l, U, Level), and the Darcy conductivity of the face
+    // below it, out.darcy_face(i, l, K_eff)
     template <class Out>
     SOIL_FN void rhs(const T (&U)[N][L], T (&sat)[N][L], T& S, const T vtop, Out& out) {
         T wt;
@@ -254,6 +301,7 @@ struct GroupColumn {
 #pragma unroll
             for (int l = 0; l < L; ++l) {
                 const Level<T, true> v(sat[i][l], U[i][l], c, P);
+                if constexpr (Out::TERMS) out.level(i, l, U[i][l], v);
                 Tk[i][l] = v.Tk;
                 kap[i][l] = v.kap;
                 Kc[i][l] = v.Kc;
@@ -325,6 +373,7 @@ struct GroupColumn {
                 const T K_hi = k == NZ - 1 ? Kc[i][l] : (l + 1 < L ? FK[i][l + 1] : FK_above);
                 const T K_k = FK[i][l];
                 const T K_eff = grad < T(0) ? vmin(K_lo, K_k) : vmin(K_k, K_hi);
+                if constexpr (Out::TERMS) out.darcy_face(i, l, K_eff);
                 qw[i][l] = -K_eff * grad;
             }
         }
@@ -354,6 +403,7 @@ struct GroupColumn {
 
     // ForwardEuler's update x + f * dt
     struct EulerUpdate {
+        static constexpr bool TERMS = false;
         T (&U)[N][L];
         T (&sat)[N][L];
         T& S;
@@ -365,6 +415,7 @@ struct GroupColumn {
 
     // the tendencies of Heun's first stage, kept (0 on the slots above NZ)
     struct Tendencies {
+        static constexpr bool TERMS = false;
         T U[N][L] = {}, sat[N][L] = {}, S = T(0);
         SOIL_FN void energy(int i, int l, T f) { U[i][l] = f; }
         SOIL_FN void water(int i, int l, T f) { sat[i][l] = f; }
@@ -373,6 +424,7 @@ struct GroupColumn {
 
     // Heun's corrector x + (0.5 * (f_n + f*)) * dt
     struct HeunUpdate {
+        static constexpr bool TERMS = false;
         T (&U)[N][L];
         T (&sat)[N][L];
         T& S;
@@ -411,29 +463,283 @@ struct GroupColumn {
         rhs(yU, ys, yS, v1, out);
     }
 
-    // soil::rollout_column of ForwardEuler (STEPPER_EULER) or Heun
-    // (STEPPER_HEUN): `steps` steps in place from clock time t, the top
+
+    // soil::ImplicitTerms on the group: the tendencies and, per lane slot,
+    // the centre thermal conductivity, dT/dU (0 on the freeze plateau, else
+    // 1/C) and the Darcy conductivity of the face below the level (0 on the
+    // slots above NZ)
+    struct ImplicitTerms : Tendencies {
+        static constexpr bool TERMS = true;
+        T kap[N][L] = {}, Dh[N][L] = {}, Keff[N][L] = {};
+        SOIL_FN void level(int i, int l, T Uk, const Level<T, true>& v) {
+            kap[i][l] = v.kap;
+            Dh[i][l] = (Uk >= v.negL && Uk < T(0)) ? T(0) : T(1) / v.C;
+        }
+        SOIL_FN void darcy_face(int i, int l, T K) { Keff[i][l] = K; }
+    };
+
+    // soil::diffusion_rows on the group: the rows (a, b, c) of face
+    // conductivities Kf (the face below each level; Kf_top the surface
+    // face's), chain factor D and scale s, the Dirichlet top's term on the
+    // lane of level NZ - 1 where `dirichlet`. The slots above NZ take the
+    // identity row (b = 1), whose right-hand side is 0.
+    SOIL_FN void rows(const T (&Kf)[N][L], const T Kf_top, const T (&D)[N][L], const T s,
+                      const T inv_dt, const bool dirichlet, T (&a)[N][L], T (&b)[N][L],
+                      T (&c)[N][L]) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T D_lo = at(i, l, -1, D), D_hi = at(i, l, 1, D);
+                const T Kf_up = at(i, l, 1, Kf);
+                const T Kf_hi = k == NZ - 1 ? Kf_top : Kf_up;
+                if (k >= NZ) {
+                    a[i][l] = T(0);
+                    b[i][l] = T(1);
+                    c[i][l] = T(0);
+                    continue;
+                }
+                const T sKlo = s * Kf[i][l], sKhi = s * Kf_hi;
+                const T lo = dzf[i][l] * dz[i][l], hi = dzfa[i][l] * dz[i][l];
+                a[i][l] = k == 0 ? T(0) : -((sKlo * D_lo) / lo);
+                c[i][l] = k == NZ - 1 ? T(0) : -((sKhi * D_hi) / hi);
+                const T diag_lo = k == 0 ? T(0) : (sKlo * D[i][l]) / lo;
+                const T diag_hi = k == NZ - 1 ? T(0) : (sKhi * D[i][l]) / hi;
+                b[i][l] = (inv_dt + diag_lo) + diag_hi;
+                if (dirichlet && k == NZ - 1)
+                    b[i][l] = b[i][l] + ((T(2) * s * Kf_hi) * D[i][l]) / (dzfa[i][l] * dz[i][l]);
+            }
+        }
+    }
+
+    // soil::pcr_rounds on the group: the round of stride S and those after
+    template <int S>
+    SOIL_FN void pcr_rounds(T (&a)[N][L], T (&b)[N][L], T (&c)[N][L], T (&d)[N][L]) const {
+        if constexpr (S < NZ) {
+            T an[N][L], bn[N][L], cn[N][L], dn[N][L];
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    const int k = level(i, l);
+                    const bool lo = k - S >= 0, hi = k + S < NZ;
+                    // rows k - S and k + S (every lane takes part in each exchange)
+                    const T a_l = at(i, l, -S, a), b_l = at(i, l, -S, b);
+                    const T c_l = at(i, l, -S, c), d_l = at(i, l, -S, d);
+                    const T a_h = at(i, l, S, a), b_h = at(i, l, S, b);
+                    const T c_h = at(i, l, S, c), d_h = at(i, l, S, d);
+                    const T alpha = lo ? -a[i][l] / b_l : -a[i][l];
+                    const T gamma = hi ? -c[i][l] / b_h : -c[i][l];
+                    T bk = b[i][l], dk = d[i][l];
+                    if (lo) { bk = bk + alpha * c_l; dk = dk + alpha * d_l; }
+                    if (hi) { bk = bk + gamma * a_h; dk = dk + gamma * d_h; }
+                    bn[i][l] = bk;
+                    dn[i][l] = dk;
+                    an[i][l] = lo ? alpha * a_l : T(0);
+                    cn[i][l] = hi ? gamma * c_h : T(0);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    a[i][l] = an[i][l];
+                    b[i][l] = bn[i][l];
+                    c[i][l] = cn[i][l];
+                    d[i][l] = dn[i][l];
+                }
+            }
+            pcr_rounds<2 * S>(a, b, c, d);
+        }
+    }
+
+    // soil::thomas on the group, d becoming x: lane j sweeps its rows
+    // forward from the (c', d') that lane j - 1 handed it, lanes 0 ... TOP
+    // in turn, then back from the x that lane j + 1 handed it, TOP ... 0
+    SOIL_FN void thomas(const T (&a)[N][L], const T (&b)[N][L], const T (&c)[N][L],
+                        T (&d)[N][L]) const {
+        T cp[N][L], c_in[N] = {}, d_in[N] = {}, c_out[N] = {}, d_out[N] = {};
+#pragma unroll
+        for (int j = 0; j <= TOP; ++j) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                if (lanes.lane(i) != j) continue;
+                T c_prev = c_in[i], d_prev = d_in[i];
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    const int k = level(i, l);
+                    if (k >= NZ) continue;
+                    const T a_k = k == 0 ? T(0) : a[i][l];
+                    const T denom = b[i][l] - a_k * c_prev;
+                    c_prev = c[i][l] / denom;
+                    d_prev = (d[i][l] - a_k * d_prev) / denom;
+                    cp[i][l] = c_prev;
+                    d[i][l] = d_prev;
+                }
+                c_out[i] = c_prev;
+                d_out[i] = d_prev;
+            }
+            if (j == TOP) break;
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                c_in[i] = lanes.up(i, [&](int m) { return c_out[m]; });
+                d_in[i] = lanes.up(i, [&](int m) { return d_out[m]; });
+            }
+        }
+        T x_in[N] = {}, x_out[N] = {};
+#pragma unroll
+        for (int j = TOP; j >= 0; --j) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                if (lanes.lane(i) != j) continue;
+                T x = x_in[i];
+#pragma unroll
+                for (int l = L - 1; l >= 0; --l) {
+                    if (level(i, l) >= NZ) continue;
+                    x = d[i][l] - cp[i][l] * x;
+                    d[i][l] = x;
+                }
+                x_out[i] = x;
+            }
+            if (j == 0) break;
+#pragma unroll
+            for (int i = 0; i < N; ++i) x_in[i] = lanes.down(i, [&](int m) { return x_out[m]; });
+        }
+    }
+
+    // soil::solve on the group: d becomes x; a, b and c are spent
+    template <int SOLVER>
+    SOIL_FN void solve(T (&a)[N][L], T (&b)[N][L], T (&c)[N][L], T (&d)[N][L]) const {
+        static_assert(SOLVER == SOLVER_PCR || SOLVER == SOLVER_THOMAS,
+                      "the group step is built for one solver");
+        if constexpr (SOLVER == SOLVER_PCR) {
+            pcr_rounds<1>(a, b, c, d);
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) d[i][l] = d[i][l] / b[i][l];
+            }
+        } else {
+            thomas(a, b, c, d);
+        }
+    }
+
+    // soil::implicit_solves on the group (heat + Richards, the Dirichlet
+    // top): the heat rows (the face kappa the arithmetic mean with the level
+    // below, zero-gradient ends; dT/dU; scale 1) and their solve, U += du;
+    // the Richards rows (the Darcy face K, d(Psi)/d(sat) at sat, scale
+    // 1/por) and their solve, sat += du; one set of rows live at a time
+    template <int SOLVER>
+    SOIL_FN void implicit_solves(ImplicitTerms& f, T (&U)[N][L], T (&sat)[N][L],
+                                 const T inv_dt) const {
+        T a[N][L], b[N][L], cc[N][L];
+        {
+            T Kf[N][L];
+            T Kf_top = T(0);
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    const int k = level(i, l);
+                    const T kap_lo = at(i, l, -1, f.kap);
+                    Kf[i][l] = T(0.5) * (f.kap[i][l] + (k == 0 ? f.kap[i][l] : kap_lo));
+                    if (k == NZ - 1) Kf_top = T(0.5) * (f.kap[i][l] + f.kap[i][l]);
+                }
+            }
+            rows(Kf, Kf_top, f.Dh, T(1), inv_dt, true, a, b, cc);
+        }
+        solve<SOLVER>(a, b, cc, f.U);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+                if (level(i, l) < NZ) U[i][l] = U[i][l] + f.U[i][l];
+        }
+        {
+            T D[N][L];
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) D[i][l] = water_chain<T>(sat[i][l], c, P);
+            }
+            rows(f.Keff, T(0), D, c.inv_por, inv_dt, false, a, b, cc);
+        }
+        solve<SOLVER>(a, b, cc, f.sat);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+                if (level(i, l) < NZ) sat[i][l] = sat[i][l] + f.sat[i][l];
+        }
+    }
+
+    // soil::picard_step (heat + Richards) on the group, operation for
+    // operation: iteration 0 closes the column in place, keeps the pool's
+    // spill and the closed start u^n; each further iteration closes the
+    // iterate into a copy of the pool and solves with the right-hand side
+    // tend(u_k) - (u_k - u^n) / dt; S takes iteration 0's min(0, S) dt.
+    // One body serves every iteration (not unrolled); u^n stays live
+    // across it.
+    template <int SOLVER>
+    SOIL_FN void picard_step(T (&U)[N][L], T (&sat)[N][L], T& S, const T vtop, const T dt,
+                             const T inv_dt, const int iters) {
+        T Un[N][L], sn[N][L];
+#pragma unroll 1
+        for (int it = 0; it < iters; ++it) {
+            ImplicitTerms f;
+            T Sk = S;
+            rhs(U, sat, Sk, vtop, f);
+            if (it == 0) {
+                S = Sk;
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) { Un[i][l] = U[i][l]; sn[i][l] = sat[i][l]; }
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        if (level(i, l) >= NZ) continue;
+                        f.U[i][l] = f.U[i][l] - (U[i][l] - Un[i][l]) / dt;
+                        f.sat[i][l] = f.sat[i][l] - (sat[i][l] - sn[i][l]) / dt;
+                    }
+                }
+            }
+            implicit_solves<SOLVER>(f, U, sat, inv_dt);
+            if (it == 0) S = S + f.S * dt;
+        }
+    }
+
+    // soil::rollout_column of ForwardEuler (STEPPER_EULER), Heun
+    // (STEPPER_HEUN) or ImplicitEuler (STEPPER_IMPLICIT: picard_step with
+    // SOLVER, `iters` Picard iterations and inv_dt, 1 / dt as the host
+    // rounds it): `steps` steps in place from clock time t, the top
     // temperature of clock time i top[i * step_stride] or, SERIES, the
     // series at `top` read at the clock time
-    template <int STEPPER, bool SERIES>
+    template <int STEPPER, bool SERIES, int SOLVER = SOLVER_PCR>
     SOIL_FN void rollout(T (&U)[N][L], T (&sat)[N][L], T& S, const T* top,
-                         const long long step_stride, const int rows, const T t0, const T dts,
-                         T t, const int steps, const T dt) {
-        static_assert(STEPPER == STEPPER_EULER || STEPPER == STEPPER_HEUN,
-                      "the group step runs ForwardEuler and Heun");
+                         const long long step_stride, const int series_rows, const T t0,
+                         const T dts, T t, const int steps, const T dt, const T inv_dt = T(0),
+                         const int iters = 1) {
         for (int s = 0; s < steps; ++s) {
             if constexpr (STEPPER == STEPPER_HEUN) {
                 const T t1 = t + dt;
-                const T v0 = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
+                const T v0 = SERIES ? series_value(top, step_stride, series_rows, t0, dts, t)
                                     : top[s * step_stride];
-                const T v1 = SERIES ? series_value(top, step_stride, rows, t0, dts, t1)
+                const T v1 = SERIES ? series_value(top, step_stride, series_rows, t0, dts, t1)
                                     : top[(s + 1) * step_stride];
                 heun_step(U, sat, S, v0, v1, dt);
                 t = t1;
             } else {
-                const T vtop = SERIES ? series_value(top, step_stride, rows, t0, dts, t)
+                const T vtop = SERIES ? series_value(top, step_stride, series_rows, t0, dts, t)
                                       : top[s * step_stride];
-                step(U, sat, S, vtop, dt);
+                if constexpr (STEPPER == STEPPER_IMPLICIT)
+                    picard_step<SOLVER>(U, sat, S, vtop, dt, inv_dt, iters);
+                else
+                    step(U, sat, S, vtop, dt);
                 if (SERIES) t = t + dt;
             }
         }

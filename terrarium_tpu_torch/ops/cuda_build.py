@@ -55,24 +55,28 @@ _F32, _F64 = torch.float32, torch.float64
 #: ptxas reports), so that the longest compiles start first in the build's
 #: slots and a source's build ends with short ones
 INSTANTIATIONS = {
-    # ForwardEuler and Heun over heat + Richards, a column on a group of
-    # lanes: the bench and gradient grids at Nz 30 and 20 (each stepper's
-    # float64 check at Nz 30), the Heun golden at Nz 15
+    # ForwardEuler, Heun and ImplicitEuler over heat + Richards, a column on
+    # a group of lanes: the bench and gradient grids at Nz 30 and 20 (each
+    # explicit stepper's float64 check at Nz 30), the Heun golden at Nz 15;
+    # ImplicitEuler (each solver, and the Picard entries, which hold a
+    # kernel of each solver) at the bench width and, for the implicit golden
+    # and the float64 checks, at Nz 16
     "soil_column_group_rollout": [
+        (("implicit", "picard", "richards"), _F32, 30),
+        (("implicit", "picard", "richards"), _F64, 16),
+        (("implicit", "pcr", "richards"), _F32, 30),
+        (("implicit", "thomas", "richards"), _F32, 30),
+        (("implicit", "pcr", "richards"), _F64, 16),
+        (("implicit", "thomas", "richards"), _F64, 16),
         (("heun", "richards"), _F64, 15), (("euler", "richards"), _F64, 20),
         (("heun", "richards"), _F64, 30), (("euler", "richards"), _F32, 20),
         (("heun", "richards"), _F32, 30), (("euler", "richards"), _F64, 30),
         (("euler", "richards"), _F32, 30),
     ],
-    # every other soil rollout, a column a thread: ImplicitEuler, and the
-    # heat-only model
+    # every other soil rollout, a column a thread: the heat-only model
+    # (ImplicitEuler's heat + Richards entries stay buildable on demand, to
+    # time the one-thread layout against the group's)
     "soil_column_rollout": [
-        (("implicit", "picard", "richards"), _F32, 30),
-        (("implicit", "pcr", "richards"), _F32, 30),
-        (("implicit", "thomas", "richards"), _F32, 30),
-        (("implicit", "picard", "richards"), _F64, 16),
-        (("implicit", "pcr", "richards"), _F64, 16),
-        (("implicit", "thomas", "richards"), _F64, 16),
         (("implicit", "picard", "heat"), _F32, 30), (("implicit", "picard", "heat"), _F64, 16),
         (("heun", "heat"), _F32, 30), (("heun", "heat"), _F64, 16), (("euler", "heat"), _F64, 30),
         (("euler", "heat"), _F32, 30),

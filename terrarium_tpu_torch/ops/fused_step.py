@@ -33,11 +33,13 @@ uniformly spaced series that the kernel interpolates at each clock time
 itself (the counterpart of ``_WindowSource``, `fused_step.py:92-122`,
 without its window). The CUDA sources, compiled by ``nvcc`` at first use
 into ``_build/`` beside this package and loaded with ctypes: for
-ForwardEuler and Heun over heat + Richards (:func:`soil_column_rollout`,
-:func:`soil_column_heun_rollout`), ``csrc/soil_column_group_rollout.cu``, a
-column spread over a group of lanes (the step in
-``csrc/soil_group_step.cuh``); for the others ``csrc/soil_column_rollout.cu``,
-a column a thread (the step in ``csrc/soil_step.cuh``).
+ForwardEuler, Heun and ImplicitEuler over heat + Richards
+(:func:`soil_column_rollout`, :func:`soil_column_heun_rollout`,
+:func:`soil_column_implicit_rollout`), ``csrc/soil_column_group_rollout.cu``,
+a column spread over a group of lanes (the step in
+``csrc/soil_group_step.cuh``); for the heat-only model
+``csrc/soil_column_rollout.cu``, a column a thread (the step in
+``csrc/soil_step.cuh``).
 
 On CPU tensors a wrapper runs :func:`soil_column_rollout_plain`; on CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
@@ -97,7 +99,7 @@ __all__ = ["ColumnParams", "SeriesBC", "uniform_ts_meta", "window_meta", "kernel
 _NAME = "soil_column_rollout"  # csrc/soil_column_rollout.cu
 _GROUP_NAME = "soil_column_group_rollout"  # csrc/soil_column_group_rollout.cu
 #: the (stepper, physics) whose rollouts run on groups of lanes
-GROUP_SCHEMES = (("euler", "richards"), ("heun", "richards"))
+GROUP_SCHEMES = (("euler", "richards"), ("heun", "richards"), ("implicit", "richards"))
 
 
 def _number(x) -> float:
@@ -624,9 +626,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
              + [ctypes.c_double] * 3 + [ctypes.c_void_p] * 4
              + [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-#: the group rollout's entry: the column rollout's arguments without the
-#: solver and the Picard count, with the hand-off counter (or 0)
-_GROUP_ARGTYPES = _ARGTYPES[:-3] + [ctypes.c_void_p, ctypes.c_void_p]
+#: the group rollout's entry: the column rollout's arguments (the solver
+#: and the Picard count too, which the explicit steppers' entries check and
+#: ignore) with the hand-off counter (or 0) before the stream
+_GROUP_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
 #: the solver codes of the kernels' ``solver`` argument (``soil::SOLVER_*``)
 SOLVER_CODES = {"thomas": 0, "pcr": 1}
 
@@ -680,12 +683,12 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solv
         if not t.is_contiguous():
             raise ValueError("the soil column kernels take contiguous fields and coordinates")
     tags = kernel_tags(stepper, physics, int(picard_iters), plain_euler=(), solver=solver)
+    tail = (SOLVER_CODES[solver], int(picard_iters))
     if (stepper, physics) in GROUP_SCHEMES:
         fn = cuda_build.entry(_GROUP_NAME, U.dtype, nz, _GROUP_ARGTYPES, tags=tags)
-        tail = (0 if handoffs is None else handoffs.data_ptr(),)
+        tail += (0 if handoffs is None else handoffs.data_ptr(),)
     else:
         fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
-        tail = (SOLVER_CODES[solver], int(picard_iters))
     out = launch_entry(fn, tail, heat, U, sat, S, top, coords, params, dt, steps)
     wrapper.launches += 1
     return out
@@ -693,8 +696,8 @@ def _rollout(wrapper, stepper, physics, U, sat, S, top, coords, params, dt, solv
 
 def launch_entry(fn, tail, heat, U, sat, S, top, coords, params, dt, steps):
     """Launch the rollout entry point ``fn`` (``_ARGTYPES``, ``tail`` its
-    solver and Picard count, or ``_GROUP_ARGTYPES``, ``tail`` its hand-off
-    counter) on checked CUDA operands; the new ``(U, sat, S)``."""
+    solver and Picard count, or ``_GROUP_ARGTYPES``, ``tail`` those and its
+    hand-off counter) on checked CUDA operands; the new ``(U, sat, S)``."""
     U_out = torch.empty_like(U)
     sat_out, S_out = (sat, S) if heat else (torch.empty_like(sat), torch.empty_like(S))
     if isinstance(top, SeriesBC):
@@ -777,30 +780,38 @@ for _fn in (soil_column_rollout, soil_column_heun_rollout, soil_column_heat_roll
 
 
 def soil_column_group_handoffs(stepper, U, sat, S, top, dz, dz_faces, z_centers, z_faces,
-                               params: ColumnParams, dt: float):
-    """The rollout of ``stepper`` (``"euler"`` or ``"heun"``, heat +
-    Richards) on CUDA tensors, as its wrapper launches it (a launch of that
-    wrapper), and the serial hand-offs of its saturation sweeps: ``((U,
-    sat, S), (up, down))``, the number of times a carry went from one lane
-    of a column's group to the next, summed over the columns and steps."""
+                               params: ColumnParams, dt: float, solver: str = "pcr",
+                               picard_iters: int = 1):
+    """The rollout of ``stepper`` (``"euler"``, ``"heun"`` or
+    ``"implicit"`` with ``solver`` and ``picard_iters``, heat + Richards)
+    on CUDA tensors, as its wrapper launches it (a launch of that wrapper),
+    and the serial hand-offs of its saturation sweeps: ``((U, sat, S), (up,
+    down))``, the number of times a carry went from one lane of a column's
+    group to the next, summed over the columns, steps and closures."""
     if U.device.type != "cuda":
         raise ValueError("the hand-offs are counted by the group kernel, on CUDA tensors")
     count = torch.zeros(2, dtype=torch.int64, device=U.device)
     wrapper = ROLLOUTS[(stepper, "richards")]
     out = _rollout(wrapper, stepper, "richards", U, sat, S, top,
-                   (dz, dz_faces, z_centers, z_faces), params, dt, handoffs=count)
+                   (dz, dz_faces, z_centers, z_faces), params, dt, solver=solver,
+                   picard_iters=picard_iters, handoffs=count)
     return out, tuple(int(x) for x in count.tolist())
 
 
-def group_occupancy(stepper: str, dtype: torch.dtype, nz: int, series: bool) -> tuple:
+def group_occupancy(stepper: str, dtype: torch.dtype, nz: int, series: bool,
+                    solver: str = "pcr", picard_iters: int = 1) -> tuple:
     """``(resident warps an SM, G)`` of the group rollout kernel of
-    ``stepper`` (heat + Richards) at ``dtype`` and depth ``nz``, with the
-    top temperature from a series or a table
+    ``stepper`` (heat + Richards; ImplicitEuler: that of ``solver`` in the
+    entry of ``picard_iters``) at ``dtype`` and depth ``nz``, with the top
+    temperature from a series or a table
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    fn = cuda_build.entry(_GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-                          tags=(stepper, "richards"), suffix="_warps")
+    _scheme(stepper, "richards", solver, picard_iters)
+    tags = kernel_tags(stepper, "richards", int(picard_iters), plain_euler=(), solver=solver)
+    fn = cuda_build.entry(_GROUP_NAME, dtype, nz,
+                          [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)], tags=tags,
+                          suffix="_warps")
     group = ctypes.c_int(0)
-    warps = fn(int(series), ctypes.byref(group))
+    warps = fn(int(series), SOLVER_CODES[solver], ctypes.byref(group))
     if warps < 0:
         raise RuntimeError("the occupancy query of the group rollout kernel failed")
     return warps, group.value

@@ -1,5 +1,6 @@
 // Host build of terrarium_tpu_torch/csrc/soil_group_step.cuh for the CPU
-// tests (tests/test_torch_group_step_host.py): the group rollout kernel's
+// tests (tests/test_torch_group_step_host.py and, for ImplicitEuler,
+// tests/test_torch_group_implicit_host.py): the group rollout kernel's
 // column code, each group of G lanes emulated by one thread in lockstep
 // (soil::HostLanes), beside the one-thread-a-column rollout loop it
 // replaces on the card (soil::rollout_column of soil_step.cuh), each run
@@ -126,6 +127,97 @@ int group_of(int g, int stepper, double* U, double* sat, double* S, const double
     return -1;
 }
 
+// soil::rollout_column of picard_step over every column: ImplicitEuler
+// with `iters` Picard iterations and `solver` (0 Thomas, 1 PCR), heat +
+// Richards, the top temperature from a table or (SERIES) a series
+template <int NZ, bool SERIES>
+void thread_picard_columns(double* U, double* sat, double* S, const double* top,
+                           long long step_stride, long long cell_stride, int rows, double t0,
+                           double dts, double time0, const double* dz, const double* dzf,
+                           const double* zc, const double* zf, const SoilColumnParams* P,
+                           int steps, double dt, long long cells, int solver, int iters)
+{
+    const soil::Consts<double> c(*P);
+    for (long long col = 0; col < cells; ++col) {
+        double u[NZ], s[NZ];
+        for (int k = 0; k < NZ; ++k) { u[k] = U[k * cells + col]; s[k] = sat[k * cells + col]; }
+        double sv = S[col];
+        soil::rollout_column<double, NZ, soil::STEPPER_IMPLICIT, soil::SOLVER_RUNTIME, false,
+                             SERIES, true>(u, s, sv, top + col * cell_stride, step_stride, rows,
+                                           t0, dts, time0, steps, c, *P, dz, dzf, zc, zf, dt,
+                                           1.0 / dt, iters, solver);
+        for (int k = 0; k < NZ; ++k) { U[k * cells + col] = u[k]; sat[k * cells + col] = s[k]; }
+        S[col] = sv;
+    }
+}
+
+// soil::GroupColumn::rollout of ImplicitEuler (picard_step with SOLVER and
+// `iters` Picard iterations) over every column on a group of G emulated
+// lanes
+template <int NZ, int G, int SOLVER, bool SERIES>
+void group_picard_columns(double* U, double* sat, double* S, const double* top,
+                          long long step_stride, long long cell_stride, int rows, double t0,
+                          double dts, double time0, const double* dz, const double* dzf,
+                          const double* zc, const double* zf, const SoilColumnParams* P,
+                          int steps, double dt, long long cells, int iters)
+{
+    using Column = soil::GroupColumn<double, NZ, G, soil::HostLanes<G>>;
+    constexpr int L = Column::L;
+    const soil::HostLanes<G> lanes;
+    const soil::Consts<double> c(*P);
+    for (long long col = 0; col < cells; ++col) {
+        Column column(lanes, c, *P, dz, dzf, zc, zf);
+        double u[G][L], s[G][L];
+        for (int i = 0; i < G; ++i)
+            for (int l = 0; l < L; ++l) {
+                const int k = column.level(i, l);
+                u[i][l] = k < NZ ? U[k * cells + col] : 0.0;
+                s[i][l] = k < NZ ? sat[k * cells + col] : 0.0;
+            }
+        double sv = S[col];
+        column.template rollout<soil::STEPPER_IMPLICIT, SERIES, SOLVER>(
+            u, s, sv, top + col * cell_stride, step_stride, rows, t0, dts, time0, steps, dt,
+            1.0 / dt, iters);
+        for (int i = 0; i < G; ++i)
+            for (int l = 0; l < L; ++l) {
+                const int k = column.level(i, l);
+                if (k < NZ) { U[k * cells + col] = u[i][l]; sat[k * cells + col] = s[i][l]; }
+            }
+        S[col] = sv;
+    }
+}
+
+template <int NZ>
+int thread_picard(double* U, double* sat, double* S, const double* top, long long step_stride,
+                  long long cell_stride, int rows, double t0, double dts, double time0,
+                  const double* dz, const double* dzf, const double* zc, const double* zf,
+                  const SoilColumnParams* P, int steps, double dt, long long cells, int solver,
+                  int iters)
+{
+    if (rows > 0) thread_picard_columns<NZ, true>(ROLLOUT_ARGS, solver, iters);
+    else thread_picard_columns<NZ, false>(ROLLOUT_ARGS, solver, iters);
+    return 0;
+}
+
+template <int NZ, int G>
+int group_picard(int solver, double* U, double* sat, double* S, const double* top,
+                 long long step_stride, long long cell_stride, int rows, double t0, double dts,
+                 double time0, const double* dz, const double* dzf, const double* zc,
+                 const double* zf, const SoilColumnParams* P, int steps, double dt,
+                 long long cells, int iters)
+{
+    if (solver == soil::SOLVER_PCR) {
+        if (rows > 0) group_picard_columns<NZ, G, soil::SOLVER_PCR, true>(ROLLOUT_ARGS, iters);
+        else group_picard_columns<NZ, G, soil::SOLVER_PCR, false>(ROLLOUT_ARGS, iters);
+    } else if (solver == soil::SOLVER_THOMAS) {
+        if (rows > 0) group_picard_columns<NZ, G, soil::SOLVER_THOMAS, true>(ROLLOUT_ARGS, iters);
+        else group_picard_columns<NZ, G, soil::SOLVER_THOMAS, false>(ROLLOUT_ARGS, iters);
+    } else {
+        return -1;
+    }
+    return 0;
+}
+
 }  // namespace
 
 // The kernels' group size at nz (soil::group_lanes)
@@ -169,6 +261,59 @@ extern "C" int host_group_rollout(double* U, double* sat, double* S, const doubl
         case 20: return group_of<20>(g, stepper, ROLLOUT_ARGS, handoffs);
         case 30: return group_of<30>(g, stepper, ROLLOUT_ARGS, handoffs);
         case 40: return group_of<40>(g, stepper, ROLLOUT_ARGS, handoffs);
+        default: return -1;
+    }
+}
+
+// The implicit step's group size at nz for `solver` (0 Thomas, 1 PCR;
+// soil::implicit_group_lanes)
+extern "C" int host_implicit_group_lanes(int nz, int solver)
+{
+    return soil::implicit_group_lanes(nz, solver);
+}
+
+// One thread a column: soil::rollout_column of picard_step, ImplicitEuler
+// with `iters` Picard iterations and `solver` (0 Thomas, 1 PCR) over heat +
+// Richards, in place; the top temperature from a table (rows 0) or a series
+// of `rows` rows. Returns -1 for an nz it does not run.
+extern "C" int host_thread_picard(double* U, double* sat, double* S, const double* top,
+                                  long long step_stride, long long cell_stride, int rows,
+                                  double t0, double dts, double time0, const double* dz,
+                                  const double* dzf, const double* zc, const double* zf,
+                                  const SoilColumnParams* P, int nz, int solver, int iters,
+                                  int steps, double dt, long long cells)
+{
+    switch (nz) {
+        case 10: return thread_picard<10>(ROLLOUT_ARGS, solver, iters);
+        case 16: return thread_picard<16>(ROLLOUT_ARGS, solver, iters);
+        case 30: return thread_picard<30>(ROLLOUT_ARGS, solver, iters);
+        default: return -1;
+    }
+}
+
+// The same on groups of g lanes: Nz 10 and 16 at their implicit group size
+// (4), Nz 30 at g 4, 8, 16 or 32. Returns -1 for an nz, g or solver it does
+// not run.
+extern "C" int host_group_picard(double* U, double* sat, double* S, const double* top,
+                                 long long step_stride, long long cell_stride, int rows,
+                                 double t0, double dts, double time0, const double* dz,
+                                 const double* dzf, const double* zc, const double* zf,
+                                 const SoilColumnParams* P, int nz, int g, int solver, int iters,
+                                 int steps, double dt, long long cells)
+{
+    static_assert(soil::implicit_group_lanes(10, soil::SOLVER_PCR) == 4 &&
+                  soil::implicit_group_lanes(10, soil::SOLVER_THOMAS) == 4 &&
+                  soil::implicit_group_lanes(16, soil::SOLVER_PCR) == 4 &&
+                  soil::implicit_group_lanes(16, soil::SOLVER_THOMAS) == 4,
+                  "the host build holds Nz 10 and 16 at G 4");
+    if (nz == 10 && g == 4) return group_picard<10, 4>(solver, ROLLOUT_ARGS, iters);
+    if (nz == 16 && g == 4) return group_picard<16, 4>(solver, ROLLOUT_ARGS, iters);
+    if (nz != 30) return -1;
+    switch (g) {
+        case 4: return group_picard<30, 4>(solver, ROLLOUT_ARGS, iters);
+        case 8: return group_picard<30, 8>(solver, ROLLOUT_ARGS, iters);
+        case 16: return group_picard<30, 16>(solver, ROLLOUT_ARGS, iters);
+        case 32: return group_picard<30, 32>(solver, ROLLOUT_ARGS, iters);
         default: return -1;
     }
 }

@@ -225,28 +225,42 @@ def test_run_all_runs_real_processes():
         assert all(cpu >= 0.0 for *_, cpu in out)
 
 
-@pytest.mark.parametrize("stepper", ["euler", "heun"])
+@pytest.mark.parametrize("stepper", ["euler", "heun", "implicit_pcr", "implicit_thomas",
+                                     "implicit_picard"])
 def test_group_rollout_keys(fake_nvcc, stepper):
-    """ForwardEuler and Heun over heat + Richards launch the group rollout
-    source (``csrc/soil_column_group_rollout.cu``) and no longer the
-    one-thread source's prebuilt set: an unlisted depth (40) is built alone
-    with its stepper's defines and no group size (the source takes
-    ``soil::group_lanes``); a ``g<G>`` tag, for measuring one group size
-    against another, adds ``SOIL_GROUP``; ``suffix`` reads the
+    """ForwardEuler, Heun and ImplicitEuler (each solver; more than one
+    Picard iteration: the entry of both solvers) over heat + Richards launch
+    the group rollout source (``csrc/soil_column_group_rollout.cu``) and no
+    longer the one-thread source's prebuilt set: an unlisted depth (40) is
+    built alone with its stepper's defines and no group size (the source
+    takes ``soil::group_lanes``, ImplicitEuler
+    ``soil::implicit_group_lanes``); a ``g<G>`` tag, for measuring one group
+    size against another, adds ``SOIL_GROUP``; ``suffix`` reads the
     instantiation's other function (its resident warps)."""
-    tags = fs.kernel_tags(stepper, "richards", 1, plain_euler=())
-    assert (stepper, "richards") in fs.GROUP_SCHEMES and tags == (stepper, "richards")
+    stepper, _, solver = stepper.partition("_")
+    iters = 2 if solver == "picard" else 1
+    tags = fs.kernel_tags(stepper, "richards", iters, plain_euler=(),
+                          solver="pcr" if solver == "picard" else (solver or "pcr"))
+    assert (stepper, "richards") in fs.GROUP_SCHEMES
+    assert tags == ((stepper, "richards") if stepper != "implicit"
+                    else (stepper, solver, "richards"))
     assert all(t != tags for t, _, _ in cb.INSTANTIATIONS["soil_column_rollout"])
     assert (tags, F32, 30) in cb.INSTANTIATIONS["soil_column_group_rollout"]
     assert (tags, F32, 40) not in cb.INSTANTIATIONS["soil_column_group_rollout"]
     fn = cb.entry("soil_column_group_rollout", F32, 40, fs._GROUP_ARGTYPES, tags=tags)
-    name = f"soil_column_group_rollout_{stepper}_richards_f32_nz40"
+    name = f"soil_column_group_rollout_{'_'.join(tags)}_f32_nz40"
     assert fn.name == name and fn.argtypes == fs._GROUP_ARGTYPES
     (compile_,) = fake_nvcc.compiles()
+    defines = {"euler": {"-DSOIL_STEPPER=0"}, "heun": {"-DSOIL_STEPPER=1"},
+               "implicit": {"-DSOIL_STEPPER=2"}}[stepper]
+    defines |= {"pcr": {"-DSOIL_SOLVER=1"}, "thomas": {"-DSOIL_SOLVER=0"},
+                "picard": {"-DSOIL_SOLVER=2", "-DSOIL_PICARD=1"}, "": set()}[solver]
     assert _defines(compile_) == {f"-DSOIL_ENTRY={name}", "-DSOIL_T=float", "-DSOIL_NZ=40",
-                                  f"-DSOIL_STEPPER={int(stepper == 'heun')}", "-DSOIL_HEAT=0",
-                                  "-DLAND_RICHARDS=1"}
+                                  "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1", *defines}
     warps = cb.entry("soil_column_group_rollout", F32, 40, [], tags=tags, suffix="_warps")
     assert warps.name == f"{name}_warps" and len(fake_nvcc.compiles()) == 1
     cb.entry("soil_column_group_rollout", F32, 20, [], tags=(*tags, "g8"))
     assert "-DSOIL_GROUP=8" in fake_nvcc.compiles()[-1]
+    # the group entry takes the one-thread entry's arguments (the solver and
+    # the Picard count) and the hand-off counter before the stream
+    assert fs._GROUP_ARGTYPES[:-2] == fs._ARGTYPES[:-1]

@@ -10,7 +10,9 @@ PyTorch version at float64.
 Both builds contract no multiply-adds, so the group step, which forms each
 value by the operations of the one-thread step in the same order, equals
 it bitwise at every depth and group size; the plain version differs only
-where ``cbrt`` and torch's ``pow(x, 1/3)`` round apart. The states are
+where ``cbrt`` and torch's ``pow(x, 1/3)`` round apart. Where that parts a
+Heun stage at saturation, the step is held to JAX's XLA step, which takes
+``cbrt`` as the kernels do. The states are
 `test_torch_soil_physics.py`'s random legal states (resampled to the depth)
 and columns built so that the sweeps hand a carry from lane to lane: a run
 of over-saturated levels across a lane boundary and a long wet run (the up
@@ -20,19 +22,22 @@ at the surface). The emulation counts each column's hand-offs; the test
 holds that the crossing columns took them.
 """
 import ctypes
+import functools
 import pathlib
 import shutil
 import subprocess
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+import terrarium_tpu as tt
 from terrarium_tpu_torch.ops import fused_step as fs
 from terrarium_tpu_torch.processes.soil.hydrology import saturation_sweeps
 
 from test_torch_soil_physics import NZ as RANDOM_NZ, random_state
-from torch_parity import port_sim
+from torch_parity import CONFIGS, jax_soil, port_sim
 
 HERE = pathlib.Path(__file__).parent
 CSRC = HERE.parent / "terrarium_tpu_torch" / "csrc"
@@ -178,6 +183,41 @@ def stage_at_saturation(carry, top_i, coords, params):
     return ((stage < 1.0) & (stage > 1.0 - 1e-12)).any(0)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_heun_step(nz, cells):
+    """JAX's Heun ``pre_closure_step`` (XLA, float64) on ``cells`` columns
+    of the golden soil at ``nz`` levels, jitted: ``step(state, top)`` with
+    the top temperature ``top[0]`` at the step's start and ``top[1]`` at
+    its end (a two-row series from clock time 0); and the initial state."""
+    times = np.array([0.0, DT])
+    jsim = tt.initialize(
+        tt.SoilModel(grid=tt.ColumnGrid.of(cells=cells, spacing=tt.ExponentialSpacing(N=nz),
+                                           nf=np.float64), soil=jax_soil()),
+        tt.Heun(dt=DT), initializers=CONFIGS["golden"]["inits"],
+        boundary_conditions=tt.PrescribedSurfaceTemperature("top"),
+        input_sources=(tt.TimeSeriesInputSource(times=times,
+                                                series={"top": np.zeros((2, cells))}),))
+
+    def step(state, top):
+        sources = (tt.TimeSeriesInputSource(times=times, series={"top": top}),)
+        return jsim.timestepper.pre_closure_step(jsim.model, state, jsim.ctx, sources, DT)
+    return jsim.state, jax.jit(step)
+
+
+def jax_heun(carry, top_i, nz):
+    """JAX's Heun step from ``carry`` with the top temperatures of
+    ``top_i`` as the port reads them at the step's two clock times."""
+    cells = carry[0].shape[1]
+    state, step = jax_heun_step(nz, cells)
+    read = fs._top_reader(top_i, 1, DT, torch.float64, "cpu")
+    top = np.stack([np.broadcast_to(read(j).numpy(), (cells,)) for j in (0, 1)])
+    out = step(state.update(internal_energy=carry[0].numpy(),
+                            saturation_water_ice=carry[1].numpy(),
+                            surface_excess_water=carry[2].numpy()), top)
+    return tuple(torch.as_tensor(np.array(out[n])) for n in (
+        "internal_energy", "saturation_water_ice", "surface_excess_water"))
+
+
 @pytest.mark.parametrize("group", ["kernel", 4, 32])
 @pytest.mark.parametrize("top_kind", ["table", "series"])
 @pytest.mark.parametrize("stepper", list(STEPPERS))
@@ -194,10 +234,20 @@ def test_group_step_matches_plain(lib, nz, stepper, top_kind, group):
     version there the same way, by up to about 1e-7 in sat, as the two
     take ``cbrt`` and ``pow(x, 1/3)``). Rolled freely instead, the two also
     part where a level closes within about 1e-10 of saturation: Mualem's 1
-    - (1 - se^(2/3))^(1/2) magnifies that ulp by 1 / (1 - se^(2/3))."""
+    - (1 - se^(2/3))^(1/2) magnifies that ulp by 1 / (1 - se^(2/3)).
+
+    Those Heun column-steps (7.4-20.1% of a case's, 16.3% of all 48,600;
+    each case's share printed) are held, at the kernel's group size (the
+    others equal it bitwise), to JAX's XLA step from the same carry: each field within 1e-12 of its magnitude of the plain version's,
+    or no farther from JAX's than twice the plain version's distance from it
+    plus 1e-12 of the magnitude (JAX's closed-form saturation adjustment
+    rounds the stage apart from both, by up to 7.5e-7 in sat). At most 1%
+    of them (and one), each within 5e-7 of sat's magnitude, may miss that: the
+    stage's first tendency an ulp apart puts a level on the other side of
+    saturation in the host build alone (ROADMAP Queue C)."""
     g = lib.host_group_lanes(nz) if group == "kernel" else group
     carry, top, coords, params = _case(lib, nz, top_kind, g)
-    time, let_go = 0.0, 0
+    time, let_go, parts = 0.0, 0, 0
     for i in range(STEPS):
         top_i = _step_top(top, stepper, i, time)
         got, _ = run_host(lib, carry, top_i, coords, params, nz, stepper, g, steps=1)
@@ -205,8 +255,20 @@ def test_group_step_matches_plain(lib, nz, stepper, top_kind, group):
         if stepper == "heun":
             held = ~stage_at_saturation(carry, top_i, coords, params)
             let_go += int((~held).sum())
+        start = carry
         carry = fs.soil_column_rollout_plain(*carry, top_i, *coords, params, DT,
                                              stepper=stepper)
+        if group == "kernel" and not bool(held.all()):  # the let-go ones against JAX
+            xla, out = jax_heun(start, top_i, nz), torch.zeros_like(held)
+            for a, b, c in zip(got, carry, xla):
+                scale = 1e-12 * float(c.abs().max())
+                far = ((a - c).abs() > 2.0 * (b - c).abs() + scale) & ((a - b).abs() > scale)
+                far = (far.any(0) if far.dim() == 2 else far) & ~held
+                gap = (a - c).abs()
+                gap = gap.amax(0) if gap.dim() == 2 else gap
+                assert float((gap * far).max()) <= 5e-7 * float(c.abs().max())
+                out |= far
+            parts += int(out.sum())
         for name, a, b in zip(("U", "sat"), got, carry):
             assert bool(torch.isfinite(b).all()), name
             torch.testing.assert_close(a[:, held], b[:, held], rtol=1e-12,
@@ -215,8 +277,11 @@ def test_group_step_matches_plain(lib, nz, stepper, top_kind, group):
         torch.testing.assert_close(got[2][held], carry[2][held], rtol=1e-12, atol=0.0,
                                    msg=f"step {i + 1}: S")
         time = time + DT
-    # the rule lets a small share of the column-steps go
+    # the rule lets a small share of the column-steps go, and JAX holds them
+    print(f"let-go column-steps {let_go} of {STEPS * carry[0].shape[1]}; the host parts from "
+          f"JAX and the plain version at {parts}")
     assert let_go <= 0.25 * STEPS * carry[0].shape[1], let_go
+    assert parts <= 0.01 * let_go + 1, (parts, let_go)
 
 
 @pytest.mark.parametrize("nz", NZS)
