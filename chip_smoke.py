@@ -18,7 +18,10 @@ described in ``group_check`` lines: the group size, registers, spill
 stores, resident warps an SM, SASS instructions, the saturation sweeps'
 hand-offs between lanes on the compared operands, the bound with each
 operation weighted by its measured cost, and (rows 1 and 1'a) the row at
-float64 on 1,024 columns against the plain version at 1e-12:
+float64 on 1,024 columns against the plain version at 1e-12; so are rows
+3'b and 3'h (the group segment VJP of ImplicitEuler, one and two Picard
+iterations, each solver), with the recompute check: every carry the VJP
+stores, bit for bit the group rollout's after the same steps:
 
 * ``on_demand``: `examples/soil_heat_column.py`'s composition (BASELINE
   config #1: the heat-only SoilModel, one column, Nz 10, float32,
@@ -178,6 +181,7 @@ compare their kernels bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -700,15 +704,19 @@ ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
 # rollouts
 GROUP_SOURCE = "soil_column_group_rollout"
 FIRST_SOURCES = (GROUP_SOURCE, "soil_column_rollout")
+# the segment VJP of ImplicitEuler over heat + Richards on groups of lanes
+# (rows 3'b and 3'h)
+VJP_GROUP_SOURCE = "soil_column_group_segment_vjp"
 # The sources built beside the forward phases, in the order the phases need
 # them: the land rollout (the land phases), then the land segment VJP (the
-# land gradients), then the soil segment VJP (the soil gradients), whose
-# some 3,800 nvcc CPU seconds would otherwise keep the land phases waiting,
-# then the soil's and the land's full steps (their phases), built while the
-# soil gradient phases run, then the probes (the last phase)
+# land gradients), then the soil segment VJPs, one thread a column and on
+# groups of lanes (the soil gradients), whose nvcc CPU seconds would
+# otherwise keep the land phases waiting, then the soil's and the land's
+# full steps (their phases), built while the soil gradient phases run, then
+# the probes (the last phase)
 REST_GROUPS = (("land_column_rollout",), ("land_column_segment_vjp",),
-               ("soil_column_segment_vjp",), ("soil_column_full_step", "land_column_full_step"),
-               ("probes",))
+               ("soil_column_segment_vjp", VJP_GROUP_SOURCE),
+               ("soil_column_full_step", "land_column_full_step"), ("probes",))
 # Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
 # Richards step, leaves [0, 1] in 95% of the columns from step 3 and its
 # tendencies grow far beyond the state, so the float32 rounding of the
@@ -1660,8 +1668,9 @@ def ptxas_summary(report: str) -> dict:
     it); a rollout entry (the group rollout's too: <T, NZ, G, STEPPER,
     SOLVER, SERIES>) holds a table and a series kernel, the group rollout's
     ImplicitEuler entries one of each a solver, keyed ``"table_pcr"``,
-    ``"series_thomas"``, ..., the VJP's its kernel and the reduction, the
-    land and full-step entries their one kernel."""
+    ``"series_thomas"``, ..., the VJP's its kernel and the reduction (the
+    group VJP's ImplicitEuler entries a kernel of each solver, ``"vjp_pcr"``,
+    ``"vjp_thomas"``), the land and full-step entries their one kernel."""
     out, entry, key = {}, None, None
     for ln in report.splitlines():
         if ln.startswith("== "):
@@ -1685,6 +1694,9 @@ def ptxas_summary(report: str) -> dict:
                 key = "series" if flags.group(flags.lastindex) == "1" else "table"
                 if group and group.group(1) == "2":
                     key += "_" + ("pcr" if group.group(2) == "1" else "thomas")
+            elif "group_segment_vjp_kernel" in name:  # <T, NZ, G, SOLVER>
+                solver = re.search(r"kernelI[fd]Li\d+ELi\d+ELi(\d)E", name).group(1)
+                key = "vjp_" + ("pcr" if solver == "1" else "thomas")
             elif "land_column_rollout_kernel" in name:
                 key = "land"
             elif "full_step_kernel" in name:
@@ -1721,7 +1733,8 @@ def sass_counts(cuobjdump: str, lib: str) -> tuple:
 def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
     """The SASS instructions, NOPs aside, of the table or (``series``) the
     series kernel of a rollout ``entry`` of ``source`` (a group rollout's
-    ImplicitEuler entry: its kernel of ``solver``), from ``cuobjdump -sass``
+    ImplicitEuler entry: its kernel of ``solver``; the group segment VJP's
+    entry, ``series`` unread: its kernel of ``solver``), from ``cuobjdump -sass``
     of the library that holds it (the prebuilt one, or the entry's own where
     it was built alone)."""
     stem = cuda_build._stem(source)
@@ -1739,7 +1752,9 @@ def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
     stepper = {"euler": 0, "heun": 1, "implicit": 2}[
         next(k for k in ("euler", "heun", "implicit") if f"_{k}_" in entry)]
     code = {"thomas": 0, "pcr": 1}[solver] if stepper == 2 else 1
-    if source == GROUP_SOURCE:
+    if source == VJP_GROUP_SOURCE:  # <T, NZ, G, SOLVER>
+        want = re.compile(rf"group_segment_vjp_kernelI{t}Li{nz}ELi\d+ELi{code}EE")
+    elif source == GROUP_SOURCE:
         want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}E"
                           rf"Lb{int(series)}EE")
     else:
@@ -1787,6 +1802,146 @@ def group_row(fs, cuda_build, stepper, operands, dt, ptxas_all, fma_per_level_st
             "handoffs_up": up, "handoffs_down": down,
             "handoffs_per_column_step": (up + down) / (cells * steps),
             "bound_weighted_ms": fma_per_level_step * nz * cells * steps / H100_FMA_ISSUES * 1e3}
+
+
+# The group segment VJP (rows 3'b and 3'h), per column and step, weighted
+# by row 4's rates as implicit_fma_issues weights the forward: the forward
+# step's FMA issues (implicit_fma_issues) and, per iteration, its adjoint's
+# operations (scheme_vjp_ops less the forward), of which per level the
+# cheaper sides' IEEE divisions: rhs_adjoint's 12 (the Darcy flux's six, the
+# heat flux's four, the liquid fraction's two on the freeze plateau; no head
+# derivative, no sweep reset) and d(Psi)/d(sat)'s derivative 1 (its se
+# quotient, at or above saturation); per interior face the two systems'
+# rows' four quotients each (8); per column a transposed solve's divisions
+# a system and the Dirichlet top row's quotient; each further iteration's
+# two -lambda / dt a level
+VJP_ADJ_DIVISIONS_PER_LEVEL = 12 + 1
+VJP_ADJ_DIVISIONS_PER_FACE = 8
+
+
+def implicit_vjp_fma_issues(solver, nz, iters, cparams):
+    """FMA issues of one step of one column of the segment VJP of
+    ImplicitEuler over heat + Richards with ``iters`` Picard iterations."""
+    if solver == "thomas":
+        solve_div = 2 * nz
+    else:
+        s, solve_div = 1, nz
+        while s < nz:
+            solve_div += 2 * (nz - s)
+            s *= 2
+    name = next(n for n, cfg in GRAD_SCHEMES.items() if cfg["stepper"] == "implicit"
+                and cfg["physics"] == "richards" and cfg["solver"] == solver
+                and cfg.get("picard", 1) == iters)
+    adjoint = scheme_vjp_ops(name, nz) - picard_ops(solver, nz, iters)
+    div = (iters * (VJP_ADJ_DIVISIONS_PER_LEVEL * nz + VJP_ADJ_DIVISIONS_PER_FACE * (nz - 1)
+                    + 2 * solve_div + 1) + (iters - 1) * 2 * nz)
+    return (implicit_fma_issues(solver, nz, iters, cparams) + adjoint
+            + div * (FWD_WEIGHTS["division"][1] - 1.0))
+
+
+def vjp_launcher(fs, fv, fn, group, operands, dt, solver, iters):
+    """``(launch, scratch)``: ``launch()`` launches the segment-VJP entry
+    ``fn`` on ``operands`` (carry, table, coordinates, parameters, output
+    cotangents) and returns ``(gU0, gsat0, gS0, gparams)``; its scratch
+    buffer, partials and outputs are the caller's, laid out for the group
+    kernel of G ``group`` (the scratch [step][column][row]) or, ``group``
+    None, for one thread a column ([step][row][column])."""
+    carry, table, coords, params, cts = operands
+    U = carry[0]
+    nz, cells = U.shape
+    steps, rows = table.shape[0], 2 * nz + 1
+    if group:
+        blocks = -(-cells // (fv._GROUP_THREADS // group))
+        shape = (steps, cells, rows)
+    else:
+        blocks = -(-cells // fv._THREADS)
+        shape = (steps, rows, cells)
+    scratch = torch.full(shape, float("nan"), dtype=U.dtype, device=U.device)
+    outs = [torch.empty_like(t) for t in carry]
+    partials = torch.empty(2, blocks, dtype=U.dtype, device=U.device)
+    gparams = torch.empty(2, dtype=U.dtype, device=U.device)
+    cparams = fs._CParams.of(params)
+
+    def launch():
+        err = fn(*(t.data_ptr() for t in (*carry, *cts, *outs, partials, gparams, scratch,
+                                           table)),
+                 table.stride(0), table.stride(1) if table.dim() == 2 else 0,
+                 *(c.data_ptr() for c in coords), ctypes.byref(cparams), steps, float(dt),
+                 cells, fs.SOLVER_CODES[solver], int(iters),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"segment VJP launch failed: cudaError {err}")
+        return (*outs, gparams)
+    return launch, scratch
+
+
+def vjp_group_of(fs, fv, cuda_build, tags, solver, dtype, nz):
+    """``(resident warps an SM, G)`` of the kernel of ``solver`` in the group
+    segment-VJP entry of ``tags``."""
+    fn = cuda_build.entry(fv._GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                          tags=tags, suffix="_warps")
+    group = ctypes.c_int(0)
+    return fn(fs.SOLVER_CODES[solver], ctypes.byref(group)), group.value
+
+
+def vjp_recompute_check(fs, fv, cuda_build, operands, dt, solver, iters, tags=None):
+    """The group segment VJP's forward against the group rollout: the VJP
+    entry of the scheme (or of ``tags``: another group size or launch bound)
+    launched on ``operands`` (carry, table, coordinates, parameters, output
+    cotangents) with a scratch buffer of the check's own, then each carry it
+    stored (step s's input) against the carry that the group rollout
+    (soil_column_implicit_rollout, the forward segments' kernel) reaches
+    after s steps, one step a launch. Returns ``(steps, columns whose stored
+    carry differs at some step)``: 0 where every carry is equal bit for
+    bit."""
+    carry, table, coords, params, _ = operands
+    nz, cells = carry[0].shape
+    tags = fv.vjp_tags("implicit", "richards", solver, iters) if tags is None else tuple(tags)
+    fn = cuda_build.entry(fv._GROUP_NAME, carry[0].dtype, nz, fv._ARGTYPES, tags=tags)
+    group = vjp_group_of(fs, fv, cuda_build, tags, solver, carry[0].dtype, nz)[1]
+    launch, scratch = vjp_launcher(fs, fv, fn, group, operands, dt, solver, iters)
+    launch()
+    state, parted = carry, torch.zeros(cells, dtype=torch.bool, device=carry[0].device)
+    for i in range(table.shape[0]):
+        rec = scratch[i]
+        stored = (rec[:, :nz].t(), rec[:, nz:2 * nz].t(), rec[:, 2 * nz])
+        for a, b in zip(stored, state):
+            d = a != b
+            parted |= d.any(0) if d.dim() == 2 else d
+        state = fs.soil_column_implicit_rollout(*state, table[i:i + 1], *coords, params, dt,
+                                                solver=solver, picard_iters=iters)
+    return table.shape[0], int(parted.sum())
+
+
+def vjp_group_row(fs, fv, cuda_build, operands, dt, solver, iters, ptxas_all):
+    """What the kernel line reports of the group segment VJP of ImplicitEuler
+    over heat + Richards (``solver``, ``iters`` Picard iterations) at the
+    shape of ``operands``: its group size G and levels a lane, ptxas's
+    registers and spill stores, resident warps an SM, SASS instructions, the
+    recompute check (vjp_recompute_check: the columns whose stored carries
+    part from the group rollout's, which must be none) and the bound with
+    each operation weighted by its cost (implicit_vjp_fma_issues)."""
+    carry, table, coords, params, _ = operands
+    dtype, (nz, cells) = carry[0].dtype, carry[0].shape
+    steps = table.shape[0]
+    entry = cuda_build._entry_name(VJP_GROUP_SOURCE, fv.vjp_tags("implicit", "richards", solver,
+                                                                  iters), dtype, nz)
+    ptxas = ptxas_all[VJP_GROUP_SOURCE][entry]["vjp_" + solver]
+    warps, group = fv.vjp_group(dtype, nz, solver, iters)
+    checked, parted = vjp_recompute_check(fs, fv, cuda_build, operands, dt, solver, iters)
+    if parted:
+        raise AssertionError(f"group segment VJP {solver} x{iters}: the stored carries of "
+                             f"{parted} columns part from the group rollout's")
+    fma = implicit_vjp_fma_issues(solver, nz, iters, fs._CParams.of(params))
+    return {"group": group, "levels_a_lane": -(-nz // group),
+            "registers": int(ptxas.split()[0]),
+            "spill_stores": int(ptxas.split(",")[1].split()[0]),
+            "resident_warps_per_sm": warps,
+            "sass_instructions": sass_instructions(cuda_build, VJP_GROUP_SOURCE, entry, False,
+                                                   solver),
+            "recompute_steps_checked": checked, "recompute_columns_parted": parted,
+            "fma_issues_per_column_step": fma,
+            "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
 
 
 def group_f64_check(tp, fs, stepper):
@@ -4331,6 +4486,17 @@ def main():
         b = bound_ms(scheme_vjp_ops(name, BENCH_NZ) * GRAD_CELLS * GRAD_INNER,
                      scheme_vjp_bytes(name, BENCH_NZ, GRAD_CELLS, 4, table.numel()))
         del out_k, ref, part
+        group, source = None, "soil_column_segment_vjp"
+        if (cfg["stepper"], cfg["physics"]) in fv.GROUP_SCHEMES:
+            # rows 3'b and 3'h on the group kernel: its layout and
+            # resources, and its stored carries against the group rollout's
+            iters = cfg.get("picard", 1)
+            source = VJP_GROUP_SOURCE
+            group = vjp_group_row(fs, fv, cuda_build, (carry, table, coords, params, cts), dt,
+                                  cfg["solver"], iters, ptxas_all)
+            phase("group_check", row="3'h" if iters > 1 else "3'b", solver=cfg["solver"],
+                  picard_iters=iters, cells=GRAD_CELLS, nz=BENCH_NZ, steps=GRAD_INNER, **group,
+                  card=card)
         # the gradient: 6 forward and 6 VJP launches
         scheme_value(tp, name, gsim)
         torch.cuda.synchronize()
@@ -4349,7 +4515,7 @@ def main():
         if not (np.isfinite(value) and np.isfinite(grad) and grad != 0.0):
             raise AssertionError(f"{name}: value {value}, gradient {grad}")
         med = float(np.median(times))
-        entry = cuda_build._entry_name("soil_column_segment_vjp", fv.vjp_tags(
+        entry = cuda_build._entry_name(source, fv.vjp_tags(
             cfg["stepper"], cfg["physics"], cfg["solver"], cfg.get("picard", 1)), torch.float32,
             BENCH_NZ)
         extra = {}
@@ -4386,7 +4552,8 @@ def main():
                          make_rollout_fn_rel_diff=abs(r_grad - grad) / abs(r_grad))
         schemes[name] = dict(launches=launches["soil_column_segment_vjp"],
                              max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
-                             bound_ms=b[0], bound_by=b[1], entry=entry)
+                             bound_ms=b[0], bound_by=b[1], entry=entry, source=source,
+                             **(group or {}))
         phase(name, cells=GRAD_CELLS, nz=BENCH_NZ, dt=dt, steps=GRAD_STEPS,
               inner_steps=GRAD_INNER, stepper=cfg["stepper"], solver=cfg["solver"],
               physics=cfg["physics"], seconds_median=med, seconds=times, launches=launches,
@@ -4395,7 +4562,8 @@ def main():
               vjp_segment_ms=k_ms, fwd_segment_ms=f_ms, plain_vjp_ms=p_ms,
               plain_cells=GRAD_SCHEME_CHUNK, bound_ms=b[0], bound_by=b[1],
               ops_per_column_step=scheme_vjp_ops(name, BENCH_NZ),
-              ptxas=ptxas_all["soil_column_segment_vjp"].get(entry, {}).get("vjp"),
+              ptxas=ptxas_all[source].get(entry, {}).get(
+                  "vjp" if group is None else "vjp_" + cfg["solver"]),
               f64_cells=GRAD_COMPARE_CELLS, f64_nz=cfg["f64_nz"], f64_rtol=1e-9,
               f64_max_abs_err=f64_err, water_identity_rel_err=ident,
               f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
@@ -4567,9 +4735,9 @@ def main():
         "shape": f"{GRAD_CELLS} x {GRAD_NZ} f32, {GRAD_INNER} steps; plain_ms at "
                  f"{GRAD_COMPARE_CELLS} columns"}, *({
         "name": f"soil_column_segment_vjp[{name}]", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/soil_column_segment_vjp.cu",
+        "source": f"terrarium_tpu_torch/csrc/{sc['source']}.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
-        **{k: v for k, v in sc.items() if k != "entry"}, "library_ms": None,
+        **{k: v for k, v in sc.items() if k not in ("entry", "source")}, "library_ms": None,
         "shape": f"{GRAD_CELLS} x {BENCH_NZ} f32, {GRAD_INNER} steps, {sc['entry']}; "
                  f"plain_ms at {GRAD_SCHEME_CHUNK} columns"} for name, sc in schemes.items()), *({
         "name": f"land_column_segment_vjp[{name}]", "route": "cuda",
@@ -4674,7 +4842,7 @@ def euler_digest(root: pathlib.Path):
 
     t0 = time.perf_counter()
     land_vjp = "land_column_segment_vjp" in cuda_build.INSTANTIATIONS
-    group = tuple(n for n in (GROUP_SOURCE,) if n in cuda_build.INSTANTIATIONS)
+    group = tuple(n for n in (GROUP_SOURCE, VJP_GROUP_SOURCE) if n in cuda_build.INSTANTIATIONS)
     cuda_build.build(*group, "soil_column_rollout", "soil_column_segment_vjp",
                      "land_column_rollout", *(("land_column_segment_vjp",) if land_vjp else ()))
     build_s = time.perf_counter() - t0

@@ -11,6 +11,8 @@ which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
     python3 rollout_layout_ab.py time
     python3 rollout_layout_ab.py implicit_check
     python3 rollout_layout_ab.py implicit_time
+    python3 rollout_layout_ab.py vjp_check
+    python3 rollout_layout_ab.py vjp_time
 
 ``check`` builds both, prints each kernel's registers and spill stores
 (ptxas), SASS instructions (``cuobjdump -sass``) and resident warps an SM,
@@ -29,6 +31,23 @@ then the group kernel at each group size G 4, 8, 16 and 32: ForwardEuler at
 Nz 20 and 15, ImplicitEuler (one iteration, each solver) at Nz 30. Every
 line is one JSON object; the first is the card's name and power limit.
 ``implicit_check`` and ``implicit_time`` run the ImplicitEuler parts alone.
+
+``vjp_check`` and ``vjp_time`` do the same for the segment VJP of
+ImplicitEuler over heat + Richards (rows 3'b and 3'h: one and two Picard
+iterations, each solver), one thread a column (``csrc/
+soil_column_segment_vjp.cu``, built at its first launch) against a column on
+a group of lanes (``csrc/soil_column_group_segment_vjp.cu``, which
+``soil_column_segment_vjp`` launches), at the gradient's shape: 56,951 x 30
+float32, one 48-step segment of 900 s (``chip_smoke.GRAD_SCHEMES``'
+``grad_implicit_*`` operands). ``vjp_check`` prints both layouts' registers,
+spill stores, SASS instructions, resident warps an SM and G, holds the
+group kernel to the plain version (torch autograd) at float64 on 1,024
+columns at Nz 16 (rtol 1e-9, as ``chip_smoke.py``) and its stored carries
+to the group rollout's bit for bit (``chip_smoke.vjp_recompute_check``),
+and times nothing. ``vjp_time`` times both layouts in turns, then the group
+kernel at each G (4, 8, 16, 32; the recompute check at each, against the
+rollout at its own G) and at each launch bound (1 to 4 resident blocks of
+256 threads an SM), each solver, one and two iterations.
 Run from the repository root.
 """
 from __future__ import annotations
@@ -49,6 +68,12 @@ GROUP_SIZES = (4, 8, 16, 32)
 IMPLICIT_ROWS = {f"{row}_{solver}": (solver, iters) for row, iters in (("1'c", 1), ("1'j", 2))
                  for solver in cs.SOLVERS}
 IMPLICIT_F64_NZ, IMPLICIT_F64_CELLS, IMPLICIT_F64_STEPS = 16, 1024, 48
+#: rows 3'b and 3'h, the segment VJP: (solver, Picard iterations)
+VJP_ROWS = {f"{row}_{solver}": (solver, iters) for row, iters in (("3'b", 1), ("3'h", 2))
+            for solver in cs.SOLVERS}
+VJP_F64_NZ, VJP_F64_CELLS = 16, 1024
+#: the group VJP's launch bounds measured: resident blocks of 256 threads an SM
+MIN_BLOCKS = (1, 2, 3, 4)
 
 
 def out(**fields):
@@ -368,6 +393,182 @@ def implicit_timing(tp, fs, cuda_build, card):
         del ref
 
 
+def vjp_scheme(solver, iters):
+    """The ``chip_smoke.GRAD_SCHEMES`` configuration of row 3'b or 3'h."""
+    return (f"grad_implicit_n145_{solver}" if iters == 1
+            else f"grad_implicit_picard{iters}_{solver}")
+
+
+def vjp_operands(tp, fs, solver, iters, dtype=torch.float32, cells=cs.GRAD_CELLS,
+                 nz=cs.BENCH_NZ):
+    """Carry, one segment's table, coordinates, parameters and seeded output
+    cotangents of row 3'b or 3'h, and its dt."""
+    name = vjp_scheme(solver, iters)
+    sim = cs.scheme_sim(tp, name, cells, nz, dtype)
+    carry, table, coords, params, cts, _ = cs.scheme_operands(fs, name, sim, seed=11)
+    return (carry, table, coords, params, cts), cs.GRAD_SCHEMES[name]["dt"]
+
+
+def vjp_key(fv, layout, solver, iters, extra=()):
+    """``(source, tags)`` of the segment-VJP entry of ``layout``
+    (``"one_thread"`` or ``"group"``, with ``extra`` tags: another G or
+    launch bound)."""
+    tags = fv.vjp_tags("implicit", "richards", solver, iters) + tuple(extra)
+    return ("soil_column_segment_vjp" if layout == "one_thread" else fv._GROUP_NAME), tags
+
+
+def prebuild(cuda_build, fv, keys, dtype=torch.float32, nz=cs.BENCH_NZ):
+    """Build the entries ``keys`` (``(source, tags)``) at once, one thread
+    (and so one nvcc slot) each; raises the first build's error."""
+    import threading
+
+    errors = []
+
+    def one(source, tags):
+        try:
+            cuda_build.entry(source, dtype, nz, fv._ARGTYPES, tags=tags)
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=k) for k in keys]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def vjp_stats(fs, cuda_build, fv, source, tags, solver, dtype=torch.float32, nz=cs.BENCH_NZ):
+    """ptxas's registers and spill stores, the SASS instructions, resident
+    warps an SM and G of the segment-VJP kernel of ``solver`` in the entry of
+    ``source`` and ``tags``."""
+    import pathlib
+    import re
+
+    entry = cuda_build._entry_name(source, tags, dtype, nz)
+    one_thread = source != fv._GROUP_NAME
+    ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(
+        "vjp" if one_thread else f"vjp_{solver}", "")
+    regs = int(ptxas.split()[0]) if ptxas else None
+    spills = int(ptxas.split(",")[1].split()[0]) if "," in ptxas else None
+    if one_thread:
+        stem = cuda_build._stem(source)
+        lib = cuda_build._BUILD_DIR / f"{stem}-{entry}.so"
+        if not lib.exists():
+            lib = cuda_build._BUILD_DIR / f"{stem}.so"
+        cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
+        t = "f" if dtype == torch.float32 else "d"
+        want = re.compile(rf"soil_column_segment_vjp_kernelI{t}Li{nz}ELi2ELi\d+E")
+        sass = next((n for name, n in cs.sass_counts(str(cuobjdump), str(lib))
+                     if want.search(name)), 0)
+        warps, group = (thread_warps(regs) if regs else None), 1
+    else:
+        sass = cs.sass_instructions(cuda_build, source, entry, False, solver)
+        warps, group = cs.vjp_group_of(fs, fv, cuda_build, tags, solver, dtype, nz)
+    return {"entry": entry, "ptxas": ptxas, "registers": regs, "spill_stores": spills,
+            "sass": sass, "resident_warps": warps, "group": group}
+
+
+def vjp_check(tp, fs, cuda_build, card):
+    """Rows 3'b and 3'h, each solver: both layouts' builds; the group kernel
+    against the plain version at float64 on 1,024 columns at Nz 16 and its
+    stored carries against the group rollout's at full width."""
+    from terrarium_tpu_torch.ops import fused_vjp as fv
+
+    prebuild(cuda_build, fv, [vjp_key(fv, layout, solver, iters)
+                              for layout in ("group", "one_thread")
+                              for solver, iters in VJP_ROWS.values()])
+    for name, (solver, iters) in VJP_ROWS.items():
+        stats = {layout: vjp_stats(fs, cuda_build, fv, *vjp_key(fv, layout, solver, iters),
+                                   solver) for layout in ("one_thread", "group")}
+        out(check="vjp_build", row=name, solver=solver, picard_iters=iters, **stats, card=card)
+        ops, dt = vjp_operands(tp, fs, solver, iters, torch.float64, VJP_F64_CELLS,
+                               VJP_F64_NZ)
+        kw = dict(stepper="implicit", physics="richards", solver=solver, picard_iters=iters)
+        got = fv.soil_column_segment_vjp(*ops[0], ops[1], *ops[2], ops[3], dt, *ops[4], **kw)
+        want = fv.soil_column_segment_vjp_plain(*ops[0], ops[1], *ops[2], ops[3], dt, *ops[4],
+                                                **kw)
+        errs = {}
+        for vname, a, b in zip(("U", "sat", "S", "K_sat", "sk_mineral"), got, want):
+            scale = float(b.abs().max())
+            errs[vname] = float((a - b).abs().max())
+            if not bool(torch.isfinite(a).all()) or bool(
+                    ((a - b).abs() > 1e-9 * b.abs() + 1e-12 * scale).any()):
+                raise AssertionError(f"{name} group VJP vs plain {vname} (f64): {errs[vname]}")
+        del ops, got, want
+        ops, dt = vjp_operands(tp, fs, solver, iters)
+        steps, parted = cs.vjp_recompute_check(fs, fv, cuda_build, ops, dt, solver, iters)
+        if parted:
+            raise AssertionError(f"{name}: {parted} columns' stored carries part")
+        out(check="vjp_teacher", row=name, solver=solver, picard_iters=iters,
+            f64=[VJP_F64_CELLS, VJP_F64_NZ, ops[1].shape[0]], f64_rtol=1e-9,
+            f64_max_abs_err=errs, recompute_steps=steps, recompute_columns_parted=parted,
+            card=card)
+        del ops
+
+
+def vjp_timing(tp, fs, cuda_build, card):
+    """Rows 3'b and 3'h, each solver, both layouts in turns at 56,951 x 30
+    float32, one 48-step segment of 900 s; then the group kernel (the Picard
+    entry, which holds a kernel of each solver) at each G and at each launch
+    bound, each solver, one and two iterations, in turns."""
+    from terrarium_tpu_torch.ops import fused_vjp as fv
+
+    variants = {**{f"g{g}": (f"g{g}",) for g in GROUP_SIZES},
+                **{f"mb{b}": (f"mb{b}",) for b in MIN_BLOCKS}}
+    prebuild(cuda_build, fv, [vjp_key(fv, layout, solver, iters)
+                              for layout in ("group", "one_thread")
+                              for solver, iters in VJP_ROWS.values()]
+             + [vjp_key(fv, "group", "pcr", 2, extra) for extra in variants.values()])
+    f32 = torch.float32
+    for name, (solver, iters) in VJP_ROWS.items():
+        ops, dt = vjp_operands(tp, fs, solver, iters)
+        fns, stats = {}, {}
+        for layout in ("one_thread", "group"):
+            source, tags = vjp_key(fv, layout, solver, iters)
+            fn = cuda_build.entry(source, f32, cs.BENCH_NZ, fv._ARGTYPES, tags=tags)
+            stats[layout] = vjp_stats(fs, cuda_build, fv, source, tags, solver)
+            fns[layout] = cs.vjp_launcher(fs, fv, fn, None if layout == "one_thread"
+                                          else stats[layout]["group"], ops, dt, solver,
+                                          iters)[0]
+        t = vjp_turns(fns)
+        out(time=name, solver=solver, picard_iters=iters, cells=cs.GRAD_CELLS, nz=cs.BENCH_NZ,
+            dt=dt, steps=ops[1].shape[0], ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, kernels=stats, card=card)
+        del ops
+    for solver in cs.SOLVERS:
+        for iters in (1, 2):
+            ops, dt = vjp_operands(tp, fs, solver, iters)
+            fns, stats, parted = {}, {}, {}
+            for vname, extra in variants.items():
+                source, tags = vjp_key(fv, "group", "pcr", 2, extra)
+                fn = cuda_build.entry(source, f32, cs.BENCH_NZ, fv._ARGTYPES, tags=tags)
+                stats[vname] = vjp_stats(fs, cuda_build, fv, source, tags, solver)
+                fns[vname] = cs.vjp_launcher(fs, fv, fn, stats[vname]["group"], ops, dt,
+                                             solver, iters)[0]
+                parted[vname] = cs.vjp_recompute_check(fs, fv, cuda_build, ops, dt, solver,
+                                                       iters, tags=tags)[1]
+            t = vjp_turns(fns)
+            out(time="vjp_variants", solver=solver, picard_iters=iters, cells=cs.GRAD_CELLS,
+                nz=cs.BENCH_NZ, dt=dt, steps=ops[1].shape[0],
+                default_group=fv.vjp_group(f32, cs.BENCH_NZ, solver, iters)[1],
+                recompute_columns_parted=parted, kernels=stats, ms=t,
+                median_ms={n: float(np.median(v)) for n, v in t.items()}, card=card)
+            del ops
+
+
+def vjp_turns(fns):
+    """``{name: [ms, ...]}``: each launcher of ``fns`` timed in the turns a,
+    b, ..., ..., b, a, each turn the times of TURN_REPS launches after a
+    warm-up."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n] += cs.cuda_ms_each(fns[n], TURN_REPS)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("rollout_layout_ab: no CUDA device")
@@ -382,7 +583,8 @@ def main():
     from terrarium_tpu_torch.ops import fused_step as fs
 
     {"check": check, "time": timing, "implicit_check": implicit_check,
-     "implicit_time": implicit_timing}[mode](tp, fs, cuda_build, card)
+     "implicit_time": implicit_timing, "vjp_check": vjp_check,
+     "vjp_time": vjp_timing}[mode](tp, fs, cuda_build, card)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 // One closure-rotated soil step (ForwardEuler, Heun or ImplicitEuler with
 // any number of Picard iterations, heat + Richards) of a column spread over
-// a group of G lanes.
+// a group of G lanes, and the segment VJP of ImplicitEuler on that group.
 //
 // soil_step.cuh runs a column on one thread with its NZ levels unrolled in
 // registers. Here the column's levels are spread over G lanes (a power of
@@ -37,6 +37,14 @@
 //   lane, lowest first, each lane running its L rows from what it
 //   receives; the back substitution hands x down the same way. One lane of
 //   a group works at a time, so Thomas favours few lanes of many levels.
+//
+// The adjoint of ImplicitEuler (segment_vjp, the group segment-VJP
+// kernel's column code) undoes each step on the same group: each level
+// gathers, across lanes, the faces' shares of the cotangents that
+// soil_step.cuh's one-thread adjoint scatters, in that adjoint's order;
+// the reverse sweeps carry their cotangent to the lanes that need it by a
+// ballot and a shuffle; each solve's adjoint solves the transposed rows
+// with the same solver.
 //
 // The group's exchange is a Lanes type: WarpLanes, one thread a lane and
 // the warp's shuffles and ballots (device), or HostLanes, the G lanes held
@@ -187,14 +195,27 @@ struct GroupColumn {
         return lanes.down(i, [&](int j) { return v[j][r]; }, q);
     }
 
+    // the predicates of soil::sweeps that the adjoint follows, bit l of
+    // lane i's words for its slot l: spilled (sat + c/dz >= 1 in the up
+    // sweep) and clipped (sat_up - c2/dz <= 0 in the down sweep)
+    struct SweepBits {
+        unsigned spilled[N] = {}, clipped[N] = {};
+    };
+
     // the up sweep over lane i's levels from their saturations s0 and the
-    // carry cc entering the lane; returns the carry leaving it
-    SOIL_FN T up_levels(int i, T (&sat)[N][L], const T (&s0)[N][L], T cc) const {
+    // carry cc entering the lane; returns the carry leaving it (BITS: each
+    // level's predicate to bits.spilled, as this run of the lane takes it)
+    template <bool BITS = false>
+    SOIL_FN T up_levels(int i, T (&sat)[N][L], const T (&s0)[N][L], T cc, SweepBits& bits) const {
 #pragma unroll
         for (int l = 0; l < L; ++l) {
             if (level(i, l) < NZ) {
                 const T sk = s0[i][l];
                 const T x = sk + cc / dz[i][l];
+                if constexpr (BITS) {
+                    if (x >= T(1)) bits.spilled[i] |= 1u << l;
+                    else bits.spilled[i] &= ~(1u << l);
+                }
                 sat[i][l] = vmin(x, T(1));
                 cc = vmax((sk - T(1)) * dz[i][l] + cc, T(0));
             }
@@ -203,12 +224,18 @@ struct GroupColumn {
     }
 
     // the down sweep over lane i's levels, from the top
-    SOIL_FN T down_levels(int i, T (&sat)[N][L], const T (&s0)[N][L], T c2) const {
+    template <bool BITS = false>
+    SOIL_FN T down_levels(int i, T (&sat)[N][L], const T (&s0)[N][L], T c2,
+                          SweepBits& bits) const {
 #pragma unroll
         for (int l = L - 1; l >= 0; --l) {
             if (level(i, l) < NZ) {
                 const T su = s0[i][l];
                 const T y = su - c2 / dz[i][l];
+                if constexpr (BITS) {
+                    if (y <= T(0)) bits.clipped[i] |= 1u << l;
+                    else bits.clipped[i] &= ~(1u << l);
+                }
                 sat[i][l] = vmax(y, T(0));
                 c2 = vmax(-su * dz[i][l] + c2, T(0));
             }
@@ -217,14 +244,15 @@ struct GroupColumn {
     }
 
     // soil::sweeps on the group: the saturation adjustment in place, the
-    // spill added to S, and the water table
-    SOIL_FN void sweeps(T (&sat)[N][L], T& S, T& wt) {
+    // spill added to S, and the water table; BITS: the predicates to bits
+    template <bool BITS = false>
+    SOIL_FN void sweeps(T (&sat)[N][L], T& S, T& wt, SweepBits& bits) {
         T s0[N][L], cc[N];
 #pragma unroll
         for (int i = 0; i < N; ++i) {
 #pragma unroll
             for (int l = 0; l < L; ++l) s0[i][l] = sat[i][l];
-            cc[i] = up_levels(i, sat, s0, T(0));
+            cc[i] = up_levels<BITS>(i, sat, s0, T(0), bits);
         }
         // hand each non-zero carry to the next lane, lowest first, until no
         // lane below the top one sends a carry that its successor has not
@@ -240,7 +268,7 @@ struct GroupColumn {
             if (!m) continue;
 #pragma unroll
             for (int i = 0; i < N; ++i)
-                if (lanes.lane(i) == j + 1) cc[i] = up_levels(i, sat, s0, cin);
+                if (lanes.lane(i) == j + 1) cc[i] = up_levels<BITS>(i, sat, s0, cin, bits);
             ++up_handoffs;
         }
         S = S + lanes.from(TOP, [&](int i) { return cc[i]; });
@@ -249,7 +277,7 @@ struct GroupColumn {
         for (int i = 0; i < N; ++i) {
 #pragma unroll
             for (int l = 0; l < L; ++l) s0[i][l] = sat[i][l];
-            cc[i] = down_levels(i, sat, s0, T(0));
+            cc[i] = down_levels<BITS>(i, sat, s0, T(0), bits);
         }
         for (int j = G;;) {
             const unsigned m = lanes.ballot([&](int i) {
@@ -262,7 +290,7 @@ struct GroupColumn {
             if (!m) continue;
 #pragma unroll
             for (int i = 0; i < N; ++i)
-                if (lanes.lane(i) == j - 1) cc[i] = down_levels(i, sat, s0, cin);
+                if (lanes.lane(i) == j - 1) cc[i] = down_levels<BITS>(i, sat, s0, cin, bits);
             ++down_handoffs;
         }
 
@@ -281,6 +309,11 @@ struct GroupColumn {
             return zl;
         });
         wt = m ? z : zf_top;
+    }
+
+    SOIL_FN void sweeps(T (&sat)[N][L], T& S, T& wt) {
+        SweepBits unused;
+        sweeps<false>(sat, S, wt, unused);
     }
 
     // closure_rhs on the group: the closure of (U, sat, S) with top
@@ -742,6 +775,681 @@ struct GroupColumn {
                     step(U, sat, S, vtop, dt);
                 if (SERIES) t = t + dt;
             }
+        }
+    }
+
+    // ---------------------------------------------------------------------
+    // adjoint: the segment VJP of ImplicitEuler (heat + Richards, the
+    // Dirichlet top, any Picard count) on the group
+    // ---------------------------------------------------------------------
+    //
+    // soil_step.cuh's adjoint (rhs_adjoint, solve_adjoint,
+    // diffusion_rows_adjoint, picard_iter_adjoint, picard_step_adjoint) with
+    // each value formed by the same operations in the same order. Where the
+    // one-thread loop scatters a face's (or a row's) cotangent onto the
+    // levels beside it, each level gathers the faces' shares, across lanes
+    // by the shuffles, and adds them from 0 in the loop's order; a share the
+    // loop does not add is not added (or is an exact 0, which leaves a sum
+    // that is never -0 as it is). So a host build equals the one-thread
+    // adjoint bit for bit (tests/test_torch_group_vjp_host.py). Every
+    // exchange sits outside the predicates, and the slots above NZ take
+    // part in no sum: their rows are identity rows with a zero right side,
+    // their cotangents 0.
+
+    // soil::TermCotangents on the group: the cotangents of ImplicitTerms'
+    // centre thermal conductivity and heat capacity of each level and of
+    // the Darcy conductivity of the face below it
+    struct TermCotangents {
+        T gkap[N][L] = {}, gC[N][L] = {}, gKeff[N][L] = {};
+    };
+
+    // soil::rhs_adjoint (heat + Richards, the implicit terms' cotangents x)
+    // on the group: on entry (gU, gs, gS) are the cotangents of what the
+    // caller reads of the closed column, (gfU, gfs, gfS) those of the
+    // tendencies; on return (gU, gs, gS) are those of the input column (U,
+    // sat, S). Each lane's parameter cotangents accumulate into gKsat[i]
+    // and gskm[i]. The closure is recomputed from the input column, the
+    // sweeps' predicates as bits a lane, then the pieces are undone in
+    // reverse: pool, Darcy flux, face K, heat flux, head and closure, the
+    // down and up sweeps.
+    SOIL_FN void rhs_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S, const T vtop,
+                             T (&gU)[N][L], T (&gs)[N][L], T& gS, const T (&gfU)[N][L],
+                             const T (&gfs)[N][L], const T gfS, const TermCotangents& x,
+                             T (&gKsat)[N], T (&gskm)[N])
+    {
+        // ---- recompute: the sweeps with their predicates, the closure,
+        // the centre and face conductivities, the head
+        T s[N][L], S1 = S, wt;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) s[i][l] = sat[i][l];
+        }
+        SweepBits bits;
+        sweeps<true>(s, S1, wt, bits);
+        T Tk[N][L], kap[N][L], Kc[N][L], psi[N][L], FK[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const Level<T, true> v(s[i][l], U[i][l], c, P);
+                Tk[i][l] = v.Tk;
+                kap[i][l] = v.kap;
+                Kc[i][l] = v.Kc;
+                psi[i][l] = Head<T>(s[i][l], wt, zc[i][l], c, P).psi;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T Kc_lo = at(i, l, -1, Kc);
+                FK[i][l] = (k == 0 || k >= NZ - 1) ? Kc[i][l] : vmin(Kc_lo, Kc[i][l]);
+            }
+        }
+
+        // ---- surface pool: the tendency min(0, S1)
+        const T gS1 = S1 < T(0) ? gS + gfS : gS;
+
+        // ---- Darcy flux at the interior faces f = 1 ... NZ - 1, face f on
+        // the slot of level f: its shares of the face K's cotangents
+        // (gKf[f - 1], gKf[f], gKf[f + 1]: kl, km, kh) and of the heads'
+        // (pg, + to psi[f], - to psi[f - 1])
+        T kl[N][L], km[N][L], kh[N][L], pg[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T gfs_lo = at(i, l, -1, gfs), dz_lo = at(i, l, -1, dz);
+                const T psi_lo = at(i, l, -1, psi), FK_lo = at(i, l, -1, FK);
+                const T FK_hi = at(i, l, 1, FK);
+                kl[i][l] = km[i][l] = kh[i][l] = pg[i][l] = T(0);
+                if (k < 1 || k >= NZ) continue;
+                // dsat/dt[k] = (-((qw[k+1] - qw[k]) / dz[k])) / por
+                const T glo = -(gfs_lo / c.por) / dz_lo;
+                const T ghi = -(gfs[i][l] / c.por) / dz[i][l];
+                const T gqw = glo - ghi;
+                const T grad = (psi[i][l] - psi_lo) / dzf[i][l];
+                const T K_f = FK[i][l];
+                const T K_lo = FK_lo;
+                const T K_hi = k == NZ - 1 ? Kc[i][l] : FK_hi;
+                const T K_eff = grad < T(0) ? vmin(K_lo, K_f) : vmin(K_f, K_hi);
+                T gK = -gqw * grad;
+                gK = gK + x.gKeff[i][l];
+                const T ggrad = -gqw * K_eff;
+                if (grad < T(0)) min_adjoint(K_lo, K_f, gK, kl[i][l], km[i][l]);
+                else min_adjoint(K_f, K_hi, gK, km[i][l], kh[i][l]);
+                pg[i][l] = ggrad / dzf[i][l];
+            }
+        }
+        // each face K's cotangent from faces f - 1, f and f + 1 in turn (the
+        // surface face's, gKf_top, from face NZ - 1 alone); each head's
+        // from faces k and k + 1
+        T gKf[N][L], gpsi[N][L], gKf_top = T(0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T kh_lo = at(i, l, -1, kh), kl_hi = at(i, l, 1, kl);
+                const T pg_hi = at(i, l, 1, pg);
+                T g = T(0), gp = T(0);
+                if (k >= 2 && k <= NZ - 1) g += kh_lo;
+                if (k >= 1 && k <= NZ - 1) {
+                    g += km[i][l];
+                    gp += pg[i][l];
+                }
+                if (k <= NZ - 2) {
+                    g += kl_hi;
+                    gp -= pg_hi;
+                }
+                gKf[i][l] = g;
+                gpsi[i][l] = gp;
+                if (k == NZ - 1) gKf_top = T(0) + kh[i][l];
+            }
+        }
+
+        // ---- face K from centre K: gKc[0] += gKf[0]; faces 1 ... NZ - 2
+        // split theirs between the levels either side (el below, em at the
+        // face's own); gKc[NZ - 1] += gKf[NZ - 1] + gKf[NZ]
+        T el[N][L], em[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T Kc_lo = at(i, l, -1, Kc);
+                el[i][l] = em[i][l] = T(0);
+                if (k >= 1 && k <= NZ - 2) min_adjoint(Kc_lo, Kc[i][l], gKf[i][l], el[i][l],
+                                                       em[i][l]);
+            }
+        }
+        T gKc[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T el_hi = at(i, l, 1, el);
+                T g = T(0);
+                if (k == 0) g += gKf[i][l];
+                if (k >= 1 && k <= NZ - 2) g += em[i][l];
+                if (k <= NZ - 3) g += el_hi;
+                if (k == NZ - 1) g += gKf[i][l] + gKf_top;
+                gKc[i][l] = g;
+            }
+        }
+
+        // ---- heat flux: face f = 1 ... NZ - 1 on the slot of level f (its
+        // share 0.5 gkf of each side's kap and gD / dzf of each side's T),
+        // the top face (the Dirichlet ghost 2 v - T) on the slot of NZ - 1
+        T hk[N][L], qk[N][L], top_gkap = T(0), top_gT = T(0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T gfU_lo = at(i, l, -1, gfU), dz_lo = at(i, l, -1, dz);
+                const T Tk_lo = at(i, l, -1, Tk), kap_lo = at(i, l, -1, kap);
+                hk[i][l] = qk[i][l] = T(0);
+                if (k < 1 || k >= NZ) continue;
+                // dU/dt[k] = -((qh[k+1] - qh[k]) / dz[k])
+                const T glo = -gfU_lo / dz_lo;
+                const T ghi = -gfU[i][l] / dz[i][l];
+                const T gqh = glo - ghi;
+                const T D = (Tk[i][l] - Tk_lo) / dzf[i][l];
+                const T kf = T(0.5) * (kap[i][l] + kap_lo);
+                const T gkf = -gqh * D;
+                const T gD = -gqh * kf;
+                hk[i][l] = T(0.5) * gkf;
+                qk[i][l] = gD / dzf[i][l];
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                if (level(i, l) != NZ - 1) continue;
+                const T glo = -gfU[i][l] / dz[i][l];
+                const T ghi = T(0);
+                const T gqh = glo - ghi;
+                const T ghost = T(2) * vtop - Tk[i][l];
+                const T D = (ghost - Tk[i][l]) / dzf_top;
+                const T kf = T(0.5) * (kap[i][l] + kap[i][l]);
+                top_gkap = -gqh * D;
+                const T gD = -gqh * kf;
+                top_gT = (gD / dzf_top) + (gD / dzf_top);
+            }
+        }
+        T gT[N][L], gkap[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T hk_hi = at(i, l, 1, hk), qk_hi = at(i, l, 1, qk);
+                T gk = T(0), gt = T(0);
+                if (k >= 1 && k <= NZ - 1) {
+                    gk += hk[i][l];
+                    gt += qk[i][l];
+                }
+                if (k <= NZ - 2) {
+                    gk += hk_hi;
+                    gt -= qk_hi;
+                }
+                if (k == NZ - 1) {
+                    gk += top_gkap;
+                    gt -= top_gT;
+                }
+                gkap[i][l] = gk + x.gkap[i][l];
+                gT[i][l] = gt;
+            }
+        }
+
+        // ---- pressure head and closure, slot by slot
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                if (level(i, l) >= NZ) continue;
+                T gsk = gs[i][l];  // what the caller reads of the closed saturation
+                // psi = psi_h + psi_m + (z - z_top); psi_m = max(raw, psi_min)
+                // below saturation, raw = -(1/alpha) (ss^(-1/m) - 1)^(1/n)
+                const Head<T> h(s[i][l], wt, zc[i][l], c, P);
+                if (!(h.se >= T(1)) && h.raw >= c.psi_min && h.se >= c.vg_se_lo
+                    && h.se <= c.vg_se_hi) {
+                    const T gX = gpsi[i][l] * c.neg_inv_alpha * dfpow(h.X, P.num_inv_n,
+                                                                      P.den_inv_n, c.p_inv_n);
+                    const T gss = gX * dfpow(h.ss, P.num_inv_m, P.den_inv_m, c.p_inv_m);
+                    gsk += (gss / c.vg_span) * c.por;
+                }
+                const Level<T, true> v(s[i][l], U[i][l], c, P);
+                T gUk = gU[i][l];  // what the caller reads of U
+                level_adjoint<T, true, true>(v, s[i][l], U[i][l], gT[i][l], gkap[i][l],
+                                             gKc[i][l], x.gC[i][l], c, P, gsk, gUk, gKsat[i],
+                                             gskm[i]);
+                gs[i][l] = gsk;
+                gU[i][l] = gUk;
+            }
+        }
+
+        // ---- the saturation adjustment in reverse. The down sweep from
+        // the bottom: a clipped level takes -g2 dz of the cotangent g2
+        // carried up, any other sets g2 = -gs / dz. The g2 entering a lane is
+        // what the nearest lane below with an unclipped level sends (0 where
+        // none has): a ballot finds those lanes and one shuffle hands it.
+        T out[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            T g2 = T(0);
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+                if (level(i, l) < NZ && !(bits.clipped[i] & (1u << l))) g2 = -gs[i][l] / dz[i][l];
+            out[i] = g2;
+        }
+        unsigned m = lanes.ballot([&](int i) { return reset_in(i, bits.clipped[i]); });
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const int ln = lanes.lane(i);
+            const unsigned below = m & ((1u << ln) - 1u);
+            const T g_in = lanes.from(below ? Lanes::highest(below) : ln,
+                                      [&](int j) { return out[j]; });
+            T g2 = below ? g_in : T(0);
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                if (level(i, l) >= NZ) continue;
+                const T gnew = gs[i][l];
+                if (bits.clipped[i] & (1u << l)) {
+                    gs[i][l] = -g2 * dz[i][l];
+                } else {
+                    gs[i][l] = gnew;
+                    g2 = -gnew / dz[i][l];
+                }
+            }
+        }
+        // the up sweep from the top: a spilled level takes g dz of the
+        // cotangent g carried down (the spill's, gS1, above the top), any
+        // other sets g = gs / dz; the g entering a lane is what the nearest
+        // lane above with an unspilled level sends, or gS1
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            T g = T(0);
+#pragma unroll
+            for (int l = L - 1; l >= 0; --l)
+                if (level(i, l) < NZ && !(bits.spilled[i] & (1u << l))) g = gs[i][l] / dz[i][l];
+            out[i] = g;
+        }
+        m = lanes.ballot([&](int i) { return reset_in(i, bits.spilled[i]); });
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const int ln = lanes.lane(i);
+            const unsigned above = ln < 31 ? (m >> (ln + 1)) << (ln + 1) : 0u;
+            const T g_in = lanes.from(above ? Lanes::lowest(above) : ln,
+                                      [&](int j) { return out[j]; });
+            T g = above ? g_in : gS1;
+#pragma unroll
+            for (int l = L - 1; l >= 0; --l) {
+                if (level(i, l) >= NZ) continue;
+                const T gup = gs[i][l];
+                if (bits.spilled[i] & (1u << l)) {
+                    gs[i][l] = g * dz[i][l];
+                } else {
+                    gs[i][l] = gup;
+                    g = gup / dz[i][l];
+                }
+            }
+        }
+        gS = gS1;
+    }
+
+    // whether lane i has a level in the column whose bit of `taken` is 0
+    // (a level of the reverse sweeps that resets the carried cotangent)
+    SOIL_FN bool reset_in(int i, unsigned taken) const {
+        bool any = false;
+#pragma unroll
+        for (int l = 0; l < L; ++l) any = any || (level(i, l) < NZ && !(taken & (1u << l)));
+        return any;
+    }
+
+    // soil::solve_adjoint on the group: x = A^-1 d solved again, then gd =
+    // A^-T gx by the same solver on the transposed rows (sub-diagonal
+    // c[k-1], super-diagonal a[k+1], one level across the lane boundary),
+    // one solver body for both in a loop that is not unrolled; the rows'
+    // cotangents ga = -gd x[k-1], gb = -gd x[k], gc = -gd x[k+1] (0 outside
+    // the matrix and on the slots above NZ)
+    template <int SOLVER>
+    SOIL_FN void solve_adjoint(const T (&a)[N][L], const T (&b)[N][L], const T (&c_)[N][L],
+                               const T (&d)[N][L], const T (&gx)[N][L], T (&gd)[N][L],
+                               T (&ga)[N][L], T (&gb)[N][L], T (&gc)[N][L]) const {
+        T x[N][L];
+#pragma unroll 1
+        for (int pass = 0; pass < 2; ++pass) {
+            const bool t = pass == 1;
+            T a2[N][L], b2[N][L], c2[N][L], r[N][L];
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    const int k = level(i, l);
+                    const T c_lo = at(i, l, -1, c_), a_hi = at(i, l, 1, a);
+                    const bool in = k < NZ;
+                    a2[i][l] = !in ? T(0) : (t ? (k == 0 ? T(0) : c_lo) : a[i][l]);
+                    b2[i][l] = !in ? T(1) : b[i][l];
+                    c2[i][l] = !in ? T(0) : (t ? (k == NZ - 1 ? T(0) : a_hi) : c_[i][l]);
+                    r[i][l] = !in ? T(0) : (t ? gx[i][l] : d[i][l]);
+                }
+            }
+            solve<SOLVER>(a2, b2, c2, r);
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    if (t) gd[i][l] = r[i][l];
+                    else x[i][l] = r[i][l];
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T x_lo = at(i, l, -1, x), x_hi = at(i, l, 1, x);
+                if (k >= NZ) {
+                    gd[i][l] = ga[i][l] = gb[i][l] = gc[i][l] = T(0);
+                    continue;
+                }
+                ga[i][l] = k == 0 ? T(0) : -gd[i][l] * x_lo;
+                gb[i][l] = -gd[i][l] * x[i][l];
+                gc[i][l] = k == NZ - 1 ? T(0) : -gd[i][l] * x_hi;
+            }
+        }
+    }
+
+    // soil::diffusion_rows_adjoint on the group: the rows' cotangents back
+    // to the face conductivities (gKf of the face below each level, gKf_top
+    // of the surface face, which only the Dirichlet top reads) and the
+    // chain factors gD. Row k forms its shares on its slot, each level
+    // gathers them in the one-thread loop's order: gKf[k] from row k - 1's
+    // upper face, then row k's lower; gD[k] from row k - 1, row k's two
+    // faces, then row k + 1.
+    SOIL_FN void rows_adjoint(const T (&Kf)[N][L], const T Kf_top, const T (&D)[N][L],
+                              const T s, const bool dirichlet, const T (&ga)[N][L],
+                              const T (&gb)[N][L], const T (&gc)[N][L], T (&gKf)[N][L],
+                              T& gKf_top, T (&gD)[N][L]) const {
+        // row k's shares: klo (gKf[k]), khi (gKf[k + 1]), dlo (gD[k - 1]),
+        // dhi (gD[k + 1]), do_lo and do_hi (gD[k], its lower and upper face)
+        T klo[N][L], khi[N][L], dlo[N][L], dhi[N][L], do_lo[N][L], do_hi[N][L];
+        T top_K = T(0), top_D = T(0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T D_lo = at(i, l, -1, D), D_hi = at(i, l, 1, D);
+                const T Kf_up = at(i, l, 1, Kf);
+                const T Kf_hi = k == NZ - 1 ? Kf_top : Kf_up;
+                klo[i][l] = khi[i][l] = dlo[i][l] = dhi[i][l] = do_lo[i][l] = do_hi[i][l] = T(0);
+                if (k >= NZ) continue;
+                if (k > 0) {  // a[k] = -((s Kf[k] D[k-1]) / lo), b[k] += (s Kf[k] D[k]) / lo
+                    const T lo = dzf[i][l] * dz[i][l], sK = s * Kf[i][l];
+                    const T qa = -ga[i][l] / lo, qb = gb[i][l] / lo;
+                    klo[i][l] = s * (qa * D_lo + qb * D[i][l]);
+                    dlo[i][l] = qa * sK;
+                    do_lo[i][l] = qb * sK;
+                }
+                if (k < NZ - 1) {  // c[k] = -((s Kf[k+1] D[k+1]) / hi), b[k] += (s Kf[k+1] D[k]) / hi
+                    const T hi = dzfa[i][l] * dz[i][l], sK = s * Kf_hi;
+                    const T qc = -gc[i][l] / hi, qb = gb[i][l] / hi;
+                    khi[i][l] = s * (qc * D_hi + qb * D[i][l]);
+                    dhi[i][l] = qc * sK;
+                    do_hi[i][l] = qb * sK;
+                }
+                if (dirichlet && k == NZ - 1) {  // b[NZ-1] += ((2 s Kf[NZ]) D[NZ-1]) / (dzf[NZ] dz[NZ-1])
+                    const T q = gb[i][l] / (dzf_top * dz[i][l]);
+                    top_K = (T(2) * s) * (q * D[i][l]);
+                    top_D = q * ((T(2) * s) * Kf_top);
+                }
+            }
+        }
+        gKf_top = T(0) + top_K;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T khi_lo = at(i, l, -1, khi), dhi_lo = at(i, l, -1, dhi);
+                const T dlo_hi = at(i, l, 1, dlo);
+                T gk = T(0), gd = T(0);
+                if (k >= 1 && k <= NZ - 1) {
+                    gk += khi_lo;
+                    gd += dhi_lo;
+                }
+                if (k >= 1 && k <= NZ - 1) gk += klo[i][l];
+                if (k < NZ) {
+                    if (k > 0) gd += do_lo[i][l];
+                    if (k < NZ - 1) gd += do_hi[i][l];
+                }
+                if (k <= NZ - 2) gd += dlo_hi;
+                if (k == NZ - 1 && dirichlet) gd += top_D;
+                gKf[i][l] = gk;
+                gD[i][l] = gd;
+            }
+        }
+    }
+
+    // soil::picard_iter_adjoint on the group: cotangents through one
+    // iteration of picard_step at its iterate (U, sat, S) before the
+    // iteration's closure; `later`: an iteration after the first, whose
+    // right side is tend(u_k) - (u_k - u^n) / dt (Un, sn: u^n), its pool
+    // dropped. The closure, the tendencies, the terms and the rows are
+    // recomputed there and each system is undone by one solve of its
+    // transposed rows, Richards then heat, by one body in a loop that is not
+    // unrolled.
+    template <int SOLVER>
+    SOIL_FN void picard_iter_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S,
+                                     const T vtop, const bool later, const T (&Un)[N][L],
+                                     const T (&sn)[N][L], T (&gU)[N][L], T (&gs)[N][L], T& gS,
+                                     T (&gUn)[N][L], T (&gsn)[N][L], T (&gKsat)[N],
+                                     T (&gskm)[N], const T dt, const T inv_dt) {
+        T xs[N][L], xS = S;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) xs[i][l] = sat[i][l];
+        }
+        ImplicitTerms f;
+        rhs(U, xs, xS, vtop, f);
+        TermCotangents x;
+        T gfU[N][L], gfs[N][L];
+#pragma unroll 1
+        for (int sys = 0; sys < 2; ++sys) {  // 0: Richards, 1: heat
+            const bool heat = sys == 1;
+            T Kf[N][L], D[N][L], d[N][L], gx[N][L], gd[N][L], gKf[N][L], gD[N][L];
+            T a[N][L], b[N][L], cc[N][L], ga[N][L], gb[N][L], gc[N][L];
+            T Kf_top = T(0), gKf_top;
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    const int k = level(i, l);
+                    const T kap_lo = at(i, l, -1, f.kap);
+                    Kf[i][l] = heat ? T(0.5) * (f.kap[i][l] + (k == 0 ? f.kap[i][l] : kap_lo))
+                                    : f.Keff[i][l];
+                    if (heat && k == NZ - 1) Kf_top = T(0.5) * (f.kap[i][l] + f.kap[i][l]);
+                    D[i][l] = heat ? f.Dh[i][l] : water_chain<T>(xs[i][l], c, P);
+                    d[i][l] = heat ? f.U[i][l] : f.sat[i][l];
+                    if (later && k < NZ)
+                        d[i][l] = d[i][l] - ((heat ? U[i][l] : xs[i][l])
+                                             - (heat ? Un[i][l] : sn[i][l])) / dt;
+                    gx[i][l] = k < NZ ? (heat ? gU[i][l] : gs[i][l]) : T(0);
+                }
+            }
+            const T s = heat ? T(1) : c.inv_por;
+            rows(Kf, Kf_top, D, s, inv_dt, heat, a, b, cc);
+            solve_adjoint<SOLVER>(a, b, cc, d, gx, gd, ga, gb, gc);
+            rows_adjoint(Kf, Kf_top, D, s, heat, ga, gb, gc, gKf, gKf_top, gD);
+            if (heat) {
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        const int k = level(i, l);
+                        const T gKf_up = at(i, l, 1, gKf);
+                        const T gKf_hi = k == NZ - 1 ? gKf_top : gKf_up;
+                        gfU[i][l] = gd[i][l];
+                        x.gkap[i][l] = T(0.5) * (gKf[i][l] + gKf_hi);
+                        // Dh = 1/C, or 0 on the plateau
+                        x.gC[i][l] = -(gD[i][l] * f.Dh[i][l]) * f.Dh[i][l];
+                        if (k == 0) x.gkap[i][l] = x.gkap[i][l] + T(0.5) * gKf[i][l];
+                        if (k == NZ - 1) x.gkap[i][l] = x.gkap[i][l] + T(0.5) * gKf_top;
+                        if (k >= NZ) x.gkap[i][l] = x.gC[i][l] = T(0);
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        gfs[i][l] = gd[i][l];
+                        if (level(i, l) < NZ)
+                            gs[i][l] = gs[i][l] + gD[i][l] * water_chain_deriv<T>(xs[i][l], c, P);
+                        x.gKeff[i][l] = gKf[i][l];
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                if (level(i, l) >= NZ) continue;
+                if (later) {
+                    const T qU = gfU[i][l] / dt;
+                    gU[i][l] = gU[i][l] - qU;
+                    gUn[i][l] = gUn[i][l] + qU;
+                    const T qs = gfs[i][l] / dt;
+                    gs[i][l] = gs[i][l] - qs;
+                    gsn[i][l] = gsn[i][l] + qs;
+                } else {
+                    gU[i][l] = gU[i][l] + gUn[i][l];
+                    gs[i][l] = gs[i][l] + gsn[i][l];
+                }
+            }
+        }
+        T gSk = later ? T(0) : gS;
+        rhs_adjoint(U, sat, S, vtop, gU, gs, gSk, gfU, gfs, gSk * dt, x, gKsat, gskm);
+        if (!later) gS = gSk;
+    }
+
+    // soil::picard_step_adjoint on the group: the iterations undone from
+    // the last; for iteration k the iterate u_k is recomputed from the
+    // step's start by picard_step's first k iterations, the forward's own
+    // code at the forward's G (nothing is stored per iteration), then
+    // picard_iter_adjoint takes it back to the iterate before it. The
+    // closed start u^n that the later iterations read is the start's sweeps.
+    template <int SOLVER>
+    SOIL_FN void picard_step_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S,
+                                     const T vtop, T (&gU)[N][L], T (&gs)[N][L], T& gS,
+                                     T (&gKsat)[N], T (&gskm)[N], const T dt, const T inv_dt,
+                                     const int iters) {
+        T sn[N][L], gUn[N][L] = {}, gsn[N][L] = {};
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) sn[i][l] = sat[i][l];
+        }
+        {
+            T Sx = S, wt;
+            sweeps(sn, Sx, wt);
+        }
+#pragma unroll 1
+        for (int it = iters - 1; it >= 0; --it) {
+            T xU[N][L], xs[N][L], xS = S;
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) { xU[i][l] = U[i][l]; xs[i][l] = sat[i][l]; }
+            }
+            picard_step<SOLVER>(xU, xs, xS, vtop, dt, inv_dt, it);
+            picard_iter_adjoint<SOLVER>(xU, xs, xS, vtop, it > 0, U, sn, gU, gs, gS, gUn, gsn,
+                                        gKsat, gskm, dt, inv_dt);
+        }
+    }
+
+    // the sum of v over the group's lanes by a fixed tree (lane j adds lane
+    // j + d's, d = G/2, ..., 1), lane 0's, on every lane
+    SOIL_FN T group_sum(const T (&v)[N]) const {
+        T a[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) a[i] = v[i];
+#pragma unroll
+        for (int d = G / 2; d > 0; d >>= 1) {
+            T b[N];
+#pragma unroll
+            for (int i = 0; i < N; ++i) b[i] = a[i] + lanes.down(i, [&](int j) { return a[j]; }, d);
+#pragma unroll
+            for (int i = 0; i < N; ++i) a[i] = b[i];
+        }
+        return lanes.from(0, [&](int j) { return a[j]; });
+    }
+
+    // soil::segment_vjp_column of picard_step (SOLVER, `iters` Picard
+    // iterations) on the group: `steps` steps from the carry (U, sat, S),
+    // the top temperature of step s top[s * step_stride], each step's input
+    // carry stored to `scratch` where `store` (2 NZ + 1 values a column and
+    // step, laid out [step][column][row] with the rows U[0 .. NZ), sat[0 ..
+    // NZ), S, so that a group's stores are contiguous); then the reverse
+    // sweep of picard_step_adjoint from the output cotangents (gU, gs, gS),
+    // which become the input carry's. A group that does not store (the
+    // groups beyond the last column) recomputes from its own carry, and its
+    // results are not used. Each lane's parameter cotangents accumulate into
+    // gKsat[i] and gskm[i].
+    template <int SOLVER>
+    SOIL_FN void segment_vjp(T (&U)[N][L], T (&sat)[N][L], T& S, T (&gU)[N][L], T (&gs)[N][L],
+                             T& gS, T* scratch, const long long col, const long long cells,
+                             const bool store, const T* top, const long long step_stride,
+                             const int steps, const T dt, const T inv_dt, const int iters,
+                             T (&gKsat)[N], T (&gskm)[N]) {
+        constexpr long long ROWS = 2 * NZ + 1;
+        for (int s = 0; s < steps; ++s) {
+            T* rec = scratch + ((long long)s * cells + col) * ROWS;
+            if (store) {
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        const int k = level(i, l);
+                        if (k < NZ) {
+                            rec[k] = U[i][l];
+                            rec[NZ + k] = sat[i][l];
+                        }
+                    }
+                    if (lanes.lane(i) == 0) rec[2 * NZ] = S;
+                }
+            }
+            picard_step<SOLVER>(U, sat, S, top[s * step_stride], dt, inv_dt, iters);
+        }
+        for (int s = steps - 1; s >= 0; --s) {
+            const T* rec = scratch + ((long long)s * cells + col) * ROWS;
+            if (store) {
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        const int k = level(i, l);
+                        if (k < NZ) {
+                            U[i][l] = rec[k];
+                            sat[i][l] = rec[NZ + k];
+                        }
+                    }
+                }
+                S = rec[2 * NZ];
+            }
+            picard_step_adjoint<SOLVER>(U, sat, S, top[s * step_stride], gU, gs, gS, gKsat,
+                                        gskm, dt, inv_dt, iters);
         }
     }
 };

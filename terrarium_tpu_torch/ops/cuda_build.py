@@ -83,19 +83,27 @@ INSTANTIATIONS = {
     ],
     # ForwardEuler over heat + Richards (no tags) at the gradient grids; each
     # other scheme at its forward kernel's sizes: Heun f64 Nz 15 and f32 Nz
-    # 30, ImplicitEuler f64 Nz 16 and f32 Nz 30, heat-only ForwardEuler Nz
-    # 30, heat-only Heun f64 Nz 16 and f32 Nz 30, the Picard entries
+    # 30, heat-only ForwardEuler Nz 30, heat-only Heun f64 Nz 16 and f32 Nz
+    # 30, the heat-only Picard entries (ImplicitEuler's heat + Richards
+    # entries stay buildable on demand, to time the one-thread layout
+    # against the group's)
     "soil_column_segment_vjp": [
-        (("implicit", "picard", "richards"), _F32, 30),
-        (("implicit", "pcr", "richards"), _F32, 30),
-        (("implicit", "thomas", "richards"), _F32, 30),
-        (("implicit", "picard", "richards"), _F64, 16), (("heun", "richards"), _F32, 30),
-        (("implicit", "pcr", "richards"), _F64, 16), ((), _F64, 30),
-        (("implicit", "thomas", "richards"), _F64, 16), (("heun", "richards"), _F64, 15),
+        (("heun", "richards"), _F32, 30), ((), _F64, 30), (("heun", "richards"), _F64, 15),
         ((), _F32, 30), ((), _F64, 20), ((), _F32, 20),
         (("implicit", "picard", "heat"), _F32, 30), (("implicit", "picard", "heat"), _F64, 16),
         (("heun", "heat"), _F32, 30), (("euler", "heat"), _F64, 30),
         (("euler", "heat"), _F32, 30), (("heun", "heat"), _F64, 16),
+    ],
+    # ImplicitEuler over heat + Richards, a column on a group of lanes: each
+    # solver and the Picard entries (which hold a kernel of each solver) at
+    # the gradient's float32 Nz 30 and the float64 checks' Nz 16
+    "soil_column_group_segment_vjp": [
+        (("implicit", "picard", "richards"), _F64, 16),
+        (("implicit", "picard", "richards"), _F32, 30),
+        (("implicit", "thomas", "richards"), _F64, 16),
+        (("implicit", "pcr", "richards"), _F64, 16),
+        (("implicit", "thomas", "richards"), _F32, 30),
+        (("implicit", "pcr", "richards"), _F32, 30),
     ],
     # one full step (make_fused_step): the bench width at float32 for each
     # stepper and physics, and the float64 checks against the plain version;
@@ -183,9 +191,12 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "veg": ("LAND_VEG=1",), "vg": ("LAND_CURVE=0",), "bc": ("LAND_CURVE=1",),
             "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",),
             "micro": ("PROBE_ROW=4",), "bisect": ("PROBE_ROW=5",), "repro": ("PROBE_ROW=6",),
-            # the group rollout at a group size other than its depth's
-            # (soil::group_lanes), for measuring one against another
-            **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (4, 8, 16, 32)}}
+            # the group kernels at a group size other than their depth's
+            # (soil::group_lanes) and the group segment VJP at another
+            # launch bound (resident blocks an SM), for measuring one
+            # against another
+            **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (4, 8, 16, 32)},
+            **{f"mb{b}": (f"SOIL_MIN_BLOCKS={b}",) for b in (1, 2, 3, 4)}}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernels' float64 instantiations, which serve the checks
 #: against the plain version at 1e-12 (the VJP's at 1e-9), contract no

@@ -17,11 +17,16 @@ reads: the saturation's cotangent gathers every step's, the pool has none
 ``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp``, which is generic over
 the stepper. The clock is not differentiated.
 
-The CUDA source is ``csrc/soil_column_segment_vjp.cu``, with the steps and
+The CUDA sources: ImplicitEuler over heat + Richards (``GROUP_SCHEMES``,
+either solver, any Picard count) runs each column on a group of lanes,
+``csrc/soil_column_group_segment_vjp.cu`` (``soil::GroupColumn::
+segment_vjp`` in ``csrc/soil_group_step.cuh``, the forward and its
+recompute the group rollout's ``picard_step``); every other scheme one
+thread a column, ``csrc/soil_column_segment_vjp.cu``, with the steps and
 their hand-derived adjoints in ``csrc/soil_step.cuh``. On CPU tensors the
 wrapper runs :func:`soil_column_segment_vjp_plain`, torch autograd through
-the plain rollout; on CUDA tensors it launches the kernel or raises. Each
-launch adds one to ``soil_column_segment_vjp.launches``.
+the plain rollout; on CUDA tensors it launches the scheme's kernel or
+raises. Each launch adds one to ``soil_column_segment_vjp.launches``.
 """
 from __future__ import annotations
 
@@ -36,14 +41,19 @@ from .fused_step import SOLVER_CODES, ColumnParams, SeriesBC, _check_inputs, _CP
 from .tridiag import SOLVERS
 
 __all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain", "VJP_SCHEMES",
-           "vjp_tags"]
+           "GROUP_SCHEMES", "vjp_tags", "vjp_group"]
 
 _NAME = "soil_column_segment_vjp"  # csrc/soil_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
+_GROUP_NAME = "soil_column_group_segment_vjp"  # csrc/soil_column_group_segment_vjp.cu
+_GROUP_THREADS = 256  # threads a block of the group kernel: 256 / G columns
 #: the (stepper, physics) that have a segment VJP; ImplicitEuler with any
 #: number of Picard iterations
 VJP_SCHEMES = (("euler", "richards"), ("heun", "richards"), ("implicit", "richards"),
                ("euler", "heat"), ("heun", "heat"), ("implicit", "heat"))
+#: the (stepper, physics) whose segment VJP runs each column on a group of
+#: lanes (every Picard count, either solver)
+GROUP_SCHEMES = (("implicit", "richards"),)
 
 
 def _check_scheme(stepper: str, physics: str, solver: str, picard_iters: int = 1) -> None:
@@ -98,6 +108,22 @@ _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+def vjp_group(dtype: torch.dtype, nz: int, solver: str, picard_iters: int) -> tuple:
+    """``(resident warps an SM, G)`` of the group segment-VJP kernel of
+    ImplicitEuler over heat + Richards with ``solver`` in the entry of
+    ``picard_iters`` at ``dtype`` and depth ``nz``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at first
+    use)."""
+    fn = cuda_build.entry(_GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                          tags=vjp_tags("implicit", "richards", solver, picard_iters),
+                          suffix="_warps")
+    group = ctypes.c_int(0)
+    warps = fn(SOLVER_CODES[solver], ctypes.byref(group))
+    if warps < 0:
+        raise RuntimeError("the occupancy query of the group segment-VJP kernel failed")
+    return warps, group.value
+
+
 def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
                             params: ColumnParams, dt: float, gU, gsat, gS, *,
                             stepper: str = "euler", physics: str = "richards",
@@ -132,18 +158,24 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
     if U.device.type != "cuda":
         raise ValueError(f"soil column segment VJP runs on cpu or cuda, not {U.device}")
     nz, cells = U.shape
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES,
-                          tags=vjp_tags(stepper, physics, solver, picard_iters))
     if not all(t.is_contiguous() for _, g, u in pairs for t in (g, u)) or not all(
             c.is_contiguous() for c in coords):
         raise ValueError("the segment VJP kernel takes contiguous tensors")
-    blocks = -(-cells // _THREADS)
+    tags = vjp_tags(stepper, physics, solver, picard_iters)
+    rows = nz if heat else 2 * nz + 1
+    if (stepper, physics) in GROUP_SCHEMES:
+        fn = cuda_build.entry(_GROUP_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
+        group = vjp_group(U.dtype, nz, solver, picard_iters)[1]
+        blocks = -(-cells // (_GROUP_THREADS // group))
+        scratch = torch.empty(steps, cells, rows, dtype=U.dtype, device=U.device)
+    else:
+        fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
+        blocks = -(-cells // _THREADS)
+        scratch = torch.empty(steps, rows, cells, dtype=U.dtype, device=U.device)
     gU0, gsat0 = torch.empty_like(U), torch.empty_like(sat)
     gS0 = None if heat else torch.empty_like(S)
     partials = torch.empty(2, blocks, dtype=U.dtype, device=U.device)
     gparams = torch.empty(2, dtype=U.dtype, device=U.device)
-    rows = nz if heat else 2 * nz + 1
-    scratch = torch.empty(steps, rows, cells, dtype=U.dtype, device=U.device)
     step_stride = top_T.stride(0)
     cell_stride = top_T.stride(1) if top_T.dim() == 2 else 0
     cparams = _CParams.of(params)

@@ -4,11 +4,22 @@
 // column code, each group of G lanes emulated by one thread in lockstep
 // (soil::HostLanes), beside the one-thread-a-column rollout loop it
 // replaces on the card (soil::rollout_column of soil_step.cuh), each run
-// over every column behind a plain C interface.
+// over every column behind a plain C interface. Built with
+// -DSOIL_GROUP_VJP_HOST (tests/test_torch_group_vjp_host.py), the group
+// segment-VJP kernel's column code (soil::GroupColumn::segment_vjp) beside
+// the one-thread segment VJP it replaces (soil::segment_vjp_column of
+// picard_step), and the implicit group step, instead of the explicit
+// steppers and the one-thread implicit step.
+#include <vector>
+
 #include "soil_group_step.cuh"
 
 namespace {
 
+#define ROLLOUT_ARGS U, sat, S, top, step_stride, cell_stride, rows, t0, dts, time0, dz, dzf, \
+                     zc, zf, P, steps, dt, cells
+
+#ifndef SOIL_GROUP_VJP_HOST
 // soil::rollout_column over every column: ForwardEuler or Heun, heat +
 // Richards, the top temperature from a table or (rows > 0) a series
 template <int NZ, int STEPPER, bool SERIES>
@@ -69,9 +80,6 @@ void group_columns(double* U, double* sat, double* S, const double* top, long lo
         }
     }
 }
-
-#define ROLLOUT_ARGS U, sat, S, top, step_stride, cell_stride, rows, t0, dts, time0, dz, dzf, \
-                     zc, zf, P, steps, dt, cells
 
 template <int NZ>
 int thread_scheme(int stepper, double* U, double* sat, double* S, const double* top,
@@ -151,6 +159,8 @@ void thread_picard_columns(double* U, double* sat, double* S, const double* top,
     }
 }
 
+#endif
+
 // soil::GroupColumn::rollout of ImplicitEuler (picard_step with SOLVER and
 // `iters` Picard iterations) over every column on a group of G emulated
 // lanes
@@ -187,6 +197,7 @@ void group_picard_columns(double* U, double* sat, double* S, const double* top,
     }
 }
 
+#ifndef SOIL_GROUP_VJP_HOST
 template <int NZ>
 int thread_picard(double* U, double* sat, double* S, const double* top, long long step_stride,
                   long long cell_stride, int rows, double t0, double dts, double time0,
@@ -198,6 +209,8 @@ int thread_picard(double* U, double* sat, double* S, const double* top, long lon
     else thread_picard_columns<NZ, false>(ROLLOUT_ARGS, solver, iters);
     return 0;
 }
+
+#endif
 
 template <int NZ, int G>
 int group_picard(int solver, double* U, double* sat, double* S, const double* top,
@@ -218,8 +231,97 @@ int group_picard(int solver, double* U, double* sat, double* S, const double* to
     return 0;
 }
 
+#ifdef SOIL_GROUP_VJP_HOST
+#define VJP_ARGS U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, gparams, top, step_stride, \
+                 cell_stride, dz, dzf, zc, zf, P, steps, dt, cells, iters
+
+// soil::segment_vjp_column of picard_step (the one-thread segment VJP's
+// column code, `solver` at run time) over every column; each column's
+// parameter cotangents to gparams[col] (K_sat) and gparams[cells + col]
+// (sk_mineral)
+template <int NZ>
+void thread_vjp_columns(int solver, const double* U, const double* sat, const double* S,
+                        const double* gU, const double* gsat, const double* gS, double* gU0,
+                        double* gsat0, double* gS0, double* gparams, const double* top,
+                        long long step_stride, long long cell_stride, const double* dz,
+                        const double* dzf, const double* zc, const double* zf,
+                        const SoilColumnParams* P, int steps, double dt, long long cells,
+                        int iters)
+{
+    std::vector<double> scratch((size_t)steps * (2 * NZ + 1) * cells);
+    const soil::Consts<double> c(*P);
+    for (long long col = 0; col < cells; ++col) {
+        double gK = 0.0, gm = 0.0;
+        soil::segment_vjp_column<double, NZ, soil::STEPPER_IMPLICIT, soil::SOLVER_RUNTIME, false,
+                                 true>(col, cells, steps, U, sat, S, gU, gsat, gS, gU0, gsat0,
+                                       gS0, scratch.data(), top, step_stride, cell_stride, c, *P,
+                                       dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm, iters, solver);
+        gparams[col] = gK;
+        gparams[cells + col] = gm;
+    }
+}
+
+// soil::GroupColumn::segment_vjp (SOLVER) over every column on a group of G
+// emulated lanes, as the group segment-VJP kernel runs it; each column's
+// parameter cotangents (the group's tree sum of its lanes') to gparams
+template <int NZ, int G, int SOLVER>
+void group_vjp_columns(const double* U, const double* sat, const double* S, const double* gU,
+                       const double* gsat, const double* gS, double* gU0, double* gsat0,
+                       double* gS0, double* gparams, const double* top, long long step_stride,
+                       long long cell_stride, const double* dz, const double* dzf,
+                       const double* zc, const double* zf, const SoilColumnParams* P, int steps,
+                       double dt, long long cells, int iters)
+{
+    using Column = soil::GroupColumn<double, NZ, G, soil::HostLanes<G>>;
+    constexpr int L = Column::L;
+    const soil::HostLanes<G> lanes;
+    const soil::Consts<double> c(*P);
+    std::vector<double> scratch((size_t)steps * (2 * NZ + 1) * cells);
+    for (long long col = 0; col < cells; ++col) {
+        Column column(lanes, c, *P, dz, dzf, zc, zf);
+        double u[G][L], s[G][L], gu[G][L], gs[G][L];
+        for (int i = 0; i < G; ++i)
+            for (int l = 0; l < L; ++l) {
+                const int k = column.level(i, l);
+                const bool in = k < NZ;
+                u[i][l] = in ? U[k * cells + col] : 0.0;
+                s[i][l] = in ? sat[k * cells + col] : 0.0;
+                gu[i][l] = in ? gU[k * cells + col] : 0.0;
+                gs[i][l] = in ? gsat[k * cells + col] : 0.0;
+            }
+        double sv = S[col], gsv = gS[col], gK[G] = {}, gm[G] = {};
+        column.template segment_vjp<SOLVER>(u, s, sv, gu, gs, gsv, scratch.data(), col, cells,
+                                            true, top + col * cell_stride, step_stride, steps,
+                                            dt, 1.0 / dt, iters, gK, gm);
+        for (int i = 0; i < G; ++i)
+            for (int l = 0; l < L; ++l) {
+                const int k = column.level(i, l);
+                if (k < NZ) { gU0[k * cells + col] = gu[i][l]; gsat0[k * cells + col] = gs[i][l]; }
+            }
+        gS0[col] = gsv;
+        gparams[col] = column.group_sum(gK);
+        gparams[cells + col] = column.group_sum(gm);
+    }
+}
+
+template <int NZ, int G>
+int group_vjp(int solver, const double* U, const double* sat, const double* S,
+              const double* gU, const double* gsat, const double* gS, double* gU0,
+              double* gsat0, double* gS0, double* gparams, const double* top,
+              long long step_stride, long long cell_stride, const double* dz, const double* dzf,
+              const double* zc, const double* zf, const SoilColumnParams* P, int steps,
+              double dt, long long cells, int iters)
+{
+    if (solver == soil::SOLVER_PCR) group_vjp_columns<NZ, G, soil::SOLVER_PCR>(VJP_ARGS);
+    else if (solver == soil::SOLVER_THOMAS) group_vjp_columns<NZ, G, soil::SOLVER_THOMAS>(VJP_ARGS);
+    else return -1;
+    return 0;
+}
+#endif
+
 }  // namespace
 
+#ifndef SOIL_GROUP_VJP_HOST
 // The kernels' group size at nz (soil::group_lanes)
 extern "C" int host_group_lanes(int nz) { return soil::group_lanes(nz); }
 
@@ -265,6 +367,8 @@ extern "C" int host_group_rollout(double* U, double* sat, double* S, const doubl
     }
 }
 
+#endif
+
 // The implicit step's group size at nz for `solver` (0 Thomas, 1 PCR;
 // soil::implicit_group_lanes)
 extern "C" int host_implicit_group_lanes(int nz, int solver)
@@ -272,6 +376,7 @@ extern "C" int host_implicit_group_lanes(int nz, int solver)
     return soil::implicit_group_lanes(nz, solver);
 }
 
+#ifndef SOIL_GROUP_VJP_HOST
 // One thread a column: soil::rollout_column of picard_step, ImplicitEuler
 // with `iters` Picard iterations and `solver` (0 Thomas, 1 PCR) over heat +
 // Richards, in place; the top temperature from a table (rows 0) or a series
@@ -290,6 +395,8 @@ extern "C" int host_thread_picard(double* U, double* sat, double* S, const doubl
         default: return -1;
     }
 }
+
+#endif
 
 // The same on groups of g lanes: Nz 10 and 16 at their implicit group size
 // (4), Nz 30 at g 4, 8, 16 or 32. Returns -1 for an nz, g or solver it does
@@ -317,3 +424,50 @@ extern "C" int host_group_picard(double* U, double* sat, double* S, const double
         default: return -1;
     }
 }
+
+#ifdef SOIL_GROUP_VJP_HOST
+// The one-thread segment VJP's column code of picard_step with `iters`
+// Picard iterations and `solver` (0 Thomas, 1 PCR), heat + Richards, over
+// every column: the input cotangents and each column's parameter
+// cotangents (gparams, 2 * cells); the top temperature of step s
+// top[s * step_stride + col * cell_stride]. Returns -1 for an nz it does
+// not run.
+extern "C" int host_thread_vjp(const double* U, const double* sat, const double* S,
+                               const double* gU, const double* gsat, const double* gS,
+                               double* gU0, double* gsat0, double* gS0, double* gparams,
+                               const double* top, long long step_stride, long long cell_stride,
+                               const double* dz, const double* dzf, const double* zc,
+                               const double* zf, const SoilColumnParams* P, int nz, int solver,
+                               int iters, int steps, double dt, long long cells)
+{
+    switch (nz) {
+        case 10: thread_vjp_columns<10>(solver, VJP_ARGS); return 0;
+        case 16: thread_vjp_columns<16>(solver, VJP_ARGS); return 0;
+        case 30: thread_vjp_columns<30>(solver, VJP_ARGS); return 0;
+        default: return -1;
+    }
+}
+
+// The same on groups of g lanes (the group segment-VJP kernel's column
+// code): Nz 10 and 16 at their implicit group size (4), Nz 30 at g 4, 8, 16
+// or 32. Returns -1 for an nz, g or solver it does not run.
+extern "C" int host_group_vjp(const double* U, const double* sat, const double* S,
+                              const double* gU, const double* gsat, const double* gS,
+                              double* gU0, double* gsat0, double* gS0, double* gparams,
+                              const double* top, long long step_stride, long long cell_stride,
+                              const double* dz, const double* dzf, const double* zc,
+                              const double* zf, const SoilColumnParams* P, int nz, int g,
+                              int solver, int iters, int steps, double dt, long long cells)
+{
+    if (nz == 10 && g == 4) return group_vjp<10, 4>(solver, VJP_ARGS);
+    if (nz == 16 && g == 4) return group_vjp<16, 4>(solver, VJP_ARGS);
+    if (nz != 30) return -1;
+    switch (g) {
+        case 4: return group_vjp<30, 4>(solver, VJP_ARGS);
+        case 8: return group_vjp<30, 8>(solver, VJP_ARGS);
+        case 16: return group_vjp<30, 16>(solver, VJP_ARGS);
+        case 32: return group_vjp<30, 32>(solver, VJP_ARGS);
+        default: return -1;
+    }
+}
+#endif

@@ -20,6 +20,7 @@ import torch
 import terrarium_tpu_torch as tp
 from terrarium_tpu_torch.ops import cuda_build as cb
 from terrarium_tpu_torch.ops import fused_step as fs
+from terrarium_tpu_torch.ops import fused_vjp as fv
 from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.timesteppers import integrator
 
@@ -264,3 +265,41 @@ def test_group_rollout_keys(fake_nvcc, stepper):
     # the group entry takes the one-thread entry's arguments (the solver and
     # the Picard count) and the hand-off counter before the stream
     assert fs._GROUP_ARGTYPES[:-2] == fs._ARGTYPES[:-1]
+
+
+@pytest.mark.parametrize("solver", ["pcr", "thomas", "picard"])
+def test_group_segment_vjp_keys(fake_nvcc, solver):
+    """The segment VJP of ImplicitEuler over heat + Richards (each solver;
+    more than one Picard iteration: the entry of both solvers) is prebuilt
+    from the group source (``csrc/soil_column_group_segment_vjp.cu``) at the
+    gradient's float32 Nz 30 and the float64 checks' Nz 16 and no longer in
+    the one-thread source's prebuilt set, which still builds the same tags
+    alone on demand (to time one layout against the other); an unlisted
+    depth is built alone with the scheme's defines and no group size (the
+    source takes ``soil::implicit_group_lanes``); ``g<G>`` and ``mb<B>``
+    tags, for measuring, add ``SOIL_GROUP`` and ``SOIL_MIN_BLOCKS``; the
+    ``_warps`` suffix reads the instantiation's resident warps and G."""
+    iters = 2 if solver == "picard" else 1
+    tags = fv.vjp_tags("implicit", "richards", "pcr" if solver == "picard" else solver, iters)
+    assert tags == ("implicit", solver, "richards")
+    assert ("implicit", "richards") in fv.GROUP_SCHEMES
+    for dtype, nz in ((F32, 30), (F64, 16)):
+        assert (tags, dtype, nz) in cb.INSTANTIATIONS["soil_column_group_segment_vjp"]
+    assert all(t != tags for t, _, _ in cb.INSTANTIATIONS["soil_column_segment_vjp"])
+    fn = cb.entry("soil_column_group_segment_vjp", F32, 40, fv._ARGTYPES, tags=tags)
+    name = f"soil_column_group_segment_vjp_{'_'.join(tags)}_f32_nz40"
+    assert fn.name == name and fn.argtypes == fv._ARGTYPES
+    (compile_,) = fake_nvcc.compiles()
+    assert compile_[-1].endswith("soil_column_group_segment_vjp.cu")
+    defines = {"pcr": {"-DSOIL_SOLVER=1"}, "thomas": {"-DSOIL_SOLVER=0"},
+               "picard": {"-DSOIL_SOLVER=2", "-DSOIL_PICARD=1"}}[solver]
+    assert _defines(compile_) == {f"-DSOIL_ENTRY={name}", "-DSOIL_T=float", "-DSOIL_NZ=40",
+                                  "-DSOIL_STEPPER=2", "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1",
+                                  *defines}
+    warps = cb.entry("soil_column_group_segment_vjp", F32, 40, [], tags=tags, suffix="_warps")
+    assert warps.name == f"{name}_warps" and len(fake_nvcc.compiles()) == 1
+    one = cb.entry("soil_column_segment_vjp", F32, 30, fv._ARGTYPES, tags=tags)
+    assert one.name == f"soil_column_segment_vjp_{'_'.join(tags)}_f32_nz30"
+    assert fake_nvcc.compiles()[-1][-1].endswith("soil_column_segment_vjp.cu")
+    cb.entry("soil_column_group_segment_vjp", F32, 30, [], tags=(*tags, "g8", "mb1"))
+    assert {"-DSOIL_GROUP=8", "-DSOIL_MIN_BLOCKS=1"} <= _defines(fake_nvcc.compiles()[-1])
