@@ -21,7 +21,11 @@ operation weighted by its measured cost, and (rows 1 and 1'a) the row at
 float64 on 1,024 columns against the plain version at 1e-12; so are rows
 3'b and 3'h (the group segment VJP of ImplicitEuler, one and two Picard
 iterations, each solver), with the recompute check: every carry the VJP
-stores, bit for bit the group rollout's after the same steps:
+stores, bit for bit the group rollout's after the same steps; and rows
+3'e and 3'i (the land group segment VJP of ImplicitEuler, one and two
+Picard iterations, each solver), whose stored carries at float64 equal
+the one-thread land rollout's bit for bit (at float32 their largest gap is
+printed):
 
 * ``on_demand``: `examples/soil_heat_column.py`'s composition (BASELINE
   config #1: the heat-only SoilModel, one column, Nz 10, float32,
@@ -104,7 +108,8 @@ stores, bit for bit the group rollout's after the same steps:
   (``land_grad_implicit_picard2_<solver>``), Heun at dt 60 s
   (``land_grad_heun``) and ``land_snow_n145``'s snowpack by ImplicitEuler
   PCR at dt 600 s (``land_grad_snow_implicit_pcr``), after the land segment-VJP
-  kernel against its plain version (float64 on 1,024 columns at rtol 1e-9,
+  kernel (ImplicitEuler without a snowpack on groups of lanes, the others
+  one thread a column) against its plain version (float64 on 1,024 columns at rtol 1e-9,
   float32 at full width with the plain version in chunks, the parameter
   cotangents also summed with output cotangents aligned to the sign of each
   column's plain share) and the float64 gradient against central
@@ -707,14 +712,18 @@ FIRST_SOURCES = (GROUP_SOURCE, "soil_column_rollout")
 # the segment VJP of ImplicitEuler over heat + Richards on groups of lanes
 # (rows 3'b and 3'h)
 VJP_GROUP_SOURCE = "soil_column_group_segment_vjp"
+# the land segment VJP of ImplicitEuler over Richards flow without a
+# snowpack on groups of lanes (rows 3'e and 3'i)
+LAND_VJP_GROUP_SOURCE = "land_column_group_segment_vjp"
 # The sources built beside the forward phases, in the order the phases need
-# them: the land rollout (the land phases), then the land segment VJP (the
-# land gradients), then the soil segment VJPs, one thread a column and on
-# groups of lanes (the soil gradients), whose nvcc CPU seconds would
-# otherwise keep the land phases waiting, then the soil's and the land's
+# them: the land rollout (the land phases), then the land segment VJPs, one
+# thread a column and on groups of lanes (the land gradients), then the
+# soil segment VJPs, one thread a column and on groups of lanes (the soil
+# gradients), whose nvcc CPU seconds would otherwise keep the land phases
+# waiting, then the soil's and the land's
 # full steps (their phases), built while the soil gradient phases run, then
 # the probes (the last phase)
-REST_GROUPS = (("land_column_rollout",), ("land_column_segment_vjp",),
+REST_GROUPS = (("land_column_rollout",), ("land_column_segment_vjp", LAND_VJP_GROUP_SOURCE),
                ("soil_column_segment_vjp", VJP_GROUP_SOURCE),
                ("soil_column_full_step", "land_column_full_step"), ("probes",))
 # Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
@@ -1752,8 +1761,8 @@ def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
     stepper = {"euler": 0, "heun": 1, "implicit": 2}[
         next(k for k in ("euler", "heun", "implicit") if f"_{k}_" in entry)]
     code = {"thomas": 0, "pcr": 1}[solver] if stepper == 2 else 1
-    if source == VJP_GROUP_SOURCE:  # <T, NZ, G, SOLVER>
-        want = re.compile(rf"group_segment_vjp_kernelI{t}Li{nz}ELi\d+ELi{code}EE")
+    if source in (VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE):  # <T, NZ, G, SOLVER>
+        want = re.compile(rf"{source}_kernelI{t}Li{nz}ELi\d+ELi{code}EE")
     elif source == GROUP_SOURCE:
         want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}E"
                           rf"Lb{int(series)}EE")
@@ -1940,6 +1949,188 @@ def vjp_group_row(fs, fv, cuda_build, operands, dt, solver, iters, ptxas_all):
             "sass_instructions": sass_instructions(cuda_build, VJP_GROUP_SOURCE, entry, False,
                                                    solver),
             "recompute_steps_checked": checked, "recompute_columns_parted": parted,
+            "fma_issues_per_column_step": fma,
+            "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
+
+# The land ImplicitEuler segment VJP (rows 3'e and 3'i) weighted by row 4's
+# rates as implicit_vjp_fma_issues weights the soil's: land_vjp_ops with
+# each IEEE division at 15.6 FMA issues, each exp, cos, log, atan and root
+# at an exp's 9.6 and each powf at 70. Counted from csrc/land_step.cuh and
+# land_adjoint.cuh for the Brooks-Corey and linear composition. Per level
+# and iteration, the forward's divisions: the sweeps' c / dz x2; the energy
+# closure's safediv and two Tk quotients; the linear centre K's and the
+# plant-available water's quotients; the heat flux's gradient and
+# divergence; the Brooks-Corey head's se and its power's reciprocal; the
+# Darcy gradient, divergence and / por; dT/dU's reciprocal; bc_chain's se,
+# its power's reciprocal and / span (18); the adjoint's: the soil's 13
+# (VJP_ADJ_DIVISIONS_PER_LEVEL), the linear centre K's two cotangent
+# quotients and the plant-available water's one (16). Per interior face the
+# two systems' rows' four quotients each, forward and adjoint (8 and
+# VJP_ADJ_DIVISIONS_PER_FACE). Per column and iteration: the two solves
+# (Thomas two divisions a row, PCR two a row and round with both neighbours,
+# one with one, then d / b), forward and transposed; the top rows' G / dz,
+# infiltration / dz and the ET sink's / dz (3), their cotangents (4); the
+# surface block: three drags (per Monin-Obukhov iteration u*, theta* and
+# 1/L, the last quotient, and the resistance 1 / (C_h V)), e_air, three
+# e_sat quotients, dq_s and dq_g, the vegetation's ten (LAI, Medlyn 4,
+# f_temp, the respiration's three), the interception's two, the
+# evapotranspiration's five, the ground resistance's two, the drainage, the
+# SEB's three sensible fluxes and two skin updates, the fraction's and
+# carbon rates' two and the pool's (34 beside the drags); three exps a
+# vpd, the Beer's-law exp, f_temp's exp, the interception's and r_e's
+# exps, the ground resistance's cos and Medlyn's two roots (10); where this
+# run's data takes them (land_branches), the photosynthesis' three q10
+# powf, six divisions and its root, the temperature stress' two exps and
+# one division, an unstable psi's powf and two logs and atan. The surface
+# block's reverse: a division for each forward division, powf, log and atan
+# (the derivative's quotient), an exp's derivative its value. Each further
+# Picard iteration's (u_k - u^n) / dt and -lambda / dt: 2 and 2 a level.
+LAND_VJP_DIVISIONS_PER_LEVEL = {"forward": 18, "adjoint": VJP_ADJ_DIVISIONS_PER_LEVEL + 3}
+LAND_SURFACE_WEIGHTED = {"division": 34, "exp": 10}
+LAND_BRANCH_WEIGHTED = {"photosynthesis": {"powf": 3, "division": 6, "exp": 1},
+                        "temperature stress": {"exp": 2, "division": 1},
+                        "unstable psi": {"powf": 1, "exp": 3}}
+LAND_WEIGHTS = {"division": FWD_WEIGHTS["division"][1], "exp": 9.6,
+                "powf": FWD_WEIGHTS["powf"][1]}
+
+
+def land_vjp_fma_issues(solver, nz, iters, branches, params):
+    """FMA issues of one step of one column of the land ImplicitEuler
+    segment VJP with ``iters`` Picard iterations (row 4's weights on
+    land_vjp_ops; ``branches`` as land_branches' means a column and step,
+    ``params`` the LandParams, whose drag knobs count the Monin-Obukhov
+    iterations)."""
+    if solver == "thomas":
+        solve_div = 2 * nz
+    else:
+        s, solve_div = 1, nz
+        while s < nz:
+            solve_div += 2 * (nz - s)
+            s *= 2
+    v = params.values
+    drag_div = 3 * ((3 * v["mo_iterations"] + 1 if v["mo_drag"] else 0) + 1)
+    fwd = {"division": drag_div + LAND_SURFACE_WEIGHTED["division"],
+           "exp": LAND_SURFACE_WEIGHTED["exp"], "powf": 0.0}
+    for k, n in branches.items():
+        for w, m in LAND_BRANCH_WEIGHTED[k].items():
+            fwd[w] += m * n
+    # the surface block's reverse: a quotient for each division, powf, log
+    # and atan (an unstable psi's three of its "exp" ones are two logs and
+    # the atan)
+    rev_div = fwd["division"] + fwd["powf"] + 3 * branches.get("unstable psi", 0.0)
+    count = {
+        "division": iters * (sum(LAND_VJP_DIVISIONS_PER_LEVEL.values()) * nz
+                             + (8 + VJP_ADJ_DIVISIONS_PER_FACE) * (nz - 1) + 4 * solve_div
+                             + 3 + 4 + fwd["division"] + rev_div) + (iters - 1) * 4 * nz,
+        "exp": iters * fwd["exp"], "powf": iters * fwd["powf"]}
+    ops = land_vjp_ops("implicit", solver, nz, branches, iters)
+    return ops + sum(n * (LAND_WEIGHTS[w] - 1.0) for w, n in count.items())
+
+
+def land_vjp_launcher(fs, lv, ls, fn, group, operands, dt, steps, solver, iters):
+    """``(launch, scratch)``: ``launch()`` launches the land segment-VJP
+    entry ``fn`` on ``operands`` (carry, static inputs, root fraction,
+    coordinates, parameters, output cotangents) over ``steps`` steps and
+    returns ``(gcarry0, gparams)``; its scratch buffer ([step][row][cell],
+    2 Nz + 6 rows), partials and outputs are the caller's, the partials
+    laid out for the group kernel of G ``group`` or, ``group`` None, for
+    one thread a column."""
+    carry, inputs, root, coords, params, gout = operands
+    U = carry["internal_energy"]
+    nz, cells = U.shape
+    blocks = -(-cells // (lv._GROUP_THREADS // group if group else lv._THREADS))
+    scratch = torch.full((steps, 2 * nz + 6, cells), float("nan"), dtype=U.dtype,
+                         device=U.device)
+    gin = {n: torch.empty_like(carry[n]) for n in ls.carry_names(params)}
+    partials = torch.empty(2, blocks, dtype=U.dtype, device=U.device)
+    gparams = torch.empty(2, dtype=U.dtype, device=U.device)
+    args, keep = ls.launch_args(carry, gin, inputs, root, coords, params)
+    c_gout = ls._CLandCarry(**{ls._CARRY_OF[n]: t.data_ptr() for n, t in gout.items()})
+
+    def launch():
+        err = fn(args[0], ctypes.byref(c_gout), *args[1:], scratch.data_ptr(),
+                 partials.data_ptr(), gparams.data_ptr(), steps, float(dt), cells,
+                 fs.SOLVER_CODES[solver], int(iters), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"land segment VJP launch failed: cudaError {err}")
+        return gin, gparams
+
+    launch.keep = (keep, c_gout)
+    return launch, scratch
+
+
+# the scratch rows of each field of the land carry past U and sat
+LAND_SCRATCH_ROWS = ("surface_excess_water", "skin_temperature", "canopy_water",
+                     "carbon_vegetation", "vegetation_area_fraction", "net_assimilation")
+
+
+def land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps, solver, iters,
+                             tags=None):
+    """The land group segment VJP's forward against the one-thread land
+    rollout: the group entry of the scheme (or of ``tags``: another G or
+    launch bound) launched on ``operands`` with a scratch buffer of the
+    check's own, then each carry it stored (step s's input) against the
+    carry that land_column_implicit_rollout (the forward segments' kernel,
+    one thread a column) reaches after s steps, one step a launch. Returns
+    ``(steps, columns whose stored carry differs at some step, {field:
+    largest difference over the field's largest magnitude})``."""
+    carry, inputs, root, coords, params, _ = operands
+    U = carry["internal_energy"]
+    nz, cells = U.shape
+    if tags is None:
+        tags = lv.check_scheme(params, "implicit", solver, iters) + params.tags
+    fn = cuda_build.entry(LAND_VJP_GROUP_SOURCE, U.dtype, nz, lv._argtypes(U.dtype),
+                          tags=tuple(tags))
+    group = lv.vjp_group(U.dtype, nz, tuple(tags), solver)[1]
+    launch, scratch = land_vjp_launcher(fs, lv, ls, fn, group, operands, dt, steps, solver,
+                                        iters)
+    launch()
+    state = carry
+    parted = torch.zeros(cells, dtype=torch.bool, device=U.device)
+    gap = dict.fromkeys(("internal_energy", "saturation_water_ice", *LAND_SCRATCH_ROWS), 0.0)
+    for i in range(steps):
+        rec = scratch[i]
+        stored = {"internal_energy": rec[:nz], "saturation_water_ice": rec[nz:2 * nz],
+                  **{n: rec[2 * nz + j] for j, n in enumerate(LAND_SCRATCH_ROWS)}}
+        for n, a in stored.items():
+            b = state[n]
+            d = a != b
+            parted |= d.any(0) if d.dim() == 2 else d
+            scale = float(b.abs().max())
+            if scale > 0.0:
+                gap[n] = max(gap[n], float((a - b).abs().max()) / scale)
+        state = ls.land_column_implicit_rollout(state, inputs, root, *coords, params, dt,
+                                                i * dt, 1, solver=solver, picard_iters=iters)
+    return steps, int(parted.sum()), gap
+
+
+def land_vjp_group_row(fs, lv, ls, cuda_build, operands, dt, steps, solver, iters, branches,
+                       ptxas_all):
+    """What the kernel line reports of the land group segment VJP of
+    ImplicitEuler (``solver``, ``iters`` Picard iterations) at the shape of
+    ``operands``: its group size G and levels a lane, ptxas's registers and
+    spill stores, resident warps an SM, SASS instructions, the recompute
+    check (land_vjp_recompute_check: at float32 the columns whose stored
+    carries part from the one-thread rollout's and the largest gap) and the
+    bound with each operation weighted by its cost (land_vjp_fma_issues)."""
+    carry, _, _, _, params, _ = operands
+    U = carry["internal_energy"]
+    dtype, (nz, cells) = U.dtype, U.shape
+    tags = lv.check_scheme(params, "implicit", solver, iters) + params.tags
+    entry = cuda_build._entry_name(LAND_VJP_GROUP_SOURCE, tags, dtype, nz)
+    ptxas = ptxas_all[LAND_VJP_GROUP_SOURCE][entry]["vjp_" + solver]
+    warps, group = lv.vjp_group(dtype, nz, tags, solver)
+    checked, parted, gap = land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps,
+                                                    solver, iters)
+    fma = land_vjp_fma_issues(solver, nz, iters, branches, params)
+    return {"group": group, "levels_a_lane": -(-nz // group),
+            "registers": int(ptxas.split()[0]),
+            "spill_stores": int(ptxas.split(",")[1].split()[0]),
+            "resident_warps_per_sm": warps,
+            "sass_instructions": sass_instructions(cuda_build, LAND_VJP_GROUP_SOURCE, entry,
+                                                   False, solver),
+            "recompute_steps_checked": checked, "recompute_columns_parted_f32": parted,
+            "recompute_max_gap_over_magnitude_f32": gap,
             "fma_issues_per_column_step": fma,
             "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
 
@@ -4126,6 +4317,17 @@ def main():
         ops = land_grad_operands(ls, land_inputs, sim, seed=11)
         f64_err, f64_rel, f64_out = land_vjp_compare(lv, ls, *ops[:5], dt, GRAD_INNER, ops[5],
                                                      vkw, 1e-9, LAND_F64_CELLS)
+        source = lv.vjp_source(ops[4], key)
+        recompute64 = None
+        if source == LAND_VJP_GROUP_SOURCE:
+            # rows 3'e and 3'i: the group VJP's stored carries at float64
+            # equal the one-thread land rollout's bit for bit
+            recompute64 = land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt, GRAD_INNER,
+                                                   solver, iters)
+            if recompute64[1]:
+                raise AssertionError(f"{name}: the f64 group VJP's stored carries of "
+                                     f"{recompute64[1]} columns part from the one-thread "
+                                     f"rollout's")
         # central differences of the loss through the forward kernel, over
         # LAND_FD_STEPS[key] steps
         steps_fd = LAND_FD_STEPS[key]
@@ -4179,6 +4381,18 @@ def main():
         b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER,
                      land_vjp_bytes(LAND_NZ, LAND_CELLS, 4, snow))
         del sub, end
+        if source == LAND_VJP_GROUP_SOURCE:
+            # rows 3'e and 3'i on the group kernel: its layout and
+            # resources, its float32 stored carries against the one-thread
+            # rollout's, the weighted bound
+            group = land_vjp_group_row(fs, lv, ls, cuda_build,
+                                       (carry, linputs, root, coords, params, gout), dt,
+                                       GRAD_INNER, solver, iters, runs, ptxas_all)
+            phase("group_check", row="3'i" if iters > 1 else "3'e", solver=solver,
+                  picard_iters=iters, cells=LAND_CELLS, nz=LAND_NZ, steps=GRAD_INNER,
+                  **group, recompute_f64_cells=LAND_F64_CELLS,
+                  recompute_f64_columns_parted=recompute64[1],
+                  recompute_f64_max_gap_over_magnitude=recompute64[2], card=card)
         # the gradient: 6 forward and 6 VJP launches
         land_grad_value(tp, gsim, name)
         torch.cuda.synchronize()
@@ -4214,11 +4428,12 @@ def main():
                 raise AssertionError(f"{name}: float32 vs float64 gaps {f32_vs_f64}, one "
                                      f"iteration's {one}")
         final = fwd(carry, linputs, root, *coords, params, dt, 0.0, GRAD_STEPS, **fkw)
-        entry = cuda_build._entry_name("land_column_segment_vjp", lv.check_scheme(
+        entry = cuda_build._entry_name(source, lv.check_scheme(
             params, key, solver, iters) + params.tags, torch.float32, LAND_NZ)
         land_grads[name] = dict(launches=grad_launches["land_column_segment_vjp"],
                                 max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
-                                bound_ms=b[0], bound_by=b[1], entry=entry, snow=snow)
+                                bound_ms=b[0], bound_by=b[1], entry=entry, snow=snow,
+                                source=source)
         phase(name, cells=LAND_CELLS, nz=LAND_NZ, dt=dt, steps=GRAD_STEPS,
               inner_steps=GRAD_INNER, stepper=key, solver=solver, picard_iters=iters, snow=snow,
               seconds_median=med,
@@ -4230,7 +4445,8 @@ def main():
               fwd_segment_ms=f_ms, plain_vjp_ms=p_ms, plain_cells=LAND_GRAD_CHUNK,
               bound_ms=b[0], bound_by=b[1], ops_per_column_step=v_ops,
               branch_runs_per_column_step=runs,
-              ptxas=ptxas_all["land_column_segment_vjp"].get(entry, {}).get("vjp"),
+              ptxas=ptxas_all[source].get(entry, {}).get(
+                  "vjp_" + solver if source == LAND_VJP_GROUP_SOURCE else "vjp"),
               f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
               f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
               fd_steps=steps_fd, fd_h=fd_h, fd_rtol=LAND_FD_RTOL,
@@ -4741,10 +4957,11 @@ def main():
         "shape": f"{GRAD_CELLS} x {BENCH_NZ} f32, {GRAD_INNER} steps, {sc['entry']}; "
                  f"plain_ms at {GRAD_SCHEME_CHUNK} columns"} for name, sc in schemes.items()), *({
         "name": f"land_column_segment_vjp[{name}]", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/land_column_segment_vjp.cu",
+        "source": f"terrarium_tpu_torch/csrc/{lg['source']}.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68 traced over a LandModel step "
                     "(terrarium_tpu/models/land_model.py:55)",
-        **{k: v for k, v in lg.items() if k not in ("entry", "snow")}, "library_ms": None,
+        **{k: v for k, v in lg.items() if k not in ("entry", "snow", "source")},
+        "library_ms": None,
         "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent"
                  + (" with snow" if lg["snow"] else "") + " with static inputs, dt "
                  f"{LAND_GRAD_SCHEMES[name][2]:g}, {GRAD_INNER} steps, {lg['entry']}; plain_ms "
@@ -4842,7 +5059,8 @@ def euler_digest(root: pathlib.Path):
 
     t0 = time.perf_counter()
     land_vjp = "land_column_segment_vjp" in cuda_build.INSTANTIATIONS
-    group = tuple(n for n in (GROUP_SOURCE, VJP_GROUP_SOURCE) if n in cuda_build.INSTANTIATIONS)
+    group = tuple(n for n in (GROUP_SOURCE, VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE)
+                  if n in cuda_build.INSTANTIATIONS)
     cuda_build.build(*group, "soil_column_rollout", "soil_column_segment_vjp",
                      "land_column_rollout", *(("land_column_segment_vjp",) if land_vjp else ()))
     build_s = time.perf_counter() - t0

@@ -1,7 +1,7 @@
-"""The soil rollout's two layouts on one CUDA card: ForwardEuler and Heun over
-heat + Richards (PERF.md's kernel rows 1 and 1'a) and ImplicitEuler with one
-and two Picard iterations, each solver (rows 1'c and 1'j), one thread a
-column (``csrc/soil_column_rollout.cu``, the layout the wrappers launched
+"""The soil rollout's and the land segment VJP's two layouts on one CUDA
+card: ForwardEuler and Heun over heat + Richards (PERF.md's kernel rows 1
+and 1'a) and ImplicitEuler with one and two Picard iterations, each
+solver (rows 1'c and 1'j), one thread a column (``csrc/soil_column_rollout.cu``, the layout the wrappers launched
 before the group kernel, built at its first launch from that source)
 against a column on a group of lanes (``csrc/soil_column_group_rollout.cu``,
 which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
@@ -13,6 +13,8 @@ which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
     python3 rollout_layout_ab.py implicit_time
     python3 rollout_layout_ab.py vjp_check
     python3 rollout_layout_ab.py vjp_time
+    python3 rollout_layout_ab.py land_vjp_check
+    python3 rollout_layout_ab.py land_vjp_time
 
 ``check`` builds both, prints each kernel's registers and spill stores
 (ptxas), SASS instructions (``cuobjdump -sass``) and resident warps an SM,
@@ -48,6 +50,18 @@ and times nothing. ``vjp_time`` times both layouts in turns, then the group
 kernel at each G (4, 8, 16, 32; the recompute check at each, against the
 rollout at its own G) and at each launch bound (1 to 4 resident blocks of
 256 threads an SM), each solver, one and two iterations.
+
+``land_vjp_check`` and ``land_vjp_time`` do the same for the land segment
+VJP of ImplicitEuler (rows 3'e and 3'i: one and two Picard iterations, each
+solver) over ``land_consistent``'s composition with static inputs, one
+thread a column (``csrc/land_column_segment_vjp.cu``, built at its first
+launch) against a column on a group of lanes
+(``csrc/land_column_group_segment_vjp.cu``, which
+``land_column_segment_vjp`` launches), at the land gradient's shape:
+56,951 x 20 float32, one 48-step segment of 600 s (``chip_smoke.py``'s
+``land_grad_implicit_*`` operands). The recompute check holds the group
+VJP's stored carries to the one-thread land rollout's: at float64 bit for
+bit (1,024 columns), at float32 the largest gap is printed.
 Run from the repository root.
 """
 from __future__ import annotations
@@ -417,16 +431,17 @@ def vjp_key(fv, layout, solver, iters, extra=()):
     return ("soil_column_segment_vjp" if layout == "one_thread" else fv._GROUP_NAME), tags
 
 
-def prebuild(cuda_build, fv, keys, dtype=torch.float32, nz=cs.BENCH_NZ):
-    """Build the entries ``keys`` (``(source, tags)``) at once, one thread
-    (and so one nvcc slot) each; raises the first build's error."""
+def prebuild(cuda_build, argtypes, keys, dtype=torch.float32, nz=cs.BENCH_NZ):
+    """Build the entries ``keys`` (``(source, tags)``, typed ``argtypes``) at
+    once, one thread (and so one nvcc slot) each; raises the first build's
+    error."""
     import threading
 
     errors = []
 
     def one(source, tags):
         try:
-            cuda_build.entry(source, dtype, nz, fv._ARGTYPES, tags=tags)
+            cuda_build.entry(source, dtype, nz, argtypes, tags=tags)
         except Exception as e:  # noqa: BLE001 -- raised below
             errors.append(e)
 
@@ -476,9 +491,9 @@ def vjp_check(tp, fs, cuda_build, card):
     stored carries against the group rollout's at full width."""
     from terrarium_tpu_torch.ops import fused_vjp as fv
 
-    prebuild(cuda_build, fv, [vjp_key(fv, layout, solver, iters)
-                              for layout in ("group", "one_thread")
-                              for solver, iters in VJP_ROWS.values()])
+    prebuild(cuda_build, fv._ARGTYPES, [vjp_key(fv, layout, solver, iters)
+                                        for layout in ("group", "one_thread")
+                                        for solver, iters in VJP_ROWS.values()])
     for name, (solver, iters) in VJP_ROWS.items():
         stats = {layout: vjp_stats(fs, cuda_build, fv, *vjp_key(fv, layout, solver, iters),
                                    solver) for layout in ("one_thread", "group")}
@@ -517,9 +532,9 @@ def vjp_timing(tp, fs, cuda_build, card):
 
     variants = {**{f"g{g}": (f"g{g}",) for g in GROUP_SIZES},
                 **{f"mb{b}": (f"mb{b}",) for b in MIN_BLOCKS}}
-    prebuild(cuda_build, fv, [vjp_key(fv, layout, solver, iters)
-                              for layout in ("group", "one_thread")
-                              for solver, iters in VJP_ROWS.values()]
+    prebuild(cuda_build, fv._ARGTYPES, [vjp_key(fv, layout, solver, iters)
+                                        for layout in ("group", "one_thread")
+                                        for solver, iters in VJP_ROWS.values()]
              + [vjp_key(fv, "group", "pcr", 2, extra) for extra in variants.values()])
     f32 = torch.float32
     for name, (solver, iters) in VJP_ROWS.items():
@@ -558,6 +573,171 @@ def vjp_timing(tp, fs, cuda_build, card):
             del ops
 
 
+#: rows 3'e and 3'i, the land ImplicitEuler segment VJP: (solver, Picard
+#: iterations)
+LAND_VJP_ROWS = {f"{row}_{solver}": (solver, iters) for row, iters in (("3'e", 1), ("3'i", 2))
+                 for solver in cs.SOLVERS}
+LAND_VJP_F64_CELLS = 1024
+
+
+def land_vjp_operands(tp, solver, iters, dtype=torch.float32, cells=cs.LAND_CELLS):
+    """Carry, static inputs, root fraction, coordinates, parameters and
+    seeded output cotangents of row 3'e or 3'i (``chip_smoke.py``'s
+    ``land_grad_implicit_<solver>`` or ``_picard2_<solver>`` operands, the
+    pool's output cotangent 0 as there), and its dt."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    name = (f"land_grad_implicit_{solver}" if iters == 1
+            else f"land_grad_implicit_picard{iters}_{solver}")
+    sim = cs.land_grad_sim(tp, cells, dtype, name)
+    ops = cs.land_grad_operands(ls, land_inputs, sim, seed=11)
+    ops[5]["surface_excess_water"] = torch.zeros_like(ops[5]["surface_excess_water"])
+    return ops, cs.LAND_GRAD_SCHEMES[name][2]
+
+
+def land_vjp_key(lv, params, layout, solver, iters, extra=()):
+    """``(source, tags)`` of the land segment-VJP entry of ``layout``
+    (``"one_thread"`` or ``"group"``, with ``extra`` tags: another G or
+    launch bound) over the composition of ``params``."""
+    tags = lv.check_scheme(params, "implicit", solver, iters) + params.tags + tuple(extra)
+    return (lv._NAME if layout == "one_thread" else lv._GROUP_NAME), tags
+
+
+def land_vjp_stats(fs, cuda_build, lv, source, tags, solver, dtype=torch.float32,
+                   nz=cs.LAND_NZ):
+    """ptxas's registers and spill stores, the SASS instructions, resident
+    warps an SM and G of the land segment-VJP kernel of ``solver`` in the
+    entry of ``source`` and ``tags``."""
+    import ctypes
+    import pathlib
+    import re
+
+    entry = cuda_build._entry_name(source, tags, dtype, nz)
+    one_thread = source == lv._NAME
+    ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(
+        "vjp" if one_thread else f"vjp_{solver}", "")
+    regs = int(ptxas.split()[0]) if ptxas else None
+    spills = int(ptxas.split(",")[1].split()[0]) if "," in ptxas else None
+    if one_thread:
+        stem = cuda_build._stem(source)
+        lib = cuda_build._BUILD_DIR / f"{stem}-{entry}.so"
+        if not lib.exists():
+            lib = cuda_build._BUILD_DIR / f"{stem}.so"
+        cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
+        t = "f" if dtype == torch.float32 else "d"
+        want = re.compile(rf"land_column_segment_vjp_kernelI{t}Li{nz}E")
+        sass = next((n for name, n in cs.sass_counts(str(cuobjdump), str(lib))
+                     if want.search(name)), 0)
+        warps, group = (thread_warps(regs) if regs else None), 1
+    else:
+        sass = cs.sass_instructions(cuda_build, source, entry, False, solver)
+        fn = cuda_build.entry(source, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                              tags=tags, suffix="_warps")
+        g = ctypes.c_int(0)
+        warps, group = fn(fs.SOLVER_CODES[solver], ctypes.byref(g)), g.value
+    return {"entry": entry, "ptxas": ptxas, "registers": regs, "spill_stores": spills,
+            "sass": sass, "resident_warps": warps, "group": group}
+
+
+def land_vjp_check(tp, fs, cuda_build, card):
+    """Rows 3'e and 3'i, each solver: both layouts' builds; the group kernel
+    against the plain version at float64 on 1,024 columns (rtol 1e-9, as
+    ``chip_smoke.py``), its stored carries against the one-thread land
+    rollout's at float64 (bit for bit) and float32 (the largest gap), and
+    times nothing."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    ops, _ = land_vjp_operands(tp, "pcr", 1, cells=8)
+    params = ops[4]
+    prebuild(cuda_build, lv._argtypes(torch.float32),
+             [land_vjp_key(lv, params, layout, solver, iters)
+              for layout in ("group", "one_thread") for solver, iters in LAND_VJP_ROWS.values()],
+             nz=cs.LAND_NZ)
+    for name, (solver, iters) in LAND_VJP_ROWS.items():
+        stats = {layout: land_vjp_stats(fs, cuda_build, lv,
+                                        *land_vjp_key(lv, params, layout, solver, iters), solver)
+                 for layout in ("one_thread", "group")}
+        out(check="land_vjp_build", row=name, solver=solver, picard_iters=iters, **stats,
+            card=card)
+        ops, dt = land_vjp_operands(tp, solver, iters, torch.float64, LAND_VJP_F64_CELLS)
+        kw = {"stepper": "implicit", "solver": solver, "picard_iters": iters}
+        errs, rel, left_out = cs.land_vjp_compare(lv, ls, *ops[:5], dt, cs.GRAD_INNER, ops[5],
+                                                  kw, 1e-9, LAND_VJP_F64_CELLS)
+        steps, parted64, gap64 = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                             cs.GRAD_INNER, solver, iters)
+        if parted64:
+            raise AssertionError(f"{name}: {parted64} columns' f64 stored carries part")
+        del ops
+        ops, dt = land_vjp_operands(tp, solver, iters)
+        _, parted32, gap32 = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                         cs.GRAD_INNER, solver, iters)
+        out(check="land_vjp_teacher", row=name, solver=solver, picard_iters=iters,
+            f64=[LAND_VJP_F64_CELLS, cs.LAND_NZ, cs.GRAD_INNER], f64_rtol=1e-9,
+            f64_max_abs_err=errs, f64_max_err_over_magnitude=rel, f64_columns_left_out=left_out,
+            recompute_steps=steps, recompute_f64_columns_parted=parted64,
+            recompute_f64_max_gap=gap64, recompute_f32_columns_parted=parted32,
+            recompute_f32_max_gap_over_magnitude=gap32, card=card)
+        del ops
+
+
+def land_vjp_timing(tp, fs, cuda_build, card):
+    """Rows 3'e and 3'i, each solver, both layouts in turns at 56,951 x 20
+    float32, one 48-step segment of 600 s; then the group kernel (the Picard
+    entry, which holds a kernel of each solver) at each G and at each launch
+    bound, each solver, one and two iterations, in turns, with the float32
+    recompute check at each."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    f32 = torch.float32
+    variants = {**{f"g{g}": (f"g{g}",) for g in GROUP_SIZES},
+                **{f"mb{b}": (f"mb{b}",) for b in MIN_BLOCKS}}
+    params = land_vjp_operands(tp, "pcr", 1, cells=8)[0][4]
+    prebuild(cuda_build, lv._argtypes(f32),
+             [land_vjp_key(lv, params, layout, solver, iters)
+              for layout in ("group", "one_thread") for solver, iters in LAND_VJP_ROWS.values()]
+             + [land_vjp_key(lv, params, "group", "pcr", 2, extra)
+                for extra in variants.values()], nz=cs.LAND_NZ)
+    for name, (solver, iters) in LAND_VJP_ROWS.items():
+        ops, dt = land_vjp_operands(tp, solver, iters)
+        fns, stats = {}, {}
+        for layout in ("one_thread", "group"):
+            source, tags = land_vjp_key(lv, params, layout, solver, iters)
+            fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
+            stats[layout] = land_vjp_stats(fs, cuda_build, lv, source, tags, solver)
+            fns[layout] = cs.land_vjp_launcher(
+                fs, lv, ls, fn, None if layout == "one_thread" else stats[layout]["group"], ops,
+                dt, cs.GRAD_INNER, solver, iters)[0]
+        t = vjp_turns(fns)
+        out(time=name, solver=solver, picard_iters=iters, cells=cs.LAND_CELLS, nz=cs.LAND_NZ,
+            dt=dt, steps=cs.GRAD_INNER, ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, kernels=stats, card=card)
+        del ops
+    for solver in cs.SOLVERS:
+        for iters in (1, 2):
+            ops, dt = land_vjp_operands(tp, solver, iters)
+            fns, stats, parted = {}, {}, {}
+            for vname, extra in variants.items():
+                source, tags = land_vjp_key(lv, params, "group", "pcr", 2, extra)
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
+                stats[vname] = land_vjp_stats(fs, cuda_build, lv, source, tags, solver)
+                fns[vname] = cs.land_vjp_launcher(fs, lv, ls, fn, stats[vname]["group"], ops,
+                                                  dt, cs.GRAD_INNER, solver, iters)[0]
+                parted[vname] = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                            cs.GRAD_INNER, solver, iters,
+                                                            tags=tags)[1]
+            t = vjp_turns(fns)
+            out(time="land_vjp_variants", solver=solver, picard_iters=iters,
+                cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=dt, steps=cs.GRAD_INNER,
+                default_group=lv.vjp_group(f32, cs.LAND_NZ, land_vjp_key(
+                    lv, params, "group", solver, iters)[1], solver)[1],
+                recompute_f32_columns_parted=parted, kernels=stats, ms=t,
+                median_ms={n: float(np.median(v)) for n, v in t.items()}, card=card)
+            del ops
+
+
 def vjp_turns(fns):
     """``{name: [ms, ...]}``: each launcher of ``fns`` timed in the turns a,
     b, ..., ..., b, a, each turn the times of TURN_REPS launches after a
@@ -584,7 +764,8 @@ def main():
 
     {"check": check, "time": timing, "implicit_check": implicit_check,
      "implicit_time": implicit_timing, "vjp_check": vjp_check,
-     "vjp_time": vjp_timing}[mode](tp, fs, cuda_build, card)
+     "vjp_time": vjp_timing, "land_vjp_check": land_vjp_check,
+     "land_vjp_time": land_vjp_timing}[mode](tp, fs, cuda_build, card)
 
 
 if __name__ == "__main__":

@@ -658,29 +658,37 @@ struct GroupColumn {
         }
     }
 
-    // soil::implicit_solves on the group (heat + Richards, the Dirichlet
-    // top): the heat rows (the face kappa the arithmetic mean with the level
-    // below, zero-gradient ends; dT/dU; scale 1) and their solve, U += du;
-    // the Richards rows (the Darcy face K, d(Psi)/d(sat) at sat, scale
+    // the heat rows' face conductivities: the face below each level the
+    // arithmetic mean of kappa with the level below (the bottom face's its
+    // level's), Kf_top the surface face's, its top level's
+    SOIL_FN void heat_faces(const T (&kap)[N][L], T (&Kf)[N][L], T& Kf_top) const {
+        Kf_top = T(0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T kap_lo = at(i, l, -1, kap);
+                Kf[i][l] = T(0.5) * (kap[i][l] + (k == 0 ? kap[i][l] : kap_lo));
+                if (k == NZ - 1) Kf_top = T(0.5) * (kap[i][l] + kap[i][l]);
+            }
+        }
+    }
+
+    // soil::implicit_solves on the group from the terms f (ImplicitTerms, or
+    // the land column's): the heat rows (the face kappa the arithmetic mean
+    // with the level below, zero-gradient ends; dT/dU; scale 1; DIRICHLET:
+    // the Dirichlet top's term) and their solve, U += du; the Richards rows
+    // (the Darcy face K, the curve's d(Psi)/d(sat) at sat, chain(sat), scale
     // 1/por) and their solve, sat += du; one set of rows live at a time
-    template <int SOLVER>
-    SOIL_FN void implicit_solves(ImplicitTerms& f, T (&U)[N][L], T (&sat)[N][L],
-                                 const T inv_dt) const {
+    template <int SOLVER, bool DIRICHLET, class F, class Chain>
+    SOIL_FN void implicit_solves(F& f, T (&U)[N][L], T (&sat)[N][L], const T inv_dt,
+                                 const Chain& chain) const {
         T a[N][L], b[N][L], cc[N][L];
         {
-            T Kf[N][L];
-            T Kf_top = T(0);
-#pragma unroll
-            for (int i = 0; i < N; ++i) {
-#pragma unroll
-                for (int l = 0; l < L; ++l) {
-                    const int k = level(i, l);
-                    const T kap_lo = at(i, l, -1, f.kap);
-                    Kf[i][l] = T(0.5) * (f.kap[i][l] + (k == 0 ? f.kap[i][l] : kap_lo));
-                    if (k == NZ - 1) Kf_top = T(0.5) * (f.kap[i][l] + f.kap[i][l]);
-                }
-            }
-            rows(Kf, Kf_top, f.Dh, T(1), inv_dt, true, a, b, cc);
+            T Kf[N][L], Kf_top;
+            heat_faces(f.kap, Kf, Kf_top);
+            rows(Kf, Kf_top, f.Dh, T(1), inv_dt, DIRICHLET, a, b, cc);
         }
         solve<SOLVER>(a, b, cc, f.U);
 #pragma unroll
@@ -694,7 +702,7 @@ struct GroupColumn {
 #pragma unroll
             for (int i = 0; i < N; ++i) {
 #pragma unroll
-                for (int l = 0; l < L; ++l) D[i][l] = water_chain<T>(sat[i][l], c, P);
+                for (int l = 0; l < L; ++l) D[i][l] = chain(sat[i][l]);
             }
             rows(f.Keff, T(0), D, c.inv_por, inv_dt, false, a, b, cc);
         }
@@ -741,7 +749,8 @@ struct GroupColumn {
                     }
                 }
             }
-            implicit_solves<SOLVER>(f, U, sat, inv_dt);
+            implicit_solves<SOLVER, true>(f, U, sat, inv_dt,
+                                          [&](T sk) { return water_chain<T>(sk, c, P); });
             if (it == 0) S = S + f.S * dt;
         }
     }
@@ -803,6 +812,288 @@ struct GroupColumn {
         T gkap[N][L] = {}, gC[N][L] = {}, gKeff[N][L] = {};
     };
 
+    // the face K of the face below each level from the centre K (face_K:
+    // the bottom face and the top two take their level's centre K, the
+    // others the min of the two sides)
+    SOIL_FN void face_Ks(const T (&Kc)[N][L], T (&FK)[N][L]) const {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T Kc_lo = at(i, l, -1, Kc);
+                FK[i][l] = (k == 0 || k >= NZ - 1) ? Kc[i][l] : vmin(Kc_lo, Kc[i][l]);
+            }
+        }
+    }
+
+    // The Darcy flux of the interior faces f = 1 ... NZ - 1 in reverse,
+    // from the water tendencies' cotangents gfs (the tendency of level k
+    // (-((qw[k+1] - qw[k]) / dz[k])) / por, the top face carrying no flux)
+    // and those of the faces' Darcy conductivities gKeff (the implicit
+    // rows'): face f, on the slot of level f, forms its shares of the face
+    // K's cotangents and of the heads'; each face K then gathers its
+    // shares from faces f - 1, f and f + 1 in turn into gKf (the face below
+    // each level; gKf_top the surface face's, from face NZ - 1 alone), each
+    // head from faces k and k + 1 into gpsi.
+    SOIL_FN void darcy_adjoint(const T (&gfs)[N][L], const T (&psi)[N][L], const T (&FK)[N][L],
+                               const T (&Kc)[N][L], const T (&gKeff)[N][L], T (&gKf)[N][L],
+                               T (&gpsi)[N][L], T& gKf_top) const {
+        // face f's shares of gKf[f - 1], gKf[f], gKf[f + 1] (kl, km, kh)
+        // and of the heads (pg, + to psi[f], - to psi[f - 1])
+        T kl[N][L], km[N][L], kh[N][L], pg[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T gfs_lo = at(i, l, -1, gfs), dz_lo = at(i, l, -1, dz);
+                const T psi_lo = at(i, l, -1, psi), FK_lo = at(i, l, -1, FK);
+                const T FK_hi = at(i, l, 1, FK);
+                kl[i][l] = km[i][l] = kh[i][l] = pg[i][l] = T(0);
+                if (k < 1 || k >= NZ) continue;
+                const T glo = -(gfs_lo / c.por) / dz_lo;
+                const T ghi = -(gfs[i][l] / c.por) / dz[i][l];
+                const T gqw = glo - ghi;
+                const T grad = (psi[i][l] - psi_lo) / dzf[i][l];
+                const T K_f = FK[i][l];
+                const T K_lo = FK_lo;
+                const T K_hi = k == NZ - 1 ? Kc[i][l] : FK_hi;
+                const T K_eff = grad < T(0) ? vmin(K_lo, K_f) : vmin(K_f, K_hi);
+                T gK = -gqw * grad;
+                gK = gK + gKeff[i][l];
+                const T ggrad = -gqw * K_eff;
+                if (grad < T(0)) min_adjoint(K_lo, K_f, gK, kl[i][l], km[i][l]);
+                else min_adjoint(K_f, K_hi, gK, km[i][l], kh[i][l]);
+                pg[i][l] = ggrad / dzf[i][l];
+            }
+        }
+        gKf_top = T(0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T kh_lo = at(i, l, -1, kh), kl_hi = at(i, l, 1, kl);
+                const T pg_hi = at(i, l, 1, pg);
+                T g = T(0), gp = T(0);
+                if (k >= 2 && k <= NZ - 1) g += kh_lo;
+                if (k >= 1 && k <= NZ - 1) {
+                    g += km[i][l];
+                    gp += pg[i][l];
+                }
+                if (k <= NZ - 2) {
+                    g += kl_hi;
+                    gp -= pg_hi;
+                }
+                gKf[i][l] = g;
+                gpsi[i][l] = gp;
+                if (k == NZ - 1) gKf_top = T(0) + kh[i][l];
+            }
+        }
+    }
+
+    // The face K from the centre K in reverse: gKc[0] gathers gKf[0]; faces
+    // 1 ... NZ - 2 split theirs between the levels either side (el below, em
+    // at the face's own), each level taking face k's share, then face k +
+    // 1's; the top level takes `top` (what reads its centre K besides the
+    // faces: the land's infiltration, 0 for the soil), then gKf[NZ - 1] +
+    // gKf_top.
+    SOIL_FN void centre_K_adjoint(const T (&Kc)[N][L], const T (&gKf)[N][L], const T gKf_top,
+                                  const T top, T (&gKc)[N][L]) const {
+        T el[N][L], em[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T Kc_lo = at(i, l, -1, Kc);
+                el[i][l] = em[i][l] = T(0);
+                if (k >= 1 && k <= NZ - 2) min_adjoint(Kc_lo, Kc[i][l], gKf[i][l], el[i][l],
+                                                       em[i][l]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T el_hi = at(i, l, 1, el);
+                T g = T(0);
+                if (k == 0) g += gKf[i][l];
+                if (k >= 1 && k <= NZ - 2) g += em[i][l];
+                if (k <= NZ - 3) g += el_hi;
+                if (k == NZ - 1) {
+                    g += top;
+                    g += gKf[i][l] + gKf_top;
+                }
+                gKc[i][l] = g;
+            }
+        }
+    }
+
+    // The heat flux in reverse, from the energy tendencies' cotangents gfU
+    // (the tendency of level k -((qh[k+1] - qh[k]) / dz[k])): face f = 1 ...
+    // NZ - 1 on the slot of level f forms its share 0.5 gkf of each side's
+    // kap and gD / dzf of each side's T; DIRICHLET: the top face (the ghost
+    // 2 vtop - T) on the slot of NZ - 1, else the top face carries no flux.
+    // Each level gathers face k's share, then face k + 1's (then the top
+    // face's): gT from `top` on the top level (what reads its temperature
+    // besides the flux: the land's ground temperature, 0 for the soil) and 0
+    // below it; gkap from 0, then kap_x (the implicit rows' cotangent of the
+    // level's kappa) added.
+    template <bool DIRICHLET>
+    SOIL_FN void heat_flux_adjoint(const T (&gfU)[N][L], const T (&Tk)[N][L],
+                                   const T (&kap)[N][L], const T vtop, const T (&kap_x)[N][L],
+                                   const T top, T (&gT)[N][L], T (&gkap)[N][L]) const {
+        T hk[N][L], qk[N][L], top_gkap = T(0), top_gT = T(0);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T gfU_lo = at(i, l, -1, gfU), dz_lo = at(i, l, -1, dz);
+                const T Tk_lo = at(i, l, -1, Tk), kap_lo = at(i, l, -1, kap);
+                hk[i][l] = qk[i][l] = T(0);
+                if (k < 1 || k >= NZ) continue;
+                const T glo = -gfU_lo / dz_lo;
+                const T ghi = -gfU[i][l] / dz[i][l];
+                const T gqh = glo - ghi;
+                const T D = (Tk[i][l] - Tk_lo) / dzf[i][l];
+                const T kf = T(0.5) * (kap[i][l] + kap_lo);
+                const T gkf = -gqh * D;
+                const T gD = -gqh * kf;
+                hk[i][l] = T(0.5) * gkf;
+                qk[i][l] = gD / dzf[i][l];
+            }
+        }
+        if constexpr (DIRICHLET) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    if (level(i, l) != NZ - 1) continue;
+                    const T glo = -gfU[i][l] / dz[i][l];
+                    const T ghi = T(0);
+                    const T gqh = glo - ghi;
+                    const T ghost = T(2) * vtop - Tk[i][l];
+                    const T D = (ghost - Tk[i][l]) / dzf_top;
+                    const T kf = T(0.5) * (kap[i][l] + kap[i][l]);
+                    top_gkap = -gqh * D;
+                    const T gD = -gqh * kf;
+                    top_gT = (gD / dzf_top) + (gD / dzf_top);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                const T hk_hi = at(i, l, 1, hk), qk_hi = at(i, l, 1, qk);
+                T gk = T(0), gt = k == NZ - 1 ? top : T(0);
+                if (k >= 1 && k <= NZ - 1) {
+                    gk += hk[i][l];
+                    gt += qk[i][l];
+                }
+                if (k <= NZ - 2) {
+                    gk += hk_hi;
+                    gt -= qk_hi;
+                }
+                if (DIRICHLET && k == NZ - 1) {
+                    gk += top_gkap;
+                    gt -= top_gT;
+                }
+                gkap[i][l] = gk + kap_x[i][l];
+                gT[i][l] = gt;
+            }
+        }
+    }
+
+    // the Van Genuchten head's share of a level's saturation cotangent gsk
+    // from its head's gpsi (psi_m = max(raw, psi_min) below saturation, raw
+    // = -(1/alpha) (ss^(-1/m) - 1)^(1/n); the water table piecewise
+    // constant)
+    SOIL_FN void vg_head_adjoint(const T sk, const T wt, const T zck, const T gpsi, T& gsk) const {
+        const Head<T> h(sk, wt, zck, c, P);
+        if (!(h.se >= T(1)) && h.raw >= c.psi_min && h.se >= c.vg_se_lo && h.se <= c.vg_se_hi) {
+            const T gX = gpsi * c.neg_inv_alpha * dfpow(h.X, P.num_inv_n, P.den_inv_n, c.p_inv_n);
+            const T gss = gX * dfpow(h.ss, P.num_inv_m, P.den_inv_m, c.p_inv_m);
+            gsk += (gss / c.vg_span) * c.por;
+        }
+    }
+
+    // The saturation adjustment in reverse, from the closed saturation's
+    // cotangents gs and the spill's gS1 (the closed pool's), with the
+    // sweeps' predicates `bits`: gs becomes the cotangent of the saturation
+    // before the sweeps. The down sweep from the bottom: a clipped level
+    // takes -g2 dz of the cotangent g2 carried up, any other sets g2 = -gs /
+    // dz; the g2 entering a lane is what the nearest lane below with an
+    // unclipped level sends (0 where none has): a ballot finds those lanes
+    // and one shuffle hands it. The up sweep from the top: a spilled level
+    // takes g dz of the cotangent g carried down (gS1 above the top), any
+    // other sets g = gs / dz; the g entering a lane is what the nearest lane
+    // above with an unspilled level sends, or gS1.
+    SOIL_FN void sweeps_adjoint(const SweepBits& bits, T (&gs)[N][L], const T gS1) const {
+        T out[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            T g2 = T(0);
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+                if (level(i, l) < NZ && !(bits.clipped[i] & (1u << l))) g2 = -gs[i][l] / dz[i][l];
+            out[i] = g2;
+        }
+        unsigned m = lanes.ballot([&](int i) { return reset_in(i, bits.clipped[i]); });
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const int ln = lanes.lane(i);
+            const unsigned below = m & ((1u << ln) - 1u);
+            const T g_in = lanes.from(below ? Lanes::highest(below) : ln,
+                                      [&](int j) { return out[j]; });
+            T g2 = below ? g_in : T(0);
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                if (level(i, l) >= NZ) continue;
+                const T gnew = gs[i][l];
+                if (bits.clipped[i] & (1u << l)) {
+                    gs[i][l] = -g2 * dz[i][l];
+                } else {
+                    gs[i][l] = gnew;
+                    g2 = -gnew / dz[i][l];
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            T g = T(0);
+#pragma unroll
+            for (int l = L - 1; l >= 0; --l)
+                if (level(i, l) < NZ && !(bits.spilled[i] & (1u << l))) g = gs[i][l] / dz[i][l];
+            out[i] = g;
+        }
+        m = lanes.ballot([&](int i) { return reset_in(i, bits.spilled[i]); });
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const int ln = lanes.lane(i);
+            const unsigned above = ln < 31 ? (m >> (ln + 1)) << (ln + 1) : 0u;
+            const T g_in = lanes.from(above ? Lanes::lowest(above) : ln,
+                                      [&](int j) { return out[j]; });
+            T g = above ? g_in : gS1;
+#pragma unroll
+            for (int l = L - 1; l >= 0; --l) {
+                if (level(i, l) >= NZ) continue;
+                const T gup = gs[i][l];
+                if (bits.spilled[i] & (1u << l)) {
+                    gs[i][l] = g * dz[i][l];
+                } else {
+                    gs[i][l] = gup;
+                    g = gup / dz[i][l];
+                }
+            }
+        }
+    }
+
     // soil::rhs_adjoint (heat + Richards, the implicit terms' cotangents x)
     // on the group: on entry (gU, gs, gS) are the cotangents of what the
     // caller reads of the closed column, (gfU, gfs, gfS) those of the
@@ -839,174 +1130,16 @@ struct GroupColumn {
                 psi[i][l] = Head<T>(s[i][l], wt, zc[i][l], c, P).psi;
             }
         }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T Kc_lo = at(i, l, -1, Kc);
-                FK[i][l] = (k == 0 || k >= NZ - 1) ? Kc[i][l] : vmin(Kc_lo, Kc[i][l]);
-            }
-        }
+        face_Ks(Kc, FK);
 
         // ---- surface pool: the tendency min(0, S1)
         const T gS1 = S1 < T(0) ? gS + gfS : gS;
 
-        // ---- Darcy flux at the interior faces f = 1 ... NZ - 1, face f on
-        // the slot of level f: its shares of the face K's cotangents
-        // (gKf[f - 1], gKf[f], gKf[f + 1]: kl, km, kh) and of the heads'
-        // (pg, + to psi[f], - to psi[f - 1])
-        T kl[N][L], km[N][L], kh[N][L], pg[N][L];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T gfs_lo = at(i, l, -1, gfs), dz_lo = at(i, l, -1, dz);
-                const T psi_lo = at(i, l, -1, psi), FK_lo = at(i, l, -1, FK);
-                const T FK_hi = at(i, l, 1, FK);
-                kl[i][l] = km[i][l] = kh[i][l] = pg[i][l] = T(0);
-                if (k < 1 || k >= NZ) continue;
-                // dsat/dt[k] = (-((qw[k+1] - qw[k]) / dz[k])) / por
-                const T glo = -(gfs_lo / c.por) / dz_lo;
-                const T ghi = -(gfs[i][l] / c.por) / dz[i][l];
-                const T gqw = glo - ghi;
-                const T grad = (psi[i][l] - psi_lo) / dzf[i][l];
-                const T K_f = FK[i][l];
-                const T K_lo = FK_lo;
-                const T K_hi = k == NZ - 1 ? Kc[i][l] : FK_hi;
-                const T K_eff = grad < T(0) ? vmin(K_lo, K_f) : vmin(K_f, K_hi);
-                T gK = -gqw * grad;
-                gK = gK + x.gKeff[i][l];
-                const T ggrad = -gqw * K_eff;
-                if (grad < T(0)) min_adjoint(K_lo, K_f, gK, kl[i][l], km[i][l]);
-                else min_adjoint(K_f, K_hi, gK, km[i][l], kh[i][l]);
-                pg[i][l] = ggrad / dzf[i][l];
-            }
-        }
-        // each face K's cotangent from faces f - 1, f and f + 1 in turn (the
-        // surface face's, gKf_top, from face NZ - 1 alone); each head's
-        // from faces k and k + 1
-        T gKf[N][L], gpsi[N][L], gKf_top = T(0);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T kh_lo = at(i, l, -1, kh), kl_hi = at(i, l, 1, kl);
-                const T pg_hi = at(i, l, 1, pg);
-                T g = T(0), gp = T(0);
-                if (k >= 2 && k <= NZ - 1) g += kh_lo;
-                if (k >= 1 && k <= NZ - 1) {
-                    g += km[i][l];
-                    gp += pg[i][l];
-                }
-                if (k <= NZ - 2) {
-                    g += kl_hi;
-                    gp -= pg_hi;
-                }
-                gKf[i][l] = g;
-                gpsi[i][l] = gp;
-                if (k == NZ - 1) gKf_top = T(0) + kh[i][l];
-            }
-        }
-
-        // ---- face K from centre K: gKc[0] += gKf[0]; faces 1 ... NZ - 2
-        // split theirs between the levels either side (el below, em at the
-        // face's own); gKc[NZ - 1] += gKf[NZ - 1] + gKf[NZ]
-        T el[N][L], em[N][L];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T Kc_lo = at(i, l, -1, Kc);
-                el[i][l] = em[i][l] = T(0);
-                if (k >= 1 && k <= NZ - 2) min_adjoint(Kc_lo, Kc[i][l], gKf[i][l], el[i][l],
-                                                       em[i][l]);
-            }
-        }
-        T gKc[N][L];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T el_hi = at(i, l, 1, el);
-                T g = T(0);
-                if (k == 0) g += gKf[i][l];
-                if (k >= 1 && k <= NZ - 2) g += em[i][l];
-                if (k <= NZ - 3) g += el_hi;
-                if (k == NZ - 1) g += gKf[i][l] + gKf_top;
-                gKc[i][l] = g;
-            }
-        }
-
-        // ---- heat flux: face f = 1 ... NZ - 1 on the slot of level f (its
-        // share 0.5 gkf of each side's kap and gD / dzf of each side's T),
-        // the top face (the Dirichlet ghost 2 v - T) on the slot of NZ - 1
-        T hk[N][L], qk[N][L], top_gkap = T(0), top_gT = T(0);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T gfU_lo = at(i, l, -1, gfU), dz_lo = at(i, l, -1, dz);
-                const T Tk_lo = at(i, l, -1, Tk), kap_lo = at(i, l, -1, kap);
-                hk[i][l] = qk[i][l] = T(0);
-                if (k < 1 || k >= NZ) continue;
-                // dU/dt[k] = -((qh[k+1] - qh[k]) / dz[k])
-                const T glo = -gfU_lo / dz_lo;
-                const T ghi = -gfU[i][l] / dz[i][l];
-                const T gqh = glo - ghi;
-                const T D = (Tk[i][l] - Tk_lo) / dzf[i][l];
-                const T kf = T(0.5) * (kap[i][l] + kap_lo);
-                const T gkf = -gqh * D;
-                const T gD = -gqh * kf;
-                hk[i][l] = T(0.5) * gkf;
-                qk[i][l] = gD / dzf[i][l];
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                if (level(i, l) != NZ - 1) continue;
-                const T glo = -gfU[i][l] / dz[i][l];
-                const T ghi = T(0);
-                const T gqh = glo - ghi;
-                const T ghost = T(2) * vtop - Tk[i][l];
-                const T D = (ghost - Tk[i][l]) / dzf_top;
-                const T kf = T(0.5) * (kap[i][l] + kap[i][l]);
-                top_gkap = -gqh * D;
-                const T gD = -gqh * kf;
-                top_gT = (gD / dzf_top) + (gD / dzf_top);
-            }
-        }
-        T gT[N][L], gkap[N][L];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                const int k = level(i, l);
-                const T hk_hi = at(i, l, 1, hk), qk_hi = at(i, l, 1, qk);
-                T gk = T(0), gt = T(0);
-                if (k >= 1 && k <= NZ - 1) {
-                    gk += hk[i][l];
-                    gt += qk[i][l];
-                }
-                if (k <= NZ - 2) {
-                    gk += hk_hi;
-                    gt -= qk_hi;
-                }
-                if (k == NZ - 1) {
-                    gk += top_gkap;
-                    gt -= top_gT;
-                }
-                gkap[i][l] = gk + x.gkap[i][l];
-                gT[i][l] = gt;
-            }
-        }
+        // ---- Darcy flux, face K, heat flux
+        T gKf[N][L], gpsi[N][L], gKf_top, gKc[N][L], gT[N][L], gkap[N][L];
+        darcy_adjoint(gfs, psi, FK, Kc, x.gKeff, gKf, gpsi, gKf_top);
+        centre_K_adjoint(Kc, gKf, gKf_top, T(0), gKc);
+        heat_flux_adjoint<true>(gfU, Tk, kap, vtop, x.gkap, T(0), gT, gkap);
 
         // ---- pressure head and closure, slot by slot
 #pragma unroll
@@ -1015,16 +1148,7 @@ struct GroupColumn {
             for (int l = 0; l < L; ++l) {
                 if (level(i, l) >= NZ) continue;
                 T gsk = gs[i][l];  // what the caller reads of the closed saturation
-                // psi = psi_h + psi_m + (z - z_top); psi_m = max(raw, psi_min)
-                // below saturation, raw = -(1/alpha) (ss^(-1/m) - 1)^(1/n)
-                const Head<T> h(s[i][l], wt, zc[i][l], c, P);
-                if (!(h.se >= T(1)) && h.raw >= c.psi_min && h.se >= c.vg_se_lo
-                    && h.se <= c.vg_se_hi) {
-                    const T gX = gpsi[i][l] * c.neg_inv_alpha * dfpow(h.X, P.num_inv_n,
-                                                                      P.den_inv_n, c.p_inv_n);
-                    const T gss = gX * dfpow(h.ss, P.num_inv_m, P.den_inv_m, c.p_inv_m);
-                    gsk += (gss / c.vg_span) * c.por;
-                }
+                vg_head_adjoint(s[i][l], wt, zc[i][l], gpsi[i][l], gsk);
                 const Level<T, true> v(s[i][l], U[i][l], c, P);
                 T gUk = gU[i][l];  // what the caller reads of U
                 level_adjoint<T, true, true>(v, s[i][l], U[i][l], gT[i][l], gkap[i][l],
@@ -1035,72 +1159,8 @@ struct GroupColumn {
             }
         }
 
-        // ---- the saturation adjustment in reverse. The down sweep from
-        // the bottom: a clipped level takes -g2 dz of the cotangent g2
-        // carried up, any other sets g2 = -gs / dz. The g2 entering a lane is
-        // what the nearest lane below with an unclipped level sends (0 where
-        // none has): a ballot finds those lanes and one shuffle hands it.
-        T out[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-            T g2 = T(0);
-#pragma unroll
-            for (int l = 0; l < L; ++l)
-                if (level(i, l) < NZ && !(bits.clipped[i] & (1u << l))) g2 = -gs[i][l] / dz[i][l];
-            out[i] = g2;
-        }
-        unsigned m = lanes.ballot([&](int i) { return reset_in(i, bits.clipped[i]); });
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-            const int ln = lanes.lane(i);
-            const unsigned below = m & ((1u << ln) - 1u);
-            const T g_in = lanes.from(below ? Lanes::highest(below) : ln,
-                                      [&](int j) { return out[j]; });
-            T g2 = below ? g_in : T(0);
-#pragma unroll
-            for (int l = 0; l < L; ++l) {
-                if (level(i, l) >= NZ) continue;
-                const T gnew = gs[i][l];
-                if (bits.clipped[i] & (1u << l)) {
-                    gs[i][l] = -g2 * dz[i][l];
-                } else {
-                    gs[i][l] = gnew;
-                    g2 = -gnew / dz[i][l];
-                }
-            }
-        }
-        // the up sweep from the top: a spilled level takes g dz of the
-        // cotangent g carried down (the spill's, gS1, above the top), any
-        // other sets g = gs / dz; the g entering a lane is what the nearest
-        // lane above with an unspilled level sends, or gS1
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-            T g = T(0);
-#pragma unroll
-            for (int l = L - 1; l >= 0; --l)
-                if (level(i, l) < NZ && !(bits.spilled[i] & (1u << l))) g = gs[i][l] / dz[i][l];
-            out[i] = g;
-        }
-        m = lanes.ballot([&](int i) { return reset_in(i, bits.spilled[i]); });
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-            const int ln = lanes.lane(i);
-            const unsigned above = ln < 31 ? (m >> (ln + 1)) << (ln + 1) : 0u;
-            const T g_in = lanes.from(above ? Lanes::lowest(above) : ln,
-                                      [&](int j) { return out[j]; });
-            T g = above ? g_in : gS1;
-#pragma unroll
-            for (int l = L - 1; l >= 0; --l) {
-                if (level(i, l) >= NZ) continue;
-                const T gup = gs[i][l];
-                if (bits.spilled[i] & (1u << l)) {
-                    gs[i][l] = g * dz[i][l];
-                } else {
-                    gs[i][l] = gup;
-                    g = gup / dz[i][l];
-                }
-            }
-        }
+        // ---- the saturation adjustment in reverse
+        sweeps_adjoint(bits, gs, gS1);
         gS = gS1;
     }
 
@@ -1240,30 +1300,26 @@ struct GroupColumn {
         }
     }
 
-    // soil::picard_iter_adjoint on the group: cotangents through one
-    // iteration of picard_step at its iterate (U, sat, S) before the
-    // iteration's closure; `later`: an iteration after the first, whose
-    // right side is tend(u_k) - (u_k - u^n) / dt (Un, sn: u^n), its pool
-    // dropped. The closure, the tendencies, the terms and the rows are
-    // recomputed there and each system is undone by one solve of its
-    // transposed rows, Richards then heat, by one body in a loop that is not
-    // unrolled.
-    template <int SOLVER>
-    SOIL_FN void picard_iter_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S,
-                                     const T vtop, const bool later, const T (&Un)[N][L],
-                                     const T (&sn)[N][L], T (&gU)[N][L], T (&gs)[N][L], T& gS,
-                                     T (&gUn)[N][L], T (&gsn)[N][L], T (&gKsat)[N],
-                                     T (&gskm)[N], const T dt, const T inv_dt) {
-        T xs[N][L], xS = S;
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int l = 0; l < L; ++l) xs[i][l] = sat[i][l];
-        }
-        ImplicitTerms f;
-        rhs(U, xs, xS, vtop, f);
-        TermCotangents x;
-        T gfU[N][L], gfs[N][L];
+    // The implicit systems of one Picard iteration in reverse, at the
+    // iterate's closed column (U, the closed saturation xs) with its terms
+    // f (ImplicitTerms, or the land column's): the rows recomputed and each
+    // system undone by one solve of its transposed rows, Richards then
+    // heat, by one body in a loop that is not unrolled; `later`: an
+    // iteration after the first, whose right side is tend(u_k) - (u_k -
+    // u^n) / dt (Un, sn: u^n). DIRICHLET: the heat rows' Dirichlet top;
+    // chain and chain_deriv: the curve's d(Psi)/d(sat) and its derivative.
+    // On entry (gU, gs) are the cotangents of the iteration's result; on
+    // return gU and gs hold those of U and the closed saturation that the
+    // rows and (later) the right side read, with (first iteration) gUn and
+    // gsn added, gUn and gsn (later) the right side's shares of u^n added,
+    // gfU and gfs the tendencies' cotangents and x the terms'.
+    template <int SOLVER, bool DIRICHLET, class F, class Chain, class ChainDeriv>
+    SOIL_FN void systems_adjoint(const F& f, const T (&U)[N][L], const T (&xs)[N][L],
+                                 const bool later, const T (&Un)[N][L], const T (&sn)[N][L],
+                                 T (&gU)[N][L], T (&gs)[N][L], T (&gUn)[N][L], T (&gsn)[N][L],
+                                 T (&gfU)[N][L], T (&gfs)[N][L], TermCotangents& x, const T dt,
+                                 const T inv_dt, const Chain& chain,
+                                 const ChainDeriv& chain_deriv) const {
 #pragma unroll 1
         for (int sys = 0; sys < 2; ++sys) {  // 0: Richards, 1: heat
             const bool heat = sys == 1;
@@ -1279,7 +1335,7 @@ struct GroupColumn {
                     Kf[i][l] = heat ? T(0.5) * (f.kap[i][l] + (k == 0 ? f.kap[i][l] : kap_lo))
                                     : f.Keff[i][l];
                     if (heat && k == NZ - 1) Kf_top = T(0.5) * (f.kap[i][l] + f.kap[i][l]);
-                    D[i][l] = heat ? f.Dh[i][l] : water_chain<T>(xs[i][l], c, P);
+                    D[i][l] = heat ? f.Dh[i][l] : chain(xs[i][l]);
                     d[i][l] = heat ? f.U[i][l] : f.sat[i][l];
                     if (later && k < NZ)
                         d[i][l] = d[i][l] - ((heat ? U[i][l] : xs[i][l])
@@ -1288,9 +1344,10 @@ struct GroupColumn {
                 }
             }
             const T s = heat ? T(1) : c.inv_por;
-            rows(Kf, Kf_top, D, s, inv_dt, heat, a, b, cc);
+            const bool dirichlet = DIRICHLET && heat;
+            rows(Kf, Kf_top, D, s, inv_dt, dirichlet, a, b, cc);
             solve_adjoint<SOLVER>(a, b, cc, d, gx, gd, ga, gb, gc);
-            rows_adjoint(Kf, Kf_top, D, s, heat, ga, gb, gc, gKf, gKf_top, gD);
+            rows_adjoint(Kf, Kf_top, D, s, dirichlet, ga, gb, gc, gKf, gKf_top, gD);
             if (heat) {
 #pragma unroll
                 for (int i = 0; i < N; ++i) {
@@ -1315,7 +1372,7 @@ struct GroupColumn {
                     for (int l = 0; l < L; ++l) {
                         gfs[i][l] = gd[i][l];
                         if (level(i, l) < NZ)
-                            gs[i][l] = gs[i][l] + gD[i][l] * water_chain_deriv<T>(xs[i][l], c, P);
+                            gs[i][l] = gs[i][l] + gD[i][l] * chain_deriv(xs[i][l]);
                         x.gKeff[i][l] = gKf[i][l];
                     }
                 }
@@ -1339,6 +1396,35 @@ struct GroupColumn {
                 }
             }
         }
+    }
+
+    // soil::picard_iter_adjoint on the group: cotangents through one
+    // iteration of picard_step at its iterate (U, sat, S) before the
+    // iteration's closure; `later`: an iteration after the first, whose
+    // right side is tend(u_k) - (u_k - u^n) / dt (Un, sn: u^n), its pool
+    // dropped. The closure, the tendencies, the terms and the rows are
+    // recomputed there and each system is undone by one solve of its
+    // transposed rows (systems_adjoint), then the closure (rhs_adjoint).
+    template <int SOLVER>
+    SOIL_FN void picard_iter_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S,
+                                     const T vtop, const bool later, const T (&Un)[N][L],
+                                     const T (&sn)[N][L], T (&gU)[N][L], T (&gs)[N][L], T& gS,
+                                     T (&gUn)[N][L], T (&gsn)[N][L], T (&gKsat)[N],
+                                     T (&gskm)[N], const T dt, const T inv_dt) {
+        T xs[N][L], xS = S;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) xs[i][l] = sat[i][l];
+        }
+        ImplicitTerms f;
+        rhs(U, xs, xS, vtop, f);
+        TermCotangents x;
+        T gfU[N][L], gfs[N][L];
+        systems_adjoint<SOLVER, true>(
+            f, U, xs, later, Un, sn, gU, gs, gUn, gsn, gfU, gfs, x, dt, inv_dt,
+            [&](T sk) { return water_chain<T>(sk, c, P); },
+            [&](T sk) { return water_chain_deriv<T>(sk, c, P); });
         T gSk = later ? T(0) : gS;
         rhs_adjoint(U, sat, S, vtop, gU, gs, gSk, gfU, gfs, gSk * dt, x, gKsat, gskm);
         if (!later) gS = gSk;

@@ -158,22 +158,30 @@ INSTANTIATIONS = {
         (("bare", "richards", "bc", "linear", "snow"), _F64, 12), (("bare", "noflow"), _F64, 15),
     ],
     # the LandModel's segment VJP over the vegetated bench composition
-    # (Richards over Brooks-Corey and linear conductivity) at Nz 20:
-    # ImplicitEuler with any number of Picard iterations, ImplicitEuler (each
-    # solver, PCR also with a snowpack), Heun and ForwardEuler
+    # (Richards over Brooks-Corey and linear conductivity) at Nz 20, one
+    # thread a column: ImplicitEuler PCR with a snowpack, Heun and
+    # ForwardEuler (ImplicitEuler's entries without a snowpack stay
+    # buildable on demand, to time the one-thread layout against the
+    # group's)
     "land_column_segment_vjp": [
-        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
-        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
-        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
         (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
-        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
-        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
-        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
         (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
+    ],
+    # the LandModel's ImplicitEuler segment VJP over the vegetated bench
+    # composition at Nz 20, a column on a group of lanes: each solver and
+    # the Picard entries (which hold a kernel of each solver), at float32
+    # (the gradient) and float64 (the checks)
+    "land_column_group_segment_vjp": [
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
     ],
     # the probes (csrc/probes.cu): the roofline micro-benchmark's chains
     # (NZ unused), the Mosaic bisect's cases at its Nz 30 and the Mosaic
@@ -192,9 +200,9 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",),
             "micro": ("PROBE_ROW=4",), "bisect": ("PROBE_ROW=5",), "repro": ("PROBE_ROW=6",),
             # the group kernels at a group size other than their depth's
-            # (soil::group_lanes) and the group segment VJP at another
-            # launch bound (resident blocks an SM), for measuring one
-            # against another
+            # (soil::group_lanes, land::implicit_group_lanes) and the group
+            # segment VJPs at another launch bound (resident blocks an SM),
+            # for measuring one against another
             **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (4, 8, 16, 32)},
             **{f"mb{b}": (f"SOIL_MIN_BLOCKS={b}",) for b in (1, 2, 3, 4)}}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
@@ -204,6 +212,7 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
 #: ones, the timed path, do; so do the probes' float64 instantiations
 FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
          "land_column_segment_vjp": {_F64: ("-fmad=false",)},
+         "land_column_group_segment_vjp": {_F64: ("-fmad=false",)},
          "land_column_full_step": {_F64: ("-fmad=false",)},
          "probes": {_F64: ("-fmad=false",)}}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}

@@ -19,11 +19,17 @@ the mineral conductivity times the mineral fraction, as the soil's
 replaces ``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp`` traced over a
 LandModel step. The clock is not differentiated.
 
-The CUDA source is ``csrc/land_column_segment_vjp.cu``, with the step's
-adjoint in ``csrc/land_adjoint.cuh``. On CPU tensors the wrapper runs
-:func:`land_column_segment_vjp_plain`, torch autograd through the plain
-rollout (the process modules); on CUDA tensors it launches the kernel or
-raises. Each launch adds one to ``land_column_segment_vjp.launches``.
+The CUDA sources: ImplicitEuler (either solver, any Picard count) over
+Richards flow without a snowpack (``vjp_source``) runs each column on a
+group of lanes, ``csrc/land_column_group_segment_vjp.cu``
+(``land::GroupColumn::segment_vjp`` in ``csrc/land_group_step.cuh``);
+every other scheme and composition (ForwardEuler, Heun, a snowpack,
+``NoFlow``) one thread a column, ``csrc/land_column_segment_vjp.cu``, with
+the step's adjoint in ``csrc/land_adjoint.cuh``. On CPU tensors the
+wrapper runs :func:`land_column_segment_vjp_plain`, torch autograd through
+the plain rollout (the process modules); on CUDA tensors it launches the
+kernel of the composition's type or raises. Each launch adds one to
+``land_column_segment_vjp.launches``.
 Where the plain version's autograd gives NaN (0 * inf in a gated-off
 photosynthesis, see ``land_adjoint.cuh``) the kernel gives the taken
 branch's derivative.
@@ -43,10 +49,12 @@ from .land_step import (_CARRY_OF, _CLAND, LandInput, LandParams, _check, _CLand
                         launch_args)
 
 __all__ = ["land_column_segment_vjp", "land_column_segment_vjp_plain", "LAND_VJP_SCHEMES",
-           "mineral_fraction"]
+           "mineral_fraction", "vjp_source", "vjp_group"]
 
 _NAME = "land_column_segment_vjp"  # csrc/land_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
+_GROUP_NAME = "land_column_group_segment_vjp"  # csrc/land_column_group_segment_vjp.cu
+_GROUP_THREADS = 256  # threads a block of the group kernel: 256 / G columns
 #: the (stepper, solver) that have a land segment VJP, ImplicitEuler's with
 #: any number of Picard iterations
 LAND_VJP_SCHEMES = (("euler", None), ("heun", None), ("implicit", "thomas"),
@@ -73,6 +81,32 @@ def check_scheme(params: LandParams, stepper: str, solver: Optional[str],
             raise ValueError(f"Picard iterations are ImplicitEuler's, not {stepper!r}'s")
         return ("heun",) if stepper == "heun" else ()
     return implicit_tags(solver, picard_iters)
+
+
+def vjp_source(params: LandParams, stepper: str) -> str:
+    """The CUDA source of the land segment VJP of ``stepper`` over the
+    composition of ``params``: the group kernel's for ImplicitEuler (either
+    solver, any Picard count) over Richards flow without a snowpack, the
+    one-thread kernel's for any other."""
+    tags = params.tags
+    if stepper == "implicit" and tags[1] == "richards" and "snow" not in tags:
+        return _GROUP_NAME
+    return _NAME
+
+
+def vjp_group(dtype: torch.dtype, nz: int, tags: tuple, solver: str) -> tuple:
+    """``(resident warps an SM, G)`` of the group segment-VJP kernel of
+    ``solver`` in the entry of ``tags`` (the stepper's and the
+    composition's) at ``dtype`` and depth ``nz``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at first
+    use)."""
+    fn = cuda_build.entry(_GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                          tags=tags, suffix="_warps")
+    group = ctypes.c_int(0)
+    warps = fn(SOLVER_CODES[solver], ctypes.byref(group))
+    if warps < 0:
+        raise RuntimeError("the occupancy query of the land group segment-VJP kernel failed")
+    return warps, group.value
 
 
 def _check_static(inputs: Dict[str, LandInput]) -> None:
@@ -154,7 +188,8 @@ def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, La
     them, applied to ``gcarry``, the cotangents of the output carry (the
     model's live carry); returns ``(gcarry0, gK_sat, gsk_mineral)``. CPU
     tensors take :func:`land_column_segment_vjp_plain`; CUDA tensors launch
-    the kernel of ``params.tags``. Raises ``ValueError`` for series
+    the kernel of ``params.tags`` from the source ``vjp_source`` names.
+    Raises ``ValueError`` for series
     inputs, which the fused gradient does not take."""
     stepper_tags = check_scheme(params, stepper, solver, picard_iters)
     coords = (dz, dz_faces, z_centers, z_faces)
@@ -182,10 +217,15 @@ def land_column_segment_vjp(carry: Dict[str, torch.Tensor], inputs: Dict[str, La
         if not t.is_contiguous():
             raise ValueError("the land segment VJP kernel takes contiguous tensors")
     nz, cells = U.shape
-    fn = cuda_build.entry(_NAME, U.dtype, nz, _argtypes(U.dtype),
-                          tags=tuple(stepper_tags) + params.tags)
+    tags = tuple(stepper_tags) + params.tags
+    source = vjp_source(params, stepper)
+    fn = cuda_build.entry(source, U.dtype, nz, _argtypes(U.dtype), tags=tags)
     gin = {n: torch.empty_like(carry[n]) for n in carry_names(params)}
-    blocks = -(-cells // _THREADS)
+    if source == _GROUP_NAME:
+        group = vjp_group(U.dtype, nz, tags, solver)[1]
+        blocks = -(-cells // (_GROUP_THREADS // group))
+    else:
+        blocks = -(-cells // _THREADS)
     # a step's carry: U and sat, the pool, skin, canopy water, carbon,
     # fraction and An, and the SWE under a snowpack (land::ScratchRows)
     rows = 2 * nz + 6 + ("snow" in params.tags)

@@ -303,3 +303,100 @@ def test_group_segment_vjp_keys(fake_nvcc, solver):
     assert fake_nvcc.compiles()[-1][-1].endswith("soil_column_segment_vjp.cu")
     cb.entry("soil_column_group_segment_vjp", F32, 30, [], tags=(*tags, "g8", "mb1"))
     assert {"-DSOIL_GROUP=8", "-DSOIL_MIN_BLOCKS=1"} <= _defines(fake_nvcc.compiles()[-1])
+
+
+def _land_params(composition):
+    """``LandParams`` of `test_torch_land_adjoint_host.py`'s composition."""
+    from test_torch_land_adjoint_host import composition_model
+
+    grid = tp.ColumnGrid.of(cells=2, spacing=tp.ExponentialSpacing(N=20), dtype=F32,
+                            device="cpu")
+    return ls.LandParams.of(composition_model(grid, composition), F32)
+
+
+@pytest.mark.parametrize("solver", ["pcr", "thomas", "picard"])
+def test_land_group_segment_vjp_keys(fake_nvcc, solver):
+    """The land segment VJP of ImplicitEuler over the vegetated bench
+    composition (each solver; more than one Picard iteration: the entry of
+    both solvers) is prebuilt from the group source
+    (``csrc/land_column_group_segment_vjp.cu``) at float32 and float64 Nz 20
+    and no longer in the one-thread source's prebuilt set, which still
+    builds the same tags alone on demand (to time one layout against the
+    other); an unlisted depth is built alone with the scheme's and the
+    composition's defines and no group size (the source takes
+    ``land::implicit_group_lanes``), its float64 build with the land
+    sources' ``-fmad=false``; ``g<G>`` and ``mb<B>`` tags add ``SOIL_GROUP``
+    and ``SOIL_MIN_BLOCKS``; the ``_warps`` suffix reads the instantiation's
+    resident warps and G."""
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    params = _land_params("coupled")
+    iters = 2 if solver == "picard" else 1
+    tags = lv.check_scheme(params, "implicit", "pcr" if solver == "picard" else solver,
+                           iters) + params.tags
+    assert tags == ("implicit", solver, "veg", "richards", "bc", "linear")
+    for dtype in (F32, F64):
+        assert (tags, dtype, 20) in cb.INSTANTIATIONS["land_column_group_segment_vjp"]
+    assert all(t != tags for t, _, _ in cb.INSTANTIATIONS["land_column_segment_vjp"])
+    assert cb.FLAGS["land_column_group_segment_vjp"] == {F64: ("-fmad=false",)}
+    argtypes = lv._argtypes(F64)
+    fn = cb.entry("land_column_group_segment_vjp", F64, 15, argtypes, tags=tags)
+    name = f"land_column_group_segment_vjp_{'_'.join(tags)}_f64_nz15"
+    assert fn.name == name and fn.argtypes == argtypes
+    (compile_,) = fake_nvcc.compiles()
+    assert compile_[-1].endswith("land_column_group_segment_vjp.cu")
+    assert "-fmad=false" in compile_
+    defines = {"pcr": {"-DSOIL_SOLVER=1"}, "thomas": {"-DSOIL_SOLVER=0"},
+               "picard": {"-DSOIL_SOLVER=2", "-DSOIL_PICARD=1"}}[solver]
+    assert _defines(compile_) == {f"-DSOIL_ENTRY={name}", "-DSOIL_T=double", "-DSOIL_NZ=15",
+                                  "-DSOIL_STEPPER=2", "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1",
+                                  "-DLAND_VEG=1", "-DLAND_CURVE=1", "-DLAND_COND=1", *defines}
+    warps = cb.entry("land_column_group_segment_vjp", F64, 15, [], tags=tags, suffix="_warps")
+    assert warps.name == f"{name}_warps" and len(fake_nvcc.compiles()) == 1
+    cb.entry("land_column_group_segment_vjp", F32, 15, argtypes, tags=tags)
+    assert "-fmad=false" not in fake_nvcc.compiles()[-1]
+    one = cb.entry("land_column_segment_vjp", F32, 20, argtypes, tags=tags)
+    assert one.name == f"land_column_segment_vjp_{'_'.join(tags)}_f32_nz20"
+    assert fake_nvcc.compiles()[-1][-1].endswith("land_column_segment_vjp.cu")
+    cb.entry("land_column_group_segment_vjp", F32, 20, [], tags=(*tags, "g8", "mb1"))
+    assert {"-DSOIL_GROUP=8", "-DSOIL_MIN_BLOCKS=1"} <= _defines(fake_nvcc.compiles()[-1])
+
+
+def test_land_group_segment_vjp_has_a_kernel_per_solver():
+    """The group source's kernel takes the solver as a template argument and
+    its entry launches the kernel of the solver its argument names, so that
+    the Picard entry (``SOIL_SOLVER=2``) holds a kernel of each solver and
+    every other entry one; the group size is
+    ``land::implicit_group_lanes(NZ, SOLVER)`` of that solver."""
+    src = (cb._CSRC / "land_column_group_segment_vjp.cu").read_text()
+    assert "template <typename T, int NZ, int G, int SOLVER>\n__global__" in src
+    assert "land::implicit_group_lanes(NZ, SOLVER)" in src
+    assert "if (solver == soil::SOLVER_THOMAS) return SOIL_LAUNCH(soil::SOLVER_THOMAS);" in src
+    assert "return SOIL_LAUNCH(ENTRY_SOLVER);" in src
+
+
+@pytest.mark.parametrize("composition,stepper,source", [
+    ("coupled", "implicit", "land_column_group_segment_vjp"),
+    ("consistent", "implicit", "land_column_group_segment_vjp"),
+    ("bare_vg_mualem", "implicit", "land_column_group_segment_vjp"),
+    ("vg_mualem", "implicit", "land_column_group_segment_vjp"),
+    ("bare_richards", "implicit", "land_column_group_segment_vjp"),
+    ("consistent_snow", "implicit", "land_column_segment_vjp"),
+    ("bare_bc_mo_snow", "implicit", "land_column_segment_vjp"),
+    ("veg_noflow", "implicit", "land_column_segment_vjp"),
+    ("bare", "implicit", "land_column_segment_vjp"),
+    ("coupled", "euler", "land_column_segment_vjp"),
+    ("coupled", "heun", "land_column_segment_vjp"),
+])
+def test_land_segment_vjp_routes_by_type(composition, stepper, source):
+    """``land_column_segment_vjp`` takes its source from the composition's
+    type (``land_vjp.vjp_source``, with no switch): ImplicitEuler over
+    Richards flow without a snowpack, with or without vegetation and with
+    either curve and conductivity, the group kernel; a snowpack, ``NoFlow``,
+    ForwardEuler and Heun the one-thread kernel."""
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    params = _land_params(composition)
+    assert lv.vjp_source(params, stepper) == source
+    assert ("snow" in params.tags or params.tags[1] == "noflow" or stepper != "implicit") == (
+        source == "land_column_segment_vjp")
