@@ -23,9 +23,12 @@ float64 on 1,024 columns against the plain version at 1e-12; so are rows
 iterations, each solver), with the recompute check: every carry the VJP
 stores, bit for bit the group rollout's after the same steps; and rows
 3'e and 3'i (the land group segment VJP of ImplicitEuler, one and two
-Picard iterations, each solver), whose stored carries at float64 equal
-the one-thread land rollout's bit for bit (at float32 their largest gap is
-printed):
+Picard iterations, each solver), whose stored carries equal the land group
+rollout's (the forward segments' kernel) bit for bit at float64 and at
+float32; and rows 1'f and 1'k (the land group rollout of ImplicitEuler,
+one and two Picard iterations, each solver), with their group size,
+registers, spill stores, resident warps, SASS instructions and weighted
+bound:
 
 * ``on_demand``: `examples/soil_heat_column.py`'s composition (BASELINE
   config #1: the heat-only SoilModel, one column, Nz 10, float32,
@@ -81,8 +84,9 @@ printed):
   1,440-step block, the latter with its non-finite share; the
   ``land_snow`` golden (float64, Nz 12, 48 steps through the kernel: the
   snowpack's fields against the golden, every field against the plain
-  version); the land kernel's Heun, ImplicitEuler (PCR, Thomas) and
-  snowpack (ImplicitEuler PCR) variants, each against its plain version one
+  version); the land kernel's Heun, ImplicitEuler (PCR, Thomas; on groups
+  of lanes) and snowpack (ImplicitEuler PCR) variants, each against its
+  plain version one
   step at a time (float64 on 1,024 columns, float32 at full width, 48
   steps) and then through ``Simulation.run`` on ``land_consistent``'s
   composition and forcing at dt 600 s (``land_heun``, ``land_implicit_pcr``,
@@ -701,8 +705,8 @@ def land_variant_spec(name):
 # float32, ForwardEuler at dt 300 s, 3 simulated days) and a bare-ground Van
 # Genuchten/Mualem land column at Nz 20, float32, ImplicitEuler (PCR) at dt
 # 600 s (test_land_steppers.py::test_implicit_land_model_reproduced's
-# composition) on 1,024 columns, 2 simulated days; each run through
-# Simulation.run against its plain version
+# composition; the land group rollout's source) on 1,024 columns, 2
+# simulated days; each run through Simulation.run against its plain version
 ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
 # The sources the first phases launch, built first: the group rollout (rows
 # 1 and 1'a, ForwardEuler and Heun over heat + Richards) and the other soil
@@ -715,15 +719,20 @@ VJP_GROUP_SOURCE = "soil_column_group_segment_vjp"
 # the land segment VJP of ImplicitEuler over Richards flow without a
 # snowpack on groups of lanes (rows 3'e and 3'i)
 LAND_VJP_GROUP_SOURCE = "land_column_group_segment_vjp"
+# the land rollout of ImplicitEuler over Richards flow without a snowpack
+# on groups of lanes (rows 1'f and 1'k)
+LAND_GROUP_SOURCE = "land_column_group_rollout"
 # The sources built beside the forward phases, in the order the phases need
-# them: the land rollout (the land phases), then the land segment VJPs, one
+# them: the land rollouts, one thread a column and on groups of lanes (the
+# land phases), then the land segment VJPs, one
 # thread a column and on groups of lanes (the land gradients), then the
 # soil segment VJPs, one thread a column and on groups of lanes (the soil
 # gradients), whose nvcc CPU seconds would otherwise keep the land phases
 # waiting, then the soil's and the land's
 # full steps (their phases), built while the soil gradient phases run, then
 # the probes (the last phase)
-REST_GROUPS = (("land_column_rollout",), ("land_column_segment_vjp", LAND_VJP_GROUP_SOURCE),
+REST_GROUPS = (("land_column_rollout", LAND_GROUP_SOURCE),
+               ("land_column_segment_vjp", LAND_VJP_GROUP_SOURCE),
                ("soil_column_segment_vjp", VJP_GROUP_SOURCE),
                ("soil_column_full_step", "land_column_full_step"), ("probes",))
 # Heun's float32 check steps at dt 60 s. At dt 600 its stage, the explicit
@@ -1703,9 +1712,11 @@ def ptxas_summary(report: str) -> dict:
                 key = "series" if flags.group(flags.lastindex) == "1" else "table"
                 if group and group.group(1) == "2":
                     key += "_" + ("pcr" if group.group(2) == "1" else "thomas")
-            elif "group_segment_vjp_kernel" in name:  # <T, NZ, G, SOLVER>
+            elif "group_segment_vjp_kernel" in name or "land_column_group_rollout" in name:
+                # <T, NZ, G, SOLVER>
                 solver = re.search(r"kernelI[fd]Li\d+ELi\d+ELi(\d)E", name).group(1)
-                key = "vjp_" + ("pcr" if solver == "1" else "thomas")
+                key = ("land_" if "rollout" in name else "vjp_") + ("pcr" if solver == "1"
+                                                                     else "thomas")
             elif "land_column_rollout_kernel" in name:
                 key = "land"
             elif "full_step_kernel" in name:
@@ -1761,7 +1772,8 @@ def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
     stepper = {"euler": 0, "heun": 1, "implicit": 2}[
         next(k for k in ("euler", "heun", "implicit") if f"_{k}_" in entry)]
     code = {"thomas": 0, "pcr": 1}[solver] if stepper == 2 else 1
-    if source in (VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE):  # <T, NZ, G, SOLVER>
+    if source in (VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE,
+                  LAND_GROUP_SOURCE):  # <T, NZ, G, SOLVER>
         want = re.compile(rf"{source}_kernelI{t}Li{nz}ELi\d+ELi{code}EE")
     elif source == GROUP_SOURCE:
         want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}E"
@@ -1994,12 +2006,12 @@ LAND_WEIGHTS = {"division": FWD_WEIGHTS["division"][1], "exp": 9.6,
                 "powf": FWD_WEIGHTS["powf"][1]}
 
 
-def land_vjp_fma_issues(solver, nz, iters, branches, params):
-    """FMA issues of one step of one column of the land ImplicitEuler
-    segment VJP with ``iters`` Picard iterations (row 4's weights on
-    land_vjp_ops; ``branches`` as land_branches' means a column and step,
-    ``params`` the LandParams, whose drag knobs count the Monin-Obukhov
-    iterations)."""
+def land_weighted_counts(solver, nz, branches, params):
+    """``(divisions of one solve, {"division", "exp", "powf": the surface
+    block's a column and iteration})`` behind land_fma_issues and
+    land_vjp_fma_issues (``branches`` as land_branches' means a column and
+    step, ``params`` the LandParams, whose drag knobs count the
+    Monin-Obukhov iterations)."""
     if solver == "thomas":
         solve_div = 2 * nz
     else:
@@ -2014,6 +2026,32 @@ def land_vjp_fma_issues(solver, nz, iters, branches, params):
     for k, n in branches.items():
         for w, m in LAND_BRANCH_WEIGHTED[k].items():
             fwd[w] += m * n
+    return solve_div, fwd
+
+
+def land_fma_issues(solver, nz, iters, branches, params):
+    """FMA issues of one step of one column of the land ImplicitEuler
+    rollout with ``iters`` Picard iterations (rows 1'f and 1'k): row 4's
+    weights on land_variant_ops, each iteration's forward divisions, exps
+    and powf counted as land_vjp_fma_issues counts them (per level 18, per
+    interior face 8, per column the two solves', the top rows' 3 and the
+    surface block's, which every iteration runs again; each further
+    iteration's (u_k - u^n) / dt, 2 a level)."""
+    solve_div, fwd = land_weighted_counts(solver, nz, branches, params)
+    count = {
+        "division": iters * (LAND_VJP_DIVISIONS_PER_LEVEL["forward"] * nz + 8 * (nz - 1)
+                             + 2 * solve_div + 3 + fwd["division"]) + (iters - 1) * 2 * nz,
+        "exp": iters * fwd["exp"], "powf": iters * fwd["powf"]}
+    ops = land_variant_ops("implicit", solver, False, nz, branches, iters)
+    return ops + sum(n * (LAND_WEIGHTS[w] - 1.0) for w, n in count.items())
+
+
+def land_vjp_fma_issues(solver, nz, iters, branches, params):
+    """FMA issues of one step of one column of the land ImplicitEuler
+    segment VJP with ``iters`` Picard iterations (row 4's weights on
+    land_vjp_ops; ``branches`` and ``params`` as land_weighted_counts
+    takes them)."""
+    solve_div, fwd = land_weighted_counts(solver, nz, branches, params)
     # the surface block's reverse: a quotient for each division, powf, log
     # and atan (an unstable psi's three of its "exp" ones are two logs and
     # the atan)
@@ -2066,14 +2104,14 @@ LAND_SCRATCH_ROWS = ("surface_excess_water", "skin_temperature", "canopy_water",
 
 def land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps, solver, iters,
                              tags=None):
-    """The land group segment VJP's forward against the one-thread land
-    rollout: the group entry of the scheme (or of ``tags``: another G or
-    launch bound) launched on ``operands`` with a scratch buffer of the
-    check's own, then each carry it stored (step s's input) against the
-    carry that land_column_implicit_rollout (the forward segments' kernel,
-    one thread a column) reaches after s steps, one step a launch. Returns
-    ``(steps, columns whose stored carry differs at some step, {field:
-    largest difference over the field's largest magnitude})``."""
+    """The land group segment VJP's forward against the land rollout: the
+    group entry of the scheme (or of ``tags``: another G or launch bound)
+    launched on ``operands`` with a scratch buffer of the check's own, then
+    each carry it stored (step s's input) against the carry that
+    land_column_implicit_rollout at the VJP's G (the forward segments'
+    kernel) reaches after s steps, one step a launch.
+    Returns ``(steps, columns whose stored carry differs at some step,
+    {field: largest difference over the field's largest magnitude})``."""
     carry, inputs, root, coords, params, _ = operands
     U = carry["internal_energy"]
     nz, cells = U.shape
@@ -2100,7 +2138,8 @@ def land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps, solver
             if scale > 0.0:
                 gap[n] = max(gap[n], float((a - b).abs().max()) / scale)
         state = ls.land_column_implicit_rollout(state, inputs, root, *coords, params, dt,
-                                                i * dt, 1, solver=solver, picard_iters=iters)
+                                                i * dt, 1, solver=solver, picard_iters=iters,
+                                                group=group)
     return steps, int(parted.sum()), gap
 
 
@@ -2110,9 +2149,10 @@ def land_vjp_group_row(fs, lv, ls, cuda_build, operands, dt, steps, solver, iter
     ImplicitEuler (``solver``, ``iters`` Picard iterations) at the shape of
     ``operands``: its group size G and levels a lane, ptxas's registers and
     spill stores, resident warps an SM, SASS instructions, the recompute
-    check (land_vjp_recompute_check: at float32 the columns whose stored
-    carries part from the one-thread rollout's and the largest gap) and the
-    bound with each operation weighted by its cost (land_vjp_fma_issues)."""
+    check (land_vjp_recompute_check at float32: the columns whose stored
+    carries part from the group rollout's, which must be none, and the
+    largest gap) and the bound with each operation weighted by its cost
+    (land_vjp_fma_issues)."""
     carry, _, _, _, params, _ = operands
     U = carry["internal_energy"]
     dtype, (nz, cells) = U.dtype, U.shape
@@ -2122,6 +2162,9 @@ def land_vjp_group_row(fs, lv, ls, cuda_build, operands, dt, steps, solver, iter
     warps, group = lv.vjp_group(dtype, nz, tags, solver)
     checked, parted, gap = land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps,
                                                     solver, iters)
+    if parted:
+        raise AssertionError(f"land group segment VJP {solver} x{iters}: the f32 stored "
+                             f"carries of {parted} columns part from the group rollout's")
     fma = land_vjp_fma_issues(solver, nz, iters, branches, params)
     return {"group": group, "levels_a_lane": -(-nz // group),
             "registers": int(ptxas.split()[0]),
@@ -2131,6 +2174,33 @@ def land_vjp_group_row(fs, lv, ls, cuda_build, operands, dt, steps, solver, iter
                                                    False, solver),
             "recompute_steps_checked": checked, "recompute_columns_parted_f32": parted,
             "recompute_max_gap_over_magnitude_f32": gap,
+            "fma_issues_per_column_step": fma,
+            "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
+
+
+def land_group_row(ls, cuda_build, operands, steps, solver, iters, branches, ptxas_all):
+    """What the kernel line reports of the land group rollout of
+    ImplicitEuler (``solver``, ``iters`` Picard iterations; rows 1'f and
+    1'k) at the shape of ``operands`` (carry, inputs, root fraction,
+    coordinates, parameters) over ``steps`` steps: its group size G and
+    levels a lane, ptxas's registers and spill stores, resident warps an SM,
+    SASS instructions and the bound with each operation weighted by its
+    cost (land_fma_issues; ``branches`` as land_branches' means a column and
+    step)."""
+    carry, _, _, _, params = operands
+    U = carry["internal_energy"]
+    dtype, (nz, cells) = U.dtype, U.shape
+    tags = ls.implicit_tags(solver, iters) + params.tags
+    entry = cuda_build._entry_name(LAND_GROUP_SOURCE, tags, dtype, nz)
+    ptxas = ptxas_all[LAND_GROUP_SOURCE][entry]["land_" + solver]
+    warps, group = ls.rollout_group(dtype, nz, tags, solver)
+    fma = land_fma_issues(solver, nz, iters, branches, params)
+    return {"group": group, "levels_a_lane": -(-nz // group),
+            "registers": int(ptxas.split()[0]),
+            "spill_stores": int(ptxas.split(",")[1].split()[0]),
+            "resident_warps_per_sm": warps,
+            "sass_instructions": sass_instructions(cuda_build, LAND_GROUP_SOURCE, entry, False,
+                                                   solver),
             "fma_issues_per_column_step": fma,
             "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
 
@@ -2399,7 +2469,8 @@ def land_f32_tolerance(name, plain, start, outside):
     return tol
 
 
-def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card, name=None):
+def land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname, ptxas_all, card,
+                         name=None):
     """The land variant ``vname``'s kernel (land_variant_spec) against its
     plain version one step at a time along the plain trajectory (float64 on
     LAND_F64_CELLS columns at 1e-12 and float32 at full width by
@@ -2437,9 +2508,10 @@ def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card, name=N
                    2 * sum(t.numel() for t in carry.values()) * 4 + 2 * v_rows * LAND_CELLS * 4)
     stepper_tags = ((vkey, "picard") if viters != 1
                     else (vkey, vsolver) if vsolver else (vkey,))
-    entry = "_".join(("land_column_rollout", *stepper_tags, *params.tags, "f32",
-                      f"nz{LAND_NZ}"))
-    ptxas = ptxas_all["land_column_rollout"].get(entry, {}).get("land")
+    source = ls.rollout_source(params, vkey)
+    entry = "_".join((source, *stepper_tags, *params.tags, "f32", f"nz{LAND_NZ}"))
+    ptxas = ptxas_all[source].get(entry, {}).get(
+        "land" if source == "land_column_rollout" else f"land_{vsolver}")
     phase(name or f"{vname}_compare", solver=vsolver, picard_iters=viters, cells=LAND_CELLS,
           nz=LAND_NZ, dt=LAND_DT, f32_check_dt=dt,
           steps=LAND_VARIANT_STEPS, f64_cells=LAND_F64_CELLS, f64_rtol=1e-12,
@@ -2458,9 +2530,18 @@ def land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card, name=N
         raise AssertionError(f"{vname} kernel vs plain: f64 {f64_beyond[:4]}, f32 "
                              f"{v_beyond[:4]}, one launch equals the step chain: "
                              f"{chain_equal}, finite: {finite}")
+    group = None
+    if source == LAND_GROUP_SOURCE:
+        # rows 1'f and 1'k on the group kernel: its layout and resources
+        # and the weighted bound
+        group = land_group_row(ls, cuda_build, (carry, linputs, root, coords, params),
+                               LAND_VARIANT_STEPS, vsolver, viters, v_runs, ptxas_all)
+        phase("group_check", row="1'k" if viters > 1 else "1'f", solver=vsolver,
+              picard_iters=viters, cells=LAND_CELLS, nz=LAND_NZ, steps=LAND_VARIANT_STEPS,
+              **group, kernel_ms=v_ms, card=card)
     return dict(key=vkey, solver=vsolver, snow=vsnow, iters=viters, max_abs_err=v_abs, ms=v_ms,
                 ms_144=v_ms_144, plain_ms=v_plain_ms, bound_ms=v_b[0], bound_by=v_b[1],
-                ops=v_ops, ptxas=ptxas)
+                ops=v_ops, ptxas=ptxas, source=source, group=group)
 
 
 def land_stepper_main_path(tp, ls, land_inputs, mname, vname, var, reset_counts, launched,
@@ -2555,8 +2636,9 @@ def on_demand_kernel(fs, ls, case, sim):
     if case == "soil_heat_column":
         return ("soil_column_rollout", grid.dtype, grid.nz, fs._ARGTYPES,
                 fs.kernel_tags("euler", "heat", 1, plain_euler=()), fs.soil_column_heat_rollout)
-    return ("land_column_rollout", grid.dtype, grid.nz, ls._argtypes(grid.dtype),
-            ls.implicit_tags("pcr", 1) + ls.land_composition(sim.model),
+    params = ls.LandParams.of(sim.model, grid.dtype)
+    return (ls.rollout_source(params, "implicit"), grid.dtype, grid.nz,
+            ls._argtypes(grid.dtype), ls.implicit_tags("pcr", 1) + params.tags,
             ls.land_column_implicit_rollout)
 
 
@@ -4271,8 +4353,8 @@ def main():
     # one step at a time along the plain trajectory (float64 on 1,024
     # columns at 1e-12, float32 at full width by land_f32_tolerance), one
     # launch against the chain of one-step launches, and timed
-    land_var = {vname: land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card)
-                for vname in LAND_VARIANTS}
+    land_var = {vname: land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname,
+                                            ptxas_all, card) for vname in LAND_VARIANTS}
 
     # ---- the land main paths of the other steppers: land_consistent's
     # composition and forcing through Simulation.run with Heun, with
@@ -4293,8 +4375,8 @@ def main():
     # (land_picard_compare), then one timed 1,440-step Simulation.run block
     # of land_implicit's composition (land_picard_main_path)
     for vname in LAND_PICARD_VARIANTS:
-        land_var[vname] = land_variant_compare(tp, ls, fs, land_inputs, vname, ptxas_all, card,
-                                               name="land_picard_compare")
+        land_var[vname] = land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname,
+                                               ptxas_all, card, name="land_picard_compare")
         land_var[vname]["launches"] = land_stepper_main_path(
             tp, ls, land_inputs, "land_picard_main_path", vname, land_var[vname], reset_counts,
             launched, card)
@@ -4320,13 +4402,16 @@ def main():
         source = lv.vjp_source(ops[4], key)
         recompute64 = None
         if source == LAND_VJP_GROUP_SOURCE:
+            # the forward segments' rollout: the group rollout at the VJP's G
+            fkw["group"] = lv.vjp_group(torch.float32, LAND_NZ, lv.check_scheme(
+                ops[4], key, solver, iters) + ops[4].tags, solver)[1]
             # rows 3'e and 3'i: the group VJP's stored carries at float64
-            # equal the one-thread land rollout's bit for bit
+            # equal the group land rollout's bit for bit
             recompute64 = land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt, GRAD_INNER,
                                                    solver, iters)
             if recompute64[1]:
                 raise AssertionError(f"{name}: the f64 group VJP's stored carries of "
-                                     f"{recompute64[1]} columns part from the one-thread "
+                                     f"{recompute64[1]} columns part from the group "
                                      f"rollout's")
         # central differences of the loss through the forward kernel, over
         # LAND_FD_STEPS[key] steps
@@ -4383,8 +4468,8 @@ def main():
         del sub, end
         if source == LAND_VJP_GROUP_SOURCE:
             # rows 3'e and 3'i on the group kernel: its layout and
-            # resources, its float32 stored carries against the one-thread
-            # rollout's, the weighted bound
+            # resources, its float32 stored carries against the group
+            # rollout's (none may part), the weighted bound
             group = land_vjp_group_row(fs, lv, ls, cuda_build,
                                        (carry, linputs, root, coords, params, gout), dt,
                                        GRAD_INNER, solver, iters, runs, ptxas_all)
@@ -4977,7 +5062,7 @@ def main():
                  f"{COMPARE_STEPS} steps"}, *({
         "name": ("land_column_heun_rollout" if v["key"] == "heun"
                  else "land_column_implicit_rollout") + f"[{vname}]", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/land_column_rollout.cu",
+        "source": f"terrarium_tpu_torch/csrc/{v['source']}.cu",
         "replaces": "terrarium_tpu/ops/fused_step.py:283 traced over a LandModel step with "
                     + ("Heun (terrarium_tpu/timesteppers/stepping.py:167)" if v["key"] == "heun"
                        else f"ImplicitEuler (terrarium_tpu/timesteppers/implicit.py:173, "
@@ -4988,7 +5073,7 @@ def main():
                        if v["snow"] else ""),
         "launches": v["launches"], "max_abs_err": max(v["max_abs_err"].values()),
         "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-        "bound_by": v["bound_by"], "library_ms": None,
+        "bound_by": v["bound_by"], "library_ms": None, **(v["group"] or {}),
         "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent"
                  + (" with snow" if v["snow"] else "") + f", series, {LAND_VARIANT_STEPS} "
                  f"steps (ms_144 {v['ms_144']:.4f})"} for vname, v in land_var.items()), {
@@ -5059,8 +5144,8 @@ def euler_digest(root: pathlib.Path):
 
     t0 = time.perf_counter()
     land_vjp = "land_column_segment_vjp" in cuda_build.INSTANTIATIONS
-    group = tuple(n for n in (GROUP_SOURCE, VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE)
-                  if n in cuda_build.INSTANTIATIONS)
+    group = tuple(n for n in (GROUP_SOURCE, VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE,
+                              LAND_GROUP_SOURCE) if n in cuda_build.INSTANTIATIONS)
     cuda_build.build(*group, "soil_column_rollout", "soil_column_segment_vjp",
                      "land_column_rollout", *(("land_column_segment_vjp",) if land_vjp else ()))
     build_s = time.perf_counter() - t0

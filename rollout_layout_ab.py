@@ -15,6 +15,8 @@ which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
     python3 rollout_layout_ab.py vjp_time
     python3 rollout_layout_ab.py land_vjp_check
     python3 rollout_layout_ab.py land_vjp_time
+    python3 rollout_layout_ab.py land_check
+    python3 rollout_layout_ab.py land_time
 
 ``check`` builds both, prints each kernel's registers and spill stores
 (ptxas), SASS instructions (``cuobjdump -sass``) and resident warps an SM,
@@ -60,8 +62,25 @@ launch) against a column on a group of lanes
 ``land_column_segment_vjp`` launches), at the land gradient's shape:
 56,951 x 20 float32, one 48-step segment of 600 s (``chip_smoke.py``'s
 ``land_grad_implicit_*`` operands). The recompute check holds the group
-VJP's stored carries to the one-thread land rollout's: at float64 bit for
-bit (1,024 columns), at float32 the largest gap is printed.
+VJP's stored carries to the land rollout's (since the land ImplicitEuler
+rollout runs on groups too, the group rollout's at the VJP's G: bit for bit
+at float64 on 1,024 columns and at float32 at full width).
+
+``land_check`` and ``land_time`` do the same for the land ImplicitEuler
+rollout (rows 1'f and 1'k: one and two Picard iterations, each solver) over
+``land_consistent``'s composition and its two hourly series, one thread a
+column (``csrc/land_column_rollout.cu``, built at its first launch) against
+a column on a group of lanes (``csrc/land_column_group_rollout.cu``, which
+``land_column_implicit_rollout`` launches), at 56,951 x 20 float32 over 48
+steps of 600 s. ``land_check`` prints both layouts' registers, spill stores,
+SASS instructions, resident warps an SM and G, holds the group kernel to
+the plain version (``chip_smoke.land_variant_compare``), the two layouts to
+each other at float64 (the columns whose carries part) and the land group
+VJP's stored carries to the group rollout's (none may part), and times
+nothing but what ``land_variant_compare`` times; ``land_time`` times both
+layouts in turns, then the group kernel at each of G 2, 4, 8, 16 and 32
+with each of 1 to 4 resident blocks an SM, each solver, one and two
+iterations, with the fit time = a + b G over the G sweep.
 Run from the repository root.
 """
 from __future__ import annotations
@@ -604,19 +623,20 @@ def land_vjp_key(lv, params, layout, solver, iters, extra=()):
     return (lv._NAME if layout == "one_thread" else lv._GROUP_NAME), tags
 
 
-def land_vjp_stats(fs, cuda_build, lv, source, tags, solver, dtype=torch.float32,
-                   nz=cs.LAND_NZ):
+def land_kernel_stats(cuda_build, source, one_thread, key, tags, solver, dtype=torch.float32,
+                      nz=cs.LAND_NZ):
     """ptxas's registers and spill stores, the SASS instructions, resident
-    warps an SM and G of the land segment-VJP kernel of ``solver`` in the
-    entry of ``source`` and ``tags``."""
-    import ctypes
+    warps an SM and G of the land kernel of ``solver`` in the entry of
+    ``source`` and ``tags``: one thread a column (``one_thread``; ptxas key
+    ``key``) or a group source (ptxas key ``<key>_<solver>``)."""
     import pathlib
     import re
 
+    from terrarium_tpu_torch.ops import land_step as ls
+
     entry = cuda_build._entry_name(source, tags, dtype, nz)
-    one_thread = source == lv._NAME
     ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(
-        "vjp" if one_thread else f"vjp_{solver}", "")
+        key if one_thread else f"{key}_{solver}", "")
     regs = int(ptxas.split()[0]) if ptxas else None
     spills = int(ptxas.split(",")[1].split()[0]) if "," in ptxas else None
     if one_thread:
@@ -626,18 +646,23 @@ def land_vjp_stats(fs, cuda_build, lv, source, tags, solver, dtype=torch.float32
             lib = cuda_build._BUILD_DIR / f"{stem}.so"
         cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
         t = "f" if dtype == torch.float32 else "d"
-        want = re.compile(rf"land_column_segment_vjp_kernelI{t}Li{nz}E")
+        want = re.compile(rf"{source}_kernelI{t}Li{nz}E")
         sass = next((n for name, n in cs.sass_counts(str(cuobjdump), str(lib))
                      if want.search(name)), 0)
         warps, group = (thread_warps(regs) if regs else None), 1
     else:
         sass = cs.sass_instructions(cuda_build, source, entry, False, solver)
-        fn = cuda_build.entry(source, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-                              tags=tags, suffix="_warps")
-        g = ctypes.c_int(0)
-        warps, group = fn(fs.SOLVER_CODES[solver], ctypes.byref(g)), g.value
+        warps, group = ls.group_occupancy(source, dtype, nz, tags, solver)
     return {"entry": entry, "ptxas": ptxas, "registers": regs, "spill_stores": spills,
             "sass": sass, "resident_warps": warps, "group": group}
+
+
+def land_vjp_stats(fs, cuda_build, lv, source, tags, solver, dtype=torch.float32,
+                   nz=cs.LAND_NZ):
+    """land_kernel_stats of the land segment-VJP kernel of ``solver`` in the
+    entry of ``source`` and ``tags``."""
+    return land_kernel_stats(cuda_build, source, source == lv._NAME, "vjp", tags, solver, dtype,
+                             nz)
 
 
 def land_vjp_check(tp, fs, cuda_build, card):
@@ -738,6 +763,187 @@ def land_vjp_timing(tp, fs, cuda_build, card):
             del ops
 
 
+#: rows 1'f and 1'k, the land ImplicitEuler rollout: (solver, Picard
+#: iterations)
+LAND_ROWS = {f"{row}_{solver}": (solver, iters) for row, iters in (("1'f", 1), ("1'k", 2))
+             for solver in cs.SOLVERS}
+#: the land group rollout's group sizes measured (G 2: L 10 at Nz 20)
+LAND_GROUP_SIZES = (2,) + GROUP_SIZES
+
+
+def land_operands(tp, dtype=torch.float32, cells=cs.LAND_CELLS):
+    """Carry, inputs (``land_consistent``'s two hourly series and its static
+    inputs), root fraction, coordinates and parameters of rows 1'f and 1'k
+    (``chip_smoke.py``'s ``land_implicit_*`` and ``land_picard_*``
+    operands), and the clock time they start from."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    sim = cs.land_sim(tp, cells, dtype, "consistent", stepper=tp.ImplicitEuler(dt=cs.LAND_DT))
+    return cs.land_operands(ls, land_inputs, sim), float(sim.state.clock.time)
+
+
+def land_key(ls, params, layout, solver, iters, extra=()):
+    """``(source, tags)`` of the land rollout entry of ``layout``
+    (``"one_thread"`` or ``"group"``, with ``extra`` tags: another G or
+    launch bound) over the composition of ``params``."""
+    tags = ls.implicit_tags(solver, iters) + params.tags + tuple(extra)
+    return (ls._NAME if layout == "one_thread" else ls._GROUP_NAME), tags
+
+
+def land_launcher(fs, ls, fn, operands, time0, solver, iters, steps=cs.LAND_VARIANT_STEPS):
+    """``() -> carry``: one launch of the land rollout entry ``fn`` (either
+    layout: the two take the same arguments) on ``operands`` over ``steps``
+    steps of ``chip_smoke.LAND_DT`` from ``time0``, into an output carry of
+    its own."""
+    carry, inputs, root, coords, params = operands
+    U = carry["internal_energy"]
+    out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
+    args, keep = ls.launch_args(carry, out, inputs, root, coords, params)
+
+    def launch():
+        err = fn(*args, steps, float(time0), float(cs.LAND_DT), U.shape[1],
+                 fs.SOLVER_CODES[solver], int(iters), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"land rollout launch failed: cudaError {err}")
+        return out
+
+    launch.keep = keep
+    return launch
+
+
+def land_stats(fs, cuda_build, ls, source, tags, solver, dtype=torch.float32, nz=cs.LAND_NZ):
+    """land_kernel_stats of the land rollout kernel of ``solver`` in the
+    entry of ``source`` and ``tags``."""
+    return land_kernel_stats(cuda_build, source, source == ls._NAME, "land", tags, solver, dtype,
+                             nz)
+
+
+def land_check(tp, fs, cuda_build, card):
+    """Rows 1'f and 1'k, each solver: both layouts' builds; the group kernel
+    (through ``land_column_implicit_rollout``) against the plain version
+    one step at a time along the plain trajectory (float64 on 1,024 columns
+    at 1e-12, float32 at full width, ``chip_smoke.land_variant_compare``);
+    the two layouts against each other at float64 on 1,024 columns over 48
+    steps (the columns whose carry parts); the land group segment VJP's
+    stored carries against the group rollout's (float64 on 1,024 columns
+    and float32 at full width, ``chip_smoke.land_vjp_recompute_check``,
+    which must part nowhere); times nothing but what land_variant_compare
+    times."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    (_, _, _, _, params), _ = land_operands(tp, cells=8)
+    prebuild(cuda_build, ls._argtypes(torch.float32),
+             [land_key(ls, params, layout, solver, iters)
+              for layout in ("group", "one_thread") for solver, iters in LAND_ROWS.values()],
+             nz=cs.LAND_NZ)
+    prebuild(cuda_build, ls._argtypes(torch.float64),
+             [land_key(ls, params, "one_thread", solver, iters)
+              for solver, iters in LAND_ROWS.values()], dtype=torch.float64, nz=cs.LAND_NZ)
+    ptxas_all = {n: cs.ptxas_summary(cuda_build.ptxas_report(n))
+                 for n in (ls._NAME, ls._GROUP_NAME)}
+    ops64, t64 = land_operands(tp, torch.float64, LAND_VJP_F64_CELLS)
+    ops32, t32 = land_operands(tp)
+    for name, (solver, iters) in LAND_ROWS.items():
+        stats = {layout: land_stats(fs, cuda_build, ls,
+                                    *land_key(ls, params, layout, solver, iters), solver)
+                 for layout in ("one_thread", "group")}
+        out(check="land_build", row=name, solver=solver, picard_iters=iters, **stats, card=card)
+        vname = f"land_implicit_{solver}" if iters == 1 else f"land_picard_{solver}"
+        cs.land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname, ptxas_all, card,
+                                name=f"land_check_{name}")
+        outs = {}
+        for layout in ("one_thread", "group"):
+            source, tags = land_key(ls, params, layout, solver, iters)
+            fn = cuda_build.entry(source, torch.float64, cs.LAND_NZ,
+                                  ls._argtypes(torch.float64), tags=tags)
+            outs[layout] = land_launcher(fs, ls, fn, ops64, t64, solver, iters)()
+        parted = torch.zeros(LAND_VJP_F64_CELLS, dtype=torch.bool, device="cuda")
+        for n, a in outs["group"].items():
+            d = a != outs["one_thread"][n]
+            parted |= d.any(0) if d.dim() == 2 else d
+        recompute = {}
+        for dtype, cells in ((torch.float64, LAND_VJP_F64_CELLS), (torch.float32, cs.LAND_CELLS)):
+            ops, dt = land_vjp_operands(tp, solver, iters, dtype, cells)
+            recompute[str(dtype)] = cs.land_vjp_recompute_check(
+                fs, lv, ls, cuda_build, ops, dt, cs.GRAD_INNER, solver, iters)
+            del ops
+        out(check="land_teacher", row=name, solver=solver, picard_iters=iters,
+            f64_group_vs_one_thread_columns_parted=int(parted.sum()),
+            f64_group_vs_one_thread=[LAND_VJP_F64_CELLS, cs.LAND_NZ, cs.LAND_VARIANT_STEPS],
+            recompute_steps_columns_parted_max_gap=recompute, card=card)
+        if any(r[1] for r in recompute.values()):
+            raise AssertionError(f"{name}: the group VJP's stored carries part from the "
+                                 f"group rollout's: {recompute}")
+
+
+def land_timing(tp, fs, cuda_build, card):
+    """Rows 1'f and 1'k, each solver, both layouts in turns at 56,951 x 20
+    float32, 48 steps of 600 s, ``land_consistent``'s two series; then the
+    group kernel (the Picard entry, which holds a kernel of each solver) at
+    each G (2 to 32) and each launch bound (1 to 4 resident blocks of 256
+    threads an SM), each solver, one and two iterations, in turns, each
+    against the default build's carry (largest difference over the field's
+    largest magnitude), with the fit time = a + b G over the G sweep's
+    medians at each launch bound."""
+    from terrarium_tpu_torch.ops import land_step as ls
+
+    f32 = torch.float32
+    variants = {f"g{g}_mb{b}": (f"g{g}", f"mb{b}") for g in LAND_GROUP_SIZES
+                for b in MIN_BLOCKS}
+    ops, time0 = land_operands(tp)
+    params = ops[4]
+    prebuild(cuda_build, ls._argtypes(f32),
+             [land_key(ls, params, layout, solver, iters)
+              for layout in ("group", "one_thread") for solver, iters in LAND_ROWS.values()]
+             + [land_key(ls, params, "group", "pcr", 2, extra) for extra in variants.values()],
+             nz=cs.LAND_NZ)
+    for name, (solver, iters) in LAND_ROWS.items():
+        fns, stats = {}, {}
+        for layout in ("one_thread", "group"):
+            source, tags = land_key(ls, params, layout, solver, iters)
+            fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+            stats[layout] = land_stats(fs, cuda_build, ls, source, tags, solver)
+            fns[layout] = land_launcher(fs, ls, fn, ops, time0, solver, iters)
+        t = vjp_turns(fns)
+        out(time=name, solver=solver, picard_iters=iters, cells=cs.LAND_CELLS, nz=cs.LAND_NZ,
+            dt=cs.LAND_DT, steps=cs.LAND_VARIANT_STEPS, ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, kernels=stats, card=card)
+    for solver in cs.SOLVERS:
+        for iters in (1, 2):
+            source, tags = land_key(ls, params, "group", solver, iters)
+            ref = land_launcher(fs, ls, cuda_build.entry(source, f32, cs.LAND_NZ,
+                                                         ls._argtypes(f32), tags=tags),
+                                ops, time0, solver, iters)()
+            ref = {n: v.clone() for n, v in ref.items()}
+            fns, stats, gaps = {}, {}, {}
+            for vname, extra in variants.items():
+                source, tags = land_key(ls, params, "group", "pcr", 2, extra)
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+                stats[vname] = land_stats(fs, cuda_build, ls, source, tags, solver)
+                fns[vname] = land_launcher(fs, ls, fn, ops, time0, solver, iters)
+                got = fns[vname]()
+                gaps[vname] = max(float((got[n] - ref[n]).abs().max())
+                                  / max(float(ref[n].abs().max()), 1e-30) for n in ref)
+                if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+                    raise AssertionError(f"land {solver} x{iters} {vname}: non-finite")
+            t = vjp_turns(fns)
+            med = {n: float(np.median(v)) for n, v in t.items()}
+            gs = np.array(LAND_GROUP_SIZES, dtype=float)
+            fits = {}
+            for mb in MIN_BLOCKS:
+                b, a = np.polyfit(gs, [med[f"g{g}_mb{mb}"] for g in LAND_GROUP_SIZES], 1)
+                fits[f"mb{mb}"] = {"a": float(a), "b": float(b)}
+            out(time="land_variants", solver=solver, picard_iters=iters, cells=cs.LAND_CELLS,
+                nz=cs.LAND_NZ, dt=cs.LAND_DT, steps=cs.LAND_VARIANT_STEPS,
+                default_group=ls.rollout_group(f32, cs.LAND_NZ, land_key(
+                    ls, params, "group", solver, iters)[1], solver)[1],
+                max_gap_to_default_over_magnitude=gaps, kernels=stats, ms=t, median_ms=med,
+                fit_ms_a_plus_b_G=fits, card=card)
+
+
 def vjp_turns(fns):
     """``{name: [ms, ...]}``: each launcher of ``fns`` timed in the turns a,
     b, ..., ..., b, a, each turn the times of TURN_REPS launches after a
@@ -765,7 +971,8 @@ def main():
     {"check": check, "time": timing, "implicit_check": implicit_check,
      "implicit_time": implicit_timing, "vjp_check": vjp_check,
      "vjp_time": vjp_timing, "land_vjp_check": land_vjp_check,
-     "land_vjp_time": land_vjp_timing}[mode](tp, fs, cuda_build, card)
+     "land_vjp_time": land_vjp_timing, "land_check": land_check,
+     "land_time": land_timing}[mode](tp, fs, cuda_build, card)
 
 
 if __name__ == "__main__":

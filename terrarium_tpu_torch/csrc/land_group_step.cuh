@@ -1,8 +1,11 @@
 // One ImplicitEuler step of a LandModel column spread over a group of G
 // lanes (any number of Picard iterations, either solver, Richards flow, with
 // or without vegetation, either retention curve and conductivity, no
-// snowpack), and the segment VJP of that step on the same group: the column
-// code of csrc/land_column_group_segment_vjp.cu.
+// snowpack), its rollout, and the segment VJP of that step on the same
+// group: the column code of csrc/land_column_group_rollout.cu and
+// csrc/land_column_group_segment_vjp.cu, which run the same picard_step, so
+// that every carry the VJP stores equals the rollout's bit for bit at the
+// same G.
 //
 // land_step.cuh and land_adjoint.cuh run a column on one thread, its NZ
 // levels unrolled in registers. Here the soil levels are spread as
@@ -72,6 +75,24 @@ __host__ __device__
 constexpr int implicit_group_lanes(int /* nz */, int solver) {
     return solver == soil::SOLVER_THOMAS ? 8 : 4;
 }
+
+// The group size of the land ImplicitEuler rollout at nz levels with its
+// solver, measured at Nz 20 f32 on an H100 80GB HBM3 at 700 W
+// (rollout_layout_ab.py land_time, PERF.md section 6; 48 steps at 56,951
+// columns, one and two Picard iterations, 2 blocks of 256 threads an SM):
+// PCR G 2 (L 10) 8.63 and 17.83 ms, G 4 8.95 and 17.35, G 8 11.82 and
+// 23.44, G 16 17.16 and 33.78, G 32 23.31 and 45.22; Thomas G 2 6.95 and
+// 14.61, G 4 6.69 and 13.04, G 8 8.64 and 17.08, G 16 13.54 and 26.52, G 32
+// 23.68 and 45.83. Every lane of a group runs the surface block, so the
+// fewest lanes that do not spill win; Thomas' hand-offs cost the rollout
+// less than the VJP's tangent passes gain from 8 lanes, so the two differ
+// there (the land gradient's forward segments run the rollout at the
+// VJP's G, implicit_group_lanes, so that the VJP's stored carries are
+// theirs). Other depths take the same sizes (not measured).
+#if defined(__CUDACC__)
+__host__ __device__
+#endif
+constexpr int rollout_group_lanes(int /* nz */, int /* solver */) { return 4; }
 
 // A LandModel column on a group: soil::GroupColumn's levels and exchange,
 // the land's parameters and root fractions, the closure and the
@@ -450,6 +471,24 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                     s.An = r.surf.An;
                 }
             }
+        }
+    }
+
+    // land::rollout_column of ImplicitEuler on the group (picard_step with
+    // SOLVER and `iters` Picard iterations, inv_dt 1 / dt as the host rounds
+    // it): `steps` steps in place from clock time t, which advances by t +
+    // dt as Clock.tick does; f holds the static inputs, and each series
+    // input of column `col` is read into it at each clock time
+    // (land::read_series: every lane of the group reads its column's
+    // value). The column code of csrc/land_column_group_rollout.cu
+    template <int SOLVER>
+    SOIL_FN void rollout(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, Forcing<T>& f,
+                         const LandInputs& inputs, const long long col, T t, const int steps,
+                         const T dt, const T inv_dt, const int iters) {
+        for (int n = 0; n < steps; ++n) {
+            read_series(f, inputs, col, t);
+            picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);
+            t = t + dt;
         }
     }
 

@@ -133,29 +133,41 @@ INSTANTIATIONS = {
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
     ],
-    # the LandModel: ImplicitEuler with any number of Picard iterations (the
-    # solver at run time) over the vegetated bench composition (Richards over
-    # Brooks-Corey and linear conductivity) at Nz 20; ForwardEuler over the
-    # bare-ground golden at Nz 15 (heat-only soil) and over the bench
-    # composition at Nz 20; Heun and ImplicitEuler (each solver) over the
-    # bench composition at Nz 20; the snowpack over the land_snow golden's
-    # composition (bare ground, Brooks-Corey and linear) at Nz 12 with
-    # ForwardEuler and over the bench composition at Nz 20 with ImplicitEuler
-    # (PCR)
+    # the LandModel, one thread a column: ForwardEuler over the bare-ground
+    # golden at Nz 15 (heat-only soil) and over the vegetated bench
+    # composition (Richards over Brooks-Corey and linear conductivity) at Nz
+    # 20; Heun over the bench composition at Nz 20; the snowpack over the
+    # land_snow golden's composition (bare ground, Brooks-Corey and linear)
+    # at Nz 12 with ForwardEuler and over the bench composition at Nz 20
+    # with ImplicitEuler (PCR) (ImplicitEuler's entries without a snowpack
+    # stay buildable on demand, to time the one-thread layout against the
+    # group's)
     "land_column_rollout": [
-        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
-        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
         (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
-        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
-        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
         (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
-        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
-        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
         (("bare", "richards", "bc", "linear", "snow"), _F64, 12), (("bare", "noflow"), _F64, 15),
+    ],
+    # the LandModel's ImplicitEuler rollout over the vegetated bench
+    # composition at Nz 20, a column on a group of lanes: each solver and
+    # the Picard entries (which hold a kernel of each solver), at float32
+    # (the timed path) and float64 (the checks); and Thomas at the group
+    # segment VJP's G 8 (g8), which the land gradient's forward segments
+    # launch
+    "land_column_group_rollout": [
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear", "g8"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear", "g8"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear", "g8"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear", "g8"), _F32, 20),
     ],
     # the LandModel's segment VJP over the vegetated bench composition
     # (Richards over Brooks-Corey and linear conductivity) at Nz 20, one
@@ -200,10 +212,11 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             "mualem": ("LAND_COND=0",), "linear": ("LAND_COND=1",), "snow": ("LAND_SNOW=1",),
             "micro": ("PROBE_ROW=4",), "bisect": ("PROBE_ROW=5",), "repro": ("PROBE_ROW=6",),
             # the group kernels at a group size other than their depth's
-            # (soil::group_lanes, land::implicit_group_lanes) and the group
-            # segment VJPs at another launch bound (resident blocks an SM),
-            # for measuring one against another
-            **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (4, 8, 16, 32)},
+            # (soil::group_lanes, land::implicit_group_lanes) and the land
+            # group kernels and the group segment VJPs at another launch
+            # bound (resident blocks an SM), for measuring one against
+            # another
+            **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (2, 4, 8, 16, 32)},
             **{f"mb{b}": (f"SOIL_MIN_BLOCKS={b}",) for b in (1, 2, 3, 4)}}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernels' float64 instantiations, which serve the checks
@@ -212,6 +225,7 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
 #: ones, the timed path, do; so do the probes' float64 instantiations
 FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
          "land_column_segment_vjp": {_F64: ("-fmad=false",)},
+         "land_column_group_rollout": {_F64: ("-fmad=false",)},
          "land_column_group_segment_vjp": {_F64: ("-fmad=false",)},
          "land_column_full_step": {_F64: ("-fmad=false",)},
          "probes": {_F64: ("-fmad=false",)}}

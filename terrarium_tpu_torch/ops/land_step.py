@@ -22,8 +22,14 @@ drainage sign and vegetation rate scales.
 The inputs the step reads (``LAND_INPUTS``) are each a :class:`LandInput`:
 a static row, or a uniformly spaced series that the kernel interpolates at
 each clock time from its first time (as the soil kernels do). The CUDA
-source is ``csrc/land_column_rollout.cu`` (the step in
-``csrc/land_step.cuh``), built by ``nvcc`` at first use.
+sources, built by ``nvcc`` at first use, are chosen by type
+(:func:`rollout_source`): ImplicitEuler (either solver, any Picard count)
+over Richards flow without a snowpack runs each column on a group of lanes,
+``csrc/land_column_group_rollout.cu`` (``land::GroupColumn::rollout`` in
+``csrc/land_group_step.cuh``, the step that the land group segment VJP
+recomputes with); every other stepper and composition (ForwardEuler, Heun,
+a snowpack, ``NoFlow``) one thread a column, ``csrc/land_column_rollout.cu``
+(the step in ``csrc/land_step.cuh``).
 
 The plain version (:func:`land_column_rollout_plain`) is the composition of
 the port's process modules: a state over the carry and the inputs, stepped
@@ -78,11 +84,13 @@ from ..timesteppers.stepping import ForwardEuler, Heun
 __all__ = ["LAND_INPUTS", "LandInput", "LandParams", "land_composition", "carry_names",
            "land_column_rollout", "land_column_heun_rollout", "land_column_implicit_rollout",
            "land_column_rollout_plain", "launch_args", "implicit_tags", "ROLLOUTS",
+           "group_scheme", "rollout_source", "rollout_group", "group_occupancy",
            "LAND_FULL_AUX", "land_full_composition", "land_full_step_buffers",
            "land_full_step_operands",
            "land_column_full_step", "land_column_full_step_plain"]
 
 _NAME = "land_column_rollout"  # csrc/land_column_rollout.cu
+_GROUP_NAME = "land_column_group_rollout"  # csrc/land_column_group_rollout.cu
 
 #: the inputs the land step reads, in the kernel's order (land_step.cuh IN_*)
 LAND_INPUTS = ("air_temperature", "surface_shortwave_down", "surface_longwave_down",
@@ -456,11 +464,53 @@ def _argtypes(dtype) -> list:
                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+def group_scheme(params: LandParams, stepper: str) -> bool:
+    """Whether the land kernels of ``stepper`` over the composition of
+    ``params`` run each column on a group of lanes: ImplicitEuler (either
+    solver, any Picard count) over Richards flow without a snowpack."""
+    tags = params.tags
+    return stepper == "implicit" and tags[1] == "richards" and "snow" not in tags
+
+
+def rollout_source(params: LandParams, stepper: str) -> str:
+    """The CUDA source of the land rollout of ``stepper`` over the
+    composition of ``params``: the group kernel's where
+    :func:`group_scheme`, the one-thread kernel's for any other."""
+    return _GROUP_NAME if group_scheme(params, stepper) else _NAME
+
+
+def group_occupancy(source: str, dtype: torch.dtype, nz: int, tags: tuple,
+                    solver: str) -> tuple:
+    """``(resident warps an SM, G)`` of the kernel of ``solver`` in the entry
+    of ``tags`` (the stepper's and the composition's) of the land group
+    source ``source`` at ``dtype`` and depth ``nz`` (its ``_warps``
+    function, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at
+    first use)."""
+    fn = cuda_build.entry(source, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                          tags=tags, suffix="_warps")
+    group = ctypes.c_int(0)
+    warps = fn(SOLVER_CODES[solver], ctypes.byref(group))
+    if warps < 0:
+        raise RuntimeError(f"the occupancy query of {source} failed")
+    return warps, group.value
+
+
+def rollout_group(dtype: torch.dtype, nz: int, tags: tuple, solver: str) -> tuple:
+    """``(resident warps an SM, G)`` of the group rollout kernel
+    (:func:`group_occupancy`)."""
+    return group_occupancy(_GROUP_NAME, dtype, nz, tags, solver)
+
+
 def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params, dt, time,
-             steps, stepper, solver, picard_iters=1):
+             steps, stepper, solver, picard_iters=1, group=None):
     """Check the operands; run the plain version on CPU tensors, else launch
-    the instantiation ``stepper_tags + params.tags`` and count the launch on
-    ``wrapper``; return the new carry."""
+    the instantiation ``stepper_tags + params.tags`` of the source
+    :func:`rollout_source` names (the group kernel's at G ``group`` where
+    given: its ``g<G>`` build where the kernel's own G is another) and
+    count the launch on ``wrapper``; return the new carry."""
+    if group is not None and not group_scheme(params, stepper):
+        raise ValueError(f"a group size is the group rollout's (ImplicitEuler over Richards "
+                         f"flow without a snowpack), not {stepper!r} over {params.tags}")
     _check(carry, inputs, root_fraction, coords, params)
     if steps < 0:
         raise ValueError("steps must be >= 0")
@@ -474,8 +524,11 @@ def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params
     for t in (*carry.values(), *coords):
         if not t.is_contiguous():
             raise ValueError("the land column kernel takes contiguous carry and coordinates")
-    fn = cuda_build.entry(_NAME, U.dtype, U.shape[0], _argtypes(U.dtype),
-                          tags=tuple(stepper_tags) + params.tags)
+    tags = tuple(stepper_tags) + params.tags
+    if group is not None and group != rollout_group(U.dtype, U.shape[0], tags, solver)[1]:
+        tags += (f"g{group}",)
+    fn = cuda_build.entry(rollout_source(params, stepper), U.dtype, U.shape[0],
+                          _argtypes(U.dtype), tags=tags)
     out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
     args, keep = launch_args(carry, out, inputs, root_fraction, coords, params)
     err = fn(*args, steps, float(time), float(dt), U.shape[1], SOLVER_CODES.get(solver, 0),
@@ -525,14 +578,18 @@ def implicit_tags(solver: str, picard_iters: int) -> tuple:
 def land_column_implicit_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                                  root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
                                  z_faces, params: LandParams, dt: float, time: float, steps: int,
-                                 solver: str = "pcr", picard_iters: int = 1):
+                                 solver: str = "pcr", picard_iters: int = 1,
+                                 group: Optional[int] = None):
     """ImplicitEuler with ``picard_iters`` Picard iterations over a
     LandModel, as :func:`land_column_rollout` (``solver`` ``"pcr"`` or
-    ``"thomas"``; the kernel's instantiation of :func:`implicit_tags`)."""
+    ``"thomas"``; the kernel's instantiation of :func:`implicit_tags`).
+    ``group``: the group rollout at that G (the land gradient's forward
+    segments take the segment VJP's, so that the carries the VJP stores
+    are theirs bit for bit); read on CUDA tensors only."""
     tags = implicit_tags(solver, picard_iters)
     return _rollout(land_column_implicit_rollout, tags, carry, inputs, root_fraction,
                     (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "implicit",
-                    solver, int(picard_iters))
+                    solver, int(picard_iters), group)
 
 
 #: the wrapper of each stepper

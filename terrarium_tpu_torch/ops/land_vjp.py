@@ -45,8 +45,8 @@ import torch
 from . import cuda_build
 from .fused_step import SOLVER_CODES, _number
 from .land_step import (_CARRY_OF, _CLAND, LandInput, LandParams, _check, _CLandCarry,
-                        _CLandInputs, carry_names, implicit_tags, land_column_rollout_plain,
-                        launch_args)
+                        _CLandInputs, carry_names, group_occupancy, group_scheme,
+                        implicit_tags, land_column_rollout_plain, launch_args)
 
 __all__ = ["land_column_segment_vjp", "land_column_segment_vjp_plain", "LAND_VJP_SCHEMES",
            "mineral_fraction", "vjp_source", "vjp_group"]
@@ -88,25 +88,15 @@ def vjp_source(params: LandParams, stepper: str) -> str:
     composition of ``params``: the group kernel's for ImplicitEuler (either
     solver, any Picard count) over Richards flow without a snowpack, the
     one-thread kernel's for any other."""
-    tags = params.tags
-    if stepper == "implicit" and tags[1] == "richards" and "snow" not in tags:
-        return _GROUP_NAME
-    return _NAME
+    return _GROUP_NAME if group_scheme(params, stepper) else _NAME
 
 
 def vjp_group(dtype: torch.dtype, nz: int, tags: tuple, solver: str) -> tuple:
     """``(resident warps an SM, G)`` of the group segment-VJP kernel of
     ``solver`` in the entry of ``tags`` (the stepper's and the
     composition's) at ``dtype`` and depth ``nz``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at first
-    use)."""
-    fn = cuda_build.entry(_GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-                          tags=tags, suffix="_warps")
-    group = ctypes.c_int(0)
-    warps = fn(SOLVER_CODES[solver], ctypes.byref(group))
-    if warps < 0:
-        raise RuntimeError("the occupancy query of the land group segment-VJP kernel failed")
-    return warps, group.value
+    (:func:`~terrarium_tpu_torch.ops.land_step.group_occupancy`)."""
+    return group_occupancy(_GROUP_NAME, dtype, nz, tags, solver)
 
 
 def _check_static(inputs: Dict[str, LandInput]) -> None:

@@ -14,9 +14,10 @@ Picard iterations). Each segment is a :class:`torch.autograd.Function`:
 
 * forward: the scheme's rollout wrapper, soil
   (:data:`~terrarium_tpu_torch.ops.fused_step.ROLLOUTS`) or land
-  (:data:`~terrarium_tpu_torch.ops.land_step.ROLLOUTS`): the CUDA column
-  kernel on the card, its plain version on the CPU; the segment's input
-  carry is saved, which is the whole checkpoint;
+  (:data:`~terrarium_tpu_torch.ops.land_step.ROLLOUTS`; the land group
+  rollout at the group segment VJP's G): the CUDA column kernel on the
+  card, its plain version on the CPU; the segment's input carry is saved,
+  which is the whole checkpoint;
 * backward: :func:`~terrarium_tpu_torch.ops.fused_vjp.soil_column_segment_vjp`
   or :func:`~terrarium_tpu_torch.ops.land_vjp.land_column_segment_vjp` of
   the same scheme (the CUDA segment-VJP kernels on the card), which
@@ -51,7 +52,7 @@ from ..ops.bcs import InputRef, bc_call_arity
 from ..ops.fused_step import (ROLLOUTS, STEPPERS, ColumnParams, clock_times, kernel_physics,
                               top_temperature_table, top_temperature_value)
 from ..ops.fused_vjp import soil_column_segment_vjp
-from ..ops.land_vjp import check_scheme, land_column_segment_vjp, mineral_fraction
+from ..ops.land_vjp import check_scheme, land_column_segment_vjp, mineral_fraction, vjp_group
 from ..state import reset_tendencies
 from .integrator import _coords, land_inputs
 
@@ -107,6 +108,13 @@ class _LandSegment(torch.autograd.Function):
         ctx.spec = spec
         kw = ({"solver": spec.solver, "picard_iters": spec.picard_iters}
               if spec.stepper == "implicit" else {})
+        U = carry[spec.names.index("internal_energy")]
+        if U.is_cuda and land_step.group_scheme(spec.params, spec.stepper):
+            # the group rollout at the group segment VJP's G: the carries the
+            # VJP stores are then this segment's bit for bit
+            kw["group"] = vjp_group(U.dtype, U.shape[0], check_scheme(
+                spec.params, spec.stepper, spec.solver, spec.picard_iters) + spec.params.tags,
+                spec.solver)[1]
         out = land_step.ROLLOUTS[spec.stepper](dict(zip(spec.names, carry)), spec.inputs,
                                                spec.root, *spec.coords, spec.params, spec.dt,
                                                spec.time, spec.steps, **kw)

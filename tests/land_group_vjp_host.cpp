@@ -1,16 +1,19 @@
 // Host build of terrarium_tpu_torch/csrc/land_group_step.cuh for the CPU
-// tests (tests/test_torch_land_group_vjp_host.py): the land group
-// segment-VJP kernel's column code (land::GroupColumn::segment_vjp: the
-// forward by the group's picard_step, each step undone on the group), each
-// group of G lanes emulated by one thread in lockstep (soil::HostLanes),
-// and, beside it, the one-thread land segment VJP it replaces on the card
-// (land::segment_vjp_column of implicit_step at one Picard iteration, of
-// picard_step at more), each run over every column at float64 behind a
-// plain C interface. Built with -DLAND_GROUP_G=<G> it holds the group
-// column at that G; without, the one-thread column. The compositions: the
-// vegetated bench composition (Brooks-Corey and linear conductivity) at Nz
-// 20, 7 and, at the kernel's G, 8; bare ground over Van Genuchten and
-// Mualem at Nz 20.
+// tests (tests/test_torch_land_group_vjp_host.py and
+// tests/test_torch_land_group_rollout_host.py): the land group kernels'
+// column code, the segment VJP (land::GroupColumn::segment_vjp: the forward
+// by the group's picard_step, each step undone on the group) and the
+// rollout (land::GroupColumn::rollout: the group's picard_step with the
+// inputs read at each clock time), each group of G lanes emulated by one
+// thread in lockstep (soil::HostLanes), and, beside them, the one-thread
+// land segment VJP and rollout they replace on the card
+// (land::segment_vjp_column and land::rollout_column of implicit_step at
+// one Picard iteration, of picard_step at more), each run over every column
+// at float64 behind a plain C interface. Built with -DLAND_GROUP_G=<G> it
+// holds the group column at that G; without, the one-thread column. The
+// compositions: the vegetated bench composition (Brooks-Corey and linear
+// conductivity) at Nz 20, 7 and, at the kernel's G, 8; bare ground over Van
+// Genuchten and Mualem at Nz 20.
 #include <vector>
 
 #include "land_group_step.cuh"
@@ -31,6 +34,16 @@ using land::CURVE_VG;
 #define LAND_HOST_PASS                                                                    \
     in, gout, gin, inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, P, \
         gparams, scratch, steps, dt, cells, iters
+
+#define LAND_ROLL_ARGS                                                                      \
+    const LandCarry *in, const LandCarry *out, const LandInputs *inputs, const double *root, \
+        long long root_row_stride, long long root_cell_stride, const double *dz,           \
+        const double *dzf, const double *zc, const double *zf,                              \
+        const LandColumnParams<double> *P, int steps, double time0, double dt,             \
+        long long cells, int iters
+#define LAND_ROLL_PASS                                                                      \
+    in, out, inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, P, steps,    \
+        time0, dt, cells, iters
 
 // the composition cases each build holds: (NZ, VEG, CURVE, COND); the
 // solver is 0 (Thomas) or 1 (PCR)
@@ -117,6 +130,66 @@ void group_columns(LAND_HOST_ARGS)
         group_columns<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_HOST_PASS);               \
         return 0;                                                                       \
     }
+
+// land::GroupColumn::rollout of every column on a group of G emulated
+// lanes, as csrc/land_column_group_rollout.cu runs a group
+template <int NZ, bool VEG, int CURVE, int COND, int SOLVER>
+void group_rollouts(LAND_ROLL_ARGS)
+{
+    using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND>;
+    constexpr int L = Column::L;
+    const soil::HostLanes<G> lanes;
+    const soil::Consts<double> sc(P->soil);
+    for (long long col = 0; col < cells; ++col) {
+        Column column(lanes, sc, *P, dz, dzf, zc, zf,
+                      VEG ? root + col * root_cell_stride : nullptr, root_row_stride);
+        double U[G][L], sat[G][L];
+        for (int i = 0; i < G; ++i) {
+            for (int l = 0; l < L; ++l) {
+                const int k = column.level(i, l);
+                U[i][l] = k < NZ ? static_cast<const double*>(in->U)[k * cells + col] : 0.0;
+                sat[i][l] = k < NZ ? static_cast<const double*>(in->sat)[k * cells + col] : 0.0;
+            }
+        }
+        land::Surface<double> s{};
+        s.S = static_cast<const double*>(in->S)[col];
+        s.Ts = static_cast<const double*>(in->Ts)[col];
+        if (VEG) {
+            s.w = static_cast<const double*>(in->w)[col];
+            s.C = static_cast<const double*>(in->C)[col];
+            s.nu = static_cast<const double*>(in->nu)[col];
+            s.An = static_cast<const double*>(in->An)[col];
+        }
+        land::Forcing<double> f;
+        for (int i = 0; i < LAND_NIN; ++i)
+            f.v[i] = static_cast<const double*>(inputs->ptr[i])[col * inputs->cell_stride[i]];
+        column.template rollout<SOLVER>(U, sat, s, f, *inputs, col, time0, steps, dt, 1.0 / dt,
+                                        iters);
+        for (int i = 0; i < G; ++i) {
+            for (int l = 0; l < L; ++l) {
+                const int k = column.level(i, l);
+                if (k < NZ) {
+                    static_cast<double*>(out->U)[k * cells + col] = U[i][l];
+                    static_cast<double*>(out->sat)[k * cells + col] = sat[i][l];
+                }
+            }
+        }
+        static_cast<double*>(out->Ts)[col] = s.Ts;
+        static_cast<double*>(out->S)[col] = s.S;
+        if (VEG) {
+            static_cast<double*>(out->w)[col] = s.w;
+            static_cast<double*>(out->C)[col] = s.C;
+            static_cast<double*>(out->nu)[col] = s.nu;
+            static_cast<double*>(out->An)[col] = s.An;
+        }
+    }
+}
+
+#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, SOLVER_)                                \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && solver == SOLVER_) { \
+        group_rollouts<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_ROLL_PASS);              \
+        return 0;                                                                       \
+    }
 #else
 // land::segment_vjp_column over every column, one thread a column:
 // implicit_step and its adjoint at one Picard iteration, picard_step and
@@ -147,6 +220,33 @@ void thread_columns(LAND_HOST_ARGS)
         thread_columns<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_HOST_PASS);              \
         return 0;                                                                       \
     }
+
+// land::rollout_column of ImplicitEuler over every column, one thread a
+// column, as csrc/land_column_rollout.cu runs it: implicit_step at one
+// Picard iteration, picard_step at more
+template <int NZ, bool VEG, int CURVE, int COND, int SOLVER>
+void thread_rollouts(LAND_ROLL_ARGS)
+{
+    const soil::Consts<double> sc(P->soil);
+    for (long long col = 0; col < cells; ++col) {
+        if (iters == 1)
+            land::rollout_column<double, NZ, VEG, true, CURVE, COND, false,
+                                 soil::STEPPER_IMPLICIT, SOLVER, false>(
+                col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
+                dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt);
+        else
+            land::rollout_column<double, NZ, VEG, true, CURVE, COND, false,
+                                 soil::STEPPER_IMPLICIT, SOLVER, true>(
+                col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
+                dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt, iters);
+    }
+}
+
+#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, SOLVER_)                                \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && solver == SOLVER_) { \
+        thread_rollouts<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_ROLL_PASS);             \
+        return 0;                                                                       \
+    }
 #endif
 
 }  // namespace
@@ -172,7 +272,33 @@ extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int con
     return -1;
 }
 
-// the group size of the kernel at nz levels with the solver
+// The rollout of `steps` ImplicitEuler steps with `iters` Picard iterations
+// and the solver `solver` (0 Thomas, 1 PCR) over the land composition (as
+// host_land_vjp's) at nz levels from clock time time0, the inputs read at
+// each clock time, on groups of the build's G lanes or one thread a column:
+// the output carry to out. Returns -1 for a case the build does not hold,
+// else 0.
+extern "C" int host_land_rollout(LAND_ROLL_ARGS, int nz, int veg, int curve, int cond,
+                                 int solver)
+{
+    if (iters < 1) return -1;
+    LAND_HOST_CASES(LAND_ROLL_RUN, 0)
+    LAND_HOST_CASES(LAND_ROLL_RUN, 1)
+#ifdef LAND_GROUP_G
+    // the case against JAX's interpret-mode kernel, at the kernel's G of PCR
+    if constexpr (G == land::rollout_group_lanes(8, 1))
+        LAND_ROLL_RUN(8, true, CURVE_BC, COND_LINEAR, 1)
+#endif
+    return -1;
+}
+
+// the group size of the rollout kernel at nz levels with the solver
+extern "C" int host_land_rollout_group_lanes(int nz, int solver)
+{
+    return land::rollout_group_lanes(nz, solver);
+}
+
+// the group size of the segment-VJP kernel at nz levels with the solver
 extern "C" int host_land_group_lanes(int nz, int solver)
 {
     return land::implicit_group_lanes(nz, solver);

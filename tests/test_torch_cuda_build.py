@@ -151,12 +151,12 @@ def test_listed_key_takes_the_prebuilt_library(fake_nvcc):
     """A listed key builds its source's whole prebuilt set, one compile an
     instantiation and one link into ``<stem>.so``, and is read from it; a
     key built alone afterwards comes from its own library."""
-    listed = ("implicit", "picard", "veg", "richards", "bc", "linear")
+    listed = ("heun", "veg", "richards", "bc", "linear")
     assert (listed, F32, 20) in cb.INSTANTIATIONS["land_column_rollout"]
     fn = cb.entry("land_column_rollout", F32, 20, [], tags=listed)
     stem = cb._stem("land_column_rollout")
     assert cb._libs["land_column_rollout"].path == str(cb._BUILD_DIR / f"{stem}.so")
-    assert fn.name == "land_column_rollout_implicit_picard_veg_richards_bc_linear_f32_nz20"
+    assert fn.name == "land_column_rollout_heun_veg_richards_bc_linear_f32_nz20"
     assert len(fake_nvcc.compiles()) == len(cb.INSTANTIATIONS["land_column_rollout"])
     assert len(fake_nvcc.links()) == 1
     other = ("implicit", "picard", "veg", "richards", "bc", "linear", "snow")
@@ -400,3 +400,128 @@ def test_land_segment_vjp_routes_by_type(composition, stepper, source):
     assert lv.vjp_source(params, stepper) == source
     assert ("snow" in params.tags or params.tags[1] == "noflow" or stepper != "implicit") == (
         source == "land_column_segment_vjp")
+
+
+@pytest.mark.parametrize("solver", ["pcr", "thomas", "picard"])
+def test_land_group_rollout_keys(fake_nvcc, solver):
+    """The land rollout of ImplicitEuler over the vegetated bench
+    composition (each solver; more than one Picard iteration: the entry of
+    both solvers) is prebuilt from the group source
+    (``csrc/land_column_group_rollout.cu``) at float32 and float64 Nz 20
+    and no longer in the one-thread source's prebuilt set, which still
+    builds the same tags alone on demand (to time one layout against the
+    other); an unlisted depth is built alone with the scheme's and the
+    composition's defines and no group size (the source takes
+    ``land::implicit_group_lanes``), its float64 build with the land
+    sources' ``-fmad=false``; ``g<G>`` (G 2 to 32) and ``mb<B>`` tags add
+    ``SOIL_GROUP`` and ``SOIL_MIN_BLOCKS``; the ``_warps`` suffix reads the
+    instantiation's resident warps and G."""
+    params = _land_params("coupled")
+    tags = ls.implicit_tags("pcr" if solver == "picard" else solver,
+                            2 if solver == "picard" else 1) + params.tags
+    assert tags == ("implicit", solver, "veg", "richards", "bc", "linear")
+    for dtype in (F32, F64):
+        assert (tags, dtype, 20) in cb.INSTANTIATIONS["land_column_group_rollout"]
+    assert all(t != tags for t, _, _ in cb.INSTANTIATIONS["land_column_rollout"])
+    assert cb.FLAGS["land_column_group_rollout"] == {F64: ("-fmad=false",)}
+    argtypes = ls._argtypes(F64)
+    fn = cb.entry("land_column_group_rollout", F64, 15, argtypes, tags=tags)
+    name = f"land_column_group_rollout_{'_'.join(tags)}_f64_nz15"
+    assert fn.name == name and fn.argtypes == argtypes
+    (compile_,) = fake_nvcc.compiles()
+    assert compile_[-1].endswith("land_column_group_rollout.cu")
+    assert "-fmad=false" in compile_
+    defines = {"pcr": {"-DSOIL_SOLVER=1"}, "thomas": {"-DSOIL_SOLVER=0"},
+               "picard": {"-DSOIL_SOLVER=2", "-DSOIL_PICARD=1"}}[solver]
+    assert _defines(compile_) == {f"-DSOIL_ENTRY={name}", "-DSOIL_T=double", "-DSOIL_NZ=15",
+                                  "-DSOIL_STEPPER=2", "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1",
+                                  "-DLAND_VEG=1", "-DLAND_CURVE=1", "-DLAND_COND=1", *defines}
+    warps = cb.entry("land_column_group_rollout", F64, 15, [], tags=tags, suffix="_warps")
+    assert warps.name == f"{name}_warps" and len(fake_nvcc.compiles()) == 1
+    cb.entry("land_column_group_rollout", F32, 15, argtypes, tags=tags)
+    assert "-fmad=false" not in fake_nvcc.compiles()[-1]
+    one = cb.entry("land_column_rollout", F32, 20, argtypes, tags=tags)
+    assert one.name == f"land_column_rollout_{'_'.join(tags)}_f32_nz20"
+    assert fake_nvcc.compiles()[-1][-1].endswith("land_column_rollout.cu")
+    cb.entry("land_column_group_rollout", F32, 20, [], tags=(*tags, "g2", "mb3"))
+    assert {"-DSOIL_GROUP=2", "-DSOIL_MIN_BLOCKS=3"} <= _defines(fake_nvcc.compiles()[-1])
+
+
+def test_land_group_rollout_has_a_kernel_per_solver():
+    """The group rollout's kernel takes the solver as a template argument
+    and its entry launches the kernel of the solver its argument names, so
+    that the Picard entry (``SOIL_SOLVER=2``) holds a kernel of each solver
+    and every other entry one; the group size is
+    ``land::rollout_group_lanes(NZ, SOLVER)`` of that solver, and the step
+    is the group column's ``rollout`` over ``picard_step``, the step the
+    segment VJP recomputes with."""
+    src = (cb._CSRC / "land_column_group_rollout.cu").read_text()
+    assert "template <typename T, int NZ, int G, int SOLVER>\n__global__" in src
+    assert "land::rollout_group_lanes(NZ, SOLVER)" in src
+    assert "column.template rollout<SOLVER>(" in src
+    assert "if (solver == soil::SOLVER_THOMAS) return SOIL_LAUNCH(soil::SOLVER_THOMAS);" in src
+    assert "return SOIL_LAUNCH(ENTRY_SOLVER);" in src
+    header = (cb._CSRC / "land_group_step.cuh").read_text()
+    assert "picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);" in header
+
+
+@pytest.mark.parametrize("composition,stepper,source", [
+    ("coupled", "implicit", "land_column_group_rollout"),
+    ("consistent", "implicit", "land_column_group_rollout"),
+    ("bare_vg_mualem", "implicit", "land_column_group_rollout"),
+    ("vg_mualem", "implicit", "land_column_group_rollout"),
+    ("bare_richards", "implicit", "land_column_group_rollout"),
+    ("consistent_snow", "implicit", "land_column_rollout"),
+    ("bare_bc_mo_snow", "implicit", "land_column_rollout"),
+    ("veg_noflow", "implicit", "land_column_rollout"),
+    ("bare", "implicit", "land_column_rollout"),
+    ("coupled", "euler", "land_column_rollout"),
+    ("coupled", "heun", "land_column_rollout"),
+    ("consistent_snow", "euler", "land_column_rollout"),
+])
+def test_land_rollout_routes_by_type(composition, stepper, source):
+    """The land rollout wrappers take their source from the composition's
+    type (``land_step.rollout_source``, with no switch): ImplicitEuler over
+    Richards flow without a snowpack, with or without vegetation and with
+    either curve and conductivity, the group kernel; a snowpack, ``NoFlow``,
+    ForwardEuler and Heun the one-thread kernel. The land segment VJP
+    routes every composition the same way."""
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    params = _land_params(composition)
+    assert ls.rollout_source(params, stepper) == source
+    assert ls.group_scheme(params, stepper) == (source == "land_column_group_rollout")
+    assert (lv.vjp_source(params, stepper) == "land_column_group_segment_vjp") == (
+        source == "land_column_group_rollout")
+
+
+@pytest.mark.parametrize("solver,picard_iters", [("cr", 1), ("lu", 2), ("pcr", 0),
+                                                 ("thomas", 1.5)])
+def test_land_implicit_rollout_refuses_an_unknown_solver(fake_nvcc, solver, picard_iters):
+    """``land_column_implicit_rollout`` raises ``ValueError`` for a solver
+    other than ``"pcr"`` and ``"thomas"`` or a Picard count that is not a
+    positive integer, before any build or launch."""
+    params = _land_params("coupled")
+    with pytest.raises(ValueError, match="solves by|picard_iters"):
+        ls.land_column_implicit_rollout({}, {}, None, None, None, None, None, params, 600.0,
+                                        0.0, 1, solver=solver, picard_iters=picard_iters)
+    assert fake_nvcc.calls == []
+
+
+def test_land_rollout_group_size_is_the_group_schemes(fake_nvcc):
+    """A group size (``group=``, which the land gradient's forward segments
+    pass: the segment VJP's G) is refused by ``ValueError`` for a
+    composition the group rollout does not run (a snowpack), before any
+    build or launch; on CPU tensors it is not read (the plain version), and
+    the prebuilt set holds the Thomas entries at the VJP's G 8 that the
+    gradient's forward segments launch at float32 and float64."""
+    params = _land_params("consistent_snow")
+    with pytest.raises(ValueError, match="group size"):
+        ls.land_column_implicit_rollout({}, {}, None, None, None, None, None, params, 600.0,
+                                        0.0, 1, group=8)
+    assert fake_nvcc.calls == []
+    bench = _land_params("coupled").tags
+    for dtype in (F32, F64):
+        for stepper in (("implicit", "thomas"), ("implicit", "picard")):
+            assert ((*stepper, *bench, "g8"), dtype, 20) in \
+                cb.INSTANTIATIONS["land_column_group_rollout"]

@@ -35,6 +35,9 @@ column), against
   it (PCR, one Picard iteration; Nz 8 at the kernel's G).
 """
 import ctypes
+import fcntl
+import hashlib
+import os
 import pathlib
 import shutil
 import subprocess
@@ -64,29 +67,49 @@ CELLS, STEPS, DT = 24, 8, 600.0
 CASES = [(20, "coupled"), (20, "consistent"), (20, "bare_vg_mualem"), (7, "coupled")]
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def host_libs(tmp_path_factory):
     """``{G: library, None: the one-thread library}``, the five builds of
-    ``land_group_vjp_host.cpp`` compiled in parallel."""
+    ``land_group_vjp_host.cpp`` compiled in parallel, once for every test
+    file that asks for them: into a directory keyed by a hash of the
+    sources, shared by the test run's workers, under a lock."""
     cxx = shutil.which("c++") or shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    tmp = tmp_path_factory.mktemp("land_group_vjp_host")
-    jobs = {}
-    for g in (None, *GROUPS):
-        so = tmp / f"land_group_vjp_host_{g or 'thread'}.so"
-        cmd = [cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
-               *([f"-DLAND_GROUP_G={g}"] if g else []), f"-I{CSRC}", "-o", str(so),
-               str(HERE / "land_group_vjp_host.cpp")]
-        jobs[g] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True))
+    h = hashlib.sha256((HERE / "land_group_vjp_host.cpp").read_bytes() + cxx.encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # the run's, beside each worker's own
+    tmp = base / f"land_group_vjp_host-{h.hexdigest()[:12]}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    sos = {g: tmp / f"land_group_vjp_host_{g or 'thread'}.so" for g in (None, *GROUPS)}
+    with open(tmp / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (tmp / "built").exists():
+            jobs = {}
+            for g, so in sos.items():
+                cmd = [cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+                       *([f"-DLAND_GROUP_G={g}"] if g else []), f"-I{CSRC}", "-o", str(so),
+                       str(HERE / "land_group_vjp_host.cpp")]
+                jobs[g] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+            for p in jobs.values():
+                log = p.communicate()[0]
+                assert p.returncode == 0, log
+            (tmp / "built").write_text("")
     out = {}
-    for g, (so, p) in jobs.items():
-        log = p.communicate()[0]
-        assert p.returncode == 0, log
+    for g, so in sos.items():
         out[g] = ctypes.CDLL(str(so))
         out[g].host_land_vjp.restype = ctypes.c_int
+        out[g].host_land_rollout.restype = ctypes.c_int
     return out
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """The host builds (``host_libs``)."""
+    return host_libs(tmp_path_factory)
 
 
 def land_case(composition, nz, seed, cells=CELLS):
