@@ -19,9 +19,10 @@ stores, resident warps an SM, SASS instructions, the saturation sweeps'
 hand-offs between lanes on the compared operands, the bound with each
 operation weighted by its measured cost, and (rows 1 and 1'a) the row at
 float64 on 1,024 columns against the plain version at 1e-12; so are rows
-3'b and 3'h (the group segment VJP of ImplicitEuler, one and two Picard
-iterations, each solver), with the recompute check: every carry the VJP
-stores, bit for bit the group rollout's after the same steps; and rows
+3, 3'a, 3'b and 3'h (the group segment VJP of ForwardEuler, of Heun, and of
+ImplicitEuler with one and two Picard iterations, each solver), with the
+recompute check: every carry the VJP stores, bit for bit the group
+rollout's after the same steps (one step a launch); and rows
 3'e and 3'i (the land group segment VJP of ImplicitEuler, one and two
 Picard iterations, each solver), whose stored carries equal the land group
 rollout's (the forward segments' kernel) bit for bit at float64 and at
@@ -713,8 +714,8 @@ ON_DEMAND_STEPS = {"soil_heat_column": 864, "bare_vg_mualem_land": 288}
 # rollouts
 GROUP_SOURCE = "soil_column_group_rollout"
 FIRST_SOURCES = (GROUP_SOURCE, "soil_column_rollout")
-# the segment VJP of ImplicitEuler over heat + Richards on groups of lanes
-# (rows 3'b and 3'h)
+# the segment VJP of ForwardEuler, Heun and ImplicitEuler over heat +
+# Richards on groups of lanes (rows 3, 3'a, 3'b and 3'h)
 VJP_GROUP_SOURCE = "soil_column_group_segment_vjp"
 # the land segment VJP of ImplicitEuler over Richards flow without a
 # snowpack on groups of lanes (rows 3'e and 3'i)
@@ -1688,7 +1689,8 @@ def ptxas_summary(report: str) -> dict:
     ImplicitEuler entries one of each a solver, keyed ``"table_pcr"``,
     ``"series_thomas"``, ..., the VJP's its kernel and the reduction (the
     group VJP's ImplicitEuler entries a kernel of each solver, ``"vjp_pcr"``,
-    ``"vjp_thomas"``), the land and full-step entries their one kernel."""
+    ``"vjp_thomas"``; its ForwardEuler and Heun entries one, ``"vjp"``), the
+    land and full-step entries their one kernel."""
     out, entry, key = {}, None, None
     for ln in report.splitlines():
         if ln.startswith("== "):
@@ -1712,6 +1714,13 @@ def ptxas_summary(report: str) -> dict:
                 key = "series" if flags.group(flags.lastindex) == "1" else "table"
                 if group and group.group(1) == "2":
                     key += "_" + ("pcr" if group.group(2) == "1" else "thomas")
+            elif "soil_column_group_segment_vjp_kernel" in name:
+                # <T, NZ, G, STEPPER, SOLVER>: ImplicitEuler's a kernel of
+                # each solver, ForwardEuler's and Heun's one
+                stepper, solver = re.search(r"kernelI[fd]Li\d+ELi\d+ELi(\d)ELi(\d)E",
+                                            name).groups()
+                key = "vjp" if stepper != "2" else "vjp_" + ("pcr" if solver == "1"
+                                                             else "thomas")
             elif "group_segment_vjp_kernel" in name or "land_column_group_rollout" in name:
                 # <T, NZ, G, SOLVER>
                 solver = re.search(r"kernelI[fd]Li\d+ELi\d+ELi(\d)E", name).group(1)
@@ -1763,17 +1772,18 @@ def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
         lib = cuda_build._BUILD_DIR / f"{stem}.so"
     cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
     # the entry's kernel, by its mangled template arguments: the group
-    # rollout's <T, NZ, G, STEPPER, SOLVER, SERIES> (SOLVER 1 for the
-    # explicit steppers), the one-thread rollout's <T, NZ, STEPPER, SOLVER,
-    # HEAT, PICARD, SERIES>; the element type and the depth from the entry's
-    # name
+    # rollout's <T, NZ, G, STEPPER, SOLVER, SERIES> and the group segment
+    # VJP's <T, NZ, G, STEPPER, SOLVER> (SOLVER 1 for the explicit
+    # steppers), the one-thread rollout's <T, NZ, STEPPER, SOLVER, HEAT,
+    # PICARD, SERIES>; the element type and the depth from the entry's name
     m = re.search(r"_(f32|f64)_nz(\d+)$", entry)
     t, nz = {"f32": "f", "f64": "d"}[m.group(1)], m.group(2)
     stepper = {"euler": 0, "heun": 1, "implicit": 2}[
         next(k for k in ("euler", "heun", "implicit") if f"_{k}_" in entry)]
     code = {"thomas": 0, "pcr": 1}[solver] if stepper == 2 else 1
-    if source in (VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE,
-                  LAND_GROUP_SOURCE):  # <T, NZ, G, SOLVER>
+    if source == VJP_GROUP_SOURCE:  # <T, NZ, G, STEPPER, SOLVER>
+        want = re.compile(rf"{source}_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}EE")
+    elif source in (LAND_VJP_GROUP_SOURCE, LAND_GROUP_SOURCE):  # <T, NZ, G, SOLVER>
         want = re.compile(rf"{source}_kernelI{t}Li{nz}ELi\d+ELi{code}EE")
     elif source == GROUP_SOURCE:
         want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}E"
@@ -1860,17 +1870,38 @@ def implicit_vjp_fma_issues(solver, nz, iters, cparams):
             + div * (FWD_WEIGHTS["division"][1] - 1.0))
 
 
-def vjp_launcher(fs, fv, fn, group, operands, dt, solver, iters):
+# The group segment VJP of ForwardEuler and Heun (rows 3 and 3'a) weighted
+# the same way: the forward step's FMA issues (FWD_FMA_ISSUES_PER_LEVEL_STEP,
+# HEUN_FMA_ISSUES_PER_LEVEL_STEP) and the adjoint's operations (the VJP's
+# ops less the forward's: ADJ_OPS once, Heun twice and its 10), of which
+# rhs_adjoint's 12 IEEE divisions a level (VJP_ADJ_DIVISIONS_PER_LEVEL less
+# d(Psi)/d(sat)'s, which only ImplicitEuler takes), once a step, Heun twice
+RHS_ADJ_DIVISIONS_PER_LEVEL = VJP_ADJ_DIVISIONS_PER_LEVEL - 1
+
+
+def explicit_vjp_fma_issues(stepper, nz):
+    """FMA issues of one step of one column of the segment VJP of ForwardEuler
+    (``"euler"``) or Heun over heat + Richards."""
+    heun = stepper == "heun"
+    fwd_ops = (HEUN_OPS_PER_LEVEL_STEP if heun else FWD_OPS_PER_LEVEL_STEP) * nz
+    fwd_fma = (HEUN_FMA_ISSUES_PER_LEVEL_STEP if heun else FWD_FMA_ISSUES_PER_LEVEL_STEP) * nz
+    ops = (HEUN_VJP_OPS_PER_LEVEL_STEP if heun else VJP_OPS_PER_LEVEL_STEP) * nz
+    div = (2 if heun else 1) * RHS_ADJ_DIVISIONS_PER_LEVEL * nz
+    return fwd_fma + (ops - fwd_ops) + div * (FWD_WEIGHTS["division"][1] - 1.0)
+
+
+def vjp_launcher(fs, fv, fn, group, operands, dt, solver, iters, stepper="implicit"):
     """``(launch, scratch)``: ``launch()`` launches the segment-VJP entry
-    ``fn`` on ``operands`` (carry, table, coordinates, parameters, output
-    cotangents) and returns ``(gU0, gsat0, gS0, gparams)``; its scratch
-    buffer, partials and outputs are the caller's, laid out for the group
-    kernel of G ``group`` (the scratch [step][column][row]) or, ``group``
-    None, for one thread a column ([step][row][column])."""
+    ``fn`` of ``stepper`` on ``operands`` (carry, table, coordinates,
+    parameters, output cotangents; Heun's table one row longer than its
+    steps) and returns ``(gU0, gsat0, gS0, gparams)``; its scratch buffer,
+    partials and outputs are the caller's, laid out for the group kernel of
+    G ``group`` (the scratch [step][column][row]) or, ``group`` None, for
+    one thread a column ([step][row][column])."""
     carry, table, coords, params, cts = operands
     U = carry[0]
     nz, cells = U.shape
-    steps, rows = table.shape[0], 2 * nz + 1
+    steps, rows = table.shape[0] - (stepper == "heun"), 2 * nz + 1
     if group:
         blocks = -(-cells // (fv._GROUP_THREADS // group))
         shape = (steps, cells, rows)
@@ -1905,55 +1936,69 @@ def vjp_group_of(fs, fv, cuda_build, tags, solver, dtype, nz):
     return fn(fs.SOLVER_CODES[solver], ctypes.byref(group)), group.value
 
 
-def vjp_recompute_check(fs, fv, cuda_build, operands, dt, solver, iters, tags=None):
+def vjp_recompute_check(fs, fv, cuda_build, operands, dt, solver, iters, tags=None,
+                        stepper="implicit", rollout=None):
     """The group segment VJP's forward against the group rollout: the VJP
-    entry of the scheme (or of ``tags``: another group size or launch bound)
-    launched on ``operands`` (carry, table, coordinates, parameters, output
-    cotangents) with a scratch buffer of the check's own, then each carry it
-    stored (step s's input) against the carry that the group rollout
-    (soil_column_implicit_rollout, the forward segments' kernel) reaches
-    after s steps, one step a launch. Returns ``(steps, columns whose stored
+    entry of the scheme (``stepper``, heat + Richards; or of ``tags``:
+    another group size or launch bound) launched on ``operands`` (carry,
+    table, coordinates, parameters, output cotangents) with a scratch
+    buffer of the check's own, then each carry it stored (step s's input)
+    against the carry that the group rollout (the scheme's wrapper in
+    ``fs.ROLLOUTS``, the forward segments' kernel, or ``rollout(carry,
+    rows)``) reaches after s steps, one step a launch (Heun from two rows of
+    the table, ``table[s:s + 2]``). Returns ``(steps, columns whose stored
     carry differs at some step)``: 0 where every carry is equal bit for
     bit."""
     carry, table, coords, params, _ = operands
     nz, cells = carry[0].shape
-    tags = fv.vjp_tags("implicit", "richards", solver, iters) if tags is None else tuple(tags)
+    heun = stepper == "heun"
+    tags = fv.vjp_tags(stepper, "richards", solver, iters) if tags is None else tuple(tags)
     fn = cuda_build.entry(fv._GROUP_NAME, carry[0].dtype, nz, fv._ARGTYPES, tags=tags)
     group = vjp_group_of(fs, fv, cuda_build, tags, solver, carry[0].dtype, nz)[1]
-    launch, scratch = vjp_launcher(fs, fv, fn, group, operands, dt, solver, iters)
+    launch, scratch = vjp_launcher(fs, fv, fn, group, operands, dt, solver, iters, stepper)
     launch()
+    if rollout is None:
+        kw = {"solver": solver, "picard_iters": iters} if stepper == "implicit" else {}
+
+        def rollout(state, rows):
+            return fs.ROLLOUTS[stepper, "richards"](*state, rows, *coords, params, dt, **kw)
+    steps = table.shape[0] - heun
     state, parted = carry, torch.zeros(cells, dtype=torch.bool, device=carry[0].device)
-    for i in range(table.shape[0]):
+    for i in range(steps):
         rec = scratch[i]
         stored = (rec[:, :nz].t(), rec[:, nz:2 * nz].t(), rec[:, 2 * nz])
         for a, b in zip(stored, state):
             d = a != b
             parted |= d.any(0) if d.dim() == 2 else d
-        state = fs.soil_column_implicit_rollout(*state, table[i:i + 1], *coords, params, dt,
-                                                solver=solver, picard_iters=iters)
-    return table.shape[0], int(parted.sum())
+        state = rollout(state, table[i:i + 1 + heun])
+    return steps, int(parted.sum())
 
 
-def vjp_group_row(fs, fv, cuda_build, operands, dt, solver, iters, ptxas_all):
-    """What the kernel line reports of the group segment VJP of ImplicitEuler
-    over heat + Richards (``solver``, ``iters`` Picard iterations) at the
-    shape of ``operands``: its group size G and levels a lane, ptxas's
-    registers and spill stores, resident warps an SM, SASS instructions, the
-    recompute check (vjp_recompute_check: the columns whose stored carries
-    part from the group rollout's, which must be none) and the bound with
-    each operation weighted by its cost (implicit_vjp_fma_issues)."""
+def vjp_group_row(fs, fv, cuda_build, operands, dt, solver, iters, ptxas_all,
+                  stepper="implicit"):
+    """What the kernel line reports of the group segment VJP of ``stepper``
+    over heat + Richards (ImplicitEuler: ``solver``, ``iters`` Picard
+    iterations) at the shape of ``operands``: its group size G and levels a
+    lane, ptxas's registers and spill stores, resident warps an SM, SASS
+    instructions, the recompute check (vjp_recompute_check: the columns
+    whose stored carries part from the group rollout's, which must be none)
+    and the bound with each operation weighted by its cost
+    (implicit_vjp_fma_issues, explicit_vjp_fma_issues)."""
     carry, table, coords, params, _ = operands
     dtype, (nz, cells) = carry[0].dtype, carry[0].shape
-    steps = table.shape[0]
-    entry = cuda_build._entry_name(VJP_GROUP_SOURCE, fv.vjp_tags("implicit", "richards", solver,
+    implicit = stepper == "implicit"
+    steps = table.shape[0] - (stepper == "heun")
+    entry = cuda_build._entry_name(VJP_GROUP_SOURCE, fv.vjp_tags(stepper, "richards", solver,
                                                                   iters), dtype, nz)
-    ptxas = ptxas_all[VJP_GROUP_SOURCE][entry]["vjp_" + solver]
-    warps, group = fv.vjp_group(dtype, nz, solver, iters)
-    checked, parted = vjp_recompute_check(fs, fv, cuda_build, operands, dt, solver, iters)
+    ptxas = ptxas_all[VJP_GROUP_SOURCE][entry]["vjp_" + solver if implicit else "vjp"]
+    warps, group = fv.vjp_group(dtype, nz, solver, iters, stepper)
+    checked, parted = vjp_recompute_check(fs, fv, cuda_build, operands, dt, solver, iters,
+                                          stepper=stepper)
     if parted:
-        raise AssertionError(f"group segment VJP {solver} x{iters}: the stored carries of "
-                             f"{parted} columns part from the group rollout's")
-    fma = implicit_vjp_fma_issues(solver, nz, iters, fs._CParams.of(params))
+        raise AssertionError(f"group segment VJP {stepper} {solver} x{iters}: the stored "
+                             f"carries of {parted} columns part from the group rollout's")
+    fma = (implicit_vjp_fma_issues(solver, nz, iters, fs._CParams.of(params)) if implicit
+           else explicit_vjp_fma_issues(stepper, nz))
     return {"group": group, "levels_a_lane": -(-nz // group),
             "registers": int(ptxas.split()[0]),
             "spill_stores": int(ptxas.split(",")[1].split()[0]),
@@ -4655,6 +4700,11 @@ def main():
           chunk_cells=GRAD_COMPARE_CELLS, f32_rel_tol=F32_VJP_REL_TOL, max_abs_err=full_err,
           max_err_over_magnitude=full_rel, card=card)
     del out_k, ref, part
+    # row 3 on the group kernel: its layout and resources, and its stored
+    # carries against the group rollout's (the gradient's forward segments)
+    row3 = vjp_group_row(fs, fv, cuda_build, ops, GRAD_DT, "pcr", 1, ptxas_all, stepper="euler")
+    phase("group_check", row="3", stepper="euler", cells=GRAD_CELLS, nz=GRAD_NZ,
+          steps=GRAD_INNER, **row3, card=card)
 
     # ---- gradient main path: value and gradient in log K_sat, 288 steps in
     # 6 segments of 48, at full width; one warm-up, then the median of 5
@@ -4789,13 +4839,14 @@ def main():
         del out_k, ref, part
         group, source = None, "soil_column_segment_vjp"
         if (cfg["stepper"], cfg["physics"]) in fv.GROUP_SCHEMES:
-            # rows 3'b and 3'h on the group kernel: its layout and
+            # rows 3'a, 3'b and 3'h on the group kernel: its layout and
             # resources, and its stored carries against the group rollout's
             iters = cfg.get("picard", 1)
             source = VJP_GROUP_SOURCE
             group = vjp_group_row(fs, fv, cuda_build, (carry, table, coords, params, cts), dt,
-                                  cfg["solver"], iters, ptxas_all)
-            phase("group_check", row="3'h" if iters > 1 else "3'b", solver=cfg["solver"],
+                                  cfg["solver"], iters, ptxas_all, stepper=cfg["stepper"])
+            row = ("3'a" if cfg["stepper"] == "heun" else "3'h" if iters > 1 else "3'b")
+            phase("group_check", row=row, stepper=cfg["stepper"], solver=cfg["solver"],
                   picard_iters=iters, cells=GRAD_CELLS, nz=BENCH_NZ, steps=GRAD_INNER, **group,
                   card=card)
         # the gradient: 6 forward and 6 VJP launches
@@ -4864,7 +4915,7 @@ def main():
               plain_cells=GRAD_SCHEME_CHUNK, bound_ms=b[0], bound_by=b[1],
               ops_per_column_step=scheme_vjp_ops(name, BENCH_NZ),
               ptxas=ptxas_all[source].get(entry, {}).get(
-                  "vjp" if group is None else "vjp_" + cfg["solver"]),
+                  "vjp_" + cfg["solver"] if group and cfg["stepper"] == "implicit" else "vjp"),
               f64_cells=GRAD_COMPARE_CELLS, f64_nz=cfg["f64_nz"], f64_rtol=1e-9,
               f64_max_abs_err=f64_err, water_identity_rel_err=ident,
               f32_rel_tol=F32_VJP_REL_TOL, f32_max_abs_err=f32_err,
@@ -5027,12 +5078,12 @@ def main():
         "shape": f"{BENCH_CELLS} x {BENCH_NZ} f32, {COMPARE_STEPS} steps, {v['entry']}"}
         for name, v in new_fwd.items()), {
         "name": "soil_column_segment_vjp", "route": "cuda",
-        "source": "terrarium_tpu_torch/csrc/soil_column_segment_vjp.cu",
+        "source": f"terrarium_tpu_torch/csrc/{VJP_GROUP_SOURCE}.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68",
         "launches": launches["soil_column_segment_vjp"],
         "max_abs_err": max(full_err.values()),
         "ms": seg_ms, "plain_ms": vjp_plain_ms, "bound_ms": vjp_b[0], "bound_by": vjp_b[1],
-        "library_ms": None,
+        "library_ms": None, **row3,
         "shape": f"{GRAD_CELLS} x {GRAD_NZ} f32, {GRAD_INNER} steps; plain_ms at "
                  f"{GRAD_COMPARE_CELLS} columns"}, *({
         "name": f"soil_column_segment_vjp[{name}]", "route": "cuda",

@@ -13,6 +13,8 @@ which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
     python3 rollout_layout_ab.py implicit_time
     python3 rollout_layout_ab.py vjp_check
     python3 rollout_layout_ab.py vjp_time
+    python3 rollout_layout_ab.py explicit_vjp_check
+    python3 rollout_layout_ab.py explicit_vjp_time
     python3 rollout_layout_ab.py land_vjp_check
     python3 rollout_layout_ab.py land_vjp_time
     python3 rollout_layout_ab.py land_check
@@ -52,6 +54,17 @@ and times nothing. ``vjp_time`` times both layouts in turns, then the group
 kernel at each G (4, 8, 16, 32; the recompute check at each, against the
 rollout at its own G) and at each launch bound (1 to 4 resident blocks of
 256 threads an SM), each solver, one and two iterations.
+
+``explicit_vjp_check`` and ``explicit_vjp_time`` do the same for the
+segment VJP of ForwardEuler (row 3, at the gradient's 56,951 x 20 float32,
+one 48-step segment of 300 s, ``chip_smoke.GRAD_*``) and of Heun (row 3'a,
+``grad_heun_n145``'s 56,951 x 30 float32, 48 steps of 60 s), one thread a
+column (``csrc/soil_column_segment_vjp.cu``, built at its first launch)
+against a column on a group of lanes (``csrc/soil_column_group_segment_
+vjp.cu``): the check at float64 on 1,024 columns (row 3 at Nz 20, 3'a at
+Nz 15) and the recompute check at float32 full width; the timing in turns,
+then each row's forward segment at each G and its VJP at each G and launch
+bound, with what a gradient pays at each G (forward plus VJP segment).
 
 ``land_vjp_check`` and ``land_vjp_time`` do the same for the land segment
 VJP of ImplicitEuler (rows 3'e and 3'i: one and two Picard iterations, each
@@ -453,14 +466,14 @@ def vjp_key(fv, layout, solver, iters, extra=()):
 def prebuild(cuda_build, argtypes, keys, dtype=torch.float32, nz=cs.BENCH_NZ):
     """Build the entries ``keys`` (``(source, tags)``, typed ``argtypes``) at
     once, one thread (and so one nvcc slot) each; raises the first build's
-    error."""
+    error; ``keys`` may also hold ``(source, tags, nz)``, at that depth."""
     import threading
 
     errors = []
 
-    def one(source, tags):
+    def one(source, tags, depth=nz):
         try:
-            cuda_build.entry(source, dtype, nz, argtypes, tags=tags)
+            cuda_build.entry(source, dtype, depth, argtypes, tags=tags)
         except Exception as e:  # noqa: BLE001 -- raised below
             errors.append(e)
 
@@ -473,17 +486,18 @@ def prebuild(cuda_build, argtypes, keys, dtype=torch.float32, nz=cs.BENCH_NZ):
         raise errors[0]
 
 
-def vjp_stats(fs, cuda_build, fv, source, tags, solver, dtype=torch.float32, nz=cs.BENCH_NZ):
+def vjp_stats(fs, cuda_build, fv, source, tags, solver, dtype=torch.float32, nz=cs.BENCH_NZ,
+              stepper="implicit"):
     """ptxas's registers and spill stores, the SASS instructions, resident
-    warps an SM and G of the segment-VJP kernel of ``solver`` in the entry of
-    ``source`` and ``tags``."""
+    warps an SM and G of the segment-VJP kernel of ``stepper`` (ImplicitEuler:
+    of ``solver``) in the entry of ``source`` and ``tags``."""
     import pathlib
     import re
 
     entry = cuda_build._entry_name(source, tags, dtype, nz)
     one_thread = source != fv._GROUP_NAME
     ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(
-        "vjp" if one_thread else f"vjp_{solver}", "")
+        f"vjp_{solver}" if not one_thread and stepper == "implicit" else "vjp", "")
     regs = int(ptxas.split()[0]) if ptxas else None
     spills = int(ptxas.split(",")[1].split()[0]) if "," in ptxas else None
     if one_thread:
@@ -493,7 +507,8 @@ def vjp_stats(fs, cuda_build, fv, source, tags, solver, dtype=torch.float32, nz=
             lib = cuda_build._BUILD_DIR / f"{stem}.so"
         cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
         t = "f" if dtype == torch.float32 else "d"
-        want = re.compile(rf"soil_column_segment_vjp_kernelI{t}Li{nz}ELi2ELi\d+E")
+        code = {"euler": 0, "heun": 1, "implicit": 2}[stepper]
+        want = re.compile(rf"soil_column_segment_vjp_kernelI{t}Li{nz}ELi{code}ELi\d+E")
         sass = next((n for name, n in cs.sass_counts(str(cuobjdump), str(lib))
                      if want.search(name)), 0)
         warps, group = (thread_warps(regs) if regs else None), 1
@@ -590,6 +605,169 @@ def vjp_timing(tp, fs, cuda_build, card):
                 recompute_columns_parted=parted, kernels=stats, ms=t,
                 median_ms={n: float(np.median(v)) for n, v in t.items()}, card=card)
             del ops
+
+
+#: rows 3 and 3'a, the segment VJP of ForwardEuler and Heun over heat +
+#: Richards: (stepper, float32 Nz, float64 Nz)
+EXPLICIT_VJP_ROWS = {"3": ("euler", cs.GRAD_NZ, cs.GRAD_NZ),
+                     "3'a": ("heun", cs.BENCH_NZ, cs.GRAD_SCHEMES["grad_heun_n145"]["f64_nz"])}
+
+
+def explicit_vjp_operands(tp, fs, stepper, dtype=torch.float32, cells=cs.GRAD_CELLS, nz=None):
+    """Carry, one segment's table, coordinates, parameters and seeded output
+    cotangents of row 3 (``chip_smoke.grad_sim``: Nz 20, 48 steps of 300 s)
+    or 3'a (``grad_heun_n145``: 48 steps of 60 s at ``nz``, a table of 49
+    rows), and its dt."""
+    if stepper == "euler":
+        return cs.vjp_operands(tp, fs, cs.grad_sim(tp, cells, dtype), seed=11), cs.GRAD_DT
+    sim = cs.scheme_sim(tp, "grad_heun_n145", cells, nz, dtype)
+    carry, table, coords, params, cts, _ = cs.scheme_operands(fs, "grad_heun_n145", sim,
+                                                              seed=11)
+    return (carry, table, coords, params, cts), cs.GRAD_SCHEMES["grad_heun_n145"]["dt"]
+
+
+def explicit_vjp_key(fs, fv, layout, stepper, extra=()):
+    """``(source, tags)`` of the segment-VJP entry of ``stepper`` over heat
+    + Richards in ``layout`` (``"one_thread"``, built on demand, or
+    ``"group"`` with ``extra`` tags: another G or launch bound)."""
+    if layout == "one_thread":
+        return "soil_column_segment_vjp", fs.kernel_tags(stepper, "richards", 1)
+    return fv._GROUP_NAME, fv.vjp_tags(stepper, "richards", "pcr", 1) + tuple(extra)
+
+
+def rollout_segment(fs, fn, operands, dt, stepper):
+    """``(launch, rollout)``: ``launch()`` one forward segment of the group
+    rollout entry ``fn`` on ``operands``' carry and table (Heun: a step
+    fewer than its rows), and ``rollout(carry, rows)``, the same entry over
+    ``rows``, for ``chip_smoke.vjp_recompute_check``."""
+    carry, table, coords, params, _ = operands
+    heun = stepper == "heun"
+
+    def rollout(state, rows):
+        return fs.launch_entry(fn, (1, 1, 0), False, *state, rows, coords, params, dt,
+                               rows.shape[0] - heun)
+    return (lambda: rollout(carry, table)), rollout
+
+
+def explicit_vjp_check(tp, fs, cuda_build, card):
+    """Rows 3 and 3'a: both layouts' builds; the group kernel against the
+    plain version at float64 on 1,024 columns (row 3 at Nz 20, 3'a at Nz 15,
+    rtol 1e-9 as ``chip_smoke.py``) and its stored carries against the group
+    rollout's (the gradient's forward segments, one step a launch) at
+    float32 full width."""
+    from terrarium_tpu_torch.ops import fused_vjp as fv
+
+    prebuild(cuda_build, fv._ARGTYPES, [(*explicit_vjp_key(fs, fv, layout, stepper), nz)
+                                        for layout in ("group", "one_thread")
+                                        for stepper, nz, _ in EXPLICIT_VJP_ROWS.values()])
+    for row, (stepper, nz, nz64) in EXPLICIT_VJP_ROWS.items():
+        stats = {layout: vjp_stats(fs, cuda_build, fv, *explicit_vjp_key(fs, fv, layout,
+                                                                         stepper),
+                                   "pcr", nz=nz, stepper=stepper)
+                 for layout in ("one_thread", "group")}
+        out(check="explicit_vjp_build", row=row, stepper=stepper, nz=nz, **stats, card=card)
+        ops, dt = explicit_vjp_operands(tp, fs, stepper, torch.float64, VJP_F64_CELLS, nz64)
+        kw = dict(stepper=stepper, physics="richards")
+        got = fv.soil_column_segment_vjp(*ops[0], ops[1], *ops[2], ops[3], dt, *ops[4], **kw)
+        want = fv.soil_column_segment_vjp_plain(*ops[0], ops[1], *ops[2], ops[3], dt, *ops[4],
+                                                **kw)
+        errs = {}
+        for vname, a, b in zip(("U", "sat", "S", "K_sat", "sk_mineral"), got, want):
+            scale = float(b.abs().max())
+            errs[vname] = float((a - b).abs().max())
+            if not bool(torch.isfinite(a).all()) or bool(
+                    ((a - b).abs() > 1e-9 * b.abs() + 1e-12 * scale).any()):
+                raise AssertionError(f"{row} group VJP vs plain {vname} (f64): {errs[vname]}")
+        del ops, got, want
+        ops, dt = explicit_vjp_operands(tp, fs, stepper, nz=nz)
+        steps, parted = cs.vjp_recompute_check(fs, fv, cuda_build, ops, dt, "pcr", 1,
+                                               stepper=stepper)
+        if parted:
+            raise AssertionError(f"{row}: {parted} columns' stored carries part")
+        out(check="explicit_vjp_teacher", row=row, stepper=stepper,
+            f64=[VJP_F64_CELLS, nz64, steps], f64_rtol=1e-9, f64_max_abs_err=errs,
+            f32=[cs.GRAD_CELLS, nz, steps], recompute_steps=steps,
+            recompute_columns_parted=parted, card=card)
+        del ops
+
+
+def explicit_vjp_timing(tp, fs, cuda_build, card):
+    """Rows 3 and 3'a: both layouts in turns at their gradient's shape
+    (56,951 columns f32, one 48-step segment: row 3 Nz 20 at dt 300 s, 3'a
+    Nz 30 at dt 60 s); then, each row, the group rollout's forward segment
+    at each G (4, 8, 16, 32) in turns, and the group VJP at each G and
+    launch bound (1 to 4 resident blocks of 256 threads an SM) in turns,
+    each with its recompute check against the rollout at its own G; and
+    what a gradient pays at each G: the forward segment plus the fastest
+    launch bound's VJP segment."""
+    from terrarium_tpu_torch.ops import fused_vjp as fv
+
+    f32 = torch.float32
+    variants = {f"g{g}_mb{b}": (f"g{g}", f"mb{b}") for g in GROUP_SIZES for b in MIN_BLOCKS}
+    keys = []
+    for stepper, nz, _ in EXPLICIT_VJP_ROWS.values():
+        keys += [(*explicit_vjp_key(fs, fv, layout, stepper), nz)
+                 for layout in ("group", "one_thread")]
+        keys += [(*explicit_vjp_key(fs, fv, "group", stepper, extra), nz)
+                 for extra in variants.values()]
+    prebuild(cuda_build, fv._ARGTYPES, keys)
+    prebuild(cuda_build, fs._GROUP_ARGTYPES,
+             [(cs.GROUP_SOURCE, tags_of(fs, stepper) + (f"g{g}",), nz)
+              for stepper, nz, _ in EXPLICIT_VJP_ROWS.values() for g in GROUP_SIZES])
+    for row, (stepper, nz, _) in EXPLICIT_VJP_ROWS.items():
+        ops, dt = explicit_vjp_operands(tp, fs, stepper, nz=nz)
+        fns, stats = {}, {}
+        for layout in ("one_thread", "group"):
+            source, tags = explicit_vjp_key(fs, fv, layout, stepper)
+            fn = cuda_build.entry(source, f32, nz, fv._ARGTYPES, tags=tags)
+            stats[layout] = vjp_stats(fs, cuda_build, fv, source, tags, "pcr", nz=nz,
+                                      stepper=stepper)
+            fns[layout] = cs.vjp_launcher(fs, fv, fn, None if layout == "one_thread"
+                                          else stats[layout]["group"], ops, dt, "pcr", 1,
+                                          stepper)[0]
+        t = vjp_turns(fns)
+        out(time=row, stepper=stepper, cells=cs.GRAD_CELLS, nz=nz, dt=dt,
+            steps=cs.GRAD_INNER, ms=t, median_ms={n: float(np.median(v)) for n, v in t.items()},
+            kernels=stats, card=card)
+        del fns
+        # the forward segment at each G
+        fwd, rollouts, fstats = {}, {}, {}
+        for g in GROUP_SIZES:
+            fn = group_entry(cuda_build, fs, stepper, f32, nz, g)
+            fwd[f"g{g}"], rollouts[g] = rollout_segment(fs, fn, ops, dt, stepper)
+            fstats[f"g{g}"] = kernel_stats(cuda_build, fs, cs.GROUP_SOURCE, cuda_build._entry_name(
+                cs.GROUP_SOURCE, tags_of(fs, stepper) + (f"g{g}",), f32, nz), "table")
+        tf = vjp_turns(fwd)
+        fwd_med = {n: float(np.median(v)) for n, v in tf.items()}
+        out(time="explicit_forward_group_size", row=row, stepper=stepper, cells=cs.GRAD_CELLS,
+            nz=nz, dt=dt, steps=cs.GRAD_INNER,
+            default_group=fs.group_occupancy(stepper, f32, nz, False)[1], kernels=fstats,
+            ms=tf, median_ms=fwd_med, card=card)
+        # the VJP at each G and launch bound
+        fns, vstats, parted = {}, {}, {}
+        for vname, extra in variants.items():
+            source, tags = explicit_vjp_key(fs, fv, "group", stepper, extra)
+            fn = cuda_build.entry(source, f32, nz, fv._ARGTYPES, tags=tags)
+            vstats[vname] = vjp_stats(fs, cuda_build, fv, source, tags, "pcr", nz=nz,
+                                      stepper=stepper)
+            fns[vname] = cs.vjp_launcher(fs, fv, fn, vstats[vname]["group"], ops, dt, "pcr", 1,
+                                         stepper)[0]
+            parted[vname] = cs.vjp_recompute_check(
+                fs, fv, cuda_build, ops, dt, "pcr", 1, tags=tags, stepper=stepper,
+                rollout=rollouts[vstats[vname]["group"]])[1]
+        t = vjp_turns(fns)
+        med = {n: float(np.median(v)) for n, v in t.items()}
+        # what a gradient segment pays at each G: the forward plus the
+        # fastest launch bound's VJP
+        best = {g: min(MIN_BLOCKS, key=lambda b, g=g: med[f"g{g}_mb{b}"]) for g in GROUP_SIZES}
+        pays = {f"g{g}": fwd_med[f"g{g}"] + med[f"g{g}_mb{best[g]}"] for g in GROUP_SIZES}
+        out(time="explicit_vjp_variants", row=row, stepper=stepper, cells=cs.GRAD_CELLS,
+            nz=nz, dt=dt, steps=cs.GRAD_INNER,
+            default_group=fv.vjp_group(f32, nz, stepper=stepper)[1],
+            recompute_columns_parted=parted, kernels=vstats, ms=t, median_ms=med,
+            best_min_blocks={f"g{g}": b for g, b in best.items()},
+            forward_plus_vjp_ms=pays, choice=min(pays, key=pays.get), card=card)
+        del ops, fns
 
 
 #: rows 3'e and 3'i, the land ImplicitEuler segment VJP: (solver, Picard
@@ -970,7 +1148,8 @@ def main():
 
     {"check": check, "time": timing, "implicit_check": implicit_check,
      "implicit_time": implicit_timing, "vjp_check": vjp_check,
-     "vjp_time": vjp_timing, "land_vjp_check": land_vjp_check,
+     "vjp_time": vjp_timing, "explicit_vjp_check": explicit_vjp_check,
+     "explicit_vjp_time": explicit_vjp_timing, "land_vjp_check": land_vjp_check,
      "land_vjp_time": land_vjp_timing, "land_check": land_check,
      "land_time": land_timing}[mode](tp, fs, cuda_build, card)
 

@@ -590,7 +590,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         // ---- Richards flow: the top level's ET sink, then the interior faces
         gy[SO_QH] = gy[SO_QH] - ((top_of(gfs) / c.por) * lc.water_flux_scale) / dz_top;
         T gKf[N][L], gpsi[N][L], gKf_top;
-        this->darcy_adjoint(gfs, psi, FK, Kc, x.gKeff, gKf, gpsi, gKf_top);
+        this->darcy_adjoint(gfs, psi, FK, Kc, x, gKf, gpsi, gKf_top);
 
         // ---- the surface block
         T gx[SI_N];
@@ -609,7 +609,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         // ---- face K from centre K; the heat flux of the interior faces
         T gKc[N][L], gT[N][L], gkap[N][L];
         this->centre_K_adjoint(Kc, gKf, gKf_top, gx[SI_KC], gKc);
-        this->template heat_flux_adjoint<false>(gfU, Tk, kap, T(0), x.gkap, gx[SI_TG], gT, gkap);
+        this->template heat_flux_adjoint<false>(gfU, Tk, kap, T(0), x, gx[SI_TG], gT, gkap);
 
         // ---- level by level: head, linear centre K, PAW, top water, closure
         const T gbeta = gx[SI_BETA];

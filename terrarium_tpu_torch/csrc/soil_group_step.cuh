@@ -38,13 +38,14 @@
 //   receives; the back substitution hands x down the same way. One lane of
 //   a group works at a time, so Thomas favours few lanes of many levels.
 //
-// The adjoint of ImplicitEuler (segment_vjp, the group segment-VJP
-// kernel's column code) undoes each step on the same group: each level
+// The adjoints of the three steps (segment_vjp, the group segment-VJP
+// kernel's column code) undo each step on the same group: each level
 // gathers, across lanes, the faces' shares of the cotangents that
 // soil_step.cuh's one-thread adjoint scatters, in that adjoint's order;
 // the reverse sweeps carry their cotangent to the lanes that need it by a
 // ballot and a shuffle; each solve's adjoint solves the transposed rows
-// with the same solver.
+// with the same solver; ForwardEuler and Heun take the closure's adjoint
+// alone, without the implicit terms' cotangents.
 //
 // The group's exchange is a Lanes type: WarpLanes, one thread a lane and
 // the warp's shuffles and ballots (device), or HostLanes, the G lanes held
@@ -83,6 +84,21 @@ __host__ __device__
 #endif
 constexpr int implicit_group_lanes(int nz, int solver) {
     return solver == SOLVER_THOMAS ? (nz > 20 ? 8 : 4) : group_lanes(nz);
+}
+
+// The group size of the segment VJP of STEPPER (and SOLVER) for a column
+// of nz levels: the rollout's (group_lanes, implicit_group_lanes), so
+// that the gradient's forward segments and the VJP's recompute run one
+// code at one G. A gradient segment's forward plus VJP, measured at each
+// G on an H100 80GB HBM3 at 700 W (rollout_layout_ab.py
+// explicit_vjp_time, PERF.md section 6), keeps the rollout's G for
+// ForwardEuler at Nz 20 (G 4 11.07 ms, G 8 11.65, G 32 13.08) and Heun at
+// Nz 30 (G 32 31.35 ms, G 16 32.14, G 8 36.62)
+#if defined(__CUDACC__)
+__host__ __device__
+#endif
+constexpr int vjp_group_lanes(int nz, int stepper, int solver) {
+    return stepper == STEPPER_IMPLICIT ? implicit_group_lanes(nz, solver) : group_lanes(nz);
 }
 
 #if defined(__CUDACC__)
@@ -788,12 +804,13 @@ struct GroupColumn {
     }
 
     // ---------------------------------------------------------------------
-    // adjoint: the segment VJP of ImplicitEuler (heat + Richards, the
-    // Dirichlet top, any Picard count) on the group
+    // adjoint: the segment VJP of ForwardEuler, Heun and ImplicitEuler (heat
+    // + Richards, the Dirichlet top, any Picard count) on the group
     // ---------------------------------------------------------------------
     //
-    // soil_step.cuh's adjoint (rhs_adjoint, solve_adjoint,
-    // diffusion_rows_adjoint, picard_iter_adjoint, picard_step_adjoint) with
+    // soil_step.cuh's adjoint (rhs_adjoint, step_adjoint, heun_step_adjoint,
+    // solve_adjoint, diffusion_rows_adjoint, picard_iter_adjoint,
+    // picard_step_adjoint) with
     // each value formed by the same operations in the same order. Where the
     // one-thread loop scatters a face's (or a row's) cotangent onto the
     // levels beside it, each level gathers the faces' shares, across lanes
@@ -809,7 +826,15 @@ struct GroupColumn {
     // centre thermal conductivity and heat capacity of each level and of
     // the Darcy conductivity of the face below it
     struct TermCotangents {
+        static constexpr bool on = true;
         T gkap[N][L] = {}, gC[N][L] = {}, gKeff[N][L] = {};
+    };
+
+    // soil::NoTerms on the group: what ForwardEuler and Heun read of the
+    // closure besides the closed column and the tendencies, nothing, so
+    // their rhs_adjoint neither holds nor adds a terms' cotangent
+    struct NoTermCotangents {
+        static constexpr bool on = false;
     };
 
     // the face K of the face below each level from the centre K (face_K:
@@ -830,14 +855,15 @@ struct GroupColumn {
     // The Darcy flux of the interior faces f = 1 ... NZ - 1 in reverse,
     // from the water tendencies' cotangents gfs (the tendency of level k
     // (-((qw[k+1] - qw[k]) / dz[k])) / por, the top face carrying no flux)
-    // and those of the faces' Darcy conductivities gKeff (the implicit
-    // rows'): face f, on the slot of level f, forms its shares of the face
+    // and, where X::on, those of the faces' Darcy conductivities x.gKeff
+    // (the implicit rows'): face f, on the slot of level f, forms its shares of the face
     // K's cotangents and of the heads'; each face K then gathers its
     // shares from faces f - 1, f and f + 1 in turn into gKf (the face below
     // each level; gKf_top the surface face's, from face NZ - 1 alone), each
     // head from faces k and k + 1 into gpsi.
+    template <class X>
     SOIL_FN void darcy_adjoint(const T (&gfs)[N][L], const T (&psi)[N][L], const T (&FK)[N][L],
-                               const T (&Kc)[N][L], const T (&gKeff)[N][L], T (&gKf)[N][L],
+                               const T (&Kc)[N][L], const X& x, T (&gKf)[N][L],
                                T (&gpsi)[N][L], T& gKf_top) const {
         // face f's shares of gKf[f - 1], gKf[f], gKf[f + 1] (kl, km, kh)
         // and of the heads (pg, + to psi[f], - to psi[f - 1])
@@ -861,7 +887,7 @@ struct GroupColumn {
                 const T K_hi = k == NZ - 1 ? Kc[i][l] : FK_hi;
                 const T K_eff = grad < T(0) ? vmin(K_lo, K_f) : vmin(K_f, K_hi);
                 T gK = -gqw * grad;
-                gK = gK + gKeff[i][l];
+                if constexpr (X::on) gK = gK + x.gKeff[i][l];
                 const T ggrad = -gqw * K_eff;
                 if (grad < T(0)) min_adjoint(K_lo, K_f, gK, kl[i][l], km[i][l]);
                 else min_adjoint(K_f, K_hi, gK, km[i][l], kh[i][l]);
@@ -940,11 +966,11 @@ struct GroupColumn {
     // Each level gathers face k's share, then face k + 1's (then the top
     // face's): gT from `top` on the top level (what reads its temperature
     // besides the flux: the land's ground temperature, 0 for the soil) and 0
-    // below it; gkap from 0, then kap_x (the implicit rows' cotangent of the
-    // level's kappa) added.
-    template <bool DIRICHLET>
+    // below it; gkap from 0, then, where X::on, x.gkap (the implicit rows'
+    // cotangent of the level's kappa) added.
+    template <bool DIRICHLET, class X>
     SOIL_FN void heat_flux_adjoint(const T (&gfU)[N][L], const T (&Tk)[N][L],
-                                   const T (&kap)[N][L], const T vtop, const T (&kap_x)[N][L],
+                                   const T (&kap)[N][L], const T vtop, const X& x,
                                    const T top, T (&gT)[N][L], T (&gkap)[N][L]) const {
         T hk[N][L], qk[N][L], top_gkap = T(0), top_gT = T(0);
 #pragma unroll
@@ -1004,7 +1030,8 @@ struct GroupColumn {
                     gk += top_gkap;
                     gt -= top_gT;
                 }
-                gkap[i][l] = gk + kap_x[i][l];
+                if constexpr (X::on) gkap[i][l] = gk + x.gkap[i][l];
+                else gkap[i][l] = gk;
                 gT[i][l] = gt;
             }
         }
@@ -1094,8 +1121,9 @@ struct GroupColumn {
         }
     }
 
-    // soil::rhs_adjoint (heat + Richards, the implicit terms' cotangents x)
-    // on the group: on entry (gU, gs, gS) are the cotangents of what the
+    // soil::rhs_adjoint (heat + Richards; the implicit terms' cotangents x,
+    // TermCotangents, or none, NoTermCotangents) on the group: on entry
+    // (gU, gs, gS) are the cotangents of what the
     // caller reads of the closed column, (gfU, gfs, gfS) those of the
     // tendencies; on return (gU, gs, gS) are those of the input column (U,
     // sat, S). Each lane's parameter cotangents accumulate into gKsat[i]
@@ -1103,9 +1131,10 @@ struct GroupColumn {
     // sweeps' predicates as bits a lane, then the pieces are undone in
     // reverse: pool, Darcy flux, face K, heat flux, head and closure, the
     // down and up sweeps.
+    template <class X>
     SOIL_FN void rhs_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S, const T vtop,
                              T (&gU)[N][L], T (&gs)[N][L], T& gS, const T (&gfU)[N][L],
-                             const T (&gfs)[N][L], const T gfS, const TermCotangents& x,
+                             const T (&gfs)[N][L], const T gfS, const X& x,
                              T (&gKsat)[N], T (&gskm)[N])
     {
         // ---- recompute: the sweeps with their predicates, the closure,
@@ -1137,9 +1166,9 @@ struct GroupColumn {
 
         // ---- Darcy flux, face K, heat flux
         T gKf[N][L], gpsi[N][L], gKf_top, gKc[N][L], gT[N][L], gkap[N][L];
-        darcy_adjoint(gfs, psi, FK, Kc, x.gKeff, gKf, gpsi, gKf_top);
+        darcy_adjoint(gfs, psi, FK, Kc, x, gKf, gpsi, gKf_top);
         centre_K_adjoint(Kc, gKf, gKf_top, T(0), gKc);
-        heat_flux_adjoint<true>(gfU, Tk, kap, vtop, x.gkap, T(0), gT, gkap);
+        heat_flux_adjoint<true>(gfU, Tk, kap, vtop, x, T(0), gT, gkap);
 
         // ---- pressure head and closure, slot by slot
 #pragma unroll
@@ -1151,9 +1180,11 @@ struct GroupColumn {
                 vg_head_adjoint(s[i][l], wt, zc[i][l], gpsi[i][l], gsk);
                 const Level<T, true> v(s[i][l], U[i][l], c, P);
                 T gUk = gU[i][l];  // what the caller reads of U
-                level_adjoint<T, true, true>(v, s[i][l], U[i][l], gT[i][l], gkap[i][l],
-                                             gKc[i][l], x.gC[i][l], c, P, gsk, gUk, gKsat[i],
-                                             gskm[i]);
+                T gCx = T(0);  // the implicit rows' cotangent of the heat capacity
+                if constexpr (X::on) gCx = x.gC[i][l];
+                level_adjoint<T, true, X::on>(v, s[i][l], U[i][l], gT[i][l], gkap[i][l],
+                                              gKc[i][l], gCx, c, P, gsk, gUk, gKsat[i],
+                                              gskm[i]);
                 gs[i][l] = gsk;
                 gU[i][l] = gUk;
             }
@@ -1465,6 +1496,107 @@ struct GroupColumn {
         }
     }
 
+    // soil::step_adjoint (heat + Richards) on the group: cotangents through
+    // one step (ForwardEuler, x + f dt) from its input (U, sat, S) at top
+    // temperature vtop; on entry (gU, gs, gS) are those of the step's
+    // output, on return those of its input. The tendencies' cotangents are
+    // g dt; one rhs_adjoint without terms recomputes the closure and undoes
+    // it.
+    SOIL_FN void step_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S, const T vtop,
+                              T (&gU)[N][L], T (&gs)[N][L], T& gS, T (&gKsat)[N], T (&gskm)[N],
+                              const T dt) {
+        T gfU[N][L], gfs[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                gfU[i][l] = gU[i][l] * dt;
+                gfs[i][l] = gs[i][l] * dt;
+            }
+        }
+        const T gfS = gS * dt;
+        rhs_adjoint(U, sat, S, vtop, gU, gs, gS, gfU, gfs, gfS, NoTermCotangents{}, gKsat, gskm);
+    }
+
+    // soil::heun_step_adjoint (heat + Richards) on the group, as
+    // step_adjoint: the closure and f_n of x_n at v0 and the stage y = x_n +
+    // f_n dt are recomputed by rhs, heun_step's own code; the corrector's
+    // mean gives each tendency 0.5 (g dt); the stage's closure at v1 is
+    // read only through its tendencies; y passes its cotangent to the
+    // closed x_n and, times dt, to f_n. The two rhs_adjoint passes (the
+    // stage at v1, then x_n at v0) run one body in a loop that is not
+    // unrolled; each value is formed by the one-thread adjoint's operations
+    // in its order.
+    SOIL_FN void heun_step_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const T S,
+                                   const T v0, const T v1, T (&gU)[N][L], T (&gs)[N][L], T& gS,
+                                   T (&gKsat)[N], T (&gskm)[N], const T dt) {
+        // pass 0 takes the stage (xU, xs, xS) = y at v1, with no direct
+        // cotangents; pass 1 takes x_n at v0 with (gU, gs, gS)
+        T xU[N][L], xs[N][L], xS = S;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) xs[i][l] = sat[i][l];
+        }
+        {
+            Tendencies f;
+            rhs(U, xs, xS, v0, f);
+            xS = xS + f.S * dt;
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    xU[i][l] = U[i][l] + f.U[i][l] * dt;
+                    xs[i][l] = xs[i][l] + f.sat[i][l] * dt;
+                }
+            }
+        }
+        T gfU[N][L], gfs[N][L], gxU[N][L], gxs[N][L];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                gfU[i][l] = T(0.5) * (gU[i][l] * dt);
+                gfs[i][l] = T(0.5) * (gs[i][l] * dt);
+                gxU[i][l] = T(0);
+                gxs[i][l] = T(0);
+            }
+        }
+        T gfS = T(0.5) * (gS * dt), gxS = T(0), v = v1;
+#pragma unroll 1
+        for (int pass = 0; pass < 2; ++pass) {
+            rhs_adjoint(xU, xs, xS, v, gxU, gxs, gxS, gfU, gfs, gfS, NoTermCotangents{}, gKsat,
+                        gskm);
+            if (pass == 0) {  // y = x_n (closed) + f_n dt
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        gfU[i][l] = gfU[i][l] + gxU[i][l] * dt;
+                        gfs[i][l] = gfs[i][l] + gxs[i][l] * dt;
+                        gxU[i][l] = gU[i][l] + gxU[i][l];
+                        gxs[i][l] = gs[i][l] + gxs[i][l];
+                        xU[i][l] = U[i][l];
+                        xs[i][l] = sat[i][l];
+                    }
+                }
+                gfS = gfS + gxS * dt;
+                gxS = gS + gxS;
+                xS = S;
+                v = v0;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                gU[i][l] = gxU[i][l];
+                gs[i][l] = gxs[i][l];
+            }
+        }
+        gS = gxS;
+    }
+
     // the sum of v over the group's lanes by a fixed tree (lane j adds lane
     // j + d's, d = G/2, ..., 1), lane 0's, on every lane
     SOIL_FN T group_sum(const T (&v)[N]) const {
@@ -1482,18 +1614,21 @@ struct GroupColumn {
         return lanes.from(0, [&](int j) { return a[j]; });
     }
 
-    // soil::segment_vjp_column of picard_step (SOLVER, `iters` Picard
-    // iterations) on the group: `steps` steps from the carry (U, sat, S),
-    // the top temperature of step s top[s * step_stride], each step's input
+    // soil::segment_vjp_column of STEPPER (heat + Richards: STEPPER_EULER
+    // step, STEPPER_HEUN heun_step, STEPPER_IMPLICIT picard_step with
+    // SOLVER and `iters` Picard iterations) on the group: `steps` steps
+    // from the carry (U, sat, S), the top temperature of step s top[s *
+    // step_stride] (Heun's stage also reads row s + 1), each step's input
     // carry stored to `scratch` where `store` (2 NZ + 1 values a column and
     // step, laid out [step][column][row] with the rows U[0 .. NZ), sat[0 ..
     // NZ), S, so that a group's stores are contiguous); then the reverse
-    // sweep of picard_step_adjoint from the output cotangents (gU, gs, gS),
-    // which become the input carry's. A group that does not store (the
-    // groups beyond the last column) recomputes from its own carry, and its
-    // results are not used. Each lane's parameter cotangents accumulate into
-    // gKsat[i] and gskm[i].
-    template <int SOLVER>
+    // sweep of the step's adjoint from the output cotangents (gU, gs, gS),
+    // which become the input carry's. The forward is the group rollout's
+    // own step, so at the rollout's G its carries are the rollout's bit for
+    // bit. A group that does not store (the groups beyond the last column)
+    // recomputes from its own carry, and its results are not used. Each
+    // lane's parameter cotangents accumulate into gKsat[i] and gskm[i].
+    template <int STEPPER, int SOLVER = SOLVER_PCR>
     SOIL_FN void segment_vjp(T (&U)[N][L], T (&sat)[N][L], T& S, T (&gU)[N][L], T (&gs)[N][L],
                              T& gS, T* scratch, const long long col, const long long cells,
                              const bool store, const T* top, const long long step_stride,
@@ -1516,7 +1651,13 @@ struct GroupColumn {
                     if (lanes.lane(i) == 0) rec[2 * NZ] = S;
                 }
             }
-            picard_step<SOLVER>(U, sat, S, top[s * step_stride], dt, inv_dt, iters);
+            const T vtop = top[s * step_stride];
+            if constexpr (STEPPER == STEPPER_HEUN)
+                heun_step(U, sat, S, vtop, top[(s + 1) * step_stride], dt);
+            else if constexpr (STEPPER == STEPPER_IMPLICIT)
+                picard_step<SOLVER>(U, sat, S, vtop, dt, inv_dt, iters);
+            else
+                step(U, sat, S, vtop, dt);
         }
         for (int s = steps - 1; s >= 0; --s) {
             const T* rec = scratch + ((long long)s * cells + col) * ROWS;
@@ -1534,8 +1675,15 @@ struct GroupColumn {
                 }
                 S = rec[2 * NZ];
             }
-            picard_step_adjoint<SOLVER>(U, sat, S, top[s * step_stride], gU, gs, gS, gKsat,
-                                        gskm, dt, inv_dt, iters);
+            const T vtop = top[s * step_stride];
+            if constexpr (STEPPER == STEPPER_HEUN)
+                heun_step_adjoint(U, sat, S, vtop, top[(s + 1) * step_stride], gU, gs, gS, gKsat,
+                                  gskm, dt);
+            else if constexpr (STEPPER == STEPPER_IMPLICIT)
+                picard_step_adjoint<SOLVER>(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, dt, inv_dt,
+                                            iters);
+            else
+                step_adjoint(U, sat, S, vtop, gU, gs, gS, gKsat, gskm, dt);
         }
     }
 };

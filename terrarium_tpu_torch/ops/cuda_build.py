@@ -81,27 +81,28 @@ INSTANTIATIONS = {
         (("heun", "heat"), _F32, 30), (("heun", "heat"), _F64, 16), (("euler", "heat"), _F64, 30),
         (("euler", "heat"), _F32, 30),
     ],
-    # ForwardEuler over heat + Richards (no tags) at the gradient grids; each
-    # other scheme at its forward kernel's sizes: Heun f64 Nz 15 and f32 Nz
-    # 30, heat-only ForwardEuler Nz 30, heat-only Heun f64 Nz 16 and f32 Nz
-    # 30, the heat-only Picard entries (ImplicitEuler's heat + Richards
-    # entries stay buildable on demand, to time the one-thread layout
-    # against the group's)
+    # the heat-only model, a column a thread, at its forward kernel's sizes:
+    # ForwardEuler Nz 30, Heun f64 Nz 16 and f32 Nz 30, the Picard entries
+    # (the heat + Richards entries of every stepper stay buildable on
+    # demand, to time the one-thread layout against the group's)
     "soil_column_segment_vjp": [
-        (("heun", "richards"), _F32, 30), ((), _F64, 30), (("heun", "richards"), _F64, 15),
-        ((), _F32, 30), ((), _F64, 20), ((), _F32, 20),
         (("implicit", "picard", "heat"), _F32, 30), (("implicit", "picard", "heat"), _F64, 16),
         (("heun", "heat"), _F32, 30), (("euler", "heat"), _F64, 30),
         (("euler", "heat"), _F32, 30), (("heun", "heat"), _F64, 16),
     ],
-    # ImplicitEuler over heat + Richards, a column on a group of lanes: each
-    # solver and the Picard entries (which hold a kernel of each solver) at
-    # the gradient's float32 Nz 30 and the float64 checks' Nz 16
+    # heat + Richards, a column on a group of lanes: ImplicitEuler (each
+    # solver and the Picard entries, which hold a kernel of each solver) at
+    # the gradient's float32 Nz 30 and the float64 checks' Nz 16;
+    # ForwardEuler at the gradient grids (Nz 20 and 30), Heun at its
+    # forward kernel's sizes (f32 Nz 30, the float64 checks' Nz 15)
     "soil_column_group_segment_vjp": [
+        (("heun", "richards"), _F32, 30), (("heun", "richards"), _F64, 15),
         (("implicit", "picard", "richards"), _F64, 16),
         (("implicit", "picard", "richards"), _F32, 30),
+        (("euler", "richards"), _F64, 30), (("euler", "richards"), _F32, 30),
         (("implicit", "thomas", "richards"), _F64, 16),
         (("implicit", "pcr", "richards"), _F64, 16),
+        (("euler", "richards"), _F64, 20), (("euler", "richards"), _F32, 20),
         (("implicit", "thomas", "richards"), _F32, 30),
         (("implicit", "pcr", "richards"), _F32, 30),
     ],

@@ -17,13 +17,14 @@ reads: the saturation's cotangent gathers every step's, the pool has none
 ``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp``, which is generic over
 the stepper. The clock is not differentiated.
 
-The CUDA sources: ImplicitEuler over heat + Richards (``GROUP_SCHEMES``,
-either solver, any Picard count) runs each column on a group of lanes,
-``csrc/soil_column_group_segment_vjp.cu`` (``soil::GroupColumn::
-segment_vjp`` in ``csrc/soil_group_step.cuh``, the forward and its
-recompute the group rollout's ``picard_step``); every other scheme one
-thread a column, ``csrc/soil_column_segment_vjp.cu``, with the steps and
-their hand-derived adjoints in ``csrc/soil_step.cuh``. On CPU tensors the
+The CUDA sources: ForwardEuler, Heun and ImplicitEuler (either solver,
+any Picard count) over heat + Richards (``GROUP_SCHEMES``) run each column
+on a group of lanes, ``csrc/soil_column_group_segment_vjp.cu``
+(``soil::GroupColumn::segment_vjp`` in ``csrc/soil_group_step.cuh``, the
+forward and its recompute the group rollout's own ``step``, ``heun_step``
+or ``picard_step``); the heat-only schemes one thread a column,
+``csrc/soil_column_segment_vjp.cu``, with the steps and their hand-derived
+adjoints in ``csrc/soil_step.cuh``. On CPU tensors the
 wrapper runs :func:`soil_column_segment_vjp_plain`, torch autograd through
 the plain rollout; on CUDA tensors it launches the scheme's kernel or
 raises. Each launch adds one to ``soil_column_segment_vjp.launches``.
@@ -41,7 +42,7 @@ from .fused_step import SOLVER_CODES, ColumnParams, SeriesBC, _check_inputs, _CP
 from .tridiag import SOLVERS
 
 __all__ = ["soil_column_segment_vjp", "soil_column_segment_vjp_plain", "VJP_SCHEMES",
-           "GROUP_SCHEMES", "vjp_tags", "vjp_group"]
+           "GROUP_SCHEMES", "vjp_tags", "vjp_source", "vjp_group"]
 
 _NAME = "soil_column_segment_vjp"  # csrc/soil_column_segment_vjp.cu
 _THREADS = 64  # threads a block; the kernel writes one partial a block
@@ -52,8 +53,8 @@ _GROUP_THREADS = 256  # threads a block of the group kernel: 256 / G columns
 VJP_SCHEMES = (("euler", "richards"), ("heun", "richards"), ("implicit", "richards"),
                ("euler", "heat"), ("heun", "heat"), ("implicit", "heat"))
 #: the (stepper, physics) whose segment VJP runs each column on a group of
-#: lanes (every Picard count, either solver)
-GROUP_SCHEMES = (("implicit", "richards"),)
+#: lanes (ImplicitEuler: every Picard count, either solver)
+GROUP_SCHEMES = (("euler", "richards"), ("heun", "richards"), ("implicit", "richards"))
 
 
 def _check_scheme(stepper: str, physics: str, solver: str, picard_iters: int = 1) -> None:
@@ -63,14 +64,24 @@ def _check_scheme(stepper: str, physics: str, solver: str, picard_iters: int = 1
                          f"{sorted(SOLVERS)}, not {(stepper, physics)} with {solver!r}")
     if int(picard_iters) != picard_iters or picard_iters < 1:
         raise ValueError(f"picard_iters must be a positive integer, got {picard_iters!r}")
+    if stepper != "implicit" and picard_iters != 1:
+        raise ValueError(f"Picard iterations are ImplicitEuler's; {stepper} takes 1, "
+                         f"not {picard_iters!r}")
 
 
 def vjp_tags(stepper: str, physics: str, solver: str, picard_iters: int) -> tuple:
-    """The build tags of the segment-VJP instantiation of a scheme (none for
-    ForwardEuler over heat + Richards; :func:`~terrarium_tpu_torch.ops.
-    fused_step.kernel_tags`)."""
+    """The build tags of the segment-VJP instantiation of a scheme
+    (:func:`~terrarium_tpu_torch.ops.fused_step.kernel_tags`; every entry
+    names its stepper, ForwardEuler's ``("euler", "richards")`` too)."""
     _check_scheme(stepper, physics, solver, picard_iters)
-    return kernel_tags(stepper, physics, int(picard_iters), solver=solver)
+    return kernel_tags(stepper, physics, int(picard_iters), plain_euler=(), solver=solver)
+
+
+def vjp_source(stepper: str, physics: str) -> str:
+    """The CUDA source whose kernel runs the segment VJP of a scheme: the
+    group source for ``GROUP_SCHEMES``, the one-thread source for the
+    heat-only model."""
+    return _GROUP_NAME if (stepper, physics) in GROUP_SCHEMES else _NAME
 
 
 def soil_column_segment_vjp_plain(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
@@ -108,14 +119,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def vjp_group(dtype: torch.dtype, nz: int, solver: str, picard_iters: int) -> tuple:
+def vjp_group(dtype: torch.dtype, nz: int, solver: str = "pcr", picard_iters: int = 1,
+              stepper: str = "implicit") -> tuple:
     """``(resident warps an SM, G)`` of the group segment-VJP kernel of
-    ImplicitEuler over heat + Richards with ``solver`` in the entry of
-    ``picard_iters`` at ``dtype`` and depth ``nz``
+    ``stepper`` over heat + Richards (ImplicitEuler: with ``solver`` in the
+    entry of ``picard_iters``) at ``dtype`` and depth ``nz``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at first
     use)."""
     fn = cuda_build.entry(_GROUP_NAME, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-                          tags=vjp_tags("implicit", "richards", solver, picard_iters),
+                          tags=vjp_tags(stepper, "richards", solver, picard_iters),
                           suffix="_warps")
     group = ctypes.c_int(0)
     warps = fn(SOLVER_CODES[solver], ctypes.byref(group))
@@ -163,13 +175,13 @@ def soil_column_segment_vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces,
         raise ValueError("the segment VJP kernel takes contiguous tensors")
     tags = vjp_tags(stepper, physics, solver, picard_iters)
     rows = nz if heat else 2 * nz + 1
-    if (stepper, physics) in GROUP_SCHEMES:
-        fn = cuda_build.entry(_GROUP_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
-        group = vjp_group(U.dtype, nz, solver, picard_iters)[1]
+    source = vjp_source(stepper, physics)
+    fn = cuda_build.entry(source, U.dtype, nz, _ARGTYPES, tags=tags)
+    if source == _GROUP_NAME:
+        group = vjp_group(U.dtype, nz, solver, picard_iters, stepper)[1]
         blocks = -(-cells // (_GROUP_THREADS // group))
         scratch = torch.empty(steps, cells, rows, dtype=U.dtype, device=U.device)
     else:
-        fn = cuda_build.entry(_NAME, U.dtype, nz, _ARGTYPES, tags=tags)
         blocks = -(-cells // _THREADS)
         scratch = torch.empty(steps, rows, cells, dtype=U.dtype, device=U.device)
     gU0, gsat0 = torch.empty_like(U), torch.empty_like(sat)

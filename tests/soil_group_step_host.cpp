@@ -6,10 +6,11 @@
 // replaces on the card (soil::rollout_column of soil_step.cuh), each run
 // over every column behind a plain C interface. Built with
 // -DSOIL_GROUP_VJP_HOST (tests/test_torch_group_vjp_host.py), the group
-// segment-VJP kernel's column code (soil::GroupColumn::segment_vjp) beside
-// the one-thread segment VJP it replaces (soil::segment_vjp_column of
-// picard_step), and the implicit group step, instead of the explicit
-// steppers and the one-thread implicit step.
+// segment-VJP kernel's column code (soil::GroupColumn::segment_vjp of
+// ForwardEuler, Heun and picard_step) beside the one-thread segment VJP it
+// replaces (soil::segment_vjp_column of the same stepper), and the
+// implicit group step, instead of the group rollout's explicit steppers and
+// the one-thread implicit step.
 #include <vector>
 
 #include "soil_group_step.cuh"
@@ -261,10 +262,52 @@ void thread_vjp_columns(int solver, const double* U, const double* sat, const do
     }
 }
 
-// soil::GroupColumn::segment_vjp (SOLVER) over every column on a group of G
-// emulated lanes, as the group segment-VJP kernel runs it; each column's
-// parameter cotangents (the group's tree sum of its lanes') to gparams
-template <int NZ, int G, int SOLVER>
+// soil::segment_vjp_column of ForwardEuler (STEPPER_EULER) or Heun
+// (STEPPER_HEUN) over heat + Richards over every column, as thread_vjp_columns
+template <int NZ, int STEPPER>
+void thread_explicit_vjp_columns(const double* U, const double* sat, const double* S,
+                                 const double* gU, const double* gsat, const double* gS,
+                                 double* gU0, double* gsat0, double* gS0, double* gparams,
+                                 const double* top, long long step_stride,
+                                 long long cell_stride, const double* dz, const double* dzf,
+                                 const double* zc, const double* zf, const SoilColumnParams* P,
+                                 int steps, double dt, long long cells, int)
+{
+    std::vector<double> scratch((size_t)steps * (2 * NZ + 1) * cells);
+    const soil::Consts<double> c(*P);
+    for (long long col = 0; col < cells; ++col) {
+        double gK = 0.0, gm = 0.0;
+        soil::segment_vjp_column<double, NZ, STEPPER>(
+            col, cells, steps, U, sat, S, gU, gsat, gS, gU0, gsat0, gS0, scratch.data(), top,
+            step_stride, cell_stride, c, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm);
+        gparams[col] = gK;
+        gparams[cells + col] = gm;
+    }
+}
+
+template <int NZ>
+int thread_explicit_vjp(int stepper, const double* U, const double* sat, const double* S,
+                        const double* gU, const double* gsat, const double* gS, double* gU0,
+                        double* gsat0, double* gS0, double* gparams, const double* top,
+                        long long step_stride, long long cell_stride, const double* dz,
+                        const double* dzf, const double* zc, const double* zf,
+                        const SoilColumnParams* P, int steps, double dt, long long cells,
+                        int iters)
+{
+    if (stepper == soil::STEPPER_EULER)
+        thread_explicit_vjp_columns<NZ, soil::STEPPER_EULER>(VJP_ARGS);
+    else if (stepper == soil::STEPPER_HEUN)
+        thread_explicit_vjp_columns<NZ, soil::STEPPER_HEUN>(VJP_ARGS);
+    else
+        return -1;
+    return 0;
+}
+
+// soil::GroupColumn::segment_vjp (STEPPER, SOLVER) over every column on a
+// group of G emulated lanes, as the group segment-VJP kernel runs it; each
+// column's parameter cotangents (the group's tree sum of its lanes') to
+// gparams
+template <int NZ, int G, int STEPPER, int SOLVER>
 void group_vjp_columns(const double* U, const double* sat, const double* S, const double* gU,
                        const double* gsat, const double* gS, double* gU0, double* gsat0,
                        double* gS0, double* gparams, const double* top, long long step_stride,
@@ -290,9 +333,10 @@ void group_vjp_columns(const double* U, const double* sat, const double* S, cons
                 gs[i][l] = in ? gsat[k * cells + col] : 0.0;
             }
         double sv = S[col], gsv = gS[col], gK[G] = {}, gm[G] = {};
-        column.template segment_vjp<SOLVER>(u, s, sv, gu, gs, gsv, scratch.data(), col, cells,
-                                            true, top + col * cell_stride, step_stride, steps,
-                                            dt, 1.0 / dt, iters, gK, gm);
+        column.template segment_vjp<STEPPER, SOLVER>(u, s, sv, gu, gs, gsv, scratch.data(), col,
+                                                     cells, true, top + col * cell_stride,
+                                                     step_stride, steps, dt, 1.0 / dt, iters, gK,
+                                                     gm);
         for (int i = 0; i < G; ++i)
             for (int l = 0; l < L; ++l) {
                 const int k = column.level(i, l);
@@ -312,9 +356,51 @@ int group_vjp(int solver, const double* U, const double* sat, const double* S,
               const double* zc, const double* zf, const SoilColumnParams* P, int steps,
               double dt, long long cells, int iters)
 {
-    if (solver == soil::SOLVER_PCR) group_vjp_columns<NZ, G, soil::SOLVER_PCR>(VJP_ARGS);
-    else if (solver == soil::SOLVER_THOMAS) group_vjp_columns<NZ, G, soil::SOLVER_THOMAS>(VJP_ARGS);
+    constexpr int I = soil::STEPPER_IMPLICIT;
+    if (solver == soil::SOLVER_PCR) group_vjp_columns<NZ, G, I, soil::SOLVER_PCR>(VJP_ARGS);
+    else if (solver == soil::SOLVER_THOMAS) group_vjp_columns<NZ, G, I, soil::SOLVER_THOMAS>(VJP_ARGS);
     else return -1;
+    return 0;
+}
+
+// the group segment VJP of ForwardEuler or Heun at G
+template <int NZ, int G>
+int group_explicit_vjp(int stepper, const double* U, const double* sat, const double* S,
+                       const double* gU, const double* gsat, const double* gS, double* gU0,
+                       double* gsat0, double* gS0, double* gparams, const double* top,
+                       long long step_stride, long long cell_stride, const double* dz,
+                       const double* dzf, const double* zc, const double* zf,
+                       const SoilColumnParams* P, int steps, double dt, long long cells,
+                       int iters)
+{
+    if (stepper == soil::STEPPER_EULER)
+        group_vjp_columns<NZ, G, soil::STEPPER_EULER, soil::SOLVER_PCR>(VJP_ARGS);
+    else if (stepper == soil::STEPPER_HEUN)
+        group_vjp_columns<NZ, G, soil::STEPPER_HEUN, soil::SOLVER_PCR>(VJP_ARGS);
+    else
+        return -1;
+    return 0;
+}
+
+// the same at the kernel's group size of each stepper at NZ
+// (soil::vjp_group_lanes); -1 for another g
+template <int NZ>
+int kernel_explicit_vjp(int g, int stepper, const double* U, const double* sat,
+                        const double* S, const double* gU, const double* gsat,
+                        const double* gS, double* gU0, double* gsat0, double* gS0,
+                        double* gparams, const double* top, long long step_stride,
+                        long long cell_stride, const double* dz, const double* dzf,
+                        const double* zc, const double* zf, const SoilColumnParams* P,
+                        int steps, double dt, long long cells, int iters)
+{
+    constexpr int GE = soil::vjp_group_lanes(NZ, soil::STEPPER_EULER, soil::SOLVER_PCR);
+    constexpr int GH = soil::vjp_group_lanes(NZ, soil::STEPPER_HEUN, soil::SOLVER_PCR);
+    if (stepper == soil::STEPPER_EULER && g == GE)
+        group_vjp_columns<NZ, GE, soil::STEPPER_EULER, soil::SOLVER_PCR>(VJP_ARGS);
+    else if (stepper == soil::STEPPER_HEUN && g == GH)
+        group_vjp_columns<NZ, GH, soil::STEPPER_HEUN, soil::SOLVER_PCR>(VJP_ARGS);
+    else
+        return -1;
     return 0;
 }
 #endif
@@ -469,5 +555,66 @@ extern "C" int host_group_vjp(const double* U, const double* sat, const double* 
         case 32: return group_vjp<30, 32>(solver, VJP_ARGS);
         default: return -1;
     }
+}
+
+// The segment VJP of ForwardEuler (stepper 0) or Heun (1) over heat +
+// Richards, one thread a column (soil::segment_vjp_column), as
+// host_thread_vjp: Nz 10, 16, 20 and 30. Returns -1 for an nz or stepper it
+// does not run.
+extern "C" int host_thread_explicit_vjp(const double* U, const double* sat, const double* S,
+                                        const double* gU, const double* gsat, const double* gS,
+                                        double* gU0, double* gsat0, double* gS0, double* gparams,
+                                        const double* top, long long step_stride,
+                                        long long cell_stride, const double* dz,
+                                        const double* dzf, const double* zc, const double* zf,
+                                        const SoilColumnParams* P, int nz, int stepper,
+                                        int steps, double dt, long long cells)
+{
+    const int iters = 1;
+    switch (nz) {
+        case 10: return thread_explicit_vjp<10>(stepper, VJP_ARGS);
+        case 16: return thread_explicit_vjp<16>(stepper, VJP_ARGS);
+        case 20: return thread_explicit_vjp<20>(stepper, VJP_ARGS);
+        case 30: return thread_explicit_vjp<30>(stepper, VJP_ARGS);
+        default: return -1;
+    }
+}
+
+// The same on groups of g lanes (the group segment-VJP kernel's column
+// code): Nz 8, 10, 16 and 20 at the kernel's group size
+// (soil::vjp_group_lanes), Nz 30 at g 4, 8, 16 or 32. Returns -1 for an
+// nz, g or stepper it does not run.
+extern "C" int host_group_explicit_vjp(const double* U, const double* sat, const double* S,
+                                       const double* gU, const double* gsat, const double* gS,
+                                       double* gU0, double* gsat0, double* gS0, double* gparams,
+                                       const double* top, long long step_stride,
+                                       long long cell_stride, const double* dz,
+                                       const double* dzf, const double* zc, const double* zf,
+                                       const SoilColumnParams* P, int nz, int g, int stepper,
+                                       int steps, double dt, long long cells)
+{
+    const int iters = 1;
+    switch (nz) {
+        case 8: return kernel_explicit_vjp<8>(g, stepper, VJP_ARGS);
+        case 10: return kernel_explicit_vjp<10>(g, stepper, VJP_ARGS);
+        case 16: return kernel_explicit_vjp<16>(g, stepper, VJP_ARGS);
+        case 20: return kernel_explicit_vjp<20>(g, stepper, VJP_ARGS);
+        case 30: break;
+        default: return -1;
+    }
+    switch (g) {
+        case 4: return group_explicit_vjp<30, 4>(stepper, VJP_ARGS);
+        case 8: return group_explicit_vjp<30, 8>(stepper, VJP_ARGS);
+        case 16: return group_explicit_vjp<30, 16>(stepper, VJP_ARGS);
+        case 32: return group_explicit_vjp<30, 32>(stepper, VJP_ARGS);
+        default: return -1;
+    }
+}
+
+// The segment VJP's group size of `stepper` (0 ForwardEuler, 1 Heun, 2
+// ImplicitEuler with `solver`) at nz (soil::vjp_group_lanes)
+extern "C" int host_vjp_group_lanes(int nz, int stepper, int solver)
+{
+    return soil::vjp_group_lanes(nz, stepper, solver);
 }
 #endif

@@ -305,6 +305,87 @@ def test_group_segment_vjp_keys(fake_nvcc, solver):
     assert {"-DSOIL_GROUP=8", "-DSOIL_MIN_BLOCKS=1"} <= _defines(fake_nvcc.compiles()[-1])
 
 
+#: the prebuilt sizes of the group segment VJP of ForwardEuler (the gradient
+#: grids) and of Heun (its forward kernel's)
+EXPLICIT_VJP_SIZES = {"euler": ((F32, 20), (F64, 20), (F32, 30), (F64, 30)),
+                      "heun": ((F32, 30), (F64, 15))}
+
+
+@pytest.mark.parametrize("stepper", list(EXPLICIT_VJP_SIZES))
+def test_explicit_group_segment_vjp_keys(fake_nvcc, stepper):
+    """The segment VJP of ForwardEuler and Heun over heat + Richards (rows 3
+    and 3'a) is prebuilt from the group source
+    (``csrc/soil_column_group_segment_vjp.cu``), its tags naming the stepper
+    (ForwardEuler's too), and no longer in the one-thread source's prebuilt
+    set, which still builds the same scheme alone on demand (to time one
+    layout against the other); an unlisted depth is built alone with the
+    stepper's defines and no group size (the source takes
+    ``soil::vjp_group_lanes``); ``g<G>`` and ``mb<B>`` tags add
+    ``SOIL_GROUP`` and ``SOIL_MIN_BLOCKS``; the ``_warps`` suffix reads the
+    instantiation's resident warps and G."""
+    group_src = "soil_column_group_segment_vjp"
+    tags = fv.vjp_tags(stepper, "richards", "pcr", 1)
+    assert tags == (stepper, "richards")
+    for dtype, nz in EXPLICIT_VJP_SIZES[stepper]:
+        assert (tags, dtype, nz) in cb.INSTANTIATIONS[group_src]
+    one_thread = fs.kernel_tags(stepper, "richards", 1)
+    assert one_thread == ((stepper, "richards") if stepper == "heun" else ())
+    assert all(t not in (one_thread, tags) for t, _, _ in cb.INSTANTIATIONS[
+        "soil_column_segment_vjp"])
+    fn = cb.entry(group_src, F32, 40, fv._ARGTYPES, tags=tags)
+    name = f"{group_src}_{stepper}_richards_f32_nz40"
+    assert fn.name == name and fn.argtypes == fv._ARGTYPES
+    (compile_,) = fake_nvcc.compiles()
+    assert compile_[-1].endswith(f"{group_src}.cu")
+    assert _defines(compile_) == {f"-DSOIL_ENTRY={name}", "-DSOIL_T=float", "-DSOIL_NZ=40",
+                                  f"-DSOIL_STEPPER={0 if stepper == 'euler' else 1}",
+                                  "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1"}
+    warps = cb.entry(group_src, F32, 40, [], tags=tags, suffix="_warps")
+    assert warps.name == f"{name}_warps" and len(fake_nvcc.compiles()) == 1
+    one = cb.entry("soil_column_segment_vjp", F32, 20, fv._ARGTYPES, tags=one_thread)
+    assert one.name == "_".join(("soil_column_segment_vjp", *one_thread, "f32_nz20"))
+    assert fake_nvcc.compiles()[-1][-1].endswith("soil_column_segment_vjp.cu")
+    cb.entry(group_src, F32, 30, [], tags=(*tags, "g16", "mb3"))
+    assert {"-DSOIL_GROUP=16", "-DSOIL_MIN_BLOCKS=3"} <= _defines(fake_nvcc.compiles()[-1])
+
+
+@pytest.mark.parametrize("stepper,physics,source", [
+    ("euler", "richards", "soil_column_group_segment_vjp"),
+    ("heun", "richards", "soil_column_group_segment_vjp"),
+    ("implicit", "richards", "soil_column_group_segment_vjp"),
+    ("euler", "heat", "soil_column_segment_vjp"),
+    ("heun", "heat", "soil_column_segment_vjp"),
+    ("implicit", "heat", "soil_column_segment_vjp"),
+])
+def test_segment_vjp_routes_by_type(stepper, physics, source):
+    """``GROUP_SCHEMES`` sends every stepper over heat + Richards to the
+    group source and the three heat-only schemes to the one-thread source;
+    each scheme has a segment VJP."""
+    assert (stepper, physics) in fv.VJP_SCHEMES
+    assert fv.vjp_source(stepper, physics) == source
+    assert ((stepper, physics) in fv.GROUP_SCHEMES) == (source == fv._GROUP_NAME)
+
+
+@pytest.mark.parametrize("stepper", ["euler", "heun"])
+def test_explicit_segment_vjp_refuses_picard_iterations(stepper):
+    """Picard iterations are ImplicitEuler's: the wrapper and the build tags
+    refuse a count other than 1 for ForwardEuler and Heun, on any device,
+    and the group source's entries return cudaErrorInvalidValue for one
+    (no ``SOIL_PICARD``), as a ``static_assert`` keeps an explicit entry
+    from being built with it."""
+    with pytest.raises(ValueError, match="Picard"):
+        fv.vjp_tags(stepper, "richards", "pcr", 2)
+    with pytest.raises(ValueError, match="Picard"):
+        fv.soil_column_segment_vjp(*([None] * 13), stepper=stepper, picard_iters=2)
+    with pytest.raises(ValueError, match="Picard"):
+        fv.soil_column_segment_vjp_plain(*([None] * 13), stepper=stepper, picard_iters=3)
+    src = (cb._CSRC / "soil_column_group_segment_vjp.cu").read_text()
+    assert "(!SOIL_PICARD && picard != 1)" in src
+    assert "SOIL_STEPPER == soil::STEPPER_IMPLICIT || !SOIL_PICARD" in src
+    assert "template <typename T, int NZ, int G, int STEPPER, int SOLVER>\n__global__" in src
+    assert "soil::vjp_group_lanes(NZ, STEPPER, SOLVER)" in src
+
+
 def _land_params(composition):
     """``LandParams`` of `test_torch_land_adjoint_host.py`'s composition."""
     from test_torch_land_adjoint_host import composition_model

@@ -1,8 +1,9 @@
 """The group segment-VJP kernel's column code (``soil::GroupColumn::
-segment_vjp`` in ``csrc/soil_group_step.cuh``: ImplicitEuler over heat +
-Richards, any Picard count, each step undone on the column's group of lanes
-and its iterates recomputed by the group's own ``picard_step``), compiled for
-the host by the C++ compiler with each group's lanes emulated in lockstep
+segment_vjp`` in ``csrc/soil_group_step.cuh``: ForwardEuler, Heun and
+ImplicitEuler over heat + Richards, any Picard count, each step undone on
+the column's group of lanes and recomputed by the group rollout's own
+``step``, ``heun_step`` or ``picard_step``), compiled for the host by the
+C++ compiler with each group's lanes emulated in lockstep
 (``soil::HostLanes``, ``tests/soil_group_step_host.cpp`` built with
 ``-DSOIL_GROUP_VJP_HOST``), against
 
@@ -23,6 +24,13 @@ the host by the C++ compiler with each group's lanes emulated in lockstep
 * JAX's Pallas segment VJP in interpret mode, through each package's
   ``make_fused_grad_rollout`` on a few columns, at
   `test_torch_grad_steppers.py`'s rtol 1e-8.
+
+ForwardEuler and Heun (``step_adjoint`` and ``heun_step_adjoint`` on the
+group) are held to ``soil::segment_vjp_column`` of the same stepper the same
+way, bit for bit, at every G at Nz 30 and at the kernel's G
+(``soil::vjp_group_lanes``) at Nz 10, 16 and 20, 6 steps (ForwardEuler at
+dt 300 s, Heun at dt 60 s from a table of 7 rows); Heun also against JAX's
+Pallas segment VJP at Nz 8.
 """
 import ctypes
 import pathlib
@@ -54,6 +62,10 @@ SOLVERS = {"thomas": 0, "pcr": 1}
 #: every size at Nz 30
 GROUPS = [(10, None), (16, None), (30, 4), (30, 8), (30, 16), (30, 32)]
 STEPS, DT = 6, 900.0
+#: ForwardEuler and Heun: (stepper code, dt) and the group sizes held, the
+#: kernel's (None) at Nz 10, 16 and 20, every size at Nz 30
+EXPLICIT = {"euler": (0, 300.0), "heun": (1, 60.0)}
+EXPLICIT_GROUPS = [(10, None), (16, None), (20, None), (30, 4), (30, 8), (30, 16), (30, 32)]
 
 
 @pytest.fixture(scope="module")
@@ -71,15 +83,20 @@ def vlib(tmp_path_factory):
     head = [ptr] * 11 + [ll, ll] + [ptr] * 5
     lib.host_thread_vjp.argtypes = head + [i32] * 4 + [f64, ll]
     lib.host_group_vjp.argtypes = head + [i32] * 5 + [f64, ll]
+    lib.host_thread_explicit_vjp.argtypes = head + [i32] * 3 + [f64, ll]
+    lib.host_group_explicit_vjp.argtypes = head + [i32] * 4 + [f64, ll]
+    lib.host_vjp_group_lanes.argtypes = [i32, i32, i32]
     lib.host_implicit_group_lanes.argtypes = [i32, i32]
     lib.host_group_picard.argtypes = ([ptr] * 4 + [ll, ll, i32] + [f64] * 3 + [ptr] * 5
                                       + [i32] * 5 + [f64, ll])
     return lib
 
 
-def run_vjp(vlib, carry, top, coords, params, solver, iters, cts, g=None, steps=STEPS, dt=DT):
-    """The segment VJP of ``steps`` implicit steps with ``iters`` Picard
-    iterations applied to the output cotangents ``cts``, one thread a
+def run_vjp(vlib, carry, top, coords, params, solver, iters, cts, g=None, steps=STEPS, dt=DT,
+            stepper="implicit"):
+    """The segment VJP of ``steps`` steps of ``stepper`` (``"implicit"``
+    with ``solver`` and ``iters`` Picard iterations, ``"euler"`` or
+    ``"heun"``) applied to the output cotangents ``cts``, one thread a
     column (``g`` None) or on groups of ``g`` lanes: the input cotangents
     ``(gU0, gsat0, gS0)`` and each column's parameter cotangents (2,
     cells)."""
@@ -90,7 +107,11 @@ def run_vjp(vlib, carry, top, coords, params, solver, iters, cts, g=None, steps=
     head = (*(t.data_ptr() for t in (*carry, *cts, *outs, gparams, top)), top.stride(0),
             top.stride(1) if top.dim() == 2 else 0, *(c.data_ptr() for c in coords),
             ctypes.addressof(cp), nz)
-    if g is None:
+    if stepper != "implicit":
+        code = EXPLICIT[stepper][0]
+        rc = (vlib.host_thread_explicit_vjp(*head, code, steps, dt, cells) if g is None
+              else vlib.host_group_explicit_vjp(*head, g, code, steps, dt, cells))
+    elif g is None:
         rc = vlib.host_thread_vjp(*head, SOLVERS[solver], iters, steps, dt, cells)
     else:
         rc = vlib.host_group_vjp(*head, g, SOLVERS[solver], iters, steps, dt, cells)
@@ -126,6 +147,34 @@ def test_group_vjp_equals_the_thread_vjp_bitwise(vlib, nz, group, solver, iters)
     for a, b in zip(got_p, want_p):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))
     # the cotangents moved through the steps
+    assert not torch.equal(want[1], cts[1]) and float(want_p[0].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("stepper", list(EXPLICIT))
+@pytest.mark.parametrize("nz,group", EXPLICIT_GROUPS)
+def test_explicit_group_vjp_equals_the_thread_vjp_bitwise(vlib, nz, group, stepper):
+    """``GroupColumn::segment_vjp`` of ForwardEuler and Heun (its
+    ``step_adjoint`` and ``heun_step_adjoint``) at the kernel's group size
+    for ``nz`` (``soil::vjp_group_lanes``) and, at Nz 30, at every G,
+    against ``soil::segment_vjp_column`` of the same stepper over 6 steps
+    (ForwardEuler at dt 300 s, Heun at dt 60 s, its stage reading a table of
+    7 rows) on every column: the input cotangents equal bit for bit, each
+    column's parameter cotangents within rtol 1e-12 of the one thread's with
+    a floor of 1e-12 of the largest."""
+    code, dt = EXPLICIT[stepper]
+    g = vlib.host_vjp_group_lanes(nz, code, 1) if group is None else group
+    carry, top, coords, params = _case(vlib, nz, "table", g)
+    top = top[:STEPS + (stepper == "heun")].contiguous()
+    cts = _cotangents(carry, 10 * nz + g + code)
+    kw = dict(dt=dt, stepper=stepper)
+    want, want_p = run_vjp(vlib, carry, top, coords, params, "pcr", 1, cts, **kw)
+    got, got_p = run_vjp(vlib, carry, top, coords, params, "pcr", 1, cts, g, **kw)
+    for name, a, b in zip(("U", "sat", "S"), got, want):
+        assert bool(torch.isfinite(b).all()), name
+        assert torch.equal(a, b), (name, (a != b).nonzero()[:5].tolist())
+    assert bool(torch.isfinite(want_p).all())
+    for a, b in zip(got_p, want_p):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))
     assert not torch.equal(want[1], cts[1]) and float(want_p[0].abs().max()) > 0.0
 
 
@@ -209,33 +258,48 @@ JAX_CELLS, JAX_NZ, JAX_STEPS, JAX_INNER, JAX_DT = 8, 10, 4, 2, 1800.0
 
 def _host_group_segment_vjp(vlib):
     """A stand-in for ``soil_column_segment_vjp`` on CPU tensors that runs
-    the host build of the group segment VJP (ImplicitEuler over heat +
-    Richards) at the kernel's group size."""
+    the host build of the group segment VJP (ImplicitEuler, ForwardEuler or
+    Heun over heat + Richards) at the kernel's group size."""
     def vjp(U, sat, S, top_T, dz, dz_faces, z_centers, z_faces, params, dt, gU, gsat, gS, *,
             stepper, physics, solver, picard_iters):
-        assert (stepper, physics) == ("implicit", "richards")
+        assert physics == "richards"
         nz = U.shape[0]
-        g = vlib.host_implicit_group_lanes(nz, SOLVERS[solver])
+        code = {"euler": 0, "heun": 1, "implicit": 2}[stepper]
+        g = vlib.host_vjp_group_lanes(nz, code, SOLVERS[solver])
         carry = (U.contiguous(), sat.contiguous(), S.contiguous())
         outs, gp = run_vjp(vlib, carry, top_T.contiguous(), (dz, dz_faces, z_centers, z_faces),
                            params, solver, picard_iters, (gU, gsat, gS), g,
-                           steps=top_T.shape[0], dt=dt)
+                           steps=top_T.shape[0] - (stepper == "heun"), dt=dt, stepper=stepper)
         return (*outs, gp[0].sum(), gp[1].sum())
     return vjp
+
+
+#: the Heun check against JAX: Heun at `test_torch_grad_steppers.py`'s dt
+#: 300 s on Nz 8 (the kernel's G 4: two levels a lane)
+JAX_HEUN_NZ, JAX_HEUN_DT = 8, 300.0
+
+
+def _stepper(pkg, solver, iters):
+    """ImplicitEuler with ``solver`` and ``iters`` Picard iterations at
+    JAX_DT, or (``solver`` ``"heun"``) Heun at JAX_HEUN_DT, of the package
+    ``pkg`` (``tt`` or ``tp``); its dt and Nz."""
+    if solver == "heun":
+        return pkg.Heun(dt=JAX_HEUN_DT), JAX_HEUN_DT, JAX_HEUN_NZ
+    return pkg.ImplicitEuler(dt=JAX_DT, solver=solver, picard_iters=iters), JAX_DT, JAX_NZ
 
 
 def _jax_grads(solver, iters):
     """Loss and its gradients in (log K_sat, k_mineral, U0) through JAX's
     ``make_fused_grad_rollout(bwd="pallas", interpret=True)``."""
-    grid = tt.ColumnGrid.of(cells=JAX_CELLS, spacing=tt.ExponentialSpacing(N=JAX_NZ),
+    ts, dt, nz = _stepper(tt, solver, iters)
+    grid = tt.ColumnGrid.of(cells=JAX_CELLS, spacing=tt.ExponentialSpacing(N=nz),
                             nf=np.float64)
-    ts = tt.ImplicitEuler(dt=JAX_DT, solver=solver, picard_iters=iters)
     sim = tt.initialize(_jax_model(grid, "richards", X0, K0), ts, initializers=INITS,
                         boundary_conditions=tt.PrescribedSurfaceTemperature(4.0))
 
     def loss(x, k, u0):
         roll = jax_fused_grad(lambda p: _jax_model(grid, "richards", *p), ts, sim.ctx, (),
-                              steps=JAX_STEPS, dt=JAX_DT, inner_steps=JAX_INNER,
+                              steps=JAX_STEPS, dt=dt, inner_steps=JAX_INNER,
                               block_cells=JAX_CELLS, interpret=True, bwd="pallas")
         out = roll(sim.state.update(internal_energy=u0), (x, k))
         return jnp.mean(out.temperature) + jnp.mean(out.saturation_water_ice)
@@ -246,9 +310,9 @@ def _jax_grads(solver, iters):
 
 
 def _port_grads(solver, iters):
-    grid = tp.ColumnGrid.of(cells=JAX_CELLS, spacing=tp.ExponentialSpacing(N=JAX_NZ),
+    ts, dt, nz = _stepper(tp, solver, iters)
+    grid = tp.ColumnGrid.of(cells=JAX_CELLS, spacing=tp.ExponentialSpacing(N=nz),
                             dtype=torch.float64, device="cpu")
-    ts = tp.ImplicitEuler(dt=JAX_DT, solver=solver, picard_iters=iters)
     sim = tp.initialize(_port_model(grid, "richards", X0, K0), ts, initializers=INITS,
                         boundary_conditions=tp.PrescribedSurfaceTemperature(4.0))
     x = torch.tensor(X0, dtype=torch.float64, requires_grad=True)
@@ -257,19 +321,20 @@ def _port_grads(solver, iters):
     U0 = state.prognostic["internal_energy"].clone().requires_grad_()
     state.set(internal_energy=U0)
     roll = make_fused_grad_rollout(lambda p: _port_model(grid, "richards", *p), ts, sim.ctx,
-                                   steps=JAX_STEPS, dt=JAX_DT, inner_steps=JAX_INNER)
+                                   steps=JAX_STEPS, dt=dt, inner_steps=JAX_INNER)
     out = roll(state, (x, k))
     loss = out.temperature.mean() + out.saturation_water_ice.mean()
     gs = torch.autograd.grad(loss, (x, k, U0))
     return float(loss.detach()), *(g.numpy() for g in gs)
 
 
-@pytest.mark.parametrize("solver,iters", [("pcr", 1)])
+@pytest.mark.parametrize("solver,iters", [("pcr", 1), ("heun", 1)])
 def test_group_vjp_matches_jax_pallas(vlib, monkeypatch, solver, iters):
     """The port's fused gradient with the host build of the group segment
-    VJP in place of the kernel (8 columns, Nz 10, 4 steps of 1,800 s in
-    segments of 2, loss mean(T) + mean(sat)) against JAX's Pallas segment
-    VJP in interpret mode: the value within rtol 1e-10, d/d log K_sat, d/d
+    VJP in place of the kernel (8 columns, 4 steps in segments of 2, loss
+    mean(T) + mean(sat); ImplicitEuler with PCR at Nz 10 and dt 1,800 s,
+    Heun at Nz 8 and dt 300 s) against JAX's Pallas segment VJP in
+    interpret mode: the value within rtol 1e-10, d/d log K_sat, d/d
     k_mineral and d/dU0 within rtol 1e-8 (d/dU0 with a floor of 1e-8 of its
     largest magnitude)."""
     monkeypatch.setattr(fused_grad, "soil_column_segment_vjp", _host_group_segment_vjp(vlib))
