@@ -85,8 +85,8 @@ bound:
   1,440-step block, the latter with its non-finite share; the
   ``land_snow`` golden (float64, Nz 12, 48 steps through the kernel: the
   snowpack's fields against the golden, every field against the plain
-  version); the land kernel's Heun, ImplicitEuler (PCR, Thomas; on groups
-  of lanes) and snowpack (ImplicitEuler PCR) variants, each against its
+  version); the land kernel's Heun and ImplicitEuler (PCR, Thomas; both on
+  groups of lanes) and snowpack (ImplicitEuler PCR) variants, each against its
   plain version one
   step at a time (float64 on 1,024 columns, float32 at full width, 48
   steps) and then through ``Simulation.run`` on ``land_consistent``'s
@@ -113,8 +113,10 @@ bound:
   (``land_grad_implicit_picard2_<solver>``), Heun at dt 60 s
   (``land_grad_heun``) and ``land_snow_n145``'s snowpack by ImplicitEuler
   PCR at dt 600 s (``land_grad_snow_implicit_pcr``), after the land segment-VJP
-  kernel (ImplicitEuler without a snowpack on groups of lanes, the others
-  one thread a column) against its plain version (float64 on 1,024 columns at rtol 1e-9,
+  kernel (ImplicitEuler and Heun without a snowpack on groups of lanes,
+  their stored carries bitwise the group rollout's; the others one thread a
+  column, their stored carries' gap to the one-thread rollout's reported,
+  ROADMAP C3) against its plain version (float64 on 1,024 columns at rtol 1e-9,
   float32 at full width with the plain version in chunks, the parameter
   cotangents also summed with output cotangents aligned to the sign of each
   column's plain share) and the float64 gradient against central
@@ -717,11 +719,11 @@ FIRST_SOURCES = (GROUP_SOURCE, "soil_column_rollout")
 # the segment VJP of ForwardEuler, Heun and ImplicitEuler over heat +
 # Richards on groups of lanes (rows 3, 3'a, 3'b and 3'h)
 VJP_GROUP_SOURCE = "soil_column_group_segment_vjp"
-# the land segment VJP of ImplicitEuler over Richards flow without a
-# snowpack on groups of lanes (rows 3'e and 3'i)
+# the land segment VJP of ImplicitEuler and Heun over Richards flow without
+# a snowpack on groups of lanes (rows 3'e, 3'i and 3'j)
 LAND_VJP_GROUP_SOURCE = "land_column_group_segment_vjp"
-# the land rollout of ImplicitEuler over Richards flow without a snowpack
-# on groups of lanes (rows 1'f and 1'k)
+# the land rollout of ImplicitEuler and Heun over Richards flow without a
+# snowpack on groups of lanes (rows 1'f, 1'k and 1'e)
 LAND_GROUP_SOURCE = "land_column_group_rollout"
 # The sources built beside the forward phases, in the order the phases need
 # them: the land rollouts, one thread a column and on groups of lanes (the
@@ -1722,10 +1724,12 @@ def ptxas_summary(report: str) -> dict:
                 key = "vjp" if stepper != "2" else "vjp_" + ("pcr" if solver == "1"
                                                              else "thomas")
             elif "group_segment_vjp_kernel" in name or "land_column_group_rollout" in name:
-                # <T, NZ, G, SOLVER>
-                solver = re.search(r"kernelI[fd]Li\d+ELi\d+ELi(\d)E", name).group(1)
-                key = ("land_" if "rollout" in name else "vjp_") + ("pcr" if solver == "1"
-                                                                     else "thomas")
+                # <T, NZ, G, STEPPER, SOLVER>: ImplicitEuler's a kernel of
+                # each solver, Heun's one
+                stepper, solver = re.search(r"kernelI[fd]Li\d+ELi\d+ELi(\d)ELi(\d)E",
+                                            name).groups()
+                key = ("land_" if "rollout" in name else "vjp_") + (
+                    "heun" if stepper == "1" else "pcr" if solver == "1" else "thomas")
             elif "land_column_rollout_kernel" in name:
                 key = "land"
             elif "full_step_kernel" in name:
@@ -1773,18 +1777,18 @@ def sass_instructions(cuda_build, source, entry, series, solver="pcr"):
     cuobjdump = pathlib.Path(cuda_build._nvcc()).with_name("cuobjdump")
     # the entry's kernel, by its mangled template arguments: the group
     # rollout's <T, NZ, G, STEPPER, SOLVER, SERIES> and the group segment
-    # VJP's <T, NZ, G, STEPPER, SOLVER> (SOLVER 1 for the explicit
-    # steppers), the one-thread rollout's <T, NZ, STEPPER, SOLVER, HEAT,
-    # PICARD, SERIES>; the element type and the depth from the entry's name
+    # VJPs' and the land group rollout's <T, NZ, G, STEPPER, SOLVER> (SOLVER
+    # 1 for the explicit steppers), the one-thread rollout's <T, NZ,
+    # STEPPER, SOLVER, HEAT, PICARD, SERIES>; the element type and the depth
+    # from the entry's name
     m = re.search(r"_(f32|f64)_nz(\d+)$", entry)
     t, nz = {"f32": "f", "f64": "d"}[m.group(1)], m.group(2)
     stepper = {"euler": 0, "heun": 1, "implicit": 2}[
         next(k for k in ("euler", "heun", "implicit") if f"_{k}_" in entry)]
     code = {"thomas": 0, "pcr": 1}[solver] if stepper == 2 else 1
-    if source == VJP_GROUP_SOURCE:  # <T, NZ, G, STEPPER, SOLVER>
+    if source in (VJP_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE, LAND_GROUP_SOURCE):
+        # <T, NZ, G, STEPPER, SOLVER>
         want = re.compile(rf"{source}_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}EE")
-    elif source in (LAND_VJP_GROUP_SOURCE, LAND_GROUP_SOURCE):  # <T, NZ, G, SOLVER>
-        want = re.compile(rf"{source}_kernelI{t}Li{nz}ELi\d+ELi{code}EE")
     elif source == GROUP_SOURCE:
         want = re.compile(rf"group_rollout_kernelI{t}Li{nz}ELi\d+ELi{stepper}ELi{code}E"
                           rf"Lb{int(series)}EE")
@@ -2074,26 +2078,31 @@ def land_weighted_counts(solver, nz, branches, params):
     return solve_div, fwd
 
 
-def land_fma_issues(solver, nz, iters, branches, params):
+def land_fma_issues(solver, nz, iters, branches, params, stepper="implicit"):
     """FMA issues of one step of one column of the land ImplicitEuler
-    rollout with ``iters`` Picard iterations (rows 1'f and 1'k): row 4's
-    weights on land_variant_ops, each iteration's forward divisions, exps
-    and powf counted as land_vjp_fma_issues counts them (per level 18, per
-    interior face 8, per column the two solves', the top rows' 3 and the
-    surface block's, which every iteration runs again; each further
-    iteration's (u_k - u^n) / dt, 2 a level)."""
+    rollout with ``iters`` Picard iterations (rows 1'f and 1'k) or of the
+    land Heun rollout (``stepper`` ``"heun"``, row 1'e): row 4's weights on
+    land_variant_ops, each closure's forward divisions, exps and powf
+    counted as land_vjp_fma_issues counts them (per level 18, per interior
+    face 8, per column the top rows' 3 and the surface block's, which every
+    Picard iteration and each of Heun's two closures runs again;
+    ImplicitEuler's two solves, and each further iteration's (u_k - u^n) /
+    dt, 2 a level)."""
     solve_div, fwd = land_weighted_counts(solver, nz, branches, params)
+    closures, solves = (2, 0) if stepper == "heun" else (iters, 2 * solve_div)
     count = {
-        "division": iters * (LAND_VJP_DIVISIONS_PER_LEVEL["forward"] * nz + 8 * (nz - 1)
-                             + 2 * solve_div + 3 + fwd["division"]) + (iters - 1) * 2 * nz,
-        "exp": iters * fwd["exp"], "powf": iters * fwd["powf"]}
-    ops = land_variant_ops("implicit", solver, False, nz, branches, iters)
+        "division": closures * (LAND_VJP_DIVISIONS_PER_LEVEL["forward"] * nz + 8 * (nz - 1)
+                                + solves + 3 + fwd["division"]) + (iters - 1) * 2 * nz,
+        "exp": closures * fwd["exp"], "powf": closures * fwd["powf"]}
+    ops = land_variant_ops(stepper, solver, False, nz, branches, iters)
     return ops + sum(n * (LAND_WEIGHTS[w] - 1.0) for w, n in count.items())
 
 
-def land_vjp_fma_issues(solver, nz, iters, branches, params):
+def land_vjp_fma_issues(solver, nz, iters, branches, params, stepper="implicit"):
     """FMA issues of one step of one column of the land ImplicitEuler
-    segment VJP with ``iters`` Picard iterations (row 4's weights on
+    segment VJP with ``iters`` Picard iterations, or of the land Heun
+    segment VJP (``stepper`` ``"heun"``: the forward step's two closures
+    and the closure's adjoint twice, no solve; row 4's weights on
     land_vjp_ops; ``branches`` and ``params`` as land_weighted_counts
     takes them)."""
     solve_div, fwd = land_weighted_counts(solver, nz, branches, params)
@@ -2101,12 +2110,20 @@ def land_vjp_fma_issues(solver, nz, iters, branches, params):
     # and atan (an unstable psi's three of its "exp" ones are two logs and
     # the atan)
     rev_div = fwd["division"] + fwd["powf"] + 3 * branches.get("unstable psi", 0.0)
-    count = {
-        "division": iters * (sum(LAND_VJP_DIVISIONS_PER_LEVEL.values()) * nz
-                             + (8 + VJP_ADJ_DIVISIONS_PER_FACE) * (nz - 1) + 4 * solve_div
-                             + 3 + 4 + fwd["division"] + rev_div) + (iters - 1) * 4 * nz,
-        "exp": iters * fwd["exp"], "powf": iters * fwd["powf"]}
-    ops = land_vjp_ops("implicit", solver, nz, branches, iters)
+    if stepper == "heun":
+        count = {
+            "division": 2 * (LAND_VJP_DIVISIONS_PER_LEVEL["forward"] * nz + 8 * (nz - 1) + 3
+                             + fwd["division"])
+            + 2 * (LAND_VJP_DIVISIONS_PER_LEVEL["adjoint"] * nz
+                   + VJP_ADJ_DIVISIONS_PER_FACE * (nz - 1) + 4 + rev_div),
+            "exp": 2 * fwd["exp"], "powf": 2 * fwd["powf"]}
+    else:
+        count = {
+            "division": iters * (sum(LAND_VJP_DIVISIONS_PER_LEVEL.values()) * nz
+                                 + (8 + VJP_ADJ_DIVISIONS_PER_FACE) * (nz - 1) + 4 * solve_div
+                                 + 3 + 4 + fwd["division"] + rev_div) + (iters - 1) * 4 * nz,
+            "exp": iters * fwd["exp"], "powf": iters * fwd["powf"]}
+    ops = land_vjp_ops(stepper, solver, nz, branches, iters)
     return ops + sum(n * (LAND_WEIGHTS[w] - 1.0) for w, n in count.items())
 
 
@@ -2115,15 +2132,15 @@ def land_vjp_launcher(fs, lv, ls, fn, group, operands, dt, steps, solver, iters)
     entry ``fn`` on ``operands`` (carry, static inputs, root fraction,
     coordinates, parameters, output cotangents) over ``steps`` steps and
     returns ``(gcarry0, gparams)``; its scratch buffer ([step][row][cell],
-    2 Nz + 6 rows), partials and outputs are the caller's, the partials
-    laid out for the group kernel of G ``group`` or, ``group`` None, for
-    one thread a column."""
+    2 Nz + 6 rows, one more with a snowpack), partials and outputs are the
+    caller's, the partials laid out for the group kernel of G ``group`` or,
+    ``group`` None, for one thread a column."""
     carry, inputs, root, coords, params, gout = operands
     U = carry["internal_energy"]
     nz, cells = U.shape
     blocks = -(-cells // (lv._GROUP_THREADS // group if group else lv._THREADS))
-    scratch = torch.full((steps, 2 * nz + 6, cells), float("nan"), dtype=U.dtype,
-                         device=U.device)
+    scratch = torch.full((steps, 2 * nz + 6 + ("snow" in params.tags), cells), float("nan"),
+                         dtype=U.dtype, device=U.device)
     gin = {n: torch.empty_like(carry[n]) for n in ls.carry_names(params)}
     partials = torch.empty(2, blocks, dtype=U.dtype, device=U.device)
     gparams = torch.empty(2, dtype=U.dtype, device=U.device)
@@ -2133,7 +2150,8 @@ def land_vjp_launcher(fs, lv, ls, fn, group, operands, dt, steps, solver, iters)
     def launch():
         err = fn(args[0], ctypes.byref(c_gout), *args[1:], scratch.data_ptr(),
                  partials.data_ptr(), gparams.data_ptr(), steps, float(dt), cells,
-                 fs.SOLVER_CODES[solver], int(iters), torch.cuda.current_stream().cuda_stream)
+                 fs.SOLVER_CODES.get(solver, 0), int(iters),
+                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"land segment VJP launch failed: cudaError {err}")
         return gin, gparams
@@ -2142,39 +2160,80 @@ def land_vjp_launcher(fs, lv, ls, fn, group, operands, dt, steps, solver, iters)
     return launch, scratch
 
 
-# the scratch rows of each field of the land carry past U and sat
+# the scratch rows of each field of the land carry past U and sat (the SWE
+# last, under a snowpack)
 LAND_SCRATCH_ROWS = ("surface_excess_water", "skin_temperature", "canopy_water",
-                     "carbon_vegetation", "vegetation_area_fraction", "net_assimilation")
+                     "carbon_vegetation", "vegetation_area_fraction", "net_assimilation",
+                     "snow_water_equivalent")
+
+
+def land_thread_rollout_step(fs, ls, cuda_build, operands, dt, stepper, solver, iters):
+    """``step(carry, t) -> carry``: one step of the one-thread land rollout
+    (``csrc/land_column_rollout.cu``, the entry of the scheme, built on
+    demand where it is not prebuilt) on ``operands``' inputs from clock time
+    ``t``, launched directly: the wrappers route the group schemes to the
+    group kernel."""
+    carry, inputs, root, coords, params = operands[:5]
+    U = carry["internal_energy"]
+    tags = ((stepper,) if stepper == "heun" else () if stepper == "euler"
+            else ls.implicit_tags(solver, iters)) + params.tags
+    fn = cuda_build.entry(ls._NAME, U.dtype, U.shape[0], ls._argtypes(U.dtype), tags=tags)
+
+    def step(state, t):
+        out = {n: torch.empty_like(state[n]) for n in params.model.live_carry}
+        args, keep = ls.launch_args(state, out, inputs, root, coords, params)
+        err = fn(*args, 1, float(t), float(dt), U.shape[1], fs.SOLVER_CODES.get(solver, 0),
+                 int(iters), torch.cuda.current_stream().cuda_stream)
+        del keep
+        if err != 0:
+            raise RuntimeError(f"one-thread land rollout launch failed: cudaError {err}")
+        return {**state, **out}
+
+    return step
 
 
 def land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps, solver, iters,
-                             tags=None):
-    """The land group segment VJP's forward against the land rollout: the
-    group entry of the scheme (or of ``tags``: another G or launch bound)
-    launched on ``operands`` with a scratch buffer of the check's own, then
-    each carry it stored (step s's input) against the carry that
-    land_column_implicit_rollout at the VJP's G (the forward segments'
-    kernel) reaches after s steps, one step a launch.
-    Returns ``(steps, columns whose stored carry differs at some step,
-    {field: largest difference over the field's largest magnitude})``."""
+                             tags=None, stepper="implicit", one_thread=False):
+    """The land segment VJP's forward against the land rollout: the VJP
+    entry of the scheme (``stepper``, ``solver``, ``iters``; or of
+    ``tags``: another G or launch bound), the group kernel's or, where
+    ``one_thread``, the one-thread kernel's (``csrc/land_column_segment_vjp
+    .cu``), launched on ``operands`` with a scratch buffer of the check's
+    own, then each carry it stored (step s's input) against the carry that
+    the scheme's land rollout reaches after s steps, one step a launch: the
+    group rollout at the VJP's G (the forward segments' kernel), or the
+    one-thread rollout (``csrc/land_column_rollout.cu``, ROADMAP C3's pair
+    before its repair). Returns ``(steps, columns whose stored carry
+    differs at some step, {field: largest difference over the field's
+    largest magnitude})``."""
     carry, inputs, root, coords, params, _ = operands
     U = carry["internal_energy"]
     nz, cells = U.shape
     if tags is None:
-        tags = lv.check_scheme(params, "implicit", solver, iters) + params.tags
-    fn = cuda_build.entry(LAND_VJP_GROUP_SOURCE, U.dtype, nz, lv._argtypes(U.dtype),
-                          tags=tuple(tags))
-    group = lv.vjp_group(U.dtype, nz, tuple(tags), solver)[1]
+        tags = lv.check_scheme(params, stepper, solver, iters) + params.tags
+    source = lv._NAME if one_thread else LAND_VJP_GROUP_SOURCE
+    fn = cuda_build.entry(source, U.dtype, nz, lv._argtypes(U.dtype), tags=tuple(tags))
+    group = None if one_thread else lv.vjp_group(U.dtype, nz, tuple(tags), solver)[1]
     launch, scratch = land_vjp_launcher(fs, lv, ls, fn, group, operands, dt, steps, solver,
                                         iters)
     launch()
+    if one_thread:
+        advance = land_thread_rollout_step(fs, ls, cuda_build, operands, dt, stepper, solver,
+                                           iters)
+    else:
+        kw = {"solver": solver, "picard_iters": iters} if stepper == "implicit" else {}
+
+        def advance(state, t):
+            return ls.ROLLOUTS[stepper](state, inputs, root, *coords, params, dt, t, 1,
+                                        group=group, **kw)
+    rows = LAND_SCRATCH_ROWS[:6 + ("snow" in params.tags)]
     state = carry
     parted = torch.zeros(cells, dtype=torch.bool, device=U.device)
-    gap = dict.fromkeys(("internal_energy", "saturation_water_ice", *LAND_SCRATCH_ROWS), 0.0)
+    gap = dict.fromkeys(("internal_energy", "saturation_water_ice", *rows), 0.0)
     for i in range(steps):
         rec = scratch[i]
         stored = {"internal_energy": rec[:nz], "saturation_water_ice": rec[nz:2 * nz],
-                  **{n: rec[2 * nz + j] for j, n in enumerate(LAND_SCRATCH_ROWS)}}
+                  **{n: rec[2 * nz + j] for j, n in enumerate(rows)}}
         for n, a in stored.items():
             b = state[n]
             d = a != b
@@ -2182,70 +2241,71 @@ def land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps, solver
             scale = float(b.abs().max())
             if scale > 0.0:
                 gap[n] = max(gap[n], float((a - b).abs().max()) / scale)
-        state = ls.land_column_implicit_rollout(state, inputs, root, *coords, params, dt,
-                                                i * dt, 1, solver=solver, picard_iters=iters,
-                                                group=group)
+        state = advance(state, i * dt)
     return steps, int(parted.sum()), gap
 
 
 def land_vjp_group_row(fs, lv, ls, cuda_build, operands, dt, steps, solver, iters, branches,
-                       ptxas_all):
+                       ptxas_all, stepper="implicit"):
     """What the kernel line reports of the land group segment VJP of
-    ImplicitEuler (``solver``, ``iters`` Picard iterations) at the shape of
-    ``operands``: its group size G and levels a lane, ptxas's registers and
-    spill stores, resident warps an SM, SASS instructions, the recompute
-    check (land_vjp_recompute_check at float32: the columns whose stored
-    carries part from the group rollout's, which must be none, and the
-    largest gap) and the bound with each operation weighted by its cost
-    (land_vjp_fma_issues)."""
+    ImplicitEuler (``solver``, ``iters`` Picard iterations) or Heun
+    (``stepper`` ``"heun"``) at the shape of ``operands``: its group size G
+    and levels a lane, ptxas's registers and spill stores, resident warps
+    an SM, SASS instructions, the recompute check (land_vjp_recompute_check
+    at float32: the columns whose stored carries part from the group
+    rollout's, which must be none, and the largest gap) and the bound with
+    each operation weighted by its cost (land_vjp_fma_issues)."""
     carry, _, _, _, params, _ = operands
     U = carry["internal_energy"]
     dtype, (nz, cells) = U.dtype, U.shape
-    tags = lv.check_scheme(params, "implicit", solver, iters) + params.tags
+    tags = lv.check_scheme(params, stepper, solver, iters) + params.tags
     entry = cuda_build._entry_name(LAND_VJP_GROUP_SOURCE, tags, dtype, nz)
-    ptxas = ptxas_all[LAND_VJP_GROUP_SOURCE][entry]["vjp_" + solver]
+    ptxas = ptxas_all[LAND_VJP_GROUP_SOURCE][entry]["vjp_" + (solver or stepper)]
     warps, group = lv.vjp_group(dtype, nz, tags, solver)
     checked, parted, gap = land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps,
-                                                    solver, iters)
+                                                    solver, iters, stepper=stepper)
     if parted:
-        raise AssertionError(f"land group segment VJP {solver} x{iters}: the f32 stored "
-                             f"carries of {parted} columns part from the group rollout's")
-    fma = land_vjp_fma_issues(solver, nz, iters, branches, params)
+        raise AssertionError(f"land group segment VJP {stepper} {solver} x{iters}: the f32 "
+                             f"stored carries of {parted} columns part from the group "
+                             f"rollout's")
+    fma = land_vjp_fma_issues(solver, nz, iters, branches, params, stepper)
     return {"group": group, "levels_a_lane": -(-nz // group),
             "registers": int(ptxas.split()[0]),
             "spill_stores": int(ptxas.split(",")[1].split()[0]),
             "resident_warps_per_sm": warps,
             "sass_instructions": sass_instructions(cuda_build, LAND_VJP_GROUP_SOURCE, entry,
-                                                   False, solver),
+                                                   False, solver or "pcr"),
             "recompute_steps_checked": checked, "recompute_columns_parted_f32": parted,
             "recompute_max_gap_over_magnitude_f32": gap,
             "fma_issues_per_column_step": fma,
             "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
 
 
-def land_group_row(ls, cuda_build, operands, steps, solver, iters, branches, ptxas_all):
+def land_group_row(ls, cuda_build, operands, steps, solver, iters, branches, ptxas_all,
+                   stepper="implicit"):
     """What the kernel line reports of the land group rollout of
     ImplicitEuler (``solver``, ``iters`` Picard iterations; rows 1'f and
-    1'k) at the shape of ``operands`` (carry, inputs, root fraction,
-    coordinates, parameters) over ``steps`` steps: its group size G and
-    levels a lane, ptxas's registers and spill stores, resident warps an SM,
-    SASS instructions and the bound with each operation weighted by its
-    cost (land_fma_issues; ``branches`` as land_branches' means a column and
-    step)."""
+    1'k) or Heun (``stepper`` ``"heun"``, row 1'e) at the shape of
+    ``operands`` (carry, inputs, root fraction, coordinates, parameters)
+    over ``steps`` steps: its group size G and levels a lane, ptxas's
+    registers and spill stores, resident warps an SM, SASS instructions and
+    the bound with each operation weighted by its cost (land_fma_issues;
+    ``branches`` as land_branches' means a column and step)."""
     carry, _, _, _, params = operands
     U = carry["internal_energy"]
     dtype, (nz, cells) = U.dtype, U.shape
-    tags = ls.implicit_tags(solver, iters) + params.tags
+    tags = (ls.implicit_tags(solver, iters) if stepper == "implicit" else (stepper,)) \
+        + params.tags
     entry = cuda_build._entry_name(LAND_GROUP_SOURCE, tags, dtype, nz)
-    ptxas = ptxas_all[LAND_GROUP_SOURCE][entry]["land_" + solver]
+    ptxas = ptxas_all[LAND_GROUP_SOURCE][entry]["land_" + (solver or stepper)]
     warps, group = ls.rollout_group(dtype, nz, tags, solver)
-    fma = land_fma_issues(solver, nz, iters, branches, params)
+    fma = land_fma_issues(solver, nz, iters, branches, params, stepper)
     return {"group": group, "levels_a_lane": -(-nz // group),
             "registers": int(ptxas.split()[0]),
             "spill_stores": int(ptxas.split(",")[1].split()[0]),
             "resident_warps_per_sm": warps,
             "sass_instructions": sass_instructions(cuda_build, LAND_GROUP_SOURCE, entry, False,
-                                                   solver),
+                                                   solver or "pcr"),
             "fma_issues_per_column_step": fma,
             "bound_weighted_ms": fma * cells * steps / H100_FMA_ISSUES * 1e3}
 
@@ -2556,7 +2616,7 @@ def land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname, ptxas_all, 
     source = ls.rollout_source(params, vkey)
     entry = "_".join((source, *stepper_tags, *params.tags, "f32", f"nz{LAND_NZ}"))
     ptxas = ptxas_all[source].get(entry, {}).get(
-        "land" if source == "land_column_rollout" else f"land_{vsolver}")
+        "land" if source == "land_column_rollout" else f"land_{vsolver or vkey}")
     phase(name or f"{vname}_compare", solver=vsolver, picard_iters=viters, cells=LAND_CELLS,
           nz=LAND_NZ, dt=LAND_DT, f32_check_dt=dt,
           steps=LAND_VARIANT_STEPS, f64_cells=LAND_F64_CELLS, f64_rtol=1e-12,
@@ -2577,11 +2637,12 @@ def land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname, ptxas_all, 
                              f"{chain_equal}, finite: {finite}")
     group = None
     if source == LAND_GROUP_SOURCE:
-        # rows 1'f and 1'k on the group kernel: its layout and resources
-        # and the weighted bound
+        # rows 1'e, 1'f and 1'k on the group kernel: its layout and
+        # resources and the weighted bound
         group = land_group_row(ls, cuda_build, (carry, linputs, root, coords, params),
-                               LAND_VARIANT_STEPS, vsolver, viters, v_runs, ptxas_all)
-        phase("group_check", row="1'k" if viters > 1 else "1'f", solver=vsolver,
+                               LAND_VARIANT_STEPS, vsolver, viters, v_runs, ptxas_all, vkey)
+        phase("group_check", row="1'e" if vkey == "heun" else "1'k" if viters > 1 else "1'f",
+              stepper=vkey, solver=vsolver,
               picard_iters=viters, cells=LAND_CELLS, nz=LAND_NZ, steps=LAND_VARIANT_STEPS,
               **group, kernel_ms=v_ms, card=card)
     return dict(key=vkey, solver=vsolver, snow=vsnow, iters=viters, max_abs_err=v_abs, ms=v_ms,
@@ -4450,10 +4511,10 @@ def main():
             # the forward segments' rollout: the group rollout at the VJP's G
             fkw["group"] = lv.vjp_group(torch.float32, LAND_NZ, lv.check_scheme(
                 ops[4], key, solver, iters) + ops[4].tags, solver)[1]
-            # rows 3'e and 3'i: the group VJP's stored carries at float64
-            # equal the group land rollout's bit for bit
+            # rows 3'e, 3'i and 3'j: the group VJP's stored carries at
+            # float64 equal the group land rollout's bit for bit
             recompute64 = land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt, GRAD_INNER,
-                                                   solver, iters)
+                                                   solver, iters, stepper=key)
             if recompute64[1]:
                 raise AssertionError(f"{name}: the f64 group VJP's stored carries of "
                                      f"{recompute64[1]} columns part from the group "
@@ -4494,6 +4555,15 @@ def main():
         gout["surface_excess_water"] = torch.zeros_like(gout["surface_excess_water"])
         f32_err, f32_rel, flips = land_vjp_compare_f32(
             lv, ls, name, carry, linputs, root, coords, params, dt, GRAD_INNER, gout, vkw)
+        c3 = None
+        if source != LAND_VJP_GROUP_SOURCE:
+            # ROADMAP C3: the one-thread VJP's float32 stored carries against
+            # the one-thread rollout's (the forward segments' kernel), which
+            # forms the step out of line where the VJP inlines it
+            c3 = land_vjp_recompute_check(fs, lv, ls, cuda_build,
+                                          (carry, linputs, root, coords, params, gout), dt,
+                                          GRAD_INNER, solver, iters, stepper=key,
+                                          one_thread=True)
         k_ms = cuda_ms(lambda: lv.land_column_segment_vjp(
             carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, gout, **vkw), reps=3,
             warmup=True)
@@ -4511,14 +4581,16 @@ def main():
         b = bound_ms(v_ops * LAND_CELLS * GRAD_INNER,
                      land_vjp_bytes(LAND_NZ, LAND_CELLS, 4, snow))
         del sub, end
+        group = None
         if source == LAND_VJP_GROUP_SOURCE:
-            # rows 3'e and 3'i on the group kernel: its layout and
+            # rows 3'e, 3'i and 3'j on the group kernel: its layout and
             # resources, its float32 stored carries against the group
             # rollout's (none may part), the weighted bound
             group = land_vjp_group_row(fs, lv, ls, cuda_build,
                                        (carry, linputs, root, coords, params, gout), dt,
-                                       GRAD_INNER, solver, iters, runs, ptxas_all)
-            phase("group_check", row="3'i" if iters > 1 else "3'e", solver=solver,
+                                       GRAD_INNER, solver, iters, runs, ptxas_all, key)
+            phase("group_check", row="3'j" if key == "heun" else "3'i" if iters > 1 else "3'e",
+                  stepper=key, solver=solver,
                   picard_iters=iters, cells=LAND_CELLS, nz=LAND_NZ, steps=GRAD_INNER,
                   **group, recompute_f64_cells=LAND_F64_CELLS,
                   recompute_f64_columns_parted=recompute64[1],
@@ -4563,7 +4635,7 @@ def main():
         land_grads[name] = dict(launches=grad_launches["land_column_segment_vjp"],
                                 max_abs_err=max(f32_err.values()), ms=k_ms, plain_ms=p_ms,
                                 bound_ms=b[0], bound_by=b[1], entry=entry, snow=snow,
-                                source=source)
+                                source=source, **(group or {}))
         phase(name, cells=LAND_CELLS, nz=LAND_NZ, dt=dt, steps=GRAD_STEPS,
               inner_steps=GRAD_INNER, stepper=key, solver=solver, picard_iters=iters, snow=snow,
               seconds_median=med,
@@ -4576,7 +4648,8 @@ def main():
               bound_ms=b[0], bound_by=b[1], ops_per_column_step=v_ops,
               branch_runs_per_column_step=runs,
               ptxas=ptxas_all[source].get(entry, {}).get(
-                  "vjp_" + solver if source == LAND_VJP_GROUP_SOURCE else "vjp"),
+                  "vjp_" + (solver or key) if source == LAND_VJP_GROUP_SOURCE else "vjp"),
+              c3_one_thread_recompute_f32=c3,
               f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
               f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
               fd_steps=steps_fd, fd_h=fd_h, fd_rtol=LAND_FD_RTOL,

@@ -19,6 +19,9 @@ which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
     python3 rollout_layout_ab.py land_vjp_time
     python3 rollout_layout_ab.py land_check
     python3 rollout_layout_ab.py land_time
+    python3 rollout_layout_ab.py land_heun_check
+    python3 rollout_layout_ab.py land_heun_time
+    python3 rollout_layout_ab.py land_heun_turns
 
 ``check`` builds both, prints each kernel's registers and spill stores
 (ptxas), SASS instructions (``cuobjdump -sass``) and resident warps an SM,
@@ -94,6 +97,26 @@ nothing but what ``land_variant_compare`` times; ``land_time`` times both
 layouts in turns, then the group kernel at each of G 2, 4, 8, 16 and 32
 with each of 1 to 4 resident blocks an SM, each solver, one and two
 iterations, with the fit time = a + b G over the G sweep.
+
+``land_heun_check`` and ``land_heun_time`` do the same for the land Heun
+rollout (row 1'e: ``land_heun``'s composition and two hourly series, 48
+steps of 600 s) and the land Heun segment VJP (row 3'j: ``land_grad_heun``'s
+operands, one 48-step segment of 60 s), each one thread a column
+(``csrc/land_column_rollout.cu`` and ``csrc/land_column_segment_vjp.cu``,
+built at their first launch) against a column on a group of lanes (the two
+group sources, which ``land_column_heun_rollout`` and
+``land_column_segment_vjp`` launch), at 56,951 x 20 float32.
+``land_heun_check`` prints both layouts' builds, holds the group rollout to
+the plain version (``chip_smoke.land_variant_compare``), the two rollout
+layouts to each other at float64 over 48 steps of 60 s, the group VJP to
+autograd at float64 on 1,024 columns (rtol 1e-9) and its stored carries to
+the group rollout's (float64 and float32 full width; none may part), and
+measures ROADMAP C3 on the one-thread pair (the one-thread VJP's float32
+stored carries against the one-thread rollout's); ``land_heun_time`` times
+both rows' layouts in turns, then each group kernel at each of G 2, 4, 8,
+16 and 32 with each of 1 to 4 resident blocks an SM, in turns, and what a
+gradient segment pays at each G (the forward at the VJP's G plus the VJP);
+``land_heun_turns`` times the two layouts in turns alone.
 Run from the repository root.
 """
 from __future__ import annotations
@@ -814,7 +837,7 @@ def land_kernel_stats(cuda_build, source, one_thread, key, tags, solver, dtype=t
 
     entry = cuda_build._entry_name(source, tags, dtype, nz)
     ptxas = cs.ptxas_summary(cuda_build.ptxas_report(source)).get(entry, {}).get(
-        key if one_thread else f"{key}_{solver}", "")
+        key if one_thread else f"{key}_{solver or 'heun'}", "")
     regs = int(ptxas.split()[0]) if ptxas else None
     spills = int(ptxas.split(",")[1].split()[0]) if "," in ptxas else None
     if one_thread:
@@ -829,7 +852,7 @@ def land_kernel_stats(cuda_build, source, one_thread, key, tags, solver, dtype=t
                      if want.search(name)), 0)
         warps, group = (thread_warps(regs) if regs else None), 1
     else:
-        sass = cs.sass_instructions(cuda_build, source, entry, False, solver)
+        sass = cs.sass_instructions(cuda_build, source, entry, False, solver or "pcr")
         warps, group = ls.group_occupancy(source, dtype, nz, tags, solver)
     return {"entry": entry, "ptxas": ptxas, "registers": regs, "spill_stores": spills,
             "sass": sass, "resident_warps": warps, "group": group}
@@ -969,19 +992,20 @@ def land_key(ls, params, layout, solver, iters, extra=()):
     return (ls._NAME if layout == "one_thread" else ls._GROUP_NAME), tags
 
 
-def land_launcher(fs, ls, fn, operands, time0, solver, iters, steps=cs.LAND_VARIANT_STEPS):
+def land_launcher(fs, ls, fn, operands, time0, solver, iters, steps=cs.LAND_VARIANT_STEPS,
+                  dt=cs.LAND_DT):
     """``() -> carry``: one launch of the land rollout entry ``fn`` (either
     layout: the two take the same arguments) on ``operands`` over ``steps``
-    steps of ``chip_smoke.LAND_DT`` from ``time0``, into an output carry of
-    its own."""
+    steps of ``dt`` from ``time0``, into an output carry of its own."""
     carry, inputs, root, coords, params = operands
     U = carry["internal_energy"]
     out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
     args, keep = ls.launch_args(carry, out, inputs, root, coords, params)
 
     def launch():
-        err = fn(*args, steps, float(time0), float(cs.LAND_DT), U.shape[1],
-                 fs.SOLVER_CODES[solver], int(iters), torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, steps, float(time0), float(dt), U.shape[1],
+                 fs.SOLVER_CODES.get(solver, 0), int(iters),
+                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"land rollout launch failed: cudaError {err}")
         return out
@@ -1122,6 +1146,208 @@ def land_timing(tp, fs, cuda_build, card):
                 fit_ms_a_plus_b_G=fits, card=card)
 
 
+#: the land Heun rows' group sizes measured (G 2: L 10 at Nz 20)
+LAND_HEUN_GROUP_SIZES = (2,) + GROUP_SIZES
+
+
+def land_heun_operands(tp, dtype=torch.float32, cells=cs.LAND_CELLS):
+    """Carry, inputs (``land_consistent``'s two hourly series and its static
+    inputs), root fraction, coordinates and parameters of row 1'e
+    (``chip_smoke.py``'s ``land_heun`` operands), and the clock time they
+    start from."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    sim = cs.land_sim(tp, cells, dtype, "consistent", stepper=tp.Heun(dt=cs.LAND_DT))
+    return cs.land_operands(ls, land_inputs, sim), float(sim.state.clock.time)
+
+
+def land_heun_vjp_operands(tp, dtype=torch.float32, cells=cs.LAND_CELLS):
+    """Carry, static inputs, root fraction, coordinates, parameters and
+    seeded output cotangents of row 3'j (``chip_smoke.py``'s
+    ``land_grad_heun`` operands, the pool's output cotangent 0 as there),
+    and its dt."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    sim = cs.land_grad_sim(tp, cells, dtype, "land_grad_heun")
+    ops = cs.land_grad_operands(ls, land_inputs, sim, seed=11)
+    ops[5]["surface_excess_water"] = torch.zeros_like(ops[5]["surface_excess_water"])
+    return ops, cs.LAND_GRAD_SCHEMES["land_grad_heun"][2]
+
+
+def land_heun_keys(ls, lv, params, layout, extra=()):
+    """``{"rollout": (source, tags), "vjp": (source, tags)}`` of the land
+    Heun entries of ``layout`` (``"one_thread"`` or ``"group"``, with
+    ``extra`` tags: another G or launch bound)."""
+    tags = ("heun",) + params.tags + tuple(extra)
+    one = layout == "one_thread"
+    return {"rollout": (ls._NAME if one else ls._GROUP_NAME, tags),
+            "vjp": (lv._NAME if one else lv._GROUP_NAME, tags)}
+
+
+def land_heun_prebuild(cuda_build, ls, lv, params, layouts, extras=((),),
+                       dtypes=(torch.float32,)):
+    """Build the land Heun entries of ``layouts`` and ``extras`` at each of
+    ``dtypes`` together (cuda_build.build's threads, one nvcc a core)."""
+    import concurrent.futures
+
+    keys = [land_heun_keys(ls, lv, params, layout, extra) for layout in layouts
+            for extra in extras]
+    jobs = [(src, tags, dtype, argtypes) for k in keys for dtype in dtypes
+            for (src, tags), argtypes in ((k["rollout"], ls._argtypes(dtype)),
+                                          (k["vjp"], lv._argtypes(dtype)))]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(cuda_build.entry, src, dtype, cs.LAND_NZ, argtypes, tags=tags)
+                  for src, tags, dtype, argtypes in jobs]:
+            f.result()
+
+
+def land_heun_check(tp, fs, cuda_build, card):
+    """Rows 1'e and 3'j: both layouts' builds; the group rollout (through
+    ``land_column_heun_rollout``) against the plain version
+    (``chip_smoke.land_variant_compare``); the two rollout layouts against
+    each other at float64 on 1,024 columns over 48 steps of 60 s (the
+    columns whose carries part); the group VJP against autograd at float64
+    on 1,024 columns (rtol 1e-9), its stored carries against the group
+    rollout's (float64 and float32 at full width: none may part); ROADMAP
+    C3 on the one-thread pair (the one-thread VJP's float32 stored carries
+    against the one-thread rollout's, at full width); times nothing but
+    what land_variant_compare times."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    (_, _, _, _, params), _ = land_heun_operands(tp, cells=8)
+    land_heun_prebuild(cuda_build, ls, lv, params, ("group", "one_thread"),
+                       dtypes=(torch.float32, torch.float64))
+    stats = {}
+    for layout in ("one_thread", "group"):
+        keys = land_heun_keys(ls, lv, params, layout)
+        stats[layout] = {"rollout": land_stats(fs, cuda_build, ls, *keys["rollout"], None),
+                         "vjp": land_vjp_stats(fs, cuda_build, lv, *keys["vjp"], None)}
+    out(check="land_heun_build", rows=["1'e", "3'j"], **stats, card=card)
+    ptxas_all = {n: cs.ptxas_summary(cuda_build.ptxas_report(n))
+                 for n in (ls._NAME, ls._GROUP_NAME)}
+    cs.land_variant_compare(tp, ls, fs, cuda_build, land_inputs, "land_heun", ptxas_all, card,
+                            name="land_heun_check_1'e")
+    ops64, t64 = land_heun_operands(tp, torch.float64, LAND_VJP_F64_CELLS)
+    outs = {}
+    for layout in ("one_thread", "group"):
+        source, tags = land_heun_keys(ls, lv, params, layout)["rollout"]
+        fn = cuda_build.entry(source, torch.float64, cs.LAND_NZ, ls._argtypes(torch.float64),
+                              tags=tags)
+        outs[layout] = land_launcher(fs, ls, fn, ops64, t64, None, 1,
+                                     dt=cs.LAND_HEUN_F32_DT)()
+    parted = torch.zeros(LAND_VJP_F64_CELLS, dtype=torch.bool, device="cuda")
+    for n, a in outs["group"].items():
+        d = a != outs["one_thread"][n]
+        parted |= d.any(0) if d.dim() == 2 else d
+    del ops64, outs
+    ops, dt = land_heun_vjp_operands(tp, torch.float64, LAND_VJP_F64_CELLS)
+    kw = {"stepper": "heun", "solver": None, "picard_iters": 1}
+    errs, rel, left_out = cs.land_vjp_compare(lv, ls, *ops[:5], dt, cs.GRAD_INNER, ops[5], kw,
+                                              1e-9, LAND_VJP_F64_CELLS)
+    recompute = {"f64": cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                    cs.GRAD_INNER, None, 1, stepper="heun")}
+    del ops
+    ops, dt = land_heun_vjp_operands(tp)
+    recompute["f32"] = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                   cs.GRAD_INNER, None, 1, stepper="heun")
+    c3 = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt, cs.GRAD_INNER, None, 1,
+                                     stepper="heun", one_thread=True)
+    del ops
+    out(check="land_heun_teacher", rows=["1'e", "3'j"],
+        f64_group_vs_one_thread_rollout_columns_parted=int(parted.sum()),
+        f64_group_vs_one_thread_rollout=[LAND_VJP_F64_CELLS, cs.LAND_NZ, cs.LAND_VARIANT_STEPS,
+                                         cs.LAND_HEUN_F32_DT],
+        vjp_f64=[LAND_VJP_F64_CELLS, cs.LAND_NZ, cs.GRAD_INNER, dt], vjp_f64_rtol=1e-9,
+        vjp_f64_max_abs_err=errs, vjp_f64_max_err_over_magnitude=rel,
+        vjp_f64_columns_left_out=left_out,
+        recompute_group_steps_columns_parted_max_gap=recompute,
+        c3_one_thread_pair_f32_steps_columns_parted_max_gap=c3, card=card)
+    if any(r[1] for r in recompute.values()):
+        raise AssertionError(f"3'j: the group VJP's stored carries part from the group "
+                             f"rollout's: {recompute}")
+
+
+def land_heun_timing(tp, fs, cuda_build, card, sweep=True):
+    """Rows 1'e and 3'j, both layouts in turns at 56,951 x 20 float32 (the
+    rollout over 48 steps of 600 s with ``land_heun``'s two series, the VJP
+    over one 48-step segment of 60 s); then, where ``sweep``, each group
+    kernel at each G (2 to 32) and each launch bound (1 to 4 resident
+    blocks of 256 threads an SM), in turns, the rollout also over the
+    gradient's segment (48 steps of 60 s, the VJP's static inputs), and
+    what a gradient segment pays at each G: that forward at the G plus the
+    VJP at the G, each at its fastest launch bound."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    f32 = torch.float32
+    variants = {f"g{g}_mb{b}": (f"g{g}", f"mb{b}") for g in LAND_HEUN_GROUP_SIZES
+                for b in MIN_BLOCKS}
+    ops, time0 = land_heun_operands(tp)
+    params = ops[4]
+    land_heun_prebuild(cuda_build, ls, lv, params, ("group", "one_thread"),
+                       extras=((),) + (tuple(variants.values()) if sweep else ()))
+    vops, dt = land_heun_vjp_operands(tp)
+    gops = vops[:5]
+    med = {}
+    for row in ("rollout", "vjp"):
+        fns, stats = {}, {}
+        for layout in ("one_thread", "group"):
+            source, tags = land_heun_keys(ls, lv, params, layout)[row]
+            if row == "rollout":
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+                stats[layout] = land_stats(fs, cuda_build, ls, source, tags, None)
+                fns[layout] = land_launcher(fs, ls, fn, ops, time0, None, 1)
+            else:
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
+                stats[layout] = land_vjp_stats(fs, cuda_build, lv, source, tags, None)
+                fns[layout] = cs.land_vjp_launcher(
+                    fs, lv, ls, fn, None if layout == "one_thread" else stats[layout]["group"],
+                    vops, dt, cs.GRAD_INNER, None, 1)[0]
+        t = vjp_turns(fns)
+        out(time={"rollout": "1'e", "vjp": "3'j"}[row], cells=cs.LAND_CELLS, nz=cs.LAND_NZ,
+            dt=cs.LAND_DT if row == "rollout" else dt,
+            steps=cs.LAND_VARIANT_STEPS if row == "rollout" else cs.GRAD_INNER, ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, kernels=stats, card=card)
+    if not sweep:
+        return
+    for row in ("rollout", "segment_forward", "vjp"):
+        fns, stats = {}, {}
+        for vname, extra in variants.items():
+            source, tags = land_heun_keys(ls, lv, params, "group", extra)[
+                "vjp" if row == "vjp" else "rollout"]
+            if row == "vjp":
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
+                stats[vname] = land_vjp_stats(fs, cuda_build, lv, source, tags, None)
+                fns[vname] = cs.land_vjp_launcher(fs, lv, ls, fn, stats[vname]["group"], vops,
+                                                  dt, cs.GRAD_INNER, None, 1)[0]
+            else:
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+                stats[vname] = land_stats(fs, cuda_build, ls, source, tags, None)
+                fns[vname] = (land_launcher(fs, ls, fn, ops, time0, None, 1) if row == "rollout"
+                              else land_launcher(fs, ls, fn, gops, 0.0, None, 1,
+                                                 steps=cs.GRAD_INNER, dt=dt))
+            got = fns[vname]()
+            got = got[0] if row == "vjp" else got
+            if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+                raise AssertionError(f"land Heun {row} {vname}: non-finite")
+        t = vjp_turns(fns)
+        med[row] = {n: float(np.median(v)) for n, v in t.items()}
+        out(time=f"land_heun_{row}_variants", cells=cs.LAND_CELLS, nz=cs.LAND_NZ,
+            dt=cs.LAND_DT if row == "rollout" else dt,
+            steps=cs.LAND_VARIANT_STEPS if row == "rollout" else cs.GRAD_INNER,
+            kernels=stats, ms=t, median_ms=med[row], card=card)
+    best = {row: {g: min(med[row][f"g{g}_mb{b}"] for b in MIN_BLOCKS)
+                  for g in LAND_HEUN_GROUP_SIZES} for row in ("segment_forward", "vjp")}
+    out(time="land_heun_gradient_segment_by_G", cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=dt,
+        steps=cs.GRAD_INNER, best_ms=best,
+        forward_plus_vjp_ms={g: best["segment_forward"][g] + best["vjp"][g]
+                             for g in LAND_HEUN_GROUP_SIZES}, card=card)
+
+
 def vjp_turns(fns):
     """``{name: [ms, ...]}``: each launcher of ``fns`` timed in the turns a,
     b, ..., ..., b, a, each turn the times of TURN_REPS launches after a
@@ -1151,7 +1377,10 @@ def main():
      "vjp_time": vjp_timing, "explicit_vjp_check": explicit_vjp_check,
      "explicit_vjp_time": explicit_vjp_timing, "land_vjp_check": land_vjp_check,
      "land_vjp_time": land_vjp_timing, "land_check": land_check,
-     "land_time": land_timing}[mode](tp, fs, cuda_build, card)
+     "land_time": land_timing, "land_heun_check": land_heun_check,
+     "land_heun_time": land_heun_timing,
+     "land_heun_turns": lambda *a: land_heun_timing(*a, sweep=False)}[mode](
+        tp, fs, cuda_build, card)
 
 
 if __name__ == "__main__":

@@ -1,20 +1,23 @@
-// LandModel ImplicitEuler rollout for Hopper (sm_90a), a column on a group
-// of lanes: Thomas or PCR solves, any number of Picard iterations, Richards
-// flow, with or without vegetation, either retention curve and
-// conductivity, no snowpack; static inputs or uniform series read at each
-// clock time.
+// LandModel ImplicitEuler and Heun rollouts for Hopper (sm_90a), a column
+// on a group of lanes: ImplicitEuler with Thomas or PCR solves and any
+// number of Picard iterations, or Heun; Richards flow, with or without
+// vegetation, either retention curve and conductivity, no snowpack; static
+// inputs or uniform series read at each clock time (Heun's stage at t + dt
+// too).
 //
 // Replaces terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout
-// (kernel body :507, pallas_call :557) traced over a LandModel ImplicitEuler
-// step (terrarium_tpu/timesteppers/implicit.py:173, the Picard loop
-// :234-254). csrc/land_column_rollout.cu runs every other land rollout (the
-// snowpack, NoFlow, ForwardEuler and Heun), one thread a column.
+// (kernel body :507, pallas_call :557) traced over a LandModel
+// ImplicitEuler step (terrarium_tpu/timesteppers/implicit.py:173, the
+// Picard loop :234-254) or Heun step (terrarium_tpu/timesteppers/
+// stepping.py:167-188). csrc/land_column_rollout.cu runs every other land
+// rollout (the snowpack, NoFlow, ForwardEuler), one thread a column.
 //
 // A column runs on a group of G lanes of one warp, L = ceil(NZ / G) soil
 // levels a lane (land::GroupColumn in land_group_step.cuh, built on
-// soil::GroupColumn; G from land::rollout_group_lanes(NZ, SOLVER), or
-// SOIL_GROUP where a build defines it), and the group applies `steps`
-// steps of GroupColumn::picard_step, the step the land group segment VJP
+// soil::GroupColumn; G from land::rollout_group_lanes(NZ, SOLVER) or
+// land::heun_rollout_group_lanes(NZ), or SOIL_GROUP where a build defines
+// it), and the group applies `steps` steps of GroupColumn::picard_step or
+// GroupColumn::heun_step, the step the land group segment VJP
 // (csrc/land_column_group_segment_vjp.cu) recomputes with: so at the same G
 // the carries that the VJP stores equal this kernel's bit for bit (the land
 // gradient's forward segments launch a g<G> build at the VJP's G). The
@@ -34,7 +37,9 @@
 // time (Nz 20 f32, G 4: 128 registers, 284 bytes of spill stores, 16
 // warps). The surface block, one value a column, runs on every lane of a
 // group, so it costs G times one column's issue slots: a launch gains only
-// 1.06-1.16x over one thread a column (PERF.md sections 6 and 7).
+// 1.06-1.16x over one thread a column (PERF.md sections 6 and 7); Heun,
+// two surface blocks a step and no solve to spread, about 1.0-1.16x (G 4,
+// 3 blocks: 80 registers, 492 bytes of spill stores, 24 warps).
 //
 // Memory layout: fields are (NZ, cells), k = 0 the bottom layer; element
 // (k, col) at k * cells + col. The groups of the last block beyond `cells`
@@ -43,8 +48,9 @@
 //
 // Plain C interface, loaded with ctypes: one entry point per instantiation
 // (SOIL_ENTRY, with SOIL_T, SOIL_NZ, LAND_VEG, LAND_RICHARDS 1, LAND_CURVE,
-// LAND_COND, SOIL_STEPPER 2, SOIL_SOLVER 0 Thomas, 1 PCR or 2 both, a kernel
-// each, and SOIL_PICARD), with the arguments of csrc/land_column_rollout.cu's
+// LAND_COND, SOIL_STEPPER 1 Heun or 2 ImplicitEuler, the last with
+// SOIL_SOLVER 0 Thomas, 1 PCR or 2 both, a kernel each, and SOIL_PICARD),
+// with the arguments of csrc/land_column_rollout.cu's
 // entries, launching the kernel of the solver that its `solver` argument
 // names and returning cudaGetLastError(); and <SOIL_ENTRY>_warps, the
 // kernel's resident warps an SM and its G.
@@ -55,11 +61,11 @@
 
 #if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ) || !defined(LAND_VEG) || \
     !defined(LAND_RICHARDS)
-#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 -DSOIL_STEPPER=2 -DSOIL_SOLVER=0|1|2 [-DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 -DSOIL_STEPPER=1|2 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
 #endif
-#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || SOIL_STEPPER != 2 || \
+#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || (SOIL_STEPPER != 1 && SOIL_STEPPER != 2) || \
     (defined(LAND_SNOW) && LAND_SNOW)
-#error "the land group rollout runs ImplicitEuler over Richards flow without a snowpack"
+#error "the land group rollout runs ImplicitEuler or Heun over Richards flow without a snowpack"
 #endif
 #ifndef LAND_CURVE
 #define LAND_CURVE 0
@@ -84,24 +90,29 @@ constexpr int THREADS = 256;  // a block: 256 / G columns
 // section 6; 48 steps, one and two Picard iterations): PCR 1 to 4 blocks
 // 14.39/28.42, 8.95/17.35 (128 registers, 284 bytes of spill stores, 16
 // warps), 9.48/17.09 and 9.03/18.62 ms; Thomas 10.72/20.59, 6.69/13.04 (128
-// registers, 288 bytes), 6.33/13.87 and 7.17/14.33 ms: 2 for both
+// registers, 288 bytes), 6.33/13.87 and 7.17/14.33 ms: 2 for both. Heun
+// at G 4 (rollout_layout_ab.py land_heun_time, 48 steps of 600 s, and of
+// 60 s at the gradient's static inputs): 13.11/13.68, 7.89/8.25 (128
+// registers, 128 bytes), 6.86/6.41 (80 registers, 492 bytes, 24 warps) and
+// 7.13/5.81 ms: 3
 #ifdef SOIL_MIN_BLOCKS
 constexpr int MIN_BLOCKS = SOIL_MIN_BLOCKS;
 #else
-constexpr int MIN_BLOCKS = 2;
+constexpr int MIN_BLOCKS = SOIL_STEPPER == 1 ? 3 : 2;
 #endif
 
-// the group size of a kernel of SOLVER
-template <int NZ, int SOLVER>
+// the group size of a kernel of STEPPER (and SOLVER)
+template <int NZ, int STEPPER, int SOLVER>
 constexpr int group_of() {
 #ifdef SOIL_GROUP
     return SOIL_GROUP;
 #else
-    return land::rollout_group_lanes(NZ, SOLVER);
+    return STEPPER == soil::STEPPER_HEUN ? land::heun_rollout_group_lanes(NZ)
+                                         : land::rollout_group_lanes(NZ, SOLVER);
 #endif
 }
 
-template <typename T, int NZ, int G, int SOLVER>
+template <typename T, int NZ, int G, int STEPPER, int SOLVER>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) land_column_group_rollout_kernel(
     const LandCarry in, const LandCarry out, const LandInputs inputs,
     const T* __restrict__ root, const long long root_row_stride,
@@ -143,7 +154,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) land_column_group_rollout
     for (int i = 0; i < LAND_NIN; ++i)
         f.v[i] = static_cast<const T*>(inputs.ptr[i])[col * inputs.cell_stride[i]];
 
-    column.template rollout<SOLVER>(U, sat, s, f, inputs, col, time0, steps, dt, inv_dt, iters);
+    column.template rollout<STEPPER, SOLVER>(U, sat, s, f, inputs, col, time0, steps, dt, inv_dt,
+                                              iters);
     if (!live) return;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
@@ -165,15 +177,15 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) land_column_group_rollout
     }
 }
 
-template <typename T, int NZ, int SOLVER>
+template <typename T, int NZ, int STEPPER, int SOLVER>
 int launch(const LandCarry* in, const LandCarry* out, const LandInputs* inputs, const T* root,
            long long root_row_stride, long long root_cell_stride, const T* dz, const T* dzf,
            const T* zc, const T* zf, const LandColumnParams<T>* P, int steps, double time0,
            double dt, long long cells, int iters, cudaStream_t stream)
 {
-    constexpr int G = group_of<NZ, SOLVER>();
+    constexpr int G = group_of<NZ, STEPPER, SOLVER>();
     const unsigned blocks = (unsigned)((cells * G + THREADS - 1) / THREADS);
-    land_column_group_rollout_kernel<T, NZ, G, SOLVER><<<blocks, THREADS, 0, stream>>>(
+    land_column_group_rollout_kernel<T, NZ, G, STEPPER, SOLVER><<<blocks, THREADS, 0, stream>>>(
         *in, *out, *inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, *P, steps,
         T(time0), T(dt), T(1.0 / dt), cells, iters);
     return (int)cudaGetLastError();
@@ -183,18 +195,21 @@ int launch(const LandCarry* in, const LandCarry* out, const LandInputs* inputs, 
 template <int SOLVER>
 int warps_of(int* group)
 {
-    constexpr int G = group_of<SOIL_NZ, SOLVER>();
+    constexpr int G = group_of<SOIL_NZ, SOIL_STEPPER, SOLVER>();
     int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, land_column_group_rollout_kernel<SOIL_T, SOIL_NZ, G, SOLVER>, THREADS, 0);
+        &blocks, land_column_group_rollout_kernel<SOIL_T, SOIL_NZ, G, SOIL_STEPPER, SOLVER>,
+        THREADS, 0);
     *group = G;
     return err == cudaSuccess ? blocks * THREADS / 32 : -1;
 }
 
-// an entry of both solvers (SOIL_SOLVER 2, the Picard entries) holds a
-// kernel of each; any other entry one, of ENTRY_SOLVER
-#define BOTH_SOLVERS (SOIL_SOLVER == 2)
-constexpr int ENTRY_SOLVER = SOIL_SOLVER != 2 ? SOIL_SOLVER : soil::SOLVER_PCR;
+// an ImplicitEuler entry of both solvers (SOIL_SOLVER 2, the Picard
+// entries) holds a kernel of each; any other entry one, of ENTRY_SOLVER
+// (Heun's solves nothing: its kernel's SOLVER is PCR's code, unread)
+#define BOTH_SOLVERS (SOIL_STEPPER == 2 && SOIL_SOLVER == 2)
+constexpr int ENTRY_SOLVER = SOIL_STEPPER == 2 && SOIL_SOLVER != 2 ? SOIL_SOLVER
+                                                                   : soil::SOLVER_PCR;
 
 }  // namespace
 
@@ -202,12 +217,12 @@ constexpr int ENTRY_SOLVER = SOIL_SOLVER != 2 ? SOIL_SOLVER : soil::SOLVER_PCR;
 #define SOIL_CAT(a, b) SOIL_CAT2(a, b)
 
 // One entry point per instantiation, named SOIL_ENTRY
-// (land_column_group_rollout_implicit_<thomas|pcr|picard>_<bare|veg>_
+// (land_column_group_rollout_<heun|implicit_<thomas|pcr|picard>>_<bare|veg>_
 // richards_<vg|bc>_<mualem|linear>[_g<G>][_mb<B>]_<f32|f64>_nz<NZ>), with the
 // arguments of the one-thread land rollout's entries
 // (csrc/land_column_rollout.cu): cudaErrorInvalidValue for a solver code
-// other than 0 and 1 or one the entry was not built for, a Picard count
-// below 1, or one other than 1 without SOIL_PICARD.
+// other than 0 and 1 or, ImplicitEuler's, one the entry was not built for,
+// a Picard count below 1, or one other than 1 without SOIL_PICARD.
 extern "C" int SOIL_ENTRY(const LandCarry* in, const LandCarry* out, const LandInputs* inputs,
                           const SOIL_T* root, long long root_row_stride,
                           long long root_cell_stride, const SOIL_T* dz, const SOIL_T* dzf,
@@ -215,13 +230,16 @@ extern "C" int SOIL_ENTRY(const LandCarry* in, const LandCarry* out, const LandI
                           int steps, double time0, double dt, long long cells, int solver,
                           int picard, void* stream)
 {
+    static_assert(SOIL_STEPPER == soil::STEPPER_IMPLICIT || !SOIL_PICARD,
+                  "the Picard iterations are ImplicitEuler's");
     if (picard < 1 || (!SOIL_PICARD && picard != 1) || (solver != 0 && solver != 1)
-        || (!BOTH_SOLVERS && solver != ENTRY_SOLVER))
+        || (SOIL_STEPPER == soil::STEPPER_IMPLICIT && !BOTH_SOLVERS && solver != ENTRY_SOLVER))
         return (int)cudaErrorInvalidValue;
 #define SOIL_LAUNCH(SOLVER)                                                                    \
-    launch<SOIL_T, SOIL_NZ, SOLVER>(in, out, inputs, root, root_row_stride, root_cell_stride, \
-                                    dz, dzf, zc, zf, P, steps, time0, dt, cells, picard,      \
-                                    (cudaStream_t)stream)
+    launch<SOIL_T, SOIL_NZ, SOIL_STEPPER, SOLVER>(in, out, inputs, root, root_row_stride,      \
+                                                  root_cell_stride, dz, dzf, zc, zf, P, steps, \
+                                                  time0, dt, cells, picard,                   \
+                                                  (cudaStream_t)stream)
 #if BOTH_SOLVERS
     if (solver == soil::SOLVER_THOMAS) return SOIL_LAUNCH(soil::SOLVER_THOMAS);
 #endif

@@ -1,23 +1,26 @@
-// Segment VJP of the LandModel's ImplicitEuler rollout for Hopper (sm_90a),
-// a column on a group of lanes: Thomas or PCR solves, any number of Picard
-// iterations, Richards flow, with or without vegetation, either retention
-// curve and conductivity, no snowpack.
+// Segment VJP of the LandModel's ImplicitEuler and Heun rollouts for Hopper
+// (sm_90a), a column on a group of lanes: ImplicitEuler with Thomas or PCR
+// solves and any number of Picard iterations, or Heun; Richards flow, with
+// or without vegetation, either retention curve and conductivity, no
+// snowpack.
 //
 // Replaces terrarium_tpu/ops/fused_vjp.py::make_segment_vjp (kernel :225,
 // pallas_call :344) traced over a LandModel ImplicitEuler step
-// (terrarium_tpu/timesteppers/implicit.py:173, the Picard loop :234-254).
+// (terrarium_tpu/timesteppers/implicit.py:173, the Picard loop :234-254) or
+// Heun step (terrarium_tpu/timesteppers/stepping.py:167-188).
 // Given the segment's input carry (U and sat; the pool, skin temperature,
 // canopy water, carbon, vegetation fraction and net assimilation) and the
 // cotangents of its output carry, it returns the cotangents of the input
 // carry and of the two differentiated parameters, K_sat and sk_mineral.
 // csrc/land_column_segment_vjp.cu runs every other land segment VJP (the
-// snowpack, NoFlow, ForwardEuler and Heun), one thread a column.
+// snowpack, NoFlow, ForwardEuler), one thread a column.
 //
 // A column runs on a group of G lanes of one warp, L = ceil(NZ / G) soil
 // levels a lane (land::GroupColumn in land_group_step.cuh, built on
-// soil::GroupColumn; G from land::implicit_group_lanes(NZ, SOLVER), or
-// SOIL_GROUP where a build defines it):
-// 1. forward: `steps` applications of GroupColumn::picard_step; each
+// soil::GroupColumn; G from land::implicit_group_lanes(NZ, SOLVER) or
+// land::heun_group_lanes(NZ), or SOIL_GROUP where a build defines it):
+// 1. forward: `steps` applications of GroupColumn::picard_step (Heun:
+//    GroupColumn::heun_step, the group rollout's own step); each
 //    step's input carry (2 NZ + 6 values) goes to a global scratch buffer
 //    laid out [step][row][cell], as the one-thread kernel's;
 // 2. reverse sweep: for each step from the last, reload its carry and take
@@ -29,7 +32,10 @@
 //    shares gathered across lanes in the one-thread adjoint's order, the
 //    reverse sweeps' cotangent carried across lanes by a ballot and a
 //    shuffle) and the surface block's, its ten forward-mode passes split
-//    across the group's lanes, lane j the input directions j, j + G, ...
+//    across the group's lanes, lane j the input directions j, j + G, ...;
+//    Heun: GroupColumn::heun_step_adjoint, the stage recomputed by the
+//    rollout's heun_stage, then the closure's adjoint twice, at the stage
+//    and at x_n, each with the surface block's passes split so
 // The parameter cotangents are summed in a fixed order: each lane's running
 // sum, a shuffle tree over the group, a tree over the block's groups in
 // shared memory into per-block partials, then a second kernel over the
@@ -43,7 +49,9 @@
 // ceil(10 / G) of the surface passes (Nz 20 f32: PCR G 4, Thomas G 8, 128
 // registers, 1,900 and 884 bytes of spill stores, 16 warps), and a segment
 // runs 2.2-2.8x faster, 17-22x its operation-weighted bound (PERF.md
-// section 6).
+// section 6). Heun (G 4, 3 blocks: 80 registers, 2,168 bytes of spill
+// stores, 24 warps) runs about 2x faster than one thread a column, whose
+// 255 registers spilled 4,356 bytes.
 //
 // Memory layout: fields are (NZ, cells), k = 0 the bottom layer; element
 // (k, col) at k * cells + col. The groups of the last block beyond `cells`
@@ -53,8 +61,9 @@
 //
 // Plain C interface, loaded with ctypes: one entry point per instantiation
 // (SOIL_ENTRY, with SOIL_T, SOIL_NZ, LAND_VEG, LAND_RICHARDS 1, LAND_CURVE,
-// LAND_COND, SOIL_STEPPER 2, SOIL_SOLVER 0 Thomas, 1 PCR or 2 both, a kernel
-// each, and SOIL_PICARD), with the arguments of
+// LAND_COND, SOIL_STEPPER 1 Heun or 2 ImplicitEuler, the last with
+// SOIL_SOLVER 0 Thomas, 1 PCR or 2 both, a kernel each, and SOIL_PICARD),
+// with the arguments of
 // csrc/land_column_segment_vjp.cu's entries, launching the kernel of the
 // solver that its `solver` argument names and the reduction and returning
 // cudaGetLastError(); and <SOIL_ENTRY>_warps, the kernel's resident warps
@@ -66,11 +75,11 @@
 
 #if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ) || !defined(LAND_VEG) || \
     !defined(LAND_RICHARDS)
-#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 -DSOIL_STEPPER=2 -DSOIL_SOLVER=0|1|2 [-DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 -DSOIL_STEPPER=1|2 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
 #endif
-#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || SOIL_STEPPER != 2 || \
+#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || (SOIL_STEPPER != 1 && SOIL_STEPPER != 2) || \
     (defined(LAND_SNOW) && LAND_SNOW)
-#error "the land group segment VJP runs ImplicitEuler over Richards flow without a snowpack"
+#error "the land group segment VJP runs ImplicitEuler or Heun over Richards flow without a snowpack"
 #endif
 #ifndef LAND_CURVE
 #define LAND_CURVE 0
@@ -97,24 +106,27 @@ constexpr int kReduceThreads = 256;
 // blocks 94.98/212.30, 54.56/124.88 (128 registers, 936 bytes of spill
 // stores, 16 warps), 64.59/149.01 and 66.34/164.40 ms; Thomas at G 4
 // 54.86/121.26, 48.27/108.57 (128 registers, 2,244 bytes), 55.50/137.43 and
-// 52.18/131.56 ms: 2 blocks for both
+// 52.18/131.56 ms: 2 blocks for both. Heun at G 4 (land_heun_time, 48
+// steps of 60 s): 76.99 ms (255 registers), 57.03 (128, 1,516 bytes),
+// 54.66 (80, 2,168 bytes, 24 warps) and 62.37 ms: 3 blocks
 #ifdef SOIL_MIN_BLOCKS
 constexpr int MIN_BLOCKS = SOIL_MIN_BLOCKS;
 #else
-constexpr int MIN_BLOCKS = 2;
+constexpr int MIN_BLOCKS = SOIL_STEPPER == 1 ? 3 : 2;
 #endif
 
-// the group size of a kernel of SOLVER
-template <int NZ, int SOLVER>
+// the group size of a kernel of STEPPER (and SOLVER)
+template <int NZ, int STEPPER, int SOLVER>
 constexpr int group_of() {
 #ifdef SOIL_GROUP
     return SOIL_GROUP;
 #else
-    return land::implicit_group_lanes(NZ, SOLVER);
+    return STEPPER == soil::STEPPER_HEUN ? land::heun_group_lanes(NZ)
+                                         : land::implicit_group_lanes(NZ, SOLVER);
 #endif
 }
 
-template <typename T, int NZ, int G, int SOLVER>
+template <typename T, int NZ, int G, int STEPPER, int SOLVER>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 land_column_group_segment_vjp_kernel(
     const LandCarry in, const LandCarry gout, const LandCarry gin, const LandInputs inputs,
@@ -172,8 +184,9 @@ land_column_group_segment_vjp_kernel(
         f.v[i] = static_cast<const T*>(inputs.ptr[i])[col * inputs.cell_stride[i]];
     T gKsat[1] = {T(0)}, gskm[1] = {T(0)};
 
-    column.template segment_vjp<SOLVER>(U, sat, s, gU, gs, gsc, scratch, col, cells, live, f,
-                                        steps, dt, inv_dt, iters, gKsat, gskm);
+    column.template segment_vjp<STEPPER, SOLVER>(U, sat, s, gU, gs, gsc, scratch, col, cells,
+                                                 live, f, inputs, steps, dt, inv_dt, iters,
+                                                 gKsat, gskm);
     if (live) {
 #pragma unroll
         for (int l = 0; l < L; ++l) {
@@ -239,16 +252,16 @@ __global__ void __launch_bounds__(kReduceThreads) land_column_group_segment_vjp_
     }
 }
 
-template <typename T, int NZ, int SOLVER>
+template <typename T, int NZ, int STEPPER, int SOLVER>
 int launch(const LandCarry* in, const LandCarry* gout, const LandCarry* gin,
            const LandInputs* inputs, const T* root, long long root_row_stride,
            long long root_cell_stride, const T* dz, const T* dzf, const T* zc, const T* zf,
            const LandColumnParams<T>* P, T* scratch, T* partials, T* gparams, int steps,
            double dt, long long cells, int iters, cudaStream_t stream)
 {
-    constexpr int G = group_of<NZ, SOLVER>();
+    constexpr int G = group_of<NZ, STEPPER, SOLVER>();
     const int blocks = (int)((cells * G + THREADS - 1) / THREADS);
-    land_column_group_segment_vjp_kernel<T, NZ, G, SOLVER><<<blocks, THREADS, 0, stream>>>(
+    land_column_group_segment_vjp_kernel<T, NZ, G, STEPPER, SOLVER><<<blocks, THREADS, 0, stream>>>(
         *in, *gout, *gin, *inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, *P,
         scratch, partials, steps, T(dt), T(1.0 / dt), cells, iters);
     const cudaError_t err = cudaGetLastError();
@@ -262,18 +275,21 @@ int launch(const LandCarry* in, const LandCarry* gout, const LandCarry* gin,
 template <int SOLVER>
 int warps_of(int* group)
 {
-    constexpr int G = group_of<SOIL_NZ, SOLVER>();
+    constexpr int G = group_of<SOIL_NZ, SOIL_STEPPER, SOLVER>();
     int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, land_column_group_segment_vjp_kernel<SOIL_T, SOIL_NZ, G, SOLVER>, THREADS, 0);
+        &blocks, land_column_group_segment_vjp_kernel<SOIL_T, SOIL_NZ, G, SOIL_STEPPER, SOLVER>,
+        THREADS, 0);
     *group = G;
     return err == cudaSuccess ? blocks * THREADS / 32 : -1;
 }
 
-// an entry of both solvers (SOIL_SOLVER 2, the Picard entries) holds a
-// kernel of each; any other entry one, of ENTRY_SOLVER
-#define BOTH_SOLVERS (SOIL_SOLVER == 2)
-constexpr int ENTRY_SOLVER = SOIL_SOLVER != 2 ? SOIL_SOLVER : soil::SOLVER_PCR;
+// an ImplicitEuler entry of both solvers (SOIL_SOLVER 2, the Picard
+// entries) holds a kernel of each; any other entry one, of ENTRY_SOLVER
+// (Heun's solves nothing: its kernel's SOLVER is PCR's code, unread)
+#define BOTH_SOLVERS (SOIL_STEPPER == 2 && SOIL_SOLVER == 2)
+constexpr int ENTRY_SOLVER = SOIL_STEPPER == 2 && SOIL_SOLVER != 2 ? SOIL_SOLVER
+                                                                   : soil::SOLVER_PCR;
 
 }  // namespace
 
@@ -281,12 +297,12 @@ constexpr int ENTRY_SOLVER = SOIL_SOLVER != 2 ? SOIL_SOLVER : soil::SOLVER_PCR;
 #define SOIL_CAT(a, b) SOIL_CAT2(a, b)
 
 // One entry point per instantiation, named SOIL_ENTRY
-// (land_column_group_segment_vjp_implicit_<thomas|pcr|picard>_<bare|veg>_
-// richards_<vg|bc>_<mualem|linear>[_g<G>][_mb<B>]_<f32|f64>_nz<NZ>), with
-// the arguments of the one-thread land segment VJP's entries
+// (land_column_group_segment_vjp_<heun|implicit_<thomas|pcr|picard>>_
+// <bare|veg>_richards_<vg|bc>_<mualem|linear>[_g<G>][_mb<B>]_<f32|f64>_
+// nz<NZ>), with the arguments of the one-thread land segment VJP's entries
 // (csrc/land_column_segment_vjp.cu): cudaErrorInvalidValue for a solver
-// code other than 0 and 1 or one the entry was not built for, a Picard
-// count below 1, or one other than 1 without SOIL_PICARD. `scratch` holds
+// code other than 0 and 1 or, ImplicitEuler's, one the entry was not built
+// for, a Picard count below 1, or one other than 1 without SOIL_PICARD. `scratch` holds
 // steps * (2 NZ + 6) * cells values, laid out [step][row][cell];
 // `partials` 2 * ceil(cells / (256 / G)).
 extern "C" int SOIL_ENTRY(const LandCarry* in, const LandCarry* gout, const LandCarry* gin,
@@ -297,13 +313,15 @@ extern "C" int SOIL_ENTRY(const LandCarry* in, const LandCarry* gout, const Land
                           SOIL_T* partials, SOIL_T* gparams, int steps, double dt,
                           long long cells, int solver, int picard, void* stream)
 {
+    static_assert(SOIL_STEPPER == soil::STEPPER_IMPLICIT || !SOIL_PICARD,
+                  "the Picard iterations are ImplicitEuler's");
     if (picard < 1 || (!SOIL_PICARD && picard != 1) || (solver != 0 && solver != 1)
-        || (!BOTH_SOLVERS && solver != ENTRY_SOLVER))
+        || (SOIL_STEPPER == soil::STEPPER_IMPLICIT && !BOTH_SOLVERS && solver != ENTRY_SOLVER))
         return (int)cudaErrorInvalidValue;
 #define SOIL_LAUNCH(SOLVER)                                                                    \
-    launch<SOIL_T, SOIL_NZ, SOLVER>(in, gout, gin, inputs, root, root_row_stride,              \
-                                    root_cell_stride, dz, dzf, zc, zf, P, scratch, partials,   \
-                                    gparams, steps, dt, cells, picard, (cudaStream_t)stream)
+    launch<SOIL_T, SOIL_NZ, SOIL_STEPPER, SOLVER>(                                            \
+        in, gout, gin, inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, P,    \
+        scratch, partials, gparams, steps, dt, cells, picard, (cudaStream_t)stream)
 #if BOTH_SOLVERS
     if (solver == soil::SOLVER_THOMAS) return SOIL_LAUNCH(soil::SOLVER_THOMAS);
 #endif

@@ -1,11 +1,12 @@
-// One ImplicitEuler step of a LandModel column spread over a group of G
-// lanes (any number of Picard iterations, either solver, Richards flow, with
-// or without vegetation, either retention curve and conductivity, no
-// snowpack), its rollout, and the segment VJP of that step on the same
-// group: the column code of csrc/land_column_group_rollout.cu and
-// csrc/land_column_group_segment_vjp.cu, which run the same picard_step, so
-// that every carry the VJP stores equals the rollout's bit for bit at the
-// same G.
+// One ImplicitEuler step (any number of Picard iterations, either solver)
+// and one Heun step of a LandModel column spread over a group of G lanes
+// (Richards flow, with or without vegetation, either retention curve and
+// conductivity, no snowpack), their rollout, and the segment VJP of each on
+// the same group: the column code of csrc/land_column_group_rollout.cu and
+// csrc/land_column_group_segment_vjp.cu, which run the same picard_step or
+// heun_step, so that every carry the VJP stores equals the rollout's bit
+// for bit at the same G, and the VJP differentiates the trajectory that the
+// rollout returned.
 //
 // land_step.cuh and land_adjoint.cuh run a column on one thread, its NZ
 // levels unrolled in registers. Here the soil levels are spread as
@@ -43,7 +44,11 @@
 //
 // Iteration 0 of picard_step is land::implicit_step's arithmetic (the
 // surface copy it closes is written back, which implicit_step does in
-// place), so one body serves one iteration and more.
+// place), so one body serves one iteration and more. heun_step is
+// land::heun_step's: its rates keep the top level's Flux BCs apart from the
+// tendencies (rhs<false>), as the one-thread corrector forms
+// U + (0.5 (f_n + f*) - G_n / dz) dt, and its adjoint recomputes the stage
+// by heun_stage, the forward's own code.
 //
 // The group's exchange is soil::WarpLanes on the card and soil::HostLanes
 // (the G lanes of a group held by one host thread in lockstep) in the host
@@ -94,13 +99,36 @@ __host__ __device__
 #endif
 constexpr int rollout_group_lanes(int /* nz */, int /* solver */) { return 4; }
 
+// The group size of the land Heun segment VJP at nz levels, measured at Nz
+// 20 f32 on an H100 80GB HBM3 at 700 W (rollout_layout_ab.py
+// land_heun_time, PERF.md section 6; a 48-step segment of 60 s at 56,951
+// columns, each G at its best of 1 to 4 blocks of 256 threads an SM): G 2
+// (L 10) 67.49 ms, G 4 54.66, G 8 62.33, G 16 67.35, G 32 104.84; with the
+// forward segment at the same G, G 4 60.47 ms a segment, the least. Other
+// depths take the same size (not measured).
+#if defined(__CUDACC__)
+__host__ __device__
+#endif
+constexpr int heun_group_lanes(int /* nz */) { return 4; }
+
+// The group size of the land Heun rollout at nz levels, measured as
+// heun_group_lanes (48 steps of 600 s, two hourly series, each G at its
+// best launch bound): G 2 7.02 ms, G 4 6.86, G 8 9.41, G 16 14.51, G 32
+// 23.41; the VJP's G, so that the gradient's forward segments need no
+// other build. Other depths take the same size (not measured).
+#if defined(__CUDACC__)
+__host__ __device__
+#endif
+constexpr int heun_rollout_group_lanes(int /* nz */) { return 4; }
+
 // A LandModel column on a group: soil::GroupColumn's levels and exchange,
-// the land's parameters and root fractions, the closure and the
-// ImplicitEuler step and its adjoint (Richards flow, no snowpack)
+// the land's parameters and root fractions, the closure, the ImplicitEuler
+// and Heun steps and their adjoints (Richards flow, no snowpack)
 template <typename T, int NZ, int G, class Lanes, bool VEG, int CURVE, int COND>
 struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
     using Base = soil::GroupColumn<T, NZ, G, Lanes>;
     using typename Base::SweepBits;
+    using typename Base::NoTermCotangents;
     using typename Base::TermCotangents;
     using Base::at;
     using Base::c;
@@ -280,22 +308,25 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         return o;
     }
 
-    // land::ImplicitRates on the group: the tendencies with the top level's
-    // Flux BCs in (0 on the slots above NZ), the centre thermal
-    // conductivity, dT/dU (0 on the freeze plateau, else 1/C) and the Darcy
-    // conductivity of the face below each level; the pool's and the
-    // surface's rates, one copy a thread
+    // land::ImplicitRates on the group: the tendencies (0 on the slots above
+    // NZ; the top level's with its Flux BCs in where rhs folds them), the
+    // centre thermal conductivity, dT/dU (0 on the freeze plateau, else
+    // 1/C) and the Darcy conductivity of the face below each level; the
+    // ground heat flux, the infiltration, the pool's and the surface's
+    // rates, one copy a thread
     struct Rates {
         T U[N][L], sat[N][L], kap[N][L], Dh[N][L], Keff[N][L];
-        T dS;
+        T Gg, infil, dS;
         SurfaceRates<T> surf;
     };
 
-    // land::closure_rhs on the group into the implicit stepper's rates r:
-    // the closure in place (sat, and s.S += spill), the tendencies and the
-    // terms, the top level's Flux BCs in its right-hand sides (-G / dz on
-    // the energy, +infiltration / dz on the saturation, the ET sink in its
-    // Richards tendency)
+    // land::closure_rhs on the group into the rates r: the closure in place
+    // (sat, and s.S += spill), the tendencies and the implicit terms, the
+    // ET sink in the top level's Richards tendency; FOLD (the implicit
+    // stepper's right-hand sides) also adds the top level's Flux BCs, -G /
+    // dz on the energy and +infiltration / dz on the saturation, which Heun
+    // (land::Rates, HeunUpdate) keeps apart, in r.Gg and r.infil
+    template <bool FOLD = true>
     SOIL_FN void rhs(const T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, const Forcing<T>& f,
                      Rates& r) {
         T wt;
@@ -410,15 +441,19 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         const SurfaceOut o = surface(s, f, top_of(Tk), top_of(water), beta_paw, top_of(Kc),
                                      top_of(sat) < T(1));
         r.surf = o.r;
+        r.Gg = o.Gg;
+        r.infil = o.infil;
 #pragma unroll
         for (int i = 0; i < N; ++i) {
 #pragma unroll
             for (int l = 0; l < L; ++l) {
                 if (level(i, l) != NZ - 1) continue;
-                r.U[i][l] = r.U[i][l] - o.Gg / dz_top;
                 const T sink = -o.Q_h * lc.water_flux_scale / dz_top;
                 r.sat[i][l] = (dth_top + sink) / c.por;
-                r.sat[i][l] = r.sat[i][l] - (T(-1) * o.infil) / dz_top;
+                if (FOLD) {
+                    r.U[i][l] = r.U[i][l] - o.Gg / dz_top;
+                    r.sat[i][l] = r.sat[i][l] - (T(-1) * o.infil) / dz_top;
+                }
             }
         }
     }
@@ -474,20 +509,118 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         }
     }
 
-    // land::rollout_column of ImplicitEuler on the group (picard_step with
-    // SOLVER and `iters` Picard iterations, inv_dt 1 / dt as the host rounds
-    // it): `steps` steps in place from clock time t, which advances by t +
-    // dt as Clock.tick does; f holds the static inputs, and each series
-    // input of column `col` is read into it at each clock time
-    // (land::read_series: every lane of the group reads its column's
-    // value). The column code of csrc/land_column_group_rollout.cu
-    template <int SOLVER>
+    // Heun's stage of land::heun_step on the group: the closure of x_n in
+    // place (sat, and s.S += spill) and its rates r with the inputs f0 (the
+    // top level's Flux BCs kept apart), then the stage y = x_n + f_n dt
+    // with x_n's Flux BCs on the top level, the stage's skin temperature
+    // and net assimilation x_n's new ones. heun_step runs it, and
+    // heun_step_adjoint recomputes the stage by it from the step's stored
+    // start: one body at the rollout's G. The Heun entries of both group
+    // sources are built without contracted multiply-adds at every dtype
+    // (ops/cuda_build.py, TAG_FLAGS), so that the two kernels round the
+    // step alike: contracted, the compiler fused them differently in each
+    // kernel
+    SOIL_FN void heun_stage(const T (&U)[N][L], T (&sat)[N][L], Surface<T>& s,
+                            const Forcing<T>& f0, const T dt, Rates& r, T (&yU)[N][L],
+                            T (&ys)[N][L], Surface<T>& y) {
+        rhs<false>(U, sat, s, f0, r);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                if (level(i, l) == NZ - 1) {
+                    yU[i][l] = U[i][l] + (r.U[i][l] - r.Gg / dz_top) * dt;
+                    ys[i][l] = sat[i][l] + (r.sat[i][l] - (T(-1) * r.infil) / dz_top) * dt;
+                } else {
+                    yU[i][l] = U[i][l] + r.U[i][l] * dt;
+                    ys[i][l] = sat[i][l] + r.sat[i][l] * dt;
+                }
+            }
+        }
+        y = s;
+        y.S = s.S + r.dS * dt;
+        y.Ts = r.surf.Ts + T(0) * dt;
+        if (VEG) {
+            y.w = s.w + r.surf.dw * dt;
+            y.C = s.C + r.surf.dC * dt;
+            y.nu = s.nu + r.surf.dnu * dt;
+            y.An = r.surf.An;
+        }
+    }
+
+    // land::heun_step (Richards flow, no snowpack) on the group, operation
+    // for operation: heun_stage with the inputs f0 at t_n, the closure and
+    // rates of the stage with the inputs f1 at t_n + dt, then the corrector
+    // (land::HeunUpdate) x_n + (0.5 (f_n + f*) + BC_n) dt, the top level's
+    // Flux BCs x_n's, kept apart from the mean as the one-thread step keeps
+    // them; the skin temperature and the net assimilation x_n's. The stage
+    // and both rates are held in each lane (about 9 L values beside the
+    // carry)
+    SOIL_FN void heun_step(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, const Forcing<T>& f0,
+                           const Forcing<T>& f1, const T dt) {
+        Rates r, q;
+        T yU[N][L], ys[N][L];
+        Surface<T> y;
+        heun_stage(U, sat, s, f0, dt, r, yU, ys, y);
+        rhs<false>(yU, ys, y, f1, q);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const int k = level(i, l);
+                if (k >= NZ) continue;
+                if (k == NZ - 1) {
+                    U[i][l] = U[i][l] + (T(0.5) * (r.U[i][l] + q.U[i][l]) - r.Gg / dz_top) * dt;
+                    sat[i][l] = sat[i][l] + (T(0.5) * (r.sat[i][l] + q.sat[i][l])
+                                             - (T(-1) * r.infil) / dz_top) * dt;
+                } else {
+                    U[i][l] = U[i][l] + (T(0.5) * (r.U[i][l] + q.U[i][l])) * dt;
+                    sat[i][l] = sat[i][l] + (T(0.5) * (r.sat[i][l] + q.sat[i][l])) * dt;
+                }
+            }
+        }
+        s.S = s.S + (T(0.5) * (r.dS + q.dS)) * dt;
+        s.Ts = r.surf.Ts + (T(0.5) * (T(0) + T(0))) * dt;
+        if (VEG) {
+            s.w = s.w + (T(0.5) * (r.surf.dw + q.surf.dw)) * dt;
+            s.C = s.C + (T(0.5) * (r.surf.dC + q.surf.dC)) * dt;
+            s.nu = s.nu + (T(0.5) * (r.surf.dnu + q.surf.dnu)) * dt;
+            s.An = r.surf.An;
+        }
+    }
+
+    // One step of rollout from clock time t: each series input of column
+    // `col` read into f at t (land::read_series: every lane of the group
+    // reads its column's value), then ImplicitEuler's picard_step
+    // (soil::STEPPER_IMPLICIT, SOLVER, `iters` Picard iterations) or Heun's
+    // heun_step (soil::STEPPER_HEUN), whose stage reads a copy of f with the
+    // series at t + dt
+    template <int STEPPER, int SOLVER>
+    SOIL_FN void rollout_step(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, Forcing<T>& f,
+                              const LandInputs& inputs, const long long col, const T t,
+                              const T dt, const T inv_dt, const int iters) {
+        static_assert(STEPPER == soil::STEPPER_HEUN || STEPPER == soil::STEPPER_IMPLICIT,
+                      "the land group column steps by Heun or ImplicitEuler");
+        read_series(f, inputs, col, t);
+        if constexpr (STEPPER == soil::STEPPER_HEUN) {
+            Forcing<T> f1 = f;
+            read_series(f1, inputs, col, t + dt);
+            heun_step(U, sat, s, f, f1, dt);
+        } else {
+            picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);
+        }
+    }
+
+    // land::rollout_column on the group of STEPPER (rollout_step; inv_dt
+    // 1 / dt as the host rounds it): `steps` steps in place from clock time
+    // t, which advances by t + dt as Clock.tick does; f holds the static
+    // inputs. The column code of csrc/land_column_group_rollout.cu
+    template <int STEPPER, int SOLVER>
     SOIL_FN void rollout(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, Forcing<T>& f,
                          const LandInputs& inputs, const long long col, T t, const int steps,
                          const T dt, const T inv_dt, const int iters) {
         for (int n = 0; n < steps; ++n) {
-            read_series(f, inputs, col, t);
-            picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);
+            rollout_step<STEPPER, SOLVER>(U, sat, s, f, inputs, col, t, dt, inv_dt, iters);
             t = t + dt;
         }
     }
@@ -549,18 +682,21 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             gx[direction(m)] = lanes.from(m % G, [&](int i) { return acc[i][m / G]; });
     }
 
-    // land::closure_rhs_adjoint (Richards flow, no snowpack, the implicit
-    // terms' cotangents x) on the group: on entry gU, gs and gsc hold the
+    // land::closure_rhs_adjoint (Richards flow, no snowpack; the implicit
+    // terms' cotangents x, TermCotangents, or none, NoTermCotangents: Heun
+    // reads no term, and adding a zero cotangent would turn a -0 into +0)
+    // on the group: on entry gU, gs and gsc hold the
     // cotangents of what the stepper reads directly of the closed column and
     // surface carry, gfU and gfs those of the tendencies (the top level's
     // before its Flux BCs), gy those of the surface block's outputs (all
     // but SO_QH, which the ET sink adds here); on return gU, gs and gsc are
     // the cotangents of the step's input carry. Each lane's parameter
     // cotangents accumulate into gKsat[i] and gskm[i].
+    template <class X>
     SOIL_FN void rhs_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const Surface<T>& s,
                              const Forcing<T>& f, T (&gU)[N][L], T (&gs)[N][L], Surface<T>& gsc,
                              const T (&gfU)[N][L], const T (&gfs)[N][L], T (&gy)[SO_N],
-                             const TermCotangents& x, T (&gKsat)[N], T (&gskm)[N]) {
+                             const X& x, T (&gKsat)[N], T (&gskm)[N]) {
         // ---- recompute: sweeps with their predicates, closure, K, heads, PAW
         T ss[N][L], S1 = s.S, wt;
 #pragma unroll
@@ -642,9 +778,11 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                     if (q >= T(0) && q <= T(1)) gwx += (gbeta * rf[i][l]) / lc.fc_minus_wp;
                 }
                 T gUk = gU[i][l];  // what the caller reads of U
-                soil::level_adjoint<T, MUALEM, true, true>(
-                    v, ss[i][l], U[i][l], gT[i][l], gkap[i][l], MUALEM ? gKc[i][l] : T(0),
-                    x.gC[i][l], c, P, gsk, gUk, gKsat[i], gskm[i], gwx, gix, gax);
+                T gCx = T(0);  // the implicit rows' cotangent of the heat capacity
+                if constexpr (X::on) gCx = x.gC[i][l];
+                soil::level_adjoint<T, MUALEM, X::on, true>(
+                    v, ss[i][l], U[i][l], gT[i][l], gkap[i][l], MUALEM ? gKc[i][l] : T(0), gCx,
+                    c, P, gsk, gUk, gKsat[i], gskm[i], gwx, gix, gax);
                 gs[i][l] = gsk;
                 gU[i][l] = gUk;
             }
@@ -750,23 +888,137 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         }
     }
 
-    // land::segment_vjp_column of picard_step (SOLVER, `iters` Picard
-    // iterations) on the group, with static inputs f: `steps` steps from the
+    // land::heun_step_adjoint (Richards flow, no snowpack) on the group:
+    // cotangents through one heun_step from its input (U, sat, s); on entry
+    // (gU, gs, gsc) are those of the step's output, on return those of its
+    // input. The stage is recomputed by heun_stage, heun_step's own code at
+    // the rollout's G; then one body, in a loop that is not unrolled, takes
+    // rhs_adjoint without terms twice: at the stage with the inputs f1, from
+    // what the corrector reads of it (half of the tendencies and of the
+    // pool, canopy water, carbon and fraction rates), then at x_n with the
+    // inputs f0, from the corrector's reads of x_n (the carry, the other
+    // half of the rates, the top Flux BCs, the skin temperature and the net
+    // assimilation) added to the stage's Euler update's. Each value is
+    // formed by the one-thread adjoint's operations in its order.
+    SOIL_FN void heun_step_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const Surface<T>& s,
+                                   const Forcing<T>& f0, const Forcing<T>& f1, T (&gU)[N][L],
+                                   T (&gs)[N][L], Surface<T>& gsc, T (&gKsat)[N], T (&gskm)[N],
+                                   const T dt) {
+        // pass 0 takes the stage (xU, xs, xsurf) with the inputs f1 and no
+        // direct cotangents; pass 1 takes x_n with f0 and (gU, gs, gsc)
+        T xU[N][L], xs[N][L];
+        Surface<T> xsurf;
+        {
+            T cs[N][L];
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+#pragma unroll
+                for (int l = 0; l < L; ++l) cs[i][l] = sat[i][l];
+            }
+            Surface<T> cx = s;
+            Rates r;
+            heun_stage(U, cs, cx, f0, dt, r, xU, xs, xsurf);
+        }
+        T gfU[N][L], gfs[N][L], gxU[N][L], gxs[N][L], gy[SO_N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                gfU[i][l] = T(0.5) * (gU[i][l] * dt);
+                gfs[i][l] = T(0.5) * (gs[i][l] * dt);
+                gxU[i][l] = T(0);
+                gxs[i][l] = T(0);
+            }
+        }
+        gy[SO_G] = T(0);
+        gy[SO_QH] = T(0);
+        gy[SO_INFIL] = T(0);
+        gy[SO_POOL] = T(0.5) * (gsc.S * dt);
+        gy[SO_TS] = T(0);
+        gy[SO_DW] = VEG ? T(0.5) * (gsc.w * dt) : T(0);
+        gy[SO_DC] = VEG ? T(0.5) * (gsc.C * dt) : T(0);
+        gy[SO_DNU] = VEG ? T(0.5) * (gsc.nu * dt) : T(0);
+        gy[SO_AN] = T(0);
+        Surface<T> gx{};
+        const Forcing<T>* f = &f1;
+#pragma unroll 1
+        for (int pass = 0; pass < 2; ++pass) {
+            rhs_adjoint(xU, xs, xsurf, *f, gxU, gxs, gx, gfU, gfs, gy, NoTermCotangents{}, gKsat,
+                        gskm);
+            if (pass == 0) {  // y = x_n (closed) + (f_n + BC_n) dt
+                gy[SO_G] = -(lanes.from(TOP, [&](int i) { return gU[i][LT] + gxU[i][LT]; })
+                             * dt) / dz_top;
+                gy[SO_INFIL] = (lanes.from(TOP, [&](int i) { return gs[i][LT] + gxs[i][LT]; })
+                                * dt) / dz_top;
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int l = 0; l < L; ++l) {
+                        gfU[i][l] = gfU[i][l] + gxU[i][l] * dt;
+                        gfs[i][l] = gfs[i][l] + gxs[i][l] * dt;
+                        gxU[i][l] = gU[i][l] + gxU[i][l];
+                        gxs[i][l] = gs[i][l] + gxs[i][l];
+                        xU[i][l] = U[i][l];
+                        xs[i][l] = sat[i][l];
+                    }
+                }
+                gy[SO_QH] = T(0);
+                gy[SO_POOL] = gy[SO_POOL] + gx.S * dt;
+                gx.S = gsc.S + gx.S;
+                gy[SO_TS] = gsc.Ts + gx.Ts;
+                gx.Ts = T(0);
+                if (VEG) {
+                    gy[SO_DW] = gy[SO_DW] + gx.w * dt;
+                    gy[SO_DC] = gy[SO_DC] + gx.C * dt;
+                    gy[SO_DNU] = gy[SO_DNU] + gx.nu * dt;
+                    gy[SO_AN] = gsc.An + gx.An;
+                    gx.w = gsc.w + gx.w;
+                    gx.C = gsc.C + gx.C;
+                    gx.nu = gsc.nu + gx.nu;
+                    gx.An = T(0);
+                }
+                xsurf = s;
+                f = &f0;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                gU[i][l] = gxU[i][l];
+                gs[i][l] = gxs[i][l];
+            }
+        }
+        gsc = gx;
+    }
+
+    // land::segment_vjp_column of STEPPER on the group (soil::STEPPER_HEUN:
+    // heun_step, through the rollout's own rollout_step with `inputs`, whose
+    // reads leave static inputs as they are: handed the same inputs twice,
+    // heun_step let the compiler share work between its two closures, and
+    // a segment took 64.69 ms against 54.66-58.67 (Nz 20 f32, an H100 80GB
+    // HBM3; PERF.md section 6); soil::STEPPER_IMPLICIT: picard_step with
+    // SOLVER and `iters` Picard iterations), with static inputs f: `steps`
+    // steps from the
     // carry (U, sat, s), each step's input carry stored to `scratch` where
     // `store` (land::ScratchRows rows a step, laid out [step][row][cell]:
     // U[0 .. NZ), sat[0 .. NZ), then the pool, skin temperature, canopy
     // water, carbon, vegetation fraction and net assimilation, each lane its
     // levels', lane 0 the surface's); then the reverse sweep of
-    // picard_step_adjoint from the output cotangents (gU, gs, gsc), which
-    // become the input carry's. A group that does not store (beyond the last
-    // column) recomputes from its own carry, and its results are not used.
-    template <int SOLVER>
+    // the step's adjoint from the output cotangents (gU, gs, gsc), which
+    // become the input carry's. The forward is the group rollout's own step,
+    // so at the rollout's G its carries are the rollout's bit for bit. A
+    // group that does not store (beyond the last column) recomputes from its
+    // own carry, and its results are not used.
+    template <int STEPPER, int SOLVER>
     SOIL_FN void segment_vjp(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, T (&gU)[N][L],
                              T (&gs)[N][L], Surface<T>& gsc, T* scratch, const long long col,
                              const long long cells, const bool store, const Forcing<T>& f,
-                             const int steps, const T dt, const T inv_dt, const int iters,
-                             T (&gKsat)[N], T (&gskm)[N]) {
+                             const LandInputs& inputs, const int steps, const T dt,
+                             const T inv_dt, const int iters, T (&gKsat)[N], T (&gskm)[N]) {
         constexpr long long ROWS = ScratchRows<NZ>::value;
+        Forcing<T> fr = f;  // Heun's forward inputs, as rollout_step reads them
+        T t = T(0);
         for (int n = 0; n < steps; ++n) {
             T* rec = scratch + (long long)n * ROWS * cells + col;
             if (store) {
@@ -790,7 +1042,12 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                     }
                 }
             }
-            picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);
+            if constexpr (STEPPER == soil::STEPPER_HEUN) {
+                rollout_step<STEPPER, SOLVER>(U, sat, s, fr, inputs, col, t, dt, inv_dt, iters);
+                t = t + dt;
+            } else {
+                picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);
+            }
         }
         for (int n = steps - 1; n >= 0; --n) {
             const T* rec = scratch + (long long)n * ROWS * cells + col;
@@ -813,8 +1070,11 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                 s.nu = rec[(2 * NZ + 4) * cells];
                 s.An = rec[(2 * NZ + 5) * cells];
             }
-            picard_step_adjoint<SOLVER>(U, sat, s, f, gU, gs, gsc, gKsat, gskm, dt, inv_dt,
-                                        iters);
+            if constexpr (STEPPER == soil::STEPPER_HEUN)
+                heun_step_adjoint(U, sat, s, f, f, gU, gs, gsc, gKsat, gskm, dt);
+            else
+                picard_step_adjoint<SOLVER>(U, sat, s, f, gU, gs, gsc, gKsat, gskm, dt, inv_dt,
+                                            iters);
         }
     }
 };

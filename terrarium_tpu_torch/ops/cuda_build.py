@@ -7,7 +7,7 @@ covers the source, every header in ``csrc/`` and the source's extra flags.
 A source defines one entry point per instantiation,
 ``<name>[_<tag>...]_<f32|f64>_nz<NZ>``, each compiled by its own ``nvcc``
 (``-DSOIL_ENTRY -DSOIL_T -DSOIL_NZ`` and the tags' defines, ``_DEFINES``;
-``FLAGS``). Two kinds:
+``FLAGS`` and ``TAG_FLAGS``). Two kinds:
 
 * the prebuilt set, the list of that source in ``INSTANTIATIONS``: the
   first launch of any of them compiles all of them, and all the sources
@@ -41,7 +41,7 @@ import threading
 
 import torch
 
-__all__ = ["build", "ptxas_report", "entry", "INSTANTIATIONS"]
+__all__ = ["build", "ptxas_report", "entry", "INSTANTIATIONS", "FLAGS", "TAG_FLAGS"]
 
 _F32, _F64 = torch.float32, torch.float64
 #: the prebuilt instantiations of each source, ``(tags, dtype, NZ)``, built
@@ -137,64 +137,62 @@ INSTANTIATIONS = {
     # the LandModel, one thread a column: ForwardEuler over the bare-ground
     # golden at Nz 15 (heat-only soil) and over the vegetated bench
     # composition (Richards over Brooks-Corey and linear conductivity) at Nz
-    # 20; Heun over the bench composition at Nz 20; the snowpack over the
-    # land_snow golden's composition (bare ground, Brooks-Corey and linear)
-    # at Nz 12 with ForwardEuler and over the bench composition at Nz 20
-    # with ImplicitEuler (PCR) (ImplicitEuler's entries without a snowpack
-    # stay buildable on demand, to time the one-thread layout against the
-    # group's)
+    # 20; the snowpack over the land_snow golden's composition (bare ground,
+    # Brooks-Corey and linear) at Nz 12 with ForwardEuler and over the bench
+    # composition at Nz 20 with ImplicitEuler (PCR) (ImplicitEuler's and
+    # Heun's entries without a snowpack stay buildable on demand, to time
+    # the one-thread layout against the group's)
     "land_column_rollout": [
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
-        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
-        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
         (("bare", "richards", "bc", "linear", "snow"), _F64, 12), (("bare", "noflow"), _F64, 15),
     ],
-    # the LandModel's ImplicitEuler rollout over the vegetated bench
-    # composition at Nz 20, a column on a group of lanes: each solver and
-    # the Picard entries (which hold a kernel of each solver), at float32
-    # (the timed path) and float64 (the checks); and Thomas at the group
-    # segment VJP's G 8 (g8), which the land gradient's forward segments
-    # launch
+    # the LandModel's ImplicitEuler and Heun rollouts over the vegetated
+    # bench composition at Nz 20, a column on a group of lanes: each solver,
+    # the Picard entries (which hold a kernel of each solver) and Heun, at
+    # float32 (the timed path) and float64 (the checks); and Thomas at the
+    # group segment VJP's G 8 (g8), which the land gradient's forward
+    # segments launch
     "land_column_group_rollout": [
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "picard", "veg", "richards", "bc", "linear", "g8"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "picard", "veg", "richards", "bc", "linear", "g8"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear", "g8"), _F64, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear", "g8"), _F32, 20),
     ],
     # the LandModel's segment VJP over the vegetated bench composition
     # (Richards over Brooks-Corey and linear conductivity) at Nz 20, one
-    # thread a column: ImplicitEuler PCR with a snowpack, Heun and
-    # ForwardEuler (ImplicitEuler's entries without a snowpack stay
-    # buildable on demand, to time the one-thread layout against the
-    # group's)
+    # thread a column: ImplicitEuler PCR with a snowpack and ForwardEuler
+    # (ImplicitEuler's and Heun's entries without a snowpack stay buildable
+    # on demand, to time the one-thread layout against the group's)
     "land_column_segment_vjp": [
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
-        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
-        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
     ],
-    # the LandModel's ImplicitEuler segment VJP over the vegetated bench
-    # composition at Nz 20, a column on a group of lanes: each solver and
-    # the Picard entries (which hold a kernel of each solver), at float32
-    # (the gradient) and float64 (the checks)
+    # the LandModel's ImplicitEuler and Heun segment VJPs over the
+    # vegetated bench composition at Nz 20, a column on a group of lanes:
+    # each solver, the Picard entries (which hold a kernel of each solver)
+    # and Heun, at float32 (the gradient) and float64 (the checks)
     "land_column_group_segment_vjp": [
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
     ],
     # the probes (csrc/probes.cu): the roofline micro-benchmark's chains
     # (NZ unused), the Mosaic bisect's cases at its Nz 30 and the Mosaic
@@ -230,6 +228,19 @@ FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
          "land_column_group_segment_vjp": {_F64: ("-fmad=false",)},
          "land_column_full_step": {_F64: ("-fmad=false",)},
          "probes": {_F64: ("-fmad=false",)}}
+#: nvcc flags of a source's instantiations that carry a tag, at every
+#: dtype: the land group kernels' Heun entries contract no multiply-adds at
+#: float32 either. The group rollout and the group segment VJP are separate
+#: kernels that run the same heun_step; with contraction the compiler
+#: fused their float32 multiply-adds differently (the ptxas-level fusion
+#: off, still differently), and the VJP's stored carries parted from the
+#: rollout's in 52,444 of 56,951 columns by up to 5e-7 of a field's
+#: magnitude over 48 steps; without, every operation rounds as written in
+#: both and none part, at the same speed within 3% (an H100 80GB HBM3,
+#: PERF.md section 6). The ImplicitEuler entries' carries agree with
+#: contraction on, and keep it
+TAG_FLAGS = {("land_column_group_rollout", "heun"): ("-fmad=false",),
+             ("land_column_group_segment_vjp", "heun"): ("-fmad=false",)}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -260,6 +271,7 @@ def _stem(name: str) -> str:
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(repr(sorted((str(d), f) for d, f in FLAGS.get(name, {}).items())).encode())
+    h.update(repr(sorted((t, f) for (n, t), f in TAG_FLAGS.items() if n == name)).encode())
     return f"{name}-{h.hexdigest()[:12]}"
 
 
@@ -354,7 +366,9 @@ def _entry_name(name: str, tags, dtype: torch.dtype, nz: int) -> str:
 def _compile(nvcc: str, name: str, tags, dtype: torch.dtype, nz: int, obj) -> list:
     """The ``nvcc`` command that compiles one instantiation of
     ``csrc/<name>.cu`` into the object ``obj``."""
-    return [nvcc, *_ARCH, "-std=c++17", "-O3", *FLAGS.get(name, {}).get(dtype, ()),
+    flags = list(FLAGS.get(name, {}).get(dtype, ()))
+    flags += [f for t in tags for f in TAG_FLAGS.get((name, t), ()) if f not in flags]
+    return [nvcc, *_ARCH, "-std=c++17", "-O3", *flags,
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
             f"-DSOIL_ENTRY={_entry_name(name, tags, dtype, nz)}",
             f"-DSOIL_T={_SUFFIX[dtype][1]}", f"-DSOIL_NZ={nz}",

@@ -24,12 +24,12 @@ a static row, or a uniformly spaced series that the kernel interpolates at
 each clock time from its first time (as the soil kernels do). The CUDA
 sources, built by ``nvcc`` at first use, are chosen by type
 (:func:`rollout_source`): ImplicitEuler (either solver, any Picard count)
-over Richards flow without a snowpack runs each column on a group of lanes,
-``csrc/land_column_group_rollout.cu`` (``land::GroupColumn::rollout`` in
-``csrc/land_group_step.cuh``, the step that the land group segment VJP
-recomputes with); every other stepper and composition (ForwardEuler, Heun,
-a snowpack, ``NoFlow``) one thread a column, ``csrc/land_column_rollout.cu``
-(the step in ``csrc/land_step.cuh``).
+and Heun over Richards flow without a snowpack run each column on a group
+of lanes, ``csrc/land_column_group_rollout.cu``
+(``land::GroupColumn::rollout`` in ``csrc/land_group_step.cuh``, the step
+that the land group segment VJP recomputes with); every other stepper and
+composition (ForwardEuler, a snowpack, ``NoFlow``) one thread a column,
+``csrc/land_column_rollout.cu`` (the step in ``csrc/land_step.cuh``).
 
 The plain version (:func:`land_column_rollout_plain`) is the composition of
 the port's process modules: a state over the carry and the inputs, stepped
@@ -467,9 +467,10 @@ def _argtypes(dtype) -> list:
 def group_scheme(params: LandParams, stepper: str) -> bool:
     """Whether the land kernels of ``stepper`` over the composition of
     ``params`` run each column on a group of lanes: ImplicitEuler (either
-    solver, any Picard count) over Richards flow without a snowpack."""
+    solver, any Picard count) or Heun over Richards flow without a
+    snowpack."""
     tags = params.tags
-    return stepper == "implicit" and tags[1] == "richards" and "snow" not in tags
+    return stepper in ("implicit", "heun") and tags[1] == "richards" and "snow" not in tags
 
 
 def rollout_source(params: LandParams, stepper: str) -> str:
@@ -480,22 +481,23 @@ def rollout_source(params: LandParams, stepper: str) -> str:
 
 
 def group_occupancy(source: str, dtype: torch.dtype, nz: int, tags: tuple,
-                    solver: str) -> tuple:
-    """``(resident warps an SM, G)`` of the kernel of ``solver`` in the entry
-    of ``tags`` (the stepper's and the composition's) of the land group
-    source ``source`` at ``dtype`` and depth ``nz`` (its ``_warps``
-    function, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at
-    first use)."""
+                    solver: Optional[str]) -> tuple:
+    """``(resident warps an SM, G)`` of the kernel of ``solver`` (None for
+    Heun's, which solves nothing) in the entry of ``tags`` (the stepper's
+    and the composition's) of the land group source ``source`` at ``dtype``
+    and depth ``nz`` (its ``_warps`` function,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; built at first
+    use)."""
     fn = cuda_build.entry(source, dtype, nz, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
                           tags=tags, suffix="_warps")
     group = ctypes.c_int(0)
-    warps = fn(SOLVER_CODES[solver], ctypes.byref(group))
+    warps = fn(SOLVER_CODES.get(solver, 0), ctypes.byref(group))
     if warps < 0:
         raise RuntimeError(f"the occupancy query of {source} failed")
     return warps, group.value
 
 
-def rollout_group(dtype: torch.dtype, nz: int, tags: tuple, solver: str) -> tuple:
+def rollout_group(dtype: torch.dtype, nz: int, tags: tuple, solver: Optional[str]) -> tuple:
     """``(resident warps an SM, G)`` of the group rollout kernel
     (:func:`group_occupancy`)."""
     return group_occupancy(_GROUP_NAME, dtype, nz, tags, solver)
@@ -509,8 +511,9 @@ def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params
     given: its ``g<G>`` build where the kernel's own G is another) and
     count the launch on ``wrapper``; return the new carry."""
     if group is not None and not group_scheme(params, stepper):
-        raise ValueError(f"a group size is the group rollout's (ImplicitEuler over Richards "
-                         f"flow without a snowpack), not {stepper!r} over {params.tags}")
+        raise ValueError(f"a group size is the group rollout's (ImplicitEuler or Heun over "
+                         f"Richards flow without a snowpack), not {stepper!r} over "
+                         f"{params.tags}")
     _check(carry, inputs, root_fraction, coords, params)
     if steps < 0:
         raise ValueError("steps must be >= 0")
@@ -555,11 +558,15 @@ def land_column_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandIn
 
 def land_column_heun_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                              root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
-                             z_faces, params: LandParams, dt: float, time: float, steps: int):
+                             z_faces, params: LandParams, dt: float, time: float, steps: int,
+                             group: Optional[int] = None):
     """Heun over a LandModel, as :func:`land_column_rollout` (the kernel's
-    ``heun`` instantiation; each step reads the inputs at t and t + dt)."""
+    ``heun`` instantiation; each step reads the inputs at t and t + dt).
+    ``group``: the group rollout at that G, as
+    :func:`land_column_implicit_rollout` takes it."""
     return _rollout(land_column_heun_rollout, ("heun",), carry, inputs, root_fraction,
-                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "heun", None)
+                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "heun", None,
+                    1, group)
 
 
 def implicit_tags(solver: str, picard_iters: int) -> tuple:

@@ -19,13 +19,14 @@ the mineral conductivity times the mineral fraction, as the soil's
 replaces ``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp`` traced over a
 LandModel step. The clock is not differentiated.
 
-The CUDA sources: ImplicitEuler (either solver, any Picard count) over
-Richards flow without a snowpack (``vjp_source``) runs each column on a
+The CUDA sources: ImplicitEuler (either solver, any Picard count) and Heun
+over Richards flow without a snowpack (``vjp_source``) run each column on a
 group of lanes, ``csrc/land_column_group_segment_vjp.cu``
-(``land::GroupColumn::segment_vjp`` in ``csrc/land_group_step.cuh``);
-every other scheme and composition (ForwardEuler, Heun, a snowpack,
-``NoFlow``) one thread a column, ``csrc/land_column_segment_vjp.cu``, with
-the step's adjoint in ``csrc/land_adjoint.cuh``. On CPU tensors the
+(``land::GroupColumn::segment_vjp`` in ``csrc/land_group_step.cuh``, its
+forward and recompute the group rollout's own step); every other scheme
+and composition (ForwardEuler, a snowpack, ``NoFlow``) one thread a column,
+``csrc/land_column_segment_vjp.cu``, with the step's adjoint in
+``csrc/land_adjoint.cuh``. On CPU tensors the
 wrapper runs :func:`land_column_segment_vjp_plain`, torch autograd through
 the plain rollout (the process modules); on CUDA tensors it launches the
 kernel of the composition's type or raises. Each launch adds one to
@@ -86,14 +87,14 @@ def check_scheme(params: LandParams, stepper: str, solver: Optional[str],
 def vjp_source(params: LandParams, stepper: str) -> str:
     """The CUDA source of the land segment VJP of ``stepper`` over the
     composition of ``params``: the group kernel's for ImplicitEuler (either
-    solver, any Picard count) over Richards flow without a snowpack, the
-    one-thread kernel's for any other."""
+    solver, any Picard count) and Heun over Richards flow without a
+    snowpack, the one-thread kernel's for any other."""
     return _GROUP_NAME if group_scheme(params, stepper) else _NAME
 
 
-def vjp_group(dtype: torch.dtype, nz: int, tags: tuple, solver: str) -> tuple:
+def vjp_group(dtype: torch.dtype, nz: int, tags: tuple, solver: Optional[str]) -> tuple:
     """``(resident warps an SM, G)`` of the group segment-VJP kernel of
-    ``solver`` in the entry of ``tags`` (the stepper's and the
+    ``solver`` (None for Heun's) in the entry of ``tags`` (the stepper's and the
     composition's) at ``dtype`` and depth ``nz``
     (:func:`~terrarium_tpu_torch.ops.land_step.group_occupancy`)."""
     return group_occupancy(_GROUP_NAME, dtype, nz, tags, solver)

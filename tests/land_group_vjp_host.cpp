@@ -8,12 +8,13 @@
 // thread in lockstep (soil::HostLanes), and, beside them, the one-thread
 // land segment VJP and rollout they replace on the card
 // (land::segment_vjp_column and land::rollout_column of implicit_step at
-// one Picard iteration, of picard_step at more), each run over every column
-// at float64 behind a plain C interface. Built with -DLAND_GROUP_G=<G> it
-// holds the group column at that G; without, the one-thread column. The
-// compositions: the vegetated bench composition (Brooks-Corey and linear
-// conductivity) at Nz 20, 7 and, at the kernel's G, 8; bare ground over Van
-// Genuchten and Mualem at Nz 20.
+// one Picard iteration, of picard_step at more, and of heun_step), each run
+// over every column at float64 behind a plain C interface, ImplicitEuler
+// (either solver) or Heun. Built with -DLAND_GROUP_G=<G> it holds the group
+// column at that G; without, the one-thread column. The compositions: the
+// vegetated bench composition (Brooks-Corey and linear conductivity) at Nz
+// 20, 7 and, at the kernel's G, 8; bare ground over Van Genuchten and
+// Mualem at Nz 20.
 #include <vector>
 
 #include "land_group_step.cuh"
@@ -46,11 +47,13 @@ using land::CURVE_VG;
         time0, dt, cells, iters
 
 // the composition cases each build holds: (NZ, VEG, CURVE, COND); the
-// solver is 0 (Thomas) or 1 (PCR)
-#define LAND_HOST_CASES(X, SOLVER)                      \
-    X(20, true, CURVE_BC, COND_LINEAR, SOLVER)          \
-    X(20, false, CURVE_VG, COND_MUALEM, SOLVER)         \
-    X(7, true, CURVE_BC, COND_LINEAR, SOLVER)
+// stepper is soil::STEPPER_IMPLICIT with the solver 0 (Thomas) or 1 (PCR),
+// or soil::STEPPER_HEUN (solver 1, unread)
+#define LAND_HOST_CASES(X, STEPPER, SOLVER)                 \
+    X(20, true, CURVE_BC, COND_LINEAR, STEPPER, SOLVER)     \
+    X(20, false, CURVE_VG, COND_MUALEM, STEPPER, SOLVER)    \
+    X(7, true, CURVE_BC, COND_LINEAR, STEPPER, SOLVER)
+constexpr int HEUN = soil::STEPPER_HEUN, IMPLICIT = soil::STEPPER_IMPLICIT;
 
 #ifdef LAND_GROUP_G
 constexpr int G = LAND_GROUP_G;
@@ -58,7 +61,7 @@ constexpr int G = LAND_GROUP_G;
 // land::GroupColumn::segment_vjp of every column on a group of G emulated
 // lanes; gparams (2, cells): each column's group sum of its lanes'
 // parameter cotangents
-template <int NZ, bool VEG, int CURVE, int COND, int SOLVER>
+template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
 void group_columns(LAND_HOST_ARGS)
 {
     using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND>;
@@ -101,8 +104,9 @@ void group_columns(LAND_HOST_ARGS)
         for (int i = 0; i < LAND_NIN; ++i)
             f.v[i] = static_cast<const double*>(inputs->ptr[i])[col * inputs->cell_stride[i]];
         double gK[G] = {}, gm[G] = {};
-        column.template segment_vjp<SOLVER>(U, sat, s, gU, gs, gsc, scratch, col, cells, true,
-                                            f, steps, dt, 1.0 / dt, iters, gK, gm);
+        column.template segment_vjp<STEPPER, SOLVER>(U, sat, s, gU, gs, gsc, scratch, col,
+                                                     cells, true, f, *inputs, steps, dt,
+                                                     1.0 / dt, iters, gK, gm);
         for (int i = 0; i < G; ++i) {
             for (int l = 0; l < L; ++l) {
                 const int k = column.level(i, l);
@@ -125,15 +129,16 @@ void group_columns(LAND_HOST_ARGS)
     }
 }
 
-#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, SOLVER_)                                     \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && solver == SOLVER_) { \
-        group_columns<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_HOST_PASS);               \
-        return 0;                                                                       \
+#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                            \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+        && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
+        group_columns<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_HOST_PASS);        \
+        return 0;                                                                         \
     }
 
 // land::GroupColumn::rollout of every column on a group of G emulated
 // lanes, as csrc/land_column_group_rollout.cu runs a group
-template <int NZ, bool VEG, int CURVE, int COND, int SOLVER>
+template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
 void group_rollouts(LAND_ROLL_ARGS)
 {
     using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND>;
@@ -163,8 +168,8 @@ void group_rollouts(LAND_ROLL_ARGS)
         land::Forcing<double> f;
         for (int i = 0; i < LAND_NIN; ++i)
             f.v[i] = static_cast<const double*>(inputs->ptr[i])[col * inputs->cell_stride[i]];
-        column.template rollout<SOLVER>(U, sat, s, f, *inputs, col, time0, steps, dt, 1.0 / dt,
-                                        iters);
+        column.template rollout<STEPPER, SOLVER>(U, sat, s, f, *inputs, col, time0, steps, dt,
+                                                 1.0 / dt, iters);
         for (int i = 0; i < G; ++i) {
             for (int l = 0; l < L; ++l) {
                 const int k = column.level(i, l);
@@ -185,22 +190,29 @@ void group_rollouts(LAND_ROLL_ARGS)
     }
 }
 
-#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, SOLVER_)                                \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && solver == SOLVER_) { \
-        group_rollouts<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_ROLL_PASS);              \
-        return 0;                                                                       \
+#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                       \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+        && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
+        group_rollouts<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_ROLL_PASS);       \
+        return 0;                                                                         \
     }
 #else
 // land::segment_vjp_column over every column, one thread a column:
-// implicit_step and its adjoint at one Picard iteration, picard_step and
-// its adjoint at more; gparams (2, cells): each column's running sums
-template <int NZ, bool VEG, int CURVE, int COND, int SOLVER>
+// heun_step and its adjoint; implicit_step and its adjoint at one Picard
+// iteration, picard_step and its adjoint at more; gparams (2, cells): each
+// column's running sums
+template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
 void thread_columns(LAND_HOST_ARGS)
 {
     const soil::Consts<double> sc(P->soil);
     for (long long col = 0; col < cells; ++col) {
         double gK = 0.0, gm = 0.0;
-        if (iters == 1)
+        if (STEPPER == HEUN)
+            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, false, HEUN, SOLVER,
+                                     false>(
+                col, cells, steps, *in, *gout, *gin, scratch, *inputs, root, root_row_stride,
+                root_cell_stride, sc, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm);
+        else if (iters == 1)
             land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, false,
                                      soil::STEPPER_IMPLICIT, SOLVER, false>(
                 col, cells, steps, *in, *gout, *gin, scratch, *inputs, root, root_row_stride,
@@ -215,21 +227,26 @@ void thread_columns(LAND_HOST_ARGS)
     }
 }
 
-#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, SOLVER_)                                     \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && solver == SOLVER_) { \
-        thread_columns<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_HOST_PASS);              \
-        return 0;                                                                       \
+#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                            \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+        && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
+        thread_columns<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_HOST_PASS);       \
+        return 0;                                                                         \
     }
 
-// land::rollout_column of ImplicitEuler over every column, one thread a
-// column, as csrc/land_column_rollout.cu runs it: implicit_step at one
-// Picard iteration, picard_step at more
-template <int NZ, bool VEG, int CURVE, int COND, int SOLVER>
+// land::rollout_column of ImplicitEuler or Heun over every column, one
+// thread a column, as csrc/land_column_rollout.cu runs it: heun_step;
+// implicit_step at one Picard iteration, picard_step at more
+template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
 void thread_rollouts(LAND_ROLL_ARGS)
 {
     const soil::Consts<double> sc(P->soil);
     for (long long col = 0; col < cells; ++col) {
-        if (iters == 1)
+        if (STEPPER == HEUN)
+            land::rollout_column<double, NZ, VEG, true, CURVE, COND, false, HEUN, SOLVER, false>(
+                col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
+                dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt);
+        else if (iters == 1)
             land::rollout_column<double, NZ, VEG, true, CURVE, COND, false,
                                  soil::STEPPER_IMPLICIT, SOLVER, false>(
                 col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
@@ -242,64 +259,73 @@ void thread_rollouts(LAND_ROLL_ARGS)
     }
 }
 
-#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, SOLVER_)                                \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && solver == SOLVER_) { \
-        thread_rollouts<NZ_, VEG_, CURVE_, COND_, SOLVER_>(LAND_ROLL_PASS);             \
-        return 0;                                                                       \
+#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                       \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+        && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
+        thread_rollouts<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_ROLL_PASS);      \
+        return 0;                                                                         \
     }
 #endif
 
 }  // namespace
 
-// The segment VJP of `steps` ImplicitEuler steps with `iters` Picard
-// iterations and the solver `solver` (0 Thomas, 1 PCR) over the land
-// composition (veg, curve 0 Van Genuchten or 1 Brooks-Corey, cond 0 Mualem
-// or 1 linear; Richards flow, no snowpack) at nz levels, on groups of the
-// build's G lanes or one thread a column: the input cotangents to gin, each
-// column's parameter cotangents to gparams (2, cells), each step's stored
-// input carry to scratch (steps, 2 nz + 6, cells). Returns -1 for a case the
-// build does not hold, else 0.
-extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int cond, int solver)
+// The segment VJP of `steps` steps of `stepper` (soil::STEPPER_HEUN, or
+// STEPPER_IMPLICIT with `iters` Picard iterations and the solver `solver`,
+// 0 Thomas or 1 PCR) over the land composition (veg, curve 0 Van Genuchten
+// or 1 Brooks-Corey, cond 0 Mualem or 1 linear; Richards flow, no snowpack)
+// at nz levels, on groups of the build's G lanes or one thread a column: the
+// input cotangents to gin, each column's parameter cotangents to gparams
+// (2, cells), each step's stored input carry to scratch (steps, 2 nz + 6,
+// cells). Returns -1 for a case the build does not hold, else 0.
+extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int cond, int solver,
+                             int stepper)
 {
-    if (iters < 1) return -1;
-    LAND_HOST_CASES(LAND_RUN, 0)
-    LAND_HOST_CASES(LAND_RUN, 1)
+    if (iters < 1 || (stepper == HEUN && iters != 1)) return -1;
+    LAND_HOST_CASES(LAND_RUN, IMPLICIT, 0)
+    LAND_HOST_CASES(LAND_RUN, IMPLICIT, 1)
+    LAND_HOST_CASES(LAND_RUN, HEUN, 1)
 #ifdef LAND_GROUP_G
-    // the fused-gradient case against JAX, at the kernel's G of each solver
-    if constexpr (G == land::implicit_group_lanes(8, 0)) LAND_RUN(8, true, CURVE_BC, COND_LINEAR, 0)
-    if constexpr (G == land::implicit_group_lanes(8, 1)) LAND_RUN(8, true, CURVE_BC, COND_LINEAR, 1)
+    // the fused-gradient cases against JAX, at the kernel's G of each scheme
+    if constexpr (G == land::implicit_group_lanes(8, 0))
+        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, IMPLICIT, 0)
+    if constexpr (G == land::implicit_group_lanes(8, 1))
+        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, IMPLICIT, 1)
+    if constexpr (G == land::heun_group_lanes(8)) LAND_RUN(8, true, CURVE_BC, COND_LINEAR, HEUN, 1)
 #endif
     return -1;
 }
 
-// The rollout of `steps` ImplicitEuler steps with `iters` Picard iterations
-// and the solver `solver` (0 Thomas, 1 PCR) over the land composition (as
-// host_land_vjp's) at nz levels from clock time time0, the inputs read at
-// each clock time, on groups of the build's G lanes or one thread a column:
-// the output carry to out. Returns -1 for a case the build does not hold,
-// else 0.
+// The rollout of `steps` steps of `stepper` (as host_land_vjp's) over the
+// land composition (as host_land_vjp's) at nz levels from clock time time0,
+// the inputs read at each clock time (Heun's stage at t + dt too), on
+// groups of the build's G lanes or one thread a column: the output carry to
+// out. Returns -1 for a case the build does not hold, else 0.
 extern "C" int host_land_rollout(LAND_ROLL_ARGS, int nz, int veg, int curve, int cond,
-                                 int solver)
+                                 int solver, int stepper)
 {
-    if (iters < 1) return -1;
-    LAND_HOST_CASES(LAND_ROLL_RUN, 0)
-    LAND_HOST_CASES(LAND_ROLL_RUN, 1)
+    if (iters < 1 || (stepper == HEUN && iters != 1)) return -1;
+    LAND_HOST_CASES(LAND_ROLL_RUN, IMPLICIT, 0)
+    LAND_HOST_CASES(LAND_ROLL_RUN, IMPLICIT, 1)
+    LAND_HOST_CASES(LAND_ROLL_RUN, HEUN, 1)
 #ifdef LAND_GROUP_G
     // the case against JAX's interpret-mode kernel, at the kernel's G of PCR
     if constexpr (G == land::rollout_group_lanes(8, 1))
-        LAND_ROLL_RUN(8, true, CURVE_BC, COND_LINEAR, 1)
+        LAND_ROLL_RUN(8, true, CURVE_BC, COND_LINEAR, IMPLICIT, 1)
 #endif
     return -1;
 }
 
-// the group size of the rollout kernel at nz levels with the solver
-extern "C" int host_land_rollout_group_lanes(int nz, int solver)
+// the group size of the rollout kernel at nz levels of the stepper (and
+// solver)
+extern "C" int host_land_rollout_group_lanes(int nz, int solver, int stepper)
 {
-    return land::rollout_group_lanes(nz, solver);
+    return stepper == HEUN ? land::heun_rollout_group_lanes(nz)
+                           : land::rollout_group_lanes(nz, solver);
 }
 
-// the group size of the segment-VJP kernel at nz levels with the solver
-extern "C" int host_land_group_lanes(int nz, int solver)
+// the group size of the segment-VJP kernel at nz levels of the stepper (and
+// solver)
+extern "C" int host_land_group_lanes(int nz, int solver, int stepper)
 {
-    return land::implicit_group_lanes(nz, solver);
+    return stepper == HEUN ? land::heun_group_lanes(nz) : land::implicit_group_lanes(nz, solver);
 }

@@ -151,12 +151,12 @@ def test_listed_key_takes_the_prebuilt_library(fake_nvcc):
     """A listed key builds its source's whole prebuilt set, one compile an
     instantiation and one link into ``<stem>.so``, and is read from it; a
     key built alone afterwards comes from its own library."""
-    listed = ("heun", "veg", "richards", "bc", "linear")
+    listed = ("veg", "richards", "bc", "linear")
     assert (listed, F32, 20) in cb.INSTANTIATIONS["land_column_rollout"]
     fn = cb.entry("land_column_rollout", F32, 20, [], tags=listed)
     stem = cb._stem("land_column_rollout")
     assert cb._libs["land_column_rollout"].path == str(cb._BUILD_DIR / f"{stem}.so")
-    assert fn.name == "land_column_rollout_heun_veg_richards_bc_linear_f32_nz20"
+    assert fn.name == "land_column_rollout_veg_richards_bc_linear_f32_nz20"
     assert len(fake_nvcc.compiles()) == len(cb.INSTANTIATIONS["land_column_rollout"])
     assert len(fake_nvcc.links()) == 1
     other = ("implicit", "picard", "veg", "richards", "bc", "linear", "snow")
@@ -444,14 +444,16 @@ def test_land_group_segment_vjp_keys(fake_nvcc, solver):
 
 
 def test_land_group_segment_vjp_has_a_kernel_per_solver():
-    """The group source's kernel takes the solver as a template argument and
-    its entry launches the kernel of the solver its argument names, so that
-    the Picard entry (``SOIL_SOLVER=2``) holds a kernel of each solver and
-    every other entry one; the group size is
-    ``land::implicit_group_lanes(NZ, SOLVER)`` of that solver."""
+    """The group source's kernel takes the stepper and the solver as
+    template arguments and its entry launches the kernel of the solver its
+    argument names, so that the Picard entry (``SOIL_SOLVER=2``) holds a
+    kernel of each solver and every other entry one; the group size is
+    ``land::implicit_group_lanes(NZ, SOLVER)`` of that solver, Heun's
+    ``land::heun_group_lanes(NZ)``."""
     src = (cb._CSRC / "land_column_group_segment_vjp.cu").read_text()
-    assert "template <typename T, int NZ, int G, int SOLVER>\n__global__" in src
+    assert "template <typename T, int NZ, int G, int STEPPER, int SOLVER>\n__global__" in src
     assert "land::implicit_group_lanes(NZ, SOLVER)" in src
+    assert "land::heun_group_lanes(NZ)" in src
     assert "if (solver == soil::SOLVER_THOMAS) return SOIL_LAUNCH(soil::SOLVER_THOMAS);" in src
     assert "return SOIL_LAUNCH(ENTRY_SOLVER);" in src
 
@@ -467,19 +469,22 @@ def test_land_group_segment_vjp_has_a_kernel_per_solver():
     ("veg_noflow", "implicit", "land_column_segment_vjp"),
     ("bare", "implicit", "land_column_segment_vjp"),
     ("coupled", "euler", "land_column_segment_vjp"),
-    ("coupled", "heun", "land_column_segment_vjp"),
+    ("coupled", "heun", "land_column_group_segment_vjp"),
+    ("bare_vg_mualem", "heun", "land_column_group_segment_vjp"),
+    ("consistent_snow", "heun", "land_column_segment_vjp"),
+    ("veg_noflow", "heun", "land_column_segment_vjp"),
 ])
 def test_land_segment_vjp_routes_by_type(composition, stepper, source):
     """``land_column_segment_vjp`` takes its source from the composition's
-    type (``land_vjp.vjp_source``, with no switch): ImplicitEuler over
-    Richards flow without a snowpack, with or without vegetation and with
-    either curve and conductivity, the group kernel; a snowpack, ``NoFlow``,
-    ForwardEuler and Heun the one-thread kernel."""
+    type (``land_vjp.vjp_source``, with no switch): ImplicitEuler and Heun
+    over Richards flow without a snowpack, with or without vegetation and
+    with either curve and conductivity, the group kernel; a snowpack,
+    ``NoFlow`` and ForwardEuler the one-thread kernel."""
     from terrarium_tpu_torch.ops import land_vjp as lv
 
     params = _land_params(composition)
     assert lv.vjp_source(params, stepper) == source
-    assert ("snow" in params.tags or params.tags[1] == "noflow" or stepper != "implicit") == (
+    assert ("snow" in params.tags or params.tags[1] == "noflow" or stepper == "euler") == (
         source == "land_column_segment_vjp")
 
 
@@ -529,21 +534,27 @@ def test_land_group_rollout_keys(fake_nvcc, solver):
 
 
 def test_land_group_rollout_has_a_kernel_per_solver():
-    """The group rollout's kernel takes the solver as a template argument
-    and its entry launches the kernel of the solver its argument names, so
-    that the Picard entry (``SOIL_SOLVER=2``) holds a kernel of each solver
-    and every other entry one; the group size is
-    ``land::rollout_group_lanes(NZ, SOLVER)`` of that solver, and the step
-    is the group column's ``rollout`` over ``picard_step``, the step the
-    segment VJP recomputes with."""
+    """The group rollout's kernel takes the stepper and the solver as
+    template arguments and its entry launches the kernel of the solver its
+    argument names, so that the Picard entry (``SOIL_SOLVER=2``) holds a
+    kernel of each solver and every other entry one; the group size is
+    ``land::rollout_group_lanes(NZ, SOLVER)`` of that solver, Heun's
+    ``land::heun_rollout_group_lanes(NZ)``, and the step is the group
+    column's ``rollout`` over ``picard_step`` or ``heun_step``, the steps
+    the segment VJP recomputes with."""
     src = (cb._CSRC / "land_column_group_rollout.cu").read_text()
-    assert "template <typename T, int NZ, int G, int SOLVER>\n__global__" in src
+    assert "template <typename T, int NZ, int G, int STEPPER, int SOLVER>\n__global__" in src
     assert "land::rollout_group_lanes(NZ, SOLVER)" in src
-    assert "column.template rollout<SOLVER>(" in src
+    assert "land::heun_rollout_group_lanes(NZ)" in src
+    assert "column.template rollout<STEPPER, SOLVER>(" in src
     assert "if (solver == soil::SOLVER_THOMAS) return SOIL_LAUNCH(soil::SOLVER_THOMAS);" in src
     assert "return SOIL_LAUNCH(ENTRY_SOLVER);" in src
     header = (cb._CSRC / "land_group_step.cuh").read_text()
     assert "picard_step<SOLVER>(U, sat, s, f, dt, inv_dt, iters);" in header
+    assert "heun_step(U, sat, s, f, f1, dt);" in header
+    assert "rollout_step<STEPPER, SOLVER>(U, sat, s, fr, inputs, col, t, dt, inv_dt, iters);" \
+        in header
+    assert "heun_stage(U, cs, cx, f0, dt, r, xU, xs, xsurf);" in header
 
 
 @pytest.mark.parametrize("composition,stepper,source", [
@@ -557,15 +568,18 @@ def test_land_group_rollout_has_a_kernel_per_solver():
     ("veg_noflow", "implicit", "land_column_rollout"),
     ("bare", "implicit", "land_column_rollout"),
     ("coupled", "euler", "land_column_rollout"),
-    ("coupled", "heun", "land_column_rollout"),
+    ("coupled", "heun", "land_column_group_rollout"),
+    ("bare_vg_mualem", "heun", "land_column_group_rollout"),
+    ("consistent_snow", "heun", "land_column_rollout"),
+    ("bare", "heun", "land_column_rollout"),
     ("consistent_snow", "euler", "land_column_rollout"),
 ])
 def test_land_rollout_routes_by_type(composition, stepper, source):
     """The land rollout wrappers take their source from the composition's
-    type (``land_step.rollout_source``, with no switch): ImplicitEuler over
-    Richards flow without a snowpack, with or without vegetation and with
-    either curve and conductivity, the group kernel; a snowpack, ``NoFlow``,
-    ForwardEuler and Heun the one-thread kernel. The land segment VJP
+    type (``land_step.rollout_source``, with no switch): ImplicitEuler and
+    Heun over Richards flow without a snowpack, with or without vegetation
+    and with either curve and conductivity, the group kernel; a snowpack,
+    ``NoFlow`` and ForwardEuler the one-thread kernel. The land segment VJP
     routes every composition the same way."""
     from terrarium_tpu_torch.ops import land_vjp as lv
 
@@ -606,3 +620,52 @@ def test_land_rollout_group_size_is_the_group_schemes(fake_nvcc):
         for stepper in (("implicit", "thomas"), ("implicit", "picard")):
             assert ((*stepper, *bench, "g8"), dtype, 20) in \
                 cb.INSTANTIATIONS["land_column_group_rollout"]
+
+
+@pytest.mark.parametrize("source,one_thread", [
+    ("land_column_group_rollout", "land_column_rollout"),
+    ("land_column_group_segment_vjp", "land_column_segment_vjp")])
+def test_land_group_heun_keys(fake_nvcc, source, one_thread):
+    """The land Heun rollout and segment VJP over the vegetated bench
+    composition are prebuilt from the group sources at float32 and float64
+    Nz 20 and no longer in the one-thread sources' prebuilt sets, which
+    still build the same tags alone on demand (to time one layout against
+    the other); an unlisted depth is built alone with Heun's define
+    (``SOIL_STEPPER=1``), no solver and no group size, with ``-fmad=false``
+    once at float64 and, the group Heun entries' ``TAG_FLAGS``, at float32
+    too, where the group ImplicitEuler and the one-thread Heun entries
+    contract."""
+    tags = ("heun",) + _land_params("coupled").tags
+    for dtype in (F32, F64):
+        assert (tags, dtype, 20) in cb.INSTANTIATIONS[source]
+    assert all(t != tags for t, _, _ in cb.INSTANTIATIONS[one_thread])
+    fn = cb.entry(source, F64, 15, [], tags=tags)
+    name = f"{source}_{'_'.join(tags)}_f64_nz15"
+    assert fn.name == name
+    (compile_,) = fake_nvcc.compiles()
+    assert compile_[-1].endswith(f"{source}.cu") and compile_.count("-fmad=false") == 1
+    assert _defines(compile_) == {f"-DSOIL_ENTRY={name}", "-DSOIL_T=double", "-DSOIL_NZ=15",
+                                  "-DSOIL_STEPPER=1", "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1",
+                                  "-DLAND_VEG=1", "-DLAND_CURVE=1", "-DLAND_COND=1"}
+    # the group Heun entries contract no multiply-adds at float32 either
+    # (TAG_FLAGS), the group ImplicitEuler and the one-thread Heun ones do
+    cb.entry(source, F32, 15, [], tags=tags)
+    assert "-fmad=false" in fake_nvcc.compiles()[-1]
+    cb.entry(source, F32, 15, [], tags=("implicit", "pcr") + tags[1:])
+    assert "-fmad=false" not in fake_nvcc.compiles()[-1]
+    one = cb.entry(one_thread, F32, 20, [], tags=tags)
+    assert one.name == f"{one_thread}_{'_'.join(tags)}_f32_nz20"
+    assert fake_nvcc.compiles()[-1][-1].endswith(f"{one_thread}.cu")
+    assert "-fmad=false" not in fake_nvcc.compiles()[-1]
+
+
+def test_land_heun_rollout_group_size_is_the_group_schemes(fake_nvcc):
+    """``land_column_heun_rollout`` takes a group size (the land gradient's
+    forward segments pass the segment VJP's) and refuses it by
+    ``ValueError`` for a composition the group rollout does not run (a
+    snowpack), before any build or launch."""
+    params = _land_params("consistent_snow")
+    with pytest.raises(ValueError, match="group size"):
+        ls.land_column_heun_rollout({}, {}, None, None, None, None, None, params, 60.0, 0.0, 1,
+                                    group=4)
+    assert fake_nvcc.calls == []

@@ -1400,8 +1400,9 @@ def _land_vjp_operands(sim, device, seed):
 @pytest.mark.parametrize("scheme", LAND_VJP_SCHEMES)
 def test_land_segment_vjp_kernel_matches_plain(cuda, scheme):
     """The land segment-VJP kernel of the scheme (``land_vjp.vjp_source``:
-    ImplicitEuler without a snowpack csrc/land_column_group_segment_vjp.cu,
-    the others csrc/land_column_segment_vjp.cu) at
+    ImplicitEuler and Heun without a snowpack
+    csrc/land_column_group_segment_vjp.cu, the others
+    csrc/land_column_segment_vjp.cu) at
     float64 on 256 columns over 12 steps from seeded output cotangents:
     every cotangent within 1e-9 of the plain version's autograd (with a
     floor of 1e-9 of its largest magnitude), the parameter cotangents within

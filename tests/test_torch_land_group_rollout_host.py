@@ -1,8 +1,9 @@
 """The land group rollout kernel's column code
 (``land::GroupColumn::rollout`` in ``csrc/land_group_step.cuh``: the
 LandModel's ImplicitEuler rollout over Richards flow without a snowpack,
-any Picard count, either solver, each column on a group of lanes, the step
-``GroupColumn::picard_step`` that the land group segment VJP recomputes
+any Picard count, either solver, and its Heun rollout, each column on a
+group of lanes, the step ``GroupColumn::picard_step`` or
+``GroupColumn::heun_step`` that the land group segment VJP recomputes
 with), compiled for the host by the C++ compiler with each group's lanes
 emulated in lockstep (``soil::HostLanes``; the builds of
 ``tests/land_group_vjp_host.cpp`` that `test_torch_land_group_vjp_host.py`
@@ -22,10 +23,12 @@ column, shared between the two files), against
   the top lanes), each solver, on ``torch_parity.land_random_state``'s
   states of 24 columns over 8 steps of 600 s from the clock time 1,800 s,
   the shortwave and the air temperature two uniform series of their own
-  origins (-5,400 s and -3,000 s), the other inputs static;
+  origins (-5,400 s and -3,000 s), the other inputs static; Heun likewise
+  against ``land::rollout_column`` of ``land::heun_step`` (each step's
+  stage reading the series at t + dt) over 8 steps of 60 s;
 * the plain version (``land_column_rollout_plain``, the process modules)
   at float64, rtol 1e-12 with a floor of 1e-12 of each field's largest
-  magnitude, at Nz 20 and the kernel's G, each solver;
+  magnitude, at Nz 20 and the kernel's G, each solver, and Heun;
 * JAX's ``make_fused_lean_rollout(..., interpret=True)`` (the Pallas kernel
   through its interpreter) at Nz 8, PCR with two Picard iterations, through
   the port's ``integrator.advance`` with the host build in place of the
@@ -44,8 +47,9 @@ import terrarium_tpu_torch as tp
 from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.timesteppers import integrator
 
-from test_torch_land_group_vjp_host import (CASES, CONDS, CURVES, GROUPS, SOLVERS, host_libs,
-                                            land_case)
+from test_torch_land_adjoint_host import HEUN_DT
+from test_torch_land_group_vjp_host import (CASES, CONDS, CURVES, GROUPS, SOLVERS, STEPPERS,
+                                            host_libs, land_case)
 from test_torch_land_steppers import _assert_prognostics_close, _forced
 
 STEPS, DT, TIME0 = 8, 600.0, 1800.0
@@ -79,9 +83,11 @@ def rollout_case(nz, composition):
     return carry, inputs, root, coords, params
 
 
-def host_rollout(lib, case, solver, iters, steps=STEPS, dt=DT, time0=TIME0):
+def host_rollout(lib, case, solver, iters, steps=STEPS, dt=DT, time0=TIME0,
+                 stepper="implicit"):
     """The output carry of the host build ``lib`` (a group one or the
-    one-thread one) over ``steps`` ImplicitEuler steps."""
+    one-thread one) over ``steps`` steps of ``stepper`` (``"implicit"``
+    with ``solver`` and ``iters`` Picard iterations, or ``"heun"``)."""
     carry, inputs, root, coords, params = case
     nz, cells = carry["internal_energy"].shape
     out = {n: torch.full_like(carry[n], np.nan) for n in params.model.live_carry}
@@ -94,7 +100,8 @@ def host_rollout(lib, case, solver, iters, steps=STEPS, dt=DT, time0=TIME0):
         ctypes.c_int(steps), ctypes.c_double(time0), ctypes.c_double(dt),
         ctypes.c_longlong(cells), ctypes.c_int(iters), ctypes.c_int(nz),
         ctypes.c_int(tags[0] == "veg"), ctypes.c_int(CURVES[tags[2]]),
-        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(SOLVERS[solver]))
+        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(SOLVERS.get(solver, 1)),
+        ctypes.c_int(STEPPERS[stepper]))
     del keep
     assert rc == 0
     return out
@@ -109,11 +116,19 @@ def case_of(nz, composition):
     return _cases[nz, composition]
 
 
+def heun_kw(solver):
+    """host_rollout's keywords of a scheme: Heun's (``solver`` None) at
+    HEUN_DT."""
+    return {"stepper": "heun", "dt": HEUN_DT} if solver is None else {}
+
+
 def thread_run(libs, nz, composition, solver, iters):
-    """The one-thread build's rollout of a case, computed once for every G."""
+    """The one-thread build's rollout of a case, computed once for every G
+    (``solver`` None: Heun's)."""
     key = (nz, composition, solver, iters)
     if key not in _thread_runs:
-        _thread_runs[key] = host_rollout(libs[None], case_of(nz, composition), solver, iters)
+        _thread_runs[key] = host_rollout(libs[None], case_of(nz, composition), solver, iters,
+                                         **heun_kw(solver))
     return _thread_runs[key]
 
 
@@ -127,8 +142,15 @@ def test_land_group_rollout_equals_the_thread_rollout_bitwise(libs, nz, composit
     ``land::rollout_column`` (implicit_step at one iteration, picard_step at
     more) over 8 steps of 600 s with two series inputs on every column:
     every field of the output carry bit for bit, finite, and moved."""
+    assert_rollout_bitwise(libs, nz, composition, group, solver, iters)
+
+
+def assert_rollout_bitwise(libs, nz, composition, group, solver, iters):
+    """The group build's rollout at G ``group`` against the one-thread
+    build's on a case (``solver`` None: Heun's): every field of the output
+    carry bit for bit, finite, and moved."""
     want = thread_run(libs, nz, composition, solver, iters)
-    got = host_rollout(libs[group], case_of(nz, composition), solver, iters)
+    got = host_rollout(libs[group], case_of(nz, composition), solver, iters, **heun_kw(solver))
     carry = case_of(nz, composition)[0]
     for name, b in want.items():
         a = got[name]
@@ -147,7 +169,7 @@ def test_land_group_rollout_matches_the_plain_version(libs, solver, iters):
     the series read at each clock time) over 8 steps of 600 s: every field
     within rtol 1e-12 with a floor of 1e-12 of its largest magnitude."""
     nz = 20
-    g = libs[None].host_land_rollout_group_lanes(nz, SOLVERS[solver])
+    g = libs[None].host_land_rollout_group_lanes(nz, SOLVERS[solver], STEPPERS["implicit"])
     case = case_of(nz, "consistent")
     got = host_rollout(libs[g], case, solver, iters)
     carry, inputs, root, coords, params = case
@@ -167,7 +189,7 @@ def test_land_group_rollout_matches_jax_fused_interpret(libs, monkeypatch):
     launches of 4 inner steps): every prognostic as that file holds the
     plain version."""
     nz, solver, iters = 8, "pcr", 2
-    g = libs[None].host_land_rollout_group_lanes(nz, SOLVERS[solver])
+    g = libs[None].host_land_rollout_group_lanes(nz, SOLVERS[solver], STEPPERS["implicit"])
     calls = []
 
     def rollout(carry, inputs, root, dz, dz_faces, z_centers, z_faces, params, dt, time, steps,
@@ -189,3 +211,34 @@ def test_land_group_rollout_matches_jax_fused_interpret(libs, monkeypatch):
                        input_sources=psim.input_sources)
     assert calls == [(solver, iters, 8)]
     _assert_prognostics_close(psim.state, jstate, sorted(psim.state.prognostic))
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("nz,composition", CASES)
+def test_land_group_heun_rollout_equals_the_thread_rollout_bitwise(libs, nz, composition,
+                                                                   group):
+    """``land::GroupColumn::rollout`` of Heun at G ``group`` against
+    ``land::rollout_column`` of ``land::heun_step`` over 8 steps of 60 s
+    with two series inputs (read at t and, for the stage, t + dt) on every
+    column: every field of the output carry bit for bit, finite, and
+    moved."""
+    assert_rollout_bitwise(libs, nz, composition, group, None, 1)
+
+
+def test_land_group_heun_rollout_matches_the_plain_version(libs):
+    """The group Heun rollout at Nz 20 over the bench composition at the
+    kernel's G (``land::heun_rollout_group_lanes``) against the plain
+    version (the process modules stepped by Heun's ``pre_closure_step``,
+    the series read at each clock time, the stage's at t + dt) over 8 steps
+    of 60 s: every field within rtol 1e-12 with a floor of 1e-12 of its
+    largest magnitude."""
+    nz = 20
+    g = libs[None].host_land_rollout_group_lanes(nz, 1, STEPPERS["heun"])
+    case = case_of(nz, "consistent")
+    got = host_rollout(libs[g], case, None, 1, **heun_kw(None))
+    carry, inputs, root, coords, params = case
+    want = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, HEUN_DT, TIME0,
+                                        STEPS, stepper="heun")
+    for name, b in want.items():
+        scale = float(b.abs().max())
+        torch.testing.assert_close(got[name], b, rtol=1e-12, atol=1e-12 * scale, msg=name)

@@ -1,8 +1,8 @@
 """The land group segment-VJP kernel's column code
 (``land::GroupColumn::segment_vjp`` in ``csrc/land_group_step.cuh``:
-ImplicitEuler over a LandModel with Richards flow and no snowpack, any
-Picard count, each step undone on the column's group of lanes, the surface
-block's forward-mode passes split across the lanes), compiled for the host
+ImplicitEuler, any Picard count, or Heun over a LandModel with Richards
+flow and no snowpack, each step undone on the column's group of lanes, the
+surface block's forward-mode passes split across the lanes), compiled for the host
 by the C++ compiler with each group's lanes emulated in lockstep
 (``soil::HostLanes``; ``tests/land_group_vjp_host.cpp`` built with
 ``-DLAND_GROUP_G=<G>`` once for each G, and without for the one-thread
@@ -14,7 +14,9 @@ column), against
   cotangents and each step's stored carry (the forward's) bit for bit (both
   builds contract no multiply-adds, and the group code forms each value by
   the one-thread code's operations in its order), each column's parameter
-  cotangents, which the lanes sum apart, within rtol 1e-12; at G 4, 8, 16
+  cotangents, which the lanes sum apart, within rtol 1e-12; Heun likewise
+  against ``land::heun_step`` and ``land::heun_step_adjoint`` at dt 60 s
+  (``HEUN_DT``: at 600 s its stage leaves the physical range); at G 4, 8, 16
   and 32, at Nz 20 over the vegetated bench composition (Brooks-Corey and
   linear conductivity; constant drag and the reference ground flux, or
   Monin-Obukhov drag, the consistent ground flux and the soil-moisture
@@ -29,11 +31,14 @@ column), against
   C): the columns whose photosynthesis is gated off with a zero
   discriminant, where the plain version's autograd gives NaN, are held to
   the plain version run without them; no ill-conditioned K_sat share is
-  left out at 1e-9;
+  left out at 1e-9; Heun's plain version with its respiration held on the
+  taken branch (``respiration_taken_branch``);
 * JAX's Pallas segment VJP in interpret mode, through each package's
   ``make_fused_grad_rollout``, as ``torch_land_grad.check_fused_grad`` runs
-  it (PCR, one Picard iteration; Nz 8 at the kernel's G).
+  it (PCR, one Picard iteration; Nz 8 at the kernel's G), and Heun as
+  `test_torch_land_grad_snow_heun.py` holds its ``"heun"`` case.
 """
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -51,13 +56,16 @@ from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.ops import land_vjp as lv
 from terrarium_tpu_torch.timesteppers import fused_grad
 
-from test_torch_land_adjoint_host import composition_model, zero_discriminant
+from test_torch_land_adjoint_host import (HEUN_DT, composition_model,
+                                          respiration_taken_branch, zero_discriminant)
 from torch_land_grad import check_fused_grad, jax_ref, port_ref  # noqa: F401
 from torch_parity import land_random_state
 
 HERE = pathlib.Path(__file__).parent
 CSRC = HERE.parent / "terrarium_tpu_torch" / "csrc"
 SOLVERS = {"thomas": 0, "pcr": 1}
+#: the stepper codes of the host builds (soil::STEPPER_HEUN, _IMPLICIT)
+STEPPERS = {"heun": 1, "implicit": 2}
 CURVES, CONDS = {"vg": 0, "bc": 1}, {"mualem": 0, "linear": 1}
 GROUPS = (4, 8, 16, 32)
 CELLS, STEPS, DT = 24, 8, 600.0
@@ -137,9 +145,11 @@ def land_case(composition, nz, seed, cells=CELLS):
     return carry, inputs, root, coords, params, gout
 
 
-def host_run(lib, case, solver, iters, steps=STEPS, dt=DT):
+def host_run(lib, case, solver, iters, steps=STEPS, dt=DT, stepper="implicit"):
     """``(gcarry0, gparams (2, cells), scratch (steps, 2 nz + 6, cells))``
-    of the host build ``lib`` (a group one or the one-thread one)."""
+    of the host build ``lib`` (a group one or the one-thread one) over
+    ``steps`` steps of ``stepper`` (``"implicit"`` with ``solver`` and
+    ``iters`` Picard iterations, or ``"heun"``)."""
     carry, inputs, root, coords, params, gout = case
     nz, cells = carry["internal_energy"].shape
     gin = {n: torch.full_like(t, np.nan) for n, t in carry.items()}
@@ -156,7 +166,8 @@ def host_run(lib, case, solver, iters, steps=STEPS, dt=DT):
         ctypes.c_void_p(gparams.data_ptr()), ctypes.c_void_p(scratch.data_ptr()),
         ctypes.c_int(steps), ctypes.c_double(dt), ctypes.c_longlong(cells), ctypes.c_int(iters),
         ctypes.c_int(nz), ctypes.c_int(tags[0] == "veg"), ctypes.c_int(CURVES[tags[2]]),
-        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(SOLVERS[solver]))
+        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(SOLVERS.get(solver, 1)),
+        ctypes.c_int(STEPPERS[stepper]))
     del keep
     assert rc == 0
     return gin, gparams, scratch
@@ -172,11 +183,19 @@ def case_of(nz, composition):
 
 
 def thread_run(libs, nz, composition, solver, iters):
-    """The one-thread build's run of a case, computed once for every G."""
+    """The one-thread build's run of a case, computed once for every G
+    (``solver`` None: Heun's, at HEUN_DT)."""
     key = (nz, composition, solver, iters)
     if key not in _thread_runs:
-        _thread_runs[key] = host_run(libs[None], case_of(nz, composition), solver, iters)
+        _thread_runs[key] = host_run(libs[None], case_of(nz, composition), solver, iters,
+                                     **heun_kw(solver))
     return _thread_runs[key]
+
+
+def heun_kw(solver):
+    """host_run's keywords of a scheme: Heun's (``solver`` None) at
+    HEUN_DT."""
+    return {"stepper": "heun", "dt": HEUN_DT} if solver is None else {}
 
 
 @pytest.mark.parametrize("iters", [1, 2, 3])
@@ -191,8 +210,18 @@ def test_land_group_vjp_equals_the_thread_vjp_bitwise(libs, nz, composition, gro
     cotangents bit for bit, each column's parameter cotangents (the group's
     tree sum of its lanes' running sums) within rtol 1e-12 of the one
     thread's running sum, with a floor of 1e-12 of the largest."""
+    assert_vjp_bitwise(libs, nz, composition, group, solver, iters)
+
+
+def assert_vjp_bitwise(libs, nz, composition, group, solver, iters):
+    """The group build at G ``group`` against the one-thread build on a
+    case (``solver`` None: Heun's): the input cotangents bit for bit, each
+    column's parameter cotangents within rtol 1e-12 of the one thread's
+    running sum with a floor of 1e-12 of the largest; the cotangents moved
+    through the steps."""
     want, want_p, _ = thread_run(libs, nz, composition, solver, iters)
-    got, got_p, _ = host_run(libs[group], case_of(nz, composition), solver, iters)
+    got, got_p, _ = host_run(libs[group], case_of(nz, composition), solver, iters,
+                             **heun_kw(solver))
     gout = case_of(nz, composition)[5]
     for name, b in want.items():
         a = got[name]
@@ -201,7 +230,6 @@ def test_land_group_vjp_equals_the_thread_vjp_bitwise(libs, nz, composition, gro
     assert bool(torch.isfinite(want_p).all())
     for a, b in zip(got_p, want_p):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))
-    # the cotangents moved through the steps
     assert not torch.equal(want["internal_energy"], gout["internal_energy"])
     assert float(want_p[1].abs().max()) > 0.0 and float(want_p[0].abs().max()) > 0.0
 
@@ -217,8 +245,16 @@ def test_land_group_forward_equals_the_thread_step_bitwise(libs, nz, composition
     ``land::picard_step`` at more): each step's input carry that the two
     segment VJPs store, steps 1 to 7 the forward's, bit for bit; the
     carries move."""
+    assert_forward_bitwise(libs, nz, composition, group, solver, iters)
+
+
+def assert_forward_bitwise(libs, nz, composition, group, solver, iters):
+    """Each step's input carry that the group and the one-thread builds
+    store on a case (``solver`` None: Heun's) bit for bit; the carries
+    move."""
     _, _, want = thread_run(libs, nz, composition, solver, iters)
-    _, _, got = host_run(libs[group], case_of(nz, composition), solver, iters)
+    _, _, got = host_run(libs[group], case_of(nz, composition), solver, iters,
+                         **heun_kw(solver))
     assert bool(torch.isfinite(want).all())
     assert torch.equal(got, want), (got != want).nonzero()[:5].tolist()
     assert not torch.equal(want[-1], want[0])
@@ -236,14 +272,31 @@ def test_land_group_vjp_matches_autograd(libs, composition, solver, iters):
     where the plain version's autograd is not finite must be the
     zero-discriminant ones (`test_torch_land_adjoint_host.py`), and the
     rest are held to the plain version run without them."""
-    nz = 20
-    g = libs[None].host_land_group_lanes(nz, SOLVERS[solver])
+    assert_matches_autograd(libs, composition, solver, iters)
+
+
+def assert_matches_autograd(libs, composition, solver, iters):
+    """The group build at Nz 20 and the kernel's G against torch autograd
+    through the plain version on a case (``solver`` None: Heun's at
+    HEUN_DT, its respiration held on the taken branch): every carry
+    cotangent within rtol 1e-9 with a floor of 1e-9 of its field's largest
+    magnitude, the parameter cotangents summed over the columns within rtol
+    1e-9; the columns where the plain version's autograd is not finite must
+    be zero-discriminant ones, and the rest are held to the plain version
+    run without them."""
+    nz, stepper = 20, "implicit" if solver else "heun"
+    g = libs[None].host_land_group_lanes(nz, SOLVERS.get(solver, 1), STEPPERS[stepper])
     case = case_of(nz, composition)
     carry, inputs, root, coords, params, gout = case
-    got, gp, _ = host_run(libs[g], case, solver, iters)
-    kw = {"stepper": "implicit", "solver": solver, "picard_iters": iters}
-    ref, rK, rskm = lv.land_column_segment_vjp_plain(carry, inputs, root, *coords, params, DT,
-                                                     0.0, STEPS, gout, **kw)
+    got, gp, _ = host_run(libs[g], case, solver, iters, **heun_kw(solver))
+    dt = DT if solver else HEUN_DT
+    kw = {"stepper": stepper, "solver": solver, "picard_iters": iters}
+
+    def plain(*a):
+        with contextlib.nullcontext() if solver else respiration_taken_branch():
+            return lv.land_column_segment_vjp_plain(*a, **kw)
+
+    ref, rK, rskm = plain(carry, inputs, root, *coords, params, dt, 0.0, STEPS, gout)
     bad = torch.zeros(CELLS, dtype=torch.bool)
     for t in ref.values():
         bad |= ~torch.isfinite(t).all(0) if t.dim() == 2 else ~torch.isfinite(t)
@@ -255,9 +308,8 @@ def test_land_group_vjp_matches_autograd(libs, composition, solver, iters):
                     for n, t in d.items()}
         sub_in = {n: ls.LandInput(i.values[:, keep].contiguous()) for n, i in inputs.items()}
         sub_root = None if root is None else root[:, keep]
-        ref, rK, rskm = lv.land_column_segment_vjp_plain(cols(carry), sub_in, sub_root,
-                                                         *coords, params, DT, 0.0, STEPS,
-                                                         cols(gout), **kw)
+        ref, rK, rskm = plain(cols(carry), sub_in, sub_root, *coords, params, dt, 0.0, STEPS,
+                              cols(gout))
         got = cols(got)
     for name, b in ref.items():
         a = got[name]
@@ -276,13 +328,14 @@ def _host_group_segment_vjp(libs):
     the host build of the group segment VJP at the kernel's G."""
     def vjp(carry, inputs, root, dz, dz_faces, z_centers, z_faces, params, dt, time, steps,
             gcarry, *, stepper, solver, picard_iters):
-        assert stepper == "implicit"
+        assert stepper in STEPPERS
         nz = carry["internal_energy"].shape[0]
-        g = libs[None].host_land_group_lanes(nz, SOLVERS[solver])
+        g = libs[None].host_land_group_lanes(nz, SOLVERS.get(solver, 1), STEPPERS[stepper])
         case = ({n: t.contiguous() for n, t in carry.items()}, inputs, root,
                 (dz, dz_faces, z_centers, z_faces), params,
                 {n: t.contiguous() for n, t in gcarry.items()})
-        gin, gp, _ = host_run(libs[g], case, solver, picard_iters, steps=steps, dt=dt)
+        gin, gp, _ = host_run(libs[g], case, solver, picard_iters, steps=steps, dt=dt,
+                              stepper=stepper)
         return gin, gp[0].sum(), gp[1].sum()
     return vjp
 
@@ -298,3 +351,70 @@ def test_land_group_vjp_matches_jax_pallas(libs, monkeypatch, jax_ref, port_ref)
     magnitude."""
     monkeypatch.setattr(fused_grad, "land_column_segment_vjp", _host_group_segment_vjp(libs))
     check_fused_grad(jax_ref, port_ref, "implicit-pcr", "pallas")
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("nz,composition", CASES)
+def test_land_group_heun_vjp_equals_the_thread_vjp_bitwise(libs, nz, composition, group):
+    """``land::GroupColumn::segment_vjp`` of Heun at G ``group`` against
+    ``land::segment_vjp_column`` of ``land::heun_step`` (the stage
+    recomputed by ``heun_stage_call``) over 8 steps of 60 s on every column:
+    the input cotangents bit for bit, each column's parameter cotangents
+    within rtol 1e-12 of the one thread's running sum, with a floor of
+    1e-12 of the largest."""
+    assert_vjp_bitwise(libs, nz, composition, group, None, 1)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("nz,composition", CASES)
+def test_land_group_heun_forward_equals_the_thread_step_bitwise(libs, nz, composition, group):
+    """The group forward of Heun (``GroupColumn::heun_step``, its top
+    level's Flux BCs kept apart from the mean of the two stages'
+    tendencies) against ``land::heun_step``: each step's input carry that
+    the two segment VJPs store bit for bit over 8 steps of 60 s; the
+    carries move."""
+    assert_forward_bitwise(libs, nz, composition, group, None, 1)
+
+
+@pytest.mark.parametrize("composition", ["coupled", "bare_vg_mualem"])
+def test_land_group_heun_vjp_matches_autograd(libs, composition):
+    """The group segment VJP of Heun at Nz 20 and the kernel's G
+    (``land::heun_group_lanes``) against torch autograd through the plain
+    version over 8 steps of 60 s (its respiration held on the taken
+    branch): every carry cotangent within rtol 1e-9 with a floor of 1e-9 of
+    its field's largest magnitude, the parameter cotangents summed over the
+    columns within rtol 1e-9. Columns where the plain version's autograd is
+    not finite must be the zero-discriminant ones."""
+    assert_matches_autograd(libs, composition, None, 1)
+
+
+def test_land_group_heun_vjp_matches_jax_pallas(libs, monkeypatch):
+    """The port's fused gradient of `test_torch_land_grad_snow_heun.py`'s
+    ``"heun"`` case (32 columns, Nz 8, 8 steps of 60 s in segments of 4)
+    with the host build of the group segment VJP at the kernel's G in place
+    of the kernel, against JAX's Pallas segment VJP in interpret mode (under
+    JAX's default saturation adjustment): the value within rtol 1e-10, d/d
+    log K_sat and d/d k_mineral within rtol 1e-8 and non-zero, d/dU0 and
+    d/dC0 per cell within rtol 1e-8 with a floor of 1e-8 of each one's
+    largest magnitude, as that file holds the plain version."""
+    import terrarium_tpu.processes.soil.hydrology as jax_hydrology
+    import test_torch_land_grad_snow_heun as sh
+
+    calls = []
+    host = _host_group_segment_vjp(libs)
+
+    def vjp(*a, **kw):
+        calls.append(kw["stepper"])
+        return host(*a, **kw)
+
+    monkeypatch.setattr(fused_grad, "land_column_segment_vjp", vjp)
+    v, gx, gk, gU, gC, _ = sh._port_grads("heun")
+    assert calls == ["heun"] * (sh.STEPS // sh.INNER)
+    monkeypatch.setattr(jax_hydrology, "ADJUST_IMPL", "fused")
+    jv, jgx, jgk, jgU, jgC, _ = sh._jax_grads("heun", "pallas")
+    np.testing.assert_allclose(v, jv, rtol=1e-10)
+    for a, b in ((gx, jgx), (gk, jgk)):
+        assert abs(float(a)) > 0.0
+        np.testing.assert_allclose(a, b, rtol=1e-8)
+    for a, b in ((gU, jgU), (gC, jgC)):
+        sh._held(a, b, 1e-8)
