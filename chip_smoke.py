@@ -85,9 +85,9 @@ bound:
   1,440-step block, the latter with its non-finite share; the
   ``land_snow`` golden (float64, Nz 12, 48 steps through the kernel: the
   snowpack's fields against the golden, every field against the plain
-  version); the land kernel's Heun and ImplicitEuler (PCR, Thomas; both on
-  groups of lanes) and snowpack (ImplicitEuler PCR) variants, each against its
-  plain version one
+  version); the land kernel's Heun and ImplicitEuler (PCR, Thomas) and
+  snowpack (ImplicitEuler PCR) variants, all on groups of lanes, each
+  against its plain version one
   step at a time (float64 on 1,024 columns, float32 at full width, 48
   steps) and then through ``Simulation.run`` on ``land_consistent``'s
   composition and forcing at dt 600 s (``land_heun``, ``land_implicit_pcr``,
@@ -113,15 +113,19 @@ bound:
   (``land_grad_implicit_picard2_<solver>``), Heun at dt 60 s
   (``land_grad_heun``) and ``land_snow_n145``'s snowpack by ImplicitEuler
   PCR at dt 600 s (``land_grad_snow_implicit_pcr``), after the land segment-VJP
-  kernel (ImplicitEuler and Heun without a snowpack on groups of lanes,
-  their stored carries bitwise the group rollout's; the others one thread a
-  column, their stored carries' gap to the one-thread rollout's reported,
-  ROADMAP C3) against its plain version (float64 on 1,024 columns at rtol 1e-9,
+  kernel (ImplicitEuler and Heun, with or without a snowpack, on groups of
+  lanes, their stored carries bitwise the group rollout's; ForwardEuler one
+  thread a column, its stored carries bitwise those of the forward
+  segments' build without contracted multiply-adds, ROADMAP C3) against
+  its plain version (float64 on 1,024 columns at rtol 1e-9,
   float32 at full width with the plain version in chunks, the parameter
   cotangents also summed with output cotangents aligned to the sign of each
   column's plain share) and the float64 gradient against central
   differences of the loss; with Picard iterations the float32 gradient's
-  gap to the float64 one is held to the one-iteration scheme's;
+  gap to the float64 one is held to the one-iteration scheme's; then the
+  snowy group entries of Thomas, two Picard iterations and Heun at float64
+  on 1,024 columns, each rollout and segment VJP against its plain version
+  (``group_check_snow_entries``);
 * the gradient path of the segment VJP's other schemes, each at 56,951
   columns, Nz 30, float32, 288 steps in segments of 48, after its kernel
   against its plain version (float64 on 1,024 columns at the scheme's
@@ -979,16 +983,19 @@ def land_grad_params(tp):
             float(soil_.energy.thermal_properties.conductivities.mineral))
 
 
-def land_grad_sim(tp, cells, dtype, name):
-    """LAND_GRAD_SCHEMES[name] on ``cells`` columns at latitudes evenly
+def land_grad_sim(tp, cells, dtype, name, scheme=None):
+    """LAND_GRAD_SCHEMES[name] (or ``scheme``, ``(key, solver, dt, Picard
+    iterations, snowpack)``) on ``cells`` columns at latitudes evenly
     spaced from -60 to 80 degrees: static shortwave 900 cos(lat) / pi and
     air temperature T_mean = 28 max(cos lat, 0.05) - 8, longwave 330, rain
     4e-8, wind 3; initial temperature T_mean, saturation 0.6, carbon 2,
     vegetation fraction 0.5; under LAND_GRAD_SNOW a snowfall of SNOWFALL and
     an initial pack of SWE0 (land_snow_n145's)."""
-    key, solver, dt = LAND_GRAD_SCHEMES[name]
-    snow = name in LAND_GRAD_SNOW
-    iters = LAND_GRAD_PICARD.get(name, 1)
+    if scheme is None:
+        key, solver, dt = LAND_GRAD_SCHEMES[name]
+        iters, snow = LAND_GRAD_PICARD.get(name, 1), name in LAND_GRAD_SNOW
+    else:
+        key, solver, dt, iters, snow = scheme
     grid = tp.ColumnGrid.of(cells=cells, spacing=tp.ExponentialSpacing(N=LAND_NZ),
                             dtype=dtype, device="cuda")
     lat = np.linspace(-60.0, 80.0, cells)
@@ -1007,6 +1014,62 @@ def land_grad_sim(tp, cells, dtype, name):
         inits["snow_water_equivalent"] = SWE0
     return tp.initialize(land_grad_model_fn(tp, grid, snow)(land_grad_params(tp)), stepper,
                          (tp.FieldInputSource(fields=fields),), initializers=inits)
+
+
+# the snowy group entries held at float64 besides land_snow_n145's PCR one
+# (rows 1'g and 3'k): Thomas, PCR with two Picard iterations and Heun, each
+# rollout over LAND_VARIANT_STEPS steps of LAND_DT with land_snow_n145's
+# forcing and each segment VJP over a GRAD_INNER-step segment of its dt with
+# land_grad_snow_implicit_pcr's static inputs: (wrapper key, solver, Picard
+# iterations, the VJP's dt)
+LAND_SNOW_ENTRIES = {"thomas": ("implicit", "thomas", 1, 600.0),
+                     "picard2_pcr": ("implicit", "pcr", 2, 600.0),
+                     "heun": ("heun", None, 1, 60.0)}
+
+
+def land_snow_entries_check(tp, ls, lv, fs, land_inputs, card):
+    """LAND_SNOW_ENTRIES at float64 on LAND_F64_CELLS columns: each group
+    rollout against its plain version one step at a time along the plain
+    trajectory at 1e-12 (land_teacher), each group segment VJP against
+    autograd at rtol 1e-9 (land_vjp_compare); prints the phase
+    ``group_check_snow_entries`` and raises where one fails or where a
+    wrapper's source is not the group kernel's."""
+    res = {}
+    for name, (key, solver, iters, vdt) in LAND_SNOW_ENTRIES.items():
+        kw = {"solver": solver} if solver else {}
+        if iters != 1:
+            kw["picard_iters"] = iters
+        stepper = tp.Heun(dt=LAND_DT) if key == "heun" else tp.ImplicitEuler(dt=LAND_DT, **kw)
+        sim = land_sim(tp, LAND_F64_CELLS, torch.float64, "consistent", stepper=stepper,
+                       snow=True)
+        carry, linputs, root, coords, params = land_operands(ls, land_inputs, sim)
+        sources = (ls.rollout_source(params, key), lv.vjp_source(params, key))
+        if sources != (LAND_GROUP_SOURCE, LAND_VJP_GROUP_SOURCE):
+            raise AssertionError(f"snowy {name}: the wrappers launch {sources}")
+        r_abs, r_rel, _, _, beyond, *_ = land_teacher(
+            ls, fs, carry, linputs, root, coords, params, float(sim.state.clock.time),
+            LAND_VARIANT_STEPS, land_f64_tolerance,
+            kernel=functools.partial(ls.ROLLOUTS[key], **kw),
+            plain=functools.partial(ls.land_column_rollout_plain, stepper=key, **kw))
+        if beyond:
+            raise AssertionError(f"snowy {name} rollout f64 vs plain: {beyond[:4]}")
+        del sim, carry, linputs, root
+        gsim = land_grad_sim(tp, LAND_F64_CELLS, torch.float64, None,
+                             (key, solver, vdt, iters, True))
+        ops = land_grad_operands(ls, land_inputs, gsim, seed=11)
+        v_abs, v_rel, left_out = land_vjp_compare(
+            lv, ls, *ops[:5], vdt, GRAD_INNER, ops[5],
+            {"stepper": key, "solver": solver, "picard_iters": iters}, 1e-9, LAND_F64_CELLS)
+        res[name] = dict(stepper=key, solver=solver, picard_iters=iters,
+                         rollout_dt=LAND_DT, rollout_steps=LAND_VARIANT_STEPS,
+                         rollout_f64_max_abs_err=r_abs, rollout_f64_max_err_over_magnitude=r_rel,
+                         vjp_dt=vdt, vjp_steps=GRAD_INNER, vjp_f64_max_abs_err=v_abs,
+                         vjp_f64_max_err_over_magnitude=v_rel, vjp_f64_columns_left_out=left_out)
+        del gsim, ops
+    phase("group_check_snow_entries", rows=["1'g", "3'k"], f64_cells=LAND_F64_CELLS,
+          rollout_f64_rtol=1e-12, vjp_f64_rtol=1e-9, sources=[LAND_GROUP_SOURCE,
+                                                             LAND_VJP_GROUP_SOURCE],
+          entries=res, card=card)
 
 
 def land_grad_value(tp, sim, name, params=None, grad=True, steps=GRAD_STEPS):
@@ -2060,7 +2123,8 @@ def land_weighted_counts(solver, nz, branches, params):
     block's a column and iteration})`` behind land_fma_issues and
     land_vjp_fma_issues (``branches`` as land_branches' means a column and
     step, ``params`` the LandParams, whose drag knobs count the
-    Monin-Obukhov iterations)."""
+    Monin-Obukhov iterations and whose tags the snowpack's cover
+    quotient)."""
     if solver == "thomas":
         solve_div = 2 * nz
     else:
@@ -2070,8 +2134,8 @@ def land_weighted_counts(solver, nz, branches, params):
             s *= 2
     v = params.values
     drag_div = 3 * ((3 * v["mo_iterations"] + 1 if v["mo_drag"] else 0) + 1)
-    fwd = {"division": drag_div + LAND_SURFACE_WEIGHTED["division"],
-           "exp": LAND_SURFACE_WEIGHTED["exp"], "powf": 0.0}
+    fwd = {"division": drag_div + LAND_SURFACE_WEIGHTED["division"]
+           + ("snow" in params.tags), "exp": LAND_SURFACE_WEIGHTED["exp"], "powf": 0.0}
     for k, n in branches.items():
         for w, m in LAND_BRANCH_WEIGHTED[k].items():
             fwd[w] += m * n
@@ -2087,14 +2151,15 @@ def land_fma_issues(solver, nz, iters, branches, params, stepper="implicit"):
     face 8, per column the top rows' 3 and the surface block's, which every
     Picard iteration and each of Heun's two closures runs again;
     ImplicitEuler's two solves, and each further iteration's (u_k - u^n) /
-    dt, 2 a level)."""
+    dt, 2 a level; with a snowpack, where ``params`` has one, row 1'g, its
+    operations and its cover's quotient)."""
     solve_div, fwd = land_weighted_counts(solver, nz, branches, params)
     closures, solves = (2, 0) if stepper == "heun" else (iters, 2 * solve_div)
     count = {
         "division": closures * (LAND_VJP_DIVISIONS_PER_LEVEL["forward"] * nz + 8 * (nz - 1)
                                 + solves + 3 + fwd["division"]) + (iters - 1) * 2 * nz,
         "exp": closures * fwd["exp"], "powf": closures * fwd["powf"]}
-    ops = land_variant_ops(stepper, solver, False, nz, branches, iters)
+    ops = land_variant_ops(stepper, solver, "snow" in params.tags, nz, branches, iters)
     return ops + sum(n * (LAND_WEIGHTS[w] - 1.0) for w, n in count.items())
 
 
@@ -2104,7 +2169,8 @@ def land_vjp_fma_issues(solver, nz, iters, branches, params, stepper="implicit")
     segment VJP (``stepper`` ``"heun"``: the forward step's two closures
     and the closure's adjoint twice, no solve; row 4's weights on
     land_vjp_ops; ``branches`` and ``params`` as land_weighted_counts
-    takes them)."""
+    takes them; with a snowpack, where ``params`` has one, row 3'k, its
+    operations and its cover's quotient forward and reversed)."""
     solve_div, fwd = land_weighted_counts(solver, nz, branches, params)
     # the surface block's reverse: a quotient for each division, powf, log
     # and atan (an unstable psi's three of its "exp" ones are two logs and
@@ -2123,7 +2189,7 @@ def land_vjp_fma_issues(solver, nz, iters, branches, params, stepper="implicit")
                                  + (8 + VJP_ADJ_DIVISIONS_PER_FACE) * (nz - 1) + 4 * solve_div
                                  + 3 + 4 + fwd["division"] + rev_div) + (iters - 1) * 4 * nz,
             "exp": iters * fwd["exp"], "powf": iters * fwd["powf"]}
-    ops = land_vjp_ops(stepper, solver, nz, branches, iters)
+    ops = land_vjp_ops(stepper, solver, nz, branches, iters, "snow" in params.tags)
     return ops + sum(n * (LAND_WEIGHTS[w] - 1.0) for w, n in count.items())
 
 
@@ -2169,14 +2235,18 @@ LAND_SCRATCH_ROWS = ("surface_excess_water", "skin_temperature", "canopy_water",
 
 def land_thread_rollout_step(fs, ls, cuda_build, operands, dt, stepper, solver, iters):
     """``step(carry, t) -> carry``: one step of the one-thread land rollout
-    (``csrc/land_column_rollout.cu``, the entry of the scheme, built on
-    demand where it is not prebuilt) on ``operands``' inputs from clock time
+    (``csrc/land_column_rollout.cu``, the entry of the scheme, at float32
+    its build without contracted multiply-adds that the land gradient's
+    forward segments launch, ``land_step.UNCONTRACTED``; built on demand
+    where it is not prebuilt) on ``operands``' inputs from clock time
     ``t``, launched directly: the wrappers route the group schemes to the
     group kernel."""
     carry, inputs, root, coords, params = operands[:5]
     U = carry["internal_energy"]
     tags = ((stepper,) if stepper == "heun" else () if stepper == "euler"
             else ls.implicit_tags(solver, iters)) + params.tags
+    if U.dtype == torch.float32:
+        tags += (ls.UNCONTRACTED,)
     fn = cuda_build.entry(ls._NAME, U.dtype, U.shape[0], ls._argtypes(U.dtype), tags=tags)
 
     def step(state, t):
@@ -2202,8 +2272,9 @@ def land_vjp_recompute_check(fs, lv, ls, cuda_build, operands, dt, steps, solver
     own, then each carry it stored (step s's input) against the carry that
     the scheme's land rollout reaches after s steps, one step a launch: the
     group rollout at the VJP's G (the forward segments' kernel), or the
-    one-thread rollout (``csrc/land_column_rollout.cu``, ROADMAP C3's pair
-    before its repair). Returns ``(steps, columns whose stored carry
+    one-thread rollout (``csrc/land_column_rollout.cu``, the forward
+    segments' build: ROADMAP C3's pair). Returns ``(steps, columns whose
+    stored carry
     differs at some step, {field: largest difference over the field's
     largest magnitude})``."""
     carry, inputs, root, coords, params, _ = operands
@@ -2641,7 +2712,8 @@ def land_variant_compare(tp, ls, fs, cuda_build, land_inputs, vname, ptxas_all, 
         # resources and the weighted bound
         group = land_group_row(ls, cuda_build, (carry, linputs, root, coords, params),
                                LAND_VARIANT_STEPS, vsolver, viters, v_runs, ptxas_all, vkey)
-        phase("group_check", row="1'e" if vkey == "heun" else "1'k" if viters > 1 else "1'f",
+        phase("group_check", row="1'e" if vkey == "heun" else "1'g" if vsnow
+              else "1'k" if viters > 1 else "1'f",
               stepper=vkey, solver=vsolver,
               picard_iters=viters, cells=LAND_CELLS, nz=LAND_NZ, steps=LAND_VARIANT_STEPS,
               **group, kernel_ms=v_ms, card=card)
@@ -2702,7 +2774,7 @@ def land_stepper_main_path(tp, ls, land_inputs, mname, vname, var, reset_counts,
           saturation_range_at_end=[float(end["saturation_water_ice"].min()),
                                    float(end["saturation_water_ice"].max())],
           skin_range=[float(st.skin_temperature.min()), float(st.skin_temperature.max())],
-          **snow_fields, card=card)
+          **snow_fields, kernel_source=var["source"], group_check=var["group"], card=card)
     return m_launches
 
 
@@ -4507,7 +4579,11 @@ def main():
                                                      vkw, 1e-9, LAND_F64_CELLS)
         source = lv.vjp_source(ops[4], key)
         recompute64 = None
-        if source == LAND_VJP_GROUP_SOURCE:
+        if source != LAND_VJP_GROUP_SOURCE:
+            # the forward segments' rollout: the one-thread rollout built, as
+            # the one-thread VJP is, without contracted multiply-adds
+            fkw["contract"] = False
+        else:
             # the forward segments' rollout: the group rollout at the VJP's G
             fkw["group"] = lv.vjp_group(torch.float32, LAND_NZ, lv.check_scheme(
                 ops[4], key, solver, iters) + ops[4].tags, solver)[1]
@@ -4558,12 +4634,17 @@ def main():
         c3 = None
         if source != LAND_VJP_GROUP_SOURCE:
             # ROADMAP C3: the one-thread VJP's float32 stored carries against
-            # the one-thread rollout's (the forward segments' kernel), which
-            # forms the step out of line where the VJP inlines it
+            # the one-thread rollout's (the forward segments' build), which
+            # forms the step out of line where the VJP inlines it; neither
+            # contracts a multiply-add, and none may part
             c3 = land_vjp_recompute_check(fs, lv, ls, cuda_build,
                                           (carry, linputs, root, coords, params, gout), dt,
                                           GRAD_INNER, solver, iters, stepper=key,
                                           one_thread=True)
+            if c3[1]:
+                raise AssertionError(f"{name}: the one-thread VJP's f32 stored carries of "
+                                     f"{c3[1]} columns part from the forward segments' "
+                                     f"(ROADMAP C3), by up to {c3[2]}")
         k_ms = cuda_ms(lambda: lv.land_column_segment_vjp(
             carry, linputs, root, *coords, params, dt, 0.0, GRAD_INNER, gout, **vkw), reps=3,
             warmup=True)
@@ -4589,7 +4670,8 @@ def main():
             group = land_vjp_group_row(fs, lv, ls, cuda_build,
                                        (carry, linputs, root, coords, params, gout), dt,
                                        GRAD_INNER, solver, iters, runs, ptxas_all, key)
-            phase("group_check", row="3'j" if key == "heun" else "3'i" if iters > 1 else "3'e",
+            phase("group_check", row="3'j" if key == "heun" else "3'k" if snow
+                  else "3'i" if iters > 1 else "3'e",
                   stepper=key, solver=solver,
                   picard_iters=iters, cells=LAND_CELLS, nz=LAND_NZ, steps=GRAD_INNER,
                   **group, recompute_f64_cells=LAND_F64_CELLS,
@@ -4649,7 +4731,7 @@ def main():
               branch_runs_per_column_step=runs,
               ptxas=ptxas_all[source].get(entry, {}).get(
                   "vjp_" + (solver or key) if source == LAND_VJP_GROUP_SOURCE else "vjp"),
-              c3_one_thread_recompute_f32=c3,
+              c3_one_thread_recompute_f32=c3, group_check=group,
               f64_cells=LAND_F64_CELLS, f64_rtol=1e-9, f64_max_abs_err=f64_err,
               f64_max_err_over_magnitude=f64_rel, f64_columns_left_out=f64_out,
               fd_steps=steps_fd, fd_h=fd_h, fd_rtol=LAND_FD_RTOL,
@@ -4659,6 +4741,10 @@ def main():
               f32_max_err_over_magnitude=f32_rel, f32_flip_columns=flips,
               outside_unit_share_at_end=float(outside_unit(final).float().mean()), card=card)
         del gsim, carry, gout, final
+
+    # ---- rows 1'g and 3'k's other snowy entries (Thomas, two Picard
+    # iterations, Heun) at float64 against their plain versions
+    land_snow_entries_check(tp, ls, lv, fs, land_inputs, card)
 
     # ---- run through the process modules: the bench soil with a forcing,
     # which no kernel takes, at full width on the card, held to timestep()
@@ -5168,7 +5254,9 @@ def main():
         "name": f"land_column_segment_vjp[{name}]", "route": "cuda",
         "source": f"terrarium_tpu_torch/csrc/{lg['source']}.cu",
         "replaces": "terrarium_tpu/ops/fused_vjp.py:68 traced over a LandModel step "
-                    "(terrarium_tpu/models/land_model.py:55)",
+                    "(terrarium_tpu/models/land_model.py:55)"
+                    + (" with a Snowpack (terrarium_tpu/processes/snow.py:69)" if lg["snow"]
+                       else ""),
         **{k: v for k, v in lg.items() if k not in ("entry", "snow", "source")},
         "library_ms": None,
         "shape": f"{LAND_CELLS} x {LAND_NZ} f32, land_consistent"
@@ -5193,7 +5281,7 @@ def main():
                             f"{v['solver']})")
                     + (f" with {v['iters']} Picard iterations (:234-254)" if v["iters"] != 1
                        else "")
-                    + (" and a Snowpack (terrarium_tpu/processes/snow.py:66)"
+                    + (" and a Snowpack (terrarium_tpu/processes/snow.py:69)"
                        if v["snow"] else ""),
         "launches": v["launches"], "max_abs_err": max(v["max_abs_err"].values()),
         "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
@@ -5228,7 +5316,7 @@ def main():
                                    f"implicit.py:168, {v['solver']}"
                                    + (f", {v['iters']} Picard iterations" if v["iters"] != 1
                                       else "") + ")"}[v["key"]]
-                    + (" and a Snowpack (terrarium_tpu/processes/snow.py:66)" if v["snow"]
+                    + (" and a Snowpack (terrarium_tpu/processes/snow.py:69)" if v["snow"]
                        else ""),
         **{k: v[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                              "bound_by")}, "library_ms": None, "fused_call_ms": v["call_ms"],

@@ -22,6 +22,10 @@ which ``soil_column_rollout``, ``soil_column_heun_rollout`` and
     python3 rollout_layout_ab.py land_heun_check
     python3 rollout_layout_ab.py land_heun_time
     python3 rollout_layout_ab.py land_heun_turns
+    python3 rollout_layout_ab.py land_snow_check
+    python3 rollout_layout_ab.py land_snow_time
+    python3 rollout_layout_ab.py land_snow_turns
+    python3 rollout_layout_ab.py land_euler_c3
 
 ``check`` builds both, prints each kernel's registers and spill stores
 (ptxas), SASS instructions (``cuobjdump -sass``) and resident warps an SM,
@@ -117,6 +121,20 @@ both rows' layouts in turns, then each group kernel at each of G 2, 4, 8,
 16 and 32 with each of 1 to 4 resident blocks an SM, in turns, and what a
 gradient segment pays at each G (the forward at the VJP's G plus the VJP);
 ``land_heun_turns`` times the two layouts in turns alone.
+
+``land_snow_check``, ``land_snow_time`` and ``land_snow_turns`` do the same
+for the land ImplicitEuler PCR rollout and segment VJP with a snowpack
+(rows 1'g and 3'k: ``land_snow_implicit_pcr``'s composition and two hourly
+series, 48 steps of 600 s; ``land_grad_snow_implicit_pcr``'s operands, one
+48-step segment of 600 s), the one-thread entries built at their first
+launch, the group ones the wrappers' own; the sweep takes G 2, 4 and 8,
+each with 1 to 4 resident blocks an SM, each build against the default one.
+
+``land_euler_c3`` times row 1'd (``land_consistent``'s ForwardEuler rollout,
+144 steps, one thread a column) contracted and built without contracted
+multiply-adds, in turns, and checks ROADMAP C3 on the land ForwardEuler
+gradient's one-thread pair: the segment VJP's float32 stored carries
+against the uncontracted rollout's (none may part).
 Run from the repository root.
 """
 from __future__ import annotations
@@ -1176,24 +1194,23 @@ def land_heun_vjp_operands(tp, dtype=torch.float32, cells=cs.LAND_CELLS):
     return ops, cs.LAND_GRAD_SCHEMES["land_grad_heun"][2]
 
 
-def land_heun_keys(ls, lv, params, layout, extra=()):
+def land_pair_keys(ls, lv, params, layout, stepper_tags, extra=()):
     """``{"rollout": (source, tags), "vjp": (source, tags)}`` of the land
-    Heun entries of ``layout`` (``"one_thread"`` or ``"group"``, with
-    ``extra`` tags: another G or launch bound)."""
-    tags = ("heun",) + params.tags + tuple(extra)
+    entries of ``stepper_tags`` over the composition of ``params`` in
+    ``layout`` (``"one_thread"`` or ``"group"``, with ``extra`` tags:
+    another G or launch bound)."""
+    tags = tuple(stepper_tags) + params.tags + tuple(extra)
     one = layout == "one_thread"
     return {"rollout": (ls._NAME if one else ls._GROUP_NAME, tags),
             "vjp": (lv._NAME if one else lv._GROUP_NAME, tags)}
 
 
-def land_heun_prebuild(cuda_build, ls, lv, params, layouts, extras=((),),
-                       dtypes=(torch.float32,)):
-    """Build the land Heun entries of ``layouts`` and ``extras`` at each of
-    ``dtypes`` together (cuda_build.build's threads, one nvcc a core)."""
+def land_pair_prebuild(cuda_build, ls, lv, keys, dtypes=(torch.float32,)):
+    """Build the rollout and VJP entries of each of ``keys``
+    (land_pair_keys') at each of ``dtypes`` together (cuda_build.build's
+    threads, one nvcc a core)."""
     import concurrent.futures
 
-    keys = [land_heun_keys(ls, lv, params, layout, extra) for layout in layouts
-            for extra in extras]
     jobs = [(src, tags, dtype, argtypes) for k in keys for dtype in dtypes
             for (src, tags), argtypes in ((k["rollout"], ls._argtypes(dtype)),
                                           (k["vjp"], lv._argtypes(dtype)))]
@@ -1219,11 +1236,13 @@ def land_heun_check(tp, fs, cuda_build, card):
     from terrarium_tpu_torch.timesteppers.integrator import land_inputs
 
     (_, _, _, _, params), _ = land_heun_operands(tp, cells=8)
-    land_heun_prebuild(cuda_build, ls, lv, params, ("group", "one_thread"),
+    land_pair_prebuild(cuda_build, ls, lv,
+                       [land_pair_keys(ls, lv, params, layout, ("heun",))
+                        for layout in ("group", "one_thread")],
                        dtypes=(torch.float32, torch.float64))
     stats = {}
     for layout in ("one_thread", "group"):
-        keys = land_heun_keys(ls, lv, params, layout)
+        keys = land_pair_keys(ls, lv, params, layout, ("heun",))
         stats[layout] = {"rollout": land_stats(fs, cuda_build, ls, *keys["rollout"], None),
                          "vjp": land_vjp_stats(fs, cuda_build, lv, *keys["vjp"], None)}
     out(check="land_heun_build", rows=["1'e", "3'j"], **stats, card=card)
@@ -1234,7 +1253,7 @@ def land_heun_check(tp, fs, cuda_build, card):
     ops64, t64 = land_heun_operands(tp, torch.float64, LAND_VJP_F64_CELLS)
     outs = {}
     for layout in ("one_thread", "group"):
-        source, tags = land_heun_keys(ls, lv, params, layout)["rollout"]
+        source, tags = land_pair_keys(ls, lv, params, layout, ("heun",))["rollout"]
         fn = cuda_build.entry(source, torch.float64, cs.LAND_NZ, ls._argtypes(torch.float64),
                               tags=tags)
         outs[layout] = land_launcher(fs, ls, fn, ops64, t64, None, 1,
@@ -1288,15 +1307,18 @@ def land_heun_timing(tp, fs, cuda_build, card, sweep=True):
                 for b in MIN_BLOCKS}
     ops, time0 = land_heun_operands(tp)
     params = ops[4]
-    land_heun_prebuild(cuda_build, ls, lv, params, ("group", "one_thread"),
-                       extras=((),) + (tuple(variants.values()) if sweep else ()))
+    land_pair_prebuild(cuda_build, ls, lv,
+                       [land_pair_keys(ls, lv, params, layout, ("heun",))
+                        for layout in ("group", "one_thread")]
+                       + [land_pair_keys(ls, lv, params, "group", ("heun",), extra)
+                          for extra in (variants.values() if sweep else ())])
     vops, dt = land_heun_vjp_operands(tp)
     gops = vops[:5]
     med = {}
     for row in ("rollout", "vjp"):
         fns, stats = {}, {}
         for layout in ("one_thread", "group"):
-            source, tags = land_heun_keys(ls, lv, params, layout)[row]
+            source, tags = land_pair_keys(ls, lv, params, layout, ("heun",))[row]
             if row == "rollout":
                 fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
                 stats[layout] = land_stats(fs, cuda_build, ls, source, tags, None)
@@ -1317,7 +1339,7 @@ def land_heun_timing(tp, fs, cuda_build, card, sweep=True):
     for row in ("rollout", "segment_forward", "vjp"):
         fns, stats = {}, {}
         for vname, extra in variants.items():
-            source, tags = land_heun_keys(ls, lv, params, "group", extra)[
+            source, tags = land_pair_keys(ls, lv, params, "group", ("heun",), extra)[
                 "vjp" if row == "vjp" else "rollout"]
             if row == "vjp":
                 fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
@@ -1346,6 +1368,249 @@ def land_heun_timing(tp, fs, cuda_build, card, sweep=True):
         steps=cs.GRAD_INNER, best_ms=best,
         forward_plus_vjp_ms={g: best["segment_forward"][g] + best["vjp"][g]
                              for g in LAND_HEUN_GROUP_SIZES}, card=card)
+
+
+def land_snow_operands(tp, dtype=torch.float32, cells=cs.LAND_CELLS):
+    """Carry, inputs (``land_consistent``'s two hourly series and its static
+    inputs with a snowfall), root fraction, coordinates and parameters of
+    row 1'g (``chip_smoke.py``'s ``land_snow_implicit_pcr`` operands: a
+    ``Snowpack`` with an initial SWE of 0.02 m), and the clock time they
+    start from."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    sim = cs.land_sim(tp, cells, dtype, "consistent",
+                      stepper=tp.ImplicitEuler(dt=cs.LAND_DT, solver="pcr"), snow=True)
+    return cs.land_operands(ls, land_inputs, sim), float(sim.state.clock.time)
+
+
+def land_snow_vjp_operands(tp, dtype=torch.float32, cells=cs.LAND_CELLS):
+    """Carry, static inputs, root fraction, coordinates, parameters and
+    seeded output cotangents of row 3'k (``chip_smoke.py``'s
+    ``land_grad_snow_implicit_pcr`` operands, the pool's output cotangent 0
+    as there), and its dt."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    name = "land_grad_snow_implicit_pcr"
+    sim = cs.land_grad_sim(tp, cells, dtype, name)
+    ops = cs.land_grad_operands(ls, land_inputs, sim, seed=11)
+    ops[5]["surface_excess_water"] = torch.zeros_like(ops[5]["surface_excess_water"])
+    return ops, cs.LAND_GRAD_SCHEMES[name][2]
+
+
+#: the land snowpack rows' group sizes measured (G 2: L 10 at Nz 20)
+LAND_SNOW_GROUP_SIZES = (2, 4, 8)
+LAND_SNOW_STEPPER = ("implicit", "pcr")
+
+
+def land_snow_check(tp, fs, cuda_build, card):
+    """Rows 1'g and 3'k (ImplicitEuler PCR with a snowpack): both layouts'
+    builds; the group rollout (through ``land_column_implicit_rollout``)
+    against the plain version (``chip_smoke.land_variant_compare``); the two
+    rollout layouts against each other at float64 on 1,024 columns over 48
+    steps (the columns whose carries part); the group VJP against autograd
+    at float64 on 1,024 columns (rtol 1e-9) and its stored carries against
+    the group rollout's (float64 and float32 at full width: none may part);
+    times nothing but what land_variant_compare times."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    (_, _, _, _, params), _ = land_snow_operands(tp, cells=8)
+    keys = {layout: land_pair_keys(ls, lv, params, layout, LAND_SNOW_STEPPER)
+            for layout in ("one_thread", "group")}
+    land_pair_prebuild(cuda_build, ls, lv, keys.values(), dtypes=(torch.float32, torch.float64))
+    stats = {layout: {"rollout": land_stats(fs, cuda_build, ls, *k["rollout"], "pcr"),
+                      "vjp": land_vjp_stats(fs, cuda_build, lv, *k["vjp"], "pcr")}
+             for layout, k in keys.items()}
+    out(check="land_snow_build", rows=["1'g", "3'k"], **stats, card=card)
+    ptxas_all = {n: cs.ptxas_summary(cuda_build.ptxas_report(n))
+                 for n in (ls._NAME, ls._GROUP_NAME)}
+    cs.land_variant_compare(tp, ls, fs, cuda_build, land_inputs, "land_snow_implicit_pcr",
+                            ptxas_all, card, name="land_snow_check_1'g")
+    ops64, t64 = land_snow_operands(tp, torch.float64, LAND_VJP_F64_CELLS)
+    outs = {}
+    for layout, k in keys.items():
+        source, tags = k["rollout"]
+        fn = cuda_build.entry(source, torch.float64, cs.LAND_NZ, ls._argtypes(torch.float64),
+                              tags=tags)
+        outs[layout] = land_launcher(fs, ls, fn, ops64, t64, "pcr", 1)()
+    parted = torch.zeros(LAND_VJP_F64_CELLS, dtype=torch.bool, device="cuda")
+    for n, a in outs["group"].items():
+        d = a != outs["one_thread"][n]
+        parted |= d.any(0) if d.dim() == 2 else d
+    del ops64, outs
+    ops, dt = land_snow_vjp_operands(tp, torch.float64, LAND_VJP_F64_CELLS)
+    kw = {"stepper": "implicit", "solver": "pcr", "picard_iters": 1}
+    errs, rel, left_out = cs.land_vjp_compare(lv, ls, *ops[:5], dt, cs.GRAD_INNER, ops[5], kw,
+                                              1e-9, LAND_VJP_F64_CELLS)
+    recompute = {"f64": cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                    cs.GRAD_INNER, "pcr", 1)}
+    del ops
+    ops, dt = land_snow_vjp_operands(tp)
+    recompute["f32"] = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, ops, dt,
+                                                   cs.GRAD_INNER, "pcr", 1)
+    del ops
+    out(check="land_snow_teacher", rows=["1'g", "3'k"],
+        f64_group_vs_one_thread_rollout_columns_parted=int(parted.sum()),
+        f64_group_vs_one_thread_rollout=[LAND_VJP_F64_CELLS, cs.LAND_NZ, cs.LAND_VARIANT_STEPS,
+                                         cs.LAND_DT],
+        vjp_f64=[LAND_VJP_F64_CELLS, cs.LAND_NZ, cs.GRAD_INNER, dt], vjp_f64_rtol=1e-9,
+        vjp_f64_max_abs_err=errs, vjp_f64_max_err_over_magnitude=rel,
+        vjp_f64_columns_left_out=left_out,
+        recompute_group_steps_columns_parted_max_gap=recompute, card=card)
+    if any(r[1] for r in recompute.values()):
+        raise AssertionError(f"3'k: the group VJP's stored carries part from the group "
+                             f"rollout's: {recompute}")
+
+
+def land_snow_timing(tp, fs, cuda_build, card, sweep=True):
+    """Rows 1'g and 3'k, both layouts in turns at 56,951 x 20 float32 (the
+    rollout over 48 steps of 600 s with ``land_snow_implicit_pcr``'s two
+    series, the VJP over one 48-step segment of 600 s); then, where
+    ``sweep``, each group kernel at each G (2, 4, 8) and each launch bound
+    (1 to 4 resident blocks of 256 threads an SM), in turns, the rollout
+    also over the gradient's segment (48 steps of 600 s, the VJP's static
+    inputs), each against its default build (the largest difference over
+    the field's largest magnitude; the VJP's recompute check at its G), and
+    what a gradient segment pays at each G: that forward at the G plus the
+    VJP at the G, each at its fastest launch bound."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+
+    f32 = torch.float32
+    variants = {f"g{g}_mb{b}": (f"g{g}", f"mb{b}") for g in LAND_SNOW_GROUP_SIZES
+                for b in MIN_BLOCKS}
+    ops, time0 = land_snow_operands(tp)
+    params = ops[4]
+    keys = [land_pair_keys(ls, lv, params, layout, LAND_SNOW_STEPPER)
+            for layout in ("one_thread", "group")]
+    if sweep:
+        keys += [land_pair_keys(ls, lv, params, "group", LAND_SNOW_STEPPER, extra)
+                 for extra in variants.values()]
+    land_pair_prebuild(cuda_build, ls, lv, keys)
+    vops, dt = land_snow_vjp_operands(tp)
+    gops = vops[:5]
+    med = {}
+    for row in ("rollout", "vjp"):
+        fns, stats = {}, {}
+        for layout in ("one_thread", "group"):
+            source, tags = land_pair_keys(ls, lv, params, layout, LAND_SNOW_STEPPER)[row]
+            if row == "rollout":
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+                stats[layout] = land_stats(fs, cuda_build, ls, source, tags, "pcr")
+                fns[layout] = land_launcher(fs, ls, fn, ops, time0, "pcr", 1)
+            else:
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
+                stats[layout] = land_vjp_stats(fs, cuda_build, lv, source, tags, "pcr")
+                fns[layout] = cs.land_vjp_launcher(
+                    fs, lv, ls, fn, None if layout == "one_thread" else stats[layout]["group"],
+                    vops, dt, cs.GRAD_INNER, "pcr", 1)[0]
+        t = vjp_turns(fns)
+        out(time={"rollout": "1'g", "vjp": "3'k"}[row], cells=cs.LAND_CELLS, nz=cs.LAND_NZ,
+            dt=cs.LAND_DT if row == "rollout" else dt,
+            steps=cs.LAND_VARIANT_STEPS if row == "rollout" else cs.GRAD_INNER, ms=t,
+            median_ms={n: float(np.median(v)) for n, v in t.items()}, kernels=stats, card=card)
+    if not sweep:
+        return
+    for row in ("rollout", "segment_forward", "vjp"):
+        fns, stats, check = {}, {}, {}
+        kind = "vjp" if row == "vjp" else "rollout"
+        source, tags = land_pair_keys(ls, lv, params, "group", LAND_SNOW_STEPPER)[kind]
+        if row == "vjp":
+            ref = None
+        else:
+            fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+            ref = (land_launcher(fs, ls, fn, ops, time0, "pcr", 1) if row == "rollout"
+                   else land_launcher(fs, ls, fn, gops, 0.0, "pcr", 1, steps=cs.GRAD_INNER,
+                                      dt=dt))()
+            ref = {n: v.clone() for n, v in ref.items()}
+        for vname, extra in variants.items():
+            source, tags = land_pair_keys(ls, lv, params, "group", LAND_SNOW_STEPPER,
+                                          extra)[kind]
+            if row == "vjp":
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, lv._argtypes(f32), tags=tags)
+                stats[vname] = land_vjp_stats(fs, cuda_build, lv, source, tags, "pcr")
+                fns[vname] = cs.land_vjp_launcher(fs, lv, ls, fn, stats[vname]["group"], vops,
+                                                  dt, cs.GRAD_INNER, "pcr", 1)[0]
+                got = fns[vname]()[0]
+                check[vname] = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, vops, dt,
+                                                           cs.GRAD_INNER, "pcr", 1,
+                                                           tags=tags)[1]
+            else:
+                fn = cuda_build.entry(source, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+                stats[vname] = land_stats(fs, cuda_build, ls, source, tags, "pcr")
+                fns[vname] = (land_launcher(fs, ls, fn, ops, time0, "pcr", 1) if row == "rollout"
+                              else land_launcher(fs, ls, fn, gops, 0.0, "pcr", 1,
+                                                 steps=cs.GRAD_INNER, dt=dt))
+                got = fns[vname]()
+                check[vname] = max(float((got[n] - ref[n]).abs().max())
+                                   / max(float(ref[n].abs().max()), 1e-30) for n in ref)
+            if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+                raise AssertionError(f"land snow {row} {vname}: non-finite")
+        t = vjp_turns(fns)
+        med[row] = {n: float(np.median(v)) for n, v in t.items()}
+        out(time=f"land_snow_{row}_variants", cells=cs.LAND_CELLS, nz=cs.LAND_NZ,
+            dt=cs.LAND_DT if row == "rollout" else dt,
+            steps=cs.LAND_VARIANT_STEPS if row == "rollout" else cs.GRAD_INNER,
+            **({"recompute_f32_columns_parted": check} if row == "vjp"
+               else {"max_gap_to_default_over_magnitude": check}),
+            kernels=stats, ms=t, median_ms=med[row], card=card)
+    best = {row: {g: min(med[row][f"g{g}_mb{b}"] for b in MIN_BLOCKS)
+                  for g in LAND_SNOW_GROUP_SIZES} for row in ("segment_forward", "vjp")}
+    out(time="land_snow_gradient_segment_by_G", cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=dt,
+        steps=cs.GRAD_INNER, best_ms=best,
+        forward_plus_vjp_ms={g: best["segment_forward"][g] + best["vjp"][g]
+                             for g in LAND_SNOW_GROUP_SIZES}, card=card)
+
+
+def land_euler_c3(tp, fs, cuda_build, card):
+    """ROADMAP C3 for the land ForwardEuler gradient: the one-thread land
+    rollout of row 1'd (``land_consistent``, 56,951 x 20 float32, 144 steps
+    of 600 s, two hourly series), contracted (the entry ``Simulation.run``
+    launches) against its build without contracted multiply-adds
+    (``land_step.UNCONTRACTED``, the one the gradient's forward segments
+    launch), in turns; then the one-thread segment VJP's float32 stored
+    carries (built without contraction) against each build's one-step
+    launches over ``land_grad_euler``'s segment (48 steps of 60 s): the
+    columns that part (``chip_smoke.land_vjp_recompute_check``)."""
+    from terrarium_tpu_torch.ops import land_step as ls
+    from terrarium_tpu_torch.ops import land_vjp as lv
+    from terrarium_tpu_torch.timesteppers.integrator import land_inputs
+
+    f32 = torch.float32
+    sim = cs.land_sim(tp, cs.LAND_CELLS, f32, "consistent")
+    ops = cs.land_operands(ls, land_inputs, sim)
+    time0 = float(sim.state.clock.time)
+    params = ops[4]
+    builds = {"contracted": params.tags, "uncontracted": params.tags + (ls.UNCONTRACTED,)}
+    fns, stats = {}, {}
+    for name, tags in builds.items():
+        fn = cuda_build.entry(ls._NAME, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+        stats[name] = land_stats(fs, cuda_build, ls, ls._NAME, tags, None)
+        fns[name] = land_launcher(fs, ls, fn, ops, time0, None, 1, steps=cs.COMPARE_STEPS)
+    got = {n: {k: v.clone() for k, v in f().items()} for n, f in fns.items()}
+    gap = max(float((got["uncontracted"][n] - got["contracted"][n]).abs().max())
+              / max(float(got["contracted"][n].abs().max()), 1e-30) for n in got["contracted"])
+    t = vjp_turns(fns)
+    med = {n: float(np.median(v)) for n, v in t.items()}
+    out(time="1'd_contraction", cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=cs.LAND_DT,
+        steps=cs.COMPARE_STEPS, ms=t, median_ms=med,
+        uncontracted_over_contracted=med["uncontracted"] / med["contracted"],
+        max_gap_over_magnitude=gap, kernels=stats, card=card)
+    del sim, ops, fns, got
+    gsim = cs.land_grad_sim(tp, cs.LAND_CELLS, f32, "land_grad_euler")
+    gops = cs.land_grad_operands(ls, land_inputs, gsim, seed=11)
+    dt = cs.LAND_GRAD_SCHEMES["land_grad_euler"][2]
+    uncontracted = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, gops, dt, cs.GRAD_INNER,
+                                               None, 1, stepper="euler", one_thread=True)
+    out(check="c3_land_euler", cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=dt, steps=cs.GRAD_INNER,
+        vjp_build_flags=list(cuda_build.FLAGS[lv._NAME][f32]),
+        one_thread_pair_f32_steps_columns_parted_max_gap=uncontracted, card=card)
+    if uncontracted[1]:
+        raise AssertionError(f"C3: the one-thread VJP's stored carries part from the "
+                             f"uncontracted rollout's: {uncontracted}")
 
 
 def vjp_turns(fns):
@@ -1379,8 +1644,10 @@ def main():
      "land_vjp_time": land_vjp_timing, "land_check": land_check,
      "land_time": land_timing, "land_heun_check": land_heun_check,
      "land_heun_time": land_heun_timing,
-     "land_heun_turns": lambda *a: land_heun_timing(*a, sweep=False)}[mode](
-        tp, fs, cuda_build, card)
+     "land_heun_turns": lambda *a: land_heun_timing(*a, sweep=False),
+     "land_snow_check": land_snow_check, "land_snow_time": land_snow_timing,
+     "land_snow_turns": lambda *a: land_snow_timing(*a, sweep=False),
+     "land_euler_c3": land_euler_c3}[mode](tp, fs, cuda_build, card)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,17 @@
 // LandModel ImplicitEuler and Heun rollouts for Hopper (sm_90a), a column
 // on a group of lanes: ImplicitEuler with Thomas or PCR solves and any
 // number of Picard iterations, or Heun; Richards flow, with or without
-// vegetation, either retention curve and conductivity, no snowpack; static
-// inputs or uniform series read at each clock time (Heun's stage at t + dt
-// too).
+// vegetation, either retention curve and conductivity, with or without a
+// snowpack (LAND_SNOW); static inputs or uniform series read at each clock
+// time (Heun's stage at t + dt too).
 //
 // Replaces terrarium_tpu/ops/fused_step.py::make_fused_lean_rollout
 // (kernel body :507, pallas_call :557) traced over a LandModel
 // ImplicitEuler step (terrarium_tpu/timesteppers/implicit.py:173, the
 // Picard loop :234-254) or Heun step (terrarium_tpu/timesteppers/
-// stepping.py:167-188). csrc/land_column_rollout.cu runs every other land
-// rollout (the snowpack, NoFlow, ForwardEuler), one thread a column.
+// stepping.py:167-188), with a Snowpack (terrarium_tpu/processes/snow.py:69)
+// where LAND_SNOW. csrc/land_column_rollout.cu runs every other land
+// rollout (NoFlow, ForwardEuler), one thread a column.
 //
 // A column runs on a group of G lanes of one warp, L = ceil(NZ / G) soil
 // levels a lane (land::GroupColumn in land_group_step.cuh, built on
@@ -23,7 +24,7 @@
 // gradient's forward segments launch a g<G> build at the VJP's G). The
 // carry is read once and written once per launch, a lane its own levels;
 // the surface carry (pool, skin temperature, canopy water, carbon,
-// vegetation fraction, net assimilation) and the inputs are one copy a
+// vegetation fraction, net assimilation, SWE) and the inputs are one copy a
 // thread, the same on every lane of the group. The inputs are read at each
 // clock time (land::read_series: a uniform series from its two rows around
 // the time, each with its own origin; a static value once), the clock
@@ -48,7 +49,7 @@
 //
 // Plain C interface, loaded with ctypes: one entry point per instantiation
 // (SOIL_ENTRY, with SOIL_T, SOIL_NZ, LAND_VEG, LAND_RICHARDS 1, LAND_CURVE,
-// LAND_COND, SOIL_STEPPER 1 Heun or 2 ImplicitEuler, the last with
+// LAND_COND, LAND_SNOW, SOIL_STEPPER 1 Heun or 2 ImplicitEuler, the last with
 // SOIL_SOLVER 0 Thomas, 1 PCR or 2 both, a kernel each, and SOIL_PICARD),
 // with the arguments of csrc/land_column_rollout.cu's
 // entries, launching the kernel of the solver that its `solver` argument
@@ -61,17 +62,19 @@
 
 #if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ) || !defined(LAND_VEG) || \
     !defined(LAND_RICHARDS)
-#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 -DSOIL_STEPPER=1|2 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 [-DLAND_SNOW=1] -DSOIL_STEPPER=1|2 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
 #endif
-#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || (SOIL_STEPPER != 1 && SOIL_STEPPER != 2) || \
-    (defined(LAND_SNOW) && LAND_SNOW)
-#error "the land group rollout runs ImplicitEuler or Heun over Richards flow without a snowpack"
+#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || (SOIL_STEPPER != 1 && SOIL_STEPPER != 2)
+#error "the land group rollout runs ImplicitEuler or Heun over Richards flow"
 #endif
 #ifndef LAND_CURVE
 #define LAND_CURVE 0
 #endif
 #ifndef LAND_COND
 #define LAND_COND 0
+#endif
+#ifndef LAND_SNOW
+#define LAND_SNOW 0
 #endif
 #ifndef SOIL_SOLVER
 #define SOIL_SOLVER 0
@@ -94,11 +97,14 @@ constexpr int THREADS = 256;  // a block: 256 / G columns
 // at G 4 (rollout_layout_ab.py land_heun_time, 48 steps of 600 s, and of
 // 60 s at the gradient's static inputs): 13.11/13.68, 7.89/8.25 (128
 // registers, 128 bytes), 6.86/6.41 (80 registers, 492 bytes, 24 warps) and
-// 7.13/5.81 ms: 3
+// 7.13/5.81 ms: 3. PCR with a snowpack at G 4 (rollout_layout_ab.py
+// land_snow_time, 48 steps of 600 s with two series, and at the gradient's
+// static inputs): 14.71/14.84, 9.13/9.17 (128 registers, 316 bytes),
+// 8.18/7.86 (80 registers, 756 bytes, 24 warps) and 8.98/8.93 ms: 3
 #ifdef SOIL_MIN_BLOCKS
 constexpr int MIN_BLOCKS = SOIL_MIN_BLOCKS;
 #else
-constexpr int MIN_BLOCKS = SOIL_STEPPER == 1 ? 3 : 2;
+constexpr int MIN_BLOCKS = SOIL_STEPPER == 1 || LAND_SNOW ? 3 : 2;
 #endif
 
 // the group size of a kernel of STEPPER (and SOLVER)
@@ -121,9 +127,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) land_column_group_rollout
     const int steps, const T time0, const T dt, const T inv_dt, const long long cells,
     const int iters)
 {
-    constexpr bool VEG = LAND_VEG != 0;
+    constexpr bool VEG = LAND_VEG != 0, SNOW = LAND_SNOW != 0;
     using Lanes = soil::WarpLanes<G>;
-    using Column = land::GroupColumn<T, NZ, G, Lanes, VEG, LAND_CURVE, LAND_COND>;
+    using Column = land::GroupColumn<T, NZ, G, Lanes, VEG, LAND_CURVE, LAND_COND, SNOW>;
     constexpr int L = Column::L;
     const long long group = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
     const bool live = group < cells;
@@ -149,6 +155,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) land_column_group_rollout
         s.nu = static_cast<const T*>(in.nu)[col];
         s.An = static_cast<const T*>(in.An)[col];
     }
+    if (SNOW) s.swe = static_cast<const T*>(in.swe)[col];
     land::Forcing<T> f;
 #pragma unroll
     for (int i = 0; i < LAND_NIN; ++i)
@@ -174,6 +181,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) land_column_group_rollout
             static_cast<T*>(out.nu)[col] = s.nu;
             static_cast<T*>(out.An)[col] = s.An;
         }
+        if (SNOW) static_cast<T*>(out.swe)[col] = s.swe;
     }
 }
 
@@ -218,7 +226,7 @@ constexpr int ENTRY_SOLVER = SOIL_STEPPER == 2 && SOIL_SOLVER != 2 ? SOIL_SOLVER
 
 // One entry point per instantiation, named SOIL_ENTRY
 // (land_column_group_rollout_<heun|implicit_<thomas|pcr|picard>>_<bare|veg>_
-// richards_<vg|bc>_<mualem|linear>[_g<G>][_mb<B>]_<f32|f64>_nz<NZ>), with the
+// richards_<vg|bc>_<mualem|linear>[_snow][_g<G>][_mb<B>]_<f32|f64>_nz<NZ>), with the
 // arguments of the one-thread land rollout's entries
 // (csrc/land_column_rollout.cu): cudaErrorInvalidValue for a solver code
 // other than 0 and 1 or, ImplicitEuler's, one the entry was not built for,

@@ -1,19 +1,20 @@
 // Segment VJP of the LandModel's ImplicitEuler and Heun rollouts for Hopper
 // (sm_90a), a column on a group of lanes: ImplicitEuler with Thomas or PCR
 // solves and any number of Picard iterations, or Heun; Richards flow, with
-// or without vegetation, either retention curve and conductivity, no
-// snowpack.
+// or without vegetation, either retention curve and conductivity, with or
+// without a snowpack (LAND_SNOW).
 //
 // Replaces terrarium_tpu/ops/fused_vjp.py::make_segment_vjp (kernel :225,
 // pallas_call :344) traced over a LandModel ImplicitEuler step
 // (terrarium_tpu/timesteppers/implicit.py:173, the Picard loop :234-254) or
-// Heun step (terrarium_tpu/timesteppers/stepping.py:167-188).
+// Heun step (terrarium_tpu/timesteppers/stepping.py:167-188), with a
+// Snowpack (terrarium_tpu/processes/snow.py:69) where LAND_SNOW.
 // Given the segment's input carry (U and sat; the pool, skin temperature,
-// canopy water, carbon, vegetation fraction and net assimilation) and the
+// canopy water, carbon, vegetation fraction, net assimilation and SWE) and the
 // cotangents of its output carry, it returns the cotangents of the input
 // carry and of the two differentiated parameters, K_sat and sk_mineral.
-// csrc/land_column_segment_vjp.cu runs every other land segment VJP (the
-// snowpack, NoFlow, ForwardEuler), one thread a column.
+// csrc/land_column_segment_vjp.cu runs every other land segment VJP
+// (NoFlow, ForwardEuler), one thread a column.
 //
 // A column runs on a group of G lanes of one warp, L = ceil(NZ / G) soil
 // levels a lane (land::GroupColumn in land_group_step.cuh, built on
@@ -21,7 +22,8 @@
 // land::heun_group_lanes(NZ), or SOIL_GROUP where a build defines it):
 // 1. forward: `steps` applications of GroupColumn::picard_step (Heun:
 //    GroupColumn::heun_step, the group rollout's own step); each
-//    step's input carry (2 NZ + 6 values) goes to a global scratch buffer
+//    step's input carry (2 NZ + 6 values, one more, the SWE, under
+//    LAND_SNOW) goes to a global scratch buffer
 //    laid out [step][row][cell], as the one-thread kernel's;
 // 2. reverse sweep: for each step from the last, reload its carry and take
 //    GroupColumn::picard_step_adjoint: each Picard iteration's iterate
@@ -61,7 +63,7 @@
 //
 // Plain C interface, loaded with ctypes: one entry point per instantiation
 // (SOIL_ENTRY, with SOIL_T, SOIL_NZ, LAND_VEG, LAND_RICHARDS 1, LAND_CURVE,
-// LAND_COND, SOIL_STEPPER 1 Heun or 2 ImplicitEuler, the last with
+// LAND_COND, LAND_SNOW, SOIL_STEPPER 1 Heun or 2 ImplicitEuler, the last with
 // SOIL_SOLVER 0 Thomas, 1 PCR or 2 both, a kernel each, and SOIL_PICARD),
 // with the arguments of
 // csrc/land_column_segment_vjp.cu's entries, launching the kernel of the
@@ -75,17 +77,19 @@
 
 #if !defined(SOIL_ENTRY) || !defined(SOIL_T) || !defined(SOIL_NZ) || !defined(LAND_VEG) || \
     !defined(LAND_RICHARDS)
-#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 -DSOIL_STEPPER=1|2 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
+#error "build with -DSOIL_ENTRY=<name> -DSOIL_T=float|double -DSOIL_NZ=<levels> -DLAND_VEG=0|1 -DLAND_RICHARDS=1 -DLAND_CURVE=0|1 -DLAND_COND=0|1 [-DLAND_SNOW=1] -DSOIL_STEPPER=1|2 [-DSOIL_SOLVER=0|1|2 -DSOIL_PICARD=1] [-DSOIL_GROUP=<lanes>] [-DSOIL_MIN_BLOCKS=<blocks>]"
 #endif
-#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || (SOIL_STEPPER != 1 && SOIL_STEPPER != 2) || \
-    (defined(LAND_SNOW) && LAND_SNOW)
-#error "the land group segment VJP runs ImplicitEuler or Heun over Richards flow without a snowpack"
+#if !LAND_RICHARDS || !defined(SOIL_STEPPER) || (SOIL_STEPPER != 1 && SOIL_STEPPER != 2)
+#error "the land group segment VJP runs ImplicitEuler or Heun over Richards flow"
 #endif
 #ifndef LAND_CURVE
 #define LAND_CURVE 0
 #endif
 #ifndef LAND_COND
 #define LAND_COND 0
+#endif
+#ifndef LAND_SNOW
+#define LAND_SNOW 0
 #endif
 #ifndef SOIL_SOLVER
 #define SOIL_SOLVER 0
@@ -108,11 +112,14 @@ constexpr int kReduceThreads = 256;
 // 54.86/121.26, 48.27/108.57 (128 registers, 2,244 bytes), 55.50/137.43 and
 // 52.18/131.56 ms: 2 blocks for both. Heun at G 4 (land_heun_time, 48
 // steps of 60 s): 76.99 ms (255 registers), 57.03 (128, 1,516 bytes),
-// 54.66 (80, 2,168 bytes, 24 warps) and 62.37 ms: 3 blocks
+// 54.66 (80, 2,168 bytes, 24 warps) and 62.37 ms: 3 blocks. PCR with a
+// snowpack at G 4 (land_snow_time, a 48-step segment of 600 s): 67.05 ms
+// (255 registers), 56.65 (128, 2,084 bytes), 53.40 (80, 3,460 bytes, 24
+// warps) and 55.60 ms: 3 blocks
 #ifdef SOIL_MIN_BLOCKS
 constexpr int MIN_BLOCKS = SOIL_MIN_BLOCKS;
 #else
-constexpr int MIN_BLOCKS = SOIL_STEPPER == 1 ? 3 : 2;
+constexpr int MIN_BLOCKS = SOIL_STEPPER == 1 || LAND_SNOW ? 3 : 2;
 #endif
 
 // the group size of a kernel of STEPPER (and SOLVER)
@@ -136,9 +143,9 @@ land_column_group_segment_vjp_kernel(
     T* __restrict__ scratch, T* __restrict__ partials, const int steps, const T dt,
     const T inv_dt, const long long cells, const int iters)
 {
-    constexpr bool VEG = LAND_VEG != 0;
+    constexpr bool VEG = LAND_VEG != 0, SNOW = LAND_SNOW != 0;
     using Lanes = soil::WarpLanes<G>;
-    using Column = land::GroupColumn<T, NZ, G, Lanes, VEG, LAND_CURVE, LAND_COND>;
+    using Column = land::GroupColumn<T, NZ, G, Lanes, VEG, LAND_CURVE, LAND_COND, SNOW>;
     constexpr int L = Column::L;
     constexpr int GROUPS = THREADS / G;
     __shared__ T red[2][GROUPS];
@@ -172,12 +179,14 @@ land_column_group_segment_vjp_kernel(
         s.nu = static_cast<const T*>(in.nu)[col];
         s.An = static_cast<const T*>(in.An)[col];
     }
+    if (SNOW) s.swe = static_cast<const T*>(in.swe)[col];
     gsc.S = read(gout.S, col);
     gsc.Ts = read(gout.Ts, col);
     gsc.w = read(gout.w, col);
     gsc.C = read(gout.C, col);
     gsc.nu = read(gout.nu, col);
     gsc.An = read(gout.An, col);
+    if (SNOW) gsc.swe = read(gout.swe, col);
     land::Forcing<T> f;
 #pragma unroll
     for (int i = 0; i < LAND_NIN; ++i)
@@ -205,6 +214,7 @@ land_column_group_segment_vjp_kernel(
                 static_cast<T*>(gin.nu)[col] = gsc.nu;
                 static_cast<T*>(gin.An)[col] = gsc.An;
             }
+            if (SNOW) static_cast<T*>(gin.swe)[col] = gsc.swe;
         }
     } else {
         gKsat[0] = gskm[0] = T(0);
@@ -303,7 +313,7 @@ constexpr int ENTRY_SOLVER = SOIL_STEPPER == 2 && SOIL_SOLVER != 2 ? SOIL_SOLVER
 // (csrc/land_column_segment_vjp.cu): cudaErrorInvalidValue for a solver
 // code other than 0 and 1 or, ImplicitEuler's, one the entry was not built
 // for, a Picard count below 1, or one other than 1 without SOIL_PICARD. `scratch` holds
-// steps * (2 NZ + 6) * cells values, laid out [step][row][cell];
+// steps * (2 NZ + 6 + LAND_SNOW) * cells values, laid out [step][row][cell];
 // `partials` 2 * ceil(cells / (256 / G)).
 extern "C" int SOIL_ENTRY(const LandCarry* in, const LandCarry* gout, const LandCarry* gin,
                           const LandInputs* inputs, const SOIL_T* root,

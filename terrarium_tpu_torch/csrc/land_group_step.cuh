@@ -1,7 +1,8 @@
 // One ImplicitEuler step (any number of Picard iterations, either solver)
 // and one Heun step of a LandModel column spread over a group of G lanes
 // (Richards flow, with or without vegetation, either retention curve and
-// conductivity, no snowpack), their rollout, and the segment VJP of each on
+// conductivity, with or without a snowpack), their rollout, and the segment
+// VJP of each on
 // the same group: the column code of csrc/land_column_group_rollout.cu and
 // csrc/land_column_group_segment_vjp.cu, which run the same picard_step or
 // heun_step, so that every carry the VJP stores equals the rollout's bit
@@ -34,13 +35,22 @@
 //   (tests/test_torch_land_group_vjp_host.py);
 // * the adjoint's surface block, whose Jacobian the one-thread adjoint forms
 //   in forward mode one input direction a pass, ten passes one after
-//   another (land::surface_adjoint), takes the directions in rounds across
-//   the group's lanes: lane j the used directions j, j + G, ..., so the
-//   passes take ceil(10 / G) rounds (5 directions without vegetation), each
-//   lane carrying one pass's Dual state at a time; each direction's
+//   another (land::surface_adjoint; eleven under a snowpack), takes the
+//   directions in rounds across the group's lanes: lane j the used
+//   directions j, j + G, ..., so the passes take ceil(10 / G) rounds (5
+//   directions without vegetation; one more, the SWE, under a snowpack),
+//   each lane carrying one pass's Dual state at a time; each direction's
 //   cotangent is then read from its lane by one shuffle. Each pass is the
 //   one-thread pass's arithmetic (land::surface_block), so the contraction
-//   is bitwise the one-thread adjoint's.
+//   is bitwise the one-thread adjoint's;
+// * the snowpack (SNOW, as LAND_SNOW is for the one-thread code) is one
+//   more value of the surface carry, the SWE, which every lane holds: its
+//   cover of the clamped SWE blends the albedo and emissivity of the SEB
+//   sweeps, its degree-day melt joins the ground rain, its rate is snowfall
+//   - melt, and each step clips it at 0 where land::implicit_step,
+//   picard_step and heun_step do. Every snowpack term is compiled under `if
+//   constexpr (SNOW)`, so that the instantiations without one keep their
+//   code.
 //
 // Iteration 0 of picard_step is land::implicit_step's arithmetic (the
 // surface copy it closes is written back, which implicit_step does in
@@ -72,8 +82,10 @@ namespace land {
 // 208.42; Thomas G 8 (L 3) 45.32 and 100.67 ms, G 4 47.91 and 108.21, G 16
 // 60.22 and 136.02, G 32 95.46 and 216.58. The surface block, one value a
 // column, runs on every lane of a group, so few lanes a column win; Thomas'
-// hand-offs, one lane of a group at a time, favour 8 over 4. Other depths
-// take the same sizes (not measured).
+// hand-offs, one lane of a group at a time, favour 8 over 4. With a
+// snowpack (PCR, rollout_layout_ab.py land_snow_time, each G at its best
+// of 1 to 4 blocks): G 2 77.31 ms, G 4 53.40, G 8 57.66, the same G. Other
+// depths take the same sizes (not measured).
 #if defined(__CUDACC__)
 __host__ __device__
 #endif
@@ -93,7 +105,10 @@ constexpr int implicit_group_lanes(int /* nz */, int solver) {
 // less than the VJP's tangent passes gain from 8 lanes, so the two differ
 // there (the land gradient's forward segments run the rollout at the
 // VJP's G, implicit_group_lanes, so that the VJP's stored carries are
-// theirs). Other depths take the same sizes (not measured).
+// theirs). With a snowpack (PCR, land_snow_time, each G at its best launch
+// bound): G 2 8.72 ms, G 4 8.18, G 8 10.55, and at the gradient's static
+// inputs G 2 8.11, G 4 7.86, G 8 10.39: the same G. Other depths take the
+// same sizes (not measured).
 #if defined(__CUDACC__)
 __host__ __device__
 #endif
@@ -123,8 +138,9 @@ constexpr int heun_rollout_group_lanes(int /* nz */) { return 4; }
 
 // A LandModel column on a group: soil::GroupColumn's levels and exchange,
 // the land's parameters and root fractions, the closure, the ImplicitEuler
-// and Heun steps and their adjoints (Richards flow, no snowpack)
-template <typename T, int NZ, int G, class Lanes, bool VEG, int CURVE, int COND>
+// and Heun steps and their adjoints (Richards flow; a snowpack where SNOW)
+template <typename T, int NZ, int G, class Lanes, bool VEG, int CURVE, int COND,
+          bool SNOW = false>
 struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
     using Base = soil::GroupColumn<T, NZ, G, Lanes>;
     using typename Base::SweepBits;
@@ -230,12 +246,14 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         SurfaceRates<T> r;
     };
 
-    // The surface block of land::closure_rhs (Richards flow, no snowpack),
-    // operation for operation: atmosphere, vegetation, interception,
-    // evapotranspiration, infiltration, the SEB's fused update twice, the
-    // surface's rates; from the closed surface carry s (its pool after the
-    // spill), the inputs f and the top level's ground temperature Tg, water,
-    // centre K and whether its closed saturation is below 1, and beta.
+    // The surface block of land::closure_rhs (Richards flow), operation for
+    // operation: atmosphere, the snowpack's cover and melt (SNOW),
+    // vegetation, interception, evapotranspiration, infiltration (of the
+    // ground rain and the melt), the SEB's fused update twice (under SNOW
+    // with the albedo and emissivity blended by the cover), the surface's
+    // rates; from the closed surface carry s (its pool after the spill), the
+    // inputs f and the top level's ground temperature Tg, water, centre K
+    // and whether its closed saturation is below 1, and beta.
     // closure_rhs interleaves this block with the soil levels, the full
     // step's writer and the snowpack; drawing it out of there would move the
     // float32 contraction of the one-thread kernels it serves (land_step.cuh,
@@ -252,6 +270,12 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         const T Vr = vmax(V, T(1e-6));
         const T e_air = q * p / (cp.eps_mol + cp.one_minus_eps_mol * q);
         const T r_a0 = resistance(Ta, s.Ts, Vr, cp);
+        T snow_f = T(0), melt = T(0);
+        if constexpr (SNOW) {
+            const T swe = vmax(s.swe, T(0));
+            snow_f = swe / (swe + cp.swe_half);
+            melt = swe > T(0) ? cp.ddf * vmax(Ta - cp.T_melt, T(0)) : T(0);
+        }
         Vegetation<T> veg{};
         if (VEG) veg = vegetation<T>(s.C, s.An, beta_paw, Tg, e_air, f, cp);
         T rain_g = rain, f_can = T(0), I_can = T(0), R_can = T(0);
@@ -282,18 +306,35 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             Q_h = beta_g * dq_s / r_a0;
         }
         {
-            const T rain_in = rain_g;
+            T rain_in = rain_g;
+            if constexpr (SNOW) rain_in = rain_g + melt;
             const T drainage = s.S > T(0) ? vmax(s.S, T(0)) / cp.tau_r : T(0);
             const T influx = s.S > T(0) ? drainage : rain_in;
             o.infil = below1 ? vmin(influx, Kc_top) : T(0);
         }
-        const T G0 = ground_flux(s.Ts, r_a0, f, Q_h, cp);
-        const T Ts1 = skin(Tg, G0, dz_top, cp);
-        const T G1 = ground_flux(Ts1, resistance(Ta, Ts1, Vr, cp), f, Q_h, cp);
-        const T Ts2 = skin(Tg, G1, dz_top, cp);
-        const Fluxes<T> fl(Ts2, resistance(Ta, Ts2, Vr, cp), f, Q_h, cp.albedo, cp.eps_sigma,
-                           cp.one_minus_emis, cp);
-        o.Gg = fl.G;
+        T Ts2;
+        if constexpr (SNOW) {
+            Radiation<T> rad;
+            rad.albedo = snow_f * cp.albedo_snow + (T(1) - snow_f) * cp.albedo;
+            const T eps = snow_f * cp.emissivity_snow + (T(1) - snow_f) * cp.emissivity_base;
+            rad.eps_sigma = eps * cp.sigma;
+            rad.one_minus_emis = T(1) - eps;
+            const T G0 = ground_flux_snow(s.Ts, r_a0, f, Q_h, rad, cp);
+            const T Ts1 = skin(Tg, G0, dz_top, cp);
+            const T G1 = ground_flux_snow(Ts1, resistance(Ta, Ts1, Vr, cp), f, Q_h, rad, cp);
+            Ts2 = skin(Tg, G1, dz_top, cp);
+            const Fluxes<T> fl(Ts2, resistance(Ta, Ts2, Vr, cp), f, Q_h, rad.albedo,
+                               rad.eps_sigma, rad.one_minus_emis, cp);
+            o.Gg = fl.G;
+        } else {
+            const T G0 = ground_flux(s.Ts, r_a0, f, Q_h, cp);
+            const T Ts1 = skin(Tg, G0, dz_top, cp);
+            const T G1 = ground_flux(Ts1, resistance(Ta, Ts1, Vr, cp), f, Q_h, cp);
+            Ts2 = skin(Tg, G1, dz_top, cp);
+            const Fluxes<T> fl(Ts2, resistance(Ta, Ts2, Vr, cp), f, Q_h, cp.albedo, cp.eps_sigma,
+                               cp.one_minus_emis, cp);
+            o.Gg = fl.G;
+        }
         o.Q_h = Q_h;
         o.r = SurfaceRates<T>{};
         o.r.Ts = Ts2;
@@ -305,6 +346,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             o.r.dnu = lam * veg.NPP / s.C * nu_star * (T(1) - s.nu) - cp.gv_rate * nu_star;
             o.r.An = veg.An;
         }
+        if constexpr (SNOW) o.r.dswe = f.v[IN_SNOW] - melt;
         return o;
     }
 
@@ -458,15 +500,17 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         }
     }
 
-    // land::picard_step (Richards flow, no snowpack) on the group with
-    // `iters` Picard iterations, operation for operation (iteration 0 that
-    // of land::implicit_step): iteration 0 closes the column and a copy of
-    // the surface carry, keeps the pool's spill and the closed start u^n;
-    // each further iteration closes the iterate and a copy of the surface
-    // carry as iteration 0 left it (the spill dropped) and solves with the
-    // right-hand side tend(u_k) - (u_k - u^n) / dt; the pool, skin, canopy
-    // water, carbon, vegetation fraction and net assimilation take
-    // iteration 0's rates. One body serves every iteration (not unrolled).
+    // land::picard_step (Richards flow) on the group with `iters` Picard
+    // iterations, operation for operation (iteration 0 that of
+    // land::implicit_step): iteration 0 closes the column and a copy of the
+    // surface carry, keeps the pool's spill and the closed start u^n; each
+    // further iteration closes the iterate and a copy of the surface carry
+    // as iteration 0 left it (the spill dropped, the SWE unclipped) and
+    // solves with the right-hand side tend(u_k) - (u_k - u^n) / dt; the
+    // pool, skin, canopy water, carbon, vegetation fraction, net
+    // assimilation and SWE take iteration 0's rates, and the SWE is clipped
+    // at 0 once, at the end (at one iteration implicit_step's clip). One
+    // body serves every iteration (not unrolled).
     template <int SOLVER>
     SOIL_FN void picard_step(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, const Forcing<T>& f,
                              const T dt, const T inv_dt, const int iters) {
@@ -505,21 +549,23 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                     s.nu = s.nu + r.surf.dnu * dt;
                     s.An = r.surf.An;
                 }
+                if constexpr (SNOW) s.swe = s.swe + r.surf.dswe * dt;
             }
         }
+        if constexpr (SNOW) s.swe = vmax(s.swe, T(0));
     }
 
     // Heun's stage of land::heun_step on the group: the closure of x_n in
     // place (sat, and s.S += spill) and its rates r with the inputs f0 (the
     // top level's Flux BCs kept apart), then the stage y = x_n + f_n dt
     // with x_n's Flux BCs on the top level, the stage's skin temperature
-    // and net assimilation x_n's new ones. heun_step runs it, and
-    // heun_step_adjoint recomputes the stage by it from the step's stored
-    // start: one body at the rollout's G. The Heun entries of both group
-    // sources are built without contracted multiply-adds at every dtype
-    // (ops/cuda_build.py, TAG_FLAGS), so that the two kernels round the
-    // step alike: contracted, the compiler fused them differently in each
-    // kernel
+    // and net assimilation x_n's new ones, its SWE clipped at 0 (SNOW).
+    // heun_step runs it, and heun_step_adjoint recomputes the stage by it
+    // from the step's stored start: one body at the rollout's G. The Heun
+    // entries of both group sources (and the snowpack's) are built without
+    // contracted multiply-adds at every dtype (ops/cuda_build.py,
+    // TAG_FLAGS), so that the two kernels round the step alike: contracted,
+    // the compiler fused them differently in each kernel
     SOIL_FN void heun_stage(const T (&U)[N][L], T (&sat)[N][L], Surface<T>& s,
                             const Forcing<T>& f0, const T dt, Rates& r, T (&yU)[N][L],
                             T (&ys)[N][L], Surface<T>& y) {
@@ -546,14 +592,16 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             y.nu = s.nu + r.surf.dnu * dt;
             y.An = r.surf.An;
         }
+        if constexpr (SNOW) y.swe = vmax(s.swe + r.surf.dswe * dt, T(0));
     }
 
-    // land::heun_step (Richards flow, no snowpack) on the group, operation
-    // for operation: heun_stage with the inputs f0 at t_n, the closure and
-    // rates of the stage with the inputs f1 at t_n + dt, then the corrector
+    // land::heun_step (Richards flow) on the group, operation for
+    // operation: heun_stage with the inputs f0 at t_n, the closure and rates
+    // of the stage with the inputs f1 at t_n + dt, then the corrector
     // (land::HeunUpdate) x_n + (0.5 (f_n + f*) + BC_n) dt, the top level's
     // Flux BCs x_n's, kept apart from the mean as the one-thread step keeps
-    // them; the skin temperature and the net assimilation x_n's. The stage
+    // them; the skin temperature and the net assimilation x_n's; the SWE
+    // clipped at 0 (SNOW). The stage
     // and both rates are held in each lane (about 9 L values beside the
     // carry)
     SOIL_FN void heun_step(T (&U)[N][L], T (&sat)[N][L], Surface<T>& s, const Forcing<T>& f0,
@@ -587,6 +635,8 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             s.nu = s.nu + (T(0.5) * (r.surf.dnu + q.surf.dnu)) * dt;
             s.An = r.surf.An;
         }
+        if constexpr (SNOW)
+            s.swe = vmax(s.swe + (T(0.5) * (r.surf.dswe + q.surf.dswe)) * dt, T(0));
     }
 
     // One step of rollout from clock time t: each series input of column
@@ -639,15 +689,20 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
     // land::surface_adjoint on the group: gx = J^T gy for the surface
     // block's Jacobian at xv, the used input directions (all ten under
     // vegetation; the ground temperature, top water, top centre K, pool
-    // and skin temperature without) taken in rounds across the lanes (lane
-    // j the used directions j, j + G, ...), one forward pass a direction,
-    // each direction's cotangent read from its lane
-    SOIL_FN void surface_adjoint(const T (&xv)[SI_N], const T (&gy)[SO_N], const bool below1,
-                                 const Forcing<T>& f, T (&gx)[SI_N]) const {
-        constexpr int USED = VEG ? SI_N : SI_N - 5;
+    // and skin temperature without; and the SWE under SNOW, last) taken in
+    // rounds across the lanes (lane j the used directions j, j + G, ...),
+    // one forward pass a direction, each direction's cotangent read from
+    // its lane
+    SOIL_FN void surface_adjoint(const T (&xv)[SI_N + SNOW], const T (&gy)[SO_N + SNOW],
+                                 const bool below1, const Forcing<T>& f,
+                                 T (&gx)[SI_N + SNOW]) const {
+        constexpr int USED = (VEG ? SI_N : SI_N - 5) + SNOW;
         constexpr int R = (USED + G - 1) / G;
         // the m-th used direction: without vegetation TG, WTOP, KC, S, TS
-        auto direction = [](int m) { return VEG ? m : (m < 2 ? m : m + 1); };
+        // (then SWE)
+        auto direction = [](int m) {
+            return VEG ? m : (m < 2 ? m : (m < SI_N - 5 ? m + 1 : int(SI_SWE)));
+        };
         T acc[N][R];
 #pragma unroll 1
         for (int r = 0; r < R; ++r) {
@@ -658,12 +713,13 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                 T sum = T(0);
                 if (m < USED) {
                     const int d = direction(m);
-                    Dual<T> x[SI_N], y[SO_N];
+                    Dual<T> x[SI_N + SNOW], y[SO_N + SNOW];
 #pragma unroll
-                    for (int j = 0; j < SI_N; ++j) x[j] = Dual<T>(xv[j], j == d ? T(1) : T(0));
-                    surface_block<T, VEG, true>(x, below1, f, lc, dz_top, y);
+                    for (int j = 0; j < SI_N + SNOW; ++j)
+                        x[j] = Dual<T>(xv[j], j == d ? T(1) : T(0));
+                    surface_block<T, VEG, true, SNOW>(x, below1, f, lc, dz_top, y);
 #pragma unroll
-                    for (int o = 0; o < SO_N; ++o)
+                    for (int o = 0; o < SO_N + SNOW; ++o)
                         if (gy[o] != T(0) && y[o].d != T(0)) sum += gy[o] * y[o].d;
                 }
                 a[i] = sum;
@@ -676,27 +732,27 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             }
         }
 #pragma unroll
-        for (int d = 0; d < SI_N; ++d) gx[d] = T(0);
+        for (int d = 0; d < SI_N + SNOW; ++d) gx[d] = T(0);
 #pragma unroll
         for (int m = 0; m < USED; ++m)
             gx[direction(m)] = lanes.from(m % G, [&](int i) { return acc[i][m / G]; });
     }
 
-    // land::closure_rhs_adjoint (Richards flow, no snowpack; the implicit
-    // terms' cotangents x, TermCotangents, or none, NoTermCotangents: Heun
-    // reads no term, and adding a zero cotangent would turn a -0 into +0)
-    // on the group: on entry gU, gs and gsc hold the
-    // cotangents of what the stepper reads directly of the closed column and
-    // surface carry, gfU and gfs those of the tendencies (the top level's
-    // before its Flux BCs), gy those of the surface block's outputs (all
-    // but SO_QH, which the ET sink adds here); on return gU, gs and gsc are
-    // the cotangents of the step's input carry. Each lane's parameter
-    // cotangents accumulate into gKsat[i] and gskm[i].
+    // land::closure_rhs_adjoint (Richards flow; the implicit terms'
+    // cotangents x, TermCotangents, or none, NoTermCotangents: Heun reads no
+    // term, and adding a zero cotangent would turn a -0 into +0) on the
+    // group: on entry gU, gs and gsc hold the cotangents of what the stepper
+    // reads directly of the closed column and surface carry (under SNOW
+    // gsc.swe the carried SWE's), gfU and gfs those of the tendencies (the
+    // top level's before its Flux BCs), gy those of the surface block's
+    // outputs (all but SO_QH, which the ET sink adds here); on return gU, gs
+    // and gsc are the cotangents of the step's input carry. Each lane's
+    // parameter cotangents accumulate into gKsat[i] and gskm[i].
     template <class X>
     SOIL_FN void rhs_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const Surface<T>& s,
                              const Forcing<T>& f, T (&gU)[N][L], T (&gs)[N][L], Surface<T>& gsc,
-                             const T (&gfU)[N][L], const T (&gfs)[N][L], T (&gy)[SO_N],
-                             const X& x, T (&gKsat)[N], T (&gskm)[N]) {
+                             const T (&gfU)[N][L], const T (&gfs)[N][L],
+                             T (&gy)[SO_N + SNOW], const X& x, T (&gKsat)[N], T (&gskm)[N]) {
         // ---- recompute: sweeps with their predicates, closure, K, heads, PAW
         T ss[N][L], S1 = s.S, wt;
 #pragma unroll
@@ -729,10 +785,11 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         this->darcy_adjoint(gfs, psi, FK, Kc, x, gKf, gpsi, gKf_top);
 
         // ---- the surface block
-        T gx[SI_N];
+        T gx[SI_N + SNOW];
         {
-            const T xv[SI_N] = {top_of(Tk), top_of(water), beta_paw, top_of(Kc), S1,
-                                s.Ts, s.w, s.C, s.nu, s.An};
+            T xv[SI_N + SNOW] = {top_of(Tk), top_of(water), beta_paw, top_of(Kc), S1,
+                                 s.Ts, s.w, s.C, s.nu, s.An};
+            if constexpr (SNOW) xv[SI_SWE] = s.swe;
             surface_adjoint(xv, gy, top_of(ss) < T(1), f, gx);
         }
         const T gS1 = gsc.S + gx[SI_S];
@@ -741,6 +798,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         gsc.C = gsc.C + gx[SI_C];
         gsc.nu = gsc.nu + gx[SI_NU];
         gsc.An = gsc.An + gx[SI_AN];
+        if constexpr (SNOW) gsc.swe = gsc.swe + gx[SI_SWE];
 
         // ---- face K from centre K; the heat flux of the interior faces
         T gKc[N][L], gT[N][L], gkap[N][L];
@@ -794,15 +852,16 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         this->sweeps_adjoint(bits, gs, gS1);
     }
 
-    // land::picard_iter_adjoint (Richards flow, no snowpack) on the group:
-    // cotangents through one iteration of picard_step at its iterate (U,
-    // sat) before the iteration's closure, with the surface carry s it
-    // reads; the closure, the tendencies, the terms and the rows recomputed
-    // there, each system undone by one solve of its transposed rows
+    // land::picard_iter_adjoint (Richards flow) on the group: cotangents
+    // through one iteration of picard_step at its iterate (U, sat) before
+    // the iteration's closure, with the surface carry s it reads; the
+    // closure, the tendencies, the terms and the rows recomputed there, each
+    // system undone by one solve of its transposed rows
     // (soil::GroupColumn::systems_adjoint), then the surface's path (the
-    // first iteration: the Euler updates of the surface, gsc the cotangents
-    // of the surface after the step; a later one: its rows' ground heat flux
-    // and infiltration alone, its inputs' cotangents added to gsc) and the
+    // first iteration: the Euler updates of the surface and, under SNOW,
+    // the step's closing clip of the SWE, gsc the cotangents of the surface
+    // after the step; a later one: its rows' ground heat flux and
+    // infiltration alone, its inputs' cotangents added to gsc) and the
     // closure's adjoint
     template <int SOLVER>
     SOIL_FN void picard_iter_adjoint(const T (&U)[N][L], const T (&sat)[N][L],
@@ -825,16 +884,18 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         this->template systems_adjoint<SOLVER, false>(
             r, U, xs, later, Un, sn, gU, gs, gUn, gsn, gfU, gfs, x, dt, inv_dt,
             [&](T sk) { return chain(sk); }, [&](T sk) { return chain_deriv(sk); });
-        T gy[SO_N];
+        T gy[SO_N + SNOW];
         gy[SO_QH] = T(0);
         gy[SO_G] = -top_of(gfU) / dz_top;
         gy[SO_INFIL] = top_of(gfs) / dz_top;
         Surface<T> gk{};
         if (later) {
 #pragma unroll
-            for (int o = SO_POOL; o < SO_N; ++o) gy[o] = T(0);
+            for (int o = SO_POOL; o < SO_N + SNOW; ++o) gy[o] = T(0);
         } else {
-            surface_update_adjoint<T, VEG, true>(gsc, gy, dt);
+            T swe_new = T(0);
+            if constexpr (SNOW) swe_new = s.swe + r.surf.dswe * dt;
+            surface_update_adjoint<T, VEG, true, SNOW>(gsc, gy, dt, swe_new);
             gk = gsc;
         }
         rhs_adjoint(U, sat, s, f, gU, gs, gk, gfU, gfs, gy, x, gKsat, gskm);
@@ -845,6 +906,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             gsc.C = gsc.C + gk.C;
             gsc.nu = gsc.nu + gk.nu;
             gsc.An = gsc.An + gk.An;
+            if constexpr (SNOW) gsc.swe = gsc.swe + gk.swe;
         } else {
             gsc = gk;
         }
@@ -856,7 +918,10 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
     // first k iterations, inline, the forward's own code at the forward's G
     // (nothing is stored per iteration), then picard_iter_adjoint takes them
     // back to the iterate before it. The closed start u^n that the later
-    // iterations read is the start's sweeps.
+    // iterations read is the start's sweeps. Under SNOW the recomputed
+    // surface's SWE is set to what the iteration read, which picard_step's
+    // closing clip does not keep: the start's for iteration 0, iteration
+    // 0's unclipped update for the later ones.
     template <int SOLVER>
     SOIL_FN void picard_step_adjoint(const T (&U)[N][L], const T (&sat)[N][L],
                                      const Surface<T>& s, const Forcing<T>& f, T (&gU)[N][L],
@@ -883,23 +948,27 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             }
             Surface<T> xsurf = s;
             picard_step<SOLVER>(xU, xs, xsurf, f, dt, inv_dt, it);
+            if constexpr (SNOW)
+                xsurf.swe = it == 0 ? s.swe : s.swe + swe_rate<T>(s.swe, f, lc) * dt;
             picard_iter_adjoint<SOLVER>(xU, xs, xsurf, f, it > 0, U, sn, gU, gs, gsc, gUn, gsn,
                                         gKsat, gskm, dt, inv_dt);
         }
     }
 
-    // land::heun_step_adjoint (Richards flow, no snowpack) on the group:
-    // cotangents through one heun_step from its input (U, sat, s); on entry
-    // (gU, gs, gsc) are those of the step's output, on return those of its
-    // input. The stage is recomputed by heun_stage, heun_step's own code at
-    // the rollout's G; then one body, in a loop that is not unrolled, takes
+    // land::heun_step_adjoint (Richards flow) on the group: cotangents
+    // through one heun_step from its input (U, sat, s); on entry (gU, gs,
+    // gsc) are those of the step's output, on return those of its input.
+    // The stage is recomputed by heun_stage, heun_step's own code at the
+    // rollout's G; then one body, in a loop that is not unrolled, takes
     // rhs_adjoint without terms twice: at the stage with the inputs f1, from
     // what the corrector reads of it (half of the tendencies and of the
-    // pool, canopy water, carbon and fraction rates), then at x_n with the
-    // inputs f0, from the corrector's reads of x_n (the carry, the other
+    // pool, canopy water, carbon, fraction and SWE rates), then at x_n with
+    // the inputs f0, from the corrector's reads of x_n (the carry, the other
     // half of the rates, the top Flux BCs, the skin temperature and the net
-    // assimilation) added to the stage's Euler update's. Each value is
-    // formed by the one-thread adjoint's operations in its order.
+    // assimilation) added to the stage's Euler update's. The two SWE clips
+    // (SNOW), the stage's and the corrector's, pass the cotangent where
+    // their argument is >= 0. Each value is formed by the one-thread
+    // adjoint's operations in its order.
     SOIL_FN void heun_step_adjoint(const T (&U)[N][L], const T (&sat)[N][L], const Surface<T>& s,
                                    const Forcing<T>& f0, const Forcing<T>& f1, T (&gU)[N][L],
                                    T (&gs)[N][L], Surface<T>& gsc, T (&gKsat)[N], T (&gskm)[N],
@@ -919,7 +988,15 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
             Rates r;
             heun_stage(U, cs, cx, f0, dt, r, xU, xs, xsurf);
         }
-        T gfU[N][L], gfs[N][L], gxU[N][L], gxs[N][L], gy[SO_N];
+        // the corrector's SWE cotangent through its clip, and the stage's clip
+        T gswe1 = T(0);
+        bool stage_passes = true;
+        if constexpr (SNOW) {
+            const T dn = swe_rate<T>(s.swe, f0, lc), ds = swe_rate<T>(xsurf.swe, f1, lc);
+            stage_passes = s.swe + dn * dt >= T(0);
+            gswe1 = s.swe + (T(0.5) * (dn + ds)) * dt >= T(0) ? gsc.swe : T(0);
+        }
+        T gfU[N][L], gfs[N][L], gxU[N][L], gxs[N][L], gy[SO_N + SNOW];
 #pragma unroll
         for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -939,6 +1016,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
         gy[SO_DC] = VEG ? T(0.5) * (gsc.C * dt) : T(0);
         gy[SO_DNU] = VEG ? T(0.5) * (gsc.nu * dt) : T(0);
         gy[SO_AN] = T(0);
+        if constexpr (SNOW) gy[SO_DSWE] = T(0.5) * (gswe1 * dt);
         Surface<T> gx{};
         const Forcing<T>* f = &f1;
 #pragma unroll 1
@@ -977,6 +1055,11 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                     gx.nu = gsc.nu + gx.nu;
                     gx.An = T(0);
                 }
+                if constexpr (SNOW) {
+                    const T gswe0 = stage_passes ? gx.swe : T(0);
+                    gy[SO_DSWE] = gy[SO_DSWE] + gswe0 * dt;
+                    gx.swe = gswe1 + gswe0;
+                }
                 xsurf = s;
                 f = &f0;
             }
@@ -1003,8 +1086,9 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
     // carry (U, sat, s), each step's input carry stored to `scratch` where
     // `store` (land::ScratchRows rows a step, laid out [step][row][cell]:
     // U[0 .. NZ), sat[0 .. NZ), then the pool, skin temperature, canopy
-    // water, carbon, vegetation fraction and net assimilation, each lane its
-    // levels', lane 0 the surface's); then the reverse sweep of
+    // water, carbon, vegetation fraction, net assimilation and, under SNOW,
+    // the SWE, each lane its levels', lane 0 the surface's); then the
+    // reverse sweep of
     // the step's adjoint from the output cotangents (gU, gs, gsc), which
     // become the input carry's. The forward is the group rollout's own step,
     // so at the rollout's G its carries are the rollout's bit for bit. A
@@ -1016,7 +1100,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                              const long long cells, const bool store, const Forcing<T>& f,
                              const LandInputs& inputs, const int steps, const T dt,
                              const T inv_dt, const int iters, T (&gKsat)[N], T (&gskm)[N]) {
-        constexpr long long ROWS = ScratchRows<NZ>::value;
+        constexpr long long ROWS = ScratchRows<NZ, SNOW>::value;
         Forcing<T> fr = f;  // Heun's forward inputs, as rollout_step reads them
         T t = T(0);
         for (int n = 0; n < steps; ++n) {
@@ -1039,6 +1123,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                         rec[(2 * NZ + 3) * cells] = s.C;
                         rec[(2 * NZ + 4) * cells] = s.nu;
                         rec[(2 * NZ + 5) * cells] = s.An;
+                        if constexpr (SNOW) rec[(2 * NZ + 6) * cells] = s.swe;
                     }
                 }
             }
@@ -1069,6 +1154,7 @@ struct GroupColumn : soil::GroupColumn<T, NZ, G, Lanes> {
                 s.C = rec[(2 * NZ + 3) * cells];
                 s.nu = rec[(2 * NZ + 4) * cells];
                 s.An = rec[(2 * NZ + 5) * cells];
+                if constexpr (SNOW) s.swe = rec[(2 * NZ + 6) * cells];
             }
             if constexpr (STEPPER == soil::STEPPER_HEUN)
                 heun_step_adjoint(U, sat, s, f, f, gU, gs, gsc, gKsat, gskm, dt);

@@ -137,15 +137,15 @@ INSTANTIATIONS = {
     # the LandModel, one thread a column: ForwardEuler over the bare-ground
     # golden at Nz 15 (heat-only soil) and over the vegetated bench
     # composition (Richards over Brooks-Corey and linear conductivity) at Nz
-    # 20; the snowpack over the land_snow golden's composition (bare ground,
-    # Brooks-Corey and linear) at Nz 12 with ForwardEuler and over the bench
-    # composition at Nz 20 with ImplicitEuler (PCR) (ImplicitEuler's and
-    # Heun's entries without a snowpack stay buildable on demand, to time
-    # the one-thread layout against the group's)
+    # 20, at float32 also without contracted multiply-adds (nofma, the land
+    # gradient's forward segments); the snowpack over the land_snow golden's
+    # composition (bare ground, Brooks-Corey and linear) at Nz 12 with
+    # ForwardEuler (ImplicitEuler's
+    # and Heun's entries, with and without a snowpack, stay buildable on
+    # demand, to time the one-thread layout against the group's)
     "land_column_rollout": [
-        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
-        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F64, 20),
+        (("veg", "richards", "bc", "linear", "nofma"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
         (("bare", "richards", "bc", "linear", "snow"), _F64, 12), (("bare", "noflow"), _F64, 15),
     ],
@@ -154,9 +154,13 @@ INSTANTIATIONS = {
     # the Picard entries (which hold a kernel of each solver) and Heun, at
     # float32 (the timed path) and float64 (the checks); and Thomas at the
     # group segment VJP's G 8 (g8), which the land gradient's forward
-    # segments launch
+    # segments launch; with a snowpack PCR at float32 and float64, and
+    # Thomas, the Picard entry and Heun at float64 (the checks)
     "land_column_group_rollout": [
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
         (("implicit", "picard", "veg", "richards", "bc", "linear", "g8"), _F64, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F32, 20),
@@ -168,24 +172,29 @@ INSTANTIATIONS = {
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear", "g8"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
     ],
     # the LandModel's segment VJP over the vegetated bench composition
     # (Richards over Brooks-Corey and linear conductivity) at Nz 20, one
-    # thread a column: ImplicitEuler PCR with a snowpack and ForwardEuler
-    # (ImplicitEuler's and Heun's entries without a snowpack stay buildable
-    # on demand, to time the one-thread layout against the group's)
+    # thread a column: ForwardEuler (ImplicitEuler's and Heun's entries,
+    # with and without a snowpack, stay buildable on demand, to time the
+    # one-thread layout against the group's)
     "land_column_segment_vjp": [
-        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
-        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F64, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
     ],
     # the LandModel's ImplicitEuler and Heun segment VJPs over the
     # vegetated bench composition at Nz 20, a column on a group of lanes:
     # each solver, the Picard entries (which hold a kernel of each solver)
-    # and Heun, at float32 (the gradient) and float64 (the checks)
+    # and Heun, at float32 (the gradient) and float64 (the checks); with a
+    # snowpack PCR at float32 and float64, and Thomas, the Picard entry and
+    # Heun at float64 (the checks)
     "land_column_group_segment_vjp": [
         (("implicit", "picard", "veg", "richards", "bc", "linear"), _F64, 20),
+        (("implicit", "picard", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "pcr", "veg", "richards", "bc", "linear", "snow"), _F32, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F64, 20),
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F64, 20),
         (("heun", "veg", "richards", "bc", "linear"), _F64, 20),
@@ -193,6 +202,8 @@ INSTANTIATIONS = {
         (("implicit", "thomas", "veg", "richards", "bc", "linear"), _F32, 20),
         (("implicit", "pcr", "veg", "richards", "bc", "linear"), _F32, 20),
         (("heun", "veg", "richards", "bc", "linear"), _F32, 20),
+        (("heun", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
+        (("implicit", "thomas", "veg", "richards", "bc", "linear", "snow"), _F64, 20),
     ],
     # the probes (csrc/probes.cu): the roofline micro-benchmark's chains
     # (NZ unused), the Mosaic bisect's cases at its Nz 30 and the Mosaic
@@ -216,31 +227,49 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             # bound (resident blocks an SM), for measuring one against
             # another
             **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (2, 4, 8, 16, 32)},
+            # the one-thread land rollout's float32 build without contracted
+            # multiply-adds (TAG_FLAGS)
+            "nofma": (),
             **{f"mb{b}": (f"SOIL_MIN_BLOCKS={b}",) for b in (1, 2, 3, 4)}}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernels' float64 instantiations, which serve the checks
 #: against the plain version at 1e-12 (the VJP's at 1e-9), contract no
 #: multiply-adds (torch's elementwise ops do not), while their float32
-#: ones, the timed path, do; so do the probes' float64 instantiations
+#: ones, the timed path, do; so do the probes' float64 instantiations. The
+#: one-thread land segment VJP contracts none at float32 either: the land
+#: gradient's forward segments of its schemes launch the one-thread
+#: rollout's float32 build without contraction (the tag nofma, TAG_FLAGS),
+#: and the VJP's recompute rounds the same step as they do (ROADMAP C3:
+#: contracted, the two kernels fused its multiply-adds each its own way,
+#: and the VJP's stored carries parted from the forward's in 8,994 of
+#: 56,951 columns by up to 4.9e-7 of a field's magnitude over 48 steps;
+#: without, in none). Simulation.run keeps the rollout's contracted build:
+#: without contraction row 1'd's 144 steps took 13.02 against 12.65 ms
+#: (rollout_layout_ab.py land_euler_c3, an H100 80GB HBM3 at 700 W)
 FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
-         "land_column_segment_vjp": {_F64: ("-fmad=false",)},
+         "land_column_segment_vjp": {_F64: ("-fmad=false",), _F32: ("-fmad=false",)},
          "land_column_group_rollout": {_F64: ("-fmad=false",)},
          "land_column_group_segment_vjp": {_F64: ("-fmad=false",)},
          "land_column_full_step": {_F64: ("-fmad=false",)},
          "probes": {_F64: ("-fmad=false",)}}
-#: nvcc flags of a source's instantiations that carry a tag, at every
-#: dtype: the land group kernels' Heun entries contract no multiply-adds at
-#: float32 either. The group rollout and the group segment VJP are separate
-#: kernels that run the same heun_step; with contraction the compiler
-#: fused their float32 multiply-adds differently (the ptxas-level fusion
-#: off, still differently), and the VJP's stored carries parted from the
-#: rollout's in 52,444 of 56,951 columns by up to 5e-7 of a field's
-#: magnitude over 48 steps; without, every operation rounds as written in
-#: both and none part, at the same speed within 3% (an H100 80GB HBM3,
-#: PERF.md section 6). The ImplicitEuler entries' carries agree with
-#: contraction on, and keep it
-TAG_FLAGS = {("land_column_group_rollout", "heun"): ("-fmad=false",),
-             ("land_column_group_segment_vjp", "heun"): ("-fmad=false",)}
+#: nvcc flags of a source's instantiations that carry a tag, at every dtype:
+#: the one-thread land rollout's nofma entries (FLAGS' note), and the land
+#: group kernels' Heun entries and their entries with a snowpack, contract
+#: no multiply-adds at float32 either. The group rollout and the
+#: group segment VJP are separate kernels that run the same heun_step; with
+#: contraction the compiler fused their float32 multiply-adds differently
+#: (the ptxas-level fusion off, still differently), and the VJP's stored
+#: carries parted from the rollout's in 52,444 of 56,951 columns by up to
+#: 5e-7 of a field's magnitude over 48 steps; without, every operation
+#: rounds as written in both and none part, at the same speed within 3% (an
+#: H100 80GB HBM3, PERF.md section 6). The ImplicitEuler entries' carries
+#: agree with contraction on, and keep it; with a snowpack they are built
+#: without it from the start, so that no compiler choice can part them
+TAG_FLAGS = {("land_column_rollout", "nofma"): ("-fmad=false",),
+             ("land_column_group_rollout", "heun"): ("-fmad=false",),
+             ("land_column_group_segment_vjp", "heun"): ("-fmad=false",),
+             ("land_column_group_rollout", "snow"): ("-fmad=false",),
+             ("land_column_group_segment_vjp", "snow"): ("-fmad=false",)}
 _SUFFIX = {_F32: ("f32", "float"), _F64: ("f64", "double")}
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

@@ -20,11 +20,11 @@ replaces ``terrarium_tpu/ops/fused_vjp.py::make_segment_vjp`` traced over a
 LandModel step. The clock is not differentiated.
 
 The CUDA sources: ImplicitEuler (either solver, any Picard count) and Heun
-over Richards flow without a snowpack (``vjp_source``) run each column on a
-group of lanes, ``csrc/land_column_group_segment_vjp.cu``
+over Richards flow, with or without a snowpack (``vjp_source``), run each
+column on a group of lanes, ``csrc/land_column_group_segment_vjp.cu``
 (``land::GroupColumn::segment_vjp`` in ``csrc/land_group_step.cuh``, its
 forward and recompute the group rollout's own step); every other scheme
-and composition (ForwardEuler, a snowpack, ``NoFlow``) one thread a column,
+and composition (ForwardEuler, ``NoFlow``) one thread a column,
 ``csrc/land_column_segment_vjp.cu``, with the step's adjoint in
 ``csrc/land_adjoint.cuh``. On CPU tensors the
 wrapper runs :func:`land_column_segment_vjp_plain`, torch autograd through
@@ -87,8 +87,8 @@ def check_scheme(params: LandParams, stepper: str, solver: Optional[str],
 def vjp_source(params: LandParams, stepper: str) -> str:
     """The CUDA source of the land segment VJP of ``stepper`` over the
     composition of ``params``: the group kernel's for ImplicitEuler (either
-    solver, any Picard count) and Heun over Richards flow without a
-    snowpack, the one-thread kernel's for any other."""
+    solver, any Picard count) and Heun over Richards flow, with or without
+    a snowpack, the one-thread kernel's for any other."""
     return _GROUP_NAME if group_scheme(params, stepper) else _NAME
 
 

@@ -13,8 +13,9 @@
 // (either solver) or Heun. Built with -DLAND_GROUP_G=<G> it holds the group
 // column at that G; without, the one-thread column. The compositions: the
 // vegetated bench composition (Brooks-Corey and linear conductivity) at Nz
-// 20, 7 and, at the kernel's G, 8; bare ground over Van Genuchten and
-// Mualem at Nz 20.
+// 20, 7 and, at the kernel's G, 8, and with a snowpack at Nz 20 and 8; bare
+// ground over Van Genuchten and Mualem at Nz 20, with and without a
+// snowpack.
 #include <vector>
 
 #include "land_group_step.cuh"
@@ -46,13 +47,16 @@ using land::CURVE_VG;
     in, out, inputs, root, root_row_stride, root_cell_stride, dz, dzf, zc, zf, P, steps,    \
         time0, dt, cells, iters
 
-// the composition cases each build holds: (NZ, VEG, CURVE, COND); the
-// stepper is soil::STEPPER_IMPLICIT with the solver 0 (Thomas) or 1 (PCR),
-// or soil::STEPPER_HEUN (solver 1, unread)
-#define LAND_HOST_CASES(X, STEPPER, SOLVER)                 \
-    X(20, true, CURVE_BC, COND_LINEAR, STEPPER, SOLVER)     \
-    X(20, false, CURVE_VG, COND_MUALEM, STEPPER, SOLVER)    \
-    X(7, true, CURVE_BC, COND_LINEAR, STEPPER, SOLVER)
+// the composition cases each build holds: (NZ, VEG, CURVE, COND, SNOW);
+// the stepper is soil::STEPPER_IMPLICIT with the solver 0 (Thomas) or 1
+// (PCR), or soil::STEPPER_HEUN (solver 1, unread)
+#define LAND_HOST_CASES(X, STEPPER, SOLVER)                        \
+    X(20, true, CURVE_BC, COND_LINEAR, false, STEPPER, SOLVER)     \
+    X(20, false, CURVE_VG, COND_MUALEM, false, STEPPER, SOLVER)    \
+    X(7, true, CURVE_BC, COND_LINEAR, false, STEPPER, SOLVER)      \
+    X(20, true, CURVE_BC, COND_LINEAR, true, STEPPER, SOLVER)      \
+    X(20, false, CURVE_VG, COND_MUALEM, true, STEPPER, SOLVER)     \
+    X(8, true, CURVE_BC, COND_LINEAR, true, STEPPER, SOLVER)
 constexpr int HEUN = soil::STEPPER_HEUN, IMPLICIT = soil::STEPPER_IMPLICIT;
 
 #ifdef LAND_GROUP_G
@@ -61,10 +65,11 @@ constexpr int G = LAND_GROUP_G;
 // land::GroupColumn::segment_vjp of every column on a group of G emulated
 // lanes; gparams (2, cells): each column's group sum of its lanes'
 // parameter cotangents
-template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
+template <int NZ, bool VEG, int CURVE, int COND, bool SNOW, int STEPPER, int SOLVER>
 void group_columns(LAND_HOST_ARGS)
 {
-    using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND>;
+    using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND,
+                                     SNOW>;
     constexpr int L = Column::L;
     const soil::HostLanes<G> lanes;
     const soil::Consts<double> sc(P->soil);
@@ -94,12 +99,14 @@ void group_columns(LAND_HOST_ARGS)
             s.nu = static_cast<const double*>(in->nu)[col];
             s.An = static_cast<const double*>(in->An)[col];
         }
+        if (SNOW) s.swe = static_cast<const double*>(in->swe)[col];
         gsc.S = read(gout->S, col);
         gsc.Ts = read(gout->Ts, col);
         gsc.w = read(gout->w, col);
         gsc.C = read(gout->C, col);
         gsc.nu = read(gout->nu, col);
         gsc.An = read(gout->An, col);
+        if (SNOW) gsc.swe = read(gout->swe, col);
         land::Forcing<double> f;
         for (int i = 0; i < LAND_NIN; ++i)
             f.v[i] = static_cast<const double*>(inputs->ptr[i])[col * inputs->cell_stride[i]];
@@ -124,24 +131,27 @@ void group_columns(LAND_HOST_ARGS)
             static_cast<double*>(gin->nu)[col] = gsc.nu;
             static_cast<double*>(gin->An)[col] = gsc.An;
         }
+        if (SNOW) static_cast<double*>(gin->swe)[col] = gsc.swe;
         gparams[col] = column.group_sum(gK);
         gparams[cells + col] = column.group_sum(gm);
     }
 }
 
-#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                            \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_)                            \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && snow == SNOW_ \
+        && stepper == STEPPER_ \
         && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
-        group_columns<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_HOST_PASS);        \
+        group_columns<NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_>(LAND_HOST_PASS);        \
         return 0;                                                                         \
     }
 
 // land::GroupColumn::rollout of every column on a group of G emulated
 // lanes, as csrc/land_column_group_rollout.cu runs a group
-template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
+template <int NZ, bool VEG, int CURVE, int COND, bool SNOW, int STEPPER, int SOLVER>
 void group_rollouts(LAND_ROLL_ARGS)
 {
-    using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND>;
+    using Column = land::GroupColumn<double, NZ, G, soil::HostLanes<G>, VEG, CURVE, COND,
+                                     SNOW>;
     constexpr int L = Column::L;
     const soil::HostLanes<G> lanes;
     const soil::Consts<double> sc(P->soil);
@@ -165,6 +175,7 @@ void group_rollouts(LAND_ROLL_ARGS)
             s.nu = static_cast<const double*>(in->nu)[col];
             s.An = static_cast<const double*>(in->An)[col];
         }
+        if (SNOW) s.swe = static_cast<const double*>(in->swe)[col];
         land::Forcing<double> f;
         for (int i = 0; i < LAND_NIN; ++i)
             f.v[i] = static_cast<const double*>(inputs->ptr[i])[col * inputs->cell_stride[i]];
@@ -187,13 +198,15 @@ void group_rollouts(LAND_ROLL_ARGS)
             static_cast<double*>(out->nu)[col] = s.nu;
             static_cast<double*>(out->An)[col] = s.An;
         }
+        if (SNOW) static_cast<double*>(out->swe)[col] = s.swe;
     }
 }
 
-#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                       \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_)                       \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && snow == SNOW_ \
+        && stepper == STEPPER_ \
         && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
-        group_rollouts<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_ROLL_PASS);       \
+        group_rollouts<NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_>(LAND_ROLL_PASS);       \
         return 0;                                                                         \
     }
 #else
@@ -201,24 +214,24 @@ void group_rollouts(LAND_ROLL_ARGS)
 // heun_step and its adjoint; implicit_step and its adjoint at one Picard
 // iteration, picard_step and its adjoint at more; gparams (2, cells): each
 // column's running sums
-template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
+template <int NZ, bool VEG, int CURVE, int COND, bool SNOW, int STEPPER, int SOLVER>
 void thread_columns(LAND_HOST_ARGS)
 {
     const soil::Consts<double> sc(P->soil);
     for (long long col = 0; col < cells; ++col) {
         double gK = 0.0, gm = 0.0;
         if (STEPPER == HEUN)
-            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, false, HEUN, SOLVER,
+            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, SNOW, HEUN, SOLVER,
                                      false>(
                 col, cells, steps, *in, *gout, *gin, scratch, *inputs, root, root_row_stride,
                 root_cell_stride, sc, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm);
         else if (iters == 1)
-            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, false,
+            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, SNOW,
                                      soil::STEPPER_IMPLICIT, SOLVER, false>(
                 col, cells, steps, *in, *gout, *gin, scratch, *inputs, root, root_row_stride,
                 root_cell_stride, sc, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm);
         else
-            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, false,
+            land::segment_vjp_column<double, NZ, VEG, true, CURVE, COND, SNOW,
                                      soil::STEPPER_IMPLICIT, SOLVER, true>(
                 col, cells, steps, *in, *gout, *gin, scratch, *inputs, root, root_row_stride,
                 root_cell_stride, sc, *P, dz, dzf, zc, zf, dt, 1.0 / dt, gK, gm, iters);
@@ -227,42 +240,44 @@ void thread_columns(LAND_HOST_ARGS)
     }
 }
 
-#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                            \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+#define LAND_RUN(NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_)                            \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && snow == SNOW_ \
+        && stepper == STEPPER_ \
         && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
-        thread_columns<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_HOST_PASS);       \
+        thread_columns<NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_>(LAND_HOST_PASS);       \
         return 0;                                                                         \
     }
 
 // land::rollout_column of ImplicitEuler or Heun over every column, one
 // thread a column, as csrc/land_column_rollout.cu runs it: heun_step;
 // implicit_step at one Picard iteration, picard_step at more
-template <int NZ, bool VEG, int CURVE, int COND, int STEPPER, int SOLVER>
+template <int NZ, bool VEG, int CURVE, int COND, bool SNOW, int STEPPER, int SOLVER>
 void thread_rollouts(LAND_ROLL_ARGS)
 {
     const soil::Consts<double> sc(P->soil);
     for (long long col = 0; col < cells; ++col) {
         if (STEPPER == HEUN)
-            land::rollout_column<double, NZ, VEG, true, CURVE, COND, false, HEUN, SOLVER, false>(
+            land::rollout_column<double, NZ, VEG, true, CURVE, COND, SNOW, HEUN, SOLVER, false>(
                 col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
                 dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt);
         else if (iters == 1)
-            land::rollout_column<double, NZ, VEG, true, CURVE, COND, false,
+            land::rollout_column<double, NZ, VEG, true, CURVE, COND, SNOW,
                                  soil::STEPPER_IMPLICIT, SOLVER, false>(
                 col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
                 dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt);
         else
-            land::rollout_column<double, NZ, VEG, true, CURVE, COND, false,
+            land::rollout_column<double, NZ, VEG, true, CURVE, COND, SNOW,
                                  soil::STEPPER_IMPLICIT, SOLVER, true>(
                 col, cells, *in, *out, *inputs, root, root_row_stride, root_cell_stride, sc, *P,
                 dz, dzf, zc, zf, steps, time0, dt, 1.0 / dt, iters);
     }
 }
 
-#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_)                       \
-    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && stepper == STEPPER_ \
+#define LAND_ROLL_RUN(NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_)                       \
+    if (nz == NZ_ && veg == VEG_ && curve == CURVE_ && cond == COND_ && snow == SNOW_ \
+        && stepper == STEPPER_ \
         && (STEPPER_ == HEUN || solver == SOLVER_)) {                                       \
-        thread_rollouts<NZ_, VEG_, CURVE_, COND_, STEPPER_, SOLVER_>(LAND_ROLL_PASS);      \
+        thread_rollouts<NZ_, VEG_, CURVE_, COND_, SNOW_, STEPPER_, SOLVER_>(LAND_ROLL_PASS);      \
         return 0;                                                                         \
     }
 #endif
@@ -272,13 +287,14 @@ void thread_rollouts(LAND_ROLL_ARGS)
 // The segment VJP of `steps` steps of `stepper` (soil::STEPPER_HEUN, or
 // STEPPER_IMPLICIT with `iters` Picard iterations and the solver `solver`,
 // 0 Thomas or 1 PCR) over the land composition (veg, curve 0 Van Genuchten
-// or 1 Brooks-Corey, cond 0 Mualem or 1 linear; Richards flow, no snowpack)
-// at nz levels, on groups of the build's G lanes or one thread a column: the
-// input cotangents to gin, each column's parameter cotangents to gparams
-// (2, cells), each step's stored input carry to scratch (steps, 2 nz + 6,
-// cells). Returns -1 for a case the build does not hold, else 0.
-extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int cond, int solver,
-                             int stepper)
+// or 1 Brooks-Corey, cond 0 Mualem or 1 linear, Richards flow; a snowpack
+// where snow) at nz levels, on groups of the build's G lanes or one thread
+// a column: the input cotangents to gin, each column's parameter
+// cotangents to gparams (2, cells), each step's stored input carry to
+// scratch (steps, 2 nz + 6 + snow, cells). Returns -1 for a case the build
+// does not hold, else 0.
+extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int cond, int snow,
+                             int solver, int stepper)
 {
     if (iters < 1 || (stepper == HEUN && iters != 1)) return -1;
     LAND_HOST_CASES(LAND_RUN, IMPLICIT, 0)
@@ -287,10 +303,11 @@ extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int con
 #ifdef LAND_GROUP_G
     // the fused-gradient cases against JAX, at the kernel's G of each scheme
     if constexpr (G == land::implicit_group_lanes(8, 0))
-        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, IMPLICIT, 0)
+        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, false, IMPLICIT, 0)
     if constexpr (G == land::implicit_group_lanes(8, 1))
-        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, IMPLICIT, 1)
-    if constexpr (G == land::heun_group_lanes(8)) LAND_RUN(8, true, CURVE_BC, COND_LINEAR, HEUN, 1)
+        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, false, IMPLICIT, 1)
+    if constexpr (G == land::heun_group_lanes(8))
+        LAND_RUN(8, true, CURVE_BC, COND_LINEAR, false, HEUN, 1)
 #endif
     return -1;
 }
@@ -301,7 +318,7 @@ extern "C" int host_land_vjp(LAND_HOST_ARGS, int nz, int veg, int curve, int con
 // groups of the build's G lanes or one thread a column: the output carry to
 // out. Returns -1 for a case the build does not hold, else 0.
 extern "C" int host_land_rollout(LAND_ROLL_ARGS, int nz, int veg, int curve, int cond,
-                                 int solver, int stepper)
+                                 int snow, int solver, int stepper)
 {
     if (iters < 1 || (stepper == HEUN && iters != 1)) return -1;
     LAND_HOST_CASES(LAND_ROLL_RUN, IMPLICIT, 0)
@@ -310,7 +327,7 @@ extern "C" int host_land_rollout(LAND_ROLL_ARGS, int nz, int veg, int curve, int
 #ifdef LAND_GROUP_G
     // the case against JAX's interpret-mode kernel, at the kernel's G of PCR
     if constexpr (G == land::rollout_group_lanes(8, 1))
-        LAND_ROLL_RUN(8, true, CURVE_BC, COND_LINEAR, IMPLICIT, 1)
+        LAND_ROLL_RUN(8, true, CURVE_BC, COND_LINEAR, false, IMPLICIT, 1)
 #endif
     return -1;
 }

@@ -464,27 +464,28 @@ def test_land_group_segment_vjp_has_a_kernel_per_solver():
     ("bare_vg_mualem", "implicit", "land_column_group_segment_vjp"),
     ("vg_mualem", "implicit", "land_column_group_segment_vjp"),
     ("bare_richards", "implicit", "land_column_group_segment_vjp"),
-    ("consistent_snow", "implicit", "land_column_segment_vjp"),
-    ("bare_bc_mo_snow", "implicit", "land_column_segment_vjp"),
+    ("consistent_snow", "implicit", "land_column_group_segment_vjp"),
+    ("bare_bc_mo_snow", "implicit", "land_column_group_segment_vjp"),
     ("veg_noflow", "implicit", "land_column_segment_vjp"),
     ("bare", "implicit", "land_column_segment_vjp"),
     ("coupled", "euler", "land_column_segment_vjp"),
     ("coupled", "heun", "land_column_group_segment_vjp"),
     ("bare_vg_mualem", "heun", "land_column_group_segment_vjp"),
-    ("consistent_snow", "heun", "land_column_segment_vjp"),
+    ("consistent_snow", "heun", "land_column_group_segment_vjp"),
     ("veg_noflow", "heun", "land_column_segment_vjp"),
+    ("consistent_snow", "euler", "land_column_segment_vjp"),
 ])
 def test_land_segment_vjp_routes_by_type(composition, stepper, source):
     """``land_column_segment_vjp`` takes its source from the composition's
     type (``land_vjp.vjp_source``, with no switch): ImplicitEuler and Heun
-    over Richards flow without a snowpack, with or without vegetation and
-    with either curve and conductivity, the group kernel; a snowpack,
-    ``NoFlow`` and ForwardEuler the one-thread kernel."""
+    over Richards flow, with or without a snowpack, with or without
+    vegetation and with either curve and conductivity, the group kernel;
+    ``NoFlow`` and ForwardEuler (a snowpack too) the one-thread kernel."""
     from terrarium_tpu_torch.ops import land_vjp as lv
 
     params = _land_params(composition)
     assert lv.vjp_source(params, stepper) == source
-    assert ("snow" in params.tags or params.tags[1] == "noflow" or stepper == "euler") == (
+    assert (params.tags[1] == "noflow" or stepper == "euler") == (
         source == "land_column_segment_vjp")
 
 
@@ -563,24 +564,24 @@ def test_land_group_rollout_has_a_kernel_per_solver():
     ("bare_vg_mualem", "implicit", "land_column_group_rollout"),
     ("vg_mualem", "implicit", "land_column_group_rollout"),
     ("bare_richards", "implicit", "land_column_group_rollout"),
-    ("consistent_snow", "implicit", "land_column_rollout"),
-    ("bare_bc_mo_snow", "implicit", "land_column_rollout"),
+    ("consistent_snow", "implicit", "land_column_group_rollout"),
+    ("bare_bc_mo_snow", "implicit", "land_column_group_rollout"),
     ("veg_noflow", "implicit", "land_column_rollout"),
     ("bare", "implicit", "land_column_rollout"),
     ("coupled", "euler", "land_column_rollout"),
     ("coupled", "heun", "land_column_group_rollout"),
     ("bare_vg_mualem", "heun", "land_column_group_rollout"),
-    ("consistent_snow", "heun", "land_column_rollout"),
+    ("consistent_snow", "heun", "land_column_group_rollout"),
     ("bare", "heun", "land_column_rollout"),
     ("consistent_snow", "euler", "land_column_rollout"),
 ])
 def test_land_rollout_routes_by_type(composition, stepper, source):
     """The land rollout wrappers take their source from the composition's
     type (``land_step.rollout_source``, with no switch): ImplicitEuler and
-    Heun over Richards flow without a snowpack, with or without vegetation
-    and with either curve and conductivity, the group kernel; a snowpack,
-    ``NoFlow`` and ForwardEuler the one-thread kernel. The land segment VJP
-    routes every composition the same way."""
+    Heun over Richards flow, with or without a snowpack, with or without
+    vegetation and with either curve and conductivity, the group kernel;
+    ``NoFlow`` and ForwardEuler (a snowpack too) the one-thread kernel. The
+    land segment VJP routes every composition the same way."""
     from terrarium_tpu_torch.ops import land_vjp as lv
 
     params = _land_params(composition)
@@ -606,20 +607,43 @@ def test_land_implicit_rollout_refuses_an_unknown_solver(fake_nvcc, solver, pica
 def test_land_rollout_group_size_is_the_group_schemes(fake_nvcc):
     """A group size (``group=``, which the land gradient's forward segments
     pass: the segment VJP's G) is refused by ``ValueError`` for a
-    composition the group rollout does not run (a snowpack), before any
-    build or launch; on CPU tensors it is not read (the plain version), and
-    the prebuilt set holds the Thomas entries at the VJP's G 8 that the
-    gradient's forward segments launch at float32 and float64."""
-    params = _land_params("consistent_snow")
+    composition the group rollout does not run (``NoFlow``), before any
+    build or launch, and so is ``contract=False`` (the one-thread rollout's
+    build without contraction) for one it runs; on CPU tensors they are not
+    read (the plain version), and the prebuilt set holds the Thomas entries
+    at the VJP's G 8 that the gradient's forward segments launch at float32
+    and float64, and the entries with a snowpack that ``chip_smoke.py``
+    checks (PCR at float32 and float64; Thomas, the Picard entry and Heun
+    at float64), built without contraction (``TAG_FLAGS``)."""
+    params = _land_params("veg_noflow")
     with pytest.raises(ValueError, match="group size"):
         ls.land_column_implicit_rollout({}, {}, None, None, None, None, None, params, 600.0,
                                         0.0, 1, group=8)
+    with pytest.raises(ValueError, match="contract=False"):
+        ls.land_column_implicit_rollout({}, {}, None, None, None, None, None,
+                                        _land_params("consistent_snow"), 600.0, 0.0, 1,
+                                        contract=False)
     assert fake_nvcc.calls == []
     bench = _land_params("coupled").tags
     for dtype in (F32, F64):
         for stepper in (("implicit", "thomas"), ("implicit", "picard")):
             assert ((*stepper, *bench, "g8"), dtype, 20) in \
                 cb.INSTANTIATIONS["land_column_group_rollout"]
+    snow = _land_params("consistent_snow").tags
+    assert snow == bench + ("snow",)
+    for source in ("land_column_group_rollout", "land_column_group_segment_vjp"):
+        keys = cb.INSTANTIATIONS[source]
+        for dtype in (F32, F64):
+            assert (("implicit", "pcr", *snow), dtype, 20) in keys
+        for stepper in (("implicit", "thomas"), ("implicit", "picard"), ("heun",)):
+            assert ((*stepper, *snow), F64, 20) in keys
+        assert cb.TAG_FLAGS[source, "snow"] == ("-fmad=false",)
+        cb.entry(source, F32, 15, [], tags=("implicit", "pcr", *snow))
+        assert "-fmad=false" in fake_nvcc.compiles()[-1]
+        assert "-DLAND_SNOW=1" in fake_nvcc.compiles()[-1]
+    for source in ("land_column_rollout", "land_column_segment_vjp"):
+        assert all("snow" not in t or t[0] not in ("implicit", "heun")
+                   for t, _, _ in cb.INSTANTIATIONS[source])
 
 
 @pytest.mark.parametrize("source,one_thread", [
@@ -648,7 +672,10 @@ def test_land_group_heun_keys(fake_nvcc, source, one_thread):
                                   "-DSOIL_STEPPER=1", "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1",
                                   "-DLAND_VEG=1", "-DLAND_CURVE=1", "-DLAND_COND=1"}
     # the group Heun entries contract no multiply-adds at float32 either
-    # (TAG_FLAGS), the group ImplicitEuler and the one-thread Heun ones do
+    # (TAG_FLAGS), the group ImplicitEuler and the one-thread Heun rollout
+    # ones do; the one-thread segment VJP contracts none at float32 (FLAGS:
+    # the land gradient's one-thread forward segments launch the rollout's
+    # nofma build, which contracts none either)
     cb.entry(source, F32, 15, [], tags=tags)
     assert "-fmad=false" in fake_nvcc.compiles()[-1]
     cb.entry(source, F32, 15, [], tags=("implicit", "pcr") + tags[1:])
@@ -656,15 +683,18 @@ def test_land_group_heun_keys(fake_nvcc, source, one_thread):
     one = cb.entry(one_thread, F32, 20, [], tags=tags)
     assert one.name == f"{one_thread}_{'_'.join(tags)}_f32_nz20"
     assert fake_nvcc.compiles()[-1][-1].endswith(f"{one_thread}.cu")
-    assert "-fmad=false" not in fake_nvcc.compiles()[-1]
+    assert ("-fmad=false" in fake_nvcc.compiles()[-1]) == (one_thread == "land_column_segment_vjp")
+    if one_thread == "land_column_rollout":
+        cb.entry(one_thread, F32, 20, [], tags=tags + ("nofma",))
+        assert fake_nvcc.compiles()[-1].count("-fmad=false") == 1
 
 
 def test_land_heun_rollout_group_size_is_the_group_schemes(fake_nvcc):
     """``land_column_heun_rollout`` takes a group size (the land gradient's
     forward segments pass the segment VJP's) and refuses it by
-    ``ValueError`` for a composition the group rollout does not run (a
-    snowpack), before any build or launch."""
-    params = _land_params("consistent_snow")
+    ``ValueError`` for a composition the group rollout does not run
+    (``NoFlow``), before any build or launch."""
+    params = _land_params("veg_noflow")
     with pytest.raises(ValueError, match="group size"):
         ls.land_column_heun_rollout({}, {}, None, None, None, None, None, params, 60.0, 0.0, 1,
                                     group=4)

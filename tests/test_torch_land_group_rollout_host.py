@@ -1,7 +1,7 @@
 """The land group rollout kernel's column code
 (``land::GroupColumn::rollout`` in ``csrc/land_group_step.cuh``: the
-LandModel's ImplicitEuler rollout over Richards flow without a snowpack,
-any Picard count, either solver, and its Heun rollout, each column on a
+LandModel's ImplicitEuler rollout over Richards flow, with or without a
+snowpack, any Picard count, either solver, and its Heun rollout, each column on a
 group of lanes, the step ``GroupColumn::picard_step`` or
 ``GroupColumn::heun_step`` that the land group segment VJP recomputes
 with), compiled for the host by the C++ compiler with each group's lanes
@@ -19,7 +19,8 @@ column, shared between the two files), against
   composition (Brooks-Corey and linear conductivity; constant drag and the
   reference ground flux, or Monin-Obukhov drag, the consistent ground flux
   and the soil-moisture ground resistance) and bare ground over Van
-  Genuchten and Mualem, and at the ragged Nz 7 (slots above the column on
+  Genuchten and Mualem, the bench composition with a snowpack, and at the
+  ragged Nz 7 (slots above the column on
   the top lanes), each solver, on ``torch_parity.land_random_state``'s
   states of 24 columns over 8 steps of 600 s from the clock time 1,800 s,
   the shortwave and the air temperature two uniform series of their own
@@ -28,11 +29,14 @@ column, shared between the two files), against
   stage reading the series at t + dt) over 8 steps of 60 s;
 * the plain version (``land_column_rollout_plain``, the process modules)
   at float64, rtol 1e-12 with a floor of 1e-12 of each field's largest
-  magnitude, at Nz 20 and the kernel's G, each solver, and Heun;
+  magnitude, at Nz 20 and the kernel's G, each solver, and Heun; with a
+  snowpack on the random states with their series and on
+  `test_torch_land_adjoint_host.py`'s empty and emptying packs;
 * JAX's ``make_fused_lean_rollout(..., interpret=True)`` (the Pallas kernel
   through its interpreter) at Nz 8, PCR with two Picard iterations, through
   the port's ``integrator.advance`` with the host build in place of the
-  kernel, as `test_torch_land_steppers.py` holds the plain version to it.
+  kernel, as `test_torch_land_steppers.py` holds the plain version to it,
+  without and with a snowpack.
 """
 import ctypes
 
@@ -48,8 +52,8 @@ from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.timesteppers import integrator
 
 from test_torch_land_adjoint_host import HEUN_DT
-from test_torch_land_group_vjp_host import (CASES, CONDS, CURVES, GROUPS, SOLVERS, STEPPERS,
-                                            host_libs, land_case)
+from test_torch_land_group_vjp_host import (CASES, CONDS, CURVES, GROUPS, PACK_SCHEMES,
+                                            SOLVERS, STEPPERS, host_libs, land_case, pack_case)
 from test_torch_land_steppers import _assert_prognostics_close, _forced
 
 STEPS, DT, TIME0 = 8, 600.0, 1800.0
@@ -93,15 +97,15 @@ def host_rollout(lib, case, solver, iters, steps=STEPS, dt=DT, time0=TIME0,
     out = {n: torch.full_like(carry[n], np.nan) for n in params.model.live_carry}
     args, keep = ls.launch_args(carry, out, inputs, root, coords, params)
     tags = params.tags
-    assert tags[1] == "richards" and "snow" not in tags
+    assert tags[1] == "richards"
     rc = lib.host_land_rollout(
         args[0], args[1], args[2], ctypes.c_void_p(args[3]), ctypes.c_longlong(args[4]),
         ctypes.c_longlong(args[5]), *(ctypes.c_void_p(a) for a in args[6:10]), args[10],
         ctypes.c_int(steps), ctypes.c_double(time0), ctypes.c_double(dt),
         ctypes.c_longlong(cells), ctypes.c_int(iters), ctypes.c_int(nz),
         ctypes.c_int(tags[0] == "veg"), ctypes.c_int(CURVES[tags[2]]),
-        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(SOLVERS.get(solver, 1)),
-        ctypes.c_int(STEPPERS[stepper]))
+        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int("snow" in tags),
+        ctypes.c_int(SOLVERS.get(solver, 1)), ctypes.c_int(STEPPERS[stepper]))
     del keep
     assert rc == 0
     return out
@@ -242,3 +246,72 @@ def test_land_group_heun_rollout_matches_the_plain_version(libs):
     for name, b in want.items():
         scale = float(b.abs().max())
         torch.testing.assert_close(got[name], b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+
+
+@pytest.mark.parametrize("scheme", list(PACK_SCHEMES))
+@pytest.mark.parametrize("packs", ["random", "empty_and_emptying"])
+def test_land_group_snow_rollout_matches_the_plain_version(libs, packs, scheme):
+    """The group rollout with a snowpack over the bench composition at the
+    kernel's G against the plain version: on the random states at Nz 20
+    with their two series over 8 steps from 1,800 s, and on
+    `test_torch_land_adjoint_host.py`'s empty and emptying packs (Nz 8, 48
+    columns, static inputs) over 6 steps from 0 s; Heun's steps of 60 s, the
+    implicit ones' of 600 s (PCR, and Thomas with two Picard iterations).
+    Every field within rtol 1e-12 with a floor of 1e-12 of its largest
+    magnitude; the SWE moves, and on the packs some empty."""
+    stepper, solver, iters = PACK_SCHEMES[scheme]
+    dt = HEUN_DT if stepper == "heun" else DT
+    if packs == "random":
+        case, steps, time0 = case_of(20, "consistent_snow"), STEPS, TIME0
+    else:
+        case, steps, time0 = pack_case()[:5], 6, 0.0
+    nz = case[0]["internal_energy"].shape[0]
+    g = libs[None].host_land_rollout_group_lanes(nz, SOLVERS.get(solver, 1), STEPPERS[stepper])
+    got = host_rollout(libs[g], case, solver, iters, steps=steps, dt=dt, time0=time0,
+                       stepper=stepper)
+    carry, inputs, root, coords, params = case
+    want = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, dt, time0, steps,
+                                        stepper=stepper, solver=solver, picard_iters=iters)
+    for name, b in want.items():
+        scale = float(b.abs().max())
+        torch.testing.assert_close(got[name], b, rtol=1e-12, atol=1e-12 * scale, msg=name)
+    swe0, swe = carry["snow_water_equivalent"], got["snow_water_equivalent"]
+    assert not torch.equal(swe, swe0)
+    if packs != "random":
+        assert int(((swe0 > 0) & (swe == 0)).sum()) >= 8
+
+
+def test_land_group_snow_rollout_matches_jax_fused_interpret(libs, monkeypatch):
+    """`test_land_group_rollout_matches_jax_fused_interpret` with a
+    snowpack: the forced configuration over the bench composition with a
+    ``Snowpack`` (an initial SWE of 0.01 m under a snowfall of 2e-8 m/s),
+    ImplicitEuler PCR with two Picard iterations at dt 600 s, 8 steps
+    through the port's ``advance`` on the host build of the group rollout
+    at the kernel's G, against JAX's ``make_fused_lean_rollout(...,
+    interpret=True)``: every prognostic, the SWE among them, as
+    `test_torch_land_steppers.py` holds the plain version."""
+    nz, solver, iters = 8, "pcr", 2
+    g = libs[None].host_land_rollout_group_lanes(nz, SOLVERS[solver], STEPPERS["implicit"])
+    calls = []
+
+    def rollout(carry, inputs, root, dz, dz_faces, z_centers, z_faces, params, dt, time, steps,
+                solver, picard_iters):
+        calls.append((solver, picard_iters, steps, "snow" in params.tags))
+        return host_rollout(libs[g], ({n: t.contiguous() for n, t in carry.items()}, inputs,
+                                      root, (dz, dz_faces, z_centers, z_faces), params),
+                            solver, picard_iters, steps=steps, dt=dt, time0=time)
+
+    monkeypatch.setitem(ls.ROLLOUTS, "implicit", rollout)
+    jsim = _forced(tt, "consistent_snow", "implicit-pcr-2")
+    psim = _forced(tp, "consistent_snow", "implicit-pcr-2")
+    assert psim.state["internal_energy"].shape[0] == nz
+    dt = psim.timestepper.default_dt()
+    fused = make_fused_lean_rollout(jsim.model, jsim.timestepper, jsim.ctx, jsim.input_sources,
+                                    dt=dt, inner_steps=4, block_cells=128, interpret=True)
+    jstate = jax.jit(lambda s: fused(s, 8))(jsim.state)
+    integrator.advance(psim.model, psim.state, psim.ctx, 8, dt, timestepper=psim.timestepper,
+                       input_sources=psim.input_sources)
+    assert calls == [(solver, iters, 8, True)]
+    names = sorted(psim.state.prognostic)
+    assert "snow_water_equivalent" in names
+    _assert_prognostics_close(psim.state, jstate, names)

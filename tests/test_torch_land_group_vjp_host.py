@@ -1,7 +1,8 @@
 """The land group segment-VJP kernel's column code
 (``land::GroupColumn::segment_vjp`` in ``csrc/land_group_step.cuh``:
 ImplicitEuler, any Picard count, or Heun over a LandModel with Richards
-flow and no snowpack, each step undone on the column's group of lanes, the
+flow, with or without a snowpack, each step undone on the column's group of
+lanes, the
 surface block's forward-mode passes split across the lanes), compiled for the host
 by the C++ compiler with each group's lanes emulated in lockstep
 (``soil::HostLanes``; ``tests/land_group_vjp_host.cpp`` built with
@@ -20,10 +21,13 @@ column), against
   and 32, at Nz 20 over the vegetated bench composition (Brooks-Corey and
   linear conductivity; constant drag and the reference ground flux, or
   Monin-Obukhov drag, the consistent ground flux and the soil-moisture
-  ground resistance) and bare ground over Van Genuchten and Mualem, and at
-  the ragged Nz 7 (slots above the column on the top lanes), each solver,
-  on ``torch_parity.land_random_state``'s states of 24 columns over 8 steps
-  of 600 s;
+  ground resistance) and bare ground over Van Genuchten and Mualem, each
+  with a snowpack too (``consistent_snow``, ``bare_vg_mualem_snow``), and at the
+  ragged Nz 7 (slots above the column on the top lanes), each solver, on
+  ``torch_parity.land_random_state``'s states of 24 columns over 8 steps of
+  600 s (their packs negative, empty and deep); and with a snowpack on
+  `test_torch_land_adjoint_host.py`'s empty and emptying packs
+  (``empty_pack_case``: 48 columns at Nz 8 over 6 steps) at the kernel's G;
 * torch autograd through the plain version
   (``land_column_segment_vjp_plain``) at float64, rtol 1e-9 with a floor of
   1e-9 of each field's largest magnitude, at Nz 20 and the kernel's G. The
@@ -32,11 +36,14 @@ column), against
   discriminant, where the plain version's autograd gives NaN, are held to
   the plain version run without them; no ill-conditioned K_sat share is
   left out at 1e-9; Heun's plain version with its respiration held on the
-  taken branch (``respiration_taken_branch``);
+  taken branch (``respiration_taken_branch``); on the empty and emptying
+  packs at the kernel's G, by `test_torch_land_adjoint_host.py`'s own check
+  of the one-thread build (1e-12 of each cotangent);
 * JAX's Pallas segment VJP in interpret mode, through each package's
   ``make_fused_grad_rollout``, as ``torch_land_grad.check_fused_grad`` runs
-  it (PCR, one Picard iteration; Nz 8 at the kernel's G), and Heun as
-  `test_torch_land_grad_snow_heun.py` holds its ``"heun"`` case.
+  it (PCR, one Picard iteration; Nz 8 at the kernel's G), and Heun and
+  ImplicitEuler PCR with a snowpack as `test_torch_land_grad_snow_heun.py`
+  holds its ``"heun"`` and ``"implicit-pcr-snow"`` cases.
 """
 import contextlib
 import ctypes
@@ -56,7 +63,8 @@ from terrarium_tpu_torch.ops import land_step as ls
 from terrarium_tpu_torch.ops import land_vjp as lv
 from terrarium_tpu_torch.timesteppers import fused_grad
 
-from test_torch_land_adjoint_host import (HEUN_DT, composition_model,
+import test_torch_land_adjoint_host as ah
+from test_torch_land_adjoint_host import (HEUN_DT, composition_model, empty_pack_case,
                                           respiration_taken_branch, zero_discriminant)
 from torch_land_grad import check_fused_grad, jax_ref, port_ref  # noqa: F401
 from torch_parity import land_random_state
@@ -71,8 +79,11 @@ GROUPS = (4, 8, 16, 32)
 CELLS, STEPS, DT = 24, 8, 600.0
 #: (Nz, composition) of the bitwise cases: the vegetated bench composition
 #: (``coupled``, ``consistent``) and bare ground over Van Genuchten and
-#: Mualem at Nz 20, the bench composition at the ragged Nz 7
-CASES = [(20, "coupled"), (20, "consistent"), (20, "bare_vg_mualem"), (7, "coupled")]
+#: Mualem at Nz 20, the bench composition at the ragged Nz 7, the bench
+#: composition and bare ground with a snowpack at Nz 20 (the bare one's
+#: tangent directions skip the vegetation's before the SWE's)
+CASES = [(20, "coupled"), (20, "consistent"), (20, "bare_vg_mualem"), (7, "coupled"),
+         (20, "consistent_snow"), (20, "bare_vg_mualem_snow")]
 
 
 def host_libs(tmp_path_factory):
@@ -146,8 +157,8 @@ def land_case(composition, nz, seed, cells=CELLS):
 
 
 def host_run(lib, case, solver, iters, steps=STEPS, dt=DT, stepper="implicit"):
-    """``(gcarry0, gparams (2, cells), scratch (steps, 2 nz + 6, cells))``
-    of the host build ``lib`` (a group one or the one-thread one) over
+    """``(gcarry0, gparams (2, cells), scratch (steps, 2 nz + 6 + snow,
+    cells))`` of the host build ``lib`` (a group one or the one-thread one) over
     ``steps`` steps of ``stepper`` (``"implicit"`` with ``solver`` and
     ``iters`` Picard iterations, or ``"heun"``)."""
     carry, inputs, root, coords, params, gout = case
@@ -156,9 +167,10 @@ def host_run(lib, case, solver, iters, steps=STEPS, dt=DT, stepper="implicit"):
     args, keep = ls.launch_args(carry, gin, inputs, root, coords, params)
     c_gout = ls._CLandCarry(**{ls._CARRY_OF[n]: t.data_ptr() for n, t in gout.items()})
     gparams = torch.full((2, cells), np.nan, dtype=torch.float64)
-    scratch = torch.full((steps, 2 * nz + 6, cells), np.nan, dtype=torch.float64)
     tags = params.tags
-    assert tags[1] == "richards" and "snow" not in tags
+    snow = "snow" in tags
+    scratch = torch.full((steps, 2 * nz + 6 + snow, cells), np.nan, dtype=torch.float64)
+    assert tags[1] == "richards"
     rc = lib.host_land_vjp(
         args[0], ctypes.byref(c_gout), args[1], args[2], ctypes.c_void_p(args[3]),
         ctypes.c_longlong(args[4]), ctypes.c_longlong(args[5]),
@@ -166,7 +178,7 @@ def host_run(lib, case, solver, iters, steps=STEPS, dt=DT, stepper="implicit"):
         ctypes.c_void_p(gparams.data_ptr()), ctypes.c_void_p(scratch.data_ptr()),
         ctypes.c_int(steps), ctypes.c_double(dt), ctypes.c_longlong(cells), ctypes.c_int(iters),
         ctypes.c_int(nz), ctypes.c_int(tags[0] == "veg"), ctypes.c_int(CURVES[tags[2]]),
-        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(SOLVERS.get(solver, 1)),
+        ctypes.c_int(CONDS[tags[3]]), ctypes.c_int(snow), ctypes.c_int(SOLVERS.get(solver, 1)),
         ctypes.c_int(STEPPERS[stepper]))
     del keep
     assert rc == 0
@@ -417,4 +429,97 @@ def test_land_group_heun_vjp_matches_jax_pallas(libs, monkeypatch):
         assert abs(float(a)) > 0.0
         np.testing.assert_allclose(a, b, rtol=1e-8)
     for a, b in ((gU, jgU), (gC, jgC)):
+        sh._held(a, b, 1e-8)
+
+
+#: the steppers of the empty-pack cases: (stepper, solver, Picard count)
+PACK_SCHEMES = {"heun": ("heun", None, 1), "implicit-pcr": ("implicit", "pcr", 1),
+                "implicit-thomas-2": ("implicit", "thomas", 2)}
+
+
+def pack_case():
+    """`test_torch_land_adjoint_host.py`'s empty and emptying packs over
+    the bench composition with a snowpack (``empty_pack_case``: 48 columns,
+    Nz 8)."""
+    return empty_pack_case("consistent_snow")
+
+
+@pytest.mark.parametrize("scheme", list(PACK_SCHEMES))
+def test_land_group_vjp_empty_and_emptying_packs(libs, monkeypatch, scheme):
+    """Packs empty at the start (SWE exactly 0: the cover's clamp and the
+    clip SWE >= 0 pass the cotangent at their bound) and packs that the
+    melt empties within the steps, over 6 steps (Heun's of 60 s, the
+    implicit ones' of 600 s): the group segment VJP at the kernel's G
+    against the one-thread build, the input cotangents and the stored
+    carries bit for bit, and against torch autograd through the plain
+    version by `test_torch_land_adjoint_host.py`'s check of the one-thread
+    build (``_held_to_autograd``: 1e-12 of each cotangent with a floor of
+    1e-12 of its field's largest magnitude; under Picard iterations its
+    nudged spread and its ill-conditioned K_sat shares), the group build in
+    its place; the plain forward shows both kinds of column."""
+    stepper, solver, iters = PACK_SCHEMES[scheme]
+    case = pack_case()
+    carry, inputs, root, coords, params, gout = case
+    dt = ah.HEUN_DT if stepper == "heun" else DT
+    g = libs[None].host_land_group_lanes(ah.NZ, SOLVERS.get(solver, 1), STEPPERS[stepper])
+    want, want_p, want_s = host_run(libs[None], case, solver, iters, steps=ah.STEPS, dt=dt,
+                                    stepper=stepper)
+    got, got_p, got_s = host_run(libs[g], case, solver, iters, steps=ah.STEPS, dt=dt,
+                                 stepper=stepper)
+    assert torch.equal(got_s, want_s)
+    for name, b in want.items():
+        assert bool(torch.isfinite(b).all()), name
+        assert torch.equal(got[name], b), (name, (got[name] != b).nonzero()[:5].tolist())
+    for a, b in zip(got_p, want_p):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))
+    swe0 = carry["snow_water_equivalent"]
+    swe = ls.land_column_rollout_plain(carry, inputs, root, *coords, params, dt, 0.0, ah.STEPS,
+                                       stepper=stepper, solver=solver,
+                                       picard_iters=iters)["snow_water_equivalent"]
+    assert int(((swe0 > 0) & (swe == 0)).sum()) >= 8
+    assert int(((swe0 == 0) & (swe == 0)).sum()) >= 4
+
+    def group_run(_, carry, inputs, root, coords, params, gout, steps, stepper="euler",
+                  solver="thomas", picard=0, dt=DT):
+        gin, gp, _ = host_run(libs[g], (carry, inputs, root, coords, params, gout),
+                              solver if stepper == "implicit" else None, max(picard, 1),
+                              steps=steps, dt=dt, stepper=stepper)
+        return gin, gp[0], gp[1]
+
+    monkeypatch.setattr(ah, "host_vjp_run", group_run)
+    ah._held_to_autograd(None, "consistent_snow", 3, stepper, solver,
+                         iters if stepper == "implicit" and iters > 1 else 0, case=case,
+                         conditioned=iters > 1)
+
+
+def test_land_group_snow_vjp_matches_jax_pallas(libs, monkeypatch):
+    """The port's fused gradient of `test_torch_land_grad_snow_heun.py`'s
+    ``"implicit-pcr-snow"`` case (32 columns, Nz 8, a snowpack of 0.05 m
+    under a snowfall of 1e-8 m/s, 8 steps of 600 s in segments of 4,
+    ImplicitEuler PCR) with the host build of the group segment VJP at the
+    kernel's G in place of the kernel, against JAX's Pallas segment VJP in
+    interpret mode: the value within rtol 1e-10, d/d log K_sat and d/d
+    k_mineral within rtol 1e-8 and non-zero, d/dU0, d/dC0 and d/dSWE0 per
+    cell within rtol 1e-8 with a floor of 1e-8 of each one's largest
+    magnitude, as that file holds the plain version."""
+    import terrarium_tpu.processes.soil.hydrology as jax_hydrology
+    import test_torch_land_grad_snow_heun as sh
+
+    case, calls = "implicit-pcr-snow", []
+    host = _host_group_segment_vjp(libs)
+
+    def vjp(*a, **kw):
+        calls.append((kw["stepper"], "snow" in a[7].tags))
+        return host(*a, **kw)
+
+    monkeypatch.setattr(fused_grad, "land_column_segment_vjp", vjp)
+    v, gx, gk, gU, gC, _, gswe = sh._port_grads(case)
+    assert calls == [("implicit", True)] * (sh.STEPS // sh.INNER)
+    monkeypatch.setattr(jax_hydrology, "ADJUST_IMPL", "fused")
+    jv, jgx, jgk, jgU, jgC, _, jgswe = sh._jax_grads(case, "pallas")
+    np.testing.assert_allclose(v, jv, rtol=1e-10)
+    for a, b in ((gx, jgx), (gk, jgk)):
+        assert abs(float(a)) > 0.0
+        np.testing.assert_allclose(a, b, rtol=1e-8)
+    for a, b in ((gU, jgU), (gC, jgC), (gswe, jgswe)):
         sh._held(a, b, 1e-8)
