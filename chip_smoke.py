@@ -116,7 +116,8 @@ bound:
   kernel (ImplicitEuler and Heun, with or without a snowpack, on groups of
   lanes, their stored carries bitwise the group rollout's; ForwardEuler one
   thread a column, its stored carries bitwise those of the forward
-  segments' build without contracted multiply-adds, ROADMAP C3) against
+  segments' one-thread rollout, both built without contracted
+  multiply-adds, ROADMAP C3) against
   its plain version (float64 on 1,024 columns at rtol 1e-9,
   float32 at full width with the plain version in chunks, the parameter
   cotangents also summed with output cotangents aligned to the sign of each
@@ -2235,18 +2236,14 @@ LAND_SCRATCH_ROWS = ("surface_excess_water", "skin_temperature", "canopy_water",
 
 def land_thread_rollout_step(fs, ls, cuda_build, operands, dt, stepper, solver, iters):
     """``step(carry, t) -> carry``: one step of the one-thread land rollout
-    (``csrc/land_column_rollout.cu``, the entry of the scheme, at float32
-    its build without contracted multiply-adds that the land gradient's
-    forward segments launch, ``land_step.UNCONTRACTED``; built on demand
-    where it is not prebuilt) on ``operands``' inputs from clock time
+    (``csrc/land_column_rollout.cu``, the entry of the scheme, built on
+    demand where it is not prebuilt) on ``operands``' inputs from clock time
     ``t``, launched directly: the wrappers route the group schemes to the
     group kernel."""
     carry, inputs, root, coords, params = operands[:5]
     U = carry["internal_energy"]
     tags = ((stepper,) if stepper == "heun" else () if stepper == "euler"
             else ls.implicit_tags(solver, iters)) + params.tags
-    if U.dtype == torch.float32:
-        tags += (ls.UNCONTRACTED,)
     fn = cuda_build.entry(ls._NAME, U.dtype, U.shape[0], ls._argtypes(U.dtype), tags=tags)
 
     def step(state, t):
@@ -4579,11 +4576,7 @@ def main():
                                                      vkw, 1e-9, LAND_F64_CELLS)
         source = lv.vjp_source(ops[4], key)
         recompute64 = None
-        if source != LAND_VJP_GROUP_SOURCE:
-            # the forward segments' rollout: the one-thread rollout built, as
-            # the one-thread VJP is, without contracted multiply-adds
-            fkw["contract"] = False
-        else:
+        if source == LAND_VJP_GROUP_SOURCE:
             # the forward segments' rollout: the group rollout at the VJP's G
             fkw["group"] = lv.vjp_group(torch.float32, LAND_NZ, lv.check_scheme(
                 ops[4], key, solver, iters) + ops[4].tags, solver)[1]

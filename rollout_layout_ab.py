@@ -130,15 +130,18 @@ series, 48 steps of 600 s; ``land_grad_snow_implicit_pcr``'s operands, one
 launch, the group ones the wrappers' own; the sweep takes G 2, 4 and 8,
 each with 1 to 4 resident blocks an SM, each build against the default one.
 
-``land_euler_c3`` times row 1'd (``land_consistent``'s ForwardEuler rollout,
-144 steps, one thread a column) contracted and built without contracted
-multiply-adds, in turns, and checks ROADMAP C3 on the land ForwardEuler
-gradient's one-thread pair: the segment VJP's float32 stored carries
-against the uncontracted rollout's (none may part).
+``land_euler_c3`` times rows 1'd (``land_consistent``'s ForwardEuler
+rollout, 144 steps, one thread a column) and 3'd (the one-thread segment
+VJP over ``land_grad_euler``'s 48-step segment), each as the port builds
+it, without contracted multiply-adds, against a build with contraction,
+in turns, and checks ROADMAP C3 on the land ForwardEuler gradient's
+one-thread pair: the segment VJP's float32 stored carries against the
+rollout's (none may part; the contracted pair's are counted beside).
 Run from the repository root.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1565,30 +1568,57 @@ def land_snow_timing(tp, fs, cuda_build, card, sweep=True):
                              for g in LAND_SNOW_GROUP_SIZES}, card=card)
 
 
+@contextlib.contextmanager
+def contracted(cuda_build, *names):
+    """While the block runs, the float32 instantiations of each source of
+    ``names`` are built with contracted multiply-adds (their ``FLAGS``
+    without ``-fmad=false``: a library of a stem of its own, since the stem
+    hashes the flags); the builds loaded inside stay loaded after it."""
+    saved = {n: dict(cuda_build.FLAGS[n]) for n in names}
+
+    def forget():
+        for key in [k for k in cuda_build._libs
+                    if (k[0] if isinstance(k, tuple) else k) in names]:
+            del cuda_build._libs[key]
+    forget()
+    for n in names:
+        cuda_build.FLAGS[n].pop(torch.float32, None)
+    try:
+        yield
+    finally:
+        for n in names:
+            cuda_build.FLAGS[n].clear()
+            cuda_build.FLAGS[n].update(saved[n])
+        forget()
+
+
 def land_euler_c3(tp, fs, cuda_build, card):
     """ROADMAP C3 for the land ForwardEuler gradient: the one-thread land
     rollout of row 1'd (``land_consistent``, 56,951 x 20 float32, 144 steps
-    of 600 s, two hourly series), contracted (the entry ``Simulation.run``
-    launches) against its build without contracted multiply-adds
-    (``land_step.UNCONTRACTED``, the one the gradient's forward segments
-    launch), in turns; then the one-thread segment VJP's float32 stored
-    carries (built without contraction) against each build's one-step
-    launches over ``land_grad_euler``'s segment (48 steps of 60 s): the
-    columns that part (``chip_smoke.land_vjp_recompute_check``)."""
+    of 600 s, two hourly series) and the one-thread segment VJP of row 3'd
+    (``land_grad_euler``'s operands, one 48-step segment of 60 s), each
+    built as the port builds it (float32 without contracted multiply-adds)
+    against its build with contraction (:func:`contracted`), in turns; then
+    the one-thread segment VJP's float32 stored carries against the
+    one-thread rollout's one-step launches over that segment
+    (``chip_smoke.land_vjp_recompute_check``), the port's builds (none may
+    part) and both contracted (the pair before the repair)."""
     from terrarium_tpu_torch.ops import land_step as ls
     from terrarium_tpu_torch.ops import land_vjp as lv
     from terrarium_tpu_torch.timesteppers.integrator import land_inputs
 
     f32 = torch.float32
+    builds = {"uncontracted": contextlib.nullcontext,
+              "contracted": lambda: contracted(cuda_build, ls._NAME, lv._NAME)}
     sim = cs.land_sim(tp, cs.LAND_CELLS, f32, "consistent")
     ops = cs.land_operands(ls, land_inputs, sim)
     time0 = float(sim.state.clock.time)
-    params = ops[4]
-    builds = {"contracted": params.tags, "uncontracted": params.tags + (ls.UNCONTRACTED,)}
+    tags = ops[4].tags
     fns, stats = {}, {}
-    for name, tags in builds.items():
-        fn = cuda_build.entry(ls._NAME, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
-        stats[name] = land_stats(fs, cuda_build, ls, ls._NAME, tags, None)
+    for name, build in builds.items():
+        with build():
+            fn = cuda_build.entry(ls._NAME, f32, cs.LAND_NZ, ls._argtypes(f32), tags=tags)
+            stats[name] = land_stats(fs, cuda_build, ls, ls._NAME, tags, None)
         fns[name] = land_launcher(fs, ls, fn, ops, time0, None, 1, steps=cs.COMPARE_STEPS)
     got = {n: {k: v.clone() for k, v in f().items()} for n, f in fns.items()}
     gap = max(float((got["uncontracted"][n] - got["contracted"][n]).abs().max())
@@ -1603,14 +1633,29 @@ def land_euler_c3(tp, fs, cuda_build, card):
     gsim = cs.land_grad_sim(tp, cs.LAND_CELLS, f32, "land_grad_euler")
     gops = cs.land_grad_operands(ls, land_inputs, gsim, seed=11)
     dt = cs.LAND_GRAD_SCHEMES["land_grad_euler"][2]
-    uncontracted = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, gops, dt, cs.GRAD_INNER,
-                                               None, 1, stepper="euler", one_thread=True)
+    vtags = lv.check_scheme(gops[4], "euler", None, 1) + gops[4].tags
+    fns, stats, parted = {}, {}, {}
+    for name, build in builds.items():
+        with build():
+            fn = cuda_build.entry(lv._NAME, f32, cs.LAND_NZ, lv._argtypes(f32), tags=vtags)
+            stats[name] = land_vjp_stats(fs, cuda_build, lv, lv._NAME, vtags, None)
+            parted[name] = cs.land_vjp_recompute_check(fs, lv, ls, cuda_build, gops, dt,
+                                                       cs.GRAD_INNER, None, 1, stepper="euler",
+                                                       one_thread=True)
+        fns[name] = cs.land_vjp_launcher(fs, lv, ls, fn, None, gops, dt, cs.GRAD_INNER, None,
+                                         1)[0]
+    t = vjp_turns(fns)
+    med = {n: float(np.median(v)) for n, v in t.items()}
+    out(time="3'd_contraction", cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=dt,
+        steps=cs.GRAD_INNER, ms=t, median_ms=med,
+        uncontracted_over_contracted=med["uncontracted"] / med["contracted"], kernels=stats,
+        card=card)
     out(check="c3_land_euler", cells=cs.LAND_CELLS, nz=cs.LAND_NZ, dt=dt, steps=cs.GRAD_INNER,
-        vjp_build_flags=list(cuda_build.FLAGS[lv._NAME][f32]),
-        one_thread_pair_f32_steps_columns_parted_max_gap=uncontracted, card=card)
-    if uncontracted[1]:
+        flags={n: list(cuda_build.FLAGS[n][f32]) for n in (ls._NAME, lv._NAME)},
+        one_thread_pair_f32_steps_columns_parted_max_gap=parted, card=card)
+    if parted["uncontracted"][1]:
         raise AssertionError(f"C3: the one-thread VJP's stored carries part from the "
-                             f"uncontracted rollout's: {uncontracted}")
+                             f"one-thread rollout's: {parted['uncontracted']}")
 
 
 def vjp_turns(fns):

@@ -137,15 +137,12 @@ INSTANTIATIONS = {
     # the LandModel, one thread a column: ForwardEuler over the bare-ground
     # golden at Nz 15 (heat-only soil) and over the vegetated bench
     # composition (Richards over Brooks-Corey and linear conductivity) at Nz
-    # 20, at float32 also without contracted multiply-adds (nofma, the land
-    # gradient's forward segments); the snowpack over the land_snow golden's
-    # composition (bare ground, Brooks-Corey and linear) at Nz 12 with
-    # ForwardEuler (ImplicitEuler's
+    # 20; the snowpack over the land_snow golden's composition (bare ground,
+    # Brooks-Corey and linear) at Nz 12 with ForwardEuler (ImplicitEuler's
     # and Heun's entries, with and without a snowpack, stay buildable on
     # demand, to time the one-thread layout against the group's)
     "land_column_rollout": [
         (("veg", "richards", "bc", "linear"), _F64, 20),
-        (("veg", "richards", "bc", "linear", "nofma"), _F32, 20),
         (("veg", "richards", "bc", "linear"), _F32, 20),
         (("bare", "richards", "bc", "linear", "snow"), _F64, 12), (("bare", "noflow"), _F64, 15),
     ],
@@ -227,35 +224,32 @@ _DEFINES = {"euler": ("SOIL_STEPPER=0",), "heun": ("SOIL_STEPPER=1",),
             # bound (resident blocks an SM), for measuring one against
             # another
             **{f"g{g}": (f"SOIL_GROUP={g}",) for g in (2, 4, 8, 16, 32)},
-            # the one-thread land rollout's float32 build without contracted
-            # multiply-adds (TAG_FLAGS)
-            "nofma": (),
             **{f"mb{b}": (f"SOIL_MIN_BLOCKS={b}",) for b in (1, 2, 3, 4)}}
 #: nvcc flags of a source's instantiations of one dtype beyond the common
 #: ones: the land kernels' float64 instantiations, which serve the checks
 #: against the plain version at 1e-12 (the VJP's at 1e-9), contract no
-#: multiply-adds (torch's elementwise ops do not), while their float32
-#: ones, the timed path, do; so do the probes' float64 instantiations. The
-#: one-thread land segment VJP contracts none at float32 either: the land
-#: gradient's forward segments of its schemes launch the one-thread
-#: rollout's float32 build without contraction (the tag nofma, TAG_FLAGS),
-#: and the VJP's recompute rounds the same step as they do (ROADMAP C3:
-#: contracted, the two kernels fused its multiply-adds each its own way,
-#: and the VJP's stored carries parted from the forward's in 8,994 of
-#: 56,951 columns by up to 4.9e-7 of a field's magnitude over 48 steps;
-#: without, in none). Simulation.run keeps the rollout's contracted build:
-#: without contraction row 1'd's 144 steps took 13.02 against 12.65 ms
-#: (rollout_layout_ab.py land_euler_c3, an H100 80GB HBM3 at 700 W)
-FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
+#: multiply-adds (torch's elementwise ops do not), while the group kernels'
+#: float32 ones, the timed path, do; so do the probes' float64
+#: instantiations. The one-thread land rollout and segment VJP contract none
+#: at float32 either: the VJP recomputes the land gradient's forward
+#: segments of its schemes, which launch the rollout, and rounds the same
+#: step as they do (ROADMAP C3: contracted, the two kernels fused its
+#: multiply-adds each its own way, and the VJP's stored carries parted from
+#: the forward's in 8,994 of 56,951 columns by up to 4.9e-7 of a field's
+#: magnitude over 48 steps; without, in none). Without contraction row
+#: 1'd's 144 steps took 13.023 against 12.652 ms (+2.93%) and 12.958
+#: against 12.695 ms (+2.07%), under the 3% that would have kept Simulation.run
+#: on a contracted build of its own (rollout_layout_ab.py land_euler_c3, an
+#: H100 80GB HBM3 at 700 W)
+FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",), _F32: ("-fmad=false",)},
          "land_column_segment_vjp": {_F64: ("-fmad=false",), _F32: ("-fmad=false",)},
          "land_column_group_rollout": {_F64: ("-fmad=false",)},
          "land_column_group_segment_vjp": {_F64: ("-fmad=false",)},
          "land_column_full_step": {_F64: ("-fmad=false",)},
          "probes": {_F64: ("-fmad=false",)}}
 #: nvcc flags of a source's instantiations that carry a tag, at every dtype:
-#: the one-thread land rollout's nofma entries (FLAGS' note), and the land
-#: group kernels' Heun entries and their entries with a snowpack, contract
-#: no multiply-adds at float32 either. The group rollout and the
+#: the land group kernels' Heun entries and their entries with a snowpack
+#: contract no multiply-adds at float32 either. The group rollout and the
 #: group segment VJP are separate kernels that run the same heun_step; with
 #: contraction the compiler fused their float32 multiply-adds differently
 #: (the ptxas-level fusion off, still differently), and the VJP's stored
@@ -265,8 +259,7 @@ FLAGS = {"land_column_rollout": {_F64: ("-fmad=false",)},
 #: H100 80GB HBM3, PERF.md section 6). The ImplicitEuler entries' carries
 #: agree with contraction on, and keep it; with a snowpack they are built
 #: without it from the start, so that no compiler choice can part them
-TAG_FLAGS = {("land_column_rollout", "nofma"): ("-fmad=false",),
-             ("land_column_group_rollout", "heun"): ("-fmad=false",),
+TAG_FLAGS = {("land_column_group_rollout", "heun"): ("-fmad=false",),
              ("land_column_group_segment_vjp", "heun"): ("-fmad=false",),
              ("land_column_group_rollout", "snow"): ("-fmad=false",),
              ("land_column_group_segment_vjp", "snow"): ("-fmad=false",)}

@@ -84,20 +84,13 @@ from ..timesteppers.stepping import ForwardEuler, Heun
 __all__ = ["LAND_INPUTS", "LandInput", "LandParams", "land_composition", "carry_names",
            "land_column_rollout", "land_column_heun_rollout", "land_column_implicit_rollout",
            "land_column_rollout_plain", "launch_args", "implicit_tags", "ROLLOUTS",
-           "group_scheme", "rollout_source", "rollout_group", "group_occupancy", "UNCONTRACTED",
+           "group_scheme", "rollout_source", "rollout_group", "group_occupancy",
            "LAND_FULL_AUX", "land_full_composition", "land_full_step_buffers",
            "land_full_step_operands",
            "land_column_full_step", "land_column_full_step_plain"]
 
 _NAME = "land_column_rollout"  # csrc/land_column_rollout.cu
 _GROUP_NAME = "land_column_group_rollout"  # csrc/land_column_group_rollout.cu
-#: the tag of the one-thread rollout's float32 build without contracted
-#: multiply-adds (``cuda_build.TAG_FLAGS``; float64 builds contract none):
-#: the land gradient's forward segments of a one-thread scheme launch it,
-#: since the one-thread segment VJP, built so at every dtype, recomputes
-#: them, and the two kernels, contracted, fused the same step's float32
-#: multiply-adds each its own way (ROADMAP C3)
-UNCONTRACTED = "nofma"
 
 #: the inputs the land step reads, in the kernel's order (land_step.cuh IN_*)
 LAND_INPUTS = ("air_temperature", "surface_shortwave_down", "surface_longwave_down",
@@ -510,20 +503,15 @@ def rollout_group(dtype: torch.dtype, nz: int, tags: tuple, solver: Optional[str
 
 
 def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params, dt, time,
-             steps, stepper, solver, picard_iters=1, group=None, contract=True):
+             steps, stepper, solver, picard_iters=1, group=None):
     """Check the operands; run the plain version on CPU tensors, else launch
     the instantiation ``stepper_tags + params.tags`` of the source
     :func:`rollout_source` names (the group kernel's at G ``group`` where
-    given: its ``g<G>`` build where the kernel's own G is another; the
-    one-thread kernel's float32 build without contracted multiply-adds,
-    ``UNCONTRACTED``, where not ``contract``) and count the launch on
-    ``wrapper``; return the new carry."""
+    given: its ``g<G>`` build where the kernel's own G is another) and
+    count the launch on ``wrapper``; return the new carry."""
     if group is not None and not group_scheme(params, stepper):
         raise ValueError(f"a group size is the group rollout's (ImplicitEuler or Heun over "
                          f"Richards flow), not {stepper!r} over {params.tags}")
-    if not contract and group_scheme(params, stepper):
-        raise ValueError(f"contract=False is the one-thread rollout's; the group rollout of "
-                         f"{stepper!r} over {params.tags} has one build a G")
     _check(carry, inputs, root_fraction, coords, params)
     if steps < 0:
         raise ValueError("steps must be >= 0")
@@ -540,8 +528,6 @@ def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params
     tags = tuple(stepper_tags) + params.tags
     if group is not None and group != rollout_group(U.dtype, U.shape[0], tags, solver)[1]:
         tags += (f"g{group}",)
-    if not contract and U.dtype == torch.float32:
-        tags += (UNCONTRACTED,)
     fn = cuda_build.entry(rollout_source(params, stepper), U.dtype, U.shape[0],
                           _argtypes(U.dtype), tags=tags)
     out = {n: torch.empty_like(carry[n]) for n in params.model.live_carry}
@@ -557,32 +543,28 @@ def _rollout(wrapper, stepper_tags, carry, inputs, root_fraction, coords, params
 
 def land_column_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                         root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers, z_faces,
-                        params: LandParams, dt: float, time: float, steps: int,
-                        contract: bool = True):
+                        params: LandParams, dt: float, time: float, steps: int):
     """ForwardEuler over a LandModel: ``steps`` fused steps on ``carry`` from
     the clock time ``time``; returns the new live carry (a dict). CPU
     tensors take :func:`land_column_rollout_plain`; CUDA tensors launch the
     kernel of ``params.tags``. ``root_fraction`` is the ``(Nz, cells)``
     field of the vegetated model (``None`` for bare ground); an input left
-    out of ``inputs`` reads 0. ``contract`` False: the float32 build without
-    contracted multiply-adds (``UNCONTRACTED``; the land gradient's forward
-    segments)."""
+    out of ``inputs`` reads 0."""
     return _rollout(land_column_rollout, (), carry, inputs, root_fraction,
-                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "euler", None,
-                    contract=contract)
+                    (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "euler", None)
 
 
 def land_column_heun_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[str, LandInput],
                              root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
                              z_faces, params: LandParams, dt: float, time: float, steps: int,
-                             group: Optional[int] = None, contract: bool = True):
+                             group: Optional[int] = None):
     """Heun over a LandModel, as :func:`land_column_rollout` (the kernel's
     ``heun`` instantiation; each step reads the inputs at t and t + dt).
-    ``group``: the group rollout at that G, and ``contract``, as
-    :func:`land_column_implicit_rollout` takes them."""
+    ``group``: the group rollout at that G, as
+    :func:`land_column_implicit_rollout` takes it."""
     return _rollout(land_column_heun_rollout, ("heun",), carry, inputs, root_fraction,
                     (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "heun", None,
-                    1, group, contract)
+                    1, group)
 
 
 def implicit_tags(solver: str, picard_iters: int) -> tuple:
@@ -602,20 +584,17 @@ def land_column_implicit_rollout(carry: Dict[str, torch.Tensor], inputs: Dict[st
                                  root_fraction: Optional[torch.Tensor], dz, dz_faces, z_centers,
                                  z_faces, params: LandParams, dt: float, time: float, steps: int,
                                  solver: str = "pcr", picard_iters: int = 1,
-                                 group: Optional[int] = None, contract: bool = True):
+                                 group: Optional[int] = None):
     """ImplicitEuler with ``picard_iters`` Picard iterations over a
     LandModel, as :func:`land_column_rollout` (``solver`` ``"pcr"`` or
     ``"thomas"``; the kernel's instantiation of :func:`implicit_tags`).
     ``group``: the group rollout at that G (the land gradient's forward
     segments take the segment VJP's, so that the carries the VJP stores
-    are theirs bit for bit); ``contract`` False: the one-thread kernel's
-    float32 build without contracted multiply-adds (a one-thread scheme's
-    forward segments, for the same reason); both read on CUDA tensors
-    only."""
+    are theirs bit for bit); read on CUDA tensors only."""
     tags = implicit_tags(solver, picard_iters)
     return _rollout(land_column_implicit_rollout, tags, carry, inputs, root_fraction,
                     (dz, dz_faces, z_centers, z_faces), params, dt, time, steps, "implicit",
-                    solver, int(picard_iters), group, contract)
+                    solver, int(picard_iters), group)
 
 
 #: the wrapper of each stepper

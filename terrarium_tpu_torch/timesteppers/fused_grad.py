@@ -115,10 +115,6 @@ class _LandSegment(torch.autograd.Function):
             kw["group"] = vjp_group(U.dtype, U.shape[0], check_scheme(
                 spec.params, spec.stepper, spec.solver, spec.picard_iters) + spec.params.tags,
                 spec.solver)[1]
-        elif U.is_cuda:
-            # the one-thread rollout built, as the one-thread VJP is, without
-            # contracted multiply-adds: its recompute rounds as this segment
-            kw["contract"] = False
         out = land_step.ROLLOUTS[spec.stepper](dict(zip(spec.names, carry)), spec.inputs,
                                                spec.root, *spec.coords, spec.params, spec.dt,
                                                spec.time, spec.steps, **kw)

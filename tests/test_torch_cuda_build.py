@@ -128,8 +128,9 @@ def test_unlisted_key_is_built_alone_at_first_use(fake_nvcc):
 def test_land_float64_key_keeps_the_source_flags(fake_nvcc):
     """A bare-ground Van Genuchten/Mualem land column at float64 Nz 12,
     built alone, takes the land source's float64 flag (no contracted
-    multiply-adds) and its composition's defines; its float32 build does
-    not take the flag."""
+    multiply-adds) and its composition's defines; its float32 build takes
+    the source's float32 flag, the same one once (the one-thread land
+    rollout contracts none at either dtype: ROADMAP C3)."""
     grid = tp.ColumnGrid.of(cells=2, spacing=tp.ExponentialSpacing(N=12), dtype=F64,
                             device="cpu")
     soil = tp.SoilEnergyWaterCarbon(hydrology=tp.SoilHydrology(
@@ -141,7 +142,8 @@ def test_land_float64_key_keeps_the_source_flags(fake_nvcc):
     for dtype in (F64, F32):
         cb.entry("land_column_rollout", dtype, 12, [], tags=tags)
     f64, f32 = fake_nvcc.compiles()
-    assert "-fmad=false" in f64 and "-fmad=false" not in f32
+    assert f64.count("-fmad=false") == 1 and f32.count("-fmad=false") == 1
+    assert "-DSOIL_T=float" in _defines(f32)
     assert {"-DLAND_VEG=0", "-DLAND_RICHARDS=1", "-DSOIL_HEAT=0", "-DLAND_CURVE=0",
             "-DLAND_COND=0", "-DSOIL_T=double", "-DSOIL_NZ=12"} <= _defines(f64)
     assert len(fake_nvcc.links()) == 2
@@ -608,9 +610,8 @@ def test_land_rollout_group_size_is_the_group_schemes(fake_nvcc):
     """A group size (``group=``, which the land gradient's forward segments
     pass: the segment VJP's G) is refused by ``ValueError`` for a
     composition the group rollout does not run (``NoFlow``), before any
-    build or launch, and so is ``contract=False`` (the one-thread rollout's
-    build without contraction) for one it runs; on CPU tensors they are not
-    read (the plain version), and the prebuilt set holds the Thomas entries
+    build or launch; on CPU tensors it is not read (the plain version), and
+    the prebuilt set holds the Thomas entries
     at the VJP's G 8 that the gradient's forward segments launch at float32
     and float64, and the entries with a snowpack that ``chip_smoke.py``
     checks (PCR at float32 and float64; Thomas, the Picard entry and Heun
@@ -619,10 +620,6 @@ def test_land_rollout_group_size_is_the_group_schemes(fake_nvcc):
     with pytest.raises(ValueError, match="group size"):
         ls.land_column_implicit_rollout({}, {}, None, None, None, None, None, params, 600.0,
                                         0.0, 1, group=8)
-    with pytest.raises(ValueError, match="contract=False"):
-        ls.land_column_implicit_rollout({}, {}, None, None, None, None, None,
-                                        _land_params("consistent_snow"), 600.0, 0.0, 1,
-                                        contract=False)
     assert fake_nvcc.calls == []
     bench = _land_params("coupled").tags
     for dtype in (F32, F64):
@@ -656,9 +653,9 @@ def test_land_group_heun_keys(fake_nvcc, source, one_thread):
     still build the same tags alone on demand (to time one layout against
     the other); an unlisted depth is built alone with Heun's define
     (``SOIL_STEPPER=1``), no solver and no group size, with ``-fmad=false``
-    once at float64 and, the group Heun entries' ``TAG_FLAGS``, at float32
-    too, where the group ImplicitEuler and the one-thread Heun entries
-    contract."""
+    once at float64 and, the group Heun entries' ``TAG_FLAGS`` and the
+    one-thread sources' ``FLAGS``, at float32 too, where the group
+    ImplicitEuler entries contract."""
     tags = ("heun",) + _land_params("coupled").tags
     for dtype in (F32, F64):
         assert (tags, dtype, 20) in cb.INSTANTIATIONS[source]
@@ -672,10 +669,9 @@ def test_land_group_heun_keys(fake_nvcc, source, one_thread):
                                   "-DSOIL_STEPPER=1", "-DSOIL_HEAT=0", "-DLAND_RICHARDS=1",
                                   "-DLAND_VEG=1", "-DLAND_CURVE=1", "-DLAND_COND=1"}
     # the group Heun entries contract no multiply-adds at float32 either
-    # (TAG_FLAGS), the group ImplicitEuler and the one-thread Heun rollout
-    # ones do; the one-thread segment VJP contracts none at float32 (FLAGS:
-    # the land gradient's one-thread forward segments launch the rollout's
-    # nofma build, which contracts none either)
+    # (TAG_FLAGS), the group ImplicitEuler ones do; the one-thread rollout
+    # and segment VJP contract none at float32 (FLAGS: the VJP recomputes
+    # the land gradient's one-thread forward segments, ROADMAP C3)
     cb.entry(source, F32, 15, [], tags=tags)
     assert "-fmad=false" in fake_nvcc.compiles()[-1]
     cb.entry(source, F32, 15, [], tags=("implicit", "pcr") + tags[1:])
@@ -683,10 +679,7 @@ def test_land_group_heun_keys(fake_nvcc, source, one_thread):
     one = cb.entry(one_thread, F32, 20, [], tags=tags)
     assert one.name == f"{one_thread}_{'_'.join(tags)}_f32_nz20"
     assert fake_nvcc.compiles()[-1][-1].endswith(f"{one_thread}.cu")
-    assert ("-fmad=false" in fake_nvcc.compiles()[-1]) == (one_thread == "land_column_segment_vjp")
-    if one_thread == "land_column_rollout":
-        cb.entry(one_thread, F32, 20, [], tags=tags + ("nofma",))
-        assert fake_nvcc.compiles()[-1].count("-fmad=false") == 1
+    assert fake_nvcc.compiles()[-1].count("-fmad=false") == 1
 
 
 def test_land_heun_rollout_group_size_is_the_group_schemes(fake_nvcc):
